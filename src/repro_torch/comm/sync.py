@@ -1,0 +1,226 @@
+"""Sparse gradient synchronization, Algorithm 1 on ``torch.distributed``
+(port of ``repro.comm.sync``: ``SyncStats``, ``sync_tree`` and the sync
+exchange ``_bucketed_sync`` on the gather wire with the COO layout).
+
+Every worker compresses its local gradient leaves into fixed-capacity
+``(values, idx)`` buffers (``repro_torch.core.api.compress_tree_sparse``);
+the buffers of one wire dtype are offset into one concatenated coordinate
+space and exchanged with one all-gather for the values and one for the
+int32 coordinates; every worker then scatter-adds the gathered buffers and
+divides by the worker count. Tiny dense-passthrough leaves share one
+all-reduce. Buckets past ``cfg.bucket_coord_cap`` coordinates (the int32
+limit by default) split into row-granular chunks, each its own pair of
+collectives — a 2.5e9-parameter tree needs two.
+
+Reduction order. The decode adds the gathered workers one after another in
+worker order (worker-major), as the JAX package's single scatter-add does;
+``index_add_`` on CUDA uses atomics, so one call over all workers would
+not keep that order. Within one worker the live coordinates are unique and
+padding slots add exact zeros, so each per-worker ``index_add_`` is exact
+and the sum is bit-identical to a sequential worker-major scatter.
+
+Collectives gather raw bytes (a ``uint8`` view of each buffer), so any wire
+dtype crosses any backend (gloo takes no bfloat16). ``SyncStats.wire_bytes``
+charges what the JAX package charges: value slots at the wire dtype's width,
+int32 index words, and four bytes per element of the dense passthrough.
+
+The overlapped exchange, the pod hierarchy, adaptive control and the other
+layouts are ROADMAP.md queue A items 8 and 9.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm import compaction, wire_layout
+from repro_torch.core.api import CompressionConfig, compress_tree_sparse
+from repro_torch.core.grouping import chunk_spans
+from repro_torch.optim.optimizers import FeedbackState
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass
+class SyncStats:
+    """Per-step accounting for one worker's gradient synchronization."""
+    bits: torch.Tensor              # message bits this worker sent (model)
+    dense_bits: torch.Tensor        # uncompressed message bits
+    wire_bytes: torch.Tensor        # bytes the collectives moved per worker
+    wire_bytes_intra: torch.Tensor  # ... in the data-parallel stage
+    wire_bytes_inter: torch.Tensor  # ... in an inter-pod stage (0 here)
+    density: torch.Tensor           # realized nnz fraction
+    var_ratio: torch.Tensor         # ||Q(g)||^2/||g||^2, the paper's `var`
+    overflow: torch.Tensor          # survivors dropped by the fixed capacity
+    skipped: torch.Tensor           # leaves skipped (adaptive; 0 here)
+
+    FIELDS = ("bits", "dense_bits", "wire_bytes", "wire_bytes_intra",
+              "wire_bytes_inter", "density", "var_ratio", "overflow",
+              "skipped")
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """``[m, *x.shape]``: every worker's ``x``, in rank order."""
+    m = dist.get_world_size(group)
+    raw = x.contiguous().view(torch.uint8).reshape(-1)
+    out = torch.empty(m * raw.numel(), dtype=torch.uint8, device=x.device)
+    dist.all_gather_into_tensor(out, raw, group=group)
+    return out.view(x.dtype).reshape((m,) + tuple(x.shape))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _route_span(members, r0: int, n: int, d: int, seg: torch.Tensor,
+                pieces: dict, leaves: list) -> None:
+    """Slice one chunk span's flat reconstruction back to leaves: ``seg``
+    holds group rows ``[r0, r0 + n)``; pieces append in row order, already
+    cast to their leaf's dtype (so a bf16 model keeps no float32 chunk
+    buffer alive past its chunk)."""
+    m0 = 0
+    for i, rows in members:
+        a = max(m0, r0)
+        b = min(m0 + rows, r0 + n)
+        if b > a:
+            pieces.setdefault(i, []).append(
+                seg[(a - r0) * d:(b - r0) * d].to(leaves[i].dtype))
+        m0 += rows
+
+
+def _assemble_pieces(pieces: dict, leaves: list, out: list) -> None:
+    for i, ps in pieces.items():
+        leaf = leaves[i]
+        flat = ps[0] if len(ps) == 1 else torch.cat(ps)
+        out[i] = flat.reshape(leaf.shape)
+
+
+def _bucketed_sync(items: list, leaves: list, group,
+                   cfg: CompressionConfig):
+    """Exchange all groups with one collective set per (kind, wire dtype)
+    chunk; returns ``(synced leaves, wire bytes, overflow)``."""
+    m = dist.get_world_size(group)
+    out: list = [None] * len(leaves)
+    wire = 0.0
+    dev = leaves[0].device
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+
+    dense_ids: list = []
+    sparse_groups: dict = {}
+    for e, (kind, payload, _members) in enumerate(items):
+        if kind == "dense":
+            dense_ids.append(e)
+        else:
+            sparse_groups.setdefault(payload.values.dtype, []).append(e)
+
+    if dense_ids:
+        flat = torch.cat([items[e][1].reshape(-1).to(F32)
+                          for e in dense_ids])
+        dist.all_reduce(flat, group=group)
+        synced = flat / m
+        off = 0
+        for e in dense_ids:
+            for i, n in items[e][2]:
+                leaf = leaves[i]
+                out[i] = synced[off:off + n].reshape(leaf.shape).to(
+                    leaf.dtype)
+                off += n
+        wire += float(flat.numel() * 4)
+
+    cap = min(cfg.bucket_coord_cap, compaction.INT32_COORD_LIMIT)
+    for wdt, ids in sorted(sparse_groups.items(),
+                           key=lambda kv: _dtype_name(kv[0])):
+        itemsize = torch.empty((), dtype=wdt).element_size()
+        packed: dict = {}
+        for e in ids:
+            sg = items[e][1]
+            lp = wire_layout.plan(sg)
+            packed[e] = (lp,) + wire_layout.pack(sg, lp)
+            overflow = overflow + sg.overflow().sum()
+        chunks = chunk_spans([(e, packed[e][0].layers, packed[e][0].d)
+                              for e in ids], cap)
+        pieces: dict = {}
+        for chunk in chunks:
+            vals_parts, widx_parts, plans = [], [], []
+            static_idx_words = coord_off = v_off = i_off = 0
+            for e, r0, n in chunk:
+                lp0, v2d, w2d, _ = packed[e]
+                lp = dataclasses.replace(lp0, layers=n)
+                rows_off = (torch.arange(n, dtype=torch.int32, device=dev)
+                            * lp.d)[:, None] + coord_off
+                widx_parts.append((w2d[r0:r0 + n] + rows_off).reshape(-1))
+                vals_parts.append(v2d[r0:r0 + n].reshape(-1))
+                static_idx_words += n * lp.idx_len
+                plans.append((e, lp, r0, v_off, i_off, coord_off))
+                v_off += n * lp.val_len
+                i_off += n * lp.idx_len
+                coord_off += lp.block
+            compaction.check_bucket_coords(coord_off, len(chunk))
+            gvals = _all_gather(torch.cat(vals_parts), group)      # [m, V]
+            gwidx = _all_gather(torch.cat(widx_parts), group)      # [m, I]
+            del vals_parts, widx_parts
+            wire += float(static_idx_words * 4)
+            upd_parts, coord_parts = [], []
+            for (e, lp, r0, v0, i0, c0) in plans:
+                upd, crd = wire_layout.unpack_gathered(
+                    lp, gvals[:, v0:v0 + lp.layers * lp.val_len],
+                    gwidx[:, i0:i0 + lp.layers * lp.idx_len], c0)
+                upd_parts.append(upd)
+                coord_parts.append(crd)
+            upd_all = torch.cat(upd_parts, dim=1)
+            coord_all = torch.cat(coord_parts, dim=1)
+            del gvals, gwidx, upd_parts, coord_parts
+            dense = torch.zeros(coord_off, dtype=F32, device=dev)
+            for w in range(m):                 # worker-major reduction order
+                dense.index_add_(0, coord_all[w], upd_all[w].to(F32))
+            del upd_all, coord_all
+            dense.div_(m)
+            for (e, lp, r0, _, _, c0) in plans:
+                _route_span(items[e][2], r0, lp.layers, lp.d,
+                            dense[c0:c0 + lp.block], pieces, leaves)
+            wire += float(v_off) * itemsize
+            del dense
+        _assemble_pieces(pieces, leaves, out)
+    return out, wire, overflow
+
+
+def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
+              grads: list, *, group=None, stacked: list | None = None,
+              feedback: FeedbackState | list | None = None):
+    """Compress this worker's gradient leaves and exchange them with the
+    workers of ``group`` (the default process group when None).
+
+    ``grads`` are the model's leaves in the JAX flatten order; ``stacked``
+    flags the layer-stacked ones (compressed per layer). ``generator``
+    draws this worker's uniforms: give every worker its own stream. With
+    ``cfg.error_feedback`` the caller must pass ``feedback`` (a
+    FeedbackState or a residual list); the residual is added before
+    compression and the new compression error comes back.
+
+    Returns ``(synced, new_feedback, stats)``: the averaged leaves, the new
+    FeedbackState (None without error feedback) and SyncStats.
+    """
+    if isinstance(feedback, FeedbackState):
+        residual = feedback.residual
+    else:
+        residual = feedback
+    if cfg.error_feedback and residual is None:
+        raise ValueError(
+            "sync_tree: error_feedback=True requires the per-worker residual "
+            "(feedback=FeedbackState(...)); refusing to silently drop the "
+            "compression error.")
+    items, new_res, stats = compress_tree_sparse(
+        cfg, generator, grads, stacked=stacked, residual=residual)
+    synced, wire, overflow = _bucketed_sync(items, grads, group, cfg)
+    dev = grads[0].device
+    wire_t = torch.tensor(wire, dtype=F32, device=dev)
+    zero = torch.zeros((), dtype=F32, device=dev)
+    out_stats = SyncStats(
+        bits=stats.bits, dense_bits=stats.dense_bits, wire_bytes=wire_t,
+        wire_bytes_intra=wire_t, wire_bytes_inter=zero,
+        density=stats.density, var_ratio=stats.var_ratio,
+        overflow=overflow.to(F32), skipped=zero)
+    new_feedback = (FeedbackState(residual=new_res)
+                    if cfg.error_feedback else None)
+    return synced, new_feedback, out_stats

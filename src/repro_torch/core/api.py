@@ -1,0 +1,202 @@
+"""Gradient compression over a model's ordered leaves (port of
+``repro.core.api``: ``CompressionConfig``, ``TreeStats`` and
+``compress_tree_sparse``).
+
+The paper sparsifies each layer independently (section 5.2): a leaf is one
+parameter tensor, and a layer-stacked leaf ``[L, ...]`` is L rows. The
+leaves come as a list in the JAX package's flatten order (sorted parameter
+paths), so groups, member order and chunk offsets match its ``plan_tree``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.core import coding
+from repro_torch.core import schemes as schemes_lib
+from repro_torch.core.grouping import plan_tree
+from repro_torch.core.sparse import KernelBackend
+
+F32 = torch.float32
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionConfig:
+    """Static configuration of the compression stage.
+
+    This slice implements the paper's Algorithm 1 with Algorithm 3 on the
+    sparse gather wire: selector ``gspar`` with ``algo="greedy"``, the
+    ``f32`` (leaf dtype on the wire) and ``bf16`` codecs, ``wire="gather"``
+    with ``wire_layout="coo"`` and ``exchange="sync"``, with or without
+    error feedback. Every other value raises NotImplementedError naming the
+    ROADMAP.md item that ports it; invalid values raise ValueError.
+    """
+    name: str = "gspar"              # selector[+codec] composition
+    rho: float = 0.1                 # target density
+    algo: str = "greedy"             # gspar solver (closed: not ported)
+    num_iters: int = 2               # greedy rescale iterations (paper: 2)
+    float_bits: int = 32             # b in the coding model
+    codec: str | None = None         # value codec; None -> from name, else f32
+    error_feedback: bool = False     # carry the compression residual
+    min_leaf_size: int = 256         # leaves smaller than this travel dense
+    wire: str = "gather"             # gather (dense / packed: not ported)
+    wire_layout: str = "coo"         # coo (auto / bitmap / dense / rice: not)
+    capacity_slack: float = 1.25     # k_cap slack over rho * d
+    exchange: str = "sync"           # sync (overlap: not ported)
+    bucket_coord_cap: int = 2**31 - 1   # coords per sparse wire chunk
+
+    def __post_init__(self):
+        if self.wire not in ("dense", "gather", "packed"):
+            raise ValueError(f"unknown wire format {self.wire!r}")
+        if self.wire != "gather":
+            raise _not_ported(f"wire={self.wire!r}",
+                              "queue A items 6 and 9 (dense psum wire, "
+                              "packed bf16 wire)")
+        if self.exchange not in ("sync", "overlap"):
+            raise ValueError(f"unknown exchange mode {self.exchange!r}")
+        if self.exchange != "sync":
+            raise _not_ported("exchange='overlap'", "queue A item 9")
+        if self.wire_layout not in ("auto", "coo", "bitmap", "dense",
+                                    "rice"):
+            raise ValueError(f"unknown wire layout {self.wire_layout!r}")
+        if self.wire_layout != "coo":
+            raise _not_ported(f"wire_layout={self.wire_layout!r}",
+                              "queue A item 8")
+        if not 1 <= self.bucket_coord_cap <= 2**31 - 1:
+            raise ValueError(f"bucket_coord_cap={self.bucket_coord_cap} is "
+                             "outside the int32 coordinate space")
+        if not 0.0 < self.rho <= 1.0:
+            raise ValueError(f"rho={self.rho} outside (0, 1]")
+        self.scheme()                # raises on unknown/unported names
+
+    def scheme(self) -> schemes_lib.Scheme:
+        return _resolve_scheme(self)
+
+    def capacity(self, d: int) -> int:
+        """Static sparse-wire capacity for a row of length d."""
+        return self.scheme().selector.capacity(d, self.capacity_slack)
+
+    def describe(self) -> str:
+        parts = [self.scheme().name, f"rho={self.rho:g}",
+                 f"wire={self.wire}", f"layout={self.wire_layout}",
+                 f"exchange={self.exchange}", "backend=kernel"]
+        if self.error_feedback:
+            parts.append("ef")
+        return " ".join(parts)
+
+
+@functools.lru_cache(maxsize=None)
+def _resolve_scheme(cfg: CompressionConfig) -> schemes_lib.Scheme:
+    return schemes_lib.make_scheme(
+        cfg.name, codec=cfg.codec, rho=cfg.rho, algo=cfg.algo,
+        num_iters=cfg.num_iters, float_bits=cfg.float_bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeStats:
+    """Per-step compression accounting over all leaves (float32 scalars)."""
+    bits: torch.Tensor           # message bits this worker sends
+    dense_bits: torch.Tensor     # what an uncompressed message would cost
+    density: torch.Tensor        # realized nnz fraction over all coords
+    var_ratio: torch.Tensor      # size-weighted mean ||Q(g)||^2/||g||^2
+
+
+def _require_residual(cfg: CompressionConfig, residual, where: str) -> None:
+    if cfg.error_feedback and residual is None:
+        raise ValueError(
+            f"error_feedback=True but no residual reached {where}: the "
+            "compression error would be silently dropped. Pass a "
+            "FeedbackState (repro_torch.optim.optimizers.init_feedback).")
+
+
+def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
+                         leaves: list, stacked: list | None = None,
+                         residual: list | None = None):
+    """Compress the ordered ``leaves`` straight into ``SparseGrad`` wire
+    buffers, one kernel launch per shape group and kernel.
+
+    Each sparse group is stacked into one ``[rows, d]`` batch (with error
+    feedback: the target ``leaf + residual``, formed in place in the
+    batch) and takes its uniforms as one ``[rows, d]`` float32 draw from
+    ``generator`` (the paper's section-5.3 pregenerated randoms), in group
+    order. Tiny leaves (< ``cfg.min_leaf_size``) form one dense float32
+    passthrough whose residual is exactly zero.
+
+    Returns ``(items, new_residual, stats)``: ``items`` are
+    ``("dense", flat, members)`` and ``("sparse", SparseGrad, members)``
+    with ``members`` as in ``grouping.Group``; ``new_residual`` is a list
+    like ``leaves`` (None without error feedback).
+    """
+    _require_residual(cfg, residual, "compress_tree_sparse")
+    backend = KernelBackend()
+    ef = cfg.error_feedback
+    stk = stacked if stacked is not None else [False] * len(leaves)
+    plan = plan_tree(cfg, leaves, stk)
+
+    def target_of(i: int) -> torch.Tensor:
+        return leaves[i] + residual[i] if ef else leaves[i]
+
+    items, bits, nnz, wvar = [], [], [], []
+    new_res: list = [None] * len(leaves)
+    for grp in plan.groups:
+        if grp.kind == "dense":
+            parts = []
+            for i, n in grp.members:
+                t32 = target_of(i).reshape(-1).to(F32)
+                parts.append(t32)
+                if ef:
+                    new_res[i] = torch.zeros_like(leaves[i])
+                bits.append(torch.tensor(
+                    coding.dense_coding_bits(n, cfg.float_bits), dtype=F32,
+                    device=t32.device))
+                nnz.append(torch.count_nonzero(t32).to(F32))
+                wvar.append(((t32 * t32).sum() > 0).to(F32) * float(n))
+            items.append(("dense", torch.cat(parts), grp.members))
+            continue
+
+        first = leaves[grp.members[0][0]]
+        if len(grp.members) == 1 and not ef:
+            stack = first.reshape(grp.rows, grp.d)
+        else:
+            stack = torch.empty((grp.rows, grp.d), dtype=first.dtype,
+                                device=first.device)
+            r0 = 0
+            for i, rows in grp.members:
+                dst = stack[r0:r0 + rows]
+                src = leaves[i].reshape(rows, grp.d)
+                if ef:
+                    torch.add(src, residual[i].reshape(rows, grp.d), out=dst)
+                else:
+                    dst.copy_(src)
+                r0 += rows
+        u = torch.rand((grp.rows, grp.d), generator=generator, dtype=F32,
+                       device=stack.device)
+        if ef:
+            sg, res_rows = backend.compress_sparse_ef(cfg, u, stack,
+                                                      grp.k_cap)
+            r0 = 0
+            for i, rows in grp.members:
+                new_res[i] = res_rows[r0:r0 + rows].reshape(leaves[i].shape)
+                r0 += rows
+        else:
+            sg = backend.compress_sparse(cfg, u, stack, grp.k_cap)
+        del u, stack
+        items.append(("sparse", sg, grp.members))
+        bits.append(sg.bits.sum())
+        nnz.append(sg.nnz.to(F32).sum())
+        wvar.append(sg.var_ratio.sum() * float(grp.d))
+
+    tot = float(sum(leaf.numel() for leaf in leaves))
+    dev = leaves[0].device
+    stats = TreeStats(
+        bits=torch.stack(bits).sum(),
+        dense_bits=torch.tensor(tot * cfg.float_bits, dtype=F32, device=dev),
+        density=torch.stack(nnz).sum() / tot,
+        var_ratio=torch.stack(wvar).sum() / tot)
+    return items, (new_res if ef else None), stats

@@ -1,0 +1,651 @@
+// Hand-written Hopper (sm_90a) kernels for the gspar sparse emit path.
+//
+// They replace the four Pallas TPU kernels of src/repro/kernels/sparsify/
+// kernel.py that Algorithm 3 on the sparse gather wire runs:
+//
+//   stats_l1max   <- stats_l1max_2d   (kernel.py:275)  (sum|g|, max|g|) per row
+//   tail_stats    <- tail_stats_2d    (kernel.py:195)  (count, sum|g|) of |g| < t
+//   select_stats  <- select_stats_2d  (kernel.py:384)  pass 1 of the compaction
+//   compact_emit  <- compact_emit_2d  (kernel.py:559)  pass 2: compact write
+//
+// Layout. Every kernel takes one shape group as a row-major [rows, d] batch
+// (one launch per group, as the vmap over the group is on the TPU): the grid
+// is (tiles, rows), blockIdx.y is the row, and each block owns kTile
+// consecutive coordinates of its row. Per-row scalars (lambda, the threshold,
+// the saturation gate) are read from device memory, so no host round trip
+// sits between the solver's passes. The ragged end of a row is masked here;
+// nothing is padded into a tile layout.
+//
+// What bounds them. All four stream the gradient (bf16 on the main path) and,
+// for the two compaction passes, f32 uniforms: they are bound by device
+// memory bandwidth (2 B/coord for the reductions, 6 B/coord for pass 1,
+// 8 B/coord plus the compact output and the EF residual for pass 2). Each
+// thread therefore loads kItems consecutive elements per sweep (one 16-byte
+// vector load of bf16, two of f32) and keeps its partial sums in registers.
+//
+// Order without a sequential grid. The TPU carries the compact rank from tile
+// to tile in SMEM across a grid that runs in order. Hopper blocks run in no
+// order, so pass 1 writes per-(row, tile) survivor counts, a one-block-per-row
+// finish kernel scans them into per-tile base ranks, and pass 2 gives every
+// survivor its slot as base + in-block rank (thread counts, warp shuffles and
+// one block scan). Slots are written without atomics, so idx ascends by
+// coordinate and the padding slots keep the zeros the wrapper allocated.
+//
+// Sums accumulate in f64 and round to f32 once, so they differ from the TPU's
+// tile-order f32 sums only by rounding; counts are integers (the TPU counts
+// tail_stats in f32, which stops being exact past 2^24 coordinates).
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;                // threads per block
+constexpr int kItems = 8;                    // consecutive elements per thread
+constexpr int kSweep = kThreads * kItems;    // elements per block sweep
+constexpr int64_t kTile = 8 * kSweep;        // coordinates per block
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ int64_t row_end(int64_t d, int64_t start) {
+  return d < start + kTile ? d : start + kTile;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// kItems consecutive elements of one row starting at i, as f32; entries at or
+// past `end` read as 0 (callers mask them by index). `vec` promises a 16-byte
+// aligned row base and d % 8 == 0, which makes every full chunk aligned.
+__device__ __forceinline__ void load_items(const __nv_bfloat16* __restrict__ row,
+                                           int64_t i, int64_t end, bool vec,
+                                           float out[kItems]) {
+  if (vec && i + kItems <= end) {
+    uint4 raw = *reinterpret_cast<const uint4*>(row + i);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) out[k] = __bfloat162float(h[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      out[k] = (i + k < end) ? __bfloat162float(row[i + k]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load_items(const float* __restrict__ row,
+                                           int64_t i, int64_t end, bool vec,
+                                           float out[kItems]) {
+  if (vec && i + kItems <= end) {
+    float4 a = *reinterpret_cast<const float4*>(row + i);
+    float4 b = *reinterpret_cast<const float4*>(row + i + 4);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) out[k] = (i + k < end) ? row[i + k] : 0.f;
+  }
+}
+
+template <typename V> __device__ __forceinline__ V warp_sum(V v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(kFull, v, o));
+  return v;
+}
+
+// Block-wide sum; the result is valid in thread 0. `sh` holds 32 entries.
+template <typename V> __device__ V block_sum(V v, V* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) sh[w] = v;
+  __syncthreads();
+  V t = 0;
+  if (w == 0) {
+    t = lane < nw ? sh[lane] : V(0);
+    t = warp_sum(t);
+  }
+  return t;
+}
+
+__device__ float block_max(float v, float* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_max(v);
+  __syncthreads();
+  if (lane == 0) sh[w] = v;
+  __syncthreads();
+  float t = 0.f;
+  if (w == 0) {
+    t = lane < nw ? sh[lane] : 0.f;
+    t = warp_max(t);
+  }
+  return t;
+}
+
+// Exclusive scan of one int per thread over the block; every thread gets its
+// exclusive prefix and the block total. `sh` holds 33 entries.
+__device__ int block_excl_scan(int v, int* total, int* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int n = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += n;
+  }
+  __syncthreads();                      // earlier readers of sh are done
+  if (lane == 31) sh[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    int x = lane < nw ? sh[lane] : 0;
+    int xi = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      int n = __shfl_up_sync(kFull, xi, o);
+      if (lane >= o) xi += n;
+    }
+    if (lane < nw) sh[lane] = xi - x;
+    if (lane == 31) sh[32] = xi;
+  }
+  __syncthreads();
+  *total = sh[32];
+  return sh[w] + inc - v;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: (sum|g|, max|g|) per row.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stats_l1max_tiles(const T* __restrict__ g, int64_t d, int64_t ntiles, int vec,
+                  double* __restrict__ psum, float* __restrict__ pmax) {
+  const int64_t row = blockIdx.y, tile = blockIdx.x;
+  const T* grow = g + row * d;
+  const int64_t start = tile * kTile;
+  const int64_t end = row_end(d, start);
+  double s = 0.0;
+  float m = 0.f;
+  for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
+    float x[kItems];
+    load_items(grow, i, end, vec, x);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const float a = fabsf(x[k]);     // masked entries read as 0
+      s += a;
+      m = fmaxf(m, a);
+    }
+  }
+  __shared__ double sh_s[32];
+  __shared__ float sh_m[32];
+  s = block_sum(s, sh_s);
+  m = block_max(m, sh_m);
+  if (threadIdx.x == 0) {
+    psum[row * ntiles + tile] = s;
+    pmax[row * ntiles + tile] = m;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+stats_l1max_finish(const double* __restrict__ psum,
+                   const float* __restrict__ pmax, int64_t ntiles,
+                   float* __restrict__ l1, float* __restrict__ mx) {
+  const int64_t row = blockIdx.x;
+  double s = 0.0;
+  float m = 0.f;
+  for (int64_t t = threadIdx.x; t < ntiles; t += blockDim.x) {
+    s += psum[row * ntiles + t];
+    m = fmaxf(m, pmax[row * ntiles + t]);
+  }
+  __shared__ double sh_s[32];
+  __shared__ float sh_m[32];
+  s = block_sum(s, sh_s);
+  m = block_max(m, sh_m);
+  if (threadIdx.x == 0) {
+    l1[row] = (float)s;
+    mx[row] = m;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: (count, sum|g|) over |g| < thresh[row]; no work where gate[row]
+// is 0 (lambda_0 * max|g| <= 1: nothing saturates, lambda_0 is final).
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tail_tiles(const T* __restrict__ g, int64_t d, int64_t ntiles, int vec,
+           const float* __restrict__ thresh, const uint8_t* __restrict__ gate,
+           int* __restrict__ pcnt, double* __restrict__ psum) {
+  const int64_t row = blockIdx.y, tile = blockIdx.x;
+  if (!gate[row]) return;              // uniform over the block
+  const float t = thresh[row];
+  const T* grow = g + row * d;
+  const int64_t start = tile * kTile;
+  const int64_t end = row_end(d, start);
+  int c = 0;
+  double s = 0.0;
+  for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
+    float x[kItems];
+    load_items(grow, i, end, vec, x);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const float a = fabsf(x[k]);
+      if (i + k < end && a < t) {
+        ++c;
+        s += a;
+      }
+    }
+  }
+  __shared__ int sh_c[32];
+  __shared__ double sh_s[32];
+  c = block_sum(c, sh_c);
+  s = block_sum(s, sh_s);
+  if (threadIdx.x == 0) {
+    pcnt[row * ntiles + tile] = c;
+    psum[row * ntiles + tile] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+tail_finish(const int* __restrict__ pcnt, const double* __restrict__ psum,
+            int64_t ntiles, const uint8_t* __restrict__ gate,
+            long long* __restrict__ cnt, float* __restrict__ l1) {
+  const int64_t row = blockIdx.x;
+  if (!gate[row]) {
+    if (threadIdx.x == 0) {
+      cnt[row] = 0;
+      l1[row] = 0.f;
+    }
+    return;
+  }
+  long long c = 0;
+  double s = 0.0;
+  for (int64_t t = threadIdx.x; t < ntiles; t += blockDim.x) {
+    c += pcnt[row * ntiles + t];
+    s += psum[row * ntiles + t];
+  }
+  __shared__ long long sh_c[32];
+  __shared__ double sh_s[32];
+  c = block_sum(c, sh_c);
+  s = block_sum(s, sh_s);
+  if (threadIdx.x == 0) {
+    cnt[row] = c;
+    l1[row] = (float)s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3: pass 1 of the two-pass compaction (selector "lam": gspar).
+//   p = min(lam |g|, 1), z = u < p, v = z ? g / p : 0
+// Per row: survivors, support |{g != 0}|, sum p, sum g^2, and sum v^2 and
+// max|v| over the first k_cap survivors in coordinate order.
+// ---------------------------------------------------------------------------
+
+struct Sample {
+  bool z;
+  float p, v;
+};
+
+__device__ __forceinline__ Sample sample(float x, float r, float s1,
+                                         bool valid) {
+  Sample o;
+  const float a = fabsf(x);
+  o.p = fminf(s1 * a, 1.f);
+  o.z = valid && r < o.p;
+  o.v = o.z ? x / o.p : 0.f;
+  return o;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
+             int64_t ntiles, int vec_g, int vec_u,
+             const float* __restrict__ lam, int* __restrict__ pcnt,
+             int* __restrict__ pnzc, double* __restrict__ ppsum,
+             double* __restrict__ pden, double* __restrict__ pvsq,
+             float* __restrict__ pvmx) {
+  const int64_t row = blockIdx.y, tile = blockIdx.x;
+  const float s1 = lam[row];
+  const T* grow = g + row * d;
+  const float* urow = u + row * d;
+  const int64_t start = tile * kTile;
+  const int64_t end = row_end(d, start);
+  int cnt = 0, nzc = 0;
+  double ps = 0.0, dn = 0.0, vs = 0.0;
+  float vm = 0.f;
+  for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
+    float x[kItems], r[kItems];
+    load_items(grow, i, end, vec_g, x);
+    load_items(urow, i, end, vec_u, r);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (i + k >= end) continue;
+      const float a = fabsf(x[k]);
+      const Sample o = sample(x[k], r[k], s1, true);
+      const float a2 = a * a;
+      const float v2 = o.v * o.v;
+      nzc += a > 0.f;
+      ps += o.p;
+      dn += a2;
+      cnt += o.z;
+      vs += v2;
+      vm = fmaxf(vm, fabsf(o.v));
+    }
+  }
+  __shared__ int sh_i[32];
+  __shared__ double sh_d[32];
+  __shared__ float sh_f[32];
+  cnt = block_sum(cnt, sh_i);
+  nzc = block_sum(nzc, sh_i);
+  ps = block_sum(ps, sh_d);
+  dn = block_sum(dn, sh_d);
+  vs = block_sum(vs, sh_d);
+  vm = block_max(vm, sh_f);
+  if (threadIdx.x == 0) {
+    const int64_t o = row * ntiles + tile;
+    pcnt[o] = cnt;
+    pnzc[o] = nzc;
+    ppsum[o] = ps;
+    pden[o] = dn;
+    pvsq[o] = vs;
+    pvmx[o] = vm;
+  }
+}
+
+// One block per row: scan the tile counts into base ranks, reduce the tile
+// partials, and re-run the single tile that straddles rank k_cap so that the
+// codec-scale statistics see exactly the first k_cap survivors.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
+              int64_t ntiles, int vec_g, int vec_u,
+              const float* __restrict__ lam, int64_t k_cap,
+              const int* __restrict__ pcnt, const int* __restrict__ pnzc,
+              const double* __restrict__ ppsum, const double* __restrict__ pden,
+              const double* __restrict__ pvsq, const float* __restrict__ pvmx,
+              int* __restrict__ base, int* __restrict__ cnt_out,
+              int* __restrict__ nzc_out, float* __restrict__ psum_out,
+              float* __restrict__ den_out, float* __restrict__ vsq_out,
+              float* __restrict__ vmx_out) {
+  const int64_t row = blockIdx.x;
+  __shared__ int sh_scan[33];
+  __shared__ long long sh_straddle[2];   // tile index, its base rank
+  if (threadIdx.x == 0) sh_straddle[0] = -1;
+  long long running = 0, nz = 0;
+  double ps = 0.0, dn = 0.0, vs = 0.0;
+  float vm = 0.f;
+  for (int64_t c0 = 0; c0 < ntiles; c0 += blockDim.x) {
+    const int64_t t = c0 + threadIdx.x;
+    const int64_t o = row * ntiles + t;
+    const int c = t < ntiles ? pcnt[o] : 0;
+    int total;
+    const int ex = block_excl_scan(c, &total, sh_scan);
+    if (t < ntiles) {
+      const long long b = running + ex;
+      base[o] = (int)b;
+      nz += pnzc[o];
+      ps += ppsum[o];
+      dn += pden[o];
+      if (b + c <= k_cap) {
+        vs += pvsq[o];
+        vm = fmaxf(vm, pvmx[o]);
+      } else if (b < k_cap) {          // at most one tile straddles k_cap
+        sh_straddle[0] = t;
+        sh_straddle[1] = b;
+      }
+    }
+    running += total;
+  }
+  __syncthreads();
+  const long long st = sh_straddle[0];
+  if (st >= 0) {
+    const float s1 = lam[row];
+    const T* grow = g + row * d;
+    const float* urow = u + row * d;
+    const int64_t start = st * kTile;
+    const int64_t end = row_end(d, start);
+    long long rank0 = sh_straddle[1];
+    for (int64_t s = start; s < end; s += kSweep) {   // uniform over the block
+      const int64_t i = s + threadIdx.x * kItems;
+      float x[kItems], r[kItems];
+      load_items(grow, i, end, vec_g, x);
+      load_items(urow, i, end, vec_u, r);
+      Sample o[kItems];
+      int lc = 0;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        o[k] = sample(x[k], r[k], s1, i + k < end);
+        lc += o[k].z;
+      }
+      int total;
+      long long rk = rank0 + block_excl_scan(lc, &total, sh_scan);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if (o[k].z) {
+          if (rk < k_cap) {
+            const float v2 = o[k].v * o[k].v;
+            vs += v2;
+            vm = fmaxf(vm, fabsf(o[k].v));
+          }
+          ++rk;
+        }
+      }
+      rank0 += total;
+    }
+  }
+  __shared__ long long sh_l[32];
+  __shared__ double sh_d[32];
+  __shared__ float sh_f[32];
+  nz = block_sum(nz, sh_l);
+  ps = block_sum(ps, sh_d);
+  dn = block_sum(dn, sh_d);
+  vs = block_sum(vs, sh_d);
+  vm = block_max(vm, sh_f);
+  if (threadIdx.x == 0) {
+    cnt_out[row] = (int)running;
+    nzc_out[row] = (int)nz;
+    psum_out[row] = (float)ps;
+    den_out[row] = (float)dn;
+    vsq_out[row] = (float)vs;
+    vmx_out[row] = vm;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 4: pass 2. Re-derive the kept mask and write survivor j of the row
+// (j = base + in-block rank < k_cap) to slot j: values in the wire dtype W,
+// idx the row coordinate. With `res` the EF residual g - encoded value is
+// written for every coordinate, overflow-dropped survivors included; the
+// encoded value is the codec's output in float32, so it is W-rounded only
+// for a rounding codec (`round_res`: bf16), as on the TPU.
+// ---------------------------------------------------------------------------
+
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
+             int64_t ntiles, int vec_g, int vec_u,
+             const float* __restrict__ lam, const int* __restrict__ base,
+             int64_t k_cap, W* __restrict__ vals, int* __restrict__ idx,
+             T* __restrict__ res, int round_res) {
+  const int64_t row = blockIdx.y, tile = blockIdx.x;
+  long long rank0 = base[row * ntiles + tile];
+  if (res == nullptr && rank0 >= k_cap) return;   // uniform over the block
+  const float s1 = lam[row];
+  const T* grow = g + row * d;
+  const float* urow = u + row * d;
+  W* vrow = vals + row * k_cap;
+  int* irow = idx + row * k_cap;
+  T* rrow = res == nullptr ? nullptr : res + row * d;
+  const int64_t start = tile * kTile;
+  const int64_t end = row_end(d, start);
+  __shared__ int sh_scan[33];
+  for (int64_t s = start; s < end; s += kSweep) {     // uniform over the block
+    const int64_t i = s + threadIdx.x * kItems;
+    float x[kItems], r[kItems];
+    load_items(grow, i, end, vec_g, x);
+    load_items(urow, i, end, vec_u, r);
+    Sample o[kItems];
+    int lc = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      o[k] = sample(x[k], r[k], s1, i + k < end);
+      lc += o[k].z;
+    }
+    int total;
+    long long rk = rank0 + block_excl_scan(lc, &total, sh_scan);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const W ev = from_f32<W>(o[k].v);
+      if (o[k].z) {
+        if (rk < k_cap) {
+          vrow[rk] = ev;
+          irow[rk] = (int)(i + k);
+        }
+        ++rk;
+      }
+      if (rrow != nullptr && i + k < end) {
+        const float enc = round_res ? to_f32(ev) : o[k].v;
+        rrow[i + k] = from_f32<T>(x[k] - (o[k].z ? enc : 0.f));
+      }
+    }
+    rank0 += total;
+  }
+}
+
+inline unsigned grid_x(int64_t ntiles) { return (unsigned)ntiles; }
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C interface (loaded with ctypes). dtype codes: 0 = float32, 1 = bfloat16.
+// Each function enqueues its kernels on `stream`, allocates nothing, and
+// returns cudaGetLastError() of its launches.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+long long gspar_tile(void) { return kTile; }
+
+const char* gspar_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int gspar_stats_l1max(const void* g, int dt, long long rows, long long d,
+                      int vec, void* psum, void* pmax, void* l1, void* mx,
+                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  if (dt == 1)
+    stats_l1max_tiles<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)g, d, nt, vec, (double*)psum, (float*)pmax);
+  else
+    stats_l1max_tiles<float><<<grid, kThreads, 0, st>>>(
+        (const float*)g, d, nt, vec, (double*)psum, (float*)pmax);
+  stats_l1max_finish<<<(unsigned)rows, kThreads, 0, st>>>(
+      (const double*)psum, (const float*)pmax, nt, (float*)l1, (float*)mx);
+  return (int)cudaGetLastError();
+}
+
+int gspar_tail_stats(const void* g, int dt, long long rows, long long d,
+                     int vec, const void* thresh, const void* gate,
+                     void* pcnt, void* psum, void* cnt, void* l1,
+                     void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  if (dt == 1)
+    tail_tiles<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)g, d, nt, vec, (const float*)thresh,
+        (const uint8_t*)gate, (int*)pcnt, (double*)psum);
+  else
+    tail_tiles<float><<<grid, kThreads, 0, st>>>(
+        (const float*)g, d, nt, vec, (const float*)thresh,
+        (const uint8_t*)gate, (int*)pcnt, (double*)psum);
+  tail_finish<<<(unsigned)rows, kThreads, 0, st>>>(
+      (const int*)pcnt, (const double*)psum, nt, (const uint8_t*)gate,
+      (long long*)cnt, (float*)l1);
+  return (int)cudaGetLastError();
+}
+
+int gspar_select_stats(const void* g, int dt, const void* u, long long rows,
+                       long long d, int vec_g, int vec_u, const void* lam,
+                       long long k_cap, void* pcnt, void* pnzc, void* ppsum,
+                       void* pden, void* pvsq, void* pvmx, void* base,
+                       void* cnt, void* nzc, void* psum, void* den, void* vsq,
+                       void* vmx, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  if (dt == 1) {
+    select_tiles<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, (int*)pcnt, (int*)pnzc, (double*)ppsum,
+        (double*)pden, (double*)pvsq, (float*)pvmx);
+    select_finish<__nv_bfloat16><<<(unsigned)rows, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, k_cap, (const int*)pcnt, (const int*)pnzc,
+        (const double*)ppsum, (const double*)pden, (const double*)pvsq,
+        (const float*)pvmx, (int*)base, (int*)cnt, (int*)nzc, (float*)psum,
+        (float*)den, (float*)vsq, (float*)vmx);
+  } else {
+    select_tiles<float><<<grid, kThreads, 0, st>>>(
+        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, (int*)pcnt, (int*)pnzc, (double*)ppsum,
+        (double*)pden, (double*)pvsq, (float*)pvmx);
+    select_finish<float><<<(unsigned)rows, kThreads, 0, st>>>(
+        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, k_cap, (const int*)pcnt, (const int*)pnzc,
+        (const double*)ppsum, (const double*)pden, (const double*)pvsq,
+        (const float*)pvmx, (int*)base, (int*)cnt, (int*)nzc, (float*)psum,
+        (float*)den, (float*)vsq, (float*)vmx);
+  }
+  return (int)cudaGetLastError();
+}
+
+int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
+                       long long d, int vec_g, int vec_u, const void* lam,
+                       const void* base, long long k_cap, void* vals, int wdt,
+                       void* idx, void* res, int round_res, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  if (dt == 1 && wdt == 1)
+    compact_emit<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, (const int*)base, k_cap, (__nv_bfloat16*)vals,
+        (int*)idx, (__nv_bfloat16*)res, round_res);
+  else if (dt == 0 && wdt == 0)
+    compact_emit<float, float><<<grid, kThreads, 0, st>>>(
+        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, (const int*)base, k_cap, (float*)vals, (int*)idx,
+        (float*)res, round_res);
+  else if (dt == 0 && wdt == 1)
+    compact_emit<float, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
+        (const float*)lam, (const int*)base, k_cap, (__nv_bfloat16*)vals,
+        (int*)idx, (float*)res, round_res);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,268 @@
+"""Wrappers of the hand-written CUDA kernels in ``csrc/sparsify.cu``.
+
+The four kernels of the gspar sparse emit path, ported from the Pallas TPU
+kernels of ``repro.kernels.sparsify.kernel`` (file and line in each
+wrapper's docstring). Each wrapper takes one shape group as a ``[rows, d]``
+batch and per-row scalar tensors, as the vmap over a group is on the TPU:
+
+- a tensor on the CPU goes to the plain PyTorch version in ``ref.py``;
+- a tensor on a CUDA device launches the kernel, or raises. There is no
+  fallback from the card to the plain version.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface under ``build/kernels/`` at the repository root, on
+first use, and loaded with ``ctypes`` (the library's file name carries a
+hash of the source, so an edited source is rebuilt). A wrapper enqueues its
+kernels on PyTorch's current stream, allocates outputs and scratch with
+PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
+``LAUNCHES[name]``: the count of kernel launches a run can read back.
+
+What bounds each kernel on an H100 (3.35 TB/s of HBM): all four are
+memory-bound streams over the group, so their bound is the bytes they must
+move over the memory rate; see each docstring and PERF.md.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.sparsify import ref
+from repro_torch.kernels.sparsify.ref import SelectStats
+
+TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
+KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit")
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_REPO = Path(__file__).resolve().parents[4]
+_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "sparsify.cu"
+BUILD_DIR = _REPO / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib_handle: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "gspar_tile": ((), _L),
+    "gspar_error_string": ((_I,), ctypes.c_char_p),
+    "gspar_stats_l1max": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P), _I),
+    "gspar_tail_stats": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P), _I),
+    "gspar_select_stats": ((_P, _I, _P, _L, _L, _I, _I, _P, _L)
+                           + (_P,) * 13 + (_P,), _I),
+    "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _P, _P, _L, _P, _I,
+                            _P, _P, _I, _P), _I),
+}
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def library_path() -> Path:
+    digest = hashlib.sha1(_SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"libsparsify-{digest}.so"
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/sparsify.cu`` (once per source hash). Returns the
+    library path and nvcc's log (``-Xptxas -v``: registers, shared memory
+    and spills per kernel; empty when the library was already built)."""
+    out = library_path()
+    if out.exists():
+        return out, ""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    if _lib_handle is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = res
+        if lib.gspar_tile() != TILE:
+            raise RuntimeError(f"kernel tile {lib.gspar_tile()} != {TILE}")
+        _lib_handle = lib
+    return _lib_handle
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib().gspar_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _vec(t: torch.Tensor) -> int:
+    """16-byte vector loads: aligned base and rows a multiple of 8 long."""
+    return int(t.data_ptr() % 16 == 0 and t.shape[1] % 8 == 0)
+
+
+def _on_card(name: str, g: torch.Tensor, *others: torch.Tensor) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (take the plain version); raises on anything the kernel cannot take."""
+    if g.device.type == "cpu":
+        return False
+    if g.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {g.device}")
+    if g.dim() != 2 or not g.is_contiguous():
+        raise ValueError(f"{name}: g must be a contiguous [rows, d] tensor")
+    if g.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: g dtype {g.dtype} is not float32/bfloat16")
+    if g.shape[1] >= 2**31 or g.shape[0] > 65535:
+        raise ValueError(f"{name}: group {tuple(g.shape)} exceeds the grid")
+    for t in others:
+        if t.device != g.device or not t.is_contiguous():
+            raise ValueError(f"{name}: every input must be contiguous on "
+                             f"{g.device}")
+    return True
+
+
+def stats_l1max(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum|g|, max|g|)`` per row, float32 — lambda_0 and the saturation
+    gate of Algorithm 3. Replaces ``stats_l1max_2d``
+    (src/repro/kernels/sparsify/kernel.py:275). Bound: one read of g
+    (2 B/coord in bf16)."""
+    if not _on_card("stats_l1max", g):
+        return ref.stats_l1max_ref(g)
+    rows, d = g.shape
+    nt = ref.ntiles(d, TILE)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    psum = torch.empty((rows, nt), dtype=torch.float64, device=g.device)
+    pmax = torch.empty((rows, nt), **f32)
+    l1 = torch.empty(rows, **f32)
+    mx = torch.empty(rows, **f32)
+    _check(_lib().gspar_stats_l1max(
+        _ptr(g), _DTYPE_CODE[g.dtype], rows, d, _vec(g), _ptr(psum),
+        _ptr(pmax), _ptr(l1), _ptr(mx), _stream(g)), "stats_l1max")
+    return l1, mx
+
+
+def tail_stats(g: torch.Tensor, thresh: torch.Tensor, gate: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(count, sum|g|)`` per row over ``|g| < thresh[row]``, count int64
+    and sum float32; rows with ``gate[row]`` False do no work and report
+    zeros. Replaces ``tail_stats_2d`` (src/repro/kernels/sparsify/
+    kernel.py:195), which counts in float32. Bound: one read of g for the
+    gated rows."""
+    thresh = thresh.to(torch.float32).contiguous()
+    gate = gate.to(torch.uint8).contiguous()
+    if not _on_card("tail_stats", g, thresh, gate):
+        return ref.tail_stats_ref(g, thresh, gate.bool())
+    rows, d = g.shape
+    nt = ref.ntiles(d, TILE)
+    pcnt = torch.empty((rows, nt), dtype=torch.int32, device=g.device)
+    psum = torch.empty((rows, nt), dtype=torch.float64, device=g.device)
+    cnt = torch.empty(rows, dtype=torch.int64, device=g.device)
+    l1 = torch.empty(rows, dtype=torch.float32, device=g.device)
+    _check(_lib().gspar_tail_stats(
+        _ptr(g), _DTYPE_CODE[g.dtype], rows, d, _vec(g), _ptr(thresh),
+        _ptr(gate), _ptr(pcnt), _ptr(psum), _ptr(cnt), _ptr(l1), _stream(g)),
+        "tail_stats")
+    return cnt, l1
+
+
+def select_stats(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
+                 k_cap: int) -> SelectStats:
+    """Pass 1 of the two-pass compaction for the gspar selector (``pkind=
+    "lam"``): survivors, support, sum p, sum g^2, and sum v^2 / max|v| over
+    the first ``k_cap`` survivors of each row, plus the per-tile base ranks
+    that pass 2 writes from. Replaces ``select_stats_2d`` (src/repro/
+    kernels/sparsify/kernel.py:384). Bound: one read of g and of the f32
+    uniforms (6 B/coord with bf16 g)."""
+    lam = lam.to(torch.float32).contiguous()
+    if u.shape != g.shape or u.dtype != torch.float32:
+        raise ValueError("select_stats: u must be float32 shaped like g")
+    if not _on_card("select_stats", g, u, lam):
+        return ref.select_stats_ref(g, u, lam, k_cap, TILE)
+    rows, d = g.shape
+    nt = ref.ntiles(d, TILE)
+    dev = g.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    pcnt = torch.empty((rows, nt), **i32)
+    pnzc = torch.empty((rows, nt), **i32)
+    ppsum = torch.empty((rows, nt), **f64)
+    pden = torch.empty((rows, nt), **f64)
+    pvsq = torch.empty((rows, nt), **f64)
+    pvmx = torch.empty((rows, nt), **f32)
+    out = SelectStats(
+        nnz=torch.empty(rows, **i32), nonzeros=torch.empty(rows, **i32),
+        p_sum=torch.empty(rows, **f32), den=torch.empty(rows, **f32),
+        sum_sq=torch.empty(rows, **f32), max_abs=torch.empty(rows, **f32),
+        base=torch.empty((rows, nt), **i32))
+    _check(_lib().gspar_select_stats(
+        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g), _vec(u),
+        _ptr(lam), k_cap, _ptr(pcnt), _ptr(pnzc), _ptr(ppsum), _ptr(pden),
+        _ptr(pvsq), _ptr(pvmx), _ptr(out.base), _ptr(out.nnz),
+        _ptr(out.nonzeros), _ptr(out.p_sum), _ptr(out.den), _ptr(out.sum_sq),
+        _ptr(out.max_abs), _stream(g)), "select_stats")
+    return out
+
+
+def compact_emit(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
+                 base: torch.Tensor, *, k_cap: int, wire_dtype: torch.dtype,
+                 ef: bool, round_residual: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Pass 2: write each row's first ``k_cap`` survivors in coordinate
+    order into ``values [rows, k_cap]`` (``wire_dtype``, the codec's wire
+    dtype) and ``idx [rows, k_cap]`` (int32, ascending; unused slots idx 0,
+    value 0), and with ``ef`` the residual ``g - encoded value`` for every
+    coordinate. The encoded value is the codec's float32 output: rounded to
+    the wire dtype only for a rounding codec (``round_residual``, bf16), as
+    the TPU kernel subtracts ``codec.encode(v)`` before the store casts it.
+    ``base`` is ``select_stats``'s per-tile base ranks (the plain version
+    recomputes them). Replaces ``compact_emit_2d`` for
+    ``pkind="lam"``, float codecs and ``rice_r=-1`` (src/repro/kernels/
+    sparsify/kernel.py:559). Bound: one read of g and u, the compact write,
+    and with ``ef`` one write of the residual."""
+    lam = lam.to(torch.float32).contiguous()
+    if wire_dtype not in _DTYPE_CODE:
+        raise NotImplementedError(
+            f"compact_emit: wire dtype {wire_dtype} (integer codecs are "
+            "ROADMAP.md queue B, kernel 4)")
+    if not _on_card("compact_emit", g, u, lam, base):
+        return ref.compact_emit_ref(g, u, lam, k_cap, wire_dtype, ef,
+                                    round_residual)
+    if g.dtype == torch.bfloat16 and wire_dtype != torch.bfloat16:
+        raise ValueError("compact_emit: a bf16 leaf has a bf16 wire")
+    rows, d = g.shape
+    vals = torch.zeros((rows, k_cap), dtype=wire_dtype, device=g.device)
+    idx = torch.zeros((rows, k_cap), dtype=torch.int32, device=g.device)
+    res = torch.empty_like(g) if ef else None
+    _check(_lib().gspar_compact_emit(
+        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g), _vec(u),
+        _ptr(lam), _ptr(base), k_cap, _ptr(vals), _DTYPE_CODE[wire_dtype],
+        _ptr(idx), _ptr(res), int(round_residual), _stream(g)),
+        "compact_emit")
+    return vals, idx, res

@@ -1,0 +1,115 @@
+"""The gspar emit pipeline on the sparsify kernels (port of
+``repro.kernels.sparsify.ops``: ``greedy_lambda``, the tail function,
+``_two_pass``, ``gspar_emit`` and ``EmitResult``).
+
+Algorithm 3 (greedy lambda) fully on the device: one stats pass, up to
+``num_iters`` saturation-aware tail passes driving the scalar rescale, then
+the two-pass compact emit — pass 1 reduces survivor counts and the codec
+scale statistics, pass 2 writes the wire buffers. Everything runs over one
+shape group ``[rows, d]`` with per-row scalars, so a group is one launch per
+kernel, and no scalar is read back to the host between the passes.
+
+The JAX ops layer pads every leaf into the TPU tile layout (``_pad_2d``) and
+corrects the tail counts for the padding; the CUDA kernels mask the ragged
+end of a row themselves, so neither exists here.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import codecs as codecs_lib
+from repro_torch.kernels.sparsify import kernel as K
+
+F32 = torch.float32
+
+
+def _safe_div(num, den: torch.Tensor) -> torch.Tensor:
+    ok = den > 0
+    return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
+
+
+def greedy_lambda(l1: torch.Tensor, mx: torch.Tensor, rho: float, d: int,
+                  num_iters: int = 2,
+                  tail_fn: Callable | None = None) -> torch.Tensor:
+    """Algorithm 3's scalar fixed point per row, from the row statistics
+    (``repro.kernels.sparsify.ops.greedy_lambda``)::
+
+        lam_0 = rho * d / ||g||_1
+        c_k   = max(1, (rho*d - (d - n_active)) / (lam_k * l1_active))
+        lam_{k+1} = c_k * lam_k
+
+    where the active set is ``|g| < 1/lam_k``. ``tail_fn(thresh, gate) ->
+    (n_below, l1_below)`` supplies its count and mass per row; ``gate`` is
+    ``lam_0 * max|g| > 1``. Rows where nothing saturates keep lam_0 (the
+    TPU's ``lax.cond``): the tail kernel reads the gate on the device and
+    does no work for them, so the branch costs no host round trip."""
+    d_f = torch.tensor(float(d), dtype=F32, device=l1.device)
+    rho_d = torch.tensor(rho, dtype=F32, device=l1.device) * d_f
+    lam0 = _safe_div(rho_d, l1.to(F32))
+    if tail_fn is None or num_iters <= 0:
+        return lam0
+    gate = lam0 * mx.to(F32) > 1.0
+    lam = lam0
+    for _ in range(num_iters):
+        n_below, l1_below = tail_fn(_safe_div(1.0, lam), gate)
+        target = rho_d - (d_f - n_below.to(F32))
+        c = torch.clamp_min(_safe_div(target, lam * l1_below), 1.0)
+        lam = torch.where(gate, c * lam, lam)
+    return lam
+
+
+def _kernel_tail_fn(g2d: torch.Tensor) -> Callable:
+    def tail(thresh, gate):
+        return K.tail_stats(g2d, thresh, gate)
+    return tail
+
+
+class EmitResult(NamedTuple):
+    """Wire buffers and accounting scalars of one group, per row: ``values``
+    /``idx`` the compact buffers (values in the wire dtype, idx ascending by
+    coordinate, padding slots idx 0 / value 0), ``nnz`` the survivors before
+    the capacity cut, ``nonzeros`` the support, ``p_sum``/``den`` sum p and
+    sum g^2, ``scale`` the codec scale, ``residual`` the EF residual
+    ``g - wire value`` (None without EF)."""
+    values: torch.Tensor
+    idx: torch.Tensor
+    nnz: torch.Tensor
+    nonzeros: torch.Tensor
+    p_sum: torch.Tensor
+    den: torch.Tensor
+    scale: torch.Tensor
+    residual: torch.Tensor | None
+
+
+_F32 = codecs_lib.FloatCodec()
+
+
+def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor, lam: torch.Tensor, *,
+              codec, k_cap: int, ef: bool) -> EmitResult:
+    """Pass 1 select + reduce, the codec scale, pass 2 compact write."""
+    sel = K.select_stats(g2d, u2d, lam, k_cap)
+    scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
+    vals, idx, res = K.compact_emit(
+        g2d, u2d, lam, sel.base, k_cap=k_cap,
+        wire_dtype=codec.wire_dtype(g2d.dtype), ef=ef,
+        round_residual=codec.rounds_values)
+    return EmitResult(vals, idx, sel.nnz, sel.nonzeros, sel.p_sum, sel.den,
+                      scale, res)
+
+
+def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor, *, k_cap: int,
+               rho: float = 0.1, num_iters: int = 2, codec=_F32,
+               ef: bool = False) -> tuple[EmitResult, torch.Tensor]:
+    """Algorithm 3 on a ``[rows, d]`` group: stats -> per-row lambda ->
+    two-pass compact emit, with the uniforms ``u2d`` (float32, shaped like
+    ``g2d``) as input. Returns ``(EmitResult, lam)``."""
+    if g2d.dim() != 2:
+        raise ValueError(f"gspar_emit takes a [rows, d] group, got "
+                         f"{tuple(g2d.shape)}")
+    l1, mx = K.stats_l1max(g2d)
+    lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
+                        tail_fn=_kernel_tail_fn(g2d))
+    er = _two_pass(g2d, u2d, lam, codec=codec, k_cap=k_cap, ef=ef)
+    return er, lam

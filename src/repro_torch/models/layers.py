@@ -1,0 +1,67 @@
+"""Norms, rotary embeddings, the gated MLP and the tied embedding (port of
+``repro.models.layers``), with the JAX package's numerics:
+
+- RMSNorm computes in float32 and scales by ``1 + scale`` (gemma);
+- RoPE rotates half-split pairs (``x[:half]``, ``x[half:]``), float32
+  tables, result cast back to the input dtype;
+- ``jax.nn.gelu`` is the tanh approximation by default;
+- the embedding is scaled by sqrt(d_model) rounded to the parameter dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(F32)
+    var = (x32 * x32).mean(-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def rope_table(positions: torch.Tensor, head_dim: int,
+               theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [S] -> (sin, cos) [S, head_dim/2], float32."""
+    half = head_dim // 2
+    exponent = -torch.arange(half, dtype=F32, device=positions.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=F32,
+                                  device=positions.device), exponent)
+    angles = positions.to(F32)[..., None] * freq
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D] with (sin, cos) [S, D/2], broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    s, c = sin[..., None, :], cos[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def gated_mlp(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+              x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """GeGLU (gemma) / SwiGLU."""
+    h_gate = x @ gate
+    h_gate = (F.gelu(h_gate, approximate="tanh") if act == "gelu"
+              else F.silu(h_gate))
+    return (h_gate * (x @ up)) @ down
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          scale: bool = False) -> torch.Tensor:
+    x = table[tokens]
+    if scale:
+        x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table^T."""
+    return x @ table.T

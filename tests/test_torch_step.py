@@ -1,0 +1,194 @@
+"""The slice as a whole: one compressed train step of the port (Algorithm 1
+with Algorithm 3 on the COO gather wire, error feedback, Adam, one gloo
+worker) against a JAX step assembled from the JAX package's own pieces —
+``make_loss_fn``, ``ops.gspar_emit`` in interpret mode fed the port's
+uniforms (re-drawn from an identically seeded generator), the scatter
+decode and ``adam`` — on the gemma-2b smoke config in float32.
+
+Tolerance: new parameters and the EF residual agree to atol 1e-6 (rtol
+1e-5 for the residual), except at coordinates whose uniform lies within
+1e-5 of its keep probability, where the float32 gradient's last-digit
+differences between the frameworks may flip the draw (at most 0.1% of
+them). Also: the launcher on the CPU, the import boundary, and the
+configuration's refusals of what is not ported."""
+import functools
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import gemma_2b as jgemma
+from repro.core.api import CompressionConfig as JConfig
+from repro.core.grouping import plan_tree as jplan_tree
+from repro.kernels.sparsify import ops as jops
+from repro.models import transformer as jtf
+from repro.models.common import split_params
+from repro.optim import optimizers as jopt
+from repro.train import step as jstep
+from repro_torch.configs import gemma_2b as tgemma
+from repro_torch.core.api import CompressionConfig as TConfig
+from repro_torch.core.grouping import plan_tree
+from repro_torch.devices import resolve_device
+from repro_torch.launch import train as tlaunch
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.common import leaf_order
+from repro_torch.models.transformer import Transformer, param_shapes
+from repro_torch.optim import optimizers as topt
+from repro_torch.train import step as tstep
+
+# small inputs: one intra-op thread keeps the parallel test run from
+# oversubscribing the host's cores
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RHO, LR, SEED, MIN_LEAF = 0.05, 1e-3, 11, 1024
+
+
+@pytest.fixture
+def one_worker_group():
+    assert not dist.is_initialized()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+def _jax_step(params, tokens, stacked):
+    """One Algorithm-1 step at one worker from the JAX package's pieces.
+    Returns (new params leaves, new residual leaves, exempt masks)."""
+    grads = jax.jit(jax.grad(jstep.make_loss_fn(jgemma.SMOKE)))(
+        params, {"tokens": jnp.asarray(tokens)})
+    leaves, tdef = jax.tree_util.tree_flatten(grads)
+    leaves = [np.asarray(g) for g in leaves]
+    plan = jplan_tree(JConfig(name="gspar", rho=RHO, wire="gather",
+                              min_leaf_size=MIN_LEAF), leaves, stacked)
+    gen = torch.Generator().manual_seed(SEED)
+    synced, res, exempt = ([None] * len(leaves) for _ in range(3))
+    for grp in plan.groups:
+        if grp.kind == "dense":       # float32 passthrough, zero residual
+            for i, _ in grp.members:
+                synced[i] = leaves[i]
+                res[i] = np.zeros_like(leaves[i])
+                exempt[i] = np.zeros(leaves[i].shape, bool)
+            continue
+        stack = np.concatenate([leaves[i].reshape(rows, grp.d)
+                                for i, rows in grp.members])
+        u = torch.rand((grp.rows, grp.d), generator=gen,
+                       dtype=torch.float32).numpy()
+        er, lam = jax.vmap(functools.partial(
+            jops.gspar_emit, u_cod=None, k_cap=grp.k_cap, rho=RHO, ef=True,
+            interpret=True))(jnp.asarray(stack), jnp.asarray(u))
+        dense = np.zeros((grp.rows, grp.d), np.float32)
+        for r in range(grp.rows):
+            np.add.at(dense[r], np.asarray(er.idx[r]),
+                      np.asarray(er.values[r], np.float32))
+        p = np.minimum(np.asarray(lam)[:, None] * np.abs(stack), 1.0)
+        near = np.abs(u - p) < 1e-5
+        r0 = 0
+        for i, rows in grp.members:
+            shape = leaves[i].shape
+            synced[i] = dense[r0:r0 + rows].reshape(shape)
+            res[i] = np.asarray(er.residual[r0:r0 + rows]).reshape(shape)
+            exempt[i] = near[r0:r0 + rows].reshape(shape)
+            r0 += rows
+    opt = jopt.adam(LR)
+    new, _ = opt.update(jax.tree_util.tree_unflatten(tdef, synced),
+                        opt.init(params), params)
+    return ([np.asarray(x) for x in jax.tree.leaves(new)], res, exempt)
+
+
+def test_compressed_step_matches_jax_step(one_worker_group):
+    params = jax.jit(lambda k: split_params(
+        jtf.init_model(k, jgemma.SMOKE))[0])(jax.random.key(3))
+    tokens = np.random.default_rng(5).integers(0, jgemma.SMOKE.vocab, (4, 32))
+    model = Transformer(tgemma.SMOKE, params_from_numpy(
+        jax.tree.map(np.asarray, params)))
+    comp = TConfig(name="gspar", rho=RHO, error_feedback=True,
+                   min_leaf_size=MIN_LEAF)
+    opt = topt.adam(LR)
+    step = tstep.make_compressed_train_step(model, comp, opt)
+    state, fb, metrics = step(opt.init(model.leaves()),
+                              topt.init_feedback(model.leaves()),
+                              {"tokens": torch.from_numpy(tokens)},
+                              torch.Generator().manual_seed(SEED))
+    want_p, want_r, exempt = _jax_step(params, tokens, model.stacked)
+    n_exempt = sum(int(e.sum()) for e in exempt)
+    assert n_exempt <= 1e-3 * sum(e.size for e in exempt)
+    for name, p, r, wp, wr, ex in zip(model.leaf_names, model.leaves(),
+                                      fb.residual, want_p, want_r, exempt):
+        keep = ~ex
+        np.testing.assert_allclose(p.detach().numpy()[keep], wp[keep],
+                                   rtol=0, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(r.numpy()[keep], wr[keep], rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    assert 0.0 < float(metrics["density"]) <= 1.25 * RHO
+    assert float(metrics["overflow"]) == 0.0
+
+
+@pytest.mark.parametrize("ef", [False, True])
+def test_launcher_trains_on_cpu(ef):
+    """The launcher end to end on the CPU path: finite losses, the COO
+    gather wire's bytes, no overflow; it starts and stops its own group."""
+    argv = ["--arch", "gemma-2b", "--smoke", "--steps", "2", "--device",
+            "cpu", "--rho", str(RHO), "--log-every", "1"]
+    summary = tlaunch.main(argv + (["--error-feedback"] if ef else []))
+    assert not dist.is_initialized()
+    shapes = param_shapes(tgemma.SMOKE)
+    names = leaf_order(shapes)
+    plan = plan_tree(TConfig(rho=RHO, min_leaf_size=MIN_LEAF),
+                     [torch.empty(shapes[n][0], device="meta") for n in names],
+                     [shapes[n][1] for n in names])
+    wire = sum(g.rows * g.k_cap * (4 + 4) if g.kind == "sparse"
+               else g.d * 4 for g in plan.groups)
+    for m in summary["metrics"]:
+        assert np.isfinite(m["loss"])
+        assert m["overflow"] == 0.0
+        assert 0.0 < m["density"] <= 1.25 * RHO
+        assert m["wire_bytes"] == wire
+    assert summary["params"] == sum(
+        int(np.prod(s)) for s, _ in shapes.values())
+
+
+def test_import_loads_no_jax():
+    """No module of the port imports JAX or the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_run_on_the_card_unless_asked():
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            resolve_device(None)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(wire="dense"), dict(wire="packed"), dict(wire_layout="auto"),
+    dict(wire_layout="rice"), dict(exchange="overlap"), dict(name="unisp"),
+    dict(name="gspar+qsgd8"), dict(algo="closed")])
+def test_config_refuses_what_is_not_ported(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TConfig(**kw)
