@@ -1,31 +1,45 @@
 """Sparse gradient synchronization, Algorithm 1 on ``torch.distributed``
 (port of ``repro.comm.sync``: ``SyncStats``, ``sync_tree`` and the sync
-exchange ``_bucketed_sync`` on the gather wire with the COO layout).
+exchange ``_bucketed_sync`` on the gather wire, every static wire layout).
 
 Every worker compresses its local gradient leaves into fixed-capacity
-``(values, idx)`` buffers (``repro_torch.core.api.compress_tree_sparse``);
-the buffers of one wire dtype are offset into one concatenated coordinate
-space and exchanged with one all-gather for the values and one for the
-int32 coordinates; every worker then scatter-adds the gathered buffers and
-divides by the worker count. Tiny dense-passthrough leaves share one
-all-reduce. Buckets past ``cfg.bucket_coord_cap`` coordinates (the int32
-limit by default) split into row-granular chunks, each its own pair of
+``SparseGrad`` buffers (``repro_torch.core.api.compress_tree_sparse``),
+each group stamped with a wire layout (``repro_torch.comm.wire_layout``);
+the groups of one wire dtype share one concatenated coordinate space and
+are exchanged with one all-gather for the values and one for the int32
+index words (COO coordinates offset into the bucket; bitmap and RICE words
+are opaque bits and ride as they are; dense groups ship no index stream,
+and the second all-gather is skipped when no group has one). A chunk with
+RICE groups first all-gathers their per-row used word counts (phase one of
+the two-phase exchange): the RICE payload then travels at its static
+capacity shape, padding past each count is zeroed before the decode, and
+the counts price the realized bytes. Every worker then decodes and
+scatter-adds the gathered buffers and divides by the worker count. Tiny
+dense-passthrough leaves share one all-reduce. Buckets past
+``cfg.bucket_coord_cap`` coordinates (by default the int32 limit less the
+decode's scratch tail) split into row-granular chunks, each its own set of
 collectives — a 2.5e9-parameter tree needs two.
 
 Reduction order. The decode adds the gathered workers one after another in
 worker order (worker-major), as the JAX package's single scatter-add does;
 ``index_add_`` on CUDA uses atomics, so one call over all workers would
 not keep that order. Within one worker the live coordinates are unique and
-padding slots add exact zeros, so each per-worker ``index_add_`` is exact
-and the sum is bit-identical to a sequential worker-major scatter.
+padding and dead slots add exact zeros, so each per-worker ``index_add_``
+is exact and the sum is bit-identical to a sequential worker-major scatter.
+Groups, and row batches of a group, cover disjoint coordinates, so decoding
+them one after another keeps that order; it also bounds the decode's
+scratch (unpacked RICE bits, bitmap ranks) to one row batch.
 
 Collectives gather raw bytes (a ``uint8`` view of each buffer), so any wire
 dtype crosses any backend (gloo takes no bfloat16). ``SyncStats.wire_bytes``
 charges what the JAX package charges: value slots at the wire dtype's width,
-int32 index words, and four bytes per element of the dense passthrough.
+the fixed layouts' int32 index words, for RICE the counts vector plus the
+used words (not the padding), and four bytes per element of the dense
+passthrough. The RICE term is a device tensor (no host sync per chunk), and
+the total is float64 so that it stays exact past 2^24 bytes.
 
-The overlapped exchange, the pod hierarchy, adaptive control and the other
-layouts are ROADMAP.md queue A items 8 and 9.
+The overlapped exchange, the pod hierarchy, adaptive control and the
+data-fitted Rice parameter are ROADMAP.md queue A items 8 and 9.
 """
 from __future__ import annotations
 
@@ -48,12 +62,15 @@ class SyncStats:
     bits: torch.Tensor              # message bits this worker sent (model)
     dense_bits: torch.Tensor        # uncompressed message bits
     wire_bytes: torch.Tensor        # bytes the collectives moved per worker
+                                    # (float64: exact past 2^24)
     wire_bytes_intra: torch.Tensor  # ... in the data-parallel stage
     wire_bytes_inter: torch.Tensor  # ... in an inter-pod stage (0 here)
     density: torch.Tensor           # realized nnz fraction
     var_ratio: torch.Tensor         # ||Q(g)||^2/||g||^2, the paper's `var`
     overflow: torch.Tensor          # survivors dropped by the fixed capacity
     skipped: torch.Tensor           # leaves skipped (adaptive; 0 here)
+    layouts: tuple = ()             # (rows, d, k_cap, layout) per sparse
+                                    # group, as stamped this step
 
     FIELDS = ("bits", "dense_bits", "wire_bytes", "wire_bytes_intra",
               "wire_bytes_inter", "density", "var_ratio", "overflow",
@@ -96,14 +113,49 @@ def _assemble_pieces(pieces: dict, leaves: list, out: list) -> None:
         out[i] = flat.reshape(leaf.shape)
 
 
+# Scratch bound of one decode call, in units of one unpacked bit, bitmap
+# coordinate or COO slot per gathered row: about 1-1.5 GB of temporaries.
+DECODE_UNITS = 1 << 27
+
+
+def decode_into(dense: torch.Tensor, lp: wire_layout.LeafPlan,
+                vals: torch.Tensor, words: torch.Tensor | None,
+                counts: torch.Tensor | None, coord_off: int,
+                drop: int) -> None:
+    """Decode one group's gathered segment and scatter-add it into the
+    float32 chunk buffer ``dense`` at ``coord_off``, worker by worker, in
+    row batches that bound the decode's scratch. ``vals [m, layers *
+    val_len]``, ``words [m, layers * idx_len]`` (None for dense), ``counts
+    [m, layers]`` (RICE only); dead slots go to ``wire_layout.DROP_SLOTS``
+    scratch coordinates from ``drop`` on."""
+    m = vals.shape[0]
+    per_row = m * {"coo": lp.k_cap, "dense": lp.d, "bitmap": lp.d,
+                   "rice": lp.idx_len * compaction.WORD_BITS}[lp.layout]
+    step = max(1, min(lp.layers, DECODE_UNITS // max(1, per_row)))
+    for a in range(0, lp.layers, step):
+        n = min(step, lp.layers - a)
+        upd, crd = wire_layout.unpack_gathered(
+            dataclasses.replace(lp, layers=n),
+            vals[:, a * lp.val_len:(a + n) * lp.val_len],
+            (words[:, a * lp.idx_len:(a + n) * lp.idx_len]
+             if words is not None else None),
+            coord_off + a * lp.d,
+            counts[:, a:a + n] if counts is not None else None, drop=drop)
+        for w in range(m):                   # worker-major reduction order
+            dense.index_add_(0, crd[w], upd[w].to(F32))
+        del upd, crd
+
+
 def _bucketed_sync(items: list, leaves: list, group,
                    cfg: CompressionConfig):
     """Exchange all groups with one collective set per (kind, wire dtype)
-    chunk; returns ``(synced leaves, wire bytes, overflow)``."""
+    chunk; returns ``(synced leaves, wire bytes as an int64 device tensor,
+    overflow)``."""
     m = dist.get_world_size(group)
     out: list = [None] * len(leaves)
-    wire = 0.0
     dev = leaves[0].device
+    wire = 0                        # bytes fixed by the static shapes
+    used_words = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
 
     dense_ids: list = []
@@ -126,9 +178,11 @@ def _bucketed_sync(items: list, leaves: list, group,
                 out[i] = synced[off:off + n].reshape(leaf.shape).to(
                     leaf.dtype)
                 off += n
-        wire += float(flat.numel() * 4)
+        wire += flat.numel() * 4
 
-    cap = min(cfg.bucket_coord_cap, compaction.INT32_COORD_LIMIT)
+    # room for the dead-slot scratch tail inside the int32 coordinates
+    cap = min(cfg.bucket_coord_cap,
+              compaction.INT32_COORD_LIMIT - wire_layout.DROP_SLOTS)
     for wdt, ids in sorted(sparse_groups.items(),
                            key=lambda kv: _dtype_name(kv[0])):
         itemsize = torch.empty((), dtype=wdt).element_size()
@@ -142,47 +196,60 @@ def _bucketed_sync(items: list, leaves: list, group,
                               for e in ids], cap)
         pieces: dict = {}
         for chunk in chunks:
-            vals_parts, widx_parts, plans = [], [], []
-            static_idx_words = coord_off = v_off = i_off = 0
+            vals_parts, widx_parts, count_parts, plans = [], [], [], []
+            static_idx_words = coord_off = v_off = i_off = c_off = 0
             for e, r0, n in chunk:
-                lp0, v2d, w2d, _ = packed[e]
+                lp0, v2d, w2d, nw = packed[e]
                 lp = dataclasses.replace(lp0, layers=n)
-                rows_off = (torch.arange(n, dtype=torch.int32, device=dev)
-                            * lp.d)[:, None] + coord_off
-                widx_parts.append((w2d[r0:r0 + n] + rows_off).reshape(-1))
+                w2 = w2d[r0:r0 + n]
+                if lp.layout == "coo":
+                    w2 = w2 + ((torch.arange(n, dtype=torch.int32,
+                                             device=dev) * lp.d)[:, None]
+                               + coord_off)
+                if lp.idx_len:
+                    widx_parts.append(w2.reshape(-1))
+                if lp.layout == "rice":
+                    count_parts.append(nw[r0:r0 + n])
+                else:
+                    static_idx_words += n * lp.idx_len
                 vals_parts.append(v2d[r0:r0 + n].reshape(-1))
-                static_idx_words += n * lp.idx_len
-                plans.append((e, lp, r0, v_off, i_off, coord_off))
+                plans.append((e, lp, r0, v_off, i_off, coord_off, c_off))
                 v_off += n * lp.val_len
                 i_off += n * lp.idx_len
                 coord_off += lp.block
+                c_off += n if lp.layout == "rice" else 0
             compaction.check_bucket_coords(coord_off, len(chunk))
+            gcounts = None
+            if count_parts:                  # phase one: RICE row lengths
+                counts = torch.cat(count_parts)
+                gcounts = _all_gather(counts, group)               # [m, R]
+                wire += counts.numel() * 4
+                used_words = used_words + counts.sum(dtype=torch.int64)
             gvals = _all_gather(torch.cat(vals_parts), group)      # [m, V]
-            gwidx = _all_gather(torch.cat(widx_parts), group)      # [m, I]
-            del vals_parts, widx_parts
-            wire += float(static_idx_words * 4)
-            upd_parts, coord_parts = [], []
-            for (e, lp, r0, v0, i0, c0) in plans:
-                upd, crd = wire_layout.unpack_gathered(
-                    lp, gvals[:, v0:v0 + lp.layers * lp.val_len],
-                    gwidx[:, i0:i0 + lp.layers * lp.idx_len], c0)
-                upd_parts.append(upd)
-                coord_parts.append(crd)
-            upd_all = torch.cat(upd_parts, dim=1)
-            coord_all = torch.cat(coord_parts, dim=1)
-            del gvals, gwidx, upd_parts, coord_parts
-            dense = torch.zeros(coord_off, dtype=F32, device=dev)
-            for w in range(m):                 # worker-major reduction order
-                dense.index_add_(0, coord_all[w], upd_all[w].to(F32))
-            del upd_all, coord_all
-            dense.div_(m)
-            for (e, lp, r0, _, _, c0) in plans:
+            gwidx = None
+            if widx_parts:                   # phase two: the index words
+                gwidx = _all_gather(torch.cat(widx_parts), group)  # [m, I]
+                wire += static_idx_words * 4
+            del vals_parts, widx_parts, count_parts
+            # a scratch tail past the chunk takes the dead RICE slots
+            dense = torch.zeros(coord_off + wire_layout.DROP_SLOTS,
+                                dtype=F32, device=dev)
+            for (e, lp, r0, v0, i0, c0, cc0) in plans:
+                decode_into(
+                    dense, lp, gvals[:, v0:v0 + lp.layers * lp.val_len],
+                    (gwidx[:, i0:i0 + lp.layers * lp.idx_len]
+                     if lp.idx_len else None),
+                    (gcounts[:, cc0:cc0 + lp.layers]
+                     if lp.layout == "rice" else None), c0, coord_off)
+            del gvals, gwidx, gcounts
+            dense = dense[:coord_off].div_(m)
+            for (e, lp, r0, _, _, c0, _) in plans:
                 _route_span(items[e][2], r0, lp.layers, lp.d,
                             dense[c0:c0 + lp.block], pieces, leaves)
-            wire += float(v_off) * itemsize
+            wire += v_off * itemsize
             del dense
         _assemble_pieces(pieces, leaves, out)
-    return out, wire, overflow
+    return out, used_words * 4 + wire, overflow
 
 
 def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
@@ -214,13 +281,15 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
         cfg, generator, grads, stacked=stacked, residual=residual)
     synced, wire, overflow = _bucketed_sync(items, grads, group, cfg)
     dev = grads[0].device
-    wire_t = torch.tensor(wire, dtype=F32, device=dev)
+    wire_t = wire.to(torch.float64)
     zero = torch.zeros((), dtype=F32, device=dev)
     out_stats = SyncStats(
         bits=stats.bits, dense_bits=stats.dense_bits, wire_bytes=wire_t,
         wire_bytes_intra=wire_t, wire_bytes_inter=zero,
         density=stats.density, var_ratio=stats.var_ratio,
-        overflow=overflow.to(F32), skipped=zero)
+        overflow=overflow.to(F32), skipped=zero,
+        layouts=tuple((sg.rows, sg.d, sg.k_cap, sg.layout)
+                      for kind, sg, _ in items if kind == "sparse"))
     new_feedback = (FeedbackState(residual=new_res)
                     if cfg.error_feedback else None)
     return synced, new_feedback, out_stats

@@ -1,17 +1,41 @@
 """Wire layouts for the bucketed sparse collectives (port of
-``repro.comm.wire_layout``, COO only).
+``repro.comm.wire_layout``, static-parameter layouts).
 
-A leaf's buffers travel under a statically chosen layout. This slice ships
-``coo``: ``k_cap`` codec-encoded values plus ``k_cap`` int32 coordinates
-per row. The bitmap, dense and Golomb-Rice layouts, and ``auto`` (the
-argmin over them, which picks RICE at the main path's density), are
-ROADMAP.md queue A item 8.
+Every ``SparseGrad`` group is stamped with a layout chosen from ``(k_cap,
+d)`` and the codec's wire width, and ``repro_torch.comm.sync`` packs and
+unpacks each bucket accordingly:
+
+  coo    -- k_cap values + k_cap int32 coordinates (the bucket offsets them)
+  bitmap -- k_cap values in coordinate order + a packed d-bit occupancy map
+  dense  -- d values in coordinate order, no index stream
+  rice   -- k_cap values in coordinate order + the sorted index stream
+            delta-coded with a static-parameter Golomb-Rice code, padded to
+            its static word capacity; the realized length of each row rides
+            phase one of a two-phase exchange (a gathered int32 counts
+            vector), which also prices the realized bytes
+
+``auto`` is the argmin of ``coding.realized_wire_bits`` over the four, with
+RICE at its worst-case capacity, so realized bytes only come in under the
+chosen bound. The data-fitted Rice parameter (wire-format v4) is ROADMAP.md
+queue A item 8.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.comm import compaction
+from repro_torch.core import coding
+
+LAYOUTS = ("coo", "bitmap", "dense", "rice")
+# Dead RICE slots add their zero values into a scratch tail of this many
+# coordinates past the bucket, spread over it so that the decode's atomic
+# adds do not pile onto one address.
+DROP_SLOTS = 1 << 16
+# tie-break by decode cost: dense (slice-add) < coo (scatter) < bitmap
+# (rank-gather) < rice (unary scan + prefix sum). Part of the wire format.
+_PREFERENCE = ("dense", "coo", "bitmap", "rice")
 
 
 def value_bits_of(dtype: torch.dtype) -> float:
@@ -20,23 +44,30 @@ def value_bits_of(dtype: torch.dtype) -> float:
 
 
 def choose(k_cap: int, d: int, value_bits: float,
-           override: str = "coo") -> str:
-    if override != "coo":
-        raise NotImplementedError(
-            f"wire layout {override!r} is not ported yet (ROADMAP.md queue A "
-            "item 8: bitmap, dense, rice and the auto chooser)")
-    return override
+           override: str = "auto") -> str:
+    """The layout of one group (per row): ``override`` when it names a
+    layout, else the one whose realized wire bits are least."""
+    if override != "auto":
+        if override not in LAYOUTS:
+            raise ValueError(f"unknown wire layout {override!r}; "
+                             f"have {LAYOUTS + ('auto',)}")
+        return override
+    return min(_PREFERENCE,
+               key=lambda l: coding.realized_wire_bits(l, k_cap, d,
+                                                       value_bits))
 
 
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
-    """Static wire description of one group's segments inside a bucket."""
+    """Static wire description of one group's segments inside a bucket. For
+    RICE ``idx_len`` is the word capacity (the static payload shape)."""
     layout: str
     layers: int              # rows of the group
     d: int                   # coordinates per row
     k_cap: int
     val_len: int             # value slots per row on the wire
     idx_len: int             # int32 index words per row on the wire
+    rice_r: int = 0          # static Golomb-Rice parameter (rice only)
 
     @property
     def block(self) -> int:
@@ -45,25 +76,89 @@ class LeafPlan:
 
 
 def plan(sg) -> LeafPlan:
-    if sg.layout != "coo":
-        choose(sg.k_cap, sg.d, 0.0, sg.layout)
-    return LeafPlan(layout="coo", layers=sg.rows, d=sg.d, k_cap=sg.k_cap,
-                    val_len=sg.k_cap, idx_len=sg.k_cap)
+    """The static wire plan of one SparseGrad, from its stamped layout."""
+    rice_r = 0
+    if sg.layout == "coo":
+        val_len, idx_len = sg.k_cap, sg.k_cap
+    elif sg.layout == "bitmap":
+        val_len, idx_len = sg.k_cap, compaction.bitmap_words(sg.d)
+    elif sg.layout == "dense":
+        val_len, idx_len = sg.d, 0
+    elif sg.layout == "rice":
+        rice_r = coding.rice_parameter(sg.k_cap, sg.d)
+        val_len = sg.k_cap
+        idx_len = compaction.rice_cap_words(sg.k_cap, sg.d, rice_r)
+    else:
+        raise ValueError(f"unknown wire layout {sg.layout!r}; have {LAYOUTS}")
+    return LeafPlan(layout=sg.layout, layers=sg.rows, d=sg.d, k_cap=sg.k_cap,
+                    val_len=val_len, idx_len=idx_len, rice_r=rice_r)
 
 
 def pack(sg, lp: LeafPlan) -> tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
-    """``(values [rows, val_len], index words [rows, idx_len], used word
-    counts [rows])``: for COO the compact pair itself (row-local
-    coordinates; the bucket adds its offsets) and zero counts."""
-    return sg.values, sg.idx, torch.zeros(lp.layers, dtype=torch.int32,
-                                          device=sg.idx.device)
+    """One SparseGrad's wire streams: ``(values [rows, val_len], index words
+    [rows, idx_len], used word counts [rows])``. COO words are row-local
+    coordinates (the bucket offsets them); bitmap and RICE words are opaque
+    bits; the counts are the RICE rows' realized lengths (zeros for the
+    fixed layouts). RICE ships the words the kernel packed
+    (``sg.rice_words``) as they are; bitmap packs sort-free from ``nnz``,
+    since the port's counting compaction is coordinate-sorted."""
+    if lp.layout == "rice":
+        if sg.rice_words is None:
+            raise ValueError("a RICE group ships the words its kernel "
+                             "packed; this SparseGrad has none")
+        return sg.values, sg.rice_words, sg.rice_used
+    zeros = torch.zeros(lp.layers, dtype=torch.int32, device=sg.idx.device)
+    if lp.layout == "coo":
+        return sg.values, sg.idx, zeros
+    if lp.layout == "dense":
+        # padding slots add exact zeros and live coordinates are unique, so
+        # this is the dense wire array bit for bit
+        vals = torch.zeros((lp.layers, lp.d), dtype=sg.values.dtype,
+                           device=sg.values.device)
+        vals.scatter_add_(1, sg.idx.long(), sg.values)
+        return vals, sg.idx.new_zeros((lp.layers, 0)), zeros
+    sv, words = compaction.bitmap_pack(sg.values, sg.idx, lp.d, nnz=sg.nnz)
+    return sv, words, zeros
 
 
 def unpack_gathered(lp: LeafPlan, decoded: torch.Tensor,
-                    widx: torch.Tensor | None,
-                    coord_off: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """One group's gathered, decoded segment -> scatter-ready ``(updates
-    [m, X], coords [m, X])`` in the bucket's flat space; COO words arrive
-    already offset."""
-    return decoded, widx
+                    widx: torch.Tensor | None, coord_off: int,
+                    wcounts: torch.Tensor | None = None, *,
+                    drop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One group's gathered segment -> scatter-ready ``(updates [m, X],
+    coords [m, X])`` in the bucket's flat space.
+
+    ``decoded [m, layers * val_len]`` are the gathered values, ``widx [m,
+    layers * idx_len]`` the index words (COO words arrive offset; None for
+    dense), ``wcounts [m, layers]`` the phase-one counts of a RICE group:
+    padding words past each worker's count are zeroed before the decode.
+    Dead RICE slots (zero value) point into ``[drop, drop + DROP_SLOTS)``,
+    a scratch tail past the bucket that the caller discards (``index_add_``
+    has no drop mode, and a boolean filter would sync with the host)."""
+    m = decoded.shape[0]
+    if lp.layout == "coo":
+        return decoded, widx
+    if lp.layout == "rice":
+        words = widx.reshape(m, lp.layers, lp.idx_len)
+        if wcounts is not None:
+            words = torch.where(
+                torch.arange(lp.idx_len, dtype=torch.int32,
+                             device=words.device) < wcounts[..., None],
+                words, 0)
+        sidx = compaction.rice_decode(words, lp.k_cap, lp.d, lp.rice_r)
+        del words
+        rows_off = (torch.arange(lp.layers, dtype=torch.int32,
+                                 device=sidx.device) * lp.d)[None, :, None]
+        coords = (sidx + rows_off + coord_off).reshape(m, -1)
+        spread = torch.arange(coords.shape[1], dtype=torch.int32,
+                              device=coords.device) & (DROP_SLOTS - 1)
+        return decoded, torch.where(decoded != 0, coords, spread + drop)
+    iota = torch.arange(lp.block, dtype=torch.int32, device=decoded.device)
+    iota = (iota + coord_off).expand(m, lp.block)
+    if lp.layout == "dense":
+        return decoded, iota
+    dense = compaction.bitmap_select(
+        widx.reshape(m, lp.layers, lp.idx_len),
+        decoded.reshape(m, lp.layers, lp.val_len), lp.d)
+    return dense.reshape(m, lp.block), iota

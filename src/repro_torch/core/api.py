@@ -33,9 +33,10 @@ class CompressionConfig:
     This slice implements the paper's Algorithm 1 with Algorithm 3 on the
     sparse gather wire: selector ``gspar`` with ``algo="greedy"``, the
     ``f32`` (leaf dtype on the wire) and ``bf16`` codecs, ``wire="gather"``
-    with ``wire_layout="coo"`` and ``exchange="sync"``, with or without
-    error feedback. Every other value raises NotImplementedError naming the
-    ROADMAP.md item that ports it; invalid values raise ValueError.
+    with every static wire layout (``auto``, ``coo``, ``bitmap``, ``dense``,
+    ``rice``) and ``exchange="sync"``, with or without error feedback.
+    Every other value raises NotImplementedError naming the ROADMAP.md item
+    that ports it; invalid values raise ValueError.
     """
     name: str = "gspar"              # selector[+codec] composition
     rho: float = 0.1                 # target density
@@ -46,7 +47,9 @@ class CompressionConfig:
     error_feedback: bool = False     # carry the compression residual
     min_leaf_size: int = 256         # leaves smaller than this travel dense
     wire: str = "gather"             # gather (dense / packed: not ported)
-    wire_layout: str = "coo"         # coo (auto / bitmap / dense / rice: not)
+    wire_layout: str = "auto"        # auto (argmin bytes) / coo / bitmap /
+                                     # dense / rice
+    rice_fitted: bool = False        # data-fitted Rice parameter (not ported)
     capacity_slack: float = 1.25     # k_cap slack over rho * d
     exchange: str = "sync"           # sync (overlap: not ported)
     bucket_coord_cap: int = 2**31 - 1   # coords per sparse wire chunk
@@ -65,8 +68,8 @@ class CompressionConfig:
         if self.wire_layout not in ("auto", "coo", "bitmap", "dense",
                                     "rice"):
             raise ValueError(f"unknown wire layout {self.wire_layout!r}")
-        if self.wire_layout != "coo":
-            raise _not_ported(f"wire_layout={self.wire_layout!r}",
+        if self.rice_fitted:
+            raise _not_ported("rice_fitted=True (wire-format v4)",
                               "queue A item 8")
         if not 1 <= self.bucket_coord_cap <= 2**31 - 1:
             raise ValueError(f"bucket_coord_cap={self.bucket_coord_cap} is "

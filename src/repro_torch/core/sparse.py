@@ -4,9 +4,10 @@
 
 ``SparseGrad`` is the wire form of one compressed shape group: fixed-
 capacity ``values [rows, k_cap]`` (codec-encoded, wire dtype) and ``idx
-[rows, k_cap]`` (int32, ascending per row; padding slots idx 0 / value 0)
-plus per-row accounting. Selection happens once, in the backend; the sync
-layer ships the buffers as they are.
+[rows, k_cap]`` (int32, ascending per row; padding slots idx 0 / value 0),
+under the RICE layout also the index words the kernel packed, plus per-row
+accounting. Selection happens once, in the backend; the sync layer ships
+the buffers as they are.
 
 ``KernelBackend`` runs the two-pass emit of ``repro_torch.kernels.sparsify``
 on a whole group: the CUDA kernels for tensors on the card, their plain
@@ -41,7 +42,13 @@ class SparseGrad:
     scale: torch.Tensor        # [rows] codec scale (ones for float codecs)
     d: int                     # coordinates per row
     codec: str = "f32"
-    layout: str = "coo"
+    layout: str = "coo"        # wire layout (comm.wire_layout), stamped
+                               # from (k_cap, d, wire width)
+    rice_words: torch.Tensor | None = None
+                               # [rows, cap_words] Golomb-Rice index words
+                               # the kernel packed (rice layout only)
+    rice_used: torch.Tensor | None = None
+                               # [rows] used words of rice_words
 
     @property
     def k_cap(self) -> int:
@@ -88,9 +95,14 @@ class KernelBackend:
         ``u``. Returns the EmitResult, the wire layout and lambda."""
         scheme = cfg.scheme()
         sel, codec = scheme.selector, scheme.codec
-        layout = _choose_layout(cfg, codec, g.dtype, k_cap, g.shape[1])
+        d = g.shape[1]
+        # the layout is static in (k_cap, d, wire width), so it is decided
+        # before the kernels: under RICE they pack the index words too
+        layout = _choose_layout(cfg, codec, g.dtype, k_cap, d)
+        rice_r = coding.rice_parameter(k_cap, d) if layout == "rice" else -1
         er, lam = ops.gspar_emit(g, u, k_cap=k_cap, rho=sel.rho,
-                                 num_iters=sel.num_iters, codec=codec, ef=ef)
+                                 num_iters=sel.num_iters, codec=codec,
+                                 rice_r=rice_r, ef=ef)
         return er, layout, lam
 
     def _finish(self, scheme, g, er, layout, lam) -> SparseGrad:
@@ -119,4 +131,5 @@ class KernelBackend:
         return SparseGrad(values=er.values, idx=er.idx, nnz=er.nnz,
                           p_sum=er.p_sum, bits=bits, var_ratio=var,
                           scale=er.scale, d=d, codec=codec.name,
-                          layout=layout)
+                          layout=layout, rice_words=er.rice_words,
+                          rice_used=er.rice_used)

@@ -1,27 +1,33 @@
 // Hand-written Hopper (sm_90a) kernels for the gspar sparse emit path.
 //
-// They replace the four Pallas TPU kernels of src/repro/kernels/sparsify/
-// kernel.py that Algorithm 3 on the sparse gather wire runs:
+// They replace the Pallas TPU kernels of src/repro/kernels/sparsify/
+// kernel.py that Algorithm 3 on the sparse gather wire runs (the RICE parts
+// of compact_emit_2d become a fifth kernel here):
 //
 //   stats_l1max   <- stats_l1max_2d   (kernel.py:275)  (sum|g|, max|g|) per row
 //   tail_stats    <- tail_stats_2d    (kernel.py:195)  (count, sum|g|) of |g| < t
 //   select_stats  <- select_stats_2d  (kernel.py:384)  pass 1 of the compaction
 //   compact_emit  <- compact_emit_2d  (kernel.py:559)  pass 2: compact write
+//   rice_pack     <- compact_emit_2d  (kernel.py:497-556, the rice_r >= 0
+//                    parts)  Golomb-Rice packing of the compact idx stream
 //
 // Layout. Every kernel takes one shape group as a row-major [rows, d] batch
-// (one launch per group, as the vmap over the group is on the TPU): the grid
-// is (tiles, rows), blockIdx.y is the row, and each block owns kTile
-// consecutive coordinates of its row. Per-row scalars (lambda, the threshold,
-// the saturation gate) are read from device memory, so no host round trip
-// sits between the solver's passes. The ragged end of a row is masked here;
-// nothing is padded into a tile layout.
+// (rice_pack: the group's compact [rows, k_cap] idx), one launch per group,
+// as the vmap over the group is on the TPU: the grid is (tiles, rows),
+// blockIdx.y is the row, and each block owns kTile consecutive coordinates
+// of its row. Per-row scalars (lambda, the threshold, the saturation gate)
+// are read from device memory, so no host round trip sits between the
+// solver's passes. The ragged end of a row is masked here; nothing is
+// padded into a tile layout.
 //
-// What bounds them. All four stream the gradient (bf16 on the main path) and,
-// for the two compaction passes, f32 uniforms: they are bound by device
-// memory bandwidth (2 B/coord for the reductions, 6 B/coord for pass 1,
-// 8 B/coord plus the compact output and the EF residual for pass 2). Each
-// thread therefore loads kItems consecutive elements per sweep (one 16-byte
-// vector load of bf16, two of f32) and keeps its partial sums in registers.
+// What bounds them. The first four stream the gradient (bf16 on the main
+// path) and, for the two compaction passes, f32 uniforms: they are bound by
+// device memory bandwidth (2 B/coord for the reductions, 6 B/coord for pass
+// 1, 8 B/coord plus the compact output and the EF residual for pass 2).
+// Each thread therefore loads kItems consecutive elements per sweep (one
+// 16-byte vector load of bf16, two of f32) and keeps its partial sums in
+// registers. rice_pack reads the compact idx and writes the code words (see
+// its section).
 //
 // Order without a sequential grid. The TPU carries the compact rank from tile
 // to tile in SMEM across a grid that runs in order. Hopper blocks run in no
@@ -530,6 +536,153 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 5: Golomb-Rice packing of the compact index stream (the RICE wire
+// layout), from pass 2's ascending idx[rows, k_cap] and pass 1's nnz. Per row,
+// with n_live = min(nnz, k_cap), live code i has x_i = idx_i - idx_{i-1} - 1
+// (idx_{-1} = -1) and q_i = x_i >> r; dead codes have x = 0. The stream is
+// [k_cap*r remainder bits | unary field] in cap_words zeroed int32 words: the
+// low r bits of x_i at bit i*r, the terminator of code i at unary position
+// sum_{j<=i} q_j + i, and one-bits below live_end = sum q + n_live except at
+// terminators. used = ceil((k_cap*r + sum q + k_cap) / 32).
+//
+// The TPU packs inside pass 2 and carries the previous coordinate and the
+// running quotient sum across its sequential grid in SMEM. Here the packing
+// reads the compact buffer instead, so those carries become a scan over the
+// k_cap codes: rice_tiles sums q per block of kRiceTile codes (the previous
+// code's index is one load across the block edge), rice_scan turns the sums
+// into per-block unary bases, rice_write writes the remainders (a warp's 32
+// codes own r whole words: an OR-reduction over the warp and plain stores)
+// and sets the terminators with atomicOr (disjoint bits: the same words in
+// any order), and rice_finalize flips each unary word below live_end. Bound:
+// one read of each row's live idx prefix (4 B per live code; dead codes are
+// never loaded) and one write of the words.
+// ---------------------------------------------------------------------------
+
+constexpr int64_t kRiceTile = 8 * kThreads;    // codes per block
+
+struct RiceCode {
+  int64_t x;      // gap - 1 (0 for dead codes and codes past k_cap)
+  bool live;
+};
+
+__device__ __forceinline__ RiceCode rice_code(const int* __restrict__ irow,
+                                              int64_t i, int64_t n_live) {
+  RiceCode c;
+  c.live = i < n_live;
+  const int64_t prev = i > 0 && c.live ? irow[i - 1] : -1;
+  c.x = c.live ? (int64_t)irow[i] - prev - 1 : 0;
+  return c;
+}
+
+__device__ __forceinline__ int64_t live_count(const int* __restrict__ nnz,
+                                              int64_t row, int64_t k_cap) {
+  const int64_t n = nnz[row];
+  return n < k_cap ? n : k_cap;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rice_tiles(const int* __restrict__ idx, const int* __restrict__ nnz,
+           int64_t k_cap, int r, int64_t nb, int* __restrict__ qsum) {
+  const int64_t row = blockIdx.y, b = blockIdx.x;
+  const int* irow = idx + row * k_cap;
+  const int64_t n_live = live_count(nnz, row, k_cap);
+  const int64_t start = b * kRiceTile;
+  const int64_t end = k_cap < start + kRiceTile ? k_cap : start + kRiceTile;
+  int s = 0;
+  for (int64_t i = start + threadIdx.x; i < end; i += kThreads)
+    s += (int)(rice_code(irow, i, n_live).x >> r);
+  __shared__ int sh[32];
+  s = block_sum(s, sh);
+  if (threadIdx.x == 0) qsum[row * nb + b] = s;
+}
+
+// One block per row: exclusive scan of the block quotient sums into unary
+// bases; the row's used word count and the end of its live unary bits.
+__global__ void __launch_bounds__(kThreads)
+rice_scan(const int* __restrict__ qsum, const int* __restrict__ nnz,
+          int64_t k_cap, int r, int64_t nb, int* __restrict__ qbase,
+          int* __restrict__ used, long long* __restrict__ live_end) {
+  const int64_t row = blockIdx.x;
+  __shared__ int sh_scan[33];
+  long long running = 0;
+  for (int64_t c0 = 0; c0 < nb; c0 += blockDim.x) {
+    const int64_t b = c0 + threadIdx.x;
+    const int q = b < nb ? qsum[row * nb + b] : 0;
+    int total;
+    const int ex = block_excl_scan(q, &total, sh_scan);
+    if (b < nb) qbase[row * nb + b] = (int)(running + ex);
+    running += total;
+  }
+  if (threadIdx.x == 0) {
+    used[row] = (int)((k_cap * r + running + k_cap + 31) / 32);
+    live_end[row] = running + live_count(nnz, row, k_cap);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rice_write(const int* __restrict__ idx, const int* __restrict__ nnz,
+           int64_t k_cap, int r, int64_t nb, int64_t cap_words,
+           const int* __restrict__ qbase, unsigned* __restrict__ words) {
+  const int64_t row = blockIdx.y, b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int* irow = idx + row * k_cap;
+  unsigned* wrow = words + row * cap_words;
+  const int64_t n_live = live_count(nnz, row, k_cap);
+  const int64_t rem_bits = k_cap * r;            // the remainder field
+  const unsigned rmask = (1u << r) - 1u;
+  __shared__ int sh_scan[33];
+  long long carry = qbase[row * nb + b];
+  // every thread runs every sweep: the warp and block collectives below
+  for (int64_t s = b * kRiceTile; s < (b + 1) * kRiceTile; s += kThreads) {
+    const int64_t i = s + threadIdx.x;
+    const RiceCode c = i < k_cap ? rice_code(irow, i, n_live)
+                                 : RiceCode{0, false};
+    const int q = (int)(c.x >> r);
+    int total;
+    const int ex = block_excl_scan(q, &total, sh_scan);
+    if (c.live) {
+      const int64_t bit = rem_bits + carry + ex + q + i;   // terminator
+      atomicOr(wrow + (bit >> 5), 1u << (bit & 31));
+    }
+    carry += total;
+    // this warp's 32 codes start at a multiple of 32, so their remainders
+    // fill exactly r words: word j gathers every lane's bits that land there
+    const int64_t w0 = (i - lane) * r / 32;
+    const unsigned rem = (unsigned)c.x & rmask;
+    for (int j = 0; j < r; ++j) {
+      const int off = lane * r - 32 * j;
+      unsigned part = 0u;
+      if (off >= 0 && off < 32) part = rem << off;
+      else if (off < 0 && -off < r) part = rem >> (-off);
+      const unsigned w = __reduce_or_sync(kFull, part);
+      const int64_t wi = w0 + j;
+      if (lane == j) {
+        if ((wi + 1) * 32 <= rem_bits) wrow[wi] = w;
+        else if (wi * 32 < rem_bits && w) atomicOr(wrow + wi, w);  // shares
+      }                                            // its word with the unary
+    }
+  }
+}
+
+// Unary field: one-bits below live_end except at the terminators, so each
+// word's unary bits below live_end flip. Remainder bits are left alone.
+__global__ void __launch_bounds__(kThreads)
+rice_finalize(int64_t k_cap, int r, int64_t cap_words,
+              const long long* __restrict__ live_end,
+              unsigned* __restrict__ words) {
+  const int64_t row = blockIdx.y;
+  const int64_t wi = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (wi >= cap_words) return;
+  const int64_t lo = k_cap * r, hi = lo + live_end[row];
+  const int64_t wb = wi * 32;
+  const int64_t a = (lo > wb ? lo : wb) - wb;
+  const int64_t e = (hi < wb + 32 ? hi : wb + 32) - wb;
+  if (a >= e) return;
+  const unsigned below_e = e >= 32 ? ~0u : (1u << e) - 1u;
+  words[row * cap_words + wi] ^= below_e & ~((1u << a) - 1u);
+}
+
 inline unsigned grid_x(int64_t ntiles) { return (unsigned)ntiles; }
 
 }  // namespace
@@ -543,6 +696,7 @@ inline unsigned grid_x(int64_t ntiles) { return (unsigned)ntiles; }
 extern "C" {
 
 long long gspar_tile(void) { return kTile; }
+long long gspar_rice_tile(void) { return kRiceTile; }
 
 const char* gspar_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -645,6 +799,28 @@ int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
         (int*)idx, (float*)res, round_res);
   else
     return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
+                    long long k_cap, int r, long long cap_words, void* qsum,
+                    void* qbase, void* live_end, void* words, void* used,
+                    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
+  dim3 grid(grid_x(nb), (unsigned)rows);
+  rice_tiles<<<grid, kThreads, 0, st>>>((const int*)idx, (const int*)nnz,
+                                        k_cap, r, nb, (int*)qsum);
+  rice_scan<<<(unsigned)rows, kThreads, 0, st>>>(
+      (const int*)qsum, (const int*)nnz, k_cap, r, nb, (int*)qbase,
+      (int*)used, (long long*)live_end);
+  rice_write<<<grid, kThreads, 0, st>>>(
+      (const int*)idx, (const int*)nnz, k_cap, r, nb, cap_words,
+      (const int*)qbase, (unsigned*)words);
+  dim3 fgrid((unsigned)((cap_words + kThreads - 1) / kThreads),
+             (unsigned)rows);
+  rice_finalize<<<fgrid, kThreads, 0, st>>>(
+      k_cap, r, cap_words, (const long long*)live_end, (unsigned*)words);
   return (int)cudaGetLastError();
 }
 

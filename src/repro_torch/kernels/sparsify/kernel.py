@@ -1,9 +1,11 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/sparsify.cu``.
 
-The four kernels of the gspar sparse emit path, ported from the Pallas TPU
+The kernels of the gspar sparse emit path, ported from the Pallas TPU
 kernels of ``repro.kernels.sparsify.kernel`` (file and line in each
-wrapper's docstring). Each wrapper takes one shape group as a ``[rows, d]``
-batch and per-row scalar tensors, as the vmap over a group is on the TPU:
+wrapper's docstring): the four passes of Algorithm 3's emit and the
+Golomb-Rice packing of the RICE wire layout. Each wrapper takes one shape
+group as a ``[rows, d]`` batch (``[rows, k_cap]`` for the packing) and
+per-row scalar tensors, as the vmap over a group is on the TPU:
 
 - a tensor on the CPU goes to the plain PyTorch version in ``ref.py``;
 - a tensor on a CUDA device launches the kernel, or raises. There is no
@@ -17,9 +19,10 @@ kernels on PyTorch's current stream, allocates outputs and scratch with
 PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
 ``LAUNCHES[name]``: the count of kernel launches a run can read back.
 
-What bounds each kernel on an H100 (3.35 TB/s of HBM): all four are
-memory-bound streams over the group, so their bound is the bytes they must
-move over the memory rate; see each docstring and PERF.md.
+What bounds each kernel on an H100 (3.35 TB/s of HBM): all five are
+memory-bound streams over the group (or its compact buffer), so their bound
+is the bytes they must move over the memory rate; see each docstring and
+PERF.md.
 """
 from __future__ import annotations
 
@@ -32,11 +35,14 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.comm.compaction import rice_cap_words
 from repro_torch.kernels.sparsify import ref
 from repro_torch.kernels.sparsify.ref import SelectStats
 
 TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
-KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit")
+RICE_TILE = 2048      # codes per CUDA block; must equal kRiceTile in the .cu
+KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
+           "rice_pack")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _REPO = Path(__file__).resolve().parents[4]
@@ -53,6 +59,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "gspar_tile": ((), _L),
+    "gspar_rice_tile": ((), _L),
     "gspar_error_string": ((_I,), ctypes.c_char_p),
     "gspar_stats_l1max": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P), _I),
     "gspar_tail_stats": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P), _I),
@@ -60,6 +67,7 @@ _SIGNATURES = {
                            + (_P,) * 13 + (_P,), _I),
     "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _P, _P, _L, _P, _I,
                             _P, _P, _I, _P), _I),
+    "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L) + (_P,) * 5 + (_P,), _I),
 }
 
 
@@ -101,8 +109,10 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(args)
             fn.restype = res
-        if lib.gspar_tile() != TILE:
-            raise RuntimeError(f"kernel tile {lib.gspar_tile()} != {TILE}")
+        if (lib.gspar_tile(), lib.gspar_rice_tile()) != (TILE, RICE_TILE):
+            raise RuntimeError(
+                f"kernel tiles {lib.gspar_tile()}, {lib.gspar_rice_tile()} "
+                f"!= {TILE}, {RICE_TILE}")
         _lib_handle = lib
     return _lib_handle
 
@@ -266,3 +276,47 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
         _ptr(idx), _ptr(res), int(round_residual), _stream(g)),
         "compact_emit")
     return vals, idx, res
+
+
+
+def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
+              r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Golomb-Rice packing of pass 2's compact index stream: ``idx [rows,
+    k_cap]`` (int32, ascending over the first ``min(nnz, k_cap)`` slots) ->
+    ``(words [rows, rice_cap_words(k_cap, d, r)], used [rows])``, int32,
+    bit-equal to ``compaction.rice_encode(values, idx, d, r, nnz=nnz)``.
+    Replaces the ``rice_r >= 0`` parts of ``compact_emit_2d``
+    (src/repro/kernels/sparsify/kernel.py:497-556, ``pallas_call`` at :612),
+    which pack inside pass 2; this kernel packs from the compact buffer
+    after it. Bound: one read of each row's live idx prefix (4 B per live
+    code) and one write of the words."""
+    if idx.dim() != 2 or idx.dtype != torch.int32:
+        raise ValueError("rice_pack: idx must be an int32 [rows, k_cap] "
+                         "tensor")
+    if nnz.shape != idx.shape[:1] or nnz.dtype != torch.int32:
+        raise ValueError("rice_pack: nnz must be int32 [rows]")
+    if not 0 <= r <= 30:
+        raise ValueError(f"rice_pack: r={r} outside [0, 30]")
+    rows, k_cap = idx.shape
+    cap_words = rice_cap_words(k_cap, d, r)
+    if idx.device.type == "cpu":
+        return ref.rice_pack_ref(idx, nnz, d, r)
+    if idx.device.type != "cuda" or nnz.device != idx.device:
+        raise ValueError(f"rice_pack: no kernel for devices {idx.device}, "
+                         f"{nnz.device}")
+    if not (idx.is_contiguous() and nnz.is_contiguous()):
+        raise ValueError("rice_pack: idx and nnz must be contiguous")
+    if rows > 65535 or k_cap >= 2**31:
+        raise ValueError(f"rice_pack: [{rows}, {k_cap}] exceeds the grid")
+    dev = idx.device
+    nb = ref.ntiles(k_cap, RICE_TILE)
+    qsum = torch.empty((rows, nb), dtype=torch.int32, device=dev)
+    qbase = torch.empty((rows, nb), dtype=torch.int32, device=dev)
+    live_end = torch.empty(rows, dtype=torch.int64, device=dev)
+    words = torch.zeros((rows, cap_words), dtype=torch.int32, device=dev)
+    used = torch.empty(rows, dtype=torch.int32, device=dev)
+    _check(_lib().gspar_rice_pack(
+        _ptr(idx), _ptr(nnz), rows, k_cap, r, cap_words, _ptr(qsum),
+        _ptr(qbase), _ptr(live_end), _ptr(words), _ptr(used), _stream(idx)),
+        "rice_pack")
+    return words, used

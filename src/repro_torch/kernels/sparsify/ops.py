@@ -5,9 +5,11 @@
 Algorithm 3 (greedy lambda) fully on the device: one stats pass, up to
 ``num_iters`` saturation-aware tail passes driving the scalar rescale, then
 the two-pass compact emit — pass 1 reduces survivor counts and the codec
-scale statistics, pass 2 writes the wire buffers. Everything runs over one
-shape group ``[rows, d]`` with per-row scalars, so a group is one launch per
-kernel, and no scalar is read back to the host between the passes.
+scale statistics, pass 2 writes the wire buffers — and, for the RICE wire
+layout (``rice_r >= 0``), the Golomb-Rice packing of pass 2's index
+stream. Everything runs over one shape group ``[rows, d]`` with per-row
+scalars, so a group is one launch per kernel, and no scalar is read back to
+the host between the passes.
 
 The JAX ops layer pads every leaf into the TPU tile layout (``_pad_2d``) and
 corrects the tail counts for the padding; the CUDA kernels mask the ragged
@@ -71,8 +73,10 @@ class EmitResult(NamedTuple):
     /``idx`` the compact buffers (values in the wire dtype, idx ascending by
     coordinate, padding slots idx 0 / value 0), ``nnz`` the survivors before
     the capacity cut, ``nonzeros`` the support, ``p_sum``/``den`` sum p and
-    sum g^2, ``scale`` the codec scale, ``residual`` the EF residual
-    ``g - wire value`` (None without EF)."""
+    sum g^2, ``scale`` the codec scale, ``rice_words``/``rice_used`` the
+    Golomb-Rice index words and their used count (None unless ``rice_r >=
+    0``), ``residual`` the EF residual ``g - wire value`` (None without
+    EF)."""
     values: torch.Tensor
     idx: torch.Tensor
     nnz: torch.Tensor
@@ -80,6 +84,8 @@ class EmitResult(NamedTuple):
     p_sum: torch.Tensor
     den: torch.Tensor
     scale: torch.Tensor
+    rice_words: torch.Tensor | None
+    rice_used: torch.Tensor | None
     residual: torch.Tensor | None
 
 
@@ -87,29 +93,36 @@ _F32 = codecs_lib.FloatCodec()
 
 
 def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor, lam: torch.Tensor, *,
-              codec, k_cap: int, ef: bool) -> EmitResult:
-    """Pass 1 select + reduce, the codec scale, pass 2 compact write."""
+              codec, k_cap: int, rice_r: int, ef: bool) -> EmitResult:
+    """Pass 1 select + reduce, the codec scale, pass 2 compact write, and
+    with ``rice_r >= 0`` the Golomb-Rice packing of the compact idx."""
     sel = K.select_stats(g2d, u2d, lam, k_cap)
     scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
     vals, idx, res = K.compact_emit(
         g2d, u2d, lam, sel.base, k_cap=k_cap,
         wire_dtype=codec.wire_dtype(g2d.dtype), ef=ef,
         round_residual=codec.rounds_values)
+    words = used = None
+    if rice_r >= 0:
+        words, used = K.rice_pack(idx, sel.nnz, d=g2d.shape[1], r=rice_r)
     return EmitResult(vals, idx, sel.nnz, sel.nonzeros, sel.p_sum, sel.den,
-                      scale, res)
+                      scale, words, used, res)
 
 
 def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor, *, k_cap: int,
                rho: float = 0.1, num_iters: int = 2, codec=_F32,
-               ef: bool = False) -> tuple[EmitResult, torch.Tensor]:
+               rice_r: int = -1, ef: bool = False
+               ) -> tuple[EmitResult, torch.Tensor]:
     """Algorithm 3 on a ``[rows, d]`` group: stats -> per-row lambda ->
-    two-pass compact emit, with the uniforms ``u2d`` (float32, shaped like
-    ``g2d``) as input. Returns ``(EmitResult, lam)``."""
+    two-pass compact emit (and the RICE packing with ``rice_r >= 0``), with
+    the uniforms ``u2d`` (float32, shaped like ``g2d``) as input. Returns
+    ``(EmitResult, lam)``."""
     if g2d.dim() != 2:
         raise ValueError(f"gspar_emit takes a [rows, d] group, got "
                          f"{tuple(g2d.shape)}")
     l1, mx = K.stats_l1max(g2d)
     lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
                         tail_fn=_kernel_tail_fn(g2d))
-    er = _two_pass(g2d, u2d, lam, codec=codec, k_cap=k_cap, ef=ef)
+    er = _two_pass(g2d, u2d, lam, codec=codec, k_cap=k_cap, rice_r=rice_r,
+                   ef=ef)
     return er, lam

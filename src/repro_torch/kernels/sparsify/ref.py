@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.comm import compaction
+
 F32 = torch.float32
 F64 = torch.float64
 
@@ -137,3 +139,21 @@ def compact_emit_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
             enc = ev.to(F32) if round_residual else v
             res[r] = (x - torch.where(z, enc, 0.0)).to(g.dtype)
     return vals, idx, res
+
+
+def rice_pack_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
+                  r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Golomb-Rice packing of each row's compact stream ``idx [rows, k_cap]``
+    (ascending over its first ``min(nnz, k_cap)`` slots): the port's
+    encoder, ``compaction.rice_encode``'s sorted path, row by row. Returns
+    ``(words [rows, rice_cap_words], used [rows])``, int32."""
+    rows, k_cap = idx.shape
+    cap = compaction.rice_cap_words(k_cap, d, r)
+    words = torch.empty((rows, cap), dtype=torch.int32, device=idx.device)
+    used = torch.empty(rows, dtype=torch.int32, device=idx.device)
+    for row in range(rows):
+        _, sidx = compaction.coordinate_order(idx[row], idx[row], d,
+                                              nnz=nnz[row])
+        words[row], used[row] = compaction._rice_pack_gaps(
+            compaction._rice_gaps(sidx, d), r, cap)
+    return words, used

@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile --out prof.json -- \\
         --arch gemma-2b --steps 2 --compressor gspar --rho 0.05 \\
-        --wire gather --wire-layout coo --error-feedback
+        --wire gather --error-feedback
 
 Runs ``repro_torch.launch.train`` with the given arguments (after ``--``)
 inside a profiler that traces the CPU and the card, and prints one JSON

@@ -2,14 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --steps 3 --compressor gspar --rho 0.05 --wire gather \\
-        --wire-layout coo --error-feedback
+        --error-feedback
 
 Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
 the CPU), so the exchange goes through ``torch.distributed`` either way;
 under ``torchrun`` (``WORLD_SIZE`` in the environment) each process is one
 data-parallel worker. ``--num-periods`` cuts the depth; widths are never
-narrowed.
+narrowed. ``--wire-layout`` defaults to ``auto``, as in the JAX launcher:
+each shape group takes the layout with the fewest wire bytes (RICE on every
+gemma-2b group at rho 0.05), printed once per group after the first step.
 """
 from __future__ import annotations
 
@@ -71,7 +73,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rho", type=float, default=0.05)
     ap.add_argument("--wire", default="gather",
                     choices=["dense", "gather", "packed"])
-    ap.add_argument("--wire-layout", default="coo",
+    ap.add_argument("--wire-layout", default="auto",
                     choices=["auto", "coo", "bitmap", "dense", "rice"])
     ap.add_argument("--exchange", default="sync", choices=["sync", "overlap"])
     ap.add_argument("--error-feedback", action="store_true")
@@ -85,8 +87,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Run the launcher; returns a summary: ``metrics`` (a dict of floats
-    per step), ``step_seconds``, ``params`` and, on the card,
-    ``max_memory_allocated``."""
+    per step), ``step_seconds``, ``params``, ``layouts`` (``(rows, d, k_cap,
+    layout)`` per sparse group) and, on the card, ``max_memory_allocated``."""
     args = parse_args(argv)
     spec = registry.get(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
@@ -144,6 +146,9 @@ def _train(args, cfg, comp, device) -> dict:
         m = {k: float(v) for k, v in metrics.items()}    # waits for the step
         step_seconds.append(time.perf_counter() - t0)
         history.append(m)
+        if rank == 0 and step_i == 0:
+            for rows, d, k_cap, layout in train_step.layouts:
+                print(f"group [{rows}, {d}] k_cap {k_cap}: layout {layout}")
         if rank == 0 and (step_i % args.log_every == 0
                           or step_i == args.steps - 1):
             print(f"step {step_i:>5} loss {m['loss']:.4f} "
@@ -152,7 +157,7 @@ def _train(args, cfg, comp, device) -> dict:
                   f"overflow {m['overflow']:.0f} "
                   f"({step_seconds[-1]:.3f} s)", flush=True)
     summary = {"metrics": history, "step_seconds": step_seconds,
-               "params": n_params}
+               "params": n_params, "layouts": list(train_step.layouts)}
     if device.type == "cuda":
         summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device)

@@ -32,9 +32,10 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
 
 
 def _mean_over_workers(xs: list[torch.Tensor], group) -> list[torch.Tensor]:
-    """pmean over the data-parallel group, as one all-reduce."""
+    """pmean over the data-parallel group, as one all-reduce, in float64 so
+    that the wire byte counts stay exact."""
     m = dist.get_world_size(group)
-    flat = torch.stack([x.to(torch.float32) for x in xs])
+    flat = torch.stack([x.to(torch.float64) for x in xs])
     dist.all_reduce(flat, group=group)
     return list((flat / m).unbind())
 
@@ -49,10 +50,13 @@ def make_compressed_train_step(model, comp: CompressionConfig,
     ef_state, batch, generator) -> (opt_state, ef_state, metrics)``, where
     ``ef_state`` is this worker's FeedbackState. The model's parameters are
     updated in place; ``generator`` draws this worker's compression
-    uniforms. Metrics are float32 scalars on the model's device, averaged
-    over the workers."""
+    uniforms. Metrics are float64 scalars on the model's device, averaged
+    over the workers. After each call, ``step.layouts`` holds the ``(rows,
+    d, k_cap, layout)`` stamped on each sparse group (``SyncStats.layouts``)."""
     loss_fn = make_loss_fn(model.cfg)
     params = model.leaves()
+    layouts: list = []          # a holder, so that no closure cycle keeps
+                                # the model alive after the step is dropped
 
     def _step(opt_state, ef_state, batch, generator):
         for p in params:
@@ -71,15 +75,15 @@ def make_compressed_train_step(model, comp: CompressionConfig,
             group)
         metrics = dict(zip(("loss",) + SyncStats.FIELDS, vals))
         _, opt_state = opt.update(synced, opt_state, params)
+        layouts[:] = stats.layouts
         return opt_state, new_fb, metrics
 
     if comp.error_feedback:
-        def train_step_ef(opt_state, ef_state: FeedbackState, batch,
-                          generator):
+        def step(opt_state, ef_state: FeedbackState, batch, generator):
             return _step(opt_state, ef_state, batch, generator)
-        return train_step_ef
-
-    def train_step(opt_state, batch, generator):
-        opt_state, _, metrics = _step(opt_state, None, batch, generator)
-        return opt_state, metrics
-    return train_step
+    else:
+        def step(opt_state, batch, generator):
+            opt_state, _, metrics = _step(opt_state, None, batch, generator)
+            return opt_state, metrics
+    step.layouts = layouts
+    return step

@@ -5,12 +5,15 @@ GPU machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Counts, kept coordinates, values and the EF residual bit-equal; sums
-within rtol 1e-6 (float64 accumulation on both sides, rounded once)."""
+Counts, kept coordinates, values, the EF residual and the Golomb-Rice
+words bit-equal; sums within rtol 1e-6 (float64 accumulation on both sides,
+rounded once)."""
 import pytest
 import torch
 
+from repro_torch.comm.compaction import rice_decode
 from repro_torch.core.codecs import FloatCodec
+from repro_torch.core.coding import rice_parameter
 from repro_torch.kernels.sparsify import kernel as K
 from repro_torch.kernels.sparsify import ops
 from repro_torch.kernels.sparsify import ref
@@ -66,6 +69,37 @@ def test_kernels_match_plain_versions(card, dtype, d):
                 want = ref.compact_emit_ref(g, u, lam, k_cap, wire, ef, rnd)
                 for a, b in zip(got, want):
                     assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k_cap,d,r", [
+    (8192, D, None), (1024, D, None),      # the emit tests' capacities
+    (1000, 5000, 0),                       # r = 0: no remainder field
+    (77, 100_000, 5),                      # a partial warp and boundary word
+    (3 * 2048 + 5, 1 << 20, 3)])           # several blocks, a ragged last
+def test_rice_pack_matches_plain_version(card, k_cap, d, r):
+    """The CUDA Golomb-Rice packing against its plain version on rows that
+    are empty, partly full, full, overflowing, and a single coordinate at
+    d - 1 (the unary mass that fills the capacity exactly): words and used
+    counts bit-equal, and the words decode to the kept coordinates."""
+    r = rice_parameter(k_cap, d) if r is None else r
+    nnz = [0, k_cap // 3, k_cap, k_cap + 50, 1]
+    idx = torch.zeros((len(nnz), k_cap), dtype=torch.int32, device="cuda")
+    for row, n in enumerate(nnz[:4]):
+        live = torch.randperm(d, generator=card, device="cuda")[:min(n, k_cap)]
+        idx[row, :live.numel()] = live.sort().values.to(torch.int32)
+    idx[4, 0] = d - 1
+    nnz = torch.tensor(nnz, dtype=torch.int32, device="cuda")
+    launches = K.LAUNCHES["rice_pack"]
+    words, used = K.rice_pack(idx, nnz, d=d, r=r)
+    assert K.LAUNCHES["rice_pack"] == launches + 1
+    want_w, want_u = ref.rice_pack_ref(idx, nnz, d, r)
+    assert torch.equal(used, want_u)
+    assert torch.equal(words, want_w)
+    assert int(used[4]) == words.shape[1]
+    dec = rice_decode(words, k_cap, d, r)
+    for row in range(len(nnz)):
+        n = min(int(nnz[row]), k_cap)
+        assert torch.equal(dec[row, :n], idx[row, :n])
 
 
 def test_emit_pipeline_card_matches_cpu(card):

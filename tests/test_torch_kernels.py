@@ -17,9 +17,12 @@ import pytest
 import torch
 
 from repro.core import codecs as jcodecs
+from repro.core import coding as jcoding
 from repro.kernels.sparsify import kernel as JK
 from repro.kernels.sparsify import ops as jops
+from repro_torch.comm import compaction as tcompaction
 from repro_torch.comm.compaction import capacity_for
+from repro_torch.core import coding as tcoding
 from repro_torch.core import codecs as tcodecs
 from repro_torch.kernels.sparsify import kernel as TK
 from repro_torch.kernels.sparsify import ops as tops
@@ -76,13 +79,15 @@ def _jax_rows(dtype: str, codec_name: str, k_cap: int):
         sel = JK.select_stats_2d(g2d, u2d, lam, 0.0, k_cap=k_cap,
                                  pkind="lam", interpret=True)
         scale = jcodecs.finalize_scale(codec, sel[4], sel[5])
-        vals, idx, _, _, res = JK.compact_emit_2d(
+        vals, idx, words, used, res = JK.compact_emit_2d(
             g2d, u2d, lam, 0.0, scale, jnp.zeros((1,), jnp.float32),
             pkind="lam", codec=codec, out_dtype=codec.wire_dtype(g.dtype),
-            k_cap=k_cap, d=n, ef=True, interpret=True)
+            k_cap=k_cap, d=n, rice_r=jcoding.rice_parameter(k_cap, n),
+            ef=True, interpret=True)
         return dict(l1=l1, mx=mx, thresh=thresh, n_below=n_below,
                     l1_below=l1_below, lam=lam, sel=sel, values=vals,
-                    idx=idx, residual=res.reshape(-1)[:n])
+                    idx=idx, rice_words=words, rice_used=used,
+                    residual=res.reshape(-1)[:n])
 
     out = jax.jit(jax.vmap(one))(jg, ju)
     return jax.tree.map(np.asarray, out)
@@ -157,6 +162,37 @@ def test_compact_emit_matches_pallas(dtype, codec, k_cap, ef):
         np.testing.assert_array_equal(_bits(res), _bits(want["residual"]))
     else:
         assert res is None
+
+
+@pytest.mark.parametrize("dtype,k_cap", [("float32", K_CAPS[0]),
+                                         ("bfloat16", K_CAPS[0]),
+                                         ("float32", K_CAPS[1]),
+                                         ("bfloat16", K_CAPS[1])])
+def test_rice_pack_matches_pallas(dtype, k_cap):
+    """The RICE variant of pass 2: the port packs the compact idx after
+    ``compact_emit`` (``rice_pack``; on the CPU its plain version, the
+    port's encoder), the TPU kernel inside it. Words and used counts
+    bit-equal, at the configured and the overflowing capacity, and the
+    words decode to each row's kept coordinates."""
+    tg, tu, _, _ = _inputs(dtype)
+    want = _jax_rows(dtype, "f32", k_cap)
+    lam = torch.tensor(want["lam"])
+    st = TK.select_stats(tg, tu, lam, k_cap)
+    _, idx, _ = TK.compact_emit(tg, tu, lam, st.base, k_cap=k_cap,
+                                wire_dtype=tg.dtype, ef=False)
+    r = tcoding.rice_parameter(k_cap, D)
+    assert r == jcoding.rice_parameter(k_cap, D)
+    words, used = TK.rice_pack(idx, st.nnz, d=D, r=r)
+    assert words.shape == (ROWS, tcompaction.rice_cap_words(k_cap, D, r))
+    np.testing.assert_array_equal(words.numpy(), want["rice_words"])
+    np.testing.assert_array_equal(used.numpy(), want["rice_used"])
+    dec = tcompaction.rice_decode(words, k_cap, D, r)
+    n_live = torch.clamp_max(st.nnz, k_cap)
+    for row in range(ROWS):
+        n = int(n_live[row])
+        assert torch.equal(dec[row, :n], idx[row, :n])
+    if k_cap == K_CAPS[1]:
+        assert (st.nnz > k_cap).all()
 
 
 @pytest.mark.parametrize("dtype,codec", [CASES[0], CASES[2]])

@@ -1,6 +1,7 @@
 """The slice as a whole: one compressed train step of the port (Algorithm 1
-with Algorithm 3 on the COO gather wire, error feedback, Adam, one gloo
-worker) against a JAX step assembled from the JAX package's own pieces —
+with Algorithm 3 on the gather wire, COO and the default ``auto`` layout,
+error feedback, Adam, one gloo worker) against a JAX step assembled from
+the JAX package's own pieces —
 ``make_loss_fn``, ``ops.gspar_emit`` in interpret mode fed the port's
 uniforms (re-drawn from an identically seeded generator), the scatter
 decode and ``adam`` — on the gemma-2b smoke config in float32.
@@ -12,6 +13,7 @@ differences between the frameworks may flip the draw (at most 0.1% of
 them). Also: the launcher on the CPU, the import boundary, and the
 configuration's refusals of what is not ported."""
 import functools
+import gc
 import os
 import socket
 import subprocess
@@ -24,7 +26,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro.comm import wire_layout as jwire_layout
 from repro.configs import gemma_2b as jgemma
+from repro.core import coding as jcoding
 from repro.core.api import CompressionConfig as JConfig
 from repro.core.grouping import plan_tree as jplan_tree
 from repro.kernels.sparsify import ops as jops
@@ -107,21 +111,31 @@ def _jax_step(params, tokens, stacked):
     return ([np.asarray(x) for x in jax.tree.leaves(new)], res, exempt)
 
 
-def test_compressed_step_matches_jax_step(one_worker_group):
+@functools.lru_cache(maxsize=None)
+def _jax_reference():
+    """The smoke model's parameters and tokens, and the JAX step's new
+    parameters, residual and exempt masks (the wire layout does not enter
+    the JAX step: its decode is the scatter of the compact buffers)."""
     params = jax.jit(lambda k: split_params(
         jtf.init_model(k, jgemma.SMOKE))[0])(jax.random.key(3))
     tokens = np.random.default_rng(5).integers(0, jgemma.SMOKE.vocab, (4, 32))
+    stacked = Transformer(tgemma.SMOKE, params_from_numpy(
+        jax.tree.map(np.asarray, params))).stacked
+    return (params, tokens) + _jax_step(params, tokens, stacked)
+
+
+def _check_step_against_jax(layout: str) -> None:
+    params, tokens, want_p, want_r, exempt = _jax_reference()
     model = Transformer(tgemma.SMOKE, params_from_numpy(
         jax.tree.map(np.asarray, params)))
     comp = TConfig(name="gspar", rho=RHO, error_feedback=True,
-                   min_leaf_size=MIN_LEAF)
+                   min_leaf_size=MIN_LEAF, wire_layout=layout)
     opt = topt.adam(LR)
     step = tstep.make_compressed_train_step(model, comp, opt)
     state, fb, metrics = step(opt.init(model.leaves()),
                               topt.init_feedback(model.leaves()),
                               {"tokens": torch.from_numpy(tokens)},
                               torch.Generator().manual_seed(SEED))
-    want_p, want_r, exempt = _jax_step(params, tokens, model.stacked)
     n_exempt = sum(int(e.sum()) for e in exempt)
     assert n_exempt <= 1e-3 * sum(e.size for e in exempt)
     for name, p, r, wp, wr, ex in zip(model.leaf_names, model.leaves(),
@@ -135,12 +149,23 @@ def test_compressed_step_matches_jax_step(one_worker_group):
     assert float(metrics["overflow"]) == 0.0
 
 
+def test_compressed_step_matches_jax_step(one_worker_group):
+    _check_step_against_jax("coo")
+
+
+def test_compressed_step_on_the_auto_wire_matches_jax_step(one_worker_group):
+    """The same step on the default wire (RICE on every smoke group): the
+    Golomb-Rice exchange decodes to the same update as the COO wire."""
+    _check_step_against_jax("auto")
+
+
 @pytest.mark.parametrize("ef", [False, True])
 def test_launcher_trains_on_cpu(ef):
     """The launcher end to end on the CPU path: finite losses, the COO
     gather wire's bytes, no overflow; it starts and stops its own group."""
     argv = ["--arch", "gemma-2b", "--smoke", "--steps", "2", "--device",
-            "cpu", "--rho", str(RHO), "--log-every", "1"]
+            "cpu", "--rho", str(RHO), "--log-every", "1", "--wire-layout",
+            "coo"]
     summary = tlaunch.main(argv + (["--error-feedback"] if ef else []))
     assert not dist.is_initialized()
     shapes = param_shapes(tgemma.SMOKE)
@@ -157,6 +182,57 @@ def test_launcher_trains_on_cpu(ef):
         assert m["wire_bytes"] == wire
     assert summary["params"] == sum(
         int(np.prod(s)) for s, _ in shapes.values())
+
+
+def test_launcher_defaults_to_the_auto_wire(capsys):
+    """With the default ``--wire-layout auto`` the launcher stamps and prints
+    each smoke group's layout as the JAX chooser picks it (rice on all
+    three), and charges the values, the counts vector and the realized
+    Golomb-Rice words: between the values alone and the static capacity."""
+    summary = tlaunch.main(["--arch", "gemma-2b", "--smoke", "--steps", "2",
+                            "--device", "cpu", "--rho", str(RHO),
+                            "--error-feedback"])
+    out = capsys.readouterr().out
+    jcfg = JConfig(name="gspar", rho=RHO, wire="gather",
+                   min_leaf_size=MIN_LEAF)
+    shapes = param_shapes(tgemma.SMOKE)
+    names = leaf_order(shapes)
+    plan = plan_tree(TConfig(rho=RHO, min_leaf_size=MIN_LEAF),
+                     [torch.empty(shapes[n][0], device="meta") for n in names],
+                     [shapes[n][1] for n in names])
+    sparse = [g for g in plan.groups if g.kind == "sparse"]
+    want = [(g.rows, g.d, g.k_cap,
+             jwire_layout.choose(g.k_cap, g.d, 32.0, jcfg.wire_layout))
+            for g in sparse]
+    assert summary["layouts"] == want
+    assert {w[3] for w in want} == {"rice"}
+    for rows, d, k_cap, layout in want:
+        assert f"group [{rows}, {d}] k_cap {k_cap}: layout {layout}" in out
+    values = sum(g.rows * g.k_cap * 4 for g in sparse) + sum(
+        g.d * 4 for g in plan.groups if g.kind == "dense")
+    counts = sum(g.rows * 4 for g in sparse)
+    cap = sum(g.rows * 4 * jcoding.rice_wire_words(g.k_cap, g.d)
+              for g in sparse)
+    for m in summary["metrics"]:
+        assert np.isfinite(m["loss"]) and m["overflow"] == 0.0
+        assert values + counts < m["wire_bytes"] <= values + counts + cap
+        assert (m["wire_bytes"] - values - counts) % 4 == 0
+
+
+def test_launcher_run_frees_its_model():
+    """A run leaves none of its model alive by reference counts alone (no
+    reference cycle through the train step), so runs in one process, as in
+    chip_smoke.py, do not stack their device memory."""
+    gc.collect()
+    gc.disable()
+    try:
+        tlaunch.main(["--arch", "gemma-2b", "--smoke", "--steps", "1",
+                      "--device", "cpu", "--rho", str(RHO),
+                      "--error-feedback"])
+        alive = [o for o in gc.get_objects() if isinstance(o, Transformer)]
+    finally:
+        gc.enable()
+    assert not alive
 
 
 def test_import_loads_no_jax():
@@ -186,9 +262,18 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(wire="dense"), dict(wire="packed"), dict(wire_layout="auto"),
-    dict(wire_layout="rice"), dict(exchange="overlap"), dict(name="unisp"),
-    dict(name="gspar+qsgd8"), dict(algo="closed")])
+    dict(wire="dense"), dict(wire="packed"), dict(rice_fitted=True),
+    dict(rice_fitted=True, wire_layout="rice"), dict(exchange="overlap"),
+    dict(name="unisp"), dict(name="gspar+qsgd8"), dict(algo="closed")])
 def test_config_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TConfig(**kw)
+
+
+@pytest.mark.parametrize("layout", ["coo", "bitmap", "dense", "rice"])
+def test_config_takes_every_static_layout(layout):
+    cfg = TConfig(wire_layout=layout)
+    assert f"layout={layout}" in cfg.describe()
+    assert TConfig().wire_layout == "auto"
+    with pytest.raises(ValueError):
+        TConfig(wire_layout="csr")

@@ -1,7 +1,12 @@
-"""The port's sparse gather exchange over two gloo ranks: each rank's synced
+"""The port's sparse gather exchange over two gloo ranks, under every wire
+layout (``coo``, ``bitmap``, ``dense``, ``rice`` and the ``auto`` chooser,
+which picks rice, bitmap and dense for the groups here): each rank's synced
 leaves equal a numpy scatter-add of both ranks' compact buffers in worker
-order, divided by two, bit for bit — with the bucket in one chunk and split
-into many row chunks — and the tiny leaves ride the float32 all-reduce."""
+order, divided by two, bit for bit — with the bucket in one chunk, and
+split into many row chunks decoded in small row batches — the tiny leaves ride the float32 all-reduce, and
+the wire bytes equal the JAX package's accounting, with the RICE payload
+recomputed by its ``coding.rice_stream_words`` on the port's kept
+indices."""
 import os
 import socket
 import subprocess
@@ -11,10 +16,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.comm import compaction as jcompaction
+from repro.core import coding as jcoding
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = [(4, 3000), (5000,), (64,), (3, 700)]
-STACKED = [True, False, False, True]
+SHAPES = [(4, 3000), (5000,), (64,), (3, 700), (2, 200), (4, 100)]
+STACKED = [True, False, False, True, True, True]
 CAPS = {"one_chunk": 2**31 - 1, "row_chunks": 5000}
+LAYOUTS = ("coo", "bitmap", "dense", "rice", "auto")
+# the COO cases keep the names they had before the other layouts were ported
+CASES = {(name if layout == "coo" else f"{layout}-{name}"): (layout, cap)
+         for layout in LAYOUTS for name, cap in CAPS.items()}
 
 WORKER = r"""
 import sys
@@ -25,7 +37,7 @@ from repro_torch.comm import sync
 from repro_torch.core import api
 
 rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-shapes, stacked, caps = eval(sys.argv[4]), eval(sys.argv[5]), eval(sys.argv[6])
+shapes, stacked, cases = eval(sys.argv[4]), eval(sys.argv[5]), eval(sys.argv[6])
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=2)
 rng = np.random.default_rng(100 + rank)
@@ -33,16 +45,19 @@ leaves = [torch.from_numpy((rng.standard_normal(s)
                             * np.exp(rng.standard_normal(s))
                             ).astype(np.float32)) for s in shapes]
 results = {"leaves": leaves}
-for name, cap in caps.items():
+default_units = sync.DECODE_UNITS
+for name, (layout, cap) in cases.items():
+    # the row-chunked cases also decode in small row batches
+    sync.DECODE_UNITS = default_units if cap == 2**31 - 1 else 4096
     cfg = api.CompressionConfig(rho=0.1, min_leaf_size=256,
-                                bucket_coord_cap=cap)
+                                bucket_coord_cap=cap, wire_layout=layout)
     items, _, _ = api.compress_tree_sparse(
         cfg, torch.Generator().manual_seed(7 + rank), leaves, stacked=stacked)
     synced, _, stats = sync.sync_tree(
         cfg, torch.Generator().manual_seed(7 + rank), leaves, stacked=stacked)
     results[name] = {
-        "items": [(k, (p.values, p.idx, p.d) if k == "sparse" else p, m)
-                  for k, p, m in items],
+        "items": [(k, (p.values, p.idx, p.d, p.nnz, p.layout)
+                   if k == "sparse" else p, m) for k, p, m in items],
         "synced": synced, "wire": float(stats.wire_bytes)}
 torch.save(results, out)
 dist.destroy_process_group()
@@ -60,7 +75,7 @@ def two_ranks(tmp_path_factory):
     outs = [str(tmp / f"rank{r}.pt") for r in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(r), str(port), outs[r],
-         repr(SHAPES), repr(STACKED), repr(CAPS)],
+         repr(SHAPES), repr(STACKED), repr(CASES)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     logs = [p.communicate(timeout=120)[0] for p in procs]
@@ -85,7 +100,7 @@ def _expected(results, name):
         rows = sum(r for _, r in members)
         dense = np.zeros((rows, d), np.float32)
         for w in range(2):                     # worker-major order
-            vals, idx, _ = per_rank[w][e][1]
+            vals, idx = per_rank[w][e][1][:2]
             for r in range(rows):
                 np.add.at(dense[r], idx[r].numpy(),
                           vals[r].numpy().astype(np.float32))
@@ -97,7 +112,7 @@ def _expected(results, name):
     return out
 
 
-@pytest.mark.parametrize("name", list(CAPS))
+@pytest.mark.parametrize("name", list(CASES))
 def test_gather_decode_is_worker_major_scatter_add(two_ranks, name):
     want = _expected(two_ranks, name)
     for rank in range(2):
@@ -109,16 +124,35 @@ def test_gather_decode_is_worker_major_scatter_add(two_ranks, name):
                                           err_msg=f"rank {rank} leaf {i}")
 
 
-@pytest.mark.parametrize("name", list(CAPS))
+@pytest.mark.parametrize("name", list(CASES))
 def test_wire_bytes_per_worker(two_ranks, name):
-    """Value slots at 4 bytes plus int32 indices for every sparse row, plus
-    4 bytes per dense-passthrough element — the same on both ranks and for
-    any chunking."""
-    items = two_ranks[0][name]["items"]
-    want = 0
-    for kind, payload, _ in items:
-        if kind == "dense":
-            want += payload.numel() * 4
-        else:
-            want += payload[0].numel() * (4 + 4)
-    assert two_ranks[0][name]["wire"] == two_ranks[1][name]["wire"] == want
+    """The JAX accounting: value slots at 4 bytes for every sparse row, plus
+    per layout the int32 coordinates (coo), the occupancy words (bitmap),
+    nothing (dense), or the counts vector and the realized Golomb-Rice words
+    of the kept indices (rice); plus 4 bytes per dense-passthrough element.
+    The same on both ranks and for any chunking."""
+    layout = CASES[name][0]
+    for rank in range(2):
+        want = 0
+        for kind, payload, _ in two_ranks[rank][name]["items"]:
+            if kind == "dense":
+                want += payload.numel() * 4
+                continue
+            vals, idx, d, nnz, lay = payload
+            assert lay == layout or layout == "auto"
+            rows, k_cap = vals.shape
+            if lay == "dense":
+                want += rows * d * 4
+            elif lay == "coo":
+                want += rows * k_cap * (4 + 4)
+            elif lay == "bitmap":
+                want += rows * (k_cap + jcompaction.bitmap_words(d)) * 4
+            else:
+                want += rows * (k_cap * 4 + 4) + 4 * sum(
+                    jcoding.rice_stream_words(
+                        idx[r, :min(int(nnz[r]), k_cap)].numpy(), k_cap, d)
+                    for r in range(rows))
+        assert two_ranks[rank][name]["wire"] == want
+    if layout == "auto":
+        assert {p[4] for k, p, _ in two_ranks[0][name]["items"]
+                if k == "sparse"} == {"rice", "bitmap", "dense"}
