@@ -3,30 +3,42 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card at the shapes of the
-main path (gemma-2b at full width: one launch per shape group), times the
-receiver's decode of each group, checks the whole emit pipeline against
-the CPU path on a small input, then drives two paths through the launcher
-``repro_torch.launch.train --arch gemma-2b --steps 3 --compressor gspar
---rho 0.05 --wire gather --error-feedback`` on a one-worker NCCL group, at
-full width, each with the kernel launch counts set to 0 just before it:
+kernel and each variant (selector kind x codec) against its plain PyTorch
+version on the card at the shapes of the main paths (gemma-2b at full
+width: one launch per shape group) and on a small sweep of every variant,
+times the receiver's decode of each group, checks the emit pipelines
+against the CPU path on a small input, then drives the paths through the
+launcher ``repro_torch.launch.train --arch gemma-2b --steps 3 --rho 0.05
+--wire gather --error-feedback --compressor C`` on a one-worker NCCL group,
+each with the kernel launch counts set to 0 just before it and read just
+after:
 
-- the main path, the launcher's default ``--wire-layout auto``: every
-  group must be stamped ``rice``; each step must charge exactly the values,
-  the phase-one counts and 4 bytes per realized Golomb-Rice word, recomputed
-  on the host from the step's compact buffers with the port's numpy
-  ``coding.rice_stream_words``, and no more than the static capacity; the
-  synced gradient must be bit-equal to ``compaction.scatter`` of the same
-  compact buffers (at one worker that is the whole exchange);
-- the same ``auto`` run again, unchecked: its step times are the main
+- ``gspar`` on the launcher's default ``--wire-layout auto``: every group
+  must be stamped ``rice``; each step must charge exactly the values, the
+  phase-one counts and 4 bytes per realized Golomb-Rice word, recomputed on
+  the host with numpy from the step's compact buffers (each row's live
+  indices must ascend), and no more than the static capacity; the synced
+  gradient must be bit-equal to ``compaction.scatter`` of the same compact
+  buffers (at one worker that is the whole exchange);
+- the same ``gspar`` run again, unchecked: its step times are the main
   path's (the checked run's steps include the checks' host work);
-- ``--wire-layout coo``: the exact wire bytes of the COO gather wire.
+- ``gspar`` on ``--wire-layout coo``: the exact wire bytes of the COO wire;
+- the paper's baselines and the integer codecs at full width, checked like
+  the first run but with the Golomb-Rice words recomputed on the card with
+  torch ops from each row's live gaps (independently of ``rice_pack``) and
+  the synced gradient held to the codec-decoded scatter: ``unisp``,
+  ``topk+ternary`` and ``gspar+qsgd8`` (``rice``: values + counts + scales
+  + 4 x words), ``terngrad`` (``dense``: exactly 2,506,173,072 B); topk
+  keeps exactly k_target coordinates on every row that has that many
+  nonzeros;
+- ``topk`` and ``bernoulli`` with the f32 codec, cut to two layers, for the
+  float codec's variants of pass 2 on those selectors.
 
-Each checks finite losses, no overflow, the density inside the capacity
-slack, and every kernel of the path launched. Prints the card's name and
-power limit, one JSON line of per-kernel numbers, and as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
-there is no CUDA device or any phase fails. Imports nothing of JAX.
+Each checks finite losses, no overflow and every kernel variant of the path
+launched. Prints the card's name and power limit, one JSON line of
+per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, when there is no CUDA device or any
+phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,21 +50,75 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 RHO = 0.05
-TRAIN_ARGS = ["--arch", "gemma-2b", "--steps", "3", "--compressor", "gspar",
-              "--rho", str(RHO), "--wire", "gather", "--error-feedback",
-              "--log-every", "1"]
+TRAIN_ARGS = ["--arch", "gemma-2b", "--steps", "3", "--rho", str(RHO),
+              "--wire", "gather", "--error-feedback", "--log-every", "1"]
+SLOTS = 156_635_776              # value slots at k_cap, gemma-2b's 164 rows
+COORDS = 2_506_172_416           # gemma-2b's parameters: all in sparse groups
+ROW_BYTES = 656                  # 164 rows x one int32 count or f32 scale
+RICE_CAP_BYTES = 117_476_832     # the static Golomb-Rice word capacity
 WIRE_BYTES = 939_814_656         # 156,635,776 COO slots x (2 B bf16 + 4 B)
-RICE_VALUE_BYTES = 313_271_552   # 156,635,776 value slots x 2 B bf16
-RICE_COUNT_BYTES = 656           # 164 rows x one int32 count
-RICE_MAX_BYTES = 430_749_040     # values + counts + the static word capacity
 CHECK_CHUNK = 1 << 24            # coordinates per chunk of the scatter check
 SUM_RTOL = 1e-6                  # f64 sums rounded once to f32, both sides
 REPS = 5
 T0 = time.perf_counter()
+
+
+class MainPath:
+    """One launcher path: its compressor, the layout ``auto`` must stamp,
+    its static value and scale bytes per step, and the kernel variants it
+    must launch. ``binomial`` marks a selector whose survivor count is a
+    plain binomial draw (unisp: p = rho on every coordinate), which can
+    pass the capacity on narrow rows (gemma-2b's 2048-wide norm rows:
+    Binomial(2048, 0.05) > 128 with probability about 0.5 %); there the
+    reported overflow must equal the buffers' own count of dropped
+    survivors instead of 0."""
+
+    def __init__(self, compressor, layout, value_bytes, scale_bytes,
+                 variants, extra=(), binomial=False):
+        self.compressor, self.layout = compressor, layout
+        self.value_bytes, self.scale_bytes = value_bytes, scale_bytes
+        self.variants, self.extra = variants, list(extra)
+        self.binomial = binomial
+
+    @property
+    def count_bytes(self) -> int:
+        return ROW_BYTES if self.layout == "rice" else 0
+
+    @property
+    def max_bytes(self) -> int:
+        cap = RICE_CAP_BYTES if self.layout == "rice" else 0
+        return self.value_bytes + self.count_bytes + self.scale_bytes + cap
+
+
+GSPAR = ("stats_l1max", "tail_stats", "select_stats/lam")
+PATHS = {
+    "gspar": MainPath("gspar", "rice", 2 * SLOTS, 0,
+                      GSPAR + ("compact_emit/lam", "rice_pack")),
+    "unisp": MainPath("unisp", "rice", 2 * SLOTS, 0,
+                      ("select_stats/rho", "compact_emit/rho", "rice_pack"),
+                      binomial=True),
+    "topk+ternary": MainPath(
+        "topk+ternary", "rice", SLOTS, ROW_BYTES,
+        ("select_stats/topk", "compact_emit/topk+ternary", "rice_pack")),
+    "gspar+qsgd8": MainPath(
+        "gspar+qsgd8", "rice", 2 * SLOTS, ROW_BYTES,
+        GSPAR + ("compact_emit/lam+qsgd8", "rice_pack")),
+    "terngrad": MainPath(
+        "terngrad", "dense", COORDS, ROW_BYTES,
+        ("stats_l1max", "select_stats/bern", "compact_emit/bern+ternary")),
+    # the float codec on the topk and bernoulli selectors, two layers deep
+    "topk": MainPath("topk", "rice", None, 0,
+                     ("select_stats/topk", "compact_emit/topk", "rice_pack"),
+                     ["--num-periods", "2"]),
+    "bernoulli": MainPath("bernoulli", "dense", None, 0,
+                          ("stats_l1max", "select_stats/bern",
+                           "compact_emit/bern"), ["--num-periods", "2"]),
+}
 
 
 def card_line() -> str:
@@ -84,7 +150,9 @@ class Check:
         self.max_abs = 0.0
         self.max_rel = 0.0
 
-    def equal(self, what: str, got: torch.Tensor, want: torch.Tensor):
+    def equal(self, what: str, got, want):
+        if got is None and want is None:
+            return
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:4].tolist()
             raise AssertionError(f"{what}: kernel != plain at {bad}")
@@ -98,6 +166,25 @@ class Check:
         if rel.max().item() > rtol:
             raise AssertionError(f"{what}: relative error {rel.max().item()}"
                                  f" > {rtol}")
+
+
+class Tally:
+    """Per kernel variant: agreement, one step's kernel and plain times
+    (summed over the groups), the bytes of its bound, the library time."""
+
+    def __init__(self):
+        self.check: dict = {}
+        self.ms: dict = {}
+        self.plain_ms: dict = {}
+        self.bound_bytes: dict = {}
+        self.library_ms: dict = {}
+
+    def add(self, name, ms=0.0, plain_ms=0.0, bound_bytes=0.0):
+        self.check.setdefault(name, Check())
+        for d, v in ((self.ms, ms), (self.plain_ms, plain_ms),
+                     (self.bound_bytes, bound_bytes)):
+            d[name] = d.get(name, 0.0) + v
+        return self.check[name]
 
 
 def heavy_tailed(rows: int, d: int, gen: torch.Generator) -> torch.Tensor:
@@ -130,22 +217,111 @@ def main_path_groups():
     return [(g.rows, g.d, g.k_cap) for g in plan.groups]
 
 
+def kind_scalars(g, pkind, l1, mx, k_cap):
+    """The scalars the emit pipelines hand passes 1-2 for ``pkind``, the
+    uniforms it reads, and its path's capacity (bernoulli's is d)."""
+    from repro_torch.kernels.sparsify import ops
+    rows, d = g.shape
+    if pkind == "lam":
+        return dict(s1=ops.greedy_lambda(l1, mx, RHO, d, tail_fn=ops
+                                         ._kernel_tail_fn(g))), k_cap
+    if pkind == "rho":
+        return dict(s1=torch.full((rows,), RHO, device="cuda")), k_cap
+    if pkind == "bern":
+        return dict(s1=torch.zeros(rows, device="cuda"), s2=mx), d
+    t, budget = ops.topk_threshold(g, max(1, round(RHO * d)))
+    return dict(s1=t, budget=budget), k_cap
+
+
+def variant_checks(tally: Tally, g, u, l1, mx, k_cap):
+    """Passes 1-2 of the baselines' selector kinds (f32 codec with fused
+    EF) and the integer-codec variants of the paths, each against its
+    plain version at this group's shape and the path's capacity."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    rows, d = g.shape
+    gb, n = g.element_size(), rows * d
+    f32 = codecs.FloatCodec()
+    # topk's threshold: torch.topk over the row magnitudes (the library
+    # call beside the kernel), with its peak memory
+    k_target = max(1, round(RHO * d))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.topk_threshold(g, k_target)
+    topk_peak = torch.cuda.max_memory_allocated() - before
+    tally.library_ms["select_stats/topk"] = tally.library_ms.get(
+        "select_stats/topk", 0.0) + cuda_ms(
+            lambda: ops.topk_threshold(g, k_target))
+    tally.library_ms["topk_peak_bytes"] = max(
+        tally.library_ms.get("topk_peak_bytes", 0), topk_peak)
+    for pkind, cname in (("rho", "f32"), ("bern", "f32"), ("topk", "f32"),
+                         ("lam", "qsgd8"), ("topk", "ternary"),
+                         ("bern", "ternary")):
+        codec = codecs.get(cname)
+        kw, kc = kind_scalars(g, pkind, l1, mx, k_cap)
+        s1 = kw.pop("s1")
+        uu = None if pkind == "topk" else u
+        ub = 0 if pkind == "topk" else 4
+        st = K.select_stats(g, uu, s1, kc, pkind=pkind, **kw)
+        if cname == "f32":                  # pass 1 once per kind
+            name = f"select_stats/{pkind}"
+            rst = ref.select_stats_ref(g, uu, s1, kc, K.TILE, pkind=pkind,
+                                       **kw)
+            chk = tally.add(
+                name, cuda_ms(lambda: K.select_stats(g, uu, s1, kc,
+                                                     pkind=pkind, **kw)),
+                cuda_ms(lambda: ref.select_stats_ref(
+                    g, uu, s1, kc, K.TILE, pkind=pkind, **kw), 1),
+                n * (gb + ub) + st.base.numel() * 4
+                * (2 if pkind == "topk" else 1) + rows * 12)
+            for f in ("nnz", "nonzeros", "base", "tie_base", "max_abs"):
+                chk.equal(f"{name} {f}", getattr(st, f), getattr(rst, f))
+            for f in ("p_sum", "den", "sum_sq"):
+                chk.close(f"{name} {f}", getattr(st, f), getattr(rst, f))
+            if pkind == "topk" and not bool((st.nnz == k_target).all()):
+                raise AssertionError(f"topk kept {st.nnz.tolist()}, not "
+                                     f"{k_target}")
+            del rst
+        scale = codecs.finalize_scale(codec, st.sum_sq, st.max_abs)
+        u_cod = (torch.rand((rows, kc), device="cuda")
+                 if codec.stochastic else None)
+        ef = not codec.integer_coded
+        args = dict(k_cap=kc, codec=codec, ef=ef, pkind=pkind, scale=scale,
+                    u_cod=u_cod, **kw)
+        name = f"compact_emit/{pkind}" + ("" if ef else f"+{cname}")
+        out = K.compact_emit(g, uu, s1, st, **args)
+        want = ref.compact_emit_ref(g, uu, s1, kc, codec, ef, pkind=pkind,
+                                    scale=scale, u_cod=u_cod, **kw)
+        n_live = int(torch.clamp_max(st.nnz, kc).sum())
+        wb = torch.empty((), dtype=codec.wire_dtype(g.dtype)).element_size()
+        # read g (and u), write the compact buffer, the residual with EF;
+        # the integer codecs read one codec uniform per live slot
+        bound = (n * (gb + ub + (gb if ef else 0)) + rows * kc * (wb + 4)
+                 + (0 if ef else n_live * 4 + rows * 4))
+        chk = tally.add(name, cuda_ms(lambda: K.compact_emit(
+            g, uu, s1, st, **args)), cuda_ms(lambda: ref.compact_emit_ref(
+                g, uu, s1, kc, codec, ef, pkind=pkind, scale=scale,
+                u_cod=u_cod, **kw), 1), bound)
+        for what, a, b in zip(("values", "idx", "residual"), out, want):
+            chk.equal(f"{name} {what}", a, b)
+        del out, want, st, u_cod
+        torch.cuda.empty_cache()
+
+
 def kernel_phase(groups) -> dict:
     """Each kernel against its plain version on every main-path group, with
     the same inputs and the same per-row scalars; times per step (one launch
     per group; tail_stats per solver pass)."""
     from repro_torch.comm import compaction, sync, wire_layout
-    from repro_torch.core import coding
+    from repro_torch.core import codecs, coding
     from repro_torch.kernels.sparsify import kernel as K, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    names = K.KERNELS
-    chk = {n: Check() for n in names}
-    ms = dict.fromkeys(names, 0.0)
-    plain_ms = dict.fromkeys(names, 0.0)
-    bound_bytes = dict.fromkeys(names, 0.0)
+    tally = Tally()
     library_ms = 0.0
     ms_no_ef = 0.0
     decode_ms = {"rice": 0.0, "coo": 0.0}
+    f32, bf16 = codecs.FloatCodec(), codecs.FloatCodec(16, True)
     for rows, d, k_cap in groups:
         g = heavy_tailed(rows, d, gen)
         u = torch.rand((rows, d), generator=gen, device="cuda")
@@ -153,92 +329,85 @@ def kernel_phase(groups) -> dict:
 
         l1, mx = K.stats_l1max(g)
         rl1, rmx = ref.stats_l1max_ref(g)
-        chk["stats_l1max"].close("stats_l1max l1", l1, rl1)
-        chk["stats_l1max"].equal("stats_l1max max", mx, rmx)
-        ms["stats_l1max"] += cuda_ms(lambda: K.stats_l1max(g))
-        plain_ms["stats_l1max"] += cuda_ms(lambda: ref.stats_l1max_ref(g), 1)
+        chk = tally.add("stats_l1max", cuda_ms(lambda: K.stats_l1max(g)),
+                        cuda_ms(lambda: ref.stats_l1max_ref(g), 1),
+                        n * gb + rows * 8)
+        chk.close("stats_l1max l1", l1, rl1)
+        chk.equal("stats_l1max max", mx, rmx)
         library_ms += cuda_ms(lambda: (
             torch.linalg.vector_norm(g, 1, -1, dtype=torch.float32),
             torch.linalg.vector_norm(g, math.inf, -1)))
-        bound_bytes["stats_l1max"] += n * gb + rows * 8
 
         lam0 = ops.greedy_lambda(l1, mx, RHO, d)
         gate = lam0 * mx > 1.0
         thresh = ops._safe_div(1.0, lam0)
         cnt, tl1 = K.tail_stats(g, thresh, gate)
         rcnt, rtl1 = ref.tail_stats_ref(g, thresh, gate)
-        chk["tail_stats"].equal("tail_stats count", cnt, rcnt)
-        chk["tail_stats"].close("tail_stats l1", tl1, rtl1)
-        ms["tail_stats"] += cuda_ms(lambda: K.tail_stats(g, thresh, gate))
-        plain_ms["tail_stats"] += cuda_ms(
-            lambda: ref.tail_stats_ref(g, thresh, gate), 1)
-        bound_bytes["tail_stats"] += int(gate.sum()) * d * gb + rows * 12
+        chk = tally.add(
+            "tail_stats", cuda_ms(lambda: K.tail_stats(g, thresh, gate)),
+            cuda_ms(lambda: ref.tail_stats_ref(g, thresh, gate), 1),
+            int(gate.sum()) * d * gb + rows * 12)
+        chk.equal("tail_stats count", cnt, rcnt)
+        chk.close("tail_stats l1", tl1, rtl1)
 
         lam = ops.greedy_lambda(l1, mx, RHO, d,
                                 tail_fn=ops._kernel_tail_fn(g))
         st = K.select_stats(g, u, lam, k_cap)
         rst = ref.select_stats_ref(g, u, lam, k_cap, K.TILE)
+        chk = tally.add(
+            "select_stats/lam",
+            cuda_ms(lambda: K.select_stats(g, u, lam, k_cap)),
+            cuda_ms(lambda: ref.select_stats_ref(g, u, lam, k_cap, K.TILE),
+                    1),
+            n * (gb + 4) + st.base.numel() * 4)
         for f in ("nnz", "nonzeros", "base", "max_abs"):
-            chk["select_stats"].equal(f"select_stats {f}", getattr(st, f),
-                                      getattr(rst, f))
+            chk.equal(f"select_stats {f}", getattr(st, f), getattr(rst, f))
         for f in ("p_sum", "den", "sum_sq"):
-            chk["select_stats"].close(f"select_stats {f}", getattr(st, f),
-                                      getattr(rst, f))
-        ms["select_stats"] += cuda_ms(lambda: K.select_stats(g, u, lam,
-                                                             k_cap))
-        plain_ms["select_stats"] += cuda_ms(
-            lambda: ref.select_stats_ref(g, u, lam, k_cap, K.TILE), 1)
-        bound_bytes["select_stats"] += n * (gb + 4) + st.base.numel() * 4
+            chk.close(f"select_stats {f}", getattr(st, f), getattr(rst, f))
 
         # the f32 codec (leaf dtype on the wire) with and without EF, and
         # the bf16 codec, whose residual subtracts the wire-rounded value
-        for ef, rr in ((False, False), (True, False), (True, True)):
-            out = K.compact_emit(g, u, lam, st.base, k_cap=k_cap,
-                                 wire_dtype=g.dtype, ef=ef, round_residual=rr)
-            want = ref.compact_emit_ref(g, u, lam, k_cap, g.dtype, ef, rr)
+        chk = tally.add("compact_emit/lam", 0.0, 0.0,
+                        n * (2 * gb + 4) + rows * k_cap * (gb + 4))
+        for codec, ef in ((f32, False), (f32, True), (bf16, True)):
+            out = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=codec,
+                                 ef=ef)
+            want = ref.compact_emit_ref(g, u, lam, k_cap, codec, ef)
             for what, a, b in zip(("values", "idx", "residual"), out, want):
-                if a is not None:
-                    chk["compact_emit"].equal(
-                        f"compact_emit ef={ef} round_residual={rr} {what}",
-                        a, b)
+                chk.equal(f"compact_emit {codec.name} ef={ef} {what}", a, b)
             del out, want
-            if rr:                  # checked only; timed as the f32 codec
+            if codec is bf16:        # checked only; timed as the f32 codec
                 continue
-            t = cuda_ms(lambda: K.compact_emit(
-                g, u, lam, st.base, k_cap=k_cap, wire_dtype=g.dtype, ef=ef))
+            t = cuda_ms(lambda: K.compact_emit(g, u, lam, st, k_cap=k_cap,
+                                               codec=f32, ef=ef))
             if ef:                  # the main path runs with error feedback
-                ms["compact_emit"] += t
-                plain_ms["compact_emit"] += cuda_ms(
-                    lambda: ref.compact_emit_ref(g, u, lam, k_cap, g.dtype,
-                                                 True), 1)
+                tally.add("compact_emit/lam", t, cuda_ms(
+                    lambda: ref.compact_emit_ref(g, u, lam, k_cap, f32,
+                                                 True), 1))
             else:
                 ms_no_ef += t
-        bound_bytes["compact_emit"] += (n * (2 * gb + 4)
-                                        + rows * k_cap * (gb + 4))
 
         # the RICE stage on the compact buffers compact_emit produced
-        vals, idx, _ = K.compact_emit(g, u, lam, st.base, k_cap=k_cap,
-                                      wire_dtype=g.dtype, ef=False)
+        vals, idx, _ = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32,
+                                      ef=False)
         r = coding.rice_parameter(k_cap, d)
         words, used = K.rice_pack(idx, st.nnz, d=d, r=r)
         want_w, want_u = ref.rice_pack_ref(idx, st.nnz, d, r)
-        chk["rice_pack"].equal("rice_pack words", words, want_w)
-        chk["rice_pack"].equal("rice_pack used", used, want_u)
-        del want_w, want_u
         n_live = torch.clamp_max(st.nnz, k_cap).tolist()
-        for row in range(rows):             # the words decode to idx
-            dec = compaction.rice_decode(words[row], k_cap, d, r)
-            chk["rice_pack"].equal(f"rice_decode row {row}",
-                                   dec[:n_live[row]], idx[row, :n_live[row]])
-        ms["rice_pack"] += cuda_ms(lambda: K.rice_pack(idx, st.nnz, d=d,
-                                                       r=r))
-        plain_ms["rice_pack"] += cuda_ms(
-            lambda: ref.rice_pack_ref(idx, st.nnz, d, r), 1)
         # what the words depend on: each row's live idx prefix (dead codes
         # are zeros, never read for their value), nnz; written: every word
         # of the capacity (the zero padding ships) and used
-        bound_bytes["rice_pack"] += (sum(n_live) + words.numel()
-                                     + 2 * rows) * 4
+        chk = tally.add(
+            "rice_pack", cuda_ms(lambda: K.rice_pack(idx, st.nnz, d=d, r=r)),
+            cuda_ms(lambda: ref.rice_pack_ref(idx, st.nnz, d, r), 1),
+            (sum(n_live) + words.numel() + 2 * rows) * 4)
+        chk.equal("rice_pack words", words, want_w)
+        chk.equal("rice_pack used", used, want_u)
+        del want_w, want_u
+        for row in range(rows):             # the words decode to idx
+            dec = compaction.rice_decode(words[row], k_cap, d, r)
+            chk.equal(f"rice_decode row {row}", dec[:n_live[row]],
+                      idx[row, :n_live[row]])
         # the receiver's decode and scatter-add at one worker, both layouts
         dense = torch.zeros(n + wire_layout.DROP_SLOTS, dtype=torch.float32,
                             device="cuda")
@@ -253,31 +422,81 @@ def kernel_phase(groups) -> dict:
         decode_ms["coo"] += cuda_ms(lambda: sync.decode_into(
             dense, lp, vals.reshape(1, -1), coo_words.reshape(1, -1), None,
             0, n))
-        del vals, idx, words, used, dense, coo_words
-        print(f"group [{rows}, {d}] k_cap {k_cap}: kernels agree with their "
-              f"plain versions (nnz {int(st.nnz.sum())}, "
-              f"gated rows {int(gate.sum())})", flush=True)
-        del g, u, st, rst
+        del vals, idx, words, used, dense, coo_words, rst
         torch.cuda.empty_cache()
-    return {"check": chk, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": {k: 1e3 * v / HBM_BYTES_PER_S
-                         for k, v in bound_bytes.items()},
-            "library_ms": library_ms, "ms_no_ef": ms_no_ef,
-            "decode_ms": decode_ms}
+        variant_checks(tally, g, u, l1, mx, k_cap)
+        print(f"group [{rows}, {d}] k_cap {k_cap}: kernels and variants "
+              f"agree with their plain versions (nnz {int(st.nnz.sum())}, "
+              f"gated rows {int(gate.sum())})", flush=True)
+        del g, u, st
+        torch.cuda.empty_cache()
+    tally.library_ms["stats_l1max"] = library_ms
+    return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms}
+
+
+def variant_sweep():
+    """Every selector kind x codec x EF on small ragged groups (f32 and
+    bf16 leaves, a configured and an overflowing capacity), each kernel
+    output bit-equal to its plain version."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, d = 3, 100_003
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        g = heavy_tailed(rows, d, gen).to(dtype)
+        u = torch.rand((rows, d), generator=gen, device="cuda")
+        l1, mx = K.stats_l1max(g)
+        for pkind in ("lam", "rho", "bern", "topk"):
+            for k_cap in (8192, 1024):
+                kw, _ = kind_scalars(g, pkind, l1, mx, k_cap)
+                s1 = kw.pop("s1")
+                uu = None if pkind == "topk" else u
+                st = K.select_stats(g, uu, s1, k_cap, pkind=pkind, **kw)
+                rst = ref.select_stats_ref(g, uu, s1, k_cap, K.TILE,
+                                           pkind=pkind, **kw)
+                for f in ("nnz", "nonzeros", "base", "tie_base", "max_abs"):
+                    Check().equal(f"sweep {pkind} {f}", getattr(st, f),
+                                  getattr(rst, f))
+                u_cod = torch.rand((rows, k_cap), generator=gen,
+                                   device="cuda")
+                for cname in codecs.CODEC_NAMES:
+                    codec = codecs.get(cname)
+                    scale = codecs.finalize_scale(codec, st.sum_sq,
+                                                  st.max_abs)
+                    for ef in (False, True):
+                        if ef and codec.integer_coded:
+                            continue
+                        a = dict(k_cap=k_cap, codec=codec, ef=ef,
+                                 pkind=pkind, scale=scale, u_cod=u_cod, **kw)
+                        out = K.compact_emit(g, uu, s1, st, **a)
+                        want = ref.compact_emit_ref(
+                            g, uu, s1, k_cap, codec, ef, pkind=pkind,
+                            scale=scale, u_cod=u_cod, **kw)
+                        for what, x, y in zip(("values", "idx", "res"), out,
+                                              want):
+                            Check().equal(f"sweep {dtype} {pkind} {cname} "
+                                          f"ef={ef} {what}", x, y)
+                        n += 1
+    print(f"variant sweep: {n} compact_emit variants agree with their plain "
+          "versions", flush=True)
 
 
 def reference_phase():
-    """The whole emit pipeline on the card against the same pipeline on the
+    """The emit pipelines on the card against the same pipelines on the
     CPU (plain versions, held to the JAX package by the CPU tests) on a
-    small input: lambda within rtol 1e-6, the same kept coordinates except
-    draws within 1e-6 of their keep probability."""
-    from repro_torch.core.codecs import FloatCodec
+    small input. gspar: lambda within rtol 1e-6, the same kept coordinates
+    except draws within 1e-6 of their keep probability. The baselines,
+    whose scalars are exact (rho, max|g|, topk's threshold and budget):
+    every buffer bit-equal, with the integer codecs too."""
+    from repro_torch.core import codecs
     from repro_torch.kernels.sparsify import ops
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, d, k_cap = 3, 100_003, 8192
     g = heavy_tailed(rows, d, gen)
     u = torch.rand((rows, d), generator=gen, device="cuda")
-    kw = dict(k_cap=k_cap, rho=RHO, codec=FloatCodec(), ef=True)
+    u_cod = torch.rand((rows, k_cap), generator=gen, device="cuda")
+    kw = dict(k_cap=k_cap, rho=RHO, codec=codecs.FloatCodec(), ef=True)
     er, lam = ops.gspar_emit(g, u, **kw)
     er_c, lam_c = ops.gspar_emit(g.cpu(), u.cpu(), **kw)
     rel = ((lam.cpu().double() - lam_c.double()).abs()
@@ -292,25 +511,95 @@ def reference_phase():
             if abs(float(u[r, i]) - float(p[i])) >= 1e-6:
                 raise AssertionError(f"row {r} coordinate {i}: kept sets "
                                      "differ away from the threshold")
+    k_target = round(RHO * d)
+    pipelines = {
+        "unisp": lambda g, u, c: ops.unisp_emit(
+            g, u, k_cap=k_cap, rho=RHO, ef=True),
+        "unisp+qsgd8": lambda g, u, c: ops.unisp_emit(
+            g, u, c, k_cap=k_cap, rho=RHO, codec=codecs.get("qsgd8")),
+        "topk+ternary": lambda g, u, c: ops.topk_emit(
+            g, c, k_cap=k_cap, k_target=k_target,
+            codec=codecs.get("ternary"), rice_r=3),
+        "bernoulli+ternary": lambda g, u, c: ops.bern_emit(
+            g, u, c, k_cap=k_cap, codec=codecs.get("ternary"))[0],
+    }
+    for name, fn in pipelines.items():
+        a, b = fn(g, u, u_cod), fn(g.cpu(), u.cpu(), u_cod.cpu())
+        for f in ("values", "idx", "nnz", "nonzeros", "rice_words",
+                  "rice_used", "residual"):
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x.cpu(), y)):
+                raise AssertionError(f"{name} {f}: card != CPU")
+        torch.testing.assert_close(a.scale.cpu(), b.scale, rtol=1e-6, atol=0)
     print(f"reference: card vs CPU lambda rel err {rel:.2e}, kept sets "
-          "agree", flush=True)
+          f"agree; {', '.join(pipelines)} bit-equal card vs CPU", flush=True)
 
 
-def rice_exchange_check(real, record: list):
-    """Wrap ``sync._bucketed_sync``: after each exchange, hold its charged
-    bytes to the values, the counts and 4 bytes per realized Golomb-Rice
-    word of the step's compact buffers (recomputed on the host with numpy),
-    and the synced leaves to the scatter of the same buffers. The checks'
+def decoded(values: torch.Tensor, scale: torch.Tensor,
+            codec_name: str) -> torch.Tensor:
+    """Compact values of one row as the receiver decodes them, from the
+    codec's definition: level x (scale / (2^N - 1)) for qsgd<N>, level x
+    scale for ternary, the float values as they are."""
+    v = values.float()
+    if codec_name == "ternary":
+        return v * scale
+    if codec_name.startswith("qsgd"):
+        return v * (scale / float(2 ** int(codec_name[4:]) - 1))
+    return v
+
+
+def rice_words_host(sg, n_live) -> int:
+    """Realized Golomb-Rice words of every row, in numpy on the host: the
+    live indices must ascend strictly inside [0, d); each row ships
+    ceil((k_cap (r + 1) + sum((gap - 1) >> r)) / 32) words."""
+    from repro_torch.core import coding
+    k_cap, d = sg.k_cap, sg.d
+    r = coding.rice_parameter(k_cap, d)
+    idx_h = sg.idx.cpu().numpy().astype(np.int64)
+    words = 0
+    for row, n in enumerate(n_live):
+        a = idx_h[row, :n]
+        gaps = np.diff(a, prepend=-1)
+        if n and not (gaps.min() >= 1 and a[-1] < d):
+            raise AssertionError(f"row {row}: live indices do not ascend "
+                                 f"inside [0, {d})")
+        words += -(-(k_cap * (r + 1) + int(((gaps - 1) >> r).sum())) // 32)
+    return words
+
+
+def rice_words_card(sg, n_live_t) -> int:
+    """The same count on the card with torch ops, from each row's live
+    gaps (independent of ``rice_pack``)."""
+    from repro_torch.core import coding
+    k_cap, d = sg.k_cap, sg.d
+    r = coding.rice_parameter(k_cap, d)
+    idx = sg.idx.long()
+    live = torch.arange(k_cap, device=idx.device) < n_live_t[:, None]
+    prev = torch.cat([torch.full_like(idx[:, :1], -1), idx[:, :-1]], 1)
+    gaps = torch.where(live, idx - prev, 1)
+    if not bool(((gaps >= 1) & (~live | (idx < d))).all()):
+        raise AssertionError("live indices do not ascend inside [0, d)")
+    bits = k_cap * (r + 1) + ((gaps - 1) >> r).sum(-1)
+    return int(((bits + 31) // 32).sum())
+
+
+def exchange_check(real, record: list, path: MainPath, host_words: bool):
+    """Wrap ``sync._bucketed_sync``: after each exchange, hold its layouts
+    and static bytes to the path's, its charged bytes to the values, the
+    counts, the scales and 4 bytes per realized Golomb-Rice word of the
+    step's compact buffers (recomputed on the host or on the card), and the
+    synced leaves to the scatter of the same buffers, decoded. The checks'
     time and any peak memory they add are recorded, not hidden."""
     from repro_torch.comm import compaction
-    from repro_torch.core import coding
 
     def checked(items, leaves, group, cfg):
         out, wire, overflow = real(items, leaves, group, cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         peak = torch.cuda.max_memory_allocated()
-        values = counts = used_words = 0
+        codec = cfg.scheme().codec
+        values = counts = scales = used_words = dropped = 0
         host_s = 0.0
         layouts = set()
         for kind, sg, members in items:
@@ -318,23 +607,26 @@ def rice_exchange_check(real, record: list):
                 raise AssertionError("gemma-2b has no dense passthrough")
             layouts.add(sg.layout)
             k_cap, d = sg.k_cap, sg.d
-            values += sg.values.numel() * sg.values.element_size()
-            counts += sg.rows * 4
-            t1 = time.perf_counter()
-            idx_h, nnz_h = sg.idx.cpu().numpy(), sg.nnz.cpu().numpy()
-            n_live = [min(int(x), k_cap) for x in nnz_h]
-            for row in range(sg.rows):
-                used_words += coding.rice_stream_words(
-                    idx_h[row, :n_live[row]], k_cap, d)
-            del idx_h
-            host_s += time.perf_counter() - t1
+            n_live_t = torch.clamp_max(sg.nnz.long(), k_cap)
+            n_live = n_live_t.tolist()
+            dropped += int(torch.clamp_min(sg.nnz.long() - k_cap, 0).sum())
+            values += (sg.rows * (d if sg.layout == "dense" else k_cap)
+                       * sg.values.element_size())
+            scales += sg.rows * 4 if codec.has_scale else 0
+            if sg.layout == "rice":
+                counts += sg.rows * 4
+                t1 = time.perf_counter()
+                used_words += (rice_words_host(sg, n_live) if host_words
+                               else rice_words_card(sg, n_live_t))
+                host_s += time.perf_counter() - t1
             r0 = 0
             for i, n_rows in members:
                 synced = out[i].reshape(n_rows, d)
                 for rr in range(n_rows):
                     row = r0 + rr
                     idx = sg.idx[row, :n_live[row]].long()
-                    vals = sg.values[row, :n_live[row]]
+                    vals = decoded(sg.values[row, :n_live[row]],
+                                   sg.scale[row], codec.name)
                     edges = torch.arange(0, d + CHECK_CHUNK, CHECK_CHUNK,
                                          device=idx.device).clamp_max(d)
                     cut = torch.searchsorted(idx, edges).tolist()
@@ -347,90 +639,150 @@ def rice_exchange_check(real, record: list):
                         if not torch.equal(synced[rr, a:b], want):
                             raise AssertionError(
                                 f"leaf {i} row {rr} [{a}, {b}): synced "
-                                "gradient != scatter of the compact buffers")
+                                "gradient != decoded scatter of the compact "
+                                "buffers")
                 r0 += n_rows
-        if layouts != {"rice"}:
+        if layouts != {path.layout}:
             raise AssertionError(f"layouts stamped {sorted(layouts)}, not "
-                                 "rice on every group")
-        if (values, counts) != (RICE_VALUE_BYTES, RICE_COUNT_BYTES):
-            raise AssertionError(f"values {values} B, counts {counts} B")
-        want = values + counts + 4 * used_words
-        if int(wire) != want or want > RICE_MAX_BYTES:
+                                 f"{path.layout} on every group")
+        if (values, counts, scales) != (path.value_bytes, path.count_bytes,
+                                        path.scale_bytes):
+            raise AssertionError(f"values {values} B, counts {counts} B, "
+                                 f"scales {scales} B")
+        want = values + counts + scales + 4 * used_words
+        if int(wire) != want or want > path.max_bytes:
             raise AssertionError(f"wire bytes {int(wire)}, expected {want} "
-                                 f"(at most {RICE_MAX_BYTES})")
+                                 f"(at most {path.max_bytes})")
         torch.cuda.synchronize()
+        if int(overflow) != dropped:
+            raise AssertionError(f"overflow {int(overflow)} != the buffers' "
+                                 f"{dropped} dropped survivors")
         record.append({"wire_bytes": want, "used_words": used_words,
+                       "overflow": dropped,
                        "check_s": time.perf_counter() - t0,
-                       "host_words_s": host_s,
+                       "words_s": host_s,
                        "check_raised_peak":
                            torch.cuda.max_memory_allocated() > peak})
         return out, wire, overflow
     return checked
 
 
-def train_phase(layout: str, check: bool = False) -> dict:
-    """One launcher run with the kernel counts set to 0 just before it and
-    read just after. ``auto`` is the main path; with ``check`` every
-    exchange is held to its exact bytes and gradient (the step times then
-    include the checks), without it the run gives the step times and its
-    bytes are held to the RICE bounds. ``coo`` checks the COO wire's exact
-    bytes."""
+def topk_check(real, record: list):
+    """Wrap ``ops.topk_emit``: record each group's kept count, support and
+    k_target (topk keeps exactly k_target where the row has that many
+    nonzeros, all its nonzeros otherwise)."""
+    def checked(g2d, u_cod=None, *, k_target, **kw):
+        er = real(g2d, u_cod, k_target=k_target, **kw)
+        want = torch.clamp_max(er.nonzeros, k_target)
+        if not torch.equal(er.nnz, want):
+            raise AssertionError(f"topk kept {er.nnz.tolist()}, want "
+                                 f"{want.tolist()} (k_target {k_target})")
+        record.append(int(er.nnz.sum()))
+        return er
+    return checked
+
+
+def train_phase(name: str, layout: str = "auto", check: str | None = None
+                ) -> dict:
+    """One launcher run of path ``name`` with the kernel counts set to 0
+    just before it and read just after. ``check`` "host" or "card" holds
+    every exchange to its exact bytes (Golomb-Rice words recomputed there)
+    and gradient (the step times then include the checks); without it the
+    run gives the step times and its bytes are held to the path's bounds.
+    gspar on ``coo`` checks the COO wire's exact bytes."""
     from repro_torch.comm import sync
-    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.kernels.sparsify import kernel as K, ops
     from repro_torch.launch import train
+    path = PATHS[name]
     record: list = []
-    real = sync._bucketed_sync
+    topk_record: list = []
+    real, real_topk = sync._bucketed_sync, ops.topk_emit
     if check:
-        sync._bucketed_sync = rice_exchange_check(real, record)
+        sync._bucketed_sync = exchange_check(real, record, path,
+                                             check == "host")
+    ops.topk_emit = topk_check(real_topk, topk_record)
+    argv = (TRAIN_ARGS + ["--compressor", path.compressor, "--wire-layout",
+                          layout] + path.extra)
     K.reset_launches()
     try:
-        summary = train.main(TRAIN_ARGS + ["--wire-layout", layout])
+        summary = train.main(argv)
     finally:
-        sync._bucketed_sync = real
+        sync._bucketed_sync, ops.topk_emit = real, real_topk
     launches = dict(K.LAUNCHES)
-    want_layout = "rice" if layout == "auto" else layout
+    want_layout = path.layout if layout == "auto" else layout
     if {lay for *_, lay in summary["layouts"]} != {want_layout}:
-        raise AssertionError(f"{layout}: layouts {summary['layouts']}")
+        raise AssertionError(f"{name} {layout}: layouts "
+                             f"{summary['layouts']}")
     for step, m in enumerate(summary["metrics"]):
         if not math.isfinite(m["loss"]):
             raise AssertionError(f"step {step}: loss {m['loss']}")
         if layout == "coo" or record:
             want = record[step]["wire_bytes"] if record else WIRE_BYTES
             if m["wire_bytes"] != want:
-                raise AssertionError(f"{layout} step {step}: wire_bytes "
-                                     f"{m['wire_bytes']} != {want}")
-        else:
-            words = m["wire_bytes"] - RICE_VALUE_BYTES - RICE_COUNT_BYTES
+                raise AssertionError(f"{name} {layout} step {step}: "
+                                     f"wire_bytes {m['wire_bytes']} != {want}")
+        elif path.value_bytes is not None:
+            words = (m["wire_bytes"] - path.value_bytes - path.count_bytes
+                     - path.scale_bytes)
             if not (0 < words and words % 4 == 0
-                    and m["wire_bytes"] <= RICE_MAX_BYTES):
-                raise AssertionError(f"{layout} step {step}: wire_bytes "
+                    and m["wire_bytes"] <= path.max_bytes):
+                raise AssertionError(f"{name} step {step}: wire_bytes "
                                      f"{m['wire_bytes']} outside the RICE "
                                      "bounds")
-        if m["overflow"] != 0:
+        if m["overflow"] != 0 and not (
+                path.binomial and record
+                and m["overflow"] == record[step]["overflow"]
+                and m["overflow"] <= 1e-5 * m["density"] * COORDS):
             raise AssertionError(f"step {step}: overflow {m['overflow']}")
-        if not 0.0 < m["density"] <= 1.25 * RHO:
+        if not 0.0 < m["density"] <= (1.0 if "bern" in path.compressor
+                                      or "terngrad" in path.compressor
+                                      else 1.25 * RHO):
             raise AssertionError(f"step {step}: density {m['density']}")
     if check and len(record) != len(summary["metrics"]):
         raise AssertionError("an exchange went unchecked")
-    for name, count in launches.items():
-        if count <= 0 and (name != "rice_pack" or layout != "coo"):
-            raise AssertionError(f"kernel {name} never launched on the "
+    if "topk" in path.compressor and not topk_record:
+        raise AssertionError("topk_emit never ran on the topk path")
+    for v in path.variants:
+        if v == "rice_pack" and layout == "coo":
+            continue
+        if launches.get(v, 0) <= 0:
+            raise AssertionError(f"kernel {v} never launched on the {name} "
                                  f"{layout} path")
-    print(f"train --wire-layout {layout}{' (checked)' if check else ''}: "
-        "steps " + ", ".join(f"{s:.3f} s" for s in summary["step_seconds"])
-        + (" (of which host checks " + ", ".join(
-            f"{c['check_s']:.3f} s" for c in record) + ")" if record else "")
-        + "; wire_bytes " + ", ".join(
-            f"{m['wire_bytes']:.0f}" for m in summary["metrics"])
-        + "; density " + ", ".join(
-            f"{m['density']:.6f}" for m in summary["metrics"])
-        + "; loss " + ", ".join(f"{m['loss']:.4f}"
-                                for m in summary["metrics"])
-        + f"; max_memory_allocated {summary['max_memory_allocated']} B",
-        flush=True)
-    summary["launches"] = launches
-    summary["checks"] = record
+    steps = summary["step_seconds"]
+    net = [s - c["check_s"] for s, c in zip(steps, record)]
+    print(f"train {name} --wire-layout {layout}"
+          f"{f' (checked on the {check})' if check else ''}: steps "
+          + ", ".join(f"{s:.4f} s" for s in steps)
+          + (" (less the checks: " + ", ".join(f"{s:.4f} s" for s in net)
+             + ")" if record else "")
+          + "; wire_bytes " + ", ".join(
+              f"{m['wire_bytes']:.0f}" for m in summary["metrics"])
+          + "; density " + ", ".join(
+              f"{m['density']:.6f}" for m in summary["metrics"])
+          + "; loss " + ", ".join(f"{m['loss']:.4f}"
+                                  for m in summary["metrics"])
+          + f"; max_memory_allocated {summary['max_memory_allocated']} B",
+          flush=True)
+    summary.update(launches=launches, checks=record, net_seconds=net,
+                   name=name)
     return summary
+
+
+# the kernels line: variant -> (the run whose launches it reports,
+# the TPU kernel's line in src/repro/kernels/sparsify/kernel.py)
+ENTRIES = {
+    "stats_l1max": ("gspar", 275), "tail_stats": ("gspar", 195),
+    "select_stats/lam": ("gspar", 384), "compact_emit/lam": ("gspar", 559),
+    "rice_pack": ("gspar", 612),
+    "select_stats/rho": ("unisp", 384), "compact_emit/rho": ("unisp", 559),
+    "select_stats/topk": ("topk+ternary", 384),
+    "compact_emit/topk+ternary": ("topk+ternary", 559),
+    "compact_emit/lam+qsgd8": ("gspar+qsgd8", 559),
+    "select_stats/bern": ("terngrad", 384),
+    "compact_emit/bern+ternary": ("terngrad", 559),
+    "compact_emit/topk": ("topk", 559), "compact_emit/bern": ("bernoulli",
+                                                              559),
+}
 
 
 def main() -> int:
@@ -442,8 +794,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels.sparsify import kernel as K
     t0 = time.perf_counter()
-    path, log = K.build()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s",
+    lib, log = K.build()
+    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     if log:
         print("\n".join(line for line in log.splitlines()
@@ -453,36 +805,46 @@ def main() -> int:
 
     groups = main_path_groups()
     kp = kernel_phase(groups)
+    variant_sweep()
     reference_phase()
-    torch.cuda.empty_cache()
-    tr = train_phase("auto", check=True)
-    torch.cuda.empty_cache()
-    timed = train_phase("auto")
-    torch.cuda.empty_cache()
-    coo = train_phase("coo")
+    runs = {}
+    for key, name, layout, check in (
+            ("gspar", "gspar", "auto", "host"),
+            ("gspar_unchecked", "gspar", "auto", None),
+            ("gspar_coo", "gspar", "coo", None),
+            ("unisp", "unisp", "auto", "card"),
+            ("topk+ternary", "topk+ternary", "auto", "card"),
+            ("gspar+qsgd8", "gspar+qsgd8", "auto", "card"),
+            ("terngrad", "terngrad", "auto", "card"),
+            ("topk", "topk", "auto", None),
+            ("bernoulli", "bernoulli", "auto", None)):
+        torch.cuda.empty_cache()
+        runs[key] = train_phase(name, layout, check)
 
-    replaces = {"stats_l1max": 275, "tail_stats": 195, "select_stats": 384,
-                "compact_emit": 559, "rice_pack": 612}
+    tally = kp["tally"]
     kernels = []
-    for name in K.KERNELS:
+    for name, (run, line) in ENTRIES.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparsify.cu",
-            "replaces": f"src/repro/kernels/sparsify/kernel.py:"
-                        f"{replaces[name]}",
-            "launches": tr["launches"][name],
-            "max_abs_err": kp["check"][name].max_abs,
-            "max_rel_err": kp["check"][name].max_rel,
-            "ms": kp["ms"][name], "plain_ms": kp["plain_ms"][name],
-            "bound_ms": kp["bound_ms"][name], "bound_by": "bytes",
-            "library_ms": (kp["library_ms"] if name == "stats_l1max"
-                           else None),
+            "replaces": f"src/repro/kernels/sparsify/kernel.py:{line}",
+            "path": PATHS[run].compressor,
+            "launches": runs[run]["launches"].get(name, 0),
+            "max_abs_err": tally.check[name].max_abs,
+            "max_rel_err": tally.check[name].max_rel,
+            "ms": tally.ms[name], "plain_ms": tally.plain_ms[name],
+            "bound_ms": 1e3 * tally.bound_bytes[name] / HBM_BYTES_PER_S,
+            "bound_by": "bytes",
+            "library_ms": tally.library_ms.get(name),
         })
-    kernels[K.KERNELS.index("compact_emit")]["ms_no_ef"] = kp["ms_no_ef"]
-    for name, run in (("train_checked", tr), ("train", timed),
-                      ("train_coo", coo)):
-        print(json.dumps({name: {
+    kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
+        kp["ms_no_ef"]
+    kernels[list(ENTRIES).index("select_stats/topk")]["topk_peak_bytes"] = \
+        tally.library_ms["topk_peak_bytes"]
+    for key, run in runs.items():
+        print(json.dumps({key: {
             "step_seconds": run["step_seconds"],
+            "net_seconds": run["net_seconds"],
             "max_memory_allocated": run["max_memory_allocated"],
             "wire_bytes": [m["wire_bytes"] for m in run["metrics"]],
             "density": [m["density"] for m in run["metrics"]],

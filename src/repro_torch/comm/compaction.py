@@ -61,6 +61,18 @@ def scatter(vals: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
                           vals.reshape(-1).to(torch.float32))
 
 
+def slot_tiles(rows: int, k: int, units: int):
+    """``(a, b, j0, j1)`` tiles of a ``[rows, k]`` buffer of at most
+    ``units`` slots each, row batches first (a row longer than ``units``
+    goes in column chunks): the unit of work of the row-batched passes
+    over compact buffers, which bounds their temporaries."""
+    cols = max(1, min(k, units))
+    step = max(1, units // max(1, k))
+    for a in range(0, rows, step):
+        for j0 in range(0, k, cols):
+            yield a, min(rows, a + step), j0, min(k, j0 + cols)
+
+
 def bitmap_words(d: int) -> int:
     """int32 words of a d-bit occupancy map."""
     return -(-d // WORD_BITS)

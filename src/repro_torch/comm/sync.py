@@ -30,13 +30,18 @@ Groups, and row batches of a group, cover disjoint coordinates, so decoding
 them one after another keeps that order; it also bounds the decode's
 scratch (unpacked RICE bits, bitmap ranks) to one row batch.
 
+The integer codecs (qsgd, ternary) ship integer levels and one float32
+scale per row: the scales of a chunk ride one more all-gather, and each
+worker's slots decode with that worker's own scale.
+
 Collectives gather raw bytes (a ``uint8`` view of each buffer), so any wire
 dtype crosses any backend (gloo takes no bfloat16). ``SyncStats.wire_bytes``
 charges what the JAX package charges: value slots at the wire dtype's width,
 the fixed layouts' int32 index words, for RICE the counts vector plus the
-used words (not the padding), and four bytes per element of the dense
-passthrough. The RICE term is a device tensor (no host sync per chunk), and
-the total is float64 so that it stays exact past 2^24 bytes.
+used words (not the padding), four bytes per row for a codec's scale, and
+four bytes per element of the dense passthrough. The RICE term is a device
+tensor (no host sync per chunk), and the total is float64 so that it stays
+exact past 2^24 bytes.
 
 The overlapped exchange, the pod hierarchy, adaptive control and the
 data-fitted Rice parameter are ROADMAP.md queue A items 8 and 9.
@@ -121,22 +126,29 @@ DECODE_UNITS = 1 << 27
 def decode_into(dense: torch.Tensor, lp: wire_layout.LeafPlan,
                 vals: torch.Tensor, words: torch.Tensor | None,
                 counts: torch.Tensor | None, coord_off: int,
-                drop: int) -> None:
+                drop: int, scales: torch.Tensor | None = None,
+                codec=None) -> None:
     """Decode one group's gathered segment and scatter-add it into the
     float32 chunk buffer ``dense`` at ``coord_off``, worker by worker, in
     row batches that bound the decode's scratch. ``vals [m, layers *
     val_len]``, ``words [m, layers * idx_len]`` (None for dense), ``counts
     [m, layers]`` (RICE only); dead slots go to ``wire_layout.DROP_SLOTS``
-    scratch coordinates from ``drop`` on."""
+    scratch coordinates from ``drop`` on. A codec with a scale decodes
+    each worker's row with that worker's own scale, ``scales [m,
+    layers]``, before the unpack, as the JAX package decodes the gathered
+    values."""
     m = vals.shape[0]
     per_row = m * {"coo": lp.k_cap, "dense": lp.d, "bitmap": lp.d,
                    "rice": lp.idx_len * compaction.WORD_BITS}[lp.layout]
     step = max(1, min(lp.layers, DECODE_UNITS // max(1, per_row)))
     for a in range(0, lp.layers, step):
         n = min(step, lp.layers - a)
+        v = vals[:, a * lp.val_len:(a + n) * lp.val_len]
+        if scales is not None:
+            v = codec.decode(v.reshape(m, n, lp.val_len),
+                             scales[:, a:a + n, None]).reshape(m, -1)
         upd, crd = wire_layout.unpack_gathered(
-            dataclasses.replace(lp, layers=n),
-            vals[:, a * lp.val_len:(a + n) * lp.val_len],
+            dataclasses.replace(lp, layers=n), v,
             (words[:, a * lp.idx_len:(a + n) * lp.idx_len]
              if words is not None else None),
             coord_off + a * lp.d,
@@ -183,6 +195,7 @@ def _bucketed_sync(items: list, leaves: list, group,
     # room for the dead-slot scratch tail inside the int32 coordinates
     cap = min(cfg.bucket_coord_cap,
               compaction.INT32_COORD_LIMIT - wire_layout.DROP_SLOTS)
+    codec = cfg.scheme().codec
     for wdt, ids in sorted(sparse_groups.items(),
                            key=lambda kv: _dtype_name(kv[0])):
         itemsize = torch.empty((), dtype=wdt).element_size()
@@ -197,7 +210,8 @@ def _bucketed_sync(items: list, leaves: list, group,
         pieces: dict = {}
         for chunk in chunks:
             vals_parts, widx_parts, count_parts, plans = [], [], [], []
-            static_idx_words = coord_off = v_off = i_off = c_off = 0
+            scale_parts = []
+            static_idx_words = coord_off = v_off = i_off = c_off = s_off = 0
             for e, r0, n in chunk:
                 lp0, v2d, w2d, nw = packed[e]
                 lp = dataclasses.replace(lp0, layers=n)
@@ -213,11 +227,15 @@ def _bucketed_sync(items: list, leaves: list, group,
                 else:
                     static_idx_words += n * lp.idx_len
                 vals_parts.append(v2d[r0:r0 + n].reshape(-1))
-                plans.append((e, lp, r0, v_off, i_off, coord_off, c_off))
+                if codec.has_scale:
+                    scale_parts.append(items[e][1].scale[r0:r0 + n].to(F32))
+                plans.append((e, lp, r0, v_off, i_off, coord_off, c_off,
+                              s_off))
                 v_off += n * lp.val_len
                 i_off += n * lp.idx_len
                 coord_off += lp.block
                 c_off += n if lp.layout == "rice" else 0
+                s_off += n
             compaction.check_bucket_coords(coord_off, len(chunk))
             gcounts = None
             if count_parts:                  # phase one: RICE row lengths
@@ -230,20 +248,26 @@ def _bucketed_sync(items: list, leaves: list, group,
             if widx_parts:                   # phase two: the index words
                 gwidx = _all_gather(torch.cat(widx_parts), group)  # [m, I]
                 wire += static_idx_words * 4
-            del vals_parts, widx_parts, count_parts
+            gscales = None
+            if scale_parts:                  # one float32 scale per row
+                gscales = _all_gather(torch.cat(scale_parts), group)  # [m, S]
+                wire += s_off * 4
+            del vals_parts, widx_parts, count_parts, scale_parts
             # a scratch tail past the chunk takes the dead RICE slots
             dense = torch.zeros(coord_off + wire_layout.DROP_SLOTS,
                                 dtype=F32, device=dev)
-            for (e, lp, r0, v0, i0, c0, cc0) in plans:
+            for (e, lp, r0, v0, i0, c0, cc0, s0) in plans:
                 decode_into(
                     dense, lp, gvals[:, v0:v0 + lp.layers * lp.val_len],
                     (gwidx[:, i0:i0 + lp.layers * lp.idx_len]
                      if lp.idx_len else None),
                     (gcounts[:, cc0:cc0 + lp.layers]
-                     if lp.layout == "rice" else None), c0, coord_off)
-            del gvals, gwidx, gcounts
+                     if lp.layout == "rice" else None), c0, coord_off,
+                    (gscales[:, s0:s0 + lp.layers]
+                     if gscales is not None else None), codec)
+            del gvals, gwidx, gcounts, gscales
             dense = dense[:coord_off].div_(m)
-            for (e, lp, r0, _, _, c0, _) in plans:
+            for (e, lp, r0, _, _, c0, _, _) in plans:
                 _route_span(items[e][2], r0, lp.layers, lp.d,
                             dense[c0:c0 + lp.block], pieces, leaves)
             wire += v_off * itemsize

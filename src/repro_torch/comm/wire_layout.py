@@ -94,6 +94,56 @@ def plan(sg) -> LeafPlan:
                     val_len=val_len, idx_len=idx_len, rice_r=rice_r)
 
 
+# Slots per index call of scatter_live: int64 coordinates and the values,
+# about 1.5 GB of temporaries.
+SCATTER_UNITS = 1 << 27
+
+
+def scatter_live(vals, idx: torch.Tensor, nnz: torch.Tensor, d: int, *,
+                 base: torch.Tensor | None = None,
+                 add: bool = False) -> torch.Tensor:
+    """``[rows, d]`` from the compact ``idx [rows, k_cap]`` and its values:
+    each row's live slots (the first ``min(nnz, k_cap)``, unique ascending
+    coordinates) written into zeros, or with ``add`` added into a copy of
+    ``base``, in ``base``'s dtype (else the values'). ``vals`` is the values
+    tensor ``[rows, k_cap]``, or a function of a tile ``(a, b, j0, j1)``
+    that returns ``vals[a:b, j0:j1]`` (formed tile by tile). Dead slots go
+    to a scratch tail of ``DROP_SLOTS`` coordinates past the rows, spread
+    over it: as one index call over every slot, they would pile onto each
+    row's coordinate 0 (a plain ``scatter_add_`` of the padding). Tiles of
+    at most ``SCATTER_UNITS`` slots (``compaction.slot_tiles``) bound the
+    temporaries."""
+    rows, k_cap = idx.shape
+    tile_of = vals if callable(vals) else (
+        lambda a, b, j0, j1: vals[a:b, j0:j1])
+    dtype = base.dtype if base is not None else vals.dtype
+    dev = idx.device
+    total = rows * d + DROP_SLOTS
+    # index_add_ takes int32 coordinates (half the scratch), index_copy_
+    # only int64
+    cdt = (torch.int32 if add and total <= compaction.INT32_COORD_LIMIT
+           else torch.int64)
+    flat = torch.empty(total, dtype=dtype, device=dev)
+    if base is not None:
+        flat[:rows * d].copy_(base.reshape(-1))
+    else:
+        flat[:rows * d].zero_()
+    n_live = torch.clamp_max(nnz.to(cdt), k_cap)
+    for a, b, j0, j1 in compaction.slot_tiles(rows, k_cap, SCATTER_UNITS):
+        slot = torch.arange(j0, j1, dtype=cdt, device=dev)
+        row0 = torch.arange(a, b, dtype=cdt, device=dev)[:, None] * d
+        coords = torch.where(slot < n_live[a:b, None],
+                             idx[a:b, j0:j1].to(cdt) + row0,
+                             (slot & (DROP_SLOTS - 1)) + rows * d).reshape(-1)
+        src = tile_of(a, b, j0, j1).reshape(-1).to(dtype)
+        if add:
+            flat.index_add_(0, coords, src)
+        else:
+            flat.index_copy_(0, coords, src)
+        del coords, src
+    return flat[:rows * d].view(rows, d)
+
+
 def pack(sg, lp: LeafPlan) -> tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """One SparseGrad's wire streams: ``(values [rows, val_len], index words
@@ -112,12 +162,10 @@ def pack(sg, lp: LeafPlan) -> tuple[torch.Tensor, torch.Tensor,
     if lp.layout == "coo":
         return sg.values, sg.idx, zeros
     if lp.layout == "dense":
-        # padding slots add exact zeros and live coordinates are unique, so
-        # this is the dense wire array bit for bit
-        vals = torch.zeros((lp.layers, lp.d), dtype=sg.values.dtype,
-                           device=sg.values.device)
-        vals.scatter_add_(1, sg.idx.long(), sg.values)
-        return vals, sg.idx.new_zeros((lp.layers, 0)), zeros
+        # live coordinates are unique and padding slots hold zeros, so this
+        # is the JAX package's scatter-add of the compact pair bit for bit
+        return (scatter_live(sg.values, sg.idx, sg.nnz, lp.d),
+                sg.idx.new_zeros((lp.layers, 0)), zeros)
     sv, words = compaction.bitmap_pack(sg.values, sg.idx, lp.d, nnz=sg.nnz)
     return sv, words, zeros
 

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core import coding
 from repro_torch.core import schemes as schemes_lib
 from repro_torch.core.grouping import plan_tree
-from repro_torch.core.sparse import KernelBackend
+from repro_torch.core.sparse import KernelBackend, residual_from_buffers
 
 F32 = torch.float32
 
@@ -30,18 +30,24 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class CompressionConfig:
     """Static configuration of the compression stage.
 
-    This slice implements the paper's Algorithm 1 with Algorithm 3 on the
-    sparse gather wire: selector ``gspar`` with ``algo="greedy"``, the
-    ``f32`` (leaf dtype on the wire) and ``bf16`` codecs, ``wire="gather"``
-    with every static wire layout (``auto``, ``coo``, ``bitmap``, ``dense``,
-    ``rice``) and ``exchange="sync"``, with or without error feedback.
-    Every other value raises NotImplementedError naming the ROADMAP.md item
-    that ports it; invalid values raise ValueError.
+    ``name`` is a selector ∘ codec composition: a bare selector
+    (``"gspar"``, ``"unisp"``, ``"topk"``, ``"bernoulli"``) takes the f32
+    codec, ``"selector+codec"`` names both (``"gspar+qsgd8"``,
+    ``"topk+ternary"``), and ``"terngrad"`` is ``bernoulli+ternary``. The
+    port runs the sparse gather wire: gspar with ``algo="greedy"`` and the
+    paper's baselines, each with the ``f32``, ``bf16``, ``qsgd<N>`` and
+    ``ternary`` codecs, ``wire="gather"`` with every static wire layout
+    (``auto``, ``coo``, ``bitmap``, ``dense``, ``rice``) and
+    ``exchange="sync"``, with or without error feedback. Every other value
+    (the identity selector and its ``qsgd``/``none`` aliases among them)
+    raises NotImplementedError naming the ROADMAP.md item that ports it;
+    invalid values raise ValueError.
     """
     name: str = "gspar"              # selector[+codec] composition
-    rho: float = 0.1                 # target density
+    rho: float = 0.1                 # target density (gspar, unisp, topk)
     algo: str = "greedy"             # gspar solver (closed: not ported)
     num_iters: int = 2               # greedy rescale iterations (paper: 2)
+    qsgd_bits: int = 4               # the legacy "qsgd" alias's levels
     float_bits: int = 32             # b in the coding model
     codec: str | None = None         # value codec; None -> from name, else f32
     error_feedback: bool = False     # carry the compression residual
@@ -98,7 +104,8 @@ class CompressionConfig:
 def _resolve_scheme(cfg: CompressionConfig) -> schemes_lib.Scheme:
     return schemes_lib.make_scheme(
         cfg.name, codec=cfg.codec, rho=cfg.rho, algo=cfg.algo,
-        num_iters=cfg.num_iters, float_bits=cfg.float_bits)
+        num_iters=cfg.num_iters, qsgd_bits=cfg.qsgd_bits,
+        float_bits=cfg.float_bits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,10 +133,12 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
 
     Each sparse group is stacked into one ``[rows, d]`` batch (with error
     feedback: the target ``leaf + residual``, formed in place in the
-    batch) and takes its uniforms as one ``[rows, d]`` float32 draw from
-    ``generator`` (the paper's section-5.3 pregenerated randoms), in group
-    order. Tiny leaves (< ``cfg.min_leaf_size``) form one dense float32
-    passthrough whose residual is exactly zero.
+    batch) and takes its uniforms from ``generator`` (the paper's
+    section-5.3 pregenerated randoms), in group order: the selector's as
+    one ``[rows, d]`` float32 draw (none for the deterministic topk), then
+    a stochastic codec's as one ``[rows, k_cap]`` draw. Tiny leaves (<
+    ``cfg.min_leaf_size``) form one dense float32 passthrough whose
+    residual is exactly zero.
 
     Returns ``(items, new_residual, stats)``: ``items`` are
     ``("dense", flat, members)`` and ``("sparse", SparseGrad, members)``
@@ -138,6 +147,7 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
     """
     _require_residual(cfg, residual, "compress_tree_sparse")
     backend = KernelBackend()
+    scheme = cfg.scheme()
     ef = cfg.error_feedback
     stk = stacked if stacked is not None else [False] * len(leaves)
     plan = plan_tree(cfg, leaves, stk)
@@ -178,18 +188,30 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
                 else:
                     dst.copy_(src)
                 r0 += rows
-        u = torch.rand((grp.rows, grp.d), generator=generator, dtype=F32,
-                       device=stack.device)
-        if ef:
+        u = u_cod = None
+        if scheme.selector.name != "topk":
+            u = torch.rand((grp.rows, grp.d), generator=generator,
+                           dtype=F32, device=stack.device)
+        if scheme.codec.stochastic:
+            u_cod = torch.rand((grp.rows, grp.k_cap), generator=generator,
+                               dtype=F32, device=stack.device)
+        if not ef:
+            sg = backend.compress_sparse(cfg, u, stack, grp.k_cap, u_cod)
+        elif scheme.codec.integer_coded:
+            # the residual is scattered from the compact buffers alone: the
+            # uniforms (two [rows, d] draws for bernoulli) go first
+            sg = backend.compress_sparse(cfg, u, stack, grp.k_cap, u_cod)
+            del u, u_cod
+            res_rows = residual_from_buffers(stack, sg)
+        else:
             sg, res_rows = backend.compress_sparse_ef(cfg, u, stack,
-                                                      grp.k_cap)
+                                                      grp.k_cap, u_cod)
+        if ef:
             r0 = 0
             for i, rows in grp.members:
                 new_res[i] = res_rows[r0:r0 + rows].reshape(leaves[i].shape)
                 r0 += rows
-        else:
-            sg = backend.compress_sparse(cfg, u, stack, grp.k_cap)
-        del u, stack
+        del stack
         items.append(("sparse", sg, grp.members))
         bits.append(sg.bits.sum())
         nnz.append(sg.nnz.to(F32).sum())

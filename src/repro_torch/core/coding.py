@@ -4,7 +4,9 @@
 The coding model charges a sampled message the paper's section-3.3 hybrid
 code: sure coordinates (p = 1) cost ``b + log2 d`` bits each, sampled ones
 ``log2 d`` each or a dense ternary map of 2d bits, whichever is shorter,
-plus ``b`` once. The realized wire side counts what a wire layout
+plus ``b`` once; an integer-coded message (qsgd, ternary) costs its levels
+plus indices, or a dense level map (``quantized_coding_bits``). The
+realized wire side counts what a wire layout
 (``repro_torch.comm.wire_layout``) puts on the collective, with int32 index
 words; its word geometry comes from the packer (``comm.compaction``).
 
@@ -38,6 +40,21 @@ def hybrid_branch_bits(n, d: int, per_item_bits, map_bits: float):
 def dense_coding_bits(d: int, b: int = 32) -> float:
     """Uncompressed message: d floats."""
     return float(d) * b
+
+
+def quantized_coding_bits(nnz: torch.Tensor, d: int, value_bits: float,
+                          dense_map_bits: float,
+                          header_bits: float) -> torch.Tensor:
+    """Bits of an integer-coded message per row, from ``nnz [rows]``, the
+    count of nonzero decoded values (the JAX package's function takes the
+    values and counts them itself): each transmitted coordinate costs its
+    level plus a log2 d index, or the message ships as a dense level map of
+    ``dense_map_bits`` per coordinate, whichever is shorter, plus the
+    codec's header (its scale float)."""
+    logd = torch.log2(torch.tensor(float(d), dtype=torch.float32,
+                                   device=nnz.device))
+    return hybrid_branch_bits(nnz, d, value_bits + logd,
+                              dense_map_bits) + header_bits
 
 
 def bitmap_word_bits(d: int) -> float:

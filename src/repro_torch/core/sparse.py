@@ -12,8 +12,9 @@ the buffers as they are.
 ``KernelBackend`` runs the two-pass emit of ``repro_torch.kernels.sparsify``
 on a whole group: the CUDA kernels for tensors on the card, their plain
 PyTorch versions for tensors on the CPU. The reference backend of the JAX
-package (dense apply plus a magnitude ``top_k``) is a different algorithm
-and is ROADMAP.md queue A item 4.
+package (dense apply plus a magnitude ``top_k``), which the identity
+selector runs on, is a different algorithm and is ROADMAP.md queue A item
+4.
 """
 from __future__ import annotations
 
@@ -21,11 +22,14 @@ import dataclasses
 
 import torch
 
-from repro_torch.comm import wire_layout
-from repro_torch.core import coding
+from repro_torch.comm import compaction, wire_layout
+from repro_torch.core import codecs, coding
 from repro_torch.kernels.sparsify import ops
 
 F32 = torch.float32
+# Slots per tile of the accounting in KernelBackend._finish: about 1.5 GB
+# of float32 temporaries.
+ACCOUNT_UNITS = 1 << 27
 
 
 @dataclasses.dataclass
@@ -62,6 +66,14 @@ class SparseGrad:
         """Survivors dropped because nnz exceeded the capacity, per row."""
         return torch.clamp_min(self.nnz - self.k_cap, 0)
 
+    def decode_values(self, rows: slice = slice(None),
+                      cols: slice = slice(None)) -> torch.Tensor:
+        """Codec-decoded float32 values ``[rows, k_cap]`` (or the tile
+        ``[rows, cols]`` of them): what the receiver reconstructs, each row
+        with its own scale."""
+        return codecs.get(self.codec).decode(self.values[rows, cols],
+                                             self.scale[rows, None])
+
 
 def _choose_layout(cfg, codec, leaf_dtype, k_cap: int, d: int) -> str:
     return wire_layout.choose(
@@ -69,67 +81,139 @@ def _choose_layout(cfg, codec, leaf_dtype, k_cap: int, d: int) -> str:
         cfg.wire_layout)
 
 
+def residual_from_buffers(g: torch.Tensor, sg: SparseGrad) -> torch.Tensor:
+    """The EF residual from the compact buffers: ``g`` (the target, ``[rows,
+    d]``) with each live slot's decoded value subtracted at its coordinate,
+    ``g[idx] += -decoded.to(g.dtype)`` as the JAX package's
+    ``_residual_from_buffers`` computes it. Only the live prefix of each row
+    is scattered (``wire_layout.scatter_live``): the padding slots, which
+    would add zeros to each row's coordinate 0, go to a scratch tail."""
+    def neg_decoded(a: int, b: int, j0: int, j1: int) -> torch.Tensor:
+        return sg.decode_values(slice(a, b), slice(j0, j1)).to(
+            g.dtype).neg_()
+    return wire_layout.scatter_live(neg_decoded, sg.idx, sg.nnz, sg.d,
+                                    base=g, add=True)
+
+
 class KernelBackend:
     """Two-pass emit on the sparsify kernels, one launch per kernel per
     shape group: pass 1 reduces survivor counts and the codec-scale
     statistics, pass 2 writes the compact wire buffers (and, with error
-    feedback, the residual ``g - wire value`` in the same pass). Everything
-    after the kernels is O(rows * k_cap) accounting."""
+    feedback and a float codec, the residual ``g - wire value`` in the same
+    pass). Everything after the kernels is O(rows * k_cap) accounting.
+    Selectors gspar (greedy), unisp, topk and bernoulli; codecs f32, bf16,
+    qsgd<N> and ternary."""
 
-    def compress_sparse(self, cfg, u: torch.Tensor, g: torch.Tensor,
-                        k_cap: int) -> SparseGrad:
-        er, layout, lam = self._emit(cfg, u, g, k_cap, ef=False)
-        return self._finish(cfg.scheme(), g, er, layout, lam)
-
-    def compress_sparse_ef(self, cfg, u: torch.Tensor, g: torch.Tensor,
-                           k_cap: int) -> tuple[SparseGrad, torch.Tensor]:
-        """``g`` is the EF target (gradient plus carried residual); also
-        returns the new residual ``g - wire value``. Every sampled survivor
-        is subtracted, so on overflow the dropped ones leave the residual
-        too (the fused-EF semantics of the TPU kernel)."""
-        er, layout, lam = self._emit(cfg, u, g, k_cap, ef=True)
-        return self._finish(cfg.scheme(), g, er, layout, lam), er.residual
-
-    def _emit(self, cfg, u, g, k_cap, ef: bool):
-        """Run gspar_emit on one ``[rows, d]`` group with the uniforms
-        ``u``. Returns the EmitResult, the wire layout and lambda."""
+    def compress_sparse(self, cfg, u: torch.Tensor | None, g: torch.Tensor,
+                        k_cap: int,
+                        u_cod: torch.Tensor | None = None) -> SparseGrad:
+        """One ``[rows, d]`` group with the selector's uniforms ``u`` (None
+        for topk) and the codec's ``u_cod [rows, k_cap]`` (stochastic codecs
+        only)."""
         scheme = cfg.scheme()
+        er, layout, s = self._emit(scheme, cfg, u, g, k_cap, False, u_cod)
+        return self._finish(scheme, g, er, layout, s)
+
+    def compress_sparse_ef(self, cfg, u: torch.Tensor | None,
+                           g: torch.Tensor, k_cap: int,
+                           u_cod: torch.Tensor | None = None
+                           ) -> tuple[SparseGrad, torch.Tensor]:
+        """``g`` is the EF target (gradient plus carried residual); also
+        returns the new residual ``g - wire value``. With a float codec the
+        kernel writes it, every sampled survivor subtracted (on overflow the
+        dropped ones too: the fused-EF semantics of the TPU kernel). An
+        integer codec's residual subtracts the decoded levels of the
+        transmitted slots, scattered from the compact buffers
+        (``residual_from_buffers``), as the JAX package does."""
+        scheme = cfg.scheme()
+        if scheme.codec.integer_coded:
+            sg = self.compress_sparse(cfg, u, g, k_cap, u_cod)
+            return sg, residual_from_buffers(g, sg)
+        er, layout, s = self._emit(scheme, cfg, u, g, k_cap, True, u_cod)
+        return self._finish(scheme, g, er, layout, s), er.residual
+
+    def _emit(self, scheme, cfg, u, g, k_cap, ef: bool, u_cod):
+        """Run the selector's emit pipeline on one ``[rows, d]`` group.
+        Returns the EmitResult, the wire layout and the selector's
+        accounting scalar per row (lambda for gspar, max|g| for bernoulli,
+        None otherwise)."""
         sel, codec = scheme.selector, scheme.codec
         d = g.shape[1]
         # the layout is static in (k_cap, d, wire width), so it is decided
         # before the kernels: under RICE they pack the index words too
         layout = _choose_layout(cfg, codec, g.dtype, k_cap, d)
         rice_r = coding.rice_parameter(k_cap, d) if layout == "rice" else -1
-        er, lam = ops.gspar_emit(g, u, k_cap=k_cap, rho=sel.rho,
-                                 num_iters=sel.num_iters, codec=codec,
-                                 rice_r=rice_r, ef=ef)
-        return er, layout, lam
+        kw = dict(k_cap=k_cap, codec=codec, rice_r=rice_r, ef=ef)
+        if sel.name == "topk":
+            return (ops.topk_emit(g, u_cod, k_target=sel.k_target(d), **kw),
+                    layout, None)
+        if sel.name == "gspar":
+            er, lam = ops.gspar_emit(g, u, u_cod, rho=sel.rho,
+                                     num_iters=sel.num_iters, **kw)
+            return er, layout, lam
+        if sel.name == "unisp":
+            return ops.unisp_emit(g, u, u_cod, rho=sel.rho, **kw), layout, \
+                None
+        er, mx = ops.bern_emit(g, u, u_cod, **kw)
+        return er, layout, mx
 
-    def _finish(self, scheme, g, er, layout, lam) -> SparseGrad:
-        """Per-row accounting from the kernel's reductions and the compact
-        buffers: the variance ratio, and the coding-model bits from the
-        sure-vs-sampled split of the kept coordinates (p at the kept
-        coordinates is one gather)."""
-        codec = scheme.codec
-        d = g.shape[1]
-        v32 = er.values.to(F32)
-        den = er.den
-        ok = den > 0
-        var = torch.where(ok, (v32 * v32).sum(-1) / torch.where(ok, den, 1.0),
-                          0.0)
+    def _finish(self, scheme, g, er, layout, s) -> SparseGrad:
+        """Per-row accounting from the kernels' reductions and the compact
+        buffers (``PallasBackend._finish``): the variance ratio over the
+        decoded values, and the coding-model bits — an integer codec's
+        levels (``coding.quantized_coding_bits``), topk's fixed k_target
+        message, unisp's ``nnz (b + log2 d) + b``, or for gspar and
+        bernoulli the sure-vs-sampled split of the kept coordinates (p at
+        the kept coordinates is one gather). The buffers are read in tiles
+        of at most ``ACCOUNT_UNITS`` slots (bernoulli's capacity is d: a
+        whole group's float32 copy would be 4 B per coordinate)."""
+        sel, codec = scheme.selector, scheme.codec
+        rows, d = g.shape
         vb = codec.value_bits
         logd = torch.log2(torch.tensor(float(d), dtype=F32,
                                        device=g.device))
-        a_idx = torch.gather(g, 1, er.idx.long()).to(F32).abs()
-        p_idx = torch.clamp_max(lam[:, None] * a_idx, 1.0)
-        valid = v32 != 0
-        sure = p_idx >= 1.0
-        n_a = (valid & sure).sum(-1).to(F32)
-        n_b = (valid & ~sure).sum(-1).to(F32)
-        bits = (n_a * (vb + logd)
-                + coding.hybrid_branch_bits(n_b, d, logd, 2.0) + vb)
+        zeros = dict(dtype=torch.int64, device=g.device)
+        sumsq = torch.zeros(rows, dtype=F32, device=g.device)
+        n_nz, n_a, n_b = (torch.zeros(rows, **zeros) for _ in range(3))
+        for a, b, j0, j1 in compaction.slot_tiles(rows, er.values.shape[1],
+                                                  ACCOUNT_UNITS):
+            vals = er.values[a:b, j0:j1]
+            v32 = (codec.decode(vals, er.scale[a:b, None])
+                   if codec.integer_coded else vals.to(F32))
+            sumsq[a:b] += (v32 * v32).sum(-1)
+            if codec.integer_coded:
+                n_nz[a:b] += torch.count_nonzero(v32.abs() > 0, dim=-1)
+            elif sel.name in ("gspar", "bernoulli"):
+                a_idx = torch.gather(g[a:b], 1, er.idx[a:b, j0:j1].long()
+                                     ).to(F32).abs()
+                sb = s[a:b, None]
+                if sel.name == "gspar":
+                    p_idx = torch.clamp_max(sb * a_idx, 1.0)
+                else:
+                    p_idx = torch.where(
+                        sb > 0, a_idx / torch.where(sb > 0, sb, 1.0), 0.0)
+                valid = v32 != 0
+                sure = p_idx >= 1.0
+                n_a[a:b] += torch.count_nonzero(valid & sure, dim=-1)
+                n_b[a:b] += torch.count_nonzero(valid & ~sure, dim=-1)
+            del v32
+        p_sum = er.p_sum
+        if codec.integer_coded:
+            bits = coding.quantized_coding_bits(
+                n_nz.to(F32), d, vb, codec.dense_map_bits, codec.header_bits)
+        elif sel.name == "topk":
+            k = float(sel.k_target(d))
+            p_sum = torch.full_like(er.p_sum, k)
+            bits = (k * (vb + logd) + vb).expand_as(p_sum)
+        elif sel.name == "unisp":
+            bits = er.nnz.to(F32) * (vb + logd) + vb
+        else:
+            bits = (n_a.to(F32) * (vb + logd) + coding.hybrid_branch_bits(
+                n_b.to(F32), d, logd, 2.0) + vb)
+        ok = er.den > 0
+        var = torch.where(ok, sumsq / torch.where(ok, er.den, 1.0), 0.0)
         return SparseGrad(values=er.values, idx=er.idx, nnz=er.nnz,
-                          p_sum=er.p_sum, bits=bits, var_ratio=var,
+                          p_sum=p_sum, bits=bits, var_ratio=var,
                           scale=er.scale, d=d, codec=codec.name,
                           layout=layout, rice_words=er.rice_words,
                           rice_used=er.rice_used)

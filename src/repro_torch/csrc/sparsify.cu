@@ -1,8 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels for the gspar sparse emit path.
+// Hand-written Hopper (sm_90a) kernels for the sparse emit path.
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/sparsify/
-// kernel.py that Algorithm 3 on the sparse gather wire runs (the RICE parts
-// of compact_emit_2d become a fifth kernel here):
+// kernel.py that the sparse gather wire runs (the RICE parts of
+// compact_emit_2d become a fifth kernel here):
 //
 //   stats_l1max   <- stats_l1max_2d   (kernel.py:275)  (sum|g|, max|g|) per row
 //   tail_stats    <- tail_stats_2d    (kernel.py:195)  (count, sum|g|) of |g| < t
@@ -11,38 +11,48 @@
 //   rice_pack     <- compact_emit_2d  (kernel.py:497-556, the rice_r >= 0
 //                    parts)  Golomb-Rice packing of the compact idx stream
 //
+// Passes 1 and 2 take every selector kind of the TPU kernels (gspar's lam,
+// unisp's rho, bernoulli's bern, topk) as a template parameter, and pass 2
+// every value codec: f32 and bf16, and the integer codecs qsgd<N> and
+// ternary with the codec uniforms gathered at compact rank.
+//
 // Layout. Every kernel takes one shape group as a row-major [rows, d] batch
 // (rice_pack: the group's compact [rows, k_cap] idx), one launch per group,
 // as the vmap over the group is on the TPU: the grid is (tiles, rows),
 // blockIdx.y is the row, and each block owns kTile consecutive coordinates
-// of its row. Per-row scalars (lambda, the threshold, the saturation gate)
-// are read from device memory, so no host round trip sits between the
-// solver's passes. The ragged end of a row is masked here; nothing is
-// padded into a tile layout.
+// of its row. Per-row scalars (lambda, rho, max|g|, the topk threshold and
+// tie budget, the codec scale, the saturation gate) are read from device
+// memory, so no host round trip sits between the passes. The ragged end of
+// a row is masked here; nothing is padded into a tile layout.
 //
 // What bounds them. The first four stream the gradient (bf16 on the main
-// path) and, for the two compaction passes, f32 uniforms: they are bound by
-// device memory bandwidth (2 B/coord for the reductions, 6 B/coord for pass
-// 1, 8 B/coord plus the compact output and the EF residual for pass 2).
-// Each thread therefore loads kItems consecutive elements per sweep (one
+// path) and, for the sampling selectors' two compaction passes, f32
+// uniforms: they are bound by device memory bandwidth (2 B/coord for the
+// reductions and topk's pass 1, 6 B/coord for a sampling pass 1, 8 B/coord
+// plus the compact output, the codec uniforms and the EF residual for pass
+// 2). Each thread therefore loads kItems consecutive elements per sweep (one
 // 16-byte vector load of bf16, two of f32) and keeps its partial sums in
 // registers. rice_pack reads the compact idx and writes the code words (see
 // its section).
 //
-// Order without a sequential grid. The TPU carries the compact rank from tile
-// to tile in SMEM across a grid that runs in order. Hopper blocks run in no
-// order, so pass 1 writes per-(row, tile) survivor counts, a one-block-per-row
-// finish kernel scans them into per-tile base ranks, and pass 2 gives every
-// survivor its slot as base + in-block rank (thread counts, warp shuffles and
-// one block scan). Slots are written without atomics, so idx ascends by
-// coordinate and the padding slots keep the zeros the wrapper allocated.
+// Order without a sequential grid. The TPU carries the compact rank (and
+// topk's tie rank) from tile to tile in SMEM across a grid that runs in
+// order. Hopper blocks run in no order, so pass 1 writes per-(row, tile)
+// survivor (and tie) counts, a one-block-per-row finish kernel scans them
+// into per-tile base ranks, and pass 2 gives every survivor its slot as base
+// + in-block rank (thread counts, warp shuffles and one block scan). Slots
+// are written without atomics, so idx ascends by coordinate and the padding
+// slots keep the zeros the wrapper allocated.
 //
 // Sums accumulate in f64 and round to f32 once, so they differ from the TPU's
 // tile-order f32 sums only by rounding; counts are integers (the TPU counts
-// tail_stats in f32, which stops being exact past 2^24 coordinates).
+// tail_stats in f32, and reads topk's tie budget from an f32 scalar, which
+// stop being exact past 2^24).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -299,61 +309,147 @@ tail_finish(const int* __restrict__ pcnt, const double* __restrict__ psum,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3: pass 1 of the two-pass compaction (selector "lam": gspar).
-//   p = min(lam |g|, 1), z = u < p, v = z ? g / p : 0
-// Per row: survivors, support |{g != 0}|, sum p, sum g^2, and sum v^2 and
-// max|v| over the first k_cap survivors in coordinate order.
+// Kernels 3 and 4: the two-pass compaction, one instantiation per selector
+// kind PK (a template parameter: no per-element branch on the kind). The
+// selectors, as _tile_select (kernel.py:302) defines them from the per-row
+// scalars s1, s2 and the topk tie budget:
+//
+//   kLam  (gspar)     p = min(s1 |g|, 1)
+//   kRho  (unisp)     p = s1 on the support, 0 off it
+//   kBern (bernoulli) p = |g| / s2, s2 = max|g|
+//       z = u < p, v = z ? g / p : 0
+//   kTopk             z = |g| > t, or |g| == t > 0 among the first `budget`
+//                     such coordinates of the row (XLA top_k's lowest-index
+//                     tie break); v = z ? g : 0. Reads no uniforms.
+//
+// The TPU carries the topk tie rank from tile to tile in SMEM. Here every
+// tie has |g| = t, so pass 1 needs no rank: it counts per tile the strict
+// survivors (gt) and the ties, and reduces the statistics of the strict
+// survivors only. select_finish scans the tie counts into a tie base per
+// tile, keeps kept = clamp(budget - tie_base, 0, ties) of each tile's ties,
+// and scans gt + kept into the base ranks; the kept ties add kept * t^2 to
+// sum v^2 and t to max|v|. Pass 2 re-derives the mask from the tie base with
+// one more block scan per sweep. The budget stays an integer throughout.
 // ---------------------------------------------------------------------------
+
+enum : int { kLam = 0, kRho = 1, kBern = 2, kTopk = 3 };
 
 struct Sample {
   bool z;
   float p, v;
 };
 
-__device__ __forceinline__ Sample sample(float x, float r, float s1,
+template <int PK>
+__device__ __forceinline__ float keep_prob(float a, float s1, float s2) {
+  if constexpr (PK == kLam) return fminf(s1 * a, 1.f);
+  if constexpr (PK == kRho) return a > 0.f ? s1 : 0.f;
+  return s2 > 0.f ? __fdiv_rn(a, s2) : 0.f;        // kBern
+}
+
+// The sampling selectors (every kind but kTopk) on one element.
+template <int PK>
+__device__ __forceinline__ Sample sample(float x, float r, float s1, float s2,
                                          bool valid) {
   Sample o;
-  const float a = fabsf(x);
-  o.p = fminf(s1 * a, 1.f);
+  o.p = keep_prob<PK>(fabsf(x), s1, s2);
   o.z = valid && r < o.p;
-  o.v = o.z ? x / o.p : 0.f;
+  o.v = o.z ? __fdiv_rn(x, o.p) : 0.f;
   return o;
 }
 
-template <typename T>
+// The selector over one thread's kItems consecutive elements of a sweep
+// (i = its first coordinate, end = the tile's end). topk ranks its ties with
+// a block-wide scan, so every thread of the block calls this in every sweep;
+// `tie_rank` carries the row's ties before the sweep.
+template <int PK>
+__device__ __forceinline__ void select_sweep(const float x[kItems],
+                                             const float r[kItems], int64_t i,
+                                             int64_t end, float s1, float s2,
+                                             long long budget,
+                                             long long* tie_rank,
+                                             int* sh_scan, bool z[kItems],
+                                             float v[kItems]) {
+  if constexpr (PK == kTopk) {
+    bool tie[kItems];
+    int lt = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const bool valid = i + k < end;
+      const float a = fabsf(x[k]);
+      z[k] = valid && a > s1;
+      tie[k] = valid && a == s1 && s1 > 0.f;
+      lt += tie[k];
+    }
+    int total;
+    long long tr = *tie_rank + block_excl_scan(lt, &total, sh_scan);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (tie[k]) {
+        z[k] = tr < budget;
+        ++tr;
+      }
+      v[k] = z[k] ? x[k] : 0.f;
+    }
+    *tie_rank += total;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const Sample o = sample<PK>(x[k], r[k], s1, s2, i + k < end);
+      z[k] = o.z;
+      v[k] = o.v;
+    }
+  }
+}
+
+// Pass 1 per (row, tile): survivors, support |{g != 0}|, sum p, sum g^2, sum
+// v^2 and max|v| (for topk: of the strict survivors, plus the tile's ties).
+template <int PK, typename T>
 __global__ void __launch_bounds__(kThreads)
 select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
              int64_t ntiles, int vec_g, int vec_u,
-             const float* __restrict__ lam, int* __restrict__ pcnt,
-             int* __restrict__ pnzc, double* __restrict__ ppsum,
+             const float* __restrict__ s1p, const float* __restrict__ s2p,
+             int* __restrict__ pcnt, int* __restrict__ pnzc,
+             int* __restrict__ pties, double* __restrict__ ppsum,
              double* __restrict__ pden, double* __restrict__ pvsq,
              float* __restrict__ pvmx) {
   const int64_t row = blockIdx.y, tile = blockIdx.x;
-  const float s1 = lam[row];
+  const float s1 = s1p[row];
+  const float s2 = PK == kBern ? s2p[row] : 0.f;
   const T* grow = g + row * d;
-  const float* urow = u + row * d;
   const int64_t start = tile * kTile;
   const int64_t end = row_end(d, start);
-  int cnt = 0, nzc = 0;
+  int cnt = 0, nzc = 0, ties = 0;
   double ps = 0.0, dn = 0.0, vs = 0.0;
   float vm = 0.f;
   for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
     float x[kItems], r[kItems];
     load_items(grow, i, end, vec_g, x);
-    load_items(urow, i, end, vec_u, r);
+    if constexpr (PK != kTopk) load_items(u + row * d, i, end, vec_u, r);
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       if (i + k >= end) continue;
       const float a = fabsf(x[k]);
-      const Sample o = sample(x[k], r[k], s1, true);
       const float a2 = a * a;
-      const float v2 = o.v * o.v;
       nzc += a > 0.f;
-      ps += o.p;
       dn += a2;
-      cnt += o.z;
-      vs += v2;
-      vm = fmaxf(vm, fabsf(o.v));
+      if constexpr (PK == kTopk) {
+        if (a > s1) {
+          const float v2 = x[k] * x[k];
+          ++cnt;
+          ps += 1.0;
+          vs += v2;
+          vm = fmaxf(vm, a);
+        } else if (a == s1 && s1 > 0.f) {
+          ++ties;
+        }
+      } else {
+        const Sample o = sample<PK>(x[k], r[k], s1, s2, true);
+        const float v2 = o.v * o.v;
+        ps += o.p;
+        cnt += o.z;
+        vs += v2;
+        vm = fmaxf(vm, fabsf(o.v));
+      }
     }
   }
   __shared__ int sh_i[32];
@@ -361,6 +457,7 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   __shared__ float sh_f[32];
   cnt = block_sum(cnt, sh_i);
   nzc = block_sum(nzc, sh_i);
+  if constexpr (PK == kTopk) ties = block_sum(ties, sh_i);
   ps = block_sum(ps, sh_d);
   dn = block_sum(dn, sh_d);
   vs = block_sum(vs, sh_d);
@@ -369,6 +466,7 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
     const int64_t o = row * ntiles + tile;
     pcnt[o] = cnt;
     pnzc[o] = nzc;
+    if constexpr (PK == kTopk) pties[o] = ties;
     ppsum[o] = ps;
     pden[o] = dn;
     pvsq[o] = vs;
@@ -376,46 +474,67 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   }
 }
 
-// One block per row: scan the tile counts into base ranks, reduce the tile
-// partials, and re-run the single tile that straddles rank k_cap so that the
-// codec-scale statistics see exactly the first k_cap survivors.
-template <typename T>
+// One block per row: scan the tile counts into base ranks (topk: first the
+// tie counts into tie bases, which decide each tile's kept ties), reduce the
+// tile partials, and re-run the single tile that straddles rank k_cap so that
+// the codec-scale statistics see exactly the first k_cap survivors.
+template <int PK, typename T>
 __global__ void __launch_bounds__(kThreads)
 select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
               int64_t ntiles, int vec_g, int vec_u,
-              const float* __restrict__ lam, int64_t k_cap,
+              const float* __restrict__ s1p, const float* __restrict__ s2p,
+              const long long* __restrict__ budgetp, int64_t k_cap,
               const int* __restrict__ pcnt, const int* __restrict__ pnzc,
-              const double* __restrict__ ppsum, const double* __restrict__ pden,
-              const double* __restrict__ pvsq, const float* __restrict__ pvmx,
-              int* __restrict__ base, int* __restrict__ cnt_out,
+              const int* __restrict__ pties, const double* __restrict__ ppsum,
+              const double* __restrict__ pden, const double* __restrict__ pvsq,
+              const float* __restrict__ pvmx, int* __restrict__ base,
+              int* __restrict__ tie_base, int* __restrict__ cnt_out,
               int* __restrict__ nzc_out, float* __restrict__ psum_out,
               float* __restrict__ den_out, float* __restrict__ vsq_out,
               float* __restrict__ vmx_out) {
   const int64_t row = blockIdx.x;
+  const float s1 = s1p[row];
+  const float s2 = PK == kBern ? s2p[row] : 0.f;
+  const long long budget = PK == kTopk ? budgetp[row] : 0;
+  const float t2 = s1 * s1;                 // topk: v^2 of a kept tie
   __shared__ int sh_scan[33];
-  __shared__ long long sh_straddle[2];   // tile index, its base rank
+  __shared__ long long sh_straddle[3];   // tile index, its base rank, tie base
   if (threadIdx.x == 0) sh_straddle[0] = -1;
-  long long running = 0, nz = 0;
+  long long running = 0, tie_run = 0, nz = 0;
   double ps = 0.0, dn = 0.0, vs = 0.0;
   float vm = 0.f;
   for (int64_t c0 = 0; c0 < ntiles; c0 += blockDim.x) {
     const int64_t t = c0 + threadIdx.x;
     const int64_t o = row * ntiles + t;
-    const int c = t < ntiles ? pcnt[o] : 0;
+    int c = t < ntiles ? pcnt[o] : 0;
+    long long tb = 0;
+    int kept = 0;                          // topk: this tile's kept ties
+    if constexpr (PK == kTopk) {
+      const int ties = t < ntiles ? pties[o] : 0;
+      int ttotal;
+      tb = tie_run + block_excl_scan(ties, &ttotal, sh_scan);
+      const long long left = budget - tb;
+      kept = left <= 0 ? 0 : (left < ties ? (int)left : ties);
+      c += kept;
+      tie_run += ttotal;
+      if (t < ntiles) tie_base[o] = (int)tb;
+    }
     int total;
     const int ex = block_excl_scan(c, &total, sh_scan);
     if (t < ntiles) {
       const long long b = running + ex;
       base[o] = (int)b;
       nz += pnzc[o];
-      ps += ppsum[o];
+      ps += ppsum[o] + kept;
       dn += pden[o];
       if (b + c <= k_cap) {
-        vs += pvsq[o];
+        vs += pvsq[o] + (double)kept * (double)t2;
         vm = fmaxf(vm, pvmx[o]);
+        if (kept > 0) vm = fmaxf(vm, s1);
       } else if (b < k_cap) {          // at most one tile straddles k_cap
         sh_straddle[0] = t;
         sh_straddle[1] = b;
+        sh_straddle[2] = tb;
       }
     }
     running += total;
@@ -423,33 +542,31 @@ select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   __syncthreads();
   const long long st = sh_straddle[0];
   if (st >= 0) {
-    const float s1 = lam[row];
     const T* grow = g + row * d;
-    const float* urow = u + row * d;
     const int64_t start = st * kTile;
     const int64_t end = row_end(d, start);
-    long long rank0 = sh_straddle[1];
+    long long rank0 = sh_straddle[1], tie_rank = sh_straddle[2];
     for (int64_t s = start; s < end; s += kSweep) {   // uniform over the block
       const int64_t i = s + threadIdx.x * kItems;
       float x[kItems], r[kItems];
       load_items(grow, i, end, vec_g, x);
-      load_items(urow, i, end, vec_u, r);
-      Sample o[kItems];
+      if constexpr (PK != kTopk) load_items(u + row * d, i, end, vec_u, r);
+      bool z[kItems];
+      float v[kItems];
+      select_sweep<PK>(x, r, i, end, s1, s2, budget, &tie_rank, sh_scan, z,
+                       v);
       int lc = 0;
 #pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        o[k] = sample(x[k], r[k], s1, i + k < end);
-        lc += o[k].z;
-      }
+      for (int k = 0; k < kItems; ++k) lc += z[k];
       int total;
       long long rk = rank0 + block_excl_scan(lc, &total, sh_scan);
 #pragma unroll
       for (int k = 0; k < kItems; ++k) {
-        if (o[k].z) {
+        if (z[k]) {
           if (rk < k_cap) {
-            const float v2 = o[k].v * o[k].v;
+            const float v2 = v[k] * v[k];
             vs += v2;
-            vm = fmaxf(vm, fabsf(o[k].v));
+            vm = fmaxf(vm, fabsf(v[k]));
           }
           ++rk;
         }
@@ -475,28 +592,67 @@ select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   }
 }
 
+// The integer codecs' level of one kept value, in codecs.py's order of
+// operations, each step rounded on its own (no contraction into an FMA), so
+// that the level is the JAX package's bit for bit:
+//   qsgd:    scaled = (|v| / scale) * s, lo = floor(scaled),
+//            level = lo + (u < scaled - lo)
+//   ternary: level = u < |v| / scale
+// (|v| / scale is 0 where scale <= 0), signed like v.
+__device__ __forceinline__ float int_level(float v, float scale, float uc,
+                                           float levels, int ternary) {
+  const float q = scale > 0.f ? __fdiv_rn(fabsf(v), scale) : 0.f;
+  float level;
+  if (ternary) {
+    level = uc < q ? 1.f : 0.f;
+  } else {
+    const float scaled = __fmul_rn(q, levels);
+    const float lo = floorf(scaled);
+    level = __fadd_rn(lo, uc < __fsub_rn(scaled, lo) ? 1.f : 0.f);
+  }
+  return v < 0.f ? -level : level;
+}
+
+template <typename W> struct IntWire : std::false_type {};
+template <> struct IntWire<int8_t> : std::true_type {};
+template <> struct IntWire<int16_t> : std::true_type {};
+
 // ---------------------------------------------------------------------------
 // Kernel 4: pass 2. Re-derive the kept mask and write survivor j of the row
-// (j = base + in-block rank < k_cap) to slot j: values in the wire dtype W,
-// idx the row coordinate. With `res` the EF residual g - encoded value is
-// written for every coordinate, overflow-dropped survivors included; the
-// encoded value is the codec's output in float32, so it is W-rounded only
-// for a rounding codec (`round_res`: bf16), as on the TPU.
+// (j = base + in-block rank < k_cap) to slot j: idx the row coordinate and
+// the value in the wire dtype W. A float W takes v rounded; an integer W
+// (qsgd, ternary) the codec level of v from the row's scale and u_cod[row,
+// j], the codec uniform at the survivor's compact rank. With `res` (float
+// codecs) the EF residual g - encoded value is written for every coordinate,
+// overflow-dropped survivors included; the encoded value is the codec's
+// output in float32, so it is W-rounded only for a rounding codec
+// (`round_res`: bf16), as on the TPU. The integer codecs' EF subtracts the
+// decoded level, a product formed after the exchange's scale is known: the
+// backend scatters it from the compact buffers instead.
 // ---------------------------------------------------------------------------
 
-template <typename T, typename W>
+template <int PK, typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
 compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
              int64_t ntiles, int vec_g, int vec_u,
-             const float* __restrict__ lam, const int* __restrict__ base,
+             const float* __restrict__ s1p, const float* __restrict__ s2p,
+             const long long* __restrict__ budgetp,
+             const int* __restrict__ base, const int* __restrict__ tie_base,
              int64_t k_cap, W* __restrict__ vals, int* __restrict__ idx,
-             T* __restrict__ res, int round_res) {
+             T* __restrict__ res, int round_res,
+             const float* __restrict__ scale, const float* __restrict__ ucod,
+             float levels, int ternary) {
   const int64_t row = blockIdx.y, tile = blockIdx.x;
-  long long rank0 = base[row * ntiles + tile];
+  const int64_t o = row * ntiles + tile;
+  long long rank0 = base[o];
   if (res == nullptr && rank0 >= k_cap) return;   // uniform over the block
-  const float s1 = lam[row];
+  const float s1 = s1p[row];
+  const float s2 = PK == kBern ? s2p[row] : 0.f;
+  const long long budget = PK == kTopk ? budgetp[row] : 0;
+  long long tie_rank = PK == kTopk ? tie_base[o] : 0;
+  const float sc = IntWire<W>::value ? scale[row] : 1.f;
+  const float* ucrow = IntWire<W>::value ? ucod + row * k_cap : nullptr;
   const T* grow = g + row * d;
-  const float* urow = u + row * d;
   W* vrow = vals + row * k_cap;
   int* irow = idx + row * k_cap;
   T* rrow = res == nullptr ? nullptr : res + row * d;
@@ -507,29 +663,32 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
     const int64_t i = s + threadIdx.x * kItems;
     float x[kItems], r[kItems];
     load_items(grow, i, end, vec_g, x);
-    load_items(urow, i, end, vec_u, r);
-    Sample o[kItems];
+    if constexpr (PK != kTopk) load_items(u + row * d, i, end, vec_u, r);
+    bool z[kItems];
+    float v[kItems];
+    select_sweep<PK>(x, r, i, end, s1, s2, budget, &tie_rank, sh_scan, z, v);
     int lc = 0;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      o[k] = sample(x[k], r[k], s1, i + k < end);
-      lc += o[k].z;
-    }
+    for (int k = 0; k < kItems; ++k) lc += z[k];
     int total;
     long long rk = rank0 + block_excl_scan(lc, &total, sh_scan);
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      const W ev = from_f32<W>(o[k].v);
-      if (o[k].z) {
+      if (z[k]) {
         if (rk < k_cap) {
-          vrow[rk] = ev;
+          if constexpr (IntWire<W>::value)
+            vrow[rk] = (W)(int)int_level(v[k], sc, ucrow[rk], levels, ternary);
+          else
+            vrow[rk] = from_f32<W>(v[k]);
           irow[rk] = (int)(i + k);
         }
         ++rk;
       }
-      if (rrow != nullptr && i + k < end) {
-        const float enc = round_res ? to_f32(ev) : o[k].v;
-        rrow[i + k] = from_f32<T>(x[k] - (o[k].z ? enc : 0.f));
+      if constexpr (!IntWire<W>::value) {
+        if (rrow != nullptr && i + k < end) {
+          const float enc = round_res ? to_f32(from_f32<W>(v[k])) : v[k];
+          rrow[i + k] = from_f32<T>(x[k] - (z[k] ? enc : 0.f));
+        }
       }
     }
     rank0 += total;
@@ -685,6 +844,57 @@ rice_finalize(int64_t k_cap, int r, int64_t cap_words,
 
 inline unsigned grid_x(int64_t ntiles) { return (unsigned)ntiles; }
 
+// Calls f(std::integral_constant<int, PK>) for the selector kind `pk`.
+template <typename F> int with_kind(int pk, F&& f) {
+  switch (pk) {
+    case kLam: f(std::integral_constant<int, kLam>{}); break;
+    case kRho: f(std::integral_constant<int, kRho>{}); break;
+    case kBern: f(std::integral_constant<int, kBern>{}); break;
+    case kTopk: f(std::integral_constant<int, kTopk>{}); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+template <int PK, typename T>
+void launch_select(const void* g, const void* u, long long rows,
+                   long long d, int vec_g, int vec_u, const void* s1,
+                   const void* s2, const void* budget, long long k_cap,
+                   void* pcnt, void* pnzc, void* pties, void* ppsum,
+                   void* pden, void* pvsq, void* pvmx, void* base,
+                   void* tie_base, void* cnt, void* nzc, void* psum,
+                   void* den, void* vsq, void* vmx, cudaStream_t st) {
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  select_tiles<PK, T><<<grid, kThreads, 0, st>>>(
+      (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
+      (const float*)s2, (int*)pcnt, (int*)pnzc, (int*)pties, (double*)ppsum,
+      (double*)pden, (double*)pvsq, (float*)pvmx);
+  select_finish<PK, T><<<(unsigned)rows, kThreads, 0, st>>>(
+      (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
+      (const float*)s2, (const long long*)budget, k_cap, (const int*)pcnt,
+      (const int*)pnzc, (const int*)pties, (const double*)ppsum,
+      (const double*)pden, (const double*)pvsq, (const float*)pvmx,
+      (int*)base, (int*)tie_base, (int*)cnt, (int*)nzc, (float*)psum,
+      (float*)den, (float*)vsq, (float*)vmx);
+}
+
+template <int PK, typename T, typename W>
+void launch_emit(const void* g, const void* u, long long rows, long long d,
+                 int vec_g, int vec_u, const void* s1, const void* s2,
+                 const void* budget, const void* base, const void* tie_base,
+                 long long k_cap, void* vals, void* idx, void* res,
+                 int round_res, const void* scale, const void* ucod,
+                 float levels, int ternary, cudaStream_t st) {
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  compact_emit<PK, T, W><<<grid, kThreads, 0, st>>>(
+      (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
+      (const float*)s2, (const long long*)budget, (const int*)base,
+      (const int*)tie_base, k_cap, (W*)vals, (int*)idx, (T*)res, round_res,
+      (const float*)scale, (const float*)ucod, levels, ternary);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -741,67 +951,63 @@ int gspar_tail_stats(const void* g, int dt, long long rows, long long d,
 }
 
 int gspar_select_stats(const void* g, int dt, const void* u, long long rows,
-                       long long d, int vec_g, int vec_u, const void* lam,
-                       long long k_cap, void* pcnt, void* pnzc, void* ppsum,
-                       void* pden, void* pvsq, void* pvmx, void* base,
-                       void* cnt, void* nzc, void* psum, void* den, void* vsq,
-                       void* vmx, void* stream) {
+                       long long d, int vec_g, int vec_u, int pk,
+                       const void* s1, const void* s2, const void* budget,
+                       long long k_cap, void* pcnt, void* pnzc, void* pties,
+                       void* ppsum, void* pden, void* pvsq, void* pvmx,
+                       void* base, void* tie_base, void* cnt, void* nzc,
+                       void* psum, void* den, void* vsq, void* vmx,
+                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t nt = (d + kTile - 1) / kTile;
-  dim3 grid(grid_x(nt), (unsigned)rows);
-  if (dt == 1) {
-    select_tiles<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, (int*)pcnt, (int*)pnzc, (double*)ppsum,
-        (double*)pden, (double*)pvsq, (float*)pvmx);
-    select_finish<__nv_bfloat16><<<(unsigned)rows, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, k_cap, (const int*)pcnt, (const int*)pnzc,
-        (const double*)ppsum, (const double*)pden, (const double*)pvsq,
-        (const float*)pvmx, (int*)base, (int*)cnt, (int*)nzc, (float*)psum,
-        (float*)den, (float*)vsq, (float*)vmx);
-  } else {
-    select_tiles<float><<<grid, kThreads, 0, st>>>(
-        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, (int*)pcnt, (int*)pnzc, (double*)ppsum,
-        (double*)pden, (double*)pvsq, (float*)pvmx);
-    select_finish<float><<<(unsigned)rows, kThreads, 0, st>>>(
-        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, k_cap, (const int*)pcnt, (const int*)pnzc,
-        (const double*)ppsum, (const double*)pden, (const double*)pvsq,
-        (const float*)pvmx, (int*)base, (int*)cnt, (int*)nzc, (float*)psum,
-        (float*)den, (float*)vsq, (float*)vmx);
-  }
-  return (int)cudaGetLastError();
+  const int err = with_kind(pk, [&](auto kind) {
+    constexpr int PK = decltype(kind)::value;
+    if (dt == 1)
+      launch_select<PK, __nv_bfloat16>(
+          g, u, rows, d, vec_g, vec_u, s1, s2, budget, k_cap, pcnt, pnzc,
+          pties, ppsum, pden, pvsq, pvmx, base, tie_base, cnt, nzc, psum, den,
+          vsq, vmx, st);
+    else
+      launch_select<PK, float>(
+          g, u, rows, d, vec_g, vec_u, s1, s2, budget, k_cap, pcnt, pnzc,
+          pties, ppsum, pden, pvsq, pvmx, base, tie_base, cnt, nzc, psum, den,
+          vsq, vmx, st);
+  });
+  return err ? err : (int)cudaGetLastError();
 }
 
+// wdt: the wire dtype code (0 float32, 1 bfloat16, 2 int8, 3 int16); an
+// integer wire takes `scale` and `ucod`, and `ternary` or the qsgd `levels`.
 int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
-                       long long d, int vec_g, int vec_u, const void* lam,
-                       const void* base, long long k_cap, void* vals, int wdt,
-                       void* idx, void* res, int round_res, void* stream) {
+                       long long d, int vec_g, int vec_u, int pk,
+                       const void* s1, const void* s2, const void* budget,
+                       const void* base, const void* tie_base,
+                       long long k_cap, void* vals, int wdt, void* idx,
+                       void* res, int round_res, const void* scale,
+                       const void* ucod, float levels, int ternary,
+                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t nt = (d + kTile - 1) / kTile;
-  dim3 grid(grid_x(nt), (unsigned)rows);
-  if (dt == 1 && wdt == 1)
-    compact_emit<__nv_bfloat16, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, (const int*)base, k_cap, (__nv_bfloat16*)vals,
-        (int*)idx, (__nv_bfloat16*)res, round_res);
-  else if (dt == 0 && wdt == 0)
-    compact_emit<float, float><<<grid, kThreads, 0, st>>>(
-        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, (const int*)base, k_cap, (float*)vals, (int*)idx,
-        (float*)res, round_res);
-  else if (dt == 0 && wdt == 1)
-    compact_emit<float, __nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const float*)g, (const float*)u, d, nt, vec_g, vec_u,
-        (const float*)lam, (const int*)base, k_cap, (__nv_bfloat16*)vals,
-        (int*)idx, (float*)res, round_res);
-  else
-    return (int)cudaErrorInvalidValue;
+  bool ok = true;
+  const int err = with_kind(pk, [&](auto kind) {
+    constexpr int PK = decltype(kind)::value;
+#define GSPAR_EMIT(T, W)                                                     \
+  launch_emit<PK, T, W>(g, u, rows, d, vec_g, vec_u, s1, s2, budget, base,  \
+                        tie_base, k_cap, vals, idx, res, round_res, scale,  \
+                        ucod, levels, ternary, st)
+    using bf16 = __nv_bfloat16;
+    if (dt == 0 && wdt == 0) GSPAR_EMIT(float, float);
+    else if (dt == 0 && wdt == 1) GSPAR_EMIT(float, bf16);
+    else if (dt == 1 && wdt == 1) GSPAR_EMIT(bf16, bf16);
+    else if (dt == 0 && wdt == 2) GSPAR_EMIT(float, int8_t);
+    else if (dt == 0 && wdt == 3) GSPAR_EMIT(float, int16_t);
+    else if (dt == 1 && wdt == 2) GSPAR_EMIT(bf16, int8_t);
+    else if (dt == 1 && wdt == 3) GSPAR_EMIT(bf16, int16_t);
+    else ok = false;
+#undef GSPAR_EMIT
+  });
+  if (err) return err;
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
-
 int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
                     long long k_cap, int r, long long cap_words, void* qsum,
                     void* qbase, void* live_end, void* words, void* used,

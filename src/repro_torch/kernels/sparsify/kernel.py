@@ -1,11 +1,13 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/sparsify.cu``.
 
-The kernels of the gspar sparse emit path, ported from the Pallas TPU
-kernels of ``repro.kernels.sparsify.kernel`` (file and line in each
-wrapper's docstring): the four passes of Algorithm 3's emit and the
-Golomb-Rice packing of the RICE wire layout. Each wrapper takes one shape
-group as a ``[rows, d]`` batch (``[rows, k_cap]`` for the packing) and
-per-row scalar tensors, as the vmap over a group is on the TPU:
+The kernels of the sparse emit path, ported from the Pallas TPU kernels of
+``repro.kernels.sparsify.kernel`` (file and line in each wrapper's
+docstring): the four passes of the two-pass emit, for every selector kind
+(``PKINDS``: gspar's lam, unisp's rho, bernoulli's bern, topk) and every
+value codec (f32, bf16, qsgd<N>, ternary), and the Golomb-Rice packing of
+the RICE wire layout. Each wrapper takes one shape group as a ``[rows, d]``
+batch (``[rows, k_cap]`` for the packing) and per-row scalar tensors, as
+the vmap over a group is on the TPU:
 
 - a tensor on the CPU goes to the plain PyTorch version in ``ref.py``;
 - a tensor on a CUDA device launches the kernel, or raises. There is no
@@ -17,7 +19,8 @@ first use, and loaded with ``ctypes`` (the library's file name carries a
 hash of the source, so an edited source is rebuilt). A wrapper enqueues its
 kernels on PyTorch's current stream, allocates outputs and scratch with
 PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
-``LAUNCHES[name]``: the count of kernel launches a run can read back.
+``LAUNCHES[name]`` (and, for the compaction passes, to the variant's
+count): the launch counts a run can read back.
 
 What bounds each kernel on an H100 (3.35 TB/s of HBM): all five are
 memory-bound streams over the group (or its compact buffer), so their bound
@@ -43,6 +46,10 @@ TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
 RICE_TILE = 2048      # codes per CUDA block; must equal kRiceTile in the .cu
 KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
            "rice_pack")
+PKINDS = ref.PKINDS   # selector kinds of passes 1-2, in the .cu's enum order
+# Launches per kernel, and per variant of the two compaction passes:
+# ``"select_stats/topk"``, ``"compact_emit/lam+qsgd8"`` (the selector kind,
+# then an integer codec's name; float codecs count under the kind alone).
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _REPO = Path(__file__).resolve().parents[4]
@@ -51,7 +58,8 @@ BUILD_DIR = _REPO / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.int16: 3}        # g takes the first two
 _lib_handle: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
@@ -63,17 +71,18 @@ _SIGNATURES = {
     "gspar_error_string": ((_I,), ctypes.c_char_p),
     "gspar_stats_l1max": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P), _I),
     "gspar_tail_stats": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P), _I),
-    "gspar_select_stats": ((_P, _I, _P, _L, _L, _I, _I, _P, _L)
-                           + (_P,) * 13 + (_P,), _I),
-    "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _P, _P, _L, _P, _I,
-                            _P, _P, _I, _P), _I),
+    "gspar_select_stats": ((_P, _I, _P, _L, _L, _I, _I, _I, _P, _P, _P, _L)
+                           + (_P,) * 15 + (_P,), _I),
+    "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
+                            _P, _L, _P, _I, _P, _P, _I, _P, _P,
+                            ctypes.c_float, _I, _P), _I),
     "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L) + (_P,) * 5 + (_P,), _I),
 }
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    LAUNCHES.clear()
+    LAUNCHES.update(dict.fromkeys(KERNELS, 0))
 
 
 def library_path() -> Path:
@@ -117,11 +126,14 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
-def _check(err: int, name: str) -> None:
+def _check(err: int, name: str, variant: str | None = None) -> None:
     if err != 0:
         msg = _lib().gspar_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
+    if variant is not None:
+        key = f"{name}/{variant}"
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -146,7 +158,7 @@ def _on_card(name: str, g: torch.Tensor, *others: torch.Tensor) -> bool:
         raise ValueError(f"{name}: no kernel for device {g.device}")
     if g.dim() != 2 or not g.is_contiguous():
         raise ValueError(f"{name}: g must be a contiguous [rows, d] tensor")
-    if g.dtype not in _DTYPE_CODE:
+    if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: g dtype {g.dtype} is not float32/bfloat16")
     if g.shape[1] >= 2**31 or g.shape[0] > 65535:
         raise ValueError(f"{name}: group {tuple(g.shape)} exceeds the grid")
@@ -201,27 +213,70 @@ def tail_stats(g: torch.Tensor, thresh: torch.Tensor, gate: torch.Tensor
     return cnt, l1
 
 
-def select_stats(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                 k_cap: int) -> SelectStats:
-    """Pass 1 of the two-pass compaction for the gspar selector (``pkind=
-    "lam"``): survivors, support, sum p, sum g^2, and sum v^2 / max|v| over
-    the first ``k_cap`` survivors of each row, plus the per-tile base ranks
-    that pass 2 writes from. Replaces ``select_stats_2d`` (src/repro/
-    kernels/sparsify/kernel.py:384). Bound: one read of g and of the f32
-    uniforms (6 B/coord with bf16 g)."""
-    lam = lam.to(torch.float32).contiguous()
-    if u.shape != g.shape or u.dtype != torch.float32:
-        raise ValueError("select_stats: u must be float32 shaped like g")
-    if not _on_card("select_stats", g, u, lam):
-        return ref.select_stats_ref(g, u, lam, k_cap, TILE)
+def _kind_scalars(name: str, g: torch.Tensor, pkind: str, s1: torch.Tensor,
+                  s2: torch.Tensor | None, budget: torch.Tensor | None):
+    """The per-row selector scalars as the kernels read them: s1 float32
+    (lambda, rho or the topk threshold), s2 float32 (bern: max|g|), budget
+    int64 (topk: ties to keep)."""
+    if pkind not in PKINDS:
+        raise ValueError(f"{name}: unknown select kind {pkind!r}; have "
+                         f"{PKINDS}")
+    rows = g.shape[0]
+    s1 = s1.to(torch.float32).expand(rows).contiguous()
+    if pkind == "bern":
+        if s2 is None:
+            raise ValueError(f"{name}: pkind='bern' needs s2 = max|g|")
+        s2 = s2.to(torch.float32).expand(rows).contiguous()
+    else:
+        s2 = None
+    if pkind == "topk":
+        if budget is None or budget.dtype != torch.int64:
+            raise ValueError(f"{name}: pkind='topk' needs an int64 budget")
+        budget = budget.expand(rows).contiguous()
+    else:
+        budget = None
+    return s1, s2, budget
+
+
+def _uniforms(name: str, g: torch.Tensor, u: torch.Tensor | None,
+              pkind: str) -> torch.Tensor | None:
+    """The sampling selectors read float32 uniforms shaped like g; topk
+    reads none."""
+    if pkind == "topk":
+        return None
+    if u is None or u.shape != g.shape or u.dtype != torch.float32:
+        raise ValueError(f"{name}: u must be float32 shaped like g")
+    return u
+
+
+def select_stats(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
+                 k_cap: int, *, pkind: str = "lam",
+                 s2: torch.Tensor | None = None,
+                 budget: torch.Tensor | None = None) -> SelectStats:
+    """Pass 1 of the two-pass compaction for selector kind ``pkind`` (lam:
+    gspar, rho: unisp, bern: bernoulli, topk; ``ref._select_row`` defines
+    them from ``s1``, ``s2`` and ``budget``): survivors, support, sum p, sum
+    g^2, and sum v^2 / max|v| over the first ``k_cap`` survivors of each
+    row, plus the per-tile base ranks that pass 2 writes from (and for topk
+    the per-tile tie bases). Replaces ``select_stats_2d`` (src/repro/
+    kernels/sparsify/kernel.py:384). Bound: one read of g and, for the
+    sampling kinds, of the f32 uniforms (6 B/coord with bf16 g; topk 2)."""
+    s1, s2, budget = _kind_scalars("select_stats", g, pkind, s1, s2, budget)
+    u = _uniforms("select_stats", g, u, pkind)
+    extra = [t for t in (u, s2, budget) if t is not None]
+    if not _on_card("select_stats", g, s1, *extra):
+        return ref.select_stats_ref(g, u, s1, k_cap, TILE, pkind=pkind,
+                                    s2=s2, budget=budget)
     rows, d = g.shape
     nt = ref.ntiles(d, TILE)
     dev = g.device
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     f64 = dict(dtype=torch.float64, device=dev)
+    topk = pkind == "topk"
     pcnt = torch.empty((rows, nt), **i32)
     pnzc = torch.empty((rows, nt), **i32)
+    pties = torch.empty((rows, nt), **i32) if topk else None
     ppsum = torch.empty((rows, nt), **f64)
     pden = torch.empty((rows, nt), **f64)
     pvsq = torch.empty((rows, nt), **f64)
@@ -230,53 +285,81 @@ def select_stats(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
         nnz=torch.empty(rows, **i32), nonzeros=torch.empty(rows, **i32),
         p_sum=torch.empty(rows, **f32), den=torch.empty(rows, **f32),
         sum_sq=torch.empty(rows, **f32), max_abs=torch.empty(rows, **f32),
-        base=torch.empty((rows, nt), **i32))
+        base=torch.empty((rows, nt), **i32),
+        tie_base=torch.empty((rows, nt), **i32) if topk else None)
     _check(_lib().gspar_select_stats(
-        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g), _vec(u),
-        _ptr(lam), k_cap, _ptr(pcnt), _ptr(pnzc), _ptr(ppsum), _ptr(pden),
-        _ptr(pvsq), _ptr(pvmx), _ptr(out.base), _ptr(out.nnz),
-        _ptr(out.nonzeros), _ptr(out.p_sum), _ptr(out.den), _ptr(out.sum_sq),
-        _ptr(out.max_abs), _stream(g)), "select_stats")
+        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g),
+        _vec(u) if u is not None else 0, PKINDS.index(pkind), _ptr(s1),
+        _ptr(s2), _ptr(budget), k_cap, _ptr(pcnt), _ptr(pnzc), _ptr(pties),
+        _ptr(ppsum), _ptr(pden), _ptr(pvsq), _ptr(pvmx), _ptr(out.base),
+        _ptr(out.tie_base), _ptr(out.nnz), _ptr(out.nonzeros),
+        _ptr(out.p_sum), _ptr(out.den), _ptr(out.sum_sq), _ptr(out.max_abs),
+        _stream(g)), "select_stats", pkind)
     return out
 
 
-def compact_emit(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                 base: torch.Tensor, *, k_cap: int, wire_dtype: torch.dtype,
-                 ef: bool, round_residual: bool = False
+def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
+                 sel: SelectStats, *, k_cap: int, codec, ef: bool,
+                 pkind: str = "lam", s2: torch.Tensor | None = None,
+                 budget: torch.Tensor | None = None,
+                 scale: torch.Tensor | None = None,
+                 u_cod: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Pass 2: write each row's first ``k_cap`` survivors in coordinate
-    order into ``values [rows, k_cap]`` (``wire_dtype``, the codec's wire
-    dtype) and ``idx [rows, k_cap]`` (int32, ascending; unused slots idx 0,
-    value 0), and with ``ef`` the residual ``g - encoded value`` for every
-    coordinate. The encoded value is the codec's float32 output: rounded to
-    the wire dtype only for a rounding codec (``round_residual``, bf16), as
-    the TPU kernel subtracts ``codec.encode(v)`` before the store casts it.
-    ``base`` is ``select_stats``'s per-tile base ranks (the plain version
-    recomputes them). Replaces ``compact_emit_2d`` for
-    ``pkind="lam"``, float codecs and ``rice_r=-1`` (src/repro/kernels/
-    sparsify/kernel.py:559). Bound: one read of g and u, the compact write,
-    and with ``ef`` one write of the residual."""
-    lam = lam.to(torch.float32).contiguous()
-    if wire_dtype not in _DTYPE_CODE:
-        raise NotImplementedError(
-            f"compact_emit: wire dtype {wire_dtype} (integer codecs are "
-            "ROADMAP.md queue B, kernel 4)")
-    if not _on_card("compact_emit", g, u, lam, base):
-        return ref.compact_emit_ref(g, u, lam, k_cap, wire_dtype, ef,
-                                    round_residual)
-    if g.dtype == torch.bfloat16 and wire_dtype != torch.bfloat16:
-        raise ValueError("compact_emit: a bf16 leaf has a bf16 wire")
-    rows, d = g.shape
+    order into ``values [rows, k_cap]`` (``codec.wire_dtype``) and ``idx
+    [rows, k_cap]`` (int32, ascending; unused slots idx 0, value 0).
+
+    A float codec writes the value rounded to its wire dtype, and with
+    ``ef`` the residual ``g - encoded value`` for every coordinate: the
+    codec's float32 output, rounded to the wire dtype only for a rounding
+    codec (bf16), as the TPU kernel subtracts ``codec.encode(v)`` before the
+    store casts it. An integer codec (qsgd, ternary) writes the level of
+    each kept value from the row's ``scale [rows]`` and the codec uniform
+    ``u_cod [rows, k_cap]`` at the survivor's compact rank; it takes no
+    ``ef`` (the backend subtracts the decoded values from the compact
+    buffers, as the JAX package does). ``sel`` is ``select_stats``'s
+    output (its per-tile base ranks and tie bases; the plain version
+    recomputes them). Replaces ``compact_emit_2d`` with ``rice_r=-1``
+    (src/repro/kernels/sparsify/kernel.py:559). Bound: one read of g (and
+    u), the compact write (and the codec uniforms), and with ``ef`` one
+    write of the residual."""
+    s1, s2, budget = _kind_scalars("compact_emit", g, pkind, s1, s2, budget)
+    u = _uniforms("compact_emit", g, u, pkind)
+    wire_dtype = codec.wire_dtype(g.dtype)
+    rows = g.shape[0]
+    if codec.integer_coded:
+        if ef:
+            raise ValueError("compact_emit: an integer codec's EF residual "
+                             "is scattered from the compact buffers")
+        if scale is None or u_cod is None:
+            raise ValueError("compact_emit: an integer codec needs scale "
+                             "and u_cod")
+        scale = scale.to(torch.float32).contiguous()
+        if scale.shape != (rows,) or u_cod.shape != (rows, k_cap) \
+                or u_cod.dtype != torch.float32:
+            raise ValueError("compact_emit: scale must be [rows] and u_cod "
+                             "float32 [rows, k_cap]")
+    else:
+        scale = u_cod = None
+    extra = [t for t in (u, s2, budget, scale, u_cod) if t is not None]
+    if not _on_card("compact_emit", g, s1, sel.base, *extra):
+        return ref.compact_emit_ref(g, u, s1, k_cap, codec, ef, pkind=pkind,
+                                    s2=s2, budget=budget, scale=scale,
+                                    u_cod=u_cod)
+    d = g.shape[1]
     vals = torch.zeros((rows, k_cap), dtype=wire_dtype, device=g.device)
     idx = torch.zeros((rows, k_cap), dtype=torch.int32, device=g.device)
     res = torch.empty_like(g) if ef else None
     _check(_lib().gspar_compact_emit(
-        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g), _vec(u),
-        _ptr(lam), _ptr(base), k_cap, _ptr(vals), _DTYPE_CODE[wire_dtype],
-        _ptr(idx), _ptr(res), int(round_residual), _stream(g)),
-        "compact_emit")
+        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g),
+        _vec(u) if u is not None else 0, PKINDS.index(pkind), _ptr(s1),
+        _ptr(s2), _ptr(budget), _ptr(sel.base), _ptr(sel.tie_base), k_cap,
+        _ptr(vals), _DTYPE_CODE[wire_dtype], _ptr(idx), _ptr(res),
+        int(codec.rounds_values), _ptr(scale), _ptr(u_cod),
+        float(getattr(codec, "levels", 0.0)), int(codec.name == "ternary"),
+        _stream(g)), "compact_emit",
+        pkind + (f"+{codec.name}" if codec.integer_coded else ""))
     return vals, idx, res
-
 
 
 def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,

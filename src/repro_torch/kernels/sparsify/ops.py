@@ -1,12 +1,15 @@
-"""The gspar emit pipeline on the sparsify kernels (port of
+"""The emit pipelines on the sparsify kernels (port of
 ``repro.kernels.sparsify.ops``: ``greedy_lambda``, the tail function,
-``_two_pass``, ``gspar_emit`` and ``EmitResult``).
+``_two_pass``, ``gspar_emit``, ``unisp_emit``, ``bern_emit``, ``topk_emit``
+and ``EmitResult``).
 
 Algorithm 3 (greedy lambda) fully on the device: one stats pass, up to
 ``num_iters`` saturation-aware tail passes driving the scalar rescale, then
-the two-pass compact emit — pass 1 reduces survivor counts and the codec
-scale statistics, pass 2 writes the wire buffers — and, for the RICE wire
-layout (``rice_r >= 0``), the Golomb-Rice packing of pass 2's index
+the two-pass compact emit; the baselines hand the same two passes their
+own per-row scalars (rho; max|g| from the stats pass; topk's threshold and
+tie budget from one ``torch.topk``). Pass 1 reduces survivor counts and the
+codec scale statistics, pass 2 writes the wire buffers and, for the RICE
+wire layout (``rice_r >= 0``), a fifth kernel packs pass 2's index
 stream. Everything runs over one shape group ``[rows, d]`` with per-row
 scalars, so a group is one launch per kernel, and no scalar is read back to
 the host between the passes.
@@ -92,16 +95,21 @@ class EmitResult(NamedTuple):
 _F32 = codecs_lib.FloatCodec()
 
 
-def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor, lam: torch.Tensor, *,
-              codec, k_cap: int, rice_r: int, ef: bool) -> EmitResult:
+def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor | None, s1: torch.Tensor,
+              *, pkind: str, codec, k_cap: int, rice_r: int, ef: bool,
+              s2: torch.Tensor | None = None,
+              budget: torch.Tensor | None = None,
+              u_cod: torch.Tensor | None = None) -> EmitResult:
     """Pass 1 select + reduce, the codec scale, pass 2 compact write, and
-    with ``rice_r >= 0`` the Golomb-Rice packing of the compact idx."""
-    sel = K.select_stats(g2d, u2d, lam, k_cap)
+    with ``rice_r >= 0`` the Golomb-Rice packing of the compact idx.
+    ``u2d`` are the selector's uniforms (None for topk), ``u_cod [rows,
+    k_cap]`` the codec's (stochastic codecs), taken at compact rank."""
+    kind = dict(pkind=pkind, s2=s2, budget=budget)
+    sel = K.select_stats(g2d, u2d, s1, k_cap, **kind)
     scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
     vals, idx, res = K.compact_emit(
-        g2d, u2d, lam, sel.base, k_cap=k_cap,
-        wire_dtype=codec.wire_dtype(g2d.dtype), ef=ef,
-        round_residual=codec.rounds_values)
+        g2d, u2d, s1, sel, k_cap=k_cap, codec=codec, ef=ef, scale=scale,
+        u_cod=u_cod, **kind)
     words = used = None
     if rice_r >= 0:
         words, used = K.rice_pack(idx, sel.nnz, d=g2d.shape[1], r=rice_r)
@@ -109,7 +117,14 @@ def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor, lam: torch.Tensor, *,
                       scale, words, used, res)
 
 
-def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor, *, k_cap: int,
+def _group(g2d: torch.Tensor, name: str) -> None:
+    if g2d.dim() != 2:
+        raise ValueError(f"{name} takes a [rows, d] group, got "
+                         f"{tuple(g2d.shape)}")
+
+
+def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor,
+               u_cod: torch.Tensor | None = None, *, k_cap: int,
                rho: float = 0.1, num_iters: int = 2, codec=_F32,
                rice_r: int = -1, ef: bool = False
                ) -> tuple[EmitResult, torch.Tensor]:
@@ -117,12 +132,75 @@ def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor, *, k_cap: int,
     two-pass compact emit (and the RICE packing with ``rice_r >= 0``), with
     the uniforms ``u2d`` (float32, shaped like ``g2d``) as input. Returns
     ``(EmitResult, lam)``."""
-    if g2d.dim() != 2:
-        raise ValueError(f"gspar_emit takes a [rows, d] group, got "
-                         f"{tuple(g2d.shape)}")
+    _group(g2d, "gspar_emit")
     l1, mx = K.stats_l1max(g2d)
     lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
                         tail_fn=_kernel_tail_fn(g2d))
-    er = _two_pass(g2d, u2d, lam, codec=codec, k_cap=k_cap, rice_r=rice_r,
-                   ef=ef)
+    er = _two_pass(g2d, u2d, lam, pkind="lam", codec=codec, k_cap=k_cap,
+                   rice_r=rice_r, ef=ef, u_cod=u_cod)
     return er, lam
+
+
+def unisp_emit(g2d: torch.Tensor, u2d: torch.Tensor,
+               u_cod: torch.Tensor | None = None, *, k_cap: int,
+               rho: float = 0.1, codec=_F32, rice_r: int = -1,
+               ef: bool = False) -> EmitResult:
+    """UniSp, the paper's baseline: p = rho on the support."""
+    _group(g2d, "unisp_emit")
+    s1 = torch.tensor(rho, dtype=F32, device=g2d.device)
+    return _two_pass(g2d, u2d, s1, pkind="rho", codec=codec, k_cap=k_cap,
+                     rice_r=rice_r, ef=ef, u_cod=u_cod)
+
+
+def bern_emit(g2d: torch.Tensor, u2d: torch.Tensor,
+              u_cod: torch.Tensor | None = None, *, k_cap: int,
+              codec=_F32, rice_r: int = -1, ef: bool = False
+              ) -> tuple[EmitResult, torch.Tensor]:
+    """Bernoulli selection (TernGrad's): p = |g| / max|g|, with max|g| from
+    the stats kernel. Returns ``(EmitResult, max|g| per row)``."""
+    _group(g2d, "bern_emit")
+    _, mx = K.stats_l1max(g2d)
+    zero = torch.zeros((), dtype=F32, device=g2d.device)
+    er = _two_pass(g2d, u2d, zero, pkind="bern", codec=codec, k_cap=k_cap,
+                   rice_r=rice_r, ef=ef, s2=mx, u_cod=u_cod)
+    return er, mx
+
+
+def topk_threshold(g2d: torch.Tensor, k_target: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the k-th largest magnitude ``t`` (float32) and the tie
+    budget ``k_target - #{|g| > t among the top k}`` (int64): one
+    ``torch.topk`` over the row's float32 magnitudes, of which only the
+    values are used, so their tie order does not matter. The JAX package
+    forms the budget in float32, which is inexact past 2^24 (ROADMAP.md
+    queue C); here it stays an integer. The group goes in row batches of
+    at most ``TOPK_UNITS`` coordinates, which bounds topk's scratch."""
+    rows, d = g2d.shape
+    t = torch.empty(rows, dtype=F32, device=g2d.device)
+    budget = torch.empty(rows, dtype=torch.int64, device=g2d.device)
+    step = max(1, TOPK_UNITS // d)
+    for a in range(0, rows, step):
+        topv = torch.topk(g2d[a:a + step].abs().to(F32), k_target,
+                          sorted=True).values
+        t[a:a + step] = topv[:, -1]
+        budget[a:a + step] = k_target - (topv > topv[:, -1:]).sum(-1)
+        del topv
+    return t, budget
+
+
+# Coordinates per torch.topk call of topk_threshold: about 1 GB of float32
+# magnitudes (a longer row goes alone).
+TOPK_UNITS = 1 << 28
+
+
+def topk_emit(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,
+              k_cap: int, k_target: int, codec=_F32, rice_r: int = -1,
+              ef: bool = False) -> EmitResult:
+    """Deterministic top-k: keep |g| > t and the first ``budget``
+    coordinates with |g| == t > 0 (``topk_threshold``), which is XLA
+    top_k's lowest-index-first selection, as a counting compaction. Reads
+    no uniforms."""
+    _group(g2d, "topk_emit")
+    t, budget = topk_threshold(g2d, k_target)
+    return _two_pass(g2d, None, t, pkind="topk", codec=codec, k_cap=k_cap,
+                     rice_r=rice_r, ef=ef, budget=budget, u_cod=u_cod)

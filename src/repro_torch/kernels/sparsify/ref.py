@@ -59,19 +59,59 @@ def tail_stats_ref(g: torch.Tensor, thresh: torch.Tensor,
     return cnt, l1
 
 
-def _sample(g_row: torch.Tensor, u_row: torch.Tensor, lam: torch.Tensor):
-    """The gspar selector on one row: ``p = min(lam |g|, 1)``, ``z = u < p``,
-    ``v = z ? g / p : 0`` in float32."""
+PKINDS = ("lam", "rho", "bern", "topk")
+
+
+def _select_row(pkind: str, g_row: torch.Tensor, u_row, s1, s2, budget):
+    """One row's selector, in float32 and in the TPU kernel's order of
+    operations (``_tile_select``, src/repro/kernels/sparsify/kernel.py:302).
+    Returns ``(x, a, p, z, v)``: the row as float32, ``|x|``, the keep
+    probabilities, the kept mask and the transmitted values.
+
+      lam  -- gspar: p = min(s1 |g|, 1)
+      rho  -- unisp: p = s1 on the support, 0 off it
+      bern -- bernoulli: p = |g| / s2 (s2 = max|g|)
+      topk -- keep |g| > s1 (the k-th magnitude), and the first ``budget``
+              coordinates with |g| == s1 > 0 (XLA top_k's lowest-index
+              tie break); p = 1 on the kept, v = g
+
+    The sampling selectors keep ``u < p`` and send ``g / p``."""
     x = g_row.to(F32)
     a = x.abs()
-    p = torch.clamp_max(lam * a, 1.0)
+    if pkind == "topk":
+        tie = (a == s1) & (s1 > 0)
+        ti = tie.to(torch.int64)
+        tie_rank = torch.cumsum(ti, 0) - ti                # exclusive
+        z = (a > s1) | (tie & (tie_rank < budget))
+        return x, a, z.to(F32), z, torch.where(z, x, 0.0)
+    if pkind == "lam":
+        p = torch.clamp_max(s1 * a, 1.0)
+    elif pkind == "rho":
+        p = torch.where(a > 0, s1, 0.0)
+    elif pkind == "bern":
+        p = torch.where(s2 > 0, a / torch.where(s2 > 0, s2, 1.0), 0.0)
+    else:
+        raise ValueError(f"unknown select kind {pkind!r}; have {PKINDS}")
     z = u_row < p
     v = torch.where(z, x / torch.where(p > 0, p, 1.0), 0.0)
     return x, a, p, z, v
 
 
+def _row(t: torch.Tensor | None, r: int):
+    return None if t is None else t[r]
+
+
+def _tile_sums(flags: torch.Tensor, nt: int, tile: int) -> torch.Tensor:
+    """Per-tile counts of a row's 0/1 int32 ``flags`` and their exclusive
+    scan: the base offset of each tile."""
+    per_tile = torch.zeros(nt * tile, dtype=torch.int32, device=flags.device)
+    per_tile[:flags.numel()] = flags
+    counts = per_tile.view(nt, tile).sum(1, dtype=torch.int32)
+    return torch.cumsum(counts, 0, dtype=torch.int32) - counts
+
+
 class SelectStats(NamedTuple):
-    """Pass-1 reductions per row, plus the per-tile base ranks pass 2 uses."""
+    """Pass-1 reductions per row, plus the per-tile offsets pass 2 uses."""
     nnz: torch.Tensor          # int32: survivors before the capacity cut
     nonzeros: torch.Tensor     # int32: |{i : g_i != 0}|
     p_sum: torch.Tensor        # float32: sum of keep probabilities
@@ -79,10 +119,15 @@ class SelectStats(NamedTuple):
     sum_sq: torch.Tensor       # float32: sum v^2 over the first k_cap survivors
     max_abs: torch.Tensor      # float32: max |v| over the first k_cap survivors
     base: torch.Tensor         # int32 [rows, tiles]: survivors before each tile
+    tie_base: torch.Tensor | None = None
+                               # int32 [rows, tiles], topk only: threshold
+                               # ties before each tile
 
 
-def select_stats_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                     k_cap: int, tile: int) -> SelectStats:
+def select_stats_ref(g: torch.Tensor, u: torch.Tensor | None,
+                     s1: torch.Tensor, k_cap: int, tile: int, *,
+                     pkind: str = "lam", s2: torch.Tensor | None = None,
+                     budget: torch.Tensor | None = None) -> SelectStats:
     rows, d = g.shape
     dev = g.device
     nt = ntiles(d, tile)
@@ -93,51 +138,65 @@ def select_stats_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
     vsq = torch.empty_like(psum)
     vmx = torch.empty_like(psum)
     base = torch.empty((rows, nt), dtype=torch.int32, device=dev)
+    tie_base = (torch.empty((rows, nt), dtype=torch.int32, device=dev)
+                if pkind == "topk" else None)
     for r in range(rows):
-        _, a, p, z, v = _sample(g[r], u[r], lam[r])
+        _, a, p, z, v = _select_row(pkind, g[r], _row(u, r), s1[r],
+                                    _row(s2, r), _row(budget, r))
         zi = z.to(torch.int32)
         rank = torch.cumsum(zi, 0, dtype=torch.int32) - zi
         keep = z & (rank < k_cap)
         vk = torch.where(keep, v, 0.0)
-        per_tile = torch.zeros(nt * tile, dtype=torch.int32, device=dev)
-        per_tile[:d] = zi
-        counts = per_tile.view(nt, tile).sum(1, dtype=torch.int32)
-        base[r] = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+        base[r] = _tile_sums(zi, nt, tile)
+        if tie_base is not None:
+            tie_base[r] = _tile_sums(((a == s1[r]) & (s1[r] > 0)).to(
+                torch.int32), nt, tile)
         nnz[r] = zi.sum()
         nzc[r] = (a > 0).sum()
         psum[r] = p.sum(dtype=F64)
         den[r] = (a * a).sum(dtype=F64)
         vsq[r] = (vk * vk).sum(dtype=F64)
         vmx[r] = vk.abs().max() if d else 0.0
-    return SelectStats(nnz, nzc, psum, den, vsq, vmx, base)
+    return SelectStats(nnz, nzc, psum, den, vsq, vmx, base, tie_base)
 
 
-def compact_emit_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                     k_cap: int, wire_dtype: torch.dtype, ef: bool,
-                     round_residual: bool = False
+def compact_emit_ref(g: torch.Tensor, u: torch.Tensor | None,
+                     s1: torch.Tensor, k_cap: int, codec, ef: bool, *,
+                     pkind: str = "lam", s2: torch.Tensor | None = None,
+                     budget: torch.Tensor | None = None,
+                     scale: torch.Tensor | None = None,
+                     u_cod: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor,
                                 torch.Tensor | None]:
     """Pass 2: the first ``k_cap`` survivors of each row in coordinate order
-    as ``values [rows, k_cap]`` (rounded to ``wire_dtype``) and ``idx [rows,
-    k_cap]`` (int32); unused slots hold idx 0 and value 0. With ``ef`` also
-    the residual ``g - encoded value`` in g's dtype, where every survivor is
-    subtracted, those dropped past ``k_cap`` included; the encoded value is
-    rounded to ``wire_dtype`` only with ``round_residual`` (a rounding
-    codec)."""
+    as ``values [rows, k_cap]`` (codec-encoded in ``codec.wire_dtype``) and
+    ``idx [rows, k_cap]`` (int32); unused slots hold idx 0 and value 0.
+
+    A float codec rounds to its wire dtype. An integer codec (qsgd, ternary)
+    encodes with the row's ``scale`` and, for survivor j, the uniform
+    ``u_cod[row, j]``. With ``ef`` (float codecs only) also the residual
+    ``g - encoded value`` in g's dtype, where every survivor is subtracted,
+    those dropped past ``k_cap`` included; the encoded value is rounded to
+    the wire dtype only for a rounding codec (bf16)."""
     rows, d = g.shape
+    wire_dtype = codec.wire_dtype(g.dtype)
     vals = torch.zeros((rows, k_cap), dtype=wire_dtype, device=g.device)
     idx = torch.zeros((rows, k_cap), dtype=torch.int32, device=g.device)
     res = torch.empty_like(g) if ef else None
     for r in range(rows):
-        x, _, _, z, v = _sample(g[r], u[r], lam[r])
-        ev = v.to(wire_dtype)
+        x, _, _, z, v = _select_row(pkind, g[r], _row(u, r), s1[r],
+                                    _row(s2, r), _row(budget, r))
         kept = torch.nonzero(z).reshape(-1)[:k_cap]
         n = kept.numel()
-        vals[r, :n] = ev[kept]
+        if codec.integer_coded:
+            vals[r, :n] = codec.encode(v[kept], scale[r], u_cod[r, :n])
+        else:
+            ev = v.to(wire_dtype)
+            vals[r, :n] = ev[kept]
+            if ef:
+                enc = ev.to(F32) if codec.rounds_values else v
+                res[r] = (x - torch.where(z, enc, 0.0)).to(g.dtype)
         idx[r, :n] = kept.to(torch.int32)
-        if ef:
-            enc = ev.to(F32) if round_residual else v
-            res[r] = (x - torch.where(z, enc, 0.0)).to(g.dtype)
     return vals, idx, res
 
 

@@ -4,6 +4,10 @@
         --steps 3 --compressor gspar --rho 0.05 --wire gather \\
         --error-feedback
 
+``--compressor`` also takes the paper's baselines (``unisp``, ``topk``,
+``bernoulli``, ``terngrad``) and the integer codecs (``gspar+qsgd8``,
+``topk+ternary``, or ``--codec``).
+
 Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
 the CPU), so the exchange goes through ``torch.distributed`` either way;
@@ -68,8 +72,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     ap.add_argument("--compressor", default="gspar",
-                    help="selector[+codec] composition (gspar, gspar+bf16)")
-    ap.add_argument("--codec", default=None)
+                    help="selector[+codec] composition (gspar, unisp, topk, "
+                         "bernoulli; e.g. 'gspar+qsgd8', 'topk+ternary') or "
+                         "the legacy alias terngrad (bernoulli+ternary)")
+    ap.add_argument("--codec", default=None,
+                    choices=[None, "f32", "bf16", "qsgd4", "qsgd8",
+                             "ternary"],
+                    help="value codec for the kept coordinates (default: "
+                         "from --compressor, else f32)")
+    ap.add_argument("--qsgd-bits", type=int, default=4,
+                    help="levels exponent for the legacy 'qsgd' alias")
     ap.add_argument("--rho", type=float, default=0.05)
     ap.add_argument("--wire", default="gather",
                     choices=["dense", "gather", "packed"])
@@ -95,7 +107,8 @@ def main(argv=None) -> dict:
     if args.num_periods is not None:
         cfg = dataclasses.replace(cfg, num_periods=args.num_periods)
     comp = CompressionConfig(name=args.compressor, codec=args.codec,
-                             rho=args.rho, wire=args.wire,
+                             qsgd_bits=args.qsgd_bits, rho=args.rho,
+                             wire=args.wire,
                              wire_layout=args.wire_layout,
                              exchange=args.exchange,
                              error_feedback=args.error_feedback,

@@ -5,15 +5,19 @@ GPU machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Counts, kept coordinates, values, the EF residual and the Golomb-Rice
-words bit-equal; sums within rtol 1e-6 (float64 accumulation on both sides,
-rounded once)."""
+Counts, kept coordinates, values (the integer codecs' levels), the EF
+residual and the Golomb-Rice words bit-equal; sums within rtol 1e-6
+(float64 accumulation on both sides, rounded once)."""
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.comm.compaction import rice_decode
+from repro_torch.core import codecs
 from repro_torch.core.codecs import FloatCodec
 from repro_torch.core.coding import rice_parameter
+from repro_torch.core.sparse import residual_from_buffers
 from repro_torch.kernels.sparsify import kernel as K
 from repro_torch.kernels.sparsify import ops
 from repro_torch.kernels.sparsify import ref
@@ -59,14 +63,11 @@ def test_kernels_match_plain_versions(card, dtype, d):
         for f in ("p_sum", "den", "sum_sq"):
             torch.testing.assert_close(getattr(st, f), getattr(rst, f),
                                        rtol=1e-6, atol=0)
-        wires = ([torch.float32, torch.bfloat16] if dtype == torch.float32
-                 else [torch.bfloat16])
-        for wire in wires:
-            for ef, rnd in ((False, False), (True, False), (True, True)):
-                got = K.compact_emit(g, u, lam, st.base, k_cap=k_cap,
-                                     wire_dtype=wire, ef=ef,
-                                     round_residual=rnd)
-                want = ref.compact_emit_ref(g, u, lam, k_cap, wire, ef, rnd)
+        for codec in (FloatCodec(), FloatCodec(16, True)):
+            for ef in (False, True):
+                got = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=codec,
+                                     ef=ef)
+                want = ref.compact_emit_ref(g, u, lam, k_cap, codec, ef)
                 for a, b in zip(got, want):
                     assert (a is None and b is None) or torch.equal(a, b)
 
@@ -130,3 +131,119 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(card):
     launches = K.LAUNCHES["stats_l1max"]
     K.stats_l1max(g)
     assert K.LAUNCHES["stats_l1max"] == launches + 1
+
+
+def _scalars(g, pkind, k_target):
+    """The per-row selector scalars the emit pipelines hand the kernels."""
+    rows, d = g.shape
+    if pkind == "topk":
+        t, budget = ops.topk_threshold(g, k_target)
+        return dict(s1=t, budget=budget)
+    if pkind == "bern":
+        return dict(s1=torch.zeros(rows, device="cuda"),
+                    s2=K.stats_l1max(g)[1])
+    if pkind == "rho":
+        return dict(s1=torch.full((rows,), RHO, device="cuda"))
+    return dict(s1=RHO * d / K.stats_l1max(g)[0])
+
+
+def _check_variants(g, u, pkind, k_cap, k_target=None):
+    """select_stats and compact_emit of one selector kind against their
+    plain versions: float codecs with and without the fused EF residual,
+    and the integer codecs with their scale and codec uniforms."""
+    kw = _scalars(g, pkind, k_target or max(1, round(RHO * g.shape[1])))
+    s1 = kw.pop("s1")
+    uu = None if pkind == "topk" else u
+    st = K.select_stats(g, uu, s1, k_cap, pkind=pkind, **kw)
+    rst = ref.select_stats_ref(g, uu, s1, k_cap, K.TILE, pkind=pkind, **kw)
+    for f in ("nnz", "nonzeros", "base", "tie_base", "max_abs"):
+        a, b = getattr(st, f), getattr(rst, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+    for f in ("p_sum", "den", "sum_sq"):
+        torch.testing.assert_close(getattr(st, f), getattr(rst, f),
+                                   rtol=1e-6, atol=0)
+    u_cod = torch.rand((g.shape[0], k_cap), device="cuda")
+    for name in ("f32", "bf16", "qsgd4", "qsgd8", "ternary"):
+        codec = codecs.get(name)
+        scale = codecs.finalize_scale(codec, st.sum_sq, st.max_abs)
+        for ef in ((False, True) if not codec.integer_coded else (False,)):
+            got = K.compact_emit(g, uu, s1, st, k_cap=k_cap, codec=codec,
+                                 ef=ef, pkind=pkind, scale=scale,
+                                 u_cod=u_cod, **kw)
+            want = ref.compact_emit_ref(g, uu, s1, k_cap, codec, ef,
+                                        pkind=pkind, scale=scale,
+                                        u_cod=u_cod, **kw)
+            assert got[0].dtype == codec.wire_dtype(g.dtype)
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or torch.equal(a, b), \
+                    (pkind, name, ef)
+    return st
+
+
+@pytest.mark.parametrize("pkind", ["rho", "bern", "topk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selector_kinds_match_plain_versions(card, dtype, pkind):
+    """Passes 1 and 2 for the baselines' selector kinds, at the configured
+    and an overflowing capacity, with every codec; each launch counts under
+    its variant."""
+    g, u = _group(card, dtype)
+    before = dict(K.LAUNCHES)
+    for k_cap in K_CAPS:
+        st = _check_variants(g, u, pkind, k_cap)
+        if pkind == "topk":       # exactly k_target kept: no overflow
+            assert (st.nnz == round(RHO * D)).all()
+    assert K.LAUNCHES[f"select_stats/{pkind}"] \
+        == before.get(f"select_stats/{pkind}", 0) + 2
+    assert K.LAUNCHES[f"compact_emit/{pkind}+qsgd8"] \
+        == before.get(f"compact_emit/{pkind}+qsgd8", 0) + 2
+
+
+def test_topk_ties_straddle_the_kernel_tiles(card):
+    """A bf16 row whose threshold ties run across two kernel tiles, with a
+    budget that cuts inside a tile: the kept ties are the lowest-indexed
+    ones, exactly ``k_target`` coordinates are kept, and both passes agree
+    with their plain versions."""
+    d, k_target = 5 * K.TILE + 77, 3000
+    g = torch.zeros((2, d), dtype=torch.bfloat16, device="cuda")
+    g[:, :1000] = 8.0                                     # above the threshold
+    ties = torch.arange(K.TILE - 2500, 3 * K.TILE + 500, 7, device="cuda")
+    g[:, ties] = -2.0                                     # |g| == t
+    g[1, ties[::2]] = 2.0
+    t, budget = ops.topk_threshold(g, k_target)
+    assert (t == 2.0).all() and (budget == k_target - 1000).all()
+    st = _check_variants(g, None, "topk", 4096, k_target)
+    assert (st.nnz == k_target).all()
+    vals, idx, _ = K.compact_emit(g, None, t, st, k_cap=4096,
+                                  codec=FloatCodec(), ef=False, pkind="topk",
+                                  budget=budget)
+    want = torch.cat([torch.arange(1000, device="cuda"),
+                      ties[:k_target - 1000]]).to(torch.int32)
+    for r in range(2):
+        assert torch.equal(idx[r, :k_target], want)
+
+
+def test_topk_keeps_every_nonzero_of_a_sparse_row(card):
+    """A row with fewer nonzeros than k_target: the threshold is 0, which
+    ties nothing, so both passes keep exactly the nonzeros."""
+    g = torch.zeros((2, D), dtype=torch.bfloat16, device="cuda")
+    g[0, 5:5000:7] = 1.5
+    g[1, :3] = -0.25
+    st = _check_variants(g, None, "topk", K_CAPS[0])
+    assert st.nnz.tolist() == [len(range(5, 5000, 7)), 3]
+
+
+@pytest.mark.parametrize("name", ["qsgd8", "ternary"])
+def test_integer_codec_residual_on_the_card(card, name):
+    """The integer codecs' EF residual, scattered from the compact buffers
+    on the card, equals the same scatter on the CPU (live slots only)."""
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.core.sparse import KernelBackend
+    g, u = _group(card, torch.bfloat16)
+    cfg = CompressionConfig(name=f"gspar+{name}", rho=RHO,
+                            error_feedback=True)
+    u_cod = torch.rand((ROWS, K_CAPS[0]), device="cuda")
+    sg, res = KernelBackend().compress_sparse_ef(cfg, u, g, K_CAPS[0], u_cod)
+    on_cpu = dataclasses.replace(sg, values=sg.values.cpu(),
+                                 idx=sg.idx.cpu(), nnz=sg.nnz.cpu(),
+                                 scale=sg.scale.cpu())
+    assert torch.equal(res.cpu(), residual_from_buffers(g.cpu(), on_cpu))

@@ -151,10 +151,8 @@ def test_compact_emit_matches_pallas(dtype, codec, k_cap, ef):
     want = _jax_rows(dtype, codec, k_cap)
     lam = torch.tensor(want["lam"])
     st = TK.select_stats(tg, tu, lam, k_cap)
-    wire = tcodecs.get(codec).wire_dtype(tg.dtype)
-    vals, idx, res = TK.compact_emit(
-        tg, tu, lam, st.base, k_cap=k_cap, wire_dtype=wire, ef=ef,
-        round_residual=tcodecs.get(codec).rounds_values)
+    vals, idx, res = TK.compact_emit(tg, tu, lam, st, k_cap=k_cap,
+                                     codec=tcodecs.get(codec), ef=ef)
     assert vals.shape == idx.shape == (ROWS, k_cap)
     np.testing.assert_array_equal(_bits(vals), _bits(want["values"]))
     np.testing.assert_array_equal(idx.numpy(), want["idx"])
@@ -178,8 +176,8 @@ def test_rice_pack_matches_pallas(dtype, k_cap):
     want = _jax_rows(dtype, "f32", k_cap)
     lam = torch.tensor(want["lam"])
     st = TK.select_stats(tg, tu, lam, k_cap)
-    _, idx, _ = TK.compact_emit(tg, tu, lam, st.base, k_cap=k_cap,
-                                wire_dtype=tg.dtype, ef=False)
+    _, idx, _ = TK.compact_emit(tg, tu, lam, st, k_cap=k_cap,
+                                codec=tcodecs.FloatCodec(), ef=False)
     r = tcoding.rice_parameter(k_cap, D)
     assert r == jcoding.rice_parameter(k_cap, D)
     words, used = TK.rice_pack(idx, st.nnz, d=D, r=r)

@@ -264,7 +264,7 @@ def test_entry_points_run_on_the_card_unless_asked():
 @pytest.mark.parametrize("kw", [
     dict(wire="dense"), dict(wire="packed"), dict(rice_fitted=True),
     dict(rice_fitted=True, wire_layout="rice"), dict(exchange="overlap"),
-    dict(name="unisp"), dict(name="gspar+qsgd8"), dict(algo="closed")])
+    dict(name="identity"), dict(name="qsgd"), dict(algo="closed")])
 def test_config_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TConfig(**kw)
