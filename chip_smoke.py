@@ -13,7 +13,7 @@ launcher ``repro_torch.launch.train --arch gemma-2b --steps 3 --rho 0.05
 each with the kernel launch counts set to 0 just before it and read just
 after:
 
-- ``gspar`` on the launcher's default ``--wire-layout auto``: every group
+- ``gspar`` on the gather wire's default ``--wire-layout auto``: every group
   must be stamped ``rice``; each step must charge exactly the values, the
   phase-one counts and 4 bytes per realized Golomb-Rice word, recomputed on
   the host with numpy from the step's compact buffers (each row's live
@@ -32,10 +32,23 @@ after:
   keeps exactly k_target coordinates on every row that has that many
   nonzeros;
 - ``topk`` and ``bernoulli`` with the f32 codec, cut to two layers, for the
-  float codec's variants of pass 2 on those selectors.
+  float codec's variants of pass 2 on those selectors;
+- the dense wire, ``gspar`` with ``--wire dense --error-feedback``
+  (checked: exactly 5,012,344,832 wire bytes a step, the gemma-2b bf16
+  gradient, and each group's Q bit-equal to the decode of
+  ``ops.gspar_emit``'s compact buffers on the same target, uniforms and
+  lambda, at zero overflow), and without EF on the launcher's default wire
+  (unchecked: its step times).
 
-Each checks finite losses, no overflow and every kernel variant of the path
-launched. Prints the card's name and power limit, one JSON line of
+The dense wire's kernels (stats, sparsify, sparsify_ef) and kernel 8
+(sparsify_prng) are held to their plain versions in the kernel phase and
+the sweep too; ``ops.gspar_sparsify_prng``, which no launcher path runs,
+is driven on every gemma-2b row as a leaf, its kept count held to 6
+standard deviations of sum p, and its generator to Philox4x32-10's
+known answers.
+
+Each run checks finite losses, no overflow and every kernel variant of the
+path launched. Prints the card's name and power limit, one JSON line of
 per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. Imports nothing of JAX.
@@ -62,6 +75,17 @@ COORDS = 2_506_172_416           # gemma-2b's parameters: all in sparse groups
 ROW_BYTES = 656                  # 164 rows x one int32 count or f32 scale
 RICE_CAP_BYTES = 117_476_832     # the static Golomb-Rice word capacity
 WIRE_BYTES = 939_814_656         # 156,635,776 COO slots x (2 B bf16 + 4 B)
+DENSE_WIRE_BYTES = 5_012_344_832  # gemma-2b's bf16 gradient, the dense wire
+DENSE_ARGS = ["--arch", "gemma-2b", "--steps", "3", "--rho", str(RHO),
+              "--log-every", "1"]
+PRNG_SEED = 1234
+PHILOX_KAT = [       # Random123's kat_vectors, philox4x32 at 10 rounds
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
 CHECK_CHUNK = 1 << 24            # coordinates per chunk of the scatter check
 SUM_RTOL = 1e-6                  # f64 sums rounded once to f32, both sides
 REPS = 5
@@ -309,6 +333,94 @@ def variant_checks(tally: Tally, g, u, l1, mx, k_cap):
         torch.cuda.empty_cache()
 
 
+def prng_z(g_row: torch.Tensor, lam, q_row: torch.Tensor) -> float:
+    """How many standard deviations a row's kept count lies from its
+    expectation sum p, p = min(lam |g|, 1) (float64, in chunks)."""
+    mean = var = 0.0
+    for a in range(0, g_row.numel(), CHECK_CHUNK):
+        p = torch.clamp_max(float(lam) * g_row[a:a + CHECK_CHUNK].double()
+                            .abs(), 1.0)
+        mean += float(p.sum())
+        var += float((p * (1 - p)).sum())
+    kept = int(torch.count_nonzero(q_row))
+    return abs(kept - mean) / max(math.sqrt(var), 1e-12)
+
+
+def check_dense(chk: Check, name: str, got, want) -> None:
+    """Kernels 5, 6 or 8 against their plain version: Q, the residual and
+    the counts bit-equal, sum Q^2 within rtol 1e-6."""
+    for f in ("q", "residual", "nnz", "n_sure"):
+        chk.equal(f"{name} {f}", getattr(got, f), getattr(want, f))
+    chk.close(f"{name} sum_sq", got.sum_sq, want.sum_sq)
+
+
+def dense_checks(tally: Tally, g, u, l1, mx, lam, seed: int,
+                 prng: dict) -> None:
+    """The dense wire's kernels at one main-path group (the f32 codec: Q in
+    g's bf16) against their plain versions, and kernel 8 both alone and
+    through ``ops.gspar_sparsify_prng`` on every row of the group as a
+    leaf, with the launch counts set to 0 just before and read just after
+    and each row's kept count held to 6 standard deviations of sum p."""
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    rows, d = g.shape
+    gb, n = g.element_size(), rows * d
+    l1d, l2d, mxd = K.stats(g)
+    rl1, rl2, rmx = ref.stats_ref(g)
+    chk = tally.add("stats", cuda_ms(lambda: K.stats(g)),
+                    cuda_ms(lambda: ref.stats_ref(g), 1), n * gb + rows * 12)
+    chk.close("stats l1", l1d, rl1)
+    chk.close("stats l2", l2d, rl2)
+    chk.equal("stats max", mxd, rmx)
+    chk.equal("stats l1 vs stats_l1max", l1d, l1)
+    chk.equal("stats max vs stats_l1max", mxd, mx)
+    tally.library_ms["stats"] = tally.library_ms.get("stats", 0.0) + cuda_ms(
+        lambda: (torch.linalg.vector_norm(g, 1, -1, dtype=torch.float32),
+                 torch.linalg.vector_norm(g, 2, -1, dtype=torch.float32),
+                 torch.linalg.vector_norm(g, math.inf, -1)))
+    del rl1, rl2, rmx
+    for name, kern, plain, res_b in (
+            ("sparsify", K.sparsify, ref.sparsify_ref, 0),
+            ("sparsify_ef", K.sparsify_ef, ref.sparsify_ef_ref, gb)):
+        got, want = kern(g, u, lam), plain(g, u, lam)
+        # read g and u, write Q (and the residual), 20 B of counts a row
+        chk = tally.add(name, cuda_ms(lambda: kern(g, u, lam)),
+                        cuda_ms(lambda: plain(g, u, lam), 1),
+                        n * (2 * gb + 4 + res_b) + rows * 20)
+        check_dense(chk, name, got, want)
+        del got, want
+        torch.cuda.empty_cache()
+    got = K.sparsify_prng(g, lam, seed)
+    want = ref.sparsify_prng_ref(g, lam, seed)
+    chk = tally.add("sparsify_prng",
+                    cuda_ms(lambda: K.sparsify_prng(g, lam, seed)),
+                    cuda_ms(lambda: ref.sparsify_prng_ref(g, lam, seed), 1),
+                    n * 2 * gb + rows * 20)
+    check_dense(chk, "sparsify_prng", got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    for r in range(rows):
+        q = ops.gspar_sparsify_prng(g[r], seed, rho=RHO)
+        z = prng_z(g[r], ops.gspar_lambda(g[r], RHO), q)
+        prng["z_max"] = max(prng["z_max"], z)
+        if not z < 6.0:
+            raise AssertionError(f"gspar_sparsify_prng row {r}: kept count "
+                                 f"{z:.2f} sd from sum p")
+        del q
+    prng["launches"] += K.LAUNCHES["sparsify_prng"]
+    prng["rows"] += rows
+
+
+def philox_check() -> None:
+    """Kernel 8's generator on the card against the known answers."""
+    from repro_torch.kernels.sparsify import kernel as K
+    ctr = torch.tensor([c for c, _, _ in PHILOX_KAT], device="cuda")
+    key = torch.tensor([k for _, k, _ in PHILOX_KAT], device="cuda")
+    got = K.philox4x32_10(ctr, key).tolist()
+    if got != [list(w) for _, _, w in PHILOX_KAT]:
+        raise AssertionError(f"Philox4x32-10 on the card: {got}")
+
+
 def kernel_phase(groups) -> dict:
     """Each kernel against its plain version on every main-path group, with
     the same inputs and the same per-row scalars; times per step (one launch
@@ -320,9 +432,11 @@ def kernel_phase(groups) -> dict:
     tally = Tally()
     library_ms = 0.0
     ms_no_ef = 0.0
+    prng = {"launches": 0, "rows": 0, "z_max": 0.0}
+    philox_check()
     decode_ms = {"rice": 0.0, "coo": 0.0}
     f32, bf16 = codecs.FloatCodec(), codecs.FloatCodec(16, True)
-    for rows, d, k_cap in groups:
+    for gi, (rows, d, k_cap) in enumerate(groups):
         g = heavy_tailed(rows, d, gen)
         u = torch.rand((rows, d), generator=gen, device="cuda")
         gb, n = g.element_size(), rows * d
@@ -425,13 +539,16 @@ def kernel_phase(groups) -> dict:
         del vals, idx, words, used, dense, coo_words, rst
         torch.cuda.empty_cache()
         variant_checks(tally, g, u, l1, mx, k_cap)
+        dense_checks(tally, g, u, l1, mx, lam, PRNG_SEED + gi, prng)
         print(f"group [{rows}, {d}] k_cap {k_cap}: kernels and variants "
               f"agree with their plain versions (nnz {int(st.nnz.sum())}, "
-              f"gated rows {int(gate.sum())})", flush=True)
+              f"gated rows {int(gate.sum())}; gspar_sparsify_prng within "
+              f"{prng['z_max']:.2f} sd of sum p)", flush=True)
         del g, u, st
         torch.cuda.empty_cache()
     tally.library_ms["stats_l1max"] = library_ms
-    return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms}
+    return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms,
+            "prng": prng}
 
 
 def variant_sweep():
@@ -482,6 +599,41 @@ def variant_sweep():
           "versions", flush=True)
 
 
+def dense_sweep():
+    """The dense wire's kernels on small groups, ragged (the scalar path)
+    and aligned (16-byte vectors), f32 and bf16 g, every wire dtype, EF
+    on and off, and kernel 8, each bit-equal to its plain version."""
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (100_003, 65_536):
+            g = heavy_tailed(3, d, gen).to(dtype)
+            u = torch.rand((3, d), generator=gen, device="cuda")
+            l1, l2, mx = K.stats(g)
+            rl1, rl2, rmx = ref.stats_ref(g)
+            chk = Check()
+            chk.close("sweep stats l1", l1, rl1)
+            chk.close("sweep stats l2", l2, rl2)
+            chk.equal("sweep stats max", mx, rmx)
+            lam = ops.greedy_lambda(l1, mx, RHO, d,
+                                    tail_fn=ops._kernel_tail_fn(g))
+            for wire in sorted({dtype, torch.bfloat16}, key=str):
+                for name, kern, plain in (
+                        ("sparsify", K.sparsify, ref.sparsify_ref),
+                        ("sparsify_ef", K.sparsify_ef, ref.sparsify_ef_ref)):
+                    check_dense(chk, f"sweep {dtype} d={d} {name} {wire}",
+                                kern(g, u, lam, wire),
+                                plain(g, u, lam, wire))
+                    n += 1
+            check_dense(chk, f"sweep {dtype} d={d} sparsify_prng",
+                        K.sparsify_prng(g, lam, PRNG_SEED),
+                        ref.sparsify_prng_ref(g, lam, PRNG_SEED))
+            n += 1
+    print(f"dense sweep: {n} dense-wire kernel variants agree with their "
+          "plain versions", flush=True)
+
+
 def reference_phase():
     """The emit pipelines on the card against the same pipelines on the
     CPU (plain versions, held to the JAX package by the CPU tests) on a
@@ -511,6 +663,16 @@ def reference_phase():
             if abs(float(u[r, i]) - float(p[i])) >= 1e-6:
                 raise AssertionError(f"row {r} coordinate {i}: kept sets "
                                      "differ away from the threshold")
+    dn = ops.gspar_dense(g, u, rho=RHO, ef=True)
+    dn_c = ops.gspar_dense(g.cpu(), u.cpu(), rho=RHO, ef=True)
+    rel_d = ((dn.lam.cpu().double() - dn_c.lam.double()).abs()
+             / dn_c.lam.double().abs()).max().item()
+    p = torch.clamp_max(dn_c.lam[:, None] * g.cpu().float().abs(), 1.0)
+    flips = (dn.q.cpu() != 0) != (dn_c.q != 0)
+    if rel_d > 1e-6 or bool((flips & ((u.cpu() - p).abs() >= 1e-6)).any()):
+        raise AssertionError(f"gspar_dense: card vs CPU lambda rel err "
+                             f"{rel_d}, or kept sets differ away from p")
+    del dn, dn_c, p, flips
     k_target = round(RHO * d)
     pipelines = {
         "unisp": lambda g, u, c: ops.unisp_emit(
@@ -532,8 +694,9 @@ def reference_phase():
                     x is not None and not torch.equal(x.cpu(), y)):
                 raise AssertionError(f"{name} {f}: card != CPU")
         torch.testing.assert_close(a.scale.cpu(), b.scale, rtol=1e-6, atol=0)
-    print(f"reference: card vs CPU lambda rel err {rel:.2e}, kept sets "
-          f"agree; {', '.join(pipelines)} bit-equal card vs CPU", flush=True)
+    print(f"reference: card vs CPU lambda rel err {rel:.2e} (emit), "
+          f"{rel_d:.2e} (dense), kept sets agree; {', '.join(pipelines)} "
+          "bit-equal card vs CPU", flush=True)
 
 
 def decoded(values: torch.Tensor, scale: torch.Tensor,
@@ -768,6 +931,116 @@ def train_phase(name: str, layout: str = "auto", check: str | None = None
     return summary
 
 
+def dense_check(real, record: list):
+    """Wrap ``ops.gspar_dense``: after each group's compression, run the
+    gather wire's ``ops.gspar_emit`` on the same target and uniforms and
+    hold its lambda bit-equal to the dense wire's, its overflow to 0 and
+    the decode of its compact buffers (each row's live values at their
+    indices, zeros elsewhere) to the dense Q, bit for bit. The checks' time
+    is recorded, not hidden."""
+    from repro_torch.comm.compaction import capacity_for
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import ops
+
+    def checked(g2d, u2d, **kw):
+        r = real(g2d, u2d, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, d = g2d.shape
+        k_cap = capacity_for(d, RHO)
+        er, lam = ops.gspar_emit(g2d, u2d, k_cap=k_cap, rho=RHO,
+                                 codec=codecs.FloatCodec(), ef=False)
+        if not torch.equal(lam, r.lam):
+            raise AssertionError(f"[{rows}, {d}]: gather and dense lambdas "
+                                 "differ")
+        if int(torch.clamp_min(er.nnz - k_cap, 0).sum()) != 0:
+            raise AssertionError(f"[{rows}, {d}]: the gather wire "
+                                 "overflowed")
+        if not torch.equal(er.nnz.long(), r.nnz):
+            raise AssertionError(f"[{rows}, {d}]: survivors {er.nnz} != "
+                                 f"nonzeros of Q {r.nnz}")
+        for row in range(rows):
+            n = int(er.nnz[row])
+            want = torch.zeros(d, dtype=r.q.dtype, device=r.q.device)
+            want[er.idx[row, :n].long()] = er.values[row, :n]
+            if not torch.equal(r.q[row], want):
+                raise AssertionError(f"[{rows}, {d}] row {row}: dense Q != "
+                                     "the decoded compact buffers")
+            del want
+        torch.cuda.synchronize()
+        record.append({"rows": rows, "d": d, "kept": int(r.nnz.sum()),
+                       "check_s": time.perf_counter() - t0})
+        return r
+    return checked
+
+
+def dense_train_phase(ef: bool, check: bool) -> dict:
+    """One launcher run of gspar on the dense wire with the kernel counts
+    set to 0 just before it and read just after: with ``ef`` as ``--wire
+    dense --error-feedback``, without on the launcher's default wire (no
+    ``--wire``). Every step must charge exactly the bf16 gradient's bytes,
+    stamp no layout and overflow nothing; ``check`` holds each group's Q
+    to the gather wire's compact buffers (``dense_check``)."""
+    from repro_torch.kernels.sparsify import kernel as K, ops
+    from repro_torch.launch import train
+    record: list = []
+    real = ops.gspar_dense
+    if check:
+        ops.gspar_dense = dense_check(real, record)
+    argv = DENSE_ARGS + (["--wire", "dense", "--error-feedback"] if ef
+                         else [])
+    K.reset_launches()
+    try:
+        summary = train.main(argv)
+    finally:
+        ops.gspar_dense = real
+    launches = dict(K.LAUNCHES)
+    name = "gspar_dense" if ef else "gspar_dense_noef"
+    if summary["layouts"]:
+        raise AssertionError(f"{name}: layouts {summary['layouts']}")
+    for step, m in enumerate(summary["metrics"]):
+        if not math.isfinite(m["loss"]):
+            raise AssertionError(f"{name} step {step}: loss {m['loss']}")
+        if m["wire_bytes"] != DENSE_WIRE_BYTES or m["overflow"] != 0:
+            raise AssertionError(f"{name} step {step}: wire_bytes "
+                                 f"{m['wire_bytes']}, overflow "
+                                 f"{m['overflow']}")
+        if not 0.0 < m["density"] <= 1.25 * RHO:
+            raise AssertionError(f"{name} step {step}: density "
+                                 f"{m['density']}")
+    kernel = "sparsify_ef" if ef else "sparsify"
+    for v in ("stats", "tail_stats", kernel):
+        if launches.get(v, 0) <= 0:
+            raise AssertionError(f"kernel {v} never launched on {name}")
+    if not check and any(launches.get(v, 0) for v in (
+            "stats_l1max", "select_stats", "compact_emit", "sparsify_prng",
+            "sparsify_ef" if not ef else "sparsify")):
+        raise AssertionError(f"{name} launched another path's kernels: "
+                             f"{launches}")
+    groups = len(record) // max(1, len(summary["metrics"]))
+    if check and (groups == 0 or len(record) != groups * len(
+            summary["metrics"])):
+        raise AssertionError("a dense compression went unchecked")
+    steps = summary["step_seconds"]
+    net = [s - sum(c["check_s"] for c in record[i * groups:(i + 1) * groups])
+           for i, s in enumerate(steps)] if check else list(steps)
+    print(f"train {name}{' (checked)' if check else ''}: steps "
+          + ", ".join(f"{s:.4f} s" for s in steps)
+          + (" (less the checks: " + ", ".join(f"{s:.4f} s" for s in net)
+             + ")" if check else "")
+          + "; wire_bytes " + ", ".join(
+              f"{m['wire_bytes']:.0f}" for m in summary["metrics"])
+          + "; density " + ", ".join(
+              f"{m['density']:.6f}" for m in summary["metrics"])
+          + "; loss " + ", ".join(f"{m['loss']:.4f}"
+                                  for m in summary["metrics"])
+          + f"; max_memory_allocated {summary['max_memory_allocated']} B",
+          flush=True)
+    summary.update(launches=launches, checks=record, net_seconds=net,
+                   name=name)
+    return summary
+
+
 # the kernels line: variant -> (the run whose launches it reports,
 # the TPU kernel's line in src/repro/kernels/sparsify/kernel.py)
 ENTRIES = {
@@ -782,6 +1055,14 @@ ENTRIES = {
     "compact_emit/bern+ternary": ("terngrad", 559),
     "compact_emit/topk": ("topk", 559), "compact_emit/bern": ("bernoulli",
                                                               559),
+    "stats": ("gspar_dense", 239), "sparsify": ("gspar_dense_noef", 96),
+    "sparsify_ef": ("gspar_dense", 123), "sparsify_prng": ("prng", 157),
+}
+# what each run of the dense wire and kernel 8 drives
+DENSE_PATHS = {
+    "gspar_dense": "gspar --wire dense --error-feedback",
+    "gspar_dense_noef": "gspar (the launcher's default --wire dense)",
+    "prng": "ops.gspar_sparsify_prng on every gemma-2b row as a leaf",
 }
 
 
@@ -806,6 +1087,7 @@ def main() -> int:
     groups = main_path_groups()
     kp = kernel_phase(groups)
     variant_sweep()
+    dense_sweep()
     reference_phase()
     runs = {}
     for key, name, layout, check in (
@@ -820,16 +1102,22 @@ def main() -> int:
             ("bernoulli", "bernoulli", "auto", None)):
         torch.cuda.empty_cache()
         runs[key] = train_phase(name, layout, check)
+    for ef, check in ((True, True), (False, False)):
+        torch.cuda.empty_cache()
+        run = dense_train_phase(ef, check)
+        runs[run["name"]] = run
 
     tally = kp["tally"]
     kernels = []
+    launches = {key: run["launches"] for key, run in runs.items()}
+    launches["prng"] = {"sparsify_prng": kp["prng"]["launches"]}
     for name, (run, line) in ENTRIES.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparsify.cu",
             "replaces": f"src/repro/kernels/sparsify/kernel.py:{line}",
-            "path": PATHS[run].compressor,
-            "launches": runs[run]["launches"].get(name, 0),
+            "path": DENSE_PATHS.get(run) or PATHS[run].compressor,
+            "launches": launches[run].get(name, 0),
             "max_abs_err": tally.check[name].max_abs,
             "max_rel_err": tally.check[name].max_rel,
             "ms": tally.ms[name], "plain_ms": tally.plain_ms[name],
@@ -841,6 +1129,8 @@ def main() -> int:
         kp["ms_no_ef"]
     kernels[list(ENTRIES).index("select_stats/topk")]["topk_peak_bytes"] = \
         tally.library_ms["topk_peak_bytes"]
+    kernels[list(ENTRIES).index("sparsify_prng")]["max_sd_from_sum_p"] = \
+        kp["prng"]["z_max"]
     for key, run in runs.items():
         print(json.dumps({key: {
             "step_seconds": run["step_seconds"],

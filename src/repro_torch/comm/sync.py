@@ -1,8 +1,20 @@
-"""Sparse gradient synchronization, Algorithm 1 on ``torch.distributed``
-(port of ``repro.comm.sync``: ``SyncStats``, ``sync_tree`` and the sync
-exchange ``_bucketed_sync`` on the gather wire, every static wire layout).
+"""Gradient synchronization, Algorithm 1 on ``torch.distributed`` (port of
+``repro.comm.sync``: ``SyncStats``, ``sync_tree``, the dense wire's
+``_sync_leaves_dense`` and the sync exchange ``_bucketed_sync`` on the
+gather wire, every static wire layout).
 
-Every worker compresses its local gradient leaves into fixed-capacity
+The dense wire (``cfg.wire == "dense"``, the default) compresses every
+leaf to Q(g) in dense layout (``repro_torch.core.api.compress_tree``) and
+averages it over the workers with one all-reduce per leaf dtype, in that
+dtype, as the JAX package's ``pmean``; it charges ``numel x itemsize`` of
+every leaf, has no capacity to overflow and stamps no layout. gloo takes
+no bfloat16, so there a bfloat16 bucket is summed in float32 and rounded
+once: bit-equal to a bfloat16 sum at two workers, where the sum is one
+addition. NCCL sums in its ring order, so beyond two workers the dense sum
+is not held bit-equal to the JAX package's.
+
+On the gather wire (``cfg.wire == "gather"``) every worker compresses its
+local gradient leaves into fixed-capacity
 ``SparseGrad`` buffers (``repro_torch.core.api.compress_tree_sparse``),
 each group stamped with a wire layout (``repro_torch.comm.wire_layout``);
 the groups of one wire dtype share one concatenated coordinate space and
@@ -54,7 +66,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm import compaction, wire_layout
-from repro_torch.core.api import CompressionConfig, compress_tree_sparse
+from repro_torch.core.api import (CompressionConfig, compress_tree,
+                                  compress_tree_sparse)
 from repro_torch.core.grouping import chunk_spans
 from repro_torch.optim.optimizers import FeedbackState
 
@@ -156,6 +169,55 @@ def decode_into(dense: torch.Tensor, lp: wire_layout.LeafPlan,
         for w in range(m):                   # worker-major reduction order
             dense.index_add_(0, crd[w], upd[w].to(F32))
         del upd, crd
+
+
+def _flat_storage(ts: list) -> torch.Tensor | None:
+    """The one flat buffer that the contiguous tensors ``ts`` (of one dtype)
+    tile exactly, as a 1-D tensor, or None when they do not tile one."""
+    st = ts[0].untyped_storage()
+    if not all(t.is_contiguous()
+               and t.untyped_storage().data_ptr() == st.data_ptr()
+               for t in ts) or sum(
+                   t.numel() * t.element_size() for t in ts) != st.nbytes():
+        return None
+    return torch.empty(0, dtype=ts[0].dtype, device=ts[0].device).set_(
+        st, 0, (st.nbytes() // ts[0].element_size(),))
+
+
+def _sync_leaves_dense(q: list, group) -> tuple[list, float]:
+    """pmean of every leaf over ``group``, in the leaf's dtype: one
+    all-reduce per dtype, in place on the flat buffer that
+    ``compress_tree`` lays that dtype's leaves out in (a copy into one
+    when they do not tile one). Returns ``(synced leaves, wire bytes)``:
+    ``numel x itemsize`` of every leaf, as the JAX package charges."""
+    m = dist.get_world_size(group)
+    gloo = dist.get_backend(group) == "gloo"
+    synced: list = [None] * len(q)
+    by_dtype: dict = {}
+    for i, t in enumerate(q):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dt in sorted(by_dtype, key=_dtype_name):     # the same on every rank
+        ids = by_dtype[dt]
+        flat = _flat_storage([q[i] for i in ids])
+        in_place = flat is not None
+        if not in_place:
+            flat = torch.cat([q[i].reshape(-1) for i in ids])
+        if gloo and dt == torch.bfloat16:
+            acc = flat.to(F32)
+            dist.all_reduce(acc, group=group)
+            flat.copy_(acc)
+            del acc
+        else:
+            dist.all_reduce(flat, group=group)
+        if m > 1:
+            flat.div_(m)
+        off = 0
+        for i in ids:
+            n = q[i].numel()
+            synced[i] = q[i] if in_place else flat[off:off + n].view(
+                q[i].shape)
+            off += n
+    return synced, float(sum(t.numel() * t.element_size() for t in q))
 
 
 def _bucketed_sync(items: list, leaves: list, group,
@@ -301,19 +363,28 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
             "sync_tree: error_feedback=True requires the per-worker residual "
             "(feedback=FeedbackState(...)); refusing to silently drop the "
             "compression error.")
-    items, new_res, stats = compress_tree_sparse(
-        cfg, generator, grads, stacked=stacked, residual=residual)
-    synced, wire, overflow = _bucketed_sync(items, grads, group, cfg)
     dev = grads[0].device
-    wire_t = wire.to(torch.float64)
     zero = torch.zeros((), dtype=F32, device=dev)
+    if cfg.wire == "dense":
+        q, new_res, stats = compress_tree(cfg, generator, grads,
+                                          stacked=stacked, residual=residual)
+        synced, wire = _sync_leaves_dense(q, group)
+        del q
+        wire_t = torch.tensor(wire, dtype=torch.float64, device=dev)
+        overflow, layouts = zero, ()
+    else:
+        items, new_res, stats = compress_tree_sparse(
+            cfg, generator, grads, stacked=stacked, residual=residual)
+        synced, wire, overflow = _bucketed_sync(items, grads, group, cfg)
+        wire_t = wire.to(torch.float64)
+        overflow = overflow.to(F32)
+        layouts = tuple((sg.rows, sg.d, sg.k_cap, sg.layout)
+                        for kind, sg, _ in items if kind == "sparse")
     out_stats = SyncStats(
         bits=stats.bits, dense_bits=stats.dense_bits, wire_bytes=wire_t,
         wire_bytes_intra=wire_t, wire_bytes_inter=zero,
         density=stats.density, var_ratio=stats.var_ratio,
-        overflow=overflow.to(F32), skipped=zero,
-        layouts=tuple((sg.rows, sg.d, sg.k_cap, sg.layout)
-                      for kind, sg, _ in items if kind == "sparse"))
+        overflow=overflow, skipped=zero, layouts=layouts)
     new_feedback = (FeedbackState(residual=new_res)
                     if cfg.error_feedback else None)
     return synced, new_feedback, out_stats

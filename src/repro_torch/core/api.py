@@ -1,6 +1,6 @@
 """Gradient compression over a model's ordered leaves (port of
-``repro.core.api``: ``CompressionConfig``, ``TreeStats`` and
-``compress_tree_sparse``).
+``repro.core.api``: ``CompressionConfig``, ``TreeStats``, ``compress_tree``
+for the dense wire and ``compress_tree_sparse`` for the gather wire).
 
 The paper sparsifies each layer independently (section 5.2): a leaf is one
 parameter tensor, and a layer-stacked leaf ``[L, ...]`` is L rows. The
@@ -17,7 +17,8 @@ import torch
 from repro_torch.core import coding
 from repro_torch.core import schemes as schemes_lib
 from repro_torch.core.grouping import plan_tree
-from repro_torch.core.sparse import KernelBackend, residual_from_buffers
+from repro_torch.core.sparse import (DENSE_WIRE_ITEM, KernelBackend,
+                                     residual_from_buffers)
 
 F32 = torch.float32
 
@@ -34,14 +35,17 @@ class CompressionConfig:
     (``"gspar"``, ``"unisp"``, ``"topk"``, ``"bernoulli"``) takes the f32
     codec, ``"selector+codec"`` names both (``"gspar+qsgd8"``,
     ``"topk+ternary"``), and ``"terngrad"`` is ``bernoulli+ternary``. The
-    port runs the sparse gather wire: gspar with ``algo="greedy"`` and the
-    paper's baselines, each with the ``f32``, ``bf16``, ``qsgd<N>`` and
-    ``ternary`` codecs, ``wire="gather"`` with every static wire layout
-    (``auto``, ``coo``, ``bitmap``, ``dense``, ``rice``) and
+    port runs the dense wire (``wire="dense"``, the default, as in the JAX
+    package: Q(g) in dense layout, pmean over the workers) for gspar with
+    ``algo="greedy"`` and a float codec (``f32``, ``bf16``), and the sparse
+    gather wire for gspar and the paper's baselines, each with the ``f32``,
+    ``bf16``, ``qsgd<N>`` and ``ternary`` codecs, with every static wire
+    layout (``auto``, ``coo``, ``bitmap``, ``dense``, ``rice``); both with
     ``exchange="sync"``, with or without error feedback. Every other value
-    (the identity selector and its ``qsgd``/``none`` aliases among them)
-    raises NotImplementedError naming the ROADMAP.md item that ports it;
-    invalid values raise ValueError.
+    (the other compositions on the dense wire, the packed wire, the
+    identity selector and its ``qsgd``/``none`` aliases among them) raises
+    NotImplementedError naming the ROADMAP.md item that ports it; invalid
+    values raise ValueError.
     """
     name: str = "gspar"              # selector[+codec] composition
     rho: float = 0.1                 # target density (gspar, unisp, topk)
@@ -52,7 +56,7 @@ class CompressionConfig:
     codec: str | None = None         # value codec; None -> from name, else f32
     error_feedback: bool = False     # carry the compression residual
     min_leaf_size: int = 256         # leaves smaller than this travel dense
-    wire: str = "gather"             # gather (dense / packed: not ported)
+    wire: str = "dense"              # dense | gather (packed: not ported)
     wire_layout: str = "auto"        # auto (argmin bytes) / coo / bitmap /
                                      # dense / rice
     rice_fitted: bool = False        # data-fitted Rice parameter (not ported)
@@ -63,10 +67,9 @@ class CompressionConfig:
     def __post_init__(self):
         if self.wire not in ("dense", "gather", "packed"):
             raise ValueError(f"unknown wire format {self.wire!r}")
-        if self.wire != "gather":
-            raise _not_ported(f"wire={self.wire!r}",
-                              "queue A items 6 and 9 (dense psum wire, "
-                              "packed bf16 wire)")
+        if self.wire == "packed":
+            raise _not_ported("wire='packed'",
+                              "queue A item 9 (packed bf16 wire)")
         if self.exchange not in ("sync", "overlap"):
             raise ValueError(f"unknown exchange mode {self.exchange!r}")
         if self.exchange != "sync":
@@ -82,7 +85,11 @@ class CompressionConfig:
                              "outside the int32 coordinate space")
         if not 0.0 < self.rho <= 1.0:
             raise ValueError(f"rho={self.rho} outside (0, 1]")
-        self.scheme()                # raises on unknown/unported names
+        scheme = self.scheme()       # raises on unknown/unported names
+        if self.wire == "dense" and (scheme.selector.name != "gspar"
+                                     or scheme.codec.integer_coded):
+            raise _not_ported(f"{scheme.name} on wire='dense'",
+                              f"queue A item {DENSE_WIRE_ITEM}")
 
     def scheme(self) -> schemes_lib.Scheme:
         return _resolve_scheme(self)
@@ -93,8 +100,11 @@ class CompressionConfig:
 
     def describe(self) -> str:
         parts = [self.scheme().name, f"rho={self.rho:g}",
-                 f"wire={self.wire}", f"layout={self.wire_layout}",
-                 f"exchange={self.exchange}", "backend=kernel"]
+                 f"wire={self.wire}"]
+        if self.wire != "dense":     # the layout and exchange are sparse's
+            parts += [f"layout={self.wire_layout}",
+                      f"exchange={self.exchange}"]
+        parts.append("backend=kernel")
         if self.error_feedback:
             parts.append("ef")
         return " ".join(parts)
@@ -123,6 +133,127 @@ def _require_residual(cfg: CompressionConfig, residual, where: str) -> None:
             f"error_feedback=True but no residual reached {where}: the "
             "compression error would be silently dropped. Pass a "
             "FeedbackState (repro_torch.optim.optimizers.init_feedback).")
+
+
+def _stack_group(grp, leaves: list, residual: list | None, ef: bool
+                 ) -> torch.Tensor:
+    """One sparse group's ``[rows, d]`` batch: the members' rows in member
+    order, with error feedback the target ``leaf + residual`` formed in
+    place in the batch; a single member without EF is a view of its
+    leaf."""
+    first = leaves[grp.members[0][0]]
+    if len(grp.members) == 1 and not ef:
+        return first.reshape(grp.rows, grp.d)
+    stack = torch.empty((grp.rows, grp.d), dtype=first.dtype,
+                        device=first.device)
+    r0 = 0
+    for i, rows in grp.members:
+        dst = stack[r0:r0 + rows]
+        src = leaves[i].reshape(rows, grp.d)
+        if ef:
+            torch.add(src, residual[i].reshape(rows, grp.d), out=dst)
+        else:
+            dst.copy_(src)
+        r0 += rows
+    return stack
+
+
+def _tree_stats(cfg, leaves, bits, nnz, wvar) -> TreeStats:
+    tot = float(sum(leaf.numel() for leaf in leaves))
+    dev = leaves[0].device
+    return TreeStats(
+        bits=torch.stack(bits).sum(),
+        dense_bits=torch.tensor(tot * cfg.float_bits, dtype=F32, device=dev),
+        density=torch.stack(nnz).sum() / tot,
+        var_ratio=torch.stack(wvar).sum() / tot)
+
+
+def compress_tree(cfg: CompressionConfig, generator: torch.Generator,
+                  leaves: list, stacked: list | None = None,
+                  residual: list | None = None):
+    """The dense wire: compress the ordered ``leaves`` into Q(g) in dense
+    layout, one kernel launch per shape group and kernel, each stacked leaf
+    per layer (``stacked``).
+
+    Each sparse group is stacked into one ``[rows, d]`` batch (with error
+    feedback: the target ``leaf + residual``, formed in place in the
+    batch) and takes its uniforms from ``generator`` as one ``[rows, d]``
+    float32 draw, in group order: the draws of ``compress_tree_sparse``, so
+    one generator seed gives both wires the same kept coordinates. Each
+    group's uniforms are freed before the next draw. Tiny leaves (<
+    ``cfg.min_leaf_size``) pass through in their own dtype, with the
+    identity's dense bits and a residual of exactly zero.
+
+    The Q leaves of one dtype are views of one flat buffer, in group order,
+    so that the exchange reduces each dtype with one collective, in place
+    (``comm.sync._sync_leaves_dense``); a codec that rounds (bf16) is
+    decoded to the leaf's dtype there, as the JAX package decodes before
+    its pmean.
+
+    Returns ``(q, new_residual, stats)``: lists like ``leaves`` (the
+    residual None without error feedback) and TreeStats.
+    """
+    _require_residual(cfg, residual, "compress_tree")
+    backend = KernelBackend()
+    codec = cfg.scheme().codec
+    ef = cfg.error_feedback
+    stk = stacked if stacked is not None else [False] * len(leaves)
+    plan = plan_tree(cfg, leaves, stk)
+    dev = leaves[0].device
+    buckets = {dt: torch.empty(sum(leaf.numel() for leaf in leaves
+                                   if leaf.dtype == dt), dtype=dt,
+                               device=dev)
+               for dt in {leaf.dtype for leaf in leaves}}
+    used = dict.fromkeys(buckets, 0)
+
+    def take(dtype, n: int) -> torch.Tensor:
+        a = used[dtype]
+        used[dtype] += n
+        return buckets[dtype][a:a + n]
+
+    q: list = [None] * len(leaves)
+    new_res: list = [None] * len(leaves)
+    bits, nnz, wvar = [], [], []
+    for grp in plan.groups:
+        if grp.kind == "dense":
+            for i, n in grp.members:
+                leaf = leaves[i]
+                q[i] = take(leaf.dtype, n).view(leaf.shape)
+                if ef:
+                    torch.add(leaf, residual[i], out=q[i])
+                    new_res[i] = torch.zeros_like(leaf)
+                else:
+                    q[i].copy_(leaf)
+                t32 = q[i].reshape(-1).to(F32)
+                bits.append(torch.tensor(
+                    coding.dense_coding_bits(n, cfg.float_bits), dtype=F32,
+                    device=dev))
+                nnz.append(torch.count_nonzero(t32).to(F32))
+                wvar.append(((t32 * t32).sum() > 0).to(F32) * float(n))
+            continue
+
+        stack = _stack_group(grp, leaves, residual, ef)
+        u = torch.rand((grp.rows, grp.d), generator=generator, dtype=F32,
+                       device=stack.device)
+        qg = take(stack.dtype, grp.rows * grp.d).view(grp.rows, grp.d)
+        direct = codec.wire_dtype(stack.dtype) == stack.dtype
+        cg, res_rows = backend.compress_dense(cfg, u, stack, ef,
+                                              out=qg if direct else None)
+        del u, stack
+        if not direct:
+            qg.copy_(cg.q)
+        r0 = 0
+        for i, rows in grp.members:
+            q[i] = qg[r0:r0 + rows].view(leaves[i].shape)
+            if ef:
+                new_res[i] = res_rows[r0:r0 + rows].view(leaves[i].shape)
+            r0 += rows
+        bits.append(cg.bits.sum())
+        nnz.append(cg.nnz.sum().to(F32))
+        wvar.append(cg.var_ratio.sum() * float(grp.d))
+        del cg, res_rows
+    return q, (new_res if ef else None), _tree_stats(cfg, leaves, bits, nnz,
+                                                     wvar)
 
 
 def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
@@ -173,21 +304,7 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
             items.append(("dense", torch.cat(parts), grp.members))
             continue
 
-        first = leaves[grp.members[0][0]]
-        if len(grp.members) == 1 and not ef:
-            stack = first.reshape(grp.rows, grp.d)
-        else:
-            stack = torch.empty((grp.rows, grp.d), dtype=first.dtype,
-                                device=first.device)
-            r0 = 0
-            for i, rows in grp.members:
-                dst = stack[r0:r0 + rows]
-                src = leaves[i].reshape(rows, grp.d)
-                if ef:
-                    torch.add(src, residual[i].reshape(rows, grp.d), out=dst)
-                else:
-                    dst.copy_(src)
-                r0 += rows
+        stack = _stack_group(grp, leaves, residual, ef)
         u = u_cod = None
         if scheme.selector.name != "topk":
             u = torch.rand((grp.rows, grp.d), generator=generator,
@@ -217,11 +334,5 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
         nnz.append(sg.nnz.to(F32).sum())
         wvar.append(sg.var_ratio.sum() * float(grp.d))
 
-    tot = float(sum(leaf.numel() for leaf in leaves))
-    dev = leaves[0].device
-    stats = TreeStats(
-        bits=torch.stack(bits).sum(),
-        dense_bits=torch.tensor(tot * cfg.float_bits, dtype=F32, device=dev),
-        density=torch.stack(nnz).sum() / tot,
-        var_ratio=torch.stack(wvar).sum() / tot)
-    return items, (new_res if ef else None), stats
+    return items, (new_res if ef else None), _tree_stats(cfg, leaves, bits,
+                                                         nnz, wvar)

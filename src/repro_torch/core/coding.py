@@ -1,5 +1,5 @@
 """Coding-length model and realized wire accounting (port of the parts of
-``repro.core.coding`` the gather wire uses).
+``repro.core.coding`` the gather and dense wires use).
 
 The coding model charges a sampled message the paper's section-3.3 hybrid
 code: sure coordinates (p = 1) cost ``b + log2 d`` bits each, sampled ones
@@ -35,6 +35,20 @@ def hybrid_branch_bits(n, d: int, per_item_bits, map_bits: float):
     return torch.minimum(n * per_item_bits,
                          torch.as_tensor(float(d) * map_bits,
                                          dtype=torch.float32))
+
+
+def realized_coding_bits(n_sure: torch.Tensor, n_sampled: torch.Tensor,
+                         d: int, b: float = 32.0) -> torch.Tensor:
+    """Bits of one *sampled* message per row (not the expectation), from
+    the kept coordinates' counts: ``n_sure`` with p = 1 at ``b + log2 d``
+    each, ``n_sampled`` with p < 1 as a ``log2 d`` index list or a dense
+    ternary map of 2d bits, whichever is shorter, plus ``b`` once. The JAX
+    package's function takes q and p and counts them itself."""
+    logd = torch.log2(torch.tensor(float(d), dtype=torch.float32,
+                                   device=n_sure.device))
+    return (n_sure.to(torch.float32) * (b + logd)
+            + hybrid_branch_bits(n_sampled.to(torch.float32), d, logd, 2.0)
+            + b)
 
 
 def dense_coding_bits(d: int, b: int = 32) -> float:

@@ -23,8 +23,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.comm.compaction import capacity_for
 from repro_torch.core import codecs as codecs_lib
+from repro_torch.core import coding
 
 SELECTOR_NAMES = ("gspar", "agspar", "unisp", "topk", "bernoulli",
                   "identity")
@@ -97,6 +100,21 @@ class Scheme:
     @property
     def name(self) -> str:
         return f"{self.selector.name}+{self.codec.name}"
+
+    def message_bits(self, d: int, n_sure: torch.Tensor,
+                     n_sampled: torch.Tensor) -> torch.Tensor:
+        """Realized coding-model bits of one sampled message per row of a
+        float-codec gspar or bernoulli message, from its kept coordinates'
+        counts with p = 1 (``n_sure``) and p < 1 (``n_sampled``): the
+        selectors' ``realized_bits`` in the JAX package. The other
+        selectors and the integer codecs are priced by the gather wire's
+        accounting (``sparse.KernelBackend._finish``)."""
+        if self.selector.name not in ("gspar", "bernoulli") \
+                or self.codec.integer_coded:
+            raise NotImplementedError(
+                f"message_bits of {self.name} from sure/sampled counts")
+        return coding.realized_coding_bits(n_sure, n_sampled, d,
+                                           self.codec.value_bits)
 
 
 def parse_composition(name: str,

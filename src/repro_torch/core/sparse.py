@@ -1,6 +1,6 @@
 """Compact sparse-gradient representation and the kernel backend (port of
 ``repro.core.sparse``: ``SparseGrad`` and the counterpart of
-``PallasBackend``).
+``PallasBackend``, which here also compresses the dense wire's groups).
 
 ``SparseGrad`` is the wire form of one compressed shape group: fixed-
 capacity ``values [rows, k_cap]`` (codec-encoded, wire dtype) and ``idx
@@ -10,8 +10,9 @@ accounting. Selection happens once, in the backend; the sync layer ships
 the buffers as they are.
 
 ``KernelBackend`` runs the two-pass emit of ``repro_torch.kernels.sparsify``
-on a whole group: the CUDA kernels for tensors on the card, their plain
-PyTorch versions for tensors on the CPU. The reference backend of the JAX
+(and, for the dense wire, ``ops.gspar_dense``) on a whole group: the CUDA
+kernels for tensors on the card, their plain PyTorch versions for tensors
+on the CPU. The reference backend of the JAX
 package (dense apply plus a magnitude ``top_k``), which the identity
 selector runs on, is a different algorithm and is ROADMAP.md queue A item
 4.
@@ -24,12 +25,15 @@ import torch
 
 from repro_torch.comm import compaction, wire_layout
 from repro_torch.core import codecs, coding
+from repro_torch.core._compressors import CompressedGrad, finish_compressed
 from repro_torch.kernels.sparsify import ops
 
 F32 = torch.float32
 # Slots per tile of the accounting in KernelBackend._finish: about 1.5 GB
 # of float32 temporaries.
 ACCOUNT_UNITS = 1 << 27
+# The ROADMAP.md queue A item that ports the dense wire's other compositions.
+DENSE_WIRE_ITEM = 14
 
 
 @dataclasses.dataclass
@@ -103,6 +107,29 @@ class KernelBackend:
     pass). Everything after the kernels is O(rows * k_cap) accounting.
     Selectors gspar (greedy), unisp, topk and bernoulli; codecs f32, bf16,
     qsgd<N> and ternary."""
+
+    def compress_dense(self, cfg, u: torch.Tensor, g: torch.Tensor,
+                       ef: bool, out: torch.Tensor | None = None
+                       ) -> tuple[CompressedGrad, torch.Tensor | None]:
+        """One ``[rows, d]`` group for the dense wire (``g`` the EF target
+        with ``ef``) with the selector's float32 uniforms ``u``: Q in the
+        codec's wire dtype (into ``out`` when given) and the accounting,
+        and with ``ef`` the residual ``g - Q`` after the wire rounding
+        (None without). gspar (greedy) with a float codec runs
+        ``ops.gspar_dense``; every other composition raises."""
+        scheme = cfg.scheme()
+        sel, codec = scheme.selector, scheme.codec
+        if sel.name != "gspar" or codec.integer_coded:
+            raise NotImplementedError(
+                f"{scheme.name} on the dense wire is not ported yet "
+                f"(ROADMAP.md queue A item {DENSE_WIRE_ITEM})")
+        d = g.shape[1]
+        r = ops.gspar_dense(g, u, rho=sel.rho, num_iters=sel.num_iters,
+                            out_dtype=codec.wire_dtype(g.dtype), ef=ef,
+                            out=out)
+        bits = scheme.message_bits(d, r.n_sure, r.nnz - r.n_sure)
+        return (finish_compressed(r.q, r.lam, bits, r.sum_sq, r.den, r.nnz),
+                r.residual)
 
     def compress_sparse(self, cfg, u: torch.Tensor | None, g: torch.Tensor,
                         k_cap: int,
@@ -208,8 +235,7 @@ class KernelBackend:
         elif sel.name == "unisp":
             bits = er.nnz.to(F32) * (vb + logd) + vb
         else:
-            bits = (n_a.to(F32) * (vb + logd) + coding.hybrid_branch_bits(
-                n_b.to(F32), d, logd, 2.0) + vb)
+            bits = scheme.message_bits(d, n_a, n_b)
         ok = er.den > 0
         var = torch.where(ok, sumsq / torch.where(ok, er.den, 1.0), 0.0)
         return SparseGrad(values=er.values, idx=er.idx, nnz=er.nnz,

@@ -1,8 +1,9 @@
-// Hand-written Hopper (sm_90a) kernels for the sparse emit path.
+// Hand-written Hopper (sm_90a) kernels for the sparse emit path and the
+// dense wire.
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/sparsify/
-// kernel.py that the sparse gather wire runs (the RICE parts of
-// compact_emit_2d become a fifth kernel here):
+// kernel.py (the RICE parts of compact_emit_2d become a kernel of their own
+// here):
 //
 //   stats_l1max   <- stats_l1max_2d   (kernel.py:275)  (sum|g|, max|g|) per row
 //   tail_stats    <- tail_stats_2d    (kernel.py:195)  (count, sum|g|) of |g| < t
@@ -10,6 +11,13 @@
 //   compact_emit  <- compact_emit_2d  (kernel.py:559)  pass 2: compact write
 //   rice_pack     <- compact_emit_2d  (kernel.py:497-556, the rice_r >= 0
 //                    parts)  Golomb-Rice packing of the compact idx stream
+//   stats         <- stats_2d         (kernel.py:239)  (sum|g|, sum g^2, max)
+//   sparsify      <- sparsify_2d      (kernel.py:96)   dense Q(g), wire dtype
+//   sparsify_ef   <- sparsify_ef_2d   (kernel.py:123)  Q(g) and g - Q(g)
+//   sparsify_prng <- sparsify_prng_2d (kernel.py:157)  Q(g), Philox uniforms
+//
+// The first five run the sparse gather wire, the last four the dense wire
+// (stats, tail_stats and sparsify or sparsify_ef) and ops.gspar_sparsify_prng.
 //
 // Passes 1 and 2 take every selector kind of the TPU kernels (gspar's lam,
 // unisp's rho, bernoulli's bern, topk) as a template parameter, and pass 2
@@ -32,8 +40,9 @@
 // plus the compact output, the codec uniforms and the EF residual for pass
 // 2). Each thread therefore loads kItems consecutive elements per sweep (one
 // 16-byte vector load of bf16, two of f32) and keeps its partial sums in
-// registers. rice_pack reads the compact idx and writes the code words (see
-// its section).
+// registers. rice_pack reads the compact idx and writes the code words, and
+// the dense wire's kernels write Q (and the residual) with 16-byte vector
+// stores (see their sections).
 //
 // Order without a sequential grid. The TPU carries the compact rank (and
 // topk's tie rank) from tile to tile in SMEM across a grid that runs in
@@ -186,18 +195,23 @@ __device__ int block_excl_scan(int v, int* total, int* sh) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 1: (sum|g|, max|g|) per row.
+// Kernels 1 and 7: (sum|g|, max|g|) per row, and with kL2 also sum g^2. One
+// body serves both, so stats' sum|g| and max|g| are stats_l1max's bit for
+// bit on the same row (the same partials in the same order): the dense wire
+// takes lambda_0 from stats, the gather wire from stats_l1max, and the two
+// wires draw the same kept set only if the lambdas are the same bits.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kL2>
 __global__ void __launch_bounds__(kThreads)
-stats_l1max_tiles(const T* __restrict__ g, int64_t d, int64_t ntiles, int vec,
-                  double* __restrict__ psum, float* __restrict__ pmax) {
+stats_tiles(const T* __restrict__ g, int64_t d, int64_t ntiles, int vec,
+            double* __restrict__ psum, double* __restrict__ psq,
+            float* __restrict__ pmax) {
   const int64_t row = blockIdx.y, tile = blockIdx.x;
   const T* grow = g + row * d;
   const int64_t start = tile * kTile;
   const int64_t end = row_end(d, start);
-  double s = 0.0;
+  double s = 0.0, q = 0.0;
   float m = 0.f;
   for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
     float x[kItems];
@@ -206,36 +220,44 @@ stats_l1max_tiles(const T* __restrict__ g, int64_t d, int64_t ntiles, int vec,
     for (int k = 0; k < kItems; ++k) {
       const float a = fabsf(x[k]);     // masked entries read as 0
       s += a;
+      if constexpr (kL2) q += __fmul_rn(a, a);
       m = fmaxf(m, a);
     }
   }
   __shared__ double sh_s[32];
   __shared__ float sh_m[32];
   s = block_sum(s, sh_s);
+  if constexpr (kL2) q = block_sum(q, sh_s);
   m = block_max(m, sh_m);
   if (threadIdx.x == 0) {
     psum[row * ntiles + tile] = s;
+    if constexpr (kL2) psq[row * ntiles + tile] = q;
     pmax[row * ntiles + tile] = m;
   }
 }
 
+template <bool kL2>
 __global__ void __launch_bounds__(kThreads)
-stats_l1max_finish(const double* __restrict__ psum,
-                   const float* __restrict__ pmax, int64_t ntiles,
-                   float* __restrict__ l1, float* __restrict__ mx) {
+stats_finish(const double* __restrict__ psum, const double* __restrict__ psq,
+             const float* __restrict__ pmax, int64_t ntiles,
+             float* __restrict__ l1, float* __restrict__ l2,
+             float* __restrict__ mx) {
   const int64_t row = blockIdx.x;
-  double s = 0.0;
+  double s = 0.0, q = 0.0;
   float m = 0.f;
   for (int64_t t = threadIdx.x; t < ntiles; t += blockDim.x) {
     s += psum[row * ntiles + t];
+    if constexpr (kL2) q += psq[row * ntiles + t];
     m = fmaxf(m, pmax[row * ntiles + t]);
   }
   __shared__ double sh_s[32];
   __shared__ float sh_m[32];
   s = block_sum(s, sh_s);
+  if constexpr (kL2) q = block_sum(q, sh_s);
   m = block_max(m, sh_m);
   if (threadIdx.x == 0) {
     l1[row] = (float)s;
+    if constexpr (kL2) l2[row] = (float)q;
     mx[row] = m;
   }
 }
@@ -842,6 +864,182 @@ rice_finalize(int64_t k_cap, int r, int64_t cap_words,
   words[row * cap_words + wi] ^= below_e & ~((1u << a) - 1u);
 }
 
+// ---------------------------------------------------------------------------
+// Kernels 5, 6 and 8: the dense Q(g) of the dense wire. Per coordinate
+//   p = min(lam |g|, 1), z = u < p, q = z ? g / p : 0
+// rounded to the wire type W on the way out; with kEF also the residual
+// g - float(q) after that rounding, in g's type T (kernel 6, as
+// _sparsify_ef_body subtracts the stored Q); with kPrng the uniforms come
+// from Philox4x32-10 in the kernel instead of an input buffer (kernel 8).
+// The same pass reduces per (row, tile) what the dense wire's accounting
+// reads of q as the wire carries it: the nonzeros, those with p = 1, and
+// sum q^2 (f64 partials), so no torch reduction walks the 2.5e9 coordinates
+// again. A finish kernel per row sums the partials.
+//
+// Bound: one read of g (and of the f32 uniforms), one write of Q (and of the
+// residual): 8 B/coord for bf16 g and Q (kernel 5), 10 B with the residual,
+// 4 B with the uniforms from Philox. Loads and stores are 16-byte vectors
+// where every row base is aligned and d % 8 == 0 (one for 8 bf16, two for 8
+// f32), scalar at a ragged end.
+//
+// Philox. The TPU seeds its on-core generator per tile (kernel.py:84-85), so
+// its stream depends on the tiling. Here the key is (seed, 0) and the
+// counter (i / 4, row, 0, 0): one call gives the four uniforms of
+// coordinates i..i+3, u = (bits >> 8) * 2^-24, whatever the tile size.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float philox_uniform(unsigned b) {
+  return (float)(b >> 8) * (1.0f / 16777216.0f);
+}
+
+// kItems consecutive values of one row from i, rounded to the row's type;
+// entries at or past `end` are not stored. `vec` as in load_items.
+__device__ __forceinline__ void store_items(__nv_bfloat16* __restrict__ row,
+                                            int64_t i, int64_t end, bool vec,
+                                            const float v[kItems]) {
+  if (vec && i + kItems <= end) {
+    uint4 raw;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) h[k] = __float2bfloat16_rn(v[k]);
+    *reinterpret_cast<uint4*>(row + i) = raw;
+  } else {
+    for (int k = 0; k < kItems && i + k < end; ++k)
+      row[i + k] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+__device__ __forceinline__ void store_items(float* __restrict__ row,
+                                            int64_t i, int64_t end, bool vec,
+                                            const float v[kItems]) {
+  if (vec && i + kItems <= end) {
+    *reinterpret_cast<float4*>(row + i) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(row + i + 4) =
+        make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int k = 0; k < kItems && i + k < end; ++k) row[i + k] = v[k];
+  }
+}
+
+template <typename T, typename W, bool kEF, bool kPrng>
+__global__ void __launch_bounds__(kThreads)
+sparsify_tiles(const T* __restrict__ g, const float* __restrict__ u,
+               int64_t d, int64_t ntiles, int vec,
+               const float* __restrict__ lamp, unsigned seed,
+               W* __restrict__ q, T* __restrict__ res,
+               int* __restrict__ pcnt, int* __restrict__ psure,
+               double* __restrict__ psq) {
+  const int64_t row = blockIdx.y, tile = blockIdx.x;
+  const float lam = lamp[row];
+  const T* grow = g + row * d;
+  W* qrow = q + row * d;
+  const int64_t start = tile * kTile;
+  const int64_t end = row_end(d, start);
+  int cnt = 0, sure = 0;
+  double sq = 0.0;
+  for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
+    float x[kItems], r[kItems], w[kItems];
+    load_items(grow, i, end, vec, x);
+    if constexpr (kPrng) {
+      // i % 8 == 0: two counters give the thread's eight uniforms
+      const uint2 key = make_uint2(seed, 0u);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 b = philox4x32_10(
+            make_uint4((unsigned)((i >> 2) + h), (unsigned)row, 0u, 0u), key);
+        r[4 * h] = philox_uniform(b.x);
+        r[4 * h + 1] = philox_uniform(b.y);
+        r[4 * h + 2] = philox_uniform(b.z);
+        r[4 * h + 3] = philox_uniform(b.w);
+      }
+    } else {
+      load_items(u + row * d, i, end, vec, r);
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const float p = fminf(lam * fabsf(x[k]), 1.f);
+      const bool z = i + k < end && r[k] < p;
+      w[k] = to_f32(from_f32<W>(z ? __fdiv_rn(x[k], p) : 0.f));
+      if (w[k] != 0.f) {
+        ++cnt;
+        sure += p >= 1.f;
+        sq += __fmul_rn(w[k], w[k]);
+      }
+    }
+    store_items(qrow, i, end, vec, w);
+    if constexpr (kEF) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) x[k] = x[k] - w[k];
+      store_items(res + row * d, i, end, vec, x);
+    }
+  }
+  __shared__ int sh_i[32];
+  __shared__ double sh_d[32];
+  cnt = block_sum(cnt, sh_i);
+  sure = block_sum(sure, sh_i);
+  sq = block_sum(sq, sh_d);
+  if (threadIdx.x == 0) {
+    const int64_t o = row * ntiles + tile;
+    pcnt[o] = cnt;
+    psure[o] = sure;
+    psq[o] = sq;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sparsify_finish(const int* __restrict__ pcnt, const int* __restrict__ psure,
+                const double* __restrict__ psq, int64_t ntiles,
+                long long* __restrict__ cnt, long long* __restrict__ sure,
+                float* __restrict__ sq) {
+  const int64_t row = blockIdx.x;
+  long long c = 0, s = 0;
+  double q = 0.0;
+  for (int64_t t = threadIdx.x; t < ntiles; t += blockDim.x) {
+    c += pcnt[row * ntiles + t];
+    s += psure[row * ntiles + t];
+    q += psq[row * ntiles + t];
+  }
+  __shared__ long long sh_l[32];
+  __shared__ double sh_d[32];
+  c = block_sum(c, sh_l);
+  s = block_sum(s, sh_l);
+  q = block_sum(q, sh_d);
+  if (threadIdx.x == 0) {
+    cnt[row] = c;
+    sure[row] = s;
+    sq[row] = (float)q;
+  }
+}
+
+// Philox4x32-10 of n (counter, key) pairs, ck = n x [c0 c1 c2 c3 k0 k1]: the
+// generator of kernel 8, exposed for its known-answer test.
+__global__ void philox_kat(const unsigned* __restrict__ ck,
+                           unsigned* __restrict__ out, int64_t n) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const unsigned* c = ck + 6 * j;
+  const uint4 b = philox4x32_10(make_uint4(c[0], c[1], c[2], c[3]),
+                                make_uint2(c[4], c[5]));
+  out[4 * j] = b.x;
+  out[4 * j + 1] = b.y;
+  out[4 * j + 2] = b.z;
+  out[4 * j + 3] = b.w;
+}
+
 inline unsigned grid_x(int64_t ntiles) { return (unsigned)ntiles; }
 
 // Calls f(std::integral_constant<int, PK>) for the selector kind `pk`.
@@ -895,6 +1093,50 @@ void launch_emit(const void* g, const void* u, long long rows, long long d,
       (const float*)scale, (const float*)ucod, levels, ternary);
 }
 
+template <bool kL2>
+int launch_stats(const void* g, int dt, long long rows, long long d, int vec,
+                 void* psum, void* psq, void* pmax, void* l1, void* l2,
+                 void* mx, cudaStream_t st) {
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  if (dt == 1)
+    stats_tiles<__nv_bfloat16, kL2><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)g, d, nt, vec, (double*)psum, (double*)psq,
+        (float*)pmax);
+  else
+    stats_tiles<float, kL2><<<grid, kThreads, 0, st>>>(
+        (const float*)g, d, nt, vec, (double*)psum, (double*)psq,
+        (float*)pmax);
+  stats_finish<kL2><<<(unsigned)rows, kThreads, 0, st>>>(
+      (const double*)psum, (const double*)psq, (const float*)pmax, nt,
+      (float*)l1, (float*)l2, (float*)mx);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename W>
+void launch_sparsify(const void* g, const void* u, long long rows,
+                     long long d, int vec, const void* lam, int prng,
+                     unsigned seed, void* q, void* res, void* pcnt,
+                     void* psure, void* psq, cudaStream_t st) {
+  const int64_t nt = (d + kTile - 1) / kTile;
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  const T* gt = (const T*)g;
+  const float* uf = (const float*)u;
+  const float* lf = (const float*)lam;
+  if (prng)
+    sparsify_tiles<T, W, false, true><<<grid, kThreads, 0, st>>>(
+        gt, nullptr, d, nt, vec, lf, seed, (W*)q, nullptr, (int*)pcnt,
+        (int*)psure, (double*)psq);
+  else if (res != nullptr)
+    sparsify_tiles<T, W, true, false><<<grid, kThreads, 0, st>>>(
+        gt, uf, d, nt, vec, lf, seed, (W*)q, (T*)res, (int*)pcnt,
+        (int*)psure, (double*)psq);
+  else
+    sparsify_tiles<T, W, false, false><<<grid, kThreads, 0, st>>>(
+        gt, uf, d, nt, vec, lf, seed, (W*)q, nullptr, (int*)pcnt,
+        (int*)psure, (double*)psq);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -915,18 +1157,15 @@ const char* gspar_error_string(int err) {
 int gspar_stats_l1max(const void* g, int dt, long long rows, long long d,
                       int vec, void* psum, void* pmax, void* l1, void* mx,
                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t nt = (d + kTile - 1) / kTile;
-  dim3 grid(grid_x(nt), (unsigned)rows);
-  if (dt == 1)
-    stats_l1max_tiles<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)g, d, nt, vec, (double*)psum, (float*)pmax);
-  else
-    stats_l1max_tiles<float><<<grid, kThreads, 0, st>>>(
-        (const float*)g, d, nt, vec, (double*)psum, (float*)pmax);
-  stats_l1max_finish<<<(unsigned)rows, kThreads, 0, st>>>(
-      (const double*)psum, (const float*)pmax, nt, (float*)l1, (float*)mx);
-  return (int)cudaGetLastError();
+  return launch_stats<false>(g, dt, rows, d, vec, psum, nullptr, pmax, l1,
+                             nullptr, mx, (cudaStream_t)stream);
+}
+
+int gspar_stats(const void* g, int dt, long long rows, long long d, int vec,
+                void* psum, void* psq, void* pmax, void* l1, void* l2,
+                void* mx, void* stream) {
+  return launch_stats<true>(g, dt, rows, d, vec, psum, psq, pmax, l1, l2, mx,
+                            (cudaStream_t)stream);
 }
 
 int gspar_tail_stats(const void* g, int dt, long long rows, long long d,
@@ -1027,6 +1266,38 @@ int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
              (unsigned)rows);
   rice_finalize<<<fgrid, kThreads, 0, st>>>(
       k_cap, r, cap_words, (const long long*)live_end, (unsigned*)words);
+  return (int)cudaGetLastError();
+}
+
+
+// Kernels 5, 6 and 8. wdt: the wire dtype code of q (0 float32, 1
+// bfloat16); `res` non-null: kernel 6; `prng` non-zero: kernel 8 (no u, no
+// res), Philox keyed (seed, 0).
+int gspar_sparsify(const void* g, int dt, const void* u, long long rows,
+                   long long d, int vec, const void* lam, int prng,
+                   unsigned seed, void* q, int wdt, void* res, void* pcnt,
+                   void* psure, void* psq, void* cnt, void* sure, void* sq,
+                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
+#define GSPAR_SPARSIFY(T, W)                                                \
+  launch_sparsify<T, W>(g, u, rows, d, vec, lam, prng, seed, q, res, pcnt, \
+                        psure, psq, st)
+  if (dt == 0 && wdt == 0) GSPAR_SPARSIFY(float, float);
+  else if (dt == 0 && wdt == 1) GSPAR_SPARSIFY(float, bf16);
+  else if (dt == 1 && wdt == 1) GSPAR_SPARSIFY(bf16, bf16);
+  else return (int)cudaErrorInvalidValue;
+#undef GSPAR_SPARSIFY
+  sparsify_finish<<<(unsigned)rows, kThreads, 0, st>>>(
+      (const int*)pcnt, (const int*)psure, (const double*)psq,
+      (d + kTile - 1) / kTile, (long long*)cnt, (long long*)sure, (float*)sq);
+  return (int)cudaGetLastError();
+}
+
+int gspar_philox(const void* ck, void* out, long long n, void* stream) {
+  philox_kat<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+               (cudaStream_t)stream>>>((const unsigned*)ck, (unsigned*)out,
+                                       n);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,15 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/sparsify.cu``.
 
-The kernels of the sparse emit path, ported from the Pallas TPU kernels of
+The kernels ported from the Pallas TPU kernels of
 ``repro.kernels.sparsify.kernel`` (file and line in each wrapper's
-docstring): the four passes of the two-pass emit, for every selector kind
-(``PKINDS``: gspar's lam, unisp's rho, bernoulli's bern, topk) and every
-value codec (f32, bf16, qsgd<N>, ternary), and the Golomb-Rice packing of
-the RICE wire layout. Each wrapper takes one shape group as a ``[rows, d]``
-batch (``[rows, k_cap]`` for the packing) and per-row scalar tensors, as
-the vmap over a group is on the TPU:
+docstring). The sparse emit path: the four passes of the two-pass emit,
+for every selector kind (``PKINDS``: gspar's lam, unisp's rho, bernoulli's
+bern, topk) and every value codec (f32, bf16, qsgd<N>, ternary), and the
+Golomb-Rice packing of the RICE wire layout. The dense wire: ``stats``,
+``sparsify``, ``sparsify_ef`` and ``sparsify_prng``. Each wrapper takes
+one shape group as a ``[rows, d]`` batch (``[rows, k_cap]`` for the
+packing) and per-row scalar tensors, as the vmap over a group is on the
+TPU:
 
 - a tensor on the CPU goes to the plain PyTorch version in ``ref.py``;
 - a tensor on a CUDA device launches the kernel, or raises. There is no
@@ -22,7 +24,7 @@ PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
 ``LAUNCHES[name]`` (and, for the compaction passes, to the variant's
 count): the launch counts a run can read back.
 
-What bounds each kernel on an H100 (3.35 TB/s of HBM): all five are
+What bounds each kernel on an H100 (3.35 TB/s of HBM): all nine are
 memory-bound streams over the group (or its compact buffer), so their bound
 is the bytes they must move over the memory rate; see each docstring and
 PERF.md.
@@ -40,12 +42,12 @@ import torch
 
 from repro_torch.comm.compaction import rice_cap_words
 from repro_torch.kernels.sparsify import ref
-from repro_torch.kernels.sparsify.ref import SelectStats
+from repro_torch.kernels.sparsify.ref import SelectStats, Sparsified
 
 TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
 RICE_TILE = 2048      # codes per CUDA block; must equal kRiceTile in the .cu
 KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
-           "rice_pack")
+           "rice_pack", "stats", "sparsify", "sparsify_ef", "sparsify_prng")
 PKINDS = ref.PKINDS   # selector kinds of passes 1-2, in the .cu's enum order
 # Launches per kernel, and per variant of the two compaction passes:
 # ``"select_stats/topk"``, ``"compact_emit/lam+qsgd8"`` (the selector kind,
@@ -77,6 +79,10 @@ _SIGNATURES = {
                             _P, _L, _P, _I, _P, _P, _I, _P, _P,
                             ctypes.c_float, _I, _P), _I),
     "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L) + (_P,) * 5 + (_P,), _I),
+    "gspar_stats": ((_P, _I, _L, _L, _I) + (_P,) * 6 + (_P,), _I),
+    "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _P, _I, ctypes.c_uint, _P,
+                        _I) + (_P,) * 7 + (_P,), _I),
+    "gspar_philox": ((_P, _P, _L, _P), _I),
 }
 
 
@@ -403,3 +409,130 @@ def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
         _ptr(qbase), _ptr(live_end), _ptr(words), _ptr(used), _stream(idx)),
         "rice_pack")
     return words, used
+
+
+def stats(g: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(sum|g|, sum g^2, max|g|)`` per row, float32 — lambda_0, the
+    saturation gate and the variance ratio's denominator on the dense wire.
+    sum|g| and max|g| are ``stats_l1max``'s bit for bit (one CUDA body).
+    Replaces ``stats_2d`` (src/repro/kernels/sparsify/kernel.py:239).
+    Bound: one read of g (2 B/coord in bf16)."""
+    if not _on_card("stats", g):
+        return ref.stats_ref(g)
+    rows, d = g.shape
+    nt = ref.ntiles(d, TILE)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    f64 = dict(dtype=torch.float64, device=g.device)
+    psum, psq = torch.empty((rows, nt), **f64), torch.empty((rows, nt), **f64)
+    pmax = torch.empty((rows, nt), **f32)
+    l1, l2, mx = (torch.empty(rows, **f32) for _ in range(3))
+    _check(_lib().gspar_stats(
+        _ptr(g), _DTYPE_CODE[g.dtype], rows, d, _vec(g), _ptr(psum),
+        _ptr(psq), _ptr(pmax), _ptr(l1), _ptr(l2), _ptr(mx), _stream(g)),
+        "stats")
+    return l1, l2, mx
+
+
+def _dense_q(name: str, g: torch.Tensor, u: torch.Tensor | None,
+             lam: torch.Tensor, out_dtype, ef: bool, seed: int | None,
+             out: torch.Tensor | None) -> Sparsified:
+    """Kernels 5, 6 and 8 behind one C entry: Q of ``g [rows, d]`` in
+    ``out_dtype`` (written into ``out`` when given), with ``ef`` the
+    residual, with ``seed`` the Philox uniforms in place of ``u``."""
+    out_dtype = out_dtype or g.dtype
+    if out_dtype not in (g.dtype, torch.bfloat16):
+        raise ValueError(f"{name}: wire dtype {out_dtype} for g {g.dtype}; "
+                         "have g's own or bfloat16")
+    rows = g.shape[0]
+    lam = lam.to(torch.float32).expand(rows).contiguous()
+    if u is not None and (u.shape != g.shape or u.dtype != torch.float32):
+        raise ValueError(f"{name}: u must be float32 shaped like g")
+    if out is not None and (out.shape != g.shape or out.dtype != out_dtype
+                            or out.device != g.device):
+        raise ValueError(f"{name}: out must be {out_dtype} shaped like g")
+    extra = [t for t in (u, out) if t is not None]
+    if not _on_card(name, g, lam, *extra):
+        if seed is not None:
+            r = ref.sparsify_prng_ref(g, lam, seed)
+        else:
+            r = (ref.sparsify_ef_ref if ef else ref.sparsify_ref)(
+                g, u, lam, out_dtype)
+        if out is not None:
+            out.copy_(r.q)
+            r = r._replace(q=out)
+        return r
+    d = g.shape[1]
+    dev = g.device
+    nt = ref.ntiles(d, TILE)
+    q = out if out is not None else torch.empty(g.shape, dtype=out_dtype,
+                                                device=dev)
+    res = torch.empty_like(g) if ef else None
+    pcnt = torch.empty((rows, nt), dtype=torch.int32, device=dev)
+    psure = torch.empty_like(pcnt)
+    psq = torch.empty((rows, nt), dtype=torch.float64, device=dev)
+    nnz = torch.empty(rows, dtype=torch.int64, device=dev)
+    n_sure = torch.empty_like(nnz)
+    sum_sq = torch.empty(rows, dtype=torch.float32, device=dev)
+    vec = int(all(_vec(t) for t in (g, q, *(t for t in (u, res)
+                                            if t is not None))))
+    _check(_lib().gspar_sparsify(
+        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, vec, _ptr(lam),
+        int(seed is not None), (seed or 0) & 0xFFFFFFFF, _ptr(q),
+        _DTYPE_CODE[out_dtype], _ptr(res), _ptr(pcnt), _ptr(psure),
+        _ptr(psq), _ptr(nnz), _ptr(n_sure), _ptr(sum_sq), _stream(g)), name)
+    return Sparsified(q, res, nnz, n_sure, sum_sq)
+
+
+def sparsify(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
+             out_dtype=None, *, out: torch.Tensor | None = None
+             ) -> Sparsified:
+    """Dense ``Q = [u < p] g / p``, ``p = min(lam[row] |g|, 1)``, rounded to
+    ``out_dtype`` (the wire dtype: g's or bfloat16), and per row the
+    nonzeros of Q, those with p = 1 and sum Q^2 (``ref.Sparsified``).
+    Replaces ``sparsify_2d`` (src/repro/kernels/sparsify/kernel.py:96).
+    Bound: one read of g and u, one write of Q (8 B/coord with bf16 g and
+    Q)."""
+    return _dense_q("sparsify", g, u, lam, out_dtype, False, None, out)
+
+
+def sparsify_ef(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
+                out_dtype=None, *, out: torch.Tensor | None = None
+                ) -> Sparsified:
+    """``sparsify`` plus the EF residual ``g - float32(Q)`` after the wire
+    rounding, in g's dtype, from the same pass. Replaces ``sparsify_ef_2d``
+    (src/repro/kernels/sparsify/kernel.py:123). Bound: ``sparsify``'s
+    bytes plus one write of the residual (10 B/coord in bf16)."""
+    return _dense_q("sparsify_ef", g, u, lam, out_dtype, True, None, out)
+
+
+def sparsify_prng(g: torch.Tensor, lam: torch.Tensor, seed: int
+                  ) -> Sparsified:
+    """``sparsify`` with the uniforms from Philox4x32-10 in the kernel
+    (``ref.philox_uniforms``: key (seed, 0), counter (coordinate / 4, row,
+    0, 0)) instead of an input buffer; Q in g's dtype. Its stream is not
+    the TPU's on-core one (that one is seeded per tile). Replaces
+    ``sparsify_prng_2d`` (src/repro/kernels/sparsify/kernel.py:157).
+    Bound: one read of g, one write of Q (4 B/coord in bf16)."""
+    return _dense_q("sparsify_prng", g, None, lam, g.dtype, False, seed,
+                    None)
+
+
+def philox4x32_10(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Kernel 8's generator on its own: Philox4x32-10 of the counters
+    ``ctr [n, 4]`` under the keys ``key [n, 2]`` (int64 holding uint32
+    words) -> ``[n, 4]`` int64 words. CPU tensors take
+    ``ref.philox4x32_10_ref``. Counts no launch: it serves the
+    generator's known-answer test."""
+    if ctr.device.type == "cpu":
+        return torch.cat([ref.philox4x32_10_ref(
+            ctr[j:j + 1], (int(key[j, 0]), int(key[j, 1])))
+            for j in range(ctr.shape[0])])
+    ck = torch.cat([ctr, key], 1).to(torch.int64) & 0xFFFFFFFF
+    ck = torch.where(ck >= 2**31, ck - 2**32, ck).to(torch.int32).contiguous()
+    out = torch.empty((ctr.shape[0], 4), dtype=torch.int32, device=ctr.device)
+    err = _lib().gspar_philox(_ptr(ck), _ptr(out), ctr.shape[0], _stream(ck))
+    if err != 0:
+        raise RuntimeError(f"philox: CUDA launch failed: "
+                           f"{_lib().gspar_error_string(err).decode()}")
+    return out.to(torch.int64) & 0xFFFFFFFF

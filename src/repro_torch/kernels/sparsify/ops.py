@@ -1,7 +1,9 @@
 """The emit pipelines on the sparsify kernels (port of
 ``repro.kernels.sparsify.ops``: ``greedy_lambda``, the tail function,
 ``_two_pass``, ``gspar_emit``, ``unisp_emit``, ``bern_emit``, ``topk_emit``
-and ``EmitResult``).
+and ``EmitResult``; the leaf ops ``gspar_stats``, ``gspar_lambda``,
+``gspar_sparsify`` and ``gspar_sparsify_prng``; and ``gspar_dense``, the
+dense wire's pipeline).
 
 Algorithm 3 (greedy lambda) fully on the device: one stats pass, up to
 ``num_iters`` saturation-aware tail passes driving the scalar rescale, then
@@ -204,3 +206,78 @@ def topk_emit(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,
     t, budget = topk_threshold(g2d, k_target)
     return _two_pass(g2d, None, t, pkind="topk", codec=codec, k_cap=k_cap,
                      rice_r=rice_r, ef=ef, budget=budget, u_cod=u_cod)
+
+
+def _leaf_row(g: torch.Tensor) -> torch.Tensor:
+    """A leaf of any shape as one ``[1, size]`` row."""
+    return g.contiguous().reshape(1, -1)
+
+
+def gspar_stats(g: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sum|g|, sum g^2, max|g|) of a leaf, float32 scalars — one pass
+    (kernel 7)."""
+    l1, l2, mx = K.stats(_leaf_row(g))
+    return l1[0], l2[0], mx[0]
+
+
+def gspar_lambda(g: torch.Tensor, rho: float = 0.1,
+                 num_iters: int = 2) -> torch.Tensor:
+    """The saturation-aware greedy lambda of a leaf (float32 scalar): the
+    stats pass, then the tail passes of ``greedy_lambda``."""
+    g2d = _leaf_row(g)
+    l1, mx = K.stats_l1max(g2d)
+    return greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
+                         tail_fn=_kernel_tail_fn(g2d))[0]
+
+
+def gspar_sparsify(g: torch.Tensor, u: torch.Tensor, rho: float = 0.1,
+                   num_iters: int = 2) -> torch.Tensor:
+    """Q(g) of a leaf with the pregenerated float32 uniforms ``u`` (shaped
+    like g; the paper's section-5.3 trick): the greedy lambda, then one
+    sample-and-scale pass (kernel 5). Returns g's shape and dtype."""
+    g2d = _leaf_row(g)
+    lam = gspar_lambda(g2d, rho, num_iters)
+    return K.sparsify(g2d, _leaf_row(u.to(F32)), lam).q.reshape(g.shape)
+
+
+def gspar_sparsify_prng(g: torch.Tensor, seed: int, rho: float = 0.1,
+                        num_iters: int = 2) -> torch.Tensor:
+    """``gspar_sparsify`` with the uniforms drawn inside the kernel from
+    Philox4x32-10 under ``seed`` (kernel 8), so no uniform buffer is read.
+    Returns g's shape and dtype."""
+    g2d = _leaf_row(g)
+    lam = gspar_lambda(g2d, rho, num_iters)
+    return K.sparsify_prng(g2d, lam, seed).q.reshape(g.shape)
+
+
+class DenseResult(NamedTuple):
+    """The dense wire's compression of one ``[rows, d]`` group: ``q`` in
+    the wire dtype, the EF ``residual`` (None without EF), and per row
+    ``lam``, the nonzeros of q (``nnz``), those with p = 1 (``n_sure``),
+    sum q^2 (``sum_sq``) and sum g^2 (``den``)."""
+    q: torch.Tensor
+    residual: torch.Tensor | None
+    lam: torch.Tensor
+    nnz: torch.Tensor
+    n_sure: torch.Tensor
+    sum_sq: torch.Tensor
+    den: torch.Tensor
+
+
+def gspar_dense(g2d: torch.Tensor, u2d: torch.Tensor, *, rho: float = 0.1,
+                num_iters: int = 2, out_dtype=None, ef: bool = False,
+                out: torch.Tensor | None = None) -> DenseResult:
+    """Algorithm 3 on a ``[rows, d]`` group for the dense wire: the stats
+    pass (kernel 7: lambda_0, the saturation gate and sum g^2), the tail
+    passes of ``greedy_lambda``, then one sample-and-scale pass writing Q
+    in ``out_dtype`` (kernel 5), or Q and the EF residual (kernel 6), with
+    the accounting sums fused into it. ``out`` takes Q in place."""
+    _group(g2d, "gspar_dense")
+    l1, l2, mx = K.stats(g2d)
+    lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
+                        tail_fn=_kernel_tail_fn(g2d))
+    sp = (K.sparsify_ef if ef else K.sparsify)(g2d, u2d, lam, out_dtype,
+                                               out=out)
+    return DenseResult(sp.q, sp.residual, lam, sp.nnz, sp.n_sure, sp.sum_sq,
+                       l2)

@@ -41,6 +41,23 @@ def stats_l1max_ref(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return l1, mx
 
 
+def stats_ref(g: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sum|g|, sum g^2, max|g|) per row of ``g [rows, d]``, float32: sum|g|
+    and max|g| formed exactly as ``stats_l1max_ref`` forms them, and sum
+    g^2 over the float32 squares the same way (one float64 row sum rounded
+    once)."""
+    l1 = torch.empty(g.shape[0], dtype=F32, device=g.device)
+    l2 = torch.empty_like(l1)
+    mx = torch.empty_like(l1)
+    for r in range(g.shape[0]):
+        a = g[r].to(F32).abs()
+        l1[r] = a.sum(dtype=F64)
+        l2[r] = (a * a).sum(dtype=F64)
+        mx[r] = a.max() if a.numel() else 0.0
+    return l1, l2, mx
+
+
 def tail_stats_ref(g: torch.Tensor, thresh: torch.Tensor,
                    gate: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(count, sum|g|) per row over the coordinates with ``|g| < thresh[row]``
@@ -216,3 +233,118 @@ def rice_pack_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
         words[row], used[row] = compaction._rice_pack_gaps(
             compaction._rice_gaps(sidx, d), r, cap)
     return words, used
+
+
+class Sparsified(NamedTuple):
+    """Kernels 5, 6 and 8 on one ``[rows, d]`` group: the dense ``q`` in the
+    wire dtype, with kernel 6 the EF residual ``g - float32(q)`` in g's
+    dtype, and per row the counts and the sum the dense wire's accounting
+    reads, all over q as the wire carries it (rounded to its dtype)."""
+    q: torch.Tensor              # [rows, d] Q(g) in the wire dtype
+    residual: torch.Tensor | None
+                                 # [rows, d] g - q, g's dtype (kernel 6)
+    nnz: torch.Tensor            # [rows] int64: q != 0
+    n_sure: torch.Tensor         # [rows] int64: q != 0 where p = 1
+    sum_sq: torch.Tensor         # [rows] float32: sum q^2
+
+
+def _sparsify_rows(g: torch.Tensor, lam: torch.Tensor, out_dtype, ef: bool,
+                   uniforms) -> Sparsified:
+    """The body of kernels 5, 6 and 8 row by row; ``uniforms(r)`` gives
+    row r's float32 uniforms. p = min(lam |g|, 1), kept where u < p, q =
+    g / p rounded to ``out_dtype``."""
+    rows = g.shape[0]
+    dev = g.device
+    q = torch.empty(g.shape, dtype=out_dtype, device=dev)
+    res = torch.empty_like(g) if ef else None
+    nnz = torch.empty(rows, dtype=torch.int64, device=dev)
+    n_sure = torch.empty_like(nnz)
+    sum_sq = torch.empty(rows, dtype=F32, device=dev)
+    for r in range(rows):
+        x, _, p, _, v = _select_row("lam", g[r], uniforms(r), lam[r], None,
+                                    None)
+        q[r] = v.to(out_dtype)
+        w = q[r].to(F32)
+        nz = w != 0
+        nnz[r] = nz.sum()
+        n_sure[r] = (nz & (p >= 1.0)).sum()
+        sum_sq[r] = (w * w).sum(dtype=F64)
+        if ef:
+            res[r] = (x - w).to(g.dtype)
+    return Sparsified(q, res, nnz, n_sure, sum_sq)
+
+
+def sparsify_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
+                 out_dtype=None) -> Sparsified:
+    """Kernel 5: Q = [u < p] g / p, p = min(lam[row] |g|, 1), in
+    ``out_dtype`` (default g's), from the float32 uniforms ``u``."""
+    return _sparsify_rows(g, lam, out_dtype or g.dtype, False,
+                          lambda r: u[r])
+
+
+def sparsify_ef_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
+                    out_dtype=None) -> Sparsified:
+    """Kernel 6: kernel 5 plus the residual ``g - float32(Q)`` after the
+    wire rounding, in g's dtype."""
+    return _sparsify_rows(g, lam, out_dtype or g.dtype, True,
+                          lambda r: u[r])
+
+
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)       # Philox4x32 round multipliers
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)       # Weyl key increments
+_MASK32 = 0xFFFFFFFF
+
+
+def philox4x32_10_ref(ctr: torch.Tensor, key: tuple[int, int]
+                      ) -> torch.Tensor:
+    """Philox4x32-10 (Salmon et al., SC 2011; Random123) of the counters
+    ``ctr [n, 4]`` (int64 holding uint32 words) under the 32-bit key pair
+    ``key``: ``[n, 4]`` int64 holding the output words. In int64 with
+    32-bit masks: a 32x32 product may wrap int64, but its bits 32-63 still
+    come out right after ``>> 32 & 0xFFFFFFFF``."""
+    c0, c1, c2, c3 = (ctr[:, j] & _MASK32 for j in range(4))
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for rnd in range(10):
+        if rnd:
+            k0 = (k0 + PHILOX_W[0]) & _MASK32
+            k1 = (k1 + PHILOX_W[1]) & _MASK32
+        p0 = c0 * PHILOX_M[0]
+        p1 = c2 * PHILOX_M[1]
+        hi0, lo0 = (p0 >> 32) & _MASK32, p0 & _MASK32
+        hi1, lo1 = (p1 >> 32) & _MASK32, p1 & _MASK32
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], 1)
+
+
+# Coordinates per Philox call of ``philox_uniforms``: bounds its int64
+# scratch (about ten [n / 4] int64 temporaries) on a 5.2e8-wide row.
+PHILOX_UNITS = 1 << 24
+
+
+def philox_uniforms(row: int, d: int, seed: int,
+                    device=None) -> torch.Tensor:
+    """Row ``row``'s float32 uniforms of kernel 8: coordinate i takes word
+    ``i % 4`` of Philox4x32-10 at counter ``(i // 4, row, 0, 0)`` under key
+    ``(seed, 0)``, as ``u = (bits >> 8) * 2^-24``. The stream does not
+    depend on the kernel's tiling."""
+    u = torch.empty(d, dtype=F32, device=device)
+    for a in range(0, d, PHILOX_UNITS):
+        b = min(d, a + PHILOX_UNITS)
+        blocks = torch.arange(a // 4, -(-b // 4), dtype=torch.int64,
+                              device=device)
+        ctr = torch.zeros((blocks.numel(), 4), dtype=torch.int64,
+                          device=device)
+        ctr[:, 0] = blocks
+        ctr[:, 1] = row
+        bits = philox4x32_10_ref(ctr, (seed, 0)).reshape(-1)
+        off = a - (a // 4) * 4
+        u[a:b] = (bits[off:off + b - a] >> 8).to(F32) * 2.0 ** -24
+    return u
+
+
+def sparsify_prng_ref(g: torch.Tensor, lam: torch.Tensor,
+                      seed: int) -> Sparsified:
+    """Kernel 8: kernel 5 with the uniforms of ``philox_uniforms`` in place
+    of an input buffer; Q in g's dtype."""
+    return _sparsify_rows(g, lam, g.dtype, False, lambda r: philox_uniforms(
+        r, g.shape[1], seed, g.device))

@@ -1,21 +1,24 @@
 """Training launcher (port of ``repro.launch.train`` for the compressed mode).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
-        --steps 3 --compressor gspar --rho 0.05 --wire gather \\
-        --error-feedback
+        --steps 3 --compressor gspar --rho 0.05 --error-feedback
 
-``--compressor`` also takes the paper's baselines (``unisp``, ``topk``,
-``bernoulli``, ``terngrad``) and the integer codecs (``gspar+qsgd8``,
-``topk+ternary``, or ``--codec``).
+``--wire`` defaults to ``dense``, as in the JAX launcher: each worker's
+Q(g) in dense layout, averaged with one all-reduce per leaf dtype (gspar
+with the ``f32`` or ``bf16`` codec). ``--wire gather`` sends the sparse
+compact buffers instead, and there ``--compressor`` also takes the paper's
+baselines (``unisp``, ``topk``, ``bernoulli``, ``terngrad``) and the
+integer codecs (``gspar+qsgd8``, ``topk+ternary``, or ``--codec``).
 
 Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
 the CPU), so the exchange goes through ``torch.distributed`` either way;
 under ``torchrun`` (``WORLD_SIZE`` in the environment) each process is one
 data-parallel worker. ``--num-periods`` cuts the depth; widths are never
-narrowed. ``--wire-layout`` defaults to ``auto``, as in the JAX launcher:
-each shape group takes the layout with the fewest wire bytes (RICE on every
-gemma-2b group at rho 0.05), printed once per group after the first step.
+narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
+the JAX launcher: each shape group takes the layout with the fewest wire
+bytes (RICE on every gemma-2b group at rho 0.05), printed once per group
+after the first step.
 """
 from __future__ import annotations
 
@@ -83,7 +86,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--qsgd-bits", type=int, default=4,
                     help="levels exponent for the legacy 'qsgd' alias")
     ap.add_argument("--rho", type=float, default=0.05)
-    ap.add_argument("--wire", default="gather",
+    ap.add_argument("--wire", default="dense",
                     choices=["dense", "gather", "packed"])
     ap.add_argument("--wire-layout", default="auto",
                     choices=["auto", "coo", "bitmap", "dense", "rice"])

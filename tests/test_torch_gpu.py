@@ -240,10 +240,70 @@ def test_integer_codec_residual_on_the_card(card, name):
     from repro_torch.core.sparse import KernelBackend
     g, u = _group(card, torch.bfloat16)
     cfg = CompressionConfig(name=f"gspar+{name}", rho=RHO,
-                            error_feedback=True)
+                            error_feedback=True, wire="gather")
     u_cod = torch.rand((ROWS, K_CAPS[0]), device="cuda")
     sg, res = KernelBackend().compress_sparse_ef(cfg, u, g, K_CAPS[0], u_cod)
     on_cpu = dataclasses.replace(sg, values=sg.values.cpu(),
                                  idx=sg.idx.cpu(), nnz=sg.nnz.cpu(),
                                  scale=sg.scale.cpu())
     assert torch.equal(res.cpu(), residual_from_buffers(g.cpu(), on_cpu))
+
+
+@pytest.mark.parametrize("d", [D, 65_536])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_wire_kernels_match_plain_versions(card, dtype, d):
+    """Kernels 5-8 on a ragged (scalar path) and an aligned row (16-byte
+    vectors): Q, the residual and the fused counts bit-equal to the plain
+    versions, sum Q^2 to rtol 1e-6, in every wire dtype; kernel 7's sum|g|
+    and max|g| bit-equal to kernel 1's."""
+    g, u = _group(card, dtype, d)
+    l1, l2, mx = K.stats(g)
+    rl1, rl2, rmx = ref.stats_ref(g)
+    torch.testing.assert_close(l1, rl1, rtol=1e-6, atol=0)
+    torch.testing.assert_close(l2, rl2, rtol=1e-6, atol=0)
+    assert torch.equal(mx, rmx)
+    l1_k1, mx_k1 = K.stats_l1max(g)
+    assert torch.equal(l1, l1_k1) and torch.equal(mx, mx_k1)
+    lam = ops.greedy_lambda(l1, mx, RHO, d, tail_fn=ops._kernel_tail_fn(g))
+    for wire in {dtype, torch.bfloat16}:
+        for kern, plain in ((K.sparsify, ref.sparsify_ref),
+                            (K.sparsify_ef, ref.sparsify_ef_ref)):
+            got, want = kern(g, u, lam, wire), plain(g, u, lam, wire)
+            for f in ("q", "residual", "nnz", "n_sure"):
+                a, b = getattr(got, f), getattr(want, f)
+                assert (a is None and b is None) or torch.equal(a, b), f
+            torch.testing.assert_close(got.sum_sq, want.sum_sq, rtol=1e-6,
+                                       atol=0)
+    got, want = K.sparsify_prng(g, lam, 1234), ref.sparsify_prng_ref(
+        g, lam, 1234)
+    assert torch.equal(got.q, want.q) and torch.equal(got.nnz, want.nnz)
+
+
+def test_philox_on_the_card_gives_the_known_answers(card):
+    """Kernel 8's generator against Random123's Philox4x32-10 known-answer
+    vectors."""
+    ctr = torch.tensor([[0, 0, 0, 0], [0xFFFFFFFF] * 4,
+                        [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344]],
+                       device="cuda")
+    key = torch.tensor([[0, 0], [0xFFFFFFFF] * 2, [0xA4093822, 0x299F31D0]],
+                       device="cuda")
+    want = [[0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8],
+            [0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD],
+            [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]]
+    assert K.philox4x32_10(ctr, key).tolist() == want
+
+
+def test_dense_pipeline_card_matches_cpu(card):
+    """ops.gspar_dense on the card against the CPU path: lambda within rtol
+    1e-6, the same kept coordinates except draws within 1e-6 of their keep
+    probability, Q bit-equal where lambda is."""
+    g, u = _group(card, torch.bfloat16)
+    r = ops.gspar_dense(g, u, rho=RHO, ef=True)
+    rc = ops.gspar_dense(g.cpu(), u.cpu(), rho=RHO, ef=True)
+    torch.testing.assert_close(r.lam.cpu(), rc.lam, rtol=1e-6, atol=0)
+    p = torch.clamp_max(rc.lam[:, None] * g.cpu().float().abs(), 1.0)
+    flips = (r.q.cpu() != 0) != (rc.q != 0)
+    assert not bool((flips & ((u.cpu() - p).abs() >= 1e-6)).any())
+    same = r.lam.cpu() == rc.lam
+    assert torch.equal(r.q.cpu()[same], rc.q[same])
+    assert torch.equal(r.residual.cpu()[same], rc.residual[same])

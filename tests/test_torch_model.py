@@ -110,7 +110,7 @@ def test_plan_tree_matches_jax(arch, rho, min_leaf, cap):
     jplan = jplan_tree(JConfig(wire="gather", **kw), leaves, stk)
     tleaves = [torch.empty(leaf.shape, dtype=tcfg.dtype, device="meta")
                for leaf in leaves]
-    tplan = tplan_tree(TConfig(**kw), tleaves, stk)
+    tplan = tplan_tree(TConfig(wire="gather", **kw), tleaves, stk)
     assert len(tplan.groups) == len(jplan.groups)
     for tg, jg in zip(tplan.groups, jplan.groups):
         assert (tg.kind, tg.dtype, tg.d, tg.k_cap, tg.members,
@@ -148,7 +148,8 @@ def test_wire_bytes_match_jax(codec, one_worker_group):
                 jax.random.key(0), jax.tree.map(jnp.asarray, grads))
     leaves = [torch.from_numpy(np.asarray(g))
               for g in jax.tree.leaves(grads)]
-    _, _, stats = tsync.sync_tree(TConfig(**kw), torch.Generator(), leaves,
+    _, _, stats = tsync.sync_tree(TConfig(wire="gather", **kw),
+                                  torch.Generator(), leaves,
                                   stacked=stk)
     assert float(stats.wire_bytes) == float(jwire)
     assert float(stats.overflow) == 0.0

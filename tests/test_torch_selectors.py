@@ -301,7 +301,7 @@ def test_integer_codec_residual_is_the_scatter_contract(name, dtype):
     d = 3000
     g = g[:, :d].astype({"bfloat16": ml_dtypes.bfloat16,
                          "float32": np.float32}[dtype])
-    cfg = TConfig(name=name, rho=RHO, error_feedback=True)
+    cfg = TConfig(name=name, rho=RHO, error_feedback=True, wire="gather")
     k_cap = cfg.capacity(d)
     gen = np.random.default_rng(9)
     uc = torch.from_numpy(gen.random((ROWS, k_cap), dtype=np.float32))
@@ -348,7 +348,7 @@ def test_backend_matches_jax_backend(name):
     draws within 1e-6 of their keep probability), and the JAX backend's
     per-row accounting (``PallasBackend._finish``) within rtol 1e-6."""
     g, u, uc = _inputs()
-    cfg = TConfig(name=name, rho=RHO)
+    cfg = TConfig(name=name, rho=RHO, wire="gather")
     k_cap = cfg.capacity(D)
     gen = np.random.default_rng(5)
     uc = gen.random((ROWS, k_cap), dtype=np.float32)
@@ -400,7 +400,7 @@ def test_compress_tree_sparse_draws_per_selector_and_codec():
     residual = [torch.full_like(x, 0.01) for x in leaves]
     for name in PIPELINES:
         cfg = TConfig(name=name, rho=RHO, error_feedback=True,
-                      min_leaf_size=256)
+                      min_leaf_size=256, wire="gather")
         scheme = cfg.scheme()
         items, new_res, stats = compress_tree_sparse(
             cfg, torch.Generator().manual_seed(4), leaves, stacked=stacked,
@@ -453,7 +453,7 @@ leaves = [torch.from_numpy((rng.standard_normal(s)
 results = {}
 for name, layout in cases:
     cfg = api.CompressionConfig(name=name, rho=0.1, min_leaf_size=256,
-                                wire_layout=layout)
+                                wire="gather", wire_layout=layout)
     items, _, _ = api.compress_tree_sparse(
         cfg, torch.Generator().manual_seed(7 + rank), leaves, stacked=stacked)
     synced, _, stats = sync.sync_tree(
@@ -530,7 +530,7 @@ def test_sync_decodes_each_worker_with_its_scale(two_ranks, case):
     layout's index words (RICE: counts and realized words), 4 bytes of
     scale per row, 4 per dense-passthrough element."""
     name, layout = case
-    codec = TConfig(name=name).scheme().codec
+    codec = TConfig(name=name, wire="gather").scheme().codec
     per_rank = [r[case]["items"] for r in two_ranks]
     want = [None] * len(SYNC_SHAPES)
     for e, (kind, payload, members) in enumerate(per_rank[0]):
@@ -591,10 +591,10 @@ def test_launcher_runs_the_baselines_and_codecs(argv):
     from repro_torch.models.transformer import param_shapes
     summary = tlaunch.main(["--arch", "gemma-2b", "--smoke", "--steps", "1",
                             "--device", "cpu", "--rho", str(RHO),
-                            "--error-feedback"] + argv)
+                            "--wire", "gather", "--error-feedback"] + argv)
     args = tlaunch.parse_args(["--arch", "x"] + argv)
     cfg = TConfig(name=args.compressor, codec=args.codec, rho=RHO,
-                  min_leaf_size=1024)
+                  min_leaf_size=1024, wire="gather")
     codec = cfg.scheme().codec
     shapes = param_shapes(tgemma.SMOKE)
     names = leaf_order(shapes)
@@ -630,7 +630,7 @@ def test_tiled_passes_match_one_tile(monkeypatch):
     g, u, _ = _inputs()
     d = 3000
     tg = _torch(g[:, :d].copy())
-    cfg = TConfig(name="terngrad", error_feedback=True)
+    cfg = TConfig(name="terngrad", error_feedback=True, wire="gather")
     uc = torch.from_numpy(np.random.default_rng(2).random((ROWS, d),
                                                           dtype=np.float32))
     uu = torch.from_numpy(np.ascontiguousarray(u[:, :d]))

@@ -129,7 +129,7 @@ def _check_step_against_jax(layout: str) -> None:
     model = Transformer(tgemma.SMOKE, params_from_numpy(
         jax.tree.map(np.asarray, params)))
     comp = TConfig(name="gspar", rho=RHO, error_feedback=True,
-                   min_leaf_size=MIN_LEAF, wire_layout=layout)
+                   min_leaf_size=MIN_LEAF, wire="gather", wire_layout=layout)
     opt = topt.adam(LR)
     step = tstep.make_compressed_train_step(model, comp, opt)
     state, fb, metrics = step(opt.init(model.leaves()),
@@ -164,13 +164,14 @@ def test_launcher_trains_on_cpu(ef):
     """The launcher end to end on the CPU path: finite losses, the COO
     gather wire's bytes, no overflow; it starts and stops its own group."""
     argv = ["--arch", "gemma-2b", "--smoke", "--steps", "2", "--device",
-            "cpu", "--rho", str(RHO), "--log-every", "1", "--wire-layout",
-            "coo"]
+            "cpu", "--rho", str(RHO), "--log-every", "1", "--wire", "gather",
+            "--wire-layout", "coo"]
     summary = tlaunch.main(argv + (["--error-feedback"] if ef else []))
     assert not dist.is_initialized()
     shapes = param_shapes(tgemma.SMOKE)
     names = leaf_order(shapes)
-    plan = plan_tree(TConfig(rho=RHO, min_leaf_size=MIN_LEAF),
+    plan = plan_tree(TConfig(rho=RHO, min_leaf_size=MIN_LEAF,
+                             wire="gather"),
                      [torch.empty(shapes[n][0], device="meta") for n in names],
                      [shapes[n][1] for n in names])
     wire = sum(g.rows * g.k_cap * (4 + 4) if g.kind == "sparse"
@@ -191,13 +192,14 @@ def test_launcher_defaults_to_the_auto_wire(capsys):
     Golomb-Rice words: between the values alone and the static capacity."""
     summary = tlaunch.main(["--arch", "gemma-2b", "--smoke", "--steps", "2",
                             "--device", "cpu", "--rho", str(RHO),
-                            "--error-feedback"])
+                            "--wire", "gather", "--error-feedback"])
     out = capsys.readouterr().out
     jcfg = JConfig(name="gspar", rho=RHO, wire="gather",
                    min_leaf_size=MIN_LEAF)
     shapes = param_shapes(tgemma.SMOKE)
     names = leaf_order(shapes)
-    plan = plan_tree(TConfig(rho=RHO, min_leaf_size=MIN_LEAF),
+    plan = plan_tree(TConfig(rho=RHO, min_leaf_size=MIN_LEAF,
+                             wire="gather"),
                      [torch.empty(shapes[n][0], device="meta") for n in names],
                      [shapes[n][1] for n in names])
     sparse = [g for g in plan.groups if g.kind == "sparse"]
@@ -262,7 +264,9 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(wire="dense"), dict(wire="packed"), dict(rice_fitted=True),
+    dict(wire="dense", name="unisp"), dict(wire="dense", name="gspar+qsgd8"),
+    dict(wire="dense", name="topk"), dict(wire="dense", name="terngrad"),
+    dict(wire="packed"), dict(rice_fitted=True),
     dict(rice_fitted=True, wire_layout="rice"), dict(exchange="overlap"),
     dict(name="identity"), dict(name="qsgd"), dict(algo="closed")])
 def test_config_refuses_what_is_not_ported(kw):
@@ -272,7 +276,7 @@ def test_config_refuses_what_is_not_ported(kw):
 
 @pytest.mark.parametrize("layout", ["coo", "bitmap", "dense", "rice"])
 def test_config_takes_every_static_layout(layout):
-    cfg = TConfig(wire_layout=layout)
+    cfg = TConfig(wire="gather", wire_layout=layout)
     assert f"layout={layout}" in cfg.describe()
     assert TConfig().wire_layout == "auto"
     with pytest.raises(ValueError):

@@ -49,7 +49,7 @@ default_units = sync.DECODE_UNITS
 for name, (layout, cap) in cases.items():
     # the row-chunked cases also decode in small row batches
     sync.DECODE_UNITS = default_units if cap == 2**31 - 1 else 4096
-    cfg = api.CompressionConfig(rho=0.1, min_leaf_size=256,
+    cfg = api.CompressionConfig(rho=0.1, min_leaf_size=256, wire="gather",
                                 bucket_coord_cap=cap, wire_layout=layout)
     items, _, _ = api.compress_tree_sparse(
         cfg, torch.Generator().manual_seed(7 + rank), leaves, stacked=stacked)
