@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -436,6 +437,8 @@ def kernel_phase(groups) -> dict:
     philox_check()
     decode_ms = {"rice": 0.0, "coo": 0.0}
     f32, bf16 = codecs.FloatCodec(), codecs.FloatCodec(16, True)
+    widest = max(d for _, d, _ in groups)     # gemma-2b: 1 x 524,288,000
+    memset_ms = 0.0
     for gi, (rows, d, k_cap) in enumerate(groups):
         g = heavy_tailed(rows, d, gen)
         u = torch.rand((rows, d), generator=gen, device="cuda")
@@ -501,6 +504,12 @@ def kernel_phase(groups) -> dict:
             else:
                 ms_no_ef += t
 
+        # the memset of the compact buffers, which the kernel's own zeroing
+        # of the dead slots replaces (timed alone, for PERF.md)
+        memset_ms += cuda_ms(lambda: (
+            torch.zeros((rows, k_cap), dtype=g.dtype, device="cuda"),
+            torch.zeros((rows, k_cap), dtype=torch.int32, device="cuda")))
+
         # the RICE stage on the compact buffers compact_emit produced
         vals, idx, _ = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32,
                                       ef=False)
@@ -518,6 +527,8 @@ def kernel_phase(groups) -> dict:
         chk.equal("rice_pack words", words, want_w)
         chk.equal("rice_pack used", used, want_u)
         del want_w, want_u
+        if d == widest:
+            overflow_checks(tally, g, u, lam, st)
         for row in range(rows):             # the words decode to idx
             dec = compaction.rice_decode(words[row], k_cap, d, r)
             chk.equal(f"rice_decode row {row}", dec[:n_live[row]],
@@ -548,7 +559,35 @@ def kernel_phase(groups) -> dict:
         torch.cuda.empty_cache()
     tally.library_ms["stats_l1max"] = library_ms
     return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms,
-            "prng": prng}
+            "prng": prng, "memset_ms": memset_ms}
+
+
+def overflow_checks(tally: Tally, g, u, lam, st) -> None:
+    """compact_emit/lam (f32 codec, EF) and rice_pack on one group at an
+    overflowing capacity, k_cap = nnz // 2 of its emptiest row, so that
+    every row is cut inside its tiles: bit-equal to the plain versions
+    (checked, not timed)."""
+    from repro_torch.core import codecs, coding
+    from repro_torch.kernels.sparsify import kernel as K, ref
+    d = g.shape[1]
+    k_cap = int(st.nnz.min()) // 2
+    f32 = codecs.FloatCodec()
+    out = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32, ef=True)
+    want = ref.compact_emit_ref(g, u, lam, k_cap, f32, True)
+    chk = tally.check["compact_emit/lam"]
+    for what, a, b in zip(("values", "idx", "residual"), out, want):
+        chk.equal(f"compact_emit overflow k_cap={k_cap} {what}", a, b)
+    del want
+    r = coding.rice_parameter(k_cap, d)
+    words, used = K.rice_pack(out[1], st.nnz, d=d, r=r)
+    want_w, want_u = ref.rice_pack_ref(out[1], st.nnz, d, r)
+    tally.check["rice_pack"].equal("rice_pack overflow words", words, want_w)
+    tally.check["rice_pack"].equal("rice_pack overflow used", used, want_u)
+    print(f"overflow: compact_emit/lam (f32, EF) and rice_pack (r={r}) at "
+          f"k_cap {k_cap} of nnz {st.nnz.tolist()} on [{g.shape[0]}, {d}] "
+          "agree with their plain versions", flush=True)
+    del out, words, used, want_w, want_u
+    torch.cuda.empty_cache()
 
 
 def variant_sweep():
@@ -1066,6 +1105,31 @@ DENSE_PATHS = {
 }
 
 
+def ptxas_lines(log: str, kernels) -> list[str]:
+    """From nvcc's ``-Xptxas -v`` log, one line per instantiation of the
+    named kernels: its (demangled) name, registers, barriers, shared
+    memory, stack and spills."""
+    out, name, props = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Function properties for" in line:
+            name = line.rsplit(" ", 1)[-1]
+        elif "spill" in line:
+            props = line.strip()
+        elif "registers" in line and name is not None:
+            if any(k in name for k in kernels):
+                out.append((name, line.split(":", 1)[1].strip() + "; "
+                            + props))
+            name, props = None, ""
+    if shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            n for n, _ in out), capture_output=True, text=True).stdout
+        out = [(n.split("::")[-1].split("(")[0], p)
+               for n, (_, p) in zip(names.splitlines(), out)]
+    return [f"ptxas {n}: {p}" for n, p in out]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1078,9 +1142,8 @@ def main() -> int:
     lib, log = K.build()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    if log:
-        print("\n".join(line for line in log.splitlines()
-                        if "registers" in line or "spill" in line))
+    for line in ptxas_lines(log, ("compact_emit", "rice_pack")):
+        print(line)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1127,6 +1190,8 @@ def main() -> int:
         })
     kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
         kp["ms_no_ef"]
+    kernels[list(ENTRIES).index("compact_emit/lam")]["memset_ms"] = \
+        kp["memset_ms"]
     kernels[list(ENTRIES).index("select_stats/topk")]["topk_peak_bytes"] = \
         tally.library_ms["topk_peak_bytes"]
     kernels[list(ENTRIES).index("sparsify_prng")]["max_sd_from_sum_p"] = \

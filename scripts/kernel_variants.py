@@ -1,0 +1,162 @@
+"""Times design variants of pass 2 (compact_emit) and rice_pack on one GPU.
+
+    python3 scripts/kernel_variants.py
+
+Builds copies of ``src/repro_torch/csrc/sparsify.cu`` that differ from it
+in one design choice each, and times them against the source as it stands,
+in turns (each variant, then each again in reverse order; the mean of the
+two), on synthetic gemma-2b groups made as ``chip_smoke.py`` makes them
+(bf16 normal x lognormal g, f32 uniforms, from a seed), summed over the
+groups: one step's worth, as in chip_smoke's kernel phase. The variants:
+
+- ``memset``: compact_emit's dead slots zeroed by a memset of both compact
+  buffers at every capacity (the source: by the kernel where k_cap < d);
+- ``zeroing``: by the kernel at every capacity, k_cap = d included;
+- ``bounds5``: compact_emit compiled for 5 blocks an SM (the source: 4);
+- ``rice8``, ``rice32``: rice_pack with 8 codes a thread at 8 blocks an SM,
+  32 at 4 (the source: 16 at 6).
+
+Every variant's outputs are held bit-equal to the source's. Prints the
+card's name and power limit, then one JSON line per variant: ms per step
+for each timed case. Needs a CUDA device; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+RHO = 0.05
+
+
+def variants(src: str) -> dict[str, str]:
+    def sub(old: str, new: str) -> str:
+        if src.count(old) != 1:
+            raise AssertionError(f"variant pattern not found once: {old!r}")
+        return src.replace(old, new)
+
+    def rice(items: int, blocks: int) -> str:
+        out = sub("constexpr int kRiceItems = 16;",
+                  f"constexpr int kRiceItems = {items};")
+        return out.replace("constexpr int kRiceMinBlocks = 6;",
+                           f"constexpr int kRiceMinBlocks = {blocks};")
+
+    zero = "  const int zero_dead = k_cap < d;"
+    return {
+        "source": src,
+        "memset": sub(zero, "  const int zero_dead = 0;"),
+        "zeroing": sub(zero, "  const int zero_dead = 1;"),
+        "bounds5": sub("__launch_bounds__(kThreads, 4)\ncompact_emit(",
+                       "__launch_bounds__(kThreads, 5)\ncompact_emit("),
+        "rice8": rice(8, 8),
+        "rice32": rice(32, 4),
+    }
+
+
+def build(K, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
+    """One nvcc per variant, all started together."""
+    out_dir = ROOT / "build" / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            ["/usr/local/cuda/bin/nvcc", *K.NVCC_FLAGS, "-o",
+             str(out_dir / f"{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
+        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        for fn, (args, res) in K._SIGNATURES.items():
+            getattr(lib, fn).argtypes = list(args)
+            getattr(lib, fn).restype = res
+        libs[name] = lib
+    return libs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    import chip_smoke as cs
+    from repro_torch.core import codecs, coding
+    from repro_torch.kernels.sparsify import kernel as K, ops
+    print(cs.card_line(), flush=True)
+    libs = build(K, variants(K._SOURCE.read_text()))
+    f32, ter = codecs.FloatCodec(), codecs.get("ternary")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total: dict[str, dict[str, float]] = {n: {} for n in libs}
+    for rows, d, k_cap in cs.main_path_groups():
+        g = cs.heavy_tailed(rows, d, gen)
+        u = torch.rand((rows, d), generator=gen, device="cuda")
+        l1, mx = K.stats_l1max(g)
+        lam = ops.greedy_lambda(l1, mx, RHO, d,
+                                tail_fn=ops._kernel_tail_fn(g))
+        st = K.select_stats(g, u, lam, k_cap)
+        zero = torch.zeros(rows, device="cuda")
+        stb = K.select_stats(g, u, zero, d, pkind="bern", s2=mx)
+        scb = codecs.finalize_scale(ter, stb.sum_sq, stb.max_abs)
+        ucb = torch.rand((rows, d), device="cuda")
+        t, budget = ops.topk_threshold(g, max(1, round(RHO * d)))
+        stt = K.select_stats(g, None, t, k_cap, pkind="topk", budget=budget)
+        _, idx, _ = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32,
+                                   ef=False)
+        r = coding.rice_parameter(k_cap, d)
+        cases = {
+            "compact_emit/lam f32 EF": lambda: K.compact_emit(
+                g, u, lam, st, k_cap=k_cap, codec=f32, ef=True),
+            "compact_emit/topk f32 EF": lambda: K.compact_emit(
+                g, None, t, stt, k_cap=k_cap, codec=f32, ef=True,
+                pkind="topk", budget=budget),
+            "compact_emit/bern f32 EF, k_cap = d": lambda: K.compact_emit(
+                g, u, zero, stb, k_cap=d, codec=f32, ef=True, pkind="bern",
+                s2=mx),
+            "compact_emit/bern+ternary, k_cap = d": lambda: K.compact_emit(
+                g, u, zero, stb, k_cap=d, codec=ter, ef=False, pkind="bern",
+                s2=mx, scale=scb, u_cod=ucb),
+            "rice_pack": lambda: K.rice_pack(idx, st.nnz, d=d, r=r),
+        }
+        for case, fn in cases.items():       # every variant as the source
+            K._lib_handle = libs["source"]
+            K.RICE_TILE = libs["source"].gspar_rice_tile()
+            want = fn()
+            for name in libs:
+                K._lib_handle = libs[name]
+                K.RICE_TILE = libs[name].gspar_rice_tile()
+                out = fn()
+                if not all(a is None and b is None or torch.equal(a, b)
+                           for a, b in zip(out, want)):
+                    raise AssertionError(f"{name}: {case} differs from the "
+                                         "source's output")
+                del out
+            del want
+        times: dict[str, dict[str, list]] = {n: {} for n in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            K._lib_handle = libs[name]
+            K.RICE_TILE = libs[name].gspar_rice_tile()
+            for case, fn in cases.items():
+                times[name].setdefault(case, []).append(cs.cuda_ms(fn))
+        for name in libs:
+            for case, ts in times[name].items():
+                total[name][case] = (total[name].get(case, 0.0)
+                                     + statistics.mean(ts))
+        del g, u, st, stb, stt, ucb, idx, cases
+        torch.cuda.empty_cache()
+    for name, ms in total.items():
+        print(json.dumps({"variant": name, "ms_per_step": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,8 +28,9 @@
 // (rice_pack: the group's compact [rows, k_cap] idx), one launch per group,
 // as the vmap over the group is on the TPU: the grid is (tiles, rows),
 // blockIdx.y is the row, and each block owns kTile consecutive coordinates
-// of its row. Per-row scalars (lambda, rho, max|g|, the topk threshold and
-// tie budget, the codec scale, the saturation gate) are read from device
+// of its row (rice_pack: kRiceTile codes, in the order of a ticket).
+// Per-row scalars (lambda, rho, max|g|, the topk threshold and tie
+// budget, the codec scale, the saturation gate) are read from device
 // memory, so no host round trip sits between the passes. The ragged end of
 // a row is masked here; nothing is padded into a tile layout.
 //
@@ -40,18 +41,23 @@
 // plus the compact output, the codec uniforms and the EF residual for pass
 // 2). Each thread therefore loads kItems consecutive elements per sweep (one
 // 16-byte vector load of bf16, two of f32) and keeps its partial sums in
-// registers. rice_pack reads the compact idx and writes the code words, and
-// the dense wire's kernels write Q (and the residual) with 16-byte vector
-// stores (see their sections).
+// registers; pass 2 issues each sweep's loads a sweep ahead and writes its
+// residual, like the dense wire's kernels their Q, as 16-byte vectors. Pass
+// 2 with a selector that reads little (topk: 2 B/coord) and rice_pack are
+// bound by instruction issue and latency rather than bytes (see the
+// sections of kernels 4 and 4b).
 //
 // Order without a sequential grid. The TPU carries the compact rank (and
 // topk's tie rank) from tile to tile in SMEM across a grid that runs in
 // order. Hopper blocks run in no order, so pass 1 writes per-(row, tile)
 // survivor (and tie) counts, a one-block-per-row finish kernel scans them
 // into per-tile base ranks, and pass 2 gives every survivor its slot as base
-// + in-block rank (thread counts, warp shuffles and one block scan). Slots
-// are written without atomics, so idx ascends by coordinate and the padding
-// slots keep the zeros the wrapper allocated.
+// + in-block rank (a warp shuffle scan and one barrier a sweep). Slots are
+// written without atomics, so idx ascends by coordinate; pass 2 also zeroes
+// the slots past each row's live prefix (at a capacity of a whole row, a
+// memset before it does). rice_pack, which needs the
+// quotient sum of everything before a block, takes it from a chained scan
+// with decoupled look-back instead: one launch, blocks ordered by a ticket.
 //
 // Sums accumulate in f64 and round to f32 once, so they differ from the TPU's
 // tile-order f32 sums only by rounding; counts are integers (the TPU counts
@@ -68,6 +74,7 @@ namespace {
 constexpr int kThreads = 256;                // threads per block
 constexpr int kItems = 8;                    // consecutive elements per thread
 constexpr int kSweep = kThreads * kItems;    // elements per block sweep
+constexpr int kWarps = kThreads / 32;        // warps per block
 constexpr int64_t kTile = 8 * kSweep;        // coordinates per block
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -119,6 +126,107 @@ __device__ __forceinline__ void load_items(const float* __restrict__ row,
 #pragma unroll
     for (int k = 0; k < kItems; ++k) out[k] = (i + k < end) ? row[i + k] : 0.f;
   }
+}
+
+// The same kItems elements as raw registers, so that a loop can issue a
+// sweep's loads one sweep ahead and widen them to f32 only when it uses them
+// (load_chunk, then unpack; bf16 widens exactly by a 16-bit shift).
+template <typename T> struct Chunk;
+template <> struct Chunk<__nv_bfloat16> { uint4 v; };
+template <> struct Chunk<float> { float4 a, b; };
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* __restrict__ row,
+                                           int64_t i, int64_t end, bool vec,
+                                           Chunk<__nv_bfloat16>& c) {
+  if (vec && i + kItems <= end) {
+    c.v = *reinterpret_cast<const uint4*>(row + i);
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(row);
+    unsigned w[kItems / 2];
+#pragma unroll
+    for (int k = 0; k < kItems / 2; ++k) {
+      const unsigned lo = i + 2 * k < end ? h[i + 2 * k] : 0u;
+      const unsigned hi = i + 2 * k + 1 < end ? h[i + 2 * k + 1] : 0u;
+      w[k] = lo | (hi << 16);
+    }
+    c.v = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+__device__ __forceinline__ void load_chunk(const float* __restrict__ row,
+                                           int64_t i, int64_t end, bool vec,
+                                           Chunk<float>& c) {
+  if (vec && i + kItems <= end) {
+    c.a = *reinterpret_cast<const float4*>(row + i);
+    c.b = *reinterpret_cast<const float4*>(row + i + 4);
+  } else {
+    float f[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) f[k] = (i + k < end) ? row[i + k] : 0.f;
+    c.a = make_float4(f[0], f[1], f[2], f[3]);
+    c.b = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+__device__ __forceinline__ void unpack(const Chunk<__nv_bfloat16>& c,
+                                       float out[kItems]) {
+  const unsigned w[kItems / 2] = {c.v.x, c.v.y, c.v.z, c.v.w};
+#pragma unroll
+  for (int k = 0; k < kItems / 2; ++k) {
+    out[2 * k] = __uint_as_float(w[k] << 16);
+    out[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void unpack(const Chunk<float>& c,
+                                       float out[kItems]) {
+  out[0] = c.a.x; out[1] = c.a.y; out[2] = c.a.z; out[3] = c.a.w;
+  out[4] = c.b.x; out[5] = c.b.y; out[6] = c.b.z; out[7] = c.b.w;
+}
+
+// kItems consecutive values of one row from i, rounded to the row's type;
+// entries at or past `end` are not stored. `vec` as in load_items.
+__device__ __forceinline__ void store_items(__nv_bfloat16* __restrict__ row,
+                                            int64_t i, int64_t end, bool vec,
+                                            const float v[kItems]) {
+  if (vec && i + kItems <= end) {
+    uint4 raw;
+    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) h[k] = __float2bfloat16_rn(v[k]);
+    *reinterpret_cast<uint4*>(row + i) = raw;
+  } else {
+    for (int k = 0; k < kItems && i + k < end; ++k)
+      row[i + k] = __float2bfloat16_rn(v[k]);
+  }
+}
+
+__device__ __forceinline__ void store_items(float* __restrict__ row,
+                                            int64_t i, int64_t end, bool vec,
+                                            const float v[kItems]) {
+  if (vec && i + kItems <= end) {
+    *reinterpret_cast<float4*>(row + i) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(row + i + 4) =
+        make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    for (int k = 0; k < kItems && i + k < end; ++k) row[i + k] = v[k];
+  }
+}
+
+// The block zeroes bytes [a, b) of p: single bytes up to a 16-byte boundary
+// and after the last one, 16-byte stores between.
+__device__ void zero_bytes(unsigned char* __restrict__ p, int64_t a,
+                           int64_t b) {
+  if (a >= b) return;
+  const int64_t head = (16 - (int64_t)((uintptr_t)(p + a) & 15)) & 15;
+  const int64_t body = head < b - a ? (b - a - head) >> 4 : 0;
+  const int64_t tail = a + head + 16 * body;
+  for (int64_t j = threadIdx.x; j < head && a + j < b; j += blockDim.x)
+    p[a + j] = 0;
+  uint4* v = reinterpret_cast<uint4*>(p + a + head);
+  for (int64_t j = threadIdx.x; j < body; j += blockDim.x)
+    v[j] = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t j = tail + threadIdx.x; j < b; j += blockDim.x) p[j] = 0;
 }
 
 template <typename V> __device__ __forceinline__ V warp_sum(V v) {
@@ -379,48 +487,124 @@ __device__ __forceinline__ Sample sample(float x, float r, float s1, float s2,
   return o;
 }
 
-// The selector over one thread's kItems consecutive elements of a sweep
-// (i = its first coordinate, end = the tile's end). topk ranks its ties with
-// a block-wide scan, so every thread of the block calls this in every sweep;
-// `tie_rank` carries the row's ties before the sweep.
+// Survivor (and topk tie) counts per warp of one sweep, double-buffered by
+// sweep parity: sweep s writes half s & 1, meets the block at one barrier
+// and reads it back; a warp can rewrite that half two sweeps later only
+// after every warp has passed the barrier in between, so after every read.
+struct SweepCounts {
+  int kept[2][kWarps];   // survivors (topk: strict survivors |g| > t)
+  int ties[2][kWarps];   // topk: threshold ties |g| == t > 0
+};
+
+// The mask of a thread's items from coordinate i that lie before end.
+__device__ __forceinline__ unsigned valid_items(int64_t i, int64_t end) {
+  const int64_t n = end - i;
+  return n >= kItems ? (1u << kItems) - 1u : (n <= 0 ? 0u : (1u << n) - 1u);
+}
+
+// The value a kept coordinate x sends: g / p for the sampling selectors
+// (the bits sample() gives), g itself for topk.
 template <int PK>
-__device__ __forceinline__ void select_sweep(const float x[kItems],
-                                             const float r[kItems], int64_t i,
-                                             int64_t end, float s1, float s2,
-                                             long long budget,
-                                             long long* tie_rank,
-                                             int* sh_scan, bool z[kItems],
-                                             float v[kItems]) {
-  if constexpr (PK == kTopk) {
-    bool tie[kItems];
-    int lt = 0;
+__device__ __forceinline__ float kept_value(float x, float s1, float s2) {
+  if constexpr (PK == kTopk) return x;
+  return __fdiv_rn(x, keep_prob<PK>(fabsf(x), s1, s2));
+}
+
+// The selector and the ranks of one sweep. Each thread holds kItems
+// consecutive elements, of which those in the mask `valid` lie before the
+// tile's end (valid_items). Its survivors and topk ties are counted with
+// popc of its masks, packed into one int (ties in the high half) and
+// scanned across the warp with five shuffles (which measured faster than
+// a ballot and popc per item, most for topk); the warps' totals are read
+// from `sh` after one barrier, so
+// every thread of the block calls this in every sweep. Returns the kept
+// mask (bit k: item k), the thread's first survivor rank within the sweep
+// in *first and the sweep's survivor count in *total. Masks rather than
+// bool and value arrays keep the pass-2 kernels' registers down
+// (kept_value gives a survivor's value when it is stored).
+//
+// topk: a tie is kept iff its rank among the row's ties is below the
+// budget. The warp's ties start at *tie_rank plus the ties of the warps
+// below, so every thread derives from the same shared counts how many of
+// each warp's ties are kept (its first `kept`, in coordinate order) without
+// a second scan. *tie_rank advances by the sweep's ties.
+template <int PK>
+__device__ __forceinline__ unsigned sweep_ranks(const float x[kItems],
+                                                const float r[kItems],
+                                                unsigned valid, float s1,
+                                                float s2, long long budget,
+                                                long long* tie_rank,
+                                                SweepCounts& sh, int par,
+                                                int* first, int* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned zm = 0u, tm = 0u;           // kept (topk: strict) and tie masks
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const bool valid = i + k < end;
-      const float a = fabsf(x[k]);
-      z[k] = valid && a > s1;
-      tie[k] = valid && a == s1 && s1 > 0.f;
-      lt += tie[k];
-    }
-    int total;
-    long long tr = *tie_rank + block_excl_scan(lt, &total, sh_scan);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (tie[k]) {
-        z[k] = tr < budget;
-        ++tr;
-      }
-      v[k] = z[k] ? x[k] : 0.f;
-    }
-    *tie_rank += total;
-  } else {
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const Sample o = sample<PK>(x[k], r[k], s1, s2, i + k < end);
-      z[k] = o.z;
-      v[k] = o.v;
+  for (int k = 0; k < kItems; ++k) {
+    const float a = fabsf(x[k]);
+    if constexpr (PK == kTopk) {
+      zm |= (unsigned)(a > s1) << k;
+      tm |= (unsigned)(a == s1 && s1 > 0.f) << k;
+    } else {
+      zm |= (unsigned)(r[k] < keep_prob<PK>(a, s1, s2)) << k;
     }
   }
+  zm &= valid;
+  tm &= valid;
+  const int mine = __popc(zm) | (__popc(tm) << 16);
+  int inc = mine;                      // (ties << 16) | survivors, inclusive
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += n;
+  }
+  if (lane == 31) {
+    sh.kept[par][w] = inc & 0xffff;
+    if constexpr (PK == kTopk) sh.ties[par][w] = inc >> 16;
+  }
+  __syncthreads();
+  const int below = inc - mine;        // my warp's lanes before me
+  int base = 0, sum = 0;
+  if constexpr (PK == kTopk) {
+    // ties the budget still admits at the sweep's start (saturated)
+    const long long left0 = budget - *tie_rank;
+    int left = left0 <= 0 ? 0 : (left0 < (1 << 30) ? (int)left0 : 1 << 30);
+    int kept_w = 0, ties = 0;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) {
+      const int t = sh.ties[par][j];
+      const int kept = left < t ? left : t;
+      left -= kept;
+      const int c = sh.kept[par][j] + kept;
+      if (j == w) kept_w = kept;
+      if (j < w) base += c;
+      sum += c;
+      ties += t;
+    }
+    const int tp = below >> 16;        // ties before mine in the warp
+    if (tm) {
+      int tr = tp;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if ((tm >> k) & 1u) {
+          zm |= (unsigned)(tr < kept_w) << k;
+          ++tr;
+        }
+      }
+    }
+    *tie_rank += ties;
+    base += (below & 0xffff) + (tp < kept_w ? tp : kept_w);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) {
+      const int c = sh.kept[par][j];
+      if (j < w) base += c;
+      sum += c;
+    }
+    base += below & 0xffff;
+  }
+  *first = base;
+  *total = sum;
+  return zm;
 }
 
 // Pass 1 per (row, tile): survivors, support |{g != 0}|, sum p, sum g^2, sum
@@ -568,27 +752,26 @@ select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
     const int64_t start = st * kTile;
     const int64_t end = row_end(d, start);
     long long rank0 = sh_straddle[1], tie_rank = sh_straddle[2];
-    for (int64_t s = start; s < end; s += kSweep) {   // uniform over the block
+    __shared__ SweepCounts sh_sweep;
+    int par = 0;
+    for (int64_t s = start; s < end; s += kSweep, par ^= 1) {  // uniform
       const int64_t i = s + threadIdx.x * kItems;
       float x[kItems], r[kItems];
       load_items(grow, i, end, vec_g, x);
       if constexpr (PK != kTopk) load_items(u + row * d, i, end, vec_u, r);
-      bool z[kItems];
-      float v[kItems];
-      select_sweep<PK>(x, r, i, end, s1, s2, budget, &tie_rank, sh_scan, z,
-                       v);
-      int lc = 0;
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) lc += z[k];
-      int total;
-      long long rk = rank0 + block_excl_scan(lc, &total, sh_scan);
+      int first, total;
+      const unsigned zm = sweep_ranks<PK>(x, r, valid_items(i, end), s1,
+                                          s2, budget, &tie_rank, sh_sweep,
+                                          par, &first, &total);
+      long long rk = rank0 + first;
 #pragma unroll
       for (int k = 0; k < kItems; ++k) {
-        if (z[k]) {
+        if ((zm >> k) & 1u) {
           if (rk < k_cap) {
-            const float v2 = v[k] * v[k];
+            const float v = kept_value<PK>(x[k], s1, s2);
+            const float v2 = v * v;
             vs += v2;
-            vm = fmaxf(vm, fabsf(v[k]));
+            vm = fmaxf(vm, fabsf(v));
           }
           ++rk;
         }
@@ -650,218 +833,465 @@ template <> struct IntWire<int16_t> : std::true_type {};
 // output in float32, so it is W-rounded only for a rounding codec
 // (`round_res`: bf16), as on the TPU. The integer codecs' EF subtracts the
 // decoded level, a product formed after the exchange's scale is known: the
-// backend scatters it from the compact buffers instead.
+// backend scatters it from the compact buffers instead. Slots past the
+// row's live prefix, [min(nnz, k_cap), k_cap), get idx 0 and value 0.
+//
+// Bound: one read of g (and u), one write of the residual with EF, the
+// compact slots (and an integer codec's uniform per live slot): 10 B/coord
+// for bf16 g with f32 uniforms and the residual, 8 without, 2-4 for topk.
+// A straightforward port runs at 20-50 % of that: 8 scalar 2-byte
+// residual stores a thread, 16 bytes apart across a warp (10.5 of 17.8 ms
+// a step at gemma-2b), two block scans a sweep (topk three) and a memset
+// of both compact buffers. The design, for the card:
+// - the residual leaves as 16-byte vectors (store_items, one per 8 bf16)
+//   wherever its row base is aligned and d % 8 == 0 (`vec_r`), scalar only
+//   at a ragged end or an unaligned row;
+// - a survivor's rank: each thread's survivors (and topk's ties) counted
+//   by popc of its item masks, one int (ties in the high half) scanned
+//   across the warp with five shuffles, the warps' totals in shared
+//   memory double-buffered by sweep parity (sweep_ranks): one barrier a
+//   sweep, and topk's tie ranks follow from the same shared counts, so
+//   ties cost no scan where there are ties and nothing where there are
+//   none;
+// - the next sweep's g (16 B) and u (2 x 16 B) loads are issued into
+//   registers (Chunk) before this sweep's ranks, barrier and stores, so
+//   they are in flight across the barrier (register double-buffering,
+//   kept over a cp.async ring: the loads need no shared memory, and the
+//   ring's waits would add barriers);
+// - what remains is issue-bound, not memory-bound, for the selectors that
+//   read little (topk reads 2 B/coord): the sweep counts in 32 bits, and
+//   only a thread's kept items are visited (a loop over the set bits of
+//   its mask, the item picked from registers by a select tree), so a warp
+//   runs its store path as often as its fullest lane keeps, about twice a
+//   sweep at 5 % density, not 8 times behind per-item branches;
+// - the dead slots are zeroed by the row's blocks, each its share, before
+//   their sweeps, so the buffers come from torch.empty; at a capacity of a
+//   whole row (k_cap >= d: bern's, nearly every slot dead) the launcher
+//   memsets both buffers instead, which measured faster there;
+// - without EF a block whose base rank is at least k_cap returns after
+//   its share of the dead slots.
+// ptxas (-Xptxas -v, sm_90a, 4 blocks an SM): 50-64 registers, no spills
+// in any instantiation (chip_smoke prints the lines).
 // ---------------------------------------------------------------------------
 
+constexpr int kCodStage = 2048;     // codec uniforms a block stages
+
+// A 4-byte asynchronous copy from device to shared memory (cp.async: no
+// register holds it in flight), and the wait for this thread's copies.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Item k of a thread's kItems registers, k known only at run time: a tree
+// of selects, so the array stays in registers.
+__device__ __forceinline__ float pick(const float x[kItems], int k) {
+  const bool b0 = k & 1, b1 = k & 2;
+  const float p0 = b0 ? x[1] : x[0], p1 = b0 ? x[3] : x[2];
+  const float p2 = b0 ? x[5] : x[4], p3 = b0 ? x[7] : x[6];
+  const float q0 = b1 ? p1 : p0, q1 = b1 ? p3 : p2;
+  return (k & 4) ? q1 : q0;
+}
+
 template <int PK, typename T, typename W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
-             int64_t ntiles, int vec_g, int vec_u,
+             int64_t ntiles, int vec_g, int vec_u, int vec_r,
              const float* __restrict__ s1p, const float* __restrict__ s2p,
              const long long* __restrict__ budgetp,
              const int* __restrict__ base, const int* __restrict__ tie_base,
-             int64_t k_cap, W* __restrict__ vals, int* __restrict__ idx,
-             T* __restrict__ res, int round_res,
+             const int* __restrict__ nnz, int64_t k_cap, W* __restrict__ vals,
+             int* __restrict__ idx, T* __restrict__ res, int round_res,
              const float* __restrict__ scale, const float* __restrict__ ucod,
-             float levels, int ternary) {
+             float levels, int ternary, int zero_dead) {
+  constexpr bool kInt = IntWire<W>::value;
+  // coordinates, ranks and k_cap are below 2^31 (the wrapper checks), so
+  // the sweeps count in 32 bits; only row bases are 64-bit
   const int64_t row = blockIdx.y, tile = blockIdx.x;
   const int64_t o = row * ntiles + tile;
-  long long rank0 = base[o];
-  if (res == nullptr && rank0 >= k_cap) return;   // uniform over the block
+  W* vrow = vals + row * k_cap;
+  int* irow = idx + row * k_cap;
+  const int kc = (int)k_cap;
+  const int n_row = nnz[row];
+  const int tile_rank = base[o];
+  if (zero_dead) {   // this block's share of [min(nnz, k_cap), k_cap)
+    const int live = n_row < kc ? n_row : kc;
+    const int share = (int)((kc - live + ntiles - 1) / ntiles);
+    const int64_t a = live + tile * share;
+    const int64_t b = a + share < kc ? a + share : kc;
+    if (a < b) {
+      zero_bytes(reinterpret_cast<unsigned char*>(vrow), a * sizeof(W),
+                 b * sizeof(W));
+      zero_bytes(reinterpret_cast<unsigned char*>(irow), a * 4, b * 4);
+    }
+  }
+  if (res == nullptr && tile_rank >= kc) return;   // uniform over the block
   const float s1 = s1p[row];
   const float s2 = PK == kBern ? s2p[row] : 0.f;
   const long long budget = PK == kTopk ? budgetp[row] : 0;
   long long tie_rank = PK == kTopk ? tie_base[o] : 0;
-  const float sc = IntWire<W>::value ? scale[row] : 1.f;
-  const float* ucrow = IntWire<W>::value ? ucod + row * k_cap : nullptr;
+  const float sc = kInt ? scale[row] : 1.f;
+  const float* ucrow = kInt ? ucod + row * k_cap : nullptr;
   const T* grow = g + row * d;
-  W* vrow = vals + row * k_cap;
-  int* irow = idx + row * k_cap;
+  const float* urow = PK == kTopk ? nullptr : u + row * d;
   T* rrow = res == nullptr ? nullptr : res + row * d;
-  const int64_t start = tile * kTile;
-  const int64_t end = row_end(d, start);
-  __shared__ int sh_scan[33];
-  for (int64_t s = start; s < end; s += kSweep) {     // uniform over the block
-    const int64_t i = s + threadIdx.x * kItems;
+  const int start = (int)(tile * kTile);
+  const int end = (int)row_end(d, start);
+  __shared__ SweepCounts sh;
+  // the integer codecs read u_cod at compact rank: the block's ranks are
+  // [base, next base), so their first kCodStage uniforms are copied to
+  // shared memory as the block starts, off the sweeps' critical path
+  __shared__ float sh_cod[kInt ? kCodStage : 1];
+  int staged = 0;
+  if constexpr (kInt) {
+    const int next = tile + 1 < ntiles ? base[o + 1] : n_row;
+    const int hi = next < kc ? next : kc;
+    staged = hi - tile_rank < kCodStage ? hi - tile_rank : kCodStage;
+    for (int j = threadIdx.x; j < staged; j += kThreads)
+      cp_async4(sh_cod + j, ucrow + tile_rank + j);
+  }
+  Chunk<T> gc;
+  Chunk<float> uc;
+  load_chunk(grow, start + threadIdx.x * kItems, end, vec_g, gc);
+  if constexpr (PK != kTopk)
+    load_chunk(urow, start + threadIdx.x * kItems, end, vec_u, uc);
+  if constexpr (kInt) cp_async_wait_all();   // seen by all after a barrier
+  int rank0 = tile_rank;
+  int par = 0;
+  for (int s = start; s < end; s += kSweep, par ^= 1) {   // uniform
+    const int i = s + threadIdx.x * kItems;
     float x[kItems], r[kItems];
-    load_items(grow, i, end, vec_g, x);
-    if constexpr (PK != kTopk) load_items(u + row * d, i, end, vec_u, r);
-    bool z[kItems];
-    float v[kItems];
-    select_sweep<PK>(x, r, i, end, s1, s2, budget, &tie_rank, sh_scan, z, v);
-    int lc = 0;
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) lc += z[k];
-    int total;
-    long long rk = rank0 + block_excl_scan(lc, &total, sh_scan);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if (z[k]) {
-        if (rk < k_cap) {
-          if constexpr (IntWire<W>::value)
-            vrow[rk] = (W)(int)int_level(v[k], sc, ucrow[rk], levels, ternary);
-          else
-            vrow[rk] = from_f32<W>(v[k]);
-          irow[rk] = (int)(i + k);
+    unpack(gc, x);
+    if constexpr (PK != kTopk) unpack(uc, r);
+    // the next sweep's loads (none past the tile) fly across the barrier
+    load_chunk(grow, i + kSweep, end, vec_g, gc);
+    if constexpr (PK != kTopk) load_chunk(urow, i + kSweep, end, vec_u, uc);
+    int first, total;
+    const unsigned zm = sweep_ranks<PK>(x, r, valid_items(i, end), s1, s2,
+                                        budget, &tie_rank, sh, par, &first,
+                                        &total);
+    // only the kept items: a warp loops as often as its fullest lane keeps
+    int rk = rank0 + first;
+    for (unsigned m = zm; m != 0u; m &= m - 1u, ++rk) {
+      const int k = __ffs(m) - 1;
+      const float xk = pick(x, k);
+      const float v = kept_value<PK>(xk, s1, s2);
+      if (rk < kc) {
+        if constexpr (kInt) {
+          const int j = rk - tile_rank;
+          const float uk = j < staged ? sh_cod[j] : ucrow[rk];
+          vrow[rk] = (W)(int)int_level(v, sc, uk, levels, ternary);
+        } else {
+          vrow[rk] = from_f32<W>(v);
         }
-        ++rk;
+        irow[rk] = i + k;
       }
-      if constexpr (!IntWire<W>::value) {
-        if (rrow != nullptr && i + k < end) {
-          const float enc = round_res ? to_f32(from_f32<W>(v[k])) : v[k];
-          rrow[i + k] = from_f32<T>(x[k] - (z[k] ? enc : 0.f));
-        }
+      if constexpr (!kInt) {               // the residual, in place of x
+        const float rk_res = xk - (round_res ? to_f32(from_f32<W>(v)) : v);
+#pragma unroll
+        for (int kk = 0; kk < kItems; ++kk) x[kk] = kk == k ? rk_res : x[kk];
       }
     }
+    if constexpr (!kInt)
+      if (rrow != nullptr) store_items(rrow, i, end, vec_r, x);
     rank0 += total;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 5: Golomb-Rice packing of the compact index stream (the RICE wire
-// layout), from pass 2's ascending idx[rows, k_cap] and pass 1's nnz. Per row,
-// with n_live = min(nnz, k_cap), live code i has x_i = idx_i - idx_{i-1} - 1
-// (idx_{-1} = -1) and q_i = x_i >> r; dead codes have x = 0. The stream is
-// [k_cap*r remainder bits | unary field] in cap_words zeroed int32 words: the
-// low r bits of x_i at bit i*r, the terminator of code i at unary position
-// sum_{j<=i} q_j + i, and one-bits below live_end = sum q + n_live except at
-// terminators. used = ceil((k_cap*r + sum q + k_cap) / 32).
+// Kernel 4b: Golomb-Rice packing of the compact index stream (the RICE wire
+// layout), from pass 2's ascending idx[rows, k_cap] and pass 1's nnz. Per
+// row, with n_live = min(nnz, k_cap), live code i has x_i = idx_i - idx_{i-1}
+// - 1 (idx_{-1} = -1) and q_i = x_i >> r; dead codes have x = 0. The stream
+// is [k_cap*r remainder bits | unary field] in cap_words int32 words,
+// zeroed before the launch: the low r bits of x_i at bit i*r; in the unary
+// field code i's q_i one-bits and then its terminator (a zero) at unary
+// position sum_{j<=i} q_j + i, so every bit below live_end = sum q + n_live
+// is a one except at terminators, and the dead codes' terminators and
+// everything after are zeros. used = ceil((k_cap*r + sum q + k_cap) / 32).
 //
 // The TPU packs inside pass 2 and carries the previous coordinate and the
 // running quotient sum across its sequential grid in SMEM. Here the packing
-// reads the compact buffer instead, so those carries become a scan over the
-// k_cap codes: rice_tiles sums q per block of kRiceTile codes (the previous
-// code's index is one load across the block edge), rice_scan turns the sums
-// into per-block unary bases, rice_write writes the remainders (a warp's 32
-// codes own r whole words: an OR-reduction over the warp and plain stores)
-// and sets the terminators with atomicOr (disjoint bits: the same words in
-// any order), and rice_finalize flips each unary word below live_end. Bound:
-// one read of each row's live idx prefix (4 B per live code; dead codes are
-// never loaded) and one write of the words.
+// reads the compact buffer after pass 2. A straightforward port takes
+// four launches, reads idx twice, sets each terminator with a global
+// atomicOr (about 1e8 a step at gemma-2b, up to 8 lanes of a warp on one
+// word) and flips the unary words in a second pass: 2.2 ms a step against
+// a 0.185 ms bound. Here, one launch after one memset (the words and the
+// status words):
+// - each thread owns kRiceItems consecutive codes (16-byte idx loads and
+//   the code before them), so each live idx is read once; dead codes are
+//   never read. The kernel is bound by latency, not bytes: a block's loads
+//   are in flight only between its ticket and its look-back, so the block
+//   takes 16 codes a thread (4096) at 6 blocks an SM, which measured
+//   faster than 8, 12, 20 or 32 codes at the occupancy each allows;
+// - the unary base of a block (the quotient sum of the row's codes before
+//   it) comes from a single-pass chained scan with decoupled look-back over
+//   per-block quotient sums (a status word per block: aggregate or
+//   inclusive prefix). Blocks take their (row, block) from a ticket
+//   (atomicAdd), so a block only ever waits on blocks that have started;
+//   the row's last block writes `used`; warp 0 looks back while the other
+//   warps' remainder words are stored. (Persistent blocks that prefetch
+//   their next tile measured slower: every block held a ticket whose
+//   aggregate it published a whole tile later, and look-backs walked back
+//   over all the tiles in flight.);
+// - a warp's codes own a contiguous span of the unary field. Once the base
+//   is known, the warp stages it in shared memory a window of kRiceWin
+//   words at a time (the span's bits set, each terminator cleared with a
+//   shared atomicAnd) and stores the words plainly; only the span's first
+//   and last word, shared with the neighbouring warp or block, take one
+//   global atomicOr each. A window without terminators (a long quotient: a
+//   single code at d - 1, r = 0) is stored as whole words of ones without
+//   staging. (Staging the span from a word boundary before the base, while
+//   warp 0 looks back, and storing it shifted after, measured slower.);
+// - the warp's remainders fill exactly kRiceItems * r whole words: each
+//   lane ORs its codes into them in shared memory and the words are stored
+//   plainly; only the word where the remainder field meets the unary field
+//   takes a global atomicOr.
+// Bound: one read of each row's live idx prefix (4 B per live code) and one
+// write of the words; the memset (which keeps the words past `used` zero)
+// adds one more write of them.
+// ptxas (-Xptxas -v, sm_90a, 6 blocks an SM): 40 registers, a 16-byte
+// stack frame (12 bytes of spill stores), 15 KB of shared memory.
 // ---------------------------------------------------------------------------
 
-constexpr int64_t kRiceTile = 8 * kThreads;    // codes per block
+constexpr int kRiceItems = 16;                     // codes per thread
+constexpr int kRiceMinBlocks = 6;                  // blocks an SM holds
+constexpr int64_t kRiceTile = kRiceItems * kThreads;   // codes per block
+constexpr int kRiceCodes = kRiceItems * 32;            // codes per warp
+constexpr int kRiceWin = 256;                      // staged words per warp
+// a warp's staging buffer: its remainder words (r <= 30) or a unary window
+constexpr int kRiceBuf = 30 * kRiceItems > kRiceWin ? 30 * kRiceItems
+                                                     : kRiceWin;
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
 
-struct RiceCode {
-  int64_t x;      // gap - 1 (0 for dead codes and codes past k_cap)
-  bool live;
-};
-
-__device__ __forceinline__ RiceCode rice_code(const int* __restrict__ irow,
-                                              int64_t i, int64_t n_live) {
-  RiceCode c;
-  c.live = i < n_live;
-  const int64_t prev = i > 0 && c.live ? irow[i - 1] : -1;
-  c.x = c.live ? (int64_t)irow[i] - prev - 1 : 0;
-  return c;
+// A status word carries its value in its own 64 bits, so the look-back
+// needs no ordering beyond single-copy atomicity: relaxed loads and stores
+// at device scope (no L1 copy).
+__device__ __forceinline__ unsigned long long ld_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__device__ __forceinline__ int64_t live_count(const int* __restrict__ nnz,
-                                              int64_t row, int64_t k_cap) {
-  const int64_t n = nnz[row];
-  return n < k_cap ? n : k_cap;
+__device__ __forceinline__ void st_status(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
-rice_tiles(const int* __restrict__ idx, const int* __restrict__ nnz,
-           int64_t k_cap, int r, int64_t nb, int* __restrict__ qsum) {
-  const int64_t row = blockIdx.y, b = blockIdx.x;
-  const int* irow = idx + row * k_cap;
-  const int64_t n_live = live_count(nnz, row, k_cap);
-  const int64_t start = b * kRiceTile;
-  const int64_t end = k_cap < start + kRiceTile ? k_cap : start + kRiceTile;
-  int s = 0;
-  for (int64_t i = start + threadIdx.x; i < end; i += kThreads)
-    s += (int)(rice_code(irow, i, n_live).x >> r);
-  __shared__ int sh[32];
-  s = block_sum(s, sh);
-  if (threadIdx.x == 0) qsum[row * nb + b] = s;
+template <typename V> __device__ __forceinline__ V warp_allsum(V v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
-// One block per row: exclusive scan of the block quotient sums into unary
-// bases; the row's used word count and the end of its live unary bits.
-__global__ void __launch_bounds__(kThreads)
-rice_scan(const int* __restrict__ qsum, const int* __restrict__ nnz,
-          int64_t k_cap, int r, int64_t nb, int* __restrict__ qbase,
-          int* __restrict__ used, long long* __restrict__ live_end) {
-  const int64_t row = blockIdx.x;
-  __shared__ int sh_scan[33];
-  long long running = 0;
-  for (int64_t c0 = 0; c0 < nb; c0 += blockDim.x) {
-    const int64_t b = c0 + threadIdx.x;
-    const int q = b < nb ? qsum[row * nb + b] : 0;
-    int total;
-    const int ex = block_excl_scan(q, &total, sh_scan);
-    if (b < nb) qbase[row * nb + b] = (int)(running + ex);
-    running += total;
-  }
-  if (threadIdx.x == 0) {
-    used[row] = (int)((k_cap * r + running + k_cap + 31) / 32);
-    live_end[row] = running + live_count(nnz, row, k_cap);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-rice_write(const int* __restrict__ idx, const int* __restrict__ nnz,
-           int64_t k_cap, int r, int64_t nb, int64_t cap_words,
-           const int* __restrict__ qbase, unsigned* __restrict__ words) {
-  const int64_t row = blockIdx.y, b = blockIdx.x;
+// Run by one warp of block b > 0, after b published its aggregate: look
+// back over its predecessors 32 at a time until one holds an inclusive
+// prefix, and return b's exclusive prefix (the quotients before it).
+// (A window of 256, 8 words a lane, measured slower: the nearest prefix
+// lies within 32 tiles, and the wide window waits on more of them.)
+__device__ long long rice_lookback(const unsigned long long* __restrict__ st,
+                                   int64_t b) {
   const int lane = threadIdx.x & 31;
-  const int* irow = idx + row * k_cap;
-  unsigned* wrow = words + row * cap_words;
-  const int64_t n_live = live_count(nnz, row, k_cap);
-  const int64_t rem_bits = k_cap * r;            // the remainder field
-  const unsigned rmask = (1u << r) - 1u;
-  __shared__ int sh_scan[33];
-  long long carry = qbase[row * nb + b];
-  // every thread runs every sweep: the warp and block collectives below
-  for (int64_t s = b * kRiceTile; s < (b + 1) * kRiceTile; s += kThreads) {
-    const int64_t i = s + threadIdx.x;
-    const RiceCode c = i < k_cap ? rice_code(irow, i, n_live)
-                                 : RiceCode{0, false};
-    const int q = (int)(c.x >> r);
-    int total;
-    const int ex = block_excl_scan(q, &total, sh_scan);
-    if (c.live) {
-      const int64_t bit = rem_bits + carry + ex + q + i;   // terminator
-      atomicOr(wrow + (bit >> 5), 1u << (bit & 31));
-    }
-    carry += total;
-    // this warp's 32 codes start at a multiple of 32, so their remainders
-    // fill exactly r words: word j gathers every lane's bits that land there
-    const int64_t w0 = (i - lane) * r / 32;
-    const unsigned rem = (unsigned)c.x & rmask;
-    for (int j = 0; j < r; ++j) {
-      const int off = lane * r - 32 * j;
-      unsigned part = 0u;
-      if (off >= 0 && off < 32) part = rem << off;
-      else if (off < 0 && -off < r) part = rem >> (-off);
-      const unsigned w = __reduce_or_sync(kFull, part);
-      const int64_t wi = w0 + j;
-      if (lane == j) {
-        if ((wi + 1) * 32 <= rem_bits) wrow[wi] = w;
-        else if (wi * 32 < rem_bits && w) atomicOr(wrow + wi, w);  // shares
-      }                                            // its word with the unary
-    }
+  long long excl = 0;
+  for (int64_t top = b - 1;; top -= 32) {
+    const int64_t j = top - lane;
+    unsigned long long f = j >= 0 ? ld_status(st + j) : kPrefix;
+    while (__any_sync(kFull, (f >> 32) == 0))
+      if ((f >> 32) == 0) f = ld_status(st + j);
+    const unsigned pre = __ballot_sync(kFull, (f >> 32) == 2);
+    const int last = pre ? __ffs(pre) - 1 : 31;   // the nearest prefix
+    excl += warp_allsum(lane <= last ? (long long)(f & 0xffffffffu) : 0ll);
+    if (pre) return excl;
   }
 }
 
-// Unary field: one-bits below live_end except at the terminators, so each
-// word's unary bits below live_end flip. Remainder bits are left alone.
-__global__ void __launch_bounds__(kThreads)
-rice_finalize(int64_t k_cap, int r, int64_t cap_words,
-              const long long* __restrict__ live_end,
-              unsigned* __restrict__ words) {
+// The bits of word wi that lie in [lo, hi] (bit positions from a word
+// boundary).
+__device__ __forceinline__ unsigned span_bits(unsigned wi, unsigned lo,
+                                              unsigned hi) {
+  const unsigned wb = wi * 32u;
+  const unsigned a = (lo > wb ? lo : wb) - wb;
+  const unsigned e = (hi < wb + 31u ? hi : wb + 31u) - wb;
+  const unsigned upto = e >= 31u ? ~0u : (1u << (e + 1u)) - 1u;
+  return upto & ~((1u << a) - 1u);
+}
+
+__global__ void __launch_bounds__(kThreads, kRiceMinBlocks)
+rice_pack(const int* __restrict__ idx, const int* __restrict__ nnz,
+          int64_t k_cap, int r, int64_t nb, int64_t cap_words, int vec,
+          unsigned long long* __restrict__ status,
+          unsigned* __restrict__ words, int* __restrict__ used) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int64_t row = blockIdx.y;
-  const int64_t wi = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (wi >= cap_words) return;
-  const int64_t lo = k_cap * r, hi = lo + live_end[row];
-  const int64_t wb = wi * 32;
-  const int64_t a = (lo > wb ? lo : wb) - wb;
-  const int64_t e = (hi < wb + 32 ? hi : wb + 32) - wb;
-  if (a >= e) return;
-  const unsigned below_e = e >= 32 ? ~0u : (1u << e) - 1u;
-  words[row * cap_words + wi] ^= below_e & ~((1u << a) - 1u);
+  unsigned long long* st = status + row * nb;   // the row's status words
+  __shared__ unsigned long long sh_ticket;
+  __shared__ int sh_warp[kWarps];
+  __shared__ long long sh_base;
+  __shared__ unsigned sh_buf[kWarps][kRiceBuf];
+  const int64_t nl = nnz[row];           // in flight with the ticket
+  if (threadIdx.x == 0)                  // the row's tickets follow all rows'
+    sh_ticket = atomicAdd(status + gridDim.y * nb + row, 1ull);  // status
+  __syncthreads();
+  const int64_t b = (int64_t)sh_ticket;  // blocks of the row, in start order
+  const int* irow = idx + row * k_cap;
+  const int64_t n_live = nl < k_cap ? nl : k_cap;
+  const int64_t c0 = b * kRiceTile + threadIdx.x * kRiceItems;  // my first
+  // my live codes: a prefix of mine, as live codes are a prefix of the row
+  const int nk = c0 >= n_live ? 0 : (n_live - c0 < kRiceItems
+                                     ? (int)(n_live - c0) : kRiceItems);
+  int x[kRiceItems];                     // idx, then gap - 1 (0 when dead)
+  if (vec && nk == kRiceItems) {
+#pragma unroll
+    for (int v = 0; v < kRiceItems / 4; ++v) {
+      const int4 q = *reinterpret_cast<const int4*>(irow + c0 + 4 * v);
+      x[4 * v] = q.x; x[4 * v + 1] = q.y; x[4 * v + 2] = q.z;
+      x[4 * v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) x[k] = k < nk ? irow[c0 + k] : 0;
+  }
+  int prev = c0 > 0 && nk > 0 ? irow[c0 - 1] : -1;
+  int qs = 0;
+#pragma unroll
+  for (int k = 0; k < kRiceItems; ++k) {
+    const int cur = x[k];
+    x[k] = k < nk ? cur - prev - 1 : 0;
+    prev = cur;
+    qs += x[k] >> r;
+  }
+  // quotient sums: in the warp by shuffles, across warps in shared memory
+  int inc = qs;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += n;
+  }
+  if (lane == 31) sh_warp[w] = inc;
+  __syncthreads();
+  int wpre = 0, agg = 0;
+#pragma unroll
+  for (int j = 0; j < kWarps; ++j) {
+    const int c = sh_warp[j];
+    if (j < w) wpre += c;
+    agg += c;
+  }
+  if (threadIdx.x == 0)                  // publish at once: the row's first
+    st_status(st + b, (b == 0 ? kPrefix : kAggregate) | (unsigned)agg);
+  // a block past the live codes has an aggregate of 0 and nothing to
+  // write; only the row's last block looks back over such blocks (for
+  // `used`), so the others leave at once instead of waiting on the row
+  if (b * kRiceTile >= n_live && b > 0 && b < nb - 1) return;
+
+  const int64_t cw = b * kRiceTile + (int64_t)w * kRiceCodes;  // warp's first
+  const bool live = cw < n_live;         // a live code in this warp
+  unsigned* wrow = words + row * cap_words;
+  unsigned* buf = sh_buf[w];
+  const int64_t rem_bits = k_cap * r;    // the remainder field, then unary
+
+  // This warp's kRiceItems * r remainder words need no base: they are
+  // written while warp 0 looks back.
+  if (live && r > 0) {
+    const int nw = kRiceItems * r;
+    const unsigned rmask = (1u << r) - 1u;
+    for (int j = lane; j < nw; j += 32) buf[j] = 0u;
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) {
+      const unsigned rem = (unsigned)x[k] & rmask;
+      if (rem) {
+        const int bit = (lane * kRiceItems + k) * r;
+        const int off = bit & 31;
+        atomicOr(buf + (bit >> 5), rem << off);
+        if (off + r > 32) atomicOr(buf + (bit >> 5) + 1, rem >> (32 - off));
+      }
+    }
+    __syncwarp();
+    const int64_t w0 = cw / 32 * r;      // cw is a multiple of 32
+    unsigned* rw = wrow + w0;
+    // words [0, full) lie wholly in the remainder field; word `full` meets
+    // the unary field when the field does not end on a word
+    const int64_t full64 = rem_bits / 32 - w0;
+    const int full = full64 < nw ? (int)full64 : nw;
+    for (int j = lane; j < nw; j += 32) {
+      const unsigned v = buf[j];
+      if (!v) continue;                  // the memset's zero stays
+      if (j < full) rw[j] = v;
+      else if (j == full) atomicOr(rw + j, v);
+    }
+    __syncwarp();
+  }
+  if (w == 0) {
+    const long long excl = b == 0 ? 0 : rice_lookback(st, b);
+    if (lane == 0) {
+      sh_base = excl;
+      if (b > 0) st_status(st + b, kPrefix | (unsigned)(excl + agg));
+    }
+  }
+  __syncthreads();
+  const long long qbase = sh_base;     // quotients of the row's earlier blocks
+  if (b == nb - 1 && threadIdx.x == 0)
+    used[row] = (int)((k_cap * r + qbase + agg + k_cap + 31) / 32);
+  if (!live) return;
+
+  // The unary span of this warp's live codes, in bits from the word `ws`
+  // that holds its first bit: [lo, hi], from the first code's first
+  // one-bit (or terminator) to the last live code's terminator. My codes'
+  // terminators follow from my quotient prefix in the warp.
+  const int64_t p = rem_bits + qbase + wpre + cw;
+  const int64_t ws = p >> 5;
+  unsigned* wspan = wrow + ws;
+  const int64_t wleft = cap_words - ws;  // (every span fits: capacity bound)
+  const int last = n_live - cw < kRiceCodes ? (int)(n_live - cw) - 1
+                                            : kRiceCodes - 1;
+  const unsigned lo = (unsigned)(p & 31);
+  const unsigned hi = lo + (unsigned)sh_warp[w] + (unsigned)last;
+  const unsigned tme = lo + (unsigned)(inc - qs) +
+                       (unsigned)(lane * kRiceItems);
+  const unsigned mine_lo = tme + (unsigned)(x[0] >> r);     // when nk > 0
+  const unsigned mine_hi = tme + (unsigned)qs + (unsigned)(nk - 1);
+  const unsigned nwords = (hi >> 5) + 1u;
+  for (unsigned wa = 0; wa < nwords; wa += kRiceWin) {
+    const unsigned wz = wa + kRiceWin < nwords ? wa + kRiceWin : nwords;
+    const bool mine = nk > 0 && (mine_lo >> 5) < wz && (mine_hi >> 5) >= wa;
+    const bool staged = __any_sync(kFull, mine);  // terminators lie here
+    if (staged) {
+      for (unsigned j = lane; j < wz - wa; j += 32)
+        buf[j] = span_bits(wa + j, lo, hi);
+      __syncwarp();
+      if (mine) {
+        unsigned t = tme;
+#pragma unroll
+        for (int k = 0; k < kRiceItems; ++k) {
+          t += (unsigned)(x[k] >> r);
+          const unsigned tw = (t + k) >> 5;   // code c0 + k's terminator
+          if (k < nk && tw >= wa && tw < wz)
+            atomicAnd(buf + (tw - wa), ~(1u << ((t + k) & 31)));
+        }
+      }
+      __syncwarp();
+    }
+    for (unsigned j = lane; j < wz - wa; j += 32) {
+      const unsigned wi = wa + j;
+      if ((int64_t)wi >= wleft) break;
+      const unsigned v = staged ? buf[j] : span_bits(wi, lo, hi);
+      if ((wi == 0 && lo) || (wi == nwords - 1 && (hi & 31) != 31)) {
+        if (v) atomicOr(wspan + wi, v);  // shared with a neighbour
+      } else {
+        wspan[wi] = v;
+      }
+    }
+    __syncwarp();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -904,35 +1334,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 
 __device__ __forceinline__ float philox_uniform(unsigned b) {
   return (float)(b >> 8) * (1.0f / 16777216.0f);
-}
-
-// kItems consecutive values of one row from i, rounded to the row's type;
-// entries at or past `end` are not stored. `vec` as in load_items.
-__device__ __forceinline__ void store_items(__nv_bfloat16* __restrict__ row,
-                                            int64_t i, int64_t end, bool vec,
-                                            const float v[kItems]) {
-  if (vec && i + kItems <= end) {
-    uint4 raw;
-    __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) h[k] = __float2bfloat16_rn(v[k]);
-    *reinterpret_cast<uint4*>(row + i) = raw;
-  } else {
-    for (int k = 0; k < kItems && i + k < end; ++k)
-      row[i + k] = __float2bfloat16_rn(v[k]);
-  }
-}
-
-__device__ __forceinline__ void store_items(float* __restrict__ row,
-                                            int64_t i, int64_t end, bool vec,
-                                            const float v[kItems]) {
-  if (vec && i + kItems <= end) {
-    *reinterpret_cast<float4*>(row + i) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(row + i + 4) =
-        make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    for (int k = 0; k < kItems && i + k < end; ++k) row[i + k] = v[k];
-  }
 }
 
 template <typename T, typename W, bool kEF, bool kPrng>
@@ -1079,18 +1480,28 @@ void launch_select(const void* g, const void* u, long long rows,
 
 template <int PK, typename T, typename W>
 void launch_emit(const void* g, const void* u, long long rows, long long d,
-                 int vec_g, int vec_u, const void* s1, const void* s2,
-                 const void* budget, const void* base, const void* tie_base,
-                 long long k_cap, void* vals, void* idx, void* res,
-                 int round_res, const void* scale, const void* ucod,
-                 float levels, int ternary, cudaStream_t st) {
+                 int vec_g, int vec_u, int vec_r, const void* s1,
+                 const void* s2, const void* budget, const void* base,
+                 const void* tie_base, const void* nnz, long long k_cap,
+                 void* vals, void* idx, void* res, int round_res,
+                 const void* scale, const void* ucod, float levels,
+                 int ternary, cudaStream_t st) {
   const int64_t nt = (d + kTile - 1) / kTile;
   dim3 grid(grid_x(nt), (unsigned)rows);
+  // the dead slots: the kernel zeroes them, except at a capacity of a whole
+  // row (bern's k_cap = d, nearly every slot dead), where a memset of both
+  // buffers measured faster than stores mixed into the pass
+  const int zero_dead = k_cap < d;
+  if (!zero_dead) {
+    cudaMemsetAsync(vals, 0, rows * k_cap * sizeof(W), st);
+    cudaMemsetAsync(idx, 0, rows * k_cap * 4, st);
+  }
   compact_emit<PK, T, W><<<grid, kThreads, 0, st>>>(
-      (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
-      (const float*)s2, (const long long*)budget, (const int*)base,
-      (const int*)tie_base, k_cap, (W*)vals, (int*)idx, (T*)res, round_res,
-      (const float*)scale, (const float*)ucod, levels, ternary);
+      (const T*)g, (const float*)u, d, nt, vec_g, vec_u, vec_r,
+      (const float*)s1, (const float*)s2, (const long long*)budget,
+      (const int*)base, (const int*)tie_base, (const int*)nnz, k_cap,
+      (W*)vals, (int*)idx, (T*)res, round_res, (const float*)scale,
+      (const float*)ucod, levels, ternary, zero_dead);
 }
 
 template <bool kL2>
@@ -1216,11 +1627,14 @@ int gspar_select_stats(const void* g, int dt, const void* u, long long rows,
 
 // wdt: the wire dtype code (0 float32, 1 bfloat16, 2 int8, 3 int16); an
 // integer wire takes `scale` and `ucod`, and `ternary` or the qsgd `levels`.
+// nnz: pass 1's survivors per row (the live prefix of the compact buffers);
+// vec_r: 16-byte residual stores (aligned row base, d % 8 == 0).
 int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
-                       long long d, int vec_g, int vec_u, int pk,
+                       long long d, int vec_g, int vec_u, int vec_r, int pk,
                        const void* s1, const void* s2, const void* budget,
                        const void* base, const void* tie_base,
-                       long long k_cap, void* vals, int wdt, void* idx,
+                       const void* nnz, long long k_cap, void* vals, int wdt,
+                       void* idx,
                        void* res, int round_res, const void* scale,
                        const void* ucod, float levels, int ternary,
                        void* stream) {
@@ -1229,9 +1643,9 @@ int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
   const int err = with_kind(pk, [&](auto kind) {
     constexpr int PK = decltype(kind)::value;
 #define GSPAR_EMIT(T, W)                                                     \
-  launch_emit<PK, T, W>(g, u, rows, d, vec_g, vec_u, s1, s2, budget, base,  \
-                        tie_base, k_cap, vals, idx, res, round_res, scale,  \
-                        ucod, levels, ternary, st)
+  launch_emit<PK, T, W>(g, u, rows, d, vec_g, vec_u, vec_r, s1, s2, budget, \
+                        base, tie_base, nnz, k_cap, vals, idx, res,        \
+                        round_res, scale, ucod, levels, ternary, st)
     using bf16 = __nv_bfloat16;
     if (dt == 0 && wdt == 0) GSPAR_EMIT(float, float);
     else if (dt == 0 && wdt == 1) GSPAR_EMIT(float, bf16);
@@ -1247,28 +1661,29 @@ int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
+// status: rows * (ceil(k_cap / kRiceTile) + 1) 64-bit words (the blocks'
+// look-back status words, then a ticket counter per row) and words: both
+// zeroed here before the launch; vec: 16-byte idx loads (aligned base,
+// k_cap % 4 == 0).
 int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
-                    long long k_cap, int r, long long cap_words, void* qsum,
-                    void* qbase, void* live_end, void* words, void* used,
-                    void* stream) {
+                    long long k_cap, int r, long long cap_words, int vec,
+                    void* status, void* words, void* used, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
+  const int64_t sbytes = rows * (nb + 1) * 8, wbytes = rows * cap_words * 4;
+  if ((char*)words == (char*)status + sbytes) {   // one memset for both
+    cudaMemsetAsync(status, 0, sbytes + wbytes, st);
+  } else {
+    cudaMemsetAsync(status, 0, sbytes, st);
+    cudaMemsetAsync(words, 0, wbytes, st);
+  }
   dim3 grid(grid_x(nb), (unsigned)rows);
-  rice_tiles<<<grid, kThreads, 0, st>>>((const int*)idx, (const int*)nnz,
-                                        k_cap, r, nb, (int*)qsum);
-  rice_scan<<<(unsigned)rows, kThreads, 0, st>>>(
-      (const int*)qsum, (const int*)nnz, k_cap, r, nb, (int*)qbase,
-      (int*)used, (long long*)live_end);
-  rice_write<<<grid, kThreads, 0, st>>>(
-      (const int*)idx, (const int*)nnz, k_cap, r, nb, cap_words,
-      (const int*)qbase, (unsigned*)words);
-  dim3 fgrid((unsigned)((cap_words + kThreads - 1) / kThreads),
-             (unsigned)rows);
-  rice_finalize<<<fgrid, kThreads, 0, st>>>(
-      k_cap, r, cap_words, (const long long*)live_end, (unsigned*)words);
+  if (rows * nb > 0)
+    rice_pack<<<grid, kThreads, 0, st>>>(
+        (const int*)idx, (const int*)nnz, k_cap, r, nb, cap_words, vec,
+        (unsigned long long*)status, (unsigned*)words, (int*)used);
   return (int)cudaGetLastError();
 }
-
 
 // Kernels 5, 6 and 8. wdt: the wire dtype code of q (0 float32, 1
 // bfloat16); `res` non-null: kernel 6; `prng` non-zero: kernel 8 (no u, no

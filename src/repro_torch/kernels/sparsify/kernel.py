@@ -45,7 +45,7 @@ from repro_torch.kernels.sparsify import ref
 from repro_torch.kernels.sparsify.ref import SelectStats, Sparsified
 
 TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
-RICE_TILE = 2048      # codes per CUDA block; must equal kRiceTile in the .cu
+RICE_TILE = 4096      # codes per CUDA block; must equal kRiceTile in the .cu
 KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
            "rice_pack", "stats", "sparsify", "sparsify_ef", "sparsify_prng")
 PKINDS = ref.PKINDS   # selector kinds of passes 1-2, in the .cu's enum order
@@ -75,10 +75,10 @@ _SIGNATURES = {
     "gspar_tail_stats": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "gspar_select_stats": ((_P, _I, _P, _L, _L, _I, _I, _I, _P, _P, _P, _L)
                            + (_P,) * 15 + (_P,), _I),
-    "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _I, _P, _P, _P, _P,
-                            _P, _L, _P, _I, _P, _P, _I, _P, _P,
+    "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _I, _I, _P, _P, _P,
+                            _P, _P, _P, _L, _P, _I, _P, _P, _I, _P, _P,
                             ctypes.c_float, _I, _P), _I),
-    "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L) + (_P,) * 5 + (_P,), _I),
+    "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L, _I) + (_P,) * 3 + (_P,), _I),
     "gspar_stats": ((_P, _I, _L, _L, _I) + (_P,) * 6 + (_P,), _I),
     "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _P, _I, ctypes.c_uint, _P,
                         _I) + (_P,) * 7 + (_P,), _I),
@@ -99,10 +99,11 @@ def library_path() -> Path:
 def build() -> tuple[Path, str]:
     """Compile ``csrc/sparsify.cu`` (once per source hash). Returns the
     library path and nvcc's log (``-Xptxas -v``: registers, shared memory
-    and spills per kernel; empty when the library was already built)."""
+    and spills per kernel), kept beside the library for later calls."""
     out = library_path()
+    log = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log.read_text() if log.exists() else ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -111,6 +112,7 @@ def build() -> tuple[Path, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {_SOURCE}:\n"
                            f"{proc.stdout}{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
 
@@ -328,7 +330,9 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
     recomputes them). Replaces ``compact_emit_2d`` with ``rice_r=-1``
     (src/repro/kernels/sparsify/kernel.py:559). Bound: one read of g (and
     u), the compact write (and the codec uniforms), and with ``ef`` one
-    write of the residual."""
+    write of the residual. The buffers come from ``torch.empty``: the
+    kernel zeroes the dead tail, or the launcher memsets both buffers where
+    the capacity is a whole row (``k_cap >= d``)."""
     s1, s2, budget = _kind_scalars("compact_emit", g, pkind, s1, s2, budget)
     u = _uniforms("compact_emit", g, u, pkind)
     wire_dtype = codec.wire_dtype(g.dtype)
@@ -348,18 +352,25 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
     else:
         scale = u_cod = None
     extra = [t for t in (u, s2, budget, scale, u_cod) if t is not None]
-    if not _on_card("compact_emit", g, s1, sel.base, *extra):
+    if not _on_card("compact_emit", g, s1, sel.base, sel.nnz, *extra):
         return ref.compact_emit_ref(g, u, s1, k_cap, codec, ef, pkind=pkind,
                                     s2=s2, budget=budget, scale=scale,
                                     u_cod=u_cod)
+    if sel.nnz.shape != (rows,) or sel.nnz.dtype != torch.int32:
+        raise ValueError("compact_emit: sel.nnz must be int32 [rows]")
+    if k_cap >= 2**31:
+        raise ValueError(f"compact_emit: k_cap {k_cap} exceeds int32 ranks")
     d = g.shape[1]
-    vals = torch.zeros((rows, k_cap), dtype=wire_dtype, device=g.device)
-    idx = torch.zeros((rows, k_cap), dtype=torch.int32, device=g.device)
+    # no memset here: the kernel (at k_cap >= d the launcher) zeroes the
+    # dead tail
+    vals = torch.empty((rows, k_cap), dtype=wire_dtype, device=g.device)
+    idx = torch.empty((rows, k_cap), dtype=torch.int32, device=g.device)
     res = torch.empty_like(g) if ef else None
     _check(_lib().gspar_compact_emit(
         _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, _vec(g),
-        _vec(u) if u is not None else 0, PKINDS.index(pkind), _ptr(s1),
-        _ptr(s2), _ptr(budget), _ptr(sel.base), _ptr(sel.tie_base), k_cap,
+        _vec(u) if u is not None else 0, _vec(res) if ef else 0,
+        PKINDS.index(pkind), _ptr(s1), _ptr(s2), _ptr(budget),
+        _ptr(sel.base), _ptr(sel.tie_base), _ptr(sel.nnz), k_cap,
         _ptr(vals), _DTYPE_CODE[wire_dtype], _ptr(idx), _ptr(res),
         int(codec.rounds_values), _ptr(scale), _ptr(u_cod),
         float(getattr(codec, "levels", 0.0)), int(codec.name == "ternary"),
@@ -377,7 +388,9 @@ def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
     Replaces the ``rice_r >= 0`` parts of ``compact_emit_2d``
     (src/repro/kernels/sparsify/kernel.py:497-556, ``pallas_call`` at :612),
     which pack inside pass 2; this kernel packs from the compact buffer
-    after it. Bound: one read of each row's live idx prefix (4 B per live
+    after it, in one launch after one memset (a chained scan with
+    decoupled look-back over its blocks' quotient sums, blocks ordered by a
+    ticket). Bound: one read of each row's live idx prefix (4 B per live
     code) and one write of the words."""
     if idx.dim() != 2 or idx.dtype != torch.int32:
         raise ValueError("rice_pack: idx must be an int32 [rows, k_cap] "
@@ -397,17 +410,18 @@ def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
         raise ValueError("rice_pack: idx and nnz must be contiguous")
     if rows > 65535 or k_cap >= 2**31:
         raise ValueError(f"rice_pack: [{rows}, {k_cap}] exceeds the grid")
-    dev = idx.device
-    nb = ref.ntiles(k_cap, RICE_TILE)
-    qsum = torch.empty((rows, nb), dtype=torch.int32, device=dev)
-    qbase = torch.empty((rows, nb), dtype=torch.int32, device=dev)
-    live_end = torch.empty(rows, dtype=torch.int64, device=dev)
-    words = torch.zeros((rows, cap_words), dtype=torch.int32, device=dev)
-    used = torch.empty(rows, dtype=torch.int32, device=dev)
+    # one buffer: the blocks' look-back status words and a ticket counter
+    # per row (int64, as int32 pairs), the words, used; the launcher zeroes
+    # the status words and the words with one memset
+    ns = 2 * rows * (ref.ntiles(k_cap, RICE_TILE) + 1)
+    buf = torch.empty(ns + rows * (cap_words + 1), dtype=torch.int32,
+                      device=idx.device)
+    words = buf[ns:ns + rows * cap_words].view(rows, cap_words)
+    used = buf[ns + rows * cap_words:]
+    vec = int(idx.data_ptr() % 16 == 0 and k_cap % 4 == 0)
     _check(_lib().gspar_rice_pack(
-        _ptr(idx), _ptr(nnz), rows, k_cap, r, cap_words, _ptr(qsum),
-        _ptr(qbase), _ptr(live_end), _ptr(words), _ptr(used), _stream(idx)),
-        "rice_pack")
+        _ptr(idx), _ptr(nnz), rows, k_cap, r, cap_words, vec, _ptr(buf),
+        _ptr(words), _ptr(used), _stream(idx)), "rice_pack")
     return words, used
 
 

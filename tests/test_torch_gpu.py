@@ -307,3 +307,154 @@ def test_dense_pipeline_card_matches_cpu(card):
     same = r.lam.cpu() == rc.lam
     assert torch.equal(r.q.cpu()[same], rc.q[same])
     assert torch.equal(r.residual.cpu()[same], rc.residual[same])
+
+
+def _dirty_cache(nbytes: int) -> None:
+    """Leave a freed block of nonzero bytes in the caching allocator, so that
+    a following ``torch.empty`` of that size finds garbage, not zeros."""
+    junk = torch.full((nbytes // 4 + 1,), -1, dtype=torch.int32, device="cuda")
+    del junk
+
+
+def _sweep_edges(g, u, pkind, kw):
+    """Per row, the survivor counts before each sweep of kernel 4 (the ranks
+    at which a capacity would cut on a sweep edge)."""
+    sweep = K.TILE // 8
+    edges = []
+    for r in range(g.shape[0]):
+        z = ref._select_row(pkind, g[r].cpu(), None if u is None else
+                            u[r].cpu(), kw["s1"][r].cpu(),
+                            kw["s2"][r].cpu() if "s2" in kw else None,
+                            kw["budget"][r].cpu() if "budget" in kw
+                            else None)[3]
+        pad = torch.zeros(-(-z.numel() // sweep) * sweep, dtype=torch.int64)
+        pad[:z.numel()] = z.to(torch.int64)
+        edges.append(set(torch.cumsum(pad.view(-1, sweep).sum(1), 0)
+                         .tolist()))
+    return edges
+
+
+@pytest.mark.parametrize("pkind", ["lam", "rho", "bern", "topk"])
+def test_compact_emit_overflows_inside_a_sweep(card, pkind):
+    """Every selector kind and codec at a capacity that each row passes
+    inside a sweep (not on a sweep's or tile's edge): the first k_cap
+    survivors, the residual of every coordinate (the dropped ones too) and
+    the slots, bit-equal to the plain version; and at a capacity above every
+    row's survivors, whose dead slots the kernel zeroes itself (the buffers
+    come from ``torch.empty`` over freed nonzero memory)."""
+    g, u = _group(card, torch.bfloat16)
+    kw = _scalars(g, pkind, max(1, round(RHO * D)))
+    nnz = K.select_stats(g, None if pkind == "topk" else u, kw["s1"], 1,
+                         pkind=pkind, **{k: v for k, v in kw.items()
+                                         if k != "s1"}).nnz
+    edges = set().union(*_sweep_edges(g, None if pkind == "topk" else u,
+                                      pkind, kw))
+    k_cap = int(nnz.min()) // 2 + 1
+    while k_cap in edges:
+        k_cap += 1
+    assert k_cap < int(nnz.min())
+    _check_variants(g, u, pkind, k_cap)
+    k_cap = int(nnz.max()) + 300
+    _dirty_cache(ROWS * k_cap * 4)
+    _check_variants(g, u, pkind, k_cap)
+
+
+@pytest.mark.parametrize("pkind", ["lam", "rho", "bern", "topk"])
+def test_compact_emit_unaligned_rows_take_scalar_stores(card, pkind):
+    """A group with d % 8 != 0 (rows past the first start unaligned: scalar
+    residual stores and loads) and a one-row group whose g and u start one
+    element past a 16-byte boundary while the residual is aligned (scalar
+    loads, vector residual stores): bit-equal to the plain version."""
+    g, u = _group(card, torch.bfloat16, 40_003)
+    _check_variants(g, u, pkind, 1500)
+    big_g, big_u = _group(card, torch.bfloat16, 32_769)
+    g1, u1 = big_g[0, 1:].view(1, -1), big_u[0, 1:].view(1, -1)
+    assert g1.data_ptr() % 16 and u1.data_ptr() % 16
+    for k_cap in (2000, 300):
+        _check_variants(g1, u1, pkind, k_cap)
+
+
+@pytest.mark.parametrize("pkind", ["bern", "lam"])
+def test_compact_emit_at_a_whole_row_capacity(card, pkind):
+    """k_cap = d (bern's capacity: nearly every slot dead), whose dead
+    slots the launcher zeroes with a memset, and k_cap = d - 1, whose dead
+    slots the kernel zeroes itself, each over freed nonzero memory:
+    bit-equal to the plain version."""
+    g, u = _group(card, torch.bfloat16)
+    for k_cap in (D, D - 1):
+        _dirty_cache(ROWS * k_cap * 4)
+        _check_variants(g, u, pkind, k_cap)
+
+
+@pytest.mark.parametrize("ties", ["one tile", "none"])
+def test_topk_ties_in_one_tile_or_none(card, ties):
+    """topk rows whose threshold ties all lie in one kernel tile, cut by the
+    budget inside it, and rows without a tie beyond the threshold itself:
+    both passes bit-equal to the plain versions, exactly k_target kept."""
+    d = 3 * K.TILE + 77
+    g = torch.zeros((2, d), dtype=torch.bfloat16, device="cuda")
+    if ties == "one tile":
+        k_target = 3000
+        g[:, :1000] = 8.0
+        tie = torch.arange(K.TILE + 100, 2 * K.TILE - 100, 5, device="cuda")
+        g[:, tie] = -2.0
+        g[1, tie[::2]] = 2.0
+    else:                    # 256 distinct magnitudes, exact in bf16
+        k_target = 100
+        g[:, 7:7 + 256 * 90:90] = torch.arange(
+            1, 257, device="cuda").to(torch.bfloat16)
+    _, budget = ops.topk_threshold(g, k_target)
+    if ties == "none":
+        assert (budget == 1).all()        # the threshold's own coordinate
+    st = _check_variants(g, None, "topk", 4096, k_target)
+    assert (st.nnz == k_target).all()
+
+
+def _check_rice(idx, nnz, d, r):
+    words, used = K.rice_pack(idx, nnz, d=d, r=r)
+    want_w, want_u = ref.rice_pack_ref(idx, nnz, d, r)
+    assert torch.equal(used, want_u)
+    assert torch.equal(words, want_w)
+    dec = rice_decode(words, idx.shape[1], d, r)
+    for row in range(idx.shape[0]):
+        n = min(int(nnz[row]), idx.shape[1])
+        assert torch.equal(dec[row, :n], idx[row, :n])
+
+
+def test_rice_pack_rows_far_wider_than_the_card(card):
+    """Rows of k_cap >= 2^20 codes: each spans 513 blocks, three rows 1539,
+    far more than the card holds at once (132 SMs), so the look-back of a
+    block must only ever wait on blocks that have started. Full, half-full
+    and overflowing rows, bit-equal to the plain version."""
+    k_cap, d = 512 * K.RICE_TILE + 3, 1 << 25
+    assert k_cap >= 1 << 20
+    counts = [k_cap, k_cap // 2 + 7, k_cap + 1000]
+    idx = torch.zeros((3, k_cap), dtype=torch.int32, device="cuda")
+    for row, n in enumerate(counts):
+        live = torch.randperm(d, generator=card, device="cuda")[:min(n, k_cap)]
+        idx[row, :live.numel()] = live.sort().values.to(torch.int32)
+    nnz = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    for r in (rice_parameter(k_cap, d), 0, 30):
+        _check_rice(idx, nnz, d, r)
+
+
+@pytest.mark.parametrize("r", [0, 3, 30])
+def test_rice_pack_long_unary_runs(card, r):
+    """Codes whose unary runs are long: a run that starts a block (its first
+    code) and one at a block's last code, and at r = 0 rows of a few
+    far-apart codes whose runs cover many staging windows, a single code at
+    d - 1 among them; bit-equal to the plain version."""
+    tile = K.RICE_TILE
+    k_cap, d = 3 * tile + 1, 1 << 22
+    gap = torch.full((k_cap,), 20, dtype=torch.int64, device="cuda")
+    gap[tile] += 300_000
+    gap[2 * tile - 1] += 500_000
+    idx = (torch.cumsum(gap, 0) - 20).to(torch.int32)[None].repeat(2, 1)
+    _check_rice(idx, torch.tensor([k_cap, 2 * tile + 1], dtype=torch.int32,
+                                  device="cuda"), d, r)
+    sparse = torch.zeros((2, 1000), dtype=torch.int32, device="cuda")
+    sparse[0, 0] = d - 1
+    sparse[1, :6] = torch.tensor([5, 6, 100_000, 1_000_001, 3_000_000,
+                                  d - 1], device="cuda")
+    _check_rice(sparse, torch.tensor([1, 6], dtype=torch.int32,
+                                     device="cuda"), d, r)
