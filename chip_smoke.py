@@ -6,12 +6,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel and each variant (selector kind x codec) against its plain PyTorch
 version on the card at the shapes of the main paths (gemma-2b at full
 width: one launch per shape group) and on a small sweep of every variant,
-times the receiver's decode of each group, checks the emit pipelines
-against the CPU path on a small input, then drives the paths through the
-launcher ``repro_torch.launch.train --arch gemma-2b --steps 3 --rho 0.05
---wire gather --error-feedback --compressor C`` on a one-worker NCCL group,
-each with the kernel launch counts set to 0 just before it and read just
-after:
+holds topk's threshold kernel (``topk_threshold``) to its plain version and
+to ``torch.topk``'s answer, bit for bit, and times ``torch.topk`` beside
+it (the library call), times the receiver's decode of each group, checks
+the emit pipelines against the CPU path on a small input, then drives the
+paths through the launcher ``repro_torch.launch.train --arch gemma-2b
+--steps 3 --rho 0.05 --wire gather --error-feedback --compressor C`` on a
+one-worker NCCL group, each with the kernel launch counts set to 0 just
+before it and read just after:
 
 - ``gspar`` on the gather wire's default ``--wire-layout auto``: every group
   must be stamped ``rice``; each step must charge exactly the values, the
@@ -129,7 +131,8 @@ PATHS = {
                       binomial=True),
     "topk+ternary": MainPath(
         "topk+ternary", "rice", SLOTS, ROW_BYTES,
-        ("select_stats/topk", "compact_emit/topk+ternary", "rice_pack")),
+        ("topk_threshold", "select_stats/topk", "compact_emit/topk+ternary",
+         "rice_pack")),
     "gspar+qsgd8": MainPath(
         "gspar+qsgd8", "rice", 2 * SLOTS, ROW_BYTES,
         GSPAR + ("compact_emit/lam+qsgd8", "rice_pack")),
@@ -138,7 +141,8 @@ PATHS = {
         ("stats_l1max", "select_stats/bern", "compact_emit/bern+ternary")),
     # the float codec on the topk and bernoulli selectors, two layers deep
     "topk": MainPath("topk", "rice", None, 0,
-                     ("select_stats/topk", "compact_emit/topk", "rice_pack"),
+                     ("topk_threshold", "select_stats/topk",
+                      "compact_emit/topk", "rice_pack"),
                      ["--num-periods", "2"]),
     "bernoulli": MainPath("bernoulli", "dense", None, 0,
                           ("stats_l1max", "select_stats/bern",
@@ -258,28 +262,68 @@ def kind_scalars(g, pkind, l1, mx, k_cap):
     return dict(s1=t, budget=budget), k_cap
 
 
+# Coordinates per torch.topk call of topk_library: about 1 GB of float32
+# magnitudes (a longer row goes alone), as the port batched it before the
+# threshold became a kernel.
+TOPK_UNITS = 1 << 28
+
+
+def topk_library(g: torch.Tensor, k_target: int):
+    """topk_threshold's function from torch.topk (the library yardstick,
+    used nowhere in the port): per row the k-th largest |g| and the tie
+    budget, in row batches of at most TOPK_UNITS coordinates."""
+    rows, d = g.shape
+    t = torch.empty(rows, dtype=torch.float32, device=g.device)
+    budget = torch.empty(rows, dtype=torch.int64, device=g.device)
+    step = max(1, TOPK_UNITS // d)
+    for a in range(0, rows, step):
+        topv = torch.topk(g[a:a + step].abs().to(torch.float32), k_target,
+                          sorted=True).values
+        t[a:a + step] = topv[:, -1]
+        budget[a:a + step] = k_target - (topv > topv[:, -1:]).sum(-1)
+        del topv
+    return t, budget
+
+
 def variant_checks(tally: Tally, g, u, l1, mx, k_cap):
     """Passes 1-2 of the baselines' selector kinds (f32 codec with fused
     EF) and the integer-codec variants of the paths, each against its
     plain version at this group's shape and the path's capacity."""
     from repro_torch.core import codecs
-    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    from repro_torch.kernels.sparsify import kernel as K, ref
     rows, d = g.shape
     gb, n = g.element_size(), rows * d
     f32 = codecs.FloatCodec()
-    # topk's threshold: torch.topk over the row magnitudes (the library
-    # call beside the kernel), with its peak memory
+    # topk's threshold: the radix-select kernel against its plain version
+    # and against torch.topk over the row magnitudes (the library call),
+    # bit for bit, each with its peak memory above the group's inputs
     k_target = max(1, round(RHO * d))
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ops.topk_threshold(g, k_target)
-    topk_peak = torch.cuda.max_memory_allocated() - before
-    tally.library_ms["select_stats/topk"] = tally.library_ms.get(
-        "select_stats/topk", 0.0) + cuda_ms(
-            lambda: ops.topk_threshold(g, k_target))
-    tally.library_ms["topk_peak_bytes"] = max(
-        tally.library_ms.get("topk_peak_bytes", 0), topk_peak)
+    t, budget = K.topk_threshold(g, k_target)
+    rt, rbudget = ref.topk_threshold_ref(g, k_target, K.TOPK_BITS[g.dtype])
+    lt, lbudget = topk_library(g, k_target)
+    chk = tally.add(
+        "topk_threshold", cuda_ms(lambda: K.topk_threshold(g, k_target)),
+        cuda_ms(lambda: ref.topk_threshold_ref(g, k_target,
+                                               K.TOPK_BITS[g.dtype]), 1),
+        n * gb + rows * 12)
+    for what, a, b in (("t", t, rt), ("budget", budget, rbudget),
+                       ("t vs torch.topk", t, lt),
+                       ("budget vs torch.topk", budget, lbudget)):
+        chk.equal(f"topk_threshold {what}", a, b)
+    del rt, rbudget, lt, lbudget
+    tally.library_ms["topk_threshold"] = tally.library_ms.get(
+        "topk_threshold", 0.0) + cuda_ms(lambda: topk_library(g, k_target))
+    for key, fn in (("topk_peak_bytes", K.topk_threshold),
+                    ("library_peak_bytes", topk_library)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(g, k_target)
+        torch.cuda.synchronize()
+        tally.library_ms[key] = max(tally.library_ms.get(key, 0),
+                                    torch.cuda.max_memory_allocated()
+                                    - before)
     for pkind, cname in (("rho", "f32"), ("bern", "f32"), ("topk", "f32"),
                          ("lam", "qsgd8"), ("topk", "ternary"),
                          ("bern", "ternary")):
@@ -1080,9 +1124,12 @@ def dense_train_phase(ef: bool, check: bool) -> dict:
     return summary
 
 
-# the kernels line: variant -> (the run whose launches it reports,
-# the TPU kernel's line in src/repro/kernels/sparsify/kernel.py)
+# the kernels line: variant -> (the run whose launches it reports, the
+# TPU kernel's line in src/repro/kernels/sparsify/kernel.py, or the file
+# and line of the XLA selection it replaces)
 ENTRIES = {
+    "topk_threshold": ("topk+ternary",
+                       "src/repro/kernels/sparsify/ops.py:268"),
     "stats_l1max": ("gspar", 275), "tail_stats": ("gspar", 195),
     "select_stats/lam": ("gspar", 384), "compact_emit/lam": ("gspar", 559),
     "rice_pack": ("gspar", 612),
@@ -1142,7 +1189,8 @@ def main() -> int:
     lib, log = K.build()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in ptxas_lines(log, ("compact_emit", "rice_pack")):
+    for line in ptxas_lines(log, ("compact_emit", "rice_pack",
+                                  "select_tiles_topk", "radix_")):
         print(line)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1178,7 +1226,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/sparsify.cu",
-            "replaces": f"src/repro/kernels/sparsify/kernel.py:{line}",
+            "replaces": line if isinstance(line, str)
+            else f"src/repro/kernels/sparsify/kernel.py:{line}",
             "path": DENSE_PATHS.get(run) or PATHS[run].compressor,
             "launches": launches[run].get(name, 0),
             "max_abs_err": tally.check[name].max_abs,
@@ -1192,8 +1241,9 @@ def main() -> int:
         kp["ms_no_ef"]
     kernels[list(ENTRIES).index("compact_emit/lam")]["memset_ms"] = \
         kp["memset_ms"]
-    kernels[list(ENTRIES).index("select_stats/topk")]["topk_peak_bytes"] = \
-        tally.library_ms["topk_peak_bytes"]
+    for key in ("topk_peak_bytes", "library_peak_bytes"):
+        kernels[list(ENTRIES).index("topk_threshold")][key] = \
+            tally.library_ms[key]
     kernels[list(ENTRIES).index("sparsify_prng")]["max_sd_from_sum_p"] = \
         kp["prng"]["z_max"]
     for key, run in runs.items():

@@ -1,24 +1,37 @@
-"""Times design variants of pass 2 (compact_emit) and rice_pack on one GPU.
+"""Times design variants of the hand-written kernels on one GPU.
 
-    python3 scripts/kernel_variants.py
+    python3 scripts/kernel_variants.py [--only NAME[,NAME...]]
 
 Builds copies of ``src/repro_torch/csrc/sparsify.cu`` that differ from it
-in one design choice each, and times them against the source as it stands,
-in turns (each variant, then each again in reverse order; the mean of the
-two), on synthetic gemma-2b groups made as ``chip_smoke.py`` makes them
-(bf16 normal x lognormal g, f32 uniforms, from a seed), summed over the
-groups: one step's worth, as in chip_smoke's kernel phase. The variants:
+in one design choice each, and times each against the source as it
+stands, in turns (each variant, then each again in reverse order; the mean
+of the two), on the cases its choice touches, on synthetic gemma-2b groups
+made as ``chip_smoke.py`` makes them (bf16 normal x lognormal g, f32
+uniforms, from a seed), summed over the groups: one step's worth, as in
+chip_smoke's kernel phase. The variants:
 
 - ``memset``: compact_emit's dead slots zeroed by a memset of both compact
   buffers at every capacity (the source: by the kernel where k_cap < d);
 - ``zeroing``: by the kernel at every capacity, k_cap = d included;
 - ``bounds5``: compact_emit compiled for 5 blocks an SM (the source: 4);
 - ``rice8``, ``rice32``: rice_pack with 8 codes a thread at 8 blocks an SM,
-  32 at 4 (the source: 16 at 6).
+  32 at 4 (the source: 16 at 6);
+- ``topk_tiles1``, ``topk_tiles4``, ``topk_tiles16``: pass 1 for topk
+  (select_stats/topk) with 1, 4 or 16 tiles a block (the source: 8);
+- ``topk_f64``: pass 1 for topk converting each item's square to f64 (the
+  source: an f32 sum of a thread's sweep, converted once);
+- ``topk_branchless``: pass 1 for topk with selects in place of the
+  branch on a strict survivor;
+- ``radix2``: topk_threshold for bf16 in two rounds of 2^8 and 2^7 bins
+  with per-warp histograms (the source: one round of 2^15 bins), the same
+  build with ``kernel.TOPK_BITS`` set;
+- ``radix_unroll8``: topk_threshold's histogram pass with 8 16-byte loads
+  in flight a thread (the source: 4).
 
-Every variant's outputs are held bit-equal to the source's. Prints the
-card's name and power limit, then one JSON line per variant: ms per step
-for each timed case. Needs a CUDA device; imports nothing of JAX.
+``--only`` runs the named variants (and the source) alone. Every variant's
+outputs are held bit-equal to the source's. Prints the card's name and
+power limit, then one JSON line per variant: ms per step for each timed
+case. Needs a CUDA device; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -35,6 +48,23 @@ ROOT = Path(__file__).resolve().parents[1]
 RHO = 0.05
 
 
+COMPACT = ("compact_emit/lam f32 EF", "compact_emit/topk f32 EF",
+           "compact_emit/bern f32 EF, k_cap = d",
+           "compact_emit/bern+ternary, k_cap = d")
+# variant -> the cases its design choice touches
+CASES = {"memset": COMPACT, "zeroing": COMPACT, "bounds5": COMPACT,
+         "rice8": ("rice_pack",), "rice32": ("rice_pack",),
+         "topk_tiles1": ("select_stats/topk",),
+         "topk_tiles4": ("select_stats/topk",),
+         "topk_tiles16": ("select_stats/topk",),
+         "topk_f64": ("select_stats/topk",),
+         "topk_branchless": ("select_stats/topk",),
+         "radix2": ("topk_threshold",),
+         "radix_unroll8": ("topk_threshold",)}
+# variants that are the source's build with other topk_threshold rounds
+BITS = {"radix2": (8, 7)}
+
+
 def variants(src: str) -> dict[str, str]:
     def sub(old: str, new: str) -> str:
         if src.count(old) != 1:
@@ -47,6 +77,10 @@ def variants(src: str) -> dict[str, str]:
         return out.replace("constexpr int kRiceMinBlocks = 6;",
                            f"constexpr int kRiceMinBlocks = {blocks};")
 
+    def tiles(n: int) -> str:
+        return sub("constexpr int kTopkTiles = 8;",
+                   f"constexpr int kTopkTiles = {n};")
+
     zero = "  const int zero_dead = k_cap < d;"
     return {
         "source": src,
@@ -56,6 +90,26 @@ def variants(src: str) -> dict[str, str]:
                        "__launch_bounds__(kThreads, 5)\ncompact_emit("),
         "rice8": rice(8, 8),
         "rice32": rice(32, 4),
+        "topk_tiles1": tiles(1),
+        "topk_tiles4": tiles(4),
+        "topk_tiles16": tiles(16),
+        "topk_f64": sub("      float dn_s = 0.f, vs_s = 0.f;\n",
+                        "      double dn_s = 0.0, vs_s = 0.0;\n"),
+        "topk_branchless": sub(
+            """        if (a > s1) {
+          ++c;
+          vs_s += __fmul_rn(x[k], x[k]);
+          vm = fmaxf(vm, a);
+        } else if (a == s1 && ties_on) {
+          c += 1 << 16;
+        }
+""", """        const bool gt = a > s1;
+        c += gt ? 1 : (a == s1 && ties_on ? 1 << 16 : 0);
+        vs_s += gt ? __fmul_rn(x[k], x[k]) : 0.f;
+        vm = fmaxf(vm, gt ? a : 0.f);
+"""),
+        "radix_unroll8": sub("  constexpr int kUnroll = 4;\n",
+                             "  constexpr int kUnroll = 8;\n"),
     }
 
 
@@ -84,6 +138,12 @@ def build(K, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
     return libs
 
 
+def _counts(st) -> tuple:
+    """Pass 1's counts, bases and max|v| (its sums, within rtol 1e-6, are
+    held by chip_smoke and the GPU tests, not here)."""
+    return st.nnz, st.nonzeros, st.max_abs, st.base, st.tie_base
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -92,14 +152,31 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.core import codecs, coding
     from repro_torch.kernels.sparsify import kernel as K, ops
+    only = None
+    if "--only" in sys.argv:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
     print(cs.card_line(), flush=True)
-    libs = build(K, variants(K._SOURCE.read_text()))
+    texts = {n: t for n, t in variants(K._SOURCE.read_text()).items()
+             if only is None or n == "source" or n in only}
+    libs = build(K, texts)
+    names = ["source"] + [n for n in CASES if n in libs or (
+        n in BITS and (only is None or n in only))]
+    source_bits = K.TOPK_BITS[torch.bfloat16]
+
+    def use(name: str) -> None:
+        lib = libs.get(name, libs["source"])
+        K._lib_handle = lib
+        K.RICE_TILE = lib.gspar_rice_tile()
+        K.TOPK_BITS[torch.bfloat16] = BITS.get(name, source_bits)
+
     f32, ter = codecs.FloatCodec(), codecs.get("ternary")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    total: dict[str, dict[str, float]] = {n: {} for n in libs}
+    total: dict[str, dict[str, float]] = {n: {} for n in names}
+    wanted = set().union(*(CASES[n] for n in names[1:]))
     for rows, d, k_cap in cs.main_path_groups():
         g = cs.heavy_tailed(rows, d, gen)
         u = torch.rand((rows, d), generator=gen, device="cuda")
+        use("source")
         l1, mx = K.stats_l1max(g)
         lam = ops.greedy_lambda(l1, mx, RHO, d,
                                 tail_fn=ops._kernel_tail_fn(g))
@@ -108,7 +185,8 @@ def main() -> int:
         stb = K.select_stats(g, u, zero, d, pkind="bern", s2=mx)
         scb = codecs.finalize_scale(ter, stb.sum_sq, stb.max_abs)
         ucb = torch.rand((rows, d), device="cuda")
-        t, budget = ops.topk_threshold(g, max(1, round(RHO * d)))
+        k_target = max(1, round(RHO * d))
+        t, budget = ops.topk_threshold(g, k_target)
         stt = K.select_stats(g, None, t, k_cap, pkind="topk", budget=budget)
         _, idx, _ = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32,
                                    ef=False)
@@ -126,14 +204,18 @@ def main() -> int:
                 g, u, zero, stb, k_cap=d, codec=ter, ef=False, pkind="bern",
                 s2=mx, scale=scb, u_cod=ucb),
             "rice_pack": lambda: K.rice_pack(idx, st.nnz, d=d, r=r),
+            "select_stats/topk": lambda: _counts(K.select_stats(
+                g, None, t, k_cap, pkind="topk", budget=budget)),
+            "topk_threshold": lambda: K.topk_threshold(g, k_target),
         }
-        for case, fn in cases.items():       # every variant as the source
-            K._lib_handle = libs["source"]
-            K.RICE_TILE = libs["source"].gspar_rice_tile()
+        cases = {c: fn for c, fn in cases.items() if c in wanted}
+        for case, fn in cases.items():     # each variant as the source
+            use("source")
             want = fn()
-            for name in libs:
-                K._lib_handle = libs[name]
-                K.RICE_TILE = libs[name].gspar_rice_tile()
+            for name in names[1:]:
+                if case not in CASES[name]:
+                    continue
+                use(name)
                 out = fn()
                 if not all(a is None and b is None or torch.equal(a, b)
                            for a, b in zip(out, want)):
@@ -141,18 +223,19 @@ def main() -> int:
                                          "source's output")
                 del out
             del want
-        times: dict[str, dict[str, list]] = {n: {} for n in libs}
-        for name in list(libs) + list(libs)[::-1]:
-            K._lib_handle = libs[name]
-            K.RICE_TILE = libs[name].gspar_rice_tile()
+        times: dict[str, dict[str, list]] = {n: {} for n in names}
+        for name in names + names[::-1]:
+            use(name)
             for case, fn in cases.items():
-                times[name].setdefault(case, []).append(cs.cuda_ms(fn))
-        for name in libs:
+                if name == "source" or case in CASES[name]:
+                    times[name].setdefault(case, []).append(cs.cuda_ms(fn))
+        for name in names:
             for case, ts in times[name].items():
                 total[name][case] = (total[name].get(case, 0.0)
                                      + statistics.mean(ts))
         del g, u, st, stb, stt, ucb, idx, cases
         torch.cuda.empty_cache()
+    use("source")
     for name, ms in total.items():
         print(json.dumps({"variant": name, "ms_per_step": ms}), flush=True)
     return 0

@@ -7,11 +7,15 @@ The dense wire (``cfg.wire == "dense"``, the default) compresses every
 leaf to Q(g) in dense layout (``repro_torch.core.api.compress_tree``) and
 averages it over the workers with one all-reduce per leaf dtype, in that
 dtype, as the JAX package's ``pmean``; it charges ``numel x itemsize`` of
-every leaf, has no capacity to overflow and stamps no layout. gloo takes
-no bfloat16, so there a bfloat16 bucket is summed in float32 and rounded
-once: bit-equal to a bfloat16 sum at two workers, where the sum is one
-addition. NCCL sums in its ring order, so beyond two workers the dense sum
-is not held bit-equal to the JAX package's.
+every leaf, has no capacity to overflow and stamps no layout. On gloo
+(the CPU backend) the buffer is all-gathered and summed in worker order,
+in float32 (a bfloat16 bucket rounded to bfloat16 once), then divided by
+the worker count: the JAX package's ``pmean`` on the CPU does exactly
+that, so the two are bit-equal at any worker count. gloo's own all-reduce
+sums each chunk from another rank and is not (at three workers a fifth of
+float32 sums moved by an ulp). NCCL sums in its ring order, so beyond two
+workers the dense sum on the card is not held bit-equal to the JAX
+package's.
 
 On the gather wire (``cfg.wire == "gather"``) every worker compresses its
 local gradient leaves into fixed-capacity
@@ -186,10 +190,11 @@ def _flat_storage(ts: list) -> torch.Tensor | None:
 
 def _sync_leaves_dense(q: list, group) -> tuple[list, float]:
     """pmean of every leaf over ``group``, in the leaf's dtype: one
-    all-reduce per dtype, in place on the flat buffer that
-    ``compress_tree`` lays that dtype's leaves out in (a copy into one
-    when they do not tile one). Returns ``(synced leaves, wire bytes)``:
-    ``numel x itemsize`` of every leaf, as the JAX package charges."""
+    all-reduce per dtype (on gloo an all-gather and a worker-order sum),
+    in place on the flat buffer that ``compress_tree`` lays that dtype's
+    leaves out in (a copy into one when they do not tile one). Returns
+    ``(synced leaves, wire bytes)``: ``numel x itemsize`` of every leaf, as
+    the JAX package charges."""
     m = dist.get_world_size(group)
     gloo = dist.get_backend(group) == "gloo"
     synced: list = [None] * len(q)
@@ -202,11 +207,16 @@ def _sync_leaves_dense(q: list, group) -> tuple[list, float]:
         in_place = flat is not None
         if not in_place:
             flat = torch.cat([q[i].reshape(-1) for i in ids])
-        if gloo and dt == torch.bfloat16:
-            acc = flat.to(F32)
-            dist.all_reduce(acc, group=group)
+        if gloo:
+            raw = flat.view(torch.uint8)        # gloo takes no bfloat16
+            parts = [torch.empty_like(raw) for _ in range(m)]
+            dist.all_gather(parts, raw, group=group)
+            acc = parts[0].view(dt).to(torch.promote_types(dt, F32),
+                                       copy=True)
+            for part in parts[1:]:
+                acc += part.view(dt)
             flat.copy_(acc)
-            del acc
+            del acc, parts
         else:
             dist.all_reduce(flat, group=group)
         if m > 1:

@@ -23,6 +23,25 @@ from repro_torch.core.sparse import (DENSE_WIRE_ITEM, KernelBackend,
 F32 = torch.float32
 
 
+BACKENDS = ("auto", "reference", "pallas")
+# the JAX package's XLA comm presets (repro.comm.xla_flags.PRESETS)
+XLA_PRESETS = ("async", "latency_hiding", "none", "overlap")
+# the JAX config's fields the port takes only at their defaults, and the
+# ROADMAP.md item that ports each
+UNPORTED_FIELDS = {
+    "eps": "queue A item 1 (Algorithm 2, algo='closed')",
+    "kernel_interpret": "queue A item 4 (ReferenceBackend)",
+    "resparsify_pods": "queue A item 9",
+    "overlap_bucket_bytes": "queue A item 9",
+    "adaptive": "queue A item 9 (with item 7's ControlState)",
+    "delta_beta": "queue A item 9",
+    "skip_tau": "queue A item 9",
+    "bound_decay": "queue A item 9",
+    "xla_preset": "queue A item 13",
+    "density_gain": "queue A item 3 (agspar)",
+    "density_floor": "queue A item 3 (agspar)"}
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
@@ -46,9 +65,20 @@ class CompressionConfig:
     identity selector and its ``qsgd``/``none`` aliases among them) raises
     NotImplementedError naming the ROADMAP.md item that ports it; invalid
     values raise ValueError.
+
+    The fields, their order and their defaults are the JAX package's, so
+    ``CompressionConfig(**kwargs)`` takes any JAX config's keyword
+    arguments. ``backend`` ``"auto"`` and ``"pallas"`` both select the
+    port's CUDA kernel backend (the counterpart of the Pallas one);
+    ``"reference"`` and ``kernel_interpret`` (item 4), ``eps`` (Algorithm
+    2, item 1), ``density_gain``/``density_floor`` (agspar, item 3), the
+    pod, overlap and adaptive-control settings (item 9) and
+    ``xla_preset`` (item 13) are refused at any value but their default.
     """
     name: str = "gspar"              # selector[+codec] composition
     rho: float = 0.1                 # target density (gspar, unisp, topk)
+    eps: float = 1.0                 # variance budget (gspar closed: not
+                                     # ported)
     algo: str = "greedy"             # gspar solver (closed: not ported)
     num_iters: int = 2               # greedy rescale iterations (paper: 2)
     qsgd_bits: int = 4               # the legacy "qsgd" alias's levels
@@ -56,15 +86,29 @@ class CompressionConfig:
     codec: str | None = None         # value codec; None -> from name, else f32
     error_feedback: bool = False     # carry the compression residual
     min_leaf_size: int = 256         # leaves smaller than this travel dense
+    backend: str = "auto"            # auto | pallas: the CUDA kernels
+                                     # (reference: not ported)
+    kernel_interpret: bool | None = None   # not ported (None only)
     wire: str = "dense"              # dense | gather (packed: not ported)
     wire_layout: str = "auto"        # auto (argmin bytes) / coo / bitmap /
                                      # dense / rice
-    rice_fitted: bool = False        # data-fitted Rice parameter (not ported)
     capacity_slack: float = 1.25     # k_cap slack over rho * d
+    resparsify_pods: bool = False    # pod-level resync (not ported)
     exchange: str = "sync"           # sync (overlap: not ported)
+    overlap_bucket_bytes: int = 1 << 20  # overlap's bucket cap (not ported)
     bucket_coord_cap: int = 2**31 - 1   # coords per sparse wire chunk
+    xla_preset: str = "none"         # XLA comm preset (not ported)
+    adaptive: bool = False           # adaptive control (not ported): on,
+    delta_beta: float = 1.0          # last-sent EMA weight,
+    skip_tau: float = 0.0            # skip threshold,
+    bound_decay: float = 0.9         # energy-bound decay
+    rice_fitted: bool = False        # data-fitted Rice parameter (not ported)
+    density_gain: float = 1.0        # agspar's density fit (not ported):
+    density_floor: float = 0.1       # gain and floor
 
     def __post_init__(self):
+        self._validate()
+        self._refuse_unported()
         if self.wire not in ("dense", "gather", "packed"):
             raise ValueError(f"unknown wire format {self.wire!r}")
         if self.wire == "packed":
@@ -91,6 +135,49 @@ class CompressionConfig:
             raise _not_ported(f"{scheme.name} on wire='dense'",
                               f"queue A item {DENSE_WIRE_ITEM}")
 
+    def _validate(self) -> None:
+        """The JAX config's ValueErrors for the fields the port refuses."""
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; have "
+                             f"{BACKENDS}")
+        if self.overlap_bucket_bytes < 4:
+            raise ValueError(f"overlap_bucket_bytes="
+                             f"{self.overlap_bucket_bytes} is below one "
+                             "int32 word")
+        if self.xla_preset not in XLA_PRESETS:
+            raise ValueError(f"unknown xla_preset {self.xla_preset!r}; "
+                             f"have {XLA_PRESETS}")
+        if not 0.0 <= self.delta_beta <= 1.0:
+            raise ValueError(f"delta_beta={self.delta_beta} outside [0, 1]")
+        if self.skip_tau < 0.0:
+            raise ValueError(f"skip_tau={self.skip_tau} is negative")
+        if not 0.0 <= self.bound_decay < 1.0:
+            raise ValueError(f"bound_decay={self.bound_decay} outside "
+                             "[0, 1)")
+        if not 0.0 < self.density_gain <= 1.0:
+            raise ValueError(f"density_gain={self.density_gain} outside "
+                             "(0, 1]")
+        if not 0.0 <= self.density_floor <= 1.0:
+            raise ValueError(f"density_floor={self.density_floor} outside "
+                             "[0, 1]")
+        if self.adaptive and not self.error_feedback:
+            raise ValueError("adaptive=True requires error_feedback=True")
+        if self.adaptive and self.resparsify_pods:
+            raise ValueError("adaptive=True with resparsify_pods=True is "
+                             "not supported")
+
+    def _refuse_unported(self) -> None:
+        """NotImplementedError, naming the ROADMAP.md item, for a valid
+        value of a field the port does not run yet."""
+        if self.backend == "reference":
+            raise _not_ported("backend='reference'", UNPORTED_FIELDS[
+                "kernel_interpret"])
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if f.name in UNPORTED_FIELDS and value != f.default:
+                raise _not_ported(f"{f.name}={value!r}",
+                                  UNPORTED_FIELDS[f.name])
+
     def scheme(self) -> schemes_lib.Scheme:
         return _resolve_scheme(self)
 
@@ -113,7 +200,7 @@ class CompressionConfig:
 @functools.lru_cache(maxsize=None)
 def _resolve_scheme(cfg: CompressionConfig) -> schemes_lib.Scheme:
     return schemes_lib.make_scheme(
-        cfg.name, codec=cfg.codec, rho=cfg.rho, algo=cfg.algo,
+        cfg.name, codec=cfg.codec, rho=cfg.rho, eps=cfg.eps, algo=cfg.algo,
         num_iters=cfg.num_iters, qsgd_bits=cfg.qsgd_bits,
         float_bits=cfg.float_bits)
 

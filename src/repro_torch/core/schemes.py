@@ -41,8 +41,10 @@ LEGACY_ALIASES = {
 @dataclasses.dataclass(frozen=True)
 class GsparSelector:
     """The paper's method: p = min(lambda |g|, 1), lambda from Algorithm 3
-    (greedy) at target density ``rho``."""
+    (greedy) at target density ``rho``; ``eps`` is Algorithm 2's variance
+    budget, which only ``algo="closed"`` (not ported) reads."""
     rho: float = 0.1
+    eps: float = 1.0
     algo: str = "greedy"
     num_iters: int = 2
 
@@ -140,14 +142,15 @@ def parse_composition(name: str,
     return head, codec
 
 
-def make_selector(name: str, *, rho: float = 0.1, algo: str = "greedy",
-                  num_iters: int = 2):
+def make_selector(name: str, *, rho: float = 0.1, eps: float = 1.0,
+                  algo: str = "greedy", num_iters: int = 2):
     if name == "gspar":
         if algo != "greedy":
             raise NotImplementedError(
                 f"gspar algo {algo!r} is not ported yet (ROADMAP.md queue A "
                 "item 1: closed_form_lambda and closed_emit)")
-        return GsparSelector(rho=rho, algo=algo, num_iters=num_iters)
+        return GsparSelector(rho=rho, eps=eps, algo=algo,
+                             num_iters=num_iters)
     if name == "unisp":
         return UnispSelector(rho=rho)
     if name == "topk":
@@ -166,7 +169,7 @@ def make_selector(name: str, *, rho: float = 0.1, algo: str = "greedy",
 
 
 def make_scheme(name: str, *, codec: str | None = None, rho: float = 0.1,
-                algo: str = "greedy", num_iters: int = 2,
+                eps: float = 1.0, algo: str = "greedy", num_iters: int = 2,
                 qsgd_bits: int = 4, float_bits: int = 32) -> Scheme:
     """Build a Scheme from a composition name; ``codec`` and a ``+codec``
     suffix in ``name`` must agree."""
@@ -177,7 +180,7 @@ def make_scheme(name: str, *, codec: str | None = None, rho: float = 0.1,
                          f"{parsed_codec!r} but codec={codec!r} was also "
                          "given")
     return Scheme(
-        selector=make_selector(sel_name, rho=rho, algo=algo,
+        selector=make_selector(sel_name, rho=rho, eps=eps, algo=algo,
                                num_iters=num_iters),
         codec=codecs_lib.get(parsed_codec or codec or "f32",
                              float_bits=float_bits))

@@ -15,9 +15,12 @@
 //   sparsify      <- sparsify_2d      (kernel.py:96)   dense Q(g), wire dtype
 //   sparsify_ef   <- sparsify_ef_2d   (kernel.py:123)  Q(g) and g - Q(g)
 //   sparsify_prng <- sparsify_prng_2d (kernel.py:157)  Q(g), Philox uniforms
+//   topk_threshold <- the lax.top_k of topk_emit (ops.py:268, outside
+//                    Pallas)  topk's threshold and tie budget per row
 //
-// The first five run the sparse gather wire, the last four the dense wire
-// (stats, tail_stats and sparsify or sparsify_ef) and ops.gspar_sparsify_prng.
+// The first five run the sparse gather wire, the next four the dense wire
+// (stats, tail_stats and sparsify or sparsify_ef) and ops.gspar_sparsify_prng;
+// topk_threshold gives the topk selector its per-row scalars.
 //
 // Passes 1 and 2 take every selector kind of the TPU kernels (gspar's lam,
 // unisp's rho, bernoulli's bern, topk) as a template parameter, and pass 2
@@ -28,7 +31,9 @@
 // (rice_pack: the group's compact [rows, k_cap] idx), one launch per group,
 // as the vmap over the group is on the TPU: the grid is (tiles, rows),
 // blockIdx.y is the row, and each block owns kTile consecutive coordinates
-// of its row (rice_pack: kRiceTile codes, in the order of a ticket).
+// of its row (rice_pack: kRiceTile codes, in the order of a ticket; pass 1
+// for topk: kTopkTiles tiles; topk_threshold's histogram: an equal run of
+// the group's chunks, one persistent block an SM).
 // Per-row scalars (lambda, rho, max|g|, the topk threshold and tie
 // budget, the codec scale, the saturation gate) are read from device
 // memory, so no host round trip sits between the passes. The ragged end of
@@ -607,30 +612,30 @@ __device__ __forceinline__ unsigned sweep_ranks(const float x[kItems],
   return zm;
 }
 
-// Pass 1 per (row, tile): survivors, support |{g != 0}|, sum p, sum g^2, sum
-// v^2 and max|v| (for topk: of the strict survivors, plus the tile's ties).
+// Pass 1 per (row, tile) for the sampling selectors: survivors, support
+// |{g != 0}|, sum p, sum g^2, sum v^2 and max|v| (topk: select_tiles_topk).
 template <int PK, typename T>
 __global__ void __launch_bounds__(kThreads)
 select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
              int64_t ntiles, int vec_g, int vec_u,
              const float* __restrict__ s1p, const float* __restrict__ s2p,
              int* __restrict__ pcnt, int* __restrict__ pnzc,
-             int* __restrict__ pties, double* __restrict__ ppsum,
-             double* __restrict__ pden, double* __restrict__ pvsq,
-             float* __restrict__ pvmx) {
+             double* __restrict__ ppsum, double* __restrict__ pden,
+             double* __restrict__ pvsq, float* __restrict__ pvmx) {
+  static_assert(PK != kTopk, "topk's pass 1 is select_tiles_topk");
   const int64_t row = blockIdx.y, tile = blockIdx.x;
   const float s1 = s1p[row];
   const float s2 = PK == kBern ? s2p[row] : 0.f;
   const T* grow = g + row * d;
   const int64_t start = tile * kTile;
   const int64_t end = row_end(d, start);
-  int cnt = 0, nzc = 0, ties = 0;
+  int cnt = 0, nzc = 0;
   double ps = 0.0, dn = 0.0, vs = 0.0;
   float vm = 0.f;
   for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
     float x[kItems], r[kItems];
     load_items(grow, i, end, vec_g, x);
-    if constexpr (PK != kTopk) load_items(u + row * d, i, end, vec_u, r);
+    load_items(u + row * d, i, end, vec_u, r);
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       if (i + k >= end) continue;
@@ -638,24 +643,12 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
       const float a2 = a * a;
       nzc += a > 0.f;
       dn += a2;
-      if constexpr (PK == kTopk) {
-        if (a > s1) {
-          const float v2 = x[k] * x[k];
-          ++cnt;
-          ps += 1.0;
-          vs += v2;
-          vm = fmaxf(vm, a);
-        } else if (a == s1 && s1 > 0.f) {
-          ++ties;
-        }
-      } else {
-        const Sample o = sample<PK>(x[k], r[k], s1, s2, true);
-        const float v2 = o.v * o.v;
-        ps += o.p;
-        cnt += o.z;
-        vs += v2;
-        vm = fmaxf(vm, fabsf(o.v));
-      }
+      const Sample o = sample<PK>(x[k], r[k], s1, s2, true);
+      const float v2 = o.v * o.v;
+      ps += o.p;
+      cnt += o.z;
+      vs += v2;
+      vm = fmaxf(vm, fabsf(o.v));
     }
   }
   __shared__ int sh_i[32];
@@ -663,7 +656,6 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   __shared__ float sh_f[32];
   cnt = block_sum(cnt, sh_i);
   nzc = block_sum(nzc, sh_i);
-  if constexpr (PK == kTopk) ties = block_sum(ties, sh_i);
   ps = block_sum(ps, sh_d);
   dn = block_sum(dn, sh_d);
   vs = block_sum(vs, sh_d);
@@ -672,11 +664,131 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
     const int64_t o = row * ntiles + tile;
     pcnt[o] = cnt;
     pnzc[o] = nzc;
-    if constexpr (PK == kTopk) pties[o] = ties;
     ppsum[o] = ps;
     pden[o] = dn;
     pvsq[o] = vs;
     pvmx[o] = vm;
+  }
+}
+
+// Pass 1 for topk, redesigned for this card. topk reads 2 B a coordinate
+// (bf16 g, no uniforms), so a block of one tile (32 KB) would spend as long
+// on its fixed cost, seven block reductions of which three in f64 with
+// their barriers, as on its loads (42 % of the bound on an H100). Here a
+// block covers kTopkTiles consecutive tiles of its row and:
+//   - still writes one entry per tile, as select_finish and pass 2 read
+//     them: the strict and tie counts of a tile go through one packed int
+//     (ties in the high half: a tile has at most kTile = 2^14 of each), and
+//     sum v^2 and max|v| over the strict survivors stay per tile (the finish
+//     sums them only over the tiles before the one that straddles k_cap);
+//   - reduces each tile per warp only, into shared memory, and the block
+//     once at its end (one barrier pair for all its tiles);
+//   - reduces the support and sum g^2 once per block, into its first
+//     tile's slot (zeros in the others: the finish only totals them);
+//   - writes no sum p (for topk it equals the strict count);
+//   - sums a thread's squares of one sweep (8 items) in f32 and converts
+//     to f64 once a sweep (Hopper issues 64-bit conversions at 16 a clock
+//     an SM): non-negative terms, so within 8u (about 4.8e-7) relative;
+//   - loads a full tile's 8 sweeps before using them (8 x 16 B in flight a
+//     thread), masking only a row's ragged last tile.
+constexpr int kTopkTiles = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+select_tiles_topk(const T* __restrict__ g, int64_t d, int64_t ntiles,
+                  int vec_g, const float* __restrict__ s1p,
+                  int* __restrict__ pcnt, int* __restrict__ pnzc,
+                  int* __restrict__ pties, double* __restrict__ pden,
+                  double* __restrict__ pvsq, float* __restrict__ pvmx) {
+  const int64_t row = blockIdx.y;
+  const int64_t t0 = (int64_t)blockIdx.x * kTopkTiles;
+  const int nt = (int)(ntiles - t0 < kTopkTiles ? ntiles - t0 : kTopkTiles);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float s1 = s1p[row];
+  const bool ties_on = s1 > 0.f;
+  const T* grow = g + row * d;
+  __shared__ int sh_c[kTopkTiles][kWarps];
+  __shared__ double sh_v[kTopkTiles][kWarps];
+  __shared__ float sh_m[kTopkTiles][kWarps];
+  int nzc = 0;
+  double dn = 0.0;
+  for (int j = 0; j < nt; ++j) {                  // uniform over the block
+    const int64_t start = (t0 + j) * kTile;
+    const int64_t end = row_end(d, start);
+    int c = 0;                                     // (ties << 16) | strict
+    double vs = 0.0;
+    float vm = 0.f;
+    // one sweep's items: the thread's strict and tie counts, support, and
+    // f32 partial sums of g^2 and of the strict survivors' v^2
+    auto items = [&](const float x[kItems], unsigned valid) {
+      float dn_s = 0.f, vs_s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if (!((valid >> k) & 1u)) continue;
+        const float a = fabsf(x[k]);
+        nzc += a > 0.f;
+        dn_s += __fmul_rn(a, a);      // rounded as the plain version
+        if (a > s1) {
+          ++c;
+          vs_s += __fmul_rn(x[k], x[k]);
+          vm = fmaxf(vm, a);
+        } else if (a == s1 && ties_on) {
+          c += 1 << 16;
+        }
+      }
+      dn += dn_s;
+      vs += vs_s;
+    };
+    const int64_t i0 = start + threadIdx.x * kItems;
+    if (end - start == kTile) {                    // a full tile
+      Chunk<T> ch[kTile / kSweep];
+#pragma unroll
+      for (int s = 0; s < kTile / kSweep; ++s)
+        load_chunk(grow, i0 + s * kSweep, end, vec_g, ch[s]);
+#pragma unroll
+      for (int s = 0; s < kTile / kSweep; ++s) {
+        float x[kItems];
+        unpack(ch[s], x);
+        items(x, (1u << kItems) - 1u);
+      }
+    } else {
+      for (int64_t i = i0; i < end; i += kSweep) {
+        float x[kItems];
+        load_items(grow, i, end, vec_g, x);
+        items(x, valid_items(i, end));
+      }
+    }
+    c = warp_sum(c);
+    vs = warp_sum(vs);
+    vm = warp_max(vm);
+    if (lane == 0) {
+      sh_c[j][w] = c;
+      sh_v[j][w] = vs;
+      sh_m[j][w] = vm;
+    }
+  }
+  __shared__ int sh_i[32];
+  __shared__ double sh_d[32];
+  nzc = block_sum(nzc, sh_i);       // its barriers also publish sh_c/v/m
+  dn = block_sum(dn, sh_d);
+  if (threadIdx.x < nt) {
+    const int j = threadIdx.x;
+    int c = 0;
+    double vs = 0.0;
+    float vm = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      c += sh_c[j][k];
+      vs += sh_v[j][k];
+      vm = fmaxf(vm, sh_m[j][k]);
+    }
+    const int64_t o = row * ntiles + t0 + j;
+    pcnt[o] = c & 0xffff;
+    pties[o] = c >> 16;
+    pvsq[o] = vs;
+    pvmx[o] = vm;
+    pnzc[o] = j == 0 ? nzc : 0;     // block totals, valid in thread 0
+    pden[o] = j == 0 ? dn : 0.0;
   }
 }
 
@@ -731,7 +843,7 @@ select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
       const long long b = running + ex;
       base[o] = (int)b;
       nz += pnzc[o];
-      ps += ppsum[o] + kept;
+      ps += (PK == kTopk ? (double)pcnt[o] : ppsum[o]) + kept;
       dn += pden[o];
       if (b + c <= k_cap) {
         vs += pvsq[o] + (double)kept * (double)t2;
@@ -1441,6 +1553,230 @@ __global__ void philox_kat(const unsigned* __restrict__ ck,
   out[4 * j + 3] = b.w;
 }
 
+// ---------------------------------------------------------------------------
+// topk's threshold: per row of a [rows, d] group, t = the k_target-th
+// largest |g| (f32) and budget = k_target - #{|g| > t} (int64). Replaces
+// the XLA lax.top_k of topk_emit (src/repro/kernels/sparsify/ops.py:268),
+// which the JAX package runs outside Pallas, and torch.topk, which computes
+// the same two numbers from a sort of the row's f32 magnitudes (62 ms a
+// step at gemma-2b, 1 GB of scratch).
+//
+// A radix select on the magnitude's bit pattern, with no sort: the key is
+// bits & 0x7fff (bf16) or bits & 0x7fffffff (f32), monotone in |g| for
+// finite values. Each round histograms `bits` bits of the key, from the
+// top, over the coordinates whose higher key bits equal the row's prefix so
+// far (every coordinate in the first round), and a one-block-per-row
+// finish scans the bins from the top until the count reaches what is left
+// of k_target: that bin extends the prefix, and the bins above it are
+// counted out of k_target. After the last round the prefix is t's key and
+// what is left of k_target is the budget. A row with fewer than k_target
+// nonzeros ends in key 0: t = 0 and budget = k_target - nnz, as torch.topk
+// gives. The rounds (bits per round, summing to the key's 15 or 31) come
+// from the caller: bf16 in one round of 2^15 bins (128 KB of shared
+// memory, one block an SM) or two of 2^8 and 2^7; f32 in three of 2^11,
+// 2^10, 2^10.
+//
+// Bound: one read of g per round (2 B/coord for bf16 in one round). The
+// histogram kernel is persistent: its blocks split the group's chunks of
+// kRadixChunk coordinates (row-major) into equal runs, so every block gets
+// the same work whatever the row lengths, and flush their shared-memory
+// histogram into the row's global one (atomics on the non-zero bins only)
+// when their run leaves a row. Shared atomics on hot bins are the risk:
+// bin 0 (a zero gradient, most of an embedding row) is counted in a
+// register and added once a warp; small histograms keep one copy per warp
+// (up to 64 KB) so that warps do not contend with each other.
+// ---------------------------------------------------------------------------
+
+constexpr int kRadixThreads = 1024;
+constexpr int64_t kRadixChunk = 8 * kRadixThreads * kItems;  // 65,536
+constexpr int kRadixCopyBytes = 64 << 10;  // per-warp copies up to this
+
+// The magnitude keys of a thread's kItems raw elements, in order.
+__device__ __forceinline__ void chunk_keys(const Chunk<__nv_bfloat16>& c,
+                                           unsigned key[kItems]) {
+  const unsigned w[kItems / 2] = {c.v.x, c.v.y, c.v.z, c.v.w};
+#pragma unroll
+  for (int k = 0; k < kItems / 2; ++k) {
+    key[2 * k] = w[k] & 0x7fffu;
+    key[2 * k + 1] = (w[k] >> 16) & 0x7fffu;
+  }
+}
+
+__device__ __forceinline__ void chunk_keys(const Chunk<float>& c,
+                                           unsigned key[kItems]) {
+  const float f[kItems] = {c.a.x, c.a.y, c.a.z, c.a.w,
+                           c.b.x, c.b.y, c.b.z, c.b.w};
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) key[k] = __float_as_uint(f[k]) & 0x7fffffffu;
+}
+
+// One round's histogram. Block b covers chunks [b C / G, (b + 1) C / G) of
+// the group's C = rows x chunks_per_row chunks; `ncopy` histograms of 2^bits
+// bins in dynamic shared memory (warp w counts into copy w % ncopy).
+template <typename T>
+__global__ void __launch_bounds__(kRadixThreads)
+radix_hist(const T* __restrict__ g, int64_t d, int64_t cpr, int64_t nchunks,
+           int vec, int shift, int bits, int ncopy,
+           const long long* __restrict__ state, unsigned* __restrict__ hist) {
+  extern __shared__ unsigned sh_bins[];
+  const int nbins = 1 << bits, hi = shift + bits;
+  const int64_t c0 = nchunks * blockIdx.x / gridDim.x;
+  const int64_t c1 = nchunks * (blockIdx.x + 1) / gridDim.x;
+  unsigned* mine = sh_bins + ((threadIdx.x >> 5) % ncopy) * nbins;
+  for (int j = threadIdx.x; j < ncopy * nbins; j += blockDim.x)
+    sh_bins[j] = 0u;
+  int64_t row = c0 / (cpr > 0 ? cpr : 1);
+  unsigned prefix = state != nullptr ? (unsigned)state[3 * row] : 0u;
+  unsigned zeros = 0u;                   // bin 0, counted in a register
+  __syncthreads();
+  auto count = [&](unsigned key) {
+    if ((key >> hi) != prefix) return;
+    const unsigned bin = (key >> shift) & (unsigned)(nbins - 1);
+    if (bin == 0u) ++zeros;
+    else atomicAdd(&mine[bin], 1u);
+  };
+  // adds the block's histogram of `row` to the row's global one
+  auto flush = [&]() {
+    const unsigned z = warp_sum(zeros);
+    if ((threadIdx.x & 31) == 0 && z) atomicAdd(&sh_bins[0], z);
+    zeros = 0u;
+    __syncthreads();
+    unsigned* hrow = hist + row * nbins;
+    for (int b = threadIdx.x; b < nbins; b += blockDim.x) {
+      unsigned n = 0u;
+      for (int c = 0; c < ncopy; ++c) {
+        n += sh_bins[c * nbins + b];
+        sh_bins[c * nbins + b] = 0u;
+      }
+      if (n) atomicAdd(&hrow[b], n);
+    }
+    __syncthreads();
+  };
+  constexpr int kUnroll = 4;
+  constexpr int64_t kStep = (int64_t)kRadixThreads * kItems;
+  for (int64_t c = c0; c < c1; ++c) {             // uniform over the block
+    const int64_t r = c / cpr;
+    if (r != row) {
+      flush();
+      row = r;
+      prefix = state != nullptr ? (unsigned)state[3 * row] : 0u;
+    }
+    const T* grow = g + row * d;
+    const int64_t start = (c - row * cpr) * kRadixChunk;
+    const int64_t end = d < start + kRadixChunk ? d : start + kRadixChunk;
+    int64_t i = start + threadIdx.x * kItems;
+    for (; i + (kUnroll - 1) * kStep + kItems <= end; i += kUnroll * kStep) {
+      Chunk<T> ch[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        load_chunk(grow, i + u * kStep, end, vec, ch[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        unsigned key[kItems];
+        chunk_keys(ch[u], key);
+#pragma unroll
+        for (int k = 0; k < kItems; ++k) count(key[k]);
+      }
+    }
+    for (; i < end; i += kStep) {
+      Chunk<T> ch;
+      load_chunk(grow, i, end, vec, ch);
+      unsigned key[kItems];
+      chunk_keys(ch, key);
+      const unsigned valid = valid_items(i, end);
+#pragma unroll
+      for (int k = 0; k < kItems; ++k)
+        if ((valid >> k) & 1u) count(key[k]);
+    }
+  }
+  if (c0 < c1) flush();
+}
+
+// One block per row: the bin of this round that holds the row's remaining
+// rank. state[row] = (prefix, what is left of k_target, -); the first round
+// starts from (0, k_target), the last writes t and the budget instead.
+__global__ void __launch_bounds__(kRadixThreads)
+radix_finish(const unsigned* __restrict__ hist, int bits, int first,
+             int last, int f32_keys, long long k_target,
+             long long* __restrict__ state, float* __restrict__ t_out,
+             long long* __restrict__ budget_out) {
+  const int64_t row = blockIdx.x;
+  const int nbins = 1 << bits;
+  const long long prefix = first ? 0 : state[3 * row];
+  const long long left = first ? k_target : state[3 * row + 1];
+  const unsigned* h = hist + row * nbins;
+  // thread j sums bins [lo, top), the j-th run from the top
+  const int per = (nbins + blockDim.x - 1) / blockDim.x;
+  const int top = nbins - (int)threadIdx.x * per;
+  const int lo = top - per > 0 ? top - per : 0;
+  int mine = 0;
+  for (int b = lo; b < top; ++b) mine += (int)h[b];
+  __shared__ int sh_scan[33];
+  int total;
+  const int above = block_excl_scan(mine, &total, sh_scan);
+  if (above < left && left <= (long long)above + mine) {   // one thread
+    long long acc = above;
+    for (int b = top - 1; b >= lo; --b) {
+      if (acc + h[b] >= left) {
+        const long long key = (prefix << bits) | b;
+        if (last) {
+          t_out[row] = __uint_as_float(f32_keys ? (unsigned)key
+                                                : (unsigned)key << 16);
+          budget_out[row] = left - acc;
+        } else {
+          state[3 * row] = key;
+          state[3 * row + 1] = left - acc;
+        }
+        break;
+      }
+      acc += h[b];
+    }
+  }
+}
+
+template <typename T>
+int launch_topk_threshold(const void* g, long long rows, long long d,
+                          int vec, long long k_target, const int bits[3],
+                          void* hist, void* state, void* t, void* budget,
+                          cudaStream_t st) {
+  const int key_bits = std::is_same<T, float>::value ? 31 : 15;
+  int nrounds = 0, sum = 0;
+  while (nrounds < 3 && bits[nrounds] > 0) sum += bits[nrounds++];
+  if (sum != key_bits || k_target < 1 || k_target > d)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t cpr = (d + kRadixChunk - 1) / kRadixChunk;
+  const int64_t nchunks = rows * cpr;
+  int shift = key_bits;
+  for (int r = 0; r < nrounds; ++r) {
+    shift -= bits[r];
+    const int nbins = 1 << bits[r];
+    int ncopy = kRadixCopyBytes / (nbins * 4);
+    ncopy = ncopy < 1 ? 1 : (ncopy > kRadixThreads / 32 ? kRadixThreads / 32
+                                                        : ncopy);
+    const int smem = ncopy * nbins * 4;
+    cudaFuncSetAttribute(radix_hist<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, radix_hist<T>,
+                                                  kRadixThreads, smem);
+    const int64_t want = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    const int64_t grid = nchunks < want ? nchunks : want;
+    cudaMemsetAsync(hist, 0, rows * nbins * 4, st);
+    if (grid > 0)
+      radix_hist<T><<<(unsigned)grid, kRadixThreads, smem, st>>>(
+          (const T*)g, d, cpr, nchunks, vec, shift, bits[r], ncopy,
+          r ? (const long long*)state : nullptr, (unsigned*)hist);
+    radix_finish<<<(unsigned)rows, kRadixThreads, 0, st>>>(
+        (const unsigned*)hist, bits[r], r == 0, r == nrounds - 1,
+        std::is_same<T, float>::value, k_target, (long long*)state,
+        (float*)t, (long long*)budget);
+  }
+  return (int)cudaGetLastError();
+}
+
 inline unsigned grid_x(int64_t ntiles) { return (unsigned)ntiles; }
 
 // Calls f(std::integral_constant<int, PK>) for the selector kind `pk`.
@@ -1464,11 +1800,18 @@ void launch_select(const void* g, const void* u, long long rows,
                    void* tie_base, void* cnt, void* nzc, void* psum,
                    void* den, void* vsq, void* vmx, cudaStream_t st) {
   const int64_t nt = (d + kTile - 1) / kTile;
-  dim3 grid(grid_x(nt), (unsigned)rows);
-  select_tiles<PK, T><<<grid, kThreads, 0, st>>>(
-      (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
-      (const float*)s2, (int*)pcnt, (int*)pnzc, (int*)pties, (double*)ppsum,
-      (double*)pden, (double*)pvsq, (float*)pvmx);
+  if constexpr (PK == kTopk) {
+    dim3 grid(grid_x((nt + kTopkTiles - 1) / kTopkTiles), (unsigned)rows);
+    select_tiles_topk<T><<<grid, kThreads, 0, st>>>(
+        (const T*)g, d, nt, vec_g, (const float*)s1, (int*)pcnt, (int*)pnzc,
+        (int*)pties, (double*)pden, (double*)pvsq, (float*)pvmx);
+  } else {
+    dim3 grid(grid_x(nt), (unsigned)rows);
+    select_tiles<PK, T><<<grid, kThreads, 0, st>>>(
+        (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
+        (const float*)s2, (int*)pcnt, (int*)pnzc, (double*)ppsum,
+        (double*)pden, (double*)pvsq, (float*)pvmx);
+  }
   select_finish<PK, T><<<(unsigned)rows, kThreads, 0, st>>>(
       (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
       (const float*)s2, (const long long*)budget, k_cap, (const int*)pcnt,
@@ -1707,6 +2050,24 @@ int gspar_sparsify(const void* g, int dt, const void* u, long long rows,
       (const int*)pcnt, (const int*)psure, (const double*)psq,
       (d + kTile - 1) / kTile, (long long*)cnt, (long long*)sure, (float*)sq);
   return (int)cudaGetLastError();
+}
+
+// topk's threshold and tie budget per row. bits: the key bits of each
+// round, from the top (0 ends the list; they sum to 15 for bf16, 31 for
+// f32); hist: rows x 2^max(bits) uint32 (zeroed here before each round);
+// state: rows x 3 int64; t: f32 [rows]; budget: int64 [rows].
+int gspar_topk_threshold(const void* g, int dt, long long rows, long long d,
+                         int vec, long long k_target, int bits0, int bits1,
+                         int bits2, void* hist, void* state, void* t,
+                         void* budget, void* stream) {
+  const int bits[3] = {bits0, bits1, bits2};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dt == 1)
+    return launch_topk_threshold<__nv_bfloat16>(g, rows, d, vec, k_target,
+                                                bits, hist, state, t, budget,
+                                                st);
+  return launch_topk_threshold<float>(g, rows, d, vec, k_target, bits, hist,
+                                      state, t, budget, st);
 }
 
 int gspar_philox(const void* ck, void* out, long long n, void* stream) {

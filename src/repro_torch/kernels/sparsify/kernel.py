@@ -5,8 +5,9 @@ The kernels ported from the Pallas TPU kernels of
 docstring). The sparse emit path: the four passes of the two-pass emit,
 for every selector kind (``PKINDS``: gspar's lam, unisp's rho, bernoulli's
 bern, topk) and every value codec (f32, bf16, qsgd<N>, ternary), and the
-Golomb-Rice packing of the RICE wire layout. The dense wire: ``stats``,
-``sparsify``, ``sparsify_ef`` and ``sparsify_prng``. Each wrapper takes
+Golomb-Rice packing of the RICE wire layout, and topk's threshold and tie
+budget (``topk_threshold``). The dense wire: ``stats``, ``sparsify``,
+``sparsify_ef`` and ``sparsify_prng``. Each wrapper takes
 one shape group as a ``[rows, d]`` batch (``[rows, k_cap]`` for the
 packing) and per-row scalar tensors, as the vmap over a group is on the
 TPU:
@@ -24,7 +25,7 @@ PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
 ``LAUNCHES[name]`` (and, for the compaction passes, to the variant's
 count): the launch counts a run can read back.
 
-What bounds each kernel on an H100 (3.35 TB/s of HBM): all nine are
+What bounds each kernel on an H100 (3.35 TB/s of HBM): all ten are
 memory-bound streams over the group (or its compact buffer), so their bound
 is the bytes they must move over the memory rate; see each docstring and
 PERF.md.
@@ -47,7 +48,11 @@ from repro_torch.kernels.sparsify.ref import SelectStats, Sparsified
 TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
 RICE_TILE = 4096      # codes per CUDA block; must equal kRiceTile in the .cu
 KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
-           "rice_pack", "stats", "sparsify", "sparsify_ef", "sparsify_prng")
+           "rice_pack", "stats", "sparsify", "sparsify_ef", "sparsify_prng",
+           "topk_threshold")
+# topk_threshold's radix-select rounds: the key bits each counts, from the
+# top (bf16: one round of 2^15 bins; f32: three of at most 2^11)
+TOPK_BITS = {torch.bfloat16: (15,), torch.float32: (11, 10, 10)}
 PKINDS = ref.PKINDS   # selector kinds of passes 1-2, in the .cu's enum order
 # Launches per kernel, and per variant of the two compaction passes:
 # ``"select_stats/topk"``, ``"compact_emit/lam+qsgd8"`` (the selector kind,
@@ -83,6 +88,8 @@ _SIGNATURES = {
     "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _P, _I, ctypes.c_uint, _P,
                         _I) + (_P,) * 7 + (_P,), _I),
     "gspar_philox": ((_P, _P, _L, _P), _I),
+    "gspar_topk_threshold": ((_P, _I, _L, _L, _I, _L, _I, _I, _I)
+                             + (_P,) * 4 + (_P,), _I),
 }
 
 
@@ -285,7 +292,7 @@ def select_stats(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
     pcnt = torch.empty((rows, nt), **i32)
     pnzc = torch.empty((rows, nt), **i32)
     pties = torch.empty((rows, nt), **i32) if topk else None
-    ppsum = torch.empty((rows, nt), **f64)
+    ppsum = None if topk else torch.empty((rows, nt), **f64)
     pden = torch.empty((rows, nt), **f64)
     pvsq = torch.empty((rows, nt), **f64)
     pvmx = torch.empty((rows, nt), **f32)
@@ -304,6 +311,36 @@ def select_stats(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
         _ptr(out.p_sum), _ptr(out.den), _ptr(out.sum_sq), _ptr(out.max_abs),
         _stream(g)), "select_stats", pkind)
     return out
+
+
+def topk_threshold(g: torch.Tensor, k_target: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row of ``g [rows, d]``: ``t``, the ``k_target``-th largest |g|
+    (float32), and the tie budget ``k_target - #{|g| > t}`` (int64), exact
+    at any row length (t = 0 and budget = k_target - nnz where the row has
+    fewer nonzeros). A radix select on the magnitude's bit pattern, in the
+    rounds of ``TOPK_BITS`` (a histogram pass over the group and a
+    one-block-per-row finish each); no sort. Replaces the XLA ``lax.top_k``
+    of ``topk_emit`` (src/repro/kernels/sparsify/ops.py:268). Bound: one
+    read of g per round (2 B/coord for bf16 in one round)."""
+    if not _on_card("topk_threshold", g):
+        return ref.topk_threshold_ref(g, k_target, TOPK_BITS[g.dtype])
+    rows, d = g.shape
+    if not 1 <= k_target <= d:
+        raise ValueError(f"topk_threshold: k_target {k_target} outside "
+                         f"[1, {d}]")
+    bits = TOPK_BITS[g.dtype]
+    dev = g.device
+    hist = torch.empty((rows, 1 << max(bits)), dtype=torch.int32, device=dev)
+    state = torch.empty((rows, 3), dtype=torch.int64, device=dev)
+    t = torch.empty(rows, dtype=torch.float32, device=dev)
+    budget = torch.empty(rows, dtype=torch.int64, device=dev)
+    b0, b1, b2 = (tuple(bits) + (0, 0))[:3]
+    _check(_lib().gspar_topk_threshold(
+        _ptr(g), _DTYPE_CODE[g.dtype], rows, d, _vec(g), k_target, b0, b1,
+        b2, _ptr(hist), _ptr(state), _ptr(t), _ptr(budget), _stream(g)),
+        "topk_threshold")
+    return t, budget
 
 
 def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,

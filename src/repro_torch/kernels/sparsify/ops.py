@@ -9,12 +9,12 @@ Algorithm 3 (greedy lambda) fully on the device: one stats pass, up to
 ``num_iters`` saturation-aware tail passes driving the scalar rescale, then
 the two-pass compact emit; the baselines hand the same two passes their
 own per-row scalars (rho; max|g| from the stats pass; topk's threshold and
-tie budget from one ``torch.topk``). Pass 1 reduces survivor counts and the
-codec scale statistics, pass 2 writes the wire buffers and, for the RICE
-wire layout (``rice_r >= 0``), a fifth kernel packs pass 2's index
-stream. Everything runs over one shape group ``[rows, d]`` with per-row
-scalars, so a group is one launch per kernel, and no scalar is read back to
-the host between the passes.
+tie budget from the radix-select kernel ``topk_threshold``). Pass 1
+reduces survivor counts and the codec scale statistics, pass 2 writes the
+wire buffers and, for the RICE wire layout (``rice_r >= 0``), a fifth
+kernel packs pass 2's index stream. Everything runs over one shape group
+``[rows, d]`` with per-row scalars, so a group is one launch per kernel,
+and no scalar is read back to the host between the passes.
 
 The JAX ops layer pads every leaf into the TPU tile layout (``_pad_2d``) and
 corrects the tail counts for the padding; the CUDA kernels mask the ragged
@@ -171,28 +171,12 @@ def bern_emit(g2d: torch.Tensor, u2d: torch.Tensor,
 def topk_threshold(g2d: torch.Tensor, k_target: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per row, the k-th largest magnitude ``t`` (float32) and the tie
-    budget ``k_target - #{|g| > t among the top k}`` (int64): one
-    ``torch.topk`` over the row's float32 magnitudes, of which only the
-    values are used, so their tie order does not matter. The JAX package
-    forms the budget in float32, which is inexact past 2^24 (ROADMAP.md
-    queue C); here it stays an integer. The group goes in row batches of
-    at most ``TOPK_UNITS`` coordinates, which bounds topk's scratch."""
-    rows, d = g2d.shape
-    t = torch.empty(rows, dtype=F32, device=g2d.device)
-    budget = torch.empty(rows, dtype=torch.int64, device=g2d.device)
-    step = max(1, TOPK_UNITS // d)
-    for a in range(0, rows, step):
-        topv = torch.topk(g2d[a:a + step].abs().to(F32), k_target,
-                          sorted=True).values
-        t[a:a + step] = topv[:, -1]
-        budget[a:a + step] = k_target - (topv > topv[:, -1:]).sum(-1)
-        del topv
-    return t, budget
-
-
-# Coordinates per torch.topk call of topk_threshold: about 1 GB of float32
-# magnitudes (a longer row goes alone).
-TOPK_UNITS = 1 << 28
+    budget ``k_target - #{|g| > t}`` (int64): the ``topk_threshold`` kernel
+    (a radix select on the magnitudes' bits; on the CPU its plain version).
+    The JAX package forms the budget in float32 from one ``lax.top_k``,
+    which is inexact past 2^24 (ROADMAP.md queue C); here it stays an
+    integer."""
+    return K.topk_threshold(g2d, k_target)
 
 
 def topk_emit(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,

@@ -76,6 +76,55 @@ def tail_stats_ref(g: torch.Tensor, thresh: torch.Tensor,
     return cnt, l1
 
 
+def magnitude_keys(g_row: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of ``|g|`` as a non-negative int32 key, monotone in
+    |g| for finite values: ``bits & 0x7fff`` for bfloat16 and ``bits &
+    0x7fffffff`` for float32."""
+    if g_row.dtype == torch.bfloat16:
+        return g_row.view(torch.int16).to(torch.int32) & 0x7FFF
+    if g_row.dtype == F32:
+        return g_row.view(torch.int32) & 0x7FFFFFFF
+    raise ValueError(f"no magnitude key for {g_row.dtype}")
+
+
+def topk_threshold_ref(g: torch.Tensor, k_target: int,
+                       bits: tuple[int, ...]) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Per row of ``g [rows, d]``: ``t``, the ``k_target``-th largest |g|
+    (float32), and ``budget = k_target - #{|g| > t}`` (int64), by the
+    kernel's radix select on the magnitude keys: each round counts
+    ``bits[i]`` bits of the key (from the top, ``torch.bincount``) among
+    the coordinates whose higher bits equal the prefix so far, then takes
+    the bin that holds the remaining rank, counting the bins above it out
+    of ``k_target``. A row with fewer nonzeros than ``k_target`` ends at
+    key 0: t = 0, budget = k_target - nnz."""
+    rows, d = g.shape
+    if not 1 <= k_target <= d:
+        raise ValueError(f"k_target {k_target} outside [1, {d}]")
+    key_bits = 15 if g.dtype == torch.bfloat16 else 31
+    if sum(bits) != key_bits:
+        raise ValueError(f"rounds {bits} do not cover {key_bits} key bits")
+    t = torch.empty(rows, dtype=F32, device=g.device)
+    budget = torch.empty(rows, dtype=torch.int64, device=g.device)
+    for r in range(rows):
+        keys = magnitude_keys(g[r])
+        prefix, left, shift = 0, k_target, key_bits
+        for i, b in enumerate(bits):
+            shift -= b
+            if i:
+                keys = keys[(keys >> (shift + b)) == prefix]
+            hist = torch.bincount((keys >> shift) & ((1 << b) - 1),
+                                  minlength=1 << b)
+            from_top = torch.cumsum(hist.flip(0), 0)
+            j = int(torch.searchsorted(from_top, left))
+            left -= int(from_top[j]) - int(hist[(1 << b) - 1 - j])
+            prefix = (prefix << b) | ((1 << b) - 1 - j)
+        key = prefix << 16 if g.dtype == torch.bfloat16 else prefix
+        t[r] = torch.tensor(key, dtype=torch.int32).view(F32)
+        budget[r] = left
+    return t, budget
+
+
 PKINDS = ("lam", "rho", "bern", "topk")
 
 

@@ -3,8 +3,10 @@ package): kernels 5-8 and the ops entry points against the JAX package's
 Pallas kernels (interpret mode) and ops, the port's dense Q against the JAX
 package's dense-wire function, the dense-vs-gather identity inside the
 port, one compressed train step against a JAX step assembled from the JAX
-package's pieces, the exchange over two gloo ranks, and the launcher on
-the CPU. Inputs come from numpy seeds.
+package's pieces, the exchange over two gloo ranks and over three and
+four against the JAX package's pmean of the same Q on as many CPU devices
+(bit-equal: both sum the workers in worker order in float32), and the
+launcher on the CPU. Inputs come from numpy seeds.
 
 Tolerances, with their reasons:
 - kernels fed the JAX package's lambda and uniforms: Q and the residual
@@ -527,7 +529,7 @@ def test_dense_step_matches_jax_step(one_worker_group):
     assert step.layouts == []
 
 
-# --- the exchange over two gloo ranks --------------------------------------
+# --- the exchange over gloo ranks ------------------------------------------
 
 GLOO_SHAPES = [(4, 3000), (5000,), (64,), (3, 700)]
 GLOO_STACKED = [True, False, False, True]
@@ -542,46 +544,59 @@ from repro_torch.core import api
 
 rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 shapes, stacked = eval(sys.argv[4]), eval(sys.argv[5])
+world, sizes = int(sys.argv[6]), eval(sys.argv[7])
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                        rank=rank, world_size=2)
-rng = np.random.default_rng(100 + rank)
+                        rank=rank, world_size=world)
 results = {}
-for dtype in (torch.float32, torch.bfloat16):
-    leaves = [torch.from_numpy((rng.standard_normal(s) * np.exp(
-        rng.standard_normal(s))).astype(np.float32)).to(dtype)
-        for s in shapes]
-    cfg = api.CompressionConfig(rho=0.1, min_leaf_size=256)
-    q, _, _ = api.compress_tree(cfg, torch.Generator().manual_seed(7 + rank),
-                                leaves, stacked=stacked)
-    synced, _, stats = sync.sync_tree(
-        cfg, torch.Generator().manual_seed(7 + rank), leaves, stacked=stacked)
-    results[str(dtype)] = {"q": q, "synced": synced,
-                           "wire": float(stats.wire_bytes),
-                           "overflow": float(stats.overflow),
-                           "layouts": stats.layouts}
+for m in sizes:                 # the first m ranks, every rank creating it
+    group = (None if m == world
+             else dist.new_group(list(range(m)), backend="gloo"))
+    if rank >= m:
+        continue
+    rng = np.random.default_rng(100 + rank)
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [torch.from_numpy((rng.standard_normal(s) * np.exp(
+            rng.standard_normal(s))).astype(np.float32)).to(dtype)
+            for s in shapes]
+        cfg = api.CompressionConfig(rho=0.1, min_leaf_size=256)
+        q, _, _ = api.compress_tree(
+            cfg, torch.Generator().manual_seed(7 + rank), leaves,
+            stacked=stacked)
+        synced, _, stats = sync.sync_tree(
+            cfg, torch.Generator().manual_seed(7 + rank), leaves,
+            stacked=stacked, group=group)
+        results[(m, str(dtype))] = {
+            "q": q, "synced": synced, "wire": float(stats.wire_bytes),
+            "overflow": float(stats.overflow), "layouts": stats.layouts}
 torch.save(results, out)
 dist.destroy_process_group()
 """
 
 
-@pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("gloo_dense")
+def _gloo_ranks(tmp, world: int, sizes: tuple) -> list:
+    """Run ``world`` gloo ranks; each syncs over the first m ranks for m in
+    ``sizes``. Returns each rank's results keyed (m, dtype)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
-    outs = [str(tmp / f"rank{r}.pt") for r in range(2)]
+    outs = [str(tmp / f"rank{r}.pt") for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(r), str(port), outs[r],
-         repr(GLOO_SHAPES), repr(GLOO_STACKED)],
+         repr(GLOO_SHAPES), repr(GLOO_STACKED), str(world), repr(sizes)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+        for r in range(world)]
     logs = [p.communicate(timeout=120)[0] for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
     return [torch.load(o, weights_only=False) for o in outs]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    ranks = _gloo_ranks(tmp_path_factory.mktemp("gloo_dense"), 2, (2,))
+    return [{dt: r[(2, dt)] for m, dt in r} for r in ranks]
 
 
 @pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
@@ -612,6 +627,84 @@ def test_dense_wire_bytes_are_the_leaves(two_ranks, dtype):
         r = two_ranks[rank][dtype]
         assert r["wire"] == want
         assert r["overflow"] == 0.0 and r["layouts"] == ()
+
+
+PMEAN = r"""
+import sys
+import ml_dtypes
+import numpy as np
+import repro                               # jax API shims first
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.comm.sync import _sync_leaves_dense
+
+data = np.load(sys.argv[1])
+out = {}
+for key in sorted({k.rsplit("_", 1)[0] for k in data.files}):
+    m = int(key.split("_")[0])
+    leaves = []
+    for i in range(int(sys.argv[3])):
+        a = data[f"{key}_{i}"]
+        leaves.append(a.view(ml_dtypes.bfloat16) if a.dtype == np.uint16
+                      else a)
+    mesh = Mesh(np.array(jax.devices()[:m]), ("data",))
+    fn = jax.shard_map(lambda qs: _sync_leaves_dense(qs, "data")[0],
+                       mesh=mesh, in_specs=P("data"), out_specs=P("data"))
+    for i, s in enumerate(fn([jnp.asarray(a) for a in leaves])):
+        s = np.asarray(s)[0]
+        out[f"{key}_{i}"] = s.view(np.uint16) if s.dtype != np.float32 else s
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def many_ranks(tmp_path_factory):
+    """Four gloo ranks syncing over three and over four of them, and the
+    JAX package's dense sync (``pmean``, repro/comm/sync.py:158) of the
+    same per-worker Q on as many fake CPU devices, in one subprocess."""
+    tmp = tmp_path_factory.mktemp("gloo_dense_many")
+    ranks = _gloo_ranks(tmp, 4, (3, 4))
+    arrays = {}
+    for m in (3, 4):
+        for dt in ("torch.float32", "torch.bfloat16"):
+            for i in range(len(GLOO_SHAPES)):
+                arrays[f"{m}_{dt[6:]}_{i}"] = np.stack(
+                    [_bits(ranks[r][(m, dt)]["q"][i]) if dt.endswith("16")
+                     else ranks[r][(m, dt)]["q"][i].numpy()
+                     for r in range(m)])
+    np.savez(tmp / "q.npz", **arrays)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    proc = subprocess.run(
+        [sys.executable, "-c", PMEAN, str(tmp / "q.npz"),
+         str(tmp / "pmean.npz"), str(len(GLOO_SHAPES))],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return ranks, np.load(tmp / "pmean.npz")
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+@pytest.mark.parametrize("m", [3, 4])
+def test_dense_sync_matches_jax_pmean_past_two_workers(many_ranks, m,
+                                                       dtype):
+    """At three and four gloo ranks every rank's synced leaves equal the
+    JAX package's ``pmean`` of the same per-worker Q, bit for bit: both
+    sum the workers in worker order in float32 (bfloat16 rounded once)
+    and divide by m. The wire charges numel x itemsize, as at two."""
+    ranks, want = many_ranks
+    itemsize = 4 if dtype == "torch.float32" else 2
+    for i in range(len(GLOO_SHAPES)):
+        w = want[f"{m}_{dtype[6:]}_{i}"]
+        w = w if itemsize == 2 else w.view(np.uint32)
+        qs = [ranks[r][(m, dtype)]["q"][i] for r in range(m)]
+        assert not torch.equal(qs[0], qs[1])
+        for r in range(m):
+            res = ranks[r][(m, dtype)]
+            np.testing.assert_array_equal(_bits(res["synced"][i]), w,
+                                          err_msg=f"m={m} rank {r} leaf {i}")
+            assert res["wire"] == itemsize * sum(
+                int(np.prod(s)) for s in GLOO_SHAPES)
 
 
 # --- the launcher -----------------------------------------------------------

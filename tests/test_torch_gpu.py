@@ -458,3 +458,101 @@ def test_rice_pack_long_unary_runs(card, r):
                                   d - 1], device="cuda")
     _check_rice(sparse, torch.tensor([1, 6], dtype=torch.int32,
                                      device="cuda"), d, r)
+
+
+def _threshold_rows(gen, case, dtype, d=D):
+    """The CPU tests' threshold cases on the card: (rows, k_target)."""
+    if case == "heavy":                      # a multi-row group
+        g, k = _group(gen, torch.float32, d)[0], 3500
+    elif case == "ties":                     # ties straddling the tiles
+        g = torch.round(torch.randn((2, d), generator=gen, device="cuda")
+                        * 2) / 4
+        g[:, :K.TILE] = 0.25
+        k = int((g[0].abs() > 0.25).sum()) + K.TILE + 7
+    elif case == "sparse":                   # fewer nonzeros than k_target
+        g = torch.zeros((2, d), device="cuda")
+        g[0, 5:5000:7] = 1.5
+        g[1, d - 3:] = -0.5
+        k = 3500
+    elif case == "k=d":                      # k_target = d, zeros included
+        g, k = _group(gen, torch.float32, d)[0][:2], d
+        g[:, ::11] = 0.0
+    else:                                    # signed zeros
+        g, k = _group(gen, torch.float32, d)[0][:1], d - d // 4
+        g[0, :d // 2] = -0.0
+    return g.to(dtype), k
+
+
+def _topk_library(g, k):
+    """The same two numbers from torch.topk (the library yardstick)."""
+    topv = torch.topk(g.abs().float(), k, sorted=True).values
+    return topv[:, -1], k - (topv > topv[:, -1:]).sum(-1)
+
+
+@pytest.mark.parametrize("case", ["heavy", "ties", "sparse", "k=d",
+                                  "signed zeros"])
+@pytest.mark.parametrize("dtype,bits", [(torch.float32, None),
+                                        (torch.bfloat16, None),
+                                        (torch.bfloat16, (8, 7))])
+def test_topk_threshold_matches_plain_version_and_torch_topk(
+        card, dtype, bits, case, monkeypatch):
+    """The radix-select kernel: t bit-equal and the budget equal to its
+    plain version's and to torch.topk's, on ragged rows (scalar loads) and
+    aligned ones (16-byte vectors), in the kernel's design and, for bf16,
+    in the two-round design of 2^8 and 2^7 bins; one launch a call."""
+    if bits is not None:
+        monkeypatch.setitem(K.TOPK_BITS, dtype, bits)
+    for d in (D, 65_536):
+        g, k = _threshold_rows(card, case, dtype, d)
+        before = K.LAUNCHES["topk_threshold"]
+        t, budget = K.topk_threshold(g, k)
+        assert K.LAUNCHES["topk_threshold"] == before + 1
+        rt, rbudget = ref.topk_threshold_ref(g, k, K.TOPK_BITS[dtype])
+        lt, lbudget = _topk_library(g, k)
+        assert torch.equal(t, rt) and torch.equal(budget, rbudget), (d, k)
+        assert torch.equal(t, lt) and torch.equal(budget, lbudget), (d, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_threshold_past_2_24(card, dtype):
+    """Rows of 2^24 + 5: all ties but the last (budget 2^24 + 3, which a
+    float32 budget would round), and a heavy-tailed row at k_target =
+    rho d; both against the plain version and torch.topk, and pass 1 keeps
+    exactly k_target."""
+    d = 2**24 + 5
+    g = torch.ones((2, d), dtype=dtype, device="cuda")
+    g[0, -1] = 0.0
+    g[1] = (torch.randn(d, generator=card, device="cuda")
+            * torch.randn(d, generator=card, device="cuda").exp())
+    for k in (d - 2, round(RHO * d)):
+        t, budget = K.topk_threshold(g, k)
+        rt, rbudget = ref.topk_threshold_ref(g, k, K.TOPK_BITS[dtype])
+        lt, lbudget = _topk_library(g, k)
+        assert torch.equal(t, rt) and torch.equal(budget, rbudget)
+        assert torch.equal(t, lt) and torch.equal(budget, lbudget)
+        st = K.select_stats(g, None, t, k, pkind="topk", budget=budget)
+        assert st.nnz.tolist() == [k, k]
+    assert int(K.topk_threshold(g, d - 2)[1][0]) == d - 2
+
+
+@pytest.mark.parametrize("tiles", [1, 8, 10, 17])
+def test_select_stats_topk_blocks_span_tiles(card, tiles):
+    """Pass 1 for topk covers several tiles a block: rows of 1, 8, 10 and
+    17 tiles (the last block of a row holding fewer than a block's tiles,
+    and a ragged last tile), with threshold ties in every tile, at a
+    capacity that overflows inside a tile and one that does not: counts,
+    bases and tie bases bit-equal to the plain version, sums within rtol
+    1e-6, and pass 2 bit-equal."""
+    d = (tiles - 1) * K.TILE + 4099
+    g = torch.round(torch.randn((3, d), generator=card, device="cuda")
+                    * 3) / 4
+    g = g.to(torch.bfloat16)
+    k_target = max(1, int((g[0].abs() > 0.5).sum()) + 11)
+    st = _check_variants(g, None, "topk", max(16, k_target // 2), k_target)
+    t, budget = ops.topk_threshold(g, k_target)
+    assert (st.nnz == k_target).all() and (t > 0).all()
+    st = _check_variants(g, None, "topk", k_target + 100, k_target)
+    rst = ref.select_stats_ref(g, None, t, k_target + 100, K.TILE,
+                               pkind="topk", budget=budget)
+    assert torch.equal(st.tie_base, rst.tie_base)
+    assert int(rst.tie_base[0, -1]) > 0 or tiles == 1

@@ -263,14 +263,72 @@ def test_entry_points_run_on_the_card_unless_asked():
             resolve_device(None)
 
 
+# the JAX config's fields the port refuses at any value but the default,
+# and the queue-A item each refusal names
+_REFUSED_ITEM = {
+    "eps": "item 1", "backend": "item 4", "kernel_interpret": "item 4",
+    "resparsify_pods": "item 9", "overlap_bucket_bytes": "item 9",
+    "adaptive": "item 9", "delta_beta": "item 9", "skip_tau": "item 9",
+    "bound_decay": "item 9", "xla_preset": "item 13",
+    "density_gain": "item 3", "density_floor": "item 3"}
+
+
 @pytest.mark.parametrize("kw", [
     dict(wire="dense", name="unisp"), dict(wire="dense", name="gspar+qsgd8"),
     dict(wire="dense", name="topk"), dict(wire="dense", name="terngrad"),
     dict(wire="packed"), dict(rice_fitted=True),
     dict(rice_fitted=True, wire_layout="rice"), dict(exchange="overlap"),
-    dict(name="identity"), dict(name="qsgd"), dict(algo="closed")])
+    dict(name="identity"), dict(name="qsgd"), dict(algo="closed"),
+    dict(eps=0.5), dict(eps=0.5, algo="closed"), dict(backend="reference"),
+    dict(kernel_interpret=True), dict(kernel_interpret=False),
+    dict(resparsify_pods=True), dict(overlap_bucket_bytes=4096),
+    dict(adaptive=True, error_feedback=True), dict(delta_beta=0.5),
+    dict(skip_tau=0.1), dict(bound_decay=0.5), dict(xla_preset="async"),
+    dict(xla_preset="latency_hiding"), dict(xla_preset="overlap"),
+    dict(density_gain=0.5), dict(density_floor=0.2)])
 def test_config_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Each value the JAX config takes but the port does not run raises
+    NotImplementedError naming its ROADMAP.md item (the twelve fields the
+    port carries only at their defaults: that item's number)."""
+    JConfig(**kw)                                  # valid in the JAX package
+    item = _REFUSED_ITEM.get(next(iter(kw)), "")
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md queue A {item}" if item
+                       else "ROADMAP.md"):
+        TConfig(**kw)
+
+
+def test_config_takes_every_jax_default_by_name():
+    """The port's config has the JAX config's fields in its order, and
+    takes each at the JAX default by name, alone and all together; the
+    backends the JAX package names for its kernels select the port's."""
+    import dataclasses
+    jax_cfg = JConfig()
+    names = [f.name for f in dataclasses.fields(JConfig)]
+    assert [f.name for f in dataclasses.fields(TConfig)] == names
+    for name in names:
+        cfg = TConfig(**{name: getattr(jax_cfg, name)})
+        assert getattr(cfg, name) == getattr(jax_cfg, name)
+    cfg = TConfig(**{n: getattr(jax_cfg, n) for n in names})
+    assert cfg == TConfig()
+    for backend in ("auto", "pallas"):
+        assert TConfig(backend=backend).scheme() == TConfig().scheme()
+    assert TConfig(eps=1.0).scheme().selector.eps == 1.0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(backend="tpu"), dict(overlap_bucket_bytes=2),
+    dict(xla_preset="fast"), dict(delta_beta=1.5), dict(skip_tau=-1.0),
+    dict(bound_decay=1.0), dict(density_gain=1.5), dict(density_floor=-0.1),
+    dict(adaptive=True),
+    dict(adaptive=True, error_feedback=True, resparsify_pods=True)])
+def test_config_rejects_what_the_jax_config_rejects(kw):
+    """An invalid value of a refused field raises ValueError, as in the
+    JAX package (which rejects an unknown backend when it resolves it)."""
+    if "backend" not in kw:
+        with pytest.raises(ValueError):
+            JConfig(**kw)
+    with pytest.raises(ValueError):
         TConfig(**kw)
 
 
