@@ -35,19 +35,34 @@ before it and read just after:
   nonzeros;
 - ``topk`` and ``bernoulli`` with the f32 codec, cut to two layers, for the
   float codec's variants of pass 2 on those selectors;
+- Algorithm 2 (gspar, ``algo="closed"``) on the gather wire's ``auto``,
+  through ``make_compressed_train_step`` as the launcher's loop drives it
+  (the launcher has no flag for algo or eps), at eps 40: the capacity is
+  sized from rho, and at the JAX default eps 1.0 the rows would overflow
+  it;
 - the dense wire, ``gspar`` with ``--wire dense --error-feedback``
   (checked: exactly 5,012,344,832 wire bytes a step, the gemma-2b bf16
   gradient, and each group's Q bit-equal to the decode of
   ``ops.gspar_emit``'s compact buffers on the same target, uniforms and
   lambda, at zero overflow), and without EF on the launcher's default wire
-  (unchecked: its step times).
+  (unchecked: its step times); then with EF ``unisp``, ``topk``,
+  ``terngrad``, ``gspar+qsgd8``, ``qsgd``, ``agspar`` and Algorithm 2 (at
+  the JAX default eps 1.0, as on the gather wire), and ``none`` without:
+  each exactly 5,012,344,832 B a step, overflow 0, every kernel variant of
+  the path launched and none of the gather wire's (nor the other EF
+  variant of the dense emit).
 
-The dense wire's kernels (stats, sparsify, sparsify_ef) and kernel 8
-(sparsify_prng) are held to their plain versions in the kernel phase and
-the sweep too; ``ops.gspar_sparsify_prng``, which no launcher path runs,
-is driven on every gemma-2b row as a leaf, its kept count held to 6
-standard deviations of sum p, and its generator to Philox4x32-10's
-known answers.
+The dense wire's kernels (stats, sparsify and sparsify_ef for every
+selector kind and codec, with the integer codecs' scale pass, select_stats
+with ``round_v``) and kernel 8 (sparsify_prng) are held to their plain
+versions in the kernel phase (the paths' variants at every gemma-2b group)
+and the sweep (every kind x codec x EF); Algorithm 2's lambda
+(``ops.closed_lambda``: the magnitude histogram of topk_threshold's pass)
+to the float64 sort of each row at both paths' eps;
+``ops.gspar_sparsify_prng``, which no launcher path runs, is driven on
+every gemma-2b row as a leaf, its kept
+count held to 6 standard deviations of sum p, and its generator to
+Philox4x32-10's known answers.
 
 Each run checks finite losses, no overflow and every kernel variant of the
 path launched. Prints the card's name and power limit, one JSON line of
@@ -147,6 +162,34 @@ PATHS = {
     "bernoulli": MainPath("bernoulli", "dense", None, 0,
                           ("stats_l1max", "select_stats/bern",
                            "compact_emit/bern"), ["--num-periods", "2"]),
+    # Algorithm 2 (algo="closed", eps CLOSED_GATHER_EPS) through
+    # make_compressed_train_step (closed_train): the lambda from the bins
+    "closed": MainPath("gspar", "rice", 2 * SLOTS, 0,
+                       ("topk_threshold/hist", "select_stats/lam",
+                        "compact_emit/lam", "rice_pack")),
+}
+# The dense wire's launcher runs: name -> (compressor, EF, the kernel
+# variants the run must launch). "closed_dense" is Algorithm 2 (algo=
+# "closed", eps CLOSED_EPS) through make_compressed_train_step.
+DENSE_RUNS = {
+    "gspar_dense": ("gspar", True, ("stats", "tail_stats",
+                                    "sparsify_ef/lam")),
+    "gspar_dense_noef": ("gspar", False, ("stats", "tail_stats",
+                                          "sparsify/lam")),
+    "unisp_dense": ("unisp", True, ("sparsify_ef/rho",)),
+    "topk_dense": ("topk", True, ("topk_threshold", "select_stats/topk",
+                                  "sparsify_ef/topk")),
+    "terngrad_dense": ("terngrad", True, (
+        "stats", "select_stats/bern+rounded", "sparsify_ef/bern+ternary")),
+    "gspar+qsgd8_dense": ("gspar+qsgd8", True, (
+        "stats", "tail_stats", "select_stats/lam+rounded",
+        "sparsify_ef/lam+qsgd8")),
+    "qsgd_dense": ("qsgd", True, ("stats", "sparsify_ef/one+qsgd4")),
+    "agspar_dense": ("agspar", True, ("stats", "tail_stats",
+                                      "sparsify_ef/lam")),
+    "none_dense": ("none", False, ("sparsify/one",)),
+    "closed_dense": ("gspar", True, ("topk_threshold/hist",
+                                     "sparsify_ef/lam")),
 }
 
 
@@ -393,10 +436,50 @@ def prng_z(g_row: torch.Tensor, lam, q_row: torch.Tensor) -> float:
 
 def check_dense(chk: Check, name: str, got, want) -> None:
     """Kernels 5, 6 or 8 against their plain version: Q, the residual and
-    the counts bit-equal, sum Q^2 within rtol 1e-6."""
+    the counts bit-equal, sum Q^2 and sum g^2 within rtol 1e-6 (kernel 8
+    reduces no sum g^2, nor a pass given it from an earlier one)."""
     for f in ("q", "residual", "nnz", "n_sure"):
         chk.equal(f"{name} {f}", getattr(got, f), getattr(want, f))
     chk.close(f"{name} sum_sq", got.sum_sq, want.sum_sq)
+    if got.den is not None or want.den is not None:
+        chk.close(f"{name} den", got.den, want.den)
+
+
+def dense_kind(g, pkind, l1, mx):
+    """The dense emit's per-row scalars for selector kind ``pkind`` (topk
+    with pass 1's tie bases), as keywords of ``kernel.sparsify``, and its
+    plain version's keywords (no tie bases: it ranks the ties itself)."""
+    from repro_torch.kernels.sparsify import kernel as K
+    d = g.shape[1]
+    if pkind == "one":
+        return dict(pkind="one"), dict(pkind="one"), None
+    kw, _ = kind_scalars(g, pkind, l1, mx, d)
+    s1 = kw.pop("s1")
+    plain = dict(pkind=pkind, **kw)
+    if pkind == "topk":
+        kw["tie_base"] = K.select_stats(g, None, s1, d, pkind="topk",
+                                        budget=kw["budget"]).tie_base
+    return dict(pkind=pkind, **kw), plain, s1
+
+
+def dense_scale(chk: Check, g, u, s1, codec, kw: dict, l2mx):
+    """An integer codec's scale on the dense wire: pass 1 with ``round_v``
+    at k_cap = d (held to its plain version: max exact, sum v^2 within
+    rtol 1e-6), topk's pass 1 as it is, identity's from the stats kernel."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ref
+    d = g.shape[1]
+    pkind = kw["pkind"]
+    if pkind == "one":
+        return codecs.finalize_scale(codec, *l2mx)
+    extra = {k: kw[k] for k in ("s2", "budget") if k in kw}
+    rnd = pkind != "topk"
+    st = K.select_stats(g, u, s1, d, pkind=pkind, round_v=rnd, **extra)
+    rst = ref.select_stats_ref(g, u, s1, d, K.TILE, pkind=pkind,
+                               round_v=rnd, **extra)
+    chk.equal(f"scale {pkind} max_abs", st.max_abs, rst.max_abs)
+    chk.close(f"scale {pkind} sum_sq", st.sum_sq, rst.sum_sq)
+    return codecs.finalize_scale(codec, st.sum_sq, st.max_abs)
 
 
 def dense_checks(tally: Tally, g, u, l1, mx, lam, seed: int,
@@ -426,10 +509,11 @@ def dense_checks(tally: Tally, g, u, l1, mx, lam, seed: int,
     for name, kern, plain, res_b in (
             ("sparsify", K.sparsify, ref.sparsify_ref, 0),
             ("sparsify_ef", K.sparsify_ef, ref.sparsify_ef_ref, gb)):
-        got, want = kern(g, u, lam), plain(g, u, lam)
+        # sum g^2 from the stats pass, as gspar's dense path passes it
+        got, want = kern(g, u, lam, den=l2d), plain(g, u, lam, den=l2d)
         # read g and u, write Q (and the residual), 20 B of counts a row
-        chk = tally.add(name, cuda_ms(lambda: kern(g, u, lam)),
-                        cuda_ms(lambda: plain(g, u, lam), 1),
+        chk = tally.add(name, cuda_ms(lambda: kern(g, u, lam, den=l2d)),
+                        cuda_ms(lambda: plain(g, u, lam, den=l2d), 1),
                         n * (2 * gb + 4 + res_b) + rows * 20)
         check_dense(chk, name, got, want)
         del got, want
@@ -456,6 +540,106 @@ def dense_checks(tally: Tally, g, u, l1, mx, lam, seed: int,
     prng["rows"] += rows
 
 
+# The dense emit's variants on the launcher paths past gspar's: (name,
+# selector kind, codec, EF), with the path each serves
+DENSE_VARIANTS = (
+    ("sparsify_ef/rho", "rho", "f32", True),              # unisp
+    ("sparsify_ef/topk", "topk", "f32", True),            # topk
+    ("sparsify_ef/bern+ternary", "bern", "ternary", True),   # terngrad
+    ("sparsify_ef/lam+qsgd8", "lam", "qsgd8", True),      # gspar+qsgd8
+    ("sparsify_ef/one+qsgd4", "one", "qsgd4", True),      # qsgd
+    ("sparsify/one", "one", "f32", False),                # none
+)
+CLOSED_EPS = 1.0          # Algorithm 2's budget: the JAX default (dense wire)
+CLOSED_GATHER_EPS = 40.0  # on the gather wire, chosen only to keep every
+                          # gemma-2b row under its capacity, sized from rho
+
+
+def dense_variant_checks(tally: Tally, g, u, l1, mx, lam) -> None:
+    """The dense emit's variants of the launcher paths at one main-path
+    group, each against its plain version (bit-equal; sums within rtol
+    1e-6) and timed with the bytes of its bound, and the integer codecs'
+    scale pass (``select_stats`` with ``round_v`` at k_cap = d)."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ref
+    rows, d = g.shape
+    gb, n = g.element_size(), rows * d
+    u_cod = torch.rand((rows, d), generator=torch.Generator(
+        device="cuda").manual_seed(d), device="cuda")
+    l2mx = K.stats(g)[1:]
+    for name, pkind, cname, ef in DENSE_VARIANTS:
+        kw, pkw, s1 = dense_kind(g, pkind, l1, mx)
+        if pkind == "lam":
+            s1 = lam
+        uu = u if pkind in ("lam", "rho", "bern") else None
+        codec = codecs.get(cname)
+        ckw = {}
+        if codec.integer_coded:
+            scale_name = f"select_stats/{pkind}+rounded"
+            if pkind != "one":
+                extra = {k: kw[k] for k in ("s2",) if k in kw}
+                chk = tally.add(scale_name, cuda_ms(lambda: K.select_stats(
+                    g, uu, s1, d, pkind=pkind, round_v=True, **extra)),
+                    cuda_ms(lambda: ref.select_stats_ref(
+                        g, uu, s1, d, K.TILE, pkind=pkind, round_v=True,
+                        **extra), 1),
+                    n * (gb + 4) + rows * ref.ntiles(d, K.TILE) * 40)
+            else:
+                chk = Check()
+            ckw = dict(codec=codec, u_cod=u_cod,
+                       scale=dense_scale(chk, g, uu, s1, codec, kw, l2mx))
+        # sum g^2 from an earlier pass where the path has one (the stats
+        # pass's equals pass 1's within rtol 1e-6); unisp and none reduce it
+        if pkind not in ("rho", "one") or codec.integer_coded:
+            ckw["den"] = l2mx[0]
+        kern = K.sparsify_ef if ef else K.sparsify
+        plain = ref.sparsify_ef_ref if ef else ref.sparsify_ref
+        got = kern(g, uu, s1, g.dtype, **kw, **ckw)
+        want = plain(g, uu, s1, g.dtype, **pkw, **ckw)
+        # read g (and u, u_cod), write Q (and the residual), 28 B a tile
+        moved = n * (2 * gb + (4 if uu is not None else 0)
+                     + (4 if codec.integer_coded else 0) + (gb if ef else 0))
+        chk = tally.add(name, cuda_ms(lambda: kern(g, uu, s1, g.dtype, **kw,
+                                                   **ckw)),
+                        cuda_ms(lambda: plain(g, uu, s1, g.dtype, **pkw,
+                                              **ckw), 1),
+                        moved + rows * ref.ntiles(d, K.TILE) * 28)
+        check_dense(chk, name, got, want)
+        del got, want
+        torch.cuda.empty_cache()
+    del u_cod
+
+
+def closed_checks(tally: Tally, g, closed: dict) -> None:
+    """Algorithm 2's lambda on the card (``ops.closed_lambda``: the bins of
+    ``closed_form_lambda_rows`` from the magnitude histogram of
+    ``topk_threshold``'s histogram pass, no sort) against the plain float64
+    solve of each row (one sort, ``closed_form_lambda``), rtol 1e-6, at
+    each path's eps; its time (at the dense path's eps) and peak
+    scratch."""
+    from repro_torch.core import sparsify
+    from repro_torch.kernels.sparsify import ops
+    for eps in (CLOSED_EPS, CLOSED_GATHER_EPS):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lam = ops.closed_lambda(g, eps)
+        torch.cuda.synchronize()
+        closed["peak_scratch_bytes"] = max(
+            closed["peak_scratch_bytes"],
+            torch.cuda.max_memory_allocated() - before)
+        if eps == CLOSED_EPS:
+            closed["ms"] += cuda_ms(lambda: ops.closed_lambda(g, eps))
+        for r in range(g.shape[0]):
+            want = sparsify.closed_form_lambda(g[r], eps)[0]
+            rel = abs(float(lam[r]) - float(want)) / max(abs(float(want)),
+                                                         1e-30)
+            closed["max_rel_err"] = max(closed["max_rel_err"], rel)
+            if rel > SUM_RTOL:
+                raise AssertionError(f"closed_form_lambda_rows row {r} "
+                                     f"eps {eps}: relative error {rel}")
+            torch.cuda.empty_cache()
+
+
 def philox_check() -> None:
     """Kernel 8's generator on the card against the known answers."""
     from repro_torch.kernels.sparsify import kernel as K
@@ -478,6 +662,7 @@ def kernel_phase(groups) -> dict:
     library_ms = 0.0
     ms_no_ef = 0.0
     prng = {"launches": 0, "rows": 0, "z_max": 0.0}
+    closed = {"ms": 0.0, "peak_scratch_bytes": 0, "max_rel_err": 0.0}
     philox_check()
     decode_ms = {"rice": 0.0, "coo": 0.0}
     f32, bf16 = codecs.FloatCodec(), codecs.FloatCodec(16, True)
@@ -595,6 +780,8 @@ def kernel_phase(groups) -> dict:
         torch.cuda.empty_cache()
         variant_checks(tally, g, u, l1, mx, k_cap)
         dense_checks(tally, g, u, l1, mx, lam, PRNG_SEED + gi, prng)
+        dense_variant_checks(tally, g, u, l1, mx, lam)
+        closed_checks(tally, g, closed)
         print(f"group [{rows}, {d}] k_cap {k_cap}: kernels and variants "
               f"agree with their plain versions (nnz {int(st.nnz.sum())}, "
               f"gated rows {int(gate.sum())}; gspar_sparsify_prng within "
@@ -603,7 +790,7 @@ def kernel_phase(groups) -> dict:
         torch.cuda.empty_cache()
     tally.library_ms["stats_l1max"] = library_ms
     return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms,
-            "prng": prng, "memset_ms": memset_ms}
+            "prng": prng, "memset_ms": memset_ms, "closed": closed}
 
 
 def overflow_checks(tally: Tally, g, u, lam, st) -> None:
@@ -684,8 +871,11 @@ def variant_sweep():
 
 def dense_sweep():
     """The dense wire's kernels on small groups, ragged (the scalar path)
-    and aligned (16-byte vectors), f32 and bf16 g, every wire dtype, EF
-    on and off, and kernel 8, each bit-equal to its plain version."""
+    and aligned (16-byte vectors), f32 and bf16 g: every selector kind x
+    codec x EF of the dense emit (kernels 5 and 6, with the codec scales
+    of pass 1 with ``round_v``), the gspar kind at every float wire dtype,
+    and kernel 8, each bit-equal to its plain version."""
+    from repro_torch.core import codecs
     from repro_torch.kernels.sparsify import kernel as K, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(3)
     n = 0
@@ -693,6 +883,7 @@ def dense_sweep():
         for d in (100_003, 65_536):
             g = heavy_tailed(3, d, gen).to(dtype)
             u = torch.rand((3, d), generator=gen, device="cuda")
+            u_cod = torch.rand((3, d), generator=gen, device="cuda")
             l1, l2, mx = K.stats(g)
             rl1, rl2, rmx = ref.stats_ref(g)
             chk = Check()
@@ -713,6 +904,28 @@ def dense_sweep():
                         K.sparsify_prng(g, lam, PRNG_SEED),
                         ref.sparsify_prng_ref(g, lam, PRNG_SEED))
             n += 1
+            for pkind in K.DENSE_KINDS:
+                kw, pkw, s1 = dense_kind(g, pkind, l1, mx)
+                uu = u if pkind in ("lam", "rho", "bern") else None
+                for cname in codecs.CODEC_NAMES:
+                    codec = codecs.get(cname)
+                    ckw = {}
+                    out_dtype = codec.wire_dtype(dtype)
+                    if codec.integer_coded:
+                        out_dtype = dtype
+                        ckw = dict(codec=codec, u_cod=u_cod,
+                                   scale=dense_scale(chk, g, uu, s1, codec,
+                                                     kw, (l2, mx)))
+                    for name, kern, plain in (
+                            ("sparsify", K.sparsify, ref.sparsify_ref),
+                            ("sparsify_ef", K.sparsify_ef,
+                             ref.sparsify_ef_ref)):
+                        check_dense(
+                            chk, f"sweep {dtype} d={d} {name}/{pkind}+"
+                            f"{cname}",
+                            kern(g, uu, s1, out_dtype, **kw, **ckw),
+                            plain(g, uu, s1, out_dtype, **pkw, **ckw))
+                        n += 1
     print(f"dense sweep: {n} dense-wire kernel variants agree with their "
           "plain versions", flush=True)
 
@@ -928,6 +1141,55 @@ def topk_check(real, record: list):
     return checked
 
 
+def closed_train(wire: str, layout: str = "auto") -> dict:
+    """Algorithm 2 on ``wire`` (gspar, ``algo="closed"``, with error
+    feedback; eps CLOSED_EPS dense, CLOSED_GATHER_EPS gather) at gemma-2b
+    full width through ``make_compressed_train_step``, as the launcher's
+    loop drives it (its model, Adam, seeds, batch and timing; it has no
+    flag for algo or eps): three steps. Returns the launcher's summary."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.train import init_process_group
+    from repro_torch.models.transformer import Transformer, init_model
+    from repro_torch.optim.optimizers import adam, init_feedback
+    from repro_torch.train.step import make_compressed_train_step
+    comp = CompressionConfig(
+        name="gspar", algo="closed", rho=RHO, wire=wire, wire_layout=layout,
+        eps=CLOSED_EPS if wire == "dense" else CLOSED_GATHER_EPS,
+        error_feedback=True, min_leaf_size=1024)
+    cfg = registry.get("gemma-2b").model
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    own_group = init_process_group(dev)
+    try:
+        print(f"compression: {comp.describe()}", flush=True)
+        model = Transformer(cfg, init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev))
+        opt = adam(3e-4)
+        opt_state = opt.init(model.leaves())
+        ef_state = init_feedback(model.leaves())
+        step = make_compressed_train_step(model, comp, opt)
+        data_gen = torch.Generator(device=dev).manual_seed(1_000_003)
+        comp_gen = torch.Generator(device=dev).manual_seed(2_000_003)
+        metrics, seconds = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch = token_batch(data_gen, cfg.vocab, 8, 128)
+            opt_state, ef_state, m = step(opt_state, ef_state, batch,
+                                          comp_gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+            seconds.append(time.perf_counter() - t0)
+        layouts = list(step.layouts)
+        del model, opt_state, ef_state, step
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    return {"metrics": metrics, "step_seconds": seconds, "layouts": layouts,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+
 def train_phase(name: str, layout: str = "auto", check: str | None = None
                 ) -> dict:
     """One launcher run of path ``name`` with the kernel counts set to 0
@@ -951,7 +1213,8 @@ def train_phase(name: str, layout: str = "auto", check: str | None = None
                           layout] + path.extra)
     K.reset_launches()
     try:
-        summary = train.main(argv)
+        summary = (closed_train("gather", layout) if name == "closed"
+                   else train.main(argv))
     finally:
         sync._bucketed_sync, ops.topk_emit = real, real_topk
     launches = dict(K.LAUNCHES)
@@ -1025,8 +1288,8 @@ def dense_check(real, record: list):
     from repro_torch.core import codecs
     from repro_torch.kernels.sparsify import ops
 
-    def checked(g2d, u2d, **kw):
-        r = real(g2d, u2d, **kw)
+    def checked(g2d, u2d, u_cod=None, **kw):
+        r = real(g2d, u2d, u_cod, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows, d = g2d.shape
@@ -1057,30 +1320,35 @@ def dense_check(real, record: list):
     return checked
 
 
-def dense_train_phase(ef: bool, check: bool) -> dict:
-    """One launcher run of gspar on the dense wire with the kernel counts
-    set to 0 just before it and read just after: with ``ef`` as ``--wire
-    dense --error-feedback``, without on the launcher's default wire (no
-    ``--wire``). Every step must charge exactly the bf16 gradient's bytes,
-    stamp no layout and overflow nothing; ``check`` holds each group's Q
-    to the gather wire's compact buffers (``dense_check``)."""
+def dense_train_phase(name: str, check: bool = False) -> dict:
+    """One launcher run of ``DENSE_RUNS[name]`` on the dense wire with the
+    kernel counts set to 0 just before it and read just after (with EF as
+    ``--wire dense --error-feedback``; gspar without EF on the launcher's
+    default wire, no ``--wire``). Every step must charge exactly the bf16
+    gradient's bytes, stamp no layout, overflow nothing and launch every
+    variant of the run and no kernel of the gather wire; ``check`` (gspar)
+    holds each group's Q to the gather wire's compact buffers
+    (``dense_check``)."""
     from repro_torch.kernels.sparsify import kernel as K, ops
     from repro_torch.launch import train
+    compressor, ef, variants = DENSE_RUNS[name]
     record: list = []
     real = ops.gspar_dense
     if check:
         ops.gspar_dense = dense_check(real, record)
-    argv = DENSE_ARGS + (["--wire", "dense", "--error-feedback"] if ef
-                         else [])
+    argv = DENSE_ARGS + ["--compressor", compressor] + (
+        ["--wire", "dense", "--error-feedback"] if ef else [])
     K.reset_launches()
     try:
-        summary = train.main(argv)
+        summary = (closed_train("dense") if name == "closed_dense"
+                   else train.main(argv))
     finally:
         ops.gspar_dense = real
     launches = dict(K.LAUNCHES)
-    name = "gspar_dense" if ef else "gspar_dense_noef"
     if summary["layouts"]:
         raise AssertionError(f"{name}: layouts {summary['layouts']}")
+    top = 1.25 * RHO if compressor in ("gspar", "agspar", "unisp", "topk") \
+        and name != "closed_dense" else 1.0
     for step, m in enumerate(summary["metrics"]):
         if not math.isfinite(m["loss"]):
             raise AssertionError(f"{name} step {step}: loss {m['loss']}")
@@ -1088,17 +1356,20 @@ def dense_train_phase(ef: bool, check: bool) -> dict:
             raise AssertionError(f"{name} step {step}: wire_bytes "
                                  f"{m['wire_bytes']}, overflow "
                                  f"{m['overflow']}")
-        if not 0.0 < m["density"] <= 1.25 * RHO:
+        if not 0.0 < m["density"] <= top:
             raise AssertionError(f"{name} step {step}: density "
                                  f"{m['density']}")
-    kernel = "sparsify_ef" if ef else "sparsify"
-    for v in ("stats", "tail_stats", kernel):
+    for v in variants:
         if launches.get(v, 0) <= 0:
             raise AssertionError(f"kernel {v} never launched on {name}")
-    if not check and any(launches.get(v, 0) for v in (
-            "stats_l1max", "select_stats", "compact_emit", "sparsify_prng",
-            "sparsify_ef" if not ef else "sparsify")):
-        raise AssertionError(f"{name} launched another path's kernels: "
+    other = [v for v in ("stats_l1max", "compact_emit", "rice_pack",
+                         "sparsify_prng") if launches.get(v, 0)]
+    if not check and other:
+        raise AssertionError(f"{name} launched the gather wire's kernels "
+                             f"{other}: {launches}")
+    wrong_ef = "sparsify" if ef else "sparsify_ef"
+    if launches.get(wrong_ef, 0):
+        raise AssertionError(f"{name} (EF {ef}) launched {wrong_ef}: "
                              f"{launches}")
     groups = len(record) // max(1, len(summary["metrics"]))
     if check and (groups == 0 or len(record) != groups * len(
@@ -1115,6 +1386,8 @@ def dense_train_phase(ef: bool, check: bool) -> dict:
               f"{m['wire_bytes']:.0f}" for m in summary["metrics"])
           + "; density " + ", ".join(
               f"{m['density']:.6f}" for m in summary["metrics"])
+          + "; var " + ", ".join(
+              f"{m['var_ratio']:.3f}" for m in summary["metrics"])
           + "; loss " + ", ".join(f"{m['loss']:.4f}"
                                   for m in summary["metrics"])
           + f"; max_memory_allocated {summary['max_memory_allocated']} B",
@@ -1143,13 +1416,25 @@ ENTRIES = {
                                                               559),
     "stats": ("gspar_dense", 239), "sparsify": ("gspar_dense_noef", 96),
     "sparsify_ef": ("gspar_dense", 123), "sparsify_prng": ("prng", 157),
+    "sparsify_ef/rho": ("unisp_dense", 123),
+    "sparsify_ef/topk": ("topk_dense", 123),
+    "sparsify_ef/bern+ternary": ("terngrad_dense", 123),
+    "sparsify_ef/lam+qsgd8": ("gspar+qsgd8_dense", 123),
+    "sparsify_ef/one+qsgd4": ("qsgd_dense", 123),
+    "sparsify/one": ("none_dense", 96),
+    "select_stats/lam+rounded": ("gspar+qsgd8_dense", 384),
+    "select_stats/bern+rounded": ("terngrad_dense", 384),
 }
 # what each run of the dense wire and kernel 8 drives
 DENSE_PATHS = {
-    "gspar_dense": "gspar --wire dense --error-feedback",
+    name: (f"{c} --wire dense" + (" --error-feedback" if ef else "")
+           if name != "closed_dense" else
+           f"gspar algo=closed eps={CLOSED_EPS:g} wire=dense ef "
+           "(make_compressed_train_step)")
+    for name, (c, ef, _) in DENSE_RUNS.items()}
+DENSE_PATHS.update({
     "gspar_dense_noef": "gspar (the launcher's default --wire dense)",
-    "prng": "ops.gspar_sparsify_prng on every gemma-2b row as a leaf",
-}
+    "prng": "ops.gspar_sparsify_prng on every gemma-2b row as a leaf"})
 
 
 def ptxas_lines(log: str, kernels) -> list[str]:
@@ -1192,6 +1477,13 @@ def main() -> int:
     for line in ptxas_lines(log, ("compact_emit", "rice_pack",
                                   "select_tiles_topk", "radix_")):
         print(line)
+    dense = ptxas_lines(log, ("sparsify_tiles",))
+    regs = [int(x.split(" registers")[0].rsplit(" ", 1)[-1]) for x in dense]
+    spills = [x for x in dense if "0 bytes spill stores" not in x]
+    print(f"ptxas sparsify_tiles: {len(dense)} instantiations, "
+          f"{min(regs)}-{max(regs)} registers, {len(spills)} with spills")
+    for line in spills:
+        print(line)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1210,13 +1502,13 @@ def main() -> int:
             ("gspar+qsgd8", "gspar+qsgd8", "auto", "card"),
             ("terngrad", "terngrad", "auto", "card"),
             ("topk", "topk", "auto", None),
-            ("bernoulli", "bernoulli", "auto", None)):
+            ("bernoulli", "bernoulli", "auto", None),
+            ("closed", "closed", "auto", None)):
         torch.cuda.empty_cache()
         runs[key] = train_phase(name, layout, check)
-    for ef, check in ((True, True), (False, False)):
+    for name in DENSE_RUNS:
         torch.cuda.empty_cache()
-        run = dense_train_phase(ef, check)
-        runs[run["name"]] = run
+        runs[name] = dense_train_phase(name, check=name == "gspar_dense")
 
     tally = kp["tally"]
     kernels = []
@@ -1246,6 +1538,7 @@ def main() -> int:
             tally.library_ms[key]
     kernels[list(ENTRIES).index("sparsify_prng")]["max_sd_from_sum_p"] = \
         kp["prng"]["z_max"]
+    closed = kp["closed"]
     for key, run in runs.items():
         print(json.dumps({key: {
             "step_seconds": run["step_seconds"],
@@ -1256,6 +1549,12 @@ def main() -> int:
             "loss": [m["loss"] for m in run["metrics"]],
             "checks": run["checks"], "launches": run["launches"]}}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],
+                      "closed_form_lambda_rows": dict(
+                          eps=[CLOSED_EPS, CLOSED_GATHER_EPS],
+                          ms_per_step_at_eps_1=closed["ms"],
+                          peak_scratch_bytes=closed["peak_scratch_bytes"],
+                          max_rel_err_vs_float64_sort=closed[
+                              "max_rel_err"]),
                       "seconds": time.perf_counter() - T0}))
     print(card)
     print(json.dumps({"kernels": kernels}))

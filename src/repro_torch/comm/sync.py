@@ -5,17 +5,20 @@ gather wire, every static wire layout).
 
 The dense wire (``cfg.wire == "dense"``, the default) compresses every
 leaf to Q(g) in dense layout (``repro_torch.core.api.compress_tree``) and
-averages it over the workers with one all-reduce per leaf dtype, in that
-dtype, as the JAX package's ``pmean``; it charges ``numel x itemsize`` of
-every leaf, has no capacity to overflow and stamps no layout. On gloo
-(the CPU backend) the buffer is all-gathered and summed in worker order,
-in float32 (a bfloat16 bucket rounded to bfloat16 once), then divided by
-the worker count: the JAX package's ``pmean`` on the CPU does exactly
-that, so the two are bit-equal at any worker count. gloo's own all-reduce
-sums each chunk from another rank and is not (at three workers a fifth of
-float32 sums moved by an ulp). NCCL sums in its ring order, so beyond two
-workers the dense sum on the card is not held bit-equal to the JAX
-package's.
+averages it over the workers in the leaf's dtype, as the JAX package's
+``pmean``; it charges ``numel x itemsize`` of every leaf, has no capacity
+to overflow and stamps no layout. Every backend takes one path: an ordered
+reduce-scatter, then an all-gather. Each dtype's flat buffer is cut into m
+equal shards; one ``all_to_all_single`` sends shard j of every worker to
+rank j, which sums its m copies in worker order in float32 (a bfloat16
+buffer rounded to bfloat16 once) and divides by m; an all-gather puts the
+shards back together, a chunk of ``EXCHANGE_UNITS`` elements at a time,
+so its scratch stays about one chunk whatever the model's size. The JAX
+package's ``pmean`` on the CPU sums in that order too, and the division by
+m is an IEEE quotient on every device, so the two are bit-equal at any
+worker count, on gloo and on NCCL alike (an NCCL or gloo all-reduce sums
+in its own ring or chunk order, and at three workers moved a fifth of
+float32 sums by an ulp). At one worker the exchange issues no collective.
 
 On the gather wire (``cfg.wire == "gather"``) every worker compresses its
 local gradient leaves into fixed-capacity
@@ -188,15 +191,62 @@ def _flat_storage(ts: list) -> torch.Tensor | None:
         st, 0, (st.nbytes() // ts[0].element_size(),))
 
 
+def _div_workers(t: torch.Tensor, m: int) -> torch.Tensor:
+    """``t / m`` in place, an IEEE quotient on every device: the divisor is
+    a tensor, as PyTorch's CUDA division by a Python number multiplies by
+    its rounded reciprocal instead (at m = 3 an ulp off the JAX package's
+    quotient)."""
+    return t.div_(torch.full((), m, dtype=t.dtype, device=t.device))
+
+
+# Elements of a dense exchange's buffer that one ordered reduce-scatter and
+# all-gather carry at once (rounded down to a multiple of the worker count):
+# their scratch beside the buffer is one chunk (the received shards), two
+# shards of it, and for a ragged last chunk its padded copy, whatever the
+# buffer's size.
+EXCHANGE_UNITS = 1 << 26
+
+
+def _worker_order_mean(flat: torch.Tensor, m: int, group) -> None:
+    """``flat`` (1-D) becomes the mean over the ``m`` workers, in place, a
+    chunk of ``EXCHANGE_UNITS`` at a time: an ordered reduce-scatter and an
+    all-gather. A chunk is cut into m equal shards (the last, ragged chunk
+    padded in a copy of its own); ``all_to_all_single`` sends shard j of
+    every worker to rank j (as bytes: gloo takes no bfloat16), which sums
+    its m copies in worker order in float32, rounds the sum once to the
+    buffer's dtype and divides it by m; ``all_gather_into_tensor`` returns
+    every shard to every worker, into the chunk."""
+    n, dt = flat.numel(), flat.dtype
+    step = max(m, EXCHANGE_UNITS // m * m)
+    for a in range(0, n, step):
+        chunk = flat[a:a + step]
+        c = chunk.numel()
+        shard = -(-c // m)
+        buf = chunk if shard * m == c else torch.cat(
+            [chunk, chunk.new_zeros(shard * m - c)])
+        recv = torch.empty_like(buf)
+        dist.all_to_all_single(recv.view(torch.uint8),
+                               buf.view(torch.uint8), group=group)
+        parts = recv.view(m, shard)
+        acc = parts[0].to(torch.promote_types(dt, F32), copy=True)
+        for part in parts[1:]:
+            acc += part
+        mine = _div_workers(acc.to(dt), m)
+        del acc, recv
+        dist.all_gather_into_tensor(buf.view(torch.uint8),
+                                    mine.view(torch.uint8), group=group)
+        if buf is not chunk:
+            chunk.copy_(buf[:c])
+
+
 def _sync_leaves_dense(q: list, group) -> tuple[list, float]:
-    """pmean of every leaf over ``group``, in the leaf's dtype: one
-    all-reduce per dtype (on gloo an all-gather and a worker-order sum),
-    in place on the flat buffer that ``compress_tree`` lays that dtype's
-    leaves out in (a copy into one when they do not tile one). Returns
-    ``(synced leaves, wire bytes)``: ``numel x itemsize`` of every leaf, as
-    the JAX package charges."""
+    """pmean of every leaf over ``group``, in the leaf's dtype: one ordered
+    reduce-scatter and all-gather per dtype (``_worker_order_mean``; none
+    at one worker), in place on the flat buffer that ``compress_tree`` lays
+    that dtype's leaves out in (a copy into one when they do not tile one).
+    Returns ``(synced leaves, wire bytes)``: ``numel x itemsize`` of every
+    leaf, as the JAX package charges."""
     m = dist.get_world_size(group)
-    gloo = dist.get_backend(group) == "gloo"
     synced: list = [None] * len(q)
     by_dtype: dict = {}
     for i, t in enumerate(q):
@@ -207,20 +257,8 @@ def _sync_leaves_dense(q: list, group) -> tuple[list, float]:
         in_place = flat is not None
         if not in_place:
             flat = torch.cat([q[i].reshape(-1) for i in ids])
-        if gloo:
-            raw = flat.view(torch.uint8)        # gloo takes no bfloat16
-            parts = [torch.empty_like(raw) for _ in range(m)]
-            dist.all_gather(parts, raw, group=group)
-            acc = parts[0].view(dt).to(torch.promote_types(dt, F32),
-                                       copy=True)
-            for part in parts[1:]:
-                acc += part.view(dt)
-            flat.copy_(acc)
-            del acc, parts
-        else:
-            dist.all_reduce(flat, group=group)
         if m > 1:
-            flat.div_(m)
+            _worker_order_mean(flat, m, group)
         off = 0
         for i in ids:
             n = q[i].numel()
@@ -254,7 +292,7 @@ def _bucketed_sync(items: list, leaves: list, group,
         flat = torch.cat([items[e][1].reshape(-1).to(F32)
                           for e in dense_ids])
         dist.all_reduce(flat, group=group)
-        synced = flat / m
+        synced = _div_workers(flat, m)
         off = 0
         for e in dense_ids:
             for i, n in items[e][2]:
@@ -338,7 +376,7 @@ def _bucketed_sync(items: list, leaves: list, group,
                     (gscales[:, s0:s0 + lp.layers]
                      if gscales is not None else None), codec)
             del gvals, gwidx, gcounts, gscales
-            dense = dense[:coord_off].div_(m)
+            dense = _div_workers(dense[:coord_off], m)
             for (e, lp, r0, _, _, c0, _, _) in plans:
                 _route_span(items[e][2], r0, lp.layers, lp.d,
                             dense[c0:c0 + lp.block], pieces, leaves)

@@ -1,31 +1,47 @@
-"""A compressed gradient in dense layout (port of the part of
-``repro.core._compressors`` the dense wire uses: ``CompressedGrad`` and
-``finish_compressed``).
+"""The gradient compressor zoo (port of ``repro.core._compressors``):
+``CompressedGrad``, ``finish_compressed``, the paper's method and its
+baselines as registry aliases over the selector ∘ codec schemes, and
+``make_compressor``.
 
-The JAX package compresses one leaf (a layer of a stacked leaf under vmap)
-at a time and keeps the probability vector p. Here a whole ``[rows, d]``
-shape group is one ``CompressedGrad``, every field per row, and p is
-``min(lam |g|, 1)`` of the row's lambda: it is never materialised. The
-registry of compressor names is ``repro_torch.core.schemes``.
+Each compressor maps ``(generator, g)`` to a ``CompressedGrad`` through the
+dense wire's path on one row (``Scheme.compress``): the selector's float32
+uniforms, then an integer codec's, are drawn from ``generator`` shaped like
+g (the JAX zoo takes a key). ``gspar``/``unisp``/``topk`` are their
+selector with the f32 codec, ``qsgd`` is identity ∘ qsgd<bits>,
+``terngrad`` bernoulli ∘ ternary and ``none`` the identity; any other
+composition (``"gspar+qsgd8"``) goes through ``make_compressor``.
+
+The dense wire's groups compress a whole ``[rows, d]`` batch into one
+``CompressedGrad`` with every field per row and never materialise p (it is
+``min(lam |g|, 1)`` of the row's lambda); a compressor of the zoo returns
+one vector with its p, as the JAX one does.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
+from typing import Callable
 
 import torch
+
+from repro_torch.core import schemes
 
 
 @dataclasses.dataclass
 class CompressedGrad:
-    """One group compressed in dense layout, plus per-row accounting."""
-    q: torch.Tensor            # [rows, d] Q(g), the wire dtype
-    lam: torch.Tensor          # [rows] p = min(lam |g|, 1)
-    bits: torch.Tensor         # [rows] realized coding-model bits
-    var_ratio: torch.Tensor    # [rows] ||q||^2 / ||g||^2 (the paper's var)
-    nnz: torch.Tensor          # [rows] int64: nonzeros of q
+    """Q(g) in dense layout plus accounting: per row for a dense-wire group
+    (``q [rows, d]``), scalars for one vector of the zoo (``q`` shaped like
+    g, with its ``p``)."""
+    q: torch.Tensor            # Q(g), the wire dtype (the zoo: g's dtype)
+    lam: torch.Tensor | None   # the selector's scalar per row (lambda,
+                               # rho or topk's threshold; None: identity)
+    bits: torch.Tensor         # realized coding-model bits
+    var_ratio: torch.Tensor    # ||q||^2 / ||g||^2 (the paper's var)
+    nnz: torch.Tensor          # int64: nonzeros of q
+    p: torch.Tensor | None = None   # the zoo: the probabilities sampled
 
 
-def finish_compressed(q: torch.Tensor, lam: torch.Tensor, bits: torch.Tensor,
+def finish_compressed(q: torch.Tensor, lam, bits: torch.Tensor,
                       sum_sq: torch.Tensor, den: torch.Tensor,
                       nnz: torch.Tensor) -> CompressedGrad:
     """Assemble a CompressedGrad from the kernels' per-row sums: the
@@ -34,3 +50,77 @@ def finish_compressed(q: torch.Tensor, lam: torch.Tensor, bits: torch.Tensor,
     var_ratio = torch.where(ok, sum_sq / torch.where(ok, den, 1.0), 0.0)
     return CompressedGrad(q=q, lam=lam, bits=bits.to(torch.float32),
                           var_ratio=var_ratio, nnz=nnz)
+
+
+def _compose(generator, g, *, selector: str, codec: str | None = None,
+             **kw) -> CompressedGrad:
+    return schemes.make_scheme(selector, codec=codec, **kw).compress(
+        generator, g)
+
+
+def gspar(generator, g, *, eps: float = 1.0, algo: str = "greedy",
+          rho: float = 0.1, num_iters: int = 2, b: int = 32,
+          codec: str | None = None) -> CompressedGrad:
+    """The paper's method: Algorithm 2 (``algo="closed"``, variance budget
+    1 + eps) or Algorithm 3 (``algo="greedy"``, density rho, 2 rescales)."""
+    return _compose(generator, g, selector="gspar", codec=codec, eps=eps,
+                    algo=algo, rho=rho, num_iters=num_iters, float_bits=b)
+
+
+def unisp(generator, g, *, rho: float = 0.1, b: int = 32,
+          codec: str | None = None) -> CompressedGrad:
+    """Uniform sampling baseline: p = rho on the support (unbiased)."""
+    return _compose(generator, g, selector="unisp", codec=codec, rho=rho,
+                    float_bits=b)
+
+
+def topk(generator, g, *, rho: float = 0.1, b: int = 32,
+         codec: str | None = None) -> CompressedGrad:
+    """Deterministic top-k by magnitude (biased: pair with error
+    feedback); ties at the k-th magnitude by lowest coordinate."""
+    return _compose(generator, g, selector="topk", codec=codec, rho=rho,
+                    float_bits=b)
+
+
+def qsgd(generator, g, *, bits: int = 4) -> CompressedGrad:
+    """QSGD: identity selection with stochastic quantization to 2^bits - 1
+    levels of |g_i| / ||g||_2."""
+    return _compose(generator, g, selector="qsgd", qsgd_bits=bits)
+
+
+def terngrad(generator, g, *, b: int = 32) -> CompressedGrad:
+    """TernGrad: Bernoulli(|g_i| / max|g|) selection with the ternary
+    codec."""
+    return _compose(generator, g, selector="terngrad", float_bits=b)
+
+
+def identity(generator, g, *, b: int = 32) -> CompressedGrad:
+    """No compression (the paper's "baseline")."""
+    return _compose(generator, g, selector="none", float_bits=b)
+
+
+REGISTRY: dict[str, Callable] = {
+    "gspar": gspar,
+    "unisp": unisp,
+    "topk": topk,
+    "qsgd": qsgd,
+    "terngrad": terngrad,
+    "none": identity,
+}
+
+
+def _generic(generator, g, *, name: str, rho: float = 0.1, eps: float = 1.0,
+             algo: str = "greedy", num_iters: int = 2, b: int = 32,
+             bits: int = 4, codec: str | None = None) -> CompressedGrad:
+    return _compose(generator, g, selector=name, codec=codec, rho=rho,
+                    eps=eps, algo=algo, num_iters=num_iters, qsgd_bits=bits,
+                    float_bits=b)
+
+
+def make_compressor(name: str, **kwargs) -> Callable:
+    """A ``(generator, g) -> CompressedGrad`` callable with options bound;
+    ``name`` is a registry key or a ``selector+codec`` composition."""
+    if name in REGISTRY:
+        return partial(REGISTRY[name], **kwargs)
+    schemes.parse_composition(name)                # raises on unknown names
+    return partial(_generic, name=name, **kwargs)

@@ -1,6 +1,7 @@
 """Gradient compression over a model's ordered leaves (port of
-``repro.core.api``: ``CompressionConfig``, ``TreeStats``, ``compress_tree``
-for the dense wire and ``compress_tree_sparse`` for the gather wire).
+``repro.core.api``: ``CompressionConfig``, ``TreeStats``, ``compress_leaf``,
+``compress_tree`` for the dense wire and ``compress_tree_sparse`` for the
+gather wire).
 
 The paper sparsifies each layer independently (section 5.2): a leaf is one
 parameter tensor, and a layer-stacked leaf ``[L, ...]`` is L rows. The
@@ -17,8 +18,9 @@ import torch
 from repro_torch.core import coding
 from repro_torch.core import schemes as schemes_lib
 from repro_torch.core.grouping import plan_tree
-from repro_torch.core.sparse import (DENSE_WIRE_ITEM, KernelBackend,
-                                     residual_from_buffers)
+from repro_torch.core._compressors import CompressedGrad
+from repro_torch.core.sparse import (FUSED_SELECTORS, REFERENCE_ITEM,
+                                     KernelBackend, residual_from_buffers)
 
 F32 = torch.float32
 
@@ -29,7 +31,6 @@ XLA_PRESETS = ("async", "latency_hiding", "none", "overlap")
 # the JAX config's fields the port takes only at their defaults, and the
 # ROADMAP.md item that ports each
 UNPORTED_FIELDS = {
-    "eps": "queue A item 1 (Algorithm 2, algo='closed')",
     "kernel_interpret": "queue A item 4 (ReferenceBackend)",
     "resparsify_pods": "queue A item 9",
     "overlap_bucket_bytes": "queue A item 9",
@@ -37,9 +38,7 @@ UNPORTED_FIELDS = {
     "delta_beta": "queue A item 9",
     "skip_tau": "queue A item 9",
     "bound_decay": "queue A item 9",
-    "xla_preset": "queue A item 13",
-    "density_gain": "queue A item 3 (agspar)",
-    "density_floor": "queue A item 3 (agspar)"}
+    "xla_preset": "queue A item 13"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -51,35 +50,35 @@ class CompressionConfig:
     """Static configuration of the compression stage.
 
     ``name`` is a selector ∘ codec composition: a bare selector
-    (``"gspar"``, ``"unisp"``, ``"topk"``, ``"bernoulli"``) takes the f32
-    codec, ``"selector+codec"`` names both (``"gspar+qsgd8"``,
-    ``"topk+ternary"``), and ``"terngrad"`` is ``bernoulli+ternary``. The
-    port runs the dense wire (``wire="dense"``, the default, as in the JAX
-    package: Q(g) in dense layout, pmean over the workers) for gspar with
-    ``algo="greedy"`` and a float codec (``f32``, ``bf16``), and the sparse
-    gather wire for gspar and the paper's baselines, each with the ``f32``,
-    ``bf16``, ``qsgd<N>`` and ``ternary`` codecs, with every static wire
-    layout (``auto``, ``coo``, ``bitmap``, ``dense``, ``rice``); both with
-    ``exchange="sync"``, with or without error feedback. Every other value
-    (the other compositions on the dense wire, the packed wire, the
-    identity selector and its ``qsgd``/``none`` aliases among them) raises
-    NotImplementedError naming the ROADMAP.md item that ports it; invalid
-    values raise ValueError.
+    (``"gspar"``, ``"agspar"``, ``"unisp"``, ``"topk"``, ``"bernoulli"``,
+    ``"identity"``) takes the f32 codec, ``"selector+codec"`` names both
+    (``"gspar+qsgd8"``, ``"topk+ternary"``), and the aliases are
+    ``"terngrad"`` (``bernoulli+ternary``), ``"qsgd"``
+    (``identity+qsgd<qsgd_bits>``) and ``"none"`` (``identity+f32``). The
+    port runs every composition on the dense wire (``wire="dense"``, the
+    default, as in the JAX package: Q(g) in dense layout, pmean over the
+    workers), gspar with ``algo="greedy"`` or ``"closed"``, each with the
+    ``f32``, ``bf16``, ``qsgd<N>`` and ``ternary`` codecs; and on the sparse
+    gather wire every selector but agspar and identity (which the JAX
+    package runs on its reference backend: ROADMAP.md queue A item 4),
+    with every static wire layout (``auto``, ``coo``, ``bitmap``,
+    ``dense``, ``rice``); both with ``exchange="sync"``, with or without
+    error feedback. Every other value (the packed wire and the overlapped
+    exchange among them) raises NotImplementedError naming the ROADMAP.md
+    item that ports it; invalid values raise ValueError.
 
     The fields, their order and their defaults are the JAX package's, so
     ``CompressionConfig(**kwargs)`` takes any JAX config's keyword
     arguments. ``backend`` ``"auto"`` and ``"pallas"`` both select the
     port's CUDA kernel backend (the counterpart of the Pallas one);
-    ``"reference"`` and ``kernel_interpret`` (item 4), ``eps`` (Algorithm
-    2, item 1), ``density_gain``/``density_floor`` (agspar, item 3), the
-    pod, overlap and adaptive-control settings (item 9) and
-    ``xla_preset`` (item 13) are refused at any value but their default.
+    ``"reference"`` and ``kernel_interpret`` (item 4), the pod, overlap
+    and adaptive-control settings (item 9) and ``xla_preset`` (item 13)
+    are refused at any value but their default.
     """
     name: str = "gspar"              # selector[+codec] composition
     rho: float = 0.1                 # target density (gspar, unisp, topk)
-    eps: float = 1.0                 # variance budget (gspar closed: not
-                                     # ported)
-    algo: str = "greedy"             # gspar solver (closed: not ported)
+    eps: float = 1.0                 # variance budget (gspar closed)
+    algo: str = "greedy"             # gspar solver: greedy | closed
     num_iters: int = 2               # greedy rescale iterations (paper: 2)
     qsgd_bits: int = 4               # the legacy "qsgd" alias's levels
     float_bits: int = 32             # b in the coding model
@@ -103,7 +102,7 @@ class CompressionConfig:
     skip_tau: float = 0.0            # skip threshold,
     bound_decay: float = 0.9         # energy-bound decay
     rice_fitted: bool = False        # data-fitted Rice parameter (not ported)
-    density_gain: float = 1.0        # agspar's density fit (not ported):
+    density_gain: float = 1.0        # agspar's density fit:
     density_floor: float = 0.1       # gain and floor
 
     def __post_init__(self):
@@ -129,11 +128,20 @@ class CompressionConfig:
                              "outside the int32 coordinate space")
         if not 0.0 < self.rho <= 1.0:
             raise ValueError(f"rho={self.rho} outside (0, 1]")
-        scheme = self.scheme()       # raises on unknown/unported names
-        if self.wire == "dense" and (scheme.selector.name != "gspar"
-                                     or scheme.codec.integer_coded):
-            raise _not_ported(f"{scheme.name} on wire='dense'",
-                              f"queue A item {DENSE_WIRE_ITEM}")
+        scheme = self.scheme()       # raises on unknown names
+        if self.wire == "gather" \
+                and scheme.selector.name not in FUSED_SELECTORS:
+            raise _not_ported(
+                f"{scheme.name} on wire='gather' (the JAX package runs it "
+                "on its reference backend)",
+                f"queue A item {REFERENCE_ITEM}: ReferenceBackend")
+        if self.error_feedback and scheme.selector.name == "identity" \
+                and not (scheme.codec.rounds_values
+                         or scheme.codec.integer_coded):
+            raise ValueError(
+                f"unsupported (scheme, error_feedback) pair ({self.name!r}, "
+                "True): identity selection with a lossless codec has zero "
+                "residual; error feedback would be a silent no-op")
 
     def _validate(self) -> None:
         """The JAX config's ValueErrors for the fields the port refuses."""
@@ -188,6 +196,8 @@ class CompressionConfig:
     def describe(self) -> str:
         parts = [self.scheme().name, f"rho={self.rho:g}",
                  f"wire={self.wire}"]
+        if self.algo == "closed":    # Algorithm 2's budget (rho still
+            parts.insert(1, f"algo=closed eps={self.eps:g}")  # sizes gather)
         if self.wire != "dense":     # the layout and exchange are sparse's
             parts += [f"layout={self.wire_layout}",
                       f"exchange={self.exchange}"]
@@ -202,7 +212,8 @@ def _resolve_scheme(cfg: CompressionConfig) -> schemes_lib.Scheme:
     return schemes_lib.make_scheme(
         cfg.name, codec=cfg.codec, rho=cfg.rho, eps=cfg.eps, algo=cfg.algo,
         num_iters=cfg.num_iters, qsgd_bits=cfg.qsgd_bits,
-        float_bits=cfg.float_bits)
+        float_bits=cfg.float_bits, density_gain=cfg.density_gain,
+        density_floor=cfg.density_floor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +223,13 @@ class TreeStats:
     dense_bits: torch.Tensor     # what an uncompressed message would cost
     density: torch.Tensor        # realized nnz fraction over all coords
     var_ratio: torch.Tensor      # size-weighted mean ||Q(g)||^2/||g||^2
+
+
+def compress_leaf(cfg: CompressionConfig, generator: torch.Generator,
+                  g: torch.Tensor) -> CompressedGrad:
+    """One leaf through the configured scheme on the dense wire's path
+    (``Scheme.compress``): q in g's dtype and shape, scalar accounting."""
+    return cfg.scheme().compress(generator, g)
 
 
 def _require_residual(cfg: CompressionConfig, residual, where: str) -> None:
@@ -264,25 +282,33 @@ def compress_tree(cfg: CompressionConfig, generator: torch.Generator,
 
     Each sparse group is stacked into one ``[rows, d]`` batch (with error
     feedback: the target ``leaf + residual``, formed in place in the
-    batch) and takes its uniforms from ``generator`` as one ``[rows, d]``
-    float32 draw, in group order: the draws of ``compress_tree_sparse``, so
-    one generator seed gives both wires the same kept coordinates. Each
-    group's uniforms are freed before the next draw. Tiny leaves (<
-    ``cfg.min_leaf_size``) pass through in their own dtype, with the
-    identity's dense bits and a residual of exactly zero.
+    batch) and takes its uniforms from ``generator``, in group order: the
+    selector's as one ``[rows, d]`` float32 draw (none for topk and
+    identity), the draw of ``compress_tree_sparse``, so one generator seed
+    gives both wires the same kept coordinates; then a stochastic codec's
+    (qsgd, ternary) as a second ``[rows, d]`` draw, one per coordinate as
+    ``Scheme.apply_dense`` draws them (the gather wire draws ``[rows,
+    k_cap]`` at compact rank). Each group's uniforms are freed before the
+    next draw. Tiny leaves (< ``cfg.min_leaf_size``) pass through in their
+    own dtype, with the identity's dense bits and a residual of exactly
+    zero.
 
     The Q leaves of one dtype are views of one flat buffer, in group order,
-    so that the exchange reduces each dtype with one collective, in place
+    so that the exchange reduces each dtype in place
     (``comm.sync._sync_leaves_dense``); a codec that rounds (bf16) is
-    decoded to the leaf's dtype there, as the JAX package decodes before
-    its pmean.
+    decoded to the leaf's dtype there, and an integer codec's levels in the
+    kernel, as the JAX package decodes before its pmean. With an integer
+    codec the residual is ``target - decoded Q``, each difference rounded
+    once to the leaf dtype, as the JAX package's identity-indexed scatter
+    forms it.
 
     Returns ``(q, new_residual, stats)``: lists like ``leaves`` (the
     residual None without error feedback) and TreeStats.
     """
     _require_residual(cfg, residual, "compress_tree")
     backend = KernelBackend()
-    codec = cfg.scheme().codec
+    scheme = cfg.scheme()
+    codec = scheme.codec
     ef = cfg.error_feedback
     stk = stacked if stacked is not None else [False] * len(leaves)
     plan = plan_tree(cfg, leaves, stk)
@@ -320,13 +346,20 @@ def compress_tree(cfg: CompressionConfig, generator: torch.Generator,
             continue
 
         stack = _stack_group(grp, leaves, residual, ef)
-        u = torch.rand((grp.rows, grp.d), generator=generator, dtype=F32,
-                       device=stack.device)
+        u = u_cod = None
+        if scheme.selector.samples:
+            u = torch.rand((grp.rows, grp.d), generator=generator,
+                           dtype=F32, device=stack.device)
+        if codec.stochastic:
+            u_cod = torch.rand((grp.rows, grp.d), generator=generator,
+                               dtype=F32, device=stack.device)
         qg = take(stack.dtype, grp.rows * grp.d).view(grp.rows, grp.d)
-        direct = codec.wire_dtype(stack.dtype) == stack.dtype
+        direct = codec.integer_coded \
+            or codec.wire_dtype(stack.dtype) == stack.dtype
         cg, res_rows = backend.compress_dense(cfg, u, stack, ef,
-                                              out=qg if direct else None)
-        del u, stack
+                                              out=qg if direct else None,
+                                              u_cod=u_cod)
+        del u, u_cod, stack
         if not direct:
             qg.copy_(cg.q)
         r0 = 0
@@ -393,7 +426,7 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
 
         stack = _stack_group(grp, leaves, residual, ef)
         u = u_cod = None
-        if scheme.selector.name != "topk":
+        if scheme.selector.samples:
             u = torch.rand((grp.rows, grp.d), generator=generator,
                            dtype=F32, device=stack.device)
         if scheme.codec.stochastic:

@@ -20,6 +20,11 @@ kernel), so encoding inside the compact write equals encoding the compact
 buffer. The arithmetic is the JAX package's, operation for operation:
 the CUDA kernel repeats it without contraction, so the levels agree bit for
 bit. ``finalize_scale`` turns pass 1's streaming statistics into the scale.
+
+On the dense wire the scale is over v rounded to the leaf dtype
+(``Scheme.apply_dense`` casts v before the codec sees it): pass 1 with
+``round_v`` reduces it there, so on bfloat16 leaves it differs from the
+gather wire's, which pass 1 reduces over float32 v.
 """
 from __future__ import annotations
 
@@ -118,7 +123,11 @@ class QsgdCodec:
 
     def decode(self, wire_vals: torch.Tensor,
                scale: torch.Tensor) -> torch.Tensor:
-        return wire_vals.to(F32) * (scale.to(F32) / self.levels)
+        # scale / s as an IEEE quotient on any device: the divisor is a
+        # tensor, as PyTorch's CUDA division by a Python number multiplies
+        # by its rounded reciprocal instead
+        s = scale.to(F32)
+        return wire_vals.to(F32) * (s / torch.full_like(s, self.levels))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,23 +1,31 @@
-"""Compression schemes: selector ∘ value codec (port of the parts of
-``repro.core.schemes`` the kernel backend runs).
+"""Compression schemes: selector ∘ value codec (port of
+``repro.core.schemes``).
 
 The selector decides which coordinates travel and owns the sparse wire's
 static capacity; the codec (``repro_torch.core.codecs``) owns how each kept
 value is represented.
 
   gspar     -- the paper's method: p = min(lambda |g|, 1), lambda from
-               Algorithm 3 (greedy) at target density rho.
+               Algorithm 3 (greedy) at target density rho, or Algorithm 2
+               (closed form) at variance budget (1 + eps) sum g^2.
+  agspar    -- gspar's greedy solver at a density refit per row from the
+               gradient's participation ratio (Deng et al.), at most rho.
   unisp     -- uniform sampling, p = rho on the support (the paper's
                baseline).
   topk      -- deterministic top-k by magnitude, k = round(rho d); biased,
                paired with error feedback.
   bernoulli -- TernGrad's selection, p = |g| / max|g|; its expected nnz is
                data-dependent, so its capacity is d (never truncates).
+  identity  -- keep everything (p = 1); with a quantizing codec the dense
+               quantizers (``qsgd`` = identity+qsgd<bits>).
 
-``terngrad`` is ``bernoulli+ternary``. Algorithm 2's closed form, the
-adaptive ``agspar`` and the ``identity`` selector (and with it the ``qsgd``
-and ``none`` aliases), which the JAX package runs on its reference
-backend, are ROADMAP.md queue A items 1, 3 and 4.
+``terngrad`` is ``bernoulli+ternary`` and ``none`` is ``identity+f32``.
+Every composition runs on the dense wire (``Scheme.compress``,
+``sparse.KernelBackend.compress_dense``); on the gather wire agspar and
+identity, which the JAX package runs on its reference backend, are
+ROADMAP.md queue A item 4. The probabilities a scheme samples with are
+the kernels' (``kernels.sparsify.ops``); the pure solvers of the JAX
+selectors are ``repro_torch.core.sparsify``.
 """
 from __future__ import annotations
 
@@ -41,14 +49,34 @@ LEGACY_ALIASES = {
 @dataclasses.dataclass(frozen=True)
 class GsparSelector:
     """The paper's method: p = min(lambda |g|, 1), lambda from Algorithm 3
-    (greedy) at target density ``rho``; ``eps`` is Algorithm 2's variance
-    budget, which only ``algo="closed"`` (not ported) reads."""
+    (``algo="greedy"``) at target density ``rho`` or Algorithm 2
+    (``algo="closed"``) at variance budget ``(1 + eps) sum g^2``."""
     rho: float = 0.1
     eps: float = 1.0
     algo: str = "greedy"
     num_iters: int = 2
 
     name = "gspar"
+    samples = True
+
+    def capacity(self, d: int, slack: float) -> int:
+        return capacity_for(d, self.rho, slack)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveGsparSelector:
+    """gspar's greedy solver at a density fitted per row (per layer of a
+    stacked leaf) from the participation ratio ``s = ||g||_1^2 /
+    ||g||_2^2``: ``rho_eff = clip(gain s / d, floor rho, rho)``
+    (``ops.fitted_rho``). ``rho`` stays the ceiling, so the capacity is
+    sized from it."""
+    rho: float = 0.1
+    num_iters: int = 2
+    density_gain: float = 1.0
+    density_floor: float = 0.1
+
+    name = "agspar"
+    samples = True
 
     def capacity(self, d: int, slack: float) -> int:
         return capacity_for(d, self.rho, slack)
@@ -60,6 +88,7 @@ class UnispSelector:
     rho: float = 0.1
 
     name = "unisp"
+    samples = True
 
     def capacity(self, d: int, slack: float) -> int:
         return capacity_for(d, self.rho, slack)
@@ -73,6 +102,7 @@ class TopkSelector:
     rho: float = 0.1
 
     name = "topk"
+    samples = False
 
     def k_target(self, d: int) -> int:
         return max(1, int(round(self.rho * d)))
@@ -87,6 +117,20 @@ class BernoulliSelector:
     amplifies to sign(g_i) max|g|."""
 
     name = "bernoulli"
+    samples = True
+
+    def capacity(self, d: int, slack: float) -> int:
+        del slack
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentitySelector:
+    """Keep every coordinate (p = 1): alone the identity compressor, with a
+    quantizing codec the dense quantizers."""
+
+    name = "identity"
+    samples = False
 
     def capacity(self, d: int, slack: float) -> int:
         del slack
@@ -103,20 +147,39 @@ class Scheme:
     def name(self) -> str:
         return f"{self.selector.name}+{self.codec.name}"
 
-    def message_bits(self, d: int, n_sure: torch.Tensor,
-                     n_sampled: torch.Tensor) -> torch.Tensor:
-        """Realized coding-model bits of one sampled message per row of a
-        float-codec gspar or bernoulli message, from its kept coordinates'
-        counts with p = 1 (``n_sure``) and p < 1 (``n_sampled``): the
-        selectors' ``realized_bits`` in the JAX package. The other
-        selectors and the integer codecs are priced by the gather wire's
-        accounting (``sparse.KernelBackend._finish``)."""
-        if self.selector.name not in ("gspar", "bernoulli") \
-                or self.codec.integer_coded:
-            raise NotImplementedError(
-                f"message_bits of {self.name} from sure/sampled counts")
-        return coding.realized_coding_bits(n_sure, n_sampled, d,
-                                           self.codec.value_bits)
+    def message_bits(self, d: int, nnz: torch.Tensor,
+                     n_sure: torch.Tensor) -> torch.Tensor:
+        """Realized coding-model bits of one sampled message per row, from
+        the count of its transmitted coordinates (``nnz``) and of those
+        with p = 1 (``n_sure``), by the JAX package's rules: an integer
+        codec's levels (``coding.quantized_coding_bits``); gspar, agspar
+        and bernoulli the sure-vs-sampled hybrid code
+        (``coding.realized_coding_bits``); unisp ``nnz (b + log2 d) + b``;
+        topk its fixed ``k_target (b + log2 d) + b``; identity ``d b``."""
+        codec, sel = self.codec, self.selector
+        vb = codec.value_bits
+        nnz = nnz.to(torch.float32)
+        if codec.integer_coded:
+            return coding.quantized_coding_bits(
+                nnz, d, vb, codec.dense_map_bits, codec.header_bits)
+        if sel.name in ("gspar", "agspar", "bernoulli"):
+            return coding.realized_coding_bits(n_sure, nnz - n_sure.to(
+                torch.float32), d, vb)
+        logd = torch.log2(torch.tensor(float(d), dtype=torch.float32,
+                                       device=nnz.device))
+        if sel.name == "unisp":
+            return nnz * (vb + logd) + vb
+        if sel.name == "topk":
+            return (float(sel.k_target(d)) * (vb + logd) + vb).expand_as(nnz)
+        return torch.full_like(nnz, coding.dense_coding_bits(d, int(vb)))
+
+    def compress(self, generator: torch.Generator, g: torch.Tensor):
+        """``(generator, g) -> CompressedGrad`` on the dense wire's path,
+        one row: the selector's float32 uniforms shaped like g (sampling
+        selectors), then an integer codec's. The JAX package's
+        ``Scheme.compress(key, g)``."""
+        from repro_torch.core.sparse import compress_vector
+        return compress_vector(self, generator, g)
 
 
 def parse_composition(name: str,
@@ -143,14 +206,17 @@ def parse_composition(name: str,
 
 
 def make_selector(name: str, *, rho: float = 0.1, eps: float = 1.0,
-                  algo: str = "greedy", num_iters: int = 2):
+                  algo: str = "greedy", num_iters: int = 2,
+                  density_gain: float = 1.0, density_floor: float = 0.1):
     if name == "gspar":
-        if algo != "greedy":
-            raise NotImplementedError(
-                f"gspar algo {algo!r} is not ported yet (ROADMAP.md queue A "
-                "item 1: closed_form_lambda and closed_emit)")
+        if algo not in ("greedy", "closed"):
+            raise ValueError(f"unknown gspar algo: {algo!r}")
         return GsparSelector(rho=rho, eps=eps, algo=algo,
                              num_iters=num_iters)
+    if name == "agspar":
+        return AdaptiveGsparSelector(rho=rho, num_iters=num_iters,
+                                     density_gain=density_gain,
+                                     density_floor=density_floor)
     if name == "unisp":
         return UnispSelector(rho=rho)
     if name == "topk":
@@ -158,19 +224,15 @@ def make_selector(name: str, *, rho: float = 0.1, eps: float = 1.0,
     if name == "bernoulli":
         return BernoulliSelector()
     if name == "identity":
-        raise NotImplementedError(
-            "selector 'identity' (and the 'qsgd' and 'none' aliases) runs on "
-            "the JAX package's reference backend, which is not ported yet "
-            "(ROADMAP.md queue A item 4: ReferenceBackend)")
-    if name == "agspar":
-        raise NotImplementedError(
-            "selector 'agspar' is not ported yet (ROADMAP.md queue A item 3)")
+        return IdentitySelector()
     raise ValueError(f"unknown selector {name!r}; have {SELECTOR_NAMES}")
 
 
 def make_scheme(name: str, *, codec: str | None = None, rho: float = 0.1,
                 eps: float = 1.0, algo: str = "greedy", num_iters: int = 2,
-                qsgd_bits: int = 4, float_bits: int = 32) -> Scheme:
+                qsgd_bits: int = 4, float_bits: int = 32,
+                density_gain: float = 1.0,
+                density_floor: float = 0.1) -> Scheme:
     """Build a Scheme from a composition name; ``codec`` and a ``+codec``
     suffix in ``name`` must agree."""
     sel_name, parsed_codec = parse_composition(name, qsgd_bits=qsgd_bits)
@@ -181,6 +243,8 @@ def make_scheme(name: str, *, codec: str | None = None, rho: float = 0.1,
                          "given")
     return Scheme(
         selector=make_selector(sel_name, rho=rho, eps=eps, algo=algo,
-                               num_iters=num_iters),
+                               num_iters=num_iters,
+                               density_gain=density_gain,
+                               density_floor=density_floor),
         codec=codecs_lib.get(parsed_codec or codec or "f32",
                              float_bits=float_bits))

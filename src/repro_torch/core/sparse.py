@@ -10,12 +10,13 @@ accounting. Selection happens once, in the backend; the sync layer ships
 the buffers as they are.
 
 ``KernelBackend`` runs the two-pass emit of ``repro_torch.kernels.sparsify``
-(and, for the dense wire, ``ops.gspar_dense``) on a whole group: the CUDA
-kernels for tensors on the card, their plain PyTorch versions for tensors
-on the CPU. The reference backend of the JAX
-package (dense apply plus a magnitude ``top_k``), which the identity
-selector runs on, is a different algorithm and is ROADMAP.md queue A item
-4.
+(and, for the dense wire, the selector's dense pipeline, ``ops.*_dense``)
+on a whole group: the CUDA kernels for tensors on the card, their plain
+PyTorch versions for tensors on the CPU. Every composition runs on the
+dense wire; on the gather wire every selector but agspar and identity,
+which the JAX package's Pallas backend hands to its reference backend
+(dense apply plus a magnitude ``top_k``): that backend is ROADMAP.md queue
+A item 4.
 """
 from __future__ import annotations
 
@@ -32,8 +33,12 @@ F32 = torch.float32
 # Slots per tile of the accounting in KernelBackend._finish: about 1.5 GB
 # of float32 temporaries.
 ACCOUNT_UNITS = 1 << 27
-# The ROADMAP.md queue A item that ports the dense wire's other compositions.
-DENSE_WIRE_ITEM = 14
+# The ROADMAP.md queue A item that ports the JAX package's reference
+# backend, on which agspar and identity run on the gather wire there.
+REFERENCE_ITEM = 4
+# The selectors the two-pass emit runs on the gather wire (the JAX
+# package's PallasBackend.FUSED_SELECTORS).
+FUSED_SELECTORS = ("gspar", "unisp", "topk", "bernoulli")
 
 
 @dataclasses.dataclass
@@ -99,37 +104,92 @@ def residual_from_buffers(g: torch.Tensor, sg: SparseGrad) -> torch.Tensor:
                                     base=g, add=True)
 
 
+def dense_group(scheme, u: torch.Tensor | None, g: torch.Tensor, ef: bool,
+                out: torch.Tensor | None = None,
+                u_cod: torch.Tensor | None = None):
+    """The dense wire's compression of one ``[rows, d]`` group (``g`` the EF
+    target with ``ef``) through the selector's pipeline in ``ops``, with
+    the selector's float32 uniforms ``u`` (None for topk and identity) and
+    an integer codec's ``u_cod`` (both shaped like g). Returns the
+    ``ops.DenseResult``: Q in the codec's wire dtype (an integer codec's
+    decoded levels in g's dtype; into ``out`` when given), with ``ef`` the
+    residual ``g - Q`` after the rounding."""
+    sel, codec = scheme.selector, scheme.codec
+    kw = dict(codec=codec, ef=ef, out=out)
+    if sel.name == "gspar" and sel.algo == "greedy":
+        return ops.gspar_dense(g, u, u_cod, rho=sel.rho,
+                               num_iters=sel.num_iters, **kw)
+    if sel.name == "gspar":
+        return ops.closed_dense(g, u, u_cod, eps=sel.eps, **kw)
+    if sel.name == "agspar":
+        return ops.agspar_dense(g, u, u_cod, rho=sel.rho,
+                                num_iters=sel.num_iters,
+                                density_gain=sel.density_gain,
+                                density_floor=sel.density_floor, **kw)
+    if sel.name == "unisp":
+        return ops.unisp_dense(g, u, u_cod, rho=sel.rho, **kw)
+    if sel.name == "bernoulli":
+        return ops.bern_dense(g, u, u_cod, **kw)
+    if sel.name == "topk":
+        return ops.topk_dense(g, u_cod, k_target=sel.k_target(g.shape[1]),
+                              **kw)
+    return ops.identity_dense(g, u_cod, **kw)
+
+
+def compress_vector(scheme, generator: torch.Generator,
+                    g: torch.Tensor) -> CompressedGrad:
+    """``Scheme.compress``: one vector through the dense wire's path as one
+    row, the uniforms drawn from ``generator`` (the selector's, then an
+    integer codec's, each shaped like g). Returns q in g's dtype and shape,
+    with scalar accounting and the probabilities p it sampled with."""
+    row = g.reshape(1, -1)
+    f32 = dict(generator=generator, dtype=F32, device=g.device)
+    u = torch.rand(row.shape, **f32) if scheme.selector.samples else None
+    u_cod = torch.rand(row.shape, **f32) if scheme.codec.stochastic \
+        else None
+    r = dense_group(scheme, u, row, False, u_cod=u_cod)
+    bits = scheme.message_bits(row.shape[1], r.nnz, r.n_sure)
+    cg = finish_compressed(r.q.to(g.dtype).reshape(g.shape), r.lam,
+                           bits[0], r.sum_sq[0], r.den[0], r.nnz[0])
+    cg.p = ops.probabilities(r, row).reshape(g.shape)
+    return cg
+
+
 class KernelBackend:
     """Two-pass emit on the sparsify kernels, one launch per kernel per
     shape group: pass 1 reduces survivor counts and the codec-scale
     statistics, pass 2 writes the compact wire buffers (and, with error
     feedback and a float codec, the residual ``g - wire value`` in the same
     pass). Everything after the kernels is O(rows * k_cap) accounting.
-    Selectors gspar (greedy), unisp, topk and bernoulli; codecs f32, bf16,
+    Selectors gspar (greedy and closed), unisp, topk and bernoulli on the
+    gather wire, every selector on the dense wire; codecs f32, bf16,
     qsgd<N> and ternary."""
 
-    def compress_dense(self, cfg, u: torch.Tensor, g: torch.Tensor,
-                       ef: bool, out: torch.Tensor | None = None
+    def compress_dense(self, cfg, u: torch.Tensor | None, g: torch.Tensor,
+                       ef: bool, out: torch.Tensor | None = None,
+                       u_cod: torch.Tensor | None = None
                        ) -> tuple[CompressedGrad, torch.Tensor | None]:
-        """One ``[rows, d]`` group for the dense wire (``g`` the EF target
-        with ``ef``) with the selector's float32 uniforms ``u``: Q in the
-        codec's wire dtype (into ``out`` when given) and the accounting,
-        and with ``ef`` the residual ``g - Q`` after the wire rounding
-        (None without). gspar (greedy) with a float codec runs
-        ``ops.gspar_dense``; every other composition raises."""
+        """One ``[rows, d]`` group for the dense wire (``dense_group``): Q
+        and the accounting per row, and with ``ef`` the residual (None
+        without)."""
         scheme = cfg.scheme()
-        sel, codec = scheme.selector, scheme.codec
-        if sel.name != "gspar" or codec.integer_coded:
-            raise NotImplementedError(
-                f"{scheme.name} on the dense wire is not ported yet "
-                f"(ROADMAP.md queue A item {DENSE_WIRE_ITEM})")
-        d = g.shape[1]
-        r = ops.gspar_dense(g, u, rho=sel.rho, num_iters=sel.num_iters,
-                            out_dtype=codec.wire_dtype(g.dtype), ef=ef,
-                            out=out)
-        bits = scheme.message_bits(d, r.n_sure, r.nnz - r.n_sure)
+        r = dense_group(scheme, u, g, ef, out, u_cod)
+        bits = scheme.message_bits(g.shape[1], r.nnz, r.n_sure)
         return (finish_compressed(r.q, r.lam, bits, r.sum_sq, r.den, r.nnz),
                 r.residual)
+
+    @staticmethod
+    def _fused(cfg):
+        """The scheme, refusing the selectors the gather wire runs only on
+        the JAX package's reference backend."""
+        scheme = cfg.scheme()
+        if scheme.selector.name not in FUSED_SELECTORS:
+            raise NotImplementedError(
+                f"{scheme.name} on the gather wire runs on the JAX "
+                "package's reference backend, which is not ported yet "
+                f"(ROADMAP.md queue A item {REFERENCE_ITEM}: "
+                "ReferenceBackend)")
+        return scheme
 
     def compress_sparse(self, cfg, u: torch.Tensor | None, g: torch.Tensor,
                         k_cap: int,
@@ -137,7 +197,7 @@ class KernelBackend:
         """One ``[rows, d]`` group with the selector's uniforms ``u`` (None
         for topk) and the codec's ``u_cod [rows, k_cap]`` (stochastic codecs
         only)."""
-        scheme = cfg.scheme()
+        scheme = self._fused(cfg)
         er, layout, s = self._emit(scheme, cfg, u, g, k_cap, False, u_cod)
         return self._finish(scheme, g, er, layout, s)
 
@@ -152,7 +212,7 @@ class KernelBackend:
         integer codec's residual subtracts the decoded levels of the
         transmitted slots, scattered from the compact buffers
         (``residual_from_buffers``), as the JAX package does."""
-        scheme = cfg.scheme()
+        scheme = self._fused(cfg)
         if scheme.codec.integer_coded:
             sg = self.compress_sparse(cfg, u, g, k_cap, u_cod)
             return sg, residual_from_buffers(g, sg)
@@ -174,9 +234,12 @@ class KernelBackend:
         if sel.name == "topk":
             return (ops.topk_emit(g, u_cod, k_target=sel.k_target(d), **kw),
                     layout, None)
-        if sel.name == "gspar":
+        if sel.name == "gspar" and sel.algo == "greedy":
             er, lam = ops.gspar_emit(g, u, u_cod, rho=sel.rho,
                                      num_iters=sel.num_iters, **kw)
+            return er, layout, lam
+        if sel.name == "gspar":
+            er, lam = ops.closed_emit(g, u, u_cod, eps=sel.eps, **kw)
             return er, layout, lam
         if sel.name == "unisp":
             return ops.unisp_emit(g, u, u_cod, rho=sel.rho, **kw), layout, \
@@ -187,18 +250,14 @@ class KernelBackend:
     def _finish(self, scheme, g, er, layout, s) -> SparseGrad:
         """Per-row accounting from the kernels' reductions and the compact
         buffers (``PallasBackend._finish``): the variance ratio over the
-        decoded values, and the coding-model bits — an integer codec's
-        levels (``coding.quantized_coding_bits``), topk's fixed k_target
-        message, unisp's ``nnz (b + log2 d) + b``, or for gspar and
-        bernoulli the sure-vs-sampled split of the kept coordinates (p at
-        the kept coordinates is one gather). The buffers are read in tiles
+        decoded values, and the coding-model bits of
+        ``Scheme.message_bits`` — for gspar and bernoulli from the
+        sure-vs-sampled split of the kept coordinates (p at the kept
+        coordinates is one gather). The buffers are read in tiles
         of at most ``ACCOUNT_UNITS`` slots (bernoulli's capacity is d: a
         whole group's float32 copy would be 4 B per coordinate)."""
         sel, codec = scheme.selector, scheme.codec
         rows, d = g.shape
-        vb = codec.value_bits
-        logd = torch.log2(torch.tensor(float(d), dtype=F32,
-                                       device=g.device))
         zeros = dict(dtype=torch.int64, device=g.device)
         sumsq = torch.zeros(rows, dtype=F32, device=g.device)
         n_nz, n_a, n_b = (torch.zeros(rows, **zeros) for _ in range(3))
@@ -225,17 +284,14 @@ class KernelBackend:
                 n_b[a:b] += torch.count_nonzero(valid & ~sure, dim=-1)
             del v32
         p_sum = er.p_sum
-        if codec.integer_coded:
-            bits = coding.quantized_coding_bits(
-                n_nz.to(F32), d, vb, codec.dense_map_bits, codec.header_bits)
-        elif sel.name == "topk":
-            k = float(sel.k_target(d))
-            p_sum = torch.full_like(er.p_sum, k)
-            bits = (k * (vb + logd) + vb).expand_as(p_sum)
-        elif sel.name == "unisp":
-            bits = er.nnz.to(F32) * (vb + logd) + vb
-        else:
-            bits = scheme.message_bits(d, n_a, n_b)
+        if sel.name == "topk":
+            p_sum = torch.full_like(er.p_sum, float(sel.k_target(d)))
+        # the transmitted count each rule reads: the decoded nonzeros of an
+        # integer codec, unisp's survivors before the cut, else the kept
+        # coordinates of the buffers
+        nnz = n_nz if codec.integer_coded else (
+            er.nnz if sel.name == "unisp" else n_a + n_b)
+        bits = scheme.message_bits(d, nnz, n_a)
         ok = er.den > 0
         var = torch.where(ok, sumsq / torch.where(ok, er.den, 1.0), 0.0)
         return SparseGrad(values=er.values, idx=er.idx, nnz=er.nnz,

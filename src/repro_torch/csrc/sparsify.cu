@@ -614,6 +614,9 @@ __device__ __forceinline__ unsigned sweep_ranks(const float x[kItems],
 
 // Pass 1 per (row, tile) for the sampling selectors: survivors, support
 // |{g != 0}|, sum p, sum g^2, sum v^2 and max|v| (topk: select_tiles_topk).
+// With round_v the codec-scale statistics see v rounded to g's type T: the
+// dense wire's scale, over the v that apply_mask casts to the leaf dtype
+// (the gather wire encodes float32 v).
 template <int PK, typename T>
 __global__ void __launch_bounds__(kThreads)
 select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
@@ -621,7 +624,8 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
              const float* __restrict__ s1p, const float* __restrict__ s2p,
              int* __restrict__ pcnt, int* __restrict__ pnzc,
              double* __restrict__ ppsum, double* __restrict__ pden,
-             double* __restrict__ pvsq, float* __restrict__ pvmx) {
+             double* __restrict__ pvsq, float* __restrict__ pvmx,
+             int round_v) {
   static_assert(PK != kTopk, "topk's pass 1 is select_tiles_topk");
   const int64_t row = blockIdx.y, tile = blockIdx.x;
   const float s1 = s1p[row];
@@ -644,11 +648,12 @@ select_tiles(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
       nzc += a > 0.f;
       dn += a2;
       const Sample o = sample<PK>(x[k], r[k], s1, s2, true);
-      const float v2 = o.v * o.v;
+      const float v = round_v ? to_f32(from_f32<T>(o.v)) : o.v;
+      const float v2 = v * v;
       ps += o.p;
       cnt += o.z;
       vs += v2;
-      vm = fmaxf(vm, fabsf(o.v));
+      vm = fmaxf(vm, fabsf(v));
     }
   }
   __shared__ int sh_i[32];
@@ -809,7 +814,7 @@ select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
               int* __restrict__ tie_base, int* __restrict__ cnt_out,
               int* __restrict__ nzc_out, float* __restrict__ psum_out,
               float* __restrict__ den_out, float* __restrict__ vsq_out,
-              float* __restrict__ vmx_out) {
+              float* __restrict__ vmx_out, int round_v) {
   const int64_t row = blockIdx.x;
   const float s1 = s1p[row];
   const float s2 = PK == kBern ? s2p[row] : 0.f;
@@ -880,7 +885,8 @@ select_finish(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
       for (int k = 0; k < kItems; ++k) {
         if ((zm >> k) & 1u) {
           if (rk < k_cap) {
-            const float v = kept_value<PK>(x[k], s1, s2);
+            float v = kept_value<PK>(x[k], s1, s2);
+            if (round_v) v = to_f32(from_f32<T>(v));
             const float v2 = v * v;
             vs += v2;
             vm = fmaxf(vm, fabsf(v));
@@ -1407,28 +1413,50 @@ rice_pack(const int* __restrict__ idx, const int* __restrict__ nnz,
 }
 
 // ---------------------------------------------------------------------------
-// Kernels 5, 6 and 8: the dense Q(g) of the dense wire. Per coordinate
-//   p = min(lam |g|, 1), z = u < p, q = z ? g / p : 0
-// rounded to the wire type W on the way out; with kEF also the residual
-// g - float(q) after that rounding, in g's type T (kernel 6, as
-// _sparsify_ef_body subtracts the stored Q); with kPrng the uniforms come
-// from Philox4x32-10 in the kernel instead of an input buffer (kernel 8).
-// The same pass reduces per (row, tile) what the dense wire's accounting
-// reads of q as the wire carries it: the nonzeros, those with p = 1, and
-// sum q^2 (f64 partials), so no torch reduction walks the 2.5e9 coordinates
-// again. A finish kernel per row sums the partials.
+// Kernels 5, 6 and 8: the dense Q(g) of the dense wire, for every selector
+// kind and value codec of Scheme.apply_dense (src/repro/core/schemes.py:272).
+// Per coordinate, in float32:
+//   kLam, kRho, kBern  p = keep_prob<PK>, z = u < p, v = z ? g / p : 0
+//   kTopk              z = |g| > t, or a tie among the first `budget` of the
+//                      row (the tie base of the tile from pass 1), v = z ? g : 0
+//   kOne (identity)    p = 1, v = g
+// then v is rounded to the leaf type T (apply_mask's cast), and the codec
+// gives q: a float codec rounds v to the wire type W (f32: T, bf16); an
+// integer codec (kInt: qsgd, ternary) takes the level of v from the row's
+// scale and the codec uniform of the coordinate and writes the decoded
+// level in T: level * (scale / levels) for qsgd, level * scale for ternary,
+// each product and quotient rounded on its own (no FMA: nvcc contracts by
+// default), as codecs.py parenthesises the decode. With kEF the residual
+// g - float(q) after that rounding is written in T (kernel 6, as
+// _sparsify_ef_body subtracts the stored Q); with kPrng (kLam, float codec
+// only) the uniforms come from Philox4x32-10 in the kernel instead of an
+// input buffer (kernel 8). A kept value is g / p exactly (an unkept one +0;
+// apply_mask's Z * g / p gives -0 for a negative g there: the values are
+// equal). The same pass reduces per (row, tile) what the dense wire's
+// accounting reads of q as the wire carries it: the nonzeros, those with
+// p = 1 and sum q^2 (a thread's sweep in f32, then f64 partials), so no
+// torch reduction walks the 2.5e9 coordinates again; and, where `pden` is
+// given (unisp, Algorithm 2, identity with a float codec: no earlier pass
+// of theirs reduces it; never kernel 8), sum g^2 the same way. A finish
+// kernel per row sums the partials.
+// topk ranks its ties with one block scan a sweep (sweep_ranks), so the
+// sweep loop runs uniformly over the block.
 //
-// Bound: one read of g (and of the f32 uniforms), one write of Q (and of the
-// residual): 8 B/coord for bf16 g and Q (kernel 5), 10 B with the residual,
-// 4 B with the uniforms from Philox. Loads and stores are 16-byte vectors
-// where every row base is aligned and d % 8 == 0 (one for 8 bf16, two for 8
-// f32), scalar at a ragged end.
+// Bound: one read of g (and of the f32 uniforms, and of an integer codec's
+// f32 uniforms), one write of Q (and of the residual): 8 B/coord for bf16
+// g and Q with the sampling selectors (12 with an integer codec), 10 and 14
+// with the residual, 4 (6) for topk and identity, 4 B with the uniforms
+// from Philox. Loads and stores are 16-byte vectors where every row base is
+// aligned and d % 8 == 0 (one for 8 bf16, two for 8 f32), scalar at a
+// ragged end.
 //
 // Philox. The TPU seeds its on-core generator per tile (kernel.py:84-85), so
 // its stream depends on the tiling. Here the key is (seed, 0) and the
 // counter (i / 4, row, 0, 0): one call gives the four uniforms of
 // coordinates i..i+3, u = (bits >> 8) * 2^-24, whatever the tile size.
 // ---------------------------------------------------------------------------
+
+enum : int { kOne = 4 };   // the identity selector (the dense wire only)
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -1448,24 +1476,37 @@ __device__ __forceinline__ float philox_uniform(unsigned b) {
   return (float)(b >> 8) * (1.0f / 16777216.0f);
 }
 
-template <typename T, typename W, bool kEF, bool kPrng>
+template <int PK, typename T, typename W, bool kInt, bool kEF, bool kPrng>
 __global__ void __launch_bounds__(kThreads)
 sparsify_tiles(const T* __restrict__ g, const float* __restrict__ u,
                int64_t d, int64_t ntiles, int vec,
-               const float* __restrict__ lamp, unsigned seed,
+               const float* __restrict__ s1p, const float* __restrict__ s2p,
+               const long long* __restrict__ budgetp,
+               const int* __restrict__ tie_base, unsigned seed,
+               const float* __restrict__ scalep,
+               const float* __restrict__ ucod, float levels, int ternary,
                W* __restrict__ q, T* __restrict__ res,
                int* __restrict__ pcnt, int* __restrict__ psure,
-               double* __restrict__ psq) {
+               double* __restrict__ psq, double* __restrict__ pden) {
+  constexpr bool kSample = PK != kTopk && PK != kOne;
   const int64_t row = blockIdx.y, tile = blockIdx.x;
-  const float lam = lamp[row];
+  const float s1 = PK == kOne ? 0.f : s1p[row];
+  const float s2 = PK == kBern ? s2p[row] : 0.f;
+  const long long budget = PK == kTopk ? budgetp[row] : 0;
+  long long tie_rank = PK == kTopk ? tie_base[row * ntiles + tile] : 0;
+  const float sc = kInt ? scalep[row] : 0.f;
+  // the decode's factor: scale / levels (qsgd) or the scale (ternary)
+  const float step = kInt && !ternary ? __fdiv_rn(sc, levels) : sc;
   const T* grow = g + row * d;
   W* qrow = q + row * d;
   const int64_t start = tile * kTile;
   const int64_t end = row_end(d, start);
-  int cnt = 0, sure = 0;
-  double sq = 0.0;
-  for (int64_t i = start + threadIdx.x * kItems; i < end; i += kSweep) {
-    float x[kItems], r[kItems], w[kItems];
+  __shared__ SweepCounts sh;
+  int cnt = 0, sure = 0, par = 0;
+  double sq = 0.0, dn = 0.0;
+  for (int64_t s = start; s < end; s += kSweep, par ^= 1) {   // uniform
+    const int64_t i = s + threadIdx.x * kItems;
+    float x[kItems], r[kItems], c[kItems], w[kItems];
     load_items(grow, i, end, vec, x);
     if constexpr (kPrng) {
       // i % 8 == 0: two counters give the thread's eight uniforms
@@ -1479,20 +1520,63 @@ sparsify_tiles(const T* __restrict__ g, const float* __restrict__ u,
         r[4 * h + 2] = philox_uniform(b.z);
         r[4 * h + 3] = philox_uniform(b.w);
       }
-    } else {
+    } else if constexpr (kSample) {
       load_items(u + row * d, i, end, vec, r);
     }
+    if constexpr (kInt) load_items(ucod + row * d, i, end, vec, c);
+    unsigned zm = 0u;
+    if constexpr (PK == kTopk) {
+      int first, total;
+      zm = sweep_ranks<kTopk>(x, r, valid_items(i, end), s1, s2, budget,
+                              &tie_rank, sh, par, &first, &total);
+    }
+    // a sweep's squares summed in f32, converted to f64 once a sweep (64-bit
+    // conversions issue at 16 a clock an SM): 8 non-negative terms, so
+    // within 8 ulps (about 4.8e-7) relative
+    if constexpr (!kPrng) {
+      if (pden != nullptr) {              // uniform over the grid
+        float dn8 = 0.f;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const float p = fminf(lam * fabsf(x[k]), 1.f);
-      const bool z = i + k < end && r[k] < p;
-      w[k] = to_f32(from_f32<W>(z ? __fdiv_rn(x[k], p) : 0.f));
-      if (w[k] != 0.f) {
-        ++cnt;
-        sure += p >= 1.f;
-        sq += __fmul_rn(w[k], w[k]);
+        for (int k = 0; k < kItems; ++k)
+          if (i + k < end) dn8 = __fadd_rn(dn8, __fmul_rn(x[k], x[k]));
+        dn += dn8;
       }
     }
+    float sq8 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const bool valid = i + k < end;
+      float v;
+      bool one;                          // p = 1 at this coordinate
+      if constexpr (PK == kOne) {
+        v = x[k];
+        one = true;
+      } else if constexpr (PK == kTopk) {
+        one = (zm >> k) & 1u;
+        v = one ? x[k] : 0.f;
+      } else {
+        const Sample o = sample<PK>(x[k], r[k], s1, s2, valid);
+        v = o.v;
+        one = o.p >= 1.f;
+      }
+      float e;
+      if constexpr (kInt) {
+        v = to_f32(from_f32<T>(v));
+        const float level = (float)(int)int_level(v, sc, c[k], levels,
+                                                  ternary);
+        e = to_f32(from_f32<W>(__fmul_rn(level, step)));
+      } else {
+        // rounding to T first changes nothing here: T is f32, or W = T
+        e = to_f32(from_f32<W>(v));
+      }
+      w[k] = e;
+      if (valid && e != 0.f) {
+        ++cnt;
+        sure += one;
+        sq8 = __fadd_rn(sq8, __fmul_rn(e, e));
+      }
+    }
+    sq += sq8;
     store_items(qrow, i, end, vec, w);
     if constexpr (kEF) {
 #pragma unroll
@@ -1505,36 +1589,42 @@ sparsify_tiles(const T* __restrict__ g, const float* __restrict__ u,
   cnt = block_sum(cnt, sh_i);
   sure = block_sum(sure, sh_i);
   sq = block_sum(sq, sh_d);
+  if (pden != nullptr) dn = block_sum(dn, sh_d);
   if (threadIdx.x == 0) {
     const int64_t o = row * ntiles + tile;
     pcnt[o] = cnt;
     psure[o] = sure;
     psq[o] = sq;
+    if (pden != nullptr) pden[o] = dn;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
 sparsify_finish(const int* __restrict__ pcnt, const int* __restrict__ psure,
-                const double* __restrict__ psq, int64_t ntiles,
+                const double* __restrict__ psq,
+                const double* __restrict__ pden, int64_t ntiles,
                 long long* __restrict__ cnt, long long* __restrict__ sure,
-                float* __restrict__ sq) {
+                float* __restrict__ sq, float* __restrict__ den) {
   const int64_t row = blockIdx.x;
   long long c = 0, s = 0;
-  double q = 0.0;
+  double q = 0.0, dn = 0.0;
   for (int64_t t = threadIdx.x; t < ntiles; t += blockDim.x) {
     c += pcnt[row * ntiles + t];
     s += psure[row * ntiles + t];
     q += psq[row * ntiles + t];
+    if (pden != nullptr) dn += pden[row * ntiles + t];
   }
   __shared__ long long sh_l[32];
   __shared__ double sh_d[32];
   c = block_sum(c, sh_l);
   s = block_sum(s, sh_l);
   q = block_sum(q, sh_d);
+  if (pden != nullptr) dn = block_sum(dn, sh_d);
   if (threadIdx.x == 0) {
     cnt[row] = c;
     sure[row] = s;
     sq[row] = (float)q;
+    if (pden != nullptr) den[row] = (float)dn;
   }
 }
 
@@ -1798,7 +1888,8 @@ void launch_select(const void* g, const void* u, long long rows,
                    void* pcnt, void* pnzc, void* pties, void* ppsum,
                    void* pden, void* pvsq, void* pvmx, void* base,
                    void* tie_base, void* cnt, void* nzc, void* psum,
-                   void* den, void* vsq, void* vmx, cudaStream_t st) {
+                   void* den, void* vsq, void* vmx, int round_v,
+                   cudaStream_t st) {
   const int64_t nt = (d + kTile - 1) / kTile;
   if constexpr (PK == kTopk) {
     dim3 grid(grid_x((nt + kTopkTiles - 1) / kTopkTiles), (unsigned)rows);
@@ -1810,7 +1901,7 @@ void launch_select(const void* g, const void* u, long long rows,
     select_tiles<PK, T><<<grid, kThreads, 0, st>>>(
         (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
         (const float*)s2, (int*)pcnt, (int*)pnzc, (double*)ppsum,
-        (double*)pden, (double*)pvsq, (float*)pvmx);
+        (double*)pden, (double*)pvsq, (float*)pvmx, round_v);
   }
   select_finish<PK, T><<<(unsigned)rows, kThreads, 0, st>>>(
       (const T*)g, (const float*)u, d, nt, vec_g, vec_u, (const float*)s1,
@@ -1818,7 +1909,7 @@ void launch_select(const void* g, const void* u, long long rows,
       (const int*)pnzc, (const int*)pties, (const double*)ppsum,
       (const double*)pden, (const double*)pvsq, (const float*)pvmx,
       (int*)base, (int*)tie_base, (int*)cnt, (int*)nzc, (float*)psum,
-      (float*)den, (float*)vsq, (float*)vmx);
+      (float*)den, (float*)vsq, (float*)vmx, round_v);
 }
 
 template <int PK, typename T, typename W>
@@ -1867,28 +1958,43 @@ int launch_stats(const void* g, int dt, long long rows, long long d, int vec,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename W>
+// Calls f(std::integral_constant<int, PK>) for the dense emit's kind `pk`
+// (every pass-1/2 kind and kOne).
+template <typename F> int with_dense_kind(int pk, F&& f) {
+  if (pk == kOne) {
+    f(std::integral_constant<int, kOne>{});
+    return 0;
+  }
+  return with_kind(pk, f);
+}
+
+template <int PK, typename T, typename W, bool kInt>
 void launch_sparsify(const void* g, const void* u, long long rows,
-                     long long d, int vec, const void* lam, int prng,
-                     unsigned seed, void* q, void* res, void* pcnt,
-                     void* psure, void* psq, cudaStream_t st) {
+                     long long d, int vec, const void* s1, const void* s2,
+                     const void* budget, const void* tie_base, int prng,
+                     unsigned seed, const void* scale, const void* ucod,
+                     float levels, int ternary, void* q, void* res,
+                     void* pcnt, void* psure, void* psq, void* pden,
+                     cudaStream_t st) {
   const int64_t nt = (d + kTile - 1) / kTile;
   dim3 grid(grid_x(nt), (unsigned)rows);
-  const T* gt = (const T*)g;
-  const float* uf = (const float*)u;
-  const float* lf = (const float*)lam;
-  if (prng)
-    sparsify_tiles<T, W, false, true><<<grid, kThreads, 0, st>>>(
-        gt, nullptr, d, nt, vec, lf, seed, (W*)q, nullptr, (int*)pcnt,
-        (int*)psure, (double*)psq);
-  else if (res != nullptr)
-    sparsify_tiles<T, W, true, false><<<grid, kThreads, 0, st>>>(
-        gt, uf, d, nt, vec, lf, seed, (W*)q, (T*)res, (int*)pcnt,
-        (int*)psure, (double*)psq);
+#define GSPAR_DENSE(EF, PRNG)                                               \
+  sparsify_tiles<PK, T, W, kInt, EF, PRNG><<<grid, kThreads, 0, st>>>(     \
+      (const T*)g, (const float*)u, d, nt, vec, (const float*)s1,           \
+      (const float*)s2, (const long long*)budget, (const int*)tie_base,     \
+      seed, (const float*)scale, (const float*)ucod, levels, ternary,       \
+      (W*)q, (T*)res, (int*)pcnt, (int*)psure, (double*)psq, (double*)pden)
+  if constexpr (PK == kLam && !kInt) {
+    if (prng) {
+      GSPAR_DENSE(false, true);
+      return;
+    }
+  }
+  if (res != nullptr)
+    GSPAR_DENSE(true, false);
   else
-    sparsify_tiles<T, W, false, false><<<grid, kThreads, 0, st>>>(
-        gt, uf, d, nt, vec, lf, seed, (W*)q, nullptr, (int*)pcnt,
-        (int*)psure, (double*)psq);
+    GSPAR_DENSE(false, false);
+#undef GSPAR_DENSE
 }
 
 }  // namespace
@@ -1950,7 +2056,7 @@ int gspar_select_stats(const void* g, int dt, const void* u, long long rows,
                        void* ppsum, void* pden, void* pvsq, void* pvmx,
                        void* base, void* tie_base, void* cnt, void* nzc,
                        void* psum, void* den, void* vsq, void* vmx,
-                       void* stream) {
+                       int round_v, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int err = with_kind(pk, [&](auto kind) {
     constexpr int PK = decltype(kind)::value;
@@ -1958,12 +2064,12 @@ int gspar_select_stats(const void* g, int dt, const void* u, long long rows,
       launch_select<PK, __nv_bfloat16>(
           g, u, rows, d, vec_g, vec_u, s1, s2, budget, k_cap, pcnt, pnzc,
           pties, ppsum, pden, pvsq, pvmx, base, tie_base, cnt, nzc, psum, den,
-          vsq, vmx, st);
+          vsq, vmx, round_v, st);
     else
       launch_select<PK, float>(
           g, u, rows, d, vec_g, vec_u, s1, s2, budget, k_cap, pcnt, pnzc,
           pties, ppsum, pden, pvsq, pvmx, base, tie_base, cnt, nzc, psum, den,
-          vsq, vmx, st);
+          vsq, vmx, round_v, st);
   });
   return err ? err : (int)cudaGetLastError();
 }
@@ -2028,27 +2134,47 @@ int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
   return (int)cudaGetLastError();
 }
 
-// Kernels 5, 6 and 8. wdt: the wire dtype code of q (0 float32, 1
-// bfloat16); `res` non-null: kernel 6; `prng` non-zero: kernel 8 (no u, no
-// res), Philox keyed (seed, 0).
+// Kernels 5, 6 and 8. pk: the selector kind (kLam, kRho, kBern, kTopk,
+// kOne) with its per-row s1 (lambda, rho, t), s2 (bern: max|g|) and topk's
+// budget and per-tile tie bases (pass 1's); wdt: the wire dtype code of q
+// (0 float32, 1 bfloat16); int_codec: q is the decoded level of an integer
+// codec in g's dtype (wdt = dt), from the per-row `scale` and the codec
+// uniforms `ucod` shaped like g, `ternary` or the qsgd `levels`; `res`
+// non-null: kernel 6; `prng` non-zero (kLam, float codec): kernel 8 (no
+// u, no res, no sum g^2), Philox keyed (seed, 0); `pden` and `den` null:
+// no sum g^2.
 int gspar_sparsify(const void* g, int dt, const void* u, long long rows,
-                   long long d, int vec, const void* lam, int prng,
-                   unsigned seed, void* q, int wdt, void* res, void* pcnt,
-                   void* psure, void* psq, void* cnt, void* sure, void* sq,
+                   long long d, int vec, int pk, const void* s1,
+                   const void* s2, const void* budget, const void* tie_base,
+                   int prng, unsigned seed, int int_codec, const void* scale,
+                   const void* ucod, float levels, int ternary, void* q,
+                   int wdt, void* res, void* pcnt, void* psure, void* psq,
+                   void* pden, void* cnt, void* sure, void* sq, void* den,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  using bf16 = __nv_bfloat16;
-#define GSPAR_SPARSIFY(T, W)                                                \
-  launch_sparsify<T, W>(g, u, rows, d, vec, lam, prng, seed, q, res, pcnt, \
-                        psure, psq, st)
-  if (dt == 0 && wdt == 0) GSPAR_SPARSIFY(float, float);
-  else if (dt == 0 && wdt == 1) GSPAR_SPARSIFY(float, bf16);
-  else if (dt == 1 && wdt == 1) GSPAR_SPARSIFY(bf16, bf16);
-  else return (int)cudaErrorInvalidValue;
+  bool ok = true;
+  const int err = with_dense_kind(pk, [&](auto kind) {
+    constexpr int PK = decltype(kind)::value;
+#define GSPAR_SPARSIFY(T, W, INT)                                             \
+  launch_sparsify<PK, T, W, INT>(g, u, rows, d, vec, s1, s2, budget,         \
+                                 tie_base, prng, seed, scale, ucod, levels,  \
+                                 ternary, q, res, pcnt, psure, psq, pden, st)
+    using bf16 = __nv_bfloat16;
+    if (int_codec && dt == 0 && wdt == 0) GSPAR_SPARSIFY(float, float, true);
+    else if (int_codec && dt == 1 && wdt == 1) GSPAR_SPARSIFY(bf16, bf16, true);
+    else if (int_codec) ok = false;
+    else if (dt == 0 && wdt == 0) GSPAR_SPARSIFY(float, float, false);
+    else if (dt == 0 && wdt == 1) GSPAR_SPARSIFY(float, bf16, false);
+    else if (dt == 1 && wdt == 1) GSPAR_SPARSIFY(bf16, bf16, false);
+    else ok = false;
 #undef GSPAR_SPARSIFY
+  });
+  if (err) return err;
+  if (!ok) return (int)cudaErrorInvalidValue;
   sparsify_finish<<<(unsigned)rows, kThreads, 0, st>>>(
       (const int*)pcnt, (const int*)psure, (const double*)psq,
-      (d + kTile - 1) / kTile, (long long*)cnt, (long long*)sure, (float*)sq);
+      (const double*)pden, (d + kTile - 1) / kTile, (long long*)cnt,
+      (long long*)sure, (float*)sq, (float*)den);
   return (int)cudaGetLastError();
 }
 

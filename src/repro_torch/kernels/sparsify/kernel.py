@@ -7,7 +7,9 @@ for every selector kind (``PKINDS``: gspar's lam, unisp's rho, bernoulli's
 bern, topk) and every value codec (f32, bf16, qsgd<N>, ternary), and the
 Golomb-Rice packing of the RICE wire layout, and topk's threshold and tie
 budget (``topk_threshold``). The dense wire: ``stats``, ``sparsify``,
-``sparsify_ef`` and ``sparsify_prng``. Each wrapper takes
+``sparsify_ef`` (every selector kind of ``DENSE_KINDS`` with every codec:
+the integer codecs' decoded levels from the scale that ``select_stats``
+gives with ``round_v``) and ``sparsify_prng``. Each wrapper takes
 one shape group as a ``[rows, d]`` batch (``[rows, k_cap]`` for the
 packing) and per-row scalar tensors, as the vmap over a group is on the
 TPU:
@@ -22,8 +24,8 @@ first use, and loaded with ``ctypes`` (the library's file name carries a
 hash of the source, so an edited source is rebuilt). A wrapper enqueues its
 kernels on PyTorch's current stream, allocates outputs and scratch with
 PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
-``LAUNCHES[name]`` (and, for the compaction passes, to the variant's
-count): the launch counts a run can read back.
+``LAUNCHES[name]`` (and, for the compaction passes and the dense emit, to
+the variant's count): the launch counts a run can read back.
 
 What bounds each kernel on an H100 (3.35 TB/s of HBM): all ten are
 memory-bound streams over the group (or its compact buffer), so their bound
@@ -54,9 +56,12 @@ KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
 # top (bf16: one round of 2^15 bins; f32: three of at most 2^11)
 TOPK_BITS = {torch.bfloat16: (15,), torch.float32: (11, 10, 10)}
 PKINDS = ref.PKINDS   # selector kinds of passes 1-2, in the .cu's enum order
-# Launches per kernel, and per variant of the two compaction passes:
-# ``"select_stats/topk"``, ``"compact_emit/lam+qsgd8"`` (the selector kind,
-# then an integer codec's name; float codecs count under the kind alone).
+DENSE_KINDS = ref.DENSE_KINDS   # and of the dense emit (kernels 5 and 6)
+# Launches per kernel, and per variant of the two compaction passes and of
+# the dense emit: ``"select_stats/topk"``, ``"compact_emit/lam+qsgd8"``,
+# ``"sparsify_ef/one+qsgd4"`` (the selector kind, then an integer codec's
+# name; float codecs count under the kind alone; ``"select_stats/
+# lam+rounded"``: the dense wire's scale pass).
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _REPO = Path(__file__).resolve().parents[4]
@@ -79,14 +84,15 @@ _SIGNATURES = {
     "gspar_stats_l1max": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P), _I),
     "gspar_tail_stats": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P), _I),
     "gspar_select_stats": ((_P, _I, _P, _L, _L, _I, _I, _I, _P, _P, _P, _L)
-                           + (_P,) * 15 + (_P,), _I),
+                           + (_P,) * 15 + (_I, _P), _I),
     "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _I, _I, _P, _P, _P,
                             _P, _P, _P, _L, _P, _I, _P, _P, _I, _P, _P,
                             ctypes.c_float, _I, _P), _I),
     "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L, _I) + (_P,) * 3 + (_P,), _I),
     "gspar_stats": ((_P, _I, _L, _L, _I) + (_P,) * 6 + (_P,), _I),
-    "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _P, _I, ctypes.c_uint, _P,
-                        _I) + (_P,) * 7 + (_P,), _I),
+    "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _I, _P, _P, _P, _P, _I,
+                        ctypes.c_uint, _I, _P, _P, ctypes.c_float, _I, _P,
+                        _I) + (_P,) * 9 + (_P,), _I),
     "gspar_philox": ((_P, _P, _L, _P), _I),
     "gspar_topk_threshold": ((_P, _I, _L, _L, _I, _L, _I, _I, _I)
                              + (_P,) * 4 + (_P,), _I),
@@ -267,21 +273,26 @@ def _uniforms(name: str, g: torch.Tensor, u: torch.Tensor | None,
 def select_stats(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
                  k_cap: int, *, pkind: str = "lam",
                  s2: torch.Tensor | None = None,
-                 budget: torch.Tensor | None = None) -> SelectStats:
+                 budget: torch.Tensor | None = None,
+                 round_v: bool = False) -> SelectStats:
     """Pass 1 of the two-pass compaction for selector kind ``pkind`` (lam:
     gspar, rho: unisp, bern: bernoulli, topk; ``ref._select_row`` defines
     them from ``s1``, ``s2`` and ``budget``): survivors, support, sum p, sum
     g^2, and sum v^2 / max|v| over the first ``k_cap`` survivors of each
     row, plus the per-tile base ranks that pass 2 writes from (and for topk
-    the per-tile tie bases). Replaces ``select_stats_2d`` (src/repro/
-    kernels/sparsify/kernel.py:384). Bound: one read of g and, for the
-    sampling kinds, of the f32 uniforms (6 B/coord with bf16 g; topk 2)."""
+    the per-tile tie bases). With ``round_v`` sum v^2 and max|v| are taken
+    over v rounded to g's dtype: the dense wire's codec scale (at ``k_cap =
+    d``), over the v that ``apply_mask`` casts to the leaf dtype; the
+    gather wire's is over float32 v. Replaces ``select_stats_2d``
+    (src/repro/kernels/sparsify/kernel.py:384). Bound: one read of g and,
+    for the sampling kinds, of the f32 uniforms (6 B/coord with bf16 g;
+    topk 2)."""
     s1, s2, budget = _kind_scalars("select_stats", g, pkind, s1, s2, budget)
     u = _uniforms("select_stats", g, u, pkind)
     extra = [t for t in (u, s2, budget) if t is not None]
     if not _on_card("select_stats", g, s1, *extra):
         return ref.select_stats_ref(g, u, s1, k_cap, TILE, pkind=pkind,
-                                    s2=s2, budget=budget)
+                                    s2=s2, budget=budget, round_v=round_v)
     rows, d = g.shape
     nt = ref.ntiles(d, TILE)
     dev = g.device
@@ -309,7 +320,8 @@ def select_stats(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
         _ptr(ppsum), _ptr(pden), _ptr(pvsq), _ptr(pvmx), _ptr(out.base),
         _ptr(out.tie_base), _ptr(out.nnz), _ptr(out.nonzeros),
         _ptr(out.p_sum), _ptr(out.den), _ptr(out.sum_sq), _ptr(out.max_abs),
-        _stream(g)), "select_stats", pkind)
+        int(round_v), _stream(g)), "select_stats",
+        pkind + ("+rounded" if round_v else ""))
     return out
 
 
@@ -341,6 +353,34 @@ def topk_threshold(g: torch.Tensor, k_target: int
         b2, _ptr(hist), _ptr(state), _ptr(t), _ptr(budget), _stream(g)),
         "topk_threshold")
     return t, budget
+
+
+def magnitude_hist(g: torch.Tensor) -> torch.Tensor:
+    """Per row of a bfloat16 ``g [rows, d]``: the count of each magnitude,
+    ``[rows, 2^15]`` int32 indexed by the 15-bit pattern of |g|
+    (``ref.magnitude_keys``). This is ``topk_threshold``'s one round for
+    bfloat16 (its histogram pass over the group, the finish at k_target =
+    1), kept for Algorithm 2's bins (``sparsify.closed_form_lambda_rows``);
+    it counts as a ``topk_threshold`` launch, variant ``"hist"``. On the
+    CPU ``torch.bincount`` of the keys. Bound: one read of g (2
+    B/coord)."""
+    if g.dtype != torch.bfloat16:
+        raise ValueError("magnitude_hist: g must be bfloat16")
+    if not _on_card("magnitude_hist", g):
+        return torch.stack([torch.bincount(ref.magnitude_keys(row),
+                                           minlength=1 << 15).to(torch.int32)
+                            for row in g])
+    rows, d = g.shape
+    dev = g.device
+    hist = torch.empty((rows, 1 << 15), dtype=torch.int32, device=dev)
+    state = torch.empty((rows, 3), dtype=torch.int64, device=dev)
+    t = torch.empty(rows, dtype=torch.float32, device=dev)
+    budget = torch.empty(rows, dtype=torch.int64, device=dev)
+    _check(_lib().gspar_topk_threshold(
+        _ptr(g), _DTYPE_CODE[g.dtype], rows, d, _vec(g), 1, 15, 0, 0,
+        _ptr(hist), _ptr(state), _ptr(t), _ptr(budget), _stream(g)),
+        "topk_threshold", "hist")
+    return hist
 
 
 def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
@@ -486,29 +526,68 @@ def stats(g: torch.Tensor
 
 
 def _dense_q(name: str, g: torch.Tensor, u: torch.Tensor | None,
-             lam: torch.Tensor, out_dtype, ef: bool, seed: int | None,
-             out: torch.Tensor | None) -> Sparsified:
-    """Kernels 5, 6 and 8 behind one C entry: Q of ``g [rows, d]`` in
-    ``out_dtype`` (written into ``out`` when given), with ``ef`` the
-    residual, with ``seed`` the Philox uniforms in place of ``u``."""
+             s1: torch.Tensor | None, out_dtype, ef: bool, seed: int | None,
+             out: torch.Tensor | None, pkind: str = "lam",
+             s2: torch.Tensor | None = None,
+             budget: torch.Tensor | None = None,
+             tie_base: torch.Tensor | None = None, codec=None,
+             scale: torch.Tensor | None = None,
+             u_cod: torch.Tensor | None = None,
+             den: torch.Tensor | None = None) -> Sparsified:
+    """Kernels 5, 6 and 8 behind one C entry: Q of ``g [rows, d]`` for the
+    selector kind ``pkind`` in ``out_dtype`` (written into ``out`` when
+    given), with ``ef`` the residual, with ``seed`` the Philox uniforms in
+    place of ``u``, with an integer ``codec`` the decoded levels. ``den``,
+    the rows' sum g^2 from an earlier pass, is passed through; without it
+    the pass reduces sum g^2 itself (kernel 8 never does)."""
+    if pkind not in DENSE_KINDS:
+        raise ValueError(f"{name}: unknown select kind {pkind!r}; have "
+                         f"{DENSE_KINDS}")
+    integer = codec is not None and codec.integer_coded
     out_dtype = out_dtype or g.dtype
-    if out_dtype not in (g.dtype, torch.bfloat16):
+    if out_dtype not in ((g.dtype,) if integer else (g.dtype,
+                                                     torch.bfloat16)):
         raise ValueError(f"{name}: wire dtype {out_dtype} for g {g.dtype}; "
-                         "have g's own or bfloat16")
+                         "have g's own or bfloat16 (an integer codec: g's)")
     rows = g.shape[0]
-    lam = lam.to(torch.float32).expand(rows).contiguous()
-    if u is not None and (u.shape != g.shape or u.dtype != torch.float32):
-        raise ValueError(f"{name}: u must be float32 shaped like g")
+    kind = dict(pkind=pkind)
+    if pkind == "one":
+        s1 = None
+    else:
+        s1, s2, budget = _kind_scalars(name, g, pkind, s1, s2, budget)
+        kind.update(s2=s2, budget=budget)
+    u = None if seed is not None or pkind == "one" else _uniforms(
+        name, g, u, pkind)
+    if pkind == "topk" and (tie_base is None or tie_base.dtype != torch.int32
+                            or tie_base.shape != (rows, ref.ntiles(
+                                g.shape[1], TILE))):
+        raise ValueError(f"{name}: topk needs pass 1's int32 tie_base "
+                         "[rows, tiles]")
+    if integer:
+        if scale is None or u_cod is None or u_cod.shape != g.shape \
+                or u_cod.dtype != torch.float32:
+            raise ValueError(f"{name}: an integer codec needs scale [rows] "
+                             "and float32 u_cod shaped like g")
+        scale = scale.to(torch.float32).expand(rows).contiguous()
+        kind.update(codec=codec, scale=scale, u_cod=u_cod)
+    else:
+        scale = u_cod = None
     if out is not None and (out.shape != g.shape or out.dtype != out_dtype
                             or out.device != g.device):
         raise ValueError(f"{name}: out must be {out_dtype} shaped like g")
-    extra = [t for t in (u, out) if t is not None]
-    if not _on_card(name, g, lam, *extra):
+    if den is not None and (den.shape != (rows,) or den.dtype != torch.float32
+                            or seed is not None):
+        raise ValueError(f"{name}: den must be float32 [rows] (none with "
+                         "the Philox uniforms)")
+    kind.update(den=den)
+    extra = [t for t in (s1, u, s2, budget, tie_base, scale, u_cod, out, den)
+             if t is not None]
+    if not _on_card(name, g, *extra):
         if seed is not None:
-            r = ref.sparsify_prng_ref(g, lam, seed)
+            r = ref.sparsify_prng_ref(g, s1, seed)
         else:
             r = (ref.sparsify_ef_ref if ef else ref.sparsify_ref)(
-                g, u, lam, out_dtype)
+                g, u, s1, out_dtype, **kind)
         if out is not None:
             out.copy_(r.q)
             r = r._replace(q=out)
@@ -525,36 +604,59 @@ def _dense_q(name: str, g: torch.Tensor, u: torch.Tensor | None,
     nnz = torch.empty(rows, dtype=torch.int64, device=dev)
     n_sure = torch.empty_like(nnz)
     sum_sq = torch.empty(rows, dtype=torch.float32, device=dev)
-    vec = int(all(_vec(t) for t in (g, q, *(t for t in (u, res)
+    reduce_den = den is None and seed is None
+    pden = torch.empty_like(psq) if reduce_den else None
+    den_out = torch.empty_like(sum_sq) if reduce_den else None
+    vec = int(all(_vec(t) for t in (g, q, *(t for t in (u, res, u_cod)
                                             if t is not None))))
     _check(_lib().gspar_sparsify(
-        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, vec, _ptr(lam),
-        int(seed is not None), (seed or 0) & 0xFFFFFFFF, _ptr(q),
+        _ptr(g), _DTYPE_CODE[g.dtype], _ptr(u), rows, d, vec,
+        DENSE_KINDS.index(pkind), _ptr(s1), _ptr(s2), _ptr(budget),
+        _ptr(tie_base), int(seed is not None), (seed or 0) & 0xFFFFFFFF,
+        int(integer), _ptr(scale), _ptr(u_cod),
+        float(getattr(codec, "levels", 0.0)),
+        int(codec is not None and codec.name == "ternary"), _ptr(q),
         _DTYPE_CODE[out_dtype], _ptr(res), _ptr(pcnt), _ptr(psure),
-        _ptr(psq), _ptr(nnz), _ptr(n_sure), _ptr(sum_sq), _stream(g)), name)
-    return Sparsified(q, res, nnz, n_sure, sum_sq)
+        _ptr(psq), _ptr(pden), _ptr(nnz), _ptr(n_sure), _ptr(sum_sq),
+        _ptr(den_out), _stream(g)), name,
+        None if seed is not None else
+        pkind + (f"+{codec.name}" if integer else ""))
+    return Sparsified(q, res, nnz, n_sure, sum_sq,
+                      den_out if reduce_den else den)
 
 
-def sparsify(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-             out_dtype=None, *, out: torch.Tensor | None = None
-             ) -> Sparsified:
-    """Dense ``Q = [u < p] g / p``, ``p = min(lam[row] |g|, 1)``, rounded to
-    ``out_dtype`` (the wire dtype: g's or bfloat16), and per row the
-    nonzeros of Q, those with p = 1 and sum Q^2 (``ref.Sparsified``).
-    Replaces ``sparsify_2d`` (src/repro/kernels/sparsify/kernel.py:96).
-    Bound: one read of g and u, one write of Q (8 B/coord with bf16 g and
-    Q)."""
-    return _dense_q("sparsify", g, u, lam, out_dtype, False, None, out)
+def sparsify(g: torch.Tensor, u: torch.Tensor | None,
+             s1: torch.Tensor | None, out_dtype=None, *,
+             out: torch.Tensor | None = None, **kind) -> Sparsified:
+    """Dense ``Q = [u < p] g / p`` in dense layout, p the keep probability
+    of the selector kind (``pkind``: ``lam`` p = min(s1[row] |g|, 1) by
+    default, ``rho``, ``bern`` with ``s2`` = max|g|, ``topk`` with
+    ``budget`` and pass 1's ``tie_base``, ``one``: the identity, Q = g),
+    with v rounded to g's dtype and then to ``out_dtype`` (the wire dtype:
+    g's or bfloat16), or with an integer ``codec`` (``scale [rows]``,
+    ``u_cod`` shaped like g) the decoded levels in g's dtype; per row the
+    nonzeros of Q, those with p = 1, sum Q^2 and sum g^2
+    (``ref.Sparsified``; ``den``, sum g^2 from an earlier pass, is passed
+    through instead of reduced). Launches count per variant
+    (``"sparsify/rho+qsgd8"``). Replaces ``sparsify_2d``
+    (src/repro/kernels/sparsify/kernel.py:96), which takes lam and a float
+    wire dtype. Bound: one read of g and u (and u_cod), one write of Q (8
+    B/coord with bf16 g and Q and a sampling kind; 12 with an integer
+    codec; 4 for topk and identity)."""
+    return _dense_q("sparsify", g, u, s1, out_dtype, False, None, out,
+                    **kind)
 
 
-def sparsify_ef(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                out_dtype=None, *, out: torch.Tensor | None = None
-                ) -> Sparsified:
+def sparsify_ef(g: torch.Tensor, u: torch.Tensor | None,
+                s1: torch.Tensor | None, out_dtype=None, *,
+                out: torch.Tensor | None = None, **kind) -> Sparsified:
     """``sparsify`` plus the EF residual ``g - float32(Q)`` after the wire
-    rounding, in g's dtype, from the same pass. Replaces ``sparsify_ef_2d``
-    (src/repro/kernels/sparsify/kernel.py:123). Bound: ``sparsify``'s
-    bytes plus one write of the residual (10 B/coord in bf16)."""
-    return _dense_q("sparsify_ef", g, u, lam, out_dtype, True, None, out)
+    rounding (or the decode), in g's dtype, from the same pass. Replaces
+    ``sparsify_ef_2d`` (src/repro/kernels/sparsify/kernel.py:123). Bound:
+    ``sparsify``'s bytes plus one write of the residual (10 B/coord in
+    bf16 with a sampling kind and a float codec)."""
+    return _dense_q("sparsify_ef", g, u, s1, out_dtype, True, None, out,
+                    **kind)
 
 
 def sparsify_prng(g: torch.Tensor, lam: torch.Tensor, seed: int

@@ -1,9 +1,11 @@
 """The emit pipelines on the sparsify kernels (port of
 ``repro.kernels.sparsify.ops``: ``greedy_lambda``, the tail function,
-``_two_pass``, ``gspar_emit``, ``unisp_emit``, ``bern_emit``, ``topk_emit``
-and ``EmitResult``; the leaf ops ``gspar_stats``, ``gspar_lambda``,
-``gspar_sparsify`` and ``gspar_sparsify_prng``; and ``gspar_dense``, the
-dense wire's pipeline).
+``_two_pass``, ``gspar_emit``, ``closed_emit``, ``unisp_emit``,
+``bern_emit``, ``topk_emit`` and ``EmitResult``; the leaf ops
+``gspar_stats``, ``gspar_lambda``, ``gspar_sparsify`` and
+``gspar_sparsify_prng``; and the dense wire's pipelines, one per selector:
+``gspar_dense``, ``closed_dense``, ``agspar_dense``, ``unisp_dense``,
+``bern_dense``, ``topk_dense`` and ``identity_dense``).
 
 Algorithm 3 (greedy lambda) fully on the device: one stats pass, up to
 ``num_iters`` saturation-aware tail passes driving the scalar rescale, then
@@ -27,7 +29,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import codecs as codecs_lib
+from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.kernels.sparsify import kernel as K
+from repro_torch.kernels.sparsify import ref
 
 F32 = torch.float32
 
@@ -37,7 +41,7 @@ def _safe_div(num, den: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, num / torch.where(ok, den, 1.0), 0.0)
 
 
-def greedy_lambda(l1: torch.Tensor, mx: torch.Tensor, rho: float, d: int,
+def greedy_lambda(l1: torch.Tensor, mx: torch.Tensor, rho, d: int,
                   num_iters: int = 2,
                   tail_fn: Callable | None = None) -> torch.Tensor:
     """Algorithm 3's scalar fixed point per row, from the row statistics
@@ -51,9 +55,10 @@ def greedy_lambda(l1: torch.Tensor, mx: torch.Tensor, rho: float, d: int,
     (n_below, l1_below)`` supplies its count and mass per row; ``gate`` is
     ``lam_0 * max|g| > 1``. Rows where nothing saturates keep lam_0 (the
     TPU's ``lax.cond``): the tail kernel reads the gate on the device and
-    does no work for them, so the branch costs no host round trip."""
+    does no work for them, so the branch costs no host round trip. ``rho``
+    is a float or a float32 tensor per row (agspar's fitted density)."""
     d_f = torch.tensor(float(d), dtype=F32, device=l1.device)
-    rho_d = torch.tensor(rho, dtype=F32, device=l1.device) * d_f
+    rho_d = torch.as_tensor(rho, dtype=F32, device=l1.device) * d_f
     lam0 = _safe_div(rho_d, l1.to(F32))
     if tail_fn is None or num_iters <= 0:
         return lam0
@@ -138,6 +143,28 @@ def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor,
     l1, mx = K.stats_l1max(g2d)
     lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
                         tail_fn=_kernel_tail_fn(g2d))
+    er = _two_pass(g2d, u2d, lam, pkind="lam", codec=codec, k_cap=k_cap,
+                   rice_r=rice_r, ef=ef, u_cod=u_cod)
+    return er, lam
+
+
+def closed_lambda(g2d: torch.Tensor, eps: float) -> torch.Tensor:
+    """Algorithm 2's lambda per row (``sparsify.closed_form_lambda_rows``);
+    a bfloat16 group's magnitude histogram from the ``topk_threshold``
+    kernel's histogram pass (``kernel.magnitude_hist``)."""
+    counts = K.magnitude_hist(g2d) if g2d.dtype == torch.bfloat16 else None
+    return sparsify_lib.closed_form_lambda_rows(g2d, eps, counts)
+
+
+def closed_emit(g2d: torch.Tensor, u2d: torch.Tensor,
+                u_cod: torch.Tensor | None = None, *, k_cap: int,
+                eps: float = 0.1, codec=_F32, rice_r: int = -1,
+                ef: bool = False) -> tuple[EmitResult, torch.Tensor]:
+    """Algorithm 2 on a ``[rows, d]`` group: the closed-form lambda per row
+    (``sparsify.closed_form_lambda_rows``), then the same two-pass emit as
+    the greedy path. Returns ``(EmitResult, lam)``."""
+    _group(g2d, "closed_emit")
+    lam = closed_lambda(g2d, eps)
     er = _two_pass(g2d, u2d, lam, pkind="lam", codec=codec, k_cap=k_cap,
                    rice_r=rice_r, ef=ef, u_cod=u_cod)
     return er, lam
@@ -237,31 +264,197 @@ def gspar_sparsify_prng(g: torch.Tensor, seed: int, rho: float = 0.1,
 
 class DenseResult(NamedTuple):
     """The dense wire's compression of one ``[rows, d]`` group: ``q`` in
-    the wire dtype, the EF ``residual`` (None without EF), and per row
-    ``lam``, the nonzeros of q (``nnz``), those with p = 1 (``n_sure``),
-    sum q^2 (``sum_sq``) and sum g^2 (``den``)."""
+    the wire dtype (an integer codec's decoded levels in the leaf dtype),
+    the EF ``residual`` (None without EF), and per row the selector's
+    scalar ``lam`` (lambda, rho or topk's threshold; None for identity),
+    the nonzeros of q (``nnz``), those with p = 1 (``n_sure``), sum q^2
+    (``sum_sq``), sum g^2 (``den``) and an integer codec's ``scale``; and
+    the selector kind with its other scalars, from which ``probabilities``
+    rebuilds p."""
     q: torch.Tensor
     residual: torch.Tensor | None
-    lam: torch.Tensor
+    lam: torch.Tensor | None
     nnz: torch.Tensor
     n_sure: torch.Tensor
     sum_sq: torch.Tensor
     den: torch.Tensor
+    scale: torch.Tensor | None = None
+    pkind: str = "lam"
+    s2: torch.Tensor | None = None
+    budget: torch.Tensor | None = None
 
 
-def gspar_dense(g2d: torch.Tensor, u2d: torch.Tensor, *, rho: float = 0.1,
-                num_iters: int = 2, out_dtype=None, ef: bool = False,
+def _dense_pass(g2d: torch.Tensor, u2d: torch.Tensor | None,
+                s1: torch.Tensor | None, *, pkind: str, codec, ef: bool,
+                out: torch.Tensor | None, s2: torch.Tensor | None = None,
+                budget: torch.Tensor | None = None,
+                u_cod: torch.Tensor | None = None,
+                l2mx: tuple | None = None,
+                den: torch.Tensor | None = None) -> DenseResult:
+    """The dense emit (kernel 5, or 6 with ``ef``) of one group for the
+    selector kind ``pkind`` and its per-row scalars, after what it needs
+    first: topk's tie bases from pass 1 (``select_stats``, which also gives
+    an integer codec its scale there: topk's v is g itself), and an integer
+    codec's scale over v rounded to the leaf dtype (``select_stats`` with
+    ``round_v`` at ``k_cap = d``; for identity ``l2mx``, the stats
+    kernel's sum g^2 and max|g|). Sum g^2 comes from the first of ``den``
+    (the stats pass's), ``l2mx`` and pass 1 that ran; the dense emit
+    reduces it only where none did."""
+    d = g2d.shape[1]
+    scale = tie_base = None
+    if den is None and l2mx is not None:
+        den = l2mx[0]
+    if pkind == "topk":
+        st = K.select_stats(g2d, None, s1, d, pkind="topk", budget=budget)
+        tie_base = st.tie_base
+        if codec.integer_coded:
+            scale = codecs_lib.finalize_scale(codec, st.sum_sq, st.max_abs)
+        den = st.den if den is None else den
+        del st
+    elif codec.integer_coded:
+        if pkind == "one":
+            scale = codecs_lib.finalize_scale(codec, *l2mx)
+        else:
+            st = K.select_stats(g2d, u2d, s1, d, pkind=pkind, s2=s2,
+                                round_v=True)
+            scale = codecs_lib.finalize_scale(codec, st.sum_sq, st.max_abs)
+            den = st.den if den is None else den
+            del st
+    out_dtype = g2d.dtype if codec.integer_coded \
+        else codec.wire_dtype(g2d.dtype)
+    sp = (K.sparsify_ef if ef else K.sparsify)(
+        g2d, u2d, s1, out_dtype, out=out, pkind=pkind, s2=s2, budget=budget,
+        tie_base=tie_base, codec=codec, scale=scale, u_cod=u_cod, den=den)
+    return DenseResult(sp.q, sp.residual, s1, sp.nnz, sp.n_sure, sp.sum_sq,
+                       sp.den, scale, pkind, s2, budget)
+
+
+def gspar_dense(g2d: torch.Tensor, u2d: torch.Tensor,
+                u_cod: torch.Tensor | None = None, *, rho: float = 0.1,
+                num_iters: int = 2, codec=_F32, ef: bool = False,
                 out: torch.Tensor | None = None) -> DenseResult:
     """Algorithm 3 on a ``[rows, d]`` group for the dense wire: the stats
     pass (kernel 7: lambda_0, the saturation gate and sum g^2), the tail
     passes of ``greedy_lambda``, then one sample-and-scale pass writing Q
-    in ``out_dtype`` (kernel 5), or Q and the EF residual (kernel 6), with
-    the accounting sums fused into it. ``out`` takes Q in place."""
+    (kernel 5), or Q and the EF residual (kernel 6), with the accounting
+    sums fused into it. ``codec`` as in ``_dense_pass``; ``out`` takes Q in
+    place."""
     _group(g2d, "gspar_dense")
     l1, l2, mx = K.stats(g2d)
     lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
                         tail_fn=_kernel_tail_fn(g2d))
-    sp = (K.sparsify_ef if ef else K.sparsify)(g2d, u2d, lam, out_dtype,
-                                               out=out)
-    return DenseResult(sp.q, sp.residual, lam, sp.nnz, sp.n_sure, sp.sum_sq,
-                       l2)
+    return _dense_pass(g2d, u2d, lam, pkind="lam", codec=codec, ef=ef,
+                       out=out, u_cod=u_cod, den=l2)
+
+
+def closed_dense(g2d: torch.Tensor, u2d: torch.Tensor,
+                 u_cod: torch.Tensor | None = None, *, eps: float = 1.0,
+                 codec=_F32, ef: bool = False,
+                 out: torch.Tensor | None = None) -> DenseResult:
+    """Algorithm 2 on the dense wire: the closed-form lambda per row, then
+    the same pass as ``gspar_dense``."""
+    _group(g2d, "closed_dense")
+    lam = closed_lambda(g2d, eps)
+    return _dense_pass(g2d, u2d, lam, pkind="lam", codec=codec, ef=ef,
+                       out=out, u_cod=u_cod)
+
+
+def fitted_rho(l1: torch.Tensor, l2: torch.Tensor, d: int, rho: float,
+               density_gain: float, density_floor: float) -> torch.Tensor:
+    """agspar's density target per row (float32), from the row's sum |g|
+    and sum g^2: ``clip(gain * s / d, floor * rho, rho)`` with the
+    participation ratio ``s = ||g||_1^2 / ||g||_2^2``
+    (``AdaptiveGsparSelector.rho_fitted``, repro/core/schemes.py:112)."""
+    l1, l2 = l1.to(F32), l2.to(F32)
+    s = _safe_div(l1 * l1, l2)
+    f32 = dict(dtype=F32, device=l1.device)
+    return torch.clamp(
+        torch.tensor(density_gain, **f32) * s
+        / torch.tensor(float(d), **f32),
+        torch.tensor(density_floor * rho, **f32), torch.tensor(rho, **f32))
+
+
+def agspar_dense(g2d: torch.Tensor, u2d: torch.Tensor,
+                 u_cod: torch.Tensor | None = None, *, rho: float = 0.1,
+                 num_iters: int = 2, density_gain: float = 1.0,
+                 density_floor: float = 0.1, codec=_F32, ef: bool = False,
+                 out: torch.Tensor | None = None) -> DenseResult:
+    """agspar on the dense wire: the stats pass, each row's fitted density
+    (``fitted_rho``), Algorithm 3's lambda at it, then ``gspar_dense``'s
+    pass."""
+    _group(g2d, "agspar_dense")
+    d = g2d.shape[1]
+    l1, l2, mx = K.stats(g2d)
+    rho_row = fitted_rho(l1, l2, d, rho, density_gain, density_floor)
+    lam = greedy_lambda(l1, mx, rho_row, d, num_iters,
+                        tail_fn=_kernel_tail_fn(g2d))
+    return _dense_pass(g2d, u2d, lam, pkind="lam", codec=codec, ef=ef,
+                       out=out, u_cod=u_cod, den=l2)
+
+
+def unisp_dense(g2d: torch.Tensor, u2d: torch.Tensor,
+                u_cod: torch.Tensor | None = None, *, rho: float = 0.1,
+                codec=_F32, ef: bool = False,
+                out: torch.Tensor | None = None) -> DenseResult:
+    """UniSp on the dense wire: p = rho on the support."""
+    _group(g2d, "unisp_dense")
+    s1 = torch.full((g2d.shape[0],), rho, dtype=F32, device=g2d.device)
+    return _dense_pass(g2d, u2d, s1, pkind="rho", codec=codec, ef=ef,
+                       out=out, u_cod=u_cod)
+
+
+def bern_dense(g2d: torch.Tensor, u2d: torch.Tensor,
+               u_cod: torch.Tensor | None = None, *, codec=_F32,
+               ef: bool = False,
+               out: torch.Tensor | None = None) -> DenseResult:
+    """Bernoulli selection (TernGrad's) on the dense wire: p = |g| / max|g|
+    with max|g| from the stats pass."""
+    _group(g2d, "bern_dense")
+    _, l2, mx = K.stats(g2d)
+    zero = torch.zeros(g2d.shape[0], dtype=F32, device=g2d.device)
+    return _dense_pass(g2d, u2d, zero, pkind="bern", codec=codec, ef=ef,
+                       out=out, s2=mx, u_cod=u_cod, den=l2)
+
+
+def topk_dense(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,
+               k_target: int, codec=_F32, ef: bool = False,
+               out: torch.Tensor | None = None) -> DenseResult:
+    """Deterministic top-k on the dense wire: the threshold and tie budget
+    (``topk_threshold``), pass 1's tie bases, then the dense pass keeping
+    |g| > t and the first ``budget`` ties of each row. Reads no
+    uniforms."""
+    _group(g2d, "topk_dense")
+    t, budget = topk_threshold(g2d, k_target)
+    return _dense_pass(g2d, None, t, pkind="topk", codec=codec, ef=ef,
+                       out=out, budget=budget, u_cod=u_cod)
+
+
+def identity_dense(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,
+                   codec=_F32, ef: bool = False,
+                   out: torch.Tensor | None = None) -> DenseResult:
+    """The identity selector on the dense wire (p = 1, v = g) through the
+    codec: for an integer codec the stats pass gives the scale (sum g^2,
+    max|g|); a float codec needs none."""
+    _group(g2d, "identity_dense")
+    l2mx = None
+    if codec.integer_coded:
+        _, l2, mx = K.stats(g2d)
+        l2mx = (l2, mx)
+    return _dense_pass(g2d, None, None, pkind="one", codec=codec, ef=ef,
+                       out=out, u_cod=u_cod, l2mx=l2mx)
+
+
+def probabilities(r: DenseResult, g2d: torch.Tensor) -> torch.Tensor:
+    """The keep probabilities ``[rows, d]`` (float32) that a dense pass
+    sampled with, from its kind and scalars: ``ref``'s selector rows (topk:
+    the kept mask; identity: ones)."""
+    if r.pkind == "one":
+        return torch.ones(g2d.shape, dtype=F32, device=g2d.device)
+    p = torch.empty(g2d.shape, dtype=F32, device=g2d.device)
+    for row in range(g2d.shape[0]):
+        u_row = torch.zeros(g2d.shape[1], dtype=F32, device=g2d.device)
+        p[row] = ref._select_row(
+            r.pkind, g2d[row], u_row, r.lam[row],
+            None if r.s2 is None else r.s2[row],
+            None if r.budget is None else r.budget[row])[2]
+    return p

@@ -9,10 +9,12 @@ of speed. They walk a group row by row, which bounds their scratch memory
 on the full-width rows of the main path (one embedding row is 5.2e8
 coordinates).
 
-Sums accumulate in float64 and round to float32 once, like the kernels;
-counts are exact integers. Per-element arithmetic is float32 in the order
-the TPU kernels use, so every count, kept coordinate and emitted value is
-bit-equal to the kernels' on the same inputs.
+Sums accumulate in float64 and round to float32 once, like the kernels
+(the dense emit's kernel first sums a thread's eight squares in float32:
+within rtol 1e-6 of these); counts are exact integers. Per-element
+arithmetic is float32 in the order the TPU kernels use, so every count,
+kept coordinate and emitted value is bit-equal to the kernels' on the same
+inputs.
 """
 from __future__ import annotations
 
@@ -126,6 +128,8 @@ def topk_threshold_ref(g: torch.Tensor, k_target: int,
 
 
 PKINDS = ("lam", "rho", "bern", "topk")
+# the dense wire's kinds: passes 1-2's and the identity selector's
+DENSE_KINDS = PKINDS + ("one",)
 
 
 def _select_row(pkind: str, g_row: torch.Tensor, u_row, s1, s2, budget):
@@ -193,7 +197,10 @@ class SelectStats(NamedTuple):
 def select_stats_ref(g: torch.Tensor, u: torch.Tensor | None,
                      s1: torch.Tensor, k_cap: int, tile: int, *,
                      pkind: str = "lam", s2: torch.Tensor | None = None,
-                     budget: torch.Tensor | None = None) -> SelectStats:
+                     budget: torch.Tensor | None = None,
+                     round_v: bool = False) -> SelectStats:
+    """Pass 1 (``kernel.select_stats``); with ``round_v`` the codec-scale
+    statistics (sum v^2, max|v|) see v rounded to g's dtype."""
     rows, d = g.shape
     dev = g.device
     nt = ntiles(d, tile)
@@ -212,6 +219,8 @@ def select_stats_ref(g: torch.Tensor, u: torch.Tensor | None,
         zi = z.to(torch.int32)
         rank = torch.cumsum(zi, 0, dtype=torch.int32) - zi
         keep = z & (rank < k_cap)
+        if round_v:
+            v = v.to(g.dtype).to(F32)
         vk = torch.where(keep, v, 0.0)
         base[r] = _tile_sums(zi, nt, tile)
         if tie_base is not None:
@@ -287,7 +296,7 @@ def rice_pack_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
 class Sparsified(NamedTuple):
     """Kernels 5, 6 and 8 on one ``[rows, d]`` group: the dense ``q`` in the
     wire dtype, with kernel 6 the EF residual ``g - float32(q)`` in g's
-    dtype, and per row the counts and the sum the dense wire's accounting
+    dtype, and per row the counts and the sums the dense wire's accounting
     reads, all over q as the wire carries it (rounded to its dtype)."""
     q: torch.Tensor              # [rows, d] Q(g) in the wire dtype
     residual: torch.Tensor | None
@@ -295,13 +304,25 @@ class Sparsified(NamedTuple):
     nnz: torch.Tensor            # [rows] int64: q != 0
     n_sure: torch.Tensor         # [rows] int64: q != 0 where p = 1
     sum_sq: torch.Tensor         # [rows] float32: sum q^2
+    den: torch.Tensor | None = None
+                                 # [rows] float32: sum g^2
 
 
-def _sparsify_rows(g: torch.Tensor, lam: torch.Tensor, out_dtype, ef: bool,
-                   uniforms) -> Sparsified:
+def _dense_rows(g: torch.Tensor, s1: torch.Tensor | None, out_dtype,
+                ef: bool, uniforms, *, pkind: str = "lam",
+                s2: torch.Tensor | None = None,
+                budget: torch.Tensor | None = None, codec=None,
+                scale: torch.Tensor | None = None,
+                u_cod: torch.Tensor | None = None,
+                den: torch.Tensor | None = None) -> Sparsified:
     """The body of kernels 5, 6 and 8 row by row; ``uniforms(r)`` gives
-    row r's float32 uniforms. p = min(lam |g|, 1), kept where u < p, q =
-    g / p rounded to ``out_dtype``."""
+    row r's float32 uniforms (None for topk and identity). The selector
+    kind ``pkind`` (``_select_row``'s, or ``"one"``: identity, v = g) gives
+    v, rounded to g's dtype as ``apply_mask`` casts it; a float codec
+    rounds it to ``out_dtype``, an integer codec (qsgd, ternary: ``codec``
+    with ``scale [rows]`` and ``u_cod`` shaped like g) encodes it and
+    writes the decoded level in ``out_dtype`` (g's). ``den`` (sum g^2 per
+    row from an earlier pass) is passed through; without it, reduced."""
     rows = g.shape[0]
     dev = g.device
     q = torch.empty(g.shape, dtype=out_dtype, device=dev)
@@ -309,34 +330,54 @@ def _sparsify_rows(g: torch.Tensor, lam: torch.Tensor, out_dtype, ef: bool,
     nnz = torch.empty(rows, dtype=torch.int64, device=dev)
     n_sure = torch.empty_like(nnz)
     sum_sq = torch.empty(rows, dtype=F32, device=dev)
+    reduce_den = den is None
+    if reduce_den:
+        den = torch.empty(rows, dtype=F32, device=dev)
+    integer = codec is not None and codec.integer_coded
     for r in range(rows):
-        x, _, p, _, v = _select_row("lam", g[r], uniforms(r), lam[r], None,
-                                    None)
-        q[r] = v.to(out_dtype)
+        if pkind == "one":
+            x = g[r].to(F32)
+            v, sure = x, torch.ones_like(x, dtype=torch.bool)
+        else:
+            x, _, p, z, v = _select_row(pkind, g[r], uniforms(r), s1[r],
+                                        _row(s2, r), _row(budget, r))
+            sure = z if pkind == "topk" else p >= 1.0
+        v = v.to(g.dtype).to(F32)
+        if integer:
+            q[r] = codec.decode(codec.encode(v, scale[r], u_cod[r]),
+                                scale[r]).to(out_dtype)
+        else:
+            q[r] = v.to(out_dtype)
         w = q[r].to(F32)
         nz = w != 0
         nnz[r] = nz.sum()
-        n_sure[r] = (nz & (p >= 1.0)).sum()
+        n_sure[r] = (nz & sure).sum()
         sum_sq[r] = (w * w).sum(dtype=F64)
+        if reduce_den:
+            den[r] = (x * x).sum(dtype=F64)
         if ef:
             res[r] = (x - w).to(g.dtype)
-    return Sparsified(q, res, nnz, n_sure, sum_sq)
+    return Sparsified(q, res, nnz, n_sure, sum_sq, den)
 
 
-def sparsify_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                 out_dtype=None) -> Sparsified:
-    """Kernel 5: Q = [u < p] g / p, p = min(lam[row] |g|, 1), in
-    ``out_dtype`` (default g's), from the float32 uniforms ``u``."""
-    return _sparsify_rows(g, lam, out_dtype or g.dtype, False,
-                          lambda r: u[r])
+def sparsify_ref(g: torch.Tensor, u: torch.Tensor | None,
+                 s1: torch.Tensor | None, out_dtype=None, **kind
+                 ) -> Sparsified:
+    """Kernel 5: Q = [u < p] g / p, p = min(s1[row] |g|, 1), in
+    ``out_dtype`` (default g's), from the float32 uniforms ``u``; ``kind``
+    (``pkind``, ``s2``, ``budget``, ``codec``, ``scale``, ``u_cod``) as in
+    ``_dense_rows``."""
+    return _dense_rows(g, s1, out_dtype or g.dtype, False,
+                       lambda r: None if u is None else u[r], **kind)
 
 
-def sparsify_ef_ref(g: torch.Tensor, u: torch.Tensor, lam: torch.Tensor,
-                    out_dtype=None) -> Sparsified:
+def sparsify_ef_ref(g: torch.Tensor, u: torch.Tensor | None,
+                    s1: torch.Tensor | None, out_dtype=None, **kind
+                    ) -> Sparsified:
     """Kernel 6: kernel 5 plus the residual ``g - float32(Q)`` after the
     wire rounding, in g's dtype."""
-    return _sparsify_rows(g, lam, out_dtype or g.dtype, True,
-                          lambda r: u[r])
+    return _dense_rows(g, s1, out_dtype or g.dtype, True,
+                       lambda r: None if u is None else u[r], **kind)
 
 
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)       # Philox4x32 round multipliers
@@ -394,6 +435,6 @@ def philox_uniforms(row: int, d: int, seed: int,
 def sparsify_prng_ref(g: torch.Tensor, lam: torch.Tensor,
                       seed: int) -> Sparsified:
     """Kernel 8: kernel 5 with the uniforms of ``philox_uniforms`` in place
-    of an input buffer; Q in g's dtype."""
-    return _sparsify_rows(g, lam, g.dtype, False, lambda r: philox_uniforms(
-        r, g.shape[1], seed, g.device))
+    of an input buffer; Q in g's dtype, no sum g^2."""
+    return _dense_rows(g, lam, g.dtype, False, lambda r: philox_uniforms(
+        r, g.shape[1], seed, g.device))._replace(den=None)

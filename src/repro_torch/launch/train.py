@@ -4,11 +4,14 @@
         --steps 3 --compressor gspar --rho 0.05 --error-feedback
 
 ``--wire`` defaults to ``dense``, as in the JAX launcher: each worker's
-Q(g) in dense layout, averaged with one all-reduce per leaf dtype (gspar
-with the ``f32`` or ``bf16`` codec). ``--wire gather`` sends the sparse
-compact buffers instead, and there ``--compressor`` also takes the paper's
-baselines (``unisp``, ``topk``, ``bernoulli``, ``terngrad``) and the
-integer codecs (``gspar+qsgd8``, ``topk+ternary``, or ``--codec``).
+Q(g) in dense layout, averaged in worker order (an ordered reduce-scatter
+and all-gather per leaf dtype). There ``--compressor`` takes every
+selector (``gspar``, ``agspar``, ``unisp``, ``topk``, ``bernoulli``,
+``identity``) with every codec (``gspar+qsgd8``, ``topk+ternary``, or
+``--codec``) and the aliases ``qsgd``, ``terngrad`` and ``none``.
+``--wire gather`` sends the sparse compact buffers instead, for every
+selector but agspar and identity (with ``qsgd`` and ``none``), which the
+JAX package runs on its reference backend (ROADMAP.md queue A item 4).
 
 Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
@@ -75,9 +78,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
     ap.add_argument("--compressor", default="gspar",
-                    help="selector[+codec] composition (gspar, unisp, topk, "
-                         "bernoulli; e.g. 'gspar+qsgd8', 'topk+ternary') or "
-                         "the legacy alias terngrad (bernoulli+ternary)")
+                    help="selector[+codec] composition (gspar, agspar, "
+                         "unisp, topk, bernoulli, identity; e.g. "
+                         "'gspar+qsgd8', 'topk+ternary') or a legacy alias "
+                         "(qsgd, terngrad, none); agspar and identity run "
+                         "on the dense wire only (the gather wire's are "
+                         "ROADMAP.md queue A item 4)")
     ap.add_argument("--codec", default=None,
                     choices=[None, "f32", "bf16", "qsgd4", "qsgd8",
                              "ternary"],

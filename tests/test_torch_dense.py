@@ -54,6 +54,7 @@ from repro.models.common import split_params
 from repro.optim import optimizers as jopt
 from repro.train import step as jstep
 from repro_torch.configs import gemma_2b as tgemma
+from repro_torch.core import codecs as tcodecs
 from repro_torch.core import coding as tcoding
 from repro_torch.core.api import CompressionConfig as TConfig
 from repro_torch.core.api import compress_tree, compress_tree_sparse
@@ -300,7 +301,7 @@ def test_dense_q_matches_jax_dense_wire(dtype, codec):
     tg, tu, jg, ju = _inputs(dtype)
     jcodec = jcodecs.get(codec)
     wire = getattr(torch, str(jcodec.wire_dtype(jg.dtype)))
-    r = tops.gspar_dense(tg, tu, rho=RHO, out_dtype=wire)
+    r = tops.gspar_dense(tg, tu, rho=RHO, codec=tcodecs.get(codec))
     for row in range(ROWS):
         p = jsparsify.greedy_probabilities(jg[row], RHO)
         v = jsparsify.apply_mask(jg[row], p, ju[row] < p)
@@ -409,9 +410,11 @@ def test_dense_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="out must be"):
         TK.sparsify(tg, tu, lam, out=torch.empty(ROWS, 999,
                                                  dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        compress_tree(TConfig(wire="gather", name="unisp"),
-                      torch.Generator(), [tg[0]])   # the backend refuses
+    with pytest.raises(ValueError, match="tie_base"):   # topk's tie bases
+        TK.sparsify(tg, None, torch.ones(ROWS), pkind="topk",
+                    budget=torch.zeros(ROWS, dtype=torch.int64))
+    with pytest.raises(ValueError, match="integer codec needs"):
+        TK.sparsify_ef(tg, tu, lam, codec=tcodecs.get("qsgd8"))
 
 
 def test_config_takes_the_dense_wire_by_default():
@@ -533,8 +536,9 @@ def test_dense_step_matches_jax_step(one_worker_group):
 
 GLOO_SHAPES = [(4, 3000), (5000,), (64,), (3, 700)]
 GLOO_STACKED = [True, False, False, True]
+RAGGED_UNITS, RAGGED_N = 4096, 10_007    # the exchange's chunk in the ranks
 
-WORKER = r"""
+WORKER = f"RAGGED_UNITS, RAGGED_N = {RAGGED_UNITS}, {RAGGED_N}" + r"""
 import sys
 import numpy as np
 import torch
@@ -547,6 +551,7 @@ shapes, stacked = eval(sys.argv[4]), eval(sys.argv[5])
 world, sizes = int(sys.argv[6]), eval(sys.argv[7])
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
+sync.EXCHANGE_UNITS = RAGGED_UNITS     # several chunks a buffer
 results = {}
 for m in sizes:                 # the first m ranks, every rank creating it
     group = (None if m == world
@@ -568,6 +573,13 @@ for m in sizes:                 # the first m ranks, every rank creating it
         results[(m, str(dtype))] = {
             "q": q, "synced": synced, "wire": float(stats.wire_bytes),
             "overflow": float(stats.overflow), "layouts": stats.layouts}
+        # a buffer whose last chunk is no multiple of m
+        odd = torch.from_numpy(np.random.default_rng(200 + rank)
+                               .standard_normal(RAGGED_N)
+                               .astype(np.float32)).to(dtype)
+        mean = odd.clone()
+        sync._worker_order_mean(mean, m, group)
+        results[(m, "ragged " + str(dtype))] = {"q": odd, "mean": mean}
 torch.save(results, out)
 dist.destroy_process_group()
 """
@@ -660,13 +672,13 @@ np.savez(sys.argv[2], **out)
 
 @pytest.fixture(scope="module")
 def many_ranks(tmp_path_factory):
-    """Four gloo ranks syncing over three and over four of them, and the
+    """Four gloo ranks syncing over two, three and four of them, and the
     JAX package's dense sync (``pmean``, repro/comm/sync.py:158) of the
     same per-worker Q on as many fake CPU devices, in one subprocess."""
     tmp = tmp_path_factory.mktemp("gloo_dense_many")
-    ranks = _gloo_ranks(tmp, 4, (3, 4))
+    ranks = _gloo_ranks(tmp, 4, (2, 3, 4))
     arrays = {}
-    for m in (3, 4):
+    for m in (2, 3, 4):
         for dt in ("torch.float32", "torch.bfloat16"):
             for i in range(len(GLOO_SHAPES)):
                 arrays[f"{m}_{dt[6:]}_{i}"] = np.stack(
@@ -691,7 +703,39 @@ def test_dense_sync_matches_jax_pmean_past_two_workers(many_ranks, m,
     """At three and four gloo ranks every rank's synced leaves equal the
     JAX package's ``pmean`` of the same per-worker Q, bit for bit: both
     sum the workers in worker order in float32 (bfloat16 rounded once)
-    and divide by m. The wire charges numel x itemsize, as at two."""
+    and divide by m. The exchange is the one every backend takes (an
+    ordered reduce-scatter and an all-gather), NCCL's included. The wire
+    charges numel x itemsize, as at two."""
+    _assert_matches_pmean(many_ranks, m, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+def test_dense_sync_matches_jax_pmean_at_two_workers(many_ranks, dtype):
+    """The same at two gloo ranks, against the JAX package's ``pmean``."""
+    _assert_matches_pmean(many_ranks, 2, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+@pytest.mark.parametrize("m", [2, 3, 4])
+def test_dense_exchange_chunks_a_ragged_buffer(many_ranks, m, dtype):
+    """The exchange a chunk of ``EXCHANGE_UNITS`` (4,096 in the ranks) at a
+    time on 10,007 elements, whose last chunk is no multiple of m and is
+    padded: every rank gets the float32 sum of the workers in worker order,
+    rounded once to the dtype, divided by m (numpy's float32)."""
+    ranks, _ = many_ranks
+    key = (m, "ragged " + dtype)
+    acc = ranks[0][key]["q"].float().numpy().copy()
+    for r in range(1, m):
+        acc += ranks[r][key]["q"].float().numpy()
+    want = torch.from_numpy(acc).to(ranks[0][key]["q"].dtype)
+    want = torch.from_numpy(want.float().numpy() / np.float32(m)).to(
+        want.dtype)
+    for r in range(m):
+        np.testing.assert_array_equal(_bits(ranks[r][key]["mean"]),
+                                      _bits(want), err_msg=f"rank {r}")
+
+
+def _assert_matches_pmean(many_ranks, m: int, dtype: str) -> None:
     ranks, want = many_ranks
     itemsize = 4 if dtype == "torch.float32" else 2
     for i in range(len(GLOO_SHAPES)):

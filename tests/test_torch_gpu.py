@@ -556,3 +556,108 @@ def test_select_stats_topk_blocks_span_tiles(card, tiles):
                                pkind="topk", budget=budget)
     assert torch.equal(st.tie_base, rst.tie_base)
     assert int(rst.tie_base[0, -1]) > 0 or tiles == 1
+
+
+def _dense_kind(g, pkind):
+    """The dense emit's per-row scalars for ``pkind`` (topk with pass 1's
+    tie bases), and the plain version's keywords (no tie bases)."""
+    rows, d = g.shape
+    l1, _, mx = K.stats(g)
+    if pkind == "one":
+        return dict(pkind="one"), dict(pkind="one"), None
+    if pkind == "lam":
+        return dict(pkind="lam"), dict(pkind="lam"), RHO * d / l1
+    if pkind == "rho":
+        s1 = torch.full((rows,), RHO, device="cuda")
+        return dict(pkind="rho"), dict(pkind="rho"), s1
+    if pkind == "bern":
+        kw = dict(pkind="bern", s2=mx)
+        return kw, dict(kw), torch.zeros(rows, device="cuda")
+    t, budget = K.topk_threshold(g, max(1, round(RHO * d)))
+    plain = dict(pkind="topk", budget=budget)
+    st = K.select_stats(g, None, t, d, pkind="topk", budget=budget)
+    return dict(plain, tie_base=st.tie_base), plain, t
+
+
+@pytest.mark.parametrize("codec_name", list(codecs.CODEC_NAMES))
+@pytest.mark.parametrize("pkind", ["lam", "rho", "bern", "topk", "one"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_emit_every_kind_and_codec(card, dtype, pkind, codec_name):
+    """Kernels 5 and 6 for every selector kind and codec (an integer
+    codec's scale from pass 1 with ``round_v`` at k_cap = d) against
+    their plain versions: Q, the residual and the counts bit-equal."""
+    g, u = _group(card, dtype)
+    u_cod = torch.rand(g.shape, generator=card, device="cuda")
+    kw, plain_kw, s1 = _dense_kind(g, pkind)
+    uu = u if pkind in ("lam", "rho", "bern") else None
+    codec = codecs.get(codec_name)
+    out_dtype = dtype if codec.integer_coded else codec.wire_dtype(dtype)
+    ckw = {}
+    if codec.integer_coded:
+        if pkind == "one":
+            _, l2, mx = K.stats(g)
+            scale = codecs.finalize_scale(codec, l2, mx)
+        else:
+            extra = {k: kw[k] for k in ("s2", "budget") if k in kw}
+            st = K.select_stats(g, uu, s1, D, pkind=pkind,
+                                round_v=pkind != "topk", **extra)
+            rst = ref.select_stats_ref(g, uu, s1, D, K.TILE, pkind=pkind,
+                                       round_v=pkind != "topk", **extra)
+            assert torch.equal(st.max_abs, rst.max_abs)
+            torch.testing.assert_close(st.sum_sq, rst.sum_sq, rtol=1e-6,
+                                       atol=0)
+            scale = codecs.finalize_scale(codec, st.sum_sq, st.max_abs)
+        ckw = dict(codec=codec, scale=scale, u_cod=u_cod)
+    for kern, plain in ((K.sparsify, ref.sparsify_ref),
+                        (K.sparsify_ef, ref.sparsify_ef_ref)):
+        got = kern(g, uu, s1, out_dtype, **kw, **ckw)
+        want = plain(g, uu, s1, out_dtype, **plain_kw, **ckw)
+        for f in ("q", "residual", "nnz", "n_sure"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert (a is None and b is None) or torch.equal(a, b), f
+        torch.testing.assert_close(got.sum_sq, want.sum_sq, rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(got.den, want.den, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", ["unisp+qsgd8", "topk+ternary", "qsgd",
+                                  "terngrad", "agspar", "none"])
+def test_dense_compositions_card_match_cpu(card, name):
+    """The dense wire's pipeline of a composition on the card against the
+    same pipeline on the CPU (plain versions): bit-equal where the scalars
+    are exact (rho, max|g|, topk's threshold, the identity), and agspar's
+    lambda within rtol 1e-6."""
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.core.sparse import dense_group
+    g, u = _group(card, torch.bfloat16)
+    u_cod = torch.rand(g.shape, generator=card, device="cuda")
+    scheme = CompressionConfig(name=name, rho=RHO).scheme()
+    uu = u if scheme.selector.samples else None
+    uc = u_cod if scheme.codec.stochastic else None
+    a = dense_group(scheme, uu, g, True, u_cod=uc)
+    b = dense_group(scheme, None if uu is None else uu.cpu(), g.cpu(), True,
+                    u_cod=None if uc is None else uc.cpu())
+    if name == "agspar":
+        torch.testing.assert_close(a.lam.cpu(), b.lam, rtol=1e-6, atol=0)
+        return
+    assert torch.equal(a.q.cpu(), b.q)
+    assert torch.equal(a.residual.cpu(), b.residual)
+    if a.scale is not None:
+        torch.testing.assert_close(a.scale.cpu(), b.scale, rtol=1e-6, atol=0)
+
+
+def test_closed_lambda_on_the_card(card):
+    """Algorithm 2's lambda from bins on the card (bf16: the magnitude
+    histogram of topk_threshold's pass, equal to ``torch.bincount``'s)
+    against the plain float64 sort, per row, f32 and bf16."""
+    from repro_torch.core import sparsify
+    for dtype in (torch.float32, torch.bfloat16):
+        g, _ = _group(card, dtype)
+        if dtype == torch.bfloat16:
+            assert torch.equal(K.magnitude_hist(g).cpu(),
+                               K.magnitude_hist(g.cpu()))
+        for eps in (0.0, 1.0, 40.0):
+            lam = ops.closed_lambda(g, eps)
+            for r in range(ROWS):
+                want = sparsify.closed_form_lambda(g[r], eps)[0]
+                torch.testing.assert_close(lam[r], want, rtol=1e-6, atol=0)

@@ -266,30 +266,36 @@ def test_entry_points_run_on_the_card_unless_asked():
 # the JAX config's fields the port refuses at any value but the default,
 # and the queue-A item each refusal names
 _REFUSED_ITEM = {
-    "eps": "item 1", "backend": "item 4", "kernel_interpret": "item 4",
+    "name": "item 4", "backend": "item 4", "kernel_interpret": "item 4",
     "resparsify_pods": "item 9", "overlap_bucket_bytes": "item 9",
     "adaptive": "item 9", "delta_beta": "item 9", "skip_tau": "item 9",
-    "bound_decay": "item 9", "xla_preset": "item 13",
-    "density_gain": "item 3", "density_floor": "item 3"}
+    "bound_decay": "item 9", "xla_preset": "item 13"}
 
 
 @pytest.mark.parametrize("kw", [
-    dict(wire="dense", name="unisp"), dict(wire="dense", name="gspar+qsgd8"),
-    dict(wire="dense", name="topk"), dict(wire="dense", name="terngrad"),
+    dict(name="identity", wire="gather"), dict(name="qsgd", wire="gather"),
+    dict(name="none", wire="gather"), dict(name="agspar", wire="gather"),
     dict(wire="packed"), dict(rice_fitted=True),
     dict(rice_fitted=True, wire_layout="rice"), dict(exchange="overlap"),
-    dict(name="identity"), dict(name="qsgd"), dict(algo="closed"),
-    dict(eps=0.5), dict(eps=0.5, algo="closed"), dict(backend="reference"),
+    dict(name="identity+bf16", wire="gather"),
+    dict(name="identity+ternary", wire="gather", error_feedback=True),
+    dict(name="agspar+qsgd8", wire="gather"),
+    dict(name="qsgd", wire="gather", qsgd_bits=8),
+    dict(name="agspar", wire="gather", density_gain=0.5),
+    dict(backend="reference"),
     dict(kernel_interpret=True), dict(kernel_interpret=False),
     dict(resparsify_pods=True), dict(overlap_bucket_bytes=4096),
     dict(adaptive=True, error_feedback=True), dict(delta_beta=0.5),
     dict(skip_tau=0.1), dict(bound_decay=0.5), dict(xla_preset="async"),
     dict(xla_preset="latency_hiding"), dict(xla_preset="overlap"),
-    dict(density_gain=0.5), dict(density_floor=0.2)])
+    dict(name="agspar+bf16", wire="gather", error_feedback=True),
+    dict(name="identity+qsgd4", wire="gather", wire_layout="coo")])
 def test_config_refuses_what_is_not_ported(kw):
     """Each value the JAX config takes but the port does not run raises
-    NotImplementedError naming its ROADMAP.md item (the twelve fields the
-    port carries only at their defaults: that item's number)."""
+    NotImplementedError naming its ROADMAP.md item: the nine fields the
+    port carries only at their defaults, and agspar and identity (with the
+    qsgd and none aliases) on the gather wire, which the JAX package runs
+    on its reference backend (item 4)."""
     JConfig(**kw)                                  # valid in the JAX package
     item = _REFUSED_ITEM.get(next(iter(kw)), "")
     with pytest.raises(NotImplementedError,
