@@ -64,6 +64,21 @@ every gemma-2b row as a leaf, its kept
 count held to 6 standard deviations of sum p, and its generator to
 Philox4x32-10's known answers.
 
+Then the step-size options at full width (``var_lr_phase``): gspar on the
+dense wire with ``var_adaptive_lr=True``, run A with EF under a warmup
+``lr_schedule`` and Adam (kernel 6), run B without EF under SGD with
+momentum (kernel 5); each step checked on a sampled leaf, bit for bit: the
+residual rescaled by sched(t) / sched(t + 1), the applied step size
+sched(t + 1) / max(var, 1) as a float32 quotient, the parameters kept
+bfloat16, and exactly 5,012,344,832 wire bytes. Last, the paper's
+section-5 experiments at the JAX benchmarks' sizes (``experiments_phase``:
+convex SGD in four data cells and SVRG in two, the CNN, the conflict model
+and Algorithm 4's simulation), their kernels first held to their plain
+versions at the paths' shapes (the convex step's [4, 2048] group in each
+method, every CNN shape group, pass 1 at the conflict windows), then the
+runs checked against the paper's claims, the committed conflict rows and
+the kernels' launches (1, 2, 5 and 7).
+
 Each run checks finite losses, no overflow and every kernel variant of the
 path launched. Prints the card's name and power limit, one JSON line of
 per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
@@ -555,9 +570,10 @@ CLOSED_GATHER_EPS = 40.0  # on the gather wire, chosen only to keep every
                           # gemma-2b row under its capacity, sized from rho
 
 
-def dense_variant_checks(tally: Tally, g, u, l1, mx, lam) -> None:
-    """The dense emit's variants of the launcher paths at one main-path
-    group, each against its plain version (bit-equal; sums within rtol
+def dense_variant_checks(tally: Tally, g, u, l1, mx, lam,
+                         variants=DENSE_VARIANTS) -> None:
+    """The dense emit's ``variants`` (by default the launcher paths') at
+    one group, each against its plain version (bit-equal; sums within rtol
     1e-6) and timed with the bytes of its bound, and the integer codecs'
     scale pass (``select_stats`` with ``round_v`` at k_cap = d)."""
     from repro_torch.core import codecs
@@ -567,7 +583,7 @@ def dense_variant_checks(tally: Tally, g, u, l1, mx, lam) -> None:
     u_cod = torch.rand((rows, d), generator=torch.Generator(
         device="cuda").manual_seed(d), device="cuda")
     l2mx = K.stats(g)[1:]
-    for name, pkind, cname, ef in DENSE_VARIANTS:
+    for name, pkind, cname, ef in variants:
         kw, pkw, s1 = dense_kind(g, pkind, l1, mx)
         if pkind == "lam":
             s1 = lam
@@ -1397,6 +1413,426 @@ def dense_train_phase(name: str, check: bool = False) -> dict:
     return summary
 
 
+# --- the step-size options at full width (var_lr_phase) ----------------------
+
+def warmup(t: int) -> float:
+    """Run A's schedule: a 3-step linear warmup to 3e-4, so that the
+    residual is rescaled by sched(1) / sched(2) = 0.5 and 2/3."""
+    return 3e-4 * min(t, 3) / 3
+
+
+def f32_quotient(a: float, b: float) -> np.float32:
+    return np.float32(a) / np.float32(b)
+
+
+def var_lr_run(name: str) -> dict:
+    """gemma-2b full width on the dense wire with gspar and
+    ``var_adaptive_lr=True``, three steps through
+    ``make_compressed_train_step``: run "A" with EF, ``adam(warmup)`` and ``lr_schedule=warmup``; run "B"
+    without EF under ``sgd(3e-4, momentum=0.9)``. On a sampled leaf (the
+    final norm scale, d_model wide: its group's buffers are small) each step
+    checks, bit for bit: (A) the carried residual rescaled in place to
+    ``(r.float() * ratio).to(bf16)``, ratio the float32 quotient
+    sched(t) / sched(t + 1); the applied step size eta = lr_t / max(var,
+    1) as a float32 quotient, through the optimizer's own update of that
+    leaf recomputed from its state (A: ``round(p - eta upd)``, upd from
+    Adam's moments; B: ``round(p - eta mu)``, JAX's float32 value rounded
+    once); every parameter bfloat16; exactly DENSE_WIRE_BYTES a step."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.train import init_process_group
+    from repro_torch.models.transformer import Transformer, init_model
+    from repro_torch.optim import optimizers as topt
+    from repro_torch.train.step import make_compressed_train_step
+    ef = name == "A"
+    comp = CompressionConfig(name="gspar", rho=RHO, wire="dense",
+                             error_feedback=ef, min_leaf_size=1024)
+    cfg = registry.get("gemma-2b").model
+    dev = torch.device("cuda", 0)
+    own_group = init_process_group(dev)
+    rows = []
+    try:
+        model = Transformer(cfg, init_model(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev))
+        leaves = model.leaves()
+        i = next(k for k, p in enumerate(leaves) if p.numel() == cfg.d_model)
+        if ef:
+            opt = topt.adam(warmup)
+            step = make_compressed_train_step(model, comp, opt,
+                                              var_adaptive_lr=True,
+                                              lr_schedule=warmup)
+            fb = topt.init_feedback(leaves)
+        else:
+            opt = topt.sgd(3e-4, momentum=0.9)
+            step = make_compressed_train_step(model, comp, opt,
+                                              var_adaptive_lr=True)
+        state = opt.init(leaves)
+        data_gen = torch.Generator(device=dev).manual_seed(1_000_003)
+        comp_gen = torch.Generator(device=dev).manual_seed(2_000_003)
+        for t in range(3):
+            batch = token_batch(data_gen, cfg.vocab, 8, 128)
+            p_before = leaves[i].detach().clone()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            if ef:
+                res = fb.residual[i]
+                r_before = res.clone()
+                state, fb, m = step(state, fb, batch, comp_gen)
+            else:
+                state, m = step(state, batch, comp_gen)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            m = {k: float(v) for k, v in m.items()}
+            var_scale = max(np.float32(m["var_ratio"]), np.float32(1.0))
+            lr_t = warmup(t + 1) if ef else 3e-4
+            eta = f32_quotient(lr_t, var_scale)
+            ratio = (f32_quotient(warmup(t), warmup(t + 1))
+                     if ef and t > 0 else np.float32(1.0))
+            if ef and not torch.equal(
+                    res, (r_before.float() * float(ratio)).to(res.dtype)):
+                raise AssertionError(f"var_lr {name} step {t}: the residual "
+                                     "was not rescaled by sched(t)/sched(t+1)")
+            eta_t = torch.tensor(eta, device=dev)
+            if ef:
+                tt = torch.tensor(float(t + 1), dtype=torch.float32)
+                bc1 = torch.tensor(float(1 - 0.9 ** tt), device=dev)
+                bc2 = torch.tensor(float(1 - 0.999 ** tt), device=dev)
+                mm, vv = state["m"][i], state["v"][i]
+                upd = (mm / bc1) / ((vv / bc2).sqrt() + 1e-8)
+            else:
+                upd = state["mu"][i].float()
+            want = (p_before.float() - upd * eta_t).to(torch.bfloat16)
+            if not torch.equal(leaves[i].detach(), want):
+                raise AssertionError(f"var_lr {name} step {t}: the applied "
+                                     f"step size is not {eta!r}")
+            if any(p.dtype != torch.bfloat16 for p in leaves):
+                raise AssertionError(f"var_lr {name}: a parameter left "
+                                     "bfloat16")
+            if m["wire_bytes"] != DENSE_WIRE_BYTES or not math.isfinite(
+                    m["loss"]) or not var_scale > 1.0:
+                raise AssertionError(f"var_lr {name} step {t}: {m}")
+            rows.append({"step": t, "var_scale": float(var_scale),
+                         "eta": float(eta), "ratio": float(ratio),
+                         "seconds": seconds, "peak_bytes": peak,
+                         "loss": m["loss"], "wire_bytes": m["wire_bytes"]})
+            print(f"var_lr {name} step {t}: var_scale {float(var_scale):.6f}"
+                  f", eta {float(eta):.6e}, rescale ratio {float(ratio):.6f}"
+                  f", {seconds:.4f} s, peak {peak} B, loss {m['loss']:.4f}",
+                  flush=True)
+        del model, leaves, state, step
+        if ef:
+            del fb, res, r_before
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    return {"steps": rows}
+
+
+def var_lr_phase() -> dict:
+    """Runs A and B of ``var_lr_run``, the launch counts set to 0 just
+    before each and read just after: A must launch the dense emit with EF
+    (kernel 6), B without (kernel 5), each after the stats pass (7) and
+    the tail passes (2)."""
+    from repro_torch.kernels.sparsify import kernel as K
+    out = {}
+    for name, want in (("A", "sparsify_ef/lam"), ("B", "sparsify/lam")):
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        run = var_lr_run(name)
+        run["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+        for kern in ("stats", "tail_stats", want):
+            if run["launches"].get(kern, 0) <= 0:
+                raise AssertionError(f"var_lr {name}: {kern} never launched")
+        out[name] = run
+    return out
+
+
+# --- the paper's section-5 experiments (experiments_phase) -------------------
+
+SGD_CELLS = [(0.6, 0.25), (0.6, 1.0 / 64), (0.9, 0.25), (0.9, 1.0 / 64)]
+SVRG_CELLS = [(0.6, 0.25), (0.9, 1.0 / 64)]
+# kernels 1, 2, 5 and 7: the dense emit in each variant the paths run
+# (gspar, unisp, qsgd and dense); pass 1 (kernel 3) is on none of them
+EXPERIMENT_KERNELS = ("stats_l1max", "tail_stats", "stats", "sparsify/lam",
+                      "sparsify/rho", "sparsify/one+qsgd4", "sparsify/one")
+# the dense emit's variants that only the experiments run (convex run_sgd's
+# unisp and qsgd, no EF): checked and timed at the convex step's group
+EXPERIMENT_VARIANTS = (("sparsify/rho", "rho", "f32", False),
+                       ("sparsify/one+qsgd4", "one", "qsgd4", False))
+CONVEX_N, CONVEX_D, CONVEX_M, CONVEX_B = 1024, 2048, 4, 8
+
+
+def _timed(fn):
+    from repro_torch.kernels.sparsify import kernel as K
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k: v for k, v in
+                                            K.LAUNCHES.items() if v}
+
+
+def rows_against_plain(chk: Check, what: str, got, want, q_card,
+                       keep) -> int:
+    """One compressed ``[rows, d]`` group on the card (``got``, with Q
+    ``q_card``) against its plain version on the CPU (``want``): the
+    selector's scalar per row within rtol 1e-6, Q bit-equal at ``keep``
+    (where no uniform lies within 1e-6 of its keep probability), the bits
+    bit-equal when that is everywhere. Returns the coordinates exempted."""
+    if (got.lam is None) != (want.lam is None):
+        raise AssertionError(f"{what}: lambda on one side only")
+    if got.lam is not None:
+        chk.close(f"{what} lambda", got.lam.cpu(), want.lam)
+    chk.equal(f"{what} q", q_card.cpu()[keep], want.q[keep])
+    if bool(keep.all()):
+        chk.equal(f"{what} bits", got.bits.cpu(), want.bits)
+    return int((~keep).sum())
+
+
+def _keep(want, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Where gspar's uniform lies more than 1e-6 from its keep probability
+    p = min(lambda |g|, 1), lambda the plain version's."""
+    p = torch.clamp_max(want.lam[:, None] * g.cpu().abs(), 1.0)
+    return (u.cpu() - p).abs() > 1e-6
+
+
+def experiment_checks(tally: Tally) -> None:
+    """The experiments' kernels at the shapes their paths give them, each
+    held to its plain version before the timed runs (not counted as the
+    paths' launches): ``Compressor.rows`` for gspar, unisp, qsgd and dense
+    at the convex step's ``[4, 2048]`` float32 group of worker gradients
+    (on the card against the CPU, ``rows_against_plain``), the dense emit's
+    unisp and qsgd variants there (timed, with their bounds:
+    ``EXPERIMENT_VARIANTS``), every shape group of one CNN step through
+    ``compress_tree`` at both gspar densities (the card's tree against the
+    plain version of each group on the same uniforms, replayed from the
+    generator's seed), and pass 1 (kernel 3) at the conflict model's
+    ``[256 x 32, 256]`` windows under the kernels' lambda: its survivors
+    equal to its plain version's and to the Monte Carlo writes."""
+    from repro_torch.core.api import CompressionConfig, _stack_group, \
+        compress_tree
+    from repro_torch.core.grouping import plan_tree
+    from repro_torch.core.sparse import KernelBackend
+    from repro_torch.data.synthetic import image_data, logreg_data, svm_data
+    from repro_torch.experiments import cnn, conflicts, convex
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    chk = Check()
+    exempt = 0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, d, M = CONVEX_N, CONVEX_D, CONVEX_M
+    x, y, _ = logreg_data(0, n=n, d=d, c1=0.6, c2=0.25,
+                           device="cuda")
+    idx = torch.randint(0, n, (M, CONVEX_B), generator=gen, device="cuda")
+    w = 0.01 * torch.randn(d, generator=gen, device="cuda")
+    g = convex._worker_grads(w, x, y, 1.0 / n, idx)
+    u = torch.rand((M, d), generator=gen, device="cuda")
+    u_cod = torch.rand((M, d), generator=gen, device="cuda")
+    for method in ("gspar", "unisp", "qsgd", "dense"):
+        comp = convex._compressor(method, 0.05, 32)
+        uu = u if comp.scheme.selector.samples else None
+        uc = u_cod if comp.scheme.codec.stochastic else None
+        got = comp.rows(g, uu, uc)
+        want = comp.rows(g.cpu(), None if uu is None else uu.cpu(),
+                         None if uc is None else uc.cpu())
+        keep = (_keep(want, g, u) if method == "gspar"
+                else torch.ones(g.shape, dtype=torch.bool))
+        exempt += rows_against_plain(chk, f"convex {method}", got, want,
+                                     got.q, keep)
+    l1, mx = K.stats_l1max(g)
+    dense_variant_checks(tally, g, u, l1, mx, None,
+                         variants=EXPERIMENT_VARIANTS)
+
+    xi, yi = image_data(0, n=2048, device="cuda")
+    params = cnn.init_cnn(torch.Generator(device="cuda").manual_seed(0), 24)
+    live = {k: v.detach().requires_grad_() for k, v in params.items()}
+    idx = torch.randint(0, 2048, (M, 16), generator=gen, device="cuda")
+    per_worker = [torch.autograd.grad(cnn.cnn_loss(live, xi[ix], yi[ix]),
+                                      list(live.values())) for ix in idx]
+    leaves = [torch.stack(t) for t in zip(*per_worker)]
+    stk = [True] * len(leaves)
+    groups = 0
+    for rho in (0.1, 0.02):
+        cfg = CompressionConfig(name="gspar", rho=rho, min_leaf_size=0)
+        q, _, _ = compress_tree(cfg, torch.Generator(
+            device="cuda").manual_seed(12), leaves, stacked=stk)
+        replay = torch.Generator(device="cuda").manual_seed(12)
+        for grp in plan_tree(cfg, leaves, stk).groups:
+            if grp.kind != "sparse":
+                raise AssertionError(f"cnn: a {grp.kind} group")
+            stack = _stack_group(grp, leaves, None, False)
+            ug = torch.rand((grp.rows, grp.d), generator=replay,
+                            dtype=torch.float32, device="cuda")
+            got, _ = KernelBackend().compress_dense(cfg, ug, stack, False)
+            want, _ = KernelBackend().compress_dense(cfg, ug.cpu(),
+                                                     stack.cpu(), False)
+            q_tree = torch.cat([q[i].reshape(r, grp.d)
+                                for i, r in grp.members])
+            keep = _keep(want, stack, ug)
+            what = f"cnn rho {rho} group {grp.rows}x{grp.d}"
+            exempt += rows_against_plain(chk, what, got, want, q_tree, keep)
+            chk.equal(f"{what} q vs compress_dense", q_tree[keep.cuda()],
+                      got.q[keep.cuda()])
+            groups += 1
+
+    xs, ys, _ = svm_data(3, n=4096, d=256, device="cuda")
+    gs = (xs[:64].T @ ys[:64]) / 64.0
+    lam = ops.gspar_lambda(gs, rho=0.05, num_iters=4)
+    trials, workers, ds = 256, 32, gs.shape[0]
+    rows = trials * workers
+    us = conflicts._mc_uniforms((trials, workers, ds), 0, "cuda").reshape(
+        rows, ds)
+    gg = gs.reshape(1, ds).expand(rows, ds).contiguous()
+    s1 = lam.reshape(1).expand(rows).contiguous()
+    st = K.select_stats(gg, us, s1, ds, pkind="lam")
+    rst = ref.select_stats_ref(gg, us, s1, ds, K.TILE, pkind="lam")
+    chk.equal("conflicts select_stats nnz", st.nnz, rst.nnz)
+    p_ker = torch.where(gs.abs() > 0, torch.clamp_max(lam * gs.abs(), 1.0),
+                        0.0)
+    writes = conflicts.conflict_stats(p_ker, workers, trials)["writes"]
+    if float(st.nnz.sum()) / trials != writes:
+        raise AssertionError(f"conflicts: pass 1 keeps {st.nnz.sum()} over "
+                             f"{trials} windows, Monte Carlo {writes}")
+    print(f"experiment checks: convex gspar/unisp/qsgd/dense rows at "
+          f"[{M}, {d}] f32, {groups} CNN groups, pass 1 at [{rows}, {ds}] "
+          f"equal to their plain versions ({exempt} coordinates within "
+          f"1e-6 of p exempt; lambda max rel err {chk.max_rel:.3g})",
+          flush=True)
+
+
+def experiments_phase(tally: Tally) -> dict:
+    """The paper's three experiments on the card at the sizes of
+    ``benchmarks/bench_convex.py``, ``bench_cnn.py`` and
+    ``bench_conflicts.py`` without ``--quick``, through the port's entry
+    points (``repro_torch.experiments``), after their kernels are held to
+    their plain versions at the paths' shapes (``experiment_checks``), each
+    run's launch counts set to 0 just before it and read just after. Fails
+    unless var(gspar) < var(unisp) in every SGD cell, gspar's
+    suboptimality falls from its first record to its last, every loss is
+    finite, the analytic conflict counts equal the committed
+    ``results/experiments/conflicts.json`` rows (rtol 1e-5), the Monte
+    Carlo counts lie within 6 standard errors of them, the backend check's
+    p_maxdiff is at most 1e-6, and kernels 1, 2, 5 and 7 each launched on
+    these paths, the dense emit in every variant they run
+    (``EXPERIMENT_KERNELS``)."""
+    experiment_checks(tally)
+    from repro_torch.data.synthetic import logreg_data, svm_data
+    from repro_torch.experiments import cnn, conflicts, convex
+    from repro_torch.core import sparsify
+    runs, totals = [], {}
+    t_phase = time.perf_counter()
+
+    def record(kind, key, seconds, launches, **vals):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        runs.append({"kind": kind, "run": key, "seconds": seconds,
+                     "launches": launches, **vals})
+        print(f"experiment {kind} {key}: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in vals.items()) + f"; {seconds:.3f} s; launches "
+            + json.dumps(launches), flush=True)
+
+    n, d = CONVEX_N, CONVEX_D
+    for c1, c2 in SGD_CELLS:
+        x, y, _ = logreg_data(0, n=n, d=d, c1=c1, c2=c2)
+        (_, f_star), s, _ = _timed(lambda: convex.solve_reference(x, y,
+                                                                  1.0 / n))
+        cell = f"sgd_c1{c1}_c2{c2:.4f}"
+        var = {}
+        methods = ("dense", "gspar", "unisp") + (
+            ("qsgd",) if (c1, c2) == SGD_CELLS[0] else ())
+        for method in methods:
+            r, s, launches = _timed(lambda: convex.run_sgd(
+                x, y, 1.0 / n, method=method, rho=0.05, epochs=30,
+                f_star=f_star))
+            if not np.all(np.isfinite(r.subopt)):
+                raise AssertionError(f"{cell} {method}: subopt {r.subopt}")
+            var[method] = r.var_ratio
+            if method == "gspar" and not r.subopt[-1] < r.subopt[0]:
+                raise AssertionError(f"{cell} gspar: subopt {r.subopt[0]} "
+                                     f"-> {r.subopt[-1]}")
+            record("sgd", f"{cell}/{method}", s, launches,
+                   subopt=float(r.subopt[-1]), var=r.var_ratio,
+                   bits=float(r.bits[-1]), density=r.density,
+                   f_star=f_star)
+        if not var["gspar"] < var["unisp"]:
+            raise AssertionError(f"{cell}: var gspar {var['gspar']} >= "
+                                 f"unisp {var['unisp']}")
+    for c1, c2 in SVRG_CELLS:
+        x, y, _ = logreg_data(1, n=n, d=d, c1=c1, c2=c2)
+        f_star = convex.solve_reference(x, y, 1.0 / n)[1]
+        cell = f"svrg_c1{c1}_c2{c2:.4f}"
+        for method in ("dense", "gspar", "unisp"):
+            r, s, launches = _timed(lambda: convex.run_svrg(
+                x, y, 1.0 / n, method=method, rho=0.2, outer=10,
+                f_star=f_star))
+            if not np.all(np.isfinite(r.subopt)) or (
+                    method == "gspar" and not r.subopt[-1] < r.subopt[0]):
+                raise AssertionError(f"{cell} {method}: subopt {r.subopt}")
+            record("svrg", f"{cell}/{method}", s, launches,
+                   subopt=float(r.subopt[-1]), var=r.var_ratio,
+                   bits=float(r.bits[-1]), density=r.density)
+    for method, rho in (("dense", 1.0), ("gspar", 0.1), ("gspar", 0.02)):
+        (losses, bits, dens), s, launches = _timed(lambda: cnn.run_cnn(
+            method=method, rho=rho, channels=24, steps=200))
+        if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"cnn {method} {rho}: losses {losses}")
+        record("cnn", f"ch24_{method}_rho{rho}", s, launches,
+               loss=float(losses[-1]), loss_first=float(losses[0]),
+               bits=float(bits[-1]), density=dens)
+    # the conflict model on the benchmark's representative SVM gradient
+    with open(Path(__file__).resolve().parent / "results" / "experiments"
+              / "conflicts.json") as f:
+        committed = json.load(f)
+    x, y, _ = svm_data(3, n=4096, d=256)
+    g = (x[:64].T @ y[:64]) / 64.0
+    for rho in (0.05, 0.2):
+        p = sparsify.greedy_probabilities(g, rho, num_iters=4)
+        for workers in (16, 32):
+            st, s, launches = _timed(lambda: conflicts.conflict_stats(
+                p, workers))
+            want = committed[f"conflicts_rho{rho}_w{workers}"]["gspar"]
+            for key in ("writes_analytic", "conflicted_analytic"):
+                if not math.isclose(st[key], want[key], rel_tol=1e-5):
+                    raise AssertionError(f"conflicts rho {rho} w {workers} "
+                                         f"{key}: {st[key]} != {want[key]}")
+            for mc, an, se in (("writes", "writes_analytic", "writes_se"),
+                               ("conflicted_mc", "conflicted_analytic",
+                                "conflicted_se")):
+                if abs(st[mc] - st[an]) > 6 * st[se]:
+                    raise AssertionError(f"conflicts rho {rho} w {workers}: "
+                                         f"{mc} {st[mc]} vs {st[an]}")
+            record("conflicts", f"rho{rho}_w{workers}", s, launches,
+                   **{k: float(v) for k, v in st.items()})
+    bp, s, launches = _timed(lambda: conflicts.backend_parity(g, 0.05, 32))
+    if bp["p_maxdiff"] > 1e-6:
+        raise AssertionError(f"backend parity: {bp}")
+    record("conflicts", "backend_parity", s, launches,
+           p_maxdiff=bp["p_maxdiff"], conflicted_reference=bp["reference"]["conflicted_mc"],
+           conflicted_kernel=bp["kernel"]["conflicted_mc"])
+    for workers in (16, 32):
+        for method, rho in (("dense", 1.0), ("gspar", 0.1)):
+            (t_axis, losses, rate), s, launches = _timed(
+                lambda: conflicts.run_async_svm(method=method, rho=rho,
+                                                workers=workers, steps=400))
+            if not np.all(np.isfinite(losses)):
+                raise AssertionError(f"svm {method}: losses {losses}")
+            record("svm", f"w{workers}_{method}", s, launches,
+                   loss=float(losses[-1]), sim_time=float(t_axis[-1]),
+                   conflict_rate=rate)
+    for kern in EXPERIMENT_KERNELS:
+        if totals.get(kern, 0) <= 0:
+            raise AssertionError(f"experiments: kernel {kern} never launched")
+    seconds = time.perf_counter() - t_phase
+    print(f"experiments: {len(runs)} runs in {seconds:.1f} s; launches "
+          + json.dumps(totals), flush=True)
+    return {"runs": runs, "launches": totals, "seconds": seconds}
+
+
 # the kernels line: variant -> (the run whose launches it reports, the
 # TPU kernel's line in src/repro/kernels/sparsify/kernel.py, or the file
 # and line of the XLA selection it replaces)
@@ -1424,6 +1860,8 @@ ENTRIES = {
     "sparsify/one": ("none_dense", 96),
     "select_stats/lam+rounded": ("gspar+qsgd8_dense", 384),
     "select_stats/bern+rounded": ("terngrad_dense", 384),
+    "sparsify/rho": ("experiments", 96),
+    "sparsify/one+qsgd4": ("experiments", 96),
 }
 # what each run of the dense wire and kernel 8 drives
 DENSE_PATHS = {
@@ -1434,7 +1872,9 @@ DENSE_PATHS = {
     for name, (c, ef, _) in DENSE_RUNS.items()}
 DENSE_PATHS.update({
     "gspar_dense_noef": "gspar (the launcher's default --wire dense)",
-    "prng": "ops.gspar_sparsify_prng on every gemma-2b row as a leaf"})
+    "prng": "ops.gspar_sparsify_prng on every gemma-2b row as a leaf",
+    "experiments": "the section-5 experiments (convex run_sgd unisp and "
+                   "qsgd: [4, 2048] float32)"})
 
 
 def ptxas_lines(log: str, kernels) -> list[str]:
@@ -1509,11 +1949,16 @@ def main() -> int:
     for name in DENSE_RUNS:
         torch.cuda.empty_cache()
         runs[name] = dense_train_phase(name, check=name == "gspar_dense")
+    torch.cuda.empty_cache()
+    var_lr = var_lr_phase()
+    torch.cuda.empty_cache()
+    exp = experiments_phase(kp["tally"])
 
     tally = kp["tally"]
     kernels = []
     launches = {key: run["launches"] for key, run in runs.items()}
     launches["prng"] = {"sparsify_prng": kp["prng"]["launches"]}
+    launches["experiments"] = exp["launches"]
     for name, (run, line) in ENTRIES.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -1528,6 +1973,9 @@ def main() -> int:
             "bound_ms": 1e3 * tally.bound_bytes[name] / HBM_BYTES_PER_S,
             "bound_by": "bytes",
             "library_ms": tally.library_ms.get(name),
+            "launches_experiments": exp["launches"].get(name, 0),
+            "launches_var_lr": sum(run["launches"].get(name, 0)
+                                   for run in var_lr.values()),
         })
     kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
         kp["ms_no_ef"]
@@ -1548,6 +1996,8 @@ def main() -> int:
             "density": [m["density"] for m in run["metrics"]],
             "loss": [m["loss"] for m in run["metrics"]],
             "checks": run["checks"], "launches": run["launches"]}}))
+    print(json.dumps({"var_lr": var_lr}))
+    print(json.dumps({"experiments": exp}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],
                       "closed_form_lambda_rows": dict(
                           eps=[CLOSED_EPS, CLOSED_GATHER_EPS],

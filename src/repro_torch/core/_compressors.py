@@ -3,13 +3,16 @@
 baselines as registry aliases over the selector ∘ codec schemes, and
 ``make_compressor``.
 
-Each compressor maps ``(generator, g)`` to a ``CompressedGrad`` through the
-dense wire's path on one row (``Scheme.compress``): the selector's float32
-uniforms, then an integer codec's, are drawn from ``generator`` shaped like
-g (the JAX zoo takes a key). ``gspar``/``unisp``/``topk`` are their
-selector with the f32 codec, ``qsgd`` is identity ∘ qsgd<bits>,
-``terngrad`` bernoulli ∘ ternary and ``none`` the identity; any other
-composition (``"gspar+qsgd8"``) goes through ``make_compressor``.
+Each registry entry maps its options to a ``Scheme``: ``gspar``/``unisp``/
+``topk`` are their selector with the f32 codec, ``qsgd`` is identity ∘
+qsgd<bits>, ``terngrad`` bernoulli ∘ ternary and ``none`` the identity; any
+other composition (``"gspar+qsgd8"``) goes through ``make_compressor``.
+Its ``Compressor`` maps ``(generator, g)`` to a ``CompressedGrad`` through
+the dense wire's path on one row (``Scheme.compress``: the selector's
+float32 uniforms, then an integer codec's, drawn from ``generator`` shaped
+like g, where the JAX zoo takes a key), and compresses a ``[rows, d]``
+batch of independent messages from given uniforms (``Compressor.rows``:
+the JAX zoo's ``vmap`` over workers), one launch per kernel.
 
 The dense wire's groups compress a whole ``[rows, d]`` batch into one
 ``CompressedGrad`` with every field per row and never materialise p (it is
@@ -52,54 +55,46 @@ def finish_compressed(q: torch.Tensor, lam, bits: torch.Tensor,
                           var_ratio=var_ratio, nnz=nnz)
 
 
-def _compose(generator, g, *, selector: str, codec: str | None = None,
-             **kw) -> CompressedGrad:
-    return schemes.make_scheme(selector, codec=codec, **kw).compress(
-        generator, g)
-
-
-def gspar(generator, g, *, eps: float = 1.0, algo: str = "greedy",
-          rho: float = 0.1, num_iters: int = 2, b: int = 32,
-          codec: str | None = None) -> CompressedGrad:
+def gspar(*, eps: float = 1.0, algo: str = "greedy", rho: float = 0.1,
+          num_iters: int = 2, b: int = 32,
+          codec: str | None = None) -> schemes.Scheme:
     """The paper's method: Algorithm 2 (``algo="closed"``, variance budget
     1 + eps) or Algorithm 3 (``algo="greedy"``, density rho, 2 rescales)."""
-    return _compose(generator, g, selector="gspar", codec=codec, eps=eps,
-                    algo=algo, rho=rho, num_iters=num_iters, float_bits=b)
+    return schemes.make_scheme("gspar", codec=codec, eps=eps, algo=algo,
+                               rho=rho, num_iters=num_iters, float_bits=b)
 
 
-def unisp(generator, g, *, rho: float = 0.1, b: int = 32,
-          codec: str | None = None) -> CompressedGrad:
+def unisp(*, rho: float = 0.1, b: int = 32,
+          codec: str | None = None) -> schemes.Scheme:
     """Uniform sampling baseline: p = rho on the support (unbiased)."""
-    return _compose(generator, g, selector="unisp", codec=codec, rho=rho,
-                    float_bits=b)
+    return schemes.make_scheme("unisp", codec=codec, rho=rho, float_bits=b)
 
 
-def topk(generator, g, *, rho: float = 0.1, b: int = 32,
-         codec: str | None = None) -> CompressedGrad:
+def topk(*, rho: float = 0.1, b: int = 32,
+         codec: str | None = None) -> schemes.Scheme:
     """Deterministic top-k by magnitude (biased: pair with error
     feedback); ties at the k-th magnitude by lowest coordinate."""
-    return _compose(generator, g, selector="topk", codec=codec, rho=rho,
-                    float_bits=b)
+    return schemes.make_scheme("topk", codec=codec, rho=rho, float_bits=b)
 
 
-def qsgd(generator, g, *, bits: int = 4) -> CompressedGrad:
+def qsgd(*, bits: int = 4) -> schemes.Scheme:
     """QSGD: identity selection with stochastic quantization to 2^bits - 1
     levels of |g_i| / ||g||_2."""
-    return _compose(generator, g, selector="qsgd", qsgd_bits=bits)
+    return schemes.make_scheme("qsgd", qsgd_bits=bits)
 
 
-def terngrad(generator, g, *, b: int = 32) -> CompressedGrad:
+def terngrad(*, b: int = 32) -> schemes.Scheme:
     """TernGrad: Bernoulli(|g_i| / max|g|) selection with the ternary
     codec."""
-    return _compose(generator, g, selector="terngrad", float_bits=b)
+    return schemes.make_scheme("terngrad", float_bits=b)
 
 
-def identity(generator, g, *, b: int = 32) -> CompressedGrad:
+def identity(*, b: int = 32) -> schemes.Scheme:
     """No compression (the paper's "baseline")."""
-    return _compose(generator, g, selector="none", float_bits=b)
+    return schemes.make_scheme("none", float_bits=b)
 
 
-REGISTRY: dict[str, Callable] = {
+REGISTRY: dict[str, Callable[..., schemes.Scheme]] = {
     "gspar": gspar,
     "unisp": unisp,
     "topk": topk,
@@ -109,18 +104,37 @@ REGISTRY: dict[str, Callable] = {
 }
 
 
-def _generic(generator, g, *, name: str, rho: float = 0.1, eps: float = 1.0,
+def _generic(*, name: str, rho: float = 0.1, eps: float = 1.0,
              algo: str = "greedy", num_iters: int = 2, b: int = 32,
-             bits: int = 4, codec: str | None = None) -> CompressedGrad:
-    return _compose(generator, g, selector=name, codec=codec, rho=rho,
-                    eps=eps, algo=algo, num_iters=num_iters, qsgd_bits=bits,
-                    float_bits=b)
+             bits: int = 4, codec: str | None = None) -> schemes.Scheme:
+    return schemes.make_scheme(name, codec=codec, rho=rho, eps=eps,
+                               algo=algo, num_iters=num_iters,
+                               qsgd_bits=bits, float_bits=b)
 
 
-def make_compressor(name: str, **kwargs) -> Callable:
-    """A ``(generator, g) -> CompressedGrad`` callable with options bound;
-    ``name`` is a registry key or a ``selector+codec`` composition."""
-    if name in REGISTRY:
-        return partial(REGISTRY[name], **kwargs)
-    schemes.parse_composition(name)                # raises on unknown names
-    return partial(_generic, name=name, **kwargs)
+@dataclasses.dataclass(frozen=True)
+class Compressor:
+    """A compressor of the zoo with its options bound: ``(generator, g) ->
+    CompressedGrad`` for one vector, and ``rows`` for a batch."""
+    scheme: schemes.Scheme
+
+    def __call__(self, generator, g) -> CompressedGrad:
+        return self.scheme.compress(generator, g)
+
+    def rows(self, g: torch.Tensor, u: torch.Tensor | None = None,
+             u_cod: torch.Tensor | None = None) -> CompressedGrad:
+        """Each row of ``g [rows, d]`` as its own message (the JAX zoo's
+        ``vmap`` over workers), through the dense wire's path in one launch
+        per kernel, with the selector's float32 uniforms ``u`` and an
+        integer codec's ``u_cod`` (each shaped like g; None where the
+        scheme draws none). Per-row accounting; no p."""
+        from repro_torch.core.sparse import _finish_rows, dense_group
+        return _finish_rows(self.scheme, dense_group(
+            self.scheme, u, g, False, u_cod=u_cod), g.shape[1])
+
+
+def make_compressor(name: str, **kwargs) -> Compressor:
+    """The compressor ``name`` (a registry key or a ``selector+codec``
+    composition) with its options bound."""
+    build = REGISTRY.get(name) or partial(_generic, name=name)
+    return Compressor(build(**kwargs))

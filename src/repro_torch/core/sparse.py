@@ -136,6 +136,13 @@ def dense_group(scheme, u: torch.Tensor | None, g: torch.Tensor, ef: bool,
     return ops.identity_dense(g, u_cod, **kw)
 
 
+def _finish_rows(scheme, r, d: int) -> CompressedGrad:
+    """A dense pass's per-row accounting: the coding-model bits of
+    ``Scheme.message_bits`` and the variance ratio."""
+    bits = scheme.message_bits(d, r.nnz, r.n_sure)
+    return finish_compressed(r.q, r.lam, bits, r.sum_sq, r.den, r.nnz)
+
+
 def compress_vector(scheme, generator: torch.Generator,
                     g: torch.Tensor) -> CompressedGrad:
     """``Scheme.compress``: one vector through the dense wire's path as one
@@ -174,9 +181,7 @@ class KernelBackend:
         without)."""
         scheme = cfg.scheme()
         r = dense_group(scheme, u, g, ef, out, u_cod)
-        bits = scheme.message_bits(g.shape[1], r.nnz, r.n_sure)
-        return (finish_compressed(r.q, r.lam, bits, r.sum_sq, r.den, r.nnz),
-                r.residual)
+        return _finish_rows(scheme, r, g.shape[1]), r.residual
 
     @staticmethod
     def _fused(cfg):

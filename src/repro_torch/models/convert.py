@@ -28,3 +28,12 @@ def params_from_numpy(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def cnn_params_from_jax(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """The JAX package's section-5.2 CNN parameters (``init_cnn``'s nested
+    dict, as numpy arrays) -> the port's ``{"conv1/w": tensor}`` dict in
+    the JAX flatten order (sorted names). The port keeps the JAX layout
+    (HWIO kernels, ``fc`` rows in NHWC flatten order; ``experiments.cnn``
+    convolves a permuted view), so no array is transposed."""
+    return dict(sorted(params_from_numpy(tree, device).items()))

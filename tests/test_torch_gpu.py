@@ -661,3 +661,199 @@ def test_closed_lambda_on_the_card(card):
             for r in range(ROWS):
                 want = sparsify.closed_form_lambda(g[r], eps)[0]
                 torch.testing.assert_close(lam[r], want, rtol=1e-6, atol=0)
+
+
+# --- the section-5 experiments' kernel paths and the step-size options ------
+
+@pytest.mark.parametrize("method", ["gspar", "unisp", "qsgd", "dense"])
+def test_experiment_compression_card_matches_cpu(card, method):
+    """``Compressor.rows`` at the convex experiment's shape ([M = 4, d =
+    2048] float32) on the card against the plain versions on the CPU: the
+    scalars within rtol 1e-6 (gspar's lambda from kernels 7 and 2), Q and
+    the bits bit-equal where no uniform lies within 1e-6 of its keep
+    probability."""
+    from repro_torch.experiments.convex import _compressor
+    comp = _compressor(method, 0.05, 32)
+    g = (torch.randn((4, 2048), generator=card, device="cuda")
+         * torch.randn((4, 2048), generator=card, device="cuda").exp())
+    u = torch.rand(g.shape, generator=card, device="cuda")
+    u_cod = torch.rand(g.shape, generator=card, device="cuda")
+    uu = u if comp.scheme.selector.samples else None
+    uc = u_cod if comp.scheme.codec.stochastic else None
+    K.reset_launches()
+    a = comp.rows(g, uu, uc)
+    assert K.LAUNCHES["sparsify"] == 1
+    b = comp.rows(g.cpu(), None if uu is None else uu.cpu(),
+                  None if uc is None else uc.cpu())
+    if a.lam is not None:
+        torch.testing.assert_close(a.lam.cpu(), b.lam, rtol=1e-6, atol=0)
+    keep = torch.ones(g.shape, dtype=torch.bool)
+    if method == "gspar":
+        p = torch.clamp_max(b.lam[:, None] * g.cpu().abs(), 1.0)
+        keep = (u.cpu() - p).abs() > 1e-6
+    assert torch.equal(a.q.cpu()[keep], b.q[keep])
+    if bool(keep.all()):
+        assert torch.equal(a.bits.cpu(), b.bits)
+
+
+@pytest.mark.parametrize("rho", [0.1, 0.02])
+def test_cnn_groups_card_match_cpu(card, rho):
+    """Every shape group of one CNN step (channels 24, 4 workers as the
+    stacked axis) through ``compress_tree`` on the card against the plain
+    version of the group on the CPU, on the same uniforms (replayed from
+    the generator's seed): lambda within rtol 1e-6, Q bit-equal where no
+    uniform lies within 1e-6 of its keep probability."""
+    from repro_torch.core.api import CompressionConfig, _stack_group, \
+        compress_tree
+    from repro_torch.core.grouping import plan_tree
+    from repro_torch.core.sparse import KernelBackend
+    from repro_torch.data.synthetic import image_data
+    from repro_torch.experiments import cnn
+    x, y = image_data(0, n=256, device="cuda")
+    params = cnn.init_cnn(torch.Generator(device="cuda").manual_seed(0), 24)
+    live = {k: v.detach().requires_grad_() for k, v in params.items()}
+    idx = torch.randint(0, 256, (4, 16), generator=card, device="cuda")
+    leaves = [torch.stack(t) for t in zip(*[
+        torch.autograd.grad(cnn.cnn_loss(live, x[ix], y[ix]),
+                            list(live.values())) for ix in idx])]
+    stk = [True] * len(leaves)
+    cfg = CompressionConfig(name="gspar", rho=rho, min_leaf_size=0)
+    K.reset_launches()
+    q, _, _ = compress_tree(cfg, torch.Generator(device="cuda").manual_seed(
+        12), leaves, stacked=stk)
+    assert K.LAUNCHES["sparsify"] > 0
+    replay = torch.Generator(device="cuda").manual_seed(12)
+    for grp in plan_tree(cfg, leaves, stk).groups:
+        stack = _stack_group(grp, leaves, None, False)
+        u = torch.rand((grp.rows, grp.d), generator=replay, device="cuda")
+        want, _ = KernelBackend().compress_dense(cfg, u.cpu(), stack.cpu(),
+                                                 False)
+        got, _ = KernelBackend().compress_dense(cfg, u, stack, False)
+        torch.testing.assert_close(got.lam.cpu(), want.lam, rtol=1e-6,
+                                   atol=0)
+        p = torch.clamp_max(want.lam[:, None] * stack.cpu().abs(), 1.0)
+        keep = (u.cpu() - p).abs() > 1e-6
+        q_tree = torch.cat([q[i].reshape(r, grp.d) for i, r in grp.members])
+        assert torch.equal(q_tree.cpu()[keep], want.q[keep])
+
+
+def test_experiment_sgd_and_svrg_steps_card_match_cpu(card):
+    """One gspar SGD step and one SVRG step of the convex experiment at
+    its benchmark size on the card against the CPU: new weights within
+    rtol 1e-5 (atol 1e-7), bits equal."""
+    from repro_torch.data.synthetic import logreg_data
+    from repro_torch.experiments import convex
+    from repro_torch.optim.optimizers import SVRG, sgd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for dev in ("cuda", "cpu"):
+        x, y, _ = logreg_data(0, n=1024, d=2048, device=dev)
+        comp = convex._compressor("gspar", 0.05, 32)
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        idx = torch.randint(0, 1024, (4, 8), generator=gen).to(dev)
+        u = torch.rand((4, 2048), generator=gen).to(dev)
+        w = torch.randn(2048, generator=gen).to(dev) * 0.01
+        zero = torch.zeros((), device=dev)
+        step = convex.make_sgd_step(x, y, 1 / 1024, comp, lr0=0.5,
+                                    adaptive=True)
+        w1, bits, _, _ = step(w, 2, zero, zero, idx, u)
+        svrg = SVRG(sgd(0.2))
+        wv = w.clone()
+        state = svrg.set_reference(svrg.init([wv]), [w * 0.5],
+                                   [convex.logreg_grad(w * 0.5, x, y,
+                                                       1 / 1024)])
+        sv = convex.make_svrg_step(x, y, 1 / 1024, comp, svrg)
+        wv, _, sbits, _, _ = sv(wv, state, zero, zero, idx, u)
+        out[dev] = (w1.cpu(), bits.cpu(), wv.cpu(), sbits.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+def test_experiment_cnn_step_card_matches_cpu(card):
+    """One CNN step on the card against the CPU in float32 (TF32 off): with
+    the dense passthrough, Adam's first moment (the workers' averaged
+    gradient) within rtol 1e-4, atol 1e-7; with gspar (every leaf
+    compressed through kernels 7, 2 and 5; the two devices draw different
+    uniforms) the kernels launched and the density near rho."""
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.data.synthetic import image_data
+    from repro_torch.experiments import cnn
+    from repro_torch.optim.optimizers import adam
+    torch.backends.cudnn.allow_tf32 = False
+    moments = {}
+    for name in ("none", "gspar"):
+        comp = CompressionConfig(name=name, rho=0.1, min_leaf_size=(
+            1 << 30 if name == "none" else 0))
+        for dev in ("cuda", "cpu"):
+            x, y = image_data(0, n=64, device=dev)
+            params = {k: v.to(dev) for k, v in cnn.init_cnn(
+                torch.Generator().manual_seed(0), 8).items()}
+            opt = adam(0.02)
+            state = opt.init(list(params.values()))
+            idx = torch.arange(16, device=dev).reshape(4, 4)
+            K.reset_launches()
+            state, _, density = cnn.make_cnn_step(x, y, comp, opt)(
+                params, state, idx, torch.Generator(device=dev).manual_seed(1))
+            moments[name, dev] = [m.cpu() for m in state["m"]]
+            if name == "gspar" and dev == "cuda":
+                for kern in ("stats", "tail_stats", "sparsify"):
+                    assert K.LAUNCHES[kern] > 0, kern
+                assert 0.0 < float(density) <= 0.15
+    for a, b in zip(moments["none", "cuda"], moments["none", "cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-7)
+
+
+def test_backend_parity_on_the_card(card):
+    """The conflict model's backend check at the benchmark's size: the
+    kernels' lambda (kernels 1 and 2) against the pure solver, p within
+    1e-6; and pass 1 (kernel 3) under that lambda and the Monte Carlo
+    windows' uniforms, equal to its plain version and keeping exactly the
+    kernel side's Monte Carlo writes."""
+    from repro_torch.data.synthetic import svm_data
+    from repro_torch.experiments import conflicts
+    x, y, _ = svm_data(3, n=4096, d=256, device="cuda")
+    g = (x[:64].T @ y[:64]) / 64.0
+    K.reset_launches()
+    out = conflicts.backend_parity(g, 0.05, 32)
+    for kern in ("stats_l1max", "tail_stats"):
+        assert K.LAUNCHES[kern] > 0, kern
+    assert out["p_maxdiff"] <= 1e-6
+    lam = ops.gspar_lambda(g, rho=0.05, num_iters=4)
+    rows, d = 256 * 32, g.shape[0]
+    u = conflicts._mc_uniforms((256, 32, d), 0, "cuda").reshape(rows, d)
+    gg = g.reshape(1, d).expand(rows, d).contiguous()
+    s1 = lam.reshape(1).expand(rows).contiguous()
+    st = K.select_stats(gg, u, s1, d, pkind="lam")
+    want = ref.select_stats_ref(gg, u, s1, d, K.TILE, pkind="lam")
+    assert torch.equal(st.nnz, want.nnz)
+    assert float(st.nnz.sum()) / 256 == out["kernel"]["writes"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_size_options_card_match_cpu(card, dtype):
+    """``rescale_feedback`` and ``sgd``/``adam`` with a 0-d float32
+    ``var_scale`` and a callable lr on the card against the CPU, bit for
+    bit: every division is an IEEE quotient of tensors on both."""
+    from repro_torch.optim import optimizers as topt
+    gen = torch.Generator().manual_seed(5)
+    p0 = [torch.randn(s, generator=gen).to(dtype) for s in ((64, 33), (7,))]
+    g0 = [torch.randn(s, generator=gen).to(dtype) for s in ((64, 33), (7,))]
+    vs = torch.tensor(2.8199074)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = []
+        fb = topt.FeedbackState(residual=[p.to(dev, copy=True)
+                                          for p in p0])
+        topt.rescale_feedback(fb, 1e-4, 3e-4)
+        res += fb.residual
+        for opt in (topt.sgd(lambda s: 3e-4 * s, momentum=0.9),
+                    topt.adam(3e-4)):
+            p = [t.to(dev, copy=True) for t in p0]
+            state = opt.init(p)
+            for _ in range(2):
+                _, state = opt.update([t.to(dev) for t in g0], state, p,
+                                      var_scale=vs.to(dev))
+            res += p
+        out[dev] = [t.cpu() for t in res]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == dtype and torch.equal(a, b)

@@ -67,23 +67,34 @@ def one_worker_group():
     dist.destroy_process_group()
 
 
-def _jax_step(params, tokens, stacked):
-    """One Algorithm-1 step at one worker from the JAX package's pieces.
-    Returns (new params leaves, new residual leaves, exempt masks)."""
+def _jax_step(params, tokens, stacked, gen=None, residual=None, opt=None,
+              opt_state=None, var_adaptive=False):
+    """One Algorithm-1 step at one worker from the JAX package's pieces:
+    with ``residual`` (after any rescale) the EF target is ``g +
+    residual``; with ``var_adaptive`` the optimizer's step size is divided
+    by ``max(var, 1)``, var the size-weighted mean of the rows' ``sum
+    values^2 / sum target^2`` (1 for a nonzero dense-passthrough leaf), as
+    ``sync_tree`` accounts it. Returns (new params leaves, new residual
+    leaves, exempt masks), and with ``opt`` also the new params tree and
+    optimizer state."""
     grads = jax.jit(jax.grad(jstep.make_loss_fn(jgemma.SMOKE)))(
         params, {"tokens": jnp.asarray(tokens)})
     leaves, tdef = jax.tree_util.tree_flatten(grads)
     leaves = [np.asarray(g) for g in leaves]
+    if residual is not None:
+        leaves = [g + r for g, r in zip(leaves, residual)]
     plan = jplan_tree(JConfig(name="gspar", rho=RHO, wire="gather",
                               min_leaf_size=MIN_LEAF), leaves, stacked)
-    gen = torch.Generator().manual_seed(SEED)
+    gen = gen or torch.Generator().manual_seed(SEED)
     synced, res, exempt = ([None] * len(leaves) for _ in range(3))
+    wvar = 0.0
     for grp in plan.groups:
         if grp.kind == "dense":       # float32 passthrough, zero residual
-            for i, _ in grp.members:
+            for i, n in grp.members:
                 synced[i] = leaves[i]
                 res[i] = np.zeros_like(leaves[i])
                 exempt[i] = np.zeros(leaves[i].shape, bool)
+                wvar += float(np.sum(leaves[i] ** 2) > 0) * n
             continue
         stack = np.concatenate([leaves[i].reshape(rows, grp.d)
                                 for i, rows in grp.members])
@@ -92,6 +103,9 @@ def _jax_step(params, tokens, stacked):
         er, lam = jax.vmap(functools.partial(
             jops.gspar_emit, u_cod=None, k_cap=grp.k_cap, rho=RHO, ef=True,
             interpret=True))(jnp.asarray(stack), jnp.asarray(u))
+        values = np.asarray(er.values, np.float64)
+        wvar += float(np.sum((values ** 2).sum(-1) / np.asarray(
+            er.den, np.float64))) * grp.d
         dense = np.zeros((grp.rows, grp.d), np.float32)
         for r in range(grp.rows):
             np.add.at(dense[r], np.asarray(er.idx[r]),
@@ -105,10 +119,18 @@ def _jax_step(params, tokens, stacked):
             res[i] = np.asarray(er.residual[r0:r0 + rows]).reshape(shape)
             exempt[i] = near[r0:r0 + rows].reshape(shape)
             r0 += rows
-    opt = jopt.adam(LR)
-    new, _ = opt.update(jax.tree_util.tree_unflatten(tdef, synced),
-                        opt.init(params), params)
-    return ([np.asarray(x) for x in jax.tree.leaves(new)], res, exempt)
+    kw = {}
+    if var_adaptive:
+        var = wvar / sum(g.size for g in leaves)
+        kw["var_scale"] = jnp.float32(max(var, 1.0))
+    own = opt is None
+    if own:
+        opt = jopt.adam(LR)
+        opt_state = opt.init(params)
+    new, opt_state = opt.update(jax.tree_util.tree_unflatten(tdef, synced),
+                                opt_state, params, **kw)
+    out = ([np.asarray(x) for x in jax.tree.leaves(new)], res, exempt)
+    return out if own else out + (new, opt_state)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,18 +146,68 @@ def _jax_reference():
     return (params, tokens) + _jax_step(params, tokens, stacked)
 
 
-def _check_step_against_jax(layout: str) -> None:
+# the warmup of the scheduled steps, float32, read by both packages: the
+# residual is rescaled by 0.5 before step 2
+SCHED = np.array([0.0, 1e-4, 2e-4, 3e-4], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scheduled_reference():
+    """Two JAX steps with the variance-adaptive step size and the warmup
+    schedule under EF (the residual rescaled by sched(1) / sched(2) before
+    step 2), on two token batches, the uniforms drawn in group order from
+    one generator: (tokens, new params, residual, exempt masks of either
+    step, the step-2 rescale ratio)."""
+    params = _jax_reference()[0]
+    stacked = Transformer(tgemma.SMOKE, params_from_numpy(
+        jax.tree.map(np.asarray, params))).stacked
+    tokens = np.random.default_rng(6).integers(0, jgemma.SMOKE.vocab,
+                                               (2, 4, 32))
+    opt = jopt.adam(lambda s: jnp.asarray(SCHED)[s])
+    state = opt.init(params)
+    gen = torch.Generator().manual_seed(SEED)
+    _, res, ex1, params, state = _jax_step(params, tokens[0], stacked, gen,
+                                           opt=opt, opt_state=state,
+                                           var_adaptive=True)
+    res = jopt.rescale_feedback(jopt.FeedbackState(
+        residual=[jnp.asarray(r) for r in res]), SCHED[1], SCHED[2]).residual
+    want_p, want_r, ex2, _, _ = _jax_step(
+        params, tokens[1], stacked, gen,
+        residual=[np.asarray(r) for r in res], opt=opt, opt_state=state,
+        var_adaptive=True)
+    return tokens, want_p, want_r, [a | b for a, b in zip(ex1, ex2)]
+
+
+def _check_step_against_jax(layout: str, scheduled: bool = False) -> None:
+    """One step of the port against ``_jax_reference``; ``scheduled``: two
+    steps with ``var_adaptive_lr=True`` and the warmup ``lr_schedule``
+    under EF against ``_jax_scheduled_reference``, with the same
+    tolerances (a coordinate exempt in either step is exempt)."""
     params, tokens, want_p, want_r, exempt = _jax_reference()
     model = Transformer(tgemma.SMOKE, params_from_numpy(
         jax.tree.map(np.asarray, params)))
     comp = TConfig(name="gspar", rho=RHO, error_feedback=True,
                    min_leaf_size=MIN_LEAF, wire="gather", wire_layout=layout)
-    opt = topt.adam(LR)
-    step = tstep.make_compressed_train_step(model, comp, opt)
-    state, fb, metrics = step(opt.init(model.leaves()),
-                              topt.init_feedback(model.leaves()),
-                              {"tokens": torch.from_numpy(tokens)},
-                              torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    if scheduled:
+        tokens, want_p, want_r, exempt = _jax_scheduled_reference()
+        sched = lambda s: float(SCHED[s])          # noqa: E731
+        opt = topt.adam(sched)
+        step = tstep.make_compressed_train_step(
+            model, comp, opt, var_adaptive_lr=True, lr_schedule=sched)
+        state = opt.init(model.leaves())
+        fb = topt.init_feedback(model.leaves())
+        for batch in tokens:
+            state, fb, metrics = step(
+                state, fb, {"tokens": torch.from_numpy(batch)}, gen)
+            assert float(metrics["var_ratio"]) > 1.0
+        assert state["step"] == 2
+    else:
+        opt = topt.adam(LR)
+        step = tstep.make_compressed_train_step(model, comp, opt)
+        state, fb, metrics = step(opt.init(model.leaves()),
+                                  topt.init_feedback(model.leaves()),
+                                  {"tokens": torch.from_numpy(tokens)}, gen)
     n_exempt = sum(int(e.sum()) for e in exempt)
     assert n_exempt <= 1e-3 * sum(e.size for e in exempt)
     for name, p, r, wp, wr, ex in zip(model.leaf_names, model.leaves(),
@@ -157,6 +229,91 @@ def test_compressed_step_on_the_auto_wire_matches_jax_step(one_worker_group):
     """The same step on the default wire (RICE on every smoke group): the
     Golomb-Rice exchange decodes to the same update as the COO wire."""
     _check_step_against_jax("auto")
+
+
+@pytest.mark.parametrize("layout", ["coo", "auto"])
+def test_var_adaptive_scheduled_steps_match_jax_steps(one_worker_group,
+                                                      layout):
+    """Two steps with ``var_adaptive_lr=True`` and a warmup ``lr_schedule``
+    under error feedback: the step size is sched(t + 1) / max(var, 1) and
+    the carried residual is rescaled by 0.5 before step 2, as in the JAX
+    step."""
+    _check_step_against_jax(layout, scheduled=True)
+
+
+RANK = r"""
+import sys
+import torch
+import torch.distributed as dist
+from repro_torch.configs import gemma_2b
+from repro_torch.core.api import CompressionConfig
+from repro_torch.data.synthetic import token_batch
+from repro_torch.models.transformer import Transformer, init_model
+from repro_torch.optim import optimizers as topt
+from repro_torch.train import step as tstep
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+seen = []
+real = tstep._var_scale
+def spy(v, group):
+    got = real(v, group)
+    seen.append((v.clone(), got.clone()))
+    return got
+tstep._var_scale = spy
+cfg = gemma_2b.SMOKE
+model = Transformer(cfg, init_model(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"))
+sched = lambda s: 3e-4 * min(s, 3) / 3
+opt = topt.sgd(sched, momentum=0.9)
+comp = CompressionConfig(name="gspar", rho=0.05, error_feedback=True,
+                         min_leaf_size=1024)
+step = tstep.make_compressed_train_step(model, comp, opt,
+                                        var_adaptive_lr=True,
+                                        lr_schedule=sched)
+state, fb = opt.init(model.leaves()), topt.init_feedback(model.leaves())
+data = torch.Generator().manual_seed(10 + rank)
+comp_gen = torch.Generator().manual_seed(20 + rank)
+for _ in range(3):
+    state, fb, m = step(state, fb, token_batch(data, cfg.vocab, 2, 32),
+                        comp_gen)
+torch.save({"params": [p.detach() for p in model.leaves()], "seen": seen,
+            "residual": fb.residual}, out)
+dist.destroy_process_group()
+"""
+
+
+def test_var_adaptive_replicas_stay_bit_equal_on_two_gloo_ranks(tmp_path):
+    """Two workers with different data and uniforms, three scheduled
+    variance-adaptive SGD steps with momentum and EF: both apply the same
+    step size, max of the float32 mean of the two ratios and 1 (summed in
+    worker order, as the JAX step's pmean over the data axis), so their
+    parameters stay bit-equal while their residuals differ."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OMP_NUM_THREADS="1")
+    outs = [str(tmp_path / f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK, str(r), str(port), outs[r]], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = [p.communicate(timeout=240)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log
+    a, b = (torch.load(o, weights_only=False) for o in outs)
+    for pa, pb in zip(a["params"], b["params"]):
+        assert torch.equal(pa, pb)
+    assert any(not torch.equal(ra, rb)
+               for ra, rb in zip(a["residual"], b["residual"]))
+    assert len(a["seen"]) == len(b["seen"]) == 3
+    for (va, sa), (vb, sb) in zip(a["seen"], b["seen"]):
+        assert not torch.equal(va, vb)
+        want = np.maximum((va.numpy() + vb.numpy()) / np.float32(2), 1.0)
+        assert sa.dtype == torch.float32 and torch.equal(sa, sb)
+        assert sa.item() == want and sa.item() > 1.0
 
 
 @pytest.mark.parametrize("ef", [False, True])
