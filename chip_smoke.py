@@ -79,6 +79,24 @@ method, every CNN shape group, pass 1 at the conflict windows), then the
 runs checked against the paper's claims, the committed conflict rows and
 the kernels' launches (1, 2, 5 and 7).
 
+Then the adaptive control loop with the data-fitted Golomb-Rice wire
+(``adaptive_phase``, wire-format v4): the launcher ``--adaptive
+--skip-tau 0.7 --rice-fitted --error-feedback`` at gemma-2b full width
+for four steps each, through ``adaptive_check``: (A) gspar on the gather
+wire's ``auto`` layout, checked (every row's header r in the window and
+its used words the first minimum over the window, recomputed on the card,
+never over the static words; the wire exactly values + counts + 4 x used
+less the skipped rows' values; every leaf's synced value last_avg plus the
+decoded scatter of its buffers; last_sent = g + r_in - r_out on every
+leaf); (B) the same with the bound of every other leaf forced to 1e30 at
+step 2 (those leaves skipped: zero headers, values and words, residual =
+their whole target, synced = last_avg); (C) topk, unchecked; (D) gspar on
+the dense wire with (B)'s forced skips (exactly the gradient's bytes).
+The kernel phase also holds ``rice_fit`` and the fitted ``rice_pack`` to
+their plain versions on gspar's compact idx of every group, times them
+beside the static ``rice_pack`` and the fitted decode beside the static
+one, and times ``magnitude_hist`` (Algorithm 2's bins) alone.
+
 Each run checks finite losses, no overflow and every kernel variant of the
 path launched. Prints the card's name and power limit, one JSON line of
 per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
@@ -634,7 +652,20 @@ def closed_checks(tally: Tally, g, closed: dict) -> None:
     each path's eps; its time (at the dense path's eps) and peak
     scratch."""
     from repro_torch.core import sparsify
-    from repro_torch.kernels.sparsify import ops
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    # the histogram pass alone (topk_threshold's bf16 round for the bins)
+    rows, d = g.shape
+
+    def plain_hist():
+        return torch.stack([torch.bincount(ref.magnitude_keys(row),
+                                           minlength=1 << 15).to(torch.int32)
+                            for row in g])
+    chk = tally.add("topk_threshold/hist",
+                    cuda_ms(lambda: K.magnitude_hist(g)),
+                    cuda_ms(plain_hist, 1),
+                    rows * d * g.element_size() + rows * (1 << 15) * 4)
+    chk.equal("magnitude_hist", K.magnitude_hist(g), plain_hist())
+    torch.cuda.empty_cache()
     for eps in (CLOSED_EPS, CLOSED_GATHER_EPS):
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -680,7 +711,8 @@ def kernel_phase(groups) -> dict:
     prng = {"launches": 0, "rows": 0, "z_max": 0.0}
     closed = {"ms": 0.0, "peak_scratch_bytes": 0, "max_rel_err": 0.0}
     philox_check()
-    decode_ms = {"rice": 0.0, "coo": 0.0}
+    decode_ms = {"rice": 0.0, "rice_fitted": 0.0, "coo": 0.0}
+    fitted = {"r_hist": {}, "used_words": 0, "static_words": 0}
     f32, bf16 = codecs.FloatCodec(), codecs.FloatCodec(16, True)
     widest = max(d for _, d, _ in groups)     # gemma-2b: 1 x 524,288,000
     memset_ms = 0.0
@@ -772,6 +804,7 @@ def kernel_phase(groups) -> dict:
         chk.equal("rice_pack words", words, want_w)
         chk.equal("rice_pack used", used, want_u)
         del want_w, want_u
+        fitted_checks(tally, idx, st.nnz, d, used, n_live, fitted)
         if d == widest:
             overflow_checks(tally, g, u, lam, st)
         for row in range(rows):             # the words decode to idx
@@ -786,6 +819,15 @@ def kernel_phase(groups) -> dict:
         decode_ms["rice"] += cuda_ms(lambda: sync.decode_into(
             dense, lp, vals.reshape(1, -1), words.reshape(1, -1),
             used[None], 0, n))
+        window = coding.rice_fit_window(k_cap, d)
+        fr, fh = K.rice_fit(idx, st.nnz, d=d, window=window)
+        fw, _ = K.rice_pack_fitted(idx, st.nnz, fr, d=d, window=window)
+        lp = wire_layout.LeafPlan("rice", rows, d, k_cap, k_cap,
+                                  fw.shape[1], r, True, window)
+        decode_ms["rice_fitted"] += cuda_ms(lambda: sync.decode_into(
+            dense, lp, vals.reshape(1, -1), fw.reshape(1, -1), fh[None], 0,
+            n))
+        del fr, fh, fw
         coo_words = idx + (torch.arange(rows, dtype=torch.int32,
                                         device="cuda") * d)[:, None]
         lp = wire_layout.LeafPlan("coo", rows, d, k_cap, k_cap, k_cap)
@@ -806,7 +848,55 @@ def kernel_phase(groups) -> dict:
         torch.cuda.empty_cache()
     tally.library_ms["stats_l1max"] = library_ms
     return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms,
-            "prng": prng, "memset_ms": memset_ms, "closed": closed}
+            "prng": prng, "memset_ms": memset_ms, "closed": closed,
+            "fitted": fitted}
+
+
+def fitted_checks(tally: Tally, idx, nnz, d: int, used, n_live,
+                  fitted: dict) -> None:
+    """Wire-format v4's two kernels on one group's compact idx (gspar's):
+    ``rice_fit`` (r and header) and the fitted ``rice_pack`` (words and
+    header) bit-equal to their plain versions, timed beside the static
+    packing of the same idx (``rice_pack``, just before); the headers'
+    used words never over the static ones, the words decoding at each
+    row's r to the kept coordinates; the r histogram."""
+    from repro_torch.comm import compaction
+    from repro_torch.core import coding
+    from repro_torch.kernels.sparsify import kernel as K, ref
+    rows, k_cap = idx.shape
+    window = coding.rice_fit_window(k_cap, d)
+    r, header = K.rice_fit(idx, nnz, d=d, window=window)
+    want_r, want_h = ref.rice_fit_ref(idx, nnz, d, window)
+    # the live idx prefix read once; r, header and the accumulators
+    chk = tally.add(
+        "rice_fit", cuda_ms(lambda: K.rice_fit(idx, nnz, d=d, window=window)),
+        cuda_ms(lambda: ref.rice_fit_ref(idx, nnz, d, window), 1),
+        (sum(n_live) + rows) * 4 + rows * (8 + 32))
+    chk.equal("rice_fit r", r, want_r)
+    chk.equal("rice_fit header", header, want_h)
+    words, header2 = K.rice_pack_fitted(idx, nnz, r, d=d, window=window)
+    want_w, want_h2 = ref.rice_pack_fitted_ref(idx, nnz, r, d, window)
+    chk = tally.add(
+        "rice_pack/fitted",
+        cuda_ms(lambda: K.rice_pack_fitted(idx, nnz, r, d=d, window=window)),
+        cuda_ms(lambda: ref.rice_pack_fitted_ref(idx, nnz, r, d, window), 1),
+        (sum(n_live) + words.numel() + 3 * rows) * 4)
+    chk.equal("rice_pack/fitted words", words, want_w)
+    chk.equal("rice_pack/fitted header", header2, want_h2)
+    chk.equal("rice_pack/fitted header vs rice_fit", header2, header)
+    del want_w, want_h2
+    fused = header & compaction.RICE_HDR_USED_MASK
+    if bool((fused > used).any()):
+        raise AssertionError("a fitted row uses more words than the static")
+    fitted["used_words"] += int(fused.sum())
+    fitted["static_words"] += int(used.sum())
+    for x in r.tolist():
+        fitted["r_hist"][x] = fitted["r_hist"].get(x, 0) + 1
+    dec = compaction.rice_decode_fitted(words, k_cap, d, window, header)
+    for row in range(rows):
+        chk.equal(f"rice_decode_fitted row {row}", dec[row, :n_live[row]],
+                  idx[row, :n_live[row]])
+    del dec, words, header, header2, r
 
 
 def overflow_checks(tally: Tally, g, u, lam, st) -> None:
@@ -1551,6 +1641,344 @@ def var_lr_phase() -> dict:
     return out
 
 
+# --- the adaptive control loop and wire-format v4 (adaptive_phase) -----------
+
+ADAPTIVE_ARGS = ["--arch", "gemma-2b", "--steps", "4", "--rho", str(RHO),
+                 "--error-feedback", "--adaptive", "--skip-tau", "0.7",
+                 "--rice-fitted", "--log-every", "1"]
+ADAPTIVE_GATHER = ("rice_fit", "rice_pack/fitted")
+FORCE_STEP = 2                  # the step whose bounds (B) and (D) force
+# name -> (extra launcher arguments, checked, forced skips, the kernel
+# variants the run must launch)
+ADAPTIVE_RUNS = {
+    "adaptive_A": (["--wire", "gather"], True, False,
+                   GSPAR + ("compact_emit/lam",) + ADAPTIVE_GATHER),
+    "adaptive_B": (["--wire", "gather"], True, True,
+                   GSPAR + ("compact_emit/lam",) + ADAPTIVE_GATHER),
+    "adaptive_C": (["--wire", "gather", "--compressor", "topk"], False,
+                   False, ("topk_threshold", "select_stats/topk",
+                           "compact_emit/topk") + ADAPTIVE_GATHER),
+    "adaptive_D": ([], True, True, ("stats", "tail_stats",
+                                    "sparsify_ef/lam")),
+}
+
+
+def fitted_words_card(sg, n_live_t):
+    """Per row of a RICE group, on the card with torch ops from the live
+    gaps (independent of the kernels): the Golomb-Rice words at each
+    parameter of the fitted window, the first minimum and its r, and the
+    words at the static parameter."""
+    from repro_torch.core import coding
+    k_cap, d = sg.k_cap, sg.d
+    idx = sg.idx.long()
+    live = torch.arange(k_cap, device=idx.device) < n_live_t[:, None]
+    prev = torch.cat([torch.full_like(idx[:, :1], -1), idx[:, :-1]], 1)
+    x = torch.where(live, idx - prev - 1, 0)
+    if not bool(((x >= 0) & (~live | (idx < d))).all()):
+        raise AssertionError("live indices do not ascend inside [0, d)")
+    window = coding.rice_fit_window(k_cap, d)
+    words = torch.stack([(k_cap * (r + 1) + (x >> r).sum(-1) + 31) // 32
+                         for r in window])
+    best = words.argmin(0)                    # the first minimum
+    r_s = coding.rice_parameter(k_cap, d)
+    static = (k_cap * (r_s + 1) + (x >> r_s).sum(-1) + 31) // 32
+    return (words.gather(0, best[None])[0],
+            torch.tensor(window, device=idx.device)[best], static, window)
+
+
+def adaptive_check(real_sync, real_exchange, record: list, checked: bool,
+                   forced: bool, min_leaf: int):
+    """Wrap ``train.step.sync_tree`` (and ``sync._bucketed_sync`` beneath
+    it, to keep the step's compact buffers): at step FORCE_STEP with
+    ``forced`` set the bound of every other eligible leaf to 1e30 first;
+    after each call record the skips, the wire bytes and the fitted r of
+    every row, and with ``checked`` hold the step to the loop's contract:
+    headers r in the window and used = the first minimum of the words
+    recomputed on the card, never over the static words; skipped rows zero
+    values, words and header; the charge exactly values + counts + 4 x used
+    less the skipped rows' values; every leaf's synced value = last_avg +
+    the decoded scatter of its buffers (bf16 rounding each), bit for bit;
+    ``last_sent = g + r_in - r_out`` on every leaf; a forced leaf's
+    residual its whole target ``(g - last_sent) + r_in``, its synced value
+    its last_avg. The dense wire (no buffers): the same but the scatter
+    and bytes (exactly the gradient's)."""
+    from repro_torch.comm import compaction
+    held: dict = {}
+
+    def exchange(items, leaves, group, cfg):
+        out = real_exchange(items, leaves, group, cfg)
+        held["items"] = items
+        return out
+
+    def sync_tree(comp, generator, grads, *, control=None, feedback=None,
+                  **kw):
+        step = control.step
+        force = []
+        if forced and step == FORCE_STEP:
+            eligible = [i for i, g in enumerate(grads)
+                        if g.numel() >= min_leaf]
+            force = eligible[::2]
+            for i in force:
+                control.bound[i].fill_(1e30)
+        r_in = feedback.residual
+        last_avg = list(control.last_avg)
+        targets = {i: (grads[i] - control.last_sent[i]).add_(r_in[i])
+                   for i in force}
+        held.clear()
+        torch.cuda.synchronize()
+        peak_before = torch.cuda.max_memory_allocated()
+        synced, fb, ctl, stats = real_sync(
+            comp, generator, grads, control=control, feedback=feedback, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = {"step": step, "forced": len(force),
+               "skipped": float(stats.skipped),
+               "wire_bytes": float(stats.wire_bytes), "r_hist": {},
+               "peak_through_sync": torch.cuda.max_memory_allocated()}
+        items = held.pop("items", None)
+        skipped_leaves = set()
+        if items is not None:
+            values = counts = used_total = refund = static_total = 0
+            rec["dropped"] = 0
+            for kind, sg, members in items:
+                if kind == "dense":       # tiny leaves: float32, never skip
+                    values += sg.numel() * 4
+                    continue
+                rec["dropped"] += int(sg.overflow().sum())
+                h = sg.rice_used.long()
+                zero = h == 0
+                r_rows = h >> compaction.RICE_HDR_SHIFT
+                for r, c in zip(*torch.unique(r_rows[~zero],
+                                              return_counts=True)):
+                    rec["r_hist"][int(r)] = rec["r_hist"].get(int(r), 0) \
+                        + int(c)
+                r0 = 0
+                for i, rows in members:
+                    z = zero[r0:r0 + rows]
+                    if bool(z.all()):
+                        skipped_leaves.add(i)
+                    elif bool(z.any()):
+                        raise AssertionError(f"leaf {i}: some rows skipped")
+                    r0 += rows
+                if not checked:
+                    continue
+                n_live_t = torch.clamp_max(sg.nnz.long(), sg.k_cap)
+                want_used, want_r, static, window = fitted_words_card(
+                    sg, n_live_t)
+                used = h & compaction.RICE_HDR_USED_MASK
+                live = ~zero
+                if not (torch.equal(used[live], want_used[live])
+                        and torch.equal(r_rows[live], want_r[live])):
+                    raise AssertionError("fitted headers != the first "
+                                         "minimum over the window")
+                if bool((used > static).any()):
+                    raise AssertionError("a fitted row uses more words than "
+                                         "the static parameter")
+                if bool(sg.values[zero].any()) or bool(
+                        sg.rice_words[zero].any()):
+                    raise AssertionError("a skipped row ships data")
+                row_bytes = sg.k_cap * sg.values.element_size()
+                values += sg.rows * row_bytes
+                counts += sg.rows * 4
+                used_total += int(used.sum())
+                static_total += int(static[live].sum())
+                refund += int(zero.sum()) * row_bytes
+                _closure_check(sg, members, synced, last_avg)
+            if checked:
+                want = values + counts + 4 * used_total - refund
+                if int(stats.wire_bytes) != want:
+                    raise AssertionError(f"wire bytes {stats.wire_bytes}, "
+                                         f"expected {want}")
+                rec.update(used_words=used_total, static_words=static_total,
+                           refund=refund)
+        elif checked:
+            if float(stats.wire_bytes) != DENSE_WIRE_BYTES:
+                raise AssertionError(f"dense wire bytes {stats.wire_bytes}")
+            skipped_leaves = {i for i in force}
+        if items is not None and len(skipped_leaves) != rec["skipped"]:
+            raise AssertionError(f"{len(skipped_leaves)} leaves ship zero "
+                                 f"headers, skipped {rec['skipped']}")
+        if not set(force) <= skipped_leaves or rec["skipped"] < len(force):
+            raise AssertionError(f"forced leaves {force} not all skipped")
+        if checked:
+            for i, t in targets.items():
+                if not (torch.equal(fb.residual[i], t)
+                        and torch.equal(synced[i], last_avg[i])):
+                    raise AssertionError(f"forced leaf {i}: residual != its "
+                                         "target or synced != last_avg")
+            for i, g in enumerate(grads):
+                want = torch.add(g, r_in[i]).sub_(fb.residual[i])
+                if not torch.equal(ctl.last_sent[i], want):
+                    raise AssertionError(f"leaf {i}: last_sent != g + r_in "
+                                         "- r_out")
+                del want
+        del targets, items
+        rec["check_s"] = time.perf_counter() - t0
+        record.append(rec)
+        return synced, fb, ctl, stats
+    return sync_tree, exchange
+
+
+def _closure_check(sg, members, synced, last_avg) -> None:
+    """Each member leaf's synced rows = its last_avg + the scatter of the
+    row's decoded live values, both rounded as the closure rounds them
+    (the scatter to the leaf dtype, then the sum), bit for bit, a chunk of
+    CHECK_CHUNK coordinates at a time."""
+    from repro_torch.comm import compaction
+    d = sg.d
+    n_live = torch.clamp_max(sg.nnz.long(), sg.k_cap).tolist()
+    r0 = 0
+    for i, rows in members:
+        s_rows = synced[i].reshape(rows, d)
+        a_rows = last_avg[i].reshape(rows, d)
+        for rr in range(rows):
+            row = r0 + rr
+            idx = sg.idx[row, :n_live[row]].long()
+            vals = decoded(sg.values[row, :n_live[row]], sg.scale[row],
+                           sg.codec)
+            edges = torch.arange(0, d + CHECK_CHUNK, CHECK_CHUNK,
+                                 device=idx.device).clamp_max(d)
+            cut = torch.searchsorted(idx, edges).tolist()
+            for c, a in enumerate(edges[:-1].tolist()):
+                b = min(d, a + CHECK_CHUNK)
+                lo, hi = cut[c], cut[c + 1]
+                want = compaction.scatter(vals[lo:hi], idx[lo:hi] - a,
+                                          b - a).to(s_rows.dtype)
+                want += a_rows[rr, a:b]
+                if not torch.equal(s_rows[rr, a:b], want):
+                    raise AssertionError(
+                        f"leaf {i} row {rr} [{a}, {b}): synced != last_avg "
+                        "+ the decoded scatter of the compact buffers")
+        r0 += rows
+
+
+def adaptive_run(name: str) -> dict:
+    """One launcher run of ``ADAPTIVE_RUNS[name]`` (four steps, gemma-2b
+    full width, the kernel counts set to 0 just before it and read just
+    after), through ``adaptive_check``."""
+    from repro_torch.comm import sync
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.train import step as step_lib
+    extra, checked, forced, variants = ADAPTIVE_RUNS[name]
+    record: list = []
+    real_sync, real_exchange = step_lib.sync_tree, sync._bucketed_sync
+    step_lib.sync_tree, sync._bucketed_sync = adaptive_check(
+        real_sync, real_exchange, record, checked, forced, 1024)
+    K.reset_launches()
+    try:
+        summary = train.main(ADAPTIVE_ARGS + extra)
+    finally:
+        step_lib.sync_tree, sync._bucketed_sync = real_sync, real_exchange
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    gather = "--wire" in extra
+    for v in variants:
+        if launches.get(v, 0) <= 0:
+            raise AssertionError(f"kernel {v} never launched on {name}")
+    if gather and launches.get("rice_pack", 0) != launches.get(
+            "rice_pack/fitted", 0):
+        raise AssertionError(f"{name}: a static rice_pack launched under "
+                             f"--rice-fitted: {launches}")
+    if not gather and any(launches.get(v, 0) for v in (
+            "rice_pack", "rice_fit", "compact_emit")):
+        raise AssertionError(f"{name}: the dense wire launched the gather "
+                             f"wire's kernels: {launches}")
+    if len(record) != len(summary["metrics"]):
+        raise AssertionError(f"{name}: a step went unrecorded")
+    for step, (m, rec) in enumerate(zip(summary["metrics"], record)):
+        # a delta's survivors can pass a row's capacity: the overflow must
+        # be the buffers' own count of dropped survivors (0 on the dense
+        # wire)
+        if not math.isfinite(m["loss"]) or m["overflow"] != rec.get(
+                "dropped", 0):
+            raise AssertionError(f"{name} step {step}: loss {m['loss']}, "
+                                 f"overflow {m['overflow']}, buffers' "
+                                 f"{rec.get('dropped', 0)}")
+        if m["skipped"] != rec["skipped"] or m["wire_bytes"] != \
+                rec["wire_bytes"]:
+            raise AssertionError(f"{name} step {step}: metrics {m} != the "
+                                 f"exchange's {rec}")
+        if gather and m["wire_bytes"] > PATHS["gspar"].max_bytes:
+            raise AssertionError(f"{name} step {step}: wire bytes "
+                                 f"{m['wire_bytes']}")
+    if forced and record[FORCE_STEP]["forced"] == 0:
+        raise AssertionError(f"{name}: no leaf forced")
+    steps = summary["step_seconds"]
+    net = [s - rec["check_s"] for s, rec in zip(steps, record)]
+    print(f"train {name} ({' '.join(extra) or '--wire dense'}"
+          f"{', checked' if checked else ''}"
+          f"{f', forced skips at step {FORCE_STEP}' if forced else ''}): "
+          "steps " + ", ".join(f"{s:.4f} s" for s in steps)
+          + " (less the checks: " + ", ".join(f"{s:.4f} s" for s in net)
+          + "); wire_bytes " + ", ".join(f"{m['wire_bytes']:.0f}"
+                                         for m in summary["metrics"])
+          + "; skipped " + ", ".join(f"{m['skipped']:.0f}"
+                                     for m in summary["metrics"])
+          + "; overflow " + ", ".join(f"{m['overflow']:.0f}"
+                                      for m in summary["metrics"])
+          + "; fitted r " + ", ".join(str(dict(sorted(r["r_hist"].items())))
+                                      for r in record)
+          + "; loss " + ", ".join(f"{m['loss']:.4f}"
+                                  for m in summary["metrics"])
+          + f"; max_memory_allocated {summary['max_memory_allocated']} B",
+          flush=True)
+    summary.update(launches=launches, checks=record, net_seconds=net,
+                   name=name)
+    return summary
+
+
+def adaptive_pass_ms() -> dict:
+    """The control loop's passes alone at gemma-2b full width (bf16 leaves
+    of random values, one worker, CUDA events, median of 3): the pre-pass
+    (``sync._delta_and_skips``: the delta into last_sent, the delta
+    energy, the bound and the flags), the energy alone (``sync._energy``
+    over every leaf) and the closing (``sync._close_control``: the EF fold
+    of skipped leaves, half of them here, the closure against last_avg and
+    ``S' = g + r_in - r_out``)."""
+    from repro_torch.comm import sync
+    from repro_torch.configs.gemma_2b import FULL
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim.optimizers import ControlState
+    shapes = param_shapes(FULL)
+    shapes = [shapes[n][0] for n in leaf_order(shapes)]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def leaves():
+        return [torch.randn(sh, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for sh in shapes]
+    g, r, nr, a = leaves(), leaves(), leaves(), leaves()
+    comp = CompressionConfig(name="gspar", rho=RHO, error_feedback=True,
+                             adaptive=True, skip_tau=0.7, min_leaf_size=1024)
+    ctl = ControlState(last_sent=leaves(), last_avg=a,
+                       bound=[torch.zeros((), device="cuda")
+                              for _ in shapes], step=1)
+    out = {}
+    send, flags, bounds = sync._delta_and_skips(comp, g, ctl)
+    out["pre_pass_ms"] = cuda_ms(lambda: sync._delta_and_skips(comp, g, ctl),
+                                 3)
+    out["energy_ms"] = cuda_ms(lambda: [sync._energy(t) for t in send], 3)
+    flags = [torch.tensor(i % 2 == 0, device="cuda")
+             for i in range(len(shapes))]
+    synced = leaves()
+    out["close_ms"] = cuda_ms(lambda: sync._close_control(
+        comp, g, send, r, nr, flags, bounds, synced, ctl), 3)
+    out["bytes_per_pass"] = sum(t.numel() for t in g) * 2
+    del g, r, nr, a, ctl, send, synced
+    torch.cuda.empty_cache()
+    print(f"adaptive passes at full width: {out}", flush=True)
+    return out
+
+
+def adaptive_phase() -> dict:
+    out = {"passes": adaptive_pass_ms()}
+    for name in ADAPTIVE_RUNS:
+        torch.cuda.empty_cache()
+        out[name] = adaptive_run(name)
+    return out
+
+
 # --- the paper's section-5 experiments (experiments_phase) -------------------
 
 SGD_CELLS = [(0.6, 0.25), (0.6, 1.0 / 64), (0.9, 0.25), (0.9, 1.0 / 64)]
@@ -1862,6 +2290,10 @@ ENTRIES = {
     "select_stats/bern+rounded": ("terngrad_dense", 384),
     "sparsify/rho": ("experiments", 96),
     "sparsify/one+qsgd4": ("experiments", 96),
+    "topk_threshold/hist": ("closed_dense",
+                            "src/repro/core/sparsify.py:40"),
+    "rice_fit": ("adaptive_A", "src/repro/comm/compaction.py:300"),
+    "rice_pack/fitted": ("adaptive_A", "src/repro/comm/compaction.py:265"),
 }
 # what each run of the dense wire and kernel 8 drives
 DENSE_PATHS = {
@@ -1874,7 +2306,9 @@ DENSE_PATHS.update({
     "gspar_dense_noef": "gspar (the launcher's default --wire dense)",
     "prng": "ops.gspar_sparsify_prng on every gemma-2b row as a leaf",
     "experiments": "the section-5 experiments (convex run_sgd unisp and "
-                   "qsgd: [4, 2048] float32)"})
+                   "qsgd: [4, 2048] float32)",
+    "adaptive_A": "gspar --wire gather --error-feedback --adaptive "
+                  "--skip-tau 0.7 --rice-fitted"})
 
 
 def ptxas_lines(log: str, kernels) -> list[str]:
@@ -1953,6 +2387,10 @@ def main() -> int:
     var_lr = var_lr_phase()
     torch.cuda.empty_cache()
     exp = experiments_phase(kp["tally"])
+    torch.cuda.empty_cache()
+    adaptive = adaptive_phase()
+    print(json.dumps({"adaptive_passes": adaptive.pop("passes")}))
+    runs.update(adaptive)
 
     tally = kp["tally"]
     kernels = []
@@ -1976,6 +2414,8 @@ def main() -> int:
             "launches_experiments": exp["launches"].get(name, 0),
             "launches_var_lr": sum(run["launches"].get(name, 0)
                                    for run in var_lr.values()),
+            "launches_adaptive": sum(run["launches"].get(name, 0)
+                                     for run in adaptive.values()),
         })
     kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
         kp["ms_no_ef"]
@@ -1997,6 +2437,10 @@ def main() -> int:
             "loss": [m["loss"] for m in run["metrics"]],
             "checks": run["checks"], "launches": run["launches"]}}))
     print(json.dumps({"var_lr": var_lr}))
+    print(json.dumps({"fitted_kernel_phase": {
+        "r_hist": kp["fitted"]["r_hist"],
+        "used_words": kp["fitted"]["used_words"],
+        "static_words": kp["fitted"]["static_words"]}}))
     print(json.dumps({"experiments": exp}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],
                       "closed_form_lambda_rows": dict(

@@ -1,6 +1,7 @@
 """Fixed-capacity compaction and the index codecs of the wire layouts (port
-of ``repro.comm.compaction``: capacity, scatter, the bitmap codec and the
-static-parameter Golomb-Rice codec).
+of ``repro.comm.compaction``: capacity, scatter, the bitmap codec, the
+static-parameter Golomb-Rice codec and its data-fitted twin, wire-format
+v4).
 
 Collectives move static shapes, so a sparse message is a fixed-capacity
 ``(values[k_cap], idx[k_cap])`` pair with
@@ -21,6 +22,15 @@ possible)::
 
 The remainder field has a static size; in the unary field every code is
 ``q`` one-bits and a zero terminator, so the i-th zero bit ends code i.
+
+Wire-format v4 fits r per row over a static window of candidates
+(``coding.rice_fit_window``) and ships the choice in the high bits of the
+row's phase-one counts word: ``(r << RICE_HDR_SHIFT) | used``. The payload
+capacity is the window's largest (``rice_fit_cap_words``), and the receiver
+decodes each row once, at the r its header names (``rice_decode_rows``). A
+zero header (the adaptive loop's skip sentinel) names r = 0 over zero
+words; every slot of such a row carries a zero value, so the receiver's
+zero-value masking drops it whole.
 """
 from __future__ import annotations
 
@@ -32,6 +42,11 @@ INT32_COORD_LIMIT = 2**31 - 1
 WORD_BITS = 32
 # Rice shifts stay inside int32 coordinate arithmetic.
 RICE_MAX_R = 30
+# The fitted header: r (at most RICE_MAX_R, 5 bits) above a 26-bit used
+# count, so the sign bit stays clear. Static counts have no high bits, and
+# masking with RICE_HDR_USED_MASK is the identity on them.
+RICE_HDR_SHIFT = 26
+RICE_HDR_USED_MASK = (1 << RICE_HDR_SHIFT) - 1
 
 I32 = torch.int32
 U8 = torch.uint8
@@ -199,6 +214,68 @@ def _rice_pack_gaps(x: torch.Tensor, r: int, cap_words: int
     return words, used.to(I32)
 
 
+def rice_fit_cap_words(k_cap: int, d: int, window: tuple[int, ...]) -> int:
+    """Word capacity of a fitted stream: the largest over the window (the
+    payload must hold whichever candidate the data picks). Raises where a
+    row's used count could reach the header's 2^26, rather than truncate."""
+    cap = max(rice_cap_words(k_cap, d, r) for r in window)
+    if cap > RICE_HDR_USED_MASK:
+        raise ValueError(f"a fitted Golomb-Rice row of k_cap={k_cap}, d={d} "
+                         f"can use {cap} words, past the counts header's "
+                         f"{RICE_HDR_USED_MASK}")
+    return cap
+
+
+def rice_fit_used(x: torch.Tensor, window: tuple[int, ...]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row of gap-1 codes ``x [..., k]``: the fitted ``(r, header)``,
+    int32. Each candidate's used words are ``ceil((k r + sum(x >> r) + k)
+    / 32)``; the first minimum over the ascending window wins."""
+    k = x.shape[-1]
+    x64 = x.long()
+    best_u = best_r = None
+    for r in window:
+        u = (k * r + (x64 >> r).sum(-1) + k + WORD_BITS - 1) // WORD_BITS
+        if best_u is None:
+            best_u, best_r = u, torch.full_like(u, r)
+        else:
+            better = u < best_u
+            best_u = torch.where(better, u, best_u)
+            best_r = torch.where(better, r, best_r)
+    return (best_r.to(I32),
+            ((best_r << RICE_HDR_SHIFT) | best_u).to(I32))
+
+
+def rice_encode_fitted(vals: torch.Tensor, idx: torch.Tensor, d: int,
+                       window: tuple[int, ...],
+                       nnz: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The data-fitted twin of ``rice_encode``: ``(coordinate-ordered
+    values, words [..., rice_fit_cap_words], header [...])``, each row
+    packed at the window's first minimum of used words, ``header = (r <<
+    RICE_HDR_SHIFT) | used``. Plain: it packs every candidate and keeps
+    each row's own, as the JAX package's encoder does."""
+    svals, sidx = coordinate_order(vals, idx, d, nnz=nnz)
+    x = _rice_gaps(sidx, d)
+    cap = rice_fit_cap_words(svals.shape[-1], d, window)
+    r_rows, header = rice_fit_used(x, window)
+    words = torch.zeros(x.shape[:-1] + (cap,), dtype=I32, device=x.device)
+    for r in window:
+        w, _ = _rice_pack_gaps(x, r, cap)
+        words = torch.where((r_rows == r)[..., None], w, words)
+    return svals, words, header
+
+
+def rice_decode_fitted(words: torch.Tensor, k_cap: int, d: int,
+                       window: tuple[int, ...],
+                       header: torch.Tensor) -> torch.Tensor:
+    """Coordinates of fitted streams: each row decoded once, at the r its
+    ``header`` names (``rice_decode_rows``); a zero header (r = 0 over
+    zero words, a dead row) decodes at ``window[0]``."""
+    r_rows = (header >> RICE_HDR_SHIFT) & 0x1F
+    return rice_decode_rows(words, k_cap, d, r_rows, r_min=window[0])
+
+
 def _cumsum_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Inclusive cumsum along the last dim, taken as one scan over the
     flattened tensor and rebased per row: on CUDA torch scans a flat
@@ -235,6 +312,54 @@ def rice_decode(words: torch.Tensor, k_cap: int, d: int,
     first = torch.full(batch + (1,), -1, dtype=I32, device=words.device)
     q = zpos - torch.cat([first, zpos[..., :-1]], -1) - 1
     gaps = ((q << r) | rem) + 1
+    rows = gaps.numel() // max(1, k_cap)
+    wide = rows * (d + k_cap) >= 2**31
+    return (_cumsum_rows(gaps, torch.int64 if wide else I32) - 1).to(I32)
+
+
+def rice_decode_rows(words: torch.Tensor, k_cap: int, d: int,
+                     r_rows: torch.Tensor, r_min: int) -> torch.Tensor:
+    """``rice_decode`` with a parameter per row: ``words [..., W]`` and
+    ``r_rows [...]`` (on the device: no host sync) -> ``idx [..., k_cap]``.
+    A row's r is taken at least ``r_min`` (the window's smallest: a zero
+    header, the skip sentinel, decodes there, as the JAX package decodes
+    it). Each row's remainders are read from its words at bit ``i r`` (the
+    two words they span joined in int64, shifted and masked); its unary
+    field starts at bit ``k_cap r``. One cumsum counts the zero bits from
+    bit ``k_cap r_min`` on, the zeros of the row's own remainder field
+    before its unary field are subtracted, and code i ends where the count
+    reaches i + 1 past them."""
+    batch = words.shape[:-1]
+    dev = words.device
+    r = torch.clamp_min(r_rows.to(I32), r_min).reshape(batch + (1,))
+    wide = k_cap * RICE_MAX_R >= 2**31
+    slot = _arange(k_cap, words, torch.int64 if wide else I32)
+    pos = slot * r                                    # each remainder's bit
+    wi = (pos >> 5).long()
+    w64 = torch.cat([words.to(torch.int64) & 0xFFFFFFFF,
+                     torch.zeros(batch + (1,), dtype=torch.int64,
+                                 device=dev)], -1)
+    pair = (torch.gather(w64, -1, wi)
+            | (torch.gather(w64, -1, wi + 1) << 32))
+    del w64, wi
+    rem = ((pair >> (pos & 31)) & ((1 << r) - 1)).to(I32)
+    del pair, pos
+    bits = _unpack_bits(words)[..., k_cap * r_min:]
+    count_dtype = I32 if bits.numel() < 2**31 else torch.int64
+    zeros = _cumsum_rows(bits == 0, count_dtype)
+    del bits
+    start = (k_cap * (r - r_min)).to(count_dtype)     # the unary field
+    before = torch.where(
+        start > 0, torch.gather(zeros, -1, torch.clamp_min(start - 1, 0)),
+        0)
+    tgt = (_arange(k_cap, words, count_dtype) + 1 + before).contiguous()
+    zpos = torch.searchsorted(zeros, tgt, side="left", out_int32=True)
+    del zeros, tgt
+    prev = torch.cat([start.to(I32) - 1, zpos[..., :-1]], -1)
+    q = zpos - prev - 1
+    del zpos, prev
+    gaps = ((q << r) | rem) + 1
+    del q, rem
     rows = gaps.numel() // max(1, k_cap)
     wide = rows * (d + k_cap) >= 2**31
     return (_cumsum_rows(gaps, torch.int64 if wide else I32) - 1).to(I32)

@@ -1,7 +1,8 @@
 """Gradient synchronization, Algorithm 1 on ``torch.distributed`` (port of
-``repro.comm.sync``: ``SyncStats``, ``sync_tree``, the dense wire's
-``_sync_leaves_dense`` and the sync exchange ``_bucketed_sync`` on the
-gather wire, every static wire layout).
+``repro.comm.sync``: ``SyncStats``, ``sync_tree`` with the adaptive control
+loop, the dense wire's ``_sync_leaves_dense`` and the sync exchange
+``_bucketed_sync`` on the gather wire, every wire layout with the static
+and the data-fitted Golomb-Rice parameter, ``_apply_skip``).
 
 The dense wire (``cfg.wire == "dense"``, the default) compresses every
 leaf to Q(g) in dense layout (``repro_torch.core.api.compress_tree``) and
@@ -62,8 +63,26 @@ four bytes per element of the dense passthrough. The RICE term is a device
 tensor (no host sync per chunk), and the total is float64 so that it stays
 exact past 2^24 bytes.
 
-The overlapped exchange, the pod hierarchy, adaptive control and the
-data-fitted Rice parameter are ROADMAP.md queue A items 8 and 9.
+Wire-format v4 (``cfg.rice_fitted``): the kernels pack each RICE row at its
+data-fitted parameter, and its counts word carries ``(r << 26) | used``;
+the charge and the padding mask read the used field alone
+(``compaction.RICE_HDR_USED_MASK``).
+
+The adaptive control loop (``cfg.adaptive``, with a ``ControlState``):
+every leaf sends the difference ``g - delta_beta * last_sent``, and a leaf
+whose delta energy is at most ``skip_tau`` times its EMA bound is skipped:
+compressed like the others, then its q zeroed (dense wire) or its rows'
+values, words and counts zeroed (``_apply_skip``; the wire charges one
+sentinel word a row), and its whole target folded into the EF residual.
+The receiver closes the delta with ``delta_beta * last_avg``. As in the JAX
+package every decision is taken from the same targets on both wires, so
+they stay bit-equal. To save memory the port keeps the delta in the
+``last_sent`` tensors of the control it is given and writes the new
+``last_sent`` there after the exchange; the returned control holds those
+tensors, and its ``last_avg`` are the synced leaves.
+
+The overlapped exchange and the pod hierarchy are ROADMAP.md queue A item
+9.
 """
 from __future__ import annotations
 
@@ -76,7 +95,8 @@ from repro_torch.comm import compaction, wire_layout
 from repro_torch.core.api import (CompressionConfig, compress_tree,
                                   compress_tree_sparse)
 from repro_torch.core.grouping import chunk_spans
-from repro_torch.optim.optimizers import FeedbackState
+from repro_torch.kernels.sparsify import kernel as K
+from repro_torch.optim.optimizers import ControlState, FeedbackState
 
 F32 = torch.float32
 
@@ -93,7 +113,7 @@ class SyncStats:
     density: torch.Tensor           # realized nnz fraction
     var_ratio: torch.Tensor         # ||Q(g)||^2/||g||^2, the paper's `var`
     overflow: torch.Tensor          # survivors dropped by the fixed capacity
-    skipped: torch.Tensor           # leaves skipped (adaptive; 0 here)
+    skipped: torch.Tensor           # leaves skipped (adaptive only)
     layouts: tuple = ()             # (rows, d, k_cap, layout) per sparse
                                     # group, as stamped this step
 
@@ -312,7 +332,7 @@ def _bucketed_sync(items: list, leaves: list, group,
         packed: dict = {}
         for e in ids:
             sg = items[e][1]
-            lp = wire_layout.plan(sg)
+            lp = wire_layout.plan(sg, fitted=cfg.rice_fitted)
             packed[e] = (lp,) + wire_layout.pack(sg, lp)
             overflow = overflow + sg.overflow().sum()
         chunks = chunk_spans([(e, packed[e][0].layers, packed[e][0].d)
@@ -352,7 +372,10 @@ def _bucketed_sync(items: list, leaves: list, group,
                 counts = torch.cat(count_parts)
                 gcounts = _all_gather(counts, group)               # [m, R]
                 wire += counts.numel() * 4
-                used_words = used_words + counts.sum(dtype=torch.int64)
+                # a fitted count carries r above its used words
+                used_words = used_words + (
+                    counts & compaction.RICE_HDR_USED_MASK).sum(
+                        dtype=torch.int64)
             gvals = _all_gather(torch.cat(vals_parts), group)      # [m, V]
             gwidx = None
             if widx_parts:                   # phase two: the index words
@@ -386,9 +409,92 @@ def _bucketed_sync(items: list, leaves: list, group,
     return out, used_words * 4 + wire, overflow
 
 
+def _energy(t: torch.Tensor) -> torch.Tensor:
+    """``sum(t^2)`` of one leaf as a float32 0-d tensor: its float32 squares
+    summed in float64 and rounded once, by the ``stats`` kernel (kernel 7)
+    over the leaf as one row, which reads it once (on the CPU its plain
+    version). The JAX package sums in float32 in XLA's order, so the two
+    differ by rounding only."""
+    return K.stats(t.reshape(1, -1))[1][0]
+
+
+def _delta_and_skips(cfg: CompressionConfig, grads: list,
+                     control: ControlState):
+    """The adaptive pre-pass: the leaves to send (the delta ``g - beta *
+    last_sent``, written into the ``last_sent`` tensors; the gradients
+    themselves at ``delta_beta`` 0), each leaf's skip flag (a 0-d bool on
+    the device) and its new bound.
+
+    The bound is primed with the delta energy at step 0, else its EMA
+    ``decay * b + (1 - decay) * sq``, formed as XLA compiles it (one fused
+    multiply-add over the float32 product ``(1 - decay) * sq``; float64
+    here, then rounded). A leaf is skipped past step 0 when ``sq <= tau *
+    b`` (float32); never at tau 0 or below ``cfg.min_leaf_size``."""
+    beta = cfg.delta_beta
+    send = grads
+    if beta:
+        send = []
+        for g, s in zip(grads, control.last_sent):
+            if beta != 1.0:   # JAX rounds beta to the leaf dtype first
+                s.mul_(torch.full((), beta, dtype=s.dtype, device=s.device))
+            send.append(torch.sub(g, s, out=s))
+    warm = control.step > 0
+    dev = grads[0].device
+    decay = torch.tensor(cfg.bound_decay, dtype=F32).item()
+    c_sq = torch.full((), 1.0 - cfg.bound_decay, dtype=F32, device=dev)
+    tau = torch.full((), cfg.skip_tau, dtype=F32, device=dev)
+    flags, bounds = [], []
+    for t, b in zip(send, control.bound):
+        sq = _energy(t)
+        b32 = b.to(device=dev, dtype=F32).reshape(())
+        if warm:
+            bounds.append((b32.double() * decay
+                           + (c_sq * sq).double()).to(F32))
+        else:
+            bounds.append(sq)
+        if warm and cfg.skip_tau > 0.0 and t.numel() >= cfg.min_leaf_size:
+            flags.append(sq <= tau * b32)
+        else:
+            flags.append(torch.zeros((), dtype=torch.bool, device=dev))
+    return send, flags, bounds
+
+
+def _row_flags(members, flags: list) -> torch.Tensor:
+    """Per-leaf flags as one per-row mask of a group's ``[rows, ...]``
+    buffers (rows in member order; ``grouping.member_row_flags``)."""
+    return torch.cat([flags[i].reshape(1).expand(rows)
+                      for i, rows in members])
+
+
+def _apply_skip(cfg: CompressionConfig, items: list, flags: list):
+    """Communication skipping on the compressed buffers, in place: a skipped
+    leaf's rows ship zero values (exact zeros in the scatter-add, as the
+    dense wire's zeroed q in its mean) and, on RICE, zero words and a zero
+    counts word (the skip sentinel). Returns the bytes to refund from the
+    exchange's static charge (float64 on the device): a skipped RICE row
+    keeps only its counts word, any other row a 4-byte sentinel."""
+    scale_b = 4 if cfg.scheme().codec.has_scale else 0
+    savings = flags[0].new_zeros((), dtype=torch.float64)
+    for kind, sg, members in items:
+        if kind == "dense":                # tiny leaves never skip
+            continue
+        lp = wire_layout.plan(sg, fitted=cfg.rice_fitted)
+        mask = _row_flags(members, flags)
+        sg.values.masked_fill_(mask[:, None], 0)
+        per_row = lp.val_len * sg.values.element_size() + scale_b
+        if lp.layout == "rice":
+            sg.rice_words.masked_fill_(mask[:, None], 0)
+            sg.rice_used.masked_fill_(mask, 0)
+        else:
+            per_row += lp.idx_len * 4 - 4
+        savings += mask.sum(dtype=torch.float64) * per_row
+    return savings
+
+
 def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
               grads: list, *, group=None, stacked: list | None = None,
-              feedback: FeedbackState | list | None = None):
+              feedback: FeedbackState | list | None = None,
+              control: ControlState | None = None):
     """Compress this worker's gradient leaves and exchange them with the
     workers of ``group`` (the default process group when None).
 
@@ -397,10 +503,17 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
     draws this worker's uniforms: give every worker its own stream. With
     ``cfg.error_feedback`` the caller must pass ``feedback`` (a
     FeedbackState or a residual list); the residual is added before
-    compression and the new compression error comes back.
+    compression and the new compression error comes back. With
+    ``cfg.adaptive`` the caller must pass ``control`` too (a ControlState,
+    ``optimizers.init_control``): the leaves go out as deltas against its
+    ``last_sent``, leaves whose delta energy is under ``skip_tau`` times
+    their bound are skipped, and the synced leaves are closed with
+    ``delta_beta * last_avg``. The control's ``last_sent`` tensors are
+    overwritten (module docstring): use the returned control.
 
     Returns ``(synced, new_feedback, stats)``: the averaged leaves, the new
-    FeedbackState (None without error feedback) and SyncStats.
+    FeedbackState (None without error feedback) and SyncStats; with a
+    control, ``(synced, new_feedback, new_control, stats)``.
     """
     if isinstance(feedback, FeedbackState):
         residual = feedback.residual
@@ -411,28 +524,83 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
             "sync_tree: error_feedback=True requires the per-worker residual "
             "(feedback=FeedbackState(...)); refusing to silently drop the "
             "compression error.")
+    if cfg.adaptive and control is None:
+        raise ValueError(
+            "sync_tree: adaptive=True requires the control state (pass "
+            "control=ControlState(...), built with "
+            "repro_torch.optim.optimizers.init_control and carried through "
+            "the train step); delta transmission against an untracked "
+            "last-sent state would silently drop gradient mass.")
+    if control is not None and not cfg.adaptive:
+        raise ValueError(
+            "sync_tree: control state passed but cfg.adaptive=False: the "
+            "control loop would be a silent no-op. Set "
+            "CompressionConfig(adaptive=True, error_feedback=True) or drop "
+            "the control argument.")
     dev = grads[0].device
     zero = torch.zeros((), dtype=F32, device=dev)
+    send, flags = grads, None
+    if cfg.adaptive:
+        send, flags, bounds = _delta_and_skips(cfg, grads, control)
     if cfg.wire == "dense":
-        q, new_res, stats = compress_tree(cfg, generator, grads,
+        q, new_res, stats = compress_tree(cfg, generator, send,
                                           stacked=stacked, residual=residual)
+        if flags is not None:    # skipped leaves add exact zeros
+            for t, f in zip(q, flags):
+                t.masked_fill_(f, 0)
         synced, wire = _sync_leaves_dense(q, group)
         del q
         wire_t = torch.tensor(wire, dtype=torch.float64, device=dev)
         overflow, layouts = zero, ()
     else:
         items, new_res, stats = compress_tree_sparse(
-            cfg, generator, grads, stacked=stacked, residual=residual)
+            cfg, generator, send, stacked=stacked, residual=residual)
+        savings = _apply_skip(cfg, items, flags) if flags is not None \
+            else None
         synced, wire, overflow = _bucketed_sync(items, grads, group, cfg)
         wire_t = wire.to(torch.float64)
+        if savings is not None:
+            wire_t = wire_t - savings
         overflow = overflow.to(F32)
         layouts = tuple((sg.rows, sg.d, sg.k_cap, sg.layout)
                         for kind, sg, _ in items if kind == "sparse")
+        del items
+    new_control = None
+    if cfg.adaptive:
+        new_control = _close_control(cfg, grads, send, residual, new_res,
+                                     flags, bounds, synced, control)
     out_stats = SyncStats(
         bits=stats.bits, dense_bits=stats.dense_bits, wire_bytes=wire_t,
         wire_bytes_intra=wire_t, wire_bytes_inter=zero,
         density=stats.density, var_ratio=stats.var_ratio,
-        overflow=overflow, skipped=zero, layouts=layouts)
+        overflow=overflow,
+        skipped=(torch.stack(flags).sum(dtype=F32) if flags is not None
+                 else zero),
+        layouts=layouts)
     new_feedback = (FeedbackState(residual=new_res)
                     if cfg.error_feedback else None)
+    if control is not None:
+        return synced, new_feedback, new_control, out_stats
     return synced, new_feedback, out_stats
+
+
+def _close_control(cfg, grads, send, res_in, new_res, flags, bounds, synced,
+                   control: ControlState) -> ControlState:
+    """After the exchange, a leaf at a time and in place: a skipped leaf's
+    residual becomes its whole target ``send + r_in`` (its q was zero); the
+    synced leaves become ``beta * last_avg + synced``, the receiver's
+    closure of the delta; ``last_sent`` becomes ``S' = g + r_in - r_out``
+    (``beta * S + Q(target)``, one formula for sent and skipped leaves)."""
+    beta = cfg.delta_beta
+    for t, r, nr, f in zip(send, res_in, new_res, flags):
+        torch.where(f, t + r, nr, out=nr)
+    if beta:
+        for s, a in zip(synced, control.last_avg):
+            s.add_(a if beta == 1.0 else a * torch.full(
+                (), beta, dtype=a.dtype, device=a.device))
+    for g, r, nr, s in zip(grads, res_in, new_res, control.last_sent):
+        torch.add(g, r, out=s).sub_(nr)
+    return ControlState(
+        last_sent=control.last_sent,
+        last_avg=synced if beta else control.last_avg,
+        bound=bounds, step=control.step + 1)

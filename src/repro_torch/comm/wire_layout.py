@@ -1,5 +1,5 @@
 """Wire layouts for the bucketed sparse collectives (port of
-``repro.comm.wire_layout``, static-parameter layouts).
+``repro.comm.wire_layout``).
 
 Every ``SparseGrad`` group is stamped with a layout chosen from ``(k_cap,
 d)`` and the codec's wire width, and ``repro_torch.comm.sync`` packs and
@@ -16,8 +16,12 @@ unpacks each bucket accordingly:
 
 ``auto`` is the argmin of ``coding.realized_wire_bits`` over the four, with
 RICE at its worst-case capacity, so realized bytes only come in under the
-chosen bound. The data-fitted Rice parameter (wire-format v4) is ROADMAP.md
-queue A item 8.
+chosen bound. With ``plan(sg, fitted=True)`` a RICE group takes
+wire-format v4: each row's Golomb-Rice parameter is fitted to its gaps
+over the static window ``coding.rice_fit_window`` and rides the high bits
+of its counts word, ``(r << RICE_HDR_SHIFT) | used``; the payload capacity
+is the window's largest, and realized words never exceed the static
+parameter's (its r is in the window).
 """
 from __future__ import annotations
 
@@ -68,6 +72,8 @@ class LeafPlan:
     val_len: int             # value slots per row on the wire
     idx_len: int             # int32 index words per row on the wire
     rice_r: int = 0          # static Golomb-Rice parameter (rice only)
+    fitted: bool = False     # wire-format v4: a fitted parameter per row
+    rice_window: tuple = ()  # its candidates (fitted only)
 
     @property
     def block(self) -> int:
@@ -75,9 +81,12 @@ class LeafPlan:
         return self.layers * self.d
 
 
-def plan(sg) -> LeafPlan:
-    """The static wire plan of one SparseGrad, from its stamped layout."""
+def plan(sg, fitted: bool = False) -> LeafPlan:
+    """The static wire plan of one SparseGrad, from its stamped layout;
+    ``fitted`` puts a RICE group on wire-format v4 (the fitted capacity and
+    window)."""
     rice_r = 0
+    window: tuple = ()
     if sg.layout == "coo":
         val_len, idx_len = sg.k_cap, sg.k_cap
     elif sg.layout == "bitmap":
@@ -87,11 +96,16 @@ def plan(sg) -> LeafPlan:
     elif sg.layout == "rice":
         rice_r = coding.rice_parameter(sg.k_cap, sg.d)
         val_len = sg.k_cap
-        idx_len = compaction.rice_cap_words(sg.k_cap, sg.d, rice_r)
+        if fitted:
+            window = coding.rice_fit_window(sg.k_cap, sg.d)
+            idx_len = compaction.rice_fit_cap_words(sg.k_cap, sg.d, window)
+        else:
+            idx_len = compaction.rice_cap_words(sg.k_cap, sg.d, rice_r)
     else:
         raise ValueError(f"unknown wire layout {sg.layout!r}; have {LAYOUTS}")
     return LeafPlan(layout=sg.layout, layers=sg.rows, d=sg.d, k_cap=sg.k_cap,
-                    val_len=val_len, idx_len=idx_len, rice_r=rice_r)
+                    val_len=val_len, idx_len=idx_len, rice_r=rice_r,
+                    fitted=bool(window), rice_window=window)
 
 
 # Slots per index call of scatter_live: int64 coordinates and the values,
@@ -150,13 +164,20 @@ def pack(sg, lp: LeafPlan) -> tuple[torch.Tensor, torch.Tensor,
     [rows, idx_len], used word counts [rows])``. COO words are row-local
     coordinates (the bucket offsets them); bitmap and RICE words are opaque
     bits; the counts are the RICE rows' realized lengths (zeros for the
-    fixed layouts). RICE ships the words the kernel packed
-    (``sg.rice_words``) as they are; bitmap packs sort-free from ``nnz``,
-    since the port's counting compaction is coordinate-sorted."""
+    fixed layouts; under wire-format v4 the fitted headers). RICE ships
+    the words the kernel packed (``sg.rice_words``, in the plan's format)
+    as they are; bitmap packs sort-free from ``nnz``, since the port's
+    counting compaction is coordinate-sorted."""
     if lp.layout == "rice":
         if sg.rice_words is None:
             raise ValueError("a RICE group ships the words its kernel "
                              "packed; this SparseGrad has none")
+        if sg.rice_window != lp.rice_window:
+            raise ValueError(
+                f"the kernel packed this group's words over the Golomb-Rice "
+                f"window {sg.rice_window} (() = static), the plan ships "
+                f"{lp.rice_window}: compress and sync with one "
+                "CompressionConfig.rice_fitted")
         return sg.values, sg.rice_words, sg.rice_used
     zeros = torch.zeros(lp.layers, dtype=torch.int32, device=sg.idx.device)
     if lp.layout == "coo":
@@ -180,7 +201,9 @@ def unpack_gathered(lp: LeafPlan, decoded: torch.Tensor,
     ``decoded [m, layers * val_len]`` are the gathered values, ``widx [m,
     layers * idx_len]`` the index words (COO words arrive offset; None for
     dense), ``wcounts [m, layers]`` the phase-one counts of a RICE group:
-    padding words past each worker's count are zeroed before the decode.
+    padding words past each worker's used count (the counts' low
+    ``RICE_HDR_SHIFT`` bits) are zeroed before the decode, and a fitted
+    plan decodes each row once, at the r its header names.
     Dead RICE slots (zero value) point into ``[drop, drop + DROP_SLOTS)``,
     a scratch tail past the bucket that the caller discards (``index_add_``
     has no drop mode, and a boolean filter would sync with the host)."""
@@ -190,11 +213,17 @@ def unpack_gathered(lp: LeafPlan, decoded: torch.Tensor,
     if lp.layout == "rice":
         words = widx.reshape(m, lp.layers, lp.idx_len)
         if wcounts is not None:
+            # static counts have no header bits: the mask is the identity
+            used = wcounts & compaction.RICE_HDR_USED_MASK
             words = torch.where(
                 torch.arange(lp.idx_len, dtype=torch.int32,
-                             device=words.device) < wcounts[..., None],
+                             device=words.device) < used[..., None],
                 words, 0)
-        sidx = compaction.rice_decode(words, lp.k_cap, lp.d, lp.rice_r)
+        if lp.fitted:
+            sidx = compaction.rice_decode_fitted(words, lp.k_cap, lp.d,
+                                                 lp.rice_window, wcounts)
+        else:
+            sidx = compaction.rice_decode(words, lp.k_cap, lp.d, lp.rice_r)
         del words
         rows_off = (torch.arange(lp.layers, dtype=torch.int32,
                                  device=sidx.device) * lp.d)[None, :, None]

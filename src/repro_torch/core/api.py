@@ -1,7 +1,7 @@
 """Gradient compression over a model's ordered leaves (port of
 ``repro.core.api``: ``CompressionConfig``, ``TreeStats``, ``compress_leaf``,
-``compress_tree`` for the dense wire and ``compress_tree_sparse`` for the
-gather wire).
+``compress_tree`` for the dense wire, ``compress_tree_sparse`` for the
+gather wire and ``zeros_like_residual``).
 
 The paper sparsifies each layer independently (section 5.2): a leaf is one
 parameter tensor, and a layer-stacked leaf ``[L, ...]`` is L rows. The
@@ -34,10 +34,6 @@ UNPORTED_FIELDS = {
     "kernel_interpret": "queue A item 4 (ReferenceBackend)",
     "resparsify_pods": "queue A item 9",
     "overlap_bucket_bytes": "queue A item 9",
-    "adaptive": "queue A item 9 (with item 7's ControlState)",
-    "delta_beta": "queue A item 9",
-    "skip_tau": "queue A item 9",
-    "bound_decay": "queue A item 9",
     "xla_preset": "queue A item 13"}
 
 
@@ -61,19 +57,24 @@ class CompressionConfig:
     ``f32``, ``bf16``, ``qsgd<N>`` and ``ternary`` codecs; and on the sparse
     gather wire every selector but agspar and identity (which the JAX
     package runs on its reference backend: ROADMAP.md queue A item 4),
-    with every static wire layout (``auto``, ``coo``, ``bitmap``,
-    ``dense``, ``rice``); both with ``exchange="sync"``, with or without
-    error feedback. Every other value (the packed wire and the overlapped
-    exchange among them) raises NotImplementedError naming the ROADMAP.md
-    item that ports it; invalid values raise ValueError.
+    with every wire layout (``auto``, ``coo``, ``bitmap``, ``dense``,
+    ``rice``; with ``rice_fitted`` the data-fitted Golomb-Rice parameter
+    of wire-format v4); both with ``exchange="sync"``, with or without
+    error feedback, and with the adaptive control loop (``adaptive``,
+    which needs error feedback: delta coding against the last-sent state
+    with ``delta_beta``, skipping with ``skip_tau`` and the EMA bound's
+    ``bound_decay``; ``comm.sync.sync_tree``'s ``control``). Every other
+    value (the packed wire, the overlapped exchange and the pod stage's
+    ``resparsify_pods`` among them) raises NotImplementedError naming the
+    ROADMAP.md item that ports it; invalid values raise ValueError.
 
     The fields, their order and their defaults are the JAX package's, so
     ``CompressionConfig(**kwargs)`` takes any JAX config's keyword
     arguments. ``backend`` ``"auto"`` and ``"pallas"`` both select the
     port's CUDA kernel backend (the counterpart of the Pallas one);
-    ``"reference"`` and ``kernel_interpret`` (item 4), the pod, overlap
-    and adaptive-control settings (item 9) and ``xla_preset`` (item 13)
-    are refused at any value but their default.
+    ``"reference"`` and ``kernel_interpret`` (item 4), the pod and overlap
+    settings (item 9) and ``xla_preset`` (item 13) are refused at any value
+    but their default.
     """
     name: str = "gspar"              # selector[+codec] composition
     rho: float = 0.1                 # target density (gspar, unisp, topk)
@@ -97,11 +98,11 @@ class CompressionConfig:
     overlap_bucket_bytes: int = 1 << 20  # overlap's bucket cap (not ported)
     bucket_coord_cap: int = 2**31 - 1   # coords per sparse wire chunk
     xla_preset: str = "none"         # XLA comm preset (not ported)
-    adaptive: bool = False           # adaptive control (not ported): on,
+    adaptive: bool = False           # adaptive control loop (needs EF):
     delta_beta: float = 1.0          # last-sent EMA weight,
-    skip_tau: float = 0.0            # skip threshold,
+    skip_tau: float = 0.0            # skip threshold (0: never skip),
     bound_decay: float = 0.9         # energy-bound decay
-    rice_fitted: bool = False        # data-fitted Rice parameter (not ported)
+    rice_fitted: bool = False        # data-fitted Rice parameter (v4)
     density_gain: float = 1.0        # agspar's density fit:
     density_floor: float = 0.1       # gain and floor
 
@@ -120,9 +121,6 @@ class CompressionConfig:
         if self.wire_layout not in ("auto", "coo", "bitmap", "dense",
                                     "rice"):
             raise ValueError(f"unknown wire layout {self.wire_layout!r}")
-        if self.rice_fitted:
-            raise _not_ported("rice_fitted=True (wire-format v4)",
-                              "queue A item 8")
         if not 1 <= self.bucket_coord_cap <= 2**31 - 1:
             raise ValueError(f"bucket_coord_cap={self.bucket_coord_cap} is "
                              "outside the int32 coordinate space")
@@ -204,6 +202,12 @@ class CompressionConfig:
         parts.append("backend=kernel")
         if self.error_feedback:
             parts.append("ef")
+        if self.adaptive:
+            parts.append(f"adaptive(beta={self.delta_beta:g}"
+                         f" tau={self.skip_tau:g}"
+                         f" decay={self.bound_decay:g})")
+        if self.rice_fitted:
+            parts.append("rice_fitted")
         return " ".join(parts)
 
 
@@ -456,3 +460,8 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
 
     return items, (new_res if ef else None), _tree_stats(cfg, leaves, bits,
                                                          nnz, wvar)
+
+
+def zeros_like_residual(params: list) -> list:
+    """A zero residual, one tensor like each leaf."""
+    return [torch.zeros_like(p) for p in params]

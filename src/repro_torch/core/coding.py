@@ -14,7 +14,16 @@ words; its word geometry comes from the packer (``comm.compaction``).
 (Golomb-Rice delta coding of the sorted coordinate gaps,
 ``compaction.rice_encode``). ``rice_stream_bits`` and ``rice_stream_words``
 are numpy off-wire twins of the encoder: tests and ``chip_smoke.py``
-recompute realized bytes with them.
+recompute realized bytes with them. Wire-format v4 fits the parameter to
+the data over a static window (``rice_fit_window``,
+``rice_fitted_parameter``, ``rice_fitted_stream_words``: the twins of
+``compaction.rice_encode_fitted``).
+
+The off-wire estimators (``expected_coding_bits``, ``theorem4_bound_bits``,
+``qsgd_coding_bits``, ``elias_gamma_bits``, ``golomb_bits``,
+``delta_coded_index_bits``) measure what no wire ships: the paper's
+expected cost, its Theorem 4 bound, QSGD's cost model, and data-fitted
+Golomb / Elias-gamma codes of an index set.
 """
 from __future__ import annotations
 
@@ -49,6 +58,34 @@ def realized_coding_bits(n_sure: torch.Tensor, n_sampled: torch.Tensor,
     return (n_sure.to(torch.float32) * (b + logd)
             + hybrid_branch_bits(n_sampled.to(torch.float32), d, logd, 2.0)
             + b)
+
+
+def expected_coding_bits(p: torch.Tensor, b: int = 32) -> torch.Tensor:
+    """Expected message bits of one gradient under the hybrid coding, from
+    its keep probabilities ``p`` (section 5.1's cost model)::
+
+        sum_{p_i=1} (b + log2 d) + min(2d, log2 d * sum_{p_i<1} p_i) + b
+    """
+    p = p.reshape(-1).to(torch.float32)
+    d = p.shape[0]
+    logd = torch.log2(torch.tensor(float(d), dtype=torch.float32,
+                                   device=p.device))
+    sure = p >= 1.0
+    n_sure = sure.to(torch.float32).sum()
+    tail_mass = torch.where(sure, 0.0, p).sum()
+    return (n_sure * (b + logd)
+            + hybrid_branch_bits(tail_mass, d, logd, 2.0) + b)
+
+
+def theorem4_bound_bits(s: int, rho: float, d: int, b: int = 32) -> float:
+    """The Theorem 4 upper bound: s(b + log2 d) + min(rho*s*log2 d, 2d) + b."""
+    logd = math.log2(d)
+    return s * (b + logd) + min(rho * s * logd, 2.0 * d) + b
+
+
+def qsgd_coding_bits(d: int, bits: int) -> float:
+    """QSGD's cost model of the paper's figures 5-6: d * bits a message."""
+    return float(d) * bits
 
 
 def dense_coding_bits(d: int, b: int = 32) -> float:
@@ -124,6 +161,33 @@ def rice_stream_words(idx, k_cap: int, d: int, r: int | None = None) -> int:
     return -(-rice_stream_bits(idx, k_cap, d, r) // WORD_BITS)
 
 
+def rice_fit_window(k_cap: int, d: int) -> tuple[int, ...]:
+    """Candidate parameters of the data-fitted Golomb-Rice code (wire-format
+    v4): ``{r_s - 1, r_s, r_s + 1, r_s + 2}`` around the static
+    ``rice_parameter`` r_s, clipped to [0, RICE_MAX_R], deduplicated,
+    ascending. Part of the wire format: both sides derive it from ``(k_cap,
+    d)``, and only the choice travels, in the counts word's high bits.
+    Holding r_s, the fitted stream never exceeds the static one."""
+    r_s = rice_parameter(k_cap, d)
+    return tuple(sorted({min(RICE_MAX_R, max(0, r_s + off))
+                         for off in (-1, 0, 1, 2)}))
+
+
+def rice_fitted_parameter(idx, k_cap: int, d: int) -> int:
+    """The parameter the fitted encoder picks for one live index set: the
+    first minimum of the realized word counts over the window."""
+    window = rice_fit_window(k_cap, d)
+    words = [rice_stream_words(idx, k_cap, d, r) for r in window]
+    return window[words.index(min(words))]
+
+
+def rice_fitted_stream_words(idx, k_cap: int, d: int) -> int:
+    """Realized words of one row's fitted stream: the minimum over the
+    window, the used count of the fitted header."""
+    window = rice_fit_window(k_cap, d)
+    return min(rice_stream_words(idx, k_cap, d, r) for r in window)
+
+
 def realized_wire_bits(layout: str, k_cap: int, d: int,
                        value_bits: float) -> float:
     """Bits one row of a group puts on the collective under ``layout``;
@@ -146,3 +210,48 @@ def realized_wire_bits(layout: str, k_cap: int, d: int,
                 + float(rice_wire_words(k_cap, d) * WORD_BITS))
     raise ValueError(f"unknown wire layout {layout!r}; "
                      "have ('coo', 'bitmap', 'dense', 'rice')")
+
+
+def elias_gamma_bits(gaps) -> float:
+    """Total Elias-gamma code length of positive integers: 2 floor(log2 g)
+    + 1 bits each."""
+    g = np.asarray(gaps, dtype=np.int64).reshape(-1)
+    if g.size == 0:
+        return 0.0
+    if np.any(g < 1):
+        raise ValueError("Elias-gamma codes positive integers only")
+    return float(np.sum(2 * np.floor(np.log2(g)) + 1))
+
+
+def golomb_bits(gaps, m: int | None = None) -> float:
+    """Total Golomb code length of the gaps (coded as gap - 1 >= 0): a
+    unary quotient of q + 1 bits and a truncated-binary remainder. ``m``
+    None takes the geometric-optimal m ~= 0.69 mean(gap)."""
+    g = np.asarray(gaps, dtype=np.int64).reshape(-1)
+    if g.size == 0:
+        return 0.0
+    if np.any(g < 1):
+        raise ValueError("Golomb gaps must be positive")
+    if m is None:
+        m = max(1, int(round(0.69 * float(np.mean(g)))))
+    x = g - 1
+    q = x // m
+    r = x % m
+    b = max(1, math.ceil(math.log2(m))) if m > 1 else 0
+    if m == 1:
+        r_bits = np.zeros_like(r)
+    else:
+        cutoff = (1 << b) - m          # remainders below this take b - 1
+        r_bits = np.where(r < cutoff, b - 1, b)
+    return float(np.sum(q + 1 + r_bits))
+
+
+def delta_coded_index_bits(idx, d: int, method: str = "golomb") -> float:
+    """Entropy-coded size estimate of one message's index stream: its sorted
+    gaps under a data-fitted Golomb code or Elias-gamma."""
+    gaps = _index_gaps(idx, d)
+    if method == "golomb":
+        return golomb_bits(gaps)
+    if method == "elias":
+        return elias_gamma_bits(gaps)
+    raise ValueError(f"unknown method {method!r}; have ('golomb', 'elias')")

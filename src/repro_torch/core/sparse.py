@@ -61,7 +61,11 @@ class SparseGrad:
                                # [rows, cap_words] Golomb-Rice index words
                                # the kernel packed (rice layout only)
     rice_used: torch.Tensor | None = None
-                               # [rows] used words of rice_words
+                               # [rows] used words of rice_words (the
+                               # fitted header (r << 26) | used when
+                               # rice_window is set)
+    rice_window: tuple = ()    # wire-format v4: the candidate parameters
+                               # the words were fitted over (() static)
 
     @property
     def k_cap(self) -> int:
@@ -203,8 +207,9 @@ class KernelBackend:
         for topk) and the codec's ``u_cod [rows, k_cap]`` (stochastic codecs
         only)."""
         scheme = self._fused(cfg)
-        er, layout, s = self._emit(scheme, cfg, u, g, k_cap, False, u_cod)
-        return self._finish(scheme, g, er, layout, s)
+        er, layout, s, window = self._emit(scheme, cfg, u, g, k_cap, False,
+                                           u_cod)
+        return self._finish(scheme, g, er, layout, s, window)
 
     def compress_sparse_ef(self, cfg, u: torch.Tensor | None,
                            g: torch.Tensor, k_cap: int,
@@ -221,38 +226,43 @@ class KernelBackend:
         if scheme.codec.integer_coded:
             sg = self.compress_sparse(cfg, u, g, k_cap, u_cod)
             return sg, residual_from_buffers(g, sg)
-        er, layout, s = self._emit(scheme, cfg, u, g, k_cap, True, u_cod)
-        return self._finish(scheme, g, er, layout, s), er.residual
+        er, layout, s, window = self._emit(scheme, cfg, u, g, k_cap, True,
+                                           u_cod)
+        return self._finish(scheme, g, er, layout, s, window), er.residual
 
     def _emit(self, scheme, cfg, u, g, k_cap, ef: bool, u_cod):
         """Run the selector's emit pipeline on one ``[rows, d]`` group.
-        Returns the EmitResult, the wire layout and the selector's
-        accounting scalar per row (lambda for gspar, max|g| for bernoulli,
-        None otherwise)."""
+        Returns the EmitResult, the wire layout, the selector's accounting
+        scalar per row (lambda for gspar, max|g| for bernoulli, None
+        otherwise) and the fitted Golomb-Rice window (``cfg.rice_fitted``
+        on a RICE group; else ())."""
         sel, codec = scheme.selector, scheme.codec
         d = g.shape[1]
         # the layout is static in (k_cap, d, wire width), so it is decided
         # before the kernels: under RICE they pack the index words too
         layout = _choose_layout(cfg, codec, g.dtype, k_cap, d)
         rice_r = coding.rice_parameter(k_cap, d) if layout == "rice" else -1
-        kw = dict(k_cap=k_cap, codec=codec, rice_r=rice_r, ef=ef)
+        window = (coding.rice_fit_window(k_cap, d)
+                  if layout == "rice" and cfg.rice_fitted else ())
+        kw = dict(k_cap=k_cap, codec=codec, rice_r=rice_r, ef=ef,
+                  rice_window=window)
         if sel.name == "topk":
             return (ops.topk_emit(g, u_cod, k_target=sel.k_target(d), **kw),
-                    layout, None)
+                    layout, None, window)
         if sel.name == "gspar" and sel.algo == "greedy":
             er, lam = ops.gspar_emit(g, u, u_cod, rho=sel.rho,
                                      num_iters=sel.num_iters, **kw)
-            return er, layout, lam
+            return er, layout, lam, window
         if sel.name == "gspar":
             er, lam = ops.closed_emit(g, u, u_cod, eps=sel.eps, **kw)
-            return er, layout, lam
+            return er, layout, lam, window
         if sel.name == "unisp":
-            return ops.unisp_emit(g, u, u_cod, rho=sel.rho, **kw), layout, \
-                None
+            return (ops.unisp_emit(g, u, u_cod, rho=sel.rho, **kw), layout,
+                    None, window)
         er, mx = ops.bern_emit(g, u, u_cod, **kw)
-        return er, layout, mx
+        return er, layout, mx, window
 
-    def _finish(self, scheme, g, er, layout, s) -> SparseGrad:
+    def _finish(self, scheme, g, er, layout, s, window) -> SparseGrad:
         """Per-row accounting from the kernels' reductions and the compact
         buffers (``PallasBackend._finish``): the variance ratio over the
         decoded values, and the coding-model bits of
@@ -303,4 +313,4 @@ class KernelBackend:
                           p_sum=p_sum, bits=bits, var_ratio=var,
                           scale=er.scale, d=d, codec=codec.name,
                           layout=layout, rice_words=er.rice_words,
-                          rice_used=er.rice_used)
+                          rice_used=er.rice_used, rice_window=window)

@@ -10,7 +10,13 @@
 //   select_stats  <- select_stats_2d  (kernel.py:384)  pass 1 of the compaction
 //   compact_emit  <- compact_emit_2d  (kernel.py:559)  pass 2: compact write
 //   rice_pack     <- compact_emit_2d  (kernel.py:497-556, the rice_r >= 0
-//                    parts)  Golomb-Rice packing of the compact idx stream
+//                    parts)  Golomb-Rice packing of the compact idx stream;
+//                    its fitted variant packs each row at its own r
+//                    (wire-format v4: XLA's _rice_pack_gaps at the chosen
+//                    r, src/repro/comm/compaction.py:265)
+//   rice_fit      <- the candidate sweep and argmin of XLA's
+//                    rice_encode_fitted (src/repro/comm/compaction.py:300)
+//                    the data-fitted Golomb-Rice parameter per row
 //   stats         <- stats_2d         (kernel.py:239)  (sum|g|, sum g^2, max)
 //   sparsify      <- sparsify_2d      (kernel.py:96)   dense Q(g), wire dtype
 //   sparsify_ef   <- sparsify_ef_2d   (kernel.py:123)  Q(g) and g - Q(g)
@@ -18,7 +24,8 @@
 //   topk_threshold <- the lax.top_k of topk_emit (ops.py:268, outside
 //                    Pallas)  topk's threshold and tie budget per row
 //
-// The first five run the sparse gather wire, the next four the dense wire
+// The first six run the sparse gather wire (rice_fit and the fitted
+// rice_pack under wire-format v4), the next four the dense wire
 // (stats, tail_stats and sparsify or sparsify_ef) and ops.gspar_sparsify_prng;
 // topk_threshold gives the topk selector its per-row scalars.
 //
@@ -1175,6 +1182,12 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
 // adds one more write of them.
 // ptxas (-Xptxas -v, sm_90a, 6 blocks an SM): 40 registers, a 16-byte
 // stack frame (12 bytes of spill stores), 15 KB of shared memory.
+//
+// The fitted variant (kFitted, wire-format v4) reads each row's r from
+// r_rows (rice_fit's output) instead of one r for the group, packs into
+// the fitted capacity (the window's largest) and writes the header
+// (r << kHdrShift) | used in place of used. The static instantiation is
+// the kernel above, unchanged.
 // ---------------------------------------------------------------------------
 
 constexpr int kRiceItems = 16;                     // codes per thread
@@ -1185,6 +1198,7 @@ constexpr int kRiceWin = 256;                      // staged words per warp
 // a warp's staging buffer: its remainder words (r <= 30) or a unary window
 constexpr int kRiceBuf = 30 * kRiceItems > kRiceWin ? 30 * kRiceItems
                                                      : kRiceWin;
+constexpr int kHdrShift = 26;                      // fitted counts header
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kPrefix = 2ull << 32;
 
@@ -1243,13 +1257,16 @@ __device__ __forceinline__ unsigned span_bits(unsigned wi, unsigned lo,
   return upto & ~((1u << a) - 1u);
 }
 
+template <bool kFitted>
 __global__ void __launch_bounds__(kThreads, kRiceMinBlocks)
 rice_pack(const int* __restrict__ idx, const int* __restrict__ nnz,
-          int64_t k_cap, int r, int64_t nb, int64_t cap_words, int vec,
+          int64_t k_cap, int r_group, const int* __restrict__ r_rows,
+          int64_t nb, int64_t cap_words, int vec,
           unsigned long long* __restrict__ status,
           unsigned* __restrict__ words, int* __restrict__ used) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int64_t row = blockIdx.y;
+  const int r = kFitted ? r_rows[row] : r_group;
   unsigned long long* st = status + row * nb;   // the row's status words
   __shared__ unsigned long long sh_ticket;
   __shared__ int sh_warp[kWarps];
@@ -1357,8 +1374,10 @@ rice_pack(const int* __restrict__ idx, const int* __restrict__ nnz,
   }
   __syncthreads();
   const long long qbase = sh_base;     // quotients of the row's earlier blocks
-  if (b == nb - 1 && threadIdx.x == 0)
-    used[row] = (int)((k_cap * r + qbase + agg + k_cap + 31) / 32);
+  if (b == nb - 1 && threadIdx.x == 0) {
+    const int u = (int)((k_cap * r + qbase + agg + k_cap + 31) / 32);
+    used[row] = kFitted ? (r << kHdrShift) | u : u;
+  }
   if (!live) return;
 
   // The unary span of this warp's live codes, in bits from the word `ws`
@@ -1410,6 +1429,102 @@ rice_pack(const int* __restrict__ idx, const int* __restrict__ nnz,
     }
     __syncwarp();
   }
+}
+
+// ---------------------------------------------------------------------------
+// rice_fit: the data-fitted Golomb-Rice parameter of each row (wire-format
+// v4), from pass 2's ascending idx[rows, k_cap] and pass 1's nnz. It
+// replaces the candidate sweep and argmin of XLA's rice_encode_fitted
+// (src/repro/comm/compaction.py:300-324), which packs the row at every r of
+// the window and keeps the shortest stream. Only the used word counts
+// decide, and candidate r's count is ceil((k_cap r + S_r + k_cap) / 32) with
+// S_r = sum over live codes of (gap - 1) >> r (dead codes code 0): one
+// number per candidate. So each block reads kRiceTile codes of a row's
+// live prefix once (kRiceItems consecutive codes a thread and the code
+// before them, as rice_pack reads them), reduces S_r for every candidate
+// (at most kFitMax) in int64, and adds it to the row's accumulator with one
+// atomicAdd per candidate (integer adds, so the order of the blocks does
+// not matter); blocks past the live prefix read nothing. A one-thread-a-row
+// finish forms the counts, takes the first minimum over the ascending
+// window and writes r and the header (r << kHdrShift) | used, which the
+// fitted rice_pack then packs at. Bound: one read of each row's live idx
+// prefix (4 B per live code); the accumulators and outputs are 40 B a row.
+// ---------------------------------------------------------------------------
+
+constexpr int kFitMax = 4;                         // candidates of a window
+
+__global__ void __launch_bounds__(kThreads)
+rice_fit_tiles(const int* __restrict__ idx, const int* __restrict__ nnz,
+               int64_t k_cap, int4 window, int vec,
+               unsigned long long* __restrict__ acc) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t row = blockIdx.y, b = blockIdx.x;
+  const int64_t nl = nnz[row];
+  const int64_t n_live = nl < k_cap ? nl : k_cap;
+  if (b * kRiceTile >= n_live) return;    // the whole block is dead codes
+  const int* irow = idx + row * k_cap;
+  const int64_t c0 = b * kRiceTile + threadIdx.x * kRiceItems;
+  const int nk = c0 >= n_live ? 0 : (n_live - c0 < kRiceItems
+                                     ? (int)(n_live - c0) : kRiceItems);
+  int x[kRiceItems];
+  if (vec && nk == kRiceItems) {
+#pragma unroll
+    for (int v = 0; v < kRiceItems / 4; ++v) {
+      const int4 q = *reinterpret_cast<const int4*>(irow + c0 + 4 * v);
+      x[4 * v] = q.x; x[4 * v + 1] = q.y; x[4 * v + 2] = q.z;
+      x[4 * v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) x[k] = k < nk ? irow[c0 + k] : 0;
+  }
+  const int rs[kFitMax] = {window.x, window.y, window.z, window.w};
+  long long sum[kFitMax] = {0, 0, 0, 0};
+  int prev = c0 > 0 && nk > 0 ? irow[c0 - 1] : -1;
+#pragma unroll
+  for (int k = 0; k < kRiceItems; ++k) {
+    if (k < nk) {
+      const int gap1 = x[k] - prev - 1;
+      prev = x[k];
+#pragma unroll
+      for (int c = 0; c < kFitMax; ++c) sum[c] += gap1 >> rs[c];
+    }
+  }
+  __shared__ long long sh[kWarps][kFitMax];
+#pragma unroll
+  for (int c = 0; c < kFitMax; ++c) {
+    const long long v = warp_allsum(sum[c]);
+    if (lane == 0) sh[w][c] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < kFitMax) {
+    long long t = 0;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) t += sh[j][threadIdx.x];
+    if (t) atomicAdd(acc + row * kFitMax + threadIdx.x,
+                     (unsigned long long)t);
+  }
+}
+
+__global__ void rice_fit_finish(const unsigned long long* __restrict__ acc,
+                                int64_t rows, int64_t k_cap, int nw,
+                                int4 window, int* __restrict__ r_out,
+                                int* __restrict__ header) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const int rs[kFitMax] = {window.x, window.y, window.z, window.w};
+  long long best = -1;
+  int best_r = rs[0];
+  for (int c = 0; c < nw; ++c) {    // the first minimum: strict <
+    const long long u = (k_cap * rs[c] + (long long)acc[row * kFitMax + c]
+                         + k_cap + 31) / 32;
+    if (best < 0 || u < best) {
+      best = u;
+      best_r = rs[c];
+    }
+  }
+  r_out[row] = best_r;
+  header[row] = (best_r << kHdrShift) | (int)best;
 }
 
 // ---------------------------------------------------------------------------
@@ -2114,9 +2229,12 @@ int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
 // look-back status words, then a ticket counter per row) and words: both
 // zeroed here before the launch; vec: 16-byte idx loads (aligned base,
 // k_cap % 4 == 0).
+// r_rows null: every row at r (the static format); else row i at r_rows[i],
+// and `used` takes the fitted header (r_rows[i] << 26) | used.
 int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
-                    long long k_cap, int r, long long cap_words, int vec,
-                    void* status, void* words, void* used, void* stream) {
+                    long long k_cap, int r, const void* r_rows,
+                    long long cap_words, int vec, void* status, void* words,
+                    void* used, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
   const int64_t sbytes = rows * (nb + 1) * 8, wbytes = rows * cap_words * 4;
@@ -2127,10 +2245,39 @@ int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
     cudaMemsetAsync(words, 0, wbytes, st);
   }
   dim3 grid(grid_x(nb), (unsigned)rows);
+  if (rows * nb > 0 && r_rows == nullptr)
+    rice_pack<false><<<grid, kThreads, 0, st>>>(
+        (const int*)idx, (const int*)nnz, k_cap, r, nullptr, nb, cap_words,
+        vec, (unsigned long long*)status, (unsigned*)words, (int*)used);
+  else if (rows * nb > 0)
+    rice_pack<true><<<grid, kThreads, 0, st>>>(
+        (const int*)idx, (const int*)nnz, k_cap, 0, (const int*)r_rows, nb,
+        cap_words, vec, (unsigned long long*)status, (unsigned*)words,
+        (int*)used);
+  return (int)cudaGetLastError();
+}
+
+// The fitted parameter of each row: window r0..r{nw-1} ascending (nw <= 4);
+// acc: rows x 4 uint64 scratch (zeroed here); r_out, header: int32 [rows].
+int gspar_rice_fit(const void* idx, const void* nnz, long long rows,
+                   long long k_cap, int nw, int r0, int r1, int r2, int r3,
+                   int vec, void* acc, void* r_out, void* header,
+                   void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nw < 1 || nw > kFitMax) return (int)cudaErrorInvalidValue;
+  const int4 window = make_int4(r0, r1, r2, r3);
+  const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
+  cudaMemsetAsync(acc, 0, rows * kFitMax * 8, st);
+  dim3 grid(grid_x(nb), (unsigned)rows);
   if (rows * nb > 0)
-    rice_pack<<<grid, kThreads, 0, st>>>(
-        (const int*)idx, (const int*)nnz, k_cap, r, nb, cap_words, vec,
-        (unsigned long long*)status, (unsigned*)words, (int*)used);
+    rice_fit_tiles<<<grid, kThreads, 0, st>>>(
+        (const int*)idx, (const int*)nnz, k_cap, window, vec,
+        (unsigned long long*)acc);
+  if (rows > 0)
+    rice_fit_finish<<<(unsigned)((rows + kThreads - 1) / kThreads),
+                      kThreads, 0, st>>>(
+        (const unsigned long long*)acc, rows, k_cap, nw, window,
+        (int*)r_out, (int*)header);
   return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ The kernels ported from the Pallas TPU kernels of
 docstring). The sparse emit path: the four passes of the two-pass emit,
 for every selector kind (``PKINDS``: gspar's lam, unisp's rho, bernoulli's
 bern, topk) and every value codec (f32, bf16, qsgd<N>, ternary), and the
-Golomb-Rice packing of the RICE wire layout, and topk's threshold and tie
-budget (``topk_threshold``). The dense wire: ``stats``, ``sparsify``,
+Golomb-Rice packing of the RICE wire layout (with the data-fitted
+parameter of wire-format v4: ``rice_fit`` and ``rice_pack_fitted``), and
+topk's threshold and tie budget (``topk_threshold``). The dense wire: ``stats``, ``sparsify``,
 ``sparsify_ef`` (every selector kind of ``DENSE_KINDS`` with every codec:
 the integer codecs' decoded levels from the scale that ``select_stats``
 gives with ``round_v``) and ``sparsify_prng``. Each wrapper takes
@@ -27,7 +28,7 @@ PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
 ``LAUNCHES[name]`` (and, for the compaction passes and the dense emit, to
 the variant's count): the launch counts a run can read back.
 
-What bounds each kernel on an H100 (3.35 TB/s of HBM): all ten are
+What bounds each kernel on an H100 (3.35 TB/s of HBM): all eleven are
 memory-bound streams over the group (or its compact buffer), so their bound
 is the bytes they must move over the memory rate; see each docstring and
 PERF.md.
@@ -43,15 +44,15 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.comm.compaction import rice_cap_words
+from repro_torch.comm.compaction import rice_cap_words, rice_fit_cap_words
 from repro_torch.kernels.sparsify import ref
 from repro_torch.kernels.sparsify.ref import SelectStats, Sparsified
 
 TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
 RICE_TILE = 4096      # codes per CUDA block; must equal kRiceTile in the .cu
 KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
-           "rice_pack", "stats", "sparsify", "sparsify_ef", "sparsify_prng",
-           "topk_threshold")
+           "rice_pack", "rice_fit", "stats", "sparsify", "sparsify_ef",
+           "sparsify_prng", "topk_threshold")
 # topk_threshold's radix-select rounds: the key bits each counts, from the
 # top (bf16: one round of 2^15 bins; f32: three of at most 2^11)
 TOPK_BITS = {torch.bfloat16: (15,), torch.float32: (11, 10, 10)}
@@ -88,7 +89,9 @@ _SIGNATURES = {
     "gspar_compact_emit": ((_P, _I, _P, _L, _L, _I, _I, _I, _I, _P, _P, _P,
                             _P, _P, _P, _L, _P, _I, _P, _P, _I, _P, _P,
                             ctypes.c_float, _I, _P), _I),
-    "gspar_rice_pack": ((_P, _P, _L, _L, _I, _L, _I) + (_P,) * 3 + (_P,), _I),
+    "gspar_rice_pack": ((_P, _P, _L, _L, _I, _P, _L, _I) + (_P,) * 3
+                        + (_P,), _I),
+    "gspar_rice_fit": ((_P, _P, _L, _L) + (_I,) * 6 + (_P,) * 3 + (_P,), _I),
     "gspar_stats": ((_P, _I, _L, _L, _I) + (_P,) * 6 + (_P,), _I),
     "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _I, _P, _P, _P, _P, _I,
                         ctypes.c_uint, _I, _P, _P, ctypes.c_float, _I, _P,
@@ -469,24 +472,62 @@ def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
     decoupled look-back over its blocks' quotient sums, blocks ordered by a
     ticket). Bound: one read of each row's live idx prefix (4 B per live
     code) and one write of the words."""
-    if idx.dim() != 2 or idx.dtype != torch.int32:
-        raise ValueError("rice_pack: idx must be an int32 [rows, k_cap] "
-                         "tensor")
-    if nnz.shape != idx.shape[:1] or nnz.dtype != torch.int32:
-        raise ValueError("rice_pack: nnz must be int32 [rows]")
     if not 0 <= r <= 30:
         raise ValueError(f"rice_pack: r={r} outside [0, 30]")
-    rows, k_cap = idx.shape
-    cap_words = rice_cap_words(k_cap, d, r)
-    if idx.device.type == "cpu":
+    if not _rice_on_card("rice_pack", idx, nnz):
         return ref.rice_pack_ref(idx, nnz, d, r)
-    if idx.device.type != "cuda" or nnz.device != idx.device:
-        raise ValueError(f"rice_pack: no kernel for devices {idx.device}, "
-                         f"{nnz.device}")
-    if not (idx.is_contiguous() and nnz.is_contiguous()):
-        raise ValueError("rice_pack: idx and nnz must be contiguous")
-    if rows > 65535 or k_cap >= 2**31:
-        raise ValueError(f"rice_pack: [{rows}, {k_cap}] exceeds the grid")
+    return _rice_pack(idx, nnz, r, None, rice_cap_words(idx.shape[1], d, r))
+
+
+def rice_pack_fitted(idx: torch.Tensor, nnz: torch.Tensor,
+                     r_rows: torch.Tensor, *, d: int,
+                     window: tuple[int, ...]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rice_pack`` with each row at its own parameter ``r_rows [rows]``
+    (int32 on the device, ``rice_fit``'s): ``(words [rows,
+    rice_fit_cap_words(k_cap, d, window)], header [rows])``, int32, ``header
+    = (r << 26) | used``, bit-equal to ``compaction.rice_encode_fitted``.
+    Replaces XLA's ``_rice_pack_gaps`` at the chosen r
+    (src/repro/comm/compaction.py:265, called from :321, where every
+    candidate of the window is packed); the same kernel as ``rice_pack``,
+    instantiated to read r per row and write the header. Counts as a
+    ``rice_pack`` launch and a ``rice_pack/fitted`` one. Bound: one read of
+    each row's live idx prefix and one write of the words."""
+    if r_rows.shape != idx.shape[:1] or r_rows.dtype != torch.int32:
+        raise ValueError("rice_pack_fitted: r_rows must be int32 [rows]")
+    cap_words = rice_fit_cap_words(idx.shape[1], d, window)
+    if not _rice_on_card("rice_pack_fitted", idx, nnz, r_rows):
+        return ref.rice_pack_fitted_ref(idx, nnz, r_rows, d, window)
+    return _rice_pack(idx, nnz, 0, r_rows, cap_words)
+
+
+def _rice_on_card(name: str, idx: torch.Tensor, nnz: torch.Tensor,
+                  *others: torch.Tensor) -> bool:
+    """The checks of the Golomb-Rice wrappers: True on the card (launch),
+    False on the CPU (the plain version); raises on what the kernels
+    cannot take."""
+    if idx.dim() != 2 or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: idx must be an int32 [rows, k_cap] "
+                         "tensor")
+    if nnz.shape != idx.shape[:1] or nnz.dtype != torch.int32:
+        raise ValueError(f"{name}: nnz must be int32 [rows]")
+    if idx.device.type == "cpu":
+        return False
+    if idx.device.type != "cuda" or any(t.device != idx.device
+                                        for t in (nnz,) + others):
+        raise ValueError(f"{name}: no kernel for devices {idx.device}, "
+                         f"{[str(t.device) for t in (nnz,) + others]}")
+    if not all(t.is_contiguous() for t in (idx, nnz) + others):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if idx.shape[0] > 65535 or idx.shape[1] >= 2**31:
+        raise ValueError(f"{name}: {list(idx.shape)} exceeds the grid")
+    return True
+
+
+def _rice_pack(idx: torch.Tensor, nnz: torch.Tensor, r: int,
+               r_rows: torch.Tensor | None, cap_words: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    rows, k_cap = idx.shape
     # one buffer: the blocks' look-back status words and a ticket counter
     # per row (int64, as int32 pairs), the words, used; the launcher zeroes
     # the status words and the words with one memset
@@ -497,9 +538,41 @@ def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
     used = buf[ns + rows * cap_words:]
     vec = int(idx.data_ptr() % 16 == 0 and k_cap % 4 == 0)
     _check(_lib().gspar_rice_pack(
-        _ptr(idx), _ptr(nnz), rows, k_cap, r, cap_words, vec, _ptr(buf),
-        _ptr(words), _ptr(used), _stream(idx)), "rice_pack")
+        _ptr(idx), _ptr(nnz), rows, k_cap, r, _ptr(r_rows), cap_words, vec,
+        _ptr(buf), _ptr(words), _ptr(used), _stream(idx)), "rice_pack",
+        None if r_rows is None else "fitted")
     return words, used
+
+
+def rice_fit(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
+             window: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The data-fitted Golomb-Rice parameter of each row of pass 2's compact
+    index stream (wire-format v4): ``(r [rows], header [rows])``, int32,
+    the first minimum of the used words over the ascending ``window``,
+    ``header = (r << 26) | used``; bit-equal to the choice of
+    ``compaction.rice_encode_fitted``. Replaces the candidate sweep and
+    argmin of XLA's ``rice_encode_fitted``
+    (src/repro/comm/compaction.py:300-324): one read of the live idx and
+    an int64 quotient sum per candidate (one launch of the block
+    reduction, one of the per-row finish, after a memset). Bound: one read
+    of each row's live idx prefix (4 B per live code)."""
+    if not 1 <= len(window) <= 4 or list(window) != sorted(set(window)) \
+            or not 0 <= window[0] <= window[-1] <= 30:
+        raise ValueError(f"rice_fit: window {window} is not 1-4 ascending "
+                         "parameters in [0, 30]")
+    on_card = _rice_on_card("rice_fit", idx, nnz)
+    rice_fit_cap_words(idx.shape[1], d, window)      # raises past 2^26
+    if not on_card:
+        return ref.rice_fit_ref(idx, nnz, d, window)
+    rows, k_cap = idx.shape
+    acc = torch.empty((rows, 4), dtype=torch.int64, device=idx.device)
+    out = torch.empty((2, rows), dtype=torch.int32, device=idx.device)
+    rs = tuple(window) + (window[-1],) * (4 - len(window))
+    vec = int(idx.data_ptr() % 16 == 0 and k_cap % 4 == 0)
+    _check(_lib().gspar_rice_fit(
+        _ptr(idx), _ptr(nnz), rows, k_cap, len(window), *rs, vec, _ptr(acc),
+        _ptr(out[0]), _ptr(out[1]), _stream(idx)), "rice_fit")
+    return out[0], out[1]
 
 
 def stats(g: torch.Tensor

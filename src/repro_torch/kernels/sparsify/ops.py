@@ -14,7 +14,8 @@ own per-row scalars (rho; max|g| from the stats pass; topk's threshold and
 tie budget from the radix-select kernel ``topk_threshold``). Pass 1
 reduces survivor counts and the codec scale statistics, pass 2 writes the
 wire buffers and, for the RICE wire layout (``rice_r >= 0``), a fifth
-kernel packs pass 2's index stream. Everything runs over one shape group
+kernel packs pass 2's index stream (under wire-format v4 ``rice_fit``
+first picks each row's parameter, and the packing takes it). Everything runs over one shape group
 ``[rows, d]`` with per-row scalars, so a group is one launch per kernel,
 and no scalar is read back to the host between the passes.
 
@@ -84,9 +85,9 @@ class EmitResult(NamedTuple):
     coordinate, padding slots idx 0 / value 0), ``nnz`` the survivors before
     the capacity cut, ``nonzeros`` the support, ``p_sum``/``den`` sum p and
     sum g^2, ``scale`` the codec scale, ``rice_words``/``rice_used`` the
-    Golomb-Rice index words and their used count (None unless ``rice_r >=
-    0``), ``residual`` the EF residual ``g - wire value`` (None without
-    EF)."""
+    Golomb-Rice index words and their used count (the fitted header under
+    wire-format v4; None unless ``rice_r >= 0``), ``residual`` the EF
+    residual ``g - wire value`` (None without EF)."""
     values: torch.Tensor
     idx: torch.Tensor
     nnz: torch.Tensor
@@ -106,11 +107,17 @@ def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor | None, s1: torch.Tensor,
               *, pkind: str, codec, k_cap: int, rice_r: int, ef: bool,
               s2: torch.Tensor | None = None,
               budget: torch.Tensor | None = None,
-              u_cod: torch.Tensor | None = None) -> EmitResult:
+              u_cod: torch.Tensor | None = None,
+              rice_window: tuple = ()) -> EmitResult:
     """Pass 1 select + reduce, the codec scale, pass 2 compact write, and
-    with ``rice_r >= 0`` the Golomb-Rice packing of the compact idx.
-    ``u2d`` are the selector's uniforms (None for topk), ``u_cod [rows,
-    k_cap]`` the codec's (stochastic codecs), taken at compact rank."""
+    with ``rice_r >= 0`` the Golomb-Rice packing of the compact idx: at
+    ``rice_r``, or with a ``rice_window`` (wire-format v4) at each row's
+    fitted parameter (``rice_fit``, then ``rice_pack_fitted``; ``rice_used``
+    is then the header ``(r << 26) | used``). The JAX package packs the
+    static stream and discards it under v4 (``sync._strip_prepack``); here
+    only the fitted one is packed. ``u2d`` are the selector's uniforms
+    (None for topk), ``u_cod [rows, k_cap]`` the codec's (stochastic
+    codecs), taken at compact rank."""
     kind = dict(pkind=pkind, s2=s2, budget=budget)
     sel = K.select_stats(g2d, u2d, s1, k_cap, **kind)
     scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
@@ -118,7 +125,12 @@ def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor | None, s1: torch.Tensor,
         g2d, u2d, s1, sel, k_cap=k_cap, codec=codec, ef=ef, scale=scale,
         u_cod=u_cod, **kind)
     words = used = None
-    if rice_r >= 0:
+    if rice_r >= 0 and rice_window:
+        r_rows, _ = K.rice_fit(idx, sel.nnz, d=g2d.shape[1],
+                               window=rice_window)
+        words, used = K.rice_pack_fitted(idx, sel.nnz, r_rows,
+                                         d=g2d.shape[1], window=rice_window)
+    elif rice_r >= 0:
         words, used = K.rice_pack(idx, sel.nnz, d=g2d.shape[1], r=rice_r)
     return EmitResult(vals, idx, sel.nnz, sel.nonzeros, sel.p_sum, sel.den,
                       scale, words, used, res)
@@ -133,7 +145,7 @@ def _group(g2d: torch.Tensor, name: str) -> None:
 def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor,
                u_cod: torch.Tensor | None = None, *, k_cap: int,
                rho: float = 0.1, num_iters: int = 2, codec=_F32,
-               rice_r: int = -1, ef: bool = False
+               rice_r: int = -1, ef: bool = False, rice_window: tuple = ()
                ) -> tuple[EmitResult, torch.Tensor]:
     """Algorithm 3 on a ``[rows, d]`` group: stats -> per-row lambda ->
     two-pass compact emit (and the RICE packing with ``rice_r >= 0``), with
@@ -144,7 +156,7 @@ def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor,
     lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
                         tail_fn=_kernel_tail_fn(g2d))
     er = _two_pass(g2d, u2d, lam, pkind="lam", codec=codec, k_cap=k_cap,
-                   rice_r=rice_r, ef=ef, u_cod=u_cod)
+                   rice_r=rice_r, ef=ef, u_cod=u_cod, rice_window=rice_window)
     return er, lam
 
 
@@ -159,39 +171,42 @@ def closed_lambda(g2d: torch.Tensor, eps: float) -> torch.Tensor:
 def closed_emit(g2d: torch.Tensor, u2d: torch.Tensor,
                 u_cod: torch.Tensor | None = None, *, k_cap: int,
                 eps: float = 0.1, codec=_F32, rice_r: int = -1,
-                ef: bool = False) -> tuple[EmitResult, torch.Tensor]:
+                ef: bool = False, rice_window: tuple = ()
+                ) -> tuple[EmitResult, torch.Tensor]:
     """Algorithm 2 on a ``[rows, d]`` group: the closed-form lambda per row
     (``sparsify.closed_form_lambda_rows``), then the same two-pass emit as
     the greedy path. Returns ``(EmitResult, lam)``."""
     _group(g2d, "closed_emit")
     lam = closed_lambda(g2d, eps)
     er = _two_pass(g2d, u2d, lam, pkind="lam", codec=codec, k_cap=k_cap,
-                   rice_r=rice_r, ef=ef, u_cod=u_cod)
+                   rice_r=rice_r, ef=ef, u_cod=u_cod, rice_window=rice_window)
     return er, lam
 
 
 def unisp_emit(g2d: torch.Tensor, u2d: torch.Tensor,
                u_cod: torch.Tensor | None = None, *, k_cap: int,
                rho: float = 0.1, codec=_F32, rice_r: int = -1,
-               ef: bool = False) -> EmitResult:
+               ef: bool = False, rice_window: tuple = ()) -> EmitResult:
     """UniSp, the paper's baseline: p = rho on the support."""
     _group(g2d, "unisp_emit")
     s1 = torch.tensor(rho, dtype=F32, device=g2d.device)
     return _two_pass(g2d, u2d, s1, pkind="rho", codec=codec, k_cap=k_cap,
-                     rice_r=rice_r, ef=ef, u_cod=u_cod)
+                     rice_r=rice_r, ef=ef, u_cod=u_cod,
+                     rice_window=rice_window)
 
 
 def bern_emit(g2d: torch.Tensor, u2d: torch.Tensor,
               u_cod: torch.Tensor | None = None, *, k_cap: int,
-              codec=_F32, rice_r: int = -1, ef: bool = False
-              ) -> tuple[EmitResult, torch.Tensor]:
+              codec=_F32, rice_r: int = -1, ef: bool = False,
+              rice_window: tuple = ()) -> tuple[EmitResult, torch.Tensor]:
     """Bernoulli selection (TernGrad's): p = |g| / max|g|, with max|g| from
     the stats kernel. Returns ``(EmitResult, max|g| per row)``."""
     _group(g2d, "bern_emit")
     _, mx = K.stats_l1max(g2d)
     zero = torch.zeros((), dtype=F32, device=g2d.device)
     er = _two_pass(g2d, u2d, zero, pkind="bern", codec=codec, k_cap=k_cap,
-                   rice_r=rice_r, ef=ef, s2=mx, u_cod=u_cod)
+                   rice_r=rice_r, ef=ef, s2=mx, u_cod=u_cod,
+                   rice_window=rice_window)
     return er, mx
 
 
@@ -208,7 +223,7 @@ def topk_threshold(g2d: torch.Tensor, k_target: int
 
 def topk_emit(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,
               k_cap: int, k_target: int, codec=_F32, rice_r: int = -1,
-              ef: bool = False) -> EmitResult:
+              ef: bool = False, rice_window: tuple = ()) -> EmitResult:
     """Deterministic top-k: keep |g| > t and the first ``budget``
     coordinates with |g| == t > 0 (``topk_threshold``), which is XLA
     top_k's lowest-index-first selection, as a counting compaction. Reads
@@ -216,7 +231,8 @@ def topk_emit(g2d: torch.Tensor, u_cod: torch.Tensor | None = None, *,
     _group(g2d, "topk_emit")
     t, budget = topk_threshold(g2d, k_target)
     return _two_pass(g2d, None, t, pkind="topk", codec=codec, k_cap=k_cap,
-                     rice_r=rice_r, ef=ef, budget=budget, u_cod=u_cod)
+                     rice_r=rice_r, ef=ef, budget=budget, u_cod=u_cod,
+                     rice_window=rice_window)
 
 
 def _leaf_row(g: torch.Tensor) -> torch.Tensor:

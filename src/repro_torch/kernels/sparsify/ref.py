@@ -293,6 +293,48 @@ def rice_pack_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
     return words, used
 
 
+def rice_fit_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
+                 window: tuple[int, ...]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The data-fitted Golomb-Rice parameter of each row's compact stream
+    (wire-format v4): the first minimum of the used words over the
+    ascending ``window``, row by row (``compaction.rice_fit_used``).
+    Returns ``(r [rows], header [rows])``, int32, ``header = (r << 26) |
+    used``."""
+    rows = idx.shape[0]
+    r_out = torch.empty(rows, dtype=torch.int32, device=idx.device)
+    header = torch.empty_like(r_out)
+    for row in range(rows):
+        _, sidx = compaction.coordinate_order(idx[row], idx[row], d,
+                                              nnz=nnz[row])
+        r_out[row], header[row] = compaction.rice_fit_used(
+            compaction._rice_gaps(sidx, d), window)
+    return r_out, header
+
+
+def rice_pack_fitted_ref(idx: torch.Tensor, nnz: torch.Tensor,
+                         r_rows: torch.Tensor, d: int,
+                         window: tuple[int, ...]
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rice_pack_ref`` with each row at its own parameter ``r_rows[row]``
+    into the fitted capacity ``compaction.rice_fit_cap_words``. Returns
+    ``(words [rows, cap], header [rows])``, int32, ``header = (r << 26) |
+    used``: with ``rice_fit_ref``'s r, ``compaction.rice_encode_fitted``'s
+    words and header bit for bit."""
+    rows, k_cap = idx.shape
+    cap = compaction.rice_fit_cap_words(k_cap, d, window)
+    words = torch.empty((rows, cap), dtype=torch.int32, device=idx.device)
+    header = torch.empty(rows, dtype=torch.int32, device=idx.device)
+    for row in range(rows):
+        r = int(r_rows[row])
+        _, sidx = compaction.coordinate_order(idx[row], idx[row], d,
+                                              nnz=nnz[row])
+        words[row], used = compaction._rice_pack_gaps(
+            compaction._rice_gaps(sidx, d), r, cap)
+        header[row] = (r << compaction.RICE_HDR_SHIFT) | int(used)
+    return words, header
+
+
 class Sparsified(NamedTuple):
     """Kernels 5, 6 and 8 on one ``[rows, d]`` group: the dense ``q`` in the
     wire dtype, with kernel 6 the EF residual ``g - float32(q)`` in g's

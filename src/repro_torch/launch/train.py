@@ -12,6 +12,10 @@ selector (``gspar``, ``agspar``, ``unisp``, ``topk``, ``bernoulli``,
 ``--wire gather`` sends the sparse compact buffers instead, for every
 selector but agspar and identity (with ``qsgd`` and ``none``), which the
 JAX package runs on its reference backend (ROADMAP.md queue A item 4).
+``--adaptive`` (with ``--error-feedback``) runs the adaptive control loop:
+delta coding (``--delta-beta``), skipping (``--skip-tau``, ``--bound-decay``);
+``--rice-fitted`` ships the data-fitted Golomb-Rice parameter (wire-format
+v4) on the RICE groups. Each logged step then prints ``skipped``.
 
 Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
@@ -98,6 +102,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["auto", "coo", "bitmap", "dense", "rice"])
     ap.add_argument("--exchange", default="sync", choices=["sync", "overlap"])
     ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="adaptive compression control loop (compressed "
+                         "mode, requires --error-feedback): per-step delta "
+                         "transmission against the last-sent state, "
+                         "LASG-style communication skipping, per-leaf EMA "
+                         "energy bounds")
+    ap.add_argument("--delta-beta", type=float, default=1.0,
+                    help="fraction of the last-sent EMA subtracted before "
+                         "compression (0 disables delta coding)")
+    ap.add_argument("--skip-tau", type=float, default=0.0,
+                    help="skip a leaf's exchange when its delta energy is "
+                         "<= tau * EMA bound (0 disables skipping)")
+    ap.add_argument("--bound-decay", type=float, default=0.9,
+                    help="EMA decay of the per-leaf skip bound")
+    ap.add_argument("--rice-fitted", action="store_true",
+                    help="data-fitted Golomb-Rice parameter per leaf, "
+                         "shipped in the counts-header word (rice layout)")
     ap.add_argument("--min-leaf-size", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -121,7 +142,12 @@ def main(argv=None) -> dict:
                              wire_layout=args.wire_layout,
                              exchange=args.exchange,
                              error_feedback=args.error_feedback,
-                             min_leaf_size=args.min_leaf_size)
+                             min_leaf_size=args.min_leaf_size,
+                             adaptive=args.adaptive,
+                             delta_beta=args.delta_beta,
+                             skip_tau=args.skip_tau,
+                             bound_decay=args.bound_decay,
+                             rice_fitted=args.rice_fitted)
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -149,6 +175,8 @@ def _train(args, cfg, comp, device) -> dict:
     opt = adam(args.lr) if args.optimizer == "adam" else sgd(args.lr)
     opt_state = opt.init(model.leaves())
     ef_state = init_feedback(model.leaves()) if comp.error_feedback else None
+    ctl_state = (step_lib.init_compressed_control(model, comp)
+                 if comp.adaptive else None)
     train_step = step_lib.make_compressed_train_step(model, comp, opt)
     # one data stream and one compression stream per worker
     data_gen = torch.Generator(device=device).manual_seed(
@@ -160,7 +188,10 @@ def _train(args, cfg, comp, device) -> dict:
     for step_i in range(args.steps):
         t0 = time.perf_counter()
         batch = token_batch(data_gen, cfg.vocab, args.batch, args.seq)
-        if ef_state is not None:
+        if ctl_state is not None:
+            opt_state, ef_state, ctl_state, metrics = train_step(
+                opt_state, ef_state, ctl_state, batch, comp_gen)
+        elif ef_state is not None:
             opt_state, ef_state, metrics = train_step(opt_state, ef_state,
                                                       batch, comp_gen)
         else:
@@ -177,7 +208,8 @@ def _train(args, cfg, comp, device) -> dict:
                   f"density {m['density']:.5f} var x{m['var_ratio']:.2f} "
                   f"msg_bits {m['bits']:.4g} wire_bytes {m['wire_bytes']:.0f} "
                   f"overflow {m['overflow']:.0f} "
-                  f"({step_seconds[-1]:.3f} s)", flush=True)
+                  + (f"skipped {m['skipped']:.1f} " if comp.adaptive else "")
+                  + f"({step_seconds[-1]:.3f} s)", flush=True)
     summary = {"metrics": history, "step_seconds": step_seconds,
                "params": n_params, "layouts": list(train_step.layouts)}
     if device.type == "cuda":

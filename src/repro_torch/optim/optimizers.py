@@ -56,10 +56,15 @@ def init_feedback(params: list) -> FeedbackState:
 @dataclasses.dataclass
 class ControlState:
     """The adaptive control loop's state (``CompressionConfig.adaptive``,
-    ROADMAP.md queue A item 9) of this worker: ``last_sent``, the EMA of
-    what its wire carried, and ``last_avg``, the EMA of the synced average,
-    each shaped like the leaves; ``bound``, one float32 energy scalar per
-    leaf; ``step``, the step count (0 primes the bound and never skips)."""
+    consumed by ``comm.sync.sync_tree``) of this worker: ``last_sent``, the
+    EMA of what its wire carried, and ``last_avg``, the EMA of the synced
+    average, each shaped like the leaves; ``bound``, one float32 energy
+    scalar per leaf, 0-d tensors on the leaves' device (read and written
+    there, no host sync); ``step``, the step count, a Python int that
+    ``sync_tree`` advances (0 primes the bound and never skips). The JAX
+    state stacks the workers' ``last_sent`` and ``bound`` on a leading
+    axis; here each worker process holds its own
+    (``models.convert.control_from_jax`` takes one worker's slice)."""
     last_sent: list
     last_avg: list
     bound: list

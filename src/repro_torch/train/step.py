@@ -1,12 +1,15 @@
 """The compressed train step, Algorithm 1 on a data-parallel process group
-(port of ``repro.train.step``: ``make_loss_fn`` and
-``make_compressed_train_step``).
+(port of ``repro.train.step``: ``make_loss_fn``,
+``init_compressed_control`` and ``make_compressed_train_step`` with its
+error-feedback and adaptive variants).
 
 Every worker process computes its local gradient, compresses it per leaf
 (the stacked leaves per layer) and exchanges the compressed messages with
 ``repro_torch.comm.sync.sync_tree``; every worker then applies the same
-averaged update, so the parameters stay replicated. The FSDP step, the pod
-hierarchy and the adaptive control state are ROADMAP.md queue A item 10.
+averaged update, so the parameters stay replicated. With
+``comp.adaptive`` the step also carries the control loop's
+``ControlState`` (``train_step_adaptive``'s shape). The FSDP step is
+ROADMAP.md queue A item 10, the pod hierarchy item 9.
 
 The step's step-size options are the JAX step's: ``var_adaptive_lr``
 divides the optimizer's step size by ``max(var, 1)`` (the paper's eta ~
@@ -24,7 +27,8 @@ import torch.distributed as dist
 from repro_torch.comm.sync import SyncStats, _worker_order_mean, sync_tree
 from repro_torch.core.api import CompressionConfig
 from repro_torch.models.transformer import ModelConfig, forward_train
-from repro_torch.optim.optimizers import (FeedbackState, Optimizer,
+from repro_torch.optim.optimizers import (ControlState, FeedbackState,
+                                          Optimizer, init_control,
                                           rescale_feedback)
 from repro_torch.train.loss import lm_loss, shift_targets
 
@@ -60,6 +64,14 @@ def _var_scale(var_ratio: torch.Tensor, group) -> torch.Tensor:
     return torch.clamp_min(v.reshape(()), 1.0)
 
 
+def init_compressed_control(model, comp: CompressionConfig) -> ControlState:
+    """Zero ControlState for the adaptive step of ``model`` (this worker's:
+    ``last_sent`` and ``last_avg`` like its leaves, one bound per leaf)."""
+    if not comp.adaptive:
+        raise ValueError("init_compressed_control with adaptive=False")
+    return init_control(model.leaves())
+
+
 def make_compressed_train_step(model, comp: CompressionConfig,
                                opt: Optimizer, group=None,
                                var_adaptive_lr: bool = False,
@@ -71,7 +83,11 @@ def make_compressed_train_step(model, comp: CompressionConfig,
     Without error feedback: ``step(opt_state, batch, generator) ->
     (opt_state, metrics)``. With ``comp.error_feedback``: ``step(opt_state,
     ef_state, batch, generator) -> (opt_state, ef_state, metrics)``, where
-    ``ef_state`` is this worker's FeedbackState. The model's parameters are
+    ``ef_state`` is this worker's FeedbackState. With ``comp.adaptive``:
+    ``step(opt_state, ef_state, ctl_state, batch, generator) ->
+    (opt_state, ef_state, ctl_state, metrics)``, ``ctl_state`` this
+    worker's ControlState (``init_compressed_control``; the one passed in
+    is spent: carry the returned one). The model's parameters are
     updated in place; ``generator`` draws this worker's compression
     uniforms. Metrics are float64 scalars on the model's device, averaged
     over the workers. After each call, ``step.layouts`` holds the ``(rows,
@@ -89,7 +105,7 @@ def make_compressed_train_step(model, comp: CompressionConfig,
     layouts: list = []          # a holder, so that no closure cycle keeps
                                 # the model alive after the step is dropped
 
-    def _step(opt_state, ef_state, batch, generator):
+    def _step(opt_state, ef_state, ctl_state, batch, generator):
         for p in params:
             p.grad = None
         loss = loss_fn(dict(model.params), batch)
@@ -102,10 +118,12 @@ def make_compressed_train_step(model, comp: CompressionConfig,
             lr_now = lr_schedule(t + 1)
             rescale_feedback(ef_state, lr_schedule(t) if t > 0 else lr_now,
                              lr_now)
-        synced, new_fb, stats = sync_tree(
-            comp, generator, grads, group=group, stacked=model.stacked,
-            feedback=ef_state)
-        del grads
+        out = sync_tree(comp, generator, grads, group=group,
+                        stacked=model.stacked, feedback=ef_state,
+                        control=ctl_state)
+        synced, new_fb, stats = out[0], out[1], out[-1]
+        new_ctl = out[2] if ctl_state is not None else None
+        del grads, out
         vals = _mean_over_workers(
             [loss.detach()] + [getattr(stats, f) for f in SyncStats.FIELDS],
             group)
@@ -115,14 +133,21 @@ def make_compressed_train_step(model, comp: CompressionConfig,
         _, opt_state = opt.update(synced, opt_state, params,
                                   var_scale=var_scale)
         layouts[:] = stats.layouts
-        return opt_state, new_fb, metrics
+        return opt_state, new_fb, new_ctl, metrics
 
-    if comp.error_feedback:
+    if comp.adaptive:
+        def step(opt_state, ef_state: FeedbackState, ctl_state: ControlState,
+                 batch, generator):
+            return _step(opt_state, ef_state, ctl_state, batch, generator)
+    elif comp.error_feedback:
         def step(opt_state, ef_state: FeedbackState, batch, generator):
-            return _step(opt_state, ef_state, batch, generator)
+            opt_state, ef_state, _, metrics = _step(opt_state, ef_state,
+                                                    None, batch, generator)
+            return opt_state, ef_state, metrics
     else:
         def step(opt_state, batch, generator):
-            opt_state, _, metrics = _step(opt_state, None, batch, generator)
+            opt_state, _, _, metrics = _step(opt_state, None, None, batch,
+                                             generator)
             return opt_state, metrics
     step.layouts = layouts
     return step

@@ -857,3 +857,98 @@ def test_step_size_options_card_match_cpu(card, dtype):
         out[dev] = [t.cpu() for t in res]
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k_cap,d", [
+    (8192, D), (1024, D),                  # the emit tests' capacities
+    (1000, 5000),                          # a window from r = 1
+    (77, 100_000),                         # a partial warp
+    (3 * 2048 + 5, 1 << 20)])              # several blocks, a ragged last
+def test_rice_fit_and_fitted_pack_match_plain_versions(card, k_cap, d):
+    """``rice_fit`` and the fitted ``rice_pack`` (wire-format v4) against
+    their plain versions on rows that are empty, partly full, full,
+    overflowing, a clustered front block and a single coordinate at d - 1:
+    r, headers and words bit-equal, and the words decode at each row's r to
+    the kept coordinates."""
+    from repro_torch.comm.compaction import rice_decode_fitted
+    from repro_torch.core.coding import rice_fit_window
+    window = rice_fit_window(k_cap, d)
+    nnz = [0, k_cap // 3, k_cap, k_cap + 50, k_cap // 2, 1]
+    idx = torch.zeros((len(nnz), k_cap), dtype=torch.int32, device="cuda")
+    for row, n in enumerate(nnz[:4]):
+        live = torch.randperm(d, generator=card, device="cuda")[:min(n, k_cap)]
+        idx[row, :live.numel()] = live.sort().values.to(torch.int32)
+    idx[4, :k_cap // 2] = torch.arange(k_cap // 2, dtype=torch.int32,
+                                       device="cuda") + d // 3
+    idx[5, 0] = d - 1
+    nnz = torch.tensor(nnz, dtype=torch.int32, device="cuda")
+    before = (K.LAUNCHES["rice_fit"], K.LAUNCHES.get("rice_pack/fitted", 0))
+    r, header = K.rice_fit(idx, nnz, d=d, window=window)
+    words, header2 = K.rice_pack_fitted(idx, nnz, r, d=d, window=window)
+    assert (K.LAUNCHES["rice_fit"], K.LAUNCHES["rice_pack/fitted"]) == (
+        before[0] + 1, before[1] + 1)
+    want_r, want_h = ref.rice_fit_ref(idx, nnz, d, window)
+    assert torch.equal(r, want_r) and torch.equal(header, want_h)
+    want_w, want_h2 = ref.rice_pack_fitted_ref(idx, nnz, want_r, d, window)
+    assert torch.equal(header2, want_h2) and torch.equal(header2, header)
+    assert torch.equal(words, want_w)
+    dec = rice_decode_fitted(words, k_cap, d, window, header)
+    for row in range(len(nnz)):
+        n = min(int(nnz[row]), k_cap)
+        assert torch.equal(dec[row, :n], idx[row, :n])
+
+
+def test_adaptive_step_card_matches_cpu(card):
+    """One adaptive ``sync_tree`` (deterministic top-k, EF, a mixed
+    skip/send step) on the card against the same step on the CPU, on the
+    gather wire's fitted RICE layout and on the dense wire: synced leaves,
+    residuals, ``last_sent``, wire bytes and ``skipped`` bit-equal, the
+    new bounds within rtol 1e-6 (float64 sums of the squares, taken in
+    another order)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.comm import sync
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.optim.optimizers import ControlState, FeedbackState
+    gen = torch.Generator().manual_seed(9)
+    shapes = [(4, 5000), (20_000,), (64,)]
+    stacked = [True, False, False]
+    g, r, s, la = ([torch.randn(sh, generator=gen) * sc for sh in shapes]
+                   for sc in (1.0, 0.1, 0.5, 0.5))
+    bounds = (1e30, 0.0, 0.0)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        for wire in ({"wire": "gather", "wire_layout": "rice",
+                      "rice_fitted": True}, {"wire": "dense"}):
+            cfg = CompressionConfig(
+                name="topk", rho=0.05, min_leaf_size=128, error_feedback=True,
+                adaptive=True, skip_tau=0.7, **wire)
+            out = {}
+            for dev, grp in (("cuda", None), ("cpu", cpu_group)):
+                def on(ts):
+                    return [t.to(dev, copy=True) for t in ts]
+                ctl = ControlState(
+                    last_sent=on(s), last_avg=on(la),
+                    bound=[torch.tensor(b, device=dev) for b in bounds],
+                    step=1)
+                synced, fb, nctl, st = sync.sync_tree(
+                    cfg, torch.Generator(device=dev), on(g), group=grp,
+                    stacked=stacked, feedback=FeedbackState(on(r)),
+                    control=ctl)
+                out[dev] = ([t.cpu() for t in synced + fb.residual
+                             + nctl.last_sent],
+                            [t.cpu() for t in nctl.bound],
+                            (float(st.wire_bytes), float(st.skipped)))
+            for a, b in zip(out["cuda"][0], out["cpu"][0]):
+                assert torch.equal(a, b)
+            for a, b in zip(out["cuda"][1], out["cpu"][1]):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+            assert out["cuda"][2] == out["cpu"][2]
+            assert out["cuda"][2][1] == 1.0
+    finally:
+        dist.destroy_process_group()

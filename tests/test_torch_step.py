@@ -425,8 +425,13 @@ def test_entry_points_run_on_the_card_unless_asked():
 _REFUSED_ITEM = {
     "name": "item 4", "backend": "item 4", "kernel_interpret": "item 4",
     "resparsify_pods": "item 9", "overlap_bucket_bytes": "item 9",
-    "adaptive": "item 9", "delta_beta": "item 9", "skip_tau": "item 9",
-    "bound_decay": "item 9", "xla_preset": "item 13"}
+    "xla_preset": "item 13"}
+# values the port refused until the adaptive control loop and wire-format
+# v4 were ported (queue A items 8 and 9): each constructs now
+_PORTED_SINCE = [
+    dict(rice_fitted=True), dict(rice_fitted=True, wire_layout="rice"),
+    dict(adaptive=True, error_feedback=True), dict(delta_beta=0.5),
+    dict(skip_tau=0.1), dict(bound_decay=0.5)]
 
 
 @pytest.mark.parametrize("kw", [
@@ -446,14 +451,23 @@ _REFUSED_ITEM = {
     dict(skip_tau=0.1), dict(bound_decay=0.5), dict(xla_preset="async"),
     dict(xla_preset="latency_hiding"), dict(xla_preset="overlap"),
     dict(name="agspar+bf16", wire="gather", error_feedback=True),
-    dict(name="identity+qsgd4", wire="gather", wire_layout="coo")])
+    dict(name="identity+qsgd4", wire="gather", wire_layout="coo"),
+    dict(adaptive=True, error_feedback=True, wire="packed"),
+    dict(adaptive=True, error_feedback=True, exchange="overlap"),
+    dict(rice_fitted=True, wire="packed")])
 def test_config_refuses_what_is_not_ported(kw):
     """Each value the JAX config takes but the port does not run raises
-    NotImplementedError naming its ROADMAP.md item: the nine fields the
-    port carries only at their defaults, and agspar and identity (with the
-    qsgd and none aliases) on the gather wire, which the JAX package runs
-    on its reference backend (item 4)."""
+    NotImplementedError naming its ROADMAP.md item: the five fields the
+    port carries only at their defaults, the packed wire and the overlap
+    exchange (with the adaptive loop too), and agspar and identity (with
+    the qsgd and none aliases) on the gather wire, which the JAX package
+    runs on its reference backend (item 4). The values ported since (the
+    adaptive loop's fields, ``rice_fitted``) construct, as in JAX."""
     JConfig(**kw)                                  # valid in the JAX package
+    if kw in _PORTED_SINCE:
+        cfg = TConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+        return
     item = _REFUSED_ITEM.get(next(iter(kw)), "")
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue A {item}" if item
