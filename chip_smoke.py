@@ -97,6 +97,28 @@ their plain versions on gspar's compact idx of every group, times them
 beside the static ``rice_pack`` and the fitted decode beside the static
 one, and times ``magnitude_hist`` (Algorithm 2's bins) alone.
 
+Last, the rest of the exchange and the reference backend
+(``exchange_phase``, three steps each at gemma-2b full width): (A) gspar
+``--wire gather --exchange overlap --error-feedback``, each step's synced
+leaves and bytes held bit for bit to ``_bucketed_sync`` on the same items
+(its buckets counted), and again under ``--adaptive --skip-tau 0.7
+--rice-fitted``; (B) ``--mesh 1x1x1 --wire gather --error-feedback``,
+the pod stage over groups of one: at step 0 each group's compaction
+(values, idx, nnz, Golomb-Rice words) bit-equal to its plain version on
+the pod-average rows and timed there beside ``torch.topk``, every step the
+drops equal to the synced leaves less the scatter of what the pod stage
+sent and ``wire_bytes_inter`` recomputed from its words on the host (at
+one worker: equal to ``wire_bytes_intra``, no drop), and again unchecked
+for its times and peak memory; (C) with ``--resparsify-pods`` (the pod
+residual carried, the second compression launched); (D) ``--wire
+packed`` held to gather ``gspar+bf16`` on the same gradients and
+generator state; (E) ``--backend reference``: gspar with EF, each group's
+buffers and residual held to the dense wire's on the same uniforms
+(``dense_group``), agspar with EF, and ``qsgd`` (identity+qsgd4, k_cap =
+d) at two layers. The kernel phase adds ``compaction.compact`` over dense
+rows at every group (bit-equal to its plain version, timed beside it and
+``torch.topk(|g|, k_cap)``) and pass 2's deterministic rounding.
+
 Each run checks finite losses, no overflow and every kernel variant of the
 path launched. Prints the card's name and power limit, one JSON line of
 per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
@@ -105,6 +127,7 @@ phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -837,6 +860,7 @@ def kernel_phase(groups) -> dict:
         del vals, idx, words, used, dense, coo_words, rst
         torch.cuda.empty_cache()
         variant_checks(tally, g, u, l1, mx, k_cap)
+        compaction_checks(tally, g, k_cap, first=gi == 0)
         dense_checks(tally, g, u, l1, mx, lam, PRNG_SEED + gi, prng)
         dense_variant_checks(tally, g, u, l1, mx, lam)
         closed_checks(tally, g, closed)
@@ -850,6 +874,66 @@ def kernel_phase(groups) -> dict:
     return {"tally": tally, "ms_no_ef": ms_no_ef, "decode_ms": decode_ms,
             "prng": prng, "memset_ms": memset_ms, "closed": closed,
             "fitted": fitted}
+
+
+def plain_compact(g, k_cap: int):
+    """``compaction.compact``'s plain version: the plain threshold, passes
+    1 and 2 of topk with the f32 codec."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ref
+    t, budget = ref.topk_threshold_ref(g, k_cap, K.TOPK_BITS[g.dtype])
+    st = ref.select_stats_ref(g, None, t, k_cap, K.TILE, pkind="topk",
+                              budget=budget)
+    vals, idx, _ = ref.compact_emit_ref(g, None, t, k_cap,
+                                        codecs.FloatCodec(), False,
+                                        pkind="topk", budget=budget)
+    return vals, idx, st.nonzeros
+
+
+def compaction_checks(tally: Tally, g, k_cap: int, first: bool) -> None:
+    """``compaction.compact`` (the pod stage's and the reference backend's
+    selection: ``topk_threshold`` at k_cap, then passes 1 and 2 of topk)
+    on one group of dense heavy-tailed rows, where the capacity really
+    cuts: values, idx and nnz bit-equal to the plain version, timed beside
+    it and beside ``torch.topk(|g|, k_cap)`` (the library call); and pass
+    2's deterministic rounding (``det_round``, the pod stage's integer
+    codecs) bit-equal to its plain version on the same threshold, budget
+    and scale, qsgd4 on every group and ternary on the first."""
+    from repro_torch.comm import compaction
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    rows, d = g.shape
+    vals, idx, nnz = compaction.compact(g, k_cap)
+    want = plain_compact(g, k_cap)
+    chk = tally.add(
+        "compaction.compact", cuda_ms(lambda: compaction.compact(g, k_cap)),
+        cuda_ms(lambda: plain_compact(g, k_cap), 1),
+        rows * d * g.element_size() + rows * k_cap * (g.element_size() + 4)
+        + rows * 4)
+    for what, a, b in zip(("values", "idx", "nnz"), (vals, idx, nnz), want):
+        chk.equal(f"compact {what}", a, b)
+    if not bool((nnz >= k_cap).all()):
+        raise AssertionError("the dense rows should overflow the capacity")
+    tally.library_ms["compaction.compact"] = tally.library_ms.get(
+        "compaction.compact", 0.0) + cuda_ms(lambda: topk_library_k(
+            g, k_cap), 3)
+    del vals, idx, nnz, want
+    t, budget = ops.topk_threshold(g, k_cap)
+    sel = K.select_stats(g, None, t, k_cap, pkind="topk", budget=budget)
+    for name in ("qsgd4",) + (("ternary",) if first else ()):
+        codec = codecs.get(name)
+        scale = codecs.finalize_scale(codec, sel.sum_sq, sel.max_abs)
+        got = K.compact_emit(g, None, t, sel, k_cap=k_cap, codec=codec,
+                             ef=False, pkind="topk", budget=budget,
+                             scale=scale, det_round=True)
+        want = ref.compact_emit_ref(g, None, t, k_cap, codec, False,
+                                    pkind="topk", budget=budget, scale=scale,
+                                    det_round=True)
+        for what, a, b in zip(("values", "idx"), got, want):
+            chk.equal(f"compact_emit det {name} {what}", a, b)
+        del got, want
+    del t, budget, sel
+    torch.cuda.empty_cache()
 
 
 def fitted_checks(tally: Tally, idx, nnz, d: int, used, n_live,
@@ -1962,8 +2046,9 @@ def adaptive_pass_ms() -> dict:
     flags = [torch.tensor(i % 2 == 0, device="cuda")
              for i in range(len(shapes))]
     synced = leaves()
-    out["close_ms"] = cuda_ms(lambda: sync._close_control(
-        comp, g, send, r, nr, flags, bounds, synced, ctl), 3)
+    out["close_ms"] = cuda_ms(lambda: (
+        sync._fold_skipped(send, r, nr, flags),
+        sync._close_control(comp, g, r, nr, bounds, synced, ctl)), 3)
     out["bytes_per_pass"] = sum(t.numel() for t in g) * 2
     del g, r, nr, a, ctl, send, synced
     torch.cuda.empty_cache()
@@ -1977,6 +2062,399 @@ def adaptive_phase() -> dict:
         torch.cuda.empty_cache()
         out[name] = adaptive_run(name)
     return out
+
+
+# --- the rest of the exchange (exchange_phase) ------------------------------
+
+EXCHANGE_ARGS = ["--arch", "gemma-2b", "--steps", "3", "--rho", str(RHO),
+                 "--log-every", "1"]
+COMPACT = ("topk_threshold", "select_stats/topk", "compact_emit/topk")
+REFERENCE = ("stats", "tail_stats", "sparsify/lam", "select_stats/lam",
+             "rice_pack") + COMPACT
+# name -> (extra launcher arguments, the check, the kernel variants the run
+# must launch)
+EXCHANGE_RUNS = {
+    "exchange_A": (["--wire", "gather", "--exchange", "overlap",
+                    "--error-feedback"], "overlap",
+                   GSPAR + ("compact_emit/lam", "rice_pack")),
+    "exchange_A_fitted": (["--wire", "gather", "--exchange", "overlap",
+                           "--error-feedback", "--adaptive", "--skip-tau",
+                           "0.7", "--rice-fitted"], "overlap",
+                          GSPAR + ("compact_emit/lam",) + ADAPTIVE_GATHER),
+    "exchange_B": (["--mesh", "1x1x1", "--wire", "gather",
+                    "--error-feedback"], "pods",
+                   GSPAR + ("compact_emit/lam", "rice_pack") + COMPACT),
+    "exchange_B_unchecked": (["--mesh", "1x1x1", "--wire", "gather",
+                              "--error-feedback"], None,
+                             GSPAR + ("compact_emit/lam", "rice_pack")
+                             + COMPACT),
+    "exchange_C": (["--mesh", "1x1x1", "--wire", "gather",
+                    "--resparsify-pods", "--error-feedback"], "resparsify",
+                   GSPAR + ("compact_emit/lam", "rice_pack")),
+    "exchange_D": (["--wire", "packed"], "packed",
+                   GSPAR + ("compact_emit/lam", "rice_pack")),
+    "exchange_E": (["--backend", "reference", "--wire", "gather",
+                    "--error-feedback"], "reference", REFERENCE),
+    "exchange_E_agspar": (["--backend", "reference", "--wire", "gather",
+                           "--error-feedback", "--compressor", "agspar"],
+                          None, REFERENCE),
+    # identity+qsgd4 at k_cap = d: two layers (at full depth its compact
+    # idx, 4 B a coordinate, and the codec's uniforms would not fit beside
+    # the model)
+    "exchange_E_qsgd": (["--backend", "reference", "--wire", "gather",
+                         "--compressor", "qsgd", "--num-periods", "2"],
+                        None, ("stats", "sparsify/one+qsgd4") + COMPACT),
+}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside the block (a check's or a timing's own) do
+    not count as the path's: the counts are restored after it."""
+    from repro_torch.kernels.sparsify import kernel as K
+    counts = dict(K.LAUNCHES)
+    try:
+        yield
+    finally:
+        K.LAUNCHES.clear()
+        K.LAUNCHES.update(counts)
+
+
+def _same(what: str, a: list, b: list) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: leaf {i} differs")
+
+
+def _live_scatter(sg, row: int) -> torch.Tensor:
+    """One row of a SparseGrad decoded and scattered (float32, ``d``)."""
+    from repro_torch.comm import compaction
+    n = int(min(int(sg.n_valid[row]), sg.k_cap))
+    return compaction.scatter(
+        decoded(sg.values[row, :n], sg.scale[row], sg.codec),
+        sg.idx[row, :n], sg.d)
+
+
+def overlap_check(real, record: list):
+    """Wrap ``sync._overlapped_sync``: run the sync exchange
+    (``_bucketed_sync``) on the same items after it and hold the synced
+    leaves and the wire bytes bit-equal; count the buckets (one int32 word
+    stream each, ``sync._issue_gather``)."""
+    from repro_torch.comm import sync
+
+    def checked(items, leaves, group, cfg):
+        streams: list = []
+        issue = sync._issue_gather
+
+        def counted(x, grp):
+            streams.append(x.dtype)
+            return issue(x, grp)
+        sync._issue_gather = counted
+        try:
+            out, wire, ovf = real(items, leaves, group, cfg)
+        finally:
+            sync._issue_gather = issue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with uncounted():
+            ref_out, ref_wire, ref_ovf = sync._bucketed_sync(items, leaves,
+                                                             group, cfg)
+        _same("overlap != sync", out, ref_out)
+        if int(wire) != int(ref_wire) or int(ovf) != int(ref_ovf):
+            raise AssertionError(f"overlap charged {int(wire)} B, sync "
+                                 f"{int(ref_wire)} B")
+        del ref_out
+        record.append({"buckets": sum(d == torch.int32 for d in streams),
+                       "streams": len(streams), "wire_bytes": int(wire),
+                       "check_s": time.perf_counter() - t0})
+        return out, wire, ovf
+    return checked
+
+
+def pod_checks(record: list, groups_timed: dict):
+    """Wrap ``sync._compact_items`` and ``sync._add_compaction_drops`` for
+    the pod stage without re-sparsification (run B): at the first step
+    each group's compaction (values, idx, nnz and the Golomb-Rice words)
+    bit-equal to its plain version on the same pod-average rows, and its
+    time there beside ``torch.topk``'s; every step the pod stage's bytes
+    recomputed from its words on the host (values + counts + 4 x used
+    words), and each leaf's drop (what the worker residual gains) equal to
+    the synced leaf less the scatter of what the pod sent, recomputed."""
+    from repro_torch.comm import sync
+    from repro_torch.core import codecs, coding
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    real_items, real_drops = sync._compact_items, sync._add_compaction_drops
+
+    def compact_items(cfg, leaves, stacked):
+        items = real_items(cfg, leaves, stacked)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = {"inter_want": 0, "nonzero_drops": 0, "max_abs_drop": 0.0}
+        first = not record
+        for kind, sg, members in items:
+            if kind != "sparse":         # tiny leaves: float32 (none here)
+                rec["inter_want"] += sg.numel() * 4
+                continue
+            n_live = torch.clamp_max(sg.nnz.long(), sg.k_cap).tolist()
+            rec["inter_want"] += (sg.rows * (sg.k_cap * sg.values
+                                             .element_size() + 4)
+                                  + 4 * rice_words_host(sg, n_live))
+            if not first:
+                continue
+            stack = torch.cat([leaves[i].reshape(rows, sg.d)
+                               for i, rows in members])
+            t, budget = ref.topk_threshold_ref(stack, sg.k_cap,
+                                               K.TOPK_BITS[stack.dtype])
+            st = ref.select_stats_ref(stack, None, t, sg.k_cap, K.TILE,
+                                      pkind="topk", budget=budget)
+            vals, idx, _ = ref.compact_emit_ref(
+                stack, None, t, sg.k_cap, codecs.FloatCodec(), False,
+                pkind="topk", budget=budget)
+            words, used = ref.rice_pack_ref(
+                idx, st.nnz, sg.d, coding.rice_parameter(sg.k_cap, sg.d))
+            for what, a, b in (("values", sg.values, vals), ("idx", sg.idx,
+                                                              idx),
+                               ("nnz", sg.nnz, st.nonzeros),
+                               ("words", sg.rice_words, words),
+                               ("used", sg.rice_used, used)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"pod compaction [{sg.rows}, "
+                                         f"{sg.d}] {what} != plain")
+            del vals, idx, words, used, st
+            key = (sg.rows, sg.d, sg.k_cap)
+            with uncounted():
+                groups_timed[key] = {
+                    "ms": cuda_ms(lambda: ops.magnitude_compact(
+                        stack, k_cap=sg.k_cap), 3),
+                    "library_ms": cuda_ms(lambda: topk_library_k(
+                        stack, sg.k_cap), 3)}
+            del stack
+        rec["check_s"] = time.perf_counter() - t0
+        record.append(rec)
+        return items
+
+    def drops(items, leaves, residual):
+        t0 = time.perf_counter()
+        for item in items:
+            kind, sg, members = item
+            if kind != "sparse":
+                continue
+            tmp = [None] * len(leaves)
+            for i, _ in members:
+                tmp[i] = torch.zeros_like(residual[i])
+            real_drops([item], leaves, tmp)
+            r0 = 0
+            for i, rows in members:
+                lv = leaves[i].reshape(rows, sg.d)
+                got = tmp[i].reshape(rows, sg.d)
+                for rr in range(rows):
+                    want = (lv[rr].float() - _live_scatter(sg, r0 + rr)).to(
+                        got.dtype)
+                    if not torch.equal(got[rr], want):
+                        raise AssertionError(f"leaf {i} row {rr}: drop != "
+                                             "synced - scatter(sent)")
+                    record[-1]["nonzero_drops"] += int((want != 0).sum())
+                    record[-1]["max_abs_drop"] = max(
+                        record[-1]["max_abs_drop"],
+                        float(want.float().abs().max()))
+                residual[i].add_(tmp[i])
+                r0 += rows
+            del tmp
+        record[-1]["check_s"] += time.perf_counter() - t0
+    return compact_items, drops, real_items, real_drops
+
+
+def topk_library_k(g: torch.Tensor, k: int):
+    """``compaction.compact``'s selection from ``torch.topk(|g|, k)`` (the
+    library yardstick, used nowhere in the port), in row batches of at
+    most TOPK_UNITS coordinates: values and indices, unsorted."""
+    rows, d = g.shape
+    step = max(1, TOPK_UNITS // d)
+    out = []
+    for a in range(0, rows, step):
+        out.append(torch.topk(g[a:a + step].abs(), k,
+                              sorted=False).indices)
+    return out
+
+
+def reference_check(real, record: list):
+    """Wrap ``ReferenceBackend.compress_sparse_ef`` (run E): each group's
+    buffers scattered, and the residual, bit-equal to the dense wire's Q
+    and residual (``dense_group`` with EF: kernel 6) on the same target
+    and uniforms: at one worker the gather wire's synced leaves are the
+    dense wire's."""
+    from repro_torch.core.sparse import dense_group
+
+    def checked(self, cfg, u, g, k_cap, u_cod=None):
+        sg, res = real(self, cfg, u, g, k_cap, u_cod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with uncounted():
+            r = dense_group(cfg.scheme(), u, g, True, u_cod=u_cod)
+        if not torch.equal(res, r.residual):
+            raise AssertionError("reference residual != the dense wire's")
+        for row in range(sg.rows):
+            if not torch.equal(_live_scatter(sg, row).to(r.q.dtype),
+                               r.q[row]):
+                raise AssertionError(f"row {row}: reference buffers != the "
+                                     "dense wire's Q")
+        del r
+        record.append(time.perf_counter() - t0)
+        return sg, res
+    return checked
+
+
+def packed_check(real, record: list):
+    """Wrap ``train.step.sync_tree`` (run D, no EF): after each packed
+    exchange, the gather wire with ``gspar+bf16`` on a copy of the same
+    gradients and the same generator state: synced leaves and wire bytes
+    bit-equal."""
+    from repro_torch.core.api import CompressionConfig
+
+    def checked(comp, generator, grads, **kw):
+        state = generator.get_state()
+        copy = [g.clone() for g in grads]
+        out = real(comp, generator, grads, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after = generator.get_state()
+        generator.set_state(state)
+        gather = CompressionConfig(name="gspar+bf16", rho=comp.rho,
+                                   wire="gather",
+                                   min_leaf_size=comp.min_leaf_size)
+        with uncounted():
+            want = real(gather, generator, copy, **kw)
+        generator.set_state(after)
+        _same("packed != gather gspar+bf16", out[0], want[0])
+        if float(out[-1].wire_bytes) != float(want[-1].wire_bytes):
+            raise AssertionError("packed and gather+bf16 bytes differ")
+        del copy, want
+        record.append(time.perf_counter() - t0)
+        return out
+    return checked
+
+
+def exchange_run(name: str, groups_timed: dict) -> dict:
+    """One launcher run of ``EXCHANGE_RUNS[name]`` (three steps, gemma-2b,
+    the kernel counts set to 0 just before it and read just after), with
+    its check."""
+    from repro_torch.comm import sync
+    from repro_torch.core import sparse
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.train import step as step_lib
+    extra, check, variants = EXCHANGE_RUNS[name]
+    record: list = []
+    pod: dict = {}
+    saved = (sync._overlapped_sync, sync._compact_items,
+             sync._add_compaction_drops, step_lib.sync_tree,
+             sparse.ReferenceBackend.compress_sparse_ef)
+    if check == "overlap":
+        sync._overlapped_sync = overlap_check(saved[0], record)
+    elif check == "pods":
+        sync._compact_items, sync._add_compaction_drops, *_ = pod_checks(
+            record, groups_timed)
+    elif check in ("resparsify", "packed"):
+        def captured(comp, generator, grads, feedback=None, **kw):
+            out = (packed_check(saved[3], record) if check == "packed"
+                   else saved[3])(comp, generator, grads, feedback=feedback,
+                                  **kw)
+            if check == "resparsify":
+                pr = out[1].pod_residual
+                record.append({"pod_residual_nonzero": sum(
+                    int((t != 0).sum()) for t in pr), "finite": all(
+                        bool(torch.isfinite(t).all()) for t in pr)})
+            return out
+        step_lib.sync_tree = captured
+    elif check == "reference":
+        sparse.ReferenceBackend.compress_sparse_ef = reference_check(
+            saved[4], record)
+    K.reset_launches()
+    try:
+        summary = train.main(EXCHANGE_ARGS + extra)
+    finally:
+        (sync._overlapped_sync, sync._compact_items,
+         sync._add_compaction_drops, step_lib.sync_tree,
+         sparse.ReferenceBackend.compress_sparse_ef) = saved
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    for v in variants:
+        if launches.get(v, 0) <= 0:
+            raise AssertionError(f"kernel {v} never launched on {name}")
+    # the reference backend forms its residual from the buffers: kernel 6
+    # (the dense wire's EF emit) is on none of its paths
+    if "reference" in extra and any(k.startswith("sparsify_ef")
+                                    for k in launches):
+        raise AssertionError(f"{name} launched kernel 6: {launches}")
+    ms = summary["metrics"]
+    for step, m in enumerate(ms):
+        if not math.isfinite(m["loss"]):
+            raise AssertionError(f"{name} step {step}: loss {m['loss']}")
+        if m["wire_bytes"] != m["wire_bytes_intra"] + m["wire_bytes_inter"]:
+            raise AssertionError(f"{name} step {step}: {m}")
+        if check in ("pods", "resparsify") and m["wire_bytes_inter"] <= 0:
+            raise AssertionError(f"{name} step {step}: no pod stage")
+    n_groups = len(main_path_groups())
+    if check == "pods" and launches.get("compact_emit/topk") != len(
+            ms) * n_groups:
+        raise AssertionError(f"{name}: {launches}")
+    if check == "pods":
+        for step, (m, rec) in enumerate(zip(ms, record)):
+            if m["wire_bytes_inter"] != rec["inter_want"]:
+                raise AssertionError(
+                    f"{name} step {step}: wire_bytes_inter "
+                    f"{m['wire_bytes_inter']} != {rec['inter_want']} from "
+                    "the words")
+            # one worker: the pod average holds at most k_cap nonzeros a
+            # row, so the compaction keeps them all and ships the worker's
+            # own words
+            if m["wire_bytes_inter"] != m["wire_bytes_intra"] or m[
+                    "overflow"] != 0 or rec["nonzero_drops"]:
+                raise AssertionError(f"{name} step {step}: intra "
+                                     f"{m['wire_bytes_intra']}, inter "
+                                     f"{m['wire_bytes_inter']}, {rec}")
+    if check == "resparsify":
+        if launches["stats_l1max"] != 2 * n_groups * len(ms) or not all(
+                r["finite"] and r["pod_residual_nonzero"] for r in record):
+            raise AssertionError(f"{name}: {launches}, {record}")
+    if check and len(record) < len(ms):
+        raise AssertionError(f"{name}: a step went unchecked")
+    steps = summary["step_seconds"]
+    per = len(record) // len(steps) if record else 0
+    check_s = [sum(r if isinstance(r, float) else r.get("check_s", 0.0)
+                   for r in record[i * per:(i + 1) * per])
+               for i in range(len(steps))]
+    net = [s - c for s, c in zip(steps, check_s)]
+    print(f"train {name} ({' '.join(extra)}"
+          f"{f', checked: {check}' if check else ''}): steps "
+          + ", ".join(f"{s:.4f} s" for s in steps)
+          + (" (less the checks: " + ", ".join(f"{s:.4f} s" for s in net)
+             + ")" if any(check_s) else "")
+          + "; wire_bytes intra " + ", ".join(
+              f"{m['wire_bytes_intra']:.0f}" for m in ms)
+          + " inter " + ", ".join(f"{m['wire_bytes_inter']:.0f}" for m in ms)
+          + "; overflow " + ", ".join(f"{m['overflow']:.0f}" for m in ms)
+          + "; loss " + ", ".join(f"{m['loss']:.4f}" for m in ms)
+          + (f"; buckets {[r['buckets'] for r in record]}"
+             if check == "overlap" else "")
+          + f"; max_memory_allocated {summary['max_memory_allocated']} B",
+          flush=True)
+    summary.update(launches=launches, checks=record, name=name,
+                   net_seconds=net)
+    return summary
+
+
+def exchange_phase() -> dict:
+    """Runs A-E of ``EXCHANGE_RUNS``: the overlapped exchange (A, and under
+    the adaptive loop with the fitted wire), the pod hierarchy at
+    ``--mesh 1x1x1`` without (B) and with (C) Algorithm 1's step 7, the
+    packed wire (D) and the reference backend (E); returns the runs and
+    the compaction's times on run B's pod-average rows."""
+    groups_timed: dict = {}
+    out = {}
+    for name in EXCHANGE_RUNS:
+        torch.cuda.empty_cache()
+        out[name] = exchange_run(name, groups_timed)
+    return {"runs": out, "pod_rows": groups_timed}
 
 
 # --- the paper's section-5 experiments (experiments_phase) -------------------
@@ -2294,6 +2772,7 @@ ENTRIES = {
                             "src/repro/core/sparsify.py:40"),
     "rice_fit": ("adaptive_A", "src/repro/comm/compaction.py:300"),
     "rice_pack/fitted": ("adaptive_A", "src/repro/comm/compaction.py:265"),
+    "compaction.compact": ("exchange_B", "src/repro/comm/compaction.py:64"),
 }
 # what each run of the dense wire and kernel 8 drives
 DENSE_PATHS = {
@@ -2308,7 +2787,9 @@ DENSE_PATHS.update({
     "experiments": "the section-5 experiments (convex run_sgd unisp and "
                    "qsgd: [4, 2048] float32)",
     "adaptive_A": "gspar --wire gather --error-feedback --adaptive "
-                  "--skip-tau 0.7 --rice-fitted"})
+                  "--skip-tau 0.7 --rice-fitted",
+    "exchange_B": "gspar --mesh 1x1x1 --wire gather --error-feedback (the "
+                  "pod stage's compaction)"})
 
 
 def ptxas_lines(log: str, kernels) -> list[str]:
@@ -2391,12 +2872,20 @@ def main() -> int:
     adaptive = adaptive_phase()
     print(json.dumps({"adaptive_passes": adaptive.pop("passes")}))
     runs.update(adaptive)
+    torch.cuda.empty_cache()
+    exchange = exchange_phase()
 
     tally = kp["tally"]
     kernels = []
     launches = {key: run["launches"] for key, run in runs.items()}
     launches["prng"] = {"sparsify_prng": kp["prng"]["launches"]}
     launches["experiments"] = exp["launches"]
+    for key, run in exchange["runs"].items():
+        launches[key] = run["launches"]
+    # the compaction launches its three kernels once a group: its count is
+    # its pass 2's, in run B (whose worker stage runs no topk)
+    launches["exchange_B"]["compaction.compact"] = launches[
+        "exchange_B"].get("compact_emit/topk", 0)
     for name, (run, line) in ENTRIES.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -2416,6 +2905,8 @@ def main() -> int:
                                    for run in var_lr.values()),
             "launches_adaptive": sum(run["launches"].get(name, 0)
                                      for run in adaptive.values()),
+            "launches_exchange": sum(run["launches"].get(name, 0)
+                                     for run in exchange["runs"].values()),
         })
     kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
         kp["ms_no_ef"]
@@ -2442,6 +2933,21 @@ def main() -> int:
         "used_words": kp["fitted"]["used_words"],
         "static_words": kp["fitted"]["static_words"]}}))
     print(json.dumps({"experiments": exp}))
+    for key, run in exchange["runs"].items():
+        print(json.dumps({key: {
+            "step_seconds": run["step_seconds"],
+            "net_seconds": run["net_seconds"],
+            "max_memory_allocated": run["max_memory_allocated"],
+            "wire_bytes_intra": [m["wire_bytes_intra"]
+                                 for m in run["metrics"]],
+            "wire_bytes_inter": [m["wire_bytes_inter"]
+                                 for m in run["metrics"]],
+            "loss": [m["loss"] for m in run["metrics"]],
+            "checks": run["checks"] if run["checks"] and isinstance(
+                run["checks"][0], dict) else len(run["checks"]),
+            "launches": run["launches"]}}))
+    print(json.dumps({"compaction_on_pod_rows": {
+        str(k): v for k, v in exchange["pod_rows"].items()}}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],
                       "closed_form_lambda_rows": dict(
                           eps=[CLOSED_EPS, CLOSED_GATHER_EPS],

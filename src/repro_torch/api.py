@@ -8,8 +8,11 @@ with the same ``__all__``)::
   standalone compressor zoo;
 - compress: ``compress_tree`` (dense-layout Q(g)) and
   ``compress_tree_sparse`` (fixed-capacity sparse buffers for the wire);
-- synchronize: ``sync_tree``, the sync entry point. Error feedback carries
-  a ``FeedbackState`` (``init_feedback``); the adaptive control loop
+- synchronize: ``sync_tree``, the sync entry point (the dense, gather
+  and packed wires, the sync and overlapped exchanges, the pod hierarchy
+  with ``pod_group``). Error feedback carries a ``FeedbackState``
+  (``init_feedback``; ``init_feedback(params, pod=True)`` adds the pod
+  stage's residual for ``resparsify_pods``); the adaptive control loop
   (``CompressionConfig.adaptive``: delta transmission, communication
   skipping, fitted Golomb-Rice parameters) a ``ControlState``
   (``init_control``); ``rescale_feedback`` corrects the residual under an

@@ -68,6 +68,50 @@ def capacity_for(d: int, rho: float, slack: float = 1.25) -> int:
     return min(d, max(128, k))
 
 
+def compact(q: torch.Tensor, k_cap: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pack the nonzeros of q into ``(values[k_cap], idx[k_cap], nnz)``:
+    the ``k_cap`` largest magnitudes, ties at the k_cap-th by lowest
+    coordinate (``lax.top_k``'s order), never a zero; ``nnz`` is the
+    nonzero count *before* the capacity cut (overflow is ``max(nnz - k_cap,
+    0)``). ``q`` is one vector or a ``[rows, d]`` group (then per row).
+    Unused slots hold idx 0 and value 0, so a scatter-add reconstructs q
+    less the overflow. The JAX package orders the buffer by descending
+    magnitude; here it ascends by coordinate (the counting compaction of
+    ``kernels.sparsify.ops.magnitude_compact``: on the card its hand
+    kernels, no sort), which its wire codecs sort into anyway (ROADMAP.md
+    C)."""
+    from repro_torch.kernels.sparsify import ops     # ops imports this
+    row = q.dim() == 1
+    c = ops.magnitude_compact(q.reshape(1, -1) if row else q.contiguous(),
+                              k_cap=k_cap)
+    if row:
+        return c.values[0], c.idx[0], c.nnz[0]
+    return c.values, c.idx, c.nnz
+
+
+def live_prefix(vals: torch.Tensor, idx: torch.Tensor, n_valid: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The nonzero-valued slots of each row's ascending prefix ``[0,
+    min(n_valid, k))`` moved to the front, in order: ``(values, idx,
+    live)`` with the other slots idx 0 and value 0 and ``live`` their
+    count (int32). This is ``coordinate_order``'s generic liveness rule
+    (a zero value is no slot) on a coordinate-sorted buffer, by one scan
+    and a scatter instead of a sort."""
+    k = vals.shape[-1]
+    keep = (_arange(k, idx) < torch.clamp_max(n_valid, k)[..., None]) \
+        & (vals != 0)
+    pos = torch.cumsum(keep, -1) - 1
+    pos = torch.where(keep, pos, k)                 # dropped: a scratch slot
+    shape = vals.shape[:-1] + (k + 1,)
+    out_v = torch.zeros(shape, dtype=vals.dtype, device=vals.device)
+    out_i = torch.zeros(shape, dtype=idx.dtype, device=idx.device)
+    out_v.scatter_(-1, pos, torch.where(keep, vals, 0))
+    out_i.scatter_(-1, pos, torch.where(keep, idx, 0))
+    return (out_v[..., :k].contiguous(), out_i[..., :k].contiguous(),
+            keep.sum(-1, dtype=I32))
+
+
 def scatter(vals: torch.Tensor, idx: torch.Tensor, d: int) -> torch.Tensor:
     """Dense reconstruction ``zeros(d)[idx] += vals`` (float32). Padding
     slots add exact zeros; live coordinates are unique per message."""

@@ -1,8 +1,10 @@
 """Gradient synchronization, Algorithm 1 on ``torch.distributed`` (port of
 ``repro.comm.sync``: ``SyncStats``, ``sync_tree`` with the adaptive control
-loop, the dense wire's ``_sync_leaves_dense`` and the sync exchange
-``_bucketed_sync`` on the gather wire, every wire layout with the static
-and the data-fitted Golomb-Rice parameter, ``_apply_skip``).
+loop and the pod hierarchy, the dense wire's ``_sync_leaves_dense``, the
+sparse wires' sync exchange ``_bucketed_sync`` and overlapped exchange
+``_overlapped_sync``, every wire layout with the static and the
+data-fitted Golomb-Rice parameter, ``_apply_skip``, the pod stage's
+``_compact_items`` and its drops).
 
 The dense wire (``cfg.wire == "dense"``, the default) compresses every
 leaf to Q(g) in dense layout (``repro_torch.core.api.compress_tree``) and
@@ -21,7 +23,8 @@ worker count, on gloo and on NCCL alike (an NCCL or gloo all-reduce sums
 in its own ring or chunk order, and at three workers moved a fifth of
 float32 sums by an ulp). At one worker the exchange issues no collective.
 
-On the gather wire (``cfg.wire == "gather"``) every worker compresses its
+On the sparse wires (``cfg.wire`` "gather", or "packed": gather with bf16
+values where the composition names no codec) every worker compresses its
 local gradient leaves into fixed-capacity
 ``SparseGrad`` buffers (``repro_torch.core.api.compress_tree_sparse``),
 each group stamped with a wire layout (``repro_torch.comm.wire_layout``);
@@ -81,8 +84,26 @@ they stay bit-equal. To save memory the port keeps the delta in the
 ``last_sent`` there after the exchange; the returned control holds those
 tensors, and its ``last_avg`` are the synced leaves.
 
-The overlapped exchange and the pod hierarchy are ROADMAP.md queue A item
-9.
+The overlapped exchange (``cfg.exchange == "overlap"``,
+``_overlapped_sync``) walks the groups in reverse and ships buckets of at
+most ``cfg.overlap_bucket_bytes``: one fused int32 word stream each
+(RICE counts, index words, 4-byte values and codec scales at offsets the
+plans fix) beside a companion stream of sub-word values; each bucket's
+all-gather is issued (``async_op=True``) as soon as the bucket is packed,
+so it travels while the next ones are packed, none is waited on before
+the last is issued, and the decode keeps the worker-major order, so it is
+bit-equal to the sync exchange and charges the same bytes.
+
+The pod hierarchy (``sync_tree``'s ``pod_group``): the exchange above
+runs within a pod (``group``), then a pod stage exchanges between the
+pods. The dense wire averages twice; the sparse wires compact each pod
+average to its capacity by magnitude (``_compact_items``: the hand
+kernels of topk, an integer codec rounded deterministically), whose drops
+join the worker residual under error feedback, or with
+``cfg.resparsify_pods`` (Algorithm 1's step 7) compress it again on the
+pod's generator, with error feedback on the pod's own residual.
+``SyncStats.wire_bytes_intra`` charges the first stage,
+``wire_bytes_inter`` the pod stage.
 """
 from __future__ import annotations
 
@@ -92,10 +113,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm import compaction, wire_layout
-from repro_torch.core.api import (CompressionConfig, compress_tree,
-                                  compress_tree_sparse)
-from repro_torch.core.grouping import chunk_spans
+from repro_torch.core.api import (CompressionConfig, _stack_group,
+                                  compress_tree, compress_tree_sparse)
+from repro_torch.core.grouping import chunk_spans, plan_tree
+from repro_torch.core.sparse import (SparseGrad, _plan_layout,
+                                     residual_from_buffers)
 from repro_torch.kernels.sparsify import kernel as K
+from repro_torch.kernels.sparsify import ops
 from repro_torch.optim.optimizers import ControlState, FeedbackState
 
 F32 = torch.float32
@@ -109,7 +133,7 @@ class SyncStats:
     wire_bytes: torch.Tensor        # bytes the collectives moved per worker
                                     # (float64: exact past 2^24)
     wire_bytes_intra: torch.Tensor  # ... in the data-parallel stage
-    wire_bytes_inter: torch.Tensor  # ... in an inter-pod stage (0 here)
+    wire_bytes_inter: torch.Tensor  # ... in the pod stage (0 without)
     density: torch.Tensor           # realized nnz fraction
     var_ratio: torch.Tensor         # ||Q(g)||^2/||g||^2, the paper's `var`
     overflow: torch.Tensor          # survivors dropped by the fixed capacity
@@ -122,13 +146,22 @@ class SyncStats:
               "skipped")
 
 
+def _issue_gather(x: torch.Tensor, group):
+    """Start the all-gather of ``x`` (1-D) over ``group`` as raw bytes
+    (gloo takes no bfloat16); returns ``(work, out [m, numel] in x's
+    dtype)``, valid once ``work.wait()`` returned."""
+    m = dist.get_world_size(group)
+    raw = x.contiguous().view(torch.uint8)
+    out = torch.empty(m * raw.numel(), dtype=torch.uint8, device=x.device)
+    work = dist.all_gather_into_tensor(out, raw, group=group, async_op=True)
+    return work, out.view(x.dtype).reshape(m, x.numel())
+
+
 def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     """``[m, *x.shape]``: every worker's ``x``, in rank order."""
-    m = dist.get_world_size(group)
-    raw = x.contiguous().view(torch.uint8).reshape(-1)
-    out = torch.empty(m * raw.numel(), dtype=torch.uint8, device=x.device)
-    dist.all_gather_into_tensor(out, raw, group=group)
-    return out.view(x.dtype).reshape((m,) + tuple(x.shape))
+    work, out = _issue_gather(x.reshape(-1), group)
+    work.wait()
+    return out.reshape((-1,) + tuple(x.shape))
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -288,6 +321,83 @@ def _sync_leaves_dense(q: list, group) -> tuple[list, float]:
     return synced, float(sum(t.numel() * t.element_size() for t in q))
 
 
+@dataclasses.dataclass
+class _Span:
+    """Rows ``[r0, r0 + lp.layers)`` of sparse group ``items[e]`` as both
+    exchanges ship them (``lp`` is the group's plan cut to those rows): the
+    RICE rows' word counts ``[n]`` (under wire-format v4 the fitted
+    headers), the index words ``[n * idx_len]`` (COO coordinates offset by
+    the rows' layer strides and the span's coordinate offset), the values
+    ``[n * val_len]`` in the wire dtype and the codec's float32 scales
+    ``[n]``."""
+    e: int
+    r0: int
+    lp: wire_layout.LeafPlan
+    counts: torch.Tensor | None
+    words: torch.Tensor | None
+    vals: torch.Tensor
+    scales: torch.Tensor | None
+
+    @classmethod
+    def cut(cls, e: int, sg: SparseGrad, packed: tuple, r0: int, n: int,
+            has_scale: bool, coord_off: int) -> "_Span":
+        """The span of ``wire_layout.pack``'s ``packed = (plan, values,
+        index words, counts)`` of ``sg``."""
+        lp0, v2d, w2d, nw = packed
+        lp = dataclasses.replace(lp0, layers=n)
+        words = None
+        if lp.idx_len:
+            words = w2d[r0:r0 + n]
+            if lp.layout == "coo":
+                words = words + ((torch.arange(n, dtype=torch.int32,
+                                               device=words.device) * lp.d)
+                                 [:, None] + coord_off)
+            words = words.reshape(-1)
+        return cls(e, r0, lp,
+                   counts=nw[r0:r0 + n] if lp.layout == "rice" else None,
+                   words=words, vals=v2d[r0:r0 + n].reshape(-1),
+                   scales=sg.scale[r0:r0 + n].to(F32) if has_scale else None)
+
+    def static_bytes(self) -> int:
+        """The charge the shapes fix: RICE counts (4 B a row; the used
+        words are ``used_words``) or the fixed layouts' index words, the
+        values at the wire dtype's width and 4 B a row for a scale."""
+        lp = self.lp
+        idx = lp.layers * (1 if lp.layout == "rice" else lp.idx_len)
+        return (4 * idx + self.vals.numel() * self.vals.element_size()
+                + (4 * lp.layers if self.scales is not None else 0))
+
+    def used_words(self) -> torch.Tensor:
+        """The RICE rows' realized words (a fitted header masked off)."""
+        return (self.counts & compaction.RICE_HDR_USED_MASK).sum(
+            dtype=torch.int64)
+
+
+def _coord_cap(cfg: CompressionConfig) -> int:
+    """Coordinates per chunk or bucket: room for the dead-slot scratch
+    tail inside the int32 coordinates."""
+    return min(cfg.bucket_coord_cap,
+               compaction.INT32_COORD_LIMIT - wire_layout.DROP_SLOTS)
+
+
+def _sync_dense_items(items: list, dense_ids: list, leaves: list, out: list,
+                      group) -> int:
+    """The tiny dense-passthrough leaves: one float32 all-reduce, the mean
+    written into ``out``; returns the bytes charged."""
+    if not dense_ids:
+        return 0
+    flat = torch.cat([items[e][1].reshape(-1).to(F32) for e in dense_ids])
+    dist.all_reduce(flat, group=group)
+    synced = _div_workers(flat, dist.get_world_size(group))
+    off = 0
+    for e in dense_ids:
+        for i, n in items[e][2]:
+            out[i] = synced[off:off + n].reshape(leaves[i].shape).to(
+                leaves[i].dtype)
+            off += n
+    return flat.numel() * 4
+
+
 def _bucketed_sync(items: list, leaves: list, group,
                    cfg: CompressionConfig):
     """Exchange all groups with one collective set per (kind, wire dtype)
@@ -296,7 +406,6 @@ def _bucketed_sync(items: list, leaves: list, group,
     m = dist.get_world_size(group)
     out: list = [None] * len(leaves)
     dev = leaves[0].device
-    wire = 0                        # bytes fixed by the static shapes
     used_words = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -307,28 +416,13 @@ def _bucketed_sync(items: list, leaves: list, group,
             dense_ids.append(e)
         else:
             sparse_groups.setdefault(payload.values.dtype, []).append(e)
+    # bytes fixed by the static shapes
+    wire = _sync_dense_items(items, dense_ids, leaves, out, group)
 
-    if dense_ids:
-        flat = torch.cat([items[e][1].reshape(-1).to(F32)
-                          for e in dense_ids])
-        dist.all_reduce(flat, group=group)
-        synced = _div_workers(flat, m)
-        off = 0
-        for e in dense_ids:
-            for i, n in items[e][2]:
-                leaf = leaves[i]
-                out[i] = synced[off:off + n].reshape(leaf.shape).to(
-                    leaf.dtype)
-                off += n
-        wire += flat.numel() * 4
-
-    # room for the dead-slot scratch tail inside the int32 coordinates
-    cap = min(cfg.bucket_coord_cap,
-              compaction.INT32_COORD_LIMIT - wire_layout.DROP_SLOTS)
+    cap = _coord_cap(cfg)
     codec = cfg.scheme().codec
     for wdt, ids in sorted(sparse_groups.items(),
                            key=lambda kv: _dtype_name(kv[0])):
-        itemsize = torch.empty((), dtype=wdt).element_size()
         packed: dict = {}
         for e in ids:
             sg = items[e][1]
@@ -339,74 +433,281 @@ def _bucketed_sync(items: list, leaves: list, group,
                               for e in ids], cap)
         pieces: dict = {}
         for chunk in chunks:
-            vals_parts, widx_parts, count_parts, plans = [], [], [], []
-            scale_parts = []
-            static_idx_words = coord_off = v_off = i_off = c_off = s_off = 0
+            spans: list = []
+            coord_off = 0
             for e, r0, n in chunk:
-                lp0, v2d, w2d, nw = packed[e]
-                lp = dataclasses.replace(lp0, layers=n)
-                w2 = w2d[r0:r0 + n]
-                if lp.layout == "coo":
-                    w2 = w2 + ((torch.arange(n, dtype=torch.int32,
-                                             device=dev) * lp.d)[:, None]
-                               + coord_off)
-                if lp.idx_len:
-                    widx_parts.append(w2.reshape(-1))
-                if lp.layout == "rice":
-                    count_parts.append(nw[r0:r0 + n])
-                else:
-                    static_idx_words += n * lp.idx_len
-                vals_parts.append(v2d[r0:r0 + n].reshape(-1))
-                if codec.has_scale:
-                    scale_parts.append(items[e][1].scale[r0:r0 + n].to(F32))
-                plans.append((e, lp, r0, v_off, i_off, coord_off, c_off,
-                              s_off))
-                v_off += n * lp.val_len
-                i_off += n * lp.idx_len
-                coord_off += lp.block
-                c_off += n if lp.layout == "rice" else 0
-                s_off += n
+                spans.append(_Span.cut(e, items[e][1], packed[e], r0, n,
+                                       codec.has_scale, coord_off))
+                coord_off += spans[-1].lp.block
+                wire += spans[-1].static_bytes()
             compaction.check_bucket_coords(coord_off, len(chunk))
+            rice = [sp for sp in spans if sp.counts is not None]
             gcounts = None
-            if count_parts:                  # phase one: RICE row lengths
-                counts = torch.cat(count_parts)
-                gcounts = _all_gather(counts, group)               # [m, R]
-                wire += counts.numel() * 4
-                # a fitted count carries r above its used words
-                used_words = used_words + (
-                    counts & compaction.RICE_HDR_USED_MASK).sum(
-                        dtype=torch.int64)
-            gvals = _all_gather(torch.cat(vals_parts), group)      # [m, V]
+            if rice:                         # phase one: RICE row lengths
+                gcounts = _all_gather(torch.cat([sp.counts for sp in rice]),
+                                      group)                       # [m, R]
+                for sp in rice:
+                    used_words = used_words + sp.used_words()
+            gvals = _all_gather(torch.cat([sp.vals for sp in spans]),
+                                group)                             # [m, V]
             gwidx = None
-            if widx_parts:                   # phase two: the index words
-                gwidx = _all_gather(torch.cat(widx_parts), group)  # [m, I]
-                wire += static_idx_words * 4
+            if any(sp.words is not None for sp in spans):
+                gwidx = _all_gather(torch.cat(             # phase two
+                    [sp.words for sp in spans if sp.words is not None]),
+                    group)                                         # [m, I]
             gscales = None
-            if scale_parts:                  # one float32 scale per row
-                gscales = _all_gather(torch.cat(scale_parts), group)  # [m, S]
-                wire += s_off * 4
-            del vals_parts, widx_parts, count_parts, scale_parts
+            if codec.has_scale:              # one float32 scale per row
+                gscales = _all_gather(torch.cat([sp.scales for sp in spans]),
+                                      group)                       # [m, S]
+            plans = [(sp.e, sp.r0, sp.lp) for sp in spans]
+            del spans, rice
             # a scratch tail past the chunk takes the dead RICE slots
             dense = torch.zeros(coord_off + wire_layout.DROP_SLOTS,
                                 dtype=F32, device=dev)
-            for (e, lp, r0, v0, i0, c0, cc0, s0) in plans:
+            v0 = i0 = c0 = cc0 = s0 = 0
+            for _, _, lp in plans:
+                n_vals, n_idx = lp.layers * lp.val_len, lp.layers * lp.idx_len
+                rice_rows = lp.layers if lp.layout == "rice" else 0
                 decode_into(
-                    dense, lp, gvals[:, v0:v0 + lp.layers * lp.val_len],
-                    (gwidx[:, i0:i0 + lp.layers * lp.idx_len]
-                     if lp.idx_len else None),
-                    (gcounts[:, cc0:cc0 + lp.layers]
-                     if lp.layout == "rice" else None), c0, coord_off,
+                    dense, lp, gvals[:, v0:v0 + n_vals],
+                    gwidx[:, i0:i0 + n_idx] if lp.idx_len else None,
+                    gcounts[:, cc0:cc0 + rice_rows] if rice_rows else None,
+                    c0, coord_off,
                     (gscales[:, s0:s0 + lp.layers]
                      if gscales is not None else None), codec)
+                v0, i0, cc0, s0 = (v0 + n_vals, i0 + n_idx, cc0 + rice_rows,
+                                   s0 + lp.layers)
+                c0 += lp.block
             del gvals, gwidx, gcounts, gscales
             dense = _div_workers(dense[:coord_off], m)
-            for (e, lp, r0, _, _, c0, _, _) in plans:
+            c0 = 0
+            for e, r0, lp in plans:
                 _route_span(items[e][2], r0, lp.layers, lp.d,
                             dense[c0:c0 + lp.block], pieces, leaves)
-            wire += v_off * itemsize
+                c0 += lp.block
             del dense
         _assemble_pieces(pieces, leaves, out)
     return out, used_words * 4 + wire, overflow
+
+
+def _word_pack(x: torch.Tensor) -> torch.Tensor:
+    """A 4-byte wire buffer as a flat int32 word stream (a bitcast view;
+    the overlapped exchange packs only 4-byte dtypes so)."""
+    return x.contiguous().reshape(-1).view(torch.int32)
+
+
+def _word_unpack(words: torch.Tensor, dtype: torch.dtype,
+                 n_elems: int) -> torch.Tensor:
+    """Inverse of ``_word_pack`` on a gathered ``[m, W]`` segment: ``[m,
+    n_elems]`` in ``dtype``."""
+    return words.contiguous().view(dtype)[:, :n_elems]
+
+
+def _overlapped_sync(items: list, leaves: list, group,
+                     cfg: CompressionConfig):
+    """The overlapped exchange (``repro.comm.sync._overlapped_sync``): the
+    same arguments and returns as ``_bucketed_sync``, the same synced
+    leaves bit for bit and the same wire bytes, another collective
+    structure.
+
+    The sparse groups are walked in reverse (the backward pass ends with
+    the first layers, so the last ones are packed first), each cut into
+    row spans by the sync exchange's rule (``chunk_spans`` at the
+    coordinate cap; a span is atomic, ``_Span``), and the spans go
+    greedily into buckets of at most ``cfg.overlap_bucket_bytes`` of
+    payload and the coordinate cap. A bucket ships one int32 word stream,
+    per span ``[RICE counts | index words (COO offset by its layer strides,
+    each span in its own block) | 4-byte values as words | codec scales as
+    words]``, and its sub-word values (bfloat16, int8, int16) ride one
+    companion stream in their own dtype. A bucket's all-gather is issued
+    (``async_op=True``) as soon as the bucket is packed, so it travels
+    while the next buckets are packed, and none is waited on before every
+    bucket is issued; then the tiny dense leaves' all-reduce runs, then
+    the buckets are decoded in the order they were issued: each span's
+    segments are sliced out at offsets known from its plan, the counts
+    read in band, and ``decode_into`` adds the workers one after another
+    (worker-major, as the sync exchange), so the two are bit-equal. The
+    charge is the sync exchange's, span by span (``_Span.static_bytes``
+    and ``used_words``): the word stream is 4-byte aligned by construction
+    and the companion stream carries no padding."""
+    m = dist.get_world_size(group)
+    codec = cfg.scheme().codec
+    out: list = [None] * len(leaves)
+    dev = leaves[0].device
+    wire = 0
+    used_words = torch.zeros((), dtype=torch.int64, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    dense_ids = [e for e, it in enumerate(items) if it[0] == "dense"]
+    sparse_ids = [e for e, it in enumerate(items) if it[0] == "sparse"]
+    cap = _coord_cap(cfg)
+    cap_bytes = max(4, cfg.overlap_bucket_bytes)
+
+    # per issued bucket: (segments, (work, gathered words), the value
+    # stream's (work, gathered) or None, the inputs, held until the wait)
+    pending: list = []
+    cur: dict = {}
+
+    def reset():
+        cur.update(parts=[], vparts=[], segs=[], words=0, velems=0,
+                   coords=0)
+
+    def flush():
+        if cur["segs"]:
+            stream = torch.cat(cur["parts"])
+            vstream = torch.cat(cur["vparts"]) if cur["vparts"] else None
+            pending.append((
+                cur["segs"], _issue_gather(stream, group),
+                _issue_gather(vstream, group) if vstream is not None
+                else None, (stream, vstream)))
+        reset()
+
+    reset()
+    for e in reversed(sparse_ids):
+        sg = items[e][1]
+        lp0 = wire_layout.plan(sg, fitted=cfg.rice_fitted)
+        packed = (lp0,) + wire_layout.pack(sg, lp0)
+        overflow = overflow + sg.overflow().sum()
+        itemsize = sg.values.element_size()
+        for _, r0, n in (sp for c in chunk_spans([(e, lp0.layers, lp0.d)],
+                                                 cap) for sp in c):
+            sp = _Span.cut(e, sg, packed, r0, n, codec.has_scale, 0)
+            wire += sp.static_bytes()
+            if sp.counts is not None:
+                used_words = used_words + sp.used_words()
+            in_words = itemsize == 4          # one value a word
+            parts = [t for t in (sp.counts, sp.words) if t is not None]
+            if in_words:
+                parts.append(_word_pack(sp.vals))
+            if sp.scales is not None:
+                parts.append(_word_pack(sp.scales))
+            n_words = sum(p.numel() for p in parts)
+            n_bytes = n_words * 4 + (0 if in_words else sp.vals.numel()
+                                     * itemsize)
+            if (cur["words"] or cur["velems"]) and (
+                    cur["words"] * 4 + cur["velems"] * itemsize + n_bytes
+                    > cap_bytes or cur["coords"] + sp.lp.block > cap):
+                flush()
+            cur["segs"].append((e, sp.lp, r0, cur["words"], sg.values.dtype,
+                                -1 if in_words else cur["velems"]))
+            cur["parts"].extend(parts)
+            cur["words"] += n_words
+            cur["coords"] += sp.lp.block
+            if not in_words:
+                cur["vparts"].append(sp.vals)
+                cur["velems"] += sp.vals.numel()
+            del sp, parts
+    flush()
+
+    # the tiny leaves, after the buckets are issued
+    wire += _sync_dense_items(items, dense_ids, leaves, out, group)
+
+    pieces: dict = {}
+    for segs, (work, gs), gv, inputs in pending:   # in issue order
+        work.wait()
+        if gv is not None:
+            gv[0].wait()
+            gv = gv[1]
+        del inputs
+        total = sum(seg[1].block for seg in segs)
+        compaction.check_bucket_coords(total, len(segs))
+        dense = torch.zeros(total + wire_layout.DROP_SLOTS, dtype=F32,
+                            device=dev)
+        block_off = 0
+        for (e, lp, r0, pos, wdt, v0) in segs:
+            counts = words = scales = None
+            if lp.layout == "rice":
+                counts = gs[:, pos:pos + lp.layers]
+                pos += lp.layers
+            if lp.idx_len:
+                words = gs[:, pos:pos + lp.layers * lp.idx_len]
+                if lp.layout == "coo":   # span-local on the wire
+                    words = words + block_off
+                pos += lp.layers * lp.idx_len
+            n_vals = lp.layers * lp.val_len
+            if v0 < 0:
+                vals = _word_unpack(gs[:, pos:pos + n_vals], wdt, n_vals)
+                pos += n_vals
+            else:
+                vals = gv[:, v0:v0 + n_vals]
+            if codec.has_scale:
+                scales = _word_unpack(gs[:, pos:pos + lp.layers], F32,
+                                      lp.layers)
+            decode_into(dense, lp, vals, words, counts, block_off, total,
+                        scales, codec)
+            block_off += lp.block
+        del gs, gv
+        dense = _div_workers(dense[:total], m)
+        off = 0
+        for (e, lp, r0, *_) in segs:
+            _route_span(items[e][2], r0, lp.layers, lp.d,
+                        dense[off:off + lp.block], pieces, leaves)
+            off += lp.block
+        del dense
+    pending.clear()
+    _assemble_pieces(pieces, leaves, out)
+    return out, used_words * 4 + wire, overflow
+
+
+def _exchange_fn(cfg: CompressionConfig):
+    return _overlapped_sync if cfg.exchange == "overlap" else _bucketed_sync
+
+
+def _compact_items(cfg: CompressionConfig, leaves: list, stacked: list):
+    """The pod stage's one selection without ``resparsify_pods``
+    (``repro.comm.sync._compact_items``): every sparse shape group of the
+    already averaged ``leaves`` compacted to its capacity by magnitude
+    (``ops.magnitude_compact``, on the card the hand kernels of topk), its
+    values encoded in the configured codec's wire dtype, an integer codec
+    rounding deterministically. The items are ``compress_tree_sparse``'s,
+    under the same plan, with ``p_sum = nnz`` and zero accounting; RICE
+    groups carry their words (fitted under ``cfg.rice_fitted``), and an
+    integer codec's zero levels are no live slots (``SparseGrad.live``),
+    as the JAX package's wire codecs drop zero values."""
+    codec = cfg.scheme().codec
+    plan = plan_tree(cfg, leaves, stacked)
+    items = []
+    for grp in plan.groups:
+        if grp.kind == "dense":
+            items.append(("dense", torch.cat(
+                [leaves[i].reshape(-1).to(F32) for i, _ in grp.members]),
+                grp.members))
+            continue
+        stack = _stack_group(grp, leaves, None, False)
+        layout, rice_r, window = _plan_layout(cfg, codec, stack.dtype,
+                                              grp.k_cap, grp.d)
+        c = ops.magnitude_compact(stack, k_cap=grp.k_cap, codec=codec,
+                                  rice_r=rice_r, rice_window=window)
+        del stack
+        zeros = torch.zeros(grp.rows, dtype=F32, device=c.idx.device)
+        items.append(("sparse", SparseGrad(
+            values=c.values, idx=c.idx, nnz=c.nnz, p_sum=c.nnz.to(F32),
+            bits=zeros, var_ratio=zeros, scale=c.scale, d=grp.d,
+            codec=codec.name, layout=layout, rice_words=c.rice_words,
+            rice_used=c.rice_used, rice_window=window,
+            live=c.live if codec.integer_coded else None), grp.members))
+    return items
+
+
+def _add_compaction_drops(items: list, leaves: list, residual: list) -> None:
+    """Add to ``residual`` (in place) what the pod stage's fixed-capacity
+    messages failed to carry (``repro.comm.sync._compaction_drops``): each
+    leaf less the scatter of its decoded buffers, formed in float32 and
+    rounded to the leaf's dtype. Nonzero on overflow (the pod union of the
+    workers' coordinates can exceed one message's capacity) and where a
+    codec rounds the kept values; the dense passthrough drops nothing."""
+    for kind, sg, members in items:
+        if kind == "dense":
+            continue
+        # float32 leaf less the decoded buffers: a residual in float32
+        drop = residual_from_buffers(torch.cat(
+            [leaves[i].reshape(rows, sg.d).to(F32) for i, rows in members]),
+            sg)
+        r0 = 0
+        for i, rows in members:
+            residual[i].add_(drop[r0:r0 + rows].reshape(
+                residual[i].shape).to(residual[i].dtype))
+            r0 += rows
+        del drop
 
 
 def _energy(t: torch.Tensor) -> torch.Tensor:
@@ -492,11 +793,14 @@ def _apply_skip(cfg: CompressionConfig, items: list, flags: list):
 
 
 def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
-              grads: list, *, group=None, stacked: list | None = None,
+              grads: list, *, group=None, pod_group=None,
+              pod_generator: torch.Generator | None = None,
+              stacked: list | None = None,
               feedback: FeedbackState | list | None = None,
               control: ControlState | None = None):
     """Compress this worker's gradient leaves and exchange them with the
-    workers of ``group`` (the default process group when None).
+    workers of ``group`` (the default process group when None), then, with
+    a ``pod_group``, between the pods.
 
     ``grads`` are the model's leaves in the JAX flatten order; ``stacked``
     flags the layer-stacked ones (compressed per layer). ``generator``
@@ -511,19 +815,50 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
     ``delta_beta * last_avg``. The control's ``last_sent`` tensors are
     overwritten (module docstring): use the returned control.
 
+    The pod hierarchy (``repro.comm.sync.sync_tree`` with a pod axis):
+    ``group`` is then this worker's pod (its data workers) and
+    ``pod_group`` the workers of the other pods at its data index, one per
+    pod. The dense wire takes the mean over the pod, then over the pods.
+    On the sparse wires the pod average goes through the pod stage, one
+    selection whose messages cross ``pod_group``: without
+    ``cfg.resparsify_pods`` a deterministic compaction to each group's
+    capacity (``_compact_items``), whose drops, with error feedback, are
+    added to this worker's residual; with it (Algorithm 1's step 7) a
+    second compression of the pod average (the dense wire: then the mean
+    over the pods), on ``pod_generator``, which must draw the same stream
+    on every data worker of a pod and another in each pod (the port's
+    ``_pod_key``), and with error feedback on the pod's own residual
+    ``feedback.pod_residual`` (``init_feedback(params, pod=True)``; every
+    data worker of a pod carries the same). ``SyncStats.wire_bytes_intra``
+    and ``wire_bytes_inter`` charge the two stages.
+
     Returns ``(synced, new_feedback, stats)``: the averaged leaves, the new
     FeedbackState (None without error feedback) and SyncStats; with a
     control, ``(synced, new_feedback, new_control, stats)``.
     """
     if isinstance(feedback, FeedbackState):
-        residual = feedback.residual
+        residual, pod_residual = feedback.residual, feedback.pod_residual
     else:
-        residual = feedback
+        residual, pod_residual = feedback, None
     if cfg.error_feedback and residual is None:
         raise ValueError(
             "sync_tree: error_feedback=True requires the per-worker residual "
             "(feedback=FeedbackState(...)); refusing to silently drop the "
             "compression error.")
+    resparsify = cfg.resparsify_pods and pod_group is not None
+    if resparsify and cfg.error_feedback and pod_residual is None:
+        raise ValueError(
+            "sync_tree: error_feedback=True with resparsify_pods=True and a "
+            "pod group requires the pod stage's residual too "
+            "(feedback=FeedbackState(residual=..., pod_residual=...); build "
+            "one with repro_torch.optim.optimizers.init_feedback(params, "
+            "pod=True)): the pod stage's re-sparsification error must be "
+            "carried, not dropped.")
+    if resparsify and pod_generator is None:
+        raise ValueError(
+            "sync_tree: resparsify_pods with a pod group needs "
+            "pod_generator, seeded alike on every data worker of a pod, so "
+            "that the pod's workers re-sparsify its average alike.")
     if cfg.adaptive and control is None:
         raise ValueError(
             "sync_tree: adaptive=True requires the control state (pass "
@@ -539,9 +874,14 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
             "the control argument.")
     dev = grads[0].device
     zero = torch.zeros((), dtype=F32, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    stk = stacked if stacked is not None else [False] * len(grads)
     send, flags = grads, None
     if cfg.adaptive:
         send, flags, bounds = _delta_and_skips(cfg, grads, control)
+    new_pod_res = pod_residual
+    wire_inter = torch.zeros((), **f64)
+    overflow, layouts = zero, ()
     if cfg.wire == "dense":
         q, new_res, stats = compress_tree(cfg, generator, send,
                                           stacked=stacked, residual=residual)
@@ -550,50 +890,80 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
                 t.masked_fill_(f, 0)
         synced, wire = _sync_leaves_dense(q, group)
         del q
-        wire_t = torch.tensor(wire, dtype=torch.float64, device=dev)
-        overflow, layouts = zero, ()
+        wire_intra = torch.tensor(wire, **f64)
+        if flags is not None:
+            _fold_skipped(send, residual, new_res, flags)
+        if pod_group is not None:
+            if resparsify:       # step 7 on the pod average, then the mean
+                synced, new_pod_res, _ = compress_tree(
+                    cfg, pod_generator, synced, stacked=stacked,
+                    residual=pod_residual if cfg.error_feedback else None)
+            synced, wire = _sync_leaves_dense(synced, pod_group)
+            wire_inter = torch.tensor(wire, **f64)
     else:
+        exchange = _exchange_fn(cfg)
         items, new_res, stats = compress_tree_sparse(
             cfg, generator, send, stacked=stacked, residual=residual)
         savings = _apply_skip(cfg, items, flags) if flags is not None \
             else None
-        synced, wire, overflow = _bucketed_sync(items, grads, group, cfg)
-        wire_t = wire.to(torch.float64)
+        synced, wire, ovf = exchange(items, grads, group, cfg)
+        wire_intra = wire.to(torch.float64)
         if savings is not None:
-            wire_t = wire_t - savings
-        overflow = overflow.to(F32)
+            wire_intra = wire_intra - savings
         layouts = tuple((sg.rows, sg.d, sg.k_cap, sg.layout)
                         for kind, sg, _ in items if kind == "sparse")
         del items
+        if flags is not None:    # before the pod stage adds its drops
+            _fold_skipped(send, residual, new_res, flags)
+        if pod_group is not None:
+            if resparsify:
+                items, new_pod_res, _ = compress_tree_sparse(
+                    cfg, pod_generator, synced, stacked=stacked,
+                    residual=pod_residual if cfg.error_feedback else None)
+            else:
+                items = _compact_items(cfg, synced, stk)
+                if cfg.error_feedback:
+                    _add_compaction_drops(items, synced, new_res)
+            synced, wire, ovf2 = exchange(items, synced, pod_group, cfg)
+            del items
+            wire_inter = wire.to(torch.float64)
+            ovf = ovf + ovf2
+        overflow = ovf.to(F32)
     new_control = None
     if cfg.adaptive:
-        new_control = _close_control(cfg, grads, send, residual, new_res,
-                                     flags, bounds, synced, control)
+        new_control = _close_control(cfg, grads, residual, new_res, bounds,
+                                     synced, control)
+    wire_t = wire_intra + wire_inter
     out_stats = SyncStats(
         bits=stats.bits, dense_bits=stats.dense_bits, wire_bytes=wire_t,
-        wire_bytes_intra=wire_t, wire_bytes_inter=zero,
+        wire_bytes_intra=wire_intra, wire_bytes_inter=wire_inter,
         density=stats.density, var_ratio=stats.var_ratio,
         overflow=overflow,
         skipped=(torch.stack(flags).sum(dtype=F32) if flags is not None
                  else zero),
         layouts=layouts)
-    new_feedback = (FeedbackState(residual=new_res)
+    new_feedback = (FeedbackState(residual=new_res, pod_residual=new_pod_res)
                     if cfg.error_feedback else None)
     if control is not None:
         return synced, new_feedback, new_control, out_stats
     return synced, new_feedback, out_stats
 
 
-def _close_control(cfg, grads, send, res_in, new_res, flags, bounds, synced,
-                   control: ControlState) -> ControlState:
-    """After the exchange, a leaf at a time and in place: a skipped leaf's
-    residual becomes its whole target ``send + r_in`` (its q was zero); the
-    synced leaves become ``beta * last_avg + synced``, the receiver's
-    closure of the delta; ``last_sent`` becomes ``S' = g + r_in - r_out``
-    (``beta * S + Q(target)``, one formula for sent and skipped leaves)."""
-    beta = cfg.delta_beta
+def _fold_skipped(send, res_in, new_res, flags) -> None:
+    """A skipped leaf's residual becomes its whole target ``send + r_in``
+    (its q was zero), in place."""
     for t, r, nr, f in zip(send, res_in, new_res, flags):
         torch.where(f, t + r, nr, out=nr)
+
+
+def _close_control(cfg, grads, res_in, new_res, bounds, synced,
+                   control: ControlState) -> ControlState:
+    """After the exchange, a leaf at a time and in place: the synced leaves
+    become ``beta * last_avg + synced``, the receiver's closure of the
+    delta; ``last_sent`` becomes ``S' = g + r_in - r_out`` (``beta * S +
+    Q(target)``, one formula for sent and skipped leaves; ``r_out`` after
+    ``_fold_skipped`` and the pod stage's drops)."""
+    beta = cfg.delta_beta
     if beta:
         for s, a in zip(synced, control.last_avg):
             s.add_(a if beta == 1.0 else a * torch.full(

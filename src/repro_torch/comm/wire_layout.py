@@ -185,9 +185,10 @@ def pack(sg, lp: LeafPlan) -> tuple[torch.Tensor, torch.Tensor,
     if lp.layout == "dense":
         # live coordinates are unique and padding slots hold zeros, so this
         # is the JAX package's scatter-add of the compact pair bit for bit
-        return (scatter_live(sg.values, sg.idx, sg.nnz, lp.d),
+        return (scatter_live(sg.values, sg.idx, sg.n_valid, lp.d),
                 sg.idx.new_zeros((lp.layers, 0)), zeros)
-    sv, words = compaction.bitmap_pack(sg.values, sg.idx, lp.d, nnz=sg.nnz)
+    sv, words = compaction.bitmap_pack(sg.values, sg.idx, lp.d,
+                                       nnz=sg.n_valid)
     return sv, words, zeros
 
 

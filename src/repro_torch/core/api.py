@@ -1,7 +1,7 @@
 """Gradient compression over a model's ordered leaves (port of
 ``repro.core.api``: ``CompressionConfig``, ``TreeStats``, ``compress_leaf``,
 ``compress_tree`` for the dense wire, ``compress_tree_sparse`` for the
-gather wire and ``zeros_like_residual``).
+sparse wires, gather and packed, and ``zeros_like_residual``).
 
 The paper sparsifies each layer independently (section 5.2): a leaf is one
 parameter tensor, and a layer-stacked leaf ``[L, ...]`` is L rows. The
@@ -19,8 +19,8 @@ from repro_torch.core import coding
 from repro_torch.core import schemes as schemes_lib
 from repro_torch.core.grouping import plan_tree
 from repro_torch.core._compressors import CompressedGrad
-from repro_torch.core.sparse import (FUSED_SELECTORS, REFERENCE_ITEM,
-                                     KernelBackend, residual_from_buffers)
+from repro_torch.core.sparse import (KernelBackend, resolve_backend,
+                                     residual_from_buffers)
 
 F32 = torch.float32
 
@@ -30,11 +30,7 @@ BACKENDS = ("auto", "reference", "pallas")
 XLA_PRESETS = ("async", "latency_hiding", "none", "overlap")
 # the JAX config's fields the port takes only at their defaults, and the
 # ROADMAP.md item that ports each
-UNPORTED_FIELDS = {
-    "kernel_interpret": "queue A item 4 (ReferenceBackend)",
-    "resparsify_pods": "queue A item 9",
-    "overlap_bucket_bytes": "queue A item 9",
-    "xla_preset": "queue A item 13"}
+UNPORTED_FIELDS = {"xla_preset": "queue A item 13"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -54,27 +50,32 @@ class CompressionConfig:
     port runs every composition on the dense wire (``wire="dense"``, the
     default, as in the JAX package: Q(g) in dense layout, pmean over the
     workers), gspar with ``algo="greedy"`` or ``"closed"``, each with the
-    ``f32``, ``bf16``, ``qsgd<N>`` and ``ternary`` codecs; and on the sparse
-    gather wire every selector but agspar and identity (which the JAX
-    package runs on its reference backend: ROADMAP.md queue A item 4),
-    with every wire layout (``auto``, ``coo``, ``bitmap``, ``dense``,
-    ``rice``; with ``rice_fitted`` the data-fitted Golomb-Rice parameter
-    of wire-format v4); both with ``exchange="sync"``, with or without
-    error feedback, and with the adaptive control loop (``adaptive``,
-    which needs error feedback: delta coding against the last-sent state
-    with ``delta_beta``, skipping with ``skip_tau`` and the EMA bound's
-    ``bound_decay``; ``comm.sync.sync_tree``'s ``control``). Every other
-    value (the packed wire, the overlapped exchange and the pod stage's
-    ``resparsify_pods`` among them) raises NotImplementedError naming the
-    ROADMAP.md item that ports it; invalid values raise ValueError.
+    ``f32``, ``bf16``, ``qsgd<N>`` and ``ternary`` codecs; and every
+    composition on the sparse wires: ``gather``, and ``packed``, which is
+    gather with the codec raised to bf16 where the name gives none, with
+    every wire layout (``auto``, ``coo``, ``bitmap``, ``dense``, ``rice``;
+    with ``rice_fitted`` the data-fitted Golomb-Rice parameter of
+    wire-format v4), with the sync or the overlapped exchange
+    (``exchange="overlap"``, buckets of ``overlap_bucket_bytes``). Every
+    wire runs with or without error feedback, with the pod hierarchy of
+    ``comm.sync.sync_tree`` (``resparsify_pods``: Algorithm 1's step 7) and
+    with the adaptive control loop (``adaptive``, which needs error
+    feedback: delta coding against the last-sent state with
+    ``delta_beta``, skipping with ``skip_tau`` and the EMA bound's
+    ``bound_decay``; ``sync_tree``'s ``control``). Invalid values raise
+    ValueError.
 
     The fields, their order and their defaults are the JAX package's, so
     ``CompressionConfig(**kwargs)`` takes any JAX config's keyword
     arguments. ``backend`` ``"auto"`` and ``"pallas"`` both select the
-    port's CUDA kernel backend (the counterpart of the Pallas one);
-    ``"reference"`` and ``kernel_interpret`` (item 4), the pod and overlap
-    settings (item 9) and ``xla_preset`` (item 13) are refused at any value
-    but their default.
+    port's CUDA kernel backend (the counterpart of the Pallas one, which
+    hands agspar and identity on the sparse wires to the reference
+    backend), ``"reference"`` the reference backend (``core.sparse``).
+    ``kernel_interpret`` takes None and False (the kernels on a CUDA
+    tensor, their plain versions on a CPU one) and refuses True: the port
+    has no route from the card to the plain versions (ROADMAP.md queue A
+    item 4). ``xla_preset`` (ROADMAP.md queue A item 13) is refused at any
+    value but its default.
     """
     name: str = "gspar"              # selector[+codec] composition
     rho: float = 0.1                 # target density (gspar, unisp, topk)
@@ -86,18 +87,18 @@ class CompressionConfig:
     codec: str | None = None         # value codec; None -> from name, else f32
     error_feedback: bool = False     # carry the compression residual
     min_leaf_size: int = 256         # leaves smaller than this travel dense
-    backend: str = "auto"            # auto | pallas: the CUDA kernels
-                                     # (reference: not ported)
-    kernel_interpret: bool | None = None   # not ported (None only)
-    wire: str = "dense"              # dense | gather (packed: not ported)
+    backend: str = "auto"            # auto | pallas: the CUDA kernels;
+                                     # reference: dense apply + compact
+    kernel_interpret: bool | None = None   # True is refused
+    wire: str = "dense"              # dense | gather | packed
     wire_layout: str = "auto"        # auto (argmin bytes) / coo / bitmap /
                                      # dense / rice
     capacity_slack: float = 1.25     # k_cap slack over rho * d
-    resparsify_pods: bool = False    # pod-level resync (not ported)
-    exchange: str = "sync"           # sync (overlap: not ported)
-    overlap_bucket_bytes: int = 1 << 20  # overlap's bucket cap (not ported)
+    resparsify_pods: bool = False    # pod stage re-sparsifies (step 7)
+    exchange: str = "sync"           # sync | overlap
+    overlap_bucket_bytes: int = 1 << 20  # overlap's bucket cap
     bucket_coord_cap: int = 2**31 - 1   # coords per sparse wire chunk
-    xla_preset: str = "none"         # XLA comm preset (not ported)
+    xla_preset: str = "none"         # XLA comm preset (item 13)
     adaptive: bool = False           # adaptive control loop (needs EF):
     delta_beta: float = 1.0          # last-sent EMA weight,
     skip_tau: float = 0.0            # skip threshold (0: never skip),
@@ -111,13 +112,8 @@ class CompressionConfig:
         self._refuse_unported()
         if self.wire not in ("dense", "gather", "packed"):
             raise ValueError(f"unknown wire format {self.wire!r}")
-        if self.wire == "packed":
-            raise _not_ported("wire='packed'",
-                              "queue A item 9 (packed bf16 wire)")
         if self.exchange not in ("sync", "overlap"):
             raise ValueError(f"unknown exchange mode {self.exchange!r}")
-        if self.exchange != "sync":
-            raise _not_ported("exchange='overlap'", "queue A item 9")
         if self.wire_layout not in ("auto", "coo", "bitmap", "dense",
                                     "rice"):
             raise ValueError(f"unknown wire layout {self.wire_layout!r}")
@@ -127,12 +123,6 @@ class CompressionConfig:
         if not 0.0 < self.rho <= 1.0:
             raise ValueError(f"rho={self.rho} outside (0, 1]")
         scheme = self.scheme()       # raises on unknown names
-        if self.wire == "gather" \
-                and scheme.selector.name not in FUSED_SELECTORS:
-            raise _not_ported(
-                f"{scheme.name} on wire='gather' (the JAX package runs it "
-                "on its reference backend)",
-                f"queue A item {REFERENCE_ITEM}: ReferenceBackend")
         if self.error_feedback and scheme.selector.name == "identity" \
                 and not (scheme.codec.rounds_values
                          or scheme.codec.integer_coded):
@@ -174,10 +164,13 @@ class CompressionConfig:
 
     def _refuse_unported(self) -> None:
         """NotImplementedError, naming the ROADMAP.md item, for a valid
-        value of a field the port does not run yet."""
-        if self.backend == "reference":
-            raise _not_ported("backend='reference'", UNPORTED_FIELDS[
-                "kernel_interpret"])
+        value of a field the port does not run yet, or by design does not
+        run (``kernel_interpret=True``)."""
+        if self.kernel_interpret is True:
+            raise NotImplementedError(
+                "kernel_interpret=True is refused: the port runs a kernel's "
+                "plain version only on a CPU tensor, never on the card "
+                "(ROADMAP.md queue A item 4)")
         for f in dataclasses.fields(self):
             value = getattr(self, f.name)
             if f.name in UNPORTED_FIELDS and value != f.default:
@@ -199,7 +192,8 @@ class CompressionConfig:
         if self.wire != "dense":     # the layout and exchange are sparse's
             parts += [f"layout={self.wire_layout}",
                       f"exchange={self.exchange}"]
-        parts.append("backend=kernel")
+        parts.append("backend=reference" if self.backend == "reference"
+                     else "backend=kernel")
         if self.error_feedback:
             parts.append("ef")
         if self.adaptive:
@@ -208,13 +202,22 @@ class CompressionConfig:
                          f" decay={self.bound_decay:g})")
         if self.rice_fitted:
             parts.append("rice_fitted")
+        if self.resparsify_pods:
+            parts.append("resparsify_pods")
         return " ".join(parts)
 
 
 @functools.lru_cache(maxsize=None)
 def _resolve_scheme(cfg: CompressionConfig) -> schemes_lib.Scheme:
+    codec = cfg.codec
+    if cfg.wire == "packed" and codec is None and "+" not in cfg.name:
+        # the packed wire: bf16 values where the name gives no codec
+        _, legacy_codec = schemes_lib.parse_composition(
+            cfg.name, qsgd_bits=cfg.qsgd_bits)
+        if legacy_codec is None:
+            codec = "bf16"
     return schemes_lib.make_scheme(
-        cfg.name, codec=cfg.codec, rho=cfg.rho, eps=cfg.eps, algo=cfg.algo,
+        cfg.name, codec=codec, rho=cfg.rho, eps=cfg.eps, algo=cfg.algo,
         num_iters=cfg.num_iters, qsgd_bits=cfg.qsgd_bits,
         float_bits=cfg.float_bits, density_gain=cfg.density_gain,
         density_floor=cfg.density_floor)
@@ -390,8 +393,13 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
     feedback: the target ``leaf + residual``, formed in place in the
     batch) and takes its uniforms from ``generator`` (the paper's
     section-5.3 pregenerated randoms), in group order: the selector's as
-    one ``[rows, d]`` float32 draw (none for the deterministic topk), then
-    a stochastic codec's as one ``[rows, k_cap]`` draw. Tiny leaves (<
+    one ``[rows, d]`` float32 draw (none for the deterministic topk and
+    identity), then a stochastic codec's as one ``[rows, k_cap]`` draw
+    (``[rows, d]`` on the reference backend, which compresses as the dense
+    wire does: ``compress_tree``'s draws, so one seed gives both wires the
+    same Q). The backend is ``cfg.backend``'s (``sparse.resolve_backend``;
+    the kernel backend hands agspar and identity to the reference
+    backend). Tiny leaves (<
     ``cfg.min_leaf_size``) form one dense float32 passthrough whose
     residual is exactly zero.
 
@@ -401,7 +409,7 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
     like ``leaves`` (None without error feedback).
     """
     _require_residual(cfg, residual, "compress_tree_sparse")
-    backend = KernelBackend()
+    backend = resolve_backend(cfg)
     scheme = cfg.scheme()
     ef = cfg.error_feedback
     stk = stacked if stacked is not None else [False] * len(leaves)
@@ -434,8 +442,11 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
             u = torch.rand((grp.rows, grp.d), generator=generator,
                            dtype=F32, device=stack.device)
         if scheme.codec.stochastic:
-            u_cod = torch.rand((grp.rows, grp.k_cap), generator=generator,
-                               dtype=F32, device=stack.device)
+            # at compact rank for the two-pass emit, shaped like the group
+            # for the reference backend's dense pass
+            u_cod = torch.rand((grp.rows, grp.d if backend.uses_dense(
+                scheme) else grp.k_cap), generator=generator, dtype=F32,
+                device=stack.device)
         if not ef:
             sg = backend.compress_sparse(cfg, u, stack, grp.k_cap, u_cod)
         elif scheme.codec.integer_coded:

@@ -21,9 +21,9 @@ value is represented.
 
 ``terngrad`` is ``bernoulli+ternary`` and ``none`` is ``identity+f32``.
 Every composition runs on the dense wire (``Scheme.compress``,
-``sparse.KernelBackend.compress_dense``); on the gather wire agspar and
-identity, which the JAX package runs on its reference backend, are
-ROADMAP.md queue A item 4. The probabilities a scheme samples with are
+``sparse.KernelBackend.compress_dense``) and on the sparse wires (agspar
+and identity on the reference backend, ``sparse.ReferenceBackend``, as
+the JAX package runs them). The probabilities a scheme samples with are
 the kernels' (``kernels.sparsify.ops``); the pure solvers of the JAX
 selectors are ``repro_torch.core.sparsify``.
 """

@@ -1,6 +1,7 @@
-"""Compact sparse-gradient representation and the kernel backend (port of
-``repro.core.sparse``: ``SparseGrad`` and the counterpart of
-``PallasBackend``, which here also compresses the dense wire's groups).
+"""Compact sparse-gradient representation and the compression backends
+(port of ``repro.core.sparse``: ``SparseGrad``, ``ReferenceBackend``, the
+counterpart of ``PallasBackend``, which here also compresses the dense
+wire's groups, and ``resolve_backend``).
 
 ``SparseGrad`` is the wire form of one compressed shape group: fixed-
 capacity ``values [rows, k_cap]`` (codec-encoded, wire dtype) and ``idx
@@ -13,10 +14,18 @@ the buffers as they are.
 (and, for the dense wire, the selector's dense pipeline, ``ops.*_dense``)
 on a whole group: the CUDA kernels for tensors on the card, their plain
 PyTorch versions for tensors on the CPU. Every composition runs on the
-dense wire; on the gather wire every selector but agspar and identity,
-which the JAX package's Pallas backend hands to its reference backend
-(dense apply plus a magnitude ``top_k``): that backend is ROADMAP.md queue
-A item 4.
+dense wire; on the sparse wires its two-pass emit runs gspar, unisp, topk
+and bernoulli, and it hands agspar and identity to ``ReferenceBackend``,
+as the JAX package's Pallas backend does.
+
+``ReferenceBackend`` (``backend="reference"``) is the dense wire's
+computation followed by one magnitude compaction per row
+(``compaction.compact``: on the card ``topk_threshold`` and passes 1-2 of
+topk, no sort), so on the same uniforms its buffers scatter to the dense
+wire's Q bit for bit; topk with a codec that neither rounds nor codes
+integers takes ``_topk_fast``, one selection that is also the compaction.
+Its uniforms are the dense wire's: the selector's and an integer codec's,
+each ``[rows, d]`` (``uses_dense``).
 """
 from __future__ import annotations
 
@@ -27,15 +36,13 @@ import torch
 from repro_torch.comm import compaction, wire_layout
 from repro_torch.core import codecs, coding
 from repro_torch.core._compressors import CompressedGrad, finish_compressed
+from repro_torch.kernels.sparsify import kernel as K
 from repro_torch.kernels.sparsify import ops
 
 F32 = torch.float32
 # Slots per tile of the accounting in KernelBackend._finish: about 1.5 GB
 # of float32 temporaries.
 ACCOUNT_UNITS = 1 << 27
-# The ROADMAP.md queue A item that ports the JAX package's reference
-# backend, on which agspar and identity run on the gather wire there.
-REFERENCE_ITEM = 4
 # The selectors the two-pass emit runs on the gather wire (the JAX
 # package's PallasBackend.FUSED_SELECTORS).
 FUSED_SELECTORS = ("gspar", "unisp", "topk", "bernoulli")
@@ -66,6 +73,12 @@ class SparseGrad:
                                # rice_window is set)
     rice_window: tuple = ()    # wire-format v4: the candidate parameters
                                # the words were fitted over (() static)
+    live: torch.Tensor | None = None
+                               # [rows] int32 slots of the ascending prefix
+                               # that carry a value, where that is not
+                               # min(nnz, k_cap): the pod stage's integer
+                               # levels that rounded to zero are dropped
+                               # (compaction.live_prefix)
 
     @property
     def k_cap(self) -> int:
@@ -74,6 +87,12 @@ class SparseGrad:
     @property
     def rows(self) -> int:
         return self.values.shape[0]
+
+    @property
+    def n_valid(self) -> torch.Tensor:
+        """Per row, the count whose ``min(., k_cap)`` is the live prefix of
+        the buffers."""
+        return self.nnz if self.live is None else self.live
 
     def overflow(self) -> torch.Tensor:
         """Survivors dropped because nnz exceeded the capacity, per row."""
@@ -102,9 +121,10 @@ def residual_from_buffers(g: torch.Tensor, sg: SparseGrad) -> torch.Tensor:
     is scattered (``wire_layout.scatter_live``): the padding slots, which
     would add zeros to each row's coordinate 0, go to a scratch tail."""
     def neg_decoded(a: int, b: int, j0: int, j1: int) -> torch.Tensor:
+        # out of place: a float codec's decode may return the values
         return sg.decode_values(slice(a, b), slice(j0, j1)).to(
-            g.dtype).neg_()
-    return wire_layout.scatter_live(neg_decoded, sg.idx, sg.nnz, sg.d,
+            g.dtype).neg()
+    return wire_layout.scatter_live(neg_decoded, sg.idx, sg.n_valid, sg.d,
                                     base=g, add=True)
 
 
@@ -188,25 +208,20 @@ class KernelBackend:
         return _finish_rows(scheme, r, g.shape[1]), r.residual
 
     @staticmethod
-    def _fused(cfg):
-        """The scheme, refusing the selectors the gather wire runs only on
-        the JAX package's reference backend."""
-        scheme = cfg.scheme()
-        if scheme.selector.name not in FUSED_SELECTORS:
-            raise NotImplementedError(
-                f"{scheme.name} on the gather wire runs on the JAX "
-                "package's reference backend, which is not ported yet "
-                f"(ROADMAP.md queue A item {REFERENCE_ITEM}: "
-                "ReferenceBackend)")
-        return scheme
+    def uses_dense(scheme) -> bool:
+        """True where the group goes to ``ReferenceBackend`` (agspar and
+        identity), whose codec uniforms are ``[rows, d]``."""
+        return scheme.selector.name not in FUSED_SELECTORS
 
     def compress_sparse(self, cfg, u: torch.Tensor | None, g: torch.Tensor,
                         k_cap: int,
                         u_cod: torch.Tensor | None = None) -> SparseGrad:
         """One ``[rows, d]`` group with the selector's uniforms ``u`` (None
         for topk) and the codec's ``u_cod [rows, k_cap]`` (stochastic codecs
-        only)."""
-        scheme = self._fused(cfg)
+        only; ``[rows, d]`` where ``uses_dense``)."""
+        scheme = cfg.scheme()
+        if self.uses_dense(scheme):
+            return ReferenceBackend().compress_sparse(cfg, u, g, k_cap, u_cod)
         er, layout, s, window = self._emit(scheme, cfg, u, g, k_cap, False,
                                            u_cod)
         return self._finish(scheme, g, er, layout, s, window)
@@ -222,7 +237,10 @@ class KernelBackend:
         integer codec's residual subtracts the decoded levels of the
         transmitted slots, scattered from the compact buffers
         (``residual_from_buffers``), as the JAX package does."""
-        scheme = self._fused(cfg)
+        scheme = cfg.scheme()
+        if self.uses_dense(scheme):
+            return ReferenceBackend().compress_sparse_ef(cfg, u, g, k_cap,
+                                                         u_cod)
         if scheme.codec.integer_coded:
             sg = self.compress_sparse(cfg, u, g, k_cap, u_cod)
             return sg, residual_from_buffers(g, sg)
@@ -240,10 +258,7 @@ class KernelBackend:
         d = g.shape[1]
         # the layout is static in (k_cap, d, wire width), so it is decided
         # before the kernels: under RICE they pack the index words too
-        layout = _choose_layout(cfg, codec, g.dtype, k_cap, d)
-        rice_r = coding.rice_parameter(k_cap, d) if layout == "rice" else -1
-        window = (coding.rice_fit_window(k_cap, d)
-                  if layout == "rice" and cfg.rice_fitted else ())
+        layout, rice_r, window = _plan_layout(cfg, codec, g.dtype, k_cap, d)
         kw = dict(k_cap=k_cap, codec=codec, rice_r=rice_r, ef=ef,
                   rice_window=window)
         if sel.name == "topk":
@@ -314,3 +329,153 @@ class KernelBackend:
                           scale=er.scale, d=d, codec=codec.name,
                           layout=layout, rice_words=er.rice_words,
                           rice_used=er.rice_used, rice_window=window)
+
+
+def _kept_values(pkind: str, x: torch.Tensor, s1, s2) -> torch.Tensor:
+    """The selector's value ``v`` at coordinates it kept (float32 ``x``,
+    per-row scalars as columns), in ``ref._select_row``'s order: ``x / p``
+    for the sampling kinds, ``x`` for topk and identity."""
+    if pkind in ("topk", "one"):
+        return x
+    a = x.abs()
+    if pkind == "lam":
+        p = torch.clamp_max(s1 * a, 1.0)
+    elif pkind == "rho":
+        p = torch.where(a > 0, s1, 0.0)
+    else:
+        p = torch.where(s2 > 0, a / torch.where(s2 > 0, s2, 1.0), 0.0)
+    return x / torch.where(p > 0, p, 1.0)
+
+
+class ReferenceBackend:
+    """The dense wire's pipeline plus one magnitude compaction per row
+    (``repro.core.sparse.ReferenceBackend``): it shares the dense wire's
+    computation, hence on the same uniforms its buffers scatter to the
+    dense wire's Q bit for bit. The compaction keeps the nonzeros of Q by
+    magnitude (``ops.magnitude_compact``, at most ``k_cap`` a row) and the
+    buffers carry the codec's wire values there: Q itself for a float
+    codec; an integer codec's levels, formed again at the kept coordinates
+    from the selector's value and the coordinate's codec uniform as the
+    dense pass formed them before it decoded them. The buffers ascend by
+    coordinate, the JAX package's descend by magnitude (ROADMAP.md C).
+    topk with a codec that neither rounds nor codes integers is
+    ``_topk_fast``."""
+
+    @staticmethod
+    def uses_dense(scheme) -> bool:
+        return True
+
+    def compress_sparse(self, cfg, u: torch.Tensor | None, g: torch.Tensor,
+                        k_cap: int,
+                        u_cod: torch.Tensor | None = None) -> SparseGrad:
+        """One ``[rows, d]`` group with the dense wire's uniforms (the
+        selector's ``u`` and an integer codec's ``u_cod``, each shaped like
+        g)."""
+        scheme = cfg.scheme()
+        sel, codec = scheme.selector, scheme.codec
+        if sel.name == "topk" \
+                and not (codec.rounds_values or codec.integer_coded):
+            return self._topk_fast(cfg, scheme, g, k_cap, False)[0]
+        rows, d = g.shape
+        layout, rice_r, window = _plan_layout(cfg, codec, g.dtype, k_cap, d)
+        r = dense_group(scheme, u, g, False, u_cod=u_cod)
+        cg = _finish_rows(scheme, r, d)
+        integer = codec.integer_coded
+        c = ops.magnitude_compact(r.q, k_cap=k_cap,
+                                  rice_r=-1 if integer else rice_r,
+                                  rice_window=window)
+        values, words, used = c.values, c.rice_words, c.rice_used
+        if integer:
+            values = _levels_at(r, g, u_cod, c.idx, c.live, codec)
+            words, used = ops.rice_words(c.idx, c.live, d, rice_r, window)
+        f32 = dict(dtype=F32, device=g.device)
+        if sel.samples:       # sum p, from the selector's pass 1
+            p_sum = K.select_stats(g, u, r.lam, k_cap, pkind=r.pkind,
+                                   s2=r.s2).p_sum
+        elif sel.name == "topk":
+            p_sum = torch.full((rows,), float(sel.k_target(d)), **f32)
+        else:
+            p_sum = torch.full((rows,), float(d), **f32)
+        scale = r.scale if integer else torch.ones(rows, **f32)
+        return SparseGrad(values=values, idx=c.idx, nnz=c.nnz, p_sum=p_sum,
+                          bits=cg.bits, var_ratio=cg.var_ratio, scale=scale,
+                          d=d, codec=codec.name, layout=layout,
+                          rice_words=words, rice_used=used,
+                          rice_window=window)
+
+    def compress_sparse_ef(self, cfg, u: torch.Tensor | None,
+                           g: torch.Tensor, k_cap: int,
+                           u_cod: torch.Tensor | None = None
+                           ) -> tuple[SparseGrad, torch.Tensor]:
+        """``compress_sparse`` of the EF target ``g``, and the residual
+        ``g`` less the decoded buffers (``residual_from_buffers``; topk's
+        fast path forms the same residual in pass 2)."""
+        scheme = cfg.scheme()
+        codec = scheme.codec
+        if scheme.selector.name == "topk" \
+                and not (codec.rounds_values or codec.integer_coded):
+            return self._topk_fast(cfg, scheme, g, k_cap, True)
+        sg = self.compress_sparse(cfg, u, g, k_cap, u_cod)
+        return sg, residual_from_buffers(g, sg)
+
+    @staticmethod
+    def _topk_fast(cfg, scheme, g: torch.Tensor, k_cap: int, ef: bool):
+        """Deterministic top-k with a passthrough codec: the ``min(k_cap,
+        k_target)`` largest magnitudes of each row, one selection that is
+        also the compaction (``ops.topk_emit``), with ``nnz`` the scheme's
+        intended selection ``min(nonzeros, k_target)`` before the cut, so
+        ``overflow`` reports a ``k_cap < k_target`` drop."""
+        sel, codec = scheme.selector, scheme.codec
+        d = g.shape[1]
+        k_target = sel.k_target(d)
+        layout, rice_r, window = _plan_layout(cfg, codec, g.dtype, k_cap, d)
+        er = ops.topk_emit(g, None, k_cap=k_cap, k_target=min(k_cap,
+                                                              k_target),
+                           codec=codec, rice_r=rice_r, ef=ef,
+                           rice_window=window)
+        sg = KernelBackend()._finish(scheme, g, er, layout, None, window)
+        sg.nnz = torch.clamp_max(er.nonzeros, k_target)
+        return sg, er.residual
+
+
+def _plan_layout(cfg, codec, leaf_dtype, k_cap: int, d: int):
+    """The wire layout of one group, its static Golomb-Rice parameter (-1
+    off RICE) and its fitted window (``cfg.rice_fitted`` on RICE, else
+    ())."""
+    layout = _choose_layout(cfg, codec, leaf_dtype, k_cap, d)
+    rice = layout == "rice"
+    return (layout, coding.rice_parameter(k_cap, d) if rice else -1,
+            coding.rice_fit_window(k_cap, d) if rice and cfg.rice_fitted
+            else ())
+
+
+def _levels_at(r, g: torch.Tensor, u_cod: torch.Tensor, idx: torch.Tensor,
+               live: torch.Tensor, codec) -> torch.Tensor:
+    """An integer codec's levels ``[rows, k_cap]`` at the compact ``idx``
+    of a dense pass ``r`` over ``g``: the selector's value at each kept
+    coordinate, rounded to g's dtype as the dense pass rounds it, encoded
+    with the row's scale and the coordinate's uniform ``u_cod[row, i]``;
+    0 past each row's ``live`` prefix. In tiles of ``ACCOUNT_UNITS``
+    slots."""
+    rows, k = idx.shape
+    out = torch.zeros((rows, k), dtype=codec.wire_dtype(g.dtype),
+                      device=g.device)
+    for a, b, j0, j1 in compaction.slot_tiles(rows, k, ACCOUNT_UNITS):
+        ix = idx[a:b, j0:j1].long()
+        x = torch.gather(g[a:b], 1, ix).to(F32)
+        v = _kept_values(r.pkind, x,
+                         None if r.lam is None else r.lam[a:b, None],
+                         None if r.s2 is None else r.s2[a:b, None])
+        lev = codec.encode(v.to(g.dtype).to(F32), r.scale[a:b, None],
+                           torch.gather(u_cod[a:b], 1, ix))
+        slot = torch.arange(j0, j1, device=g.device)
+        out[a:b, j0:j1] = torch.where(slot < live[a:b, None], lev, 0)
+    return out
+
+
+def resolve_backend(cfg):
+    """The backend of ``cfg.backend``: ``"reference"`` the reference
+    backend, ``"auto"`` and ``"pallas"`` the kernel backend (which hands
+    agspar and identity to the reference backend)."""
+    return ReferenceBackend() if cfg.backend == "reference" \
+        else KernelBackend()

@@ -952,7 +952,11 @@ template <> struct IntWire<int16_t> : std::true_type {};
 // (j = base + in-block rank < k_cap) to slot j: idx the row coordinate and
 // the value in the wire dtype W. A float W takes v rounded; an integer W
 // (qsgd, ternary) the codec level of v from the row's scale and u_cod[row,
-// j], the codec uniform at the survivor's compact rank. With `res` (float
+// j], the codec uniform at the survivor's compact rank; with no u_cod
+// (`ucod` null) the deterministic rounding of the pod stage's compaction:
+// every uniform is kDetU, the float32 just below 0.5, so that `u < frac`
+// holds exactly where frac >= 0.5 (qsgd rounds up, ternary keeps p >=
+// 0.5, as the JAX codecs do without a key). With `res` (float
 // codecs) the EF residual g - encoded value is written for every coordinate,
 // overflow-dropped survivors included; the encoded value is the codec's
 // output in float32, so it is W-rounded only for a rounding codec
@@ -1000,6 +1004,8 @@ template <> struct IntWire<int16_t> : std::true_type {};
 // ---------------------------------------------------------------------------
 
 constexpr int kCodStage = 2048;     // codec uniforms a block stages
+// nextafterf(0.5f, 0.f): the deterministic rounding's uniform
+#define kDetU __int_as_float(0x3effffff)
 
 // A 4-byte asynchronous copy from device to shared memory (cp.async: no
 // register holds it in flight), and the wait for this thread's copies.
@@ -1061,7 +1067,8 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   const long long budget = PK == kTopk ? budgetp[row] : 0;
   long long tie_rank = PK == kTopk ? tie_base[o] : 0;
   const float sc = kInt ? scale[row] : 1.f;
-  const float* ucrow = kInt ? ucod + row * k_cap : nullptr;
+  const float* ucrow = kInt && ucod != nullptr ? ucod + row * k_cap
+                                                : nullptr;
   const T* grow = g + row * d;
   const float* urow = PK == kTopk ? nullptr : u + row * d;
   T* rrow = res == nullptr ? nullptr : res + row * d;
@@ -1074,11 +1081,13 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
   __shared__ float sh_cod[kInt ? kCodStage : 1];
   int staged = 0;
   if constexpr (kInt) {
-    const int next = tile + 1 < ntiles ? base[o + 1] : n_row;
-    const int hi = next < kc ? next : kc;
-    staged = hi - tile_rank < kCodStage ? hi - tile_rank : kCodStage;
-    for (int j = threadIdx.x; j < staged; j += kThreads)
-      cp_async4(sh_cod + j, ucrow + tile_rank + j);
+    if (ucrow != nullptr) {     // none to stage in the deterministic mode
+      const int next = tile + 1 < ntiles ? base[o + 1] : n_row;
+      const int hi = next < kc ? next : kc;
+      staged = hi - tile_rank < kCodStage ? hi - tile_rank : kCodStage;
+      for (int j = threadIdx.x; j < staged; j += kThreads)
+        cp_async4(sh_cod + j, ucrow + tile_rank + j);
+    }
   }
   Chunk<T> gc;
   Chunk<float> uc;
@@ -1109,7 +1118,8 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
       if (rk < kc) {
         if constexpr (kInt) {
           const int j = rk - tile_rank;
-          const float uk = j < staged ? sh_cod[j] : ucrow[rk];
+          const float uk = ucrow == nullptr ? kDetU
+                           : j < staged ? sh_cod[j] : ucrow[rk];
           vrow[rk] = (W)(int)int_level(v, sc, uk, levels, ternary);
         } else {
           vrow[rk] = from_f32<W>(v);

@@ -56,6 +56,7 @@ KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
 # topk_threshold's radix-select rounds: the key bits each counts, from the
 # top (bf16: one round of 2^15 bins; f32: three of at most 2^11)
 TOPK_BITS = {torch.bfloat16: (15,), torch.float32: (11, 10, 10)}
+DET_U = ref.DET_U     # pass 2's uniform under deterministic rounding
 PKINDS = ref.PKINDS   # selector kinds of passes 1-2, in the .cu's enum order
 DENSE_KINDS = ref.DENSE_KINDS   # and of the dense emit (kernels 5 and 6)
 # Launches per kernel, and per variant of the two compaction passes and of
@@ -391,7 +392,7 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
                  pkind: str = "lam", s2: torch.Tensor | None = None,
                  budget: torch.Tensor | None = None,
                  scale: torch.Tensor | None = None,
-                 u_cod: torch.Tensor | None = None
+                 u_cod: torch.Tensor | None = None, det_round: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Pass 2: write each row's first ``k_cap`` survivors in coordinate
     order into ``values [rows, k_cap]`` (``codec.wire_dtype``) and ``idx
@@ -405,7 +406,12 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
     each kept value from the row's ``scale [rows]`` and the codec uniform
     ``u_cod [rows, k_cap]`` at the survivor's compact rank; it takes no
     ``ef`` (the backend subtracts the decoded values from the compact
-    buffers, as the JAX package does). ``sel`` is ``select_stats``'s
+    buffers, as the JAX package does). With ``det_round`` (and no
+    ``u_cod``) it rounds deterministically, as the pod stage's compaction
+    encodes (``repro.comm.sync._encode_det``): qsgd rounds up where the
+    fraction is at least 0.5, ternary keeps where |v| / scale is at least
+    0.5, which is the stochastic rule at the uniform ``DET_U``, the float32
+    just below 0.5. ``sel`` is ``select_stats``'s
     output (its per-tile base ranks and tie bases; the plain version
     recomputes them). Replaces ``compact_emit_2d`` with ``rice_r=-1``
     (src/repro/kernels/sparsify/kernel.py:559). Bound: one read of g (and
@@ -421,12 +427,12 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
         if ef:
             raise ValueError("compact_emit: an integer codec's EF residual "
                              "is scattered from the compact buffers")
-        if scale is None or u_cod is None:
+        if scale is None or (u_cod is None) != det_round:
             raise ValueError("compact_emit: an integer codec needs scale "
-                             "and u_cod")
+                             "and either u_cod or det_round")
         scale = scale.to(torch.float32).contiguous()
-        if scale.shape != (rows,) or u_cod.shape != (rows, k_cap) \
-                or u_cod.dtype != torch.float32:
+        if scale.shape != (rows,) or (u_cod is not None and (
+                u_cod.shape != (rows, k_cap) or u_cod.dtype != torch.float32)):
             raise ValueError("compact_emit: scale must be [rows] and u_cod "
                              "float32 [rows, k_cap]")
     else:
@@ -435,7 +441,7 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
     if not _on_card("compact_emit", g, s1, sel.base, sel.nnz, *extra):
         return ref.compact_emit_ref(g, u, s1, k_cap, codec, ef, pkind=pkind,
                                     s2=s2, budget=budget, scale=scale,
-                                    u_cod=u_cod)
+                                    u_cod=u_cod, det_round=det_round)
     if sel.nnz.shape != (rows,) or sel.nnz.dtype != torch.int32:
         raise ValueError("compact_emit: sel.nnz must be int32 [rows]")
     if k_cap >= 2**31:
@@ -455,7 +461,8 @@ def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,
         int(codec.rounds_values), _ptr(scale), _ptr(u_cod),
         float(getattr(codec, "levels", 0.0)), int(codec.name == "ternary"),
         _stream(g)), "compact_emit",
-        pkind + (f"+{codec.name}" if codec.integer_coded else ""))
+        pkind + (f"+{codec.name}" + ("+det" if det_round else "")
+                 if codec.integer_coded else ""))
     return vals, idx, res
 
 

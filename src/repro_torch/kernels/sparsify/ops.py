@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.comm import compaction
 from repro_torch.core import codecs as codecs_lib
 from repro_torch.core import sparsify as sparsify_lib
 from repro_torch.kernels.sparsify import kernel as K
@@ -124,16 +125,73 @@ def _two_pass(g2d: torch.Tensor, u2d: torch.Tensor | None, s1: torch.Tensor,
     vals, idx, res = K.compact_emit(
         g2d, u2d, s1, sel, k_cap=k_cap, codec=codec, ef=ef, scale=scale,
         u_cod=u_cod, **kind)
-    words = used = None
-    if rice_r >= 0 and rice_window:
-        r_rows, _ = K.rice_fit(idx, sel.nnz, d=g2d.shape[1],
-                               window=rice_window)
-        words, used = K.rice_pack_fitted(idx, sel.nnz, r_rows,
-                                         d=g2d.shape[1], window=rice_window)
-    elif rice_r >= 0:
-        words, used = K.rice_pack(idx, sel.nnz, d=g2d.shape[1], r=rice_r)
+    words, used = rice_words(idx, sel.nnz, g2d.shape[1], rice_r,
+                             rice_window)
     return EmitResult(vals, idx, sel.nnz, sel.nonzeros, sel.p_sum, sel.den,
                       scale, words, used, res)
+
+
+def rice_words(idx: torch.Tensor, live: torch.Tensor, d: int, rice_r: int,
+               rice_window: tuple = ()):
+    """The Golomb-Rice words of compact index streams ``idx [rows, k_cap]``
+    whose first ``min(live, k_cap)`` slots ascend: ``(None, None)`` for
+    ``rice_r < 0``; at ``rice_r`` (``rice_pack``); with a ``rice_window``
+    at each row's fitted parameter (``rice_fit``, then
+    ``rice_pack_fitted``: the used count is the header ``(r << 26) |
+    used``)."""
+    if rice_r < 0:
+        return None, None
+    if rice_window:
+        r_rows, _ = K.rice_fit(idx, live, d=d, window=rice_window)
+        return K.rice_pack_fitted(idx, live, r_rows, d=d,
+                                  window=rice_window)
+    return K.rice_pack(idx, live, d=d, r=rice_r)
+
+
+class Compacted(NamedTuple):
+    """A magnitude compaction of one ``[rows, d]`` group
+    (``magnitude_compact``): ``values``/``idx [rows, k_cap]`` (ascending by
+    coordinate, dead slots idx 0 and value 0), per row ``nnz`` the nonzeros
+    before the capacity cut (int32), ``live`` the slots of the ascending
+    prefix that carry a nonzero value, the codec ``scale``, and the
+    Golomb-Rice words of the live prefix (None unless ``rice_r >= 0``)."""
+    values: torch.Tensor
+    idx: torch.Tensor
+    nnz: torch.Tensor
+    live: torch.Tensor
+    scale: torch.Tensor
+    rice_words: torch.Tensor | None
+    rice_used: torch.Tensor | None
+
+
+def magnitude_compact(g2d: torch.Tensor, *, k_cap: int, codec=_F32,
+                      rice_r: int = -1, rice_window: tuple = ()
+                      ) -> Compacted:
+    """``compaction.compact`` of every row of a group, then the codec's
+    deterministic encode (``repro.comm.sync._encode_det``): keep the
+    ``k_cap`` largest magnitudes of each row, ties at the k_cap-th by
+    lowest coordinate (XLA ``top_k``'s order) and never a zero. On the
+    hand kernels: ``topk_threshold`` at ``k_target = k_cap`` (with fewer
+    nonzeros than that its threshold is 0, and every nonzero is kept),
+    then passes 1 and 2 with ``pkind="topk"``. Pass 1 gives the nonzero
+    count and the codec scale over the kept values; pass 2 writes them in
+    coordinate order, an integer codec's levels rounded deterministically
+    (``det_round``). A level that rounds to zero is no live slot (the JAX
+    package's wire codecs drop zero values): the live slots move to the
+    front of the prefix, in order (``compaction.live_prefix``), before the
+    Golomb-Rice words are packed."""
+    _group(g2d, "magnitude_compact")
+    t, budget = topk_threshold(g2d, k_cap)
+    sel = K.select_stats(g2d, None, t, k_cap, pkind="topk", budget=budget)
+    scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
+    vals, idx, _ = K.compact_emit(
+        g2d, None, t, sel, k_cap=k_cap, codec=codec, ef=False, pkind="topk",
+        budget=budget, scale=scale, det_round=codec.integer_coded)
+    live = sel.nnz
+    if codec.integer_coded:
+        vals, idx, live = compaction.live_prefix(vals, idx, live)
+    words, used = rice_words(idx, live, g2d.shape[1], rice_r, rice_window)
+    return Compacted(vals, idx, sel.nonzeros, live, scale, words, used)
 
 
 def _group(g2d: torch.Tensor, name: str) -> None:

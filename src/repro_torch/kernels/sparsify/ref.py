@@ -127,6 +127,10 @@ def topk_threshold_ref(g: torch.Tensor, k_target: int,
     return t, budget
 
 
+# The deterministic rounding's uniform: the float32 just below 0.5, so that
+# ``u < frac`` holds exactly where a float32 frac is at least 0.5.
+DET_U = float(torch.nextafter(torch.tensor(0.5), torch.tensor(0.0)))
+
 PKINDS = ("lam", "rho", "bern", "topk")
 # the dense wire's kinds: passes 1-2's and the identity selector's
 DENSE_KINDS = PKINDS + ("one",)
@@ -240,7 +244,8 @@ def compact_emit_ref(g: torch.Tensor, u: torch.Tensor | None,
                      pkind: str = "lam", s2: torch.Tensor | None = None,
                      budget: torch.Tensor | None = None,
                      scale: torch.Tensor | None = None,
-                     u_cod: torch.Tensor | None = None
+                     u_cod: torch.Tensor | None = None,
+                     det_round: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor,
                                 torch.Tensor | None]:
     """Pass 2: the first ``k_cap`` survivors of each row in coordinate order
@@ -249,7 +254,9 @@ def compact_emit_ref(g: torch.Tensor, u: torch.Tensor | None,
 
     A float codec rounds to its wire dtype. An integer codec (qsgd, ternary)
     encodes with the row's ``scale`` and, for survivor j, the uniform
-    ``u_cod[row, j]``. With ``ef`` (float codecs only) also the residual
+    ``u_cod[row, j]``; with ``det_round`` the uniform ``DET_U`` for every
+    survivor (the deterministic rounding: up where the fraction is at least
+    0.5). With ``ef`` (float codecs only) also the residual
     ``g - encoded value`` in g's dtype, where every survivor is subtracted,
     those dropped past ``k_cap`` included; the encoded value is rounded to
     the wire dtype only for a rounding codec (bf16)."""
@@ -264,7 +271,9 @@ def compact_emit_ref(g: torch.Tensor, u: torch.Tensor | None,
         kept = torch.nonzero(z).reshape(-1)[:k_cap]
         n = kept.numel()
         if codec.integer_coded:
-            vals[r, :n] = codec.encode(v[kept], scale[r], u_cod[r, :n])
+            uc = (torch.full((n,), DET_U, dtype=F32, device=g.device)
+                  if det_round else u_cod[r, :n])
+            vals[r, :n] = codec.encode(v[kept], scale[r], uc)
         else:
             ev = v.to(wire_dtype)
             vals[r, :n] = ev[kept]

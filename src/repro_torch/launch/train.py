@@ -10,8 +10,11 @@ selector (``gspar``, ``agspar``, ``unisp``, ``topk``, ``bernoulli``,
 ``identity``) with every codec (``gspar+qsgd8``, ``topk+ternary``, or
 ``--codec``) and the aliases ``qsgd``, ``terngrad`` and ``none``.
 ``--wire gather`` sends the sparse compact buffers instead, for every
-selector but agspar and identity (with ``qsgd`` and ``none``), which the
-JAX package runs on its reference backend (ROADMAP.md queue A item 4).
+composition (agspar and identity, with ``qsgd`` and ``none``, on the
+reference backend, as the JAX package runs them; ``--backend reference``
+puts every composition there); ``--wire packed`` is gather with bf16 values
+where the composition names no codec. ``--exchange overlap`` issues the
+sparse wire's buckets (``--overlap-bucket-bytes``) before it waits on any.
 ``--adaptive`` (with ``--error-feedback``) runs the adaptive control loop:
 delta coding (``--delta-beta``), skipping (``--skip-tau``, ``--bound-decay``);
 ``--rice-fitted`` ships the data-fitted Golomb-Rice parameter (wire-format
@@ -21,7 +24,15 @@ Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
 the CPU), so the exchange goes through ``torch.distributed`` either way;
 under ``torchrun`` (``WORLD_SIZE`` in the environment) each process is one
-data-parallel worker. ``--num-periods`` cuts the depth; widths are never
+worker. ``--mesh PxDx1`` lays the workers out as P pods of D data workers
+(ranks pod-major, ``rank = p * D + d``; the JAX launcher's (pod, data,
+model) mesh), and the exchange is the pod hierarchy: the data groups, then
+the pod stage across the pods (``--resparsify-pods``: Algorithm 1's step
+7, with ``--error-feedback`` on the pod's own residual). ``--mesh 1x1x1``
+runs the pod stage over groups of one. ``--mesh Dx1`` is (data, model). A
+model axis above 1 and ``--mode`` (the port runs the compressed mode
+only; FSDP) are ROADMAP.md queue A item 10, ``--checkpoint`` item 11, each
+refused with NotImplementedError. ``--num-periods`` cuts the depth; widths are never
 narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
 the JAX launcher: each shape group takes the layout with the fewest wire
 bytes (RICE on every gemma-2b group at rho 0.05), printed once per group
@@ -85,9 +96,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="selector[+codec] composition (gspar, agspar, "
                          "unisp, topk, bernoulli, identity; e.g. "
                          "'gspar+qsgd8', 'topk+ternary') or a legacy alias "
-                         "(qsgd, terngrad, none); agspar and identity run "
-                         "on the dense wire only (the gather wire's are "
-                         "ROADMAP.md queue A item 4)")
+                         "(qsgd, terngrad, none)")
     ap.add_argument("--codec", default=None,
                     choices=[None, "f32", "bf16", "qsgd4", "qsgd8",
                              "ternary"],
@@ -100,7 +109,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["dense", "gather", "packed"])
     ap.add_argument("--wire-layout", default="auto",
                     choices=["auto", "coo", "bitmap", "dense", "rice"])
-    ap.add_argument("--exchange", default="sync", choices=["sync", "overlap"])
+    ap.add_argument("--exchange", default="sync", choices=["sync", "overlap"],
+                    help="sparse collective structure: end-of-step barrier "
+                         "or overlapped per-bucket exchange")
+    ap.add_argument("--overlap-bucket-bytes", type=int, default=1 << 20,
+                    help="payload cap per overlapped bucket")
+    ap.add_argument("--resparsify-pods", action="store_true",
+                    help="re-sparsify the pod stage (Algorithm 1 step 7) "
+                         "on a --mesh with a pod axis; with "
+                         "--error-feedback the pod stage carries its own "
+                         "residual")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "reference", "pallas"],
+                    help="compression backend (auto and pallas: the CUDA "
+                         "kernels; reference: dense apply + compaction)")
+    ap.add_argument("--mesh", default=None,
+                    help="PxDx1 => (pod=P, data=D, model=1), or Dx1; "
+                         "default: every worker on the data axis")
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--adaptive", action="store_true",
                     help="adaptive compression control loop (compressed "
@@ -127,10 +152,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+# the JAX launcher's flags the port does not take yet, and the ROADMAP.md
+# item that ports each (the port runs the compressed mode only)
+UNPORTED_FLAGS = {"--mode": "queue A item 10", "--checkpoint":
+                  "queue A item 11"}
+
+
+def refuse_unported_flags(argv: list) -> None:
+    """NotImplementedError, naming its ROADMAP.md item, for a JAX launcher
+    flag the port does not take yet (as ``--flag value`` or
+    ``--flag=value``)."""
+    for a in argv:
+        flag = a.split("=", 1)[0]
+        if flag in UNPORTED_FLAGS:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md "
+                                      f"{UNPORTED_FLAGS[flag]})")
+
+
 def main(argv=None) -> dict:
     """Run the launcher; returns a summary: ``metrics`` (a dict of floats
     per step), ``step_seconds``, ``params``, ``layouts`` (``(rows, d, k_cap,
     layout)`` per sparse group) and, on the card, ``max_memory_allocated``."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    refuse_unported_flags(argv)
     args = parse_args(argv)
     spec = registry.get(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
@@ -147,7 +191,11 @@ def main(argv=None) -> dict:
                              delta_beta=args.delta_beta,
                              skip_tau=args.skip_tau,
                              bound_decay=args.bound_decay,
-                             rice_fitted=args.rice_fitted)
+                             rice_fitted=args.rice_fitted,
+                             resparsify_pods=args.resparsify_pods,
+                             overlap_bucket_bytes=args.overlap_bucket_bytes,
+                             backend=args.backend)
+    mesh = parse_mesh(args.mesh)
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -155,17 +203,62 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     own_group = init_process_group(device)
     try:
-        return _train(args, cfg, comp, device)
+        return _train(args, cfg, comp, device, mesh)
     finally:
         if own_group:
             dist.destroy_process_group()
 
 
-def _train(args, cfg, comp, device) -> dict:
+def parse_mesh(text: str | None) -> tuple[int, int] | None:
+    """``--mesh``: ``"PxDxM"`` (pod, data, model) or ``"DxM"`` (data,
+    model) -> ``(pods, data)``, None for a mesh with no pod axis (or no
+    ``--mesh``). A model axis above 1 is refused."""
+    if text is None:
+        return None
+    shape = tuple(int(x) for x in text.split("x"))
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"--mesh {text!r}: want PxDxM or DxM")
+    if shape[-1] != 1:
+        raise NotImplementedError(
+            f"--mesh {text!r}: a model axis above 1 (sharding a step over "
+            "devices) is not ported yet (ROADMAP.md queue A item 10)")
+    return shape[:2] if len(shape) == 3 else None
+
+
+def mesh_groups(mesh: tuple[int, int] | None):
+    """This worker's data group and pod group under ``mesh`` (``(pods,
+    data)``, ranks pod-major: ``rank = p * D + d``), each from
+    ``dist.new_group`` (every rank creates every group, in one order), and
+    its pod index; ``(None, None, 0)`` without a pod axis (every worker on
+    the data axis of the default group)."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if mesh is None:
+        return None, None, 0
+    pods, data = mesh
+    if pods * data != world:
+        raise ValueError(f"--mesh of {pods} pods x {data} data workers needs "
+                         f"{pods * data} processes, have {world}")
+    p, d = divmod(rank, data)
+    data_group = pod_group = None
+    for q in range(pods):
+        grp = dist.new_group([q * data + j for j in range(data)])
+        if q == p:
+            data_group = grp
+    for j in range(data):
+        grp = dist.new_group([q * data + j for q in range(pods)])
+        if j == d:
+            pod_group = grp
+    return data_group, pod_group, p
+
+
+def _train(args, cfg, comp, device, mesh) -> dict:
     rank, world = dist.get_rank(), dist.get_world_size()
+    data_group, pod_group, pod = mesh_groups(mesh)
     if rank == 0:
         print(f"arch={cfg.name} layers={cfg.num_layers} "
-              f"d_model={cfg.d_model} workers={world} device={device}")
+              f"d_model={cfg.d_model} workers={world} device={device}"
+              + (f" mesh=(pod={mesh[0]}, data={mesh[1]}, model=1)"
+                 if mesh else ""))
         print(f"compression: {comp.describe()}")
     init_gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Transformer(cfg, init_model(cfg, init_gen, device))
@@ -174,10 +267,17 @@ def _train(args, cfg, comp, device) -> dict:
         print(f"params: {n_params}")
     opt = adam(args.lr) if args.optimizer == "adam" else sgd(args.lr)
     opt_state = opt.init(model.leaves())
-    ef_state = init_feedback(model.leaves()) if comp.error_feedback else None
+    hier = comp.resparsify_pods and pod_group is not None
+    ef_state = (init_feedback(model.leaves(), pod=hier)
+                if comp.error_feedback else None)
     ctl_state = (step_lib.init_compressed_control(model, comp)
                  if comp.adaptive else None)
-    train_step = step_lib.make_compressed_train_step(model, comp, opt)
+    # the pod stage's stream: one per pod, the same on its data workers
+    pod_gen = (torch.Generator(device=device).manual_seed(
+        3_000_017 * (args.seed + 1) + pod) if hier else None)
+    train_step = step_lib.make_compressed_train_step(
+        model, comp, opt, group=data_group, pod_group=pod_group,
+        pod_generator=pod_gen)
     # one data stream and one compression stream per worker
     data_gen = torch.Generator(device=device).manual_seed(
         1_000_003 * (args.seed + 1) + rank)
@@ -207,7 +307,9 @@ def _train(args, cfg, comp, device) -> dict:
             print(f"step {step_i:>5} loss {m['loss']:.4f} "
                   f"density {m['density']:.5f} var x{m['var_ratio']:.2f} "
                   f"msg_bits {m['bits']:.4g} wire_bytes {m['wire_bytes']:.0f} "
-                  f"overflow {m['overflow']:.0f} "
+                  + (f"(intra {m['wire_bytes_intra']:.0f} inter "
+                     f"{m['wire_bytes_inter']:.0f}) " if mesh else "")
+                  + f"overflow {m['overflow']:.0f} "
                   + (f"skipped {m['skipped']:.1f} " if comp.adaptive else "")
                   + f"({step_seconds[-1]:.3f} s)", flush=True)
     summary = {"metrics": history, "step_seconds": step_seconds,

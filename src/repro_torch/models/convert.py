@@ -2,7 +2,8 @@
 (nested dicts of arrays, e.g. ``split_params(init_model(...))[0]``
 converted with ``np.asarray``) becomes the port's flat parameter dict, so
 both packages compute the same function; its adaptive ``ControlState``
-becomes one worker's (``control_from_jax``)."""
+and its ``FeedbackState`` become one worker's (``control_from_jax``,
+``feedback_from_jax``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -59,6 +60,22 @@ def control_from_jax(ctl, worker: int = 0, device="cpu"):
         bound=[tensor_from_numpy(np.asarray(x)[worker], device).to(
             torch.float32).reshape(()) for x in _flatten(ctl.bound)],
         step=int(np.asarray(ctl.step)))
+
+
+def feedback_from_jax(fb, worker: int = 0, pod: int = 0, device="cpu"):
+    """A JAX ``FeedbackState`` of the compressed step (the workers stacked
+    on the leading axis of ``residual``; with a pod stage ``pod_residual``
+    stacked on a leading pod axis) -> worker ``worker``'s port
+    ``FeedbackState`` of pod ``pod``: lists in the JAX flatten order."""
+    from repro_torch.optim.optimizers import FeedbackState
+    pod_res = None
+    if fb.pod_residual is not None:
+        pod_res = [tensor_from_numpy(np.asarray(x)[pod], device)
+                   for x in _flatten(fb.pod_residual)]
+    return FeedbackState(
+        residual=[tensor_from_numpy(np.asarray(x)[worker], device)
+                  for x in _flatten(fb.residual)],
+        pod_residual=pod_res)
 
 
 def cnn_params_from_jax(tree: dict, device="cpu") -> dict[str, torch.Tensor]:

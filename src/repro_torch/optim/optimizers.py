@@ -43,14 +43,20 @@ class FeedbackState:
     per leaf, shaped like the leaf. Each worker process holds its own (the
     JAX step's leading per-worker axis is one process each here).
     ``pod_residual`` is the pod stage's residual of the hierarchical sync
-    (ROADMAP.md queue A item 9); None without one."""
+    with ``resparsify_pods`` (the error of re-sparsifying the pod average,
+    ``comm.sync.sync_tree``), one tensor per leaf: every data worker of a
+    pod holds the same copy (the JAX state stacks the pods on a leading
+    axis: ``models.convert.feedback_from_jax``); None without one."""
     residual: list
     pod_residual: Any = None
 
 
-def init_feedback(params: list) -> FeedbackState:
-    """Zero residual state, one tensor like each leaf."""
-    return FeedbackState(residual=[torch.zeros_like(p) for p in params])
+def init_feedback(params: list, pod: bool = False) -> FeedbackState:
+    """Zero residual state, one tensor like each leaf; with ``pod`` also the
+    pod stage's residual (``resparsify_pods`` with error feedback)."""
+    return FeedbackState(
+        residual=[torch.zeros_like(p) for p in params],
+        pod_residual=[torch.zeros_like(p) for p in params] if pod else None)
 
 
 @dataclasses.dataclass

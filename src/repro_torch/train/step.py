@@ -8,8 +8,11 @@ Every worker process computes its local gradient, compresses it per leaf
 ``repro_torch.comm.sync.sync_tree``; every worker then applies the same
 averaged update, so the parameters stay replicated. With
 ``comp.adaptive`` the step also carries the control loop's
-``ControlState`` (``train_step_adaptive``'s shape). The FSDP step is
-ROADMAP.md queue A item 10, the pod hierarchy item 9.
+``ControlState`` (``train_step_adaptive``'s shape). With a ``pod_group``
+the exchange is the pod hierarchy of ``sync_tree`` (the pod stage, with
+``comp.resparsify_pods`` Algorithm 1's step 7 on its own residual,
+``FeedbackState.pod_residual``). The FSDP step is ROADMAP.md queue A item
+10.
 
 The step's step-size options are the JAX step's: ``var_adaptive_lr``
 divides the optimizer's step size by ``max(var, 1)`` (the paper's eta ~
@@ -73,12 +76,20 @@ def init_compressed_control(model, comp: CompressionConfig) -> ControlState:
 
 
 def make_compressed_train_step(model, comp: CompressionConfig,
-                               opt: Optimizer, group=None,
+                               opt: Optimizer, group=None, pod_group=None,
                                var_adaptive_lr: bool = False,
-                               lr_schedule: Callable | None = None
+                               lr_schedule: Callable | None = None,
+                               pod_generator: torch.Generator | None = None
                                ) -> Callable:
     """Algorithm 1 for ``model`` (a ``Transformer``) on the workers of
-    ``group`` (the default process group when None).
+    ``group`` (the default process group when None), and with a
+    ``pod_group`` between the pods too (``sync_tree``'s pod hierarchy:
+    ``group`` is then this worker's pod, ``pod_group`` its peers of the
+    other pods; ``pod_generator``, seeded alike on a pod's data workers,
+    draws the pod stage's uniforms under ``comp.resparsify_pods``, and
+    with error feedback ``ef_state`` carries ``pod_residual``:
+    ``init_feedback(params, pod=True)``). Metrics are then averaged over
+    every worker of both groups (the default process group).
 
     Without error feedback: ``step(opt_state, batch, generator) ->
     (opt_state, metrics)``. With ``comp.error_feedback``: ``step(opt_state,
@@ -100,8 +111,14 @@ def make_compressed_train_step(model, comp: CompressionConfig,
     error feedback, before update t the carried residual is rescaled in
     place by ``lr_schedule(t) / lr_schedule(t + 1)`` (by 1 at t = 0).
     Without either option the step is the plain one."""
+    if comp.resparsify_pods and pod_group is not None \
+            and pod_generator is None:
+        raise ValueError("resparsify_pods with a pod group needs a "
+                         "pod_generator")
     loss_fn = make_loss_fn(model.cfg)
     params = model.leaves()
+    # the stats' mean: over the data group, or with pods over every worker
+    stats_group = group if pod_group is None else None
     layouts: list = []          # a holder, so that no closure cycle keeps
                                 # the model alive after the step is dropped
 
@@ -119,6 +136,7 @@ def make_compressed_train_step(model, comp: CompressionConfig,
             rescale_feedback(ef_state, lr_schedule(t) if t > 0 else lr_now,
                              lr_now)
         out = sync_tree(comp, generator, grads, group=group,
+                        pod_group=pod_group, pod_generator=pod_generator,
                         stacked=model.stacked, feedback=ef_state,
                         control=ctl_state)
         synced, new_fb, stats = out[0], out[1], out[-1]
@@ -126,10 +144,10 @@ def make_compressed_train_step(model, comp: CompressionConfig,
         del grads, out
         vals = _mean_over_workers(
             [loss.detach()] + [getattr(stats, f) for f in SyncStats.FIELDS],
-            group)
+            stats_group)
         metrics = dict(zip(("loss",) + SyncStats.FIELDS, vals))
-        var_scale = (_var_scale(stats.var_ratio, group) if var_adaptive_lr
-                     else 1.0)
+        var_scale = (_var_scale(stats.var_ratio, stats_group)
+                     if var_adaptive_lr else 1.0)
         _, opt_state = opt.update(synced, opt_state, params,
                                   var_scale=var_scale)
         layouts[:] = stats.layouts

@@ -28,7 +28,7 @@ from repro_torch.core import codecs as tcodecs
 from repro_torch.core import schemes as tschemes
 from repro_torch.core.api import CompressionConfig as TConfig
 from repro_torch.core.api import compress_leaf
-from repro_torch.core.sparse import KernelBackend
+from repro_torch.core.sparse import KernelBackend, dense_group
 from repro_torch.kernels.sparsify import ops as tops
 
 torch.set_num_threads(1)
@@ -215,15 +215,24 @@ def test_describe_names_algorithm_2_and_its_eps(wire):
                                   "agspar+qsgd8", "identity+ternary"])
 def test_gather_wire_refuses_identity_and_agspar(name):
     """The JAX package runs them on its reference backend on the gather
-    wire: the config and the backend both refuse them, naming queue A
-    item 4."""
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        TConfig(name=name, wire="gather")
-    cfg = TConfig(name=name)                      # the dense wire takes it
+    wire. The port refused them there until it had that backend (queue A
+    item 4); now the config takes them, and the kernel backend hands them
+    to the reference backend, whose buffers scatter to the dense wire's Q
+    on the same uniforms (its codec's drawn ``[rows, d]``)."""
+    cfg = TConfig(name=name, wire="gather")
     g = _g().reshape(2, D // 2)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        KernelBackend().compress_sparse(cfg, torch.rand(g.shape), g, 512,
-                                        torch.rand(2, 512))
+    scheme = cfg.scheme()
+    assert KernelBackend.uses_dense(scheme)
+    u = torch.rand(g.shape) if scheme.selector.samples else None
+    u_cod = torch.rand(g.shape) if scheme.codec.stochastic else None
+    k_cap = cfg.capacity(D // 2)
+    sg = KernelBackend().compress_sparse(cfg, u, g, k_cap, u_cod)
+    want = dense_group(scheme, u, g, False, u_cod=u_cod).q
+    got = torch.zeros(g.shape)
+    for r in range(2):
+        n = int(min(int(sg.nnz[r]), k_cap))
+        got[r, sg.idx[r, :n].long()] = sg.decode_values()[r, :n]
+    assert torch.equal(got.to(want.dtype), want)
 
 
 def test_identity_with_a_lossless_codec_refuses_error_feedback():

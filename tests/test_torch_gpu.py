@@ -952,3 +952,106 @@ def test_adaptive_step_card_matches_cpu(card):
             assert out["cuda"][2][1] == 1.0
     finally:
         dist.destroy_process_group()
+
+
+def _det_rows(gen) -> torch.Tensor:
+    """bf16 rows of heavy-tailed values with the deterministic rounding's
+    ties: a row of norm 2 whose |v| = 1 gives qsgd4 the fraction 0.5
+    exactly, and a row whose ternary ratios are 0.5 and just below it."""
+    g, _ = _group(gen, torch.bfloat16, 40_003)
+    g[0].zero_()
+    g[0, [5, 9000, 17_000, 40_002]] = torch.tensor(
+        [1.0, -1.0, 1.0, -1.0], dtype=torch.bfloat16, device="cuda")
+    g[1].zero_()
+    g[1, [3, 4, 5, 6]] = torch.tensor([4.0, 2.0, -2.0, 1.9921875],
+                                      dtype=torch.bfloat16, device="cuda")
+    return g
+
+
+@pytest.mark.parametrize("codec", ["qsgd4", "qsgd8", "ternary"])
+@pytest.mark.parametrize("pkind", ["topk", "lam"])
+def test_compact_emit_det_round_matches_plain_version(card, codec, pkind):
+    """Pass 2's deterministic rounding (the pod stage's integer codecs:
+    the uniform ``DET_U`` for every survivor, no codec uniforms read):
+    values and idx bit-equal to the plain version on the same scalars, at a
+    capacity that cuts and one that does not; on the tie rows qsgd4 rounds
+    7.5 up to 8 and ternary keeps ratio 0.5 and drops the one below."""
+    g = _det_rows(card)
+    u = torch.rand(g.shape, generator=card, device="cuda")
+    cdc = codecs.get(codec)
+    for k_cap in (1500, 40_003):
+        if pkind == "topk":
+            s1, budget = K.topk_threshold(g, k_cap)
+            kw = dict(pkind="topk", budget=budget)
+            uu = None
+        else:
+            l1, _ = K.stats_l1max(g)
+            s1, kw, uu = RHO * g.shape[1] / l1, {}, u
+        sel = K.select_stats(g, uu, s1, k_cap, **kw)
+        scale = codecs.finalize_scale(cdc, sel.sum_sq, sel.max_abs)
+        got = K.compact_emit(g, uu, s1, sel, k_cap=k_cap, codec=cdc,
+                             ef=False, scale=scale, det_round=True, **kw)
+        want = ref.compact_emit_ref(g, uu, s1, k_cap, cdc, False,
+                                    scale=scale, det_round=True, **kw)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a, b)
+        if pkind == "topk" and k_cap == 40_003:
+            if codec == "qsgd4":
+                assert got[0][0, :4].tolist() == [8, -8, 8, -8]
+            if codec == "ternary":
+                assert got[0][1, :4].tolist() == [1, 1, -1, 0]
+
+
+def test_magnitude_compact_on_the_card(card):
+    """``compaction.compact`` and the pod stage's compaction on the card:
+    bit-equal to the plain versions (the f32 and bf16 codecs through the
+    whole chain; an integer codec's live prefix from ``live_prefix``), its
+    kept magnitudes those of ``torch.topk`` with ties by lowest index."""
+    from repro_torch.comm import compaction
+    g = _det_rows(card)
+    g[2, 100:400] = 0.5           # ties at the cut
+    for k_cap in (256, 1024):
+        for codec in (FloatCodec(), FloatCodec(16, True)):
+            c = ops.magnitude_compact(g, k_cap=k_cap, codec=codec)
+            t, budget = ref.topk_threshold_ref(g, k_cap, K.TOPK_BITS[
+                g.dtype])
+            st = ref.select_stats_ref(g, None, t, k_cap, K.TILE,
+                                      pkind="topk", budget=budget)
+            vals, idx, _ = ref.compact_emit_ref(g, None, t, k_cap, codec,
+                                                False, pkind="topk",
+                                                budget=budget)
+            assert torch.equal(c.values, vals) and torch.equal(c.idx, idx)
+            assert torch.equal(c.nnz, st.nonzeros)
+        v, i, n = compaction.compact(g, k_cap)
+        top = torch.topk(g.float().abs(), k_cap).values
+        kept = torch.sort(v.float().abs(), descending=True).values
+        assert torch.equal(kept[n >= k_cap], top[n >= k_cap])
+    c = ops.magnitude_compact(g, k_cap=1024, codec=codecs.get("qsgd4"))
+    live = (c.values != 0).sum(-1, dtype=torch.int32)
+    assert torch.equal(c.live, live)
+
+
+@pytest.mark.parametrize("name", ["agspar", "gspar+bf16", "identity+qsgd4",
+                                  "topk"])
+def test_reference_backend_on_the_card_is_the_dense_wire(card, name):
+    """On the card the reference backend's buffers scatter to the dense
+    wire's Q on the same target and uniforms, and its residual is the
+    dense wire's (kernel 6), bit for bit."""
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.core.sparse import ReferenceBackend, dense_group
+    g, u = _group(card, torch.bfloat16, 65_536)
+    cfg = CompressionConfig(name=name, rho=RHO, wire="gather",
+                            backend="reference", error_feedback=True)
+    scheme = cfg.scheme()
+    u_cod = (torch.rand(g.shape, generator=card, device="cuda")
+             if scheme.codec.stochastic else None)
+    uu = u if scheme.selector.samples else None
+    sg, res = ReferenceBackend().compress_sparse_ef(
+        cfg, uu, g, cfg.capacity(g.shape[1]), u_cod)
+    r = dense_group(scheme, uu, g, True, u_cod=u_cod)
+    assert torch.equal(res, r.residual)
+    for row in range(g.shape[0]):
+        n = int(min(int(sg.n_valid[row]), sg.k_cap))
+        q = torch.zeros(g.shape[1], device="cuda")
+        q[sg.idx[row, :n].long()] = sg.decode_values()[row, :n]
+        assert torch.equal(q.to(r.q.dtype), r.q[row])

@@ -308,10 +308,11 @@ def test_config_takes_the_adaptive_fields_with_jax_errors():
         for make in (CompressionConfig, JConfig):
             with pytest.raises(ValueError):
                 make(**bad)
-    for bad in (dict(wire="packed"), dict(exchange="overlap"),
-                dict(resparsify_pods=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            CompressionConfig(**bad)
+    # refused (queue A item 9) until the rest of the exchange was ported
+    for kw in (dict(wire="packed"), dict(exchange="overlap"),
+               dict(resparsify_pods=True)):
+        cfg = CompressionConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
 
 
 def test_facade_matches_jax():

@@ -422,16 +422,29 @@ def test_entry_points_run_on_the_card_unless_asked():
 
 # the JAX config's fields the port refuses at any value but the default,
 # and the queue-A item each refusal names
-_REFUSED_ITEM = {
-    "name": "item 4", "backend": "item 4", "kernel_interpret": "item 4",
-    "resparsify_pods": "item 9", "overlap_bucket_bytes": "item 9",
-    "xla_preset": "item 13"}
+_REFUSED_ITEM = {"xla_preset": "item 13", "kernel_interpret": "item 4"}
 # values the port refused until the adaptive control loop and wire-format
-# v4 were ported (queue A items 8 and 9): each constructs now
+# v4 (queue A items 8 and 9), then the rest of the exchange and the
+# reference backend (items 9 and 4) were ported: each constructs now
 _PORTED_SINCE = [
     dict(rice_fitted=True), dict(rice_fitted=True, wire_layout="rice"),
     dict(adaptive=True, error_feedback=True), dict(delta_beta=0.5),
-    dict(skip_tau=0.1), dict(bound_decay=0.5)]
+    dict(skip_tau=0.1), dict(bound_decay=0.5),
+    dict(name="identity", wire="gather"), dict(name="qsgd", wire="gather"),
+    dict(name="none", wire="gather"), dict(name="agspar", wire="gather"),
+    dict(wire="packed"), dict(exchange="overlap"),
+    dict(name="identity+bf16", wire="gather"),
+    dict(name="identity+ternary", wire="gather", error_feedback=True),
+    dict(name="agspar+qsgd8", wire="gather"),
+    dict(name="qsgd", wire="gather", qsgd_bits=8),
+    dict(name="agspar", wire="gather", density_gain=0.5),
+    dict(backend="reference"), dict(kernel_interpret=False),
+    dict(resparsify_pods=True), dict(overlap_bucket_bytes=4096),
+    dict(name="agspar+bf16", wire="gather", error_feedback=True),
+    dict(name="identity+qsgd4", wire="gather", wire_layout="coo"),
+    dict(adaptive=True, error_feedback=True, wire="packed"),
+    dict(adaptive=True, error_feedback=True, exchange="overlap"),
+    dict(rice_fitted=True, wire="packed")]
 
 
 @pytest.mark.parametrize("kw", [
@@ -457,12 +470,14 @@ _PORTED_SINCE = [
     dict(rice_fitted=True, wire="packed")])
 def test_config_refuses_what_is_not_ported(kw):
     """Each value the JAX config takes but the port does not run raises
-    NotImplementedError naming its ROADMAP.md item: the five fields the
-    port carries only at their defaults, the packed wire and the overlap
-    exchange (with the adaptive loop too), and agspar and identity (with
-    the qsgd and none aliases) on the gather wire, which the JAX package
-    runs on its reference backend (item 4). The values ported since (the
-    adaptive loop's fields, ``rice_fitted``) construct, as in JAX."""
+    NotImplementedError naming its ROADMAP.md item: ``xla_preset`` (item
+    13), the one field the port carries only at its default, and
+    ``kernel_interpret=True`` (item 4), refused by design: the port has no
+    route from the card to the plain versions. The values ported since
+    (the adaptive loop's fields, ``rice_fitted``; the packed wire, the
+    overlap exchange, the pod stage's fields, the reference backend,
+    ``kernel_interpret=False``, agspar and identity with the qsgd and none
+    aliases on the gather wire) construct, as in JAX."""
     JConfig(**kw)                                  # valid in the JAX package
     if kw in _PORTED_SINCE:
         cfg = TConfig(**kw)
