@@ -119,6 +119,20 @@ d) at two layers. The kernel phase adds ``compaction.compact`` over dense
 rows at every group (bit-equal to its plain version, timed beside it and
 ``torch.topk(|g|, k_cap)``) and pass 2's deterministic rounding.
 
+Last, the dense-attention architectures (``arch_phase``): one
+``attn_sw`` block of gemma2-9b at full width on a 4,608-token sequence
+(the config's 4,096 window bites on the last 512 queries) against the
+plain masked expression in float64 on the card; a checkpoint resume of
+each smoke config in bf16 (three steps against one, ``save``,
+``restore`` into fresh state and two more: parameters, moments and
+residual bit-equal); then the launcher on gemma2-9b (``--num-periods
+4``), gemma2-27b (``1``: its embedding is one row of 1,179,648,000
+coordinates) and starcoder2-7b (``10``) at full width, gspar on the
+gather wire's ``auto`` with EF, rho 0.05, batch 8 x 128, Adam 3e-4, three
+steps each, gemma2-9b's exchange held to its exact bytes and gradient
+(``exchange_check`` on the card), each kernel of the path launched once a
+group a step (tail_stats up to twice, rice_pack on the RICE groups).
+
 Each run checks finite losses, no overflow and every kernel variant of the
 path launched. Prints the card's name and power limit, one JSON line of
 per-kernel numbers, and as its last line ``{"ok": true, "device": {...}}``.
@@ -177,19 +191,21 @@ class MainPath:
     survivors instead of 0."""
 
     def __init__(self, compressor, layout, value_bytes, scale_bytes,
-                 variants, extra=(), binomial=False):
+                 variants, extra=(), binomial=False, row_bytes=ROW_BYTES,
+                 rice_cap_bytes=RICE_CAP_BYTES):
         self.compressor, self.layout = compressor, layout
         self.value_bytes, self.scale_bytes = value_bytes, scale_bytes
         self.variants, self.extra = variants, list(extra)
         self.binomial = binomial
+        self.row_bytes, self.rice_cap_bytes = row_bytes, rice_cap_bytes
 
     @property
     def count_bytes(self) -> int:
-        return ROW_BYTES if self.layout == "rice" else 0
+        return self.row_bytes if self.layout == "rice" else 0
 
     @property
     def max_bytes(self) -> int:
-        cap = RICE_CAP_BYTES if self.layout == "rice" else 0
+        cap = self.rice_cap_bytes if self.layout == "rice" else 0
         return self.value_bytes + self.count_bytes + self.scale_bytes + cap
 
 
@@ -1253,7 +1269,8 @@ def exchange_check(real, record: list, path: MainPath, host_words: bool):
         layouts = set()
         for kind, sg, members in items:
             if kind != "sparse":
-                raise AssertionError("gemma-2b has no dense passthrough")
+                raise AssertionError("the checked paths have no dense "
+                                     "passthrough")
             layouts.add(sg.layout)
             k_cap, d = sg.k_cap, sg.d
             n_live_t = torch.clamp_max(sg.nnz.long(), k_cap)
@@ -2742,6 +2759,298 @@ def experiments_phase(tally: Tally) -> dict:
 # the kernels line: variant -> (the run whose launches it reports, the
 # TPU kernel's line in src/repro/kernels/sparsify/kernel.py, or the file
 # and line of the XLA selection it replaces)
+# --- the dense-attention architectures and checkpoints (arch_phase) ----------
+
+# arch -> the periods it is cut to on one 80 GB card (widths as published),
+# and whether its exchange is held to its exact bytes and gradient
+ARCH_RUNS = {"gemma2-9b": (4, True), "gemma2-27b": (1, False),
+             "starcoder2-7b": (10, False)}
+ARCH_ARGS = ["--steps", "3", "--rho", str(RHO), "--wire", "gather",
+             "--error-feedback", "--batch", "8", "--seq", "128", "--lr",
+             "3e-4", "--log-every", "1"]
+ARCH_KERNELS = GSPAR + ("compact_emit/lam", "rice_pack")
+WINDOW_SEQ = 4_608         # gemma2-9b's 4,096 window bites on 512 queries
+WINDOW_RTOL = 2e-2         # bf16 q, k, v and probabilities vs float64
+
+
+def arch_plan(arch: str, periods: int):
+    """The launcher's plan of ``arch`` cut to ``periods`` (meta tensors)
+    and the ``MainPath`` of its gspar ``auto`` exchange: bf16 values at
+    every slot, a count a row, the static RICE words as its bound."""
+    import dataclasses as dc
+    from repro_torch.comm import wire_layout
+    from repro_torch.configs import registry
+    from repro_torch.core import coding
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.core.grouping import plan_tree
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import param_shapes
+    cfg = dc.replace(registry.get(arch).model, num_periods=periods)
+    shapes = param_shapes(cfg)
+    names = leaf_order(shapes)
+    comp = CompressionConfig(name="gspar", rho=RHO, error_feedback=True,
+                             wire="gather", min_leaf_size=1024)
+    plan = plan_tree(comp, [torch.empty(shapes[n][0], dtype=cfg.dtype,
+                                        device="meta") for n in names],
+                     [shapes[n][1] for n in names])
+    layouts = {wire_layout.choose(g.k_cap, g.d, 16.0) for g in plan.groups}
+    rows = sum(g.rows for g in plan.groups)
+    path = MainPath("gspar", layouts.pop() if len(layouts) == 1 else None,
+                    2 * sum(g.rows * g.k_cap for g in plan.groups), 0,
+                    ARCH_KERNELS, row_bytes=4 * rows,
+                    rice_cap_bytes=4 * sum(
+                        g.rows * coding.rice_wire_words(g.k_cap, g.d)
+                        for g in plan.groups))
+    return cfg, plan, path
+
+
+def arch_run(arch: str) -> dict:
+    """The launcher on ``arch`` at full width cut to its periods, gspar on
+    the gather wire's ``auto`` with EF, three steps, the kernel counts set
+    to 0 just before it and read just after; gemma2-9b's exchange held to
+    its exact bytes and gradient (``exchange_check`` on the card)."""
+    from repro_torch.comm import sync
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import param_shapes
+    periods, checked = ARCH_RUNS[arch]
+    cfg, plan, path = arch_plan(arch, periods)
+    record: list = []
+    real = sync._bucketed_sync
+    if checked:
+        if path.layout != "rice":
+            raise AssertionError(f"{arch}: plan layouts not all rice")
+        sync._bucketed_sync = exchange_check(real, record, path, False)
+    K.reset_launches()
+    try:
+        summary = train.main(["--arch", arch, "--num-periods", str(periods)]
+                             + ARCH_ARGS)
+    finally:
+        sync._bucketed_sync = real
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    ms = summary["metrics"]
+    n_groups = len(plan.groups)
+    n_rice = sum(lay == "rice" for *_, lay in summary["layouts"])
+    for v in ARCH_KERNELS:
+        want = len(ms) * (n_rice if v == "rice_pack" else n_groups)
+        got = launches.get(v, 0)
+        if not (got == want or (v == "tail_stats" and want <= got
+                                <= 2 * want)):
+            raise AssertionError(f"{arch}: kernel {v} launched {got} "
+                                 f"times, want {want} ({n_groups} groups, "
+                                 f"{n_rice} rice, {len(ms)} steps)")
+    for step, m in enumerate(ms):
+        if not math.isfinite(m["loss"]) or m["overflow"] != 0:
+            raise AssertionError(f"{arch} step {step}: {m}")
+        if not 0.0 < m["density"] <= 1.25 * RHO:
+            raise AssertionError(f"{arch} step {step}: density "
+                                 f"{m['density']}")
+        if record and m["wire_bytes"] != record[step]["wire_bytes"]:
+            raise AssertionError(f"{arch} step {step}: wire_bytes "
+                                 f"{m['wire_bytes']} != {record[step]}")
+        # under a quarter of the dense wire's bf16 gradient
+        if not 0 < m["wire_bytes"] < 2 * summary["params"] / 4:
+            raise AssertionError(f"{arch} step {step}: wire_bytes "
+                                 f"{m['wire_bytes']}")
+    if checked and len(record) != len(ms):
+        raise AssertionError(f"{arch}: an exchange went unchecked")
+    if summary["params"] != sum(math.prod(s)
+                                for s, _ in param_shapes(cfg).values()):
+        raise AssertionError(f"{arch}: {summary['params']} parameters")
+    steps = summary["step_seconds"]
+    net = [s - (record[i]["check_s"] if record else 0.0)
+           for i, s in enumerate(steps)]
+    layouts = sorted({lay for *_, lay in summary["layouts"]})
+    print(f"train {arch} --num-periods {periods} ({summary['params']} "
+          f"parameters, {n_groups} groups, layouts {layouts}"
+          f"{', checked on the card' if checked else ''}): steps "
+          + ", ".join(f"{s:.4f} s" for s in steps)
+          + (" (less the checks: " + ", ".join(f"{s:.4f} s" for s in net)
+             + ")" if record else "")
+          + "; wire_bytes " + ", ".join(f"{m['wire_bytes']:.0f}" for m in ms)
+          + "; density " + ", ".join(f"{m['density']:.6f}" for m in ms)
+          + "; loss " + ", ".join(f"{m['loss']:.4f}" for m in ms)
+          + f"; launches {launches}"
+          + f"; max_memory_allocated {summary['max_memory_allocated']} B",
+          flush=True)
+    summary.update(launches=launches, checks=record, name=arch,
+                   net_seconds=net, layout_names=layouts)
+    return summary
+
+
+def _window_reference(p: dict, acfg, x: torch.Tensor,
+                      window: int | None) -> torch.Tensor:
+    """The attention of ``p`` on ``x`` as the plain masked expression in
+    float64 (query scale, RoPE, GQA, the softcap, the causal and window
+    mask, softmax), from the same bf16 weights."""
+    d64 = {k: v.double() for k, v in p.items()}
+    x = x.double()
+    s = x.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x, d64["wq"]) * acfg.scale
+    k = torch.einsum("bsd,dhk->bshk", x, d64["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, d64["wv"])
+    half = acfg.head_dim // 2
+    freq = acfg.rope_theta ** (-torch.arange(half, dtype=torch.float64,
+                                             device=x.device) / half)
+    ang = torch.arange(s, dtype=torch.float64, device=x.device)[:, None] \
+        * freq
+    sin, cos = torch.sin(ang)[:, None], torch.cos(ang)[:, None]
+
+    def rope(t):
+        a, b = t[..., :half], t[..., half:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
+
+    q, k = rope(q), rope(k)
+    g = acfg.num_heads // acfg.num_kv_heads
+    k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+    sc = torch.einsum("bshd,bthd->bhst", q, k)
+    sc = torch.tanh(sc / acfg.logit_softcap) * acfg.logit_softcap
+    i = torch.arange(s, device=x.device)[:, None]
+    j = torch.arange(s, device=x.device)[None, :]
+    keep = j <= i
+    if window is not None:
+        keep &= (i - j) < window
+    sc = sc.masked_fill(~keep, -math.inf)
+    out = torch.einsum("bhst,bthd->bshd", torch.softmax(sc, -1), v)
+    return torch.einsum("bshk,hkd->bsd", out, d64["wo"])
+
+
+def window_check() -> dict:
+    """One ``attn_sw`` block of gemma2-9b at full width (its bf16 weights
+    at the JAX package's init) on a 4,608-token sequence, so that the
+    config's 4,096 window bites on the last 512 queries: the port's
+    attention against the plain masked expression in float64 on the card,
+    within ``WINDOW_RTOL`` (relative Frobenius error, per query block);
+    the windowless float64 expression must differ on the last 512
+    queries by far more."""
+    from repro_torch.configs import gemma2_9b
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import Initializer
+    cfg = gemma2_9b.FULL
+    acfg = cfg.attn_cfg("attn_sw")
+    if acfg.window != 4096 or WINDOW_SEQ - acfg.window != 512:
+        raise AssertionError(f"window {acfg.window}")
+    ini = Initializer(torch.Generator(device="cuda").manual_seed(7),
+                      torch.bfloat16, torch.device("cuda"))
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"wq": ini.fan_in((d, h, hd)), "wk": ini.fan_in((d, kv, hd)),
+         "wv": ini.fan_in((d, kv, hd)), "wo": ini.fan_in((h, hd, d), 1)}
+    x = ini.normal((1, WINDOW_SEQ, d), stddev=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = attn.attention_train(p, acfg, x).double()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = _window_reference(p, acfg, x, acfg.window)
+        full = _window_reference(p, acfg, x, None)
+
+    def rel(a, b, sl):
+        return float((a[:, sl] - b[:, sl]).norm() / b[:, sl].norm())
+
+    head, tail = slice(0, acfg.window), slice(acfg.window, WINDOW_SEQ)
+    out = {"seq": WINDOW_SEQ, "window": acfg.window, "ms": ms,
+           "rel_err_first_4096": rel(got, want, head),
+           "rel_err_last_512": rel(got, want, tail),
+           "windowless_rel_diff_last_512": rel(full, want, tail),
+           "max_abs_err": float((got - want).abs().max())}
+    if not (out["rel_err_first_4096"] <= WINDOW_RTOL
+            and out["rel_err_last_512"] <= WINDOW_RTOL
+            and out["windowless_rel_diff_last_512"] > 10 * WINDOW_RTOL):
+        raise AssertionError(f"window check: {out}")
+    print(f"window check (gemma2-9b attn_sw, {WINDOW_SEQ} tokens, window "
+          f"{acfg.window}): {out}", flush=True)
+    return out
+
+
+def _ckpt_train(model, state, fb, step, steps, cfg):
+    """Steps ``steps`` of ``step``, step t's batch and uniforms from
+    generators on the card seeded with t."""
+    from repro_torch.data.synthetic import token_batch
+    for t in steps:
+        batch = token_batch(torch.Generator(device="cuda").manual_seed(
+            100 + t), cfg.vocab, 8, 128)
+        state, fb, _ = step(state, fb, batch, torch.Generator(
+            device="cuda").manual_seed(200 + t))
+    return state, fb
+
+
+def checkpoint_check(tmp: Path) -> dict:
+    """Each smoke config in bf16 on the card, gspar on the gather wire's
+    ``auto`` with EF and Adam: three steps against one step, ``save``,
+    ``restore`` into fresh state (another seed's parameters, zero moments
+    and residual) and two more; step 3's parameters, moments and residual
+    must be bit-equal."""
+    import dataclasses as dc
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs import registry
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.launch.train import init_process_group
+    from repro_torch.models.transformer import Transformer, init_model
+    from repro_torch.optim import optimizers as topt
+    from repro_torch.train import step as step_lib
+    comp = CompressionConfig(name="gspar", rho=RHO, wire="gather",
+                             error_feedback=True, min_leaf_size=1024)
+    own = init_process_group(torch.device("cuda"))
+    out = {}
+    try:
+        for arch in ARCH_RUNS:
+            cfg = dc.replace(registry.get(arch).smoke, dtype=torch.bfloat16)
+
+            def fresh(seed):
+                model = Transformer(cfg, init_model(cfg, torch.Generator(
+                    device="cuda").manual_seed(seed), "cuda"))
+                opt = topt.adam(3e-4)
+                return (model, opt.init(model.leaves()),
+                        topt.init_feedback(model.leaves()),
+                        step_lib.make_compressed_train_step(model, comp,
+                                                            opt))
+
+            model, state, fb, step = fresh(1)
+            state, fb = _ckpt_train(model, state, fb, step, range(3), cfg)
+            want = [t.detach().clone() for t in model.leaves()
+                    + state["m"] + state["v"] + fb.residual]
+            model, state, fb, step = fresh(1)
+            state, fb = _ckpt_train(model, state, fb, step, range(1), cfg)
+            path = str(tmp / f"{arch}.npz")
+            checkpoint.save(path, model, state, fb, extra={"arch": arch})
+            size = Path(path).stat().st_size
+            model, state, fb, step = fresh(2)
+            state, fb, _ = checkpoint.restore(path, model, state, fb)
+            if state["step"] != 1:
+                raise AssertionError(f"{arch}: restored step "
+                                     f"{state['step']}")
+            state, fb = _ckpt_train(model, state, fb, step, range(1, 3), cfg)
+            got = (list(model.leaves()) + state["m"] + state["v"]
+                   + fb.residual)
+            _same(f"{arch} resumed at step 1", [t.detach() for t in got],
+                  want)
+            out[arch] = {"bytes": size, "leaves": len(want)}
+    finally:
+        if own:
+            torch.distributed.destroy_process_group()
+    print(f"checkpoint check (smoke configs, bf16, resumed at step 1, "
+          f"bit-equal at step 3): {out}", flush=True)
+    return out
+
+
+def arch_phase(tmp: Path) -> dict:
+    """The dense-attention architectures: ``window_check``, the
+    checkpoint round trip (``checkpoint_check``), then ``arch_run`` for
+    each of ``ARCH_RUNS``."""
+    from repro_torch.kernels.sparsify import kernel as K
+    with uncounted():
+        window = window_check()
+        torch.cuda.empty_cache()
+        ckpt = checkpoint_check(tmp)
+    runs = {}
+    for arch in ARCH_RUNS:
+        torch.cuda.empty_cache()
+        runs[arch] = arch_run(arch)
+    K.reset_launches()
+    return {"runs": runs, "window": window, "checkpoint": ckpt}
+
+
 ENTRIES = {
     "topk_threshold": ("topk+ternary",
                        "src/repro/kernels/sparsify/ops.py:268"),
@@ -2874,6 +3183,13 @@ def main() -> int:
     runs.update(adaptive)
     torch.cuda.empty_cache()
     exchange = exchange_phase()
+    torch.cuda.empty_cache()
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        archs = arch_phase(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     tally = kp["tally"]
     kernels = []
@@ -2907,6 +3223,8 @@ def main() -> int:
                                      for run in adaptive.values()),
             "launches_exchange": sum(run["launches"].get(name, 0)
                                      for run in exchange["runs"].values()),
+            "launches_arch": {arch: run["launches"].get(name, 0)
+                              for arch, run in archs["runs"].items()},
         })
     kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
         kp["ms_no_ef"]
@@ -2946,6 +3264,19 @@ def main() -> int:
             "checks": run["checks"] if run["checks"] and isinstance(
                 run["checks"][0], dict) else len(run["checks"]),
             "launches": run["launches"]}}))
+    for arch, run in archs["runs"].items():
+        print(json.dumps({arch: {
+            "num_periods": ARCH_RUNS[arch][0], "params": run["params"],
+            "step_seconds": run["step_seconds"],
+            "net_seconds": run["net_seconds"],
+            "max_memory_allocated": run["max_memory_allocated"],
+            "wire_bytes": [m["wire_bytes"] for m in run["metrics"]],
+            "density": [m["density"] for m in run["metrics"]],
+            "loss": [m["loss"] for m in run["metrics"]],
+            "layouts": run["layouts"], "checks": run["checks"],
+            "launches": run["launches"]}}))
+    print(json.dumps({"window_check": archs["window"],
+                      "checkpoint_check": archs["checkpoint"]}))
     print(json.dumps({"compaction_on_pod_rows": {
         str(k): v for k, v in exchange["pod_rows"].items()}}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],

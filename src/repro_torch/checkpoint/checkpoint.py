@@ -1,0 +1,156 @@
+"""Checkpoints of the training state in the JAX package's file format
+(port of ``repro.checkpoint.checkpoint``: ``save``, ``restore``,
+``load_meta``).
+
+One ``.npz`` holds every array under the key JAX's ``tree_flatten_with_path``
+gives it (``models.convert.checkpoint_entries``): the parameters under
+``params/``, the optimizer's under ``opt/`` (Adam's ``m`` and ``v``, the
+step a 0-d int32), the error-feedback residual under ``ef/.residual/`` with
+the workers stacked on the leading axis in rank order (the pod residual,
+``ef/.pod_residual/``, with the pods), the adaptive control state under
+``ctl/.<field>/``; the ``extra`` dict goes to ``<path>.meta.json``. A
+bfloat16 leaf is written as the 2-byte ``|V2`` records that numpy writes
+for JAX's bfloat16 arrays and read back as the bits of the target leaf.
+The file is written entry by entry (``zipfile``, stored, as ``np.savez``
+writes it), so the host holds one leaf at a time.
+
+Past one worker (the default process group), ``save`` gathers each
+stacked entry to rank 0, which alone writes, and ``restore`` hands every
+rank its own slice; ``mesh`` ``(pods, data)`` (ranks pod-major) places the
+pod residual, whose copy is taken from each pod's first data worker.
+"""
+from __future__ import annotations
+
+import json
+import os
+import zipfile
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.models.convert import (PODS, WORKERS, checkpoint_entries,
+                                        numpy_from_tensor, tensor_from_numpy)
+
+
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _world() -> tuple[int, int]:
+    if dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def _pods(mesh, world: int) -> tuple[int, int]:
+    """(pods, data workers a pod)."""
+    if mesh is None:
+        if world > 1:
+            raise ValueError("a pod residual past one worker needs the mesh "
+                             "(pods, data)")
+        return 1, 1
+    pods, data = mesh
+    if pods * data != world:
+        raise ValueError(f"mesh {mesh} does not cover {world} workers")
+    return pods, data
+
+
+def _stacked(value: torch.Tensor, layout: str, world: int, rank: int,
+             mesh) -> np.ndarray | None:
+    """The file's array of a stacked entry, on rank 0 (None elsewhere):
+    every worker's ``value`` gathered in rank order, for the pods every
+    pod's first data worker's."""
+    t = value.detach().contiguous()
+    if world == 1:
+        parts = [t]
+    else:
+        parts = ([torch.empty_like(t) for _ in range(world)] if rank == 0
+                 else None)
+        dist.gather(t, parts, dst=0)
+        if rank != 0:
+            return None
+    if layout == PODS:
+        parts = parts[::_pods(mesh, world)[1]]
+    return numpy_from_tensor(torch.stack(parts))
+
+
+def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
+         extra: dict | None = None, mesh=None) -> None:
+    """Write ``model``'s parameters and the given states to ``path``
+    (``.npz`` appended when missing), ``extra`` to ``path +
+    ".meta.json"``. Every worker calls it; rank 0 writes."""
+    world, rank = _world()
+    entries = checkpoint_entries(model.leaf_names, model.leaves(), opt_state,
+                                 ef_state, ctl_state)
+    zf = None
+    if rank == 0:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        zf = zipfile.ZipFile(_npz(path), "w", zipfile.ZIP_STORED,
+                             allowZip64=True)
+    try:
+        for key, value, layout in entries:
+            if isinstance(value, int):
+                arr = np.asarray(value, np.int32)
+            elif layout in (WORKERS, PODS):
+                arr = _stacked(value, layout, world, rank, mesh)
+            else:
+                arr = numpy_from_tensor(value) if rank == 0 else None
+            if zf is not None:
+                with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, arr, allow_pickle=False)
+            del arr
+    finally:
+        if zf is not None:
+            zf.close()
+    if rank == 0 and extra is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(extra, f)
+    if world > 1:
+        dist.barrier()
+
+
+def restore(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
+            mesh=None):
+    """Read ``path`` into ``model``'s parameters and the given states, in
+    place (each tensor keeps its device and dtype; a stacked entry gives
+    this rank its own slice). Returns ``(opt_state, ef_state,
+    ctl_state)`` with the step counts read. Raises ValueError where a
+    shape, a dtype or the worker count differs from the file's."""
+    world, rank = _world()
+    pod = rank // _pods(mesh, world)[1] if (
+        ef_state is not None and ef_state.pod_residual is not None) else 0
+    steps = {}
+    with np.load(_npz(path)) as data:
+        for key, target, layout in checkpoint_entries(
+                model.leaf_names, model.leaves(), opt_state, ef_state,
+                ctl_state):
+            if key not in data:
+                raise ValueError(f"{path}: no entry {key!r}")
+            arr = data[key]
+            if layout in (WORKERS, PODS):
+                want = world if layout == WORKERS else _pods(mesh, world)[0]
+                if arr.ndim == 0 or arr.shape[0] != want:
+                    raise ValueError(f"{key}: stacked over {arr.shape[:1]}, "
+                                     f"this run has {want}")
+                arr = arr[rank if layout == WORKERS else pod]
+            if isinstance(target, int):
+                steps[key] = int(arr)
+                continue
+            got = tensor_from_numpy(arr)
+            if got.shape != target.shape or got.dtype != target.dtype:
+                raise ValueError(f"{key}: file {tuple(got.shape)} {got.dtype}"
+                                 f", state {tuple(target.shape)} "
+                                 f"{target.dtype}")
+            with torch.no_grad():
+                target.copy_(got)
+    if opt_state is not None:
+        opt_state = {**opt_state, "step": steps["opt/step"]}
+    if ctl_state is not None:
+        ctl_state.step = steps["ctl/.step"]
+    return opt_state, ef_state, ctl_state
+
+
+def load_meta(path: str) -> dict:
+    with open(path + ".meta.json") as f:
+        return json.load(f)

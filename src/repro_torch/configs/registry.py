@@ -1,5 +1,7 @@
-"""Architecture registry (port of ``repro.configs.registry``): gemma-2b only.
-The other nine architectures are ROADMAP.md queue A item 10."""
+"""Architecture registry (port of ``repro.configs.registry``): the dense
+attention architectures gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b.
+The other six (MoE, MLA, SSM, hybrid, encoder-decoder, vision prefix) are
+ROADMAP.md queue A item 10."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +9,8 @@ import importlib
 
 from repro_torch.models.transformer import ModelConfig
 
-ID_TO_MODULE = {"gemma-2b": "gemma_2b"}
+ID_TO_MODULE = {"gemma-2b": "gemma_2b", "gemma2-9b": "gemma2_9b",
+                "gemma2-27b": "gemma2_27b", "starcoder2-7b": "starcoder2_7b"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -270,14 +270,31 @@ def _stack_group(grp, leaves: list, residual: list | None, ef: bool
     return stack
 
 
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """A group's per-row float32 statistic summed in float64, rounded once:
+    the same float32 on the card and on the CPU, whose reductions add in
+    different orders (the rows' float32 values span far fewer than the 29
+    spare bits of a float64 sum, which is then exact)."""
+    return x.to(torch.float64).sum().to(F32)
+
+
+def _fold(xs: list) -> torch.Tensor:
+    """The groups' 0-d float32 values summed left to right, as the JAX
+    package's ``sum(list)`` adds them, on any device."""
+    return functools.reduce(torch.add, xs)
+
+
 def _tree_stats(cfg, leaves, bits, nnz, wvar) -> TreeStats:
     tot = float(sum(leaf.numel() for leaf in leaves))
     dev = leaves[0].device
+    # a float32 divisor on the device: PyTorch's CUDA division by a Python
+    # number multiplies by its rounded reciprocal, not an IEEE quotient
+    tot_t = torch.tensor(tot, dtype=F32, device=dev)
     return TreeStats(
-        bits=torch.stack(bits).sum(),
+        bits=_fold(bits),
         dense_bits=torch.tensor(tot * cfg.float_bits, dtype=F32, device=dev),
-        density=torch.stack(nnz).sum() / tot,
-        var_ratio=torch.stack(wvar).sum() / tot)
+        density=_fold(nnz) / tot_t,
+        var_ratio=_fold(wvar) / tot_t)
 
 
 def compress_tree(cfg: CompressionConfig, generator: torch.Generator,
@@ -375,9 +392,9 @@ def compress_tree(cfg: CompressionConfig, generator: torch.Generator,
             if ef:
                 new_res[i] = res_rows[r0:r0 + rows].view(leaves[i].shape)
             r0 += rows
-        bits.append(cg.bits.sum())
+        bits.append(_row_sum(cg.bits))
         nnz.append(cg.nnz.sum().to(F32))
-        wvar.append(cg.var_ratio.sum() * float(grp.d))
+        wvar.append(_row_sum(cg.var_ratio) * float(grp.d))
         del cg, res_rows
     return q, (new_res if ef else None), _tree_stats(cfg, leaves, bits, nnz,
                                                      wvar)
@@ -465,9 +482,9 @@ def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,
                 r0 += rows
         del stack
         items.append(("sparse", sg, grp.members))
-        bits.append(sg.bits.sum())
-        nnz.append(sg.nnz.to(F32).sum())
-        wvar.append(sg.var_ratio.sum() * float(grp.d))
+        bits.append(_row_sum(sg.bits))
+        nnz.append(sg.nnz.sum().to(F32))
+        wvar.append(_row_sum(sg.var_ratio) * float(grp.d))
 
     return items, (new_res if ef else None), _tree_stats(cfg, leaves, bits,
                                                          nnz, wvar)

@@ -289,14 +289,16 @@ class KernelBackend:
         sel, codec = scheme.selector, scheme.codec
         rows, d = g.shape
         zeros = dict(dtype=torch.int64, device=g.device)
-        sumsq = torch.zeros(rows, dtype=F32, device=g.device)
+        # float64 sums, rounded once: the same float32 on the card and the
+        # CPU, whose reductions add in different orders
+        sumsq = torch.zeros(rows, dtype=torch.float64, device=g.device)
         n_nz, n_a, n_b = (torch.zeros(rows, **zeros) for _ in range(3))
         for a, b, j0, j1 in compaction.slot_tiles(rows, er.values.shape[1],
                                                   ACCOUNT_UNITS):
             vals = er.values[a:b, j0:j1]
             v32 = (codec.decode(vals, er.scale[a:b, None])
                    if codec.integer_coded else vals.to(F32))
-            sumsq[a:b] += (v32 * v32).sum(-1)
+            sumsq[a:b] += v32.to(torch.float64).square().sum(-1)
             if codec.integer_coded:
                 n_nz[a:b] += torch.count_nonzero(v32.abs() > 0, dim=-1)
             elif sel.name in ("gspar", "bernoulli"):
@@ -323,6 +325,7 @@ class KernelBackend:
             er.nnz if sel.name == "unisp" else n_a + n_b)
         bits = scheme.message_bits(d, nnz, n_a)
         ok = er.den > 0
+        sumsq = sumsq.to(F32)
         var = torch.where(ok, sumsq / torch.where(ok, er.den, 1.0), 0.0)
         return SparseGrad(values=er.values, idx=er.idx, nnz=er.nnz,
                           p_sum=p_sum, bits=bits, var_ratio=var,

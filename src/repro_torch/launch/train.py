@@ -31,8 +31,15 @@ the pod stage across the pods (``--resparsify-pods``: Algorithm 1's step
 7, with ``--error-feedback`` on the pod's own residual). ``--mesh 1x1x1``
 runs the pod stage over groups of one. ``--mesh Dx1`` is (data, model). A
 model axis above 1 and ``--mode`` (the port runs the compressed mode
-only; FSDP) are ROADMAP.md queue A item 10, ``--checkpoint`` item 11, each
-refused with NotImplementedError. ``--num-periods`` cuts the depth; widths are never
+only; FSDP) are ROADMAP.md queue A item 10, refused with
+NotImplementedError; ``--xla-preset`` takes ``none`` (the JAX launcher's
+default) and refuses the XLA presets (item 13). ``--checkpoint PATH``
+writes the trained state after the last step in the JAX launcher's file
+format (``repro_torch.checkpoint``): the parameters, Adam's state, with
+``--error-feedback`` the residual and with ``--adaptive`` the control
+state, and ``arch``, ``steps``, ``error_feedback`` and ``adaptive`` in
+``PATH.meta.json``. ``--arch`` takes gemma-2b, gemma2-9b, gemma2-27b and
+starcoder2-7b. ``--num-periods`` cuts the depth; widths are never
 narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
 the JAX launcher: each shape group takes the layout with the fewest wire
 bytes (RICE on every gemma-2b group at rho 0.05), printed once per group
@@ -50,6 +57,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import registry
 from repro_torch.core.api import CompressionConfig
 from repro_torch.data.synthetic import token_batch
@@ -144,6 +152,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rice-fitted", action="store_true",
                     help="data-fitted Golomb-Rice parameter per leaf, "
                          "shipped in the counts-header word (rice layout)")
+    ap.add_argument("--xla-preset", default="none",
+                    help="the JAX launcher's XLA flag preset: none only "
+                         "(the XLA presets are ROADMAP.md queue A item 13)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write the trained state here after the last "
+                         "step (.npz, the JAX launcher's format)")
     ap.add_argument("--min-leaf-size", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -154,8 +168,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 # the JAX launcher's flags the port does not take yet, and the ROADMAP.md
 # item that ports each (the port runs the compressed mode only)
-UNPORTED_FLAGS = {"--mode": "queue A item 10", "--checkpoint":
-                  "queue A item 11"}
+UNPORTED_FLAGS = {"--mode": "queue A item 10"}
 
 
 def refuse_unported_flags(argv: list) -> None:
@@ -176,6 +189,10 @@ def main(argv=None) -> dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     refuse_unported_flags(argv)
     args = parse_args(argv)
+    if args.xla_preset != "none":
+        raise NotImplementedError(
+            f"--xla-preset {args.xla_preset}: the XLA flag presets are not "
+            "ported (ROADMAP.md queue A item 13); the port takes none")
     spec = registry.get(args.arch)
     cfg = spec.smoke if args.smoke else spec.model
     if args.num_periods is not None:
@@ -312,6 +329,14 @@ def _train(args, cfg, comp, device, mesh) -> dict:
                   + f"overflow {m['overflow']:.0f} "
                   + (f"skipped {m['skipped']:.1f} " if comp.adaptive else "")
                   + f"({step_seconds[-1]:.3f} s)", flush=True)
+    if args.checkpoint:
+        checkpoint.save(args.checkpoint, model, opt_state, ef_state,
+                        ctl_state, mesh=mesh,
+                        extra={"arch": args.arch, "steps": args.steps,
+                               "error_feedback": ef_state is not None,
+                               "adaptive": ctl_state is not None})
+        if rank == 0:
+            print(f"checkpoint -> {args.checkpoint}")
     summary = {"metrics": history, "step_seconds": step_seconds,
                "params": n_params, "layouts": list(train_step.layouts)}
     if device.type == "cuda":

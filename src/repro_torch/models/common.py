@@ -41,3 +41,6 @@ class Initializer:
 
     def zeros(self, shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)

@@ -3,7 +3,17 @@
 converted with ``np.asarray``) becomes the port's flat parameter dict, so
 both packages compute the same function; its adaptive ``ControlState``
 and its ``FeedbackState`` become one worker's (``control_from_jax``,
-``feedback_from_jax``)."""
+``feedback_from_jax``).
+
+Checkpoints (``repro_torch.checkpoint``) keep the JAX package's file
+format: ``checkpoint_entries`` names each tensor of the port's training
+state by its key in a JAX-written ``.npz`` (``params/<leaf path>``,
+``opt/step``, ``opt/m/<leaf path>``, ``ef/.residual/<leaf path>``,
+``ctl/.bound/<leaf path>``, ...) with its layout there: replicated, or
+stacked over the workers or the pods on a leading axis.
+``numpy_from_tensor`` and ``tensor_from_numpy`` carry a bfloat16 tensor
+as the 2-byte ``|V2`` records numpy writes for JAX's bfloat16 arrays,
+without ``ml_dtypes``."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,13 +22,69 @@ import torch
 
 def tensor_from_numpy(x, device="cpu") -> torch.Tensor:
     """One array (anything ``np.asarray`` takes) as a tensor; bfloat16
-    arrays (numpy's ml_dtypes extension) keep their bits."""
+    arrays (numpy's ml_dtypes extension, or the ``|V2`` records
+    ``np.savez`` writes for them) keep their bits."""
     arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":
+    if arr.dtype.name == "bfloat16" or arr.dtype == BF16_RECORD:
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr.copy())
     return t.to(device)
+
+
+# how numpy stores a JAX bfloat16 array it cannot name: 2-byte records
+BF16_RECORD = np.dtype("V2")
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host array for a checkpoint: bfloat16 as ``|V2``
+    records of its bits (what ``np.savez`` writes for a JAX bfloat16
+    array), every other dtype as itself."""
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_RECORD)
+    return t.numpy()
+
+
+# layouts of a checkpoint entry: the same on every worker, stacked over the
+# workers (rank order) or over the pods on a leading axis
+REPLICATED, WORKERS, PODS = "replicated", "workers", "pods"
+
+
+def checkpoint_entries(names: list, params: list, opt_state=None,
+                       ef_state=None, ctl_state=None) -> list:
+    """``(key, value, layout)`` of every entry of this worker's training
+    state, in the order the JAX package's ``tree_flatten`` writes the tree
+    ``{"params", "opt", "ef", "ctl"}`` (absent parts left out). ``names``
+    are the leaf paths in the JAX flatten order, ``params`` the leaves in
+    that order; ``value`` is a tensor, or an int for a step count (0-d
+    int32 in the file). The optimizer state's lists (Adam's ``m`` and
+    ``v``, SGD's ``mu``) and ``step`` key as ``opt/<field>``; the
+    FeedbackState and ControlState fields as ``.<field>``, which is how
+    JAX prints a dataclass attribute in a key path; ``bound`` stacks one
+    float32 per worker."""
+    out = []
+    if ctl_state is not None:
+        for field, layout in (("last_sent", WORKERS),
+                              ("last_avg", REPLICATED), ("bound", WORKERS)):
+            out += [(f"ctl/.{field}/{n}", x, layout)
+                    for n, x in zip(names, getattr(ctl_state, field))]
+        out.append(("ctl/.step", ctl_state.step, REPLICATED))
+    if ef_state is not None:
+        out += [(f"ef/.residual/{n}", x, WORKERS)
+                for n, x in zip(names, ef_state.residual)]
+        if ef_state.pod_residual is not None:
+            out += [(f"ef/.pod_residual/{n}", x, PODS)
+                    for n, x in zip(names, ef_state.pod_residual)]
+    if opt_state is not None:
+        for field in sorted(opt_state):
+            if field == "step":
+                out.append(("opt/step", opt_state["step"], REPLICATED))
+            else:
+                out += [(f"opt/{field}/{n}", x, REPLICATED)
+                        for n, x in zip(names, opt_state[field])]
+    out += [(f"params/{n}", x, REPLICATED) for n, x in zip(names, params)]
+    return out
 
 
 def params_from_numpy(tree: dict, device="cpu") -> dict[str, torch.Tensor]:

@@ -1,7 +1,10 @@
-"""Norms, rotary embeddings, the gated MLP and the tied embedding (port of
-``repro.models.layers``), with the JAX package's numerics:
+"""Norms, rotary embeddings, the gated and plain MLPs, the tied embedding
+and the logit softcap (port of ``repro.models.layers``), with the JAX
+package's numerics:
 
 - RMSNorm computes in float32 and scales by ``1 + scale`` (gemma);
+- LayerNorm computes in float32 with the population variance, eps 1e-5,
+  then ``scale`` and ``bias`` (starcoder2);
 - RoPE rotates half-split pairs (``x[:half]``, ``x[half:]``), float32
   tables, result cast back to the input dtype;
 - ``jax.nn.gelu`` is the tanh approximation by default;
@@ -21,6 +24,15 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     var = (x32 * x32).mean(-1, keepdim=True)
     normed = x32 * torch.rsqrt(var + eps)
     return (normed * (1.0 + scale.to(F32))).to(x.dtype)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(F32)
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return (normed * scale.to(F32) + bias.to(F32)).to(x.dtype)
 
 
 def rope_table(positions: torch.Tensor, head_dim: int,
@@ -51,6 +63,25 @@ def gated_mlp(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
     h_gate = (F.gelu(h_gate, approximate="tanh") if act == "gelu"
               else F.silu(h_gate))
     return (h_gate * (x @ up)) @ down
+
+
+def dense_mlp(up: torch.Tensor, up_b: torch.Tensor, down: torch.Tensor,
+              down_b: torch.Tensor, x: torch.Tensor,
+              act: str = "gelu") -> torch.Tensor:
+    """The plain two-layer MLP with biases (starcoder2)."""
+    h = x @ up + up_b
+    h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
+    return h @ down + down_b
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """``tanh(x / cap) * cap`` in x's dtype (gemma2's logit caps); the
+    divisor is a 0-d tensor of x's dtype on its device, since PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal."""
+    if cap is None:
+        return x
+    c = torch.tensor(cap, dtype=x.dtype, device=x.device)
+    return torch.tanh(x / c) * c
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,

@@ -37,10 +37,15 @@ from repro_torch.train.loss import lm_loss, shift_targets
 
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
-    """``(params dict, batch) -> scalar loss``."""
+    """``(params dict, batch) -> scalar loss``; an optional
+    ``batch["loss_mask"]`` ([B, S], 0 or 1) multiplies the next-token mask.
+    The auxiliary loss of the JAX step is zero for the ported (dense)
+    blocks and is not formed."""
     def loss_fn(params, batch):
         logits = forward_train(params, cfg, batch["tokens"])
         targets, mask = shift_targets(batch["tokens"])
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"]
         return lm_loss(logits, targets, mask)
     return loss_fn
 

@@ -8,6 +8,7 @@ GPU machine that has only PyTorch:
 Counts, kept coordinates, values (the integer codecs' levels), the EF
 residual and the Golomb-Rice words bit-equal; sums within rtol 1e-6
 (float64 accumulation on both sides, rounded once)."""
+import contextlib
 import dataclasses
 
 import pytest
@@ -1055,3 +1056,122 @@ def test_reference_backend_on_the_card_is_the_dense_wire(card, name):
         q = torch.zeros(g.shape[1], device="cuda")
         q[sg.idx[row, :n].long()] = sg.decode_values()[row, :n]
         assert torch.equal(q.to(r.q.dtype), r.q[row])
+
+
+@contextlib.contextmanager
+def _host_uniforms(seed: int):
+    """``torch.rand`` drawn on the CPU from one seeded generator and moved
+    to the requested device, so that the card and the CPU compress with
+    the same uniforms (their generators' streams differ)."""
+    real = torch.rand
+    host = torch.Generator().manual_seed(seed)
+
+    def rand(*size, generator=None, device=None, dtype=None, **kw):
+        out = real(*size, generator=host, dtype=dtype, **kw)
+        return out.to(device) if device is not None else out
+
+    torch.rand = rand
+    try:
+        yield
+    finally:
+        torch.rand = real
+
+
+@pytest.mark.parametrize("wire", ["dense", "gather"])
+def test_tree_stats_and_var_step_size_card_match_cpu(card, wire):
+    """``density``, ``var_ratio`` and the step size ``lr / max(var, 1)``
+    that ``var_adaptive_lr`` applies, on the card against the CPU on the
+    same gradients and uniforms, bit for bit (ROADMAP.md C: they were
+    divided by a Python float, which CUDA turns into a product with its
+    rounded reciprocal; now by a float32 tensor, the groups summed in the
+    JAX order and the rows in float64)."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.comm import sync
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.optim import optimizers as topt
+    from repro_torch.train import step as tstep
+    gen = torch.Generator().manual_seed(12)
+    shapes = [(4, 5000), (20_000,), (3, 7777), (64,)]
+    stacked = [True, False, True, False]
+    g = [torch.randn(s, generator=gen) * torch.randn(s, generator=gen).exp()
+         for s in shapes]
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        cfg = CompressionConfig(name="gspar", rho=0.05, min_leaf_size=128,
+                                error_feedback=True, wire=wire)
+        out = {}
+        for dev, grp in (("cuda", None), ("cpu", cpu_group)):
+            with _host_uniforms(3):
+                _, _, st = sync.sync_tree(
+                    cfg, torch.Generator(device=dev),
+                    [t.to(dev) for t in g], group=grp, stacked=stacked,
+                    feedback=topt.init_feedback([t.to(dev) for t in g]))
+            scale = tstep._var_scale(st.var_ratio, grp)
+            eta = topt._step_size(3e-4, 1, scale, torch.device(dev))
+            out[dev] = [t.cpu() for t in (st.density, st.var_ratio, scale,
+                                          eta)]
+        for name, a, b in zip(("density", "var_ratio", "var_scale", "eta"),
+                              out["cuda"], out["cpu"]):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, a, b)
+        assert float(out["cpu"][1]) > 1.0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "gemma2-27b",
+                                  "starcoder2-7b"])
+def test_arch_one_step_loss_card_matches_cpu(card, arch):
+    """One compressed step (gspar, the gather wire's ``auto``, EF, Adam) of
+    the smoke config in bfloat16 on the card against float32 on the CPU,
+    from the same parameters, batch and uniforms: the step's loss and the
+    loss after the update agree within bfloat16's rtol 1e-2."""
+    import dataclasses
+    import socket
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.data.synthetic import token_batch
+    from repro_torch.models.transformer import Transformer, init_model
+    from repro_torch.optim import optimizers as topt
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = registry.get(arch).smoke
+    params = init_model(cfg32, torch.Generator().manual_seed(0), "cpu")
+    batch = token_batch(torch.Generator().manual_seed(1), cfg32.vocab, 4, 32)
+    comp = CompressionConfig(name="gspar", rho=0.05, wire="gather",
+                             error_feedback=True, min_leaf_size=1024)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        losses = {}
+        for dev, dtype, grp in (("cuda", torch.bfloat16, None),
+                                ("cpu", torch.float32, cpu_group)):
+            cfg = dataclasses.replace(cfg32, dtype=dtype)
+            model = Transformer(cfg, {k: v.to(dev, dtype) for k, v in
+                                      params.items()})
+            opt = topt.adam(3e-4)
+            step = tstep.make_compressed_train_step(model, comp, opt,
+                                                    group=grp)
+            b = {"tokens": batch["tokens"].to(dev)}
+            with _host_uniforms(4):
+                _, _, m = step(opt.init(model.leaves()),
+                               topt.init_feedback(model.leaves()), b,
+                               torch.Generator(device=dev))
+            with torch.no_grad():
+                after = tstep.make_loss_fn(cfg)(dict(model.params), b)
+            losses[dev] = (float(m["loss"]), float(after))
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            assert abs(a - b) <= 1e-2 * abs(b), losses
+        assert losses["cpu"][1] < losses["cpu"][0]
+    finally:
+        dist.destroy_process_group()

@@ -395,7 +395,9 @@ def test_launcher_run_frees_its_model():
 
 
 def test_import_loads_no_jax():
-    """No module of the port imports JAX or the JAX package."""
+    """No module of the port imports JAX or the JAX package: the walk
+    reaches the checkpoints, the example and the dense-attention configs
+    too."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -404,6 +406,11 @@ def test_import_loads_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.checkpoint.checkpoint', "
+        "'repro_torch.examples.train_lm', 'repro_torch.configs.gemma2_9b', "
+        "'repro_torch.configs.gemma2_27b', "
+        "'repro_torch.configs.starcoder2_7b'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
