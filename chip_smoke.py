@@ -57,8 +57,9 @@ selector kind and codec, with the integer codecs' scale pass, select_stats
 with ``round_v``) and kernel 8 (sparsify_prng) are held to their plain
 versions in the kernel phase (the paths' variants at every gemma-2b group)
 and the sweep (every kind x codec x EF); Algorithm 2's lambda
-(``ops.closed_lambda``: the magnitude histogram of topk_threshold's pass)
-to the float64 sort of each row at both paths' eps;
+(``ops.closed_lambda``: the magnitude histogram of topk_threshold's pass,
+then the bin solve ``closed_lambda``, held to its plain version on the same
+bins) to the float64 sort of each row at both paths' eps;
 ``ops.gspar_sparsify_prng``, which no launcher path runs, is driven on
 every gemma-2b row as a leaf, its kept
 count held to 6 standard deviations of sum p, and its generator to
@@ -116,8 +117,11 @@ generator state; (E) ``--backend reference``: gspar with EF, each group's
 buffers and residual held to the dense wire's on the same uniforms
 (``dense_group``), agspar with EF, and ``qsgd`` (identity+qsgd4, k_cap =
 d) at two layers. The kernel phase adds ``compaction.compact`` over dense
-rows at every group (bit-equal to its plain version, timed beside it and
-``torch.topk(|g|, k_cap)``) and pass 2's deterministic rounding.
+rows at every group (on bf16 ``compact_bins`` and ``compact_select``,
+each held to its plain version; the whole bit-equal to the plain
+three-step composition, timed beside it, beside the three kernels it
+replaced and beside ``torch.topk(|g|, k_cap)``) and the deterministic
+rounding of the integer codecs in ``compact_select`` and pass 2.
 
 Last, the dense-attention architectures (``arch_phase``): one
 ``attn_sw`` block of gemma2-9b at full width on a 4,608-token sequence
@@ -237,8 +241,9 @@ PATHS = {
     # Algorithm 2 (algo="closed", eps CLOSED_GATHER_EPS) through
     # make_compressed_train_step (closed_train): the lambda from the bins
     "closed": MainPath("gspar", "rice", 2 * SLOTS, 0,
-                       ("topk_threshold/hist", "select_stats/lam",
-                        "compact_emit/lam", "rice_pack")),
+                       ("topk_threshold/hist", "closed_lambda",
+                        "select_stats/lam", "compact_emit/lam",
+                        "rice_pack")),
 }
 # The dense wire's launcher runs: name -> (compressor, EF, the kernel
 # variants the run must launch). "closed_dense" is Algorithm 2 (algo=
@@ -260,7 +265,7 @@ DENSE_RUNS = {
     "agspar_dense": ("agspar", True, ("stats", "tail_stats",
                                       "sparsify_ef/lam")),
     "none_dense": ("none", False, ("sparsify/one",)),
-    "closed_dense": ("gspar", True, ("topk_threshold/hist",
+    "closed_dense": ("gspar", True, ("topk_threshold/hist", "closed_lambda",
                                      "sparsify_ef/lam")),
 }
 
@@ -684,28 +689,37 @@ def dense_variant_checks(tally: Tally, g, u, l1, mx, lam,
 
 
 def closed_checks(tally: Tally, g, closed: dict) -> None:
-    """Algorithm 2's lambda on the card (``ops.closed_lambda``: the bins of
-    ``closed_form_lambda_rows`` from the magnitude histogram of
-    ``topk_threshold``'s histogram pass, no sort) against the plain float64
-    solve of each row (one sort, ``closed_form_lambda``), rtol 1e-6, at
-    each path's eps; its time (at the dense path's eps) and peak
-    scratch."""
+    """Algorithm 2's lambda on the card (``ops.closed_lambda``: the magnitude
+    histogram of ``topk_threshold``'s histogram pass, then the bin solve
+    ``kernel.closed_lambda``, one block a row; no sort) against the plain
+    float64 solve of each row (one sort, ``closed_form_lambda``), rtol 1e-6,
+    at each path's eps; the bin solve against its plain version on the same
+    histogram (the same bin on every row, lambda within rtol 1e-6); their
+    times (at the dense path's eps) beside the composition it replaced (the
+    histogram, then the torch solve over a float64 [rows, 2^15] tensor),
+    and the peak scratch."""
     from repro_torch.core import sparsify
     from repro_torch.kernels.sparsify import kernel as K, ops, ref
-    # the histogram pass alone (topk_threshold's bf16 round for the bins)
     rows, d = g.shape
-
-    def plain_hist():
-        return torch.stack([torch.bincount(ref.magnitude_keys(row),
-                                           minlength=1 << 15).to(torch.int32)
-                            for row in g])
+    hist = K.magnitude_hist(g)
     chk = tally.add("topk_threshold/hist",
                     cuda_ms(lambda: K.magnitude_hist(g)),
-                    cuda_ms(plain_hist, 1),
-                    rows * d * g.element_size() + rows * (1 << 15) * 4)
-    chk.equal("magnitude_hist", K.magnitude_hist(g), plain_hist())
+                    cuda_ms(lambda: ref.magnitude_counts(g), 1),
+                    rows * d * g.element_size() + rows * ref.KEY_BINS * 4)
+    chk.equal("magnitude_hist", hist, ref.magnitude_counts(g))
+    chk = tally.add(
+        "closed_lambda",
+        cuda_ms(lambda: K.closed_lambda(hist, CLOSED_EPS)),
+        cuda_ms(lambda: ref.closed_lambda_bins_ref(hist, CLOSED_EPS), 1),
+        rows * ref.KEY_BINS * 4 + rows * 8)
+    closed["ms_torch_solve"] += cuda_ms(
+        lambda: ref.closed_lambda_bins_ref(K.magnitude_hist(g), CLOSED_EPS))
     torch.cuda.empty_cache()
     for eps in (CLOSED_EPS, CLOSED_GATHER_EPS):
+        lam_b, b = K.closed_lambda(hist, eps)
+        want_lam, want_b = ref.closed_lambda_bins_ref(hist, eps)
+        chk.equal(f"closed_lambda bin eps {eps}", b, want_b)
+        chk.close(f"closed_lambda eps {eps}", lam_b, want_lam)
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         lam = ops.closed_lambda(g, eps)
@@ -713,6 +727,7 @@ def closed_checks(tally: Tally, g, closed: dict) -> None:
         closed["peak_scratch_bytes"] = max(
             closed["peak_scratch_bytes"],
             torch.cuda.max_memory_allocated() - before)
+        chk.equal(f"ops.closed_lambda eps {eps}", lam, lam_b)
         if eps == CLOSED_EPS:
             closed["ms"] += cuda_ms(lambda: ops.closed_lambda(g, eps))
         for r in range(g.shape[0]):
@@ -724,6 +739,7 @@ def closed_checks(tally: Tally, g, closed: dict) -> None:
                 raise AssertionError(f"closed_form_lambda_rows row {r} "
                                      f"eps {eps}: relative error {rel}")
             torch.cuda.empty_cache()
+    del hist
 
 
 def philox_check() -> None:
@@ -748,7 +764,8 @@ def kernel_phase(groups) -> dict:
     library_ms = 0.0
     ms_no_ef = 0.0
     prng = {"launches": 0, "rows": 0, "z_max": 0.0}
-    closed = {"ms": 0.0, "peak_scratch_bytes": 0, "max_rel_err": 0.0}
+    closed = {"ms": 0.0, "ms_torch_solve": 0.0, "peak_scratch_bytes": 0,
+              "max_rel_err": 0.0}
     philox_check()
     decode_ms = {"rice": 0.0, "rice_fitted": 0.0, "coo": 0.0}
     fitted = {"r_hist": {}, "used_words": 0, "static_words": 0}
@@ -906,26 +923,43 @@ def plain_compact(g, k_cap: int):
     return vals, idx, st.nonzeros
 
 
+def three_kernels(g, k_cap: int):
+    """The compaction's earlier route on a bf16 group, and a float32
+    group's still: ``topk_threshold`` at k_cap, then passes 1 and 2 of topk
+    (the f32 codec)."""
+    from repro_torch.core import codecs
+    from repro_torch.kernels.sparsify import kernel as K, ops
+    t, budget = ops.topk_threshold(g, k_cap)
+    sel = K.select_stats(g, None, t, k_cap, pkind="topk", budget=budget)
+    return K.compact_emit(g, None, t, sel, k_cap=k_cap,
+                          codec=codecs.FloatCodec(), ef=False, pkind="topk",
+                          budget=budget)
+
+
 def compaction_checks(tally: Tally, g, k_cap: int, first: bool) -> None:
     """``compaction.compact`` (the pod stage's and the reference backend's
-    selection: ``topk_threshold`` at k_cap, then passes 1 and 2 of topk)
-    on one group of dense heavy-tailed rows, where the capacity really
-    cuts: values, idx and nnz bit-equal to the plain version, timed beside
-    it and beside ``torch.topk(|g|, k_cap)`` (the library call); and pass
-    2's deterministic rounding (``det_round``, the pod stage's integer
-    codecs) bit-equal to its plain version on the same threshold, budget
-    and scale, qsgd4 on every group and ternary on the first."""
+    selection: on a bf16 group ``compact_bins``, the magnitude histogram
+    and a finish over its bins, then ``compact_select``, one pass with a
+    chained scan) on one group of dense heavy-tailed rows, where the
+    capacity really cuts: values, idx and nnz bit-equal to the plain
+    three-step version, timed beside it, beside the three kernels it
+    replaced (``three_kernels``) and beside ``torch.topk(|g|, k_cap)`` (the
+    library call); each kernel against its plain version, the row scalars
+    equal (sum v^2 within rtol 1e-6); and the deterministic rounding of
+    the integer codecs (the pod stage's) bit-equal to the plain version at
+    the kernel's scale, qsgd4 on every group and ternary on the first, in
+    ``compact_select`` and in pass 2 (``det_round``, a float32 group's)."""
     from repro_torch.comm import compaction
     from repro_torch.core import codecs
-    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    from repro_torch.kernels.sparsify import kernel as K, ref
     rows, d = g.shape
+    gb = g.element_size()
     vals, idx, nnz = compaction.compact(g, k_cap)
     want = plain_compact(g, k_cap)
     chk = tally.add(
         "compaction.compact", cuda_ms(lambda: compaction.compact(g, k_cap)),
         cuda_ms(lambda: plain_compact(g, k_cap), 1),
-        rows * d * g.element_size() + rows * k_cap * (g.element_size() + 4)
-        + rows * 4)
+        rows * d * gb + rows * k_cap * (gb + 4) + rows * 4)
     for what, a, b in zip(("values", "idx", "nnz"), (vals, idx, nnz), want):
         chk.equal(f"compact {what}", a, b)
     if not bool((nnz >= k_cap).all()):
@@ -933,22 +967,51 @@ def compaction_checks(tally: Tally, g, k_cap: int, first: bool) -> None:
     tally.library_ms["compaction.compact"] = tally.library_ms.get(
         "compaction.compact", 0.0) + cuda_ms(lambda: topk_library_k(
             g, k_cap), 3)
+    tally.library_ms["compaction_three_kernels"] = tally.library_ms.get(
+        "compaction_three_kernels", 0.0) + cuda_ms(
+            lambda: three_kernels(g, k_cap))
     del vals, idx, nnz, want
-    t, budget = ops.topk_threshold(g, k_cap)
+    bins = K.compact_bins(g, k_cap)
+    want = ref.compact_bins_ref(g, k_cap)
+    chk = tally.add("compact_bins", cuda_ms(lambda: K.compact_bins(g, k_cap)),
+                    cuda_ms(lambda: ref.compact_bins_ref(g, k_cap), 1),
+                    rows * d * gb + rows * 32)
+    for f in ("t", "budget", "nonzeros", "kept", "max_abs"):
+        chk.equal(f"compact_bins {f}", getattr(bins, f), getattr(want, f))
+    chk.close("compact_bins sum_sq", bins.sum_sq, want.sum_sq)
+    f32 = codecs.FloatCodec()
+    got = K.compact_select(g, bins, k_cap=k_cap, codec=f32)
+    chk = tally.add(
+        "compact_select",
+        cuda_ms(lambda: K.compact_select(g, bins, k_cap=k_cap, codec=f32)),
+        cuda_ms(lambda: ref.compact_emit_ref(
+            g, None, bins.t, k_cap, f32, False, pkind="topk",
+            budget=bins.budget), 1),
+        rows * d * gb + rows * k_cap * (gb + 4) + rows * 16)
+    want = ref.compact_emit_ref(g, None, bins.t, k_cap, f32, False,
+                                pkind="topk", budget=bins.budget)
+    for what, a, b in zip(("values", "idx"), got, want):
+        chk.equal(f"compact_select {what}", a, b)
+    del got, want
+    t, budget = ref.topk_threshold_ref(g, k_cap, K.TOPK_BITS[g.dtype])
     sel = K.select_stats(g, None, t, k_cap, pkind="topk", budget=budget)
     for name in ("qsgd4",) + (("ternary",) if first else ()):
         codec = codecs.get(name)
-        scale = codecs.finalize_scale(codec, sel.sum_sq, sel.max_abs)
-        got = K.compact_emit(g, None, t, sel, k_cap=k_cap, codec=codec,
-                             ef=False, pkind="topk", budget=budget,
-                             scale=scale, det_round=True)
+        scale = codecs.finalize_scale(codec, bins.sum_sq, bins.max_abs)
+        got = K.compact_select(g, bins, k_cap=k_cap, codec=codec,
+                               scale=scale)
         want = ref.compact_emit_ref(g, None, t, k_cap, codec, False,
                                     pkind="topk", budget=budget, scale=scale,
                                     det_round=True)
         for what, a, b in zip(("values", "idx"), got, want):
+            chk.equal(f"compact_select det {name} {what}", a, b)
+        got = K.compact_emit(g, None, t, sel, k_cap=k_cap, codec=codec,
+                             ef=False, pkind="topk", budget=budget,
+                             scale=scale, det_round=True)
+        for what, a, b in zip(("values", "idx"), got, want):
             chk.equal(f"compact_emit det {name} {what}", a, b)
         del got, want
-    del t, budget, sel
+    del t, budget, sel, bins
     torch.cuda.empty_cache()
 
 
@@ -2085,7 +2148,7 @@ def adaptive_phase() -> dict:
 
 EXCHANGE_ARGS = ["--arch", "gemma-2b", "--steps", "3", "--rho", str(RHO),
                  "--log-every", "1"]
-COMPACT = ("topk_threshold", "select_stats/topk", "compact_emit/topk")
+COMPACT = ("compact_bins", "compact_select")   # a bf16 group's compaction
 REFERENCE = ("stats", "tail_stats", "sparsify/lam", "select_stats/lam",
              "rice_pack") + COMPACT
 # name -> (extra launcher arguments, the check, the kernel variants the run
@@ -2243,6 +2306,8 @@ def pod_checks(record: list, groups_timed: dict):
                 groups_timed[key] = {
                     "ms": cuda_ms(lambda: ops.magnitude_compact(
                         stack, k_cap=sg.k_cap), 3),
+                    "three_kernels_ms": cuda_ms(lambda: three_kernels(
+                        stack, sg.k_cap), 3),
                     "library_ms": cuda_ms(lambda: topk_library_k(
                         stack, sg.k_cap), 3)}
             del stack
@@ -2411,8 +2476,8 @@ def exchange_run(name: str, groups_timed: dict) -> dict:
         if check in ("pods", "resparsify") and m["wire_bytes_inter"] <= 0:
             raise AssertionError(f"{name} step {step}: no pod stage")
     n_groups = len(main_path_groups())
-    if check == "pods" and launches.get("compact_emit/topk") != len(
-            ms) * n_groups:
+    if check == "pods" and any(launches.get(k) != len(ms) * n_groups
+                               for k in COMPACT):
         raise AssertionError(f"{name}: {launches}")
     if check == "pods":
         for step, (m, rec) in enumerate(zip(ms, record)):
@@ -3082,6 +3147,9 @@ ENTRIES = {
     "rice_fit": ("adaptive_A", "src/repro/comm/compaction.py:300"),
     "rice_pack/fitted": ("adaptive_A", "src/repro/comm/compaction.py:265"),
     "compaction.compact": ("exchange_B", "src/repro/comm/compaction.py:64"),
+    "compact_bins": ("exchange_B", "src/repro/comm/compaction.py:64"),
+    "compact_select": ("exchange_B", "src/repro/comm/compaction.py:64"),
+    "closed_lambda": ("closed_dense", "src/repro/core/sparsify.py:40"),
 }
 # what each run of the dense wire and kernel 8 drives
 DENSE_PATHS = {
@@ -3139,7 +3207,9 @@ def main() -> int:
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for line in ptxas_lines(log, ("compact_emit", "rice_pack",
-                                  "select_tiles_topk", "radix_")):
+                                  "select_tiles_topk", "radix_",
+                                  "compact_select", "compact_finish",
+                                  "closed_finish")):
         print(line)
     dense = ptxas_lines(log, ("sparsify_tiles",))
     regs = [int(x.split(" registers")[0].rsplit(" ", 1)[-1]) for x in dense]
@@ -3198,10 +3268,10 @@ def main() -> int:
     launches["experiments"] = exp["launches"]
     for key, run in exchange["runs"].items():
         launches[key] = run["launches"]
-    # the compaction launches its three kernels once a group: its count is
-    # its pass 2's, in run B (whose worker stage runs no topk)
+    # the compaction launches its two kernels once a bf16 group: its count
+    # is its select pass's, in run B
     launches["exchange_B"]["compaction.compact"] = launches[
-        "exchange_B"].get("compact_emit/topk", 0)
+        "exchange_B"].get("compact_select", 0)
     for name, (run, line) in ENTRIES.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -3235,6 +3305,12 @@ def main() -> int:
             tally.library_ms[key]
     kernels[list(ENTRIES).index("sparsify_prng")]["max_sd_from_sum_p"] = \
         kp["prng"]["z_max"]
+    kernels[list(ENTRIES).index("compaction.compact")]["three_kernels_ms"] = \
+        tally.library_ms["compaction_three_kernels"]
+    kernels[list(ENTRIES).index("closed_lambda")]["ops_ms"] = \
+        kp["closed"]["ms"]
+    kernels[list(ENTRIES).index("closed_lambda")]["torch_solve_ms"] = \
+        kp["closed"]["ms_torch_solve"]
     closed = kp["closed"]
     for key, run in runs.items():
         print(json.dumps({key: {
@@ -3283,6 +3359,7 @@ def main() -> int:
                       "closed_form_lambda_rows": dict(
                           eps=[CLOSED_EPS, CLOSED_GATHER_EPS],
                           ms_per_step_at_eps_1=closed["ms"],
+                          ms_hist_then_torch_solve=closed["ms_torch_solve"],
                           peak_scratch_bytes=closed["peak_scratch_bytes"],
                           max_rel_err_vs_float64_sort=closed[
                               "max_rel_err"]),

@@ -26,7 +26,18 @@ chip_smoke's kernel phase. The variants:
   with per-warp histograms (the source: one round of 2^15 bins), the same
   build with ``kernel.TOPK_BITS`` set;
 - ``radix_unroll8``: topk_threshold's histogram pass with 8 16-byte loads
-  in flight a thread (the source: 4).
+  in flight a thread (the source: 4);
+- ``select_blocks3``: the compaction's ``compact_select`` compiled for 3
+  blocks an SM (the source: 4);
+- ``select_no_sleep``: its look-back spinning without a back-off (the
+  source: ``__nanosleep`` between reads).
+
+And four diagnostics of ``compact_select``, each the source with a part of
+its work taken out, timed only (their outputs are not the source's):
+``select_copy_only`` (a block copies its tile to shared memory and
+leaves), ``select_count_only`` (and counts it), ``select_no_lookback``
+(every step but the look-back: a tile takes a made-up base) and
+``select_no_store`` (every step but the staging and the stores).
 
 ``--only`` runs the named variants (and the source) alone. Every variant's
 outputs are held bit-equal to the source's. Prints the card's name and
@@ -60,7 +71,16 @@ CASES = {"memset": COMPACT, "zeroing": COMPACT, "bounds5": COMPACT,
          "topk_f64": ("select_stats/topk",),
          "topk_branchless": ("select_stats/topk",),
          "radix2": ("topk_threshold",),
-         "radix_unroll8": ("topk_threshold",)}
+         "radix_unroll8": ("topk_threshold",),
+         "select_blocks3": ("compact_select",),
+         "select_no_sleep": ("compact_select",),
+         "select_copy_only": ("compact_select",),
+         "select_count_only": ("compact_select",),
+         "select_no_lookback": ("compact_select",),
+         "select_no_store": ("compact_select",)}
+# variants that take work out: timed, their outputs not held to the source's
+DIAGNOSTIC = {"select_copy_only", "select_count_only", "select_no_lookback",
+              "select_no_store"}
 # variants that are the source's build with other topk_threshold rounds
 BITS = {"radix2": (8, 7)}
 
@@ -77,11 +97,21 @@ def variants(src: str) -> dict[str, str]:
         return out.replace("constexpr int kRiceMinBlocks = 6;",
                            f"constexpr int kRiceMinBlocks = {blocks};")
 
+    def alone(old: str, new: str) -> str:
+        lb = "  if (w == kSelWarps) {\n"
+        if src.count(lb) != 1:
+            raise AssertionError(f"variant pattern not found once: {lb!r}")
+        return sub(old, new).replace(lb, lb + "    return;\n")
+
     def tiles(n: int) -> str:
         return sub("constexpr int kTopkTiles = 8;",
                    f"constexpr int kTopkTiles = {n};")
 
     zero = "  const int zero_dead = k_cap < d;"
+    copied = "  sel_sync_tile();                       // the tile is in shared memory\n"
+    counted = "  sh_thr[threadIdx.x] = inc - mine;      // my lanes' before " \
+        "me, in my warp\n"
+    staged = "    const int wn = __shfl_sync(kFull, r0 + __popc(km), 31) - wr;"
     return {
         "source": src,
         "memset": sub(zero, "  const int zero_dead = 0;"),
@@ -110,6 +140,19 @@ def variants(src: str) -> dict[str, str]:
 """),
         "radix_unroll8": sub("  constexpr int kUnroll = 4;\n",
                              "  constexpr int kUnroll = 8;\n"),
+        "select_blocks3": sub("constexpr int kSelMinBlocks = 4;",
+                              "constexpr int kSelMinBlocks = 3;"),
+        "select_no_sleep": sub("      __nanosleep(64);\n", ""),
+        # the look-back warp leaves at once too, or it would wait on
+        # aggregates that are never published
+        "select_copy_only": alone(copied, copied + "  if (sh_tile[0].x == "
+                                  "1u) idx[0] = 1;\n  return;\n"),
+        "select_count_only": alone(counted, counted + "  if (inc == -1) "
+                                   "idx[0] = 1;\n  return;\n"),
+        "select_no_lookback": sub(
+            "b == 0 ? 0ull : select_lookback(st, b)",
+            "(unsigned long long)(b * 1024)"),
+        "select_no_store": sub(staged, staged + "\n    continue;"),
     }
 
 
@@ -188,6 +231,7 @@ def main() -> int:
         k_target = max(1, round(RHO * d))
         t, budget = ops.topk_threshold(g, k_target)
         stt = K.select_stats(g, None, t, k_cap, pkind="topk", budget=budget)
+        bins = K.compact_bins(g, k_cap)
         _, idx, _ = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32,
                                    ef=False)
         r = coding.rice_parameter(k_cap, d)
@@ -207,13 +251,15 @@ def main() -> int:
             "select_stats/topk": lambda: _counts(K.select_stats(
                 g, None, t, k_cap, pkind="topk", budget=budget)),
             "topk_threshold": lambda: K.topk_threshold(g, k_target),
+            "compact_select": lambda: K.compact_select(
+                g, bins, k_cap=k_cap, codec=f32),
         }
         cases = {c: fn for c, fn in cases.items() if c in wanted}
         for case, fn in cases.items():     # each variant as the source
             use("source")
             want = fn()
             for name in names[1:]:
-                if case not in CASES[name]:
+                if case not in CASES[name] or name in DIAGNOSTIC:
                     continue
                 use(name)
                 out = fn()
@@ -233,7 +279,7 @@ def main() -> int:
             for case, ts in times[name].items():
                 total[name][case] = (total[name].get(case, 0.0)
                                      + statistics.mean(ts))
-        del g, u, st, stb, stt, ucb, idx, cases
+        del g, u, st, stb, stt, ucb, idx, bins, cases
         torch.cuda.empty_cache()
     use("source")
     for name, ms in total.items():

@@ -656,7 +656,7 @@ def _compact_items(cfg: CompressionConfig, leaves: list, stacked: list):
     """The pod stage's one selection without ``resparsify_pods``
     (``repro.comm.sync._compact_items``): every sparse shape group of the
     already averaged ``leaves`` compacted to its capacity by magnitude
-    (``ops.magnitude_compact``, on the card the hand kernels of topk), its
+    (``ops.magnitude_compact``, on the card its hand kernels), its
     values encoded in the configured codec's wire dtype, an integer codec
     rounding deterministically. The items are ``compress_tree_sparse``'s,
     under the same plan, with ``p_sum = nnz`` and zero accounting; RICE

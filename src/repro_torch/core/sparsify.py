@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.sparsify import ref
+
 F32 = torch.float32
 F64 = torch.float64
 
@@ -60,11 +62,6 @@ def closed_form_lambda(g: torch.Tensor, eps: float
     return lam.to(F32), any_ok
 
 
-# the bins of a bfloat16 group: the 15 bits of |g|'s pattern (the sign bit
-# is 0), one value each
-_NBINS = 1 << 15
-
-
 def closed_form_lambda_rows(g2d: torch.Tensor, eps: float,
                             counts: torch.Tensor | None = None
                             ) -> torch.Tensor:
@@ -74,14 +71,12 @@ def closed_form_lambda_rows(g2d: torch.Tensor, eps: float,
 
     A bfloat16 row needs no sort. Its bins hold one value each, so the
     condition is constant over a bin's run in descending order and k* is
-    the first position of the highest bin where it holds. With T and L the
-    sums of |g| and g^2 over the bins below a bin (float64), the condition
-    at a bin of value m is ``m T <= eps sum g^2 + L``, and the counts alone
-    give every sum: ``counts [rows, 2^15]`` (``kernel.magnitude_hist``) or
-    ``torch.bincount`` of the keys. A float32 row is solved by
-    ``closed_form_lambda``, one row at a time. Rows where the condition
-    never holds (eps < 0) get 0, as the JAX package's fused path takes
-    ``lambda = 0`` there."""
+    the first position of the highest bin where it holds; the counts alone
+    give every sum (``ref.closed_lambda_bins_ref``): ``counts [rows,
+    2^15]`` (``kernel.magnitude_hist``) or ``torch.bincount`` of the keys.
+    A float32 row is solved by ``closed_form_lambda``, one row at a time.
+    Rows where the condition never holds (eps < 0) get 0, as the JAX
+    package's fused path takes ``lambda = 0`` there."""
     rows, dev = g2d.shape[0], g2d.device
     if g2d.dtype != torch.bfloat16:
         lam = torch.empty(rows, dtype=F32, device=dev)
@@ -89,27 +84,8 @@ def closed_form_lambda_rows(g2d: torch.Tensor, eps: float,
             lam[r] = closed_form_lambda(g2d[r], eps)[0]
         return lam
     if counts is None:
-        keys = (g2d.view(torch.int16).to(torch.int32) & 0x7FFF).long()
-        counts = torch.stack([torch.bincount(k, minlength=_NBINS)
-                              for k in keys])
-    cnt = counts.to(torch.int64)
-    # the value of each bin; bins past the largest finite value are empty
-    # (no inf x 0)
-    val = (torch.arange(_NBINS, dtype=torch.int32, device=dev) << 16).view(
-        F32).to(F64)
-    v64 = torch.where(cnt > 0, val, 0.0)
-    s1 = cnt.to(F64) * v64
-    s2 = s1 * v64
-    total = s2.sum(-1, keepdim=True)
-    t_low = torch.cumsum(s1, -1) - s1
-    l_low = torch.cumsum(s2, -1) - s2
-    c = (cnt > 0) & (v64 * t_low <= eps * total + l_low)
-    b = torch.where(c, torch.arange(_NBINS, device=dev), -1).amax(-1)
-    j = b.clamp_min(0)[:, None]
-    num = (s1.gather(1, j) + t_low.gather(1, j))[:, 0]
-    den = (eps * total[:, 0] + s2.gather(1, j)[:, 0]
-           + l_low.gather(1, j)[:, 0])
-    return torch.where(b >= 0, _safe_div(num, den).to(F32), 0.0)
+        counts = ref.magnitude_counts(g2d)
+    return ref.closed_lambda_bins_ref(counts, eps)[0]
 
 
 def closed_form_probabilities(g: torch.Tensor, eps: float) -> torch.Tensor:

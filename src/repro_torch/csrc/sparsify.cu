@@ -23,11 +23,20 @@
 //   sparsify_prng <- sparsify_prng_2d (kernel.py:157)  Q(g), Philox uniforms
 //   topk_threshold <- the lax.top_k of topk_emit (ops.py:268, outside
 //                    Pallas)  topk's threshold and tie budget per row
+//   compact_bins, compact_select <- the lax.top_k of compaction.compact
+//                    (src/repro/comm/compaction.py:64)  the magnitude
+//                    compaction of a bf16 group: row scalars from the
+//                    magnitude bins, then one select-and-compact pass
+//   closed_lambda <- the jnp.sort of closed_form_lambda
+//                    (src/repro/core/sparsify.py:40)  Algorithm 2's lambda
+//                    of a bf16 row from its magnitude bins
 //
 // The first six run the sparse gather wire (rice_fit and the fitted
 // rice_pack under wire-format v4), the next four the dense wire
 // (stats, tail_stats and sparsify or sparsify_ef) and ops.gspar_sparsify_prng;
-// topk_threshold gives the topk selector its per-row scalars.
+// topk_threshold gives the topk selector its per-row scalars; the last
+// three serve the pod stage's and the reference backend's compaction and
+// Algorithm 2 (algo="closed").
 //
 // Passes 1 and 2 take every selector kind of the TPU kernels (gspar's lam,
 // unisp's rho, bernoulli's bern, topk) as a template parameter, and pass 2
@@ -1949,6 +1958,603 @@ radix_finish(const unsigned* __restrict__ hist, int bits, int first,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bins of a bfloat16 row. Its 15-bit magnitude key (bits & 0x7fff)
+// takes 2^15 values, one bin each, and a bin holds one value: so the one
+// histogram pass of topk_threshold (radix_hist at 15 bits) gives every
+// order statistic and every sum over |g| that depends on a magnitude
+// threshold. Two finish kernels read a row's 2^15 counts, one block a row
+// (kRadixThreads threads, kBinsPerThread consecutive bins each, loaded as
+// 16-byte vectors):
+//
+//   compact_finish  the magnitude compaction's row scalars at k_cap: the
+//                   threshold t, the tie budget, the nonzeros (d less bin
+//                   0), the kept count min(k_cap, nonzeros) and an integer
+//                   codec's scale inputs over the kept values, sum v^2 and
+//                   max|v|. It replaces pass 1 of topk (select_tiles_topk
+//                   and select_finish) on the compaction's path;
+//   closed_finish   Algorithm 2's lambda (the XLA jnp.sort of
+//                   closed_form_lambda, src/repro/core/sparsify.py:40)
+//                   with no float64 [rows, 2^15] scratch: the counts are
+//                   read once and scanned in the block.
+//
+// Sums of bins are float64 over exact terms: c v has at most 39
+// significant bits and c v^2 (or c times v's float32 square) at most 47, so
+// only the additions round. Empty bins are skipped (the keys of inf and NaN
+// make 0 x inf).
+// ---------------------------------------------------------------------------
+
+constexpr int kKeyBins = 1 << 15;
+constexpr int kBinsPerThread = kKeyBins / kRadixThreads;   // 32
+
+// A thread's kBinsPerThread counts from bin lo (16-byte aligned).
+__device__ __forceinline__ void load_bins(const unsigned* __restrict__ h,
+                                          int lo,
+                                          unsigned c[kBinsPerThread]) {
+  const uint4* p = reinterpret_cast<const uint4*>(h + lo);
+#pragma unroll
+  for (int v = 0; v < kBinsPerThread / 4; ++v) {
+    const uint4 q = p[v];
+    c[4 * v] = q.x; c[4 * v + 1] = q.y; c[4 * v + 2] = q.z; c[4 * v + 3] = q.w;
+  }
+}
+
+// The value of a bf16 magnitude key.
+__device__ __forceinline__ float key_value(int key) {
+  return __uint_as_float((unsigned)key << 16);
+}
+
+// Block-wide max of a non-negative int, valid in every thread; `sh` one int.
+__device__ int block_max_int(int v, int* sh) {
+  if (threadIdx.x == 0) *sh = 0;
+  __syncthreads();
+  v = __reduce_max_sync(kFull, v);
+  if ((threadIdx.x & 31) == 0) atomicMax(sh, v);
+  __syncthreads();
+  return *sh;
+}
+
+// One block a row. Thread j holds the bins [lo, lo + 32), lo counted from
+// the top (thread 0 the highest bins), so one exclusive block scan of the
+// threads' counts gives each run's rank from the top, and the thread whose
+// run holds rank k_cap walks it down to the bin: that is t's key, and
+// k_cap less the coordinates above it is the tie budget (radix_finish's
+// rule; a row with fewer than k_cap nonzeros ends in bin 0: t = 0). The
+// kept values are the bins above t and `budget` values t: sum v^2 over
+// them (each v^2 rounded to float32, as pass 1 squares) and max|v|, the
+// highest non-empty bin.
+__global__ void __launch_bounds__(kRadixThreads)
+compact_finish(const unsigned* __restrict__ hist, int64_t d, int64_t k_cap,
+               float* __restrict__ t_out, long long* __restrict__ budget_out,
+               int* __restrict__ nonzeros_out, int* __restrict__ kept_out,
+               float* __restrict__ sum_sq_out, float* __restrict__ max_out) {
+  const int64_t row = blockIdx.x;
+  const unsigned* h = hist + row * kKeyBins;
+  const int lo = kKeyBins - ((int)threadIdx.x + 1) * kBinsPerThread;
+  unsigned c[kBinsPerThread];
+  load_bins(h, lo, c);
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) mine += (int)c[j];
+  __shared__ int sh_scan[33];
+  __shared__ int sh_key, sh_max;
+  __shared__ long long sh_budget;
+  __shared__ double sh_d[32];
+  int total;
+  const int above = block_excl_scan(mine, &total, sh_scan);
+  if (above < k_cap && k_cap <= (long long)above + mine) {   // one thread
+    long long acc = above;
+    for (int j = kBinsPerThread - 1; j >= 0; --j) {
+      if (acc + c[j] >= k_cap) {
+        sh_key = lo + j;
+        sh_budget = k_cap - acc;
+        break;
+      }
+      acc += c[j];
+    }
+  }
+  __syncthreads();
+  const int tkey = sh_key;
+  const long long budget = sh_budget;
+  double sq = 0.0;
+  int top = 0;
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    const int b = lo + j;
+    if (c[j] == 0u || b < tkey) continue;
+    top = b > top ? b : top;
+    const float v = key_value(b);
+    const double s = (double)__fmul_rn(v, v);
+    sq = __dadd_rn(sq, __dmul_rn(b > tkey ? (double)c[j] : (double)budget,
+                                 s));
+  }
+  sq = block_sum(sq, sh_d);
+  top = block_max_int(top, &sh_max);
+  if (threadIdx.x == 0) {
+    const int nz = (int)(d - (int64_t)h[0]);
+    t_out[row] = key_value(tkey);
+    budget_out[row] = budget;
+    nonzeros_out[row] = nz;
+    kept_out[row] = nz < k_cap ? nz : (int)k_cap;
+    sum_sq_out[row] = (float)sq;
+    max_out[row] = key_value(top);
+  }
+}
+
+// Block-wide exclusive scan of a pair of doubles, one pair a thread: each
+// thread gets its exclusive prefixes, and the block totals. `sh` holds 66.
+// Exclusive prefixes are shifted inclusive ones (no subtraction).
+__device__ void block_excl_scan2(double a, double b, double* ea, double* eb,
+                                 double* ta, double* tb, double* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  double ia = a, ib = b;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double na = __shfl_up_sync(kFull, ia, o);
+    const double nb = __shfl_up_sync(kFull, ib, o);
+    if (lane >= o) {
+      ia = __dadd_rn(na, ia);
+      ib = __dadd_rn(nb, ib);
+    }
+  }
+  double xa = __shfl_up_sync(kFull, ia, 1);   // the lanes before me
+  double xb = __shfl_up_sync(kFull, ib, 1);
+  if (lane == 0) xa = xb = 0.0;
+  __syncthreads();
+  if (lane == 31) {
+    sh[w] = ia;
+    sh[32 + w] = ib;
+  }
+  __syncthreads();
+  if (w == 0) {
+    double sa = lane < nw ? sh[lane] : 0.0;
+    double sb = lane < nw ? sh[32 + lane] : 0.0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double na = __shfl_up_sync(kFull, sa, o);
+      const double nb = __shfl_up_sync(kFull, sb, o);
+      if (lane >= o) {
+        sa = __dadd_rn(na, sa);
+        sb = __dadd_rn(nb, sb);
+      }
+    }
+    double pa = __shfl_up_sync(kFull, sa, 1);
+    double pb = __shfl_up_sync(kFull, sb, 1);
+    if (lane == 0) pa = pb = 0.0;
+    __syncwarp();
+    if (lane < nw) {
+      sh[lane] = pa;
+      sh[32 + lane] = pb;
+    }
+    if (lane == 31) {
+      sh[64] = sa;
+      sh[65] = sb;
+    }
+  }
+  __syncthreads();
+  *ea = __dadd_rn(sh[w], xa);    // the warps before mine, then my lanes'
+  *eb = __dadd_rn(sh[32 + w], xb);
+  *ta = sh[64];
+  *tb = sh[65];
+}
+
+// One block a row. Thread j holds the bins [32 j, 32 j + 32), ascending.
+// With v a bin's value (0 where the bin is empty), s1 = c v and s2 = c v^2,
+// T and L the sums of s1 and s2 over the bins below and S the row's sum of
+// s2: the highest non-empty bin b with v T <= eps S + L gives lambda =
+// (s1 + T) / (eps S + s2 + L) at b, rounded to float32 once; no such bin
+// (eps < 0) gives 0 and bin -1. Each product and sum is rounded on its own
+// (no FMA), in the order of the plain version's expression
+// (ref.closed_lambda_bins_ref); the scan's order is the block's, so T, L and
+// S agree with torch.cumsum's to rounding (rtol 1e-6 on lambda).
+__global__ void __launch_bounds__(kRadixThreads)
+closed_finish(const unsigned* __restrict__ hist, double eps,
+              float* __restrict__ lam_out, int* __restrict__ bin_out) {
+  const int64_t row = blockIdx.x;
+  const int lo = (int)threadIdx.x * kBinsPerThread;
+  unsigned c[kBinsPerThread];
+  load_bins(hist + row * kKeyBins, lo, c);
+  double a1 = 0.0, a2 = 0.0;
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    if (c[j] == 0u) continue;
+    const double v = (double)key_value(lo + j);
+    const double s1 = __dmul_rn((double)c[j], v);
+    a1 = __dadd_rn(a1, s1);
+    a2 = __dadd_rn(a2, __dmul_rn(s1, v));
+  }
+  __shared__ double sh[66];
+  __shared__ int sh_best;
+  double t_low, l_low, t_all, total;
+  block_excl_scan2(a1, a2, &t_low, &l_low, &t_all, &total, sh);
+  const double budget = __dmul_rn(eps, total);
+  int best = -1;
+  double num = 0.0, den = 0.0;
+#pragma unroll
+  for (int j = 0; j < kBinsPerThread; ++j) {
+    if (c[j] == 0u) continue;
+    const double v = (double)key_value(lo + j);
+    const double s1 = __dmul_rn((double)c[j], v);
+    const double s2 = __dmul_rn(s1, v);
+    if (__dmul_rn(v, t_low) <= __dadd_rn(budget, l_low)) {
+      best = lo + j;
+      num = __dadd_rn(s1, t_low);
+      den = __dadd_rn(__dadd_rn(budget, s2), l_low);
+    }
+    t_low = __dadd_rn(t_low, s1);
+    l_low = __dadd_rn(l_low, s2);
+  }
+  const int b = block_max_int(best + 1, &sh_best) - 1;
+  if (b >= 0 && best == b) {             // the thread that holds bin b
+    lam_out[row] = den > 0.0 ? (float)__ddiv_rn(num, den) : 0.f;
+    bin_out[row] = b;
+  } else if (b < 0 && threadIdx.x == 0) {
+    lam_out[row] = 0.f;
+    bin_out[row] = -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// compact_select: the magnitude compaction's one pass over g after
+// compact_finish. Per row, keep |g| > t and the first `budget` coordinates
+// with |g| == t > 0 (lax.top_k's lowest-index tie break), and write them in
+// coordinate order into the compact buffers: idx the coordinate, the value
+// the bf16 itself (the f32 and bf16 codecs on a bf16 row) or an integer
+// codec's level of it from the row's scale at the deterministic uniform
+// kDetU (the pod stage's _encode_det). Slots [kept, k_cap) get idx 0 and
+// value 0. It replaces pass 2 of topk (compact_emit) on the compaction's
+// path, and with compact_finish its pass 1.
+//
+// Order without a second read. Pass 2 took each tile's base rank from pass
+// 1's per-tile counts. Here a tile of kSelTile coordinates is read once,
+// into shared memory, its strict survivors and ties are counted, and the
+// counts of the row's tiles before it come from a single-pass chained scan
+// with decoupled look-back. A status word carries both counts, each below
+// 2^31 (the wrapper refuses d >= 2^31), beside a 2-bit flag: [flag | ties
+// (31 bits) | strict (31 bits)]; packed words add field by field, as no
+// field sum reaches 2^31. A kept item's slot is strict-before +
+// min(ties-before, budget), and a tie is kept while its tie rank is below
+// the budget.
+//
+// The design, for the card. A block a tile, taken from a per-row ticket
+// (rice_pack's scheme: a block only waits on tiles that have started):
+// - the tile goes to shared memory by cp.async (16 B a copy, a sweep of the
+//   block coalesced), so the registers stay few and 4 blocks fit an SM;
+// - a thread counts 64 consecutive coordinates (its 8 chunks, read from a
+//   swizzled slot so that neither the copies nor the reads conflict on
+//   banks): the tile's ranks take one warp scan and an exclusive sum of
+//   the warps' totals;
+// - a chunk's 8 keys are compared two to a 32-bit word: with the keys in
+//   15-bit halves, k + (0x7fff - t) sets bit 15 of a half exactly where
+//   k > t and k + (0x8000 - t) where k >= t, with no carry between halves;
+// - a ninth warp does the look-back from the block's start, while the tile
+//   loads and is counted (the tile's warps publish its aggregate as soon as
+//   they have counted it, so no tile waits on another's look-back), and
+//   waits only on the tiles between b and the nearest inclusive prefix;
+// - the writes go a sweep at a time: a warp's kept items of a sweep take
+//   consecutive slots, so each lane stages its own in shared memory and
+//   the warp stores them coalesced.
+// Measured slower on the H100: the tile in registers (3 blocks an SM),
+// persistent blocks that copy their next tile while finishing the current
+// one (a tile's aggregate then waits a whole tile, and the chain of
+// look-backs serialises), each lane storing its own kept items, and the
+// block staging all the tile's candidates with their counts (no faster,
+// and it spilled).
+// Bound: one read of g (2 B/coord) and the compact write (k_cap x (2 + 4)
+// B a row with bf16 values).
+// ---------------------------------------------------------------------------
+
+constexpr int kSelThreads = 256;                   // threads a block
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelChunks = 8;                      // a thread's 16-B chunks
+constexpr int kSelTileChunks = kSelChunks * kSelThreads;
+constexpr int64_t kSelTile = (int64_t)kSelTileChunks * kItems;   // 16,384
+constexpr int kSelMinBlocks = 4;                   // blocks an SM holds
+// shared memory a block: the tile, each chunk's count prefix within its
+// thread (two bytes: strict, ties), each thread's prefix in its warp, and
+// each warp's staging of one sweep's kept items (idx and bf16 bits)
+constexpr int kSelSmem = kSelTileChunks * 16 + kSelTileChunks * 2 +
+                         kSelThreads * 4 + kSelThreads * kItems * 6;
+constexpr unsigned long long kSelCount = (1ull << 31) - 1;
+constexpr unsigned long long kSelValue = (1ull << 62) - 1;
+constexpr unsigned long long kSelAggregate = 1ull << 62;
+constexpr unsigned long long kSelPrefix = 2ull << 62;
+
+// Run by one warp after its block published tile b's aggregate (b > 0):
+// the packed counts of the row's tiles before b. Lane l reads tile b - 1 -
+// l (a window of 32, nearest first) and re-reads only while a tile nearer
+// than the nearest inclusive prefix has published nothing.
+__device__ unsigned long long select_lookback(
+    const unsigned long long* __restrict__ st, int64_t b) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long excl = 0ull;
+  for (int64_t top = b - 1;; top -= 32) {
+    const int64_t j = top - lane;
+    unsigned long long f = j >= 0 ? ld_status(st + j) : kSelPrefix;
+    unsigned pre;
+    int last;                           // the lanes to sum: 0..last
+    while (true) {
+      pre = __ballot_sync(kFull, (f >> 62) == 2);
+      last = pre ? __ffs(pre) - 1 : 31;
+      const unsigned need = last == 31 ? kFull : (2u << last) - 1u;
+      if (!(__ballot_sync(kFull, (f >> 62) == 0) & need)) break;
+      __nanosleep(64);
+      if ((f >> 62) == 0) f = ld_status(st + j);
+    }
+    excl += warp_allsum(lane <= last ? (f & kSelValue) : 0ull);
+    if (pre) return excl;
+  }
+}
+
+// A 16-byte asynchronous copy from device to shared memory, cached in L2
+// only.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+// The stage slot of a tile's chunk c (coordinates 8c .. 8c + 7): the
+// copies of a sweep (c = s * 256 + thread) and a thread's reads of its own
+// chunks (c = thread * 8 + j) both hit 8 distinct 16-byte bank groups in
+// each quarter warp.
+__device__ __forceinline__ int sel_slot(int c) { return c ^ ((c >> 3) & 7); }
+
+// A chunk's strict (k > t) and tie (k == t) flags: item 2i at bit 15 - i,
+// item 2i + 1 at bit 31 - i (i: the chunk's word).
+__device__ __forceinline__ void chunk_flags(const uint4& v, unsigned cgt,
+                                            unsigned cge, unsigned* gt,
+                                            unsigned* ge) {
+  const unsigned x[4] = {v.x, v.y, v.z, v.w};
+  unsigned a = 0u, e = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned m = x[i] & 0x7fff7fffu;
+    a |= ((m + cgt) & 0x80008000u) >> i;
+    e |= ((m + cge) & 0x80008000u) >> i;
+  }
+  *gt = a;
+  *ge = e;
+}
+
+// chunk_flags' bits as a mask in item order (bit k: item k): reversed,
+// items 2i + 1 sit at bit i and items 2i at bit 16 + i, then interleaved.
+__device__ __forceinline__ unsigned item_mask(unsigned f) {
+  const unsigned r = __brev(f);
+  unsigned ev = (r >> 16) & 0xfu, od = r & 0xfu;
+  ev = (ev | (ev << 2)) & 0x33u;
+  ev = (ev | (ev << 1)) & 0x55u;
+  od = (od | (od << 2)) & 0x33u;
+  od = (od | (od << 1)) & 0x55u;
+  return ev | (od << 1);
+}
+
+// The tile's warps alone (barrier 1), and the whole block at the look-back's
+// end (barrier 2, the look-back warp arriving from its own branch).
+__device__ __forceinline__ void sel_sync_tile() {
+  asm volatile("bar.sync 1, %0;" :: "n"(kSelThreads) : "memory");
+}
+__device__ __forceinline__ void sel_sync_all() {
+  asm volatile("bar.sync 2, %0;" :: "n"(kSelThreads + 32) : "memory");
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kSelThreads + 32, kSelMinBlocks)
+compact_select(const __nv_bfloat16* __restrict__ g, int64_t d,
+               int64_t ntiles, int vec, const float* __restrict__ t_in,
+               const long long* __restrict__ budget_in,
+               const int* __restrict__ kept_in, int64_t k_cap,
+               unsigned long long* __restrict__ status, W* __restrict__ vals,
+               int* __restrict__ idx, const float* __restrict__ scale,
+               float levels, int ternary) {
+  constexpr bool kInt = IntWire<W>::value;
+  extern __shared__ uint4 sh_tile[];     // kSelTileChunks, then:
+  unsigned short* sh_pre = reinterpret_cast<unsigned short*>(
+      sh_tile + kSelTileChunks);         // kSelTileChunks
+  int* sh_thr = reinterpret_cast<int*>(sh_pre + kSelTileChunks);
+  unsigned* sh_sidx = reinterpret_cast<unsigned*>(sh_thr + kSelThreads);
+  unsigned short* sh_sval = reinterpret_cast<unsigned short*>(
+      sh_sidx + kSelThreads * kItems);   // the warps' staging
+  __shared__ unsigned long long sh_ticket, sh_base;
+  __shared__ int sh_warp[kSelWarps];
+  __shared__ int sh_agg;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t row = blockIdx.y;
+  unsigned long long* st = status + row * ntiles;   // the row's status words
+  const int kept = kept_in[row];                    // in flight with the ticket
+  const unsigned tkey = __float_as_uint(t_in[row]) >> 16;
+  const long long budget = budget_in[row];
+  if (threadIdx.x == 0)                  // the rows' tickets follow all rows'
+    sh_ticket = atomicAdd(status + gridDim.y * ntiles + row, 1ull); // status
+  __syncthreads();
+  const int64_t b = (int64_t)sh_ticket;  // the row's tiles, in start order
+  W* vrow = vals + row * k_cap;
+  int* irow = idx + row * k_cap;
+  {   // this tile's share of the row's dead slots [kept, k_cap)
+    const int64_t share = (k_cap - kept + ntiles - 1) / ntiles;
+    const int64_t a = kept + b * share;
+    const int64_t e = a + share < k_cap ? a + share : k_cap;
+    if (a < e) {
+      zero_bytes(reinterpret_cast<unsigned char*>(vrow), a * sizeof(W),
+                 e * sizeof(W));
+      zero_bytes(reinterpret_cast<unsigned char*>(irow), a * 4, e * 4);
+    }
+  }
+  if (w == kSelWarps) {
+    // The look-back warp: from the block's start, while the tile loads and
+    // is counted, it sums the row's tiles before b (their aggregates are
+    // published as they are counted, whatever their look-back), then
+    // publishes b's inclusive prefix.
+    const unsigned long long excl = b == 0 ? 0ull : select_lookback(st, b);
+    if (lane == 0) sh_base = excl;
+    sel_sync_all();                      // b's counts, and its base
+    const int agg = sh_agg;
+    if (lane == 0 && b > 0)
+      st_status(st + b, kSelPrefix | (excl + ((unsigned long long)(agg &
+                                               0xffff) |
+                                              ((unsigned long long)(agg >>
+                                                                    16)
+                                               << 31))));
+    return;
+  }
+  const int64_t start = b * kSelTile;
+  const int64_t end = d < start + kSelTile ? d : start + kSelTile;
+  const __nv_bfloat16* grow = g + row * d;
+  // the tile into shared memory, a sweep of the block's chunks a round
+  // (coalesced); zeros past the row's end (never kept)
+#pragma unroll
+  for (int s = 0; s < kSelChunks; ++s) {
+    const int c = s * kSelThreads + (int)threadIdx.x;
+    const int64_t i = start + (int64_t)c * kItems;
+    if (vec && i + kItems <= end) {
+      cp_async16(sh_tile + sel_slot(c), grow + i);
+    } else {
+      Chunk<__nv_bfloat16> ch;
+      load_chunk(grow, i, end, false, ch);
+      sh_tile[sel_slot(c)] = ch.v;
+    }
+  }
+  cp_async_wait_all();
+  sel_sync_tile();                       // the tile is in shared memory
+  // my 64 consecutive coordinates (chunks 8 t .. 8 t + 7): their strict
+  // and tie counts, and each chunk's prefix among them (a byte each)
+  const unsigned cgt = (0x7fffu - tkey) * 0x10001u;
+  const unsigned cge = (0x8000u - tkey) * 0x10001u;
+  const bool ties_on = tkey != 0u;
+  int ns = 0, nt = 0;
+  unsigned pre[kSelChunks / 2];
+#pragma unroll
+  for (int j = 0; j < kSelChunks; ++j) {
+    unsigned a, e;
+    chunk_flags(sh_tile[sel_slot((int)threadIdx.x * kSelChunks + j)], cgt,
+                cge, &a, &e);
+    const unsigned p = (unsigned)(ns | (nt << 8));
+    if (j & 1) pre[j / 2] |= p << 16;
+    else pre[j / 2] = p;
+    ns += __popc(a);
+    nt += ties_on ? __popc(e & ~a) : 0;
+  }
+  reinterpret_cast<uint4*>(sh_pre)[threadIdx.x] =
+      make_uint4(pre[0], pre[1], pre[2], pre[3]);
+  const int mine = ns | (nt << 16);      // at most 64 of each
+  int inc = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += n;
+  }
+  if (lane == 31) sh_warp[w] = inc;
+  sh_thr[threadIdx.x] = inc - mine;      // my lanes' before me, in my warp
+  sel_sync_tile();                       // counts, prefixes, warp totals
+  int wp[kSelWarps], agg = 0;            // packed: at most 2^14 of each
+#pragma unroll
+  for (int j = 0; j < kSelWarps; ++j) {
+    wp[j] = agg;
+    agg += sh_warp[j];
+  }
+  if (threadIdx.x == 0) {               // publish at once: a row's first
+    st_status(st + b, (b == 0 ? kSelPrefix : kSelAggregate) |
+                          (unsigned long long)(agg & 0xffff) |
+                          ((unsigned long long)(agg >> 16) << 31));
+    sh_agg = agg;
+  }
+  sel_sync_all();                        // the tile's base
+  const unsigned long long base = sh_base;
+  const int s0 = (int)(base & kSelCount), t0 = (int)((base >> 31) & kSelCount);
+  const int bud = budget < (long long)k_cap ? (int)budget : (int)k_cap;
+  const int kc = (int)k_cap;
+  const float sc = kInt ? scale[row] : 1.f;
+  unsigned* wsi = sh_sidx + w * 32 * kItems;         // this warp's staging
+  unsigned short* wsv = sh_sval + w * 32 * kItems;
+  // The writes go chunk by chunk in a sweep of the block (chunk c = s 256 +
+  // t): sweep s's chunks are 256 consecutive coordinates, owned by warp s's
+  // threads (c / 8), so a chunk's ranks are the warps' before s, its owner's
+  // lanes' before it in warp s, and the owner's chunks' before it. A warp's
+  // kept items of a sweep take consecutive slots [r, r + n): each lane
+  // stages its own in shared memory, and the warp stores them coalesced.
+  static_assert(kSelThreads == kSelChunks * 32, "sweep s: warp s's chunks");
+#pragma unroll
+  for (int s = 0; s < kSelChunks; ++s) {
+    const int c = s * kSelThreads + (int)threadIdx.x;
+    const uint4 v = sh_tile[sel_slot(c)];
+    const unsigned cp = sh_pre[c];
+    const int lp = wp[s] + sh_thr[c / kSelChunks] +
+                   (int)((cp & 0xffu) | ((cp >> 8) << 16));
+    const int rs = s0 + (lp & 0xffff), rt = t0 + (lp >> 16);
+    const int r0 = rs + (rt < bud ? rt : bud);   // my first kept item's slot
+    unsigned a, e;
+    chunk_flags(v, cgt, cge, &a, &e);
+    e = ties_on ? e & ~a : 0u;
+    unsigned km = 0u;                    // kept items, in item order
+    if ((a | e) != 0u) {
+      km = item_mask(a);
+      for (unsigned t = item_mask(e), n = 0; t != 0u && (int)n < bud - rt;
+           t &= t - 1u, ++n)
+        km |= t & (0u - t);              // the budget's first ties
+    }
+    const int wr = __shfl_sync(kFull, r0, 0);
+    const int wn = __shfl_sync(kFull, r0 + __popc(km), 31) - wr;
+    if (km != 0u) {
+      int j = r0 - wr;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        if ((km >> k) & 1u) {
+          const unsigned wd = (k & 4) ? ((k & 2) ? v.w : v.z)
+                                      : ((k & 2) ? v.y : v.x);
+          wsv[j] = (unsigned short)((k & 1) ? wd >> 16 : wd & 0xffffu);
+          wsi[j] = (unsigned)(start + (int64_t)c * kItems + k);
+          ++j;
+        }
+      }
+    }
+    __syncwarp();
+    for (int j = lane; j < wn && wr + j < kc; j += 32) {
+      const unsigned bits = wsv[j];
+      if constexpr (kInt) {
+        vrow[wr + j] = (W)(int)int_level(__uint_as_float(bits << 16), sc,
+                                         kDetU, levels, ternary);
+      } else {
+        reinterpret_cast<unsigned short*>(vrow)[wr + j] =
+            (unsigned short)bits;
+      }
+      irow[wr + j] = (int)wsi[j];
+    }
+    __syncwarp();
+  }
+}
+
+// One round of radix_hist over the group at (shift, bits), after a memset of
+// `hist` (rows x 2^bits); `state` the prefixes of earlier rounds (null in
+// the first).
+template <typename T>
+void launch_radix_hist(const void* g, long long rows, long long d, int vec,
+                       int shift, int bits, const long long* state,
+                       void* hist, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t cpr = (d + kRadixChunk - 1) / kRadixChunk;
+  const int64_t nchunks = rows * cpr;
+  const int nbins = 1 << bits;
+  int ncopy = kRadixCopyBytes / (nbins * 4);
+  ncopy = ncopy < 1 ? 1 : (ncopy > kRadixThreads / 32 ? kRadixThreads / 32
+                                                      : ncopy);
+  const int smem = ncopy * nbins * 4;
+  cudaFuncSetAttribute(radix_hist<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, radix_hist<T>,
+                                                kRadixThreads, smem);
+  const int64_t want = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t grid = nchunks < want ? nchunks : want;
+  cudaMemsetAsync(hist, 0, rows * nbins * 4, st);
+  if (grid > 0)
+    radix_hist<T><<<(unsigned)grid, kRadixThreads, smem, st>>>(
+        (const T*)g, d, cpr, nchunks, vec, shift, bits, ncopy, state,
+        (unsigned*)hist);
+}
+
 template <typename T>
 int launch_topk_threshold(const void* g, long long rows, long long d,
                           int vec, long long k_target, const int bits[3],
@@ -1959,31 +2565,11 @@ int launch_topk_threshold(const void* g, long long rows, long long d,
   while (nrounds < 3 && bits[nrounds] > 0) sum += bits[nrounds++];
   if (sum != key_bits || k_target < 1 || k_target > d)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t cpr = (d + kRadixChunk - 1) / kRadixChunk;
-  const int64_t nchunks = rows * cpr;
   int shift = key_bits;
   for (int r = 0; r < nrounds; ++r) {
     shift -= bits[r];
-    const int nbins = 1 << bits[r];
-    int ncopy = kRadixCopyBytes / (nbins * 4);
-    ncopy = ncopy < 1 ? 1 : (ncopy > kRadixThreads / 32 ? kRadixThreads / 32
-                                                        : ncopy);
-    const int smem = ncopy * nbins * 4;
-    cudaFuncSetAttribute(radix_hist<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, radix_hist<T>,
-                                                  kRadixThreads, smem);
-    const int64_t want = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-    const int64_t grid = nchunks < want ? nchunks : want;
-    cudaMemsetAsync(hist, 0, rows * nbins * 4, st);
-    if (grid > 0)
-      radix_hist<T><<<(unsigned)grid, kRadixThreads, smem, st>>>(
-          (const T*)g, d, cpr, nchunks, vec, shift, bits[r], ncopy,
-          r ? (const long long*)state : nullptr, (unsigned*)hist);
+    launch_radix_hist<T>(g, rows, d, vec, shift, bits[r],
+                         r ? (const long long*)state : nullptr, hist, st);
     radix_finish<<<(unsigned)rows, kRadixThreads, 0, st>>>(
         (const unsigned*)hist, bits[r], r == 0, r == nrounds - 1,
         std::is_same<T, float>::value, k_target, (long long*)state,
@@ -2134,6 +2720,7 @@ extern "C" {
 
 long long gspar_tile(void) { return kTile; }
 long long gspar_rice_tile(void) { return kRiceTile; }
+long long gspar_select_tile(void) { return kSelTile; }
 
 const char* gspar_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
@@ -2351,6 +2938,78 @@ int gspar_topk_threshold(const void* g, int dt, long long rows, long long d,
                                                 st);
   return launch_topk_threshold<float>(g, rows, d, vec, k_target, bits, hist,
                                       state, t, budget, st);
+}
+
+// The bf16 magnitude histogram alone (topk_threshold's one bf16 round):
+// hist rows x 2^15 uint32, zeroed here.
+int gspar_magnitude_hist(const void* g, long long rows, long long d, int vec,
+                         void* hist, void* stream) {
+  launch_radix_hist<__nv_bfloat16>(g, rows, d, vec, 0, 15, nullptr, hist,
+                                   (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// Algorithm 2's lambda per row from the magnitude histogram `hist` (rows x
+// 2^15): lam float32 [rows], bin int32 [rows] (-1: no bin qualifies).
+int gspar_closed_lambda(const void* hist, long long rows, double eps,
+                        void* lam, void* bin, void* stream) {
+  if (rows > 0)
+    closed_finish<<<(unsigned)rows, kRadixThreads, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)hist, eps, (float*)lam, (int*)bin);
+  return (int)cudaGetLastError();
+}
+
+// The magnitude compaction's row scalars at k_cap for bf16 g: hist rows x
+// 2^15 uint32 (zeroed here); t float32, budget int64, nonzeros, kept int32,
+// sum_sq, max_abs float32, each [rows].
+int gspar_compact_bins(const void* g, long long rows, long long d, int vec,
+                       long long k_cap, void* hist, void* t, void* budget,
+                       void* nonzeros, void* kept, void* sum_sq,
+                       void* max_abs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k_cap < 1 || k_cap > d) return (int)cudaErrorInvalidValue;
+  launch_radix_hist<__nv_bfloat16>(g, rows, d, vec, 0, 15, nullptr, hist,
+                                   st);
+  if (rows > 0)
+    compact_finish<<<(unsigned)rows, kRadixThreads, 0, st>>>(
+        (const unsigned*)hist, d, k_cap, (float*)t, (long long*)budget,
+        (int*)nonzeros, (int*)kept, (float*)sum_sq, (float*)max_abs);
+  return (int)cudaGetLastError();
+}
+
+// The compaction's select-and-compact pass for bf16 g, from compact_bins'
+// t, budget and kept. status: rows x (ceil(d / kSelTile) + 1) uint64 (the
+// tiles' look-back words, then a ticket counter per row), zeroed here.
+// wdt: the wire dtype code (1 bfloat16: the f32 and bf16 codecs; 2 int8, 3
+// int16: an integer codec, with `scale` and `ternary` or the qsgd
+// `levels`, rounded deterministically).
+int gspar_compact_select(const void* g, long long rows, long long d, int vec,
+                         long long k_cap, const void* t, const void* budget,
+                         const void* kept, void* status, void* vals, int wdt,
+                         void* idx, const void* scale, float levels,
+                         int ternary, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t nt = (d + kSelTile - 1) / kSelTile;
+  cudaMemsetAsync(status, 0, rows * (nt + 1) * 8, st);
+  dim3 grid(grid_x(nt), (unsigned)rows);
+  if (rows * nt == 0) return (int)cudaGetLastError();
+#define GSPAR_SELECT(W)                                                      \
+  do {                                                                       \
+    cudaFuncSetAttribute(compact_select<W>,                                  \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                         kSelSmem);                                          \
+    compact_select<W><<<grid, kSelThreads + 32, kSelSmem, st>>>(             \
+        (const __nv_bfloat16*)g, d, nt, vec, (const float*)t,                \
+        (const long long*)budget, (const int*)kept, k_cap,                   \
+        (unsigned long long*)status, (W*)vals, (int*)idx,                    \
+        (const float*)scale, levels, ternary);                               \
+  } while (0)
+  if (wdt == 1) GSPAR_SELECT(__nv_bfloat16);
+  else if (wdt == 2) GSPAR_SELECT(int8_t);
+  else if (wdt == 3) GSPAR_SELECT(int16_t);
+  else return (int)cudaErrorInvalidValue;
+#undef GSPAR_SELECT
+  return (int)cudaGetLastError();
 }
 
 int gspar_philox(const void* ck, void* out, long long n, void* stream) {

@@ -28,10 +28,15 @@ PyTorch, checks ``cudaGetLastError`` after the launch, and adds one to
 ``LAUNCHES[name]`` (and, for the compaction passes and the dense emit, to
 the variant's count): the launch counts a run can read back.
 
-What bounds each kernel on an H100 (3.35 TB/s of HBM): all eleven are
-memory-bound streams over the group (or its compact buffer), so their bound
-is the bytes they must move over the memory rate; see each docstring and
-PERF.md.
+The magnitude compaction of a bfloat16 group (``compact_bins``, then
+``compact_select``) and Algorithm 2's lambda (``magnitude_hist``, then
+``closed_lambda``) take their row scalars from the group's magnitude
+histogram, whose bins are single bf16 values.
+
+What bounds each kernel on an H100 (3.35 TB/s of HBM): every one is a
+memory-bound stream over the group (or its compact buffer, or the
+histogram), so its bound is the bytes it must move over the memory rate;
+see each docstring and PERF.md.
 """
 from __future__ import annotations
 
@@ -46,13 +51,15 @@ import torch
 
 from repro_torch.comm.compaction import rice_cap_words, rice_fit_cap_words
 from repro_torch.kernels.sparsify import ref
-from repro_torch.kernels.sparsify.ref import SelectStats, Sparsified
+from repro_torch.kernels.sparsify.ref import (CompactBins, SelectStats,
+                                              Sparsified)
 
 TILE = 16384          # coordinates per CUDA block; must equal kTile in the .cu
 RICE_TILE = 4096      # codes per CUDA block; must equal kRiceTile in the .cu
 KERNELS = ("stats_l1max", "tail_stats", "select_stats", "compact_emit",
            "rice_pack", "rice_fit", "stats", "sparsify", "sparsify_ef",
-           "sparsify_prng", "topk_threshold")
+           "sparsify_prng", "topk_threshold", "compact_bins",
+           "compact_select", "closed_lambda")
 # topk_threshold's radix-select rounds: the key bits each counts, from the
 # top (bf16: one round of 2^15 bins; f32: three of at most 2^11)
 TOPK_BITS = {torch.bfloat16: (15,), torch.float32: (11, 10, 10)}
@@ -82,6 +89,7 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "gspar_tile": ((), _L),
     "gspar_rice_tile": ((), _L),
+    "gspar_select_tile": ((), _L),
     "gspar_error_string": ((_I,), ctypes.c_char_p),
     "gspar_stats_l1max": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P), _I),
     "gspar_tail_stats": ((_P, _I, _L, _L, _I, _P, _P, _P, _P, _P, _P, _P), _I),
@@ -100,6 +108,11 @@ _SIGNATURES = {
     "gspar_philox": ((_P, _P, _L, _P), _I),
     "gspar_topk_threshold": ((_P, _I, _L, _L, _I, _L, _I, _I, _I)
                              + (_P,) * 4 + (_P,), _I),
+    "gspar_magnitude_hist": ((_P, _L, _L, _I, _P, _P), _I),
+    "gspar_closed_lambda": ((_P, _L, ctypes.c_double, _P, _P, _P), _I),
+    "gspar_compact_bins": ((_P, _L, _L, _I, _L) + (_P,) * 7 + (_P,), _I),
+    "gspar_compact_select": ((_P, _L, _L, _I, _L, _P, _P, _P, _P, _P, _I, _P,
+                              _P, ctypes.c_float, _I, _P), _I),
 }
 
 
@@ -362,29 +375,134 @@ def topk_threshold(g: torch.Tensor, k_target: int
 def magnitude_hist(g: torch.Tensor) -> torch.Tensor:
     """Per row of a bfloat16 ``g [rows, d]``: the count of each magnitude,
     ``[rows, 2^15]`` int32 indexed by the 15-bit pattern of |g|
-    (``ref.magnitude_keys``). This is ``topk_threshold``'s one round for
-    bfloat16 (its histogram pass over the group, the finish at k_target =
-    1), kept for Algorithm 2's bins (``sparsify.closed_form_lambda_rows``);
-    it counts as a ``topk_threshold`` launch, variant ``"hist"``. On the
-    CPU ``torch.bincount`` of the keys. Bound: one read of g (2
-    B/coord)."""
+    (``ref.magnitude_keys``). This is ``topk_threshold``'s histogram pass
+    for bfloat16 (its one round), alone: the bins of Algorithm 2's lambda
+    (``closed_lambda``); it counts as a ``topk_threshold`` launch, variant
+    ``"hist"``. On the CPU ``ref.magnitude_counts`` (``torch.bincount`` of
+    the keys). Bound: one read of g (2 B/coord)."""
     if g.dtype != torch.bfloat16:
         raise ValueError("magnitude_hist: g must be bfloat16")
     if not _on_card("magnitude_hist", g):
-        return torch.stack([torch.bincount(ref.magnitude_keys(row),
-                                           minlength=1 << 15).to(torch.int32)
-                            for row in g])
+        return ref.magnitude_counts(g)
+    rows, d = g.shape
+    hist = torch.empty((rows, ref.KEY_BINS), dtype=torch.int32,
+                       device=g.device)
+    _check(_lib().gspar_magnitude_hist(_ptr(g), rows, d, _vec(g), _ptr(hist),
+                                       _stream(g)), "topk_threshold", "hist")
+    return hist
+
+
+def closed_lambda(counts: torch.Tensor, eps: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 2's lambda of each bfloat16 row from its magnitude
+    histogram ``counts [rows, 2^15]`` (int32, ``magnitude_hist``): ``(lam
+    [rows] float32, bin [rows] int32)``, ``bin`` the highest non-empty bin
+    whose value m satisfies ``m T <= eps sum g^2 + L`` (T, L: sum |g| and
+    sum g^2 over the bins below; -1 where none does, and lambda 0), as
+    ``ref.closed_lambda_bins_ref`` solves it. One block a row reads the
+    row's counts once and solves by one block scan in float64 (no sort, no
+    float64 scratch). Replaces the XLA ``jnp.sort`` of
+    ``closed_form_lambda`` (src/repro/core/sparsify.py:40) with
+    ``magnitude_hist``. Bound: one read of the counts (128 KB a row)."""
+    if counts.dim() != 2 or counts.shape[1] != ref.KEY_BINS \
+            or counts.dtype != torch.int32:
+        raise ValueError("closed_lambda: counts must be int32 [rows, 2^15]")
+    if counts.device.type == "cpu":
+        return ref.closed_lambda_bins_ref(counts, eps)
+    if counts.device.type != "cuda" or not counts.is_contiguous():
+        raise ValueError(f"closed_lambda: no kernel for {counts.device} or "
+                         "a non-contiguous histogram")
+    rows = counts.shape[0]
+    lam = torch.empty(rows, dtype=torch.float32, device=counts.device)
+    bins = torch.empty(rows, dtype=torch.int32, device=counts.device)
+    _check(_lib().gspar_closed_lambda(_ptr(counts), rows, float(eps),
+                                      _ptr(lam), _ptr(bins),
+                                      _stream(counts)), "closed_lambda")
+    return lam, bins
+
+
+def compact_bins(g: torch.Tensor, k_cap: int) -> CompactBins:
+    """The magnitude compaction's row scalars of a bfloat16 ``g [rows, d]``
+    at capacity ``k_cap`` (``ref.CompactBins``): the threshold t and tie
+    budget (``topk_threshold``'s at ``k_target = k_cap``), the nonzeros,
+    the kept count and an integer codec's scale inputs over the kept values
+    (sum v^2, max|v|). One histogram pass over g (``radix_hist`` at bf16's
+    15 bits) and a one-block-a-row finish over the 2^15 bins, where a bin
+    is one value: it replaces pass 1 of topk (``select_stats``) on the
+    compaction's path. Replaces, with ``compact_select``, the
+    ``lax.top_k`` of ``compaction.compact`` (src/repro/comm/
+    compaction.py:64). Bound: one read of g (2 B/coord)."""
+    if g.dtype != torch.bfloat16:
+        raise ValueError("compact_bins: g must be bfloat16")
+    if not 1 <= k_cap <= g.shape[-1]:
+        raise ValueError(f"compact_bins: k_cap {k_cap} outside [1, "
+                         f"{g.shape[-1]}]")
+    if not _on_card("compact_bins", g):
+        return ref.compact_bins_ref(g, k_cap)
     rows, d = g.shape
     dev = g.device
-    hist = torch.empty((rows, 1 << 15), dtype=torch.int32, device=dev)
-    state = torch.empty((rows, 3), dtype=torch.int64, device=dev)
-    t = torch.empty(rows, dtype=torch.float32, device=dev)
-    budget = torch.empty(rows, dtype=torch.int64, device=dev)
-    _check(_lib().gspar_topk_threshold(
-        _ptr(g), _DTYPE_CODE[g.dtype], rows, d, _vec(g), 1, 15, 0, 0,
-        _ptr(hist), _ptr(state), _ptr(t), _ptr(budget), _stream(g)),
-        "topk_threshold", "hist")
-    return hist
+    hist = torch.empty((rows, ref.KEY_BINS), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = CompactBins(
+        t=torch.empty(rows, **f32),
+        budget=torch.empty(rows, dtype=torch.int64, device=dev),
+        nonzeros=torch.empty(rows, **i32), kept=torch.empty(rows, **i32),
+        sum_sq=torch.empty(rows, **f32), max_abs=torch.empty(rows, **f32))
+    _check(_lib().gspar_compact_bins(
+        _ptr(g), rows, d, _vec(g), k_cap, _ptr(hist), *map(_ptr, out),
+        _stream(g)), "compact_bins")
+    return out
+
+
+def compact_select(g: torch.Tensor, bins: CompactBins, *, k_cap: int, codec,
+                   scale: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The magnitude compaction's one pass over a bfloat16 ``g [rows, d]``
+    after ``compact_bins``: per row, |g| > t and the first ``budget``
+    coordinates with |g| == t > 0, in coordinate order, as ``values [rows,
+    k_cap]`` (``codec.wire_dtype``: g itself for a float codec; an integer
+    codec's level from the row's ``scale [rows]``, rounded
+    deterministically: ``compact_emit``'s ``det_round``) and ``idx [rows,
+    k_cap]`` int32; slots past ``kept`` hold idx 0 and value 0. A block
+    reads its tile of g once and takes the survivors and ties of the row's
+    tiles before it from a chained scan with decoupled look-back (blocks
+    ordered by a ticket). Bit-equal to ``ref.compact_emit_ref`` with
+    ``pkind="topk"`` at t and budget. Bound: one read of g (2 B/coord) and
+    the compact write."""
+    if g.dtype != torch.bfloat16:
+        raise ValueError("compact_select: g must be bfloat16")
+    wire_dtype = codec.wire_dtype(g.dtype)
+    rows = g.shape[0]
+    if codec.integer_coded:
+        if scale is None:
+            raise ValueError("compact_select: an integer codec needs scale")
+        scale = scale.to(torch.float32).contiguous()
+        if scale.shape != (rows,):
+            raise ValueError("compact_select: scale must be [rows]")
+    else:
+        scale = None
+    extra = [bins.t, bins.budget, bins.kept] + (
+        [scale] if scale is not None else [])
+    if not _on_card("compact_select", g, *extra):
+        return ref.compact_emit_ref(
+            g, None, bins.t, k_cap, codec, False, pkind="topk",
+            budget=bins.budget, scale=scale,
+            det_round=codec.integer_coded)[:2]
+    if k_cap >= 2**31 or not 1 <= k_cap <= g.shape[1]:
+        raise ValueError(f"compact_select: k_cap {k_cap} outside [1, d]")
+    rows, d = g.shape
+    nt = ref.ntiles(d, _lib().gspar_select_tile())
+    status = torch.empty(rows * (nt + 1), dtype=torch.int64, device=g.device)
+    vals = torch.empty((rows, k_cap), dtype=wire_dtype, device=g.device)
+    idx = torch.empty((rows, k_cap), dtype=torch.int32, device=g.device)
+    _check(_lib().gspar_compact_select(
+        _ptr(g), rows, d, _vec(g), k_cap, _ptr(bins.t), _ptr(bins.budget),
+        _ptr(bins.kept), _ptr(status), _ptr(vals), _DTYPE_CODE[wire_dtype],
+        _ptr(idx), _ptr(scale), float(getattr(codec, "levels", 0.0)),
+        int(codec.name == "ternary"), _stream(g)), "compact_select",
+        codec.name + "+det" if codec.integer_coded else None)
+    return vals, idx
 
 
 def compact_emit(g: torch.Tensor, u: torch.Tensor | None, s1: torch.Tensor,

@@ -170,28 +170,43 @@ def magnitude_compact(g2d: torch.Tensor, *, k_cap: int, codec=_F32,
     """``compaction.compact`` of every row of a group, then the codec's
     deterministic encode (``repro.comm.sync._encode_det``): keep the
     ``k_cap`` largest magnitudes of each row, ties at the k_cap-th by
-    lowest coordinate (XLA ``top_k``'s order) and never a zero. On the
-    hand kernels: ``topk_threshold`` at ``k_target = k_cap`` (with fewer
-    nonzeros than that its threshold is 0, and every nonzero is kept),
-    then passes 1 and 2 with ``pkind="topk"``. Pass 1 gives the nonzero
-    count and the codec scale over the kept values; pass 2 writes them in
+    lowest coordinate (XLA ``top_k``'s order) and never a zero, written in
     coordinate order, an integer codec's levels rounded deterministically
-    (``det_round``). A level that rounds to zero is no live slot (the JAX
-    package's wire codecs drop zero values): the live slots move to the
-    front of the prefix, in order (``compaction.live_prefix``), before the
-    Golomb-Rice words are packed."""
+    (``det_round``).
+
+    A bfloat16 group takes two reads of g: ``compact_bins`` (the magnitude
+    histogram and, from its bins, each row's threshold, tie budget,
+    nonzeros, kept count and the codec scale's inputs over the kept
+    values), then ``compact_select`` (one pass that selects and writes,
+    ordered by a chained scan). A float32 group, whose magnitudes take
+    three radix rounds and whose bins are not single values, takes
+    ``topk_threshold`` at ``k_target = k_cap`` and passes 1 and 2 with
+    ``pkind="topk"``. With fewer nonzeros than k_cap the threshold is 0 and
+    every nonzero is kept. A level that rounds to zero is no live slot
+    (the JAX package's wire codecs drop zero values): the live slots move
+    to the front of the prefix, in order (``compaction.live_prefix``),
+    before the Golomb-Rice words are packed."""
     _group(g2d, "magnitude_compact")
-    t, budget = topk_threshold(g2d, k_cap)
-    sel = K.select_stats(g2d, None, t, k_cap, pkind="topk", budget=budget)
-    scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
-    vals, idx, _ = K.compact_emit(
-        g2d, None, t, sel, k_cap=k_cap, codec=codec, ef=False, pkind="topk",
-        budget=budget, scale=scale, det_round=codec.integer_coded)
-    live = sel.nnz
+    if g2d.dtype == torch.bfloat16:
+        bins = K.compact_bins(g2d, k_cap)
+        scale = codecs_lib.finalize_scale(codec, bins.sum_sq, bins.max_abs)
+        vals, idx = K.compact_select(g2d, bins, k_cap=k_cap, codec=codec,
+                                     scale=scale)
+        nonzeros, live = bins.nonzeros, bins.kept
+    else:
+        t, budget = topk_threshold(g2d, k_cap)
+        sel = K.select_stats(g2d, None, t, k_cap, pkind="topk",
+                             budget=budget)
+        scale = codecs_lib.finalize_scale(codec, sel.sum_sq, sel.max_abs)
+        vals, idx, _ = K.compact_emit(
+            g2d, None, t, sel, k_cap=k_cap, codec=codec, ef=False,
+            pkind="topk", budget=budget, scale=scale,
+            det_round=codec.integer_coded)
+        nonzeros, live = sel.nonzeros, sel.nnz
     if codec.integer_coded:
         vals, idx, live = compaction.live_prefix(vals, idx, live)
     words, used = rice_words(idx, live, g2d.shape[1], rice_r, rice_window)
-    return Compacted(vals, idx, sel.nonzeros, live, scale, words, used)
+    return Compacted(vals, idx, nonzeros, live, scale, words, used)
 
 
 def _group(g2d: torch.Tensor, name: str) -> None:
@@ -219,11 +234,14 @@ def gspar_emit(g2d: torch.Tensor, u2d: torch.Tensor,
 
 
 def closed_lambda(g2d: torch.Tensor, eps: float) -> torch.Tensor:
-    """Algorithm 2's lambda per row (``sparsify.closed_form_lambda_rows``);
-    a bfloat16 group's magnitude histogram from the ``topk_threshold``
-    kernel's histogram pass (``kernel.magnitude_hist``)."""
-    counts = K.magnitude_hist(g2d) if g2d.dtype == torch.bfloat16 else None
-    return sparsify_lib.closed_form_lambda_rows(g2d, eps, counts)
+    """Algorithm 2's lambda per row (``sparsify.closed_form_lambda_rows``).
+    A bfloat16 group: its magnitude histogram (``kernel.magnitude_hist``,
+    the ``topk_threshold`` kernel's histogram pass), then the bin solve
+    (``kernel.closed_lambda``, one block a row). A float32 group: the
+    plain solve, a sort a row."""
+    if g2d.dtype == torch.bfloat16:
+        return K.closed_lambda(K.magnitude_hist(g2d), eps)[0]
+    return sparsify_lib.closed_form_lambda_rows(g2d, eps)
 
 
 def closed_emit(g2d: torch.Tensor, u2d: torch.Tensor,

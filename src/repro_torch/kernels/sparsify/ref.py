@@ -127,6 +127,99 @@ def topk_threshold_ref(g: torch.Tensor, k_target: int,
     return t, budget
 
 
+# the bins of a bfloat16 row: the 15 bits of |g|'s pattern, one value each
+KEY_BINS = 1 << 15
+
+
+def magnitude_counts(g: torch.Tensor) -> torch.Tensor:
+    """Per row of a bfloat16 ``g [rows, d]``: the count of each magnitude
+    key, ``[rows, 2^15]`` int32 (``torch.bincount``)."""
+    return torch.stack([torch.bincount(magnitude_keys(row),
+                                       minlength=KEY_BINS).to(torch.int32)
+                        for row in g])
+
+
+def _key_values(device) -> torch.Tensor:
+    """The float32 value of each bfloat16 magnitude key."""
+    return (torch.arange(KEY_BINS, dtype=torch.int32, device=device)
+            << 16).view(F32)
+
+
+class CompactBins(NamedTuple):
+    """The row scalars of a bfloat16 group's magnitude compaction at
+    ``k_cap``, all from the row's magnitude histogram (``compact_bins``)."""
+    t: torch.Tensor            # float32: the k_cap-th largest |g| (0 where
+                               # the row has fewer nonzeros)
+    budget: torch.Tensor       # int64: ties |g| == t to keep
+    nonzeros: torch.Tensor     # int32: |{i : g_i != 0}|
+    kept: torch.Tensor         # int32: min(k_cap, nonzeros)
+    sum_sq: torch.Tensor       # float32: sum v^2 over the kept values
+    max_abs: torch.Tensor      # float32: max |v| over the kept values
+
+
+def compact_bins_ref(g: torch.Tensor, k_cap: int) -> CompactBins:
+    """``compact_bins``: per row of a bfloat16 ``g [rows, d]`` its
+    magnitude histogram, then from the counts alone (a bin is one value)
+    the threshold and tie budget of ``topk_threshold_ref`` at ``k_target =
+    k_cap``, the nonzeros (d less bin 0), the kept count, and sum v^2 (each
+    v^2 rounded to float32, as pass 1 squares; one float64 sum rounded
+    once) and max|v| over the kept values: the bins above t and ``budget``
+    values t."""
+    rows, d = g.shape
+    if not 1 <= k_cap <= d:
+        raise ValueError(f"k_cap {k_cap} outside [1, {d}]")
+    cnt = magnitude_counts(g).to(torch.int64)
+    from_top = torch.cumsum(cnt.flip(-1), -1)
+    want = torch.full((rows, 1), k_cap, dtype=torch.int64, device=g.device)
+    j = torch.searchsorted(from_top, want)          # first reaching k_cap
+    key = KEY_BINS - 1 - j[:, 0]
+    budget = k_cap - (from_top.gather(1, j)[:, 0]
+                      - cnt.gather(1, key[:, None])[:, 0])
+    val = _key_values(g.device)
+    sq = (val * val).to(F64)
+    bins = torch.arange(KEY_BINS, device=g.device)
+    above = (bins > key[:, None]) & (cnt > 0)
+    sum_sq = (torch.where(above, cnt.to(F64) * sq, 0.0).sum(-1)
+              + budget.to(F64) * sq[key])
+    top = torch.where(cnt > 0, bins, 0).amax(-1)
+    nonzeros = (d - cnt[:, 0]).to(torch.int32)
+    return CompactBins(val[key], budget, nonzeros,
+                       torch.clamp_max(nonzeros, k_cap), sum_sq.to(F32),
+                       val[top])
+
+
+def closed_lambda_bins_ref(counts: torch.Tensor, eps: float
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 2's lambda of each bfloat16 row from its magnitude
+    histogram ``counts [rows, 2^15]``: ``(lam [rows] float32, bin [rows]
+    int32)``. A bin holds one value, so the condition of
+    ``sparsify.closed_form_lambda`` is constant over a bin's run in
+    descending order, and k* is the first position of the highest bin b
+    where it holds. With v a bin's value, s1 = c v and s2 = c v^2 (float64;
+    0 for an empty bin: no inf x 0), T and L the sums of s1 and s2 over the
+    bins below and S the row's sum of s2, the condition at a non-empty bin
+    is ``v T <= eps S + L``, and ``lambda = (s1 + T) / (eps S + s2 + L)``
+    at b, rounded to float32 once. Where no bin qualifies (eps < 0): lambda
+    0 and bin -1, as the JAX package's fused path takes lambda = 0."""
+    dev = counts.device
+    cnt = counts.to(torch.int64)
+    v64 = torch.where(cnt > 0, _key_values(dev).to(F64), 0.0)
+    s1 = cnt.to(F64) * v64
+    s2 = s1 * v64
+    total = s2.sum(-1, keepdim=True)
+    t_low = torch.cumsum(s1, -1) - s1
+    l_low = torch.cumsum(s2, -1) - s2
+    c = (cnt > 0) & (v64 * t_low <= eps * total + l_low)
+    b = torch.where(c, torch.arange(KEY_BINS, device=dev), -1).amax(-1)
+    j = b.clamp_min(0)[:, None]
+    num = (s1.gather(1, j) + t_low.gather(1, j))[:, 0]
+    den = (eps * total[:, 0] + s2.gather(1, j)[:, 0]
+           + l_low.gather(1, j)[:, 0])
+    ok = den > 0
+    lam = torch.where(ok, num / torch.where(ok, den, 1.0), 0.0).to(F32)
+    return torch.where(b >= 0, lam, 0.0), b.to(torch.int32)
+
+
 # The deterministic rounding's uniform: the float32 just below 0.5, so that
 # ``u < frac`` holds exactly where a float32 frac is at least 0.5.
 DET_U = float(torch.nextafter(torch.tensor(0.5), torch.tensor(0.0)))

@@ -1032,6 +1032,122 @@ def test_magnitude_compact_on_the_card(card):
     assert torch.equal(c.live, live)
 
 
+def _tie_rows(gen, d: int) -> torch.Tensor:
+    """bf16 rows for the compaction's order: row 0 a run of ties at 0.5
+    every 997 coordinates (across many tiles) under larger values, row 1
+    600 ties inside one tile, row 2 at most 300 nonzeros (the pod-average
+    case: fewer than the capacities), row 3 all zeros."""
+    g, _ = _group(gen, torch.bfloat16, d)
+    g = torch.cat([g, torch.zeros((1, d), dtype=g.dtype, device="cuda")])
+    g[0] = torch.where(g[0].abs() > 2, g[0], torch.zeros_like(g[0]))
+    g[0, ::997] = 0.5
+    g[1, 20_000:20_600] = -0.5
+    keep = torch.zeros(d, dtype=torch.bool, device="cuda")
+    keep[torch.randint(0, d, (300,), generator=gen, device="cuda")] = True
+    g[2] = torch.where(keep, g[2], torch.zeros_like(g[2]))
+    return g
+
+
+def _compact_vs_plain(g, k_cap, codec):
+    """``ops.magnitude_compact`` on the card (``compact_bins``, then
+    ``compact_select``) against the plain versions on the CPU: the row
+    scalars equal (sum v^2 within rtol 1e-6), values and idx bit-equal at
+    the card's scale, and the whole op's values, idx, nnz and live."""
+    K.reset_launches()
+    c = ops.magnitude_compact(g, k_cap=k_cap, codec=codec)
+    assert K.LAUNCHES["compact_bins"] == K.LAUNCHES["compact_select"] == 1
+    assert K.LAUNCHES["topk_threshold"] == K.LAUNCHES["select_stats"] == 0
+    bins = K.compact_bins(g, k_cap)
+    want = ref.compact_bins_ref(g.cpu(), k_cap)
+    for f in ("t", "budget", "nonzeros", "kept", "max_abs"):
+        assert torch.equal(getattr(bins, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(bins.sum_sq.cpu(), want.sum_sq, rtol=1e-6,
+                               atol=0)
+    vals, idx = K.compact_select(g, bins, k_cap=k_cap, codec=codec,
+                                 scale=c.scale)
+    rv, ri = K.compact_select(g.cpu(), want, k_cap=k_cap, codec=codec,
+                              scale=c.scale.cpu())
+    assert torch.equal(vals.cpu(), rv) and torch.equal(idx.cpu(), ri)
+    assert torch.equal(c.nnz.cpu(), want.nonzeros)
+    if not codec.integer_coded:
+        assert torch.equal(c.values, vals) and torch.equal(c.idx, idx)
+        assert torch.equal(c.live.cpu(), want.kept)
+    return bins
+
+
+@pytest.mark.parametrize("codec", ["f32", "bf16", "qsgd4", "qsgd8",
+                                   "ternary"])
+@pytest.mark.parametrize("d", [D, 65_536])
+def test_compact_bins_and_select_match_plain(card, d, codec):
+    """The bf16 compaction's two kernels on ties across tiles and inside
+    one, rows with fewer nonzeros than k_cap, an all-zero row, ragged rows
+    that take scalar loads (d = 100,003) and aligned ones, at a capacity
+    that cuts and one that keeps the sparse rows whole."""
+    g = _tie_rows(card, d)
+    cdc = codecs.get(codec)
+    for k_cap in (2048, 150):
+        bins = _compact_vs_plain(g, k_cap, cdc)
+        assert int(bins.t[3]) == 0 and int(bins.kept[3]) == 0
+        assert float(bins.t[2]) == 0.0 or k_cap < 300
+
+
+def test_compact_select_tie_budgets(card):
+    """``compact_select`` on given scalars: a tie budget of 0 (no tie kept),
+    part of the ties (the lowest coordinates win, across tiles) and all of
+    them, against the plain version."""
+    g = _tie_rows(card, D)[:2]
+    t = torch.full((2,), 0.5, device="cuda")
+    n_gt = (g.float().abs() > 0.5).sum(-1).to(torch.int32)
+    ties = (g.float().abs() == 0.5).sum(-1)
+    for budget in (torch.zeros(2, dtype=torch.int64, device="cuda"),
+                   ties // 3, ties):
+        kept = (n_gt + budget).to(torch.int32)
+        k_cap = int(kept.max()) + 64
+        bins = ref.CompactBins(t, budget, kept, kept, t, t)
+        got = K.compact_select(g, bins, k_cap=k_cap, codec=FloatCodec())
+        want = ref.compact_emit_ref(g.cpu(), None, t.cpu(), k_cap,
+                                    FloatCodec(), False, pkind="topk",
+                                    budget=budget.cpu())
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_compaction_past_2_24_coordinates(card):
+    """A row of 2^24 + 12,345 coordinates (1,025 tiles, a ragged last one,
+    ranks past 2^24) with ties at the cut, and a narrow second group."""
+    d = (1 << 24) + 12_345
+    g = (torch.randn((1, d), generator=card, device="cuda")
+         * 1e-3).to(torch.bfloat16)
+    g[0, 1_000_000::4099] = 0.25
+    n_big = int((g.float().abs() > 0.25).sum())
+    k_cap = n_big + int((g.float().abs() == 0.25).sum()) // 2
+    _compact_vs_plain(g, k_cap, FloatCodec())
+    _compact_vs_plain(g, 1 << 22, codecs.get("qsgd8"))
+
+
+@pytest.mark.parametrize("eps", [1.0, 40.0, 0.0, -1.0])
+def test_closed_lambda_kernel_matches_bin_solve(card, eps):
+    """``kernel.closed_lambda`` (the bin solve, one block a row) against
+    its plain version on the same histogram: the same bin on every row,
+    lambda within rtol 1e-6; eps -1 leaves no bin (lambda 0, bin -1) on
+    a row with a nonzero, while an all-zero row keeps bin 0."""
+    g = torch.cat([_tie_rows(card, D), _group(card, torch.bfloat16)[0]])
+    hist = K.magnitude_hist(g)
+    K.reset_launches()
+    lam, b = K.closed_lambda(hist, eps)
+    assert K.LAUNCHES["closed_lambda"] == 1
+    want_lam, want_b = ref.closed_lambda_bins_ref(hist.cpu(), eps)
+    assert torch.equal(b.cpu(), want_b)
+    torch.testing.assert_close(lam.cpu(), want_lam, rtol=1e-6, atol=0)
+    if eps < 0:
+        assert b.tolist() == [-1, -1, -1, 0, -1, -1, -1]
+        assert bool((lam == 0).all())
+    K.reset_launches()
+    assert torch.equal(ops.closed_lambda(g, eps), lam)
+    assert K.LAUNCHES["topk_threshold/hist"] == K.LAUNCHES[
+        "closed_lambda"] == 1
+
+
 @pytest.mark.parametrize("name", ["agspar", "gspar+bf16", "identity+qsgd4",
                                   "topk"])
 def test_reference_backend_on_the_card_is_the_dense_wire(card, name):
