@@ -93,10 +93,13 @@ leaf); (B) the same with the bound of every other leaf forced to 1e30 at
 step 2 (those leaves skipped: zero headers, values and words, residual =
 their whole target, synced = last_avg); (C) topk, unchecked; (D) gspar on
 the dense wire with (B)'s forced skips (exactly the gradient's bytes).
-The kernel phase also holds ``rice_fit`` and the fitted ``rice_pack`` to
-their plain versions on gspar's compact idx of every group, times them
-beside the static ``rice_pack`` and the fitted decode beside the static
-one, and times ``magnitude_hist`` (Algorithm 2's bins) alone.
+The kernel phase also holds ``rice_fit`` (with its tile bases) and the
+fitted ``rice_pack`` to their plain versions on gspar's compact idx of
+every group, times them beside the static ``rice_pack`` and beside their
+first route (``rice_fit_legacy``, ``rice_pack_fitted_legacy``), each by
+CUDA events around the wrapper and by the profiler's device time
+(``device_ms``), times the fitted decode beside the static one, and times
+``magnitude_hist`` (Algorithm 2's bins) alone.
 
 Last, the rest of the exchange and the reference backend
 (``exchange_phase``, three steps each at gemma-2b full width): (A) gspar
@@ -768,7 +771,8 @@ def kernel_phase(groups) -> dict:
               "max_rel_err": 0.0}
     philox_check()
     decode_ms = {"rice": 0.0, "rice_fitted": 0.0, "coo": 0.0}
-    fitted = {"r_hist": {}, "used_words": 0, "static_words": 0}
+    fitted = {"r_hist": {}, "used_words": 0, "static_words": 0, "ms": {},
+              "device_ms": {}, "device_ops": {}}
     f32, bf16 = codecs.FloatCodec(), codecs.FloatCodec(16, True)
     widest = max(d for _, d, _ in groups)     # gemma-2b: 1 x 524,288,000
     memset_ms = 0.0
@@ -876,14 +880,13 @@ def kernel_phase(groups) -> dict:
             dense, lp, vals.reshape(1, -1), words.reshape(1, -1),
             used[None], 0, n))
         window = coding.rice_fit_window(k_cap, d)
-        fr, fh = K.rice_fit(idx, st.nnz, d=d, window=window)
-        fw, _ = K.rice_pack_fitted(idx, st.nnz, fr, d=d, window=window)
+        fw, fh = K.rice_fit_pack(idx, st.nnz, d=d, window=window)
         lp = wire_layout.LeafPlan("rice", rows, d, k_cap, k_cap,
                                   fw.shape[1], r, True, window)
         decode_ms["rice_fitted"] += cuda_ms(lambda: sync.decode_into(
             dense, lp, vals.reshape(1, -1), fw.reshape(1, -1), fh[None], 0,
             n))
-        del fr, fh, fw
+        del fh, fw
         coo_words = idx + (torch.arange(rows, dtype=torch.int32,
                                         device="cuda") * d)[:, None]
         lp = wire_layout.LeafPlan("coo", rows, d, k_cap, k_cap, k_cap)
@@ -1015,39 +1018,110 @@ def compaction_checks(tally: Tally, g, k_cap: int, first: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def device_ms(fn, reps: int = REPS) -> tuple[float | None, dict]:
+    """The card's own time of one call of ``fn``: the summed durations of
+    the kernels and memsets it enqueues (torch.profiler, CUDA activity),
+    averaged over ``reps`` calls after one warm-up, without the host's
+    share that ``cuda_ms`` includes; and the device operations a call, by
+    name. ``None`` when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):                   # a trace that lost its device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        us = sum(e.self_device_time_total for e in events)
+        if us > 0:
+            return us / reps / 1e3, {e.key[:60]: e.count / reps
+                                     for e in events}
+    return None, {}
+
+
+FITTED_ROUTES = ("fit", "pack", "pair", "fit_legacy", "pack_legacy",
+                 "static")
+
+
 def fitted_checks(tally: Tally, idx, nnz, d: int, used, n_live,
                   fitted: dict) -> None:
     """Wire-format v4's two kernels on one group's compact idx (gspar's):
-    ``rice_fit`` (r and header) and the fitted ``rice_pack`` (words and
-    header) bit-equal to their plain versions, timed beside the static
-    packing of the same idx (``rice_pack``, just before); the headers'
-    used words never over the static ones, the words decoding at each
-    row's r to the kept coordinates; the r histogram."""
+    ``rice_fit`` (r, header and the tile bases: ``rice_fit_tiles``) and
+    the fitted ``rice_pack`` from those bases (words and header), and the
+    pair from one host call (``rice_fit_pack``, the main path's),
+    bit-equal to their plain versions; timed beside the static packing of
+    the same idx (``rice_pack``, timed before too) and beside the first
+    route of both (``rice_fit_legacy``, ``rice_pack_fitted_legacy``, also
+    held bit-equal), each by CUDA events around the wrapper (``cuda_ms``,
+    the host's share included; the routes in turns, then in reverse, the
+    mean of the two) and by the profiler's device time (``device_ms``); the
+    headers' used words never over the static ones, the words decoding at
+    each row's r to the kept coordinates; the r histogram."""
     from repro_torch.comm import compaction
     from repro_torch.core import coding
     from repro_torch.kernels.sparsify import kernel as K, ref
     rows, k_cap = idx.shape
     window = coding.rice_fit_window(k_cap, d)
-    r, header = K.rice_fit(idx, nnz, d=d, window=window)
+    fit = K.rice_fit_tiles(idx, nnz, d=d, window=window)
+    r, header, bases = fit
     want_r, want_h = ref.rice_fit_ref(idx, nnz, d, window)
-    # the live idx prefix read once; r, header and the accumulators
+    # the live idx prefix read once; r, header and the bases written
     chk = tally.add(
-        "rice_fit", cuda_ms(lambda: K.rice_fit(idx, nnz, d=d, window=window)),
+        "rice_fit", 0.0,
         cuda_ms(lambda: ref.rice_fit_ref(idx, nnz, d, window), 1),
-        (sum(n_live) + rows) * 4 + rows * (8 + 32))
+        (sum(n_live) + rows) * 4 + rows * 8 + bases.numel() * 4)
     chk.equal("rice_fit r", r, want_r)
     chk.equal("rice_fit header", header, want_h)
-    words, header2 = K.rice_pack_fitted(idx, nnz, r, d=d, window=window)
+    chk.equal("rice_fit bases", bases,
+              ref.rice_tile_bases_ref(idx, nnz, want_r, d, K.RICE_TILE))
+    words, header2 = K.rice_pack_fitted(idx, nnz, r, d=d, window=window,
+                                        bases=bases)
     want_w, want_h2 = ref.rice_pack_fitted_ref(idx, nnz, r, d, window)
     chk = tally.add(
-        "rice_pack/fitted",
-        cuda_ms(lambda: K.rice_pack_fitted(idx, nnz, r, d=d, window=window)),
+        "rice_pack/fitted", 0.0,
         cuda_ms(lambda: ref.rice_pack_fitted_ref(idx, nnz, r, d, window), 1),
-        (sum(n_live) + words.numel() + 3 * rows) * 4)
+        (sum(n_live) + words.numel() + 3 * rows + bases.numel()) * 4)
     chk.equal("rice_pack/fitted words", words, want_w)
     chk.equal("rice_pack/fitted header", header2, want_h2)
     chk.equal("rice_pack/fitted header vs rice_fit", header2, header)
-    del want_w, want_h2
+    pair = K.rice_fit_pack(idx, nnz, d=d, window=window)
+    chk.equal("rice_fit_pack words", pair[0], want_w)
+    chk.equal("rice_fit_pack header", pair[1], want_h2)
+    del want_w, want_h2, pair
+    old_r, old_h = K.rice_fit_legacy(idx, nnz, d=d, window=window)
+    chk.equal("rice_fit_legacy r and header", torch.stack([old_r, old_h]),
+              torch.stack([r, header]))
+    old = K.rice_pack_fitted_legacy(idx, nnz, r, d=d, window=window)
+    chk.equal("rice_pack_fitted_legacy words", old[0], words)
+    chk.equal("rice_pack_fitted_legacy header", old[1], header)
+    del old, old_r, old_h
+    r_static = coding.rice_parameter(k_cap, d)
+    calls = {
+        "fit": lambda: K.rice_fit_tiles(idx, nnz, d=d, window=window),
+        "pack": lambda: K.rice_pack_fitted(idx, nnz, r, d=d, window=window,
+                                           bases=bases),
+        "pair": lambda: K.rice_fit_pack(idx, nnz, d=d, window=window),
+        "fit_legacy": lambda: K.rice_fit_legacy(idx, nnz, d=d,
+                                                window=window),
+        "pack_legacy": lambda: K.rice_pack_fitted_legacy(
+            idx, nnz, r, d=d, window=window),
+        "static": lambda: K.rice_pack(idx, nnz, d=d, r=r_static)}
+    ms = dict.fromkeys(FITTED_ROUTES, 0.0)
+    for key in FITTED_ROUTES + FITTED_ROUTES[::-1]:
+        ms[key] += cuda_ms(calls[key]) / 2
+    for key in FITTED_ROUTES:
+        fitted["ms"][key] = fitted["ms"].get(key, 0.0) + ms[key]
+        dev, ops = device_ms(calls[key])
+        acc = fitted["device_ms"]
+        acc[key] = None if dev is None or (key in acc and acc[key] is None) \
+            else acc.get(key, 0.0) + dev
+        fitted["device_ops"].setdefault(key, ops)
+    # the table's times of the two kernels: as timed here, in turns
+    tally.ms["rice_fit"] += ms["fit"]
+    tally.ms["rice_pack/fitted"] += ms["pack"]
     fused = header & compaction.RICE_HDR_USED_MASK
     if bool((fused > used).any()):
         raise AssertionError("a fitted row uses more words than the static")
@@ -1059,7 +1133,7 @@ def fitted_checks(tally: Tally, idx, nnz, d: int, used, n_live,
     for row in range(rows):
         chk.equal(f"rice_decode_fitted row {row}", dec[row, :n_live[row]],
                   idx[row, :n_live[row]])
-    del dec, words, header, header2, r
+    del dec, words, header, header2, r, bases, fit
 
 
 def overflow_checks(tally: Tally, g, u, lam, st) -> None:
@@ -3206,7 +3280,7 @@ def main() -> int:
     lib, log = K.build()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for line in ptxas_lines(log, ("compact_emit", "rice_pack",
+    for line in ptxas_lines(log, ("compact_emit", "rice_pack", "rice_fit",
                                   "select_tiles_topk", "radix_",
                                   "compact_select", "compact_finish",
                                   "closed_finish")):
@@ -3307,6 +3381,19 @@ def main() -> int:
         kp["prng"]["z_max"]
     kernels[list(ENTRIES).index("compaction.compact")]["three_kernels_ms"] = \
         tally.library_ms["compaction_three_kernels"]
+    fit = kp["fitted"]
+    for name, new, old in (("rice_fit", "fit", "fit_legacy"),
+                           ("rice_pack/fitted", "pack", "pack_legacy"),
+                           ("rice_pack", "static", None)):
+        entry = kernels[list(ENTRIES).index(name)]
+        entry["device_ms"] = fit["device_ms"][new]
+        if old is not None:
+            entry["legacy_ms"] = fit["ms"][old]
+            entry["legacy_device_ms"] = fit["device_ms"][old]
+    kernels[list(ENTRIES).index("rice_pack/fitted")]["pair_ms"] = \
+        fit["ms"]["pair"]
+    kernels[list(ENTRIES).index("rice_pack/fitted")]["pair_device_ms"] = \
+        fit["device_ms"]["pair"]
     kernels[list(ENTRIES).index("closed_lambda")]["ops_ms"] = \
         kp["closed"]["ms"]
     kernels[list(ENTRIES).index("closed_lambda")]["torch_solve_ms"] = \
@@ -3325,7 +3412,10 @@ def main() -> int:
     print(json.dumps({"fitted_kernel_phase": {
         "r_hist": kp["fitted"]["r_hist"],
         "used_words": kp["fitted"]["used_words"],
-        "static_words": kp["fitted"]["static_words"]}}))
+        "static_words": kp["fitted"]["static_words"],
+        "ms_per_step": kp["fitted"]["ms"],
+        "device_ms_per_step": kp["fitted"]["device_ms"],
+        "device_ops_per_call": kp["fitted"]["device_ops"]}}))
     print(json.dumps({"experiments": exp}))
     for key, run in exchange["runs"].items():
         print(json.dumps({key: {

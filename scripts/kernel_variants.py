@@ -30,14 +30,25 @@ chip_smoke's kernel phase. The variants:
 - ``select_blocks3``: the compaction's ``compact_select`` compiled for 3
   blocks an SM (the source: 4);
 - ``select_no_sleep``: its look-back spinning without a back-off (the
-  source: ``__nanosleep`` between reads).
+  source: ``__nanosleep`` between reads);
+- ``fit_blocks6``, ``fit_blocks8``: ``rice_fit``'s tile pass
+  (``rice_fit_sums``) compiled for 6 or 8 blocks an SM (the source: no
+  bound);
+- ``fitpack_blocks3``, ``fitpack_blocks5``, ``fitpack_blocks6``: the
+  fitted ``rice_pack`` (``rice_pack_fitted``, from the fit's bases) for 3,
+  5 or 6 blocks an SM (the source: 4).
 
 And four diagnostics of ``compact_select``, each the source with a part of
 its work taken out, timed only (their outputs are not the source's):
 ``select_copy_only`` (a block copies its tile to shared memory and
 leaves), ``select_count_only`` (and counts it), ``select_no_lookback``
 (every step but the look-back: a tile takes a made-up base) and
-``select_no_store`` (every step but the staging and the stores).
+``select_no_store`` (every step but the staging and the stores); and
+three of the fitted ``rice_pack``: ``fitpack_loads_only`` (a block reads
+its codes, sums their quotients and leaves), ``fitpack_no_rem`` (no remainder
+field) and ``fitpack_no_unary`` (no unary field). The fitted pair's cases
+are timed by the profiler's device time (``chip_smoke.device_ms``), the
+others by CUDA events around the wrapper (``chip_smoke.cuda_ms``).
 
 ``--only`` runs the named variants (and the source) alone. Every variant's
 outputs are held bit-equal to the source's. Prints the card's name and
@@ -77,9 +88,20 @@ CASES = {"memset": COMPACT, "zeroing": COMPACT, "bounds5": COMPACT,
          "select_copy_only": ("compact_select",),
          "select_count_only": ("compact_select",),
          "select_no_lookback": ("compact_select",),
-         "select_no_store": ("compact_select",)}
+         "select_no_store": ("compact_select",),
+         "fit_blocks6": ("rice_fit",),
+         "fit_blocks8": ("rice_fit",),
+         "fitpack_blocks3": ("rice_pack/fitted",),
+         "fitpack_blocks5": ("rice_pack/fitted",),
+         "fitpack_blocks6": ("rice_pack/fitted",),
+         "fitpack_loads_only": ("rice_pack/fitted",),
+         "fitpack_no_rem": ("rice_pack/fitted",),
+         "fitpack_no_unary": ("rice_pack/fitted",)}
 # variants that take work out: timed, their outputs not held to the source's
-DIAGNOSTIC = {"select_copy_only", "select_count_only", "select_no_lookback",
+# the cases timed by device time alone
+DEVICE = {"rice_fit", "rice_pack/fitted"}
+DIAGNOSTIC = {"fitpack_loads_only", "fitpack_no_rem", "fitpack_no_unary",
+              "select_copy_only", "select_count_only", "select_no_lookback",
               "select_no_store"}
 # variants that are the source's build with other topk_threshold rounds
 BITS = {"radix2": (8, 7)}
@@ -112,6 +134,10 @@ def variants(src: str) -> dict[str, str]:
     counted = "  sh_thr[threadIdx.x] = inc - mine;      // my lanes' before " \
         "me, in my warp\n"
     staged = "    const int wn = __shfl_sync(kFull, r0 + __popc(km), 31) - wr;"
+    scan = "  unsigned inc = len;\n"
+    fit_lb = "__global__ void __launch_bounds__(kThreads)\nrice_fit_sums("
+    rem = "  if (r > 0) {\n    // The remainder field"
+    unary = "  // The unary field: my len bits"
     return {
         "source": src,
         "memset": sub(zero, "  const int zero_dead = 0;"),
@@ -153,6 +179,20 @@ def variants(src: str) -> dict[str, str]:
             "b == 0 ? 0ull : select_lookback(st, b)",
             "(unsigned long long)(b * 1024)"),
         "select_no_store": sub(staged, staged + "\n    continue;"),
+        "fit_blocks6": sub(fit_lb, fit_lb.replace("(kThreads)",
+                                                  "(kThreads, 6)")),
+        "fit_blocks8": sub(fit_lb, fit_lb.replace("(kThreads)",
+                                                  "(kThreads, 8)")),
+        "fitpack_blocks3": sub("constexpr int kPackMinBlocks = 4;",
+                               "constexpr int kPackMinBlocks = 3;"),
+        "fitpack_blocks5": sub("constexpr int kPackMinBlocks = 4;",
+                               "constexpr int kPackMinBlocks = 5;"),
+        "fitpack_blocks6": sub("constexpr int kPackMinBlocks = 4;",
+                               "constexpr int kPackMinBlocks = 6;"),
+        "fitpack_loads_only": sub(scan, "  if (len == 12345u) wrow[0] = "
+                                  "1u;\n  return;\n" + scan),
+        "fitpack_no_rem": sub(rem, rem.replace("r > 0", "false")),
+        "fitpack_no_unary": sub(unary, "  return;\n" + unary),
     }
 
 
@@ -235,6 +275,8 @@ def main() -> int:
         _, idx, _ = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32,
                                    ef=False)
         r = coding.rice_parameter(k_cap, d)
+        window = coding.rice_fit_window(k_cap, d)
+        fit = K.rice_fit_tiles(idx, st.nnz, d=d, window=window)
         cases = {
             "compact_emit/lam f32 EF": lambda: K.compact_emit(
                 g, u, lam, st, k_cap=k_cap, codec=f32, ef=True),
@@ -253,6 +295,10 @@ def main() -> int:
             "topk_threshold": lambda: K.topk_threshold(g, k_target),
             "compact_select": lambda: K.compact_select(
                 g, bins, k_cap=k_cap, codec=f32),
+            "rice_fit": lambda: K.rice_fit_tiles(idx, st.nnz, d=d,
+                                                 window=window),
+            "rice_pack/fitted": lambda: K.rice_pack_fitted(
+                idx, st.nnz, fit.r, d=d, window=window, bases=fit.bases),
         }
         cases = {c: fn for c, fn in cases.items() if c in wanted}
         for case, fn in cases.items():     # each variant as the source
@@ -274,12 +320,14 @@ def main() -> int:
             use(name)
             for case, fn in cases.items():
                 if name == "source" or case in CASES[name]:
-                    times[name].setdefault(case, []).append(cs.cuda_ms(fn))
+                    ms = (cs.device_ms(fn)[0] if case in DEVICE
+                          else cs.cuda_ms(fn))
+                    times[name].setdefault(case, []).append(ms)
         for name in names:
             for case, ts in times[name].items():
                 total[name][case] = (total[name].get(case, 0.0)
                                      + statistics.mean(ts))
-        del g, u, st, stb, stt, ucb, idx, bins, cases
+        del g, u, st, stb, stt, ucb, idx, bins, cases, fit
         torch.cuda.empty_cache()
     use("source")
     for name, ms in total.items():

@@ -34,6 +34,8 @@ zero-value masking drops it whole.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # One bucket's concatenated coordinate space is addressed with int32.
@@ -258,10 +260,12 @@ def _rice_pack_gaps(x: torch.Tensor, r: int, cap_words: int
     return words, used.to(I32)
 
 
+@functools.lru_cache(maxsize=1024)
 def rice_fit_cap_words(k_cap: int, d: int, window: tuple[int, ...]) -> int:
     """Word capacity of a fitted stream: the largest over the window (the
     payload must hold whichever candidate the data picks). Raises where a
-    row's used count could reach the header's 2^26, rather than truncate."""
+    row's used count could reach the header's 2^26, rather than truncate.
+    Cached: the kernels' wrappers ask for it on every call."""
     cap = max(rice_cap_words(k_cap, d, r) for r in window)
     if cap > RICE_HDR_USED_MASK:
         raise ValueError(f"a fitted Golomb-Rice row of k_cap={k_cap}, d={d} "

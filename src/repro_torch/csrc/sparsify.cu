@@ -16,7 +16,9 @@
 //                    r, src/repro/comm/compaction.py:265)
 //   rice_fit      <- the candidate sweep and argmin of XLA's
 //                    rice_encode_fitted (src/repro/comm/compaction.py:300)
-//                    the data-fitted Golomb-Rice parameter per row
+//                    the data-fitted Golomb-Rice parameter per row, with
+//                    the quotient base of each tile, from which the fitted
+//                    rice_pack (rice_pack_fitted) packs without a scan
 //   stats         <- stats_2d         (kernel.py:239)  (sum|g|, sum g^2, max)
 //   sparsify      <- sparsify_2d      (kernel.py:96)   dense Q(g), wire dtype
 //   sparsify_ef   <- sparsify_ef_2d   (kernel.py:123)  Q(g) and g - Q(g)
@@ -76,9 +78,11 @@
 // + in-block rank (a warp shuffle scan and one barrier a sweep). Slots are
 // written without atomics, so idx ascends by coordinate; pass 2 also zeroes
 // the slots past each row's live prefix (at a capacity of a whole row, a
-// memset before it does). rice_pack, which needs the
+// memset before it does). The static rice_pack, which needs the
 // quotient sum of everything before a block, takes it from a chained scan
 // with decoupled look-back instead: one launch, blocks ordered by a ticket.
+// The fitted one takes it from rice_fit, which reads the same codes first
+// and hands it every tile's base (its last block to arrive scans them).
 //
 // Sums accumulate in f64 and round to f32 once, so they differ from the TPU's
 // tile-order f32 sums only by rounding; counts are integers (the TPU counts
@@ -1202,11 +1206,12 @@ compact_emit(const T* __restrict__ g, const float* __restrict__ u, int64_t d,
 // ptxas (-Xptxas -v, sm_90a, 6 blocks an SM): 40 registers, a 16-byte
 // stack frame (12 bytes of spill stores), 15 KB of shared memory.
 //
-// The fitted variant (kFitted, wire-format v4) reads each row's r from
-// r_rows (rice_fit's output) instead of one r for the group, packs into
-// the fitted capacity (the window's largest) and writes the header
-// (r << kHdrShift) | used in place of used. The static instantiation is
-// the kernel above, unchanged.
+// The fitted instance (kFitted) reads each row's r from r_rows instead of
+// one r for the group, packs into the fitted capacity (the window's
+// largest) and writes the header (r << kHdrShift) | used in place of used.
+// It is wire-format v4's first packing, kept only as the yardstick
+// that chip_smoke times beside its redesign, rice_pack_fitted below; the
+// static instantiation is the main path's kernel.
 // ---------------------------------------------------------------------------
 
 constexpr int kRiceItems = 16;                     // codes per thread
@@ -1451,31 +1456,35 @@ rice_pack(const int* __restrict__ idx, const int* __restrict__ nnz,
 }
 
 // ---------------------------------------------------------------------------
-// rice_fit: the data-fitted Golomb-Rice parameter of each row (wire-format
-// v4), from pass 2's ascending idx[rows, k_cap] and pass 1's nnz. It
-// replaces the candidate sweep and argmin of XLA's rice_encode_fitted
-// (src/repro/comm/compaction.py:300-324), which packs the row at every r of
-// the window and keeps the shortest stream. Only the used word counts
-// decide, and candidate r's count is ceil((k_cap r + S_r + k_cap) / 32) with
-// S_r = sum over live codes of (gap - 1) >> r (dead codes code 0): one
-// number per candidate. So each block reads kRiceTile codes of a row's
+// rice_fit_legacy_tiles + rice_fit_legacy_finish: wire-format v4's first
+// fit, kept only as the yardstick that chip_smoke times beside its
+// redesign, rice_fit below (which hands the fitted packing its tile
+// bases). The data-fitted Golomb-Rice parameter of each row, from pass 2's
+// ascending idx[rows, k_cap] and pass 1's nnz. It replaces the candidate
+// sweep and argmin of XLA's rice_encode_fitted
+// (src/repro/comm/compaction.py:300-324), which packs the row at every r
+// of the window and keeps the shortest stream. Only the used word counts
+// decide, and candidate r's count is ceil((k_cap r + S_r + k_cap) / 32)
+// with S_r = sum over live codes of (gap - 1) >> r (dead codes code 0):
+// one number per candidate. So each block reads kRiceTile codes of a row's
 // live prefix once (kRiceItems consecutive codes a thread and the code
 // before them, as rice_pack reads them), reduces S_r for every candidate
 // (at most kFitMax) in int64, and adds it to the row's accumulator with one
 // atomicAdd per candidate (integer adds, so the order of the blocks does
 // not matter); blocks past the live prefix read nothing. A one-thread-a-row
 // finish forms the counts, takes the first minimum over the ascending
-// window and writes r and the header (r << kHdrShift) | used, which the
-// fitted rice_pack then packs at. Bound: one read of each row's live idx
-// prefix (4 B per live code); the accumulators and outputs are 40 B a row.
+// window and writes r and the header (r << kHdrShift) | used. Bound: one
+// read of each row's live idx prefix (4 B per live code); the accumulators
+// and outputs are 40 B a row.
 // ---------------------------------------------------------------------------
 
 constexpr int kFitMax = 4;                         // candidates of a window
 
 __global__ void __launch_bounds__(kThreads)
-rice_fit_tiles(const int* __restrict__ idx, const int* __restrict__ nnz,
-               int64_t k_cap, int4 window, int vec,
-               unsigned long long* __restrict__ acc) {
+rice_fit_legacy_tiles(const int* __restrict__ idx,
+                      const int* __restrict__ nnz, int64_t k_cap,
+                      int4 window, int vec,
+                      unsigned long long* __restrict__ acc) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int64_t row = blockIdx.y, b = blockIdx.x;
   const int64_t nl = nnz[row];
@@ -1525,10 +1534,9 @@ rice_fit_tiles(const int* __restrict__ idx, const int* __restrict__ nnz,
   }
 }
 
-__global__ void rice_fit_finish(const unsigned long long* __restrict__ acc,
-                                int64_t rows, int64_t k_cap, int nw,
-                                int4 window, int* __restrict__ r_out,
-                                int* __restrict__ header) {
+__global__ void rice_fit_legacy_finish(
+    const unsigned long long* __restrict__ acc, int64_t rows, int64_t k_cap,
+    int nw, int4 window, int* __restrict__ r_out, int* __restrict__ header) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   const int rs[kFitMax] = {window.x, window.y, window.z, window.w};
@@ -1545,6 +1553,485 @@ __global__ void rice_fit_finish(const unsigned long long* __restrict__ acc,
   r_out[row] = best_r;
   header[row] = (best_r << kHdrShift) | (int)best;
 }
+
+// ---------------------------------------------------------------------------
+// Wire-format v4, redesigned: rice_fit hands the fitted rice_pack the
+// quotient base of every tile, so the packing has no ticket, no status
+// words, no look-back and no memset.
+//
+// rice_fit replaces the candidate sweep and argmin of XLA's
+// rice_encode_fitted (src/repro/comm/compaction.py:300-324). Candidate r's
+// used words are ceil((k_cap r + S_r + k_cap) / 32), S_r = sum over the
+// live codes of (gap - 1) >> r. Two launches, no memset. rice_fit_sums: a
+// block a tile of kRiceTile codes of a row's live prefix (blocks past it
+// return at once) reads its codes once, kRiceItems consecutive codes a
+// lane (the code before a lane's first from the lane before it by a
+// shuffle), and stores its quotient sum at every candidate (int32: a row's
+// gaps sum to under d < 2^31). rice_fit_bases: a block a row reads the
+// row's tile sums (eight loads in flight a thread), adds them into the
+// totals, takes the first minimum over the ascending window, writes r and
+// the header (r << kHdrShift) | used, and the row's bases: entry t the
+// exclusive prefix of the tile sums at the chosen r, one block scan (from
+// the first dead tile on, and at entry nb, the row's total). Given r_given
+// it takes each row's r as its only candidate: the bases of a packing at
+// any r. (One kernel whose last block to arrive at a row's counter did the
+// second launch's work measured slower: every block waited on its
+// atomic's round trip before it could leave.) Bound: one read of each
+// row's live idx prefix (4 B a live code); the tile sums and bases add 20
+// B a tile.
+//
+// rice_pack_fitted replaces XLA's _rice_pack_gaps at the chosen r
+// (compaction.py:265, called from :321). A block a tile again: its codes'
+// remainder bits start at c0 r, their unary span at k_cap r + base + c0
+// (the tile's quotient base from the fit, and one terminator a code
+// before it). A lane takes kRiceItems consecutive codes (its stream of
+// each field is at least kRiceItems bits long), their positions from one
+// warp scan and one barrier. Every word below `used` is stored once,
+// whole, with a plain store, by the lane whose stream holds the word's
+// first bit; a word that a stream ends inside takes the first bits of
+// what follows it: from the lane after (its shared first word), from the
+// lanes after by a two-step suffix scan of 32-bit heads, from the warp
+// after (whose first 32 codes the warp reads again: 32 bits never take
+// more), and at the word where the remainder field meets the unary field,
+// from tile 0's head. The remainder bits pass through a 32-bit funnel
+// (four codes an append for r <= 8); the unary bits are built in 128
+// register bits, ones with the terminators cleared; a longer unary stream
+// (a long gap at a small r) is stored by the whole warp. Tiles past the
+// live prefix store zeros without reading, and the padding past `used` is
+// zeroed in equal shares by the row's blocks. No block waits on another.
+// (A first design, four codes a lane in rounds of 128 with a suffix scan
+// of heads for every round and field, issued several times the
+// instructions and measured slower than the first route.) Bound: one read
+// of each row's live idx prefix and one write of the capacity words.
+// ---------------------------------------------------------------------------
+
+constexpr int kPackMinBlocks = 4;
+
+// The warp's kRiceCodes codes from cw as x = gap - 1, kRiceItems
+// consecutive codes a lane (four 16-byte loads, 64 bytes apart across the
+// warp); the code before a lane's first from the lane before it.
+__device__ __forceinline__ void lane_gaps(const int* __restrict__ irow,
+                                          int64_t cw, int64_t n_live,
+                                          int vec, int x[kRiceItems]) {
+  const int lane = threadIdx.x & 31;
+  const int64_t cl = cw + (int64_t)lane * kRiceItems;
+  const int nk = cl >= n_live ? 0 : (n_live - cl < kRiceItems
+                                     ? (int)(n_live - cl) : kRiceItems);
+  if (vec && nk == kRiceItems) {
+#pragma unroll
+    for (int v = 0; v < kRiceItems / 4; ++v) {
+      const int4 q = *reinterpret_cast<const int4*>(irow + cl + 4 * v);
+      x[4 * v] = q.x; x[4 * v + 1] = q.y; x[4 * v + 2] = q.z;
+      x[4 * v + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) x[k] = k < nk ? irow[cl + k] : 0;
+  }
+  const int p0 = lane == 0 && cw > 0 && cw < n_live ? irow[cw - 1] : -1;
+  int prev = __shfl_up_sync(kFull, x[kRiceItems - 1], 1);
+  if (lane == 0) prev = p0;
+#pragma unroll
+  for (int k = 0; k < kRiceItems; ++k) {
+    const int cur = x[k];
+    x[k] = k < nk ? cur - prev - 1 : 0;
+    prev = cur;
+  }
+}
+
+__device__ __forceinline__ int pick4(const int4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rice_fit_sums(const int* __restrict__ idx, const int* __restrict__ nnz,
+              int64_t k_cap, int4 window, const int* __restrict__ r_given,
+              int64_t nb, int vec, int4* __restrict__ tsum) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t row = blockIdx.y, b = blockIdx.x;
+  const int64_t nl = nnz[row];
+  const int64_t n_live = nl < k_cap ? nl : k_cap;
+  // the row's live tiles (one for an empty row, which still needs its r)
+  const int64_t nlt = n_live > 0 ? (n_live + kRiceTile - 1) / kRiceTile : 1;
+  if (b >= nlt) return;
+  int4 rs = window;
+  if (r_given != nullptr) rs.x = rs.y = rs.z = rs.w = r_given[row];
+  int x[kRiceItems];
+  lane_gaps(idx + row * k_cap, b * kRiceTile + (int64_t)w * kRiceCodes,
+            n_live, vec, x);
+  __shared__ int sh[kWarps][kFitMax];
+#pragma unroll
+  for (int c = 0; c < kFitMax; ++c) {
+    const int rc = pick4(rs, c);
+    int s = 0;
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) s += x[k] >> rc;
+    s = warp_allsum(s);
+    if (lane == 0) sh[w][c] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t[kFitMax] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j)
+#pragma unroll
+      for (int c = 0; c < kFitMax; ++c) t[c] += sh[j][c];
+    tsum[row * nb + b] = make_int4(t[0], t[1], t[2], t[3]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rice_fit_bases(const int* __restrict__ nnz, int64_t k_cap, int4 window,
+               int nw, const int* __restrict__ r_given, int64_t nb,
+               const int4* __restrict__ tsum, int* __restrict__ r_out,
+               int* __restrict__ header, int* __restrict__ bases) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x;
+  const int64_t nl = nnz[row];
+  const int64_t n_live = nl < k_cap ? nl : k_cap;
+  const int64_t nlt = n_live > 0 ? (n_live + kRiceTile - 1) / kRiceTile : 1;
+  int4 rs = window;
+  if (r_given != nullptr) {
+    nw = 1;
+    rs.x = rs.y = rs.z = rs.w = r_given[row];
+  }
+  const int4* trow = tsum + row * nb;
+  // Each thread sums a run of tiles at every candidate, the block adds the
+  // runs into the totals; then the first minimum, one block scan of the
+  // runs at it, and a second read of the runs for the bases.
+  const int64_t per = (nlt + kThreads - 1) / kThreads;
+  const int64_t t0 = threadIdx.x * per;
+  const int64_t t1 = t0 + per < nlt ? t0 + per : nlt;
+  int run[kFitMax] = {0, 0, 0, 0};
+  for (int64_t t = t0; t < t1; t += 8) {
+    int4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = t + i < t1 ? trow[t + i] : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      run[0] += v[i].x; run[1] += v[i].y; run[2] += v[i].z; run[3] += v[i].w;
+    }
+  }
+  __shared__ long long sh_tot[kWarps][kFitMax];
+#pragma unroll
+  for (int c = 0; c < kFitMax; ++c) {
+    const long long v = warp_allsum((long long)run[c]);
+    if (lane == 0) sh_tot[w][c] = v;
+  }
+  __syncthreads();
+  long long best = -1, s_best = 0;
+  int bi = 0;
+#pragma unroll
+  for (int c = 0; c < kFitMax; ++c) {    // the first minimum: strict <
+    long long s = 0;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) s += sh_tot[j][c];
+    const long long u = (k_cap * pick4(rs, c) + s + k_cap + 31) / 32;
+    if (c < nw && (best < 0 || u < best)) {
+      best = u;
+      s_best = s;
+      bi = c;
+    }
+  }
+  const int r = pick4(rs, bi);
+  if (threadIdx.x == 0) {
+    r_out[row] = r;
+    header[row] = (r << kHdrShift) | (int)best;
+  }
+  __shared__ int sh_scan[33];
+  int total;
+  int excl = block_excl_scan(pick4(make_int4(run[0], run[1], run[2], run[3]),
+                                   bi), &total, sh_scan);
+  int* brow = bases + row * (nb + 1);
+  for (int64_t t = t0; t < t1; t += 8) {
+    int4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = t + i < t1 ? trow[t + i] : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (t + i < t1) {
+        brow[t + i] = excl;
+        excl += pick4(v[i], bi);
+      }
+  }
+  for (int64_t t = nlt + threadIdx.x; t <= nb; t += kThreads)
+    brow[t] = (int)s_best;
+}
+
+// Lane l: the first 32 bits of the streams of lanes l..31 in order, lane
+// j's `len` bits long and beginning with the bits `h` (zeros past len),
+// then `carry`: a suffix scan of (bits, length) pairs by shuffles over
+// `span` lanes, enough where any `span` lanes that exist hold 32 bits and
+// only zeros follow the last lane that does.
+__device__ __forceinline__ unsigned warp_heads(unsigned h, unsigned len,
+                                               unsigned carry, int span) {
+  const int lane = threadIdx.x & 31;
+  unsigned n = len < 32u ? len : 32u;
+#pragma unroll
+  for (int o = 1; o < span; o <<= 1) {
+    const unsigned hn = __shfl_down_sync(kFull, h, o);
+    const unsigned nn = __shfl_down_sync(kFull, n, o);
+    if (lane + o < 32 && n < 32u) {
+      h |= hn << n;
+      n = n + nn < 32u ? n + nn : 32u;
+    }
+  }
+  return n < 32u ? h | carry << n : h;
+}
+
+// A warp's loads for the first 32 bits of the unary span that begins at
+// code c0 (lane j: code c0 + j; lane 0 also the code before), issued with
+// the warp's own codes; head_bits then forms them (zeros past k_cap).
+struct HeadLoad {
+  int cur, prev;
+};
+
+__device__ __forceinline__ HeadLoad head_load(const int* __restrict__ irow,
+                                              int64_t c0, int64_t n_live) {
+  const int lane = threadIdx.x & 31;
+  const int64_t c = c0 + lane;
+  HeadLoad h;
+  h.cur = c < n_live ? irow[c] : 0;
+  h.prev = lane == 0 && c0 > 0 && c0 < n_live ? irow[c0 - 1] : -1;
+  return h;
+}
+
+__device__ __forceinline__ unsigned head_bits(HeadLoad h, int64_t c0,
+                                              int64_t n_live, int64_t k_cap,
+                                              int r) {
+  const int lane = threadIdx.x & 31;
+  const int64_t c = c0 + lane;
+  const int up = __shfl_up_sync(kFull, h.cur, 1);
+  const int prev = lane == 0 ? h.prev : up;
+  const unsigned q = c < n_live ? (unsigned)((h.cur - prev - 1) >> r) : 0u;
+  const unsigned ones = q >= 32u ? ~0u : (1u << q) - 1u;
+  const unsigned len = c < k_cap ? q + 1u : 0u;   // q ones, a terminator
+  return __shfl_sync(kFull, warp_heads(ones, len, 0u, 32), 0);
+}
+
+// The bits of word p (from bit 32 p) that lie in [lo, hi).
+__device__ __forceinline__ unsigned range_bits(int64_t p, int64_t lo,
+                                               int64_t hi) {
+  const int64_t b = p * 32;
+  const int64_t s = lo > b ? lo - b : 0, e = hi < b + 32 ? hi - b : 32;
+  if (e <= s) return 0u;
+  const unsigned upto = e >= 32 ? ~0u : (1u << e) - 1u;
+  return upto & ~((1u << s) - 1u);
+}
+
+__global__ void __launch_bounds__(kThreads, kPackMinBlocks)
+rice_pack_fitted(const int* __restrict__ idx, const int* __restrict__ nnz,
+                 int64_t k_cap, const int* __restrict__ r_rows,
+                 const int* __restrict__ bases, int64_t nb,
+                 int64_t cap_words, int vec, unsigned* __restrict__ words,
+                 int* __restrict__ header) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t row = blockIdx.y, b = blockIdx.x;
+  const int r = r_rows[row];
+  const int* brow = bases + row * (nb + 1);
+  const int* irow = idx + row * k_cap;
+  const int64_t nl = nnz[row];
+  const int64_t n_live = nl < k_cap ? nl : k_cap;
+  const int64_t rem_end = k_cap * r;     // the remainder field's bits
+  const int64_t used = (rem_end + brow[nb] + k_cap + 31) / 32;
+  const int64_t wend = used < cap_words ? used : cap_words;
+  unsigned* wrow = words + row * cap_words;
+  if (b == 0 && threadIdx.x == 0) header[row] = (r << kHdrShift) | (int)used;
+  if (used < cap_words) {                // the padding, in equal shares
+    const int64_t per = (cap_words - used + nb - 1) / nb;
+    const int64_t p0 = used + b * per;
+    const int64_t p1 = p0 + per < cap_words ? p0 + per : cap_words;
+    for (int64_t p = p0 + threadIdx.x; p < p1; p += kThreads) wrow[p] = 0u;
+  }
+  const int64_t c0 = b * kRiceTile;      // the tile's first code
+  const int64_t s0 = rem_end + brow[b] + c0;   // its unary span's first bit
+  if (c0 >= n_live && b < nb - 1) {
+    // a dead tile that does not end the row: whole remainder words and a
+    // span of kRiceTile terminators, all zeros
+    const int64_t rw1 = (c0 + kRiceTile) * r / 32;
+    for (int64_t p = c0 * r / 32 + threadIdx.x; p < rw1; p += kThreads)
+      wrow[p] = 0u;
+    const int64_t uw1 = (s0 + kRiceTile + 31) / 32;
+    for (int64_t p = (s0 + 31) / 32 + threadIdx.x; p < uw1 && p < wend;
+         p += kThreads)
+      wrow[p] = 0u;
+    return;
+  }
+
+  const int64_t cw = c0 + (int64_t)w * kRiceCodes;   // the warp's first code
+  const int64_t cl = cw + (int64_t)lane * kRiceItems;  // and mine
+  // what follows the warp's unary span: the next warp's (or tile's) head;
+  // the warp holding code k_cap - 1 also needs tile 0's head when the
+  // remainder field ends inside a word
+  const HeadLoad hl_next = head_load(irow, cw + kRiceCodes, n_live);
+  const bool junction = (rem_end & 31) != 0 && cw < k_cap &&
+                        k_cap <= cw + kRiceCodes;
+  HeadLoad hl0 = {0, -1};
+  if (junction) hl0 = head_load(irow, 0, n_live);
+  const int ne = cl >= k_cap ? 0 : (k_cap - cl < kRiceItems
+                                    ? (int)(k_cap - cl) : kRiceItems);
+  int x[kRiceItems];
+  lane_gaps(irow, cw, n_live, vec, x);
+  unsigned len = (unsigned)ne;           // my unary bits
+#pragma unroll
+  for (int k = 0; k < kRiceItems; ++k) len += (unsigned)(x[k] >> r);
+  unsigned inc = len;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned n = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += n;
+  }
+  __shared__ unsigned sh_span[kWarps];
+  if (lane == 31) sh_span[w] = inc;
+  __syncthreads();
+  int64_t a = s0 + inc - len;            // my first unary bit
+#pragma unroll
+  for (int j = 0; j < kWarps; ++j)
+    if (j < w) a += sh_span[j];
+
+  if (r > 0) {
+    // The remainder field: my ne * r bits from bit A, through a funnel
+    // that stores each word it fills, but the first when A is mid-word
+    // (the lane before owns it: it ORs in `first`); my last word, when
+    // partial, takes the lane after's `first` (or tile 0's head where the
+    // field ends).
+    const unsigned h0 = junction ? head_bits(hl0, 0, n_live, k_cap, r) : 0u;
+    const unsigned rmask = (1u << r) - 1u;
+    const int64_t A = cl * r;
+    const int L = ne * r;
+    int64_t wi = A >> 5;
+    int fill = (int)(A & 31);
+    unsigned cur = 0u, first = 0u;
+    bool emitted = false;
+    auto append = [&](unsigned v, int nbits) {   // v < 2^nbits, nbits <= 32
+      const unsigned spill = __funnelshift_l(v, 0u, fill);
+      cur |= v << fill;
+      fill += nbits;
+      if (fill >= 32) {
+        if (!emitted && (A & 31)) first = cur;
+        else if (wi < wend) wrow[wi] = cur;
+        emitted = true;
+        ++wi;
+        cur = spill;
+        fill -= 32;
+      }
+    };
+    if (r <= 8) {                        // four codes an append
+#pragma unroll
+      for (int g = 0; g < kRiceItems / 4; ++g) {
+        unsigned v = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          v |= ((unsigned)x[4 * g + k] & rmask) << (k * r);
+        const int n = ne - 4 * g;
+        append(v, (n < 0 ? 0 : n < 4 ? n : 4) * r);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kRiceItems; ++k)
+        append((unsigned)x[k] & rmask, k < ne ? r : 0);
+    }
+    if (L > 0 && A + L == rem_end && (rem_end & 31))
+      cur |= h0 << (rem_end & 31);       // the unary field's first bits
+    if (L > 0 && !emitted && (A & 31)) first = cur;
+    unsigned nxt = __shfl_down_sync(kFull, first, 1);
+    if (lane == 31) nxt = 0u;            // a warp's field ends on a word
+    if (L > 0 && fill > 0 && (emitted || !(A & 31)) && wi < wend)
+      wrow[wi] = cur | nxt;
+  }
+
+  // The unary field: my len bits from bit a, ones but for my codes'
+  // terminators, built in 128 bits (lo, hi) from a's word; the word that
+  // my stream ends inside takes the first bits of what follows it (the
+  // lanes after me, then the next warp's head). A longer stream is stored
+  // by the whole warp, below.
+  const unsigned carry = head_bits(hl_next, cw + kRiceCodes, n_live, k_cap,
+                                   r);
+  const unsigned o = (unsigned)(a & 31);
+  const bool lng = o + len > 128u;
+  unsigned long long lo = 0ull, hi = 0ull;
+  unsigned first32;
+  if (!lng) {
+    const unsigned e = o + len;
+    lo = (e >= 64u ? ~0ull : (1ull << e) - 1ull) & (~0ull << o);
+    hi = e <= 64u ? 0ull : (e >= 128u ? ~0ull : (1ull << (e - 64u)) - 1ull);
+    unsigned p = o - 1u;                 // my terminators' bits
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) {
+      p += (unsigned)(x[k] >> r) + 1u;
+      if (k < ne) {
+        if (p < 64u) lo &= ~(1ull << p);
+        else hi &= ~(1ull << (p - 64u));
+      }
+    }
+    first32 = (unsigned)(lo >> o);
+  } else {
+    first32 = ~0u;                       // len > 96: ones but terminators
+    unsigned p = ~0u;
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) {
+      p += (unsigned)(x[k] >> r) + 1u;
+      if (k < ne && p < 32u) first32 &= ~(1u << p);
+    }
+  }
+  const unsigned h = warp_heads(first32, len, carry, 4);
+  unsigned nxt = __shfl_down_sync(kFull, h, 1);
+  if (lane == 31) nxt = carry;
+  if (!lng && len > 0) {
+    const unsigned e = o + len;
+    const int64_t wa = a >> 5;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // my words: from a's (when a starts it) to the one holding bit e - 1
+      if (j * 32u < e && (j > 0 || o == 0) && wa + j < wend) {
+        const unsigned long long half = j < 2 ? lo : hi;
+        unsigned v = (unsigned)(half >> (32 * (j & 1)));
+        if (e - j * 32u < 32u) v |= nxt << (e - j * 32u);
+        wrow[wa + j] = v;
+      }
+    }
+  }
+  // Long streams, a lane at a time: the warp stores the words as ones
+  // (the last with what follows), then each terminator's lane stores its
+  // word again with every terminator in it cleared. (The stream's first
+  // word, when it starts mid-word, is the lane before's.)
+  for (unsigned todo = __ballot_sync(kFull, lng); todo; todo &= todo - 1) {
+    const int src = __ffs(todo) - 1;
+    const int64_t sa = __shfl_sync(kFull, a, src);
+    const int64_t se = sa + __shfl_sync(kFull, len, src);
+    const int sn = __shfl_sync(kFull, ne, src);
+    const unsigned sx = __shfl_sync(kFull, nxt, src);
+    unsigned t[kRiceItems], mine = ~0u, p = ~0u;
+#pragma unroll
+    for (int k = 0; k < kRiceItems; ++k) {
+      p += (unsigned)(__shfl_sync(kFull, x[k], src) >> r) + 1u;
+      t[k] = k < sn ? p : ~0u;           // offsets from sa
+      if (k == lane) mine = t[k];
+    }
+    const int64_t last = (se - 1) >> 5;
+    for (int64_t q = (sa + 31) / 32 + lane; q <= last && q < wend;
+         q += 32) {
+      unsigned v = range_bits(q, sa, se);
+      if (q == last && (se & 31)) v |= sx << (se & 31);
+      wrow[q] = v;
+    }
+    __syncwarp();
+    if (mine != ~0u) {
+      const int64_t q = (sa + mine) >> 5;
+      if (q * 32 >= sa && q < wend) {
+        unsigned v = range_bits(q, sa, se);
+        if (q == last && (se & 31)) v |= sx << (se & 31);
+#pragma unroll
+        for (int k = 0; k < kRiceItems; ++k)
+          if (((sa + t[k]) >> 5) == q && t[k] != ~0u)
+            v &= ~(1u << ((sa + t[k]) & 31));
+        wrow[q] = v;
+      }
+    }
+    __syncwarp();
+  }}
 
 // ---------------------------------------------------------------------------
 // Kernels 5, 6 and 8: the dense Q(g) of the dense wire, for every selector
@@ -2826,8 +3313,9 @@ int gspar_compact_emit(const void* g, int dt, const void* u, long long rows,
 // look-back status words, then a ticket counter per row) and words: both
 // zeroed here before the launch; vec: 16-byte idx loads (aligned base,
 // k_cap % 4 == 0).
-// r_rows null: every row at r (the static format); else row i at r_rows[i],
-// and `used` takes the fitted header (r_rows[i] << 26) | used.
+// r_rows null: every row at r (the static format, the main path's); else
+// row i at r_rows[i], and `used` takes the fitted header (r_rows[i] << 26)
+// | used: the first fitted packing, kept as chip_smoke's yardstick.
 int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
                     long long k_cap, int r, const void* r_rows,
                     long long cap_words, int vec, void* status, void* words,
@@ -2854,12 +3342,72 @@ int gspar_rice_pack(const void* idx, const void* nnz, long long rows,
   return (int)cudaGetLastError();
 }
 
-// The fitted parameter of each row: window r0..r{nw-1} ascending (nw <= 4);
-// acc: rows x 4 uint64 scratch (zeroed here); r_out, header: int32 [rows].
+// The fitted parameter, header and tile bases of each row, in two
+// launches and no memset: the window r0..r{nw-1} ascending (nw <= 4), or
+// with r_given non-null each row's r_given[i] (the bases of a packing at
+// any r). buf, int32: rows * nb int4 tile sums, then the outputs r [rows],
+// header [rows] and bases [rows, nb + 1]; k_cap >= 1.
 int gspar_rice_fit(const void* idx, const void* nnz, long long rows,
                    long long k_cap, int nw, int r0, int r1, int r2, int r3,
-                   int vec, void* acc, void* r_out, void* header,
-                   void* stream) {
+                   const void* r_given, int vec, void* buf, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nw < 1 || nw > kFitMax || k_cap < 1) return (int)cudaErrorInvalidValue;
+  const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
+  const int4 window = make_int4(r0, r1, r2, r3);
+  int4* tsum = (int4*)buf;
+  int* r_out = (int*)(tsum + rows * nb);
+  if (rows > 0) {
+    rice_fit_sums<<<dim3(grid_x(nb), (unsigned)rows), kThreads, 0, st>>>(
+        (const int*)idx, (const int*)nnz, k_cap, window,
+        (const int*)r_given, nb, vec, tsum);
+    rice_fit_bases<<<(unsigned)rows, kThreads, 0, st>>>(
+        (const int*)nnz, k_cap, window, nw, (const int*)r_given, nb, tsum,
+        r_out, r_out + rows, r_out + 2 * rows);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The fitted packing at r_rows (int32 [rows]) from the fit's bases (int32
+// [rows, nb + 1] at those r): words int32 [rows, cap_words] (every word
+// written, none zeroed before) and header (r << 26) | used; k_cap >= 1.
+int gspar_rice_pack_fitted(const void* idx, const void* nnz, long long rows,
+                           long long k_cap, const void* r_rows,
+                           const void* bases, long long cap_words, int vec,
+                           void* words, void* header, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k_cap < 1) return (int)cudaErrorInvalidValue;
+  const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
+  if (rows > 0)
+    rice_pack_fitted<<<dim3(grid_x(nb), (unsigned)rows), kThreads, 0, st>>>(
+        (const int*)idx, (const int*)nnz, k_cap, (const int*)r_rows,
+        (const int*)bases, nb, cap_words, vec, (unsigned*)words,
+        (int*)header);
+  return (int)cudaGetLastError();
+}
+
+// gspar_rice_fit, then gspar_rice_pack_fitted at its r from its bases, in
+// one call (one host call for wire-format v4's three launches): buf as
+// gspar_rice_fit's; words and header as gspar_rice_pack_fitted's.
+int gspar_rice_fit_pack(const void* idx, const void* nnz, long long rows,
+                        long long k_cap, int nw, int r0, int r1, int r2,
+                        int r3, int vec, void* buf, long long cap_words,
+                        void* words, void* header, void* stream) {
+  const int err = gspar_rice_fit(idx, nnz, rows, k_cap, nw, r0, r1, r2, r3,
+                                 nullptr, vec, buf, stream);
+  if (err) return err;
+  const int64_t nb = (k_cap + kRiceTile - 1) / kRiceTile;
+  const int* r_out = (const int*)((int4*)buf + rows * nb);
+  return gspar_rice_pack_fitted(idx, nnz, rows, k_cap, r_out, r_out + 2 * rows,
+                                cap_words, vec, words, header, stream);
+}
+
+// The first fit (a memset, the block reduction, a one-thread-a-row finish),
+// kept as chip_smoke's yardstick: window r0..r{nw-1} ascending (nw <= 4);
+// acc: rows x 4 uint64 scratch (zeroed here); r_out, header: int32 [rows].
+int gspar_rice_fit_legacy(const void* idx, const void* nnz, long long rows,
+                          long long k_cap, int nw, int r0, int r1, int r2,
+                          int r3, int vec, void* acc, void* r_out,
+                          void* header, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nw < 1 || nw > kFitMax) return (int)cudaErrorInvalidValue;
   const int4 window = make_int4(r0, r1, r2, r3);
@@ -2867,12 +3415,12 @@ int gspar_rice_fit(const void* idx, const void* nnz, long long rows,
   cudaMemsetAsync(acc, 0, rows * kFitMax * 8, st);
   dim3 grid(grid_x(nb), (unsigned)rows);
   if (rows * nb > 0)
-    rice_fit_tiles<<<grid, kThreads, 0, st>>>(
+    rice_fit_legacy_tiles<<<grid, kThreads, 0, st>>>(
         (const int*)idx, (const int*)nnz, k_cap, window, vec,
         (unsigned long long*)acc);
   if (rows > 0)
-    rice_fit_finish<<<(unsigned)((rows + kThreads - 1) / kThreads),
-                      kThreads, 0, st>>>(
+    rice_fit_legacy_finish<<<(unsigned)((rows + kThreads - 1) / kThreads),
+                             kThreads, 0, st>>>(
         (const unsigned long long*)acc, rows, k_cap, nw, window,
         (int*)r_out, (int*)header);
   return (int)cudaGetLastError();

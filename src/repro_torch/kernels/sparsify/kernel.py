@@ -6,7 +6,8 @@ docstring). The sparse emit path: the four passes of the two-pass emit,
 for every selector kind (``PKINDS``: gspar's lam, unisp's rho, bernoulli's
 bern, topk) and every value codec (f32, bf16, qsgd<N>, ternary), and the
 Golomb-Rice packing of the RICE wire layout (with the data-fitted
-parameter of wire-format v4: ``rice_fit`` and ``rice_pack_fitted``), and
+parameter of wire-format v4: ``rice_fit_pack``, which is ``rice_fit`` and
+``rice_pack_fitted`` with the fit's tile bases passed between them), and
 topk's threshold and tie budget (``topk_threshold``). The dense wire: ``stats``, ``sparsify``,
 ``sparsify_ef`` (every selector kind of ``DENSE_KINDS`` with every codec:
 the integer codecs' decoded levels from the scale that ``select_stats``
@@ -41,11 +42,13 @@ see each docstring and PERF.md.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -100,7 +103,14 @@ _SIGNATURES = {
                             ctypes.c_float, _I, _P), _I),
     "gspar_rice_pack": ((_P, _P, _L, _L, _I, _P, _L, _I) + (_P,) * 3
                         + (_P,), _I),
-    "gspar_rice_fit": ((_P, _P, _L, _L) + (_I,) * 6 + (_P,) * 3 + (_P,), _I),
+    "gspar_rice_fit": ((_P, _P, _L, _L) + (_I,) * 5 + (_P, _I, _P) + (_P,),
+                       _I),
+    "gspar_rice_pack_fitted": ((_P, _P, _L, _L, _P, _P, _L, _I) + (_P,) * 2
+                               + (_P,), _I),
+    "gspar_rice_fit_pack": ((_P, _P, _L, _L) + (_I,) * 6 + (_P, _L, _P, _P)
+                            + (_P,), _I),
+    "gspar_rice_fit_legacy": ((_P, _P, _L, _L) + (_I,) * 6 + (_P,) * 3
+                              + (_P,), _I),
     "gspar_stats": ((_P, _I, _L, _L, _I) + (_P,) * 6 + (_P,), _I),
     "gspar_sparsify": ((_P, _I, _P, _L, _L, _I, _I, _P, _P, _P, _P, _I,
                         ctypes.c_uint, _I, _P, _P, ctypes.c_float, _I, _P,
@@ -606,24 +616,81 @@ def rice_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
 
 def rice_pack_fitted(idx: torch.Tensor, nnz: torch.Tensor,
                      r_rows: torch.Tensor, *, d: int,
-                     window: tuple[int, ...]
+                     window: tuple[int, ...],
+                     bases: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """``rice_pack`` with each row at its own parameter ``r_rows [rows]``
-    (int32 on the device, ``rice_fit``'s): ``(words [rows,
+    (int32 on the device, inside ``window``): ``(words [rows,
     rice_fit_cap_words(k_cap, d, window)], header [rows])``, int32, ``header
-    = (r << 26) | used``, bit-equal to ``compaction.rice_encode_fitted``.
-    Replaces XLA's ``_rice_pack_gaps`` at the chosen r
+    = (r << 26) | used``, bit-equal to ``compaction.rice_encode_fitted`` at
+    ``rice_fit``'s r. Replaces XLA's ``_rice_pack_gaps`` at the chosen r
     (src/repro/comm/compaction.py:265, called from :321, where every
-    candidate of the window is packed); the same kernel as ``rice_pack``,
-    instantiated to read r per row and write the header. Counts as a
-    ``rice_pack`` launch and a ``rice_pack/fitted`` one. Bound: one read of
-    each row's live idx prefix and one write of the words."""
+    candidate of the window is packed). ``bases`` are the quotient bases
+    of its tiles at ``r_rows`` (``rice_fit_tiles``'s, int32 [rows,
+    ntiles(k_cap, RICE_TILE) + 1]); without them the wrapper forms them
+    first with the fit's kernel at ``r_rows`` (a ``rice_fit/at_r``
+    launch). Then one launch, no memset: a block a tile writes its
+    remainder words and its unary span at once from its base, every word
+    once and whole. Counts as a ``rice_pack`` launch and a
+    ``rice_pack/fitted`` one. Bound: one read of each row's live idx
+    prefix and one write of the words."""
     if r_rows.shape != idx.shape[:1] or r_rows.dtype != torch.int32:
         raise ValueError("rice_pack_fitted: r_rows must be int32 [rows]")
     cap_words = rice_fit_cap_words(idx.shape[1], d, window)
-    if not _rice_on_card("rice_pack_fitted", idx, nnz, r_rows):
+    extra = () if bases is None else (bases,)
+    if not _rice_on_card("rice_pack_fitted", idx, nnz, r_rows, *extra):
         return ref.rice_pack_fitted_ref(idx, nnz, r_rows, d, window)
-    return _rice_pack(idx, nnz, 0, r_rows, cap_words)
+    rows, k_cap = idx.shape
+    if k_cap < 1:
+        raise ValueError("rice_pack_fitted: k_cap must be at least 1")
+    if bases is None:
+        bases = rice_fit_tiles(idx, nnz, d=d, window=window,
+                               r_rows=r_rows).bases
+    nb = ref.ntiles(k_cap, RICE_TILE)
+    if bases.shape != (rows, nb + 1) or bases.dtype != torch.int32:
+        raise ValueError(f"rice_pack_fitted: bases must be int32 [{rows}, "
+                         f"{nb + 1}]")
+    buf = torch.empty(rows * (cap_words + 1), dtype=torch.int32,
+                      device=idx.device)
+    words = buf[:rows * cap_words].view(rows, cap_words)
+    header = buf[rows * cap_words:]
+    _check(_lib().gspar_rice_pack_fitted(
+        _ptr(idx), _ptr(nnz), rows, k_cap, _ptr(r_rows), _ptr(bases),
+        cap_words, _rice_vec(idx), _ptr(words), _ptr(header), _stream(idx)),
+        "rice_pack", "fitted")
+    return words, header
+
+
+def rice_fit_pack(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
+                  window: tuple[int, ...]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wire-format v4's packing of compact index streams: ``rice_fit``'s
+    parameter of each row, then ``rice_pack_fitted`` at it from the tile
+    bases the fit formed on the way: ``(words, header)``, bit-equal to
+    ``compaction.rice_encode_fitted``. Three launches, no memset, from one
+    host call (a ``rice_fit`` launch, a ``rice_pack`` and a
+    ``rice_pack/fitted`` one)."""
+    rs = _fit_window(tuple(window))
+    cap_words = rice_fit_cap_words(idx.shape[1], d, window)
+    if not _rice_on_card("rice_fit_pack", idx, nnz):
+        r_rows, _ = ref.rice_fit_ref(idx, nnz, d, window)
+        return ref.rice_pack_fitted_ref(idx, nnz, r_rows, d, window)
+    rows, k_cap = idx.shape
+    if k_cap < 1:
+        raise ValueError("rice_fit_pack: k_cap must be at least 1")
+    # one buffer: the fit's (tile sums, r, header, bases), then the words
+    # and the header of the packing
+    nf = rows * (5 * ref.ntiles(k_cap, RICE_TILE) + 3)
+    buf = torch.empty(nf + rows * (cap_words + 1), dtype=torch.int32,
+                      device=idx.device)
+    words = buf[nf:nf + rows * cap_words].view(rows, cap_words)
+    header = buf[nf + rows * cap_words:]
+    _check(_lib().gspar_rice_fit_pack(
+        idx.data_ptr(), nnz.data_ptr(), rows, k_cap, len(window), *rs,
+        _rice_vec(idx), buf.data_ptr(), cap_words, words.data_ptr(),
+        header.data_ptr(), _stream(idx)), "rice_fit")
+    _check(0, "rice_pack", "fitted")
+    return words, header
 
 
 def _rice_on_card(name: str, idx: torch.Tensor, nnz: torch.Tensor,
@@ -649,6 +716,11 @@ def _rice_on_card(name: str, idx: torch.Tensor, nnz: torch.Tensor,
     return True
 
 
+def _rice_vec(idx: torch.Tensor) -> int:
+    """16-byte idx loads: an aligned base and rows a multiple of 4 long."""
+    return int(idx.data_ptr() % 16 == 0 and idx.shape[1] % 4 == 0)
+
+
 def _rice_pack(idx: torch.Tensor, nnz: torch.Tensor, r: int,
                r_rows: torch.Tensor | None, cap_words: int
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -661,12 +733,33 @@ def _rice_pack(idx: torch.Tensor, nnz: torch.Tensor, r: int,
                       device=idx.device)
     words = buf[ns:ns + rows * cap_words].view(rows, cap_words)
     used = buf[ns + rows * cap_words:]
-    vec = int(idx.data_ptr() % 16 == 0 and k_cap % 4 == 0)
     _check(_lib().gspar_rice_pack(
-        _ptr(idx), _ptr(nnz), rows, k_cap, r, _ptr(r_rows), cap_words, vec,
-        _ptr(buf), _ptr(words), _ptr(used), _stream(idx)), "rice_pack",
-        None if r_rows is None else "fitted")
+        _ptr(idx), _ptr(nnz), rows, k_cap, r, _ptr(r_rows), cap_words,
+        _rice_vec(idx), _ptr(buf), _ptr(words), _ptr(used), _stream(idx)),
+        "rice_pack", None if r_rows is None else "fitted_legacy")
     return words, used
+
+
+class RiceFit(NamedTuple):
+    """``rice_fit_tiles``: each row's parameter ``r`` and header ``(r <<
+    26) | used`` (int32 [rows]), and the quotient bases of its tiles of
+    ``RICE_TILE`` codes at r (int32 [rows, ntiles(k_cap, RICE_TILE) + 1]:
+    entry t the sum of ``(gap - 1) >> r`` over the codes before tile t, the
+    last the row's total; ``ref.rice_tile_bases_ref``)."""
+    r: torch.Tensor
+    header: torch.Tensor
+    bases: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def _fit_window(window: tuple[int, ...]) -> tuple[int, int, int, int]:
+    """The window as the kernels take it, four parameters (the last one
+    repeated); raises unless it is 1-4 ascending parameters in [0, 30]."""
+    if not 1 <= len(window) <= 4 or list(window) != sorted(set(window)) \
+            or not 0 <= window[0] <= window[-1] <= 30:
+        raise ValueError(f"rice_fit: window {window} is not 1-4 ascending "
+                         "parameters in [0, 30]")
+    return tuple(window) + (window[-1],) * (4 - len(window))
 
 
 def rice_fit(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
@@ -677,27 +770,86 @@ def rice_fit(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
     ``header = (r << 26) | used``; bit-equal to the choice of
     ``compaction.rice_encode_fitted``. Replaces the candidate sweep and
     argmin of XLA's ``rice_encode_fitted``
-    (src/repro/comm/compaction.py:300-324): one read of the live idx and
-    an int64 quotient sum per candidate (one launch of the block
-    reduction, one of the per-row finish, after a memset). Bound: one read
-    of each row's live idx prefix (4 B per live code)."""
-    if not 1 <= len(window) <= 4 or list(window) != sorted(set(window)) \
-            or not 0 <= window[0] <= window[-1] <= 30:
-        raise ValueError(f"rice_fit: window {window} is not 1-4 ascending "
-                         "parameters in [0, 30]")
-    on_card = _rice_on_card("rice_fit", idx, nnz)
+    (src/repro/comm/compaction.py:300-324): ``rice_fit_tiles``, whose tile
+    bases it drops. Bound: one read of each row's live idx prefix (4 B per
+    live code)."""
+    fit = rice_fit_tiles(idx, nnz, d=d, window=window)
+    return fit.r, fit.header
+
+
+def rice_fit_tiles(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
+                   window: tuple[int, ...],
+                   r_rows: torch.Tensor | None = None) -> RiceFit:
+    """``rice_fit`` with the quotient bases of each row's tiles at its r,
+    which ``rice_pack_fitted`` packs from; given ``r_rows`` (int32 [rows],
+    inside the window), each row at its own r in place of the fit's choice
+    (counted as ``rice_fit/at_r``). Two launches, no memset: a block a
+    tile of ``RICE_TILE`` codes reads its live codes once and stores its
+    quotient sum at every candidate; then a block a row takes the first
+    minimum and scans the sums at it into the bases. Bound: one read of
+    each row's live idx prefix (4 B per live code)."""
+    rs = _fit_window(tuple(window))
+    extra = () if r_rows is None else (r_rows,)
+    if r_rows is not None and (r_rows.shape != idx.shape[:1]
+                               or r_rows.dtype != torch.int32):
+        raise ValueError("rice_fit_tiles: r_rows must be int32 [rows]")
+    on_card = _rice_on_card("rice_fit", idx, nnz, *extra)
     rice_fit_cap_words(idx.shape[1], d, window)      # raises past 2^26
     if not on_card:
+        return RiceFit(*ref.rice_fit_tiles_ref(idx, nnz, d, window, RICE_TILE,
+                                               r_rows=r_rows))
+    rows, k_cap = idx.shape
+    if k_cap < 1:
+        raise ValueError("rice_fit: k_cap must be at least 1")
+    nb = ref.ntiles(k_cap, RICE_TILE)
+    # one buffer, as the launcher cuts it: the tiles' int4 sums, then r,
+    # header and bases
+    ns = rows * 4 * nb
+    buf = torch.empty(ns + rows * (nb + 3), dtype=torch.int32,
+                      device=idx.device)
+    _check(_lib().gspar_rice_fit(
+        idx.data_ptr(), nnz.data_ptr(), rows, k_cap, len(window), *rs,
+        _ptr(r_rows), _rice_vec(idx), buf.data_ptr(), _stream(idx)),
+        "rice_fit", None if r_rows is None else "at_r")
+    return RiceFit(buf[ns:ns + rows], buf[ns + rows:ns + 2 * rows],
+                   buf[ns + 2 * rows:].view(rows, nb + 1))
+
+
+def rice_fit_legacy(idx: torch.Tensor, nnz: torch.Tensor, *, d: int,
+                    window: tuple[int, ...]
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rice_fit`` by wire-format v4's first route (a memset, the block
+    reduction with 64-bit atomics, a one-thread-a-row finish), kept only
+    as the yardstick ``chip_smoke.py`` times beside ``rice_fit_tiles``;
+    counted as ``rice_fit/legacy``."""
+    rs = _fit_window(tuple(window))
+    if not _rice_on_card("rice_fit", idx, nnz):
         return ref.rice_fit_ref(idx, nnz, d, window)
     rows, k_cap = idx.shape
     acc = torch.empty((rows, 4), dtype=torch.int64, device=idx.device)
     out = torch.empty((2, rows), dtype=torch.int32, device=idx.device)
-    rs = tuple(window) + (window[-1],) * (4 - len(window))
-    vec = int(idx.data_ptr() % 16 == 0 and k_cap % 4 == 0)
-    _check(_lib().gspar_rice_fit(
-        _ptr(idx), _ptr(nnz), rows, k_cap, len(window), *rs, vec, _ptr(acc),
-        _ptr(out[0]), _ptr(out[1]), _stream(idx)), "rice_fit")
+    _check(_lib().gspar_rice_fit_legacy(
+        _ptr(idx), _ptr(nnz), rows, k_cap, len(window), *rs, _rice_vec(idx),
+        _ptr(acc), _ptr(out[0]), _ptr(out[1]), _stream(idx)), "rice_fit",
+        "legacy")
     return out[0], out[1]
+
+
+def rice_pack_fitted_legacy(idx: torch.Tensor, nnz: torch.Tensor,
+                            r_rows: torch.Tensor, *, d: int,
+                            window: tuple[int, ...]
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rice_pack_fitted`` by wire-format v4's first route (the static
+    ``rice_pack``'s chained scan with look-back, at a per-row r, after a
+    memset of its status words and the words), kept only as the yardstick
+    ``chip_smoke.py`` times beside the redesign; counted as
+    ``rice_pack/fitted_legacy``."""
+    if r_rows.shape != idx.shape[:1] or r_rows.dtype != torch.int32:
+        raise ValueError("rice_pack_fitted: r_rows must be int32 [rows]")
+    cap_words = rice_fit_cap_words(idx.shape[1], d, window)
+    if not _rice_on_card("rice_pack_fitted", idx, nnz, r_rows):
+        return ref.rice_pack_fitted_ref(idx, nnz, r_rows, d, window)
+    return _rice_pack(idx, nnz, 0, r_rows, cap_words)
 
 
 def stats(g: torch.Tensor

@@ -136,15 +136,13 @@ def rice_words(idx: torch.Tensor, live: torch.Tensor, d: int, rice_r: int,
     """The Golomb-Rice words of compact index streams ``idx [rows, k_cap]``
     whose first ``min(live, k_cap)`` slots ascend: ``(None, None)`` for
     ``rice_r < 0``; at ``rice_r`` (``rice_pack``); with a ``rice_window``
-    at each row's fitted parameter (``rice_fit``, then
-    ``rice_pack_fitted``: the used count is the header ``(r << 26) |
-    used``)."""
+    at each row's fitted parameter (``rice_fit_pack``: the fit, then the
+    fitted packing from the fit's tile bases; the used count is the header
+    ``(r << 26) | used``)."""
     if rice_r < 0:
         return None, None
     if rice_window:
-        r_rows, _ = K.rice_fit(idx, live, d=d, window=rice_window)
-        return K.rice_pack_fitted(idx, live, r_rows, d=d,
-                                  window=rice_window)
+        return K.rice_fit_pack(idx, live, d=d, window=rice_window)
     return K.rice_pack(idx, live, d=d, r=rice_r)
 
 

@@ -414,6 +414,49 @@ def rice_fit_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
     return r_out, header
 
 
+def rice_tile_bases_ref(idx: torch.Tensor, nnz: torch.Tensor,
+                        r_rows: torch.Tensor, d: int, tile: int
+                        ) -> torch.Tensor:
+    """The quotient base of each tile of ``tile`` codes of each row's compact
+    stream at the row's parameter ``r_rows[row]``: ``[rows, ntiles(k_cap,
+    tile) + 1]`` int32, entry t the sum of ``(gap - 1) >> r`` over the codes
+    before ``min(t * tile, k_cap)`` (dead codes code 0; the last entry is
+    the row's total). Tile t's unary span begins ``k_cap r + base + t *
+    tile`` bits into the stream: its first code's terminator follows that
+    code's quotient of ones."""
+    rows, k_cap = idx.shape
+    nb = ntiles(k_cap, tile)
+    ends = torch.clamp_max(torch.arange(nb + 1, device=idx.device) * tile,
+                           k_cap)
+    out = torch.empty((rows, nb + 1), dtype=torch.int32, device=idx.device)
+    for row in range(rows):
+        _, sidx = compaction.coordinate_order(idx[row], idx[row], d,
+                                              nnz=nnz[row])
+        q = compaction._rice_gaps(sidx, d).long() >> int(r_rows[row])
+        out[row] = torch.cat([q.new_zeros(1), torch.cumsum(q, 0)])[ends].to(
+            torch.int32)
+    return out
+
+
+def rice_fit_tiles_ref(idx: torch.Tensor, nnz: torch.Tensor, d: int,
+                       window: tuple[int, ...], tile: int,
+                       r_rows: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rice_fit_ref``'s ``(r, header)`` with the tile bases at r
+    (``rice_tile_bases_ref``); given ``r_rows``, each row at its own r and
+    the header ``(r << 26) | used`` of that packing."""
+    header = None
+    if r_rows is None:
+        r_rows, header = rice_fit_ref(idx, nnz, d, window)
+    bases = rice_tile_bases_ref(idx, nnz, r_rows, d, tile)
+    if header is None:
+        k_cap = idx.shape[1]
+        used = (k_cap * r_rows.long() + bases[:, -1] + k_cap + 31) // 32
+        header = ((r_rows.long() << compaction.RICE_HDR_SHIFT)
+                  | used).to(torch.int32)
+    return r_rows, header, bases
+
+
 def rice_pack_fitted_ref(idx: torch.Tensor, nnz: torch.Tensor,
                          r_rows: torch.Tensor, d: int,
                          window: tuple[int, ...]

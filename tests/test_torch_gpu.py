@@ -869,9 +869,9 @@ def test_rice_fit_and_fitted_pack_match_plain_versions(card, k_cap, d):
     """``rice_fit`` and the fitted ``rice_pack`` (wire-format v4) against
     their plain versions on rows that are empty, partly full, full,
     overflowing, a clustered front block and a single coordinate at d - 1:
-    r, headers and words bit-equal, and the words decode at each row's r to
-    the kept coordinates."""
-    from repro_torch.comm.compaction import rice_decode_fitted
+    r, headers, the tile bases and words bit-equal, and the words decode
+    at each row's r to the kept coordinates. The first route of both
+    (kept as chip_smoke's yardstick) gives the same."""
     from repro_torch.core.coding import rice_fit_window
     window = rice_fit_window(k_cap, d)
     nnz = [0, k_cap // 3, k_cap, k_cap + 50, k_cap // 2, 1]
@@ -884,19 +884,133 @@ def test_rice_fit_and_fitted_pack_match_plain_versions(card, k_cap, d):
     idx[5, 0] = d - 1
     nnz = torch.tensor(nnz, dtype=torch.int32, device="cuda")
     before = (K.LAUNCHES["rice_fit"], K.LAUNCHES.get("rice_pack/fitted", 0))
-    r, header = K.rice_fit(idx, nnz, d=d, window=window)
-    words, header2 = K.rice_pack_fitted(idx, nnz, r, d=d, window=window)
+    r, header = _check_fitted(idx, nnz, d, window)
     assert (K.LAUNCHES["rice_fit"], K.LAUNCHES["rice_pack/fitted"]) == (
         before[0] + 1, before[1] + 1)
-    want_r, want_h = ref.rice_fit_ref(idx, nnz, d, window)
-    assert torch.equal(r, want_r) and torch.equal(header, want_h)
+    assert all(torch.equal(a, b) for a, b in zip(
+        K.rice_fit(idx, nnz, d=d, window=window), (r, header)))
+    before = (K.LAUNCHES["rice_fit"], K.LAUNCHES["rice_pack/fitted"])
+    words, header2 = K.rice_fit_pack(idx, nnz, d=d, window=window)
+    assert (K.LAUNCHES["rice_fit"], K.LAUNCHES["rice_pack/fitted"]) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(header2, header)
+    assert torch.equal(words, ref.rice_pack_fitted_ref(idx, nnz, r, d,
+                                                       window)[0])
+    assert all(torch.equal(a, b) for a, b in zip(
+        K.rice_fit_legacy(idx, nnz, d=d, window=window), (r, header)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        K.rice_pack_fitted_legacy(idx, nnz, r, d=d, window=window),
+        (words, header)))
+
+
+def _check_fitted(idx, nnz, d, window, r_rows=None):
+    """The fit (at ``r_rows`` when given) and the fitted packing from its
+    bases, bit-equal to the plain versions (r, header, tile bases, words
+    with their padding, the packing's header), the words decoding at each
+    row's r to the kept coordinates. Returns (r, header)."""
+    from repro_torch.comm.compaction import rice_decode_fitted
+    k_cap = idx.shape[1]
+    fit = K.rice_fit_tiles(idx, nnz, d=d, window=window, r_rows=r_rows)
+    want_r, want_h, want_b = ref.rice_fit_tiles_ref(
+        idx, nnz, d, window, K.RICE_TILE, r_rows=r_rows)
+    assert torch.equal(fit.r, want_r) and torch.equal(fit.header, want_h)
+    assert torch.equal(fit.bases, want_b)
+    words, header = K.rice_pack_fitted(idx, nnz, fit.r, d=d, window=window,
+                                       bases=fit.bases)
     want_w, want_h2 = ref.rice_pack_fitted_ref(idx, nnz, want_r, d, window)
-    assert torch.equal(header2, want_h2) and torch.equal(header2, header)
+    assert torch.equal(header, want_h2) and torch.equal(header, fit.header)
     assert torch.equal(words, want_w)
     dec = rice_decode_fitted(words, k_cap, d, window, header)
-    for row in range(len(nnz)):
+    for row in range(idx.shape[0]):
         n = min(int(nnz[row]), k_cap)
         assert torch.equal(dec[row, :n], idx[row, :n])
+    return fit.r, fit.header
+
+
+def _fitted_rows(gen, k_cap, d, counts):
+    idx = torch.zeros((len(counts), k_cap), dtype=torch.int32, device="cuda")
+    for row, n in enumerate(counts):
+        live = torch.randperm(d, generator=gen, device="cuda")[:min(n, k_cap)]
+        idx[row, :live.numel()] = live.sort().values.to(torch.int32)
+    return idx, torch.tensor(counts, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("k_cap", [3 * 4096 + 8, 3 * 4096 + 7])
+def test_fitted_rows_ending_on_a_tile_edge(card, k_cap):
+    """Live codes that end exactly on a tile's last code (the next tile
+    dead), one short of it and one past it, with 16-byte idx loads and
+    (k_cap % 4 != 0) scalar ones, beside a full and an empty row."""
+    t = K.RICE_TILE
+    d = 1 << 18
+    from repro_torch.core.coding import rice_fit_window
+    idx, nnz = _fitted_rows(card, k_cap, d,
+                            [t, 2 * t, 2 * t - 1, t + 1, k_cap, 0])
+    _check_fitted(idx, nnz, d, rice_fit_window(k_cap, d))
+
+
+@pytest.mark.parametrize("window", [(0,), (0, 1, 2), (30,), (28, 29, 30)])
+def test_fitted_windows_at_r_0_and_30(card, window):
+    """Windows that hold r = 0 (no remainder field) and r = 30 (a lane's
+    four remainders span 120 bits, its unary runs are single bits), on
+    rows of several tiles: full, overflowing, half full, empty."""
+    k_cap, d = 3 * K.RICE_TILE + 5, 1 << 20
+    idx, nnz = _fitted_rows(card, k_cap, d,
+                            [k_cap, k_cap + 99, k_cap // 2, 0])
+    _check_fitted(idx, nnz, d, window)
+
+
+@pytest.mark.parametrize("window", [(0,), (0, 1), (3, 4, 5)])
+def test_fitted_unary_runs_longer_than_a_warp_stores(card, window):
+    """Gaps near d: runs that span far more words than a lane stores alone
+    (the whole warp stores them), at a block's first code and at its last,
+    and rows of a few far-apart codes, a single one at d - 1."""
+    tile = K.RICE_TILE
+    k_cap, d = 3 * tile + 1, 1 << 22
+    gap = torch.full((k_cap,), 20, dtype=torch.int64, device="cuda")
+    gap[tile] += 300_000
+    gap[2 * tile - 1] += 500_000
+    idx = (torch.cumsum(gap, 0) - 20).to(torch.int32)[None].repeat(2, 1)
+    _check_fitted(idx, torch.tensor([k_cap, 2 * tile + 1], dtype=torch.int32,
+                                    device="cuda"), d, window)
+    sparse = torch.zeros((2, 1000), dtype=torch.int32, device="cuda")
+    sparse[0, 0] = d - 1
+    sparse[1, :6] = torch.tensor([5, 6, 100_000, 1_000_001, 3_000_000,
+                                  d - 1], device="cuda")
+    _check_fitted(sparse, torch.tensor([1, 6], dtype=torch.int32,
+                                       device="cuda"), d, window)
+
+
+def test_fitted_rows_far_wider_than_the_card(card):
+    """Rows of the embedding row's shape class, k_cap >= 2^20 codes: each
+    spans 513 tiles, three rows 1539, far more blocks than the card holds
+    at once, so a row's last fit block may be any of them and the packing's
+    blocks run in any order. Full, half-full and overflowing rows."""
+    from repro_torch.core.coding import rice_fit_window
+    k_cap, d = 512 * K.RICE_TILE + 3, 1 << 25
+    idx, nnz = _fitted_rows(card, k_cap, d,
+                            [k_cap, k_cap // 2 + 7, k_cap + 1000])
+    _check_fitted(idx, nnz, d, rice_fit_window(k_cap, d))
+
+
+def test_rice_pack_fitted_at_another_r(card):
+    """``rice_pack_fitted`` at an ``r_rows`` that is not the fit's choice:
+    with no bases it forms them with the fit's kernel at those r (a
+    ``rice_fit/at_r`` launch), and with the bases of ``rice_fit_tiles`` at
+    those r; both bit-equal to the plain version."""
+    from repro_torch.core.coding import rice_fit_window
+    k_cap, d = 2 * K.RICE_TILE + 333, 1 << 19
+    window = rice_fit_window(k_cap, d)
+    idx, nnz = _fitted_rows(card, k_cap, d, [k_cap, k_cap // 3, 0, k_cap + 9])
+    r_fit, _ = K.rice_fit(idx, nnz, d=d, window=window)
+    other = torch.tensor(window, dtype=torch.int32, device="cuda")
+    other = other[(torch.arange(4, device="cuda") + 1) % len(window)]
+    assert not torch.equal(other, r_fit)
+    _check_fitted(idx, nnz, d, window, r_rows=other)
+    at_r = K.LAUNCHES.get("rice_fit/at_r", 0)
+    words, header = K.rice_pack_fitted(idx, nnz, other, d=d, window=window)
+    assert K.LAUNCHES["rice_fit/at_r"] == at_r + 1
+    want_w, want_h = ref.rice_pack_fitted_ref(idx, nnz, other, d, window)
+    assert torch.equal(words, want_w) and torch.equal(header, want_h)
 
 
 def test_adaptive_step_card_matches_cpu(card):
