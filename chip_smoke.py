@@ -2898,21 +2898,32 @@ def experiments_phase(tally: Tally) -> dict:
 # the kernels line: variant -> (the run whose launches it reports, the
 # TPU kernel's line in src/repro/kernels/sparsify/kernel.py, or the file
 # and line of the XLA selection it replaces)
-# --- the dense-attention architectures and checkpoints (arch_phase) ----------
+# --- the other architectures and checkpoints (arch_phase) --------------------
 
 # arch -> the periods it is cut to on one 80 GB card (widths as published),
-# and whether its exchange is held to its exact bytes and gradient
-ARCH_RUNS = {"gemma2-9b": (4, True), "gemma2-27b": (1, False),
-             "starcoder2-7b": (10, False)}
-ARCH_ARGS = ["--steps", "3", "--rho", str(RHO), "--wire", "gather",
-             "--error-feedback", "--batch", "8", "--seq", "128", "--lr",
-             "3e-4", "--log-every", "1"]
+# whether its exchange is held to its exact bytes and gradient, and its
+# launcher flags beyond ARCH_ARGS: the compressed mode on the gather wire,
+# or for deepseek-v2 its own fsdp mode (the wire does not act there) with
+# SGD, as Adam's float32 moments of its 4.8e9 parameters (38.7 GB) leave no
+# room on the card
+ARCH_RUNS = {"gemma2-9b": (4, True, ["--wire", "gather"]),
+             "gemma2-27b": (1, False, ["--wire", "gather"]),
+             "starcoder2-7b": (10, False, ["--wire", "gather"]),
+             "phi3.5-moe-42b-a6.6b": (2, True, ["--wire", "gather"]),
+             "deepseek-v2-236b": (1, False, ["--optimizer", "sgd"])}
+ARCH_ARGS = ["--steps", "3", "--rho", str(RHO), "--error-feedback",
+             "--batch", "8", "--seq", "128", "--lr", "3e-4", "--log-every",
+             "1"]
 ARCH_KERNELS = GSPAR + ("compact_emit/lam", "rice_pack")
+# the fsdp step's Q of the averaged gradient: the dense wire's gspar with EF
+FSDP_KERNELS = ("stats", "tail_stats", "sparsify_ef")
 WINDOW_SEQ = 4_608         # gemma2-9b's 4,096 window bites on 512 queries
 WINDOW_RTOL = 2e-2         # bf16 q, k, v and probabilities vs float64
+WIDE_GROUP = (3, 1_258_291_200)   # deepseek-v2's experts at 1 period: the
+WIDE_CHUNK = 1 << 28              # widest group; its plain version's chunk
 
 
-def arch_plan(arch: str, periods: int):
+def arch_plan(arch: str, periods: int, wire: str = "gather"):
     """The launcher's plan of ``arch`` cut to ``periods`` (meta tensors)
     and the ``MainPath`` of its gspar ``auto`` exchange: bf16 values at
     every slot, a count a row, the static RICE words as its bound."""
@@ -2928,7 +2939,7 @@ def arch_plan(arch: str, periods: int):
     shapes = param_shapes(cfg)
     names = leaf_order(shapes)
     comp = CompressionConfig(name="gspar", rho=RHO, error_feedback=True,
-                             wire="gather", min_leaf_size=1024)
+                             wire=wire, min_leaf_size=1024)
     plan = plan_tree(comp, [torch.empty(shapes[n][0], dtype=cfg.dtype,
                                         device="meta") for n in names],
                      [shapes[n][1] for n in names])
@@ -2944,16 +2955,22 @@ def arch_plan(arch: str, periods: int):
 
 
 def arch_run(arch: str) -> dict:
-    """The launcher on ``arch`` at full width cut to its periods, gspar on
-    the gather wire's ``auto`` with EF, three steps, the kernel counts set
-    to 0 just before it and read just after; gemma2-9b's exchange held to
-    its exact bytes and gradient (``exchange_check`` on the card)."""
+    """The launcher on ``arch`` at full width cut to its periods, gspar
+    with EF, three steps, the kernel counts set to 0 just before it and
+    read just after: in the compressed mode on the gather wire's ``auto``
+    (gemma2-9b's and phi3.5-moe's exchange held to its exact bytes and
+    gradient by ``exchange_check`` on the card), in deepseek-v2's fsdp
+    mode Q once on the averaged gradient (``stats`` and ``sparsify_ef``
+    once a group a step)."""
     from repro_torch.comm import sync
+    from repro_torch.configs import registry
     from repro_torch.kernels.sparsify import kernel as K
     from repro_torch.launch import train
     from repro_torch.models.transformer import param_shapes
-    periods, checked = ARCH_RUNS[arch]
-    cfg, plan, path = arch_plan(arch, periods)
+    periods, checked, flags = ARCH_RUNS[arch]
+    fsdp = registry.get(arch).train_mode == "fsdp"
+    cfg, plan, path = arch_plan(arch, periods,
+                                "dense" if fsdp else "gather")
     record: list = []
     real = sync._bucketed_sync
     if checked:
@@ -2963,14 +2980,16 @@ def arch_run(arch: str) -> dict:
     K.reset_launches()
     try:
         summary = train.main(["--arch", arch, "--num-periods", str(periods)]
-                             + ARCH_ARGS)
+                             + ARCH_ARGS + flags)
     finally:
         sync._bucketed_sync = real
     launches = {k: v for k, v in K.LAUNCHES.items() if v}
     ms = summary["metrics"]
-    n_groups = len(plan.groups)
+    if summary["mode"] != ("fsdp" if fsdp else "compressed"):
+        raise AssertionError(f"{arch}: ran in mode {summary['mode']}")
+    n_groups = sum(g.kind == "sparse" for g in plan.groups)
     n_rice = sum(lay == "rice" for *_, lay in summary["layouts"])
-    for v in ARCH_KERNELS:
+    for v in FSDP_KERNELS if fsdp else ARCH_KERNELS:
         want = len(ms) * (n_rice if v == "rice_pack" else n_groups)
         got = launches.get(v, 0)
         if not (got == want or (v == "tail_stats" and want <= got
@@ -2979,11 +2998,13 @@ def arch_run(arch: str) -> dict:
                                  f"times, want {want} ({n_groups} groups, "
                                  f"{n_rice} rice, {len(ms)} steps)")
     for step, m in enumerate(ms):
-        if not math.isfinite(m["loss"]) or m["overflow"] != 0:
+        if not math.isfinite(m["loss"]) or m.get("overflow", 0) != 0:
             raise AssertionError(f"{arch} step {step}: {m}")
         if not 0.0 < m["density"] <= 1.25 * RHO:
             raise AssertionError(f"{arch} step {step}: density "
                                  f"{m['density']}")
+        if fsdp:
+            continue
         if record and m["wire_bytes"] != record[step]["wire_bytes"]:
             raise AssertionError(f"{arch} step {step}: wire_bytes "
                                  f"{m['wire_bytes']} != {record[step]}")
@@ -3000,21 +3021,97 @@ def arch_run(arch: str) -> dict:
     net = [s - (record[i]["check_s"] if record else 0.0)
            for i, s in enumerate(steps)]
     layouts = sorted({lay for *_, lay in summary["layouts"]})
-    print(f"train {arch} --num-periods {periods} ({summary['params']} "
-          f"parameters, {n_groups} groups, layouts {layouts}"
-          f"{', checked on the card' if checked else ''}): steps "
+    widest = max((g for g in plan.groups if g.kind == "sparse"),
+                 key=lambda g: g.rows * g.d)
+    print(f"train {arch} --num-periods {periods} {' '.join(flags)} "
+          f"(mode {summary['mode']}, {summary['params']} parameters, "
+          f"{n_groups} groups, widest [{widest.rows}, {widest.d}], layouts "
+          f"{layouts}{', checked on the card' if checked else ''}): steps "
           + ", ".join(f"{s:.4f} s" for s in steps)
           + (" (less the checks: " + ", ".join(f"{s:.4f} s" for s in net)
              + ")" if record else "")
-          + "; wire_bytes " + ", ".join(f"{m['wire_bytes']:.0f}" for m in ms)
+          + ("" if fsdp else "; wire_bytes " + ", ".join(
+              f"{m['wire_bytes']:.0f}" for m in ms))
           + "; density " + ", ".join(f"{m['density']:.6f}" for m in ms)
           + "; loss " + ", ".join(f"{m['loss']:.4f}" for m in ms)
           + f"; launches {launches}"
           + f"; max_memory_allocated {summary['max_memory_allocated']} B",
           flush=True)
     summary.update(launches=launches, checks=record, name=arch,
-                   net_seconds=net, layout_names=layouts)
+                   net_seconds=net, layout_names=layouts, groups=n_groups,
+                   widest=[widest.rows, widest.d])
     return summary
+
+
+def wide_group_check() -> dict:
+    """``stats`` and ``sparsify_ef`` on a random bf16 group of deepseek-v2's
+    expert shape at one period, [3, 1,258,291,200] (3.77e9 elements, past
+    2^31; its float32 uniforms 15.1 GB, byte offsets past 2^32), each held
+    to its plain version row by row on the same uniforms and lambda:
+    ``stats`` a row at a time (sums within rtol 1e-6, max bit-equal), and
+    ``sparsify_ef``'s Q and residual bit-equal, its counts exact and its sum
+    of squares within rtol 1e-6, against the plain version of each row in
+    column chunks of ``WIDE_CHUNK`` (elementwise given lambda and sum
+    g^2). Each kernel timed once beside its bound."""
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.kernels.sparsify import ops, ref
+    rows, d = WIDE_GROUP
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    g = torch.randn(WIDE_GROUP, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    u = torch.rand(WIDE_GROUP, generator=gen, device="cuda")
+    chk = Check()
+    torch.cuda.synchronize()
+    l1, l2, mx = K.stats(g)
+    for r in range(rows):
+        w1, w2, wm = ref.stats_ref(g[r:r + 1])
+        chk.close(f"stats row {r} sum|g|", l1[r:r + 1], w1)
+        chk.close(f"stats row {r} sum g^2", l2[r:r + 1], w2)
+        chk.equal(f"stats row {r} max|g|", mx[r:r + 1], wm)
+    lam = ops.greedy_lambda(l1, mx, RHO, d, 2,
+                            tail_fn=ops._kernel_tail_fn(g))
+    got = K.sparsify_ef(g, u, lam, den=l2)
+    nnz = 0
+    for r in range(rows):
+        n = n_sure = 0
+        sq = 0.0
+        for a in range(0, d, WIDE_CHUNK):
+            b = min(d, a + WIDE_CHUNK)
+            want = ref.sparsify_ef_ref(g[r:r + 1, a:b], u[r:r + 1, a:b],
+                                       lam[r:r + 1], den=l2[r:r + 1])
+            chk.equal(f"sparsify_ef row {r} [{a}, {b}) Q", got.q[r, a:b],
+                      want.q[0])
+            chk.equal(f"sparsify_ef row {r} [{a}, {b}) residual",
+                      got.residual[r, a:b], want.residual[0])
+            n += int(want.nnz[0])
+            n_sure += int(want.n_sure[0])
+            sq += float(want.sum_sq[0].double())
+            del want
+        if (int(got.nnz[r]), int(got.n_sure[r])) != (n, n_sure):
+            raise AssertionError(f"sparsify_ef row {r}: nnz "
+                                 f"{int(got.nnz[r])}, {int(got.n_sure[r])}"
+                                 f" != {n}, {n_sure}")
+        chk.close(f"sparsify_ef row {r} sum Q^2", got.sum_sq[r:r + 1].double(),
+                  torch.tensor([sq], dtype=torch.float64, device="cuda"))
+        nnz += n
+    del got
+    torch.cuda.empty_cache()
+    out = {"shape": list(WIDE_GROUP), "elements": rows * d,
+           "kept": nnz, "density": nnz / (rows * d),
+           "max_rel_err_sums": chk.max_rel,
+           "stats_ms": cuda_ms(lambda: K.stats(g), 3),
+           "sparsify_ef_ms": cuda_ms(
+               lambda: K.sparsify_ef(g, u, lam, den=l2), 3),
+           # one read of g; g and u read, Q and the residual written
+           "stats_bound_ms": 1e3 * 2 * rows * d / HBM_BYTES_PER_S,
+           "sparsify_ef_bound_ms": 1e3 * 10 * rows * d / HBM_BYTES_PER_S,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if not 0.0 < out["density"] <= 1.25 * RHO:
+        raise AssertionError(f"wide group: {out}")
+    print(f"wide group check (bf16 {list(WIDE_GROUP)}, bit-equal row by "
+          f"row): {out}", flush=True)
+    del g, u
+    return out
 
 
 def _window_reference(p: dict, acfg, x: torch.Tensor,
@@ -3115,11 +3212,12 @@ def _ckpt_train(model, state, fb, step, steps, cfg):
 
 
 def checkpoint_check(tmp: Path) -> dict:
-    """Each smoke config in bf16 on the card, gspar on the gather wire's
-    ``auto`` with EF and Adam: three steps against one step, ``save``,
-    ``restore`` into fresh state (another seed's parameters, zero moments
-    and residual) and two more; step 3's parameters, moments and residual
-    must be bit-equal."""
+    """Each smoke config in bf16 on the card, gspar with EF and Adam in its
+    arch's mode (on the gather wire's ``auto``; deepseek-v2 fsdp, its
+    residual params-shaped in the file): three steps against one step,
+    ``save``, ``restore`` into fresh state (another seed's parameters, zero
+    moments and residual) and two more; step 3's parameters, moments and
+    residual must be bit-equal."""
     import dataclasses as dc
     from repro_torch.checkpoint import checkpoint
     from repro_torch.configs import registry
@@ -3134,7 +3232,11 @@ def checkpoint_check(tmp: Path) -> dict:
     out = {}
     try:
         for arch in ARCH_RUNS:
-            cfg = dc.replace(registry.get(arch).smoke, dtype=torch.bfloat16)
+            spec = registry.get(arch)
+            cfg = dc.replace(spec.smoke, dtype=torch.bfloat16)
+            mode = spec.train_mode
+            make = (step_lib.make_fsdp_train_step if mode == "fsdp"
+                    else step_lib.make_compressed_train_step)
 
             def fresh(seed):
                 model = Transformer(cfg, init_model(cfg, torch.Generator(
@@ -3142,8 +3244,7 @@ def checkpoint_check(tmp: Path) -> dict:
                 opt = topt.adam(3e-4)
                 return (model, opt.init(model.leaves()),
                         topt.init_feedback(model.leaves()),
-                        step_lib.make_compressed_train_step(model, comp,
-                                                            opt))
+                        make(model, comp, opt))
 
             model, state, fb, step = fresh(1)
             state, fb = _ckpt_train(model, state, fb, step, range(3), cfg)
@@ -3152,10 +3253,12 @@ def checkpoint_check(tmp: Path) -> dict:
             model, state, fb, step = fresh(1)
             state, fb = _ckpt_train(model, state, fb, step, range(1), cfg)
             path = str(tmp / f"{arch}.npz")
-            checkpoint.save(path, model, state, fb, extra={"arch": arch})
+            checkpoint.save(path, model, state, fb, mode=mode,
+                            extra={"arch": arch, "mode": mode})
             size = Path(path).stat().st_size
             model, state, fb, step = fresh(2)
-            state, fb, _ = checkpoint.restore(path, model, state, fb)
+            state, fb, _ = checkpoint.restore(path, model, state, fb,
+                                              mode=mode)
             if state["step"] != 1:
                 raise AssertionError(f"{arch}: restored step "
                                      f"{state['step']}")
@@ -3164,7 +3267,7 @@ def checkpoint_check(tmp: Path) -> dict:
                    + fb.residual)
             _same(f"{arch} resumed at step 1", [t.detach() for t in got],
                   want)
-            out[arch] = {"bytes": size, "leaves": len(want)}
+            out[arch] = {"bytes": size, "leaves": len(want), "mode": mode}
     finally:
         if own:
             torch.distributed.destroy_process_group()
@@ -3174,9 +3277,9 @@ def checkpoint_check(tmp: Path) -> dict:
 
 
 def arch_phase(tmp: Path) -> dict:
-    """The dense-attention architectures: ``window_check``, the
-    checkpoint round trip (``checkpoint_check``), then ``arch_run`` for
-    each of ``ARCH_RUNS``."""
+    """The architectures past gemma-2b: ``window_check``, the checkpoint
+    round trip (``checkpoint_check``), then ``arch_run`` for each of
+    ``ARCH_RUNS``, then with the card emptied ``wide_group_check``."""
     from repro_torch.kernels.sparsify import kernel as K
     with uncounted():
         window = window_check()
@@ -3185,9 +3288,15 @@ def arch_phase(tmp: Path) -> dict:
     runs = {}
     for arch in ARCH_RUNS:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         runs[arch] = arch_run(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with uncounted():
+        wide = wide_group_check()
     K.reset_launches()
-    return {"runs": runs, "window": window, "checkpoint": ckpt}
+    return {"runs": runs, "window": window, "checkpoint": ckpt,
+            "wide": wide}
 
 
 ENTRIES = {
@@ -3394,6 +3503,10 @@ def main() -> int:
         fit["ms"]["pair"]
     kernels[list(ENTRIES).index("rice_pack/fitted")]["pair_device_ms"] = \
         fit["device_ms"]["pair"]
+    for name in ("stats", "sparsify_ef"):
+        entry = kernels[list(ENTRIES).index(name)]
+        entry["wide_group_ms"] = archs["wide"][f"{name}_ms"]
+        entry["wide_group_bound_ms"] = archs["wide"][f"{name}_bound_ms"]
     kernels[list(ENTRIES).index("closed_lambda")]["ops_ms"] = \
         kp["closed"]["ms"]
     kernels[list(ENTRIES).index("closed_lambda")]["torch_solve_ms"] = \
@@ -3432,17 +3545,20 @@ def main() -> int:
             "launches": run["launches"]}}))
     for arch, run in archs["runs"].items():
         print(json.dumps({arch: {
-            "num_periods": ARCH_RUNS[arch][0], "params": run["params"],
+            "num_periods": ARCH_RUNS[arch][0], "mode": run["mode"],
+            "flags": ARCH_RUNS[arch][2], "params": run["params"],
+            "groups": run["groups"], "widest_group": run["widest"],
             "step_seconds": run["step_seconds"],
             "net_seconds": run["net_seconds"],
             "max_memory_allocated": run["max_memory_allocated"],
-            "wire_bytes": [m["wire_bytes"] for m in run["metrics"]],
+            "wire_bytes": [m.get("wire_bytes") for m in run["metrics"]],
             "density": [m["density"] for m in run["metrics"]],
             "loss": [m["loss"] for m in run["metrics"]],
             "layouts": run["layouts"], "checks": run["checks"],
             "launches": run["launches"]}}))
     print(json.dumps({"window_check": archs["window"],
-                      "checkpoint_check": archs["checkpoint"]}))
+                      "checkpoint_check": archs["checkpoint"],
+                      "wide_group_check": archs["wide"]}))
     print(json.dumps({"compaction_on_pod_rows": {
         str(k): v for k, v in exchange["pod_rows"].items()}}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],

@@ -76,13 +76,15 @@ def _stacked(value: torch.Tensor, layout: str, world: int, rank: int,
 
 
 def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
-         extra: dict | None = None, mesh=None) -> None:
+         extra: dict | None = None, mesh=None,
+         mode: str = "compressed") -> None:
     """Write ``model``'s parameters and the given states to ``path``
     (``.npz`` appended when missing), ``extra`` to ``path +
-    ".meta.json"``. Every worker calls it; rank 0 writes."""
+    ".meta.json"``; ``mode`` the train step's (``convert.
+    checkpoint_entries``). Every worker calls it; rank 0 writes."""
     world, rank = _world()
     entries = checkpoint_entries(model.leaf_names, model.leaves(), opt_state,
-                                 ef_state, ctl_state)
+                                 ef_state, ctl_state, mode)
     zf = None
     if rank == 0:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -111,7 +113,7 @@ def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
 
 
 def restore(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
-            mesh=None):
+            mesh=None, mode: str = "compressed"):
     """Read ``path`` into ``model``'s parameters and the given states, in
     place (each tensor keeps its device and dtype; a stacked entry gives
     this rank its own slice). Returns ``(opt_state, ef_state,
@@ -124,7 +126,7 @@ def restore(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
     with np.load(_npz(path)) as data:
         for key, target, layout in checkpoint_entries(
                 model.leaf_names, model.leaves(), opt_state, ef_state,
-                ctl_state):
+                ctl_state, mode):
             if key not in data:
                 raise ValueError(f"{path}: no entry {key!r}")
             arr = data[key]

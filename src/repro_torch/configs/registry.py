@@ -1,7 +1,9 @@
 """Architecture registry (port of ``repro.configs.registry``): the dense
-attention architectures gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b.
-The other six (MoE, MLA, SSM, hybrid, encoder-decoder, vision prefix) are
-ROADMAP.md queue A item 10."""
+attention architectures gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b,
+the MoE phi3.5-moe-42b-a6.6b and the MLA + MoE deepseek-v2-236b. The other
+four (SSM, hybrid, encoder-decoder, vision prefix) are ROADMAP.md queue A
+item 10. The port has no sharding rules (``dist/sharding.py``, item 10),
+so a spec carries none."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +12,9 @@ import importlib
 from repro_torch.models.transformer import ModelConfig
 
 ID_TO_MODULE = {"gemma-2b": "gemma_2b", "gemma2-9b": "gemma2_9b",
-                "gemma2-27b": "gemma2_27b", "starcoder2-7b": "starcoder2_7b"}
+                "gemma2-27b": "gemma2_27b", "starcoder2-7b": "starcoder2_7b",
+                "phi3.5-moe-42b-a6.6b": "phi35_moe",
+                "deepseek-v2-236b": "deepseek_v2"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +23,7 @@ class ArchSpec:
     source: str              # paper / model-card citation
     model: ModelConfig       # full-size config
     smoke: ModelConfig       # reduced variant for the CPU
+    train_mode: str = "compressed"   # compressed (Alg. 1) | fsdp (+ step 7)
 
 
 def get(arch: str) -> ArchSpec:

@@ -29,17 +29,27 @@ worker. ``--mesh PxDx1`` lays the workers out as P pods of D data workers
 model) mesh), and the exchange is the pod hierarchy: the data groups, then
 the pod stage across the pods (``--resparsify-pods``: Algorithm 1's step
 7, with ``--error-feedback`` on the pod's own residual). ``--mesh 1x1x1``
-runs the pod stage over groups of one. ``--mesh Dx1`` is (data, model). A
-model axis above 1 and ``--mode`` (the port runs the compressed mode
-only; FSDP) are ROADMAP.md queue A item 10, refused with
-NotImplementedError; ``--xla-preset`` takes ``none`` (the JAX launcher's
-default) and refuses the XLA presets (item 13). ``--checkpoint PATH``
-writes the trained state after the last step in the JAX launcher's file
-format (``repro_torch.checkpoint``): the parameters, Adam's state, with
-``--error-feedback`` the residual and with ``--adaptive`` the control
-state, and ``arch``, ``steps``, ``error_feedback`` and ``adaptive`` in
-``PATH.meta.json``. ``--arch`` takes gemma-2b, gemma2-9b, gemma2-27b and
-starcoder2-7b. ``--num-periods`` cuts the depth; widths are never
+runs the pod stage over groups of one. ``--mesh Dx1`` is (data, model).
+
+``--mode`` is ``compressed`` (Algorithm 1: each worker's gradient
+compressed and exchanged) or ``fsdp`` (``step.make_fsdp_train_step``: the
+gradient averaged over every worker, then Q applied once to the average,
+Algorithm 1's step 7; every worker draws the same uniforms, and with
+``--error-feedback`` the residual is params-shaped); its default is the
+architecture's ``train_mode``, as in the JAX launcher (fsdp for
+deepseek-v2-236b). In fsdp mode ``--wire``, ``--exchange`` and the
+layouts do not act, and ``--adaptive`` exits, as in JAX. A model axis
+above 1 (sharding a step over devices) is ROADMAP.md queue A item 10,
+refused with NotImplementedError; ``--xla-preset`` takes ``none`` (the
+JAX launcher's default) and refuses the XLA presets (item 13).
+``--checkpoint PATH`` writes the trained state after the last step in the
+JAX launcher's file format (``repro_torch.checkpoint``): the parameters,
+the optimizer's state, with ``--error-feedback`` the residual (stacked over
+the workers in compressed mode, params-shaped in fsdp mode) and with
+``--adaptive`` the control state, and ``arch``, ``mode``, ``steps``,
+``error_feedback`` and ``adaptive`` in ``PATH.meta.json``. ``--arch``
+takes gemma-2b, gemma2-9b, gemma2-27b, starcoder2-7b, phi3.5-moe-42b-a6.6b
+and deepseek-v2-236b. ``--num-periods`` cuts the depth; widths are never
 narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
 the JAX launcher: each shape group takes the layout with the fewest wire
 bytes (RICE on every gemma-2b group at rho 0.05), printed once per group
@@ -162,33 +172,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mode", default=None, choices=[None, "compressed",
+                                                     "fsdp"],
+                    help="compressed (Algorithm 1) or fsdp (Q on the "
+                         "averaged gradient); default: the arch's "
+                         "train_mode")
     ap.add_argument("--log-every", type=int, default=10)
     return ap.parse_args(argv)
 
 
-# the JAX launcher's flags the port does not take yet, and the ROADMAP.md
-# item that ports each (the port runs the compressed mode only)
-UNPORTED_FLAGS = {"--mode": "queue A item 10"}
-
-
-def refuse_unported_flags(argv: list) -> None:
-    """NotImplementedError, naming its ROADMAP.md item, for a JAX launcher
-    flag the port does not take yet (as ``--flag value`` or
-    ``--flag=value``)."""
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in UNPORTED_FLAGS:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md "
-                                      f"{UNPORTED_FLAGS[flag]})")
-
-
 def main(argv=None) -> dict:
     """Run the launcher; returns a summary: ``metrics`` (a dict of floats
-    per step), ``step_seconds``, ``params``, ``layouts`` (``(rows, d, k_cap,
-    layout)`` per sparse group) and, on the card, ``max_memory_allocated``."""
-    argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_unported_flags(argv)
-    args = parse_args(argv)
+    per step), ``step_seconds``, ``params``, ``mode``, ``layouts`` (``(rows,
+    d, k_cap, layout)`` per sparse group; none in fsdp mode) and, on the
+    card, ``max_memory_allocated``."""
+    args = parse_args(sys.argv[1:] if argv is None else list(argv))
     if args.xla_preset != "none":
         raise NotImplementedError(
             f"--xla-preset {args.xla_preset}: the XLA flag presets are not "
@@ -197,6 +195,7 @@ def main(argv=None) -> dict:
     cfg = spec.smoke if args.smoke else spec.model
     if args.num_periods is not None:
         cfg = dataclasses.replace(cfg, num_periods=args.num_periods)
+    mode = args.mode or spec.train_mode
     comp = CompressionConfig(name=args.compressor, codec=args.codec,
                              qsgd_bits=args.qsgd_bits, rho=args.rho,
                              wire=args.wire,
@@ -212,6 +211,8 @@ def main(argv=None) -> dict:
                              resparsify_pods=args.resparsify_pods,
                              overlap_bucket_bytes=args.overlap_bucket_bytes,
                              backend=args.backend)
+    if comp.adaptive and mode != "compressed":
+        raise SystemExit("--adaptive requires the compressed train mode")
     mesh = parse_mesh(args.mesh)
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -220,7 +221,7 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     own_group = init_process_group(device)
     try:
-        return _train(args, cfg, comp, device, mesh)
+        return _train(args, cfg, comp, device, mesh, mode)
     finally:
         if own_group:
             dist.destroy_process_group()
@@ -268,14 +269,15 @@ def mesh_groups(mesh: tuple[int, int] | None):
     return data_group, pod_group, p
 
 
-def _train(args, cfg, comp, device, mesh) -> dict:
+def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
     rank, world = dist.get_rank(), dist.get_world_size()
     data_group, pod_group, pod = mesh_groups(mesh)
+    fsdp = mode == "fsdp"
     if rank == 0:
         print(f"arch={cfg.name} layers={cfg.num_layers} "
               f"d_model={cfg.d_model} workers={world} device={device}"
               + (f" mesh=(pod={mesh[0]}, data={mesh[1]}, model=1)"
-                 if mesh else ""))
+                 if mesh else "") + f" mode={mode}")
         print(f"compression: {comp.describe()}")
     init_gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Transformer(cfg, init_model(cfg, init_gen, device))
@@ -285,21 +287,28 @@ def _train(args, cfg, comp, device, mesh) -> dict:
     opt = adam(args.lr) if args.optimizer == "adam" else sgd(args.lr)
     opt_state = opt.init(model.leaves())
     hier = comp.resparsify_pods and pod_group is not None
-    ef_state = (init_feedback(model.leaves(), pod=hier)
-                if comp.error_feedback else None)
+    if fsdp:
+        # the residual of the averaged gradient: params-shaped, one a run
+        ef_state = (init_feedback(model.leaves())
+                    if comp.error_feedback and comp.name != "none" else None)
+        train_step = step_lib.make_fsdp_train_step(model, comp, opt)
+    else:
+        ef_state = (init_feedback(model.leaves(), pod=hier)
+                    if comp.error_feedback else None)
+        # the pod stage's stream: one per pod, the same on its data workers
+        pod_gen = (torch.Generator(device=device).manual_seed(
+            3_000_017 * (args.seed + 1) + pod) if hier else None)
+        train_step = step_lib.make_compressed_train_step(
+            model, comp, opt, group=data_group, pod_group=pod_group,
+            pod_generator=pod_gen)
     ctl_state = (step_lib.init_compressed_control(model, comp)
                  if comp.adaptive else None)
-    # the pod stage's stream: one per pod, the same on its data workers
-    pod_gen = (torch.Generator(device=device).manual_seed(
-        3_000_017 * (args.seed + 1) + pod) if hier else None)
-    train_step = step_lib.make_compressed_train_step(
-        model, comp, opt, group=data_group, pod_group=pod_group,
-        pod_generator=pod_gen)
-    # one data stream and one compression stream per worker
+    # one data stream per worker; one compression stream per worker, or in
+    # fsdp mode one for all (Q of the averaged gradient, alike everywhere)
     data_gen = torch.Generator(device=device).manual_seed(
         1_000_003 * (args.seed + 1) + rank)
     comp_gen = torch.Generator(device=device).manual_seed(
-        2_000_003 * (args.seed + 1) + rank)
+        2_000_003 * (args.seed + 1) + (0 if fsdp else rank))
 
     history, step_seconds = [], []
     for step_i in range(args.steps):
@@ -316,29 +325,33 @@ def _train(args, cfg, comp, device, mesh) -> dict:
         m = {k: float(v) for k, v in metrics.items()}    # waits for the step
         step_seconds.append(time.perf_counter() - t0)
         history.append(m)
-        if rank == 0 and step_i == 0:
+        if rank == 0 and step_i == 0 and not fsdp:
             for rows, d, k_cap, layout in train_step.layouts:
                 print(f"group [{rows}, {d}] k_cap {k_cap}: layout {layout}")
         if rank == 0 and (step_i % args.log_every == 0
                           or step_i == args.steps - 1):
             print(f"step {step_i:>5} loss {m['loss']:.4f} "
-                  f"density {m['density']:.5f} var x{m['var_ratio']:.2f} "
-                  f"msg_bits {m['bits']:.4g} wire_bytes {m['wire_bytes']:.0f} "
+                  + (f"density {m['density']:.5f} var x{m['var_ratio']:.2f} "
+                     f"msg_bits {m['bits']:.4g} " if "density" in m else "")
+                  + (f"wire_bytes {m['wire_bytes']:.0f} " if not fsdp else "")
                   + (f"(intra {m['wire_bytes_intra']:.0f} inter "
-                     f"{m['wire_bytes_inter']:.0f}) " if mesh else "")
-                  + f"overflow {m['overflow']:.0f} "
+                     f"{m['wire_bytes_inter']:.0f}) " if mesh and not fsdp
+                     else "")
+                  + (f"overflow {m['overflow']:.0f} " if not fsdp else "")
                   + (f"skipped {m['skipped']:.1f} " if comp.adaptive else "")
                   + f"({step_seconds[-1]:.3f} s)", flush=True)
     if args.checkpoint:
         checkpoint.save(args.checkpoint, model, opt_state, ef_state,
-                        ctl_state, mesh=mesh,
-                        extra={"arch": args.arch, "steps": args.steps,
+                        ctl_state, mesh=mesh, mode=mode,
+                        extra={"arch": args.arch, "mode": mode,
+                               "steps": args.steps,
                                "error_feedback": ef_state is not None,
                                "adaptive": ctl_state is not None})
         if rank == 0:
             print(f"checkpoint -> {args.checkpoint}")
     summary = {"metrics": history, "step_seconds": step_seconds,
-               "params": n_params, "layouts": list(train_step.layouts)}
+               "params": n_params, "mode": mode,
+               "layouts": [] if fsdp else list(train_step.layouts)}
     if device.type == "cuda":
         summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(
             device)

@@ -11,9 +11,18 @@ The query scale multiplies q in q's dtype by the scale rounded to that
 dtype first, as JAX multiplies by a weakly typed Python float (in bf16,
 gemma2-27b's 144^-0.5 and starcoder2's 128^-0.5 are not exact).
 
+DeepSeek-V2's Multi-head Latent Attention, the train path (``MLAConfig``,
+``init_mla``, ``_mla_qc``, ``mla_train``): queries through a low-rank
+``q_down`` / ``q_up`` pair (``x @ q_down`` contracted first, the JAX
+contraction path's order), keys and values from a shared latent
+``c_kv = x @ kv_down``, and a RoPE part of the key shared by every head.
+The score scale multiplies the summed scores in their dtype by the scale
+rounded to that dtype, as for the query scale above.
+
 Chunked (flash-style) attention (``impl="chunked"``, the dry-run's
 ``--attn-impl``) is ROADMAP.md queue A item 13; the prefill/decode caches
-and cross-attention are item 10.
+(MLA's ``mla_prefill`` and ``mla_decode`` among them) and cross-attention
+are item 10.
 """
 from __future__ import annotations
 
@@ -107,3 +116,76 @@ def attention_train(p: dict, cfg: AttnConfig,
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
     out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device, cfg.window))
     return _proj_out(p, cfg, out)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 Multi-head Latent Attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    num_heads: int
+    kv_lora: int = 512
+    q_lora: int = 1536
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_dim: int = 128
+    rope_theta: float = 10000.0
+    logit_softcap: float | None = None
+
+    @property
+    def scale(self) -> float:
+        return (self.qk_nope + self.qk_rope) ** -0.5
+
+
+def mla_shapes(cfg: MLAConfig) -> dict[str, tuple[int, ...]]:
+    """MLA's leaves (under ``attn/``) and their shapes, in the JAX order."""
+    d, h = cfg.d_model, cfg.num_heads
+    return {"q_down": (d, cfg.q_lora),
+            "q_up": (cfg.q_lora, h, cfg.qk_nope + cfg.qk_rope),
+            "kv_down": (d, cfg.kv_lora), "k_rope": (d, cfg.qk_rope),
+            "k_up": (cfg.kv_lora, h, cfg.qk_nope),
+            "v_up": (cfg.kv_lora, h, cfg.v_dim), "wo": (h, cfg.v_dim, d)}
+
+
+def init_mla(ini, cfg: MLAConfig, layers: int | None = None
+             ) -> dict[str, torch.Tensor]:
+    """N(0, 1/fan-in) on axis 0, ``wo``'s on axis 1 (the JAX package's);
+    ``layers`` stacks that many copies on a leading axis."""
+    return {name: ini.fan_in(shape, 1 if name == "wo" else 0, layers=layers)
+            for name, shape in mla_shapes(cfg).items()}
+
+
+def _mla_qc(p: dict, cfg: MLAConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """Queries and the latent (c_kv, k_rope) for a block of tokens."""
+    q = torch.einsum("bsl,lhk->bshk",
+                     torch.einsum("bsd,dl->bsl", x, p["q_down"]), p["q_up"])
+    q_nope, q_rope = q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
+    c_kv = torch.einsum("bsd,dl->bsl", x, p["kv_down"])
+    k_rope = torch.einsum("bsd,dr->bsr", x, p["k_rope"])
+    sin, cos = rope_table(positions, cfg.qk_rope, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_train(p: dict, cfg: MLAConfig, x: torch.Tensor) -> torch.Tensor:
+    """Training-time MLA on x [B, S, d]: per-head keys and values
+    materialized from the latent, causal. ``p`` holds ``q_down``, ``q_up``,
+    ``kv_down``, ``k_rope``, ``k_up``, ``v_up`` and ``wo``."""
+    s = x.shape[1]
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(
+        p, cfg, x, torch.arange(s, device=x.device))
+    k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["k_up"])
+    v = torch.einsum("bsl,lhk->bshk", c_kv, p["v_up"])
+    scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bhst", q_rope, k_rope))
+    scale = torch.tensor(cfg.scale, dtype=scores.dtype, device=x.device)
+    scores = softcap((scores * scale).to(torch.float32), cfg.logit_softcap)
+    mask = causal_mask(s, s, x.device)
+    scores = torch.where(mask[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bthk->bshk", probs, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])

@@ -10,7 +10,9 @@ format: ``checkpoint_entries`` names each tensor of the port's training
 state by its key in a JAX-written ``.npz`` (``params/<leaf path>``,
 ``opt/step``, ``opt/m/<leaf path>``, ``ef/.residual/<leaf path>``,
 ``ctl/.bound/<leaf path>``, ...) with its layout there: replicated, or
-stacked over the workers or the pods on a leading axis.
+stacked over the workers or the pods on a leading axis (an fsdp run's
+residual is params-shaped and replicated, as the JAX fsdp launcher saves
+it).
 ``numpy_from_tensor`` and ``tensor_from_numpy`` carry a bfloat16 tensor
 as the 2-byte ``|V2`` records numpy writes for JAX's bfloat16 arrays,
 without ``ml_dtypes``."""
@@ -52,7 +54,8 @@ REPLICATED, WORKERS, PODS = "replicated", "workers", "pods"
 
 
 def checkpoint_entries(names: list, params: list, opt_state=None,
-                       ef_state=None, ctl_state=None) -> list:
+                       ef_state=None, ctl_state=None,
+                       mode: str = "compressed") -> list:
     """``(key, value, layout)`` of every entry of this worker's training
     state, in the order the JAX package's ``tree_flatten`` writes the tree
     ``{"params", "opt", "ef", "ctl"}`` (absent parts left out). ``names``
@@ -62,7 +65,11 @@ def checkpoint_entries(names: list, params: list, opt_state=None,
     ``v``, SGD's ``mu``) and ``step`` key as ``opt/<field>``; the
     FeedbackState and ControlState fields as ``.<field>``, which is how
     JAX prints a dataclass attribute in a key path; ``bound`` stacks one
-    float32 per worker."""
+    float32 per worker. The residual stacks over the workers in the
+    ``compressed`` mode and is REPLICATED (params-shaped, one per run) in
+    the ``fsdp`` mode."""
+    if mode not in ("compressed", "fsdp"):
+        raise ValueError(f"mode {mode!r}: want compressed or fsdp")
     out = []
     if ctl_state is not None:
         for field, layout in (("last_sent", WORKERS),
@@ -71,7 +78,8 @@ def checkpoint_entries(names: list, params: list, opt_state=None,
                     for n, x in zip(names, getattr(ctl_state, field))]
         out.append(("ctl/.step", ctl_state.step, REPLICATED))
     if ef_state is not None:
-        out += [(f"ef/.residual/{n}", x, WORKERS)
+        layout = REPLICATED if mode == "fsdp" else WORKERS
+        out += [(f"ef/.residual/{n}", x, layout)
                 for n, x in zip(names, ef_state.residual)]
         if ef_state.pod_residual is not None:
             out += [(f"ef/.pod_residual/{n}", x, PODS)

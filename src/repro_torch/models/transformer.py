@@ -1,36 +1,45 @@
-"""Dense decoder-only transformer (port of ``repro.models.transformer`` for
-periods of ``attn_full`` and ``attn_sw`` blocks: ``ModelConfig``,
-``init_model`` and ``forward_train``).
+"""Decoder-only transformer (port of ``repro.models.transformer`` for
+periods of ``attn_full``, ``attn_sw``, ``mla`` and ``mla_dense`` blocks,
+an unscanned ``prelude`` and MoE FFNs: ``ModelConfig``, ``init_model``
+and ``forward_train``).
 
 Parameters keep the JAX layout and names: block ``j`` of kind ``kind`` in
 the period keeps its leaves under ``blocks/b{j}_{kind}/...``, each stacked
 over the ``num_periods`` periods on a leading axis, so compression sees one
-row per layer (paper section 5.2) and the leaves, walked in the JAX flatten
-order, group exactly as the JAX plan groups them. A block is a norm, the
-attention, with ``post_norm`` a norm of the branch's output (gemma2's
-sandwich norms, ``post_ln1``/``post_ln2``), the residual add, then the
-same around the FFN: gated (GeGLU/SwiGLU) or ``dense`` (a plain MLP with
-biases). Norms are RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``).
+row per layer (paper section 5.2), and prelude block ``j`` keeps its own,
+unstacked, under ``prelude/p{j}_{kind}/...`` (after ``final_ln`` in the
+JAX flatten order); the leaves, walked in that order, group exactly as the
+JAX plan groups them. A block is a norm, the attention (GQA for
+``attn_*``, MLA for ``mla*``), with ``post_norm`` a norm of the branch's
+output (gemma2's sandwich norms, ``post_ln1``/``post_ln2``), the residual
+add, then the same around the FFN: gated (GeGLU/SwiGLU), ``dense`` (a
+plain MLP with biases), the MoE FFN where ``moe`` is set, and for
+``mla_dense`` always a gated MLP of width ``first_dense_ff`` (deepseek-v2's
+first layer). Norms are RMSNorm (``scale``) or LayerNorm (``scale``,
+``bias``). ``forward_train`` returns the MoE auxiliary loss beside the
+logits, summed over the blocks in the JAX order (prelude, then the periods).
 
-The MoE, MLA, SSM, hybrid, encoder-decoder and prefix blocks are
-ROADMAP.md queue A item 10. ``remat`` and ``unroll``, the JAX scan's
+The SSM, hybrid, encoder-decoder and prefix blocks and untied embeddings
+are ROADMAP.md queue A item 10. ``remat`` and ``unroll``, the JAX scan's
 execution options, have no counterpart: the port keeps the activations.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 from torch import nn
 
 from repro_torch.devices import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import Initializer, leaf_order
 from repro_torch.models.layers import (dense_mlp, embed, gated_mlp,
                                        layernorm, rmsnorm, softcap, unembed)
 
-KINDS = ("attn_full", "attn_sw")
+KINDS = ("attn_full", "attn_sw", "mla", "mla_dense")
+MLA_KINDS = ("mla", "mla_dense")
+F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +48,8 @@ class ModelConfig:
     vocab: int
     d_model: int
     pattern: tuple[str, ...]            # one period of block kinds
-    num_periods: int                    # layers = len(pattern) * periods
-    prelude: tuple[str, ...] = ()
+    num_periods: int                    # layers = prelude + pattern * periods
+    prelude: tuple[str, ...] = ()       # unscanned leading blocks (deepseek)
     num_heads: int = 8
     num_kv_heads: int = 8
     head_dim: int = 64
@@ -58,33 +67,42 @@ class ModelConfig:
     embed_scale: bool = False
     final_softcap: float | None = None
     tie_embeddings: bool = True
-    moe: Any = None
-    rwkv: Any = None
-    mamba: Any = None
+    moe: moe_lib.MoEConfig | None = None
+    first_dense_ff: int = 0             # mla_dense's gated MLP width
+    mla_kv_lora: int = 512              # MLA dims (deepseek-v2 defaults)
+    mla_q_lora: int = 1536
+    mla_qk_nope: int = 128
+    mla_qk_rope: int = 64
+    mla_v: int = 128
+    rwkv: object = None
+    mamba: object = None
     encoder_periods: int = 0
     prefix_len: int = 0
     attn_impl: str = "naive"            # naive | chunked (queue A item 13)
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
-        if (set(self.pattern) - set(KINDS) or self.prelude
-                or self.moe is not None or self.rwkv is not None
+        kinds = set(self.pattern) | set(self.prelude)
+        if (kinds - set(KINDS) or self.rwkv is not None
                 or self.mamba is not None or self.encoder_periods
                 or self.prefix_len or not self.tie_embeddings):
             raise NotImplementedError(
-                "only periods of attn_full and attn_sw blocks with tied "
-                "embeddings are ported; MoE, MLA, SSM, hybrid, "
-                "encoder-decoder and prefix models are ROADMAP.md queue A "
-                "item 10")
+                f"block kinds {sorted(kinds - set(KINDS))}, rwkv, mamba, "
+                "encoder_periods, prefix_len or untied embeddings: the "
+                "SSM (rwkv, mamba), hybrid (shared_attn), encoder-decoder "
+                "and prefix models are not ported yet (ROADMAP.md queue A "
+                "item 10); the port takes attn_full, attn_sw, mla and "
+                "mla_dense blocks, a prelude and MoE FFNs")
         if self.mlp_kind not in ("gated", "dense") or self.norm not in (
                 "rms", "layer"):
             raise ValueError(f"mlp_kind={self.mlp_kind!r}, "
                              f"norm={self.norm!r}")
-        self.attn_cfg(self.pattern[0])        # refuses a chunked impl
+        for kind in kinds - set(MLA_KINDS):
+            self.attn_cfg(kind)               # refuses a chunked impl
 
     @property
     def num_layers(self) -> int:
-        return len(self.pattern) * self.num_periods
+        return len(self.prelude) + len(self.pattern) * self.num_periods
 
     def attn_cfg(self, kind: str) -> attn.AttnConfig:
         return attn.AttnConfig(
@@ -96,10 +114,30 @@ class ModelConfig:
             use_bias=self.use_bias, use_rope=self.use_rope,
             impl=self.attn_impl)
 
+    def mla_cfg(self) -> attn.MLAConfig:
+        return attn.MLAConfig(
+            d_model=self.d_model, num_heads=self.num_heads,
+            kv_lora=self.mla_kv_lora, q_lora=self.mla_q_lora,
+            qk_nope=self.mla_qk_nope, qk_rope=self.mla_qk_rope,
+            v_dim=self.mla_v, rope_theta=self.rope_theta)
+
     def blocks(self) -> list[tuple[str, str]]:
         """``(prefix, kind)`` of each block of a period, in period order."""
         return [(f"blocks/b{j}_{kind}", kind)
                 for j, kind in enumerate(self.pattern)]
+
+    def prelude_blocks(self) -> list[tuple[str, str]]:
+        """``(prefix, kind)`` of each prelude block, in order."""
+        return [(f"prelude/p{j}_{kind}", kind)
+                for j, kind in enumerate(self.prelude)]
+
+
+def _ffn_kind(cfg: ModelConfig, kind: str) -> str:
+    """The FFN of a block: ``mla_dense`` forces a gated MLP (deepseek's
+    layer 0), ``moe`` replaces it elsewhere, else ``mlp_kind``."""
+    if kind == "mla_dense":
+        return "gated"
+    return "moe" if cfg.moe is not None else cfg.mlp_kind
 
 
 def _norm_shapes(cfg: ModelConfig, name: str) -> dict:
@@ -109,64 +147,118 @@ def _norm_shapes(cfg: ModelConfig, name: str) -> dict:
     return {f"{name}/scale": d}
 
 
-def _block_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
-    """One layer's leaves (the same for both kinds), unstacked."""
-    d, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+def _attn_shapes(cfg: ModelConfig, kind: str) -> dict:
+    if kind in MLA_KINDS:
+        return {f"attn/{k}": s
+                for k, s in attn.mla_shapes(cfg.mla_cfg()).items()}
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out = {"attn/wq": (d, h, hd), "attn/wk": (d, kv, hd),
            "attn/wv": (d, kv, hd), "attn/wo": (h, hd, d)}
     if cfg.use_bias:
         out.update({"attn/bq": (h, hd), "attn/bk": (kv, hd),
                     "attn/bv": (kv, hd), "attn/bo": (d,)})
-    if cfg.mlp_kind == "gated":
-        out.update({"ffn/gate": (d, ff), "ffn/up": (d, ff),
-                    "ffn/down": (ff, d)})
-    else:
-        out.update({"ffn/up": (d, ff), "ffn/up_b": (ff,),
-                    "ffn/down": (ff, d), "ffn/down_b": (d,)})
-    norms = ("ln1", "ln2") + (("post_ln1", "post_ln2") if cfg.post_norm
-                              else ())
-    for n in norms:
+    return out
+
+
+def _ffn_shapes(cfg: ModelConfig, kind: str) -> dict:
+    fk, d = _ffn_kind(cfg, kind), cfg.d_model
+    if fk == "moe":
+        return {f"ffn/{k}": s for k, s in moe_lib.moe_shapes(cfg.moe).items()}
+    if fk == "gated":
+        ff = (cfg.first_dense_ff if kind == "mla_dense" else 0) or cfg.d_ff
+        return {"ffn/gate": (d, ff), "ffn/up": (d, ff), "ffn/down": (ff, d)}
+    ff = cfg.d_ff
+    return {"ffn/up": (d, ff), "ffn/up_b": (ff,), "ffn/down": (ff, d),
+            "ffn/down_b": (d,)}
+
+
+def _block_norms(cfg: ModelConfig) -> dict:
+    out = {}
+    for n in ("ln1", "ln2") + (("post_ln1", "post_ln2") if cfg.post_norm
+                               else ()):
         out.update(_norm_shapes(cfg, n))
     return out
+
+
+def _block_shapes(cfg: ModelConfig, kind: str) -> dict[str, tuple[int, ...]]:
+    """One layer's leaves of a block of ``kind``, unstacked."""
+    return {**_attn_shapes(cfg, kind), **_ffn_shapes(cfg, kind),
+            **_block_norms(cfg)}
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], bool]]:
     """Path -> (shape, stacked) for every parameter."""
     out = {}
-    for prefix, _ in cfg.blocks():
+    for prefix, kind in cfg.blocks():
         out.update({f"{prefix}/{k}": ((cfg.num_periods,) + s, True)
-                    for k, s in _block_shapes(cfg).items()})
+                    for k, s in _block_shapes(cfg, kind).items()})
     out["embed/table"] = ((cfg.vocab, cfg.d_model), False)
     out.update({k: (s, False)
                 for k, s in _norm_shapes(cfg, "final_ln").items()})
+    for prefix, kind in cfg.prelude_blocks():
+        out.update({f"{prefix}/{k}": (s, False)
+                    for k, s in _block_shapes(cfg, kind).items()})
     return out
 
 
-_FAN_IN_DIM = {"attn/wo": 1}
 _ZEROS = ("/bias", "/bq", "/bk", "/bv", "/bo", "/up_b", "/down_b")
+
+
+def _init_constant(ini: Initializer, cfg: ModelConfig, name: str, shape):
+    """A norm's scale or a bias: RMSNorm scales 0 (it scales by 1 +
+    scale), LayerNorm scales 1, biases 0."""
+    if name.endswith("/scale") and cfg.norm == "layer":
+        return ini.ones(shape)
+    return ini.zeros(shape)
+
+
+def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
+                layers: int | None) -> dict[str, torch.Tensor]:
+    """One block's leaves, drawn in the order of ``_block_shapes``;
+    ``layers`` stacks that many layers on a leading axis."""
+    def full(shape):
+        return shape if layers is None else (layers,) + tuple(shape)
+
+    out = {}
+    if kind in MLA_KINDS:
+        out.update({f"attn/{k}": v for k, v in attn.init_mla(
+            ini, cfg.mla_cfg(), layers).items()})
+    else:
+        for name, shape in _attn_shapes(cfg, kind).items():
+            out[name] = (ini.zeros(full(shape)) if name.endswith(_ZEROS)
+                         else ini.fan_in(shape, 1 if name == "attn/wo"
+                                         else 0, layers=layers))
+    if _ffn_kind(cfg, kind) == "moe":
+        out.update({f"ffn/{k}": v for k, v in moe_lib.init_moe(
+            ini, cfg.moe, layers).items()})
+    else:
+        for name, shape in _ffn_shapes(cfg, kind).items():
+            out[name] = (ini.zeros(full(shape)) if name.endswith(_ZEROS)
+                         else ini.fan_in(shape, 0, layers=layers))
+    for name, shape in _block_norms(cfg).items():
+        out[name] = _init_constant(ini, cfg, name, full(shape))
+    return out
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device=None) -> dict[str, torch.Tensor]:
     """Random parameters with the JAX package's distributions: the
-    embedding N(0, 1), projections N(0, 1/fan_in), biases 0, RMSNorm
-    scales 0 (it scales by 1 + scale), LayerNorm scales 1."""
+    embedding N(0, 1), projections N(0, 1/fan_in), the MoE router N(0,
+    1/d_model), biases 0, RMSNorm scales 0 (it scales by 1 + scale),
+    LayerNorm scales 1. Drawn block by block (the periods' blocks, the
+    embedding, then the prelude)."""
     dev = resolve_device(device)
     ini = Initializer(generator, cfg.dtype, dev)
     params = {}
-    for name, (shape, stacked) in param_shapes(cfg).items():
-        if name.endswith(_ZEROS):
-            params[name] = ini.zeros(shape)
-        elif name.endswith("/scale"):
-            params[name] = (ini.ones(shape) if cfg.norm == "layer"
-                            else ini.zeros(shape))
-        elif name == "embed/table":
-            params[name] = ini.normal(shape, stddev=1.0)
-        else:
-            short = name.split("/", 2)[2]
-            params[name] = ini.fan_in(shape[1:], _FAN_IN_DIM.get(short, 0),
-                                      layers=shape[0])
+    for prefix, kind in cfg.blocks():
+        params.update({f"{prefix}/{k}": v for k, v in _init_block(
+            ini, cfg, kind, cfg.num_periods).items()})
+    params["embed/table"] = ini.normal((cfg.vocab, cfg.d_model), stddev=1.0)
+    for name, shape in _norm_shapes(cfg, "final_ln").items():
+        params[name] = _init_constant(ini, cfg, name, shape)
+    for prefix, kind in cfg.prelude_blocks():
+        params.update({f"{prefix}/{k}": v for k, v in _init_block(
+            ini, cfg, kind, None).items()})
     return params
 
 
@@ -182,40 +274,67 @@ def _residual(cfg: ModelConfig, p: dict, x, delta, post: str):
     return x + delta
 
 
-def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor):
-    """One attention block on x [B, S, d]; ``p`` maps the block's leaf
-    names (``"attn/wq"``) to this layer's slices."""
+def _sub(p: dict, prefix: str) -> dict:
+    n = len(prefix)
+    return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
+         balance_group):
+    """The block's FFN on h: ``(y, aux)``, aux None for a dense FFN (the
+    JAX package adds an exact 0.0 there)."""
+    fk = _ffn_kind(cfg, kind)
+    if fk == "moe":
+        return moe_lib.moe_ffn(_sub(p, "ffn/"), cfg.moe, h, balance_group)
+    if fk == "gated":
+        return gated_mlp(p["ffn/gate"], p["ffn/up"], p["ffn/down"], h,
+                         cfg.act), None
+    return dense_mlp(p["ffn/up"], p["ffn/up_b"], p["ffn/down"],
+                     p["ffn/down_b"], h, cfg.act), None
+
+
+def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+           balance_group=None):
+    """One block on x [B, S, d]; ``p`` maps the block's leaf names
+    (``"attn/wq"``) to this layer's slices. Returns ``(x, aux)``."""
     h = _norm(cfg, p, "ln1", x)
-    a = attn.attention_train({k[5:]: v for k, v in p.items()
-                              if k.startswith("attn/")},
-                             cfg.attn_cfg(kind), h)
-    x = _residual(cfg, p, x, a, "post_ln1")
-    h = _norm(cfg, p, "ln2", x)
-    if cfg.mlp_kind == "gated":
-        f = gated_mlp(p["ffn/gate"], p["ffn/up"], p["ffn/down"], h, cfg.act)
+    if kind in MLA_KINDS:
+        a = attn.mla_train(_sub(p, "attn/"), cfg.mla_cfg(), h)
     else:
-        f = dense_mlp(p["ffn/up"], p["ffn/up_b"], p["ffn/down"],
-                      p["ffn/down_b"], h, cfg.act)
-    return _residual(cfg, p, x, f, "post_ln2")
+        a = attn.attention_train(_sub(p, "attn/"), cfg.attn_cfg(kind), h)
+    x = _residual(cfg, p, x, a, "post_ln1")
+    f, aux = _ffn(cfg, kind, p, _norm(cfg, p, "ln2", x), balance_group)
+    return _residual(cfg, p, x, f, "post_ln2"), aux
 
 
 def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, vocab] (the parameter dtype)."""
+                  tokens: torch.Tensor, balance_group=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S, vocab] in the parameter dtype, the
+    MoE auxiliary loss: a 0-d float32, summed over the blocks in order,
+    0.0 without MoE). ``balance_group``: the process group whose workers'
+    batches the load-balance term spans (``moe.moe_ffn``); None for this
+    worker's batch alone."""
     x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for prefix, kind in cfg.prelude_blocks():
+        x, a = _block(cfg, kind, _sub(params, prefix + "/"), x,
+                      balance_group)
+        if a is not None:
+            aux = aux + a
     # one unbind per stacked leaf: its backward stacks the layer gradients
     # once, where indexing layer by layer would add a zero-filled copy of
     # the whole leaf per layer into its gradient
-    layers = []
-    for prefix, kind in cfg.blocks():
-        n = len(prefix) + 1
-        layers.append((kind, {k[n:]: v.unbind(0) for k, v in params.items()
-                              if k.startswith(prefix + "/")}))
+    layers = [(kind, {k: v.unbind(0) for k, v in _sub(
+        params, prefix + "/").items()}) for prefix, kind in cfg.blocks()]
     for i in range(cfg.num_periods):
         for kind, p in layers:
-            x = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x)
+            x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
+                          balance_group)
+            if a is not None:
+                aux = aux + a
     x = _norm(cfg, params, "final_ln", x)
-    return softcap(unembed(params["embed/table"], x), cfg.final_softcap)
+    return softcap(unembed(params["embed/table"], x), cfg.final_softcap), aux
 
 
 class Transformer(nn.Module):
@@ -237,5 +356,7 @@ class Transformer(nn.Module):
     def leaves(self) -> list[nn.Parameter]:
         return [self.params[n] for n in self.leaf_names]
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits, aux): ``forward_train``."""
         return forward_train(dict(self.params), self.cfg, tokens)

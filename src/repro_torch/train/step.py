@@ -11,8 +11,11 @@ averaged update, so the parameters stay replicated. With
 ``ControlState`` (``train_step_adaptive``'s shape). With a ``pod_group``
 the exchange is the pod hierarchy of ``sync_tree`` (the pod stage, with
 ``comp.resparsify_pods`` Algorithm 1's step 7 on its own residual,
-``FeedbackState.pod_residual``). The FSDP step is ROADMAP.md queue A item
-10.
+``FeedbackState.pod_residual``).
+
+``make_fsdp_train_step`` is the JAX package's fsdp mode: the gradient
+averaged over every worker, then Q applied once to the average (Algorithm
+1's step 7), with error feedback on a params-shaped residual.
 
 The step's step-size options are the JAX step's: ``var_adaptive_lr``
 divides the optimizer's step size by ``max(var, 1)`` (the paper's eta ~
@@ -28,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm.sync import SyncStats, _worker_order_mean, sync_tree
-from repro_torch.core.api import CompressionConfig
+from repro_torch.core.api import CompressionConfig, compress_tree
 from repro_torch.models.transformer import ModelConfig, forward_train
 from repro_torch.optim.optimizers import (ControlState, FeedbackState,
                                           Optimizer, init_control,
@@ -36,17 +39,20 @@ from repro_torch.optim.optimizers import (ControlState, FeedbackState,
 from repro_torch.train.loss import lm_loss, shift_targets
 
 
-def make_loss_fn(cfg: ModelConfig) -> Callable:
-    """``(params dict, batch) -> scalar loss``; an optional
-    ``batch["loss_mask"]`` ([B, S], 0 or 1) multiplies the next-token mask.
-    The auxiliary loss of the JAX step is zero for the ported (dense)
-    blocks and is not formed."""
+def make_loss_fn(cfg: ModelConfig, balance_group=None) -> Callable:
+    """``(params dict, batch) -> scalar loss``: the token-mean cross
+    entropy plus the MoE auxiliary loss (``forward_train``'s; 0.0 without
+    MoE), as the JAX step forms it. An optional ``batch["loss_mask"]``
+    ([B, S], 0 or 1) multiplies the next-token mask. ``balance_group``:
+    the workers whose batches the load-balance term spans (the FSDP step's
+    global batch); None for this worker's own batch."""
     def loss_fn(params, batch):
-        logits = forward_train(params, cfg, batch["tokens"])
+        logits, aux = forward_train(params, cfg, batch["tokens"],
+                                    balance_group)
         targets, mask = shift_targets(batch["tokens"])
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"]
-        return lm_loss(logits, targets, mask)
+        return lm_loss(logits, targets, mask) + aux
     return loss_fn
 
 
@@ -70,6 +76,19 @@ def _var_scale(var_ratio: torch.Tensor, group) -> torch.Tensor:
     if m > 1:
         _worker_order_mean(v, m, group)
     return torch.clamp_min(v.reshape(()), 1.0)
+
+
+def _local_grads(model, params: list, loss_fn: Callable, batch):
+    """This worker's loss on ``batch`` and the gradient of each of
+    ``params`` (the model's leaves), taken off the leaves."""
+    for p in params:
+        p.grad = None
+    loss = loss_fn(dict(model.params), batch)
+    loss.backward()
+    grads = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    return loss, grads
 
 
 def init_compressed_control(model, comp: CompressionConfig) -> ControlState:
@@ -128,13 +147,7 @@ def make_compressed_train_step(model, comp: CompressionConfig,
                                 # the model alive after the step is dropped
 
     def _step(opt_state, ef_state, ctl_state, batch, generator):
-        for p in params:
-            p.grad = None
-        loss = loss_fn(dict(model.params), batch)
-        loss.backward()
-        grads = [p.grad for p in params]
-        for p in params:
-            p.grad = None
+        loss, grads = _local_grads(model, params, loss_fn, batch)
         if lr_schedule is not None and ef_state is not None:
             t = opt_state["step"]
             lr_now = lr_schedule(t + 1)
@@ -173,4 +186,70 @@ def make_compressed_train_step(model, comp: CompressionConfig,
                                              generator)
             return opt_state, metrics
     step.layouts = layouts
+    return step
+
+
+def make_fsdp_train_step(model, comp: CompressionConfig | None,
+                         opt: Optimizer) -> Callable:
+    """The JAX package's fsdp step for ``model`` on every worker of the
+    default process group: each worker computes
+    the gradient of its share of the global batch, the gradients are
+    averaged over the workers in worker order (the dense exchange's
+    ``_worker_order_mean``, in place, leaf by leaf; none at one worker),
+    and with a compressor other than ``none`` Q is applied once to the
+    averaged tree (``compress_tree``: Algorithm 1's step 7, unbiased
+    whatever the sharding) before the optimizer. Every worker draws the
+    same uniforms (``generator`` seeded alike on every rank), so the
+    replicas stay equal. ``comp.wire``, its layouts and the exchange do not
+    act here, as in JAX.
+
+    The MoE load-balance term spans the global batch: each worker's
+    per-expert choice counts are summed over the workers before the division
+    (``make_loss_fn``'s ``balance_group``), so the averaged gradient and
+    loss are JAX's over the global batch.
+
+    Without error feedback: ``step(opt_state, batch, generator) ->
+    (opt_state, metrics)``; with ``comp.error_feedback``: ``step(opt_state,
+    ef_state, batch, generator) -> (opt_state, ef_state, metrics)``, the
+    residual of the averaged gradient params-shaped (``init_feedback``;
+    one per run, the same on every worker). Metrics: ``loss`` (float64,
+    the workers' mean) and, when compressing, ``bits``, ``density`` and
+    ``var_ratio`` of the averaged tree. The parameters are updated in place
+    and stay replicated: sharding them over the workers (the JAX
+    package's ``dist/sharding.py`` under GSPMD) is ROADMAP.md queue A item
+    10."""
+    compress = comp is not None and comp.name != "none"
+    ef = compress and comp.error_feedback
+    grp = dist.group.WORLD
+    loss_fn = make_loss_fn(model.cfg, balance_group=grp)
+    params = model.leaves()
+    stacked = model.stacked
+
+    def _step(opt_state, ef_state, batch, generator):
+        loss, grads = _local_grads(model, params, loss_fn, batch)
+        m = dist.get_world_size(grp)
+        if m > 1:
+            for g in grads:
+                _worker_order_mean(g.view(-1), m, grp)
+        metrics = {"loss": _mean_over_workers([loss.detach()], grp)[0]}
+        new_fb = None
+        if compress:
+            q, res, stats = compress_tree(
+                comp, generator, grads, stacked=stacked,
+                residual=ef_state.residual if ef else None)
+            grads = q
+            metrics.update(bits=stats.bits, density=stats.density,
+                           var_ratio=stats.var_ratio)
+            if ef:
+                new_fb = FeedbackState(residual=res)
+        _, opt_state = opt.update(grads, opt_state, params)
+        return opt_state, new_fb, metrics
+
+    if ef:
+        def step(opt_state, ef_state: FeedbackState, batch, generator):
+            return _step(opt_state, ef_state, batch, generator)
+    else:
+        def step(opt_state, batch, generator):
+            opt_state, _, metrics = _step(opt_state, None, batch, generator)
+            return opt_state, metrics
     return step

@@ -12,7 +12,10 @@ smoke config in float32 and in bfloat16:
 - train three steps, or one, save, restore into fresh state and two more:
   parameters, moments, residual and control state bit-equal, on one
   worker and on two gloo ranks (each rank gets its own residual slice back
-  from the stacked file).
+  from the stacked file); so too the phi3.5-moe smoke config in the
+  compressed mode and deepseek-v2's in its fsdp mode, whose params-shaped
+  residual the file holds as the JAX fsdp launcher writes it (the keys,
+  order, shapes and dtypes of a JAX-written file of the same tree).
 """
 import dataclasses
 import json
@@ -34,8 +37,10 @@ from repro.configs import gemma2_9b as jgemma2
 from repro.models import transformer as jtf
 from repro.models.common import split_params
 from repro.optim import optimizers as jopt
+from repro.configs import registry as jregistry
 from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.configs import gemma2_9b as tgemma2
+from repro_torch.configs import registry as tregistry
 from repro_torch.core.api import CompressionConfig
 from repro_torch.data.synthetic import token_batch
 from repro_torch.models.convert import (control_from_jax, feedback_from_jax,
@@ -187,30 +192,34 @@ def _train(state, fb, ctl, step, steps: range, cfg, rank: int):
     return state, fb, ctl
 
 
-def _fresh_run(comp, cfg, seed: int):
+def _fresh_run(comp, cfg, seed: int, mode: str = "compressed"):
     model = Transformer(cfg, init_model(
         cfg, torch.Generator().manual_seed(seed), "cpu"))
     opt = topt.adam(1e-3)
     leaves = model.leaves()
     ctl = topt.init_control(leaves) if comp.adaptive else None
+    make = (tstep.make_fsdp_train_step if mode == "fsdp"
+            else tstep.make_compressed_train_step)
     return (model, opt.init(leaves), topt.init_feedback(leaves), ctl,
-            tstep.make_compressed_train_step(model, comp, opt))
+            make(model, comp, opt))
 
 
-def _run(comp, cfg, steps: int = 3, resume_at=None, path=None, rank=0):
+def _run(comp, cfg, steps: int = 3, resume_at=None, path=None, rank=0,
+         mode: str = "compressed"):
     """``steps`` steps from the seeded init; with ``resume_at``, that many,
     a save to ``path``, a restore into fresh state (another seed's
     parameters, zero moments and residual) and the rest. Returns the
-    model and its (opt, EF, control) states."""
-    model, state, fb, ctl, step = _fresh_run(comp, cfg, 1)
+    model and its (opt, EF, control) states. ``mode``: the train step's
+    (``compressed`` or ``fsdp``)."""
+    model, state, fb, ctl, step = _fresh_run(comp, cfg, 1, mode)
     if resume_at is None:
         return model, _train(state, fb, ctl, step, range(steps), cfg, rank)
     state, fb, ctl = _train(state, fb, ctl, step, range(resume_at), cfg,
                             rank)
-    tckpt.save(path, model, state, fb, ctl)
+    tckpt.save(path, model, state, fb, ctl, mode=mode)
     del model, state, fb, ctl, step
-    model, state, fb, ctl, step = _fresh_run(comp, cfg, 2)
-    state, fb, ctl = tckpt.restore(path, model, state, fb, ctl)
+    model, state, fb, ctl, step = _fresh_run(comp, cfg, 2, mode)
+    state, fb, ctl = tckpt.restore(path, model, state, fb, ctl, mode=mode)
     return model, _train(state, fb, ctl, step, range(resume_at, steps), cfg,
                          rank)
 
@@ -256,6 +265,44 @@ def test_resumed_run_is_bit_equal(adaptive, resume_at, tmp_path,
                              skip_tau=0.7 if adaptive else 0.0)
     _same_state(_run(comp, cfg), _run(comp, cfg, resume_at=resume_at,
                                       path=str(tmp_path / "ck.npz")))
+
+
+@pytest.mark.parametrize("arch,mode", [("phi3.5-moe-42b-a6.6b", "compressed"),
+                                       ("deepseek-v2-236b", "fsdp")])
+def test_arch_resume_is_bit_equal(arch, mode, tmp_path, one_worker_group):
+    """gspar with EF and Adam, phi3.5-moe on the gather wire's ``auto``,
+    deepseek-v2 in its fsdp mode (Q of the averaged gradient): three steps
+    against one, a save, a restore into fresh state and two more. The
+    fsdp file holds the residual params-shaped under ``ef/.residual/``,
+    with the keys, order, shapes and dtypes of the JAX fsdp launcher's
+    file of ``{"params", "opt": adam, "ef": init_feedback(params)}``."""
+    cfg = tregistry.get(arch).smoke
+    comp = CompressionConfig(name="gspar", rho=0.05, wire="gather",
+                             error_feedback=True, min_leaf_size=1024)
+    path = str(tmp_path / "ck.npz")
+    _same_state(_run(comp, cfg, mode=mode),
+                _run(comp, cfg, resume_at=1, path=path, mode=mode))
+    if mode != "fsdp":
+        return
+    jcfg = jregistry.get(arch).smoke
+    params = jax.jit(lambda k: split_params(jtf.init_model(k, jcfg))[0])(
+        jax.random.key(0))
+    jpath = str(tmp_path / "jax")
+    tree = {"params": params, "opt": jopt.adam(1e-3).init(params),
+            "ef": jopt.init_feedback(params)}
+    jckpt.save(jpath, tree)
+    with np.load(jpath + ".npz") as want, np.load(path) as got:
+        assert list(got.keys()) == list(want.keys())
+        for key in want.keys():
+            assert (got[key].dtype, got[key].shape) == (
+                want[key].dtype, want[key].shape), key
+        assert any(k.startswith("ef/.residual/prelude/") for k in want.keys())
+        residual = {k: got[k] for k in got.keys() if k.startswith("ef/")}
+    # the JAX restore reads the port's fsdp file into that tree
+    back = jckpt.restore(path, tree)
+    for path_k, x in jax.tree_util.tree_flatten_with_path(back["ef"])[0]:
+        key = "ef/.residual/" + "/".join(k.key for k in path_k[1:])
+        np.testing.assert_array_equal(np.asarray(x), residual[key])
 
 
 RANK = r"""

@@ -1355,7 +1355,8 @@ def test_tree_stats_and_var_step_size_card_match_cpu(card, wire):
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma2-27b",
-                                  "starcoder2-7b"])
+                                  "starcoder2-7b", "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
 def test_arch_one_step_loss_card_matches_cpu(card, arch):
     """One compressed step (gspar, the gather wire's ``auto``, EF, Adam) of
     the smoke config in bfloat16 on the card against float32 on the CPU,
@@ -1405,3 +1406,46 @@ def test_arch_one_step_loss_card_matches_cpu(card, arch):
         assert losses["cpu"][1] < losses["cpu"][0]
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
+def test_moe_ffn_card_matches_cpu(card, arch):
+    """The smoke config's MoE FFN (float32, TF32 off) on the card against
+    the CPU, from the same parameters and input: the same routing (top-k
+    experts) and kept set, y, aux and the gradients within rtol 1e-4 /
+    atol 1e-5 x the tensor's largest magnitude past 1 (cuBLAS sums in
+    another order), and two backward passes on the card bit-equal
+    to each other (every gather's backward a permutation or exact zeros,
+    the k copies summed by a reduction)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.models.common import Initializer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get(arch).smoke.moe
+    gen = torch.Generator().manual_seed(0)
+    params = moe.init_moe(Initializer(gen, torch.float32,
+                                      torch.device("cpu")), cfg)
+    x = torch.randn((4, 32, cfg.d_model), generator=gen)
+    r = torch.randn((4, 32, cfg.d_model), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        p = {k: v.to(dev, copy=True).requires_grad_(True)
+             for k, v in params.items()}
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        ids = moe.route(p, cfg, xd)[3]
+        keep = moe.sort_choices(ids, cfg.num_experts,
+                                cfg.capacity(x.shape[1]))[2]
+        y, aux = moe.moe_ffn(p, cfg, xd)
+        (torch.sum(y * r.to(dev)) + aux).backward()
+        grads = [xd.grad] + [p[k].grad for k in sorted(p)]
+        run = [t.detach().cpu() for t in (ids, keep, y, aux, *grads)]
+        if dev in out:
+            for a, b in zip(out[dev], run):
+                assert torch.equal(a, b)
+        out[dev] = run
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert torch.equal(cpu[0], gpu[0]) and torch.equal(cpu[1], gpu[1])
+    for a, b in zip(gpu[2:], cpu[2:]):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-5 * max(1.0, float(b.abs().max())))

@@ -387,9 +387,9 @@ def test_launcher_runs_the_pod_stage_on_the_cpu():
     """``launch.train --mesh 1x1x1``: the pod stage over groups of one (at
     one worker the compaction keeps every nonzero, so the pod stage ships
     the worker stage's bytes), with ``--resparsify-pods`` and EF the pod
-    residual carried; a model axis, ``--mode fsdp`` and a mesh that does
-    not cover the workers are refused (``--checkpoint`` is ported:
-    ``tests/test_torch_checkpoint.py``)."""
+    residual carried; a model axis, ``--mode fsdp --adaptive`` (exits, as
+    in JAX) and a mesh that does not cover the workers are refused
+    (``--checkpoint`` is ported: ``tests/test_torch_checkpoint.py``)."""
     from repro_torch.launch import train as tlaunch
     base = ["--arch", "gemma-2b", "--smoke", "--steps", "2", "--device",
             "cpu", "--wire", "gather", "--error-feedback", "--log-every",
@@ -404,7 +404,7 @@ def test_launcher_runs_the_pod_stage_on_the_cpu():
     assert tlaunch.parse_mesh("1x1") is None
     assert tlaunch.parse_mesh("2x3x1") == (2, 3)
     for argv, err in ((["--mesh", "1x1x2"], NotImplementedError),
-                      (["--mode", "fsdp"], NotImplementedError),
+                      (["--mode", "fsdp", "--adaptive"], SystemExit),
                       (["--mesh", "2x1x1"], ValueError)):
-        with pytest.raises(err, match="item 10|needs 2"):
+        with pytest.raises(err, match="item 10|needs 2|compressed train"):
             tlaunch.main(base + argv)
