@@ -1,9 +1,10 @@
 """Architecture registry (port of ``repro.configs.registry``): the dense
 attention architectures gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b,
-the MoE phi3.5-moe-42b-a6.6b and the MLA + MoE deepseek-v2-236b. The other
-four (SSM, hybrid, encoder-decoder, vision prefix) are ROADMAP.md queue A
-item 10. The port has no sharding rules (``dist/sharding.py``, item 10),
-so a spec carries none."""
+the MoE phi3.5-moe-42b-a6.6b, the MLA + MoE deepseek-v2-236b, the SSM
+rwkv6-1.6b and the hybrid zamba2-2.7b. The encoder-decoder
+seamless-m4t-large-v2 and the vision-prefix paligemma-3b are ROADMAP.md
+queue A item 10. The port has no sharding rules (``dist/sharding.py``,
+item 10), so a spec carries none."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,7 +15,8 @@ from repro_torch.models.transformer import ModelConfig
 ID_TO_MODULE = {"gemma-2b": "gemma_2b", "gemma2-9b": "gemma2_9b",
                 "gemma2-27b": "gemma2_27b", "starcoder2-7b": "starcoder2_7b",
                 "phi3.5-moe-42b-a6.6b": "phi35_moe",
-                "deepseek-v2-236b": "deepseek_v2"}
+                "deepseek-v2-236b": "deepseek_v2",
+                "rwkv6-1.6b": "rwkv6_1b6", "zamba2-2.7b": "zamba2_2b7"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -48,9 +48,9 @@ the optimizer's state, with ``--error-feedback`` the residual (stacked over
 the workers in compressed mode, params-shaped in fsdp mode) and with
 ``--adaptive`` the control state, and ``arch``, ``mode``, ``steps``,
 ``error_feedback`` and ``adaptive`` in ``PATH.meta.json``. ``--arch``
-takes gemma-2b, gemma2-9b, gemma2-27b, starcoder2-7b, phi3.5-moe-42b-a6.6b
-and deepseek-v2-236b. ``--num-periods`` cuts the depth; widths are never
-narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
+takes gemma-2b, gemma2-9b, gemma2-27b, starcoder2-7b, phi3.5-moe-42b-a6.6b,
+deepseek-v2-236b, rwkv6-1.6b and zamba2-2.7b. ``--num-periods`` cuts the
+depth (without it a run is full depth); widths are never narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
 the JAX launcher: each shape group takes the layout with the fewest wire
 bytes (RICE on every gemma-2b group at rho 0.05), printed once per group
 after the first step.

@@ -44,3 +44,6 @@ class Initializer:
 
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def constant(self, value: float, shape) -> torch.Tensor:
+        return torch.full(shape, value, dtype=self.dtype, device=self.device)

@@ -1,0 +1,334 @@
+"""Recurrent sequence mixers, the training path (port of
+``repro.models.ssm``): RWKV-6 "Finch" (data-dependent per-channel decay)
+and Mamba-2 (SSD, a scalar decay per head), each in its chunked form.
+Within a chunk of ``L`` tokens the recurrence is a set of products with
+relative-decay factors; a Python loop over the ``T // L`` chunks carries
+the state ``S`` from the zero state, as the JAX package's ``lax.scan``
+carries it (``unroll``, a scan option, has no counterpart).
+
+Numerics follow the JAX package: the recurrence in float32 with the decays
+in log space, the projections in the parameter dtype and cast where JAX
+casts them; ``_group_norm`` takes the population variance (``jnp.var``),
+softplus is ``logaddexp(x, 0)`` (``jax.nn.softplus``; ``F.softplus``
+switches to ``x`` past 20 and rounds otherwise for x > 0), and
+``_causal_conv`` sums its taps left to right from 0, then adds the bias,
+as Python's ``sum`` does in JAX.
+
+Leaves keep the JAX names (``tm/*``, ``cm/*``, ``mix/*``). Each module
+has a ``*_shapes`` function and an ``init_*`` one with the JAX
+distributions, as ``models.moe`` and ``models.attention``'s MLA; the
+block assembler (``models.transformer``) stacks them over the periods.
+
+A carried state (prefill and decode: ``rwkv6_time_mix_step``,
+``init_rwkv6_state``, ``init_mamba2_state``) is ROADMAP.md queue A item
+10; a caller that passes one is refused.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def _no_state(state) -> None:
+    if state is not None:
+        raise NotImplementedError(
+            "a carried SSM state (prefill and decode) is not ported yet "
+            "(ROADMAP.md queue A item 10); the port trains from the zero "
+            "state")
+
+
+def _draw(ini, shapes: dict, constants: dict, stddevs: dict,
+          layers: int | None) -> dict[str, torch.Tensor]:
+    """Each leaf of ``shapes``, in order: a constant, N(0, stddev), or
+    else N(0, 1/fan-in) with the fan-in on axis 0; ``layers`` stacks that
+    many layers on a leading axis."""
+    out = {}
+    for name, shape in shapes.items():
+        full = shape if layers is None else (layers,) + shape
+        if name in constants:
+            out[name] = ini.constant(constants[name], full)
+        elif name in stddevs:
+            out[name] = ini.normal(full, stddev=stddevs[name])
+        else:
+            out[name] = ini.fan_in(shape, 0, layers=layers)
+    return out
+
+
+def _shift(x: torch.Tensor) -> torch.Tensor:
+    """Token shift from the zero state: y_t = x_{t-1}, y_0 = 0. x [B, T, d]."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _chunks(t: int, chunk: int) -> int:
+    """The chunk length: ``min(chunk, t)``, which must divide ``t``."""
+    L = min(chunk, t)
+    if t % L:
+        raise ValueError(f"seq {t} not divisible by chunk {L}")
+    return L
+
+
+# ===========================================================================
+# RWKV-6
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class RWKV6Config:
+    d_model: int
+    head_dim: int = 64
+    d_ff: int = 0                 # channel-mix hidden (3.5x d_model in Finch)
+    tm_lora: int = 32             # token-mix lora rank
+    w_lora: int = 64              # decay lora rank
+    chunk: int = 64
+
+    @property
+    def num_heads(self) -> int:
+        return self.d_model // self.head_dim
+
+
+def rwkv6_time_mix_shapes(cfg: RWKV6Config) -> dict[str, tuple[int, ...]]:
+    """The time mix's leaves (under ``tm/``) and their shapes, in the JAX
+    order."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {"mu_x": (d,), "mu": (5, d), "lora_a": (d, 5 * cfg.tm_lora),
+            "lora_b": (5, cfg.tm_lora, d), "w0": (d,),
+            "w_lora_a": (d, cfg.w_lora), "w_lora_b": (cfg.w_lora, d),
+            "wr": (d, d), "wk": (d, d), "wv": (d, d), "wg": (d, d),
+            "u": (h, hd), "ln_scale": (d,), "ln_bias": (d,), "wo": (d, d)}
+
+
+def init_rwkv6_time_mix(ini, cfg: RWKV6Config, layers: int | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The JAX package's distributions: the shift mixes 0, ``w0`` -4 (a
+    mild initial decay), the group norm's scale 1 and bias 0, the LoRAs
+    N(0, 0.01), the bonus ``u`` N(0, 0.5), the projections N(0, 1/fan-in)
+    on axis 0; ``layers`` stacks that many copies on a leading axis."""
+    return _draw(ini, rwkv6_time_mix_shapes(cfg),
+                 {"mu_x": 0.0, "mu": 0.0, "w0": -4.0, "ln_scale": 1.0,
+                  "ln_bias": 0.0},
+                 {"lora_a": 0.01, "lora_b": 0.01, "w_lora_a": 0.01,
+                  "w_lora_b": 0.01, "u": 0.5}, layers)
+
+
+def rwkv6_channel_mix_shapes(cfg: RWKV6Config
+                             ) -> dict[str, tuple[int, ...]]:
+    """The channel mix's leaves (under ``cm/``) and their shapes."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"mu_k": (d,), "mu_r": (d,), "wk": (d, f), "wv": (f, d),
+            "wr": (d, d)}
+
+
+def init_rwkv6_channel_mix(ini, cfg: RWKV6Config, layers: int | None = None
+                           ) -> dict[str, torch.Tensor]:
+    """The shift mixes 0, the projections N(0, 1/fan-in) on axis 0."""
+    return _draw(ini, rwkv6_channel_mix_shapes(cfg),
+                 {"mu_k": 0.0, "mu_r": 0.0}, {}, layers)
+
+
+def _rwkv_mix_streams(p: dict, x: torch.Tensor, xprev: torch.Tensor):
+    """Data-dependent token-shift interpolation for the 5 streams (r, k,
+    v, w, g); ``lora_a``'s columns split stream-major into [5, rank]."""
+    dx = xprev - x
+    xxx = x + dx * p["mu_x"]
+    lora = torch.tanh(xxx @ p["lora_a"])
+    lora = lora.reshape(*lora.shape[:-1], 5, -1)              # [B, T, 5, r]
+    dyn = torch.einsum("btfm,fmd->btfd", lora, p["lora_b"])   # [B, T, 5, d]
+    mixed = x[..., None, :] + dx[..., None, :] * (p["mu"] + dyn)
+    return mixed.unbind(-2)
+
+
+def _group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float = 64e-5) -> torch.Tensor:
+    """Per-head layer norm with the population variance: x [..., h, hd],
+    scale and bias [h * hd]."""
+    mean = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)
+    n = (x - mean) * torch.rsqrt(var + eps)
+    return n.reshape(*n.shape[:-2], -1) * scale + bias
+
+
+def _wkv_chunk(S: torch.Tensor, r, k, v, logw, u):
+    """One chunk, batched over [B, H]: r, k, v, logw [B, L, H, hd] float32
+    (logw <= 0), u [H, hd], state S [B, H, hd_k, hd_v]. Returns (S_new,
+    out [B, L, H, hd])."""
+    L = r.shape[1]
+    logA = torch.cumsum(logw, dim=1)                  # [B, L, H, K]
+    a_prev = torch.exp(logA - logw)                   # A_{t-1}
+    a_end = torch.exp(logA[:, -1])                    # [B, H, K]
+    rp = r * a_prev
+    kd = k * torch.exp(-logA)
+    scores = torch.einsum("blhk,bmhk->bhlm", rp, kd)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=r.device),
+                     -1)
+    scores = torch.where(tri, scores, 0.0)            # strictly causal
+    diag = torch.einsum("blhk,blhk,hk->blh", r, k, u)  # the bonus term
+    out = torch.einsum("bhlm,bmhv->blhv", scores, v)
+    out = out + torch.einsum("blhk,bhkv->blhv", rp, S)
+    out = out + diag[..., None] * v
+    k_end = k * torch.exp(logA[:, -1][:, None] - logA)   # decay to chunk end
+    S_new = a_end[..., None] * S + torch.einsum("blhk,blhv->bhkv", k_end, v)
+    return S_new, out
+
+
+def rwkv6_time_mix(p: dict, cfg: RWKV6Config, x: torch.Tensor,
+                   state=None) -> torch.Tensor:
+    """x [B, T, d] from the zero state -> out [B, T, d] in x's dtype."""
+    _no_state(state)
+    b, t, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    L = _chunks(t, cfg.chunk)
+    xr, xk, xv, xw, xg = _rwkv_mix_streams(p, x, _shift(x))
+    r = (xr @ p["wr"]).reshape(b, t, h, hd).to(F32)
+    k = (xk @ p["wk"]).reshape(b, t, h, hd).to(F32)
+    v = (xv @ p["wv"]).reshape(b, t, h, hd).to(F32)
+    g = F.silu(xg @ p["wg"])
+    logw = -torch.exp(p["w0"] + torch.tanh(xw @ p["w_lora_a"])
+                      @ p["w_lora_b"])
+    logw = logw.reshape(b, t, h, hd).to(F32)
+
+    u = p["u"].to(F32)
+    S = torch.zeros((b, h, hd, hd), dtype=F32, device=x.device)
+    outs = []
+    for c in range(0, t, L):
+        S, o = _wkv_chunk(S, r[:, c:c + L], k[:, c:c + L], v[:, c:c + L],
+                          logw[:, c:c + L], u)
+        outs.append(o)
+    out = torch.cat(outs, dim=1)
+    out = _group_norm(out, p["ln_scale"].to(F32), p["ln_bias"].to(F32))
+    return (out.to(x.dtype) * g) @ p["wo"]
+
+
+def rwkv6_channel_mix(p: dict, x: torch.Tensor, state=None) -> torch.Tensor:
+    """x [B, T, d] from the zero state -> the token-shifted squared-ReLU
+    FFN, gated by sigmoid of its receptance, [B, T, d]."""
+    _no_state(state)
+    dx = _shift(x) - x
+    xk = x + dx * p["mu_k"]
+    xr = x + dx * p["mu_r"]
+    k = torch.square(torch.relu(xk @ p["wk"]))
+    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+
+
+# ===========================================================================
+# Mamba-2 (SSD)
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config:
+    d_model: int
+    d_state: int = 64
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 64
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def num_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.d_state
+
+
+def mamba2_shapes(cfg: Mamba2Config) -> dict[str, tuple[int, ...]]:
+    """The mixer's leaves (under ``mix/``) and their shapes, in the JAX
+    order."""
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.num_heads
+    return {"in_proj": (d, 2 * di + 2 * n + h),
+            "conv_w": (cfg.conv_width, cfg.conv_dim),
+            "conv_b": (cfg.conv_dim,), "a_log": (h,), "dt_bias": (h,),
+            "d_skip": (h,), "norm_scale": (di,), "out_proj": (di, d)}
+
+
+def init_mamba2(ini, cfg: Mamba2Config, layers: int | None = None
+                ) -> dict[str, torch.Tensor]:
+    """The JAX package's distributions: the convolution N(0, 0.1) with
+    bias 0, ``a_log`` 0 (A = -1), ``dt_bias`` -2 (a small initial dt),
+    ``d_skip`` and the norm's scale 1, the projections N(0, 1/fan-in) on
+    axis 0; ``layers`` stacks that many copies on a leading axis."""
+    return _draw(ini, mamba2_shapes(cfg),
+                 {"conv_b": 0.0, "a_log": 0.0, "dt_bias": -2.0,
+                  "d_skip": 1.0, "norm_scale": 1.0},
+                 {"conv_w": 0.1}, layers)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` at every x."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution from the zero state: x [B, T, C], w
+    [W, C], b [C]; the taps summed left to right from 0, then the bias, in
+    x's dtype."""
+    width, t = w.shape[0], x.shape[1]
+    pad = torch.zeros((x.shape[0], width - 1, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)
+    return sum(xp[:, i:i + t] * w[i] for i in range(width)) + b
+
+
+def _ssd_chunk(S: torch.Tensor, x, Bm, Cm, loga, dt):
+    """One SSD chunk, batched: x [B, L, H, hd]; Bm, Cm [B, L, N]; loga, dt
+    [B, L, H]; state S [B, H, N, hd]. Returns (S_new, y [B, L, H, hd])."""
+    L = x.shape[1]
+    logA = torch.cumsum(loga, dim=1)                   # [B, L, H]
+    decay_end = torch.exp(logA[:, -1])                 # [B, H]
+    # intra-chunk: scores[t, s] = exp(logA_t - logA_s) (C_t . B_s) dt_s
+    rel = logA[:, :, None, :] - logA[:, None, :, :]    # [B, L, L, H]
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    rel = torch.where(tri[None, :, :, None], rel, -torch.inf)
+    cb = torch.einsum("bln,bmn->blm", Cm, Bm)          # [B, L, L]
+    scores = torch.exp(rel) * cb[..., None] * dt[:, None, :, :]
+    y = torch.einsum("blmh,bmhd->blhd", scores, x)
+    # inter-chunk: y_t += exp(logA_t) C_t^T S
+    y = y + torch.exp(logA)[..., None] * torch.einsum("bln,bhnd->blhd",
+                                                      Cm, S)
+    w_end = torch.exp(logA[:, -1][:, None] - logA) * dt     # [B, L, H]
+    S_new = (decay_end[..., None, None] * S
+             + torch.einsum("blh,bln,blhd->bhnd", w_end, Bm, x))
+    return S_new, y
+
+
+def mamba2_mix(p: dict, cfg: Mamba2Config, x: torch.Tensor,
+               state=None) -> torch.Tensor:
+    """x [B, T, d] from the zero state -> out [B, T, d] in x's dtype."""
+    _no_state(state)
+    b, t, _ = x.shape
+    di, n, h, hd = cfg.d_inner, cfg.d_state, cfg.num_heads, cfg.head_dim
+    L = _chunks(t, cfg.chunk)
+    z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * n, h], dim=-1)
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xs, Bm, Cm = torch.split(xbc, [di, n, n], dim=-1)
+
+    dt = softplus(dt.to(F32) + p["dt_bias"])                       # [B, T, H]
+    loga = -torch.exp(p["a_log"].to(F32)) * dt
+    xh = xs.reshape(b, t, h, hd).to(F32)
+    Bm32, Cm32 = Bm.to(F32), Cm.to(F32)
+
+    S = torch.zeros((b, h, n, hd), dtype=F32, device=x.device)
+    ys = []
+    for c in range(0, t, L):
+        S, y = _ssd_chunk(S, xh[:, c:c + L], Bm32[:, c:c + L],
+                          Cm32[:, c:c + L], loga[:, c:c + L],
+                          dt[:, c:c + L])
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = y + p["d_skip"].to(F32)[:, None] * xh
+    y = y.reshape(b, t, di).to(x.dtype)
+
+    # gated RMSNorm (mamba2: no 1 + scale), then the out projection
+    y = y * F.silu(z)
+    var = torch.square(y.to(F32)).mean(-1, keepdim=True)
+    y = (y.to(F32) * torch.rsqrt(var + 1e-6)).to(x.dtype)
+    return (y * p["norm_scale"]) @ p["out_proj"]

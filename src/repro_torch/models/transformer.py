@@ -1,27 +1,37 @@
-"""Decoder-only transformer (port of ``repro.models.transformer`` for
-periods of ``attn_full``, ``attn_sw``, ``mla`` and ``mla_dense`` blocks,
-an unscanned ``prelude`` and MoE FFNs: ``ModelConfig``, ``init_model``
-and ``forward_train``).
+"""Decoder-only model (port of ``repro.models.transformer`` for periods of
+``attn_full``, ``attn_sw``, ``mla``, ``mla_dense``, ``rwkv``, ``mamba`` and
+``shared_attn`` blocks, an unscanned ``prelude`` and MoE FFNs:
+``ModelConfig``, ``init_model`` and ``forward_train``).
 
 Parameters keep the JAX layout and names: block ``j`` of kind ``kind`` in
 the period keeps its leaves under ``blocks/b{j}_{kind}/...``, each stacked
 over the ``num_periods`` periods on a leading axis, so compression sees one
 row per layer (paper section 5.2), and prelude block ``j`` keeps its own,
-unstacked, under ``prelude/p{j}_{kind}/...`` (after ``final_ln`` in the
-JAX flatten order); the leaves, walked in that order, group exactly as the
-JAX plan groups them. A block is a norm, the attention (GQA for
-``attn_*``, MLA for ``mla*``), with ``post_norm`` a norm of the branch's
-output (gemma2's sandwich norms, ``post_ln1``/``post_ln2``), the residual
-add, then the same around the FFN: gated (GeGLU/SwiGLU), ``dense`` (a
-plain MLP with biases), the MoE FFN where ``moe`` is set, and for
-``mla_dense`` always a gated MLP of width ``first_dense_ff`` (deepseek-v2's
-first layer). Norms are RMSNorm (``scale``) or LayerNorm (``scale``,
-``bias``). ``forward_train`` returns the MoE auxiliary loss beside the
-logits, summed over the blocks in the JAX order (prelude, then the periods).
+unstacked, under ``prelude/p{j}_{kind}/...``; zamba2's shared block keeps
+its leaves once, unstacked, under ``shared/...``. The leaves, walked in
+the JAX flatten order, group exactly as the JAX plan groups them.
 
-The SSM, hybrid, encoder-decoder and prefix blocks and untied embeddings
-are ROADMAP.md queue A item 10. ``remat`` and ``unroll``, the JAX scan's
-execution options, have no counterpart: the port keeps the activations.
+An attention block is a norm, the attention (GQA for ``attn_*``, MLA for
+``mla*``), with ``post_norm`` a norm of the branch's output (gemma2's
+sandwich norms, ``post_ln1``/``post_ln2``), the residual add, then the
+same around the FFN: gated (GeGLU/SwiGLU), ``dense`` (a plain MLP with
+biases), the MoE FFN where ``moe`` is set, and for ``mla_dense`` always a
+gated MLP of width ``first_dense_ff`` (deepseek-v2's first layer). An
+``rwkv`` block adds RWKV-6's time mix and channel mix, each after its
+norm; a ``mamba`` block adds the Mamba-2 mixer after its norm (``models.
+ssm``), both with plain residuals. A ``shared_attn`` site (zamba2) feeds
+the hidden state concatenated with the embedded tokens through the shared
+block, its input projection plus the site's LoRA ``lora_a @ lora_b``,
+and adds the block's output projection; its own ``ln1`` is drawn, as in
+JAX, but never read, so its gradient is exact zeros. Norms are RMSNorm
+(``scale``) or LayerNorm (``scale``, ``bias``). ``forward_train`` returns
+the MoE auxiliary loss beside the logits, summed over the blocks in the
+JAX order (prelude, then the periods).
+
+The encoder-decoder and prefix models (``encoder_periods``,
+``prefix_len``) and untied embeddings are ROADMAP.md queue A item 10.
+``remat`` and ``unroll``, the JAX scan's execution options, have no
+counterpart: the port keeps the activations.
 """
 from __future__ import annotations
 
@@ -33,12 +43,16 @@ from torch import nn
 from repro_torch.devices import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.models.common import Initializer, leaf_order
 from repro_torch.models.layers import (dense_mlp, embed, gated_mlp,
                                        layernorm, rmsnorm, softcap, unembed)
 
-KINDS = ("attn_full", "attn_sw", "mla", "mla_dense")
+KINDS = ("attn_full", "attn_sw", "mla", "mla_dense", "rwkv", "mamba",
+         "shared_attn")
+ATTN_KINDS = ("attn_full", "attn_sw")
 MLA_KINDS = ("mla", "mla_dense")
+SSM_KINDS = ("rwkv", "mamba", "shared_attn")  # the SSM and hybrid blocks
 F32 = torch.float32
 
 
@@ -74,8 +88,9 @@ class ModelConfig:
     mla_qk_nope: int = 128
     mla_qk_rope: int = 64
     mla_v: int = 128
-    rwkv: object = None
-    mamba: object = None
+    rwkv: ssm.RWKV6Config | None = None
+    mamba: ssm.Mamba2Config | None = None
+    shared_lora_rank: int = 64          # zamba2 per-site adapters
     encoder_periods: int = 0
     prefix_len: int = 0
     attn_impl: str = "naive"            # naive | chunked (queue A item 13)
@@ -83,21 +98,26 @@ class ModelConfig:
 
     def __post_init__(self):
         kinds = set(self.pattern) | set(self.prelude)
-        if (kinds - set(KINDS) or self.rwkv is not None
-                or self.mamba is not None or self.encoder_periods
-                or self.prefix_len or not self.tie_embeddings):
+        if self.encoder_periods or self.prefix_len or not (
+                self.tie_embeddings):
             raise NotImplementedError(
-                f"block kinds {sorted(kinds - set(KINDS))}, rwkv, mamba, "
                 "encoder_periods, prefix_len or untied embeddings: the "
-                "SSM (rwkv, mamba), hybrid (shared_attn), encoder-decoder "
-                "and prefix models are not ported yet (ROADMAP.md queue A "
-                "item 10); the port takes attn_full, attn_sw, mla and "
-                "mla_dense blocks, a prelude and MoE FFNs")
+                "encoder-decoder and prefix models are not ported yet "
+                "(ROADMAP.md queue A item 10)")
+        if kinds - set(KINDS):
+            raise ValueError(f"unknown block kinds "
+                             f"{sorted(kinds - set(KINDS))}")
+        for kind, sub in (("rwkv", self.rwkv), ("mamba", self.mamba)):
+            if kind in kinds and sub is None:
+                raise ValueError(f"{kind} blocks need cfg.{kind}")
+        if "shared_attn" in kinds and "shared_attn" not in self.pattern:
+            raise ValueError("the shared block is made for a pattern that "
+                             "holds shared_attn")
         if self.mlp_kind not in ("gated", "dense") or self.norm not in (
                 "rms", "layer"):
             raise ValueError(f"mlp_kind={self.mlp_kind!r}, "
                              f"norm={self.norm!r}")
-        for kind in kinds - set(MLA_KINDS):
+        for kind in kinds & {*ATTN_KINDS, "shared_attn"}:
             self.attn_cfg(kind)               # refuses a chunked impl
 
     @property
@@ -172,18 +192,66 @@ def _ffn_shapes(cfg: ModelConfig, kind: str) -> dict:
             "ffn/down_b": (d,)}
 
 
-def _block_norms(cfg: ModelConfig) -> dict:
-    out = {}
-    for n in ("ln1", "ln2") + (("post_ln1", "post_ln2") if cfg.post_norm
-                               else ()):
-        out.update(_norm_shapes(cfg, n))
-    return out
+def _norm_names(cfg: ModelConfig, kind: str) -> tuple[str, ...]:
+    """The norms of a block: an attention block's two (and gemma2's
+    sandwich pair), rwkv's two, one before a mamba mixer or a shared
+    site (zamba2's ``ln1``, drawn but never read)."""
+    if kind in ("mamba", "shared_attn"):
+        return ("ln1",)
+    if kind == "rwkv" or not cfg.post_norm:
+        return ("ln1", "ln2")
+    return ("ln1", "ln2", "post_ln1", "post_ln2")
+
+
+def _ssm_shapes(cfg: ModelConfig, kind: str) -> dict[str, tuple[int, ...]]:
+    """The leaves of an ``rwkv``, ``mamba`` or ``shared_attn`` block past
+    its norms, and their shapes."""
+    if kind == "rwkv":
+        return {**{f"tm/{k}": s for k, s in
+                   ssm.rwkv6_time_mix_shapes(cfg.rwkv).items()},
+                **{f"cm/{k}": s for k, s in
+                   ssm.rwkv6_channel_mix_shapes(cfg.rwkv).items()}}
+    if kind == "mamba":
+        return {f"mix/{k}": s for k, s in ssm.mamba2_shapes(cfg.mamba).items()}
+    d, r = cfg.d_model, cfg.shared_lora_rank
+    return {"lora_a": (2 * d, r), "lora_b": (r, d)}
+
+
+def _init_ssm(ini: Initializer, cfg: ModelConfig, kind: str,
+              layers: int | None) -> dict[str, torch.Tensor]:
+    """``_ssm_shapes``' leaves with the distributions of ``models.ssm``; a
+    shared site's LoRA N(0, 0.01)."""
+    if kind == "rwkv":
+        return {**{f"tm/{k}": v for k, v in ssm.init_rwkv6_time_mix(
+                    ini, cfg.rwkv, layers).items()},
+                **{f"cm/{k}": v for k, v in ssm.init_rwkv6_channel_mix(
+                    ini, cfg.rwkv, layers).items()}}
+    if kind == "mamba":
+        return {f"mix/{k}": v for k, v in ssm.init_mamba2(
+            ini, cfg.mamba, layers).items()}
+    return {name: ini.normal(shape if layers is None else (layers,) + shape,
+                             stddev=0.01)
+            for name, shape in _ssm_shapes(cfg, kind).items()}
 
 
 def _block_shapes(cfg: ModelConfig, kind: str) -> dict[str, tuple[int, ...]]:
     """One layer's leaves of a block of ``kind``, unstacked."""
-    return {**_attn_shapes(cfg, kind), **_ffn_shapes(cfg, kind),
-            **_block_norms(cfg)}
+    norms = {}
+    for n in _norm_names(cfg, kind):
+        norms.update(_norm_shapes(cfg, n))
+    if kind in SSM_KINDS:
+        return {**_ssm_shapes(cfg, kind), **norms}
+    return {**_attn_shapes(cfg, kind), **_ffn_shapes(cfg, kind), **norms}
+
+
+def _shared_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """zamba2's shared block: the input projection from [x, emb0] (2d ->
+    d), full attention, a gated MLP and the output projection."""
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"in_proj": (2 * d, d), **_norm_shapes(cfg, "ln1"),
+            **_attn_shapes(cfg, "attn_full"), **_norm_shapes(cfg, "ln2"),
+            "ffn/gate": (d, ff), "ffn/up": (d, ff), "ffn/down": (ff, d),
+            "out_proj": (d, d)}
 
 
 def param_shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], bool]]:
@@ -198,6 +266,9 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], bool]]:
     for prefix, kind in cfg.prelude_blocks():
         out.update({f"{prefix}/{k}": (s, False)
                     for k, s in _block_shapes(cfg, kind).items()})
+    if "shared_attn" in cfg.pattern:
+        out.update({f"shared/{k}": (s, False)
+                    for k, s in _shared_shapes(cfg).items()})
     return out
 
 
@@ -212,31 +283,53 @@ def _init_constant(ini: Initializer, cfg: ModelConfig, name: str, shape):
     return ini.zeros(shape)
 
 
+def _init_attn(ini: Initializer, cfg: ModelConfig, kind: str,
+               layers: int | None) -> dict[str, torch.Tensor]:
+    if kind in MLA_KINDS:
+        return {f"attn/{k}": v for k, v in attn.init_mla(
+            ini, cfg.mla_cfg(), layers).items()}
+    return {name: (ini.zeros(shape if layers is None else (layers,) + shape)
+                   if name.endswith(_ZEROS)
+                   else ini.fan_in(shape, 1 if name == "attn/wo" else 0,
+                                   layers=layers))
+            for name, shape in _attn_shapes(cfg, kind).items()}
+
+
 def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
                 layers: int | None) -> dict[str, torch.Tensor]:
-    """One block's leaves, drawn in the order of ``_block_shapes``;
-    ``layers`` stacks that many layers on a leading axis."""
+    """One block's leaves: the attention, FFN or recurrent leaves, then
+    the norms; ``layers`` stacks that many layers on a leading axis."""
     def full(shape):
         return shape if layers is None else (layers,) + tuple(shape)
 
     out = {}
-    if kind in MLA_KINDS:
-        out.update({f"attn/{k}": v for k, v in attn.init_mla(
-            ini, cfg.mla_cfg(), layers).items()})
+    if kind in SSM_KINDS:
+        out.update(_init_ssm(ini, cfg, kind, layers))
     else:
-        for name, shape in _attn_shapes(cfg, kind).items():
-            out[name] = (ini.zeros(full(shape)) if name.endswith(_ZEROS)
-                         else ini.fan_in(shape, 1 if name == "attn/wo"
-                                         else 0, layers=layers))
-    if _ffn_kind(cfg, kind) == "moe":
-        out.update({f"ffn/{k}": v for k, v in moe_lib.init_moe(
-            ini, cfg.moe, layers).items()})
-    else:
-        for name, shape in _ffn_shapes(cfg, kind).items():
-            out[name] = (ini.zeros(full(shape)) if name.endswith(_ZEROS)
-                         else ini.fan_in(shape, 0, layers=layers))
-    for name, shape in _block_norms(cfg).items():
-        out[name] = _init_constant(ini, cfg, name, full(shape))
+        out.update(_init_attn(ini, cfg, kind, layers))
+        if _ffn_kind(cfg, kind) == "moe":
+            out.update({f"ffn/{k}": v for k, v in moe_lib.init_moe(
+                ini, cfg.moe, layers).items()})
+        else:
+            for name, shape in _ffn_shapes(cfg, kind).items():
+                out[name] = (ini.zeros(full(shape)) if name.endswith(_ZEROS)
+                             else ini.fan_in(shape, 0, layers=layers))
+    for n in _norm_names(cfg, kind):
+        for name, shape in _norm_shapes(cfg, n).items():
+            out[name] = _init_constant(ini, cfg, name, full(shape))
+    return out
+
+
+def _init_shared(ini: Initializer, cfg: ModelConfig
+                 ) -> dict[str, torch.Tensor]:
+    """zamba2's shared block, unstacked: N(0, 1/fan-in) projections, the
+    attention as an ``attn_full`` block's, the norms' constants."""
+    out = _init_attn(ini, cfg, "attn_full", None)
+    for name, shape in _shared_shapes(cfg).items():
+        if name.startswith("attn/"):
+            continue
+        out[name] = (_init_constant(ini, cfg, name, shape)
+                     if name.startswith("ln") else ini.fan_in(shape, 0))
     return out
 
 
@@ -245,8 +338,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the JAX package's distributions: the
     embedding N(0, 1), projections N(0, 1/fan_in), the MoE router N(0,
     1/d_model), biases 0, RMSNorm scales 0 (it scales by 1 + scale),
-    LayerNorm scales 1. Drawn block by block (the periods' blocks, the
-    embedding, then the prelude)."""
+    LayerNorm scales 1, and the recurrent blocks' leaves as in
+    ``models.ssm``. Drawn block by block (the periods' blocks, the
+    embedding, the prelude, then the shared block)."""
     dev = resolve_device(device)
     ini = Initializer(generator, cfg.dtype, dev)
     params = {}
@@ -259,6 +353,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     for prefix, kind in cfg.prelude_blocks():
         params.update({f"{prefix}/{k}": v for k, v in _init_block(
             ini, cfg, kind, None).items()})
+    if "shared_attn" in cfg.pattern:
+        params.update({f"shared/{k}": v
+                       for k, v in _init_shared(ini, cfg).items()})
     return params
 
 
@@ -293,10 +390,39 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
                      p["ffn/down_b"], h, cfg.act), None
 
 
+def _shared_site(cfg: ModelConfig, p: dict, shared: dict, x: torch.Tensor,
+                 emb0: torch.Tensor) -> torch.Tensor:
+    """A ``shared_attn`` site: [x, emb0] through the shared block, its
+    input projection plus the site's LoRA (formed in the parameter
+    dtype), then the residual add of its output projection."""
+    cat = torch.cat([x, emb0.to(x.dtype)], dim=-1)
+    h = cat @ (shared["in_proj"] + p["lora_a"] @ p["lora_b"])
+    h = h + attn.attention_train(_sub(shared, "attn/"),
+                                 cfg.attn_cfg("attn_full"),
+                                 _norm(cfg, shared, "ln1", h))
+    h = h + gated_mlp(shared["ffn/gate"], shared["ffn/up"],
+                      shared["ffn/down"], _norm(cfg, shared, "ln2", h),
+                      cfg.act)
+    return x + h @ shared["out_proj"]
+
+
 def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-           balance_group=None):
+           balance_group=None, shared: dict | None = None,
+           emb0: torch.Tensor | None = None):
     """One block on x [B, S, d]; ``p`` maps the block's leaf names
-    (``"attn/wq"``) to this layer's slices. Returns ``(x, aux)``."""
+    (``"attn/wq"``) to this layer's slices, ``shared`` zamba2's shared
+    leaves and ``emb0`` the embedded tokens (for ``shared_attn``).
+    Returns ``(x, aux)``."""
+    if kind == "rwkv":
+        x = x + ssm.rwkv6_time_mix(_sub(p, "tm/"), cfg.rwkv,
+                                   _norm(cfg, p, "ln1", x))
+        return x + ssm.rwkv6_channel_mix(_sub(p, "cm/"),
+                                         _norm(cfg, p, "ln2", x)), None
+    if kind == "mamba":
+        return x + ssm.mamba2_mix(_sub(p, "mix/"), cfg.mamba,
+                                  _norm(cfg, p, "ln1", x)), None
+    if kind == "shared_attn":
+        return _shared_site(cfg, p, shared, x, emb0), None
     h = _norm(cfg, p, "ln1", x)
     if kind in MLA_KINDS:
         a = attn.mla_train(_sub(p, "attn/"), cfg.mla_cfg(), h)
@@ -316,10 +442,11 @@ def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
     batches the load-balance term spans (``moe.moe_ffn``); None for this
     worker's batch alone."""
     x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
+    site = dict(balance_group=balance_group, shared=_sub(params, "shared/"),
+                emb0=x)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for prefix, kind in cfg.prelude_blocks():
-        x, a = _block(cfg, kind, _sub(params, prefix + "/"), x,
-                      balance_group)
+        x, a = _block(cfg, kind, _sub(params, prefix + "/"), x, **site)
         if a is not None:
             aux = aux + a
     # one unbind per stacked leaf: its backward stacks the layer gradients
@@ -330,7 +457,7 @@ def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
     for i in range(cfg.num_periods):
         for kind, p in layers:
             x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
-                          balance_group)
+                          **site)
             if a is not None:
                 aux = aux + a
     x = _norm(cfg, params, "final_ln", x)

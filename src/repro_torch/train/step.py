@@ -80,12 +80,15 @@ def _var_scale(var_ratio: torch.Tensor, group) -> torch.Tensor:
 
 def _local_grads(model, params: list, loss_fn: Callable, batch):
     """This worker's loss on ``batch`` and the gradient of each of
-    ``params`` (the model's leaves), taken off the leaves."""
+    ``params`` (the model's leaves), taken off the leaves; a leaf the loss
+    never reads (zamba2's shared sites' ``ln1``) gets exact zeros of its
+    shape and dtype, as ``jax.grad`` gives it."""
     for p in params:
         p.grad = None
     loss = loss_fn(dict(model.params), batch)
     loss.backward()
-    grads = [p.grad for p in params]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
     for p in params:
         p.grad = None
     return loss, grads

@@ -12,10 +12,11 @@ smoke config in float32 and in bfloat16:
 - train three steps, or one, save, restore into fresh state and two more:
   parameters, moments, residual and control state bit-equal, on one
   worker and on two gloo ranks (each rank gets its own residual slice back
-  from the stacked file); so too the phi3.5-moe smoke config in the
-  compressed mode and deepseek-v2's in its fsdp mode, whose params-shaped
-  residual the file holds as the JAX fsdp launcher writes it (the keys,
-  order, shapes and dtypes of a JAX-written file of the same tree).
+  from the stacked file); so too the phi3.5-moe, rwkv6 and zamba2 smoke
+  configs in the compressed mode and deepseek-v2's in its fsdp mode, whose
+  params-shaped residual the file holds as the JAX fsdp launcher writes it
+  (the keys, order, shapes and dtypes of a JAX-written file of the same
+  tree; zamba2's shared leaves once, unstacked).
 """
 import dataclasses
 import json
@@ -268,34 +269,44 @@ def test_resumed_run_is_bit_equal(adaptive, resume_at, tmp_path,
 
 
 @pytest.mark.parametrize("arch,mode", [("phi3.5-moe-42b-a6.6b", "compressed"),
-                                       ("deepseek-v2-236b", "fsdp")])
+                                       ("deepseek-v2-236b", "fsdp"),
+                                       ("rwkv6-1.6b", "compressed"),
+                                       ("zamba2-2.7b", "compressed")])
 def test_arch_resume_is_bit_equal(arch, mode, tmp_path, one_worker_group):
-    """gspar with EF and Adam, phi3.5-moe on the gather wire's ``auto``,
-    deepseek-v2 in its fsdp mode (Q of the averaged gradient): three steps
-    against one, a save, a restore into fresh state and two more. The
-    fsdp file holds the residual params-shaped under ``ef/.residual/``,
-    with the keys, order, shapes and dtypes of the JAX fsdp launcher's
-    file of ``{"params", "opt": adam, "ef": init_feedback(params)}``."""
+    """gspar with EF and Adam, on the gather wire's ``auto`` (phi3.5-moe,
+    rwkv6, zamba2) or in deepseek-v2's fsdp mode (Q of the averaged
+    gradient): three steps against one, a save, a restore into fresh
+    state and two more. The file has the keys, order, shapes and dtypes of
+    the JAX launcher's file of ``{"params", "opt": adam, "ef"}`` where the
+    tree is new to the format: deepseek-v2's fsdp residual params-shaped
+    under ``ef/.residual/``, rwkv6's and zamba2's residual stacked over
+    one worker, zamba2's ``shared/*`` leaves once, unstacked."""
     cfg = tregistry.get(arch).smoke
     comp = CompressionConfig(name="gspar", rho=0.05, wire="gather",
                              error_feedback=True, min_leaf_size=1024)
     path = str(tmp_path / "ck.npz")
     _same_state(_run(comp, cfg, mode=mode),
                 _run(comp, cfg, resume_at=1, path=path, mode=mode))
-    if mode != "fsdp":
+    if arch == "phi3.5-moe-42b-a6.6b":
         return
     jcfg = jregistry.get(arch).smoke
     params = jax.jit(lambda k: split_params(jtf.init_model(k, jcfg))[0])(
         jax.random.key(0))
     jpath = str(tmp_path / "jax")
     tree = {"params": params, "opt": jopt.adam(1e-3).init(params),
-            "ef": jopt.init_feedback(params)}
+            "ef": jopt.init_feedback(
+                params, num_workers=None if mode == "fsdp" else 1)}
     jckpt.save(jpath, tree)
     with np.load(jpath + ".npz") as want, np.load(path) as got:
         assert list(got.keys()) == list(want.keys())
         for key in want.keys():
             assert (got[key].dtype, got[key].shape) == (
                 want[key].dtype, want[key].shape), key
+        if arch == "zamba2-2.7b":
+            assert got["params/shared/in_proj"].shape == (256, 128)
+            assert got["ef/.residual/shared/in_proj"].shape == (1, 256, 128)
+        if mode != "fsdp":
+            return
         assert any(k.startswith("ef/.residual/prelude/") for k in want.keys())
         residual = {k: got[k] for k in got.keys() if k.startswith("ef/")}
     # the JAX restore reads the port's fsdp file into that tree

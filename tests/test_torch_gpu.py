@@ -1356,7 +1356,8 @@ def test_tree_stats_and_var_step_size_card_match_cpu(card, wire):
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma2-27b",
                                   "starcoder2-7b", "phi3.5-moe-42b-a6.6b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "rwkv6-1.6b",
+                                  "zamba2-2.7b"])
 def test_arch_one_step_loss_card_matches_cpu(card, arch):
     """One compressed step (gspar, the gather wire's ``auto``, EF, Adam) of
     the smoke config in bfloat16 on the card against float32 on the CPU,
@@ -1447,5 +1448,47 @@ def test_moe_ffn_card_matches_cpu(card, arch):
     cpu, gpu = out["cpu"], out["cuda"]
     assert torch.equal(cpu[0], gpu[0]) and torch.equal(cpu[1], gpu[1])
     for a, b in zip(gpu[2:], cpu[2:]):
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("mixer", ["rwkv6_time_mix", "mamba2_mix"])
+def test_ssm_mixers_card_match_cpu(card, mixer):
+    """The smoke config's RWKV-6 time mix and Mamba-2 mixer (float32, TF32
+    off, 4 chunks) on the card against the CPU from the same parameters
+    and input: the output and the gradients of ``sum(out * c)`` for every
+    parameter and x within rtol 1e-4 / atol 1e-5 x the tensor's largest
+    magnitude (cuBLAS and the card's cumulative sums add in other
+    orders), and two backward passes on the card bit-equal."""
+    from repro_torch.configs import registry
+    from repro_torch.models import ssm
+    from repro_torch.models.common import Initializer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch, init = (("rwkv6-1.6b", ssm.init_rwkv6_time_mix)
+                  if mixer == "rwkv6_time_mix"
+                  else ("zamba2-2.7b", ssm.init_mamba2))
+    smoke = registry.get(arch).smoke
+    cfg = smoke.rwkv if mixer == "rwkv6_time_mix" else smoke.mamba
+    gen = torch.Generator().manual_seed(0)
+    params = init(Initializer(gen, torch.float32, torch.device("cpu")), cfg)
+    for k, v in params.items():         # off the init's constants
+        params[k] = v + 0.3 * torch.randn(v.shape, generator=gen)
+    x = torch.randn((4, 4 * cfg.chunk, cfg.d_model), generator=gen)
+    c = torch.randn(x.shape, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        p = {k: v.to(dev, copy=True).requires_grad_(True)
+             for k, v in params.items()}
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        y = getattr(ssm, mixer)(p, cfg, xd)
+        torch.sum(y * c.to(dev)).backward()
+        run = [t.detach().cpu() for t in
+               (y, xd.grad, *[p[k].grad for k in sorted(p)])]
+        if dev in out:
+            for a, b in zip(out[dev], run):
+                assert torch.equal(a, b)
+        out[dev] = run
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(a).all()
         torch.testing.assert_close(
             a, b, rtol=1e-4, atol=1e-5 * max(1.0, float(b.abs().max())))
