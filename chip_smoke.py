@@ -145,7 +145,13 @@ mode with SGD), then rwkv6-1.6b and zamba2-2.7b uncut (24 and 9 periods,
 exchange holds a dense passthrough (``a_log``, ``dt_bias``, ``d_skip``:
 12,960 float32 elements, 4 bytes each, synced equal to the gradient), and
 its shared sites' unread ``ln1`` is held to send and get back a
-gradient of exact zeros.
+gradient of exact zeros; then paligemma-3b (18 periods: gemma-2b's
+backbone, 256 stub patch embeddings before the 128 tokens, causal over the
+384 positions) and seamless-m4t-large-v2 (24 encoder and 24 decoder
+periods, the encoder over ``frames_for(128)`` = 64 stub frames, a
+cross-attention sublayer after each decoder block) uncut, both checked,
+each step's batch carrying its stub inputs (``launch.specs.train_batch``),
+as the smoke checkpoints' batches do.
 
 Each run checks finite losses, no overflow (where the exchange is checked
 on the architectures: the overflow equal to the survivors its buffers
@@ -2941,7 +2947,8 @@ def experiments_phase(tally: Tally) -> dict:
 # --- the other architectures and checkpoints (arch_phase) --------------------
 
 # arch -> the periods it is cut to on one 80 GB card (widths as published;
-# rwkv6 and zamba2 at their full depth), whether its exchange is held to its
+# rwkv6, zamba2, paligemma and seamless at their full depth; seamless's
+# 24 encoder periods are never cut), whether its exchange is held to its
 # exact bytes and gradient, and its launcher flags beyond ARCH_ARGS: the
 # compressed mode on the gather wire, or for deepseek-v2 its own fsdp mode
 # (the wire does not act there) with SGD, as Adam's float32 moments of its
@@ -2952,7 +2959,9 @@ ARCH_RUNS = {"gemma2-9b": (4, True, ["--wire", "gather"]),
              "phi3.5-moe-42b-a6.6b": (2, True, ["--wire", "gather"]),
              "deepseek-v2-236b": (1, False, ["--optimizer", "sgd"]),
              "rwkv6-1.6b": (24, True, ["--wire", "gather"]),
-             "zamba2-2.7b": (9, True, ["--wire", "gather"])}
+             "zamba2-2.7b": (9, True, ["--wire", "gather"]),
+             "paligemma-3b": (18, True, ["--wire", "gather"]),
+             "seamless-m4t-large-v2": (24, True, ["--wire", "gather"])}
 # leaves the forward never reads: their gradient, sent and synced, is
 # exact zeros (zamba2's shared sites norm with ``shared/ln1``)
 UNREAD_LEAVES = {"zamba2-2.7b": ("blocks/b0_shared_attn/ln1/scale",)}
@@ -3007,9 +3016,11 @@ def arch_run(arch: str) -> dict:
     """The launcher on ``arch`` at full width cut to its periods, gspar
     with EF, three steps, the kernel counts set to 0 just before it and
     read just after: in the compressed mode on the gather wire's ``auto``
-    (gemma2-9b's, phi3.5-moe's, rwkv6's and zamba2's exchange held to its
-    exact bytes and gradient by ``exchange_check`` on the card, zamba2's
-    dense passthrough included), in deepseek-v2's fsdp
+    (gemma2-9b's, phi3.5-moe's, rwkv6's, zamba2's, paligemma's and
+    seamless's exchange held to its exact bytes and gradient by
+    ``exchange_check`` on the card, zamba2's dense passthrough included;
+    paligemma's and seamless's batches carry their stub inputs), in
+    deepseek-v2's fsdp
     mode Q once on the averaged gradient (``stats`` and ``sparsify_ef``
     once a group a step)."""
     from repro_torch.comm import sync
@@ -3266,12 +3277,13 @@ def window_check() -> dict:
 
 
 def _ckpt_train(model, state, fb, step, steps, cfg):
-    """Steps ``steps`` of ``step``, step t's batch and uniforms from
-    generators on the card seeded with t."""
-    from repro_torch.data.synthetic import token_batch
+    """Steps ``steps`` of ``step``, step t's batch (with the stub inputs of
+    paligemma and seamless) and uniforms from generators on the card
+    seeded with t."""
+    from repro_torch.launch.specs import train_batch
     for t in steps:
-        batch = token_batch(torch.Generator(device="cuda").manual_seed(
-            100 + t), cfg.vocab, 8, 128)
+        batch = train_batch(torch.Generator(device="cuda").manual_seed(
+            100 + t), cfg, 8, 128)
         state, fb, _ = step(state, fb, batch, torch.Generator(
             device="cuda").manual_seed(200 + t))
     return state, fb

@@ -1,10 +1,11 @@
-"""Architecture registry (port of ``repro.configs.registry``): the dense
-attention architectures gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b,
-the MoE phi3.5-moe-42b-a6.6b, the MLA + MoE deepseek-v2-236b, the SSM
-rwkv6-1.6b and the hybrid zamba2-2.7b. The encoder-decoder
-seamless-m4t-large-v2 and the vision-prefix paligemma-3b are ROADMAP.md
-queue A item 10. The port has no sharding rules (``dist/sharding.py``,
-item 10), so a spec carries none."""
+"""Architecture registry (port of ``repro.configs.registry``): every
+architecture of the JAX registry. The dense attention architectures
+gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b, the MoE
+phi3.5-moe-42b-a6.6b, the MLA + MoE deepseek-v2-236b, the SSM rwkv6-1.6b,
+the hybrid zamba2-2.7b, the vision-prefix paligemma-3b and the
+encoder-decoder seamless-m4t-large-v2. The port has no sharding rules
+(``dist/sharding.py``, ROADMAP.md queue A item 10d), so a spec carries
+none."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,9 @@ ID_TO_MODULE = {"gemma-2b": "gemma_2b", "gemma2-9b": "gemma2_9b",
                 "gemma2-27b": "gemma2_27b", "starcoder2-7b": "starcoder2_7b",
                 "phi3.5-moe-42b-a6.6b": "phi35_moe",
                 "deepseek-v2-236b": "deepseek_v2",
-                "rwkv6-1.6b": "rwkv6_1b6", "zamba2-2.7b": "zamba2_2b7"}
+                "rwkv6-1.6b": "rwkv6_1b6", "zamba2-2.7b": "zamba2_2b7",
+                "paligemma-3b": "paligemma_3b",
+                "seamless-m4t-large-v2": "seamless_m4t_large_v2"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +33,6 @@ class ArchSpec:
 
 def get(arch: str) -> ArchSpec:
     if arch not in ID_TO_MODULE:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP.md queue A item 10); "
-            f"have {tuple(ID_TO_MODULE)}")
+        raise KeyError(f"unknown arch {arch!r}; have {tuple(ID_TO_MODULE)}")
     return importlib.import_module(
         f"repro_torch.configs.{ID_TO_MODULE[arch]}").spec()

@@ -2,10 +2,12 @@
 the paper's section-5 generators.
 
 ``token_batch`` and ``token_stream`` draw from a ``torch.Generator`` on its
-device (the JAX ones take a key). ``logreg_data``, ``svm_data`` and
-``image_data`` draw with numpy from ``seed`` exactly as the JAX functions
-do, so they return the same arrays bit for bit, as tensors on ``device``
-(the card unless the caller asks for the CPU); ``image_data`` stays NHWC.
+device (the JAX ones take a key), and so does ``stub_embeddings``, the
+stub frontend inputs of the vision and audio models. ``logreg_data``,
+``svm_data`` and ``image_data`` draw with numpy from ``seed`` exactly as
+the JAX functions do, so they return the same arrays bit for bit, as
+tensors on ``device`` (the card unless the caller asks for the CPU);
+``image_data`` stays NHWC.
 """
 from __future__ import annotations
 
@@ -34,6 +36,15 @@ def token_stream(generator: torch.Generator, vocab: int, batch: int,
     """An endless stream of ``token_batch`` from one generator."""
     while True:
         yield token_batch(generator, vocab, batch, seq)
+
+
+def stub_embeddings(generator: torch.Generator, shape,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Standard-normal stand-ins for a frontend's output (patch or frame
+    embeddings) on the generator's device, drawn in float32 and rounded
+    to ``dtype``."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(dtype)
 
 
 def _tensors(device, *arrays):

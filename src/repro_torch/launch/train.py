@@ -48,12 +48,20 @@ the optimizer's state, with ``--error-feedback`` the residual (stacked over
 the workers in compressed mode, params-shaped in fsdp mode) and with
 ``--adaptive`` the control state, and ``arch``, ``mode``, ``steps``,
 ``error_feedback`` and ``adaptive`` in ``PATH.meta.json``. ``--arch``
-takes gemma-2b, gemma2-9b, gemma2-27b, starcoder2-7b, phi3.5-moe-42b-a6.6b,
-deepseek-v2-236b, rwkv6-1.6b and zamba2-2.7b. ``--num-periods`` cuts the
-depth (without it a run is full depth); widths are never narrowed. On the gather wire ``--wire-layout`` defaults to ``auto``, as in
-the JAX launcher: each shape group takes the layout with the fewest wire
-bytes (RICE on every gemma-2b group at rho 0.05), printed once per group
-after the first step.
+takes every architecture of the JAX registry: gemma-2b, gemma2-9b,
+gemma2-27b, starcoder2-7b, phi3.5-moe-42b-a6.6b, deepseek-v2-236b,
+rwkv6-1.6b, zamba2-2.7b, paligemma-3b and seamless-m4t-large-v2.
+``--num-periods`` cuts the depth (without it a run is full depth); widths
+are never narrowed. Each step's batch is ``launch.specs.train_batch``:
+the tokens, and for paligemma its 256 stub patch embeddings (``prefix``),
+for seamless its stub frame embeddings (``enc_embeds``, ``frames_for
+(--seq)`` of them: 64 at 128 tokens), both bfloat16 and drawn from the
+data generator after the step's tokens, their shapes printed once. The
+JAX launcher feeds tokens alone, so it cannot train seamless and trains
+paligemma text-only (ROADMAP.md queue C). On the gather wire
+``--wire-layout`` defaults to ``auto``, as in the JAX launcher: each shape
+group takes the layout with the fewest wire bytes (RICE on every gemma-2b
+group at rho 0.05), printed once per group after the first step.
 """
 from __future__ import annotations
 
@@ -70,8 +78,8 @@ import torch.distributed as dist
 from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import registry
 from repro_torch.core.api import CompressionConfig
-from repro_torch.data.synthetic import token_batch
 from repro_torch.devices import resolve_device
+from repro_torch.launch import specs
 from repro_torch.models.transformer import Transformer, init_model
 from repro_torch.optim.optimizers import adam, init_feedback, sgd
 from repro_torch.train import step as step_lib
@@ -192,7 +200,8 @@ def main(argv=None) -> dict:
             f"--xla-preset {args.xla_preset}: the XLA flag presets are not "
             "ported (ROADMAP.md queue A item 13); the port takes none")
     spec = registry.get(args.arch)
-    cfg = spec.smoke if args.smoke else spec.model
+    cfg = spec.smoke if args.smoke else specs.model_for_seq(spec.model,
+                                                             args.seq)
     if args.num_periods is not None:
         cfg = dataclasses.replace(cfg, num_periods=args.num_periods)
     mode = args.mode or spec.train_mode
@@ -279,6 +288,10 @@ def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
               + (f" mesh=(pod={mesh[0]}, data={mesh[1]}, model=1)"
                  if mesh else "") + f" mode={mode}")
         print(f"compression: {comp.describe()}")
+        for name, (shape, dtype) in specs.stub_inputs(cfg,
+                                                      args.batch).items():
+            print(f"input {name}: {list(shape)} "
+                  f"{str(dtype).removeprefix('torch.')}")
     init_gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Transformer(cfg, init_model(cfg, init_gen, device))
     n_params = sum(p.numel() for p in model.leaves())
@@ -313,7 +326,7 @@ def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
     history, step_seconds = [], []
     for step_i in range(args.steps):
         t0 = time.perf_counter()
-        batch = token_batch(data_gen, cfg.vocab, args.batch, args.seq)
+        batch = specs.train_batch(data_gen, cfg, args.batch, args.seq)
         if ctl_state is not None:
             opt_state, ef_state, ctl_state, metrics = train_step(
                 opt_state, ef_state, ctl_state, batch, comp_gen)

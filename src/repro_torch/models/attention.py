@@ -1,7 +1,10 @@
-"""Causal GQA/MQA attention with RoPE, sliding windows, logit softcaps and
-biases, the naive train path (port of ``repro.models.attention``:
-``AttnConfig``, ``causal_mask``, ``_qkv``, ``_sdpa``, ``_proj_out`` and
-``attention_train``). Scores and the softmax run in float32, the softcap
+"""GQA/MQA attention with RoPE, sliding windows, logit softcaps and biases,
+causal or not, and cross-attention, the naive train path (port of
+``repro.models.attention``: ``AttnConfig``, ``causal_mask``, ``_qkv``,
+``_sdpa``, ``_proj_out`` and ``attention_train``). Cross-attention takes
+its keys and values from ``kv_x`` (an encoder's output) and carries no
+RoPE; seamless's encoder and its decoder's cross-attention run
+non-causal. Scores and the softmax run in float32, the softcap
 on the float32 scores before the mask; the probabilities are cast to the
 value dtype before the second product, as in JAX. Weights keep the JAX
 layout: ``wq [d, h, hd]``, ``wk``/``wv [d, kv, hd]``, ``wo [h, hd, d]``,
@@ -21,8 +24,8 @@ rounded to that dtype, as for the query scale above.
 
 Chunked (flash-style) attention (``impl="chunked"``, the dry-run's
 ``--attn-impl``) is ROADMAP.md queue A item 13; the prefill/decode caches
-(MLA's ``mla_prefill`` and ``mla_decode`` among them) and cross-attention
-are item 10.
+(MLA's ``mla_prefill`` and ``mla_decode`` and the cross cache among them)
+are item 10c.
 """
 from __future__ import annotations
 
@@ -74,24 +77,29 @@ def causal_mask(sq: int, sk: int, device,
     return m[None]
 
 
-def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor):
+def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor,
+         kv_x: torch.Tensor | None = None):
+    kv_x = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
     if cfg.use_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q * torch.tensor(cfg.scale, dtype=q.dtype, device=q.device), k, v
 
 
 def _sdpa(cfg: AttnConfig, q, k, v, mask):
-    """q [B,Sq,H,D], k/v [B,Sk,Hkv,D], mask [1,Sq,Sk] bool."""
+    """q [B,Sq,H,D], k/v [B,Sk,Hkv,D], mask [1,Sq,Sk] bool, or None for
+    every key visible (JAX's all-ones mask: its ``where`` is the
+    identity, so it is skipped)."""
     b, sq, h, d = q.shape
     kvh = k.shape[2]
     groups = h // kvh
     q = q.reshape(b, sq, kvh, groups, d)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).to(torch.float32)
     scores = softcap(scores, cfg.logit_softcap)
-    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, sq, h, d)
@@ -104,18 +112,23 @@ def _proj_out(p: dict, cfg: AttnConfig, out):
     return y
 
 
-def attention_train(p: dict, cfg: AttnConfig,
-                    x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal self-attention on x [B, S, d]; ``p`` holds
-    ``wq``, ``wk``, ``wv``, ``wo`` (and with ``use_bias`` the biases)."""
+def attention_train(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
+                    kv_x: torch.Tensor | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention on x [B, S, d] (train, encoder): self-
+    attention with RoPE at positions ``0 .. S-1``, or with ``kv_x`` [B, T,
+    d] cross-attention to it, without RoPE; causal (and windowed) or, with
+    ``causal=False``, every key visible. ``p`` holds ``wq``, ``wk``,
+    ``wv``, ``wo`` (and with ``use_bias`` the biases)."""
     s = x.shape[1]
-    q, k, v = _qkv(p, cfg, x)
-    if cfg.use_rope:
+    q, k, v = _qkv(p, cfg, x, kv_x)
+    if cfg.use_rope and kv_x is None:    # cross-attention carries no rope
         sin, cos = rope_table(torch.arange(s, device=x.device),
                               cfg.head_dim, cfg.rope_theta)
         q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
-    out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device, cfg.window))
-    return _proj_out(p, cfg, out)
+    mask = (causal_mask(s, k.shape[1], x.device, cfg.window) if causal
+            else None)
+    return _proj_out(p, cfg, _sdpa(cfg, q, k, v, mask))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Decoder-only model (port of ``repro.models.transformer`` for periods of
+"""The model (port of ``repro.models.transformer`` for periods of
 ``attn_full``, ``attn_sw``, ``mla``, ``mla_dense``, ``rwkv``, ``mamba`` and
-``shared_attn`` blocks, an unscanned ``prelude`` and MoE FFNs:
-``ModelConfig``, ``init_model`` and ``forward_train``).
+``shared_attn`` blocks, an unscanned ``prelude``, MoE FFNs, a prefix of
+stub embeddings and an encoder with cross-attention: ``ModelConfig``,
+``init_model``, ``encode`` and ``forward_train``).
 
 Parameters keep the JAX layout and names: block ``j`` of kind ``kind`` in
 the period keeps its leaves under ``blocks/b{j}_{kind}/...``, each stacked
@@ -28,8 +29,19 @@ JAX, but never read, so its gradient is exact zeros. Norms are RMSNorm
 the MoE auxiliary loss beside the logits, summed over the blocks in the
 JAX order (prelude, then the periods).
 
-The encoder-decoder and prefix models (``encoder_periods``,
-``prefix_len``) and untied embeddings are ROADMAP.md queue A item 10.
+A vision model (paligemma, ``modality="vision"``) takes ``prefix`` [B, P,
+d], stub patch embeddings cast to the model dtype and put before the
+token embeddings (which alone take ``embed_scale``); the whole ``P + S``
+sequence runs causal with RoPE positions ``0 .. P+S-1``, as the JAX
+package runs it, and the prefix is sliced off after ``final_ln``, before
+the unembedding. An encoder-decoder (seamless, ``encoder_periods > 0``)
+takes ``enc_embeds`` [B, F, d], stub frame embeddings cast to the model
+dtype, through ``encode``: ``encoder_periods`` non-causal ``attn_full``
+blocks (the FFN ``mlp_kind``'s, never MoE; leaves under
+``encoder/blk/...``, stacked) and ``enc_final_ln``; each decoder block is
+then followed by a cross-attention sublayer, a norm and non-causal
+attention to the encoder's output without RoPE, added to the residual
+(leaves under ``cross/x{j}/{ln, attn}/...``, stacked over the periods).
 ``remat`` and ``unroll``, the JAX scan's execution options, have no
 counterpart: the port keeps the activations.
 """
@@ -53,6 +65,7 @@ KINDS = ("attn_full", "attn_sw", "mla", "mla_dense", "rwkv", "mamba",
 ATTN_KINDS = ("attn_full", "attn_sw")
 MLA_KINDS = ("mla", "mla_dense")
 SSM_KINDS = ("rwkv", "mamba", "shared_attn")  # the SSM and hybrid blocks
+MODALITIES = ("text", "vision", "audio")
 F32 = torch.float32
 
 
@@ -91,19 +104,22 @@ class ModelConfig:
     rwkv: ssm.RWKV6Config | None = None
     mamba: ssm.Mamba2Config | None = None
     shared_lora_rank: int = 64          # zamba2 per-site adapters
-    encoder_periods: int = 0
-    prefix_len: int = 0
+    encoder_periods: int = 0            # seamless: non-causal encoder
+    prefix_len: int = 0                 # image patches / audio frames
+    modality: str = "text"              # text | vision | audio
     attn_impl: str = "naive"            # naive | chunked (queue A item 13)
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
         kinds = set(self.pattern) | set(self.prelude)
-        if self.encoder_periods or self.prefix_len or not (
-                self.tie_embeddings):
+        if not self.tie_embeddings:
             raise NotImplementedError(
-                "encoder_periods, prefix_len or untied embeddings: the "
-                "encoder-decoder and prefix models are not ported yet "
-                "(ROADMAP.md queue A item 10)")
+                "tie_embeddings=False: the JAX package declares the field "
+                "but never reads it (its unembedding is always the tied "
+                "table), so there is no untied model to port")
+        if self.modality not in MODALITIES:
+            raise ValueError(f"modality={self.modality!r}: want one of "
+                             f"{MODALITIES}")
         if kinds - set(KINDS):
             raise ValueError(f"unknown block kinds "
                              f"{sorted(kinds - set(KINDS))}")
@@ -150,6 +166,15 @@ class ModelConfig:
         """``(prefix, kind)`` of each prelude block, in order."""
         return [(f"prelude/p{j}_{kind}", kind)
                 for j, kind in enumerate(self.prelude)]
+
+    def encoder_cfg(self) -> "ModelConfig":
+        """The config of the encoder's blocks: this one without MoE."""
+        return dataclasses.replace(self, moe=None)
+
+    def cross_blocks(self) -> list[str]:
+        """The prefix of each block's cross-attention sublayer, in period
+        order (an encoder-decoder's)."""
+        return [f"cross/x{j}" for j in range(len(self.pattern))]
 
 
 def _ffn_kind(cfg: ModelConfig, kind: str) -> str:
@@ -244,6 +269,12 @@ def _block_shapes(cfg: ModelConfig, kind: str) -> dict[str, tuple[int, ...]]:
     return {**_attn_shapes(cfg, kind), **_ffn_shapes(cfg, kind), **norms}
 
 
+def _cross_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """One cross-attention sublayer: its norm and an ``attn_full``
+    block's attention."""
+    return {**_norm_shapes(cfg, "ln"), **_attn_shapes(cfg, "attn_full")}
+
+
 def _shared_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
     """zamba2's shared block: the input projection from [x, emb0] (2d ->
     d), full attention, a gated MLP and the output projection."""
@@ -269,6 +300,15 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], bool]]:
     if "shared_attn" in cfg.pattern:
         out.update({f"shared/{k}": (s, False)
                     for k, s in _shared_shapes(cfg).items()})
+    if cfg.encoder_periods:
+        out.update({f"encoder/blk/{k}": ((cfg.encoder_periods,) + s, True)
+                    for k, s in _block_shapes(cfg.encoder_cfg(),
+                                              "attn_full").items()})
+        out.update({k: (s, False)
+                    for k, s in _norm_shapes(cfg, "enc_final_ln").items()})
+        for prefix in cfg.cross_blocks():
+            out.update({f"{prefix}/{k}": ((cfg.num_periods,) + s, True)
+                        for k, s in _cross_shapes(cfg).items()})
     return out
 
 
@@ -333,6 +373,16 @@ def _init_shared(ini: Initializer, cfg: ModelConfig
     return out
 
 
+def _init_cross(ini: Initializer, cfg: ModelConfig
+                ) -> dict[str, torch.Tensor]:
+    """One cross-attention sublayer stacked over the periods: the norm's
+    constants and an ``attn_full`` block's attention."""
+    out = {name: _init_constant(ini, cfg, name, (cfg.num_periods,) + shape)
+           for name, shape in _norm_shapes(cfg, "ln").items()}
+    out.update(_init_attn(ini, cfg, "attn_full", cfg.num_periods))
+    return out
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device=None) -> dict[str, torch.Tensor]:
     """Random parameters with the JAX package's distributions: the
@@ -340,7 +390,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     1/d_model), biases 0, RMSNorm scales 0 (it scales by 1 + scale),
     LayerNorm scales 1, and the recurrent blocks' leaves as in
     ``models.ssm``. Drawn block by block (the periods' blocks, the
-    embedding, the prelude, then the shared block)."""
+    embedding, the prelude, the shared block, then the encoder and the
+    cross-attention sublayers)."""
     dev = resolve_device(device)
     ini = Initializer(generator, cfg.dtype, dev)
     params = {}
@@ -356,6 +407,15 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     if "shared_attn" in cfg.pattern:
         params.update({f"shared/{k}": v
                        for k, v in _init_shared(ini, cfg).items()})
+    if cfg.encoder_periods:
+        params.update({f"encoder/blk/{k}": v for k, v in _init_block(
+            ini, cfg.encoder_cfg(), "attn_full",
+            cfg.encoder_periods).items()})
+        for name, shape in _norm_shapes(cfg, "enc_final_ln").items():
+            params[name] = _init_constant(ini, cfg, name, shape)
+        for prefix in cfg.cross_blocks():
+            params.update({f"{prefix}/{k}": v
+                           for k, v in _init_cross(ini, cfg).items()})
     return params
 
 
@@ -408,11 +468,12 @@ def _shared_site(cfg: ModelConfig, p: dict, shared: dict, x: torch.Tensor,
 
 def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
            balance_group=None, shared: dict | None = None,
-           emb0: torch.Tensor | None = None):
+           emb0: torch.Tensor | None = None, causal: bool = True):
     """One block on x [B, S, d]; ``p`` maps the block's leaf names
     (``"attn/wq"``) to this layer's slices, ``shared`` zamba2's shared
-    leaves and ``emb0`` the embedded tokens (for ``shared_attn``).
-    Returns ``(x, aux)``."""
+    leaves and ``emb0`` the embedded tokens (for ``shared_attn``);
+    ``causal=False`` for an encoder's ``attn_full`` block. Returns ``(x,
+    aux)``."""
     if kind == "rwkv":
         x = x + ssm.rwkv6_time_mix(_sub(p, "tm/"), cfg.rwkv,
                                    _norm(cfg, p, "ln1", x))
@@ -427,40 +488,93 @@ def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     if kind in MLA_KINDS:
         a = attn.mla_train(_sub(p, "attn/"), cfg.mla_cfg(), h)
     else:
-        a = attn.attention_train(_sub(p, "attn/"), cfg.attn_cfg(kind), h)
+        a = attn.attention_train(_sub(p, "attn/"), cfg.attn_cfg(kind), h,
+                                 causal=causal)
     x = _residual(cfg, p, x, a, "post_ln1")
     f, aux = _ffn(cfg, kind, p, _norm(cfg, p, "ln2", x), balance_group)
     return _residual(cfg, p, x, f, "post_ln2"), aux
 
 
+def _layers(params: dict, prefix: str) -> dict:
+    """The stacked leaves under ``prefix``, each as its layers' slices.
+    One unbind per stacked leaf: its backward stacks the layer gradients
+    once, where indexing layer by layer would add a zero-filled copy of
+    the whole leaf per layer into its gradient."""
+    return {k: v.unbind(0) for k, v in _sub(params, prefix).items()}
+
+
+def encode(params: dict[str, torch.Tensor], cfg: ModelConfig,
+           enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over stub frame embeddings [B, F, d] (cast to the
+    model dtype): ``encoder_periods`` non-causal ``attn_full`` blocks,
+    then ``enc_final_ln``."""
+    enc_cfg = cfg.encoder_cfg()
+    x = enc_embeds.to(cfg.dtype)
+    layers = _layers(params, "encoder/blk/")
+    for i in range(cfg.encoder_periods):
+        x, _ = _block(enc_cfg, "attn_full", {k: v[i] for k, v in
+                                             layers.items()}, x,
+                      causal=False)
+    return _norm(cfg, params, "enc_final_ln", x)
+
+
+def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor,
+           enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder block's cross-attention sublayer (JAX's ``_cross_apply``
+    in train mode): x plus non-causal attention from ``ln(x)`` to the
+    encoder's output, without RoPE."""
+    return x + attn.attention_train(_sub(p, "attn/"),
+                                    cfg.attn_cfg("attn_full"),
+                                    _norm(cfg, p, "ln", x), kv_x=enc_out,
+                                    causal=False)
+
+
 def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
-                  tokens: torch.Tensor, balance_group=None
+                  tokens: torch.Tensor, balance_group=None, *,
+                  prefix: torch.Tensor | None = None,
+                  enc_embeds: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, vocab] in the parameter dtype, the
     MoE auxiliary loss: a 0-d float32, summed over the blocks in order,
     0.0 without MoE). ``balance_group``: the process group whose workers'
     batches the load-balance term spans (``moe.moe_ffn``); None for this
-    worker's batch alone."""
+    worker's batch alone. ``prefix`` [B, P, d]: a vision model's patch
+    embeddings (read where ``cfg.prefix_len`` is set, as in JAX);
+    ``enc_embeds`` [B, F, d]: an encoder-decoder's frame embeddings."""
     x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
+    n_prefix = (prefix.shape[1] if cfg.prefix_len and prefix is not None
+                else 0)
+    if n_prefix:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    enc_out = None
+    if cfg.encoder_periods:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                             "enc_embeds [B, F, d_model]")
+        enc_out = encode(params, cfg, enc_embeds)
     site = dict(balance_group=balance_group, shared=_sub(params, "shared/"),
                 emb0=x)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    for prefix, kind in cfg.prelude_blocks():
-        x, a = _block(cfg, kind, _sub(params, prefix + "/"), x, **site)
+    for path, kind in cfg.prelude_blocks():
+        x, a = _block(cfg, kind, _sub(params, path + "/"), x, **site)
         if a is not None:
             aux = aux + a
-    # one unbind per stacked leaf: its backward stacks the layer gradients
-    # once, where indexing layer by layer would add a zero-filled copy of
-    # the whole leaf per layer into its gradient
-    layers = [(kind, {k: v.unbind(0) for k, v in _sub(
-        params, prefix + "/").items()}) for prefix, kind in cfg.blocks()]
+    layers = [(kind, _layers(params, path + "/"))
+              for path, kind in cfg.blocks()]
+    cross = [_layers(params, path + "/") for path in cfg.cross_blocks()
+             ] if enc_out is not None else []
     for i in range(cfg.num_periods):
-        for kind, p in layers:
+        for j, (kind, p) in enumerate(layers):
             x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
                           **site)
             if a is not None:
                 aux = aux + a
+            if cross:
+                x = _cross(cfg, {k: v[i] for k, v in cross[j].items()}, x,
+                           enc_out)
     x = _norm(cfg, params, "final_ln", x)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return softcap(unembed(params["embed/table"], x), cfg.final_softcap), aux
 
 
@@ -483,7 +597,10 @@ class Transformer(nn.Module):
     def leaves(self) -> list[nn.Parameter]:
         return [self.params[n] for n in self.leaf_names]
 
-    def forward(self, tokens: torch.Tensor
+    def forward(self, tokens: torch.Tensor,
+                prefix: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits, aux): ``forward_train``."""
-        return forward_train(dict(self.params), self.cfg, tokens)
+        return forward_train(dict(self.params), self.cfg, tokens,
+                             prefix=prefix, enc_embeds=enc_embeds)

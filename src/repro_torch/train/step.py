@@ -42,13 +42,17 @@ from repro_torch.train.loss import lm_loss, shift_targets
 def make_loss_fn(cfg: ModelConfig, balance_group=None) -> Callable:
     """``(params dict, batch) -> scalar loss``: the token-mean cross
     entropy plus the MoE auxiliary loss (``forward_train``'s; 0.0 without
-    MoE), as the JAX step forms it. An optional ``batch["loss_mask"]``
+    MoE), as the JAX step forms it. The batch carries ``tokens`` and,
+    where the model reads them, ``prefix`` or ``enc_embeds``
+    (``launch.specs.train_batch``). An optional ``batch["loss_mask"]``
     ([B, S], 0 or 1) multiplies the next-token mask. ``balance_group``:
     the workers whose batches the load-balance term spans (the FSDP step's
     global batch); None for this worker's own batch."""
     def loss_fn(params, batch):
         logits, aux = forward_train(params, cfg, batch["tokens"],
-                                    balance_group)
+                                    balance_group,
+                                    prefix=batch.get("prefix"),
+                                    enc_embeds=batch.get("enc_embeds"))
         targets, mask = shift_targets(batch["tokens"])
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"]

@@ -3,9 +3,12 @@ starcoder2-7b: sliding windows, logit softcaps, sandwich norms, a query
 scale, LayerNorm, biases and the plain GELU MLP; phi3.5-moe-42b-a6.6b: MoE
 FFNs; deepseek-v2-236b: MLA, a prelude, shared experts and the first dense
 FFN; rwkv6-1.6b: RWKV-6 blocks; zamba2-2.7b: Mamba-2 blocks and the
-shared attention block with its per-site LoRA) against the JAX package,
+shared attention block with its per-site LoRA; paligemma-3b: a prefix of
+stub patch embeddings; seamless-m4t-large-v2: the encoder over stub frame
+embeddings and the decoder's cross-attention) against the JAX package,
 on their smoke configs in float32 with the JAX weights carried across by
-``repro_torch.models.convert``:
+``repro_torch.models.convert``, each batch carrying the arch's stub inputs
+(``prefix`` or ``enc_embeds``, bfloat16, from a numpy seed; ``_stubs``):
 
 - loss (the MoE auxiliary loss included) and every gradient, taken as the
   train step takes them (``step._local_grads`` on ``make_loss_fn``),
@@ -60,6 +63,7 @@ from repro_torch.comm import sync as tsync
 from repro_torch.configs import registry as tregistry
 from repro_torch.core.api import CompressionConfig as TConfig
 from repro_torch.core.grouping import plan_tree as tplan_tree
+from repro_torch.launch import specs as tspecs
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
@@ -71,12 +75,13 @@ from repro_torch.train import step as tstep
 torch.set_num_threads(1)
 
 ARCHS = ["gemma2-9b", "gemma2-27b", "starcoder2-7b", "phi3.5-moe-42b-a6.6b",
-         "deepseek-v2-236b", "rwkv6-1.6b", "zamba2-2.7b"]
+         "deepseek-v2-236b", "rwkv6-1.6b", "zamba2-2.7b", "paligemma-3b",
+         "seamless-m4t-large-v2"]
 # the depth each arch is cut to on one 80 GB card (widths as published;
-# rwkv6 and zamba2 fit at full depth)
+# rwkv6, zamba2, paligemma and seamless fit at full depth)
 CUTS = {"gemma2-9b": 4, "gemma2-27b": 1, "starcoder2-7b": 10,
         "phi3.5-moe-42b-a6.6b": 2, "deepseek-v2-236b": 1, "rwkv6-1.6b": 24,
-        "zamba2-2.7b": 9}
+        "zamba2-2.7b": 9, "paligemma-3b": 18, "seamless-m4t-large-v2": 24}
 UNREAD = {"zamba2-2.7b": "blocks/b0_shared_attn/ln1/scale"}
 RHO, LR, SEED = 0.05, 1e-3, 11
 # starcoder2's JAX init puts its logits near 100 (loss 100.8 against
@@ -91,25 +96,35 @@ RHO, LR, SEED = 0.05, 1e-3, 11
 # rwkv6 (LayerNorm, loss 76.6) and zamba2 (loss 55.1) likewise: rwkv6's
 # ``tm/wr``, ``tm/wv`` and ``cm/wv`` by up to 1.6e-6 on 4 coordinates,
 # zamba2's ``shared/in_proj`` (9 sites' sum) and ``conv_w`` by up to 1.5e-6
-# on 7
+# on 7. seamless (LayerNorm, loss 41.7): its encoder's ``ln1/bias``, whose
+# gradient sums 24 block inputs' worth of the stub frames' N(0, 1) scale,
+# by 1.5e-6 (relative 4.6e-5) on 1 of 256 coordinates; paligemma (loss
+# 260.4, gemma-2b's init) holds 1e-6
 GRAD_ATOL = {"gemma2-9b": 1e-6, "gemma2-27b": 1e-6, "starcoder2-7b": 2e-6,
              "phi3.5-moe-42b-a6.6b": 2e-6, "deepseek-v2-236b": 4e-6,
-             "rwkv6-1.6b": 2e-6, "zamba2-2.7b": 2e-6}
+             "rwkv6-1.6b": 2e-6, "zamba2-2.7b": 2e-6, "paligemma-3b": 1e-6,
+             "seamless-m4t-large-v2": 2e-6}
 # the optimizer of the two-step test: Adam, as the launcher, except for
 # starcoder2, whose bias gradients are mostly that noise (``bk``'s would be
 # 0 but for RoPE: a key bias shifts every score of a query alike), which
 # Adam's first step normalizes to +-lr (13 of ``bk``'s 168 coordinates
-# then differ by up to 9.1e-5); plain SGD keeps the noise at lr x 1e-6
+# then differ by up to 9.1e-5); plain SGD keeps the noise at lr x 1e-6.
+# seamless likewise: its cross-attention's ``bk`` gradient is exactly 0 but
+# for that noise (no RoPE there), so Adam's first step puts 255 of its 256
+# coordinates at a random +-lr on each side
 OPTIMIZER = {"gemma2-9b": "adam", "gemma2-27b": "adam",
              "starcoder2-7b": "sgd", "phi3.5-moe-42b-a6.6b": "adam",
              "deepseek-v2-236b": "adam", "rwkv6-1.6b": "adam",
-             "zamba2-2.7b": "adam"}
+             "zamba2-2.7b": "adam", "paligemma-3b": "adam",
+             "seamless-m4t-large-v2": "sgd"}
 # the two-step test's atol: the residual after two steps carries two
 # gradients, so starcoder2's noise twice (up to 3.5e-6 measured; phi3.5-moe
-# 3.5e-6 on one ``attn/wv`` coordinate, deepseek-v2 1.6e-6 on ``kv_down``)
+# 3.5e-6 on one ``attn/wv`` coordinate, deepseek-v2 1.6e-6 on ``kv_down``,
+# seamless 1.7e-6 on 10 of ``cross/x0/attn/wv``'s 32,768)
 STEP_ATOL = {"gemma2-9b": 1e-6, "gemma2-27b": 1e-6, "starcoder2-7b": 4e-6,
              "phi3.5-moe-42b-a6.6b": 4e-6, "deepseek-v2-236b": 4e-6,
-             "rwkv6-1.6b": 4e-6, "zamba2-2.7b": 4e-6}
+             "rwkv6-1.6b": 4e-6, "zamba2-2.7b": 4e-6, "paligemma-3b": 1e-6,
+             "seamless-m4t-large-v2": 4e-6}
 
 
 def _cfgs(arch: str):
@@ -131,10 +146,34 @@ def _jax_value_and_grad(arch: str):
     return jax.jit(jax.value_and_grad(jstep.make_loss_fn(_cfgs(arch)[0])))
 
 
-def _jax_loss(arch, params, tokens, mask=None):
+def _stubs(arch: str, batch: int, seed: int) -> dict[str, np.ndarray]:
+    """The smoke config's stub inputs past the tokens (``prefix`` or
+    ``enc_embeds``; none for a text model), shaped as the launcher's
+    (``launch.specs.stub_inputs``): standard normals from a numpy seed,
+    rounded to bfloat16 and kept as float32 arrays of those values."""
+    rng = np.random.default_rng(seed)
+    return {name: torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dtype).float().numpy()
+            for name, (shape, dtype) in tspecs.stub_inputs(
+                _cfgs(arch)[1], batch).items()}
+
+
+def _tbatch(tokens, stubs: dict, **extra) -> dict[str, torch.Tensor]:
+    """The port's batch: the tokens, the stub inputs in bfloat16 (as the
+    launcher draws them) and any ``extra`` arrays."""
+    out = {"tokens": torch.from_numpy(tokens)}
+    out.update({k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in stubs.items()})
+    out.update({k: torch.from_numpy(v) for k, v in extra.items()})
+    return out
+
+
+def _jax_loss(arch, params, tokens, mask=None, stubs=None):
     mask = np.ones(tokens.shape, np.float32) if mask is None else mask
-    return _jax_value_and_grad(arch)(params, {
-        "tokens": jnp.asarray(tokens), "loss_mask": jnp.asarray(mask)})
+    batch = {"tokens": jnp.asarray(tokens), "loss_mask": jnp.asarray(mask)}
+    batch.update({k: jnp.asarray(v, jnp.bfloat16)
+                  for k, v in (stubs or {}).items()})
+    return _jax_value_and_grad(arch)(params, batch)
 
 
 def _paths(tree) -> list[str]:
@@ -164,11 +203,12 @@ def test_loss_and_grads_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     params = _jax_params(arch)
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 16))
-    loss, grads = _jax_loss(arch, params, tokens)
+    stubs = _stubs(arch, 2, 10)
+    loss, grads = _jax_loss(arch, params, tokens, stubs=stubs)
     model = _model(arch)
     tloss, tgrads = tstep._local_grads(model, model.leaves(),
                                        tstep.make_loss_fn(tcfg),
-                                       {"tokens": torch.from_numpy(tokens)})
+                                       _tbatch(tokens, stubs))
     np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5,
                                atol=1e-6)
     assert _paths(grads) == model.leaf_names
@@ -190,13 +230,14 @@ def test_loss_mask_is_honoured(arch):
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, jcfg.vocab, (2, 16))
     mask = (rng.random((2, 16)) < 0.5).astype(np.float32)
-    want = _jax_loss(arch, _jax_params(arch), tokens, mask)[0]
+    stubs = _stubs(arch, 2, 11)
+    want = _jax_loss(arch, _jax_params(arch), tokens, mask, stubs)[0]
     model = _model(arch)
+    batch = _tbatch(tokens, stubs, loss_mask=mask)
     with torch.no_grad():
-        got = tstep.make_loss_fn(tcfg)(
-            dict(model.params), {"tokens": torch.from_numpy(tokens),
-                                 "loss_mask": torch.from_numpy(mask)})
-        logits, aux = model(torch.from_numpy(tokens))
+        got = tstep.make_loss_fn(tcfg)(dict(model.params), batch)
+        logits, aux = model(batch["tokens"], prefix=batch.get("prefix"),
+                            enc_embeds=batch.get("enc_embeds"))
         logits = logits.double()
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     nll = (torch.logsumexp(logits, -1) - torch.gather(
@@ -320,7 +361,7 @@ def _jax_gspar_rows(rows: int, d: int):
     return jax.jit(jax.vmap(row))
 
 
-def _jax_ef_steps(arch: str, tokens: np.ndarray):
+def _jax_ef_steps(arch: str, tokens: np.ndarray, stubs: list):
     """Two Algorithm-1 steps with EF and ``OPTIMIZER[arch]`` at one worker,
     from the JAX package's pieces (its loss, Algorithm 3's probabilities
     and mask, the optimizer), the gspar uniforms drawn in group order from one generator
@@ -335,8 +376,8 @@ def _jax_ef_steps(arch: str, tokens: np.ndarray):
     state = opt.init(params)
     gen = torch.Generator().manual_seed(SEED)
     residual = exempt = None
-    for batch in tokens:
-        grads = _jax_loss(arch, params, batch)[1]
+    for batch, stub in zip(tokens, stubs):
+        grads = _jax_loss(arch, params, batch, stubs=stub)[1]
         leaves, tdef = jax.tree_util.tree_flatten(grads)
         leaves = [np.asarray(g) for g in leaves]
         if residual is not None:
@@ -382,7 +423,8 @@ def test_two_ef_train_steps_match_jax(arch, one_worker_group):
     ``STEP_ATOL``, for both), except at the exempt coordinates
     (at most 0.1 %)."""
     tokens = np.random.default_rng(5).integers(0, 512, (2, 2, 16))
-    want_p, want_r, exempt = _jax_ef_steps(arch, tokens)
+    stubs = [_stubs(arch, 2, 12 + t) for t in range(2)]
+    want_p, want_r, exempt = _jax_ef_steps(arch, tokens, stubs)
     model = _model(arch)
     comp = TConfig(name="gspar", rho=RHO, error_feedback=True,
                    min_leaf_size=1024, wire="gather")
@@ -390,9 +432,8 @@ def test_two_ef_train_steps_match_jax(arch, one_worker_group):
     step = tstep.make_compressed_train_step(model, comp, opt)
     state, fb = opt.init(model.leaves()), topt.init_feedback(model.leaves())
     gen = torch.Generator().manual_seed(SEED)
-    for batch in tokens:
-        state, fb, metrics = step(state, fb,
-                                  {"tokens": torch.from_numpy(batch)}, gen)
+    for batch, stub in zip(tokens, stubs):
+        state, fb, metrics = step(state, fb, _tbatch(batch, stub), gen)
         assert float(metrics["overflow"]) == 0.0
     assert "rice" in {lay for *_, lay in step.layouts}
     n_exempt = sum(int(e.sum()) for e in exempt)
@@ -550,16 +591,21 @@ def test_launcher_refuses_the_xla_presets(preset):
 
 
 def test_what_is_not_ported_is_refused():
-    """Chunked attention names queue A item 13; the encoder-decoder and
-    prefix fields and untied embeddings item 10, and so do the two
-    architectures still to port."""
+    """Chunked attention names queue A item 13 and stays refused, and so
+    do untied embeddings, which the JAX package declares but never reads;
+    the encoder-decoder and prefix fields and the two architectures that
+    use them are now accepted."""
     cfg = tregistry.get("gemma2-9b").smoke
     with pytest.raises(NotImplementedError, match="queue A item 13"):
         dataclasses.replace(cfg, attn_impl="chunked")
+    with pytest.raises(NotImplementedError, match="never reads it"):
+        dataclasses.replace(cfg, tie_embeddings=False)
     for kw in (dict(encoder_periods=2), dict(prefix_len=16),
-               dict(tie_embeddings=False)):
-        with pytest.raises(NotImplementedError, match="queue A item 10"):
-            dataclasses.replace(cfg, **kw)
+               dict(prefix_len=16, modality="vision")):
+        assert dataclasses.replace(cfg, **kw).encoder_periods == kw.get(
+            "encoder_periods", 0)
+    with pytest.raises(ValueError, match="modality"):
+        dataclasses.replace(cfg, modality="video")
     for arch in ("seamless-m4t-large-v2", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tregistry.get(arch)
+        spec = tregistry.get(arch)
+        assert spec.model.modality == jregistry.get(arch).model.modality

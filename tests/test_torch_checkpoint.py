@@ -12,11 +12,13 @@ smoke config in float32 and in bfloat16:
 - train three steps, or one, save, restore into fresh state and two more:
   parameters, moments, residual and control state bit-equal, on one
   worker and on two gloo ranks (each rank gets its own residual slice back
-  from the stacked file); so too the phi3.5-moe, rwkv6 and zamba2 smoke
-  configs in the compressed mode and deepseek-v2's in its fsdp mode, whose
-  params-shaped residual the file holds as the JAX fsdp launcher writes it
-  (the keys, order, shapes and dtypes of a JAX-written file of the same
-  tree; zamba2's shared leaves once, unstacked).
+  from the stacked file); so too the phi3.5-moe, rwkv6, zamba2, paligemma
+  and seamless smoke configs in the compressed mode (the last two with
+  their stub inputs in each batch) and deepseek-v2's in its fsdp mode,
+  whose params-shaped residual the file holds as the JAX fsdp launcher
+  writes it (the keys, order, shapes and dtypes of a JAX-written file of
+  the same tree; zamba2's shared leaves once, unstacked; seamless's
+  ``encoder``, ``enc_final_ln`` and ``cross`` subtrees).
 """
 import dataclasses
 import json
@@ -43,7 +45,7 @@ from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.configs import gemma2_9b as tgemma2
 from repro_torch.configs import registry as tregistry
 from repro_torch.core.api import CompressionConfig
-from repro_torch.data.synthetic import token_batch
+from repro_torch.launch.specs import train_batch
 from repro_torch.models.convert import (control_from_jax, feedback_from_jax,
                                         params_from_numpy, tensor_from_numpy)
 from repro_torch.models.transformer import (Transformer, init_model,
@@ -183,8 +185,8 @@ def _train(state, fb, ctl, step, steps: range, cfg, rank: int):
     """Steps ``steps`` of the compressed step, the data and the uniforms
     of step t (on worker ``rank``) from generators seeded with both."""
     for t in steps:
-        batch = token_batch(torch.Generator().manual_seed(100 + 7 * t + rank),
-                            cfg.vocab, 2, 16)
+        batch = train_batch(torch.Generator().manual_seed(100 + 7 * t + rank),
+                            cfg, 2, 16)
         gen = torch.Generator().manual_seed(200 + 7 * t + rank)
         if ctl is not None:
             state, fb, ctl, _ = step(state, fb, ctl, batch, gen)
@@ -271,10 +273,13 @@ def test_resumed_run_is_bit_equal(adaptive, resume_at, tmp_path,
 @pytest.mark.parametrize("arch,mode", [("phi3.5-moe-42b-a6.6b", "compressed"),
                                        ("deepseek-v2-236b", "fsdp"),
                                        ("rwkv6-1.6b", "compressed"),
-                                       ("zamba2-2.7b", "compressed")])
+                                       ("zamba2-2.7b", "compressed"),
+                                       ("paligemma-3b", "compressed"),
+                                       ("seamless-m4t-large-v2",
+                                        "compressed")])
 def test_arch_resume_is_bit_equal(arch, mode, tmp_path, one_worker_group):
     """gspar with EF and Adam, on the gather wire's ``auto`` (phi3.5-moe,
-    rwkv6, zamba2) or in deepseek-v2's fsdp mode (Q of the averaged
+    rwkv6, zamba2, paligemma, seamless) or in deepseek-v2's fsdp mode (Q of the averaged
     gradient): three steps against one, a save, a restore into fresh
     state and two more. The file has the keys, order, shapes and dtypes of
     the JAX launcher's file of ``{"params", "opt": adam, "ef"}`` where the
@@ -305,6 +310,10 @@ def test_arch_resume_is_bit_equal(arch, mode, tmp_path, one_worker_group):
         if arch == "zamba2-2.7b":
             assert got["params/shared/in_proj"].shape == (256, 128)
             assert got["ef/.residual/shared/in_proj"].shape == (1, 256, 128)
+        if arch == "seamless-m4t-large-v2":
+            assert got["params/encoder/blk/attn/wq"].shape == (2, 128, 4, 32)
+            assert got["params/enc_final_ln/bias"].shape == (128,)
+            assert got["ef/.residual/cross/x0/attn/bo"].shape == (1, 2, 128)
         if mode != "fsdp":
             return
         assert any(k.startswith("ef/.residual/prelude/") for k in want.keys())

@@ -1357,25 +1357,27 @@ def test_tree_stats_and_var_step_size_card_match_cpu(card, wire):
 @pytest.mark.parametrize("arch", ["gemma2-9b", "gemma2-27b",
                                   "starcoder2-7b", "phi3.5-moe-42b-a6.6b",
                                   "deepseek-v2-236b", "rwkv6-1.6b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "paligemma-3b",
+                                  "seamless-m4t-large-v2"])
 def test_arch_one_step_loss_card_matches_cpu(card, arch):
     """One compressed step (gspar, the gather wire's ``auto``, EF, Adam) of
     the smoke config in bfloat16 on the card against float32 on the CPU,
-    from the same parameters, batch and uniforms: the step's loss and the
-    loss after the update agree within bfloat16's rtol 1e-2."""
+    from the same parameters, batch (with paligemma's and seamless's stub
+    inputs) and uniforms: the step's loss and the loss after the update
+    agree within bfloat16's rtol 1e-2."""
     import dataclasses
     import socket
     import torch.distributed as dist
     from repro_torch.configs import registry
     from repro_torch.core.api import CompressionConfig
-    from repro_torch.data.synthetic import token_batch
+    from repro_torch.launch.specs import train_batch
     from repro_torch.models.transformer import Transformer, init_model
     from repro_torch.optim import optimizers as topt
     from repro_torch.train import step as tstep
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg32 = registry.get(arch).smoke
     params = init_model(cfg32, torch.Generator().manual_seed(0), "cpu")
-    batch = token_batch(torch.Generator().manual_seed(1), cfg32.vocab, 4, 32)
+    batch = train_batch(torch.Generator().manual_seed(1), cfg32, 4, 32)
     comp = CompressionConfig(name="gspar", rho=0.05, wire="gather",
                              error_feedback=True, min_leaf_size=1024)
     with socket.socket() as sk:
@@ -1394,7 +1396,7 @@ def test_arch_one_step_loss_card_matches_cpu(card, arch):
             opt = topt.adam(3e-4)
             step = tstep.make_compressed_train_step(model, comp, opt,
                                                     group=grp)
-            b = {"tokens": batch["tokens"].to(dev)}
+            b = {k: v.to(dev) for k, v in batch.items()}
             with _host_uniforms(4):
                 _, _, m = step(opt.init(model.leaves()),
                                topt.init_feedback(model.leaves()), b,
@@ -1492,3 +1494,42 @@ def test_ssm_mixers_card_match_cpu(card, mixer):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(
             a, b, rtol=1e-4, atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "seamless-m4t-large-v2"])
+def test_prefix_and_encdec_forward_backward_card_match_cpu(card, arch):
+    """The smoke config's forward and backward (float32, TF32 off) on the
+    card against the CPU from the same parameters and batch, its stub
+    inputs included (paligemma's prefix, seamless's encoder frames): the
+    logits and the gradient of every parameter within rtol 1e-4 / atol
+    1e-5 x the tensor's largest magnitude past 1 (cuBLAS sums in another
+    order), and two backward passes on the card bit-equal."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.specs import train_batch
+    from repro_torch.models.transformer import forward_train, init_model
+    from repro_torch.train.loss import lm_loss, shift_targets
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get(arch).smoke
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = train_batch(torch.Generator().manual_seed(1), cfg, 4, 32)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        p = {k: v.to(dev, copy=True).requires_grad_(True)
+             for k, v in params.items()}
+        b = {k: v.to(dev) for k, v in batch.items()}
+        logits, _ = forward_train(p, cfg, b["tokens"],
+                                  prefix=b.get("prefix"),
+                                  enc_embeds=b.get("enc_embeds"))
+        assert logits.shape == (4, 32, cfg.vocab)
+        targets, mask = shift_targets(b["tokens"])
+        lm_loss(logits, targets, mask).backward()
+        run = [t.detach().cpu() for t in
+               (logits, *[p[k].grad for k in sorted(p)])]
+        if dev in out:
+            for a, c in zip(out[dev], run):
+                assert torch.equal(a, c)
+        out[dev] = run
+    for a, c in zip(out["cuda"], out["cpu"]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(
+            a, c, rtol=1e-4, atol=1e-5 * max(1.0, float(c.abs().max())))
