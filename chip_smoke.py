@@ -153,6 +153,24 @@ cross-attention sublayer after each decoder block) uncut, both checked,
 each step's batch carrying its stub inputs (``launch.specs.train_batch``),
 as the smoke checkpoints' batches do.
 
+Last, serving (``serve_phase``; no hand kernel runs there, since serving
+compresses nothing): (a) gemma2-9b at full width and its 42 layers, bf16,
+chunked attention (q 512, kv 1024), through
+``examples.serve_decode.serve``: a batch of two 32,768-token prompts
+prefilled into caches of 32,800 positions, then 32 greedy decode steps;
+prefill seconds, decode ms a step, peak memory, the caches' bytes and one
+decode step's device time, launches and largest kernels (torch.profiler);
+then, on the same weights, a 5,120-token prompt (the 4,096 window's ring
+wraps) and 16 teacher-forced decode steps held to ``forward_train``
+within ``SERVE_RTOL``, a decode from another request's cache at least ten
+times that far (``pos + 1`` reported beside it); (b) the same check for
+the nine other archs at their ``ARCH_RUNS`` depths (256-token prompts,
+paligemma's 256 stub patches, seamless's 64 stub frames; a MoE at a
+capacity that drops no choice), with their seconds and peak memory. The
+window check also runs the chunked path at 4,608 tokens (kv blocks of
+512) against the same float64 reference, and both paths under autograd
+(ms, peak memory, input gradients against each other).
+
 Each run checks finite losses, no overflow (where the exchange is checked
 on the architectures: the overflow equal to the survivors its buffers
 dropped, at most 1e-5 of the survivors) and every kernel variant of the
@@ -2973,6 +2991,7 @@ ARCH_KERNELS = GSPAR + ("compact_emit/lam", "rice_pack")
 FSDP_KERNELS = ("stats", "tail_stats", "sparsify_ef")
 WINDOW_SEQ = 4_608         # gemma2-9b's 4,096 window bites on 512 queries
 WINDOW_RTOL = 2e-2         # bf16 q, k, v and probabilities vs float64
+WINDOW_KV_CHUNK = 512      # the chunked check's kv blocks (nine of them)
 WIDE_GROUP = (3, 1_258_291_200)   # deepseek-v2's experts at 1 period: the
 WIDE_CHUNK = 1 << 28              # widest group; its plain version's chunk
 
@@ -3228,33 +3247,64 @@ def _window_reference(p: dict, acfg, x: torch.Tensor,
     return torch.einsum("bshk,hkd->bsd", out, d64["wo"])
 
 
+def _peak_run(fn):
+    """``fn()`` on the card: its result, milliseconds (host clock,
+    synchronized) and the peak bytes allocated above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, ms, torch.cuda.max_memory_allocated() - base
+
+
 def window_check() -> dict:
     """One ``attn_sw`` block of gemma2-9b at full width (its bf16 weights
     at the JAX package's init) on a 4,608-token sequence, so that the
     config's 4,096 window bites on the last 512 queries: the port's
-    attention against the plain masked expression in float64 on the card,
-    within ``WINDOW_RTOL`` (relative Frobenius error, per query block);
-    the windowless float64 expression must differ on the last 512
-    queries by far more."""
+    attention, naive and chunked (``WINDOW_KV_CHUNK``: 4,608 is nine kv
+    blocks of 512, where 1,024 would take the naive fallback), against
+    the plain masked expression in float64 on the card, within
+    ``WINDOW_RTOL`` (relative Frobenius error, per query block); the
+    windowless float64 expression must differ on the last 512 queries by
+    far more. Each impl's ms and peak memory, without autograd and with
+    (the forward and the backward of ``sum(out * c)``), whose input
+    gradients agree between the two impls within ``WINDOW_RTOL``."""
+    import dataclasses as dc
     from repro_torch.configs import gemma2_9b
     from repro_torch.models import attention as attn
     from repro_torch.models.common import Initializer
     cfg = gemma2_9b.FULL
     acfg = cfg.attn_cfg("attn_sw")
+    chunked = dc.replace(acfg, impl="chunked", kv_chunk=WINDOW_KV_CHUNK)
     if acfg.window != 4096 or WINDOW_SEQ - acfg.window != 512:
         raise AssertionError(f"window {acfg.window}")
+    if WINDOW_SEQ % chunked.q_chunk or WINDOW_SEQ % chunked.kv_chunk:
+        raise AssertionError("the chunked check would take the naive path")
     ini = Initializer(torch.Generator(device="cuda").manual_seed(7),
                       torch.bfloat16, torch.device("cuda"))
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {"wq": ini.fan_in((d, h, hd)), "wk": ini.fan_in((d, kv, hd)),
          "wv": ini.fan_in((d, kv, hd)), "wo": ini.fan_in((h, hd, d), 1)}
     x = ini.normal((1, WINDOW_SEQ, d), stddev=1.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    c = ini.normal((1, WINDOW_SEQ, d), stddev=1.0)
+    got, ms, peak, grads, grad_ms, grad_peak = {}, {}, {}, {}, {}, {}
+    for name, a in (("naive", acfg), ("chunked", chunked)):
+        with torch.no_grad():
+            out, ms[name], peak[name] = _peak_run(
+                lambda: attn.attention_train(p, a, x))
+        got[name] = out.double()
+        pg = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xg = x.detach().requires_grad_(True)
+
+        def fwd_bwd():
+            (attn.attention_train(pg, a, xg).float() * c).sum().backward()
+            return xg.grad
+        grads[name], grad_ms[name], grad_peak[name] = _peak_run(fwd_bwd)
     with torch.no_grad():
-        got = attn.attention_train(p, acfg, x).double()
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
         want = _window_reference(p, acfg, x, acfg.window)
         full = _window_reference(p, acfg, x, None)
 
@@ -3262,13 +3312,31 @@ def window_check() -> dict:
         return float((a[:, sl] - b[:, sl]).norm() / b[:, sl].norm())
 
     head, tail = slice(0, acfg.window), slice(acfg.window, WINDOW_SEQ)
-    out = {"seq": WINDOW_SEQ, "window": acfg.window, "ms": ms,
-           "rel_err_first_4096": rel(got, want, head),
-           "rel_err_last_512": rel(got, want, tail),
+    out = {"seq": WINDOW_SEQ, "window": acfg.window, "ms": ms["naive"],
+           "peak_bytes": peak["naive"],
+           "rel_err_first_4096": rel(got["naive"], want, head),
+           "rel_err_last_512": rel(got["naive"], want, tail),
            "windowless_rel_diff_last_512": rel(full, want, tail),
-           "max_abs_err": float((got - want).abs().max())}
+           "max_abs_err": float((got["naive"] - want).abs().max()),
+           "autograd_ms": grad_ms["naive"],
+           "autograd_peak_bytes": grad_peak["naive"],
+           "chunked": {
+               "q_chunk": chunked.q_chunk, "kv_chunk": chunked.kv_chunk,
+               "ms": ms["chunked"], "peak_bytes": peak["chunked"],
+               "rel_err_first_4096": rel(got["chunked"], want, head),
+               "rel_err_last_512": rel(got["chunked"], want, tail),
+               "max_abs_err": float((got["chunked"] - want).abs().max()),
+               "autograd_ms": grad_ms["chunked"],
+               "autograd_peak_bytes": grad_peak["chunked"],
+               "x_grad_rel_diff_vs_naive": float(
+                   (grads["chunked"].double() - grads["naive"].double())
+                   .norm() / grads["naive"].double().norm())}}
+    ch = out["chunked"]
     if not (out["rel_err_first_4096"] <= WINDOW_RTOL
             and out["rel_err_last_512"] <= WINDOW_RTOL
+            and ch["rel_err_first_4096"] <= WINDOW_RTOL
+            and ch["rel_err_last_512"] <= WINDOW_RTOL
+            and ch["x_grad_rel_diff_vs_naive"] <= WINDOW_RTOL
             and out["windowless_rel_diff_last_512"] > 10 * WINDOW_RTOL):
         raise AssertionError(f"window check: {out}")
     print(f"window check (gemma2-9b attn_sw, {WINDOW_SEQ} tokens, window "
@@ -3375,6 +3443,244 @@ def arch_phase(tmp: Path) -> dict:
     K.reset_launches()
     return {"runs": runs, "window": window, "checkpoint": ckpt,
             "wide": wide}
+
+
+# --- serving: prefill and decode over every cache kind (serve_phase) --------
+
+SERVE_ARCH = "gemma2-9b"         # (a): full width, 42 layers, uncut
+SERVE_BATCH = 2
+SERVE_PROMPT = 32_768            # prefill_32k's prompt
+SERVE_STEPS = 32                 # greedy decode steps after the prefill
+SERVE_MAX_SEQ = 32_800           # the caches' positions
+SERVE_CHECK_PROMPT = 5_120       # past the 4,096 window (the ring wraps);
+                                 # five kv chunks: the chunked prefill runs
+CHECK_STEPS = 16                 # teacher-forced decode steps checked
+SWEEP_PROMPT = 256               # (b): the other archs' prompt
+SWEEP_TRAIN = 320                # their reference's tokens (chunk 64 x 5)
+SERVE_RTOL = 2e-2                # decode logits vs forward_train's: bf16
+                                 # products in other shapes and orders
+# rwkv6's decode step forms its decay exp(-exp(.)) in bf16 (JAX's
+# ``rwkv6_time_mix_step``) where the chunked train path keeps it in log
+# space: 3.4e-2 over its 24 layers on an H100
+SERVE_RTOL_ARCH = {"rwkv6-1.6b": 5e-2}
+CONTROL_FACTOR = 10              # a negative control differs by >= 10 x
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def _no_drop(cfg):
+    """A MoE config whose capacity takes every choice (``capacity_factor
+    = E / top_k``): a dropped choice makes the train path and decode
+    differ by design, since each computes its own capacity."""
+    import dataclasses as dc
+    if cfg.moe is None:
+        return cfg
+    return dc.replace(cfg, moe=dc.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def teacher_forced(params: dict, cfg, batch: dict, prompt: int,
+                   steps: int) -> dict:
+    """Prefill ``batch``'s first ``prompt`` tokens (with its stub inputs),
+    then decode the next ``steps - 1`` teacher-forced, through
+    ``make_prefill_step`` and ``make_decode_step``; the prefill's logits
+    and each step's against ``forward_train``'s over all of ``batch``'s
+    tokens at the same positions (relative Frobenius error over the
+    steps). Negative controls: the decode at ``pos + 1`` from the same
+    prefill (where attention carries RoPE) and the decode from the cache
+    of another request (random prompt tokens and, where the batch has
+    them, stub patches or frames from another seed)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    off = cfg.prefix_len if "prefix" in batch else 0
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def run(request: dict, shift: int = 0) -> torch.Tensor:
+        caches = tf.init_model_cache(cfg, b, off + prompt + steps, "cuda")
+        out = [prefill(params, request, caches)]
+        for i in range(steps - 1):
+            t = prompt + i
+            out.append(decode(params, caches, tokens[:, t:t + 1],
+                              off + t + shift))
+        del caches
+        return torch.cat(out, 1)
+
+    with torch.no_grad():
+        ref = tf.forward_train(params, cfg, tokens, prefix=batch.get(
+            "prefix"), enc_embeds=batch.get("enc_embeds"))[0][
+            :, prompt - 1:prompt - 1 + steps]
+    request = dict(batch, tokens=tokens[:, :prompt])
+    gen = torch.Generator(device=tokens.device).manual_seed(3)
+    other = {k: torch.randn(v.shape, generator=gen, device=v.device).to(
+        v.dtype) for k, v in batch.items() if k != "tokens"}
+    other["tokens"] = torch.randint(0, cfg.vocab, (b, prompt), generator=gen,
+                                    device=tokens.device)
+    got = run(request)
+    out = {"rel_err": _rel(got, ref),
+           "finite": bool(torch.isfinite(got).all()),
+           "other_prompt_rel_diff": _rel(run(other), ref)}
+    if any(k in cfg.pattern + cfg.prelude for k in (
+            "attn_full", "attn_sw", "mla", "mla_dense", "shared_attn")):
+        out["pos_plus_1_rel_diff"] = _rel(run(request, 1), ref)
+    return out
+
+
+def _held(what: str, chk: dict) -> None:
+    """The decode within the arch's tolerance (``SERVE_RTOL``) of the
+    train path, the negative control from another prompt's cache at least
+    ``CONTROL_FACTOR`` times that far (``pos + 1`` is reported: a random
+    model's logits can move less than that under a one-position shift)."""
+    tol = SERVE_RTOL_ARCH.get(what, SERVE_RTOL)
+    chk["rtol"] = tol
+    if not (chk["finite"] and chk["rel_err"] <= tol
+            and chk["other_prompt_rel_diff"] >= CONTROL_FACTOR * tol):
+        raise AssertionError(f"{what}: teacher-forced check {chk}")
+
+
+def top_kernels(fn, n: int = 8) -> list:
+    """The ``n`` device operations of one call of ``fn`` that take the
+    most device time (torch.profiler): name, ms, calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: -e.self_device_time_total)
+    return [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+            for e in events[:n]]
+
+
+def serve_big() -> dict:
+    """(a) gemma2-9b at full width and depth, bf16, chunked attention
+    (q 512, kv 1024), random weights: ``serve_decode.serve`` prefills a
+    batch of ``SERVE_PROMPT``-token prompts into caches of
+    ``SERVE_MAX_SEQ`` positions, then decodes ``SERVE_STEPS`` greedy
+    tokens; prefill seconds and prompt tokens a second, decode ms a step
+    and tokens a second, peak memory, the caches' bytes, and one decode
+    step's device time and kernel launches (torch.profiler). Then the
+    teacher-forced check on the same weights over a ``SERVE_CHECK_PROMPT``
+    prompt."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.examples import serve_decode
+    from repro_torch.launch.specs import train_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.step import make_decode_step
+    t_start = time.perf_counter()
+    cfg = dc.replace(registry.get(SERVE_ARCH).model, attn_impl="chunked")
+    params = tf.init_model(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    n_params = sum(t.numel() for t in params.values())
+    batch = train_batch(torch.Generator(device="cuda").manual_seed(1), cfg,
+                        SERVE_BATCH, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_decode.serve(params, cfg, batch, SERVE_STEPS, SERVE_MAX_SEQ)
+    peak = torch.cuda.max_memory_allocated()
+    toks = out["tokens"]
+    if not (toks.shape == (SERVE_BATCH, SERVE_STEPS + 1)
+            and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"serve: tokens {toks.shape}")
+    caches, tok = out.pop("caches"), toks[:, -1:]
+    decode = make_decode_step(cfg)
+    dev_ms, ops = device_ms(lambda: decode(params, caches, tok,
+                                           SERVE_MAX_SEQ - 1), reps=3)
+    step_ms = cuda_ms(lambda: decode(params, caches, tok,
+                                     SERVE_MAX_SEQ - 1), reps=3)
+    top = top_kernels(lambda: decode(params, caches, tok,
+                                     SERVE_MAX_SEQ - 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode(params, caches, tok, SERVE_MAX_SEQ - 1)
+    host_ms = 1e3 * (time.perf_counter() - t0)     # enqueued, not waited
+    torch.cuda.synchronize()
+    del caches, out["tokens"]
+    torch.cuda.empty_cache()
+    res = {"arch": SERVE_ARCH, "params": n_params,
+           "layers": cfg.num_layers, "batch": SERVE_BATCH,
+           "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+           "max_seq": SERVE_MAX_SEQ, "attn": [cfg.attn_impl,
+                                              cfg.attn_q_chunk,
+                                              cfg.attn_kv_chunk],
+           "prefill_s": out["prefill_s"],
+           "prompt_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+           / out["prefill_s"],
+           "decode_ms_per_step": 1e3 * out["decode_s"] / SERVE_STEPS,
+           "decode_tokens_per_s": SERVE_BATCH * SERVE_STEPS
+           / out["decode_s"],
+           "cache_bytes": out["cache_bytes"],
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in params.values()),
+           "max_memory_allocated": peak,
+           "decode_step_ms_events": step_ms,
+           "decode_step_device_ms": dev_ms,
+           "decode_step_host_ms": host_ms,
+           "decode_step_launches": sum(ops.values()),
+           "decode_step_top_kernels": top}
+    check = train_batch(torch.Generator(device="cuda").manual_seed(2), cfg,
+                        SERVE_BATCH, SERVE_CHECK_PROMPT + CHECK_STEPS)
+    res["check"] = teacher_forced(params, cfg, check, SERVE_CHECK_PROMPT,
+                                  CHECK_STEPS)
+    res["check"]["prompt"] = SERVE_CHECK_PROMPT
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"serve {SERVE_ARCH} (full width, {cfg.num_layers} layers, "
+          f"{n_params} parameters, bf16, chunked attention): {res}",
+          flush=True)
+    _held(SERVE_ARCH, res["check"])
+    return res
+
+
+def serve_sweep_run(arch: str) -> dict:
+    """(b) ``arch`` at full width cut to its ``ARCH_RUNS`` periods, bf16,
+    random weights: batch ``SERVE_BATCH``, a ``SWEEP_PROMPT``-token prompt
+    (paligemma's 256 stub patches before it, seamless's
+    ``frames_for(256)`` stub frames through the encoder), ``CHECK_STEPS``
+    teacher-forced decode steps held to ``forward_train`` over
+    ``SWEEP_TRAIN`` tokens; a MoE at a capacity that takes every choice
+    (``_no_drop``). Seconds and peak memory."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.launch.specs import model_for_seq, train_batch
+    from repro_torch.models import transformer as tf
+    periods = ARCH_RUNS[arch][0]
+    cfg = _no_drop(model_for_seq(dc.replace(
+        registry.get(arch).model, num_periods=periods), SWEEP_PROMPT))
+    params = tf.init_model(cfg, torch.Generator(device="cuda").manual_seed(
+        0), "cuda")
+    batch = train_batch(torch.Generator(device="cuda").manual_seed(1), cfg,
+                        SERVE_BATCH, SWEEP_TRAIN)
+    chk, ms, peak = _peak_run(lambda: teacher_forced(
+        params, cfg, batch, SWEEP_PROMPT, CHECK_STEPS))
+    res = {"num_periods": periods,
+           "params": sum(t.numel() for t in params.values()),
+           "check": chk, "seconds": ms / 1e3, "peak_bytes": peak,
+           "inputs": {k: list(v.shape) for k, v in batch.items()}}
+    print(f"serve {arch} --num-periods {periods}: {res}", flush=True)
+    _held(arch, chk)
+    return res
+
+
+def serve_phase() -> dict:
+    """Serving: (a) ``serve_big``, then (b) ``serve_sweep_run`` for every
+    other arch of ``ARCH_RUNS``, the card emptied between them. No hand
+    kernel runs here: serving compresses nothing."""
+    out = {"big": serve_big(), "sweep": {}}
+    for arch in ARCH_RUNS:
+        if arch == SERVE_ARCH:
+            continue
+        torch.cuda.empty_cache()
+        out["sweep"][arch] = serve_sweep_run(arch)
+    torch.cuda.empty_cache()
+    return out
 
 
 ENTRIES = {
@@ -3521,6 +3827,8 @@ def main() -> int:
         archs = arch_phase(ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    serve = serve_phase()
 
     tally = kp["tally"]
     kernels = []
@@ -3639,6 +3947,7 @@ def main() -> int:
     print(json.dumps({"window_check": archs["window"],
                       "checkpoint_check": archs["checkpoint"],
                       "wide_group_check": archs["wide"]}))
+    print(json.dumps({"serve_phase": serve}))
     print(json.dumps({"compaction_on_pod_rows": {
         str(k): v for k, v in exchange["pod_rows"].items()}}))
     print(json.dumps({"decode_ms_per_step": kp["decode_ms"],

@@ -37,6 +37,16 @@ SMOKE = ModelConfig(
 )
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIP_NOTES = {"long_500k": (
+                 "full attention (MLA compresses the cache but attention stays"
+                 " global/quadratic in prefill; 500k decode cache exceeds "
+                 "budget at batch=1 x 60L even compressed).")}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="deepseek-v2-236b", source="arXiv:2405.04434",
-                    model=FULL, smoke=SMOKE, train_mode="fsdp")
+                    model=FULL, smoke=SMOKE, train_mode="fsdp",
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

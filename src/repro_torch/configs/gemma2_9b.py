@@ -27,6 +27,13 @@ SMOKE = ModelConfig(
 )
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+SKIP_NOTES: dict[str, str] = {}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="gemma2-9b", source="arXiv:2408.00118",
-                    model=FULL, smoke=SMOKE)
+                    model=FULL, smoke=SMOKE,
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

@@ -24,6 +24,15 @@ SMOKE = ModelConfig(
 )
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIP_NOTES = {"long_500k": (
+                 "gemma-1 has full global attention only; no sliding-"
+                 "window/sub-quadratic variant exists in the source model.")}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="gemma-2b", source="arXiv:2403.08295",
-                    model=FULL, smoke=SMOKE)
+                    model=FULL, smoke=SMOKE,
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

@@ -34,6 +34,14 @@ SMOKE = ModelConfig(
 )
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIP_NOTES = {"long_500k": (
+                 "gemma-1 backbone: full global attention only.")}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="paligemma-3b", source="arXiv:2407.07726",
-                    model=FULL, smoke=SMOKE)
+                    model=FULL, smoke=SMOKE,
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

@@ -32,7 +32,16 @@ SMOKE = ModelConfig(
 )
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIP_NOTES = {"long_500k": (
+                 "full global attention; no sub-quadratic variant in the "
+                 "source model.")}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="phi3.5-moe-42b-a6.6b",
                     source="hf:microsoft/Phi-3.5-MoE-instruct",
-                    model=FULL, smoke=SMOKE)
+                    model=FULL, smoke=SMOKE,
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

@@ -5,13 +5,22 @@ phi3.5-moe-42b-a6.6b, the MLA + MoE deepseek-v2-236b, the SSM rwkv6-1.6b,
 the hybrid zamba2-2.7b, the vision-prefix paligemma-3b and the
 encoder-decoder seamless-m4t-large-v2. The port has no sharding rules
 (``dist/sharding.py``, ROADMAP.md queue A item 10d), so a spec carries
-none."""
+none. ``SHAPES`` and each spec's ``shapes`` and ``skip_notes`` are the
+JAX registry's."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
 from repro_torch.models.transformer import ModelConfig
+
+# the input shapes of the paper's runs: (seq_len, global_batch, kind)
+SHAPES: dict[str, tuple[int, int, str]] = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
 
 ID_TO_MODULE = {"gemma-2b": "gemma_2b", "gemma2-9b": "gemma2_9b",
                 "gemma2-27b": "gemma2_27b", "starcoder2-7b": "starcoder2_7b",
@@ -28,6 +37,8 @@ class ArchSpec:
     source: str              # paper / model-card citation
     model: ModelConfig       # full-size config
     smoke: ModelConfig       # reduced variant for the CPU
+    shapes: tuple[str, ...]  # the input shapes (``SHAPES``) it runs
+    skip_notes: dict[str, str]   # shape -> why skipped
     train_mode: str = "compressed"   # compressed (Alg. 1) | fsdp (+ step 7)
 
 

@@ -40,6 +40,16 @@ def frames_for(seq_len: int) -> int:
     return max(64, seq_len // 4)
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SKIP_NOTES = {"long_500k": (
+                 "enc-dec translation model; a 500k-token decoder target is "
+                 "outside its operating envelope and attention is full "
+                 "(quadratic prefill).")}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="seamless-m4t-large-v2",
-                    source="arXiv:2308.11596", model=FULL, smoke=SMOKE)
+                    source="arXiv:2308.11596", model=FULL, smoke=SMOKE,
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

@@ -39,6 +39,13 @@ SMOKE = ModelConfig(
 )
 
 
+# the input shapes the arch runs and why it skips the others (the JAX
+# spec's)
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+SKIP_NOTES: dict[str, str] = {}
+
+
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="zamba2-2.7b", source="arXiv:2411.15242",
-                    model=FULL, smoke=SMOKE)
+                    model=FULL, smoke=SMOKE,
+                    shapes=SHAPES, skip_notes=SKIP_NOTES)

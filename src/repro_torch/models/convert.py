@@ -1,7 +1,10 @@
 """Carry weights and state across from the JAX package: its parameter tree
 (nested dicts of arrays, e.g. ``split_params(init_model(...))[0]``
 converted with ``np.asarray``) becomes the port's flat parameter dict, so
-both packages compute the same function; its adaptive ``ControlState``
+both packages compute the same function; its decode cache tree
+(``init_model_cache``'s values, or what ``forward_prefill`` and
+``forward_decode`` return) becomes the port's flat cache dict and back
+(``cache_from_jax``, ``cache_to_jax``); its adaptive ``ControlState``
 and its ``FeedbackState`` become one worker's (``control_from_jax``,
 ``feedback_from_jax``).
 
@@ -107,6 +110,28 @@ def params_from_numpy(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
         out[prefix] = tensor_from_numpy(node, device)
 
     walk(tree, "")
+    return out
+
+
+def cache_from_jax(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
+    """The JAX decode cache tree (nested dicts of arrays: ``prelude``,
+    ``blocks`` stacked over the periods, ``cross``) -> the port's flat
+    cache, keyed ``"blocks/b0_attn_sw/k"`` as ``init_model_cache`` keys
+    it."""
+    return params_from_numpy(tree, device)
+
+
+def cache_to_jax(cache: dict[str, torch.Tensor]) -> dict:
+    """The port's flat cache -> the JAX cache tree of host arrays (nested
+    dicts keyed by the path's parts; bfloat16 as ``numpy_from_tensor``
+    writes it)."""
+    out: dict = {}
+    for path, t in cache.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = numpy_from_tensor(t)
     return out
 
 

@@ -35,13 +35,19 @@ def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     return (normed * scale.to(F32) + bias.to(F32)).to(x.dtype)
 
 
+def scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor of ``value`` rounded to ``dtype``, filled on
+    ``device`` (``torch.tensor`` would copy it from the host, and a copy
+    to the card waits for the card's queue to drain)."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def rope_table(positions: torch.Tensor, head_dim: int,
                theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
     """positions [S] -> (sin, cos) [S, head_dim/2], float32."""
     half = head_dim // 2
     exponent = -torch.arange(half, dtype=F32, device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=F32,
-                                  device=positions.device), exponent)
+    freq = torch.pow(scalar(theta, F32, positions.device), exponent)
     angles = positions.to(F32)[..., None] * freq
     return torch.sin(angles), torch.cos(angles)
 
@@ -80,7 +86,7 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     CUDA division by a Python number multiplies by its reciprocal."""
     if cap is None:
         return x
-    c = torch.tensor(cap, dtype=x.dtype, device=x.device)
+    c = scalar(cap, x.dtype, x.device)
     return torch.tanh(x / c) * c
 
 
@@ -88,8 +94,7 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
           scale: bool = False) -> torch.Tensor:
     x = table[tokens]
     if scale:
-        x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * scalar(x.shape[-1] ** 0.5, x.dtype, x.device)
     return x
 
 

@@ -1,9 +1,9 @@
-"""Recurrent sequence mixers, the training path (port of
-``repro.models.ssm``): RWKV-6 "Finch" (data-dependent per-channel decay)
-and Mamba-2 (SSD, a scalar decay per head), each in its chunked form.
+"""Recurrent sequence mixers (port of ``repro.models.ssm``): RWKV-6
+"Finch" (data-dependent per-channel decay) and Mamba-2 (SSD, a scalar
+decay per head), each in its chunked form.
 Within a chunk of ``L`` tokens the recurrence is a set of products with
 relative-decay factors; a Python loop over the ``T // L`` chunks carries
-the state ``S`` from the zero state, as the JAX package's ``lax.scan``
+the state ``S`` (zero, or carried in), as the JAX package's ``lax.scan``
 carries it (``unroll``, a scan option, has no counterpart).
 
 Numerics follow the JAX package: the recurrence in float32 with the decays
@@ -19,9 +19,13 @@ has a ``*_shapes`` function and an ``init_*`` one with the JAX
 distributions, as ``models.moe`` and ``models.attention``'s MLA; the
 block assembler (``models.transformer``) stacks them over the periods.
 
-A carried state (prefill and decode: ``rwkv6_time_mix_step``,
-``init_rwkv6_state``, ``init_mamba2_state``) is ROADMAP.md queue A item
-10; a caller that passes one is refused.
+Each mixer returns ``(out, new_state)``, as in JAX, and takes a carried
+state (prefill and decode): RWKV-6's ``x_tm``, ``x_cm`` (the last token,
+the shifts' first input) and ``S`` [B, H, hd, hd] float32, Mamba-2's
+``conv`` (the last ``W - 1`` inputs of the convolution) and ``S`` [B, H,
+N, hd] float32 (``init_rwkv6_state``, ``init_mamba2_state``); ``None``
+starts from the zero state. Decode is ``rwkv6_time_mix_step`` (the exact
+one-token recurrence) and ``mamba2_mix`` at T = 1.
 """
 from __future__ import annotations
 
@@ -31,14 +35,6 @@ import torch
 import torch.nn.functional as F
 
 F32 = torch.float32
-
-
-def _no_state(state) -> None:
-    if state is not None:
-        raise NotImplementedError(
-            "a carried SSM state (prefill and decode) is not ported yet "
-            "(ROADMAP.md queue A item 10); the port trains from the zero "
-            "state")
 
 
 def _draw(ini, shapes: dict, constants: dict, stddevs: dict,
@@ -58,9 +54,12 @@ def _draw(ini, shapes: dict, constants: dict, stddevs: dict,
     return out
 
 
-def _shift(x: torch.Tensor) -> torch.Tensor:
-    """Token shift from the zero state: y_t = x_{t-1}, y_0 = 0. x [B, T, d]."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def _shift(x: torch.Tensor, last: torch.Tensor | None = None
+           ) -> torch.Tensor:
+    """Token shift: y_t = x_{t-1}, y_0 = ``last`` [B, d] (or 0). x [B, T,
+    d]."""
+    prev = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([prev, x[:, :-1]], dim=1)
 
 
 def _chunks(t: int, chunk: int) -> int:
@@ -174,13 +173,14 @@ def _wkv_chunk(S: torch.Tensor, r, k, v, logw, u):
 
 
 def rwkv6_time_mix(p: dict, cfg: RWKV6Config, x: torch.Tensor,
-                   state=None) -> torch.Tensor:
-    """x [B, T, d] from the zero state -> out [B, T, d] in x's dtype."""
-    _no_state(state)
+                   state: dict | None = None):
+    """x [B, T, d] from ``state`` (None: zeros) -> (out [B, T, d] in x's
+    dtype, {"x_tm": x[:, -1], "S": the state after x})."""
     b, t, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     L = _chunks(t, cfg.chunk)
-    xr, xk, xv, xw, xg = _rwkv_mix_streams(p, x, _shift(x))
+    last = state["x_tm"] if state is not None else None
+    xr, xk, xv, xw, xg = _rwkv_mix_streams(p, x, _shift(x, last))
     r = (xr @ p["wr"]).reshape(b, t, h, hd).to(F32)
     k = (xk @ p["wk"]).reshape(b, t, h, hd).to(F32)
     v = (xv @ p["wv"]).reshape(b, t, h, hd).to(F32)
@@ -190,7 +190,8 @@ def rwkv6_time_mix(p: dict, cfg: RWKV6Config, x: torch.Tensor,
     logw = logw.reshape(b, t, h, hd).to(F32)
 
     u = p["u"].to(F32)
-    S = torch.zeros((b, h, hd, hd), dtype=F32, device=x.device)
+    S = (state["S"] if state is not None
+         else torch.zeros((b, h, hd, hd), dtype=F32, device=x.device))
     outs = []
     for c in range(0, t, L):
         S, o = _wkv_chunk(S, r[:, c:c + L], k[:, c:c + L], v[:, c:c + L],
@@ -198,18 +199,56 @@ def rwkv6_time_mix(p: dict, cfg: RWKV6Config, x: torch.Tensor,
         outs.append(o)
     out = torch.cat(outs, dim=1)
     out = _group_norm(out, p["ln_scale"].to(F32), p["ln_bias"].to(F32))
-    return (out.to(x.dtype) * g) @ p["wo"]
+    return (out.to(x.dtype) * g) @ p["wo"], {"x_tm": x[:, -1], "S": S}
 
 
-def rwkv6_channel_mix(p: dict, x: torch.Tensor, state=None) -> torch.Tensor:
-    """x [B, T, d] from the zero state -> the token-shifted squared-ReLU
-    FFN, gated by sigmoid of its receptance, [B, T, d]."""
-    _no_state(state)
-    dx = _shift(x) - x
+def rwkv6_time_mix_step(p: dict, cfg: RWKV6Config, x: torch.Tensor,
+                        state: dict):
+    """The exact one-token recurrence: x [B, 1, d] from ``state`` ->
+    (out [B, 1, d], the new state)."""
+    b = x.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    xr, xk, xv, xw, xg = _rwkv_mix_streams(p, x, state["x_tm"][:, None])
+    r = (xr @ p["wr"]).reshape(b, h, hd).to(F32)
+    k = (xk @ p["wk"]).reshape(b, h, hd).to(F32)
+    v = (xv @ p["wv"]).reshape(b, h, hd).to(F32)
+    g = F.silu(xg @ p["wg"])[:, 0]
+    w = torch.exp(-torch.exp(p["w0"] + torch.tanh(xw @ p["w_lora_a"])
+                             @ p["w_lora_b"]))
+    w = w.reshape(b, h, hd).to(F32)
+    S = state["S"]                                    # [B, H, K, V]
+    kv = torch.einsum("bhk,bhv->bhkv", k, v)
+    att = S + p["u"].to(F32)[None, :, :, None] * kv
+    out = torch.einsum("bhk,bhkv->bhv", r, att)
+    S_new = w[..., None] * S + kv
+    out = _group_norm(out, p["ln_scale"].to(F32), p["ln_bias"].to(F32))
+    out = (out.to(x.dtype) * g) @ p["wo"]
+    return out[:, None], {"x_tm": x[:, -1], "S": S_new}
+
+
+def rwkv6_channel_mix(p: dict, x: torch.Tensor, state: dict | None = None):
+    """x [B, T, d] from ``state`` (None: zeros) -> (the token-shifted
+    squared-ReLU FFN, gated by sigmoid of its receptance, [B, T, d],
+    {"x_cm": x[:, -1]})."""
+    last = state["x_cm"] if state is not None else None
+    dx = _shift(x, last) - x
     xk = x + dx * p["mu_k"]
     xr = x + dx * p["mu_r"]
     k = torch.square(torch.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    return (torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]),
+            {"x_cm": x[:, -1]})
+
+
+def init_rwkv6_state(cfg: RWKV6Config, batch: int, dtype=torch.bfloat16,
+                     device="cpu") -> dict:
+    """The zero state: x_tm, x_cm [B, d] in ``dtype``, S [B, H, hd, hd]
+    float32."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    return {"x_tm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                device=device),
+            "x_cm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                device=device),
+            "S": torch.zeros((batch, h, hd, hd), dtype=F32, device=device)}
 
 
 # ===========================================================================
@@ -266,16 +305,19 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal convolution from the zero state: x [B, T, C], w
-    [W, C], b [C]; the taps summed left to right from 0, then the bias, in
-    x's dtype."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: torch.Tensor | None = None):
+    """Depthwise causal convolution: x [B, T, C], w [W, C], b [C], from
+    ``state`` [B, W-1, C] (None: zeros); the taps summed left to right
+    from 0, then the bias, in x's dtype. Returns (out, the last W-1
+    inputs)."""
     width, t = w.shape[0], x.shape[1]
-    pad = torch.zeros((x.shape[0], width - 1, x.shape[-1]), dtype=x.dtype,
-                      device=x.device)
+    pad = (torch.zeros((x.shape[0], width - 1, x.shape[-1]), dtype=x.dtype,
+                       device=x.device) if state is None
+           else state.to(x.dtype))
     xp = torch.cat([pad, x], dim=1)
-    return sum(xp[:, i:i + t] * w[i] for i in range(width)) + b
+    out = sum(xp[:, i:i + t] * w[i] for i in range(width)) + b
+    return out, xp[:, -(width - 1):]
 
 
 def _ssd_chunk(S: torch.Tensor, x, Bm, Cm, loga, dt):
@@ -301,14 +343,16 @@ def _ssd_chunk(S: torch.Tensor, x, Bm, Cm, loga, dt):
 
 
 def mamba2_mix(p: dict, cfg: Mamba2Config, x: torch.Tensor,
-               state=None) -> torch.Tensor:
-    """x [B, T, d] from the zero state -> out [B, T, d] in x's dtype."""
-    _no_state(state)
+               state: dict | None = None):
+    """x [B, T, d] from ``state`` (None: zeros) -> (out [B, T, d] in x's
+    dtype, {"conv": the convolution's last inputs in x's dtype, "S"})."""
     b, t, _ = x.shape
     di, n, h, hd = cfg.d_inner, cfg.d_state, cfg.num_heads, cfg.head_dim
     L = _chunks(t, cfg.chunk)
     z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * n, h], dim=-1)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xbc, conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                             state["conv"] if state is not None else None)
+    xbc = F.silu(xbc)
     xs, Bm, Cm = torch.split(xbc, [di, n, n], dim=-1)
 
     dt = softplus(dt.to(F32) + p["dt_bias"])                       # [B, T, H]
@@ -316,7 +360,8 @@ def mamba2_mix(p: dict, cfg: Mamba2Config, x: torch.Tensor,
     xh = xs.reshape(b, t, h, hd).to(F32)
     Bm32, Cm32 = Bm.to(F32), Cm.to(F32)
 
-    S = torch.zeros((b, h, n, hd), dtype=F32, device=x.device)
+    S = (state["S"] if state is not None
+         else torch.zeros((b, h, n, hd), dtype=F32, device=x.device))
     ys = []
     for c in range(0, t, L):
         S, y = _ssd_chunk(S, xh[:, c:c + L], Bm32[:, c:c + L],
@@ -331,4 +376,15 @@ def mamba2_mix(p: dict, cfg: Mamba2Config, x: torch.Tensor,
     y = y * F.silu(z)
     var = torch.square(y.to(F32)).mean(-1, keepdim=True)
     y = (y.to(F32) * torch.rsqrt(var + 1e-6)).to(x.dtype)
-    return (y * p["norm_scale"]) @ p["out_proj"]
+    return (y * p["norm_scale"]) @ p["out_proj"], {"conv": conv.to(x.dtype),
+                                                   "S": S}
+
+
+def init_mamba2_state(cfg: Mamba2Config, batch: int, dtype=torch.bfloat16,
+                      device="cpu") -> dict:
+    """The zero state: conv [B, W-1, conv_dim] in ``dtype``, S [B, H, N,
+    hd] float32."""
+    return {"conv": torch.zeros((batch, cfg.conv_width - 1, cfg.conv_dim),
+                                dtype=dtype, device=device),
+            "S": torch.zeros((batch, cfg.num_heads, cfg.d_state,
+                              cfg.head_dim), dtype=F32, device=device)}

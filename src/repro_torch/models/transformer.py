@@ -2,7 +2,9 @@
 ``attn_full``, ``attn_sw``, ``mla``, ``mla_dense``, ``rwkv``, ``mamba`` and
 ``shared_attn`` blocks, an unscanned ``prelude``, MoE FFNs, a prefix of
 stub embeddings and an encoder with cross-attention: ``ModelConfig``,
-``init_model``, ``encode`` and ``forward_train``).
+``init_model``, ``encode`` and ``forward_train``; serving:
+``init_block_cache``, ``init_model_cache``, ``forward_prefill`` and
+``forward_decode``).
 
 Parameters keep the JAX layout and names: block ``j`` of kind ``kind`` in
 the period keeps its leaves under ``blocks/b{j}_{kind}/...``, each stacked
@@ -44,6 +46,15 @@ attention to the encoder's output without RoPE, added to the residual
 (leaves under ``cross/x{j}/{ln, attn}/...``, stacked over the periods).
 ``remat`` and ``unroll``, the JAX scan's execution options, have no
 counterpart: the port keeps the activations.
+
+Serving runs every layer in ``prefill`` or ``decode`` mode against its
+slice of the decode cache (``init_model_cache``: flat, keyed by the JAX
+cache tree's paths, the periods' caches stacked on a leading axis), which
+each block reads and writes in place: an attention block's KV (a window
+ring for ``attn_sw``), MLA's latent, RWKV-6's and Mamba-2's states, a
+shared site's own KV, and an encoder-decoder's cross cache, which prefill
+fills from the encoder's output and decode reads. A vision prefix runs
+in prefill only; decode positions continue after it.
 """
 from __future__ import annotations
 
@@ -107,7 +118,9 @@ class ModelConfig:
     encoder_periods: int = 0            # seamless: non-causal encoder
     prefix_len: int = 0                 # image patches / audio frames
     modality: str = "text"              # text | vision | audio
-    attn_impl: str = "naive"            # naive | chunked (queue A item 13)
+    attn_impl: str = "naive"            # naive | chunked (flash-style)
+    attn_q_chunk: int = 512
+    attn_kv_chunk: int = 1024
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -134,7 +147,7 @@ class ModelConfig:
             raise ValueError(f"mlp_kind={self.mlp_kind!r}, "
                              f"norm={self.norm!r}")
         for kind in kinds & {*ATTN_KINDS, "shared_attn"}:
-            self.attn_cfg(kind)               # refuses a chunked impl
+            self.attn_cfg(kind)               # refuses an unported impl
 
     @property
     def num_layers(self) -> int:
@@ -148,7 +161,8 @@ class ModelConfig:
             window=self.window if kind == "attn_sw" else None,
             logit_softcap=self.attn_softcap, query_scale=self.query_scale,
             use_bias=self.use_bias, use_rope=self.use_rope,
-            impl=self.attn_impl)
+            impl=self.attn_impl, q_chunk=self.attn_q_chunk,
+            kv_chunk=self.attn_kv_chunk)
 
     def mla_cfg(self) -> attn.MLAConfig:
         return attn.MLAConfig(
@@ -450,16 +464,44 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
                      p["ffn/down_b"], h, cfg.act), None
 
 
+def _store(cache: dict | None, new: dict) -> None:
+    """Write a recurrent block's new state into its cache in place."""
+    if cache is not None:
+        for name, value in new.items():
+            cache[name].copy_(value)
+
+
+def _attend(p: dict, acfg: attn.AttnConfig, h: torch.Tensor, mode: str,
+            cache: dict | None, pos, causal: bool = True) -> torch.Tensor:
+    """GQA attention in ``mode``: train (or an encoder's, ``causal``),
+    prefill or decode, the last two writing ``cache`` in place."""
+    if mode == "train":
+        return attn.attention_train(p, acfg, h, causal=causal)
+    if mode == "prefill":
+        return attn.attention_prefill(p, acfg, h, cache)
+    return attn.attention_decode(p, acfg, h, cache, pos)
+
+
+def _attend_mla(p: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
+                cache: dict | None, pos) -> torch.Tensor:
+    if mode == "train":
+        return attn.mla_train(p, cfg.mla_cfg(), h)
+    if mode == "prefill":
+        return attn.mla_prefill(p, cfg.mla_cfg(), h, cache)
+    return attn.mla_decode(p, cfg.mla_cfg(), h, cache, pos)
+
+
 def _shared_site(cfg: ModelConfig, p: dict, shared: dict, x: torch.Tensor,
-                 emb0: torch.Tensor) -> torch.Tensor:
+                 emb0: torch.Tensor, mode: str = "train",
+                 cache: dict | None = None, pos=None) -> torch.Tensor:
     """A ``shared_attn`` site: [x, emb0] through the shared block, its
     input projection plus the site's LoRA (formed in the parameter
-    dtype), then the residual add of its output projection."""
+    dtype), then the residual add of its output projection; in serving
+    the shared attention keeps a cache per site."""
     cat = torch.cat([x, emb0.to(x.dtype)], dim=-1)
     h = cat @ (shared["in_proj"] + p["lora_a"] @ p["lora_b"])
-    h = h + attn.attention_train(_sub(shared, "attn/"),
-                                 cfg.attn_cfg("attn_full"),
-                                 _norm(cfg, shared, "ln1", h))
+    h = h + _attend(_sub(shared, "attn/"), cfg.attn_cfg("attn_full"),
+                    _norm(cfg, shared, "ln1", h), mode, cache, pos)
     h = h + gated_mlp(shared["ffn/gate"], shared["ffn/up"],
                       shared["ffn/down"], _norm(cfg, shared, "ln2", h),
                       cfg.act)
@@ -468,28 +510,40 @@ def _shared_site(cfg: ModelConfig, p: dict, shared: dict, x: torch.Tensor,
 
 def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
            balance_group=None, shared: dict | None = None,
-           emb0: torch.Tensor | None = None, causal: bool = True):
+           emb0: torch.Tensor | None = None, causal: bool = True,
+           mode: str = "train", cache: dict | None = None, pos=None):
     """One block on x [B, S, d]; ``p`` maps the block's leaf names
     (``"attn/wq"``) to this layer's slices, ``shared`` zamba2's shared
     leaves and ``emb0`` the embedded tokens (for ``shared_attn``);
-    ``causal=False`` for an encoder's ``attn_full`` block. Returns ``(x,
+    ``causal=False`` for an encoder's ``attn_full`` block. ``mode``:
+    train, prefill or decode (x [B, 1, d] at position ``pos``); serving
+    reads and writes this layer's ``cache`` in place. Returns ``(x,
     aux)``."""
     if kind == "rwkv":
-        x = x + ssm.rwkv6_time_mix(_sub(p, "tm/"), cfg.rwkv,
-                                   _norm(cfg, p, "ln1", x))
-        return x + ssm.rwkv6_channel_mix(_sub(p, "cm/"),
-                                         _norm(cfg, p, "ln2", x)), None
+        h = _norm(cfg, p, "ln1", x)
+        if mode == "decode":
+            a, tm = ssm.rwkv6_time_mix_step(_sub(p, "tm/"), cfg.rwkv, h,
+                                            cache)
+        else:
+            a, tm = ssm.rwkv6_time_mix(_sub(p, "tm/"), cfg.rwkv, h, cache)
+        x = x + a
+        c, cm = ssm.rwkv6_channel_mix(_sub(p, "cm/"),
+                                      _norm(cfg, p, "ln2", x), cache)
+        _store(cache, {**tm, **cm})
+        return x + c, None
     if kind == "mamba":
-        return x + ssm.mamba2_mix(_sub(p, "mix/"), cfg.mamba,
-                                  _norm(cfg, p, "ln1", x)), None
+        a, st = ssm.mamba2_mix(_sub(p, "mix/"), cfg.mamba,
+                               _norm(cfg, p, "ln1", x), cache)
+        _store(cache, st)
+        return x + a, None
     if kind == "shared_attn":
-        return _shared_site(cfg, p, shared, x, emb0), None
+        return _shared_site(cfg, p, shared, x, emb0, mode, cache, pos), None
     h = _norm(cfg, p, "ln1", x)
     if kind in MLA_KINDS:
-        a = attn.mla_train(_sub(p, "attn/"), cfg.mla_cfg(), h)
+        a = _attend_mla(_sub(p, "attn/"), cfg, h, mode, cache, pos)
     else:
-        a = attn.attention_train(_sub(p, "attn/"), cfg.attn_cfg(kind), h,
-                                 causal=causal)
+        a = _attend(_sub(p, "attn/"), cfg.attn_cfg(kind), h, mode, cache,
+                    pos, causal)
     x = _residual(cfg, p, x, a, "post_ln1")
     f, aux = _ffn(cfg, kind, p, _norm(cfg, p, "ln2", x), balance_group)
     return _residual(cfg, p, x, f, "post_ln2"), aux
@@ -518,15 +572,82 @@ def encode(params: dict[str, torch.Tensor], cfg: ModelConfig,
     return _norm(cfg, params, "enc_final_ln", x)
 
 
-def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor,
-           enc_out: torch.Tensor) -> torch.Tensor:
-    """A decoder block's cross-attention sublayer (JAX's ``_cross_apply``
-    in train mode): x plus non-causal attention from ``ln(x)`` to the
-    encoder's output, without RoPE."""
-    return x + attn.attention_train(_sub(p, "attn/"),
-                                    cfg.attn_cfg("attn_full"),
-                                    _norm(cfg, p, "ln", x), kv_x=enc_out,
-                                    causal=False)
+def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str,
+           enc_out: torch.Tensor | None, cache: dict | None) -> torch.Tensor:
+    """A decoder block's cross-attention sublayer (JAX's
+    ``_cross_apply``): x plus non-causal attention from ``ln(x)`` to the
+    encoder's output, without RoPE; prefill also writes the encoder's
+    keys and values into this period's ``cache``, which decode reads
+    (``attention.cross_attention_step``)."""
+    acfg, pa = cfg.attn_cfg("attn_full"), _sub(p, "attn/")
+    h = _norm(cfg, p, "ln", x)
+    if mode == "decode":
+        return x + attn.cross_attention_step(pa, acfg, h, cache)
+    if mode == "prefill":
+        _store(cache, attn.init_cross_cache(acfg, pa, enc_out, cfg.dtype))
+    return x + attn.attention_train(pa, acfg, h, kv_x=enc_out, causal=False)
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           prefix: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+    """The embedded tokens in the model dtype, a vision model's
+    ``prefix`` before them (where ``cfg.prefix_len`` is set, as in JAX),
+    and the prefix's length."""
+    x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
+    n_prefix = (prefix.shape[1] if cfg.prefix_len and prefix is not None
+                else 0)
+    if n_prefix:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return x, n_prefix
+
+
+def _encoded(params: dict, cfg: ModelConfig,
+             enc_embeds: torch.Tensor | None) -> torch.Tensor | None:
+    if not cfg.encoder_periods:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                         "enc_embeds [B, F, d_model]")
+    return encode(params, cfg, enc_embeds)
+
+
+def _per_layer(caches: dict | None, prefix: str) -> dict | None:
+    return None if caches is None else _sub(caches, prefix)
+
+
+def _stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+           mode: str = "train", caches: dict | None = None, pos=None,
+           enc_out: torch.Tensor | None = None, balance_group=None):
+    """The prelude, then the periods (each block, then in an
+    encoder-decoder its cross-attention sublayer) on x, ``emb0`` = x; in
+    serving each layer reads and writes its slice of ``caches`` in place.
+    Returns ``(x, aux)``, the MoE auxiliary losses summed in order."""
+    site = dict(balance_group=balance_group, shared=_sub(params, "shared/"),
+                emb0=x, mode=mode, pos=pos)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    for path, kind in cfg.prelude_blocks():
+        x, a = _block(cfg, kind, _sub(params, path + "/"), x,
+                      cache=_per_layer(caches, path + "/"), **site)
+        if a is not None:
+            aux = aux + a
+    layers = [(kind, _layers(params, path + "/"),
+               _per_layer(caches, path + "/"))
+              for path, kind in cfg.blocks()]
+    cross = ([_layers(params, path + "/") for path in cfg.cross_blocks()]
+             if cfg.encoder_periods else [])
+    cross_cache = _per_layer(caches, "cross/")
+    for i in range(cfg.num_periods):
+        for j, (kind, p, c) in enumerate(layers):
+            x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
+                          cache=None if c is None else
+                          {k: v[i] for k, v in c.items()}, **site)
+            if a is not None:
+                aux = aux + a
+            if cross:
+                x = _cross(cfg, {k: v[i] for k, v in cross[j].items()}, x,
+                           mode, enc_out, None if cross_cache is None else
+                           {k: v[i] for k, v in cross_cache.items()})
+    return x, aux
 
 
 def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
@@ -541,41 +662,95 @@ def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
     worker's batch alone. ``prefix`` [B, P, d]: a vision model's patch
     embeddings (read where ``cfg.prefix_len`` is set, as in JAX);
     ``enc_embeds`` [B, F, d]: an encoder-decoder's frame embeddings."""
-    x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
-    n_prefix = (prefix.shape[1] if cfg.prefix_len and prefix is not None
-                else 0)
-    if n_prefix:
-        x = torch.cat([prefix.to(x.dtype), x], dim=1)
-    enc_out = None
-    if cfg.encoder_periods:
-        if enc_embeds is None:
-            raise ValueError(f"{cfg.name}: an encoder-decoder needs "
-                             "enc_embeds [B, F, d_model]")
-        enc_out = encode(params, cfg, enc_embeds)
-    site = dict(balance_group=balance_group, shared=_sub(params, "shared/"),
-                emb0=x)
-    aux = torch.zeros((), dtype=F32, device=x.device)
-    for path, kind in cfg.prelude_blocks():
-        x, a = _block(cfg, kind, _sub(params, path + "/"), x, **site)
-        if a is not None:
-            aux = aux + a
-    layers = [(kind, _layers(params, path + "/"))
-              for path, kind in cfg.blocks()]
-    cross = [_layers(params, path + "/") for path in cfg.cross_blocks()
-             ] if enc_out is not None else []
-    for i in range(cfg.num_periods):
-        for j, (kind, p) in enumerate(layers):
-            x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
-                          **site)
-            if a is not None:
-                aux = aux + a
-            if cross:
-                x = _cross(cfg, {k: v[i] for k, v in cross[j].items()}, x,
-                           enc_out)
+    x, n_prefix = _embed(params, cfg, tokens, prefix)
+    x, aux = _stack(params, cfg, x, enc_out=_encoded(params, cfg,
+                                                     enc_embeds),
+                    balance_group=balance_group)
     x = _norm(cfg, params, "final_ln", x)
     if n_prefix:
         x = x[:, n_prefix:]
     return softcap(unembed(params["embed/table"], x), cfg.final_softcap), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: the caches, prefill and decode
+# ---------------------------------------------------------------------------
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     dtype=None, device="cpu") -> dict:
+    """One layer's cache: GQA's k, v (a ``shared_attn`` site's as
+    ``attn_full``'s), MLA's latent, or RWKV-6's or Mamba-2's state."""
+    dtype = dtype if dtype is not None else cfg.dtype
+    if kind in (*ATTN_KINDS, "shared_attn"):
+        return attn.init_cache(cfg.attn_cfg(
+            "attn_full" if kind == "shared_attn" else kind), batch, max_seq,
+            dtype, device)
+    if kind in MLA_KINDS:
+        return attn.init_mla_cache(cfg.mla_cfg(), batch, max_seq, dtype,
+                                   device)
+    if kind == "rwkv":
+        return ssm.init_rwkv6_state(cfg.rwkv, batch, dtype, device)
+    return ssm.init_mamba2_state(cfg.mamba, batch, dtype, device)
+
+
+def init_model_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     device=None) -> dict[str, torch.Tensor]:
+    """The whole decode cache, flat and keyed by the JAX cache tree's
+    paths: ``prelude/p{j}_{kind}/<leaf>`` unstacked,
+    ``blocks/b{j}_{kind}/<leaf>`` stacked over the periods on a leading
+    axis, and an encoder-decoder's ``cross/k``, ``cross/v`` [periods, B,
+    prefix_len, Hkv, D] in the model dtype. Zeros on the card unless
+    ``device`` says otherwise."""
+    dev = resolve_device(device)
+    out = {}
+    for path, kind in cfg.prelude_blocks():
+        out.update({f"{path}/{k}": v for k, v in init_block_cache(
+            cfg, kind, batch, max_seq, device=dev).items()})
+    for path, kind in cfg.blocks():
+        out.update({f"{path}/{k}": v.expand(
+            (cfg.num_periods,) + v.shape).contiguous()
+            for k, v in init_block_cache(cfg, kind, batch, max_seq,
+                                         device=dev).items()})
+    if cfg.encoder_periods:
+        shape = (cfg.num_periods, batch, cfg.prefix_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        out.update({f"cross/{k}": torch.zeros(shape, dtype=cfg.dtype,
+                                              device=dev)
+                    for k in ("k", "v")})
+    return out
+
+
+def cache_bytes(caches: dict[str, torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in caches.values())
+
+
+@torch.no_grad()
+def forward_prefill(params: dict[str, torch.Tensor], cfg: ModelConfig,
+                    batch: dict[str, torch.Tensor],
+                    caches: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The prompt pass: ``batch["tokens"]`` [B, S] (a vision model's
+    ``prefix`` before them, an encoder-decoder's ``enc_embeds`` through
+    the encoder), every layer's cache filled in place -> the last
+    position's logits [B, 1, vocab]."""
+    x, _ = _embed(params, cfg, batch["tokens"], batch.get("prefix"))
+    x, _ = _stack(params, cfg, x, mode="prefill", caches=caches,
+                  enc_out=_encoded(params, cfg, batch.get("enc_embeds")))
+    x = _norm(cfg, params, "final_ln", x[:, -1:])
+    return softcap(unembed(params["embed/table"], x), cfg.final_softcap)
+
+
+@torch.no_grad()
+def forward_decode(params: dict[str, torch.Tensor], cfg: ModelConfig,
+                   tokens: torch.Tensor, caches: dict[str, torch.Tensor],
+                   pos: int) -> torch.Tensor:
+    """One token a sequence, tokens [B, 1] at position ``pos`` (a vision
+    model's first decode position is ``P + S``), against ``caches``,
+    which it updates in place -> logits [B, 1, vocab]."""
+    x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
+    x, _ = _stack(params, cfg, x, mode="decode", caches=caches,
+                  pos=int(pos))
+    x = _norm(cfg, params, "final_ln", x)
+    return softcap(unembed(params["embed/table"], x), cfg.final_softcap)
 
 
 class Transformer(nn.Module):
@@ -604,3 +779,13 @@ class Transformer(nn.Module):
         """(logits, aux): ``forward_train``."""
         return forward_train(dict(self.params), self.cfg, tokens,
                              prefix=prefix, enc_embeds=enc_embeds)
+
+    def prefill(self, batch: dict, caches: dict) -> torch.Tensor:
+        """``forward_prefill``: the last position's logits."""
+        return forward_prefill(dict(self.params), self.cfg, batch, caches)
+
+    def decode(self, tokens: torch.Tensor, caches: dict,
+               pos: int) -> torch.Tensor:
+        """``forward_decode``: the logits of one token a sequence."""
+        return forward_decode(dict(self.params), self.cfg, tokens, caches,
+                              pos)

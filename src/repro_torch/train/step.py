@@ -13,6 +13,11 @@ the exchange is the pod hierarchy of ``sync_tree`` (the pod stage, with
 ``comp.resparsify_pods`` Algorithm 1's step 7 on its own residual,
 ``FeedbackState.pod_residual``).
 
+``make_prefill_step`` and ``make_decode_step`` are the serving steps
+(no compression: gradient sparsification is a training method); they
+fill and advance the caches of ``models.transformer.init_model_cache``
+in place.
+
 ``make_fsdp_train_step`` is the JAX package's fsdp mode: the gradient
 averaged over every worker, then Q applied once to the average (Algorithm
 1's step 7), with error feedback on a params-shaped residual.
@@ -32,7 +37,8 @@ import torch.distributed as dist
 
 from repro_torch.comm.sync import SyncStats, _worker_order_mean, sync_tree
 from repro_torch.core.api import CompressionConfig, compress_tree
-from repro_torch.models.transformer import ModelConfig, forward_train
+from repro_torch.models.transformer import (ModelConfig, forward_decode,
+                                            forward_prefill, forward_train)
 from repro_torch.optim.optimizers import (ControlState, FeedbackState,
                                           Optimizer, init_control,
                                           rescale_feedback)
@@ -260,3 +266,23 @@ def make_fsdp_train_step(model, comp: CompressionConfig | None,
             opt_state, _, metrics = _step(opt_state, None, batch, generator)
             return opt_state, metrics
     return step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps (no compression: gradient sparsification is a training method)
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    """``(params dict, batch, caches) -> the last position's logits``
+    [B, 1, vocab]; the caches are filled in place (``forward_prefill``)."""
+    def prefill_step(params, batch, caches):
+        return forward_prefill(params, cfg, batch, caches)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """``(params dict, caches, tokens [B, 1], pos) -> logits`` [B, 1,
+    vocab]; the caches are advanced in place (``forward_decode``)."""
+    def decode_step(params, caches, tokens, pos):
+        return forward_decode(params, cfg, tokens, caches, pos)
+    return decode_step

@@ -591,13 +591,15 @@ def test_launcher_refuses_the_xla_presets(preset):
 
 
 def test_what_is_not_ported_is_refused():
-    """Chunked attention names queue A item 13 and stays refused, and so
-    do untied embeddings, which the JAX package declares but never reads;
-    the encoder-decoder and prefix fields and the two architectures that
-    use them are now accepted."""
+    """Sequence-parallel attention names queue A item 10d and stays
+    refused, and so do untied embeddings, which the JAX package declares
+    but never reads; chunked attention, the encoder-decoder and prefix
+    fields and the two architectures that use them are now accepted."""
     cfg = tregistry.get("gemma2-9b").smoke
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        dataclasses.replace(cfg, attn_impl="chunked")
+    with pytest.raises(NotImplementedError, match="queue A item 10d"):
+        dataclasses.replace(cfg, attn_impl="seq_parallel")
+    assert dataclasses.replace(cfg, attn_impl="chunked").attn_cfg(
+        "attn_sw").impl == "chunked"
     with pytest.raises(NotImplementedError, match="never reads it"):
         dataclasses.replace(cfg, tie_embeddings=False)
     for kw in (dict(encoder_periods=2), dict(prefix_len=16),

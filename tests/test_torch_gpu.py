@@ -1482,7 +1482,7 @@ def test_ssm_mixers_card_match_cpu(card, mixer):
         p = {k: v.to(dev, copy=True).requires_grad_(True)
              for k, v in params.items()}
         xd = x.to(dev, copy=True).requires_grad_(True)
-        y = getattr(ssm, mixer)(p, cfg, xd)
+        y, _ = getattr(ssm, mixer)(p, cfg, xd)
         torch.sum(y * c.to(dev)).backward()
         run = [t.detach().cpu() for t in
                (y, xd.grad, *[p[k].grad for k in sorted(p)])]

@@ -24,8 +24,8 @@ same numpy parameters and inputs:
   the site's ``lora_a``/``lora_b``, ``emb0`` and x; its own ``ln1`` gets
   exact zeros from ``jax.grad`` and none from the port's autograd (the
   train step fills in zeros);
-- the refusals: a carried state (queue A item 10), a sequence the chunk
-  does not divide.
+- the refusal of a sequence the chunk does not divide (a carried state
+  is accepted: ``tests/test_torch_serve.py``).
 """
 import functools
 
@@ -100,16 +100,17 @@ def _module(which: str):
         tcfg = _smoke("zamba2-2.7b")[1].mamba
         return (lambda ini: jssm.init_mamba2(ini, jcfg),
                 lambda p, x: jssm.mamba2_mix(p, jcfg, x)[0],
-                lambda p, x: tssm.mamba2_mix(p, tcfg, x), jcfg.d_model)
+                lambda p, x: tssm.mamba2_mix(p, tcfg, x)[0], jcfg.d_model)
     jcfg = _smoke("rwkv6-1.6b")[0].rwkv
     tcfg = _smoke("rwkv6-1.6b")[1].rwkv
     if which == "time_mix":
         return (lambda ini: jssm.init_rwkv6_time_mix(ini, jcfg),
                 lambda p, x: jssm.rwkv6_time_mix(p, jcfg, x)[0],
-                lambda p, x: tssm.rwkv6_time_mix(p, tcfg, x), jcfg.d_model)
+                lambda p, x: tssm.rwkv6_time_mix(p, tcfg, x)[0],
+                jcfg.d_model)
     return (lambda ini: jssm.init_rwkv6_channel_mix(ini, jcfg),
             lambda p, x: jssm.rwkv6_channel_mix(p, x)[0],
-            lambda p, x: tssm.rwkv6_channel_mix(p, x), jcfg.d_model)
+            lambda p, x: tssm.rwkv6_channel_mix(p, x)[0], jcfg.d_model)
 
 
 def _port_value_and_grads(fn, params: dict, x: np.ndarray, c: np.ndarray):
@@ -260,7 +261,7 @@ def test_causal_conv_rounds_as_jax_in_bf16():
     want = tensor_from_numpy(np.asarray(jax.jit(
         lambda x, w, b: jssm._causal_conv(x, w, b)[0])(x, w, b)))
     X, W, Bb = (tensor_from_numpy(np.asarray(a)) for a in (x, w, b))
-    got = tssm._causal_conv(X, W, Bb)
+    got, _ = tssm._causal_conv(X, W, Bb)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     xp = torch.cat([torch.zeros((2, 3, 40), dtype=torch.bfloat16), X], 1)
@@ -316,15 +317,23 @@ def test_shared_attn_site_matches_jax():
 
 
 def test_what_the_mixers_refuse():
+    """A sequence the chunk does not divide, with or without a carried
+    state; a carried state itself is accepted (prefill and decode, held
+    to JAX in ``tests/test_torch_serve.py``)."""
     _, _, tapply, d = _module("mamba")
     tcfg = _smoke("zamba2-2.7b")[1].mamba
     x = torch.zeros((1, 12, d))
     with pytest.raises(ValueError, match="not divisible by chunk"):
         tssm.mamba2_mix({}, tcfg, x)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        tssm.mamba2_mix({}, tcfg, x, state={"S": None})
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        tssm.mamba2_mix({}, tcfg, x, state=tssm.init_mamba2_state(
+            tcfg, 1, torch.float32))
     rcfg = _smoke("rwkv6-1.6b")[1].rwkv
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        tssm.rwkv6_time_mix({}, rcfg, x, state={"S": None})
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        tssm.rwkv6_channel_mix({}, x, state={"x_cm": None})
+    with pytest.raises(ValueError, match="not divisible by chunk"):
+        tssm.rwkv6_time_mix({}, rcfg, x, state=tssm.init_rwkv6_state(
+            rcfg, 1, torch.float32))
+    p = {k: torch.from_numpy(v) for k, v in _params("channel_mix").items()}
+    state = {"x_cm": torch.ones((1, d))}
+    out, new = tssm.rwkv6_channel_mix(p, x, state)
+    assert out.shape == x.shape and torch.equal(new["x_cm"], x[:, -1])
+    assert not torch.equal(out, tssm.rwkv6_channel_mix(p, x)[0])
