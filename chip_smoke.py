@@ -2998,25 +2998,33 @@ WIDE_CHUNK = 1 << 28              # widest group; its plain version's chunk
 
 def arch_plan(arch: str, periods: int, wire: str = "gather"):
     """The launcher's plan of ``arch`` cut to ``periods`` (meta tensors)
-    and the ``MainPath`` of its gspar ``auto`` exchange: bf16 values at
-    every slot of the sparse groups, a count a row, the static RICE words
-    as its bound, and 4 bytes per element of the dense passthrough."""
+    and the ``MainPath`` of its gspar ``auto`` exchange (``gspar_path``)."""
     import dataclasses as dc
-    from repro_torch.comm import wire_layout
     from repro_torch.configs import registry
-    from repro_torch.core import coding
-    from repro_torch.core.api import CompressionConfig
-    from repro_torch.core.grouping import plan_tree
     from repro_torch.models.common import leaf_order
     from repro_torch.models.transformer import param_shapes
     cfg = dc.replace(registry.get(arch).model, num_periods=periods)
     shapes = param_shapes(cfg)
     names = leaf_order(shapes)
+    plan, path = gspar_path([torch.empty(shapes[n][0], dtype=cfg.dtype,
+                                         device="meta") for n in names],
+                            [shapes[n][1] for n in names], wire)
+    return cfg, plan, path
+
+
+def gspar_path(leaves: list, stacked: list, wire: str = "gather"):
+    """The plan of ``leaves`` (meta tensors; ``stacked`` flags the layer
+    stacks) under gspar with EF at RHO and the ``MainPath`` of its ``auto``
+    exchange: bf16 values at every slot of the sparse groups, a count a
+    row, the static RICE words as its bound, and 4 bytes per element of
+    the dense passthrough."""
+    from repro_torch.comm import wire_layout
+    from repro_torch.core import coding
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.core.grouping import plan_tree
     comp = CompressionConfig(name="gspar", rho=RHO, error_feedback=True,
                              wire=wire, min_leaf_size=1024)
-    plan = plan_tree(comp, [torch.empty(shapes[n][0], dtype=cfg.dtype,
-                                        device="meta") for n in names],
-                     [shapes[n][1] for n in names])
+    plan = plan_tree(comp, leaves, stacked)
     sparse = [g for g in plan.groups if g.kind == "sparse"]
     layouts = {wire_layout.choose(g.k_cap, g.d, 16.0) for g in sparse}
     rows = sum(g.rows for g in sparse)
@@ -3028,7 +3036,21 @@ def arch_plan(arch: str, periods: int, wire: str = "gather"):
                         for g in sparse),
                     dense_bytes=4 * sum(g.d for g in plan.groups
                                         if g.kind == "dense"))
-    return cfg, plan, path
+    return plan, path
+
+
+def held_launches(what: str, launches: dict, kernels, steps: int,
+                  n_groups: int, n_rice: int) -> None:
+    """Each of ``kernels`` launched once a group a step (rice_pack once a
+    RICE group, tail_stats up to twice: the greedy solver's passes)."""
+    for v in kernels:
+        want = steps * (n_rice if v == "rice_pack" else n_groups)
+        got = launches.get(v, 0)
+        if not (got == want or (v == "tail_stats" and want <= got
+                                <= 2 * want)):
+            raise AssertionError(f"{what}: kernel {v} launched {got} "
+                                 f"times, want {want} ({n_groups} groups, "
+                                 f"{n_rice} rice, {steps} steps)")
 
 
 def arch_run(arch: str) -> dict:
@@ -3073,14 +3095,8 @@ def arch_run(arch: str) -> dict:
         raise AssertionError(f"{arch}: ran in mode {summary['mode']}")
     n_groups = sum(g.kind == "sparse" for g in plan.groups)
     n_rice = sum(lay == "rice" for *_, lay in summary["layouts"])
-    for v in FSDP_KERNELS if fsdp else ARCH_KERNELS:
-        want = len(ms) * (n_rice if v == "rice_pack" else n_groups)
-        got = launches.get(v, 0)
-        if not (got == want or (v == "tail_stats" and want <= got
-                                <= 2 * want)):
-            raise AssertionError(f"{arch}: kernel {v} launched {got} "
-                                 f"times, want {want} ({n_groups} groups, "
-                                 f"{n_rice} rice, {len(ms)} steps)")
+    held_launches(arch, launches, FSDP_KERNELS if fsdp else ARCH_KERNELS,
+                  len(ms), n_groups, n_rice)
     for step, m in enumerate(ms):
         # a checked exchange's overflow is the buffers' own count of
         # dropped survivors (``exchange_check``): under EF a row of 2,048
@@ -3443,6 +3459,348 @@ def arch_phase(tmp: Path) -> dict:
     K.reset_launches()
     return {"runs": runs, "window": window, "checkpoint": ckpt,
             "wide": wide}
+
+
+# --- the model axis: Algorithm 1 shard by shard (model_axis_phase) ----------
+
+# (a) arch_phase's gemma2-9b run at --mesh 1x1 against the same run without
+# a mesh; (b) the per-shard half of the step for MODEL_AXIS_M model workers
+# of one data worker, in this one process, at the same depth
+MODEL_AXIS_ARCH = "gemma2-9b"
+MODEL_AXIS_M = 4
+MESH_ONE_STEPS = 6         # (a)'s steps a run: five past the first timed
+# a few leaves' shards under the launcher's rules at MODEL_AXIS_M: heads,
+# kv_heads, mlp and vocab split over the model axis
+MODEL_AXIS_SHARDS = {"blocks/b0_attn_sw/attn/wq": (4, 3584, 4, 256),
+                     "blocks/b0_attn_sw/attn/wk": (4, 3584, 2, 256),
+                     "blocks/b0_attn_sw/ffn/up": (4, 3584, 3584),
+                     "blocks/b0_attn_sw/ffn/down": (4, 3584, 3584),
+                     "embed/table": (64000, 3584)}
+
+
+def mesh_run(extra: list) -> tuple[dict, list]:
+    """arch_phase's run of MODEL_AXIS_ARCH (``--seed 0``) with ``extra``
+    flags, the kernel counts set to 0 just before it and read just after;
+    returns the summary (``launches`` added) and the final parameters,
+    copied to the host."""
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.train import step as step_lib
+    periods, _, flags = ARCH_RUNS[MODEL_AXIS_ARCH]
+    models = []
+    real = step_lib.make_compressed_train_step
+
+    def spy(model, *a, **k):
+        models.append(model)
+        return real(model, *a, **k)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_lib.make_compressed_train_step = spy
+    K.reset_launches()
+    try:
+        summary = train.main(["--arch", MODEL_AXIS_ARCH, "--num-periods",
+                              str(periods), "--seed", "0"] + ARCH_ARGS
+                             + flags + extra)
+    finally:
+        step_lib.make_compressed_train_step = real
+    summary["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+    params = [p.detach().cpu() for p in models[0].leaves()]
+    del models
+    return summary, params
+
+
+def mesh_one_check() -> dict:
+    """(a): ``--mesh 1x1`` gives the losses, metrics and final parameters
+    of the run without a mesh, bit for bit; both launch every kernel of
+    the path once a group a step. Both take the one step (a model axis of
+    size 1); the mesh's exchange runs on a data group of its own
+    (``dist.new_group``, NCCL), the other on the default group. Their
+    steps past the first are printed side by side."""
+    _, plan, _ = arch_plan(MODEL_AXIS_ARCH, ARCH_RUNS[MODEL_AXIS_ARCH][0])
+    n_groups = sum(g.kind == "sparse" for g in plan.groups)
+    runs = {}
+    steps = ["--steps", str(MESH_ONE_STEPS)]
+    for name, extra in (("no_mesh", steps),
+                        ("mesh_1x1", steps + ["--mesh", "1x1"])):
+        summary, params = mesh_run(extra)
+        n_rice = sum(lay == "rice" for *_, lay in summary["layouts"])
+        held_launches(f"{MODEL_AXIS_ARCH} {name}", summary["launches"],
+                      ARCH_KERNELS, len(summary["metrics"]), n_groups,
+                      n_rice)
+        runs[name] = (summary, params)
+    (a, pa), (b, pb) = runs["no_mesh"], runs["mesh_1x1"]
+    if a["metrics"] != b["metrics"] or a["layouts"] != b["layouts"]:
+        raise AssertionError(f"--mesh 1x1: metrics {b['metrics']} != "
+                             f"{a['metrics']}")
+    _same("--mesh 1x1 final parameters", pa, pb)
+    del pa, pb
+    out = {name: {"step_seconds": s["step_seconds"],
+                  "max_memory_allocated": s["max_memory_allocated"],
+                  "wire_bytes": [m["wire_bytes"] for m in s["metrics"]],
+                  "loss": [m["loss"] for m in s["metrics"]],
+                  "launches": s["launches"]}
+           for name, (s, _) in runs.items()}
+    for name in out:        # the steps past the first: median, min, max
+        t = out[name]["step_seconds"][1:]
+        out[name]["steps_past_first"] = {
+            "median": statistics.median(t), "min": min(t), "max": max(t)}
+    one, no = out["mesh_1x1"]["steps_past_first"], \
+        out["no_mesh"]["steps_past_first"]
+    print(f"model axis (a): {MODEL_AXIS_ARCH} --mesh 1x1 bit-equal to the "
+          f"run without a mesh (losses {out['mesh_1x1']['loss']}, wire "
+          f"bytes {out['mesh_1x1']['wire_bytes']}, parameters); steps 2-"
+          f"{MESH_ONE_STEPS} median {one['median']:.4f} s (min "
+          f"{one['min']:.4f}, max {one['max']:.4f}), without a mesh "
+          f"{no['median']:.4f} s (min {no['min']:.4f}, max "
+          f"{no['max']:.4f})", flush=True)
+    return out
+
+
+def shard_kernel_checks(tally: Tally, g, u, k_cap: int) -> None:
+    """The main path's kernels on one group of a shard against their plain
+    versions (as the kernel phase holds them at gemma-2b's groups): the
+    row stats, the greedy solver's tail pass, pass 1, pass 2 with EF and
+    the Golomb-Rice words."""
+    from repro_torch.core import codecs, coding
+    from repro_torch.kernels.sparsify import kernel as K, ops, ref
+    rows, d = g.shape
+    l1, mx = K.stats_l1max(g)
+    rl1, rmx = ref.stats_l1max_ref(g)
+    chk = tally.add("stats_l1max")
+    chk.close("stats_l1max l1", l1, rl1)
+    chk.equal("stats_l1max max", mx, rmx)
+    lam0 = ops.greedy_lambda(l1, mx, RHO, d)
+    gate = lam0 * mx > 1.0
+    thresh = ops._safe_div(1.0, lam0)
+    cnt, tl1 = K.tail_stats(g, thresh, gate)
+    rcnt, rtl1 = ref.tail_stats_ref(g, thresh, gate)
+    chk = tally.add("tail_stats")
+    chk.equal("tail_stats count", cnt, rcnt)
+    chk.close("tail_stats l1", tl1, rtl1)
+    lam = ops.greedy_lambda(l1, mx, RHO, d, tail_fn=ops._kernel_tail_fn(g))
+    st = K.select_stats(g, u, lam, k_cap)
+    rst = ref.select_stats_ref(g, u, lam, k_cap, K.TILE)
+    chk = tally.add("select_stats/lam")
+    for f in ("nnz", "nonzeros", "base", "max_abs"):
+        chk.equal(f"select_stats {f}", getattr(st, f), getattr(rst, f))
+    for f in ("p_sum", "den", "sum_sq"):
+        chk.close(f"select_stats {f}", getattr(st, f), getattr(rst, f))
+    del rst
+    f32 = codecs.FloatCodec()
+    out = K.compact_emit(g, u, lam, st, k_cap=k_cap, codec=f32, ef=True)
+    want = ref.compact_emit_ref(g, u, lam, k_cap, f32, True)
+    chk = tally.add("compact_emit/lam")
+    for what, a, b in zip(("values", "idx", "residual"), out, want):
+        chk.equal(f"compact_emit {what}", a, b)
+    del want
+    r = coding.rice_parameter(k_cap, d)
+    words, used = K.rice_pack(out[1], st.nnz, d=d, r=r)
+    want_w, want_u = ref.rice_pack_ref(out[1], st.nnz, d, r)
+    chk = tally.add("rice_pack")
+    chk.equal("rice_pack words", words, want_w)
+    chk.equal("rice_pack used", used, want_u)
+    variant_checks(tally, g, u, l1, mx, k_cap)
+
+
+SHARD_SYNC_REPS = 7      # timed syncs of a tree, after one warm-up call
+
+
+def shard_sync_ms(comp, leaves: list, stacked: list, group, seed: int
+                  ) -> tuple[dict, object]:
+    """``shard_sync`` of ``leaves`` (zero residual, the generator seeded
+    ``seed`` each time), host clock, synchronized: compression, the
+    one-worker exchange and its decode; one warm-up call, then
+    SHARD_SYNC_REPS timed ones. Returns their median, min and max in
+    milliseconds and the last call's statistics."""
+    from repro_torch.optim.optimizers import init_feedback
+    from repro_torch.train import step as step_lib
+    times = []
+    for rep in range(SHARD_SYNC_REPS + 1):
+        fb = init_feedback(leaves)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, stats = step_lib.shard_sync(comp, gen, leaves, group=group,
+                                          stacked=stacked, feedback=fb)
+        torch.cuda.synchronize()
+        if rep:
+            times.append(1e3 * (time.perf_counter() - t0))
+        del fb
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times)}, stats
+
+
+def model_axis_shards() -> dict:
+    """(b): one backward of the launcher's batch (MODEL_AXIS_ARCH at
+    arch_phase's depth, ``--seed 0``), then for each of MODEL_AXIS_M model
+    workers its shard of every leaf under the launcher's rules through the
+    per-shard half of the step (``train.step.shard_sync``: gspar with EF
+    on the gather wire's ``auto``, a one-worker NCCL data group), the
+    counts set to 0 just before each shard and read just after: each
+    shard's exchange held by ``exchange_check`` (its bytes recomputed on
+    the host from its buffers, its synced slice the scatter of its
+    buffers), each main-path kernel launched once a group (tail_stats up to
+    twice), the shards' slices covering every coordinate of a split leaf
+    once, the statistics reduced over the model workers
+    (``reduce_over_model``: in rank order, in this process) equal to the
+    shards' sums and means; shard 0's groups through the kernels' plain
+    versions (``shard_kernel_checks``); then each shard's sync timed beside
+    the whole tree's (the step at one model worker): the median of
+    SHARD_SYNC_REPS calls after a warm-up, with their spread."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch.comm import sync
+    from repro_torch.configs import registry
+    from repro_torch.core.api import CompressionConfig
+    from repro_torch.dist.sharding import ModelAxis
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.launch import specs, train
+    from repro_torch.models.transformer import Transformer, init_model
+    from repro_torch.optim.optimizers import init_feedback
+    from repro_torch.train import step as step_lib
+    periods = ARCH_RUNS[MODEL_AXIS_ARCH][0]
+    spec = registry.get(MODEL_AXIS_ARCH)
+    cfg = dc.replace(specs.model_for_seq(spec.model, 128),
+                     num_periods=periods)
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    batch = specs.train_batch(torch.Generator(device=dev).manual_seed(
+        1_000_003), cfg, 8, 128)
+    params = model.leaves()
+    _, grads = step_lib._local_grads(model, params, step_lib.make_loss_fn(
+        cfg), batch)
+    del batch
+    n_model = MODEL_AXIS_M
+    names = model.leaf_names
+    leaf_specs = train.leaf_specs(cfg, names, spec.rules_overrides,
+                                  (None, 1, n_model))
+    axes = [ModelAxis(size=n_model, index=m, specs=leaf_specs)
+            for m in range(n_model)]
+    for name, want in MODEL_AXIS_SHARDS.items():
+        got = tuple(axes[0].shard(grads[names.index(name)],
+                                  names.index(name)).shape)
+        if got != want:
+            raise AssertionError(f"{name}: shard {got}, want {want}")
+    comp = CompressionConfig(name="gspar", rho=RHO, wire="gather",
+                             error_feedback=True, min_leaf_size=1024)
+    own = train.init_process_group(dev)
+    group = dist.new_group([0])
+    counts = {i: torch.zeros(g.shape, dtype=torch.uint8, device=dev)
+              for i, g in enumerate(grads) if axes[0].split(i)}
+    tally, shards_out, vectors, like = Tally(), [], [], None
+    try:
+        for m, ma in enumerate(axes):
+            shards = [ma.shard(g, i).contiguous() for i, g in
+                      enumerate(grads)]
+            for i, c in counts.items():
+                ma.shard(c, i).add_(1)
+            plan, path = gspar_path(
+                [torch.empty(s.shape, dtype=s.dtype, device="meta")
+                 for s in shards], model.stacked)
+            record: list = []
+            real = sync._bucketed_sync
+            sync._bucketed_sync = exchange_check(real, record, path, True)
+            K.reset_launches()
+            try:
+                _, _, stats = step_lib.shard_sync(
+                    comp, torch.Generator(device=dev).manual_seed(
+                        2_000_003 + m), shards, group=group,
+                    stacked=model.stacked, feedback=init_feedback(shards))
+            finally:
+                sync._bucketed_sync = real
+            launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            sparse = [g for g in plan.groups if g.kind == "sparse"]
+            n_rice = sum(lay == "rice" for *_, lay in stats.layouts)
+            held_launches(f"shard {m}", launches, ARCH_KERNELS, 1,
+                          len(sparse), n_rice)
+            if len(record) != 1 or float(stats.wire_bytes) != \
+                    record[0]["wire_bytes"] or float(stats.overflow) != 0:
+                raise AssertionError(f"shard {m}: wire bytes "
+                                     f"{float(stats.wire_bytes)}, overflow "
+                                     f"{float(stats.overflow)}, {record}")
+            vectors.append(step_lib.stats_vector(stats))
+            like = stats
+            shards_out.append({
+                "groups": [[g.rows, g.d, g.k_cap] for g in sparse],
+                "layouts": sorted({lay for *_, lay in stats.layouts}),
+                "wire_bytes": record[0]["wire_bytes"],
+                "used_words": record[0]["used_words"],
+                "check_s": record[0]["check_s"], "launches": launches})
+            if m == 0:
+                with uncounted():
+                    for grp in sparse:
+                        g = torch.cat([shards[i].reshape(rows, grp.d)
+                                       for i, rows in grp.members])
+                        u = torch.rand(g.shape, device=dev)
+                        shard_kernel_checks(tally, g, u, grp.k_cap)
+                        del g, u
+                        torch.cuda.empty_cache()
+            del shards, stats
+            torch.cuda.empty_cache()
+        for i, c in counts.items():
+            if not bool((c == 1).all()):
+                raise AssertionError(f"leaf {names[i]}: the shards do not "
+                                     "cover every coordinate once")
+        del counts
+        rows = torch.stack(vectors)
+        reduced = step_lib.reduce_over_model(rows, like)
+        host = rows.double().cpu().numpy()
+        for j, f in enumerate(sync.SyncStats.FIELDS):
+            want = host[:, j].sum() if f in step_lib.MODEL_SUMS else \
+                host[:, j].mean()
+            got = float(getattr(reduced, f))
+            if abs(got - want) > SUM_RTOL * max(abs(want), 1e-30):
+                raise AssertionError(f"reduced {f}: {got} != {want}")
+        # the syncs' times: the whole tree (one model worker), each shard
+        with uncounted():
+            whole_ms, whole = shard_sync_ms(comp, grads, model.stacked,
+                                            group, 2_000_003)
+            for m, ma in enumerate(axes):
+                shards = [ma.shard(g, i).contiguous() for i, g in
+                          enumerate(grads)]
+                shards_out[m]["sync_ms"], _ = shard_sync_ms(
+                    comp, shards, model.stacked, group, 2_000_003 + m)
+                del shards
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group(group)
+        if own:
+            dist.destroy_process_group()
+    whole_groups = [[r, d, k] for r, d, k, _ in whole.layouts]
+    out = {"model_workers": n_model, "periods": periods,
+           "whole": {"groups": whole_groups,
+                     "wire_bytes": float(whole.wire_bytes),
+                     "sync_ms": whole_ms},
+           "shards": shards_out,
+           "reduced": {f: float(getattr(reduced, f))
+                       for f in sync.SyncStats.FIELDS},
+           "max_memory_allocated": peak,
+           "kernel_checks": {k: c.max_rel for k, c in tally.check.items()}}
+    def ms(t: dict) -> str:
+        return (f"{t['median']:.2f} ms (min {t['min']:.2f}, max "
+                f"{t['max']:.2f})")
+
+    print(f"model axis (b): {MODEL_AXIS_ARCH} at {periods} periods, "
+          f"{n_model} model workers of one data worker: whole tree groups "
+          f"{whole_groups}, {float(whole.wire_bytes):.0f} B, sync "
+          f"{ms(whole_ms)}; " + "; ".join(
+              f"shard {m} groups {s['groups']}, {s['wire_bytes']} B, sync "
+              f"{ms(s['sync_ms'])}" for m, s in enumerate(shards_out))
+          + f"; reduced wire_bytes {out['reduced']['wire_bytes']:.0f}; "
+          f"kernels on shard 0's groups equal to their plain versions; "
+          f"max_memory_allocated {peak} B", flush=True)
+    return out
+
+
+def model_axis_phase() -> dict:
+    """The model axis: (a) ``mesh_one_check``, (b) ``model_axis_shards``."""
+    one = mesh_one_check()
+    torch.cuda.empty_cache()
+    return {"mesh_1x1": one, "shards": model_axis_shards()}
 
 
 # --- serving: prefill and decode over every cache kind (serve_phase) --------
@@ -3828,6 +4186,8 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    model_axis = model_axis_phase()
+    torch.cuda.empty_cache()
     serve = serve_phase()
 
     tally = kp["tally"]
@@ -3947,6 +4307,7 @@ def main() -> int:
     print(json.dumps({"window_check": archs["window"],
                       "checkpoint_check": archs["checkpoint"],
                       "wide_group_check": archs["wide"]}))
+    print(json.dumps({"model_axis_phase": model_axis}))
     print(json.dumps({"serve_phase": serve}))
     print(json.dumps({"compaction_on_pod_rows": {
         str(k): v for k, v in exchange["pod_rows"].items()}}))

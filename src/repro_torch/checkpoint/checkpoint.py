@@ -16,8 +16,18 @@ writes it), so the host holds one leaf at a time.
 
 Past one worker (the default process group), ``save`` gathers each
 stacked entry to rank 0, which alone writes, and ``restore`` hands every
-rank its own slice; ``mesh`` ``(pods, data)`` (ranks pod-major) places the
-pod residual, whose copy is taken from each pod's first data worker.
+rank its own slice; ``mesh`` ``(pods, data, model)``
+(``launch.train.parse_mesh``'s, ranks model-minor: ``rank = (p * D + d)
+* M + m``) places the pod residual, whose copy is taken from each pod's
+first data worker. With a model axis (``model_axis``, a
+``dist.sharding.ModelAxis``) the optimizer's moments, the residuals and
+the control state hold this worker's shard of each leaf: ``save``
+all-gathers them over the model group into the global arrays the JAX
+launcher writes, and ``restore`` slices them. A stacked entry's row is
+its data worker's model index 0's where the leaf is whole: a JAX global
+array holds one replica, so past one model worker a resume hands every
+model worker of a data index model index 0's residual, ``last_sent`` and
+pod residual of a whole leaf (ROADMAP.md queue C).
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist.sharding import WHOLE, ModelAxis
 from repro_torch.models.convert import (PODS, WORKERS, checkpoint_entries,
                                         numpy_from_tensor, tensor_from_numpy)
 
@@ -43,24 +54,27 @@ def _world() -> tuple[int, int]:
     return 1, 0
 
 
-def _pods(mesh, world: int) -> tuple[int, int]:
-    """(pods, data workers a pod)."""
+def _mesh(mesh, world: int, pods_needed: bool = False
+          ) -> tuple[int, int, int]:
+    """(pods, data workers a pod, model workers a data worker)."""
     if mesh is None:
-        if world > 1:
+        if pods_needed and world > 1:
             raise ValueError("a pod residual past one worker needs the mesh "
-                             "(pods, data)")
-        return 1, 1
-    pods, data = mesh
-    if pods * data != world:
+                             "(pods, data, model)")
+        return 1, world, 1
+    pods, data, model = mesh
+    pods = pods or 1
+    if pods * data * model != world:
         raise ValueError(f"mesh {mesh} does not cover {world} workers")
-    return pods, data
+    return pods, data, model
 
 
 def _stacked(value: torch.Tensor, layout: str, world: int, rank: int,
              mesh) -> np.ndarray | None:
     """The file's array of a stacked entry, on rank 0 (None elsewhere):
-    every worker's ``value`` gathered in rank order, for the pods every
-    pod's first data worker's."""
+    every worker's ``value`` gathered in rank order, each data worker's
+    from its model index 0, for the pods every pod's first data
+    worker's."""
     t = value.detach().contiguous()
     if world == 1:
         parts = [t]
@@ -70,20 +84,33 @@ def _stacked(value: torch.Tensor, layout: str, world: int, rank: int,
         dist.gather(t, parts, dst=0)
         if rank != 0:
             return None
-    if layout == PODS:
-        parts = parts[::_pods(mesh, world)[1]]
+    _, data, model = _mesh(mesh, world, layout == PODS)
+    parts = parts[::data * model if layout == PODS else model]
     return numpy_from_tensor(torch.stack(parts))
+
+
+def _whole(value: torch.Tensor, leaf: int, full_shape, model_axis):
+    """The whole leaf from this worker's shard ``value``: all-gathered over
+    the model group (``value`` itself where the leaf is not split)."""
+    if not model_axis.split(leaf):
+        return value
+    full = value.new_empty(full_shape)
+    model_axis.shard(full, leaf).copy_(value)
+    model_axis.gather(full, leaf)
+    return full
 
 
 def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
          extra: dict | None = None, mesh=None,
-         mode: str = "compressed") -> None:
+         mode: str = "compressed", model_axis: ModelAxis = WHOLE) -> None:
     """Write ``model``'s parameters and the given states to ``path``
     (``.npz`` appended when missing), ``extra`` to ``path +
     ".meta.json"``; ``mode`` the train step's (``convert.
-    checkpoint_entries``). Every worker calls it; rank 0 writes."""
+    checkpoint_entries``); ``model_axis`` this worker's (the states then
+    hold its shards). Every worker calls it; rank 0 writes."""
     world, rank = _world()
-    entries = checkpoint_entries(model.leaf_names, model.leaves(), opt_state,
+    leaves = model.leaves()
+    entries = checkpoint_entries(model.leaf_names, leaves, opt_state,
                                  ef_state, ctl_state, mode)
     zf = None
     if rank == 0:
@@ -91,7 +118,9 @@ def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
         zf = zipfile.ZipFile(_npz(path), "w", zipfile.ZIP_STORED,
                              allowZip64=True)
     try:
-        for key, value, layout in entries:
+        for key, value, layout, leaf in entries:
+            if leaf is not None:
+                value = _whole(value, leaf, leaves[leaf].shape, model_axis)
             if isinstance(value, int):
                 arr = np.asarray(value, np.int32)
             elif layout in (WORKERS, PODS):
@@ -113,33 +142,38 @@ def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
 
 
 def restore(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
-            mesh=None, mode: str = "compressed"):
+            mesh=None, mode: str = "compressed",
+            model_axis: ModelAxis = WHOLE):
     """Read ``path`` into ``model``'s parameters and the given states, in
     place (each tensor keeps its device and dtype; a stacked entry gives
-    this rank its own slice). Returns ``(opt_state, ef_state,
-    ctl_state)`` with the step counts read. Raises ValueError where a
-    shape, a dtype or the worker count differs from the file's."""
+    this rank its own slice, and a leaf-shaped entry this worker's shard
+    under ``model_axis``). Returns ``(opt_state, ef_state, ctl_state)``
+    with the step counts read. Raises ValueError where a shape, a dtype or
+    the worker count differs from the file's."""
     world, rank = _world()
-    pod = rank // _pods(mesh, world)[1] if (
-        ef_state is not None and ef_state.pod_residual is not None) else 0
+    pods, data_n, model_n = _mesh(mesh, world, ef_state is not None
+                                  and ef_state.pod_residual is not None)
+    pod = rank // (data_n * model_n)
     steps = {}
     with np.load(_npz(path)) as data:
-        for key, target, layout in checkpoint_entries(
+        for key, target, layout, leaf in checkpoint_entries(
                 model.leaf_names, model.leaves(), opt_state, ef_state,
                 ctl_state, mode):
             if key not in data:
                 raise ValueError(f"{path}: no entry {key!r}")
             arr = data[key]
             if layout in (WORKERS, PODS):
-                want = world if layout == WORKERS else _pods(mesh, world)[0]
+                want = world // model_n if layout == WORKERS else pods
                 if arr.ndim == 0 or arr.shape[0] != want:
                     raise ValueError(f"{key}: stacked over {arr.shape[:1]}, "
                                      f"this run has {want}")
-                arr = arr[rank if layout == WORKERS else pod]
+                arr = arr[rank // model_n if layout == WORKERS else pod]
             if isinstance(target, int):
                 steps[key] = int(arr)
                 continue
             got = tensor_from_numpy(arr)
+            if leaf is not None:
+                got = model_axis.shard(got, leaf)
             if got.shape != target.shape or got.dtype != target.dtype:
                 raise ValueError(f"{key}: file {tuple(got.shape)} {got.dtype}"
                                  f", state {tuple(target.shape)} "

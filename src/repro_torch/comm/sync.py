@@ -720,7 +720,7 @@ def _energy(t: torch.Tensor) -> torch.Tensor:
 
 
 def _delta_and_skips(cfg: CompressionConfig, grads: list,
-                     control: ControlState):
+                     control: ControlState, energy_sum=None):
     """The adaptive pre-pass: the leaves to send (the delta ``g - beta *
     last_sent``, written into the ``last_sent`` tensors; the gradients
     themselves at ``delta_beta`` 0), each leaf's skip flag (a 0-d bool on
@@ -730,7 +730,10 @@ def _delta_and_skips(cfg: CompressionConfig, grads: list,
     ``decay * b + (1 - decay) * sq``, formed as XLA compiles it (one fused
     multiply-add over the float32 product ``(1 - decay) * sq``; float64
     here, then rounded). A leaf is skipped past step 0 when ``sq <= tau *
-    b`` (float32); never at tau 0 or below ``cfg.min_leaf_size``."""
+    b`` (float32); never at tau 0 or below ``cfg.min_leaf_size``.
+    ``energy_sum`` (with a model axis) sums the leaves' float32 delta
+    energies over the model workers, as JAX's ``stat_axes`` psum does, so
+    that a leaf's skip and bound are the same on each of its shards."""
     beta = cfg.delta_beta
     send = grads
     if beta:
@@ -745,8 +748,10 @@ def _delta_and_skips(cfg: CompressionConfig, grads: list,
     c_sq = torch.full((), 1.0 - cfg.bound_decay, dtype=F32, device=dev)
     tau = torch.full((), cfg.skip_tau, dtype=F32, device=dev)
     flags, bounds = [], []
-    for t, b in zip(send, control.bound):
-        sq = _energy(t)
+    sqs = [_energy(t) for t in send]
+    if energy_sum is not None:
+        sqs = list(energy_sum(torch.stack(sqs)).unbind())
+    for t, b, sq in zip(send, control.bound, sqs):
         b32 = b.to(device=dev, dtype=F32).reshape(())
         if warm:
             bounds.append((b32.double() * decay
@@ -797,7 +802,7 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
               pod_generator: torch.Generator | None = None,
               stacked: list | None = None,
               feedback: FeedbackState | list | None = None,
-              control: ControlState | None = None):
+              control: ControlState | None = None, energy_sum=None):
     """Compress this worker's gradient leaves and exchange them with the
     workers of ``group`` (the default process group when None), then, with
     a ``pod_group``, between the pods.
@@ -813,7 +818,10 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
     ``last_sent``, leaves whose delta energy is under ``skip_tau`` times
     their bound are skipped, and the synced leaves are closed with
     ``delta_beta * last_avg``. The control's ``last_sent`` tensors are
-    overwritten (module docstring): use the returned control.
+    overwritten (module docstring): use the returned control. With a model
+    axis ``grads`` are this worker's shards and ``energy_sum`` sums a
+    float32 vector of per-leaf delta energies over the model workers (JAX's
+    ``stat_axes``; ``train.step.shard_sync``).
 
     The pod hierarchy (``repro.comm.sync.sync_tree`` with a pod axis):
     ``group`` is then this worker's pod (its data workers) and
@@ -826,8 +834,8 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
     added to this worker's residual; with it (Algorithm 1's step 7) a
     second compression of the pod average (the dense wire: then the mean
     over the pods), on ``pod_generator``, which must draw the same stream
-    on every data worker of a pod and another in each pod (the port's
-    ``_pod_key``), and with error feedback on the pod's own residual
+    on every data worker of a pod and another in each pod and each model
+    shard (the port's ``_pod_key``), and with error feedback on the pod's own residual
     ``feedback.pod_residual`` (``init_feedback(params, pod=True)``; every
     data worker of a pod carries the same). ``SyncStats.wire_bytes_intra``
     and ``wire_bytes_inter`` charge the two stages.
@@ -878,7 +886,8 @@ def sync_tree(cfg: CompressionConfig, generator: torch.Generator,
     stk = stacked if stacked is not None else [False] * len(grads)
     send, flags = grads, None
     if cfg.adaptive:
-        send, flags, bounds = _delta_and_skips(cfg, grads, control)
+        send, flags, bounds = _delta_and_skips(cfg, grads, control,
+                                               energy_sum)
     new_pod_res = pod_residual
     wire_inter = torch.zeros((), **f64)
     overflow, layouts = zero, ()

@@ -45,8 +45,12 @@ SKIP_NOTES = {"long_500k": (
                  " global/quadratic in prefill; 500k decode cache exceeds "
                  "budget at batch=1 x 60L even compressed).")}
 
+# sharding-rule overrides (the JAX config's RULES)
+RULES = {"kv_lora": None, "qk_rope": None}
+
 
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="deepseek-v2-236b", source="arXiv:2405.04434",
                     model=FULL, smoke=SMOKE, train_mode="fsdp",
-                    shapes=SHAPES, skip_notes=SKIP_NOTES)
+                    shapes=SHAPES, skip_notes=SKIP_NOTES,
+                    rules_overrides=RULES)

@@ -31,8 +31,12 @@ SKIP_NOTES = {"long_500k": (
                  "gemma-1 has full global attention only; no sliding-"
                  "window/sub-quadratic variant exists in the source model.")}
 
+# sharding-rule overrides (the JAX config's RULES)
+RULES = {"heads": None, "kv_heads": None, "head_dim": "model"}
+
 
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="gemma-2b", source="arXiv:2403.08295",
                     model=FULL, smoke=SMOKE,
-                    shapes=SHAPES, skip_notes=SKIP_NOTES)
+                    shapes=SHAPES, skip_notes=SKIP_NOTES,
+                    rules_overrides=RULES)

@@ -40,8 +40,12 @@ SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 SKIP_NOTES = {"long_500k": (
                  "gemma-1 backbone: full global attention only.")}
 
+# sharding-rule overrides (the JAX config's RULES)
+RULES = {"heads": None, "kv_heads": None, "head_dim": "model"}
+
 
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="paligemma-3b", source="arXiv:2407.07726",
                     model=FULL, smoke=SMOKE,
-                    shapes=SHAPES, skip_notes=SKIP_NOTES)
+                    shapes=SHAPES, skip_notes=SKIP_NOTES,
+                    rules_overrides=RULES)

@@ -3,14 +3,14 @@ architecture of the JAX registry. The dense attention architectures
 gemma-2b, gemma2-9b, gemma2-27b and starcoder2-7b, the MoE
 phi3.5-moe-42b-a6.6b, the MLA + MoE deepseek-v2-236b, the SSM rwkv6-1.6b,
 the hybrid zamba2-2.7b, the vision-prefix paligemma-3b and the
-encoder-decoder seamless-m4t-large-v2. The port has no sharding rules
-(``dist/sharding.py``, ROADMAP.md queue A item 10d), so a spec carries
-none. ``SHAPES`` and each spec's ``shapes`` and ``skip_notes`` are the
-JAX registry's."""
+encoder-decoder seamless-m4t-large-v2. ``SHAPES`` and each spec's
+``shapes``, ``skip_notes`` and ``rules_overrides`` (the sharding rules an
+arch changes, ``dist.sharding``) are the JAX registry's."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any
 
 from repro_torch.models.transformer import ModelConfig
 
@@ -40,6 +40,7 @@ class ArchSpec:
     shapes: tuple[str, ...]  # the input shapes (``SHAPES``) it runs
     skip_notes: dict[str, str]   # shape -> why skipped
     train_mode: str = "compressed"   # compressed (Alg. 1) | fsdp (+ step 7)
+    rules_overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def get(arch: str) -> ArchSpec:

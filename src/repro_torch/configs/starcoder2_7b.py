@@ -31,8 +31,12 @@ SMOKE = ModelConfig(
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 SKIP_NOTES: dict[str, str] = {}
 
+# sharding-rule overrides (the JAX config's RULES)
+RULES = {"heads": None, "kv_heads": None, "head_dim": "model"}
+
 
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="starcoder2-7b", source="arXiv:2402.19173",
                     model=FULL, smoke=SMOKE,
-                    shapes=SHAPES, skip_notes=SKIP_NOTES)
+                    shapes=SHAPES, skip_notes=SKIP_NOTES,
+                    rules_overrides=RULES)

@@ -44,8 +44,12 @@ SMOKE = ModelConfig(
 SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 SKIP_NOTES: dict[str, str] = {}
 
+# sharding-rule overrides (the JAX config's RULES)
+RULES = {"head_dim": None}
+
 
 def spec() -> ArchSpec:
     return ArchSpec(arch_id="zamba2-2.7b", source="arXiv:2411.15242",
                     model=FULL, smoke=SMOKE,
-                    shapes=SHAPES, skip_notes=SKIP_NOTES)
+                    shapes=SHAPES, skip_notes=SKIP_NOTES,
+                    rules_overrides=RULES)

@@ -24,12 +24,21 @@ Runs on the card unless ``--device cpu`` is given. With no process group
 initialized it starts a one-worker group itself (NCCL on the card, gloo on
 the CPU), so the exchange goes through ``torch.distributed`` either way;
 under ``torchrun`` (``WORLD_SIZE`` in the environment) each process is one
-worker. ``--mesh PxDx1`` lays the workers out as P pods of D data workers
-(ranks pod-major, ``rank = p * D + d``; the JAX launcher's (pod, data,
-model) mesh), and the exchange is the pod hierarchy: the data groups, then
-the pod stage across the pods (``--resparsify-pods``: Algorithm 1's step
-7, with ``--error-feedback`` on the pod's own residual). ``--mesh 1x1x1``
-runs the pod stage over groups of one. ``--mesh Dx1`` is (data, model).
+worker. ``--mesh PxDxM`` lays the workers out as P pods of D data workers
+of M model workers each (ranks model-minor, ``rank = (p * D + d) * M +
+m``: the device order of the JAX launcher's (pod, data, model) mesh), and
+the exchange is the pod hierarchy: the data groups, then the pod stage
+across the pods (``--resparsify-pods``: Algorithm 1's step 7, with
+``--error-feedback`` on the pod's own residual). ``--mesh 1x1x1`` runs the
+pod stage over groups of one. ``--mesh DxM`` is (data, model). A model
+axis (M > 1) splits every leaf the JAX launcher's rules split
+(``dist.sharding``, ``leaf_specs``): each worker compresses and exchanges
+its own shard (``train.step``'s ``ModelAxis``), the model workers of a
+data index take the same batch, and the optimizer's moments, the residual
+and the control state hold the shard. Every run takes that one step: a
+model axis of one (no ``--mesh``, or M = 1) gathers, broadcasts and
+reduces nothing. Under ``--device cpu`` the ranks take gloo, on the card NCCL (one
+process a rank: ``torchrun --nproc-per-node N``).
 
 ``--mode`` is ``compressed`` (Algorithm 1: each worker's gradient
 compressed and exchanged) or ``fsdp`` (``step.make_fsdp_train_step``: the
@@ -38,10 +47,11 @@ Algorithm 1's step 7; every worker draws the same uniforms, and with
 ``--error-feedback`` the residual is params-shaped); its default is the
 architecture's ``train_mode``, as in the JAX launcher (fsdp for
 deepseek-v2-236b). In fsdp mode ``--wire``, ``--exchange`` and the
-layouts do not act, and ``--adaptive`` exits, as in JAX. A model axis
-above 1 (sharding a step over devices) is ROADMAP.md queue A item 10,
-refused with NotImplementedError; ``--xla-preset`` takes ``none`` (the
-JAX launcher's default) and refuses the XLA presets (item 13).
+layouts do not act, and ``--adaptive`` exits, as in JAX. Still refused
+with NotImplementedError: ``--mode fsdp`` at a model axis above 1 (the
+fsdp mode under ``FSDP_RULES``, ROADMAP.md queue A item 10d), and
+``--xla-preset`` other than ``none`` (the JAX launcher's default; the XLA
+presets are item 13).
 ``--checkpoint PATH`` writes the trained state after the last step in the
 JAX launcher's file format (``repro_torch.checkpoint``): the parameters,
 the optimizer's state, with ``--error-feedback`` the residual (stacked over
@@ -79,8 +89,10 @@ from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import registry
 from repro_torch.core.api import CompressionConfig
 from repro_torch.devices import resolve_device
+from repro_torch.dist import sharding
 from repro_torch.launch import specs
-from repro_torch.models.transformer import Transformer, init_model
+from repro_torch.models.transformer import (Transformer, init_model,
+                                            param_axes, param_shapes)
 from repro_torch.optim.optimizers import adam, init_feedback, sgd
 from repro_torch.train import step as step_lib
 
@@ -150,7 +162,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="compression backend (auto and pallas: the CUDA "
                          "kernels; reference: dense apply + compaction)")
     ap.add_argument("--mesh", default=None,
-                    help="PxDx1 => (pod=P, data=D, model=1), or Dx1; "
+                    help="PxDxM => (pod=P, data=D, model=M), or DxM; "
                          "default: every worker on the data axis")
     ap.add_argument("--error-feedback", action="store_true")
     ap.add_argument("--adaptive", action="store_true",
@@ -223,6 +235,11 @@ def main(argv=None) -> dict:
     if comp.adaptive and mode != "compressed":
         raise SystemExit("--adaptive requires the compressed train mode")
     mesh = parse_mesh(args.mesh)
+    if mesh is not None and mesh[2] > 1 and mode == "fsdp":
+        raise NotImplementedError(
+            f"--mode fsdp at --mesh {args.mesh}: the fsdp mode past a model "
+            "axis of 1 (FSDP_RULES) is not ported yet (ROADMAP.md queue A "
+            "item 10d)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -230,63 +247,133 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     own_group = init_process_group(device)
     try:
-        return _train(args, cfg, comp, device, mesh, mode)
+        return _train(args, cfg, comp, device, mesh, mode,
+                      spec.rules_overrides)
     finally:
         if own_group:
             dist.destroy_process_group()
 
 
-def parse_mesh(text: str | None) -> tuple[int, int] | None:
+def parse_mesh(text: str | None) -> tuple | None:
     """``--mesh``: ``"PxDxM"`` (pod, data, model) or ``"DxM"`` (data,
-    model) -> ``(pods, data)``, None for a mesh with no pod axis (or no
-    ``--mesh``). A model axis above 1 is refused."""
+    model) -> ``(pods, data, model)``, ``pods`` None for a mesh with no pod
+    axis; None without ``--mesh``."""
     if text is None:
         return None
     shape = tuple(int(x) for x in text.split("x"))
     if len(shape) not in (2, 3) or min(shape) < 1:
         raise ValueError(f"--mesh {text!r}: want PxDxM or DxM")
-    if shape[-1] != 1:
-        raise NotImplementedError(
-            f"--mesh {text!r}: a model axis above 1 (sharding a step over "
-            "devices) is not ported yet (ROADMAP.md queue A item 10)")
-    return shape[:2] if len(shape) == 3 else None
+    return shape if len(shape) == 3 else (None,) + shape
 
 
-def mesh_groups(mesh: tuple[int, int] | None):
-    """This worker's data group and pod group under ``mesh`` (``(pods,
-    data)``, ranks pod-major: ``rank = p * D + d``), each from
-    ``dist.new_group`` (every rank creates every group, in one order), and
-    its pod index; ``(None, None, 0)`` without a pod axis (every worker on
-    the data axis of the default group)."""
+def mesh_groups(mesh):
+    """This worker's data group and pod group under ``mesh``
+    (``parse_mesh``'s ``(pods, data, model)``, ``pods`` None for no pod
+    axis; ranks model-minor, ``rank = (p * D + d) * M + m``, the
+    device order of ``jax.make_mesh`` for (pod, data, model)), each from
+    ``dist.new_group`` (every rank creates every group, in one order: the
+    data groups, one per (pod, model) index, then the pod groups, one per
+    (data, model) index), and its pod index; ``(None, None, 0)`` without a
+    mesh (every worker on the data axis of the default group).
+    ``model_groups`` builds the model axis's groups after these."""
     world, rank = dist.get_world_size(), dist.get_rank()
     if mesh is None:
         return None, None, 0
-    pods, data = mesh
-    if pods * data != world:
-        raise ValueError(f"--mesh of {pods} pods x {data} data workers needs "
-                         f"{pods * data} processes, have {world}")
-    p, d = divmod(rank, data)
+    pods, data, model = mesh
+    if (pods or 1) * data * model != world:
+        raise ValueError(f"--mesh of {pods or 1} pods x {data} data x "
+                         f"{model} model workers needs "
+                         f"{(pods or 1) * data * model} processes, have "
+                         f"{world}")
+    (p, d), m = divmod(rank // model, data), rank % model
     data_group = pod_group = None
-    for q in range(pods):
-        grp = dist.new_group([q * data + j for j in range(data)])
-        if q == p:
-            data_group = grp
-    for j in range(data):
-        grp = dist.new_group([q * data + j for q in range(pods)])
-        if j == d:
-            pod_group = grp
+    for q in range(pods or 1):
+        for k in range(model):
+            grp = dist.new_group([(q * data + j) * model + k
+                                  for j in range(data)])
+            if (q, k) == (p, m):
+                data_group = grp
+    if pods is not None:
+        for j in range(data):
+            for k in range(model):
+                grp = dist.new_group([(q * data + j) * model + k
+                                      for q in range(pods)])
+                if (j, k) == (d, m):
+                    pod_group = grp
     return data_group, pod_group, p
 
 
-def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
+def model_groups(mesh) -> tuple:
+    """The model axis of ``parse_mesh``'s ``mesh`` for this worker: its
+    model group (the M workers of its pod and data index; None at M = 1,
+    where no collective crosses it), its model index, their global ranks
+    and, with pods past a model axis of one, its worker group (every (pod,
+    data) worker of its model index: the metrics' mean), None otherwise.
+    Call after ``mesh_groups``, on every rank."""
+    pods, data, model = mesh
+    rank = dist.get_rank()
+    w, m = divmod(rank, model)
+    if model == 1:
+        return None, 0, (rank,), None
+    model_group = ranks = None
+    for v in range((pods or 1) * data):
+        rs = tuple(v * model + k for k in range(model))
+        grp = dist.new_group(list(rs))
+        if v == w:
+            model_group, ranks = grp, rs
+    worker_group = None
+    if pods is not None and model > 1:
+        for k in range(model):
+            grp = dist.new_group([v * model + k
+                                  for v in range(pods * data)])
+            if k == m:
+                worker_group = grp
+    return model_group, m, ranks, worker_group
+
+
+def leaf_specs(cfg, names: list, overrides: dict, mesh) -> tuple:
+    """Each leaf's spec on the model axis of the compressed step (leaf
+    order ``names``): the JAX launcher's rules (``sharding.launcher_rules``
+    of the compressed mode) with the manual axes (data, and pod with pods)
+    stripped, resolved on the sizes of ``mesh`` (``(pods, data,
+    model)``)."""
+    pods, data, model = mesh
+    rules = sharding.strip_manual(
+        sharding.launcher_rules("compressed", overrides, pods is not None),
+        ("pod", "data") if pods is not None else ("data",))
+    sizes = {"data": data, "model": model}
+    if pods is not None:
+        sizes["pod"] = pods
+    shapes, axes = param_shapes(cfg), param_axes(cfg)
+    return tuple(sharding.resolve_spec(shapes[n][0], axes[n], rules, sizes)
+                 for n in names)
+
+
+def pod_stream_seed(seed: int, mesh, rank: int) -> int:
+    """The seed of the pod stage's stream on the worker of ``rank`` under
+    ``mesh`` (``(pods, data, model)``): one per (pod, model) index, the
+    same on a pod's data workers and apart across its model shards (the
+    JAX package's ``_pod_key``)."""
+    _, data, model = mesh
+    pod, m = rank // (data * model), rank % model
+    return 3_000_017 * (seed + 1) + pod * model + m
+
+
+def _mesh_text(mesh) -> str:
+    pods, data, model = mesh
+    return (f" mesh=({'' if pods is None else f'pod={pods}, '}"
+            f"data={data}, model={model})")
+
+
+def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
+           ) -> dict:
     rank, world = dist.get_rank(), dist.get_world_size()
-    data_group, pod_group, pod = mesh_groups(mesh)
+    data_group, pod_group, _ = mesh_groups(mesh)
     fsdp = mode == "fsdp"
     if rank == 0:
         print(f"arch={cfg.name} layers={cfg.num_layers} "
               f"d_model={cfg.d_model} workers={world} device={device}"
-              + (f" mesh=(pod={mesh[0]}, data={mesh[1]}, model=1)"
-                 if mesh else "") + f" mode={mode}")
+              + (_mesh_text(mesh) if mesh else "") + f" mode={mode}")
         print(f"compression: {comp.describe()}")
         for name, (shape, dtype) in specs.stub_inputs(cfg,
                                                       args.batch).items():
@@ -298,7 +385,14 @@ def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
     if rank == 0:
         print(f"params: {n_params}")
     opt = adam(args.lr) if args.optimizer == "adam" else sgd(args.lr)
-    opt_state = opt.init(model.leaves())
+    # the model axis: this worker's shard of every leaf (one model worker
+    # without a mesh, and in fsdp mode)
+    axes = mesh or (None, world, 1)
+    model_group, m_index, ranks, worker_group = model_groups(axes)
+    ma = sharding.ModelAxis(
+        size=axes[2], index=m_index, group=model_group, ranks=ranks,
+        specs=leaf_specs(cfg, model.leaf_names, overrides, axes))
+    opt_state = opt.init(step_lib.worker_leaves(model, ma))
     hier = comp.resparsify_pods and pod_group is not None
     if fsdp:
         # the residual of the averaged gradient: params-shaped, one a run
@@ -306,20 +400,21 @@ def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
                     if comp.error_feedback and comp.name != "none" else None)
         train_step = step_lib.make_fsdp_train_step(model, comp, opt)
     else:
-        ef_state = (init_feedback(model.leaves(), pod=hier)
+        ef_state = (init_feedback(step_lib.worker_leaves(model, ma),
+                                  pod=hier)
                     if comp.error_feedback else None)
-        # the pod stage's stream: one per pod, the same on its data workers
         pod_gen = (torch.Generator(device=device).manual_seed(
-            3_000_017 * (args.seed + 1) + pod) if hier else None)
+            pod_stream_seed(args.seed, axes, rank)) if hier else None)
         train_step = step_lib.make_compressed_train_step(
             model, comp, opt, group=data_group, pod_group=pod_group,
-            pod_generator=pod_gen)
-    ctl_state = (step_lib.init_compressed_control(model, comp)
+            pod_generator=pod_gen, model_axis=ma, worker_group=worker_group)
+    ctl_state = (step_lib.init_compressed_control(model, comp, ma)
                  if comp.adaptive else None)
-    # one data stream per worker; one compression stream per worker, or in
-    # fsdp mode one for all (Q of the averaged gradient, alike everywhere)
+    # one data stream per data worker (its model workers take the same
+    # batch); one compression stream per worker, or in fsdp mode one for
+    # all (Q of the averaged gradient, alike everywhere)
     data_gen = torch.Generator(device=device).manual_seed(
-        1_000_003 * (args.seed + 1) + rank)
+        1_000_003 * (args.seed + 1) + rank // ma.size)
     comp_gen = torch.Generator(device=device).manual_seed(
         2_000_003 * (args.seed + 1) + (0 if fsdp else rank))
 
@@ -348,14 +443,15 @@ def _train(args, cfg, comp, device, mesh, mode: str) -> dict:
                      f"msg_bits {m['bits']:.4g} " if "density" in m else "")
                   + (f"wire_bytes {m['wire_bytes']:.0f} " if not fsdp else "")
                   + (f"(intra {m['wire_bytes_intra']:.0f} inter "
-                     f"{m['wire_bytes_inter']:.0f}) " if mesh and not fsdp
+                     f"{m['wire_bytes_inter']:.0f}) " if pod_group is not None
+                     and not fsdp
                      else "")
                   + (f"overflow {m['overflow']:.0f} " if not fsdp else "")
                   + (f"skipped {m['skipped']:.1f} " if comp.adaptive else "")
                   + f"({step_seconds[-1]:.3f} s)", flush=True)
     if args.checkpoint:
         checkpoint.save(args.checkpoint, model, opt_state, ef_state,
-                        ctl_state, mesh=mesh, mode=mode,
+                        ctl_state, mesh=mesh, mode=mode, model_axis=ma,
                         extra={"arch": args.arch, "mode": mode,
                                "steps": args.steps,
                                "error_feedback": ef_state is not None,

@@ -353,6 +353,22 @@ class MLAConfig:
         return (self.qk_nope + self.qk_rope) ** -0.5
 
 
+# the logical axes of each leaf (``repro.models.attention``'s
+# ``init_attention`` and ``init_mla``)
+ATTN_AXES = {"wq": ("embed", "heads", "head_dim"),
+             "wk": ("embed", "kv_heads", "head_dim"),
+             "wv": ("embed", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed"),
+             "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+             "bv": ("kv_heads", "head_dim"), "bo": ("embed",)}
+MLA_AXES = {"q_down": ("embed", "kv_lora"),
+            "q_up": ("kv_lora", "heads", "head_dim"),
+            "kv_down": ("embed", "kv_lora"), "k_rope": ("embed", "qk_rope"),
+            "k_up": ("kv_lora", "heads", "head_dim"),
+            "v_up": ("kv_lora", "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+
+
 def mla_shapes(cfg: MLAConfig) -> dict[str, tuple[int, ...]]:
     """MLA's leaves (under ``attn/``) and their shapes, in the JAX order."""
     d, h = cfg.d_model, cfg.num_heads

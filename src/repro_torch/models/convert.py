@@ -59,7 +59,7 @@ REPLICATED, WORKERS, PODS = "replicated", "workers", "pods"
 def checkpoint_entries(names: list, params: list, opt_state=None,
                        ef_state=None, ctl_state=None,
                        mode: str = "compressed") -> list:
-    """``(key, value, layout)`` of every entry of this worker's training
+    """``(key, value, layout, leaf)`` of every entry of this worker's training
     state, in the order the JAX package's ``tree_flatten`` writes the tree
     ``{"params", "opt", "ef", "ctl"}`` (absent parts left out). ``names``
     are the leaf paths in the JAX flatten order, ``params`` the leaves in
@@ -70,31 +70,39 @@ def checkpoint_entries(names: list, params: list, opt_state=None,
     JAX prints a dataclass attribute in a key path; ``bound`` stacks one
     float32 per worker. The residual stacks over the workers in the
     ``compressed`` mode and is REPLICATED (params-shaped, one per run) in
-    the ``fsdp`` mode."""
+    the ``fsdp`` mode. ``leaf`` is the index of the leaf whose shape an
+    entry of the optimizer, feedback or control state takes (with a model
+    axis, this worker's shard of it), None for the parameters (whole on
+    every worker), the bounds and the step counts."""
     if mode not in ("compressed", "fsdp"):
         raise ValueError(f"mode {mode!r}: want compressed or fsdp")
     out = []
     if ctl_state is not None:
         for field, layout in (("last_sent", WORKERS),
                               ("last_avg", REPLICATED), ("bound", WORKERS)):
-            out += [(f"ctl/.{field}/{n}", x, layout)
-                    for n, x in zip(names, getattr(ctl_state, field))]
-        out.append(("ctl/.step", ctl_state.step, REPLICATED))
+            out += [(f"ctl/.{field}/{n}", x, layout,
+                     None if field == "bound" else i)
+                    for i, (n, x) in enumerate(zip(
+                        names, getattr(ctl_state, field)))]
+        out.append(("ctl/.step", ctl_state.step, REPLICATED, None))
     if ef_state is not None:
         layout = REPLICATED if mode == "fsdp" else WORKERS
-        out += [(f"ef/.residual/{n}", x, layout)
-                for n, x in zip(names, ef_state.residual)]
+        out += [(f"ef/.residual/{n}", x, layout, i)
+                for i, (n, x) in enumerate(zip(names, ef_state.residual))]
         if ef_state.pod_residual is not None:
-            out += [(f"ef/.pod_residual/{n}", x, PODS)
-                    for n, x in zip(names, ef_state.pod_residual)]
+            out += [(f"ef/.pod_residual/{n}", x, PODS, i)
+                    for i, (n, x) in enumerate(zip(names,
+                                                   ef_state.pod_residual))]
     if opt_state is not None:
         for field in sorted(opt_state):
             if field == "step":
-                out.append(("opt/step", opt_state["step"], REPLICATED))
+                out.append(("opt/step", opt_state["step"], REPLICATED, None))
             else:
-                out += [(f"opt/{field}/{n}", x, REPLICATED)
-                        for n, x in zip(names, opt_state[field])]
-    out += [(f"params/{n}", x, REPLICATED) for n, x in zip(names, params)]
+                out += [(f"opt/{field}/{n}", x, REPLICATED, i)
+                        for i, (n, x) in enumerate(zip(names,
+                                                       opt_state[field]))]
+    out += [(f"params/{n}", x, REPLICATED, None)
+            for n, x in zip(names, params)]
     return out
 
 

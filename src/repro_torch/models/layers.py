@@ -17,6 +17,15 @@ import torch.nn.functional as F
 
 F32 = torch.float32
 
+# the logical axes of each leaf (``repro.models.layers``' init functions):
+# a norm's scale and bias, the MLPs' leaves, the embedding table
+NORM_AXES = {"scale": ("embed",), "bias": ("embed",)}
+GATED_MLP_AXES = {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+                  "down": ("mlp", "embed")}
+DENSE_MLP_AXES = {"up": ("embed", "mlp"), "up_b": ("mlp",),
+                  "down": ("mlp", "embed"), "down_b": ("embed",)}
+EMBED_AXES = {"table": ("vocab", "embed")}
+
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:

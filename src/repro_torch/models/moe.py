@@ -56,6 +56,16 @@ class MoEConfig:
         return max(4, -(-c // 4) * 4)          # round up to a multiple of 4
 
 
+# the logical axes of each leaf (``repro.models.moe.init_moe``; the shared
+# experts a gated MLP's)
+MOE_AXES = {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed"),
+            "shared/gate": ("embed", "mlp"), "shared/up": ("embed", "mlp"),
+            "shared/down": ("mlp", "embed")}
+
+
 def moe_shapes(cfg: MoEConfig) -> dict[str, tuple[int, ...]]:
     """The MoE FFN's leaves (under ``ffn/``) and their shapes."""
     d, f, e = cfg.d_model, cfg.d_expert, cfg.num_experts

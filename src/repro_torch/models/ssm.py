@@ -88,6 +88,24 @@ class RWKV6Config:
         return self.d_model // self.head_dim
 
 
+# the logical axes of each leaf (``repro.models.ssm``'s init functions)
+RWKV6_TIME_MIX_AXES = {
+    "mu_x": ("embed",), "mu": (None, "embed"), "lora_a": ("embed", None),
+    "lora_b": (None, None, "embed"), "w0": ("embed",),
+    "w_lora_a": ("embed", None), "w_lora_b": (None, "embed"),
+    "wr": ("embed", "heads"), "wk": ("embed", "heads"),
+    "wv": ("embed", "heads"), "wg": ("embed", "heads"),
+    "u": ("heads", "head_dim"), "ln_scale": ("embed",),
+    "ln_bias": ("embed",), "wo": ("heads", "embed")}
+RWKV6_CHANNEL_MIX_AXES = {"mu_k": ("embed",), "mu_r": ("embed",),
+                          "wk": ("embed", "mlp"), "wv": ("mlp", "embed"),
+                          "wr": ("embed", "embed")}
+MAMBA2_AXES = {"in_proj": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+               "conv_b": ("mlp",), "a_log": ("heads",),
+               "dt_bias": ("heads",), "d_skip": ("heads",),
+               "norm_scale": ("mlp",), "out_proj": ("mlp", "embed")}
+
+
 def rwkv6_time_mix_shapes(cfg: RWKV6Config) -> dict[str, tuple[int, ...]]:
     """The time mix's leaves (under ``tm/``) and their shapes, in the JAX
     order."""

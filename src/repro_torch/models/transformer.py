@@ -68,6 +68,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm
 from repro_torch.models.common import Initializer, leaf_order
+from repro_torch.models import layers
 from repro_torch.models.layers import (dense_mlp, embed, gated_mlp,
                                        layernorm, rmsnorm, softcap, unembed)
 
@@ -324,6 +325,69 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], bool]]:
             out.update({f"{prefix}/{k}": ((cfg.num_periods,) + s, True)
                         for k, s in _cross_shapes(cfg).items()})
     return out
+
+
+def _leaf_axes(cfg: ModelConfig, kind: str, name: str) -> tuple:
+    """The logical axes of one leaf of a block of ``kind`` (its name in
+    ``_block_shapes``, unstacked): the axes the JAX ``init_*`` functions
+    attach to it."""
+    part, _, leaf = name.partition("/")
+    if part in ("ln1", "ln2", "post_ln1", "post_ln2", "ln"):
+        return layers.NORM_AXES[leaf]
+    if part == "attn":
+        return (attn.MLA_AXES if kind in MLA_KINDS else attn.ATTN_AXES)[leaf]
+    if part == "ffn":
+        fk = _ffn_kind(cfg, kind)
+        return (moe_lib.MOE_AXES if fk == "moe" else layers.GATED_MLP_AXES
+                if fk == "gated" else layers.DENSE_MLP_AXES)[leaf]
+    if part in ("tm", "cm", "mix"):
+        return {"tm": ssm.RWKV6_TIME_MIX_AXES,
+                "cm": ssm.RWKV6_CHANNEL_MIX_AXES,
+                "mix": ssm.MAMBA2_AXES}[part][leaf]
+    return {"lora_a": ("embed", None), "lora_b": (None, "embed")}[name]
+
+
+def _shared_axes(name: str) -> tuple:
+    """The logical axes of one leaf of zamba2's shared block."""
+    part, _, leaf = name.partition("/")
+    if part in ("in_proj", "out_proj"):
+        return ("embed", "embed")
+    if part in ("ln1", "ln2"):
+        return layers.NORM_AXES[leaf]
+    if part == "attn":
+        return attn.ATTN_AXES[leaf]
+    return layers.GATED_MLP_AXES[leaf]
+
+
+def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    """Path -> logical axes for every parameter (``param_shapes``' paths):
+    the axes of the JAX package's ``split_params``, ``"layers"`` leading
+    on the stacked leaves. The sharding rules (``dist.sharding``) read
+    them."""
+    shapes = param_shapes(cfg)
+    out = {}
+    for prefix, kind in cfg.blocks():
+        out.update({f"{prefix}/{k}": _leaf_axes(cfg, kind, k)
+                    for k in _block_shapes(cfg, kind)})
+    for prefix, kind in cfg.prelude_blocks():
+        out.update({f"{prefix}/{k}": _leaf_axes(cfg, kind, k)
+                    for k in _block_shapes(cfg, kind)})
+    if "shared_attn" in cfg.pattern:
+        out.update({f"shared/{k}": _shared_axes(k)
+                    for k in _shared_shapes(cfg)})
+    if cfg.encoder_periods:
+        enc = cfg.encoder_cfg()
+        out.update({f"encoder/blk/{k}": _leaf_axes(enc, "attn_full", k)
+                    for k in _block_shapes(enc, "attn_full")})
+        for prefix in cfg.cross_blocks():
+            out.update({f"{prefix}/{k}": _leaf_axes(cfg, "attn_full", k)
+                        for k in _cross_shapes(cfg)})
+    out["embed/table"] = layers.EMBED_AXES["table"]
+    for name in ("final_ln", "enc_final_ln"):
+        out.update({k: layers.NORM_AXES[k.rpartition("/")[2]]
+                    for k in shapes if k.startswith(name + "/")})
+    return {k: (("layers",) + out[k]) if shapes[k][1] else out[k]
+            for k in shapes}
 
 
 _ZEROS = ("/bias", "/bq", "/bk", "/bv", "/bo", "/up_b", "/down_b")

@@ -13,6 +13,23 @@ the exchange is the pod hierarchy of ``sync_tree`` (the pod stage, with
 ``comp.resparsify_pods`` Algorithm 1's step 7 on its own residual,
 ``FeedbackState.pod_residual``).
 
+With a model axis (a ``dist.sharding.ModelAxis``: ``--mesh DxM`` or
+``PxDxM``) every (pod, data, model) worker compresses and exchanges its
+own shard of every gradient leaf, the shard the JAX rules give it, as the
+JAX step's ``shard_local_sync`` does: the model workers of one data index
+take the same batch and compute the gradient whole, on the full
+parameters; each keeps its shard, hands it to the sync over its data (and
+pod) group (``shard_sync``: the delta energies summed over the model
+workers, the statistics reduced over them as JAX's ``_reduce_stats``),
+updates its shard of the parameters with its own shard of the optimizer's
+moments, and all-gathers the parameters over its model group. JAX's GSPMD
+splits the forward and backward over the model axis instead and keeps the
+parameters split; its gradient is the whole one up to the order of float
+sums, so the step's result is the same (ROADMAP.md queue C). A leaf the
+rules leave whole is compressed by every model worker with its own stream,
+as in JAX, and every model worker applies the synced value of model index
+0 (JAX's model replicas of such a leaf would each apply their own).
+
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps
 (no compression: gradient sparsification is a training method); they
 fill and advance the caches of ``models.transformer.init_model_cache``
@@ -35,8 +52,10 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.sync import SyncStats, _worker_order_mean, sync_tree
+from repro_torch.comm.sync import (SyncStats, _div_workers,
+                                   _worker_order_mean, sync_tree)
 from repro_torch.core.api import CompressionConfig, compress_tree
+from repro_torch.dist.sharding import WHOLE, ModelAxis, sum_in_order
 from repro_torch.models.transformer import (ModelConfig, forward_decode,
                                             forward_prefill, forward_train)
 from repro_torch.optim.optimizers import (ControlState, FeedbackState,
@@ -104,20 +123,85 @@ def _local_grads(model, params: list, loss_fn: Callable, batch):
     return loss, grads
 
 
-def init_compressed_control(model, comp: CompressionConfig) -> ControlState:
+def worker_leaves(model, model_axis: ModelAxis = WHOLE) -> list:
+    """What this worker's optimizer updates and its per-leaf states are
+    shaped like: its shard of each of ``model``'s leaves (views into the
+    leaves; the leaves' data at one model worker)."""
+    return [model_axis.shard(p.data, i) for i, p in enumerate(model.leaves())]
+
+
+def init_compressed_control(model, comp: CompressionConfig,
+                            model_axis: ModelAxis = WHOLE) -> ControlState:
     """Zero ControlState for the adaptive step of ``model`` (this worker's:
-    ``last_sent`` and ``last_avg`` like its leaves, one bound per leaf)."""
+    ``last_sent`` and ``last_avg`` like its leaves, or its shards of them,
+    one bound per leaf)."""
     if not comp.adaptive:
         raise ValueError("init_compressed_control with adaptive=False")
-    return init_control(model.leaves())
+    return init_control(worker_leaves(model, model_axis))
+
+
+# the statistics summed over the model workers (each shard sends its own
+# message); the others (density, var_ratio, skipped) are averaged
+MODEL_SUMS = ("bits", "dense_bits", "wire_bytes", "wire_bytes_intra",
+              "wire_bytes_inter", "overflow")
+
+
+def stats_vector(stats: SyncStats) -> torch.Tensor:
+    """``SyncStats.FIELDS`` of ``stats`` as one float64 vector (exact: the
+    fields are float32 or float64)."""
+    return torch.stack([getattr(stats, f).to(torch.float64).reshape(())
+                        for f in SyncStats.FIELDS])
+
+
+def reduce_over_model(rows: torch.Tensor, like: SyncStats) -> SyncStats:
+    """JAX's ``_reduce_stats`` over the model axis: ``rows`` [M, 9] holds
+    every model worker's ``stats_vector`` in rank order; each field is
+    taken back to its dtype in ``like``, summed in rank order and, past
+    ``MODEL_SUMS``, divided by M (an IEEE quotient). ``layouts`` are
+    ``like``'s."""
+    m = rows.shape[0]
+    out = {}
+    for j, f in enumerate(SyncStats.FIELDS):
+        col = rows[:, j].to(getattr(like, f).dtype)
+        acc = sum_in_order(col)
+        out[f] = acc if f in MODEL_SUMS else _div_workers(acc, m)
+    return SyncStats(**out, layouts=like.layouts)
+
+
+def shard_sync(comp: CompressionConfig, generator: torch.Generator,
+               shards: list, *, group=None, pod_group=None,
+               pod_generator: torch.Generator | None = None,
+               stacked: list | None = None, feedback=None, control=None,
+               model_stack=None):
+    """The per-shard half of the compressed step: ``sync_tree`` on this
+    worker's shards (compress, exchange over ``group`` and ``pod_group``),
+    with the leaves' delta energies summed over the model workers, then its
+    statistics reduced over them (``reduce_over_model``). ``model_stack``
+    maps a tensor to the ``[M, ...]`` stack of every model worker's
+    (``ModelAxis.stack``: an all-gather over the model group); None leaves
+    both unreduced: at one model worker (``ModelAxis.reduction``), or for
+    a caller that drives every shard in one process and reduces the
+    statistics itself. Returns ``sync_tree``'s tuple."""
+    energy_sum = (None if model_stack is None
+                  else lambda x: sum_in_order(model_stack(x)))
+    out = sync_tree(comp, generator, shards, group=group,
+                    pod_group=pod_group, pod_generator=pod_generator,
+                    stacked=stacked, feedback=feedback, control=control,
+                    energy_sum=energy_sum)
+    if model_stack is None:
+        return out
+    stats = out[-1]
+    return out[:-1] + (reduce_over_model(model_stack(stats_vector(stats)),
+                                         stats),)
 
 
 def make_compressed_train_step(model, comp: CompressionConfig,
                                opt: Optimizer, group=None, pod_group=None,
                                var_adaptive_lr: bool = False,
                                lr_schedule: Callable | None = None,
-                               pod_generator: torch.Generator | None = None
-                               ) -> Callable:
+                               pod_generator: torch.Generator | None = None,
+                               model_axis: ModelAxis = WHOLE,
+                               worker_group=None) -> Callable:
     """Algorithm 1 for ``model`` (a ``Transformer``) on the workers of
     ``group`` (the default process group when None), and with a
     ``pod_group`` between the pods too (``sync_tree``'s pod hierarchy:
@@ -127,6 +211,13 @@ def make_compressed_train_step(model, comp: CompressionConfig,
     with error feedback ``ef_state`` carries ``pod_residual``:
     ``init_feedback(params, pod=True)``). Metrics are then averaged over
     every worker of both groups (the default process group).
+
+    ``model_axis`` (a ``dist.sharding.ModelAxis``; ``WHOLE``, one model
+    worker, by default): this worker's place on the model axis (module
+    docstring); ``group`` and ``pod_group`` are this model index's, and ``worker_group`` holds every (pod, data) worker
+    of this model index, over which the metrics are averaged (default: the
+    data group, or with pods every worker). ``opt_state``, ``ef_state`` and
+    ``ctl_state`` are shaped like this worker's shards (``worker_leaves``).
 
     Without error feedback: ``step(opt_state, batch, generator) ->
     (opt_state, metrics)``. With ``comp.error_feedback``: ``step(opt_state,
@@ -154,33 +245,45 @@ def make_compressed_train_step(model, comp: CompressionConfig,
                          "pod_generator")
     loss_fn = make_loss_fn(model.cfg)
     params = model.leaves()
+    ma = model_axis
+    targets = worker_leaves(model, ma)    # what the optimizer updates
     # the stats' mean: over the data group, or with pods over every worker
-    stats_group = group if pod_group is None else None
+    stats_group = worker_group if worker_group is not None else (
+        group if pod_group is None else None)
     layouts: list = []          # a holder, so that no closure cycle keeps
                                 # the model alive after the step is dropped
 
     def _step(opt_state, ef_state, ctl_state, batch, generator):
         loss, grads = _local_grads(model, params, loss_fn, batch)
+        # this worker's shards, the rest dropped
+        grads = [ma.shard(g, i).contiguous() for i, g in enumerate(grads)]
         if lr_schedule is not None and ef_state is not None:
             t = opt_state["step"]
             lr_now = lr_schedule(t + 1)
             rescale_feedback(ef_state, lr_schedule(t) if t > 0 else lr_now,
                              lr_now)
-        out = sync_tree(comp, generator, grads, group=group,
-                        pod_group=pod_group, pod_generator=pod_generator,
-                        stacked=model.stacked, feedback=ef_state,
-                        control=ctl_state)
+        out = shard_sync(comp, generator, grads, group=group,
+                         pod_group=pod_group, pod_generator=pod_generator,
+                         stacked=model.stacked, feedback=ef_state,
+                         control=ctl_state,
+                         model_stack=ma.reduction)
         synced, new_fb, stats = out[0], out[1], out[-1]
         new_ctl = out[2] if ctl_state is not None else None
         del grads, out
+        for i, s in enumerate(synced):   # a whole leaf: model index 0's
+            if not ma.split(i):
+                ma.broadcast(s)
         vals = _mean_over_workers(
             [loss.detach()] + [getattr(stats, f) for f in SyncStats.FIELDS],
             stats_group)
         metrics = dict(zip(("loss",) + SyncStats.FIELDS, vals))
         var_scale = (_var_scale(stats.var_ratio, stats_group)
                      if var_adaptive_lr else 1.0)
-        _, opt_state = opt.update(synced, opt_state, params,
+        _, opt_state = opt.update(synced, opt_state, targets,
                                   var_scale=var_scale)
+        del synced
+        for i, p in enumerate(params):
+            ma.gather(p.data, i)
         layouts[:] = stats.layouts
         return opt_state, new_fb, new_ctl, metrics
 

@@ -118,7 +118,7 @@ def port_rank(data, rank: int) -> dict:
     """Every case, and the lossless and recovery specs, on this rank of a
     running four-rank group."""
     from repro_torch.launch.train import mesh_groups
-    data_group, pod_group, pod = mesh_groups((2, 2))
+    data_group, pod_group, pod = mesh_groups((2, 2, 1))
     assert pod == rank // 2
     res = {name: port_case(data, kw, be, rank, data_group, pod_group)
            for name, (kw, be) in CASES.items()}
@@ -387,8 +387,9 @@ def test_launcher_runs_the_pod_stage_on_the_cpu():
     """``launch.train --mesh 1x1x1``: the pod stage over groups of one (at
     one worker the compaction keeps every nonzero, so the pod stage ships
     the worker stage's bytes), with ``--resparsify-pods`` and EF the pod
-    residual carried; a model axis, ``--mode fsdp --adaptive`` (exits, as
-    in JAX) and a mesh that does not cover the workers are refused
+    residual carried; ``--mode fsdp --adaptive`` (exits, as in JAX) and a
+    mesh that does not cover the workers (a model axis of two at one
+    worker, ``tests/test_torch_model_axis.py`` runs it on four) are refused
     (``--checkpoint`` is ported: ``tests/test_torch_checkpoint.py``)."""
     from repro_torch.launch import train as tlaunch
     base = ["--arch", "gemma-2b", "--smoke", "--steps", "2", "--device",
@@ -401,9 +402,9 @@ def test_launcher_runs_the_pod_stage_on_the_cpu():
     out = tlaunch.main(base + ["--mesh", "1x1x1", "--resparsify-pods"])
     assert all(m["wire_bytes_inter"] > 0 and np.isfinite(m["loss"])
                for m in out["metrics"])
-    assert tlaunch.parse_mesh("1x1") is None
-    assert tlaunch.parse_mesh("2x3x1") == (2, 3)
-    for argv, err in ((["--mesh", "1x1x2"], NotImplementedError),
+    assert tlaunch.parse_mesh("1x1") == (None, 1, 1)
+    assert tlaunch.parse_mesh("2x3x1") == (2, 3, 1)
+    for argv, err in ((["--mesh", "1x1x2"], ValueError),
                       (["--mode", "fsdp", "--adaptive"], SystemExit),
                       (["--mesh", "2x1x1"], ValueError)):
         with pytest.raises(err, match="item 10|needs 2|compressed train"):
