@@ -171,6 +171,24 @@ window check also runs the chunked path at 4,608 tokens (kv blocks of
 512) against the same float64 reference, and both paths under autograd
 (ms, peak memory, input gradients against each other).
 
+Then the model axis (``model_axis_phase``: ``--mesh 1x1`` bit-equal to no
+mesh; four shards of gemma2-9b through the per-shard sync) and its
+compute split (``tensor_parallel_phase``): four model-worker processes on
+the one card (``python3 chip_smoke.py --tp-worker RUN RANK PORT DIR``,
+each starting a gloo group before it calls the launcher; NCCL refuses two
+ranks on one device) train at ``--mesh 1x4`` with gspar ``auto``, EF and
+Adam for three steps, (c) gemma2-9b at 4 periods (heads split), (d)
+gemma-2b uncut (head_dim rules), after the parent computed the whole
+model's gradient on the same init and batch: each worker's step-1
+gradient shards within ``TP_GRAD_RTOL`` of their slices of it, another
+batch's gradient at least ``CONTROL_FACTOR`` times farther, its parameter
+bytes exactly its shards' under the launcher's specs, its shard's
+exchange bytes recomputed on the host (``exchange_check``) and summing to
+the reported wire bytes, each kernel of the path launched once a group a
+step, worker 0's groups held to the kernels' plain versions; its peak
+memory and step seconds printed (gloo stages the collectives through the
+host: no yardstick for NCCL).
+
 Each run checks finite losses, no overflow (where the exchange is checked
 on the architectures: the overflow equal to the survivors its buffers
 dropped, at most 1e-5 of the survivors) and every kernel variant of the
@@ -506,9 +524,13 @@ def variant_checks(tally: Tally, g, u, l1, mx, k_cap):
                 chk.equal(f"{name} {f}", getattr(st, f), getattr(rst, f))
             for f in ("p_sum", "den", "sum_sq"):
                 chk.close(f"{name} {f}", getattr(st, f), getattr(rst, f))
-            if pkind == "topk" and not bool((st.nnz == k_target).all()):
-                raise AssertionError(f"topk kept {st.nnz.tolist()}, not "
-                                     f"{k_target}")
+            # topk keeps k_target where a row has that many nonzeros, all
+            # its nonzeros otherwise (gemma-2b's vocab rows whose softmax
+            # underflows to 0 get no gradient)
+            want = torch.clamp_max(st.nonzeros, k_target)
+            if pkind == "topk" and not torch.equal(st.nnz, want):
+                raise AssertionError(f"topk kept {st.nnz.tolist()}, want "
+                                     f"{want.tolist()}")
             del rst
         scale = codecs.finalize_scale(codec, st.sum_sq, st.max_abs)
         u_cod = (torch.rand((rows, kc), device="cuda")
@@ -3803,6 +3825,324 @@ def model_axis_phase() -> dict:
     return {"mesh_1x1": one, "shards": model_axis_shards()}
 
 
+# --- the model axis's compute split (tensor_parallel_phase) ------------------
+
+TP_M = 4                   # model workers: four processes on the one card
+# run -> (arch, its depth flags): (c) the heads split at ARCH_RUNS' cut,
+# (d) the head_dim rules uncut (18 layers)
+TP_RUNS = {"c": ("gemma2-9b", ["--num-periods", "4"]),
+           "d": ("gemma-2b", [])}
+TP_ARGS = ARCH_ARGS + ["--wire", "gather", "--seed", "0", "--mesh",
+                       f"1x{TP_M}"]
+TP_GRAD_RTOL = 2e-2        # a shard's bf16 gradient vs the whole model's:
+                           # the serve check's bound (bf16 products and
+                           # sums in other shapes and orders)
+TP_TIMEOUT = 420           # seconds a run's four workers may take
+
+
+def tp_cfg(arch: str, flags: list):
+    """The config the launcher builds for ``arch`` with ``flags``."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.launch import specs
+    cfg = specs.model_for_seq(registry.get(arch).model, 128)
+    if "--num-periods" in flags:
+        cfg = dc.replace(cfg, num_periods=int(
+            flags[flags.index("--num-periods") + 1]))
+    return cfg
+
+
+def tp_reference(run: str, tmp: Path) -> list:
+    """The gathered gradient of run ``run``: the whole model on the
+    launcher's init (``--seed 0``) and data worker 0's first batch, one
+    backward; each model worker's slice saved to ``tmp`` on the host, and
+    for each the relative distance of another batch's gradient from it
+    (the negative control). The card is emptied after."""
+    from repro_torch.configs import registry
+    from repro_torch.dist.sharding import ModelAxis
+    from repro_torch.launch import specs, train
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import (Transformer, init_model,
+                                                param_shapes)
+    from repro_torch.train import step as step_lib
+    arch, flags = TP_RUNS[run]
+    cfg = tp_cfg(arch, flags)
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    loss_fn = step_lib.make_loss_fn(cfg)
+    grads = []
+    for seed in (1_000_003, 1_000_003 + 7919):  # data worker 0's; another
+        batch = specs.train_batch(torch.Generator(device=dev).manual_seed(
+            seed), cfg, 8, 128)
+        grads.append(step_lib._local_grads(model, model.leaves(), loss_fn,
+                                           batch)[1])
+    del model, batch
+    specs_ = train.leaf_specs(cfg, leaf_order(param_shapes(cfg)),
+                              registry.get(arch).rules_overrides,
+                              (None, 1, TP_M))
+    controls = []
+    for m in range(TP_M):
+        ma = ModelAxis(size=TP_M, index=m, specs=specs_)
+        ref = [ma.shard(g, i) for i, g in enumerate(grads[0])]
+        other = [ma.shard(g, i) for i, g in enumerate(grads[1])]
+        controls.append(_rel_tree(other, ref))
+        torch.save([r.cpu() for r in ref], tmp / f"{run}_ref{m}.pt")
+    del grads, ref, other
+    torch.cuda.empty_cache()
+    return controls
+
+
+def _rel_tree(a: list, b: list) -> float:
+    """``|a - b| / |b|`` over every leaf of two lists (Frobenius)."""
+    num = sum(float((x.double() - y.double()).square().sum())
+              for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return math.sqrt(num / den)
+
+
+def tp_worker(run: str, rank: int, port: int, tmp: Path) -> None:
+    """One model worker of run ``run`` (a process of its own, on the one
+    card): the default process group on gloo, then the launcher at
+    ``--mesh 1x4`` (the split step), the kernel counts set to 0 just before
+    it and read just after; its step-1 gradient shards held to the
+    reference's slices (``tp_reference``), its exchange to its bytes
+    recomputed on the host (``exchange_check``), each main-path kernel
+    launched once a group a step, its parameter bytes to its shards'
+    under the launcher's specs; model index 0 holds its step-1 groups to
+    the kernels' plain versions (``shard_kernel_checks``). Writes its
+    record to ``tmp``."""
+    import datetime
+    import io
+    import os
+    import torch.distributed as dist
+    from repro_torch.comm import sync
+    from repro_torch.configs import registry
+    from repro_torch.dist.sharding import worker_slices
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.launch import train
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.train import step as step_lib
+    os.environ["LOCAL_RANK"] = "0"           # every worker on the one card
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=TP_M, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    arch, flags = TP_RUNS[run]
+    cfg = tp_cfg(arch, flags)
+    shapes = param_shapes(cfg)
+    names = leaf_order(shapes)
+    specs_ = train.leaf_specs(cfg, names, registry.get(arch).rules_overrides,
+                              (None, 1, TP_M))
+    shard_shapes = [tuple(s.stop - s.start for s in worker_slices(
+        shapes[n][0], spec, {"model": TP_M}, {"model": rank}))
+        for n, spec in zip(names, specs_)]
+    plan, path = gspar_path([torch.empty(s, dtype=cfg.dtype, device="meta")
+                             for s in shard_shapes],
+                            [shapes[n][1] for n in names])
+    ref = torch.load(tmp / f"{run}_ref{rank}.pt")
+    seen: dict = {}
+    real_grads, real_sync = step_lib.worker_grads, sync._bucketed_sync
+
+    def spy(model, ma, loss_fn, batch):
+        loss, grads = real_grads(model, ma, loss_fn, batch)
+        if "err" not in seen:                  # step 1: against the whole
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            errs = [_rel_tree([g], [r.to(g.device)])
+                    for g, r in zip(grads, ref)]
+            seen["err"] = _rel_tree(grads, [r.to(g.device) for g, r in
+                                            zip(grads, ref)])
+            seen["leaf_errs"] = dict(zip(names, errs))
+            seen["shapes_ok"] = [tuple(g.shape) for g in grads] == \
+                shard_shapes
+            if rank == 0:
+                seen["grads"] = [g.clone() for g in grads]
+            seen["grad_check_s"] = time.perf_counter() - t0
+        return loss, grads
+
+    record: list = []
+    step_lib.worker_grads = spy
+    sync._bucketed_sync = exchange_check(real_sync, record, path, True)
+    buf = io.StringIO()
+    K.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary = train.main(["--arch", arch] + flags + TP_ARGS)
+    finally:
+        step_lib.worker_grads, sync._bucketed_sync = real_grads, real_sync
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    del ref
+    n_groups = sum(g.kind == "sparse" for g in plan.groups)
+    n_rice = sum(lay == "rice" for *_, lay in summary["layouts"])
+    held_launches(f"{run} worker {rank}", launches, ARCH_KERNELS,
+                  len(summary["metrics"]), n_groups, n_rice)
+    want_bytes = sum(math.prod(s) for s in shard_shapes) * \
+        torch.empty((), dtype=cfg.dtype).element_size()
+    kernel_checks = {}
+    if rank == 0:
+        tally = Tally()
+        with uncounted():
+            for grp in plan.groups:
+                if grp.kind != "sparse":
+                    continue
+                g = torch.cat([seen["grads"][i].reshape(rows, grp.d)
+                               for i, rows in grp.members])
+                u = torch.rand(g.shape, device=g.device)
+                shard_kernel_checks(tally, g, u, grp.k_cap)
+                del g, u
+                torch.cuda.empty_cache()
+        kernel_checks = {k: c.max_rel for k, c in tally.check.items()}
+    seen.pop("grads", None)
+    out = {"rank": rank, "arch": arch, "flags": flags,
+           "step": summary["step"], "params": summary["params"],
+           "param_bytes": summary["param_bytes"], "want_bytes": want_bytes,
+           "grad_rel_err": seen["err"], "leaf_errs": seen["leaf_errs"],
+           "shapes_ok": seen["shapes_ok"],
+           "grad_check_s": seen["grad_check_s"],
+           "step_seconds": summary["step_seconds"],
+           "net_seconds": [s - r["check_s"] - (seen["grad_check_s"]
+                                               if i == 0 else 0.0)
+                           for i, (s, r) in enumerate(
+                               zip(summary["step_seconds"], record))],
+           "max_memory_allocated": summary["max_memory_allocated"],
+           "wire_bytes": [m["wire_bytes"] for m in summary["metrics"]],
+           "checked_wire_bytes": [r["wire_bytes"] for r in record],
+           "loss": [m["loss"] for m in summary["metrics"]],
+           "overflow": [m["overflow"] for m in summary["metrics"]],
+           "launches": launches, "groups": [[g.rows, g.d, g.k_cap] for g in
+                                            plan.groups if g.kind ==
+                                            "sparse"],
+           "layouts": sorted({lay for *_, lay in summary["layouts"]}),
+           "kernel_checks": kernel_checks,
+           "launcher_out": buf.getvalue() if rank == 0 else ""}
+    torch.save(out, tmp / f"{run}_worker{rank}.pt")
+    dist.destroy_process_group()
+
+
+def tp_run(run: str, tmp: Path) -> dict:
+    """Run ``run``'s reference, then its four workers (``tp_worker``), and
+    hold each worker's record: the split step named, its gradient within
+    TP_GRAD_RTOL of the reference's slice and the control CONTROL_FACTOR
+    times farther, its parameter bytes its shards', its exchange bytes the
+    recomputed ones, no overflow, finite losses equal on the workers."""
+    import socket
+    arch, flags = TP_RUNS[run]
+    t0 = time.perf_counter()
+    controls = tp_reference(run, tmp)
+    ref_s = time.perf_counter() - t0
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--tp-worker", run, str(r), str(port),
+                               str(tmp)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(TP_M)]
+    logs = [""] * TP_M
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate()[0]
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"tensor parallel ({run}) {arch}: workers "
+                             f"exited {[p.returncode for p in procs]}:\n"
+                             + "\n".join(f"--- worker {r}:\n{log[-6000:]}"
+                                         for r, log in enumerate(logs)))
+    workers = [torch.load(tmp / f"{run}_worker{r}.pt") for r in range(TP_M)]
+    for r in range(TP_M):
+        (tmp / f"{run}_worker{r}.pt").unlink()
+        (tmp / f"{run}_ref{r}.pt").unlink()
+    for w, ctl in zip(workers, controls):
+        what = f"tensor parallel ({run}) {arch} worker {w['rank']}"
+        w["control_rel"] = ctl
+        if w["step"] != "split" or not w["shapes_ok"]:
+            raise AssertionError(f"{what}: step {w['step']}, shard shapes "
+                                 f"{'' if w['shapes_ok'] else 'not '}the "
+                                 "launcher's")
+        if not w["grad_rel_err"] <= TP_GRAD_RTOL or \
+                ctl < CONTROL_FACTOR * w["grad_rel_err"]:
+            raise AssertionError(f"{what}: gradient {w['grad_rel_err']} "
+                                 f"from the whole model's (bound "
+                                 f"{TP_GRAD_RTOL}), control {ctl}")
+        if w["param_bytes"] != w["want_bytes"]:
+            raise AssertionError(f"{what}: {w['param_bytes']} parameter "
+                                 f"bytes, its shards' {w['want_bytes']}")
+        # a worker's metric is the sum over the model workers of the bytes
+        # each shard's exchange sent, each recomputed on the host
+        total = [float(sum(x["checked_wire_bytes"][t] for x in workers))
+                 for t in range(len(w["wire_bytes"]))]
+        if w["wire_bytes"] != total or len(total) != 3 or \
+                any(o != 0 for o in w["overflow"]):
+            raise AssertionError(f"{what}: wire bytes {w['wire_bytes']}, "
+                                 f"the shards' {total}, overflow "
+                                 f"{w['overflow']}")
+        if w["loss"] != workers[0]["loss"] or \
+                not all(math.isfinite(x) for x in w["loss"]):
+            raise AssertionError(f"{what}: losses {w['loss']}, worker 0's "
+                                 f"{workers[0]['loss']}")
+    line = [x for x in workers[0]["launcher_out"].splitlines()
+            if x.startswith("arch=")]
+    if not line or "step=split" not in line[0]:
+        raise AssertionError(f"tensor parallel ({run}): launcher printed "
+                             f"{line}")
+    out = {"arch": arch, "flags": flags, "params": workers[0]["params"],
+           "model_workers": TP_M, "launcher_line": line[0],
+           "reference_s": ref_s, "seconds": time.perf_counter() - t0,
+           "workers": [{k: w[k] for k in (
+               "param_bytes", "grad_rel_err", "control_rel", "step_seconds",
+               "net_seconds", "max_memory_allocated", "checked_wire_bytes",
+               "launches", "groups", "layouts")} for w in workers],
+           "wire_bytes": workers[0]["wire_bytes"], "loss": workers[0]["loss"],
+           "worst_leaves": [sorted(w["leaf_errs"].items(),
+                                   key=lambda kv: -kv[1])[:3]
+                            for w in workers],
+           "kernel_checks": workers[0]["kernel_checks"]}
+    print(f"tensor parallel ({run}): {arch} {' '.join(flags) or 'uncut'} "
+          f"--mesh 1x{TP_M}, {line[0]!r}: " + "; ".join(
+              f"worker {w['rank']}: {w['param_bytes']} parameter bytes (its "
+              f"shards'), gradient {w['grad_rel_err']:.3e} from the whole "
+              f"model's (control {w['control_rel']:.3e}), steps "
+              + ", ".join(f"{x:.3f}" for x in w["step_seconds"])
+              + " s (less the checks "
+              + ", ".join(f"{x:.3f}" for x in w["net_seconds"])
+              + f"), its shard's wire bytes "
+              f"{w['checked_wire_bytes']} (recomputed on the host), peak "
+              f"{w['max_memory_allocated']} B, launches {w['launches']}"
+              for w in workers)
+          + f"; wire bytes {[int(x) for x in workers[0]['wire_bytes']]} "
+          f"(the shards' sums); losses {workers[0]['loss']}; kernels on "
+          f"worker 0's groups "
+          f"equal to their plain versions; {out['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
+def tensor_parallel_phase() -> dict:
+    """The model axis's compute split on the card: runs (c) and (d) of
+    TP_RUNS (``tp_run``), the card emptied between them."""
+    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    out = {}
+    try:
+        for run in TP_RUNS:
+            torch.cuda.empty_cache()
+            out[run] = tp_run(run, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # --- serving: prefill and decode over every cache kind (serve_phase) --------
 
 SERVE_ARCH = "gemma2-9b"         # (a): full width, 42 layers, uncut
@@ -4123,6 +4463,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-worker"]:     # one of tp_run's processes
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        run, rank, port, tmp = sys.argv[2:6]
+        tp_worker(run, int(rank), int(port), Path(tmp))
+        return 0
     card = card_line()
     print(card, flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -4188,6 +4533,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     model_axis = model_axis_phase()
     torch.cuda.empty_cache()
+    tensor_parallel = tensor_parallel_phase()
+    torch.cuda.empty_cache()
     serve = serve_phase()
 
     tally = kp["tally"]
@@ -4224,6 +4571,9 @@ def main() -> int:
                                      for run in exchange["runs"].values()),
             "launches_arch": {arch: run["launches"].get(name, 0)
                               for arch, run in archs["runs"].items()},
+            "launches_tensor_parallel": {
+                run: [w["launches"].get(name, 0) for w in tp["workers"]]
+                for run, tp in tensor_parallel.items()},
         })
     kernels[list(ENTRIES).index("compact_emit/lam")]["ms_no_ef"] = \
         kp["ms_no_ef"]
@@ -4308,6 +4658,7 @@ def main() -> int:
                       "checkpoint_check": archs["checkpoint"],
                       "wide_group_check": archs["wide"]}))
     print(json.dumps({"model_axis_phase": model_axis}))
+    print(json.dumps({"tensor_parallel_phase": tensor_parallel}))
     print(json.dumps({"serve_phase": serve}))
     print(json.dumps({"compaction_on_pod_rows": {
         str(k): v for k, v in exchange["pod_rows"].items()}}))

@@ -27,7 +27,10 @@ launcher writes, and ``restore`` slices them. A stacked entry's row is
 its data worker's model index 0's where the leaf is whole: a JAX global
 array holds one replica, so past one model worker a resume hands every
 model worker of a data index model index 0's residual, ``last_sent`` and
-pod residual of a whole leaf (ROADMAP.md queue C).
+pod residual of a whole leaf (ROADMAP.md queue C). A split model
+(``Transformer.tp``: its parameters are shards) saves its parameters
+gathered the same way and restores its shards of them, so its file is the
+one the gathered step writes for the same parameters and states.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch.distributed as dist
 from repro_torch.dist.sharding import WHOLE, ModelAxis
 from repro_torch.models.convert import (PODS, WORKERS, checkpoint_entries,
                                         numpy_from_tensor, tensor_from_numpy)
+from repro_torch.models.transformer import param_shapes
 
 
 def _npz(path: str) -> str:
@@ -107,11 +111,16 @@ def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
     (``.npz`` appended when missing), ``extra`` to ``path +
     ".meta.json"``; ``mode`` the train step's (``convert.
     checkpoint_entries``); ``model_axis`` this worker's (the states then
-    hold its shards). Every worker calls it; rank 0 writes."""
+    hold its shards; a split model's own axis is taken instead). Every
+    worker calls it; rank 0 writes."""
     world, rank = _world()
     leaves = model.leaves()
+    if model.tp is not None:
+        model_axis = model.tp.axis
+    shapes = param_shapes(model.cfg)
     entries = checkpoint_entries(model.leaf_names, leaves, opt_state,
-                                 ef_state, ctl_state, mode)
+                                 ef_state, ctl_state, mode,
+                                 sharded_params=model.tp is not None)
     zf = None
     if rank == 0:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -120,7 +129,8 @@ def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
     try:
         for key, value, layout, leaf in entries:
             if leaf is not None:
-                value = _whole(value, leaf, leaves[leaf].shape, model_axis)
+                value = _whole(value, leaf,
+                               shapes[model.leaf_names[leaf]][0], model_axis)
             if isinstance(value, int):
                 arr = np.asarray(value, np.int32)
             elif layout in (WORKERS, PODS):
@@ -147,18 +157,21 @@ def restore(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
     """Read ``path`` into ``model``'s parameters and the given states, in
     place (each tensor keeps its device and dtype; a stacked entry gives
     this rank its own slice, and a leaf-shaped entry this worker's shard
-    under ``model_axis``). Returns ``(opt_state, ef_state, ctl_state)``
+    under ``model_axis``, or a split model's own axis, which slices its
+    parameters too). Returns ``(opt_state, ef_state, ctl_state)``
     with the step counts read. Raises ValueError where a shape, a dtype or
     the worker count differs from the file's."""
     world, rank = _world()
     pods, data_n, model_n = _mesh(mesh, world, ef_state is not None
                                   and ef_state.pod_residual is not None)
     pod = rank // (data_n * model_n)
+    if model.tp is not None:
+        model_axis = model.tp.axis
     steps = {}
     with np.load(_npz(path)) as data:
         for key, target, layout, leaf in checkpoint_entries(
                 model.leaf_names, model.leaves(), opt_state, ef_state,
-                ctl_state, mode):
+                ctl_state, mode, sharded_params=model.tp is not None):
             if key not in data:
                 raise ValueError(f"{path}: no entry {key!r}")
             arr = data[key]

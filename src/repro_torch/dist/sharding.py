@@ -25,8 +25,15 @@ workers.
 The JAX module's ``tree_shardings``, ``activation_sharding`` and
 ``logical_constraint`` have no counterpart: they are GSPMD layout hints
 (``NamedSharding`` and ``with_sharding_constraint``), and nothing here
-places a tensor by a compiler. The port's compressed step computes each
-data worker's gradient on the gathered parameters and keeps its shard.
+places a tensor by a compiler. For the dense decoders the split step
+(``dist.tensor_parallel``) places the collectives GSPMD would insert by
+hand: a worker holds its shards, runs the forward and backward on them,
+and ``ModelAxis.grads`` records how its backward leaves each leaf's
+gradient (``SPLIT``: its shard; ``SAME``: a whole leaf's gradient, equal
+on every model worker; ``PARTIAL``: a whole leaf's gradient of this
+worker's share of the compute, summed over the model workers before the
+sync). The other families take the gathered step: each data worker's
+gradient computed whole on the gathered parameters, then its shard kept.
 """
 from __future__ import annotations
 
@@ -197,6 +204,10 @@ def is_split(spec: tuple) -> bool:
     return any(e is not None for e in spec)
 
 
+# how the split step's backward leaves a leaf's gradient (``ModelAxis.grads``)
+SPLIT, SAME, PARTIAL = "split", "same", "partial"
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """One worker's place on the model axis of the compressed step.
@@ -208,12 +219,16 @@ class ModelAxis:
     None only where no collective is issued: ``size`` 1, or one process
     driving every shard itself), ``ranks`` their global ranks. At ``size``
     1 every leaf is whole and nothing is gathered, broadcast or reduced
-    (``WHOLE``: the step of one model worker)."""
+    (``WHOLE``: the step of one model worker). ``grads`` holds, for the
+    split step, each leaf's gradient kind (``SPLIT``, ``SAME`` or
+    ``PARTIAL``; ``dist.tensor_parallel.plan_split`` fills it); empty for
+    the gathered step."""
     size: int
     index: int
     specs: tuple
     group: Any = None
     ranks: tuple = ()
+    grads: tuple = ()
 
     @property
     def sizes(self) -> dict[str, int]:
@@ -261,6 +276,33 @@ class ModelAxis:
         """``[size, *x.shape]``: every model worker's ``x``, in rank
         order (an all-gather over the model group)."""
         return _all_gather(x, self.group)
+
+    def partial(self, i: int) -> bool:
+        """Whether the split step's gradient of leaf ``i`` is this worker's
+        share only (a whole leaf read by split compute)."""
+        return bool(self.grads) and self.grads[i] == PARTIAL
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the model workers, in place (an all-reduce;
+        nothing at one worker). Returns ``t``."""
+        if self.size > 1:
+            dist.all_reduce(t, group=self.group)
+        return t
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``t`` over the model workers, in
+        place. Returns ``t``."""
+        if self.size > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t
+
+    def sum_in_rank_order(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of model index 0 + 1 + ..., added in rank order, on every
+        model worker (an all-gather, then the sum: the same bits
+        everywhere, whatever the collective's own order)."""
+        if self.size == 1:
+            return t
+        return sum_in_order(self.stack(t))
 
 
 # one model worker: every leaf whole (the step without a model axis)

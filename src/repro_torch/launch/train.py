@@ -35,9 +35,17 @@ axis (M > 1) splits every leaf the JAX launcher's rules split
 (``dist.sharding``, ``leaf_specs``): each worker compresses and exchanges
 its own shard (``train.step``'s ``ModelAxis``), the model workers of a
 data index take the same batch, and the optimizer's moments, the residual
-and the control state hold the shard. Every run takes that one step: a
-model axis of one (no ``--mesh``, or M = 1) gathers, broadcasts and
-reduces nothing. Under ``--device cpu`` the ranks take gloo, on the card NCCL (one
+and the control state hold the shard. The dense decoders (gemma-2b,
+paligemma-3b, gemma2-9b, gemma2-27b, starcoder2-7b) take the split step:
+a worker holds only its shards of the parameters and runs the forward and
+backward on them (``dist.tensor_parallel``); the other families take the
+gathered step (the gradient computed whole on gathered parameters, the
+parameters all-gathered after the update). The first line names the step
+(``step=split`` or ``step=gathered``); there is no flag, as the JAX
+launcher has none (GSPMD always splits), and an arch on the split path
+that cannot run there raises. Every run takes the one step: a model axis
+of one (no ``--mesh``, or M = 1) gathers, broadcasts and reduces
+nothing. Under ``--device cpu`` the ranks take gloo, on the card NCCL (one
 process a rank: ``torchrun --nproc-per-node N``).
 
 ``--mode`` is ``compressed`` (Algorithm 1: each worker's gradient
@@ -77,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import socket
 import sys
@@ -89,8 +98,9 @@ from repro_torch.checkpoint import checkpoint
 from repro_torch.configs import registry
 from repro_torch.core.api import CompressionConfig
 from repro_torch.devices import resolve_device
-from repro_torch.dist import sharding
+from repro_torch.dist import sharding, tensor_parallel
 from repro_torch.launch import specs
+from repro_torch.models.common import leaf_order
 from repro_torch.models.transformer import (Transformer, init_model,
                                             param_axes, param_shapes)
 from repro_torch.optim.optimizers import adam, init_feedback, sgd
@@ -203,9 +213,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Run the launcher; returns a summary: ``metrics`` (a dict of floats
-    per step), ``step_seconds``, ``params``, ``mode``, ``layouts`` (``(rows,
-    d, k_cap, layout)`` per sparse group; none in fsdp mode) and, on the
-    card, ``max_memory_allocated``."""
+    per step), ``step_seconds``, ``params`` (the whole model's),
+    ``param_bytes`` (this worker's: its shards' in the split step),
+    ``mode``, ``step`` (``split``, ``gathered`` or ``whole`` at one model
+    worker), ``layouts`` (``(rows, d, k_cap, layout)`` per sparse group;
+    none in fsdp mode) and, on the card, ``max_memory_allocated``."""
     args = parse_args(sys.argv[1:] if argv is None else list(argv))
     if args.xla_preset != "none":
         raise NotImplementedError(
@@ -365,33 +377,55 @@ def _mesh_text(mesh) -> str:
             f"data={data}, model={model})")
 
 
+def step_kind(cfg, model_workers: int) -> str:
+    """The compressed step ``cfg`` takes at ``model_workers``: ``whole``
+    at one, past it ``split`` for a dense decoder
+    (``tensor_parallel.splits``), else ``gathered``."""
+    if model_workers == 1:
+        return "whole"
+    return "split" if tensor_parallel.splits(cfg) else "gathered"
+
+
 def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
            ) -> dict:
     rank, world = dist.get_rank(), dist.get_world_size()
     data_group, pod_group, _ = mesh_groups(mesh)
     fsdp = mode == "fsdp"
+    # the model axis: this worker's shard of every leaf (one model worker
+    # without a mesh, and in fsdp mode)
+    axes = mesh or (None, world, 1)
+    model_group, m_index, ranks, worker_group = model_groups(axes)
+    names = leaf_order(param_shapes(cfg))
+    ma = sharding.ModelAxis(
+        size=axes[2], index=m_index, group=model_group, ranks=ranks,
+        specs=leaf_specs(cfg, names, overrides, axes))
+    kind = step_kind(cfg, ma.size)
     if rank == 0:
         print(f"arch={cfg.name} layers={cfg.num_layers} "
               f"d_model={cfg.d_model} workers={world} device={device}"
-              + (_mesh_text(mesh) if mesh else "") + f" mode={mode}")
+              + (_mesh_text(mesh) if mesh else "")
+              + (f" step={kind}" if kind != "whole" else "")
+              + f" mode={mode}")
         print(f"compression: {comp.describe()}")
         for name, (shape, dtype) in specs.stub_inputs(cfg,
                                                       args.batch).items():
             print(f"input {name}: {list(shape)} "
                   f"{str(dtype).removeprefix('torch.')}")
     init_gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Transformer(cfg, init_model(cfg, init_gen, device))
-    n_params = sum(p.numel() for p in model.leaves())
+    tp = None
+    if kind == "split":     # this worker's shards only, drawn leaf by leaf
+        tp = tensor_parallel.plan_split(cfg, names, ma)
+        ma = tp.axis
+    model = Transformer(cfg, init_model(cfg, init_gen, device,
+                                        None if tp is None else tp.keep),
+                        tp=tp)
+    n_params = sum(math.prod(shape) for shape, _ in
+                   param_shapes(cfg).values())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.leaves())
     if rank == 0:
-        print(f"params: {n_params}")
+        print(f"params: {n_params}"
+              + (f" (this worker's shards: {param_bytes} B)" if tp else ""))
     opt = adam(args.lr) if args.optimizer == "adam" else sgd(args.lr)
-    # the model axis: this worker's shard of every leaf (one model worker
-    # without a mesh, and in fsdp mode)
-    axes = mesh or (None, world, 1)
-    model_group, m_index, ranks, worker_group = model_groups(axes)
-    ma = sharding.ModelAxis(
-        size=axes[2], index=m_index, group=model_group, ranks=ranks,
-        specs=leaf_specs(cfg, model.leaf_names, overrides, axes))
     opt_state = opt.init(step_lib.worker_leaves(model, ma))
     hier = comp.resparsify_pods and pod_group is not None
     if fsdp:
@@ -459,7 +493,8 @@ def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
         if rank == 0:
             print(f"checkpoint -> {args.checkpoint}")
     summary = {"metrics": history, "step_seconds": step_seconds,
-               "params": n_params, "mode": mode,
+               "params": n_params, "param_bytes": param_bytes,
+               "mode": mode, "step": kind,
                "layouts": [] if fsdp else list(train_step.layouts)}
     if device.type == "cuda":
         summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(

@@ -40,6 +40,15 @@ global cache holds ``max_seq`` positions, a window cache
 ``min(max_seq, window)`` as a ring (position t in slot ``t % w``), an
 MLA cache the latent ``c_kv`` and the shared RoPE key, a cross cache the
 encoder's keys and values. Serving runs without autograd.
+
+Past one model worker (``dist.tensor_parallel``) ``attention_train``
+takes the block's ``AttnSplit`` and the ``ModelAxis``: over heads
+(gemma2), this worker's q heads and the kv heads they read, ``wo``
+row-parallel, its product summed over the model workers before ``bo``,
+whole, is added once; a whole ``wk``/``wv`` is sliced to the kv heads read
+(its gradient then this worker's share). Over head_dim (gemma-2b,
+paligemma, starcoder2) the layer's attention leaves are gathered and the
+attention runs whole.
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models.layers import apply_rope, rope_table, scalar, softcap
 
 F32 = torch.float32
@@ -101,9 +111,22 @@ def causal_mask(sq: int, sk: int, device,
     return m[None]
 
 
+def _kv_read(p: dict, split) -> dict:
+    """A heads split's kv leaves: its shards, or the whole ``wk``/``wv``
+    (``bk``/``bv``) sliced to the kv heads its q heads read."""
+    if split is None or split.kv_split:
+        return p
+    lo, hi = split.kv
+    out = dict(p, wk=p["wk"][:, lo:hi], wv=p["wv"][:, lo:hi])
+    if "bk" in p:
+        out.update(bk=p["bk"][lo:hi], bv=p["bv"][lo:hi])
+    return out
+
+
 def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor,
-         kv_x: torch.Tensor | None = None):
+         kv_x: torch.Tensor | None = None, split=None):
     kv_x = x if kv_x is None else kv_x
+    p = _kv_read(p, split)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
@@ -129,8 +152,12 @@ def _sdpa(cfg: AttnConfig, q, k, v, mask):
     return out.reshape(b, sq, h, d)
 
 
-def _proj_out(p: dict, cfg: AttnConfig, out):
+def _proj_out(p: dict, cfg: AttnConfig, out, model_axis=None):
+    """``out @ wo`` (+ ``bo``); with ``model_axis`` ``wo`` is this worker's
+    heads and the product is summed over the model workers first."""
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if model_axis is not None:
+        y = tp.reduce_from(y, model_axis)
     if cfg.use_bias:
         y = y + p["bo"]
     return y
@@ -234,17 +261,27 @@ def _rope_at(cfg: AttnConfig, q, k, positions: torch.Tensor):
 
 def attention_train(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
                     kv_x: torch.Tensor | None = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, split=None,
+                    model_axis=None) -> torch.Tensor:
     """Full-sequence attention on x [B, S, d] (train, encoder): self-
     attention with RoPE at positions ``0 .. S-1``, or with ``kv_x`` [B, T,
     d] cross-attention to it, without RoPE; causal (and windowed) or, with
     ``causal=False``, every key visible. ``p`` holds ``wq``, ``wk``,
-    ``wv``, ``wo`` (and with ``use_bias`` the biases)."""
+    ``wv``, ``wo`` (and with ``use_bias`` the biases). ``split`` (a
+    ``tensor_parallel.AttnSplit``) and ``model_axis``: this worker's part
+    of a split attention (module docstring)."""
+    heads = split is not None and split.mode == "heads"
+    if split is not None and split.mode == "gather":
+        p = {k: tp.gather_leaf(v, split.gather[k], model_axis)
+             if k in split.gather else v for k, v in p.items()}
+    if heads:
+        x = tp.copy_to(x, model_axis)
     s = x.shape[1]
-    q, k, v = _qkv(p, cfg, x, kv_x)
+    q, k, v = _qkv(p, cfg, x, kv_x, split if heads else None)
     if cfg.use_rope and kv_x is None:    # cross-attention carries no rope
         q, k = _rope_at(cfg, q, k, torch.arange(s, device=x.device))
-    return _proj_out(p, cfg, _sdpa_dispatch(cfg, q, k, v, causal=causal))
+    return _proj_out(p, cfg, _sdpa_dispatch(cfg, q, k, v, causal=causal),
+                     model_axis if heads else None)
 
 
 # ---------------------------------------------------------------------------

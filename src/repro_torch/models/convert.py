@@ -58,7 +58,8 @@ REPLICATED, WORKERS, PODS = "replicated", "workers", "pods"
 
 def checkpoint_entries(names: list, params: list, opt_state=None,
                        ef_state=None, ctl_state=None,
-                       mode: str = "compressed") -> list:
+                       mode: str = "compressed",
+                       sharded_params: bool = False) -> list:
     """``(key, value, layout, leaf)`` of every entry of this worker's training
     state, in the order the JAX package's ``tree_flatten`` writes the tree
     ``{"params", "opt", "ef", "ctl"}`` (absent parts left out). ``names``
@@ -73,7 +74,8 @@ def checkpoint_entries(names: list, params: list, opt_state=None,
     the ``fsdp`` mode. ``leaf`` is the index of the leaf whose shape an
     entry of the optimizer, feedback or control state takes (with a model
     axis, this worker's shard of it), None for the parameters (whole on
-    every worker), the bounds and the step counts."""
+    every worker; with ``sharded_params``, a split model's, their leaf's
+    index too), the bounds and the step counts."""
     if mode not in ("compressed", "fsdp"):
         raise ValueError(f"mode {mode!r}: want compressed or fsdp")
     out = []
@@ -101,8 +103,8 @@ def checkpoint_entries(names: list, params: list, opt_state=None,
                 out += [(f"opt/{field}/{n}", x, REPLICATED, i)
                         for i, (n, x) in enumerate(zip(names,
                                                        opt_state[field]))]
-    out += [(f"params/{n}", x, REPLICATED, None)
-            for n, x in zip(names, params)]
+    out += [(f"params/{n}", x, REPLICATED, i if sharded_params else None)
+            for i, (n, x) in enumerate(zip(names, params))]
     return out
 
 
@@ -119,6 +121,19 @@ def params_from_numpy(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def shards_from_numpy(tree: dict, model_axis, device="cpu"
+                      ) -> dict[str, torch.Tensor]:
+    """The JAX parameters (nested dict of numpy arrays) as this worker's
+    shards under ``model_axis`` (a ``ModelAxis`` whose specs follow the
+    leaves' JAX flatten order): ``params_from_numpy``, then
+    ``ModelAxis.shard`` of each leaf, copied; a split model's parameters
+    (``Transformer(cfg, ..., tp=...)``)."""
+    from repro_torch.models.common import leaf_order
+    flat = params_from_numpy(tree, device)
+    return {n: model_axis.shard(flat[n], i).clone()
+            for i, n in enumerate(leaf_order(flat))}
 
 
 def cache_from_jax(tree: dict, device="cpu") -> dict[str, torch.Tensor]:

@@ -9,11 +9,21 @@ package's numerics:
   tables, result cast back to the input dtype;
 - ``jax.nn.gelu`` is the tanh approximation by default;
 - the embedding is scaled by sqrt(d_model) rounded to the parameter dtype.
+
+Past one model worker (``dist.tensor_parallel``, a ``ModelAxis`` passed as
+``model_axis``) the MLPs take this worker's shards: ``gate``, ``up`` (and
+``up_b``) column-parallel over the hidden width, ``down`` row-parallel,
+its product summed over the model workers before ``down_b``, whole, is
+added once; the embedding and the tied unembedding take this worker's
+rows of the table (``vocab``: the axis and the first row), the logits
+then its vocab shard.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import tensor_parallel as tp
 
 F32 = torch.float32
 
@@ -72,21 +82,33 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 
 def gated_mlp(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
-              x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
-    """GeGLU (gemma) / SwiGLU."""
+              x: torch.Tensor, act: str = "gelu",
+              model_axis=None) -> torch.Tensor:
+    """GeGLU (gemma) / SwiGLU; with ``model_axis`` on this worker's
+    shards (module docstring)."""
+    if model_axis is not None:
+        x = tp.copy_to(x, model_axis)
     h_gate = x @ gate
     h_gate = (F.gelu(h_gate, approximate="tanh") if act == "gelu"
               else F.silu(h_gate))
-    return (h_gate * (x @ up)) @ down
+    out = (h_gate * (x @ up)) @ down
+    return out if model_axis is None else tp.reduce_from(out, model_axis)
 
 
 def dense_mlp(up: torch.Tensor, up_b: torch.Tensor, down: torch.Tensor,
               down_b: torch.Tensor, x: torch.Tensor,
-              act: str = "gelu") -> torch.Tensor:
-    """The plain two-layer MLP with biases (starcoder2)."""
+              act: str = "gelu", model_axis=None) -> torch.Tensor:
+    """The plain two-layer MLP with biases (starcoder2); with
+    ``model_axis`` on this worker's shards, ``down_b`` added once after
+    the sum."""
+    if model_axis is not None:
+        x = tp.copy_to(x, model_axis)
     h = x @ up + up_b
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
-    return h @ down + down_b
+    out = h @ down
+    if model_axis is not None:
+        out = tp.reduce_from(out, model_axis)
+    return out + down_b
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -100,13 +122,20 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
-          scale: bool = False) -> torch.Tensor:
-    x = table[tokens]
+          scale: bool = False, vocab=None) -> torch.Tensor:
+    """``table[tokens]``; ``vocab`` ``(axis, lo)``: ``table`` holds rows
+    ``lo ..`` of the whole table (``tensor_parallel.vocab_embed``)."""
+    x = table[tokens] if vocab is None else tp.vocab_embed(table, tokens,
+                                                           *vocab)
     if scale:
         x = x * scalar(x.shape[-1] ** 0.5, x.dtype, x.device)
     return x
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: logits = x @ table^T."""
+def unembed(table: torch.Tensor, x: torch.Tensor,
+            model_axis=None) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table^T (with ``model_axis``, the
+    logits of this worker's rows of the table)."""
+    if model_axis is not None:
+        x = tp.copy_to(x, model_axis)
     return x @ table.T

@@ -55,6 +55,13 @@ ring for ``attn_sw``), MLA's latent, RWKV-6's and Mamba-2's states, a
 shared site's own KV, and an encoder-decoder's cross cache, which prefill
 fills from the encoder's output and decode reads. A vision prefix runs
 in prefill only; decode positions continue after it.
+
+Past one model worker a dense decoder splits its compute over the model
+workers (``dist.tensor_parallel``: ``forward_train``'s ``tp``): its
+``Transformer`` holds this worker's shards only (``init_model``'s
+``keep`` draws each leaf whole, in order, and keeps its slice), the
+blocks run the split attention and MLP, the embedding and the logits the
+worker's rows of the vocabulary. Serving runs on whole models only.
 """
 from __future__ import annotations
 
@@ -401,22 +408,29 @@ def _init_constant(ini: Initializer, cfg: ModelConfig, name: str, shape):
     return ini.zeros(shape)
 
 
+def _whole(name: str, t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _init_attn(ini: Initializer, cfg: ModelConfig, kind: str,
-               layers: int | None) -> dict[str, torch.Tensor]:
+               layers: int | None, keep=_whole) -> dict[str, torch.Tensor]:
     if kind in MLA_KINDS:
         return {f"attn/{k}": v for k, v in attn.init_mla(
             ini, cfg.mla_cfg(), layers).items()}
-    return {name: (ini.zeros(shape if layers is None else (layers,) + shape)
-                   if name.endswith(_ZEROS)
-                   else ini.fan_in(shape, 1 if name == "attn/wo" else 0,
-                                   layers=layers))
+    return {name: keep(name, ini.zeros(shape if layers is None
+                                       else (layers,) + shape)
+                       if name.endswith(_ZEROS)
+                       else ini.fan_in(shape, 1 if name == "attn/wo" else 0,
+                                       layers=layers))
             for name, shape in _attn_shapes(cfg, kind).items()}
 
 
 def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
-                layers: int | None) -> dict[str, torch.Tensor]:
+                layers: int | None, keep=_whole) -> dict[str, torch.Tensor]:
     """One block's leaves: the attention, FFN or recurrent leaves, then
-    the norms; ``layers`` stacks that many layers on a leading axis."""
+    the norms; ``layers`` stacks that many layers on a leading axis.
+    ``keep(name, leaf)`` takes each attention, dense FFN and norm leaf as
+    it is drawn (the split model's shard of it)."""
     def full(shape):
         return shape if layers is None else (layers,) + tuple(shape)
 
@@ -424,17 +438,19 @@ def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
     if kind in SSM_KINDS:
         out.update(_init_ssm(ini, cfg, kind, layers))
     else:
-        out.update(_init_attn(ini, cfg, kind, layers))
+        out.update(_init_attn(ini, cfg, kind, layers, keep))
         if _ffn_kind(cfg, kind) == "moe":
             out.update({f"ffn/{k}": v for k, v in moe_lib.init_moe(
                 ini, cfg.moe, layers).items()})
         else:
             for name, shape in _ffn_shapes(cfg, kind).items():
-                out[name] = (ini.zeros(full(shape)) if name.endswith(_ZEROS)
-                             else ini.fan_in(shape, 0, layers=layers))
+                out[name] = keep(name, ini.zeros(full(shape))
+                                 if name.endswith(_ZEROS)
+                                 else ini.fan_in(shape, 0, layers=layers))
     for n in _norm_names(cfg, kind):
         for name, shape in _norm_shapes(cfg, n).items():
-            out[name] = _init_constant(ini, cfg, name, full(shape))
+            out[name] = keep(name, _init_constant(ini, cfg, name,
+                                                  full(shape)))
     return out
 
 
@@ -462,23 +478,29 @@ def _init_cross(ini: Initializer, cfg: ModelConfig
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device=None) -> dict[str, torch.Tensor]:
+               device=None, keep=None) -> dict[str, torch.Tensor]:
     """Random parameters with the JAX package's distributions: the
     embedding N(0, 1), projections N(0, 1/fan_in), the MoE router N(0,
     1/d_model), biases 0, RMSNorm scales 0 (it scales by 1 + scale),
     LayerNorm scales 1, and the recurrent blocks' leaves as in
     ``models.ssm``. Drawn block by block (the periods' blocks, the
     embedding, the prelude, the shared block, then the encoder and the
-    cross-attention sublayers)."""
+    cross-attention sublayers). ``keep(path, leaf)``: a dense decoder's
+    leaves as drawn, each kept as it returns it
+    (``tensor_parallel.TensorParallel.keep``: this worker's shard; the
+    whole leaf is then freed before the next is drawn)."""
     dev = resolve_device(device)
     ini = Initializer(generator, cfg.dtype, dev)
+    keep = keep or _whole
     params = {}
     for prefix, kind in cfg.blocks():
         params.update({f"{prefix}/{k}": v for k, v in _init_block(
-            ini, cfg, kind, cfg.num_periods).items()})
-    params["embed/table"] = ini.normal((cfg.vocab, cfg.d_model), stddev=1.0)
+            ini, cfg, kind, cfg.num_periods,
+            lambda n, t, prefix=prefix: keep(f"{prefix}/{n}", t)).items()})
+    params["embed/table"] = keep("embed/table", ini.normal(
+        (cfg.vocab, cfg.d_model), stddev=1.0))
     for name, shape in _norm_shapes(cfg, "final_ln").items():
-        params[name] = _init_constant(ini, cfg, name, shape)
+        params[name] = keep(name, _init_constant(ini, cfg, name, shape))
     for prefix, kind in cfg.prelude_blocks():
         params.update({f"{prefix}/{k}": v for k, v in _init_block(
             ini, cfg, kind, None).items()})
@@ -515,17 +537,18 @@ def _sub(p: dict, prefix: str) -> dict:
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
-         balance_group):
+         balance_group, model_axis=None):
     """The block's FFN on h: ``(y, aux)``, aux None for a dense FFN (the
-    JAX package adds an exact 0.0 there)."""
+    JAX package adds an exact 0.0 there); ``model_axis``: split over the
+    model workers."""
     fk = _ffn_kind(cfg, kind)
     if fk == "moe":
         return moe_lib.moe_ffn(_sub(p, "ffn/"), cfg.moe, h, balance_group)
     if fk == "gated":
         return gated_mlp(p["ffn/gate"], p["ffn/up"], p["ffn/down"], h,
-                         cfg.act), None
+                         cfg.act, model_axis), None
     return dense_mlp(p["ffn/up"], p["ffn/up_b"], p["ffn/down"],
-                     p["ffn/down_b"], h, cfg.act), None
+                     p["ffn/down_b"], h, cfg.act, model_axis), None
 
 
 def _store(cache: dict | None, new: dict) -> None:
@@ -536,11 +559,14 @@ def _store(cache: dict | None, new: dict) -> None:
 
 
 def _attend(p: dict, acfg: attn.AttnConfig, h: torch.Tensor, mode: str,
-            cache: dict | None, pos, causal: bool = True) -> torch.Tensor:
+            cache: dict | None, pos, causal: bool = True, split=None,
+            model_axis=None) -> torch.Tensor:
     """GQA attention in ``mode``: train (or an encoder's, ``causal``),
-    prefill or decode, the last two writing ``cache`` in place."""
+    prefill or decode, the last two writing ``cache`` in place; ``split``
+    and ``model_axis``: a split model's (train only)."""
     if mode == "train":
-        return attn.attention_train(p, acfg, h, causal=causal)
+        return attn.attention_train(p, acfg, h, causal=causal, split=split,
+                                    model_axis=model_axis)
     if mode == "prefill":
         return attn.attention_prefill(p, acfg, h, cache)
     return attn.attention_decode(p, acfg, h, cache, pos)
@@ -575,14 +601,16 @@ def _shared_site(cfg: ModelConfig, p: dict, shared: dict, x: torch.Tensor,
 def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
            balance_group=None, shared: dict | None = None,
            emb0: torch.Tensor | None = None, causal: bool = True,
-           mode: str = "train", cache: dict | None = None, pos=None):
+           mode: str = "train", cache: dict | None = None, pos=None,
+           tp=None, path: str | None = None):
     """One block on x [B, S, d]; ``p`` maps the block's leaf names
     (``"attn/wq"``) to this layer's slices, ``shared`` zamba2's shared
     leaves and ``emb0`` the embedded tokens (for ``shared_attn``);
     ``causal=False`` for an encoder's ``attn_full`` block. ``mode``:
     train, prefill or decode (x [B, 1, d] at position ``pos``); serving
-    reads and writes this layer's ``cache`` in place. Returns ``(x,
-    aux)``."""
+    reads and writes this layer's ``cache`` in place. ``tp``: a split
+    model's ``TensorParallel`` (``p`` then holds this worker's shards of
+    the block at ``path``). Returns ``(x, aux)``."""
     if kind == "rwkv":
         h = _norm(cfg, p, "ln1", x)
         if mode == "decode":
@@ -602,14 +630,19 @@ def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         return x + a, None
     if kind == "shared_attn":
         return _shared_site(cfg, p, shared, x, emb0, mode, cache, pos), None
+    split = ma = ffn_ma = None
+    if tp is not None:
+        split, ma = tp.attn[path], tp.axis
+        ffn_ma = ma if tp.ffn[path] else None
     h = _norm(cfg, p, "ln1", x)
     if kind in MLA_KINDS:
         a = _attend_mla(_sub(p, "attn/"), cfg, h, mode, cache, pos)
     else:
         a = _attend(_sub(p, "attn/"), cfg.attn_cfg(kind), h, mode, cache,
-                    pos, causal)
+                    pos, causal, split, ma)
     x = _residual(cfg, p, x, a, "post_ln1")
-    f, aux = _ffn(cfg, kind, p, _norm(cfg, p, "ln2", x), balance_group)
+    f, aux = _ffn(cfg, kind, p, _norm(cfg, p, "ln2", x), balance_group,
+                  ffn_ma)
     return _residual(cfg, p, x, f, "post_ln2"), aux
 
 
@@ -653,11 +686,13 @@ def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str,
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-           prefix: torch.Tensor | None) -> tuple[torch.Tensor, int]:
+           prefix: torch.Tensor | None, tp=None) -> tuple[torch.Tensor, int]:
     """The embedded tokens in the model dtype, a vision model's
     ``prefix`` before them (where ``cfg.prefix_len`` is set, as in JAX),
-    and the prefix's length."""
-    x = embed(params["embed/table"], tokens, cfg.embed_scale).to(cfg.dtype)
+    and the prefix's length; ``tp``: a split model's, whose table may hold
+    this worker's rows only."""
+    x = embed(params["embed/table"], tokens, cfg.embed_scale,
+              None if tp is None else tp.vocab_axis()).to(cfg.dtype)
     n_prefix = (prefix.shape[1] if cfg.prefix_len and prefix is not None
                 else 0)
     if n_prefix:
@@ -681,11 +716,13 @@ def _per_layer(caches: dict | None, prefix: str) -> dict | None:
 
 def _stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
            mode: str = "train", caches: dict | None = None, pos=None,
-           enc_out: torch.Tensor | None = None, balance_group=None):
+           enc_out: torch.Tensor | None = None, balance_group=None,
+           tp=None):
     """The prelude, then the periods (each block, then in an
     encoder-decoder its cross-attention sublayer) on x, ``emb0`` = x; in
-    serving each layer reads and writes its slice of ``caches`` in place.
-    Returns ``(x, aux)``, the MoE auxiliary losses summed in order."""
+    serving each layer reads and writes its slice of ``caches`` in place;
+    ``tp``: a split model's (a dense decoder: periods only). Returns ``(x,
+    aux)``, the MoE auxiliary losses summed in order."""
     site = dict(balance_group=balance_group, shared=_sub(params, "shared/"),
                 emb0=x, mode=mode, pos=pos)
     aux = torch.zeros((), dtype=F32, device=x.device)
@@ -695,16 +732,17 @@ def _stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         if a is not None:
             aux = aux + a
     layers = [(kind, _layers(params, path + "/"),
-               _per_layer(caches, path + "/"))
+               _per_layer(caches, path + "/"), path)
               for path, kind in cfg.blocks()]
     cross = ([_layers(params, path + "/") for path in cfg.cross_blocks()]
              if cfg.encoder_periods else [])
     cross_cache = _per_layer(caches, "cross/")
     for i in range(cfg.num_periods):
-        for j, (kind, p, c) in enumerate(layers):
+        for j, (kind, p, c, path) in enumerate(layers):
             x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
                           cache=None if c is None else
-                          {k: v[i] for k, v in c.items()}, **site)
+                          {k: v[i] for k, v in c.items()}, tp=tp,
+                          path=path, **site)
             if a is not None:
                 aux = aux + a
             if cross:
@@ -717,7 +755,7 @@ def _stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
                   tokens: torch.Tensor, balance_group=None, *,
                   prefix: torch.Tensor | None = None,
-                  enc_embeds: torch.Tensor | None = None
+                  enc_embeds: torch.Tensor | None = None, tp=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] -> (logits [B, S, vocab] in the parameter dtype, the
     MoE auxiliary loss: a 0-d float32, summed over the blocks in order,
@@ -725,15 +763,20 @@ def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
     batches the load-balance term spans (``moe.moe_ffn``); None for this
     worker's batch alone. ``prefix`` [B, P, d]: a vision model's patch
     embeddings (read where ``cfg.prefix_len`` is set, as in JAX);
-    ``enc_embeds`` [B, F, d]: an encoder-decoder's frame embeddings."""
-    x, n_prefix = _embed(params, cfg, tokens, prefix)
+    ``enc_embeds`` [B, F, d]: an encoder-decoder's frame embeddings.
+    ``tp``: a split model's ``TensorParallel`` (``params`` its shards):
+    the logits are then this worker's vocab shard where the table is
+    split (``tp.vocab``)."""
+    x, n_prefix = _embed(params, cfg, tokens, prefix, tp)
     x, aux = _stack(params, cfg, x, enc_out=_encoded(params, cfg,
                                                      enc_embeds),
-                    balance_group=balance_group)
+                    balance_group=balance_group, tp=tp)
     x = _norm(cfg, params, "final_ln", x)
     if n_prefix:
         x = x[:, n_prefix:]
-    return softcap(unembed(params["embed/table"], x), cfg.final_softcap), aux
+    vocab_ma = None if tp is None or tp.vocab is None else tp.axis
+    return softcap(unembed(params["embed/table"], x, vocab_ma),
+                   cfg.final_softcap), aux
 
 
 # ---------------------------------------------------------------------------
@@ -821,12 +864,15 @@ class Transformer(nn.Module):
     """The model as an ``nn.Module``: one ``nn.Parameter`` per JAX leaf.
     ``leaves()`` lists them in the JAX flatten order and ``stacked`` flags
     the layer-stacked ones — what the compressed train step hands to the
-    sync."""
+    sync. With ``tp`` (a ``dist.tensor_parallel.TensorParallel``) the
+    parameters are this worker's shards and the forward is split over the
+    model workers; None: the whole model."""
 
     def __init__(self, cfg: ModelConfig,
-                 params: dict[str, torch.Tensor]):
+                 params: dict[str, torch.Tensor], tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.params = nn.ParameterDict(
             {k: nn.Parameter(v) for k, v in params.items()})
         shapes = param_shapes(cfg)
@@ -840,16 +886,26 @@ class Transformer(nn.Module):
                 prefix: torch.Tensor | None = None,
                 enc_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(logits, aux): ``forward_train``."""
+        """(logits, aux): ``forward_train`` (a split model's logits: this
+        worker's vocab shard)."""
         return forward_train(dict(self.params), self.cfg, tokens,
-                             prefix=prefix, enc_embeds=enc_embeds)
+                             prefix=prefix, enc_embeds=enc_embeds,
+                             tp=self.tp)
+
+    def _whole_only(self, what: str) -> None:
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{what} on a split model: serving at a mesh is not ported "
+                "yet (ROADMAP.md queue A item 10d)")
 
     def prefill(self, batch: dict, caches: dict) -> torch.Tensor:
         """``forward_prefill``: the last position's logits."""
+        self._whole_only("prefill")
         return forward_prefill(dict(self.params), self.cfg, batch, caches)
 
     def decode(self, tokens: torch.Tensor, caches: dict,
                pos: int) -> torch.Tensor:
         """``forward_decode``: the logits of one token a sequence."""
+        self._whole_only("decode")
         return forward_decode(dict(self.params), self.cfg, tokens, caches,
                               pos)

@@ -16,19 +16,30 @@ the exchange is the pod hierarchy of ``sync_tree`` (the pod stage, with
 With a model axis (a ``dist.sharding.ModelAxis``: ``--mesh DxM`` or
 ``PxDxM``) every (pod, data, model) worker compresses and exchanges its
 own shard of every gradient leaf, the shard the JAX rules give it, as the
-JAX step's ``shard_local_sync`` does: the model workers of one data index
-take the same batch and compute the gradient whole, on the full
-parameters; each keeps its shard, hands it to the sync over its data (and
-pod) group (``shard_sync``: the delta energies summed over the model
-workers, the statistics reduced over them as JAX's ``_reduce_stats``),
-updates its shard of the parameters with its own shard of the optimizer's
-moments, and all-gathers the parameters over its model group. JAX's GSPMD
-splits the forward and backward over the model axis instead and keeps the
-parameters split; its gradient is the whole one up to the order of float
-sums, so the step's result is the same (ROADMAP.md queue C). A leaf the
-rules leave whole is compressed by every model worker with its own stream,
-as in JAX, and every model worker applies the synced value of model index
-0 (JAX's model replicas of such a leaf would each apply their own).
+JAX step's ``shard_local_sync`` does; the model workers of one data index
+take the same batch. Two steps get there (``worker_grads``):
+
+- the split step, for a split model (a dense decoder past one model
+  worker, ``Transformer.tp``: ``dist.tensor_parallel``): the worker holds
+  its shards and its forward and backward run on them, as JAX's GSPMD
+  splits them; its gradient of a split leaf is its shard, of a whole leaf
+  the whole gradient, and of a whole leaf it read only in part (``wk``,
+  ``wv`` where the kv heads do not divide) its share, summed over the
+  model workers in rank order; it updates its shards in place and gathers
+  nothing;
+- the gathered step, for a whole model (the other families): the
+  gradient computed whole, on the full parameters, its shard kept; after
+  the update the parameters are all-gathered over the model group. Its
+  gradient is GSPMD's up to the order of float sums (ROADMAP.md queue C).
+
+Each hands its shards to the sync over its data (and pod) group
+(``shard_sync``: the delta energies summed over the model workers, the
+statistics reduced over them as JAX's ``_reduce_stats``) and updates its
+shard of the parameters with its own shard of the optimizer's moments. A
+leaf the rules leave whole is compressed by every model worker with its
+own stream, as in JAX, and every model worker applies the synced value of
+model index 0 (JAX's model replicas of such a leaf would each apply their
+own).
 
 ``make_prefill_step`` and ``make_decode_step`` are the serving steps
 (no compression: gradient sparsification is a training method); they
@@ -64,7 +75,7 @@ from repro_torch.optim.optimizers import (ControlState, FeedbackState,
 from repro_torch.train.loss import lm_loss, shift_targets
 
 
-def make_loss_fn(cfg: ModelConfig, balance_group=None) -> Callable:
+def make_loss_fn(cfg: ModelConfig, balance_group=None, tp=None) -> Callable:
     """``(params dict, batch) -> scalar loss``: the token-mean cross
     entropy plus the MoE auxiliary loss (``forward_train``'s; 0.0 without
     MoE), as the JAX step forms it. The batch carries ``tokens`` and,
@@ -72,16 +83,22 @@ def make_loss_fn(cfg: ModelConfig, balance_group=None) -> Callable:
     (``launch.specs.train_batch``). An optional ``batch["loss_mask"]``
     ([B, S], 0 or 1) multiplies the next-token mask. ``balance_group``:
     the workers whose batches the load-balance term spans (the FSDP step's
-    global batch); None for this worker's own batch."""
+    global batch); None for this worker's own batch. ``tp``: a split
+    model's (``Transformer.tp``; ``params`` its shards), the cross entropy
+    then vocab-parallel where the table is split; the loss is the whole
+    one on every model worker."""
+    vocab = None if tp is None else tp.vocab_axis()
+
     def loss_fn(params, batch):
         logits, aux = forward_train(params, cfg, batch["tokens"],
                                     balance_group,
                                     prefix=batch.get("prefix"),
-                                    enc_embeds=batch.get("enc_embeds"))
+                                    enc_embeds=batch.get("enc_embeds"),
+                                    tp=tp)
         targets, mask = shift_targets(batch["tokens"])
         if "loss_mask" in batch:
             mask = mask * batch["loss_mask"]
-        return lm_loss(logits, targets, mask) + aux
+        return lm_loss(logits, targets, mask, vocab) + aux
     return loss_fn
 
 
@@ -126,8 +143,28 @@ def _local_grads(model, params: list, loss_fn: Callable, batch):
 def worker_leaves(model, model_axis: ModelAxis = WHOLE) -> list:
     """What this worker's optimizer updates and its per-leaf states are
     shaped like: its shard of each of ``model``'s leaves (views into the
-    leaves; the leaves' data at one model worker)."""
+    leaves; the leaves' data at one model worker and for a split model,
+    which holds its shards)."""
+    if model.tp is not None:
+        return [p.data for p in model.leaves()]
     return [model_axis.shard(p.data, i) for i, p in enumerate(model.leaves())]
+
+
+def worker_grads(model, model_axis: ModelAxis, loss_fn: Callable, batch):
+    """This worker's loss on ``batch`` and its shard of each leaf's
+    gradient, contiguous: what it hands to ``shard_sync``. A split model
+    (``model.tp``; its own axis) yields its shards from its backward, a
+    ``PARTIAL`` leaf's share summed over the model workers in rank order;
+    a whole model (the gathered step) computes the whole gradient and
+    keeps ``model_axis``'s shard of it."""
+    params = model.leaves()
+    loss, grads = _local_grads(model, params, loss_fn, batch)
+    if model.tp is not None:
+        ma = model.tp.axis
+        return loss, [ma.sum_in_rank_order(g.contiguous()) if ma.partial(i)
+                      else g.contiguous() for i, g in enumerate(grads)]
+    return loss, [model_axis.shard(g, i).contiguous()
+                  for i, g in enumerate(grads)]
 
 
 def init_compressed_control(model, comp: CompressionConfig,
@@ -214,10 +251,13 @@ def make_compressed_train_step(model, comp: CompressionConfig,
 
     ``model_axis`` (a ``dist.sharding.ModelAxis``; ``WHOLE``, one model
     worker, by default): this worker's place on the model axis (module
-    docstring); ``group`` and ``pod_group`` are this model index's, and ``worker_group`` holds every (pod, data) worker
-    of this model index, over which the metrics are averaged (default: the
-    data group, or with pods every worker). ``opt_state``, ``ef_state`` and
-    ``ctl_state`` are shaped like this worker's shards (``worker_leaves``).
+    docstring): a whole ``model`` takes the gathered step on it, a split
+    one (``model.tp``) the split step on its own ``tp.axis``; ``group``
+    and ``pod_group`` are this model index's, and ``worker_group`` holds
+    every (pod, data) worker of this model index, over which the metrics
+    are averaged (default: the data group, or with pods every worker).
+    ``opt_state``, ``ef_state`` and ``ctl_state`` are shaped like this
+    worker's shards (``worker_leaves``).
 
     Without error feedback: ``step(opt_state, batch, generator) ->
     (opt_state, metrics)``. With ``comp.error_feedback``: ``step(opt_state,
@@ -243,9 +283,10 @@ def make_compressed_train_step(model, comp: CompressionConfig,
             and pod_generator is None:
         raise ValueError("resparsify_pods with a pod group needs a "
                          "pod_generator")
-    loss_fn = make_loss_fn(model.cfg)
+    loss_fn = make_loss_fn(model.cfg, tp=model.tp)
     params = model.leaves()
-    ma = model_axis
+    split = model.tp is not None
+    ma = model.tp.axis if split else model_axis
     targets = worker_leaves(model, ma)    # what the optimizer updates
     # the stats' mean: over the data group, or with pods over every worker
     stats_group = worker_group if worker_group is not None else (
@@ -254,9 +295,7 @@ def make_compressed_train_step(model, comp: CompressionConfig,
                                 # the model alive after the step is dropped
 
     def _step(opt_state, ef_state, ctl_state, batch, generator):
-        loss, grads = _local_grads(model, params, loss_fn, batch)
-        # this worker's shards, the rest dropped
-        grads = [ma.shard(g, i).contiguous() for i, g in enumerate(grads)]
+        loss, grads = worker_grads(model, ma, loss_fn, batch)
         if lr_schedule is not None and ef_state is not None:
             t = opt_state["step"]
             lr_now = lr_schedule(t + 1)
@@ -282,8 +321,9 @@ def make_compressed_train_step(model, comp: CompressionConfig,
         _, opt_state = opt.update(synced, opt_state, targets,
                                   var_scale=var_scale)
         del synced
-        for i, p in enumerate(params):
-            ma.gather(p.data, i)
+        if not split:             # the gathered step: the whole leaves back
+            for i, p in enumerate(params):
+                ma.gather(p.data, i)
         layouts[:] = stats.layouts
         return opt_state, new_fb, new_ctl, metrics
 
