@@ -1,19 +1,26 @@
-"""The split of the model axis's compute for the dense decoders: the
-collectives GSPMD inserts for the JAX package's rules (``repro.dist.
-sharding``'s ``DP_RULES`` and the archs' overrides), placed by hand.
+"""The split of the model axis's compute: the collectives GSPMD inserts
+for the JAX package's rules (``repro.dist.sharding``'s ``DP_RULES`` and
+the archs' overrides), placed by hand.
 
-Past one model worker a dense decoder (``splits``: gemma-2b,
-paligemma-3b, gemma2-9b, gemma2-27b, starcoder2-7b) holds only its shards
-of the leaves the rules split, and runs the forward and backward on them
-with explicit collectives over the model group, under autograd:
+Past one model worker an arch without SSM blocks (``splits``: the dense
+decoders gemma-2b, paligemma-3b, gemma2-9b, gemma2-27b, starcoder2-7b, the
+MoE phi3.5-moe, the MLA and MoE deepseek-v2, the encoder-decoder
+seamless-m4t-large-v2) holds only its shards of the leaves the rules
+split, and runs the forward and backward on them with explicit
+collectives over the model group, under autograd. What every worker
+computes alike (the norms, MoE's router, aux losses and dispatch, MLA's
+down projections) stays outside the pair ``copy_to`` ... ``reduce_from``,
+so its gradient is whole on every worker and is not summed again:
 
 - ``copy_to``: identity forward, a sum over the model workers backward, at
-  the input of each split branch (the attention over heads, the MLP, the
-  unembedding), so the gradient of the replicated activation is whole on
-  every worker;
+  the input of each split branch (the attention over heads, and a cross
+  attention's encoder output; MLA's three latents; the MLP; MoE's
+  dispatched tokens; the unembedding), so the gradient of the replicated
+  activation is whole on every worker;
 - ``reduce_from``: a sum forward, identity backward, after each
-  row-parallel product (``wo`` over heads, ``down`` over mlp); a whole bias
-  (``bo``, ``down_b``) is added once, after it;
+  row-parallel product (``wo`` over heads, ``down`` over mlp, the experts'
+  ``w_down`` over expert_mlp, before the combine weights multiply it); a
+  whole bias (``bo``, ``down_b``) is added once, after it;
 - ``vocab_embed``: this worker's rows of the table looked up where the
   token falls in them, zeros elsewhere, summed over the workers: one worker
   adds a nonzero row per position, so the embedding is the whole one, bit
@@ -34,7 +41,12 @@ workers, ``wk`` and ``wv`` (``bk``, ``bv``) stay whole: each worker reads
 the kv heads of its q heads (global head ``h`` reads kv head ``h // G``),
 so its gradient of them is its share (``PARTIAL``), summed over the model
 workers before the sync. ``plan_split`` reads the specs of
-``launch.train.leaf_specs`` and returns the worker's ``TensorParallel``.
+``launch.train.leaf_specs`` for every block path (the prelude, the
+periods, the encoder and the cross-attention sublayers) and returns the
+worker's ``TensorParallel``. The SSM blocks (rwkv6, zamba2) take the
+gathered step: Mamba-2's ``in_proj`` and ``conv_w`` concatenate five
+parts along the one split axis, and RWKV-6 splits heads inside a chunked
+scan (ROADMAP.md queue A item 10d).
 """
 from __future__ import annotations
 
@@ -46,16 +58,16 @@ from repro_torch.dist.sharding import (PARTIAL, SAME, SPLIT, ModelAxis,
                                        is_split, place_slices, worker_slices)
 
 F32 = torch.float32
-# the block kinds of a dense decoder (``models.transformer.ATTN_KINDS``)
-DENSE_KINDS = ("attn_full", "attn_sw")
+# the SSM and hybrid block kinds (``models.transformer.SSM_KINDS``): an
+# arch with one takes the gathered step
+SSM_KINDS = ("rwkv", "mamba", "shared_attn")
 
 
 def splits(cfg) -> bool:
-    """Whether the split step takes ``cfg``: a dense decoder (attention
-    blocks with a gated or plain MLP; a vision prefix as an input), not MoE,
-    MLA, the SSMs or an encoder-decoder, which take the gathered step."""
-    return (set(cfg.pattern) <= set(DENSE_KINDS) and not cfg.prelude
-            and cfg.moe is None and not cfg.encoder_periods)
+    """Whether the split step takes ``cfg``: attention (GQA or MLA) blocks
+    with a gated, plain or MoE FFN, a prelude, an encoder and its cross
+    attention; not the SSM blocks, which take the gathered step."""
+    return not (set(cfg.pattern) | set(cfg.prelude)) & set(SSM_KINDS)
 
 
 def reduce_sum(x: torch.Tensor, ma: ModelAxis) -> torch.Tensor:
@@ -133,9 +145,11 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, ma: ModelAxis,
 class AttnSplit:
     """How a block's attention runs on this worker: ``heads`` (its q heads
     ``q`` and the kv heads ``kv`` they read; ``kv_split``: ``wk``/``wv``
-    are its shards, else whole and sliced to ``kv``), ``gather`` (the
-    leaves in ``gather``, with their per-layer specs, put together and the
-    attention computed whole) or ``whole`` (nothing split)."""
+    are its shards, else whole and sliced to ``kv``), ``mla`` (MLA over
+    its heads ``q``: the down projections whole, the three latents copied
+    into the split), ``gather`` (the leaves in ``gather``, with their
+    per-layer specs, put together and the attention computed whole) or
+    ``whole`` (nothing split)."""
     mode: str
     q: tuple = (0, 0)
     kv: tuple = (0, 0)
@@ -145,10 +159,13 @@ class AttnSplit:
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """One worker's split of a dense decoder: its model axis (``grads``
-    filled), each block's ``AttnSplit`` and whether its MLP is split (by
-    block path), and its rows of the embedding table ``[lo, hi)`` (None:
-    the table is whole)."""
+    """One worker's split: its model axis (``grads`` filled), by block
+    path (``blocks/b0_attn_full``, ``prelude/p0_mla_dense``,
+    ``encoder/blk``, ``cross/x0``) each attention's ``AttnSplit`` and the
+    parts of each FFN that run split (``("mlp",)`` for a dense or gated
+    MLP, ``"experts"`` and ``"shared"`` for MoE's routed and shared
+    experts; ``()`` whole), and its rows of the embedding table ``[lo,
+    hi)`` (None: the table is whole)."""
     axis: ModelAxis
     attn: dict
     ffn: dict
@@ -166,6 +183,11 @@ class TensorParallel:
         where the table is whole."""
         return None if self.vocab is None else (self.axis, self.vocab[0])
 
+    def ffn_axis(self, path: str, part: str):
+        """The model axis where ``part`` of the FFN at ``path`` runs split,
+        else None."""
+        return self.axis if part in self.ffn[path] else None
+
 
 def _block_of(spec: tuple, dim: int, size: int, ma: ModelAxis) -> tuple:
     """This worker's ``[lo, hi)`` along ``dim`` of a leaf whose ``dim`` is
@@ -176,10 +198,13 @@ def _block_of(spec: tuple, dim: int, size: int, ma: ModelAxis) -> tuple:
     return sl[dim].start, sl[dim].stop
 
 
-def _attn_split(cfg, path: str, spec_of, ma: ModelAxis) -> AttnSplit:
-    names = [k for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
-             if f"{path}/attn/{k}" in spec_of]
-    specs = {k: spec_of[f"{path}/attn/{k}"][1:] for k in names}
+def _gather_or_whole(specs: dict) -> AttnSplit:
+    split = {k: s for k, s in specs.items() if is_split(s)}
+    return AttnSplit("gather", gather=split) if split else AttnSplit("whole")
+
+
+def _attn_split(cfg, path: str, specs: dict, ma: ModelAxis) -> AttnSplit:
+    """A GQA attention's split from its leaves' per-layer ``specs``."""
     if specs["wq"][1] is not None:           # heads over the model axis
         h, kv = cfg.num_heads, cfg.num_kv_heads
         groups = h // kv
@@ -194,27 +219,87 @@ def _attn_split(cfg, path: str, spec_of, ma: ModelAxis) -> AttnSplit:
                 f"{path}: q heads {q} of {h} read kv heads {kvb} of {kv} in "
                 "no regular grouping; the split step cannot run it")
         return AttnSplit("heads", q=q, kv=kvb, kv_split=kv_split)
-    split = {k: s for k, s in specs.items() if is_split(s)}
-    return AttnSplit("gather", gather=split) if split else AttnSplit("whole")
+    return _gather_or_whole(specs)
+
+
+# MLA's leaves split over heads (dim 1, ``wo`` dim 0) and kept whole
+_MLA_HEADS = {"q_up": (None, "model", None), "k_up": (None, "model", None),
+              "v_up": (None, "model", None), "wo": ("model", None, None)}
+_MLA_WHOLE = ("q_down", "kv_down", "k_rope")
+
+
+def _mla_split(cfg, specs: dict, ma: ModelAxis) -> AttnSplit:
+    """An MLA attention's split: over heads where the up projections and
+    ``wo`` split there and the down projections stay whole (deepseek-v2's
+    rules), else gathered."""
+    if all(specs[k] == s for k, s in _MLA_HEADS.items()) and not any(
+            is_split(specs[k]) for k in _MLA_WHOLE):
+        return AttnSplit("mla", q=_block_of(specs["q_up"], 1, cfg.num_heads,
+                                            ma))
+    return _gather_or_whole(specs)
+
+
+# the routed experts' split: ``w_gate``/``w_up`` [E, d, f] by columns,
+# ``w_down`` [E, f, d] by rows
+_EXPERTS = {"w_gate": (None, None, "model"), "w_up": (None, None, "model"),
+            "w_down": (None, "model", None)}
+
+
+def _ffn_split(path: str, specs: dict) -> tuple:
+    """The parts of an FFN that run split, from its leaves' per-layer
+    ``specs``: ``("mlp",)``, or MoE's ``"experts"`` and ``"shared"``."""
+    if "down" in specs:
+        return ("mlp",) if is_split(specs["down"]) else ()
+    parts = ()
+    if any(is_split(specs[k]) for k in _EXPERTS):
+        if any(specs[k] != s for k, s in _EXPERTS.items()):
+            raise ValueError(f"{path}: experts split as {specs}; the split "
+                             "step splits expert_mlp only")
+        parts += ("experts",)
+    if "shared/down" in specs and is_split(specs["shared/down"]):
+        parts += ("shared",)
+    return parts
+
+
+def _block_paths(cfg):
+    """``(path, kind, stacked, ffn)`` of every block path: the prelude,
+    the periods, the encoder's block and the cross-attention sublayers
+    (``ffn`` False: attention only)."""
+    out = [(p, k, False, True) for p, k in cfg.prelude_blocks()]
+    out += [(p, k, True, True) for p, k in cfg.blocks()]
+    if cfg.encoder_periods:
+        out.append(("encoder/blk", "attn_full", True, True))
+        out += [(p, "attn_full", True, False) for p in cfg.cross_blocks()]
+    return out
 
 
 def plan_split(cfg, names, ma: ModelAxis) -> TensorParallel:
-    """This worker's ``TensorParallel`` for the dense decoder ``cfg`` whose
-    leaves (in ``names``' order) ``ma.specs`` places; ``ma.grads`` filled.
-    Raises ValueError for an arch the split step does not take."""
+    """This worker's ``TensorParallel`` for ``cfg`` whose leaves (in
+    ``names``' order) ``ma.specs`` places; ``ma.grads`` filled. Raises
+    ValueError for an arch the split step does not take (an SSM block)."""
     if not splits(cfg):
-        raise ValueError(f"{cfg.name}: the split step takes the dense "
-                         "decoders only")
+        raise ValueError(f"{cfg.name}: the split step takes no SSM block "
+                         f"({', '.join(SSM_KINDS)}); it runs the gathered "
+                         "step")
     names = tuple(names)
     spec_of = dict(zip(names, ma.specs))
     attn, ffn, partial = {}, {}, set()
-    for path, _ in cfg.blocks():
-        a = _attn_split(cfg, path, spec_of, ma)
+    for path, kind, stacked, has_ffn in _block_paths(cfg):
+        def specs(part, path=path, stacked=stacked):
+            n = len(path) + len(part) + 2
+            return {k[n:]: s[1:] if stacked else s
+                    for k, s in spec_of.items()
+                    if k.startswith(f"{path}/{part}/")}
+        if kind in ("mla", "mla_dense"):
+            a = _mla_split(cfg, specs("attn"), ma)
+        else:
+            a = _attn_split(cfg, path, specs("attn"), ma)
         attn[path] = a
         if a.mode == "heads" and not a.kv_split:
             partial.update(f"{path}/attn/{k}" for k in ("wk", "wv", "bk",
                                                          "bv"))
-        ffn[path] = is_split(spec_of[f"{path}/ffn/down"])
+        if has_ffn:
+            ffn[path] = _ffn_split(path, specs("ffn"))
     table = spec_of["embed/table"]
     vocab = (_block_of(table, 0, cfg.vocab, ma) if is_split(table)
              else None)

@@ -43,12 +43,17 @@ encoder's keys and values. Serving runs without autograd.
 
 Past one model worker (``dist.tensor_parallel``) ``attention_train``
 takes the block's ``AttnSplit`` and the ``ModelAxis``: over heads
-(gemma2), this worker's q heads and the kv heads they read, ``wo``
-row-parallel, its product summed over the model workers before ``bo``,
-whole, is added once; a whole ``wk``/``wv`` is sliced to the kv heads read
-(its gradient then this worker's share). Over head_dim (gemma-2b,
-paligemma, starcoder2) the layer's attention leaves are gathered and the
-attention runs whole.
+(gemma2, phi3.5-moe, seamless), this worker's q heads and the kv heads
+they read, ``wo`` row-parallel, its product summed over the model workers
+before ``bo``, whole, is added once; a whole ``wk``/``wv`` is sliced to
+the kv heads read (its gradient then this worker's share); a cross
+attention's ``kv_x`` (the encoder's output) is copied into the split as
+``x`` is. Over head_dim (gemma-2b, paligemma, starcoder2) the layer's
+attention leaves are gathered and the attention runs whole. ``mla_train``
+over heads (deepseek-v2) computes the three latents (the query's, ``c_kv``
+and the roped ``k_rope``) from the whole down projections on every
+worker, copies them into the split, and runs its heads of ``q_up``,
+``k_up``, ``v_up`` and ``wo``.
 """
 from __future__ import annotations
 
@@ -109,6 +114,14 @@ def causal_mask(sq: int, sk: int, device,
     if window is not None:
         m &= (i - j) < window
     return m[None]
+
+
+def _gathered(p: dict, split, model_axis) -> dict:
+    """``p`` with the leaves a ``gather`` split names put together."""
+    if split is None or split.mode != "gather":
+        return p
+    return {k: tp.gather_leaf(v, split.gather[k], model_axis)
+            if k in split.gather else v for k, v in p.items()}
 
 
 def _kv_read(p: dict, split) -> dict:
@@ -271,11 +284,11 @@ def attention_train(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
     ``tensor_parallel.AttnSplit``) and ``model_axis``: this worker's part
     of a split attention (module docstring)."""
     heads = split is not None and split.mode == "heads"
-    if split is not None and split.mode == "gather":
-        p = {k: tp.gather_leaf(v, split.gather[k], model_axis)
-             if k in split.gather else v for k, v in p.items()}
+    p = _gathered(p, split, model_axis)
     if heads:
         x = tp.copy_to(x, model_axis)
+        if kv_x is not None:
+            kv_x = tp.copy_to(kv_x, model_axis)
     s = x.shape[1]
     q, k, v = _qkv(p, cfg, x, kv_x, split if heads else None)
     if cfg.use_rope and kv_x is None:    # cross-attention carries no rope
@@ -416,40 +429,54 @@ def mla_shapes(cfg: MLAConfig) -> dict[str, tuple[int, ...]]:
             "v_up": (cfg.kv_lora, h, cfg.v_dim), "wo": (h, cfg.v_dim, d)}
 
 
-def init_mla(ini, cfg: MLAConfig, layers: int | None = None
-             ) -> dict[str, torch.Tensor]:
+def init_mla(ini, cfg: MLAConfig, layers: int | None = None,
+             keep=lambda name, t: t) -> dict[str, torch.Tensor]:
     """N(0, 1/fan-in) on axis 0, ``wo``'s on axis 1 (the JAX package's);
-    ``layers`` stacks that many copies on a leading axis."""
-    return {name: ini.fan_in(shape, 1 if name == "wo" else 0, layers=layers)
+    ``layers`` stacks that many copies on a leading axis; ``keep(name,
+    leaf)`` takes each leaf as it is drawn (a split model's shard)."""
+    return {name: keep(name, ini.fan_in(shape, 1 if name == "wo" else 0,
+                                        layers=layers))
             for name, shape in mla_shapes(cfg).items()}
 
 
 def _mla_qc(p: dict, cfg: MLAConfig, x: torch.Tensor,
-            positions: torch.Tensor):
-    """Queries and the latent (c_kv, k_rope) for a block of tokens."""
-    q = torch.einsum("bsl,lhk->bshk",
-                     torch.einsum("bsd,dl->bsl", x, p["q_down"]), p["q_up"])
-    q_nope, q_rope = q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
+            positions: torch.Tensor, model_axis=None):
+    """Queries and the latent (c_kv, k_rope) for a block of tokens; with
+    ``model_axis`` the three latents are copied into the split before the
+    up projections (this worker's heads of ``q_up``)."""
+    q_lat = torch.einsum("bsd,dl->bsl", x, p["q_down"])
     c_kv = torch.einsum("bsd,dl->bsl", x, p["kv_down"])
     k_rope = torch.einsum("bsd,dr->bsr", x, p["k_rope"])
     sin, cos = rope_table(positions, cfg.qk_rope, cfg.rope_theta)
-    q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
+    if model_axis is not None:
+        q_lat, c_kv, k_rope = (tp.copy_to(t, model_axis)
+                               for t in (q_lat, c_kv, k_rope))
+    q = torch.einsum("bsl,lhk->bshk", q_lat, p["q_up"])
+    q_nope, q_rope = q[..., :cfg.qk_nope], q[..., cfg.qk_nope:]
+    q_rope = apply_rope(q_rope, sin, cos)
     return q_nope, q_rope, c_kv, k_rope
 
 
-def mla_train(p: dict, cfg: MLAConfig, x: torch.Tensor) -> torch.Tensor:
+def mla_train(p: dict, cfg: MLAConfig, x: torch.Tensor, split=None,
+              model_axis=None) -> torch.Tensor:
     """Training-time MLA on x [B, S, d]: per-head keys and values
     materialized from the latent, causal. ``p`` holds ``q_down``, ``q_up``,
-    ``kv_down``, ``k_rope``, ``k_up``, ``v_up`` and ``wo``."""
-    return _mla_full(p, cfg, x)[0]
+    ``kv_down``, ``k_rope``, ``k_up``, ``v_up`` and ``wo``. ``split`` (an
+    ``AttnSplit``, ``mla`` or ``gather``) and ``model_axis``: this
+    worker's part of a split attention (module docstring)."""
+    heads = split is not None and split.mode == "mla"
+    return _mla_full(_gathered(p, split, model_axis), cfg, x,
+                     model_axis if heads else None)[0]
 
 
-def _mla_full(p: dict, cfg: MLAConfig, x: torch.Tensor):
-    """``mla_train``'s output and the latent (c_kv, k_rope) it read."""
+def _mla_full(p: dict, cfg: MLAConfig, x: torch.Tensor, model_axis=None):
+    """``mla_train``'s output and the latent (c_kv, k_rope) it read; with
+    ``model_axis``, over this worker's heads, ``wo``'s product summed over
+    the model workers."""
     s = x.shape[1]
     q_nope, q_rope, c_kv, k_rope = _mla_qc(
-        p, cfg, x, torch.arange(s, device=x.device))
+        p, cfg, x, torch.arange(s, device=x.device), model_axis)
     k_nope = torch.einsum("bsl,lhk->bshk", c_kv, p["k_up"])
     v = torch.einsum("bsl,lhk->bshk", c_kv, p["v_up"])
     scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
@@ -460,7 +487,10 @@ def _mla_full(p: dict, cfg: MLAConfig, x: torch.Tensor):
     scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthk->bshk", probs, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), c_kv, k_rope
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if model_axis is not None:
+        y = tp.reduce_from(y, model_axis)
+    return y, c_kv, k_rope
 
 
 def init_mla_cache(cfg: MLAConfig, batch: int, max_seq: int,

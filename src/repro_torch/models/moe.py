@@ -23,6 +23,16 @@ Where that batch is split over workers and the gradients averaged (the
 FSDP step), the workers' per-expert choice counts are summed over the
 group before the division, so that the averaged aux equals JAX's over the
 global batch; ``me`` and the z-loss are means and average correctly.
+
+Past one model worker (``dist.tensor_parallel``) the routed experts run
+split over ``expert_mlp``: ``w_gate`` and ``w_up`` [E, d, f] by columns,
+``w_down`` [E, f, d] by rows. The router, the aux losses, the sort, the
+capacity masks and the slots run alike on every worker, outside the
+split: the dispatched tokens ``xs`` are copied into it, and each choice's
+expert output, unsorted, is summed over the model workers before the
+combine weights multiply it, so the gradients of the router and of the
+weights are whole on every worker. The shared experts are a split gated
+MLP.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models.layers import gated_mlp
 
 F32 = torch.float32
@@ -78,20 +89,21 @@ def moe_shapes(cfg: MoEConfig) -> dict[str, tuple[int, ...]]:
     return out
 
 
-def init_moe(ini, cfg: MoEConfig, layers: int | None = None
-             ) -> dict[str, torch.Tensor]:
+def init_moe(ini, cfg: MoEConfig, layers: int | None = None,
+             keep=lambda name, t: t) -> dict[str, torch.Tensor]:
     """The JAX package's distributions: the router N(0, d^-0.5), the
     experts N(0, 1/fan-in) with the fan-in on axis 1, the shared gated
     MLP N(0, 1/fan-in) on axis 0; ``layers`` stacks that many copies on a
-    leading axis."""
+    leading axis; ``keep(name, leaf)`` takes each leaf as it is drawn (a
+    split model's shard, the whole leaf then freed)."""
     p = {}
     for name, shape in moe_shapes(cfg).items():
         if name == "router":
             full = shape if layers is None else (layers,) + shape
-            p[name] = ini.normal(full, stddev=cfg.d_model ** -0.5)
+            p[name] = keep(name, ini.normal(full, stddev=cfg.d_model ** -0.5))
         else:
-            p[name] = ini.fan_in(shape, 1 if name.startswith("w_") else 0,
-                                 layers=layers)
+            p[name] = keep(name, ini.fan_in(
+                shape, 1 if name.startswith("w_") else 0, layers=layers))
     return p
 
 
@@ -152,11 +164,15 @@ def sort_choices(ids: torch.Tensor, e: int, cap: int):
     return order, sids, keep, slots
 
 
-def moe_ffn(p: dict, cfg: MoEConfig, x: torch.Tensor, balance_group=None
+def moe_ffn(p: dict, cfg: MoEConfig, x: torch.Tensor, balance_group=None,
+            experts_axis=None, shared_axis=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux loss, a 0-d float32). ``p`` holds
     ``router``, ``w_gate``, ``w_up``, ``w_down`` and with shared experts
-    ``shared/gate``, ``shared/up``, ``shared/down``."""
+    ``shared/gate``, ``shared/up``, ``shared/down``. ``experts_axis`` and
+    ``shared_axis``: the model axis over which the routed and the shared
+    experts run split (``p`` then holds this worker's shards of them;
+    module docstring), None where they run whole."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = cfg.capacity(s)
@@ -189,6 +205,8 @@ def moe_ffn(p: dict, cfg: MoEConfig, x: torch.Tensor, balance_group=None
     xs = _take_rows(x_sorted, p_clip)
     xs = xs * slot_valid.reshape(b, e * cap, 1).to(x.dtype)
     xs = xs.reshape(b, e, cap, d)
+    if experts_axis is not None:
+        xs = tp.copy_to(xs, experts_axis)
 
     # ---- expert FFN: batched products over the expert axis
     gate = torch.einsum("becd,edf->becf", xs, p["w_gate"])
@@ -203,10 +221,12 @@ def moe_ffn(p: dict, cfg: MoEConfig, x: torch.Tensor, balance_group=None
     y_sorted = y_sorted * keep[..., None].to(x.dtype)
     inv_order = torch.argsort(order, dim=-1, stable=True)      # unsort perm
     y_choice = _take_rows(y_sorted, inv_order)
+    if experts_axis is not None:    # [B, S*k, d]: fewer rows than ys'
+        y_choice = tp.reduce_from(y_choice, experts_axis)
     w_k = weights.reshape(b, s, k, 1).to(x.dtype)              # choice-major
     y = torch.sum(y_choice.reshape(b, s, k, d) * w_k, dim=2)
 
     if cfg.num_shared:
         y = y + gated_mlp(p["shared/gate"], p["shared/up"],
-                          p["shared/down"], x, cfg.act)
+                          p["shared/down"], x, cfg.act, shared_axis)
     return y, aux

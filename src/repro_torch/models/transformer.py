@@ -56,12 +56,15 @@ shared site's own KV, and an encoder-decoder's cross cache, which prefill
 fills from the encoder's output and decode reads. A vision prefix runs
 in prefill only; decode positions continue after it.
 
-Past one model worker a dense decoder splits its compute over the model
-workers (``dist.tensor_parallel``: ``forward_train``'s ``tp``): its
-``Transformer`` holds this worker's shards only (``init_model``'s
+Past one model worker an arch without SSM blocks splits its compute over
+the model workers (``dist.tensor_parallel``: ``forward_train``'s ``tp``):
+its ``Transformer`` holds this worker's shards only (``init_model``'s
 ``keep`` draws each leaf whole, in order, and keeps its slice), the
-blocks run the split attention and MLP, the embedding and the logits the
-worker's rows of the vocabulary. Serving runs on whole models only.
+prelude's, the periods', the encoder's and the cross sublayers' blocks
+run the split attention (GQA or MLA), MLP and experts, the embedding and
+the logits the worker's rows of the vocabulary where the table splits
+(else the whole table on every worker). Serving runs on whole models
+only.
 """
 from __future__ import annotations
 
@@ -416,7 +419,8 @@ def _init_attn(ini: Initializer, cfg: ModelConfig, kind: str,
                layers: int | None, keep=_whole) -> dict[str, torch.Tensor]:
     if kind in MLA_KINDS:
         return {f"attn/{k}": v for k, v in attn.init_mla(
-            ini, cfg.mla_cfg(), layers).items()}
+            ini, cfg.mla_cfg(), layers,
+            lambda n, t: keep(f"attn/{n}", t)).items()}
     return {name: keep(name, ini.zeros(shape if layers is None
                                        else (layers,) + shape)
                        if name.endswith(_ZEROS)
@@ -429,8 +433,8 @@ def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
                 layers: int | None, keep=_whole) -> dict[str, torch.Tensor]:
     """One block's leaves: the attention, FFN or recurrent leaves, then
     the norms; ``layers`` stacks that many layers on a leading axis.
-    ``keep(name, leaf)`` takes each attention, dense FFN and norm leaf as
-    it is drawn (the split model's shard of it)."""
+    ``keep(name, leaf)`` takes each attention, FFN and norm leaf as it is
+    drawn (the split model's shard of it)."""
     def full(shape):
         return shape if layers is None else (layers,) + tuple(shape)
 
@@ -441,7 +445,8 @@ def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
         out.update(_init_attn(ini, cfg, kind, layers, keep))
         if _ffn_kind(cfg, kind) == "moe":
             out.update({f"ffn/{k}": v for k, v in moe_lib.init_moe(
-                ini, cfg.moe, layers).items()})
+                ini, cfg.moe, layers,
+                lambda n, t: keep(f"ffn/{n}", t)).items()})
         else:
             for name, shape in _ffn_shapes(cfg, kind).items():
                 out[name] = keep(name, ini.zeros(full(shape))
@@ -467,13 +472,14 @@ def _init_shared(ini: Initializer, cfg: ModelConfig
     return out
 
 
-def _init_cross(ini: Initializer, cfg: ModelConfig
+def _init_cross(ini: Initializer, cfg: ModelConfig, keep=_whole
                 ) -> dict[str, torch.Tensor]:
     """One cross-attention sublayer stacked over the periods: the norm's
     constants and an ``attn_full`` block's attention."""
-    out = {name: _init_constant(ini, cfg, name, (cfg.num_periods,) + shape)
+    out = {name: keep(name, _init_constant(ini, cfg, name,
+                                           (cfg.num_periods,) + shape))
            for name, shape in _norm_shapes(cfg, "ln").items()}
-    out.update(_init_attn(ini, cfg, "attn_full", cfg.num_periods))
+    out.update(_init_attn(ini, cfg, "attn_full", cfg.num_periods, keep))
     return out
 
 
@@ -485,37 +491,40 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     LayerNorm scales 1, and the recurrent blocks' leaves as in
     ``models.ssm``. Drawn block by block (the periods' blocks, the
     embedding, the prelude, the shared block, then the encoder and the
-    cross-attention sublayers). ``keep(path, leaf)``: a dense decoder's
-    leaves as drawn, each kept as it returns it
+    cross-attention sublayers). ``keep(path, leaf)``: each leaf but the
+    SSM blocks' and zamba2's shared block's as drawn, kept as it returns it
     (``tensor_parallel.TensorParallel.keep``: this worker's shard; the
     whole leaf is then freed before the next is drawn)."""
     dev = resolve_device(device)
     ini = Initializer(generator, cfg.dtype, dev)
     keep = keep or _whole
+
+    def under(prefix):
+        return lambda n, t: keep(f"{prefix}/{n}", t)
+
     params = {}
     for prefix, kind in cfg.blocks():
         params.update({f"{prefix}/{k}": v for k, v in _init_block(
-            ini, cfg, kind, cfg.num_periods,
-            lambda n, t, prefix=prefix: keep(f"{prefix}/{n}", t)).items()})
+            ini, cfg, kind, cfg.num_periods, under(prefix)).items()})
     params["embed/table"] = keep("embed/table", ini.normal(
         (cfg.vocab, cfg.d_model), stddev=1.0))
     for name, shape in _norm_shapes(cfg, "final_ln").items():
         params[name] = keep(name, _init_constant(ini, cfg, name, shape))
     for prefix, kind in cfg.prelude_blocks():
         params.update({f"{prefix}/{k}": v for k, v in _init_block(
-            ini, cfg, kind, None).items()})
+            ini, cfg, kind, None, under(prefix)).items()})
     if "shared_attn" in cfg.pattern:
         params.update({f"shared/{k}": v
                        for k, v in _init_shared(ini, cfg).items()})
     if cfg.encoder_periods:
         params.update({f"encoder/blk/{k}": v for k, v in _init_block(
-            ini, cfg.encoder_cfg(), "attn_full",
-            cfg.encoder_periods).items()})
+            ini, cfg.encoder_cfg(), "attn_full", cfg.encoder_periods,
+            under("encoder/blk")).items()})
         for name, shape in _norm_shapes(cfg, "enc_final_ln").items():
-            params[name] = _init_constant(ini, cfg, name, shape)
+            params[name] = keep(name, _init_constant(ini, cfg, name, shape))
         for prefix in cfg.cross_blocks():
-            params.update({f"{prefix}/{k}": v
-                           for k, v in _init_cross(ini, cfg).items()})
+            params.update({f"{prefix}/{k}": v for k, v in _init_cross(
+                ini, cfg, under(prefix)).items()})
     return params
 
 
@@ -537,18 +546,22 @@ def _sub(p: dict, prefix: str) -> dict:
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
-         balance_group, model_axis=None):
+         balance_group, tp=None, path: str | None = None):
     """The block's FFN on h: ``(y, aux)``, aux None for a dense FFN (the
-    JAX package adds an exact 0.0 there); ``model_axis``: split over the
-    model workers."""
+    JAX package adds an exact 0.0 there); ``tp``: a split model's, the
+    parts ``tp.ffn[path]`` names split over the model workers."""
+    def axis(part):
+        return None if tp is None else tp.ffn_axis(path, part)
+
     fk = _ffn_kind(cfg, kind)
     if fk == "moe":
-        return moe_lib.moe_ffn(_sub(p, "ffn/"), cfg.moe, h, balance_group)
+        return moe_lib.moe_ffn(_sub(p, "ffn/"), cfg.moe, h, balance_group,
+                               axis("experts"), axis("shared"))
     if fk == "gated":
         return gated_mlp(p["ffn/gate"], p["ffn/up"], p["ffn/down"], h,
-                         cfg.act, model_axis), None
+                         cfg.act, axis("mlp")), None
     return dense_mlp(p["ffn/up"], p["ffn/up_b"], p["ffn/down"],
-                     p["ffn/down_b"], h, cfg.act, model_axis), None
+                     p["ffn/down_b"], h, cfg.act, axis("mlp")), None
 
 
 def _store(cache: dict | None, new: dict) -> None:
@@ -573,9 +586,10 @@ def _attend(p: dict, acfg: attn.AttnConfig, h: torch.Tensor, mode: str,
 
 
 def _attend_mla(p: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
-                cache: dict | None, pos) -> torch.Tensor:
+                cache: dict | None, pos, split=None,
+                model_axis=None) -> torch.Tensor:
     if mode == "train":
-        return attn.mla_train(p, cfg.mla_cfg(), h)
+        return attn.mla_train(p, cfg.mla_cfg(), h, split, model_axis)
     if mode == "prefill":
         return attn.mla_prefill(p, cfg.mla_cfg(), h, cache)
     return attn.mla_decode(p, cfg.mla_cfg(), h, cache, pos)
@@ -630,19 +644,19 @@ def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
         return x + a, None
     if kind == "shared_attn":
         return _shared_site(cfg, p, shared, x, emb0, mode, cache, pos), None
-    split = ma = ffn_ma = None
+    split = ma = None
     if tp is not None:
         split, ma = tp.attn[path], tp.axis
-        ffn_ma = ma if tp.ffn[path] else None
     h = _norm(cfg, p, "ln1", x)
     if kind in MLA_KINDS:
-        a = _attend_mla(_sub(p, "attn/"), cfg, h, mode, cache, pos)
+        a = _attend_mla(_sub(p, "attn/"), cfg, h, mode, cache, pos, split,
+                        ma)
     else:
         a = _attend(_sub(p, "attn/"), cfg.attn_cfg(kind), h, mode, cache,
                     pos, causal, split, ma)
     x = _residual(cfg, p, x, a, "post_ln1")
     f, aux = _ffn(cfg, kind, p, _norm(cfg, p, "ln2", x), balance_group,
-                  ffn_ma)
+                  tp, path)
     return _residual(cfg, p, x, f, "post_ln2"), aux
 
 
@@ -655,34 +669,40 @@ def _layers(params: dict, prefix: str) -> dict:
 
 
 def encode(params: dict[str, torch.Tensor], cfg: ModelConfig,
-           enc_embeds: torch.Tensor) -> torch.Tensor:
+           enc_embeds: torch.Tensor, tp=None) -> torch.Tensor:
     """The encoder over stub frame embeddings [B, F, d] (cast to the
     model dtype): ``encoder_periods`` non-causal ``attn_full`` blocks,
-    then ``enc_final_ln``."""
+    then ``enc_final_ln``; ``tp``: a split model's."""
     enc_cfg = cfg.encoder_cfg()
     x = enc_embeds.to(cfg.dtype)
     layers = _layers(params, "encoder/blk/")
     for i in range(cfg.encoder_periods):
         x, _ = _block(enc_cfg, "attn_full", {k: v[i] for k, v in
                                              layers.items()}, x,
-                      causal=False)
+                      causal=False, tp=tp, path="encoder/blk")
     return _norm(cfg, params, "enc_final_ln", x)
 
 
 def _cross(cfg: ModelConfig, p: dict, x: torch.Tensor, mode: str,
-           enc_out: torch.Tensor | None, cache: dict | None) -> torch.Tensor:
+           enc_out: torch.Tensor | None, cache: dict | None, tp=None,
+           path: str | None = None) -> torch.Tensor:
     """A decoder block's cross-attention sublayer (JAX's
     ``_cross_apply``): x plus non-causal attention from ``ln(x)`` to the
     encoder's output, without RoPE; prefill also writes the encoder's
     keys and values into this period's ``cache``, which decode reads
-    (``attention.cross_attention_step``)."""
+    (``attention.cross_attention_step``). ``tp``: a split model's (the
+    sublayer at ``path``)."""
     acfg, pa = cfg.attn_cfg("attn_full"), _sub(p, "attn/")
     h = _norm(cfg, p, "ln", x)
     if mode == "decode":
         return x + attn.cross_attention_step(pa, acfg, h, cache)
     if mode == "prefill":
         _store(cache, attn.init_cross_cache(acfg, pa, enc_out, cfg.dtype))
-    return x + attn.attention_train(pa, acfg, h, kv_x=enc_out, causal=False)
+    split = ma = None
+    if tp is not None:
+        split, ma = tp.attn[path], tp.axis
+    return x + attn.attention_train(pa, acfg, h, kv_x=enc_out, causal=False,
+                                    split=split, model_axis=ma)
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -701,13 +721,14 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _encoded(params: dict, cfg: ModelConfig,
-             enc_embeds: torch.Tensor | None) -> torch.Tensor | None:
+             enc_embeds: torch.Tensor | None, tp=None
+             ) -> torch.Tensor | None:
     if not cfg.encoder_periods:
         return None
     if enc_embeds is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder needs "
                          "enc_embeds [B, F, d_model]")
-    return encode(params, cfg, enc_embeds)
+    return encode(params, cfg, enc_embeds, tp)
 
 
 def _per_layer(caches: dict | None, prefix: str) -> dict | None:
@@ -721,34 +742,38 @@ def _stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """The prelude, then the periods (each block, then in an
     encoder-decoder its cross-attention sublayer) on x, ``emb0`` = x; in
     serving each layer reads and writes its slice of ``caches`` in place;
-    ``tp``: a split model's (a dense decoder: periods only). Returns ``(x,
-    aux)``, the MoE auxiliary losses summed in order."""
+    ``tp``: a split model's. Returns ``(x, aux)``, the MoE auxiliary losses
+    summed in order."""
     site = dict(balance_group=balance_group, shared=_sub(params, "shared/"),
-                emb0=x, mode=mode, pos=pos)
+                emb0=x, mode=mode, pos=pos, tp=tp)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for path, kind in cfg.prelude_blocks():
         x, a = _block(cfg, kind, _sub(params, path + "/"), x,
-                      cache=_per_layer(caches, path + "/"), **site)
+                      cache=_per_layer(caches, path + "/"), path=path,
+                      **site)
         if a is not None:
             aux = aux + a
     layers = [(kind, _layers(params, path + "/"),
                _per_layer(caches, path + "/"), path)
               for path, kind in cfg.blocks()]
-    cross = ([_layers(params, path + "/") for path in cfg.cross_blocks()]
+    cross = ([(_layers(params, path + "/"), path)
+              for path in cfg.cross_blocks()]
              if cfg.encoder_periods else [])
     cross_cache = _per_layer(caches, "cross/")
     for i in range(cfg.num_periods):
         for j, (kind, p, c, path) in enumerate(layers):
             x, a = _block(cfg, kind, {k: v[i] for k, v in p.items()}, x,
                           cache=None if c is None else
-                          {k: v[i] for k, v in c.items()}, tp=tp,
-                          path=path, **site)
+                          {k: v[i] for k, v in c.items()}, path=path,
+                          **site)
             if a is not None:
                 aux = aux + a
             if cross:
-                x = _cross(cfg, {k: v[i] for k, v in cross[j].items()}, x,
+                cp, cpath = cross[j]
+                x = _cross(cfg, {k: v[i] for k, v in cp.items()}, x,
                            mode, enc_out, None if cross_cache is None else
-                           {k: v[i] for k, v in cross_cache.items()})
+                           {k: v[i] for k, v in cross_cache.items()}, tp,
+                           cpath)
     return x, aux
 
 
@@ -769,7 +794,7 @@ def forward_train(params: dict[str, torch.Tensor], cfg: ModelConfig,
     split (``tp.vocab``)."""
     x, n_prefix = _embed(params, cfg, tokens, prefix, tp)
     x, aux = _stack(params, cfg, x, enc_out=_encoded(params, cfg,
-                                                     enc_embeds),
+                                                     enc_embeds, tp),
                     balance_group=balance_group, tp=tp)
     x = _norm(cfg, params, "final_ln", x)
     if n_prefix:

@@ -22,9 +22,9 @@ JAX package, on the CPU:
   forward and the gradient of every input and leaf; the vocab-parallel
   embedding bit-equal and its table gradient; the vocab-parallel cross
   entropy and its logits gradient;
-- the launcher's step by arch (split for the five dense decoders,
-  gathered for the rest, whole at one model worker) and its ``step=``
-  line on two ranks;
+- the launcher's step by arch (split for every arch but the SSM ones,
+  rwkv6 and zamba2, which take the gathered step; whole at one model
+  worker) and its ``step=`` line on two ranks;
 - a split run's ``--mesh 1x2`` checkpoint: the file the gathered step
   writes for the same parameters and states, entry for entry, and a
   resume from it bit-equal to an unbroken run.
@@ -82,7 +82,8 @@ ARCHS = sorted({a for a, _, _ in CASES.values()})
 # atol against JAX (``tests/test_torch_archs.py``'s ``STEP_ATOL``)
 JAX_ATOL = {"gemma2-9b": ATOL, "gemma-2b": ATOL, "starcoder2-7b": 4e-6}
 SPLIT_ARCHS = ("gemma-2b", "paligemma-3b", "gemma2-9b", "gemma2-27b",
-               "starcoder2-7b")
+               "starcoder2-7b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
+               "seamless-m4t-large-v2")
 
 
 def _world(mesh) -> int:
@@ -652,12 +653,16 @@ def test_autograd_functions_against_the_whole_computation(results):
 
 @pytest.mark.parametrize("arch", list(tregistry.ID_TO_MODULE))
 def test_launcher_takes_the_split_step_for_the_dense_decoders(arch):
+    """The split step past one model worker for the dense decoders and
+    every other arch without SSM blocks (phi3.5-moe, deepseek-v2,
+    seamless); the gathered step for rwkv6 and zamba2, whose SSM blocks
+    the plan refuses."""
     cfg = tregistry.get(arch).model
     want = "split" if arch in SPLIT_ARCHS else "gathered"
     assert tlaunch.step_kind(cfg, 2) == want
     assert tlaunch.step_kind(cfg, 1) == "whole"
     if want == "gathered":
-        with pytest.raises(ValueError, match="dense decoders"):
+        with pytest.raises(ValueError, match="SSM block"):
             ttp.plan_split(cfg, leaf_order(param_shapes(cfg)), tshd.WHOLE)
 
 
