@@ -178,21 +178,28 @@ of all while this process holds nothing on the card, its compute split
 the one card (``python3 chip_smoke.py --tp-worker RUN RANK PORT DIR``,
 each starting a gloo group before it calls the launcher; NCCL refuses two
 ranks on one device) train at ``--mesh 1x4`` with gspar ``auto``, EF and
-Adam for three steps, (c) gemma2-9b at 4 periods (heads split), (d)
-gemma-2b uncut (head_dim rules), (e) phi3.5-moe at 1 period (the
-experts split over expert_mlp), (f) deepseek-v2 at 1 period in the
+Adam for three steps, (c) gemma2-9b at 2 periods (heads split), (d)
+gemma-2b at 6 of its 18 periods (head_dim rules), (e) phi3.5-moe at 1
+period (the experts split over expert_mlp), (f) deepseek-v2 at 1 period in the
 compressed mode with SGD (MLA over heads, the prelude's dense FFN, routed
 and shared experts), (g) seamless-m4t-large-v2 uncut (the encoder and
 the cross attention over heads; the table whole, its 256,206 rows not
-dividing by 4); after them the parent computes the whole
+dividing by 4), (h) rwkv6-1.6b uncut (RWKV-6's time mix over heads, its
+channel mix over the hidden width), (i) zamba2-2.7b uncut (the Mamba-2
+mixer over heads, ``in_proj`` and the convolution put together with a
+summing backward; the shared block's attention and MLP; its sites'
+unread ``ln1`` sending exact zeros); after them the parent computes the whole
 model's gradient on the same init and batch, in bf16 and (the same
 weights upcast) in float32, with a MoE's router choices forced to the
 workers' own, which must be equal on the four: each worker's step-1
 gradient shards within ``TP_GRAD_RTOL`` of their slices of the bf16 one
 (but the runs of ``TP_LEAF_ONLY``), each leaf of them no farther from the
-float32 slice than ``TP_LEAF_FACTOR`` times the whole bf16 model's plus a
+float32 slice than ``TP_LEAF_FACTOR`` (``TP_LEAF_FACTORS``' where named)
+times the whole bf16 model's plus a
 floor of ``TP_LEAF_ATOL`` (one bf16 rounding) of the shard's RMS
-coordinate on each coordinate, another batch's
+coordinate on each coordinate (for (h) at ``TP_GRAD_PERIODS``' depth),
+for the runs of ``TP_FLOAT32`` the split gradient in float32 within
+``TP_F32_RTOL`` of the whole float32 one as well, another batch's
 gradient at least ``CONTROL_FACTOR`` times farther, its parameter
 bytes exactly its shards' under the launcher's specs, its shard's
 exchange bytes recomputed on the host (``exchange_check``) and summing to
@@ -3878,31 +3885,63 @@ def model_axis_phase() -> dict:
 # --- the model axis's compute split (tensor_parallel_phase) ------------------
 
 TP_M = 4                   # model workers: four processes on the one card
-# run -> (arch, its depth and mode flags): (c) the heads split at
-# ARCH_RUNS' cut, (d) the head_dim rules uncut (18 layers), (e) MoE's
+# run -> (arch, its depth and mode flags): (c) the heads split at 2
+# periods, (d) the head_dim rules at 6 of 18 layers (both cut from ARCH_RUNS'
+# 4 and uncut so that (h) and (i) add less to the phase), (e) MoE's
 # experts split over expert_mlp at 1 period (at ARCH_RUNS' 2 the four
 # workers' sync scratch, the experts' float32 uniforms among it, passed
 # the card's 80 GB), (f) MLA over heads, the
 # prelude's dense FFN and the routed and shared experts at ARCH_RUNS' cut,
 # in the compressed mode with SGD (fsdp takes no model axis; Adam's
 # float32 moments would put the four workers past the card), (g) the
-# encoder and the cross attention uncut, the 256,206-row table whole
-TP_RUNS = {"c": ("gemma2-9b", ["--num-periods", "4"]),
-           "d": ("gemma-2b", []),
+# encoder and the cross attention uncut, the 256,206-row table whole,
+# (h) RWKV-6 and (i) the Mamba-2 hybrid uncut
+TP_RUNS = {"c": ("gemma2-9b", ["--num-periods", "2"]),
+           "d": ("gemma-2b", ["--num-periods", "6"]),
            "e": ("phi3.5-moe-42b-a6.6b", ["--num-periods", "1"]),
            "f": ("deepseek-v2-236b", ["--num-periods", "1", "--mode",
                                       "compressed", "--optimizer", "sgd"]),
-           "g": ("seamless-m4t-large-v2", [])}
+           "g": ("seamless-m4t-large-v2", []),
+           "h": ("rwkv6-1.6b", []),
+           "i": ("zamba2-2.7b", [])}
+# runs whose whole leaves' rows may drop survivors under EF, as their
+# ARCH_RUNS do (rwkv6's [.., 2,048] rows at k_cap 128): held as arch_run
+# holds them, the overflow the buffers' own count and at most 1e-5 of the
+# survivors; every other run drops none
+TP_DROPS = ("h", "i")
+# runs whose step-1 gradient is held at a cut depth: the workers, after the
+# launcher's uncut steps, compute the split step's gradient of the model at
+# these periods (the same init and batch), and the reference the whole
+# one's. rwkv6's uncut gradient is resolved in no precision at hand: at
+# this init its backward amplifies rounding about tenfold a layer (at 4 of
+# its 24 layers the whole model's float32 gradient stands 1.2e-3 from the
+# float64 one and its bf16 gradient 1.6 x its norm away, on the CPU; uncut
+# on the H100 the whole bf16 gradient of tm/mu stood 3.3 x its float32 norm
+# from the float32 one), so two computations of it, split or not, agree in
+# nothing. The init is the JAX package's: its tied N(0, 1) table gives
+# logits of standard deviation about sqrt(2,048), and a loss of 1,523 at
+# 1 period and 1,105 at 3 under the JAX package's own init, 1,531 and
+# 1,110 under the port's (the CPU). At 1 period the whole bf16 gradient is
+# 1.2e-2 to 8.8e-2 from float32 a shard and the split's 6.5e-3 from the
+# whole bf16 one (CPU)
+TP_GRAD_PERIODS = {"h": 1}
+# runs whose split gradient is also held in float32: after the launcher's
+# steps the workers compute it again on the launcher's init upcast, within
+# TP_F32_RTOL of the whole float32 model's (the reference's), where the
+# bf16 tree bound cannot resolve the split (TP_LEAF_ONLY)
+TP_FLOAT32 = ("i",)
+TP_F32_RTOL = 2e-4         # zamba2's split float32 gradient: 2.24e-5 from
+                           # the whole float32 one on the H100
 TP_ARGS = ARCH_ARGS + ["--wire", "gather", "--seed", "0", "--mesh",
                        f"1x{TP_M}"]
 TP_GRAD_RTOL = 2e-2        # a shard's bf16 gradient vs the whole model's:
                            # the serve check's bound (bf16 products and
                            # sums in other shapes and orders), runs (c)-(f)
-# runs held leaf by leaf only: (g)'s whole bf16 gradient is itself 1.74e-2
-# from its float32 twin (its cross attention's queries and their biases
-# take gradients of sums that largely cancel), so two bf16 computations of
-# it lie about 2.1e-2 apart, split or not
-TP_LEAF_ONLY = ("g",)
+# runs held leaf by leaf only: (i)'s whole bf16 gradient is itself 9.05e-2
+# from its float32 twin (54 Mamba-2 layers carry bf16 rounding up the
+# backward), so two bf16 computations of it lie about 0.13 apart, split or
+# not, beyond TP_GRAD_RTOL
+TP_LEAF_ONLY = ("i",)
 TP_LEAF_FACTOR = 1.2       # every leaf of a shard: its distance from the
                            # float32 gradient's slice at most this many
                            # times the whole bf16 model's on that slice,
@@ -3910,21 +3949,69 @@ TP_LEAF_ATOL = 2.0 ** -8   # plus one bf16 rounding of the shard's RMS
                            # float32 coordinate on each of the leaf's
                            # coordinates (for a gradient that is 0 in exact
                            # arithmetic, as cross attention's bk)
+# (run, the end of a leaf's name) -> its factor in place of TP_LEAF_FACTOR,
+# set from the spread of the leaf's distance over seeds on the H100
+# (scripts/tp_leaf_spread.py --split, 6 seeds x 4 workers x 6 layers):
+# zamba2's d_skip (180 coordinates a shard) stands 0.71-1.56 x the whole
+# bf16 model's distance from float32 in the split and 0.59-1.36 x in a
+# second whole bf16 computation (the scan chunked at 32), geometric means
+# 1.036 and 1.000 (every other leaf kind: 1.028-1.038 and 0.988-1.012),
+# so 1.2 fails either by chance (13 and 20 of 144 shards)
+TP_LEAF_FACTORS = {("i", "mix/d_skip"): 1.6}
 TP_TIMEOUT = 420           # seconds a run's four workers may take
 TP_MEM_FRACTION = 0.24     # of the card, a worker's allocator at most
                            # (the five processes' contexts take the rest)
 
 
-def tp_cfg(arch: str, flags: list):
-    """The config the launcher builds for ``arch`` with ``flags``."""
+def tp_cfg(arch: str, flags: list, periods: int | None = None):
+    """The config the launcher builds for ``arch`` with ``flags`` (at
+    ``periods`` where given)."""
     import dataclasses as dc
     from repro_torch.configs import registry
     from repro_torch.launch import specs
     cfg = specs.model_for_seq(registry.get(arch).model, 128)
     if "--num-periods" in flags:
-        cfg = dc.replace(cfg, num_periods=int(
-            flags[flags.index("--num-periods") + 1]))
-    return cfg
+        periods = periods or int(flags[flags.index("--num-periods") + 1])
+    return cfg if periods is None else dc.replace(cfg, num_periods=periods)
+
+
+def tp_held_grads(run: str, dev, float32: bool = False,
+                  seed: int = 0) -> list:
+    """The split step's step-1 gradient shards of run ``run`` at
+    ``TP_GRAD_PERIODS[run]`` periods (else the launcher's), with
+    ``float32`` on the weights upcast: the launcher's init (``--seed 0``;
+    ``seed``'s), data worker 0's first batch (at ``seed`` 0), this
+    worker's split of it (called on every worker of the model group, in
+    step)."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.dist import tensor_parallel
+    from repro_torch.dist.sharding import ModelAxis
+    from repro_torch.launch import specs, train
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import (Transformer, init_model,
+                                                param_shapes)
+    from repro_torch.train import step as step_lib
+    arch, flags = TP_RUNS[run]
+    cfg = tp_cfg(arch, flags, TP_GRAD_PERIODS.get(run))
+    names = leaf_order(param_shapes(cfg))
+    mesh = (None, 1, TP_M)
+    group, index, ranks, _ = train.model_groups(mesh)
+    tp = tensor_parallel.plan_split(cfg, names, ModelAxis(
+        size=TP_M, index=index, group=group, ranks=ranks,
+        specs=train.leaf_specs(cfg, names,
+                               registry.get(arch).rules_overrides, mesh)))
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev, tp.keep)
+    batch = specs.train_batch(torch.Generator(device=dev).manual_seed(
+        1_000_003 + seed), cfg, 8, 128)
+    if float32:
+        cfg = dc.replace(cfg, dtype=torch.float32)
+        params = {k: v.float() for k, v in params.items()}
+    model = Transformer(cfg, params, tp=tp)
+    del params
+    return [g.cpu() for g in step_lib.worker_grads(
+        model, tp.axis, step_lib.make_loss_fn(cfg, tp=tp), batch)[1]]
 
 
 @contextlib.contextmanager
@@ -3963,10 +4050,13 @@ def tp_reference(run: str, tmp: Path, routes: list) -> list:
     same weights upcast), both with each MoE layer's router choices forced
     to ``routes``, the workers' own; and another batch's bf16 gradient (the
     negative control). Returns for each worker the relative distances of
-    its shards and of the control from its slice of the bf16 gradient
-    (``err``, ``control``), and for each leaf ``(|shard - f32|, |bf16 -
-    f32|, its floor, |f32|)`` on its slice (``leaves``) with the tree's
-    relative distances from float32 (``f32_err``, ``bf16_floor``)."""
+    its shards from its slice of the bf16 gradient (``err``) and of the
+    control from the bf16 one (``control``), and for each leaf
+    ``(|shard - f32|, |bf16 - f32|, its floor, |f32|, its factor)`` on its
+    slice
+    (``leaves``) with the tree's relative distances from float32
+    (``f32_err``, ``bf16_floor``); for a run of ``TP_FLOAT32`` the
+    distance of its float32 shards from the float32 slice (``err32``)."""
     from repro_torch.configs import registry
     from repro_torch.dist.sharding import ModelAxis
     from repro_torch.launch import specs, train
@@ -3976,7 +4066,7 @@ def tp_reference(run: str, tmp: Path, routes: list) -> list:
     from repro_torch.train import step as step_lib
     import dataclasses as dc
     arch, flags = TP_RUNS[run]
-    cfg = tp_cfg(arch, flags)
+    cfg = tp_cfg(arch, flags, TP_GRAD_PERIODS.get(run))
     dev = torch.device("cuda", 0)
     torch.manual_seed(0)
     model = Transformer(cfg, init_model(
@@ -4011,6 +4101,11 @@ def tp_reference(run: str, tmp: Path, routes: list) -> list:
     del model, batch
     out = []
     for ma, control in zip(axes, controls):
+        err32 = None
+        if run in TP_FLOAT32:
+            err32 = _rel_tree([w.to(dev) for w in torch.load(
+                tmp / f"{run}_grad32_{ma.index}.pt")],
+                [ma.shard(g, i) for i, g in enumerate(g32)])
         shards = torch.load(tmp / f"{run}_grad{ma.index}.pt")
         parts = []                                    # a leaf at a time
         for i, w in enumerate(shards):
@@ -4023,11 +4118,12 @@ def tp_reference(run: str, tmp: Path, routes: list) -> list:
         ws_b, b2, ws_f, b_f, f2, n = (sum(c) for c in zip(*parts))
         rms = math.sqrt(f2 / n)                 # the shard's RMS coordinate
         out.append({
-            "err": math.sqrt(ws_b / b2), "control": control,
+            "err": math.sqrt(ws_b / b2), "err32": err32,
+            "control": control,
             "f32_err": math.sqrt(ws_f / f2), "bf16_floor": math.sqrt(b_f / f2),
             "leaves": {name: (math.sqrt(p[2]), math.sqrt(p[3]),
                               TP_LEAF_ATOL * rms * math.sqrt(p[5]),
-                              math.sqrt(p[4]))
+                              math.sqrt(p[4]), _leaf_factor(run, name))
                        for name, p in zip(names, parts)}})
     return out
 
@@ -4044,10 +4140,17 @@ def _rel_tree(a: list, b: list) -> float:
     return math.sqrt(sum(n for n, _ in parts) / sum(d for _, d in parts))
 
 
+def _leaf_factor(run: str, name: str) -> float:
+    """Leaf ``name``'s factor in run ``run`` (TP_LEAF_FACTORS, else
+    TP_LEAF_FACTOR)."""
+    return next((f for (r, end), f in TP_LEAF_FACTORS.items()
+                 if r == run and name.endswith(end)), TP_LEAF_FACTOR)
+
+
 def _leaf_share(leaf: tuple) -> float:
     """A leaf's distance from float32 over its bound (1 is the bound)."""
-    d_shard, d_whole, floor, _ = leaf
-    return d_shard / (TP_LEAF_FACTOR * d_whole + floor)
+    d_shard, d_whole, floor, _, factor = leaf
+    return d_shard / (factor * d_whole + floor)
 
 
 def tp_worker(run: str, rank: int, port: int, tmp: Path) -> None:
@@ -4115,7 +4218,9 @@ def tp_worker(run: str, rank: int, port: int, tmp: Path) -> None:
 
     record: list = []
     step_lib.worker_grads = spy
-    sync._bucketed_sync = exchange_check(real_sync, record, path, True)
+    sync._bucketed_sync = exchange_check(
+        real_sync, record, path, True,
+        [names.index(n) for n in UNREAD_LEAVES.get(arch, ())])
     buf = io.StringIO()
     K.reset_launches()
     try:
@@ -4125,6 +4230,14 @@ def tp_worker(run: str, rank: int, port: int, tmp: Path) -> None:
         step_lib.worker_grads, sync._bucketed_sync = real_grads, real_sync
     launches = {k: v for k, v in K.LAUNCHES.items() if v}
     torch.cuda.empty_cache()           # the card to rank 0's checks below
+    if run in TP_GRAD_PERIODS:       # the gradient held at a cut depth
+        torch.save(tp_held_grads(run, torch.device("cuda", 0)),
+                   tmp / f"{run}_grad{rank}.pt")
+        torch.cuda.empty_cache()
+    if run in TP_FLOAT32:            # and held in float32 too
+        torch.save(tp_held_grads(run, torch.device("cuda", 0), True),
+                   tmp / f"{run}_grad32_{rank}.pt")
+        torch.cuda.empty_cache()
     dist.barrier()
     n_groups = sum(g.kind == "sparse" for g in plan.groups)
     n_rice = sum(lay == "rice" for *_, lay in summary["layouts"])
@@ -4161,6 +4274,8 @@ def tp_worker(run: str, rank: int, port: int, tmp: Path) -> None:
            "max_memory_allocated": summary["max_memory_allocated"],
            "wire_bytes": [m["wire_bytes"] for m in summary["metrics"]],
            "checked_wire_bytes": [r["wire_bytes"] for r in record],
+           "dropped": [r["overflow"] for r in record],
+           "density": [m["density"] for m in summary["metrics"]],
            "loss": [m["loss"] for m in summary["metrics"]],
            "overflow": [m["overflow"] for m in summary["metrics"]],
            "launches": launches, "groups": [[g.rows, g.d, g.k_cap] for g in
@@ -4213,8 +4328,9 @@ def tp_run(run: str, tmp: Path) -> dict:
     named; its step-1 gradient within TP_GRAD_RTOL of the reference's bf16
     slice (runs outside TP_LEAF_ONLY) with the control CONTROL_FACTOR times
     farther, and each leaf of it no farther from the float32 slice than
-    TP_LEAF_FACTOR times the whole bf16 model's distance plus the leaf's
-    floor (``_leaf_share``); its parameter bytes its shards', its exchange
+    TP_LEAF_FACTOR (or its TP_LEAF_FACTORS') times the whole bf16 model's
+    distance plus the leaf's floor (``_leaf_share``); its parameter bytes
+    its shards', its exchange
     bytes the recomputed ones, no overflow, finite losses equal on the
     workers."""
     import socket
@@ -4242,7 +4358,8 @@ def tp_run(run: str, tmp: Path) -> dict:
     ref_s = time.perf_counter() - t1
     (tmp / f"{run}_reference.pt").unlink()
     for r in range(TP_M):
-        for f in ("worker", "grad", "routes"):
+        for f in ("worker", "grad", "routes") + (
+                ("grad32_",) if run in TP_FLOAT32 else ()):
             (tmp / f"{run}_{f}{r}.pt").unlink()
     for w, ref in zip(workers, refs):
         what = f"tensor parallel ({run}) {arch} worker {w['rank']}"
@@ -4256,12 +4373,18 @@ def tp_run(run: str, tmp: Path) -> dict:
                                  "launcher's")
         if (run not in TP_LEAF_ONLY and not w["err"] <= TP_GRAD_RTOL) or \
                 w["control"] < CONTROL_FACTOR * w["err"] or \
-                not _leaf_share(w["worst_leaves"][0][1]) <= 1:
+                not _leaf_share(w["worst_leaves"][0][1]) <= 1 or \
+                (run in TP_FLOAT32 and not w["err32"] <= TP_F32_RTOL):
             raise AssertionError(
                 f"{what}: gradient {w['err']} from the whole bf16 model's "
                 f"(bound {None if run in TP_LEAF_ONLY else TP_GRAD_RTOL}), "
+                f"in float32 {w['err32']} from the whole float32 one "
+                f"(bound {TP_F32_RTOL if run in TP_FLOAT32 else None}), "
+                f"{w['f32_err']} from the float32 one (the whole bf16's "
+                f"{w['bf16_floor']}), "
                 f"control {w['control']}; leaves against float32 (theirs, "
-                f"the whole bf16's, the floor, the float32 norm): "
+                f"the whole bf16's, the floor, the float32 norm, the "
+                f"factor): "
                 f"{w['worst_leaves']}")
         if w["param_bytes"] != w["want_bytes"]:
             raise AssertionError(f"{what}: {w['param_bytes']} parameter "
@@ -4270,11 +4393,16 @@ def tp_run(run: str, tmp: Path) -> dict:
         # each shard's exchange sent, each recomputed on the host
         total = [float(sum(x["checked_wire_bytes"][t] for x in workers))
                  for t in range(len(w["wire_bytes"]))]
+        # the overflow likewise: the survivors the shards' buffers dropped
+        drops = [float(sum(x["dropped"][t] for x in workers))
+                 for t in range(len(w["overflow"]))]
         if w["wire_bytes"] != total or len(total) != 3 or \
-                any(o != 0 for o in w["overflow"]):
+                w["overflow"] != drops or any(
+                    o > (1e-5 * dens * w["params"] if run in TP_DROPS
+                         else 0) for o, dens in zip(drops, w["density"])):
             raise AssertionError(f"{what}: wire bytes {w['wire_bytes']}, "
                                  f"the shards' {total}, overflow "
-                                 f"{w['overflow']}")
+                                 f"{w['overflow']}, dropped {drops}")
         if w["loss"] != workers[0]["loss"] or \
                 not all(math.isfinite(x) for x in w["loss"]):
             raise AssertionError(f"{what}: losses {w['loss']}, worker 0's "
@@ -4289,17 +4417,24 @@ def tp_run(run: str, tmp: Path) -> dict:
            "reference_s": ref_s, "seconds": time.perf_counter() - t0,
            "router_choices": workers[0]["choices"],
            "workers": [{k: w[k] for k in (
-               "param_bytes", "err", "control", "f32_err", "bf16_floor",
+               "param_bytes", "err", "err32", "control", "f32_err",
+               "bf16_floor",
                "worst_leaves", "step_seconds", "net_seconds",
-               "max_memory_allocated", "checked_wire_bytes", "launches",
-               "groups", "layouts")} for w in workers],
+               "max_memory_allocated", "checked_wire_bytes", "dropped",
+               "launches", "groups", "layouts")} for w in workers],
            "wire_bytes": workers[0]["wire_bytes"], "loss": workers[0]["loss"],
            "kernel_checks": workers[0]["kernel_checks"]}
     print(f"tensor parallel ({run}): {arch} {' '.join(flags) or 'uncut'} "
-          f"--mesh 1x{TP_M}, {line[0]!r}: " + "; ".join(
+          f"--mesh 1x{TP_M}, {line[0]!r}"
+          + (f", the gradient held at {TP_GRAD_PERIODS[run]} period(s)"
+             if run in TP_GRAD_PERIODS else "")
+          + ": " + "; ".join(
               f"worker {w['rank']}: {w['param_bytes']} parameter bytes (its "
               f"shards'), gradient {w['err']:.3e} from the whole bf16 "
-              f"model's (control {w['control']:.3e}), {w['f32_err']:.3e} "
+              f"model's (control {w['control']:.3e}), "
+              + (f"in float32 {w['err32']:.3e} from the whole float32 "
+                 "one, " if run in TP_FLOAT32 else "")
+              + f"{w['f32_err']:.3e} "
               f"from the float32 one (the whole bf16's "
               f"{w['bf16_floor']:.3e}), its leaf nearest its bound "
               f"{w['worst_leaves'][0][0]} at "
@@ -4312,7 +4447,8 @@ def tp_run(run: str, tmp: Path) -> dict:
               f"{w['max_memory_allocated']} B, launches {w['launches']}"
               for w in workers)
           + f"; wire bytes {[int(x) for x in workers[0]['wire_bytes']]} "
-          f"(the shards' sums); losses {workers[0]['loss']}; "
+          f"(the shards' sums); overflow {workers[0]['overflow']}; losses "
+          f"{workers[0]['loss']}; "
           + (f"the workers' {workers[0]['choices']} tokens' router choices "
              "equal and forced on the reference; " if routes[0] else "")
           + "kernels on "
@@ -4323,7 +4459,7 @@ def tp_run(run: str, tmp: Path) -> dict:
 
 
 def tensor_parallel_phase() -> dict:
-    """The model axis's compute split on the card: runs (c)-(g) of
+    """The model axis's compute split on the card: runs (c)-(i) of
     TP_RUNS (``tp_run``), the card emptied between them."""
     tmp = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
     tmp.mkdir(parents=True, exist_ok=True)

@@ -25,15 +25,16 @@ workers.
 The JAX module's ``tree_shardings``, ``activation_sharding`` and
 ``logical_constraint`` have no counterpart: they are GSPMD layout hints
 (``NamedSharding`` and ``with_sharding_constraint``), and nothing here
-places a tensor by a compiler. For the dense decoders the split step
+places a tensor by a compiler. For every arch the split step
 (``dist.tensor_parallel``) places the collectives GSPMD would insert by
 hand: a worker holds its shards, runs the forward and backward on them,
 and ``ModelAxis.grads`` records how its backward leaves each leaf's
 gradient (``SPLIT``: its shard; ``SAME``: a whole leaf's gradient, equal
 on every model worker; ``PARTIAL``: a whole leaf's gradient of this
 worker's share of the compute, summed over the model workers before the
-sync). The other families take the gathered step: each data worker's
-gradient computed whole on the gathered parameters, then its shard kept.
+sync). The gathered step (a whole model: each data worker's gradient
+computed whole on the gathered parameters, then its shard kept) is the
+tests' yardstick for it.
 """
 from __future__ import annotations
 

@@ -35,17 +35,15 @@ axis (M > 1) splits every leaf the JAX launcher's rules split
 (``dist.sharding``, ``leaf_specs``): each worker compresses and exchanges
 its own shard (``train.step``'s ``ModelAxis``), the model workers of a
 data index take the same batch, and the optimizer's moments, the residual
-and the control state hold the shard. The dense decoders (gemma-2b,
-paligemma-3b, gemma2-9b, gemma2-27b, starcoder2-7b) take the split step:
-a worker holds only its shards of the parameters and runs the forward and
-backward on them (``dist.tensor_parallel``); the other families take the
-gathered step (the gradient computed whole on gathered parameters, the
-parameters all-gathered after the update). The first line names the step
-(``step=split`` or ``step=gathered``); there is no flag, as the JAX
-launcher has none (GSPMD always splits), and an arch on the split path
-that cannot run there raises. Every run takes the one step: a model axis
-of one (no ``--mesh``, or M = 1) gathers, broadcasts and reduces
-nothing. Under ``--device cpu`` the ranks take gloo, on the card NCCL (one
+and the control state hold the shard. Every arch takes the split step
+there: a worker holds only its shards of the parameters and runs the
+forward and backward on them (``dist.tensor_parallel``). The first line
+names it (``step=split``); there is no flag, as the JAX launcher has none
+(GSPMD always splits), and a split the step cannot run raises (the
+gathered step of ``train.step``, the gradient computed whole on gathered
+parameters, is the tests' yardstick and no launcher path). Every run
+takes the one step: a model axis of one (no ``--mesh``, or M = 1)
+gathers, broadcasts and reduces nothing. Under ``--device cpu`` the ranks take gloo, on the card NCCL (one
 process a rank: ``torchrun --nproc-per-node N``).
 
 ``--mode`` is ``compressed`` (Algorithm 1: each worker's gradient
@@ -215,8 +213,8 @@ def main(argv=None) -> dict:
     """Run the launcher; returns a summary: ``metrics`` (a dict of floats
     per step), ``step_seconds``, ``params`` (the whole model's),
     ``param_bytes`` (this worker's: its shards' in the split step),
-    ``mode``, ``step`` (``split``, ``gathered`` or ``whole`` at one model
-    worker), ``layouts`` (``(rows, d, k_cap, layout)`` per sparse group;
+    ``mode``, ``step`` (``split``, or ``whole`` at one model worker),
+    ``layouts`` (``(rows, d, k_cap, layout)`` per sparse group;
     none in fsdp mode) and, on the card, ``max_memory_allocated``."""
     args = parse_args(sys.argv[1:] if argv is None else list(argv))
     if args.xla_preset != "none":
@@ -377,13 +375,10 @@ def _mesh_text(mesh) -> str:
             f"data={data}, model={model})")
 
 
-def step_kind(cfg, model_workers: int) -> str:
-    """The compressed step ``cfg`` takes at ``model_workers``: ``whole``
-    at one, past it ``split`` for a dense decoder
-    (``tensor_parallel.splits``), else ``gathered``."""
-    if model_workers == 1:
-        return "whole"
-    return "split" if tensor_parallel.splits(cfg) else "gathered"
+def step_kind(model_workers: int) -> str:
+    """The compressed step at ``model_workers``: ``whole`` at one, past it
+    ``split`` (every arch)."""
+    return "whole" if model_workers == 1 else "split"
 
 
 def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
@@ -399,7 +394,7 @@ def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
     ma = sharding.ModelAxis(
         size=axes[2], index=m_index, group=model_group, ranks=ranks,
         specs=leaf_specs(cfg, names, overrides, axes))
-    kind = step_kind(cfg, ma.size)
+    kind = step_kind(ma.size)
     if rank == 0:
         print(f"arch={cfg.name} layers={cfg.num_layers} "
               f"d_model={cfg.d_model} workers={world} device={device}"

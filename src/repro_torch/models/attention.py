@@ -45,7 +45,10 @@ Past one model worker (``dist.tensor_parallel``) ``attention_train``
 takes the block's ``AttnSplit`` and the ``ModelAxis``: over heads
 (gemma2, phi3.5-moe, seamless), this worker's q heads and the kv heads
 they read, ``wo`` row-parallel, its product summed over the model workers
-before ``bo``, whole, is added once; a whole ``wk``/``wv`` is sliced to
+before ``bo``, whole, is added once (the q, k and v products of the
+copied input through ``tensor_parallel.columns``, ``wo``'s through
+``row``: the partials kept in float32 until their sum); a whole
+``wk``/``wv`` is sliced to
 the kv heads read (its gradient then this worker's share); a cross
 attention's ``kv_x`` (the encoder's output) is copied into the split as
 ``x`` is. Over head_dim (gemma-2b, paligemma, starcoder2) the layer's
@@ -137,12 +140,18 @@ def _kv_read(p: dict, split) -> dict:
 
 
 def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor,
-         kv_x: torch.Tensor | None = None, split=None):
+         kv_x: torch.Tensor | None = None, split=None, model_axis=None):
+    """The queries, keys and values; with ``model_axis`` (a heads split)
+    this worker's heads, ``x`` and ``kv_x`` copied into the split."""
     kv_x = x if kv_x is None else kv_x
     p = _kv_read(p, split)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
+    if model_axis is not None:
+        q, k, v = tp.columns([(x, p["wq"]), (kv_x, p["wk"]),
+                              (kv_x, p["wv"])], model_axis)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        k = torch.einsum("bsd,dhk->bshk", kv_x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", kv_x, p["wv"])
     if cfg.use_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q * scalar(cfg.scale, q.dtype, q.device), k, v
@@ -168,9 +177,8 @@ def _sdpa(cfg: AttnConfig, q, k, v, mask):
 def _proj_out(p: dict, cfg: AttnConfig, out, model_axis=None):
     """``out @ wo`` (+ ``bo``); with ``model_axis`` ``wo`` is this worker's
     heads and the product is summed over the model workers first."""
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    if model_axis is not None:
-        y = tp.reduce_from(y, model_axis)
+    y = (torch.einsum("bshk,hkd->bsd", out, p["wo"]) if model_axis is None
+         else tp.row(out, p["wo"], model_axis))
     if cfg.use_bias:
         y = y + p["bo"]
     return y
@@ -285,12 +293,9 @@ def attention_train(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
     of a split attention (module docstring)."""
     heads = split is not None and split.mode == "heads"
     p = _gathered(p, split, model_axis)
-    if heads:
-        x = tp.copy_to(x, model_axis)
-        if kv_x is not None:
-            kv_x = tp.copy_to(kv_x, model_axis)
     s = x.shape[1]
-    q, k, v = _qkv(p, cfg, x, kv_x, split if heads else None)
+    q, k, v = (_qkv(p, cfg, x, kv_x, split, model_axis) if heads
+               else _qkv(p, cfg, x, kv_x))
     if cfg.use_rope and kv_x is None:    # cross-attention carries no rope
         q, k = _rope_at(cfg, q, k, torch.arange(s, device=x.device))
     return _proj_out(p, cfg, _sdpa_dispatch(cfg, q, k, v, causal=causal),
@@ -487,9 +492,8 @@ def _mla_full(p: dict, cfg: MLAConfig, x: torch.Tensor, model_axis=None):
     scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthk->bshk", probs, v)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    if model_axis is not None:
-        y = tp.reduce_from(y, model_axis)
+    y = (torch.einsum("bshk,hkd->bsd", out, p["wo"]) if model_axis is None
+         else tp.row(out, p["wo"], model_axis))
     return y, c_kv, k_rope
 
 

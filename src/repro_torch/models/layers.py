@@ -16,7 +16,10 @@ Past one model worker (``dist.tensor_parallel``, a ``ModelAxis`` passed as
 its product summed over the model workers before ``down_b``, whole, is
 added once; the embedding and the tied unembedding take this worker's
 rows of the table (``vocab``: the axis and the first row), the logits
-then its vocab shard.
+then its vocab shard. Their input goes in and their products out through
+``tensor_parallel.columns`` and ``row``, which keep the partials in
+float32 until their sum, so that each sum rounds once as the whole
+product does.
 """
 from __future__ import annotations
 
@@ -86,13 +89,12 @@ def gated_mlp(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
               model_axis=None) -> torch.Tensor:
     """GeGLU (gemma) / SwiGLU; with ``model_axis`` on this worker's
     shards (module docstring)."""
-    if model_axis is not None:
-        x = tp.copy_to(x, model_axis)
-    h_gate = x @ gate
+    h_gate, h_up = (tp.columns([(x, gate), (x, up)], model_axis)
+                    if model_axis is not None else (x @ gate, x @ up))
     h_gate = (F.gelu(h_gate, approximate="tanh") if act == "gelu"
               else F.silu(h_gate))
-    out = (h_gate * (x @ up)) @ down
-    return out if model_axis is None else tp.reduce_from(out, model_axis)
+    h = h_gate * h_up
+    return h @ down if model_axis is None else tp.row(h, down, model_axis)
 
 
 def dense_mlp(up: torch.Tensor, up_b: torch.Tensor, down: torch.Tensor,
@@ -101,13 +103,10 @@ def dense_mlp(up: torch.Tensor, up_b: torch.Tensor, down: torch.Tensor,
     """The plain two-layer MLP with biases (starcoder2); with
     ``model_axis`` on this worker's shards, ``down_b`` added once after
     the sum."""
-    if model_axis is not None:
-        x = tp.copy_to(x, model_axis)
-    h = x @ up + up_b
+    h = (x @ up if model_axis is None
+         else tp.columns([(x, up)], model_axis)[0]) + up_b
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
-    out = h @ down
-    if model_axis is not None:
-        out = tp.reduce_from(out, model_axis)
+    out = h @ down if model_axis is None else tp.row(h, down, model_axis)
     return out + down_b
 
 
@@ -137,5 +136,5 @@ def unembed(table: torch.Tensor, x: torch.Tensor,
     """Tied unembedding: logits = x @ table^T (with ``model_axis``, the
     logits of this worker's rows of the table)."""
     if model_axis is not None:
-        x = tp.copy_to(x, model_axis)
+        return tp.columns([(x, table.T)], model_axis)[0]
     return x @ table.T

@@ -26,6 +26,28 @@ the shifts' first input) and ``S`` [B, H, hd, hd] float32, Mamba-2's
 N, hd] float32 (``init_rwkv6_state``, ``init_mamba2_state``); ``None``
 starts from the zero state. Decode is ``rwkv6_time_mix_step`` (the exact
 one-token recurrence) and ``mamba2_mix`` at T = 1.
+
+Past one model worker (``dist.tensor_parallel``, training only) the
+mixers take their ``MixSplit`` and the ``ModelAxis`` and run on this
+worker's heads: RWKV-6's time mix forms the five token-shift streams and
+the decay from its whole leaves, copies them into the split (one stacked
+``copy_to``), and runs its heads' columns of ``wr``, ``wk``, ``wv`` and
+``wg``, its heads of the WKV scan and of the group norm (its columns of
+the whole ``ln_scale`` and ``ln_bias``, copied in), and ``wo``'s rows,
+summed over the workers; the channel mix runs ``wk``'s columns and
+``wv``'s rows between ``copy_to`` and ``reduce_from``, then the whole
+receptance gate. The Mamba-2 mixer puts ``in_proj``, ``conv_w`` and
+``conv_b`` together (``gather_summed``) and reads its heads' columns of
+z, x and dt inside the split, forms B and C (their projection,
+convolution and SiLU) alike on every worker and copies them into the
+split in float32, runs the convolution on its x channels, the SSD scan on
+its heads, the gated RMSNorm with the sum of
+squares summed over the workers (``reduce_both``, float32, divided by the
+whole ``d_inner``), then its block of ``norm_scale`` and ``out_proj``'s
+rows, summed over the workers. As every split branch does, a mixer's
+column-parallel products of its copied input go through
+``tensor_parallel.columns`` and its row-parallel product through ``row``,
+which keep the partials in float32 until their sum.
 """
 from __future__ import annotations
 
@@ -34,23 +56,27 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import tensor_parallel as tp
+
 F32 = torch.float32
 
 
 def _draw(ini, shapes: dict, constants: dict, stddevs: dict,
-          layers: int | None) -> dict[str, torch.Tensor]:
+          layers: int | None, keep=None) -> dict[str, torch.Tensor]:
     """Each leaf of ``shapes``, in order: a constant, N(0, stddev), or
     else N(0, 1/fan-in) with the fan-in on axis 0; ``layers`` stacks that
-    many layers on a leading axis."""
+    many layers on a leading axis. ``keep(name, leaf)`` takes each leaf
+    as it is drawn (a split model's shard of it)."""
     out = {}
     for name, shape in shapes.items():
         full = shape if layers is None else (layers,) + shape
         if name in constants:
-            out[name] = ini.constant(constants[name], full)
+            t = ini.constant(constants[name], full)
         elif name in stddevs:
-            out[name] = ini.normal(full, stddev=stddevs[name])
+            t = ini.normal(full, stddev=stddevs[name])
         else:
-            out[name] = ini.fan_in(shape, 0, layers=layers)
+            t = ini.fan_in(shape, 0, layers=layers)
+        out[name] = t if keep is None else keep(name, t)
     return out
 
 
@@ -117,17 +143,18 @@ def rwkv6_time_mix_shapes(cfg: RWKV6Config) -> dict[str, tuple[int, ...]]:
             "u": (h, hd), "ln_scale": (d,), "ln_bias": (d,), "wo": (d, d)}
 
 
-def init_rwkv6_time_mix(ini, cfg: RWKV6Config, layers: int | None = None
-                        ) -> dict[str, torch.Tensor]:
+def init_rwkv6_time_mix(ini, cfg: RWKV6Config, layers: int | None = None,
+                        keep=None) -> dict[str, torch.Tensor]:
     """The JAX package's distributions: the shift mixes 0, ``w0`` -4 (a
     mild initial decay), the group norm's scale 1 and bias 0, the LoRAs
     N(0, 0.01), the bonus ``u`` N(0, 0.5), the projections N(0, 1/fan-in)
-    on axis 0; ``layers`` stacks that many copies on a leading axis."""
+    on axis 0; ``layers`` stacks that many copies on a leading axis, and
+    ``keep(name, leaf)`` takes each leaf as it is drawn."""
     return _draw(ini, rwkv6_time_mix_shapes(cfg),
                  {"mu_x": 0.0, "mu": 0.0, "w0": -4.0, "ln_scale": 1.0,
                   "ln_bias": 0.0},
                  {"lora_a": 0.01, "lora_b": 0.01, "w_lora_a": 0.01,
-                  "w_lora_b": 0.01, "u": 0.5}, layers)
+                  "w_lora_b": 0.01, "u": 0.5}, layers, keep)
 
 
 def rwkv6_channel_mix_shapes(cfg: RWKV6Config
@@ -138,11 +165,12 @@ def rwkv6_channel_mix_shapes(cfg: RWKV6Config
             "wr": (d, d)}
 
 
-def init_rwkv6_channel_mix(ini, cfg: RWKV6Config, layers: int | None = None
-                           ) -> dict[str, torch.Tensor]:
-    """The shift mixes 0, the projections N(0, 1/fan-in) on axis 0."""
+def init_rwkv6_channel_mix(ini, cfg: RWKV6Config, layers: int | None = None,
+                           keep=None) -> dict[str, torch.Tensor]:
+    """The shift mixes 0, the projections N(0, 1/fan-in) on axis 0;
+    ``keep`` as ``init_rwkv6_time_mix``'s."""
     return _draw(ini, rwkv6_channel_mix_shapes(cfg),
-                 {"mu_k": 0.0, "mu_r": 0.0}, {}, layers)
+                 {"mu_k": 0.0, "mu_r": 0.0}, {}, layers, keep)
 
 
 def _rwkv_mix_streams(p: dict, x: torch.Tensor, xprev: torch.Tensor):
@@ -191,20 +219,33 @@ def _wkv_chunk(S: torch.Tensor, r, k, v, logw, u):
 
 
 def rwkv6_time_mix(p: dict, cfg: RWKV6Config, x: torch.Tensor,
-                   state: dict | None = None):
+                   state: dict | None = None, split=None, model_axis=None):
     """x [B, T, d] from ``state`` (None: zeros) -> (out [B, T, d] in x's
-    dtype, {"x_tm": x[:, -1], "S": the state after x})."""
+    dtype, {"x_tm": x[:, -1], "S": the state after x}). ``split`` (a
+    ``tensor_parallel.MixSplit``) and ``model_axis``: this worker's heads
+    of a split model (``p`` then holds its shards; module docstring)."""
     b, t, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
     L = _chunks(t, cfg.chunk)
     last = state["x_tm"] if state is not None else None
     xr, xk, xv, xw, xg = _rwkv_mix_streams(p, x, _shift(x, last))
-    r = (xr @ p["wr"]).reshape(b, t, h, hd).to(F32)
-    k = (xk @ p["wk"]).reshape(b, t, h, hd).to(F32)
-    v = (xv @ p["wv"]).reshape(b, t, h, hd).to(F32)
-    g = F.silu(xg @ p["wg"])
     logw = -torch.exp(p["w0"] + torch.tanh(xw @ p["w_lora_a"])
                       @ p["w_lora_b"])
+    ln = p["ln_scale"], p["ln_bias"]
+    if split is not None:
+        lo, hi = split.heads
+        cols = slice(lo * hd, hi * hd)
+        r, k, v, g = tp.columns([(xr, p["wr"]), (xk, p["wk"]),
+                                 (xv, p["wv"]), (xg, p["wg"])], model_axis)
+        logw = tp.copy_to(logw, model_axis)[..., cols]
+        ln = tp.copy_to(torch.stack(ln), model_axis)[:, cols].unbind(0)
+        h = hi - lo
+    else:
+        r, k, v, g = xr @ p["wr"], xk @ p["wk"], xv @ p["wv"], xg @ p["wg"]
+    r = r.reshape(b, t, h, hd).to(F32)
+    k = k.reshape(b, t, h, hd).to(F32)
+    v = v.reshape(b, t, h, hd).to(F32)
+    g = F.silu(g)
     logw = logw.reshape(b, t, h, hd).to(F32)
 
     u = p["u"].to(F32)
@@ -216,8 +257,10 @@ def rwkv6_time_mix(p: dict, cfg: RWKV6Config, x: torch.Tensor,
                           logw[:, c:c + L], u)
         outs.append(o)
     out = torch.cat(outs, dim=1)
-    out = _group_norm(out, p["ln_scale"].to(F32), p["ln_bias"].to(F32))
-    return (out.to(x.dtype) * g) @ p["wo"], {"x_tm": x[:, -1], "S": S}
+    out = _group_norm(out, ln[0].to(F32), ln[1].to(F32))
+    y = out.to(x.dtype) * g
+    y = y @ p["wo"] if split is None else tp.row(y, p["wo"], model_axis)
+    return y, {"x_tm": x[:, -1], "S": S}
 
 
 def rwkv6_time_mix_step(p: dict, cfg: RWKV6Config, x: torch.Tensor,
@@ -244,17 +287,22 @@ def rwkv6_time_mix_step(p: dict, cfg: RWKV6Config, x: torch.Tensor,
     return out[:, None], {"x_tm": x[:, -1], "S": S_new}
 
 
-def rwkv6_channel_mix(p: dict, x: torch.Tensor, state: dict | None = None):
+def rwkv6_channel_mix(p: dict, x: torch.Tensor, state: dict | None = None,
+                      model_axis=None):
     """x [B, T, d] from ``state`` (None: zeros) -> (the token-shifted
     squared-ReLU FFN, gated by sigmoid of its receptance, [B, T, d],
-    {"x_cm": x[:, -1]})."""
+    {"x_cm": x[:, -1]}). ``model_axis``: a split model's (``wk``'s
+    columns and ``wv``'s rows, the receptance whole)."""
     last = state["x_cm"] if state is not None else None
     dx = _shift(x, last) - x
     xk = x + dx * p["mu_k"]
     xr = x + dx * p["mu_r"]
-    k = torch.square(torch.relu(xk @ p["wk"]))
-    return (torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]),
-            {"x_cm": x[:, -1]})
+    if model_axis is None:
+        kv = torch.square(torch.relu(xk @ p["wk"])) @ p["wv"]
+    else:
+        kv = tp.row(torch.square(torch.relu(tp.columns(
+            [(xk, p["wk"])], model_axis)[0])), p["wv"], model_axis)
+    return torch.sigmoid(xr @ p["wr"]) * kv, {"x_cm": x[:, -1]}
 
 
 def init_rwkv6_state(cfg: RWKV6Config, batch: int, dtype=torch.bfloat16,
@@ -305,16 +353,17 @@ def mamba2_shapes(cfg: Mamba2Config) -> dict[str, tuple[int, ...]]:
             "d_skip": (h,), "norm_scale": (di,), "out_proj": (di, d)}
 
 
-def init_mamba2(ini, cfg: Mamba2Config, layers: int | None = None
-                ) -> dict[str, torch.Tensor]:
+def init_mamba2(ini, cfg: Mamba2Config, layers: int | None = None,
+                keep=None) -> dict[str, torch.Tensor]:
     """The JAX package's distributions: the convolution N(0, 0.1) with
     bias 0, ``a_log`` 0 (A = -1), ``dt_bias`` -2 (a small initial dt),
     ``d_skip`` and the norm's scale 1, the projections N(0, 1/fan-in) on
-    axis 0; ``layers`` stacks that many copies on a leading axis."""
+    axis 0; ``layers`` stacks that many copies on a leading axis, and
+    ``keep(name, leaf)`` takes each leaf as it is drawn."""
     return _draw(ini, mamba2_shapes(cfg),
                  {"conv_b": 0.0, "a_log": 0.0, "dt_bias": -2.0,
                   "d_skip": 1.0, "norm_scale": 1.0},
-                 {"conv_w": 0.1}, layers)
+                 {"conv_w": 0.1}, layers, keep)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -360,23 +409,69 @@ def _ssd_chunk(S: torch.Tensor, x, Bm, Cm, loga, dt):
     return S_new, y
 
 
+def _mamba_split_in(p: dict, cfg: Mamba2Config, x: torch.Tensor, split,
+                    ma) -> tuple:
+    """A split mixer's inputs to the scan on this worker's heads: the
+    leaves ``in_proj``, ``conv_w`` and ``conv_b`` put together
+    (``gather_summed``; in_proj's columns [z | x | B | C | dt], the
+    convolution's [x | B | C]); its heads' columns of z, x and dt through
+    the split (``columns``), the convolution on its x channels; B and C
+    formed alike on every worker from ``x`` before the split, then copied
+    into it in float32 (their gradient, summed over every worker's heads,
+    rounds once to x's dtype). Returns (z, xs, dt, Bm32, Cm32, the
+    convolution's last inputs)."""
+    lo, hi = split.heads
+    di, n, hd = cfg.d_inner, cfg.d_state, cfg.head_dim
+    dev = x.device
+    xs = torch.arange(lo * hd, hi * hd, device=dev)
+    bc = torch.arange(di, di + 2 * n, device=dev)
+    own = {"in_proj": torch.cat([xs, di + xs, torch.arange(
+               2 * di + 2 * n + lo, 2 * di + 2 * n + hi, device=dev)]),
+           "conv_w": xs, "conv_b": xs}
+    same = {"in_proj": di + bc, "conv_w": bc, "conv_b": bc}
+    w = {k: tp.gather_summed(p[k], spec, ma, same[k])
+         for k, spec in split.gather.items()}
+
+    def part(k, cols):
+        return w[k].index_select(-1, cols)
+    m = hd * (hi - lo)
+    z, xs_, dt = torch.split(tp.columns([(x, part("in_proj", own["in_proj"]))],
+                                        ma)[0], [m, m, hi - lo], dim=-1)
+    xs_, conv_x = _causal_conv(xs_, part("conv_w", xs), part("conv_b", xs))
+    bm, conv_bc = _causal_conv(x @ part("in_proj", same["in_proj"]),
+                               part("conv_w", bc), part("conv_b", bc))
+    Bm32, Cm32 = torch.split(tp.copy_to(F.silu(bm).to(F32), ma), [n, n],
+                             dim=-1)
+    return (z, F.silu(xs_), dt, Bm32, Cm32,
+            torch.cat([conv_x, conv_bc], dim=-1))
+
+
 def mamba2_mix(p: dict, cfg: Mamba2Config, x: torch.Tensor,
-               state: dict | None = None):
+               state: dict | None = None, split=None, model_axis=None):
     """x [B, T, d] from ``state`` (None: zeros) -> (out [B, T, d] in x's
-    dtype, {"conv": the convolution's last inputs in x's dtype, "S"})."""
+    dtype, {"conv": the convolution's last inputs in x's dtype, "S"}).
+    ``split`` (a ``tensor_parallel.MixSplit``) and ``model_axis``: this
+    worker's heads of a split model (module docstring)."""
     b, t, _ = x.shape
-    di, n, h, hd = cfg.d_inner, cfg.d_state, cfg.num_heads, cfg.head_dim
+    n, h, hd = cfg.d_state, cfg.num_heads, cfg.head_dim
+    if split is not None:
+        h = split.heads[1] - split.heads[0]
+        z, xs, dt, Bm32, Cm32, conv = _mamba_split_in(p, cfg, x, split,
+                                                      model_axis)
+    di = h * hd
     L = _chunks(t, cfg.chunk)
-    z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * n, h], dim=-1)
-    xbc, conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                             state["conv"] if state is not None else None)
-    xbc = F.silu(xbc)
-    xs, Bm, Cm = torch.split(xbc, [di, n, n], dim=-1)
+    if split is None:
+        z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * n, h],
+                                 dim=-1)
+        xbc, conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                 state["conv"] if state is not None
+                                 else None)
+        xs, Bm, Cm = torch.split(F.silu(xbc), [di, n, n], dim=-1)
+        Bm32, Cm32 = Bm.to(F32), Cm.to(F32)
 
     dt = softplus(dt.to(F32) + p["dt_bias"])                       # [B, T, H]
     loga = -torch.exp(p["a_log"].to(F32)) * dt
     xh = xs.reshape(b, t, h, hd).to(F32)
-    Bm32, Cm32 = Bm.to(F32), Cm.to(F32)
 
     S = (state["S"] if state is not None
          else torch.zeros((b, h, n, hd), dtype=F32, device=x.device))
@@ -392,10 +487,17 @@ def mamba2_mix(p: dict, cfg: Mamba2Config, x: torch.Tensor,
 
     # gated RMSNorm (mamba2: no 1 + scale), then the out projection
     y = y * F.silu(z)
-    var = torch.square(y.to(F32)).mean(-1, keepdim=True)
+    sq = torch.square(y.to(F32))
+    if split is None:
+        var = sq.mean(-1, keepdim=True)
+    else:           # the mean over all of d_inner: the workers' sums summed
+        var = tp.reduce_both(sq.sum(-1, keepdim=True),
+                             model_axis) / cfg.d_inner
     y = (y.to(F32) * torch.rsqrt(var + 1e-6)).to(x.dtype)
-    return (y * p["norm_scale"]) @ p["out_proj"], {"conv": conv.to(x.dtype),
-                                                   "S": S}
+    y = y * p["norm_scale"]
+    out = (y @ p["out_proj"] if split is None
+           else tp.row(y, p["out_proj"], model_axis))
+    return out, {"conv": conv.to(x.dtype), "S": S}
 
 
 def init_mamba2_state(cfg: Mamba2Config, batch: int, dtype=torch.bfloat16,

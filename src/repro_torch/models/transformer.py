@@ -56,12 +56,15 @@ shared site's own KV, and an encoder-decoder's cross cache, which prefill
 fills from the encoder's output and decode reads. A vision prefix runs
 in prefill only; decode positions continue after it.
 
-Past one model worker an arch without SSM blocks splits its compute over
-the model workers (``dist.tensor_parallel``: ``forward_train``'s ``tp``):
-its ``Transformer`` holds this worker's shards only (``init_model``'s
+Past one model worker every arch splits its compute over the model
+workers (``dist.tensor_parallel``: ``forward_train``'s ``tp``): its
+``Transformer`` holds this worker's shards only (``init_model``'s
 ``keep`` draws each leaf whole, in order, and keeps its slice), the
 prelude's, the periods', the encoder's and the cross sublayers' blocks
-run the split attention (GQA or MLA), MLP and experts, the embedding and
+run the split attention (GQA or MLA), MLP and experts, the ``rwkv`` and
+``mamba`` blocks their mixers over heads (``models.ssm``) and RWKV-6's
+channel mix over its hidden width, zamba2's shared block its attention
+and MLP (its projections and the sites' LoRA whole), the embedding and
 the logits the worker's rows of the vocabulary where the table splits
 (else the whole table on every worker). Serving runs on whole models
 only.
@@ -268,19 +271,22 @@ def _ssm_shapes(cfg: ModelConfig, kind: str) -> dict[str, tuple[int, ...]]:
 
 
 def _init_ssm(ini: Initializer, cfg: ModelConfig, kind: str,
-              layers: int | None) -> dict[str, torch.Tensor]:
+              layers: int | None, keep) -> dict[str, torch.Tensor]:
     """``_ssm_shapes``' leaves with the distributions of ``models.ssm``; a
-    shared site's LoRA N(0, 0.01)."""
+    shared site's LoRA N(0, 0.01); each kept as ``keep`` returns it."""
+    def under(part):
+        return lambda n, t: keep(f"{part}/{n}", t)
+
     if kind == "rwkv":
         return {**{f"tm/{k}": v for k, v in ssm.init_rwkv6_time_mix(
-                    ini, cfg.rwkv, layers).items()},
+                    ini, cfg.rwkv, layers, under("tm")).items()},
                 **{f"cm/{k}": v for k, v in ssm.init_rwkv6_channel_mix(
-                    ini, cfg.rwkv, layers).items()}}
+                    ini, cfg.rwkv, layers, under("cm")).items()}}
     if kind == "mamba":
         return {f"mix/{k}": v for k, v in ssm.init_mamba2(
-            ini, cfg.mamba, layers).items()}
-    return {name: ini.normal(shape if layers is None else (layers,) + shape,
-                             stddev=0.01)
+            ini, cfg.mamba, layers, under("mix")).items()}
+    return {name: keep(name, ini.normal(
+                shape if layers is None else (layers,) + shape, stddev=0.01))
             for name, shape in _ssm_shapes(cfg, kind).items()}
 
 
@@ -433,14 +439,14 @@ def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
                 layers: int | None, keep=_whole) -> dict[str, torch.Tensor]:
     """One block's leaves: the attention, FFN or recurrent leaves, then
     the norms; ``layers`` stacks that many layers on a leading axis.
-    ``keep(name, leaf)`` takes each attention, FFN and norm leaf as it is
-    drawn (the split model's shard of it)."""
+    ``keep(name, leaf)`` takes each leaf as it is drawn (the split
+    model's shard of it)."""
     def full(shape):
         return shape if layers is None else (layers,) + tuple(shape)
 
     out = {}
     if kind in SSM_KINDS:
-        out.update(_init_ssm(ini, cfg, kind, layers))
+        out.update(_init_ssm(ini, cfg, kind, layers, keep))
     else:
         out.update(_init_attn(ini, cfg, kind, layers, keep))
         if _ffn_kind(cfg, kind) == "moe":
@@ -459,16 +465,17 @@ def _init_block(ini: Initializer, cfg: ModelConfig, kind: str,
     return out
 
 
-def _init_shared(ini: Initializer, cfg: ModelConfig
+def _init_shared(ini: Initializer, cfg: ModelConfig, keep=_whole
                  ) -> dict[str, torch.Tensor]:
     """zamba2's shared block, unstacked: N(0, 1/fan-in) projections, the
-    attention as an ``attn_full`` block's, the norms' constants."""
-    out = _init_attn(ini, cfg, "attn_full", None)
+    attention as an ``attn_full`` block's, the norms' constants; each
+    kept as ``keep`` returns it."""
+    out = _init_attn(ini, cfg, "attn_full", None, keep)
     for name, shape in _shared_shapes(cfg).items():
         if name.startswith("attn/"):
             continue
-        out[name] = (_init_constant(ini, cfg, name, shape)
-                     if name.startswith("ln") else ini.fan_in(shape, 0))
+        out[name] = keep(name, _init_constant(ini, cfg, name, shape)
+                         if name.startswith("ln") else ini.fan_in(shape, 0))
     return out
 
 
@@ -491,10 +498,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     LayerNorm scales 1, and the recurrent blocks' leaves as in
     ``models.ssm``. Drawn block by block (the periods' blocks, the
     embedding, the prelude, the shared block, then the encoder and the
-    cross-attention sublayers). ``keep(path, leaf)``: each leaf but the
-    SSM blocks' and zamba2's shared block's as drawn, kept as it returns it
-    (``tensor_parallel.TensorParallel.keep``: this worker's shard; the
-    whole leaf is then freed before the next is drawn)."""
+    cross-attention sublayers). ``keep(path, leaf)``: each leaf as drawn,
+    kept as it returns it (``tensor_parallel.TensorParallel.keep``: this
+    worker's shard; the whole leaf is then freed before the next is
+    drawn)."""
     dev = resolve_device(device)
     ini = Initializer(generator, cfg.dtype, dev)
     keep = keep or _whole
@@ -514,8 +521,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         params.update({f"{prefix}/{k}": v for k, v in _init_block(
             ini, cfg, kind, None, under(prefix)).items()})
     if "shared_attn" in cfg.pattern:
-        params.update({f"shared/{k}": v
-                       for k, v in _init_shared(ini, cfg).items()})
+        params.update({f"shared/{k}": v for k, v in _init_shared(
+            ini, cfg, under("shared")).items()})
     if cfg.encoder_periods:
         params.update({f"encoder/blk/{k}": v for k, v in _init_block(
             ini, cfg.encoder_cfg(), "attn_full", cfg.encoder_periods,
@@ -597,18 +604,26 @@ def _attend_mla(p: dict, cfg: ModelConfig, h: torch.Tensor, mode: str,
 
 def _shared_site(cfg: ModelConfig, p: dict, shared: dict, x: torch.Tensor,
                  emb0: torch.Tensor, mode: str = "train",
-                 cache: dict | None = None, pos=None) -> torch.Tensor:
+                 cache: dict | None = None, pos=None, tp=None
+                 ) -> torch.Tensor:
     """A ``shared_attn`` site: [x, emb0] through the shared block, its
     input projection plus the site's LoRA (formed in the parameter
     dtype), then the residual add of its output projection; in serving
-    the shared attention keeps a cache per site."""
+    the shared attention keeps a cache per site. ``tp``: a split model's
+    (the shared attention and MLP split at path ``shared``, the
+    projections and the LoRA whole)."""
+    split = ma = mlp = None
+    if tp is not None:
+        split, ma = tp.attn["shared"], tp.axis
+        mlp = tp.ffn_axis("shared", "mlp")
     cat = torch.cat([x, emb0.to(x.dtype)], dim=-1)
     h = cat @ (shared["in_proj"] + p["lora_a"] @ p["lora_b"])
     h = h + _attend(_sub(shared, "attn/"), cfg.attn_cfg("attn_full"),
-                    _norm(cfg, shared, "ln1", h), mode, cache, pos)
+                    _norm(cfg, shared, "ln1", h), mode, cache, pos,
+                    split=split, model_axis=ma)
     h = h + gated_mlp(shared["ffn/gate"], shared["ffn/up"],
                       shared["ffn/down"], _norm(cfg, shared, "ln2", h),
-                      cfg.act)
+                      cfg.act, mlp)
     return x + h @ shared["out_proj"]
 
 
@@ -625,28 +640,32 @@ def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     reads and writes this layer's ``cache`` in place. ``tp``: a split
     model's ``TensorParallel`` (``p`` then holds this worker's shards of
     the block at ``path``). Returns ``(x, aux)``."""
+    split = ma = None
+    if tp is not None:
+        split, ma = (tp.ssm if kind in ("rwkv", "mamba")
+                     else tp.attn).get(path), tp.axis
     if kind == "rwkv":
         h = _norm(cfg, p, "ln1", x)
         if mode == "decode":
             a, tm = ssm.rwkv6_time_mix_step(_sub(p, "tm/"), cfg.rwkv, h,
                                             cache)
         else:
-            a, tm = ssm.rwkv6_time_mix(_sub(p, "tm/"), cfg.rwkv, h, cache)
+            a, tm = ssm.rwkv6_time_mix(_sub(p, "tm/"), cfg.rwkv, h, cache,
+                                       split, ma)
         x = x + a
-        c, cm = ssm.rwkv6_channel_mix(_sub(p, "cm/"),
-                                      _norm(cfg, p, "ln2", x), cache)
+        c, cm = ssm.rwkv6_channel_mix(
+            _sub(p, "cm/"), _norm(cfg, p, "ln2", x), cache,
+            None if tp is None else tp.ffn_axis(path, "mlp"))
         _store(cache, {**tm, **cm})
         return x + c, None
     if kind == "mamba":
         a, st = ssm.mamba2_mix(_sub(p, "mix/"), cfg.mamba,
-                               _norm(cfg, p, "ln1", x), cache)
+                               _norm(cfg, p, "ln1", x), cache, split, ma)
         _store(cache, st)
         return x + a, None
     if kind == "shared_attn":
-        return _shared_site(cfg, p, shared, x, emb0, mode, cache, pos), None
-    split = ma = None
-    if tp is not None:
-        split, ma = tp.attn[path], tp.axis
+        return _shared_site(cfg, p, shared, x, emb0, mode, cache, pos,
+                            tp), None
     h = _norm(cfg, p, "ln1", x)
     if kind in MLA_KINDS:
         a = _attend_mla(_sub(p, "attn/"), cfg, h, mode, cache, pos, split,

@@ -19,17 +19,18 @@ own shard of every gradient leaf, the shard the JAX rules give it, as the
 JAX step's ``shard_local_sync`` does; the model workers of one data index
 take the same batch. Two steps get there (``worker_grads``):
 
-- the split step, for a split model (a dense decoder past one model
-  worker, ``Transformer.tp``: ``dist.tensor_parallel``): the worker holds
+- the split step, for a split model (every arch past one model worker,
+  ``Transformer.tp``: ``dist.tensor_parallel``): the worker holds
   its shards and its forward and backward run on them, as JAX's GSPMD
   splits them; its gradient of a split leaf is its shard, of a whole leaf
   the whole gradient, and of a whole leaf it read only in part (``wk``,
   ``wv`` where the kv heads do not divide) its share, summed over the
   model workers in rank order; it updates its shards in place and gathers
   nothing;
-- the gathered step, for a whole model (the other families): the
-  gradient computed whole, on the full parameters, its shard kept; after
-  the update the parameters are all-gathered over the model group. Its
+- the gathered step, for a whole model with a model axis (no launcher
+  path takes it: the tests hold the split step to it): the gradient
+  computed whole, on the full parameters, its shard kept; after the
+  update the parameters are all-gathered over the model group. Its
   gradient is GSPMD's up to the order of float sums (ROADMAP.md queue C).
 
 Each hands its shards to the sync over its data (and pod) group

@@ -22,9 +22,9 @@ JAX package, on the CPU:
   forward and the gradient of every input and leaf; the vocab-parallel
   embedding bit-equal and its table gradient; the vocab-parallel cross
   entropy and its logits gradient;
-- the launcher's step by arch (split for every arch but the SSM ones,
-  rwkv6 and zamba2, which take the gathered step; whole at one model
-  worker) and its ``step=`` line on two ranks;
+- the launcher's step by arch (split for every arch past one model
+  worker, whole at one; ``plan_split`` plans every full config at 2 and 4
+  model workers) and its ``step=`` line on two ranks;
 - a split run's ``--mesh 1x2`` checkpoint: the file the gathered step
   writes for the same parameters and states, entry for entry, and a
   resume from it bit-equal to an unbroken run.
@@ -81,9 +81,6 @@ CASES = {"g9_1x2": ("gemma2-9b", (None, 1, 2), 2),
 ARCHS = sorted({a for a, _, _ in CASES.values()})
 # atol against JAX (``tests/test_torch_archs.py``'s ``STEP_ATOL``)
 JAX_ATOL = {"gemma2-9b": ATOL, "gemma-2b": ATOL, "starcoder2-7b": 4e-6}
-SPLIT_ARCHS = ("gemma-2b", "paligemma-3b", "gemma2-9b", "gemma2-27b",
-               "starcoder2-7b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
-               "seamless-m4t-large-v2")
 
 
 def _world(mesh) -> int:
@@ -376,8 +373,8 @@ def _partial_kv(fn, asplit, leaves, blocks, ma) -> float:
 
 
 def launcher_runs(rank: int) -> dict:
-    """The launcher at ``--mesh 1x2``: gemma-2b (split) and rwkv6-1.6b
-    (gathered), one step each, their output and summaries."""
+    """The launcher at ``--mesh 1x2``: gemma-2b and rwkv6-1.6b (both
+    split), one step each, their output and summaries."""
     out = {}
     for arch in ("gemma-2b", "rwkv6-1.6b"):
         buf = io.StringIO()
@@ -653,35 +650,38 @@ def test_autograd_functions_against_the_whole_computation(results):
 
 @pytest.mark.parametrize("arch", list(tregistry.ID_TO_MODULE))
 def test_launcher_takes_the_split_step_for_the_dense_decoders(arch):
-    """The split step past one model worker for the dense decoders and
-    every other arch without SSM blocks (phi3.5-moe, deepseek-v2,
-    seamless); the gathered step for rwkv6 and zamba2, whose SSM blocks
-    the plan refuses."""
+    """The split step past one model worker for every arch: the dense
+    decoders, phi3.5-moe, deepseek-v2, seamless and the SSM and hybrid
+    rwkv6 and zamba2, each of whose full configs ``plan_split`` plans at
+    ``--mesh 1x2`` and ``1x4``, splitting some leaves."""
     cfg = tregistry.get(arch).model
-    want = "split" if arch in SPLIT_ARCHS else "gathered"
-    assert tlaunch.step_kind(cfg, 2) == want
-    assert tlaunch.step_kind(cfg, 1) == "whole"
-    if want == "gathered":
-        with pytest.raises(ValueError, match="SSM block"):
-            ttp.plan_split(cfg, leaf_order(param_shapes(cfg)), tshd.WHOLE)
+    assert tlaunch.step_kind(2) == "split"
+    assert tlaunch.step_kind(1) == "whole"
+    names = leaf_order(param_shapes(cfg))
+    for m in (2, 4):
+        specs = tlaunch.leaf_specs(cfg, names,
+                                   tregistry.get(arch).rules_overrides,
+                                   (None, 1, m))
+        tp = ttp.plan_split(cfg, names, tshd.ModelAxis(size=m, index=0,
+                                                       specs=specs))
+        assert tshd.SPLIT in tp.axis.grads, (arch, m)
 
 
 def test_launcher_names_its_step(results):
     """On two gloo ranks at ``--mesh 1x2`` the launcher prints
-    ``step=split`` for gemma-2b, holding half of its split leaves, and
-    ``step=gathered`` for rwkv6, holding every leaf whole."""
+    ``step=split`` for gemma-2b and for rwkv6, each holding less than its
+    whole bytes."""
     for rank in results[0]:
         run = rank["launcher"]
         g2, rw = run["gemma-2b"], run["rwkv6-1.6b"]
-        assert g2["step"] == "split" and rw["step"] == "gathered"
+        assert g2["step"] == rw["step"] == "split"
         assert g2["param_bytes"] < 4 * g2["params"]
-        assert rw["param_bytes"] == 4 * rw["params"]
+        assert rw["param_bytes"] < 4 * rw["params"]
         for m in g2["metrics"] + rw["metrics"]:
             assert np.isfinite(m["loss"]) and m["wire_bytes"] > 0
     out = results[0][0]["launcher"]
-    assert "mesh=(data=1, model=2) step=split" in out["gemma-2b"]["out"]
-    assert "mesh=(data=1, model=2) step=gathered" in \
-        out["rwkv6-1.6b"]["out"]
+    for arch in ("gemma-2b", "rwkv6-1.6b"):
+        assert "mesh=(data=1, model=2) step=split" in out[arch]["out"]
 
 
 def test_split_checkpoint_is_the_gathered_file_and_resumes(results):
