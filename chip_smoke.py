@@ -206,7 +206,20 @@ exchange bytes recomputed on the host (``exchange_check``) and summing to
 the reported wire bytes, each kernel of the path launched once a group a
 step, worker 0's groups held to the kernels' plain versions; its peak
 memory and step seconds printed (gloo stages the collectives through the
-host: no yardstick for NCCL).
+host: no yardstick for NCCL). Last in that phase, (j) deepseek-v2 at 1
+period in its own fsdp mode at ``--mesh 2x2`` (two data x two model
+workers, ``python3 chip_smoke.py --fsdp-worker RUN RANK PORT DIR``; SGD,
+gspar with EF, three steps): each worker's parameter, residual and
+gradient bytes exactly its blocks' under FSDP_RULES, the four workers'
+blocks tiling every leaf; at step 1 each shard row's Q and residual
+bit-equal to the plain ``sparsify_ef`` on its target, uniforms and
+lambda; then (``--fsdp-reference RUN DIR``, a process of its own) each
+row's lambda within ``FSDP_LAM_RTOL`` of the plain ``greedy_lambda`` on
+the row of the averaged gradient put together whole, and each worker's
+averaged step-1 gradient held to the whole model's over the global batch
+(both data workers' batches, the router choices forced) as the split runs
+are; replicas of a block bit-equal; kernels 7, 2 and 6 launched once a
+group a step (2 up to twice).
 
 Each run checks finite losses, no overflow (where the exchange is checked
 on the architectures: the overflow equal to the survivors its buffers
@@ -3892,7 +3905,7 @@ TP_M = 4                   # model workers: four processes on the one card
 # workers' sync scratch, the experts' float32 uniforms among it, passed
 # the card's 80 GB), (f) MLA over heads, the
 # prelude's dense FFN and the routed and shared experts at ARCH_RUNS' cut,
-# in the compressed mode with SGD (fsdp takes no model axis; Adam's
+# in the compressed mode with SGD (its own fsdp mode is (j); Adam's
 # float32 moments would put the four workers past the card), (g) the
 # encoder and the cross attention uncut, the 256,206-row table whole,
 # (h) RWKV-6 and (i) the Mamba-2 hybrid uncut
@@ -3903,7 +3916,18 @@ TP_RUNS = {"c": ("gemma2-9b", ["--num-periods", "2"]),
                                       "compressed", "--optimizer", "sgd"]),
            "g": ("seamless-m4t-large-v2", []),
            "h": ("rwkv6-1.6b", []),
-           "i": ("zamba2-2.7b", [])}
+           "i": ("zamba2-2.7b", []),
+           "j": ("deepseek-v2-236b", ["--num-periods", "1", "--mode",
+                                      "fsdp", "--optimizer", "sgd"])}
+# (j): the fsdp mode at a data x model mesh (``fsdp_run``): deepseek-v2 at
+# ARCH_RUNS' cut in its own mode, Q once on the averaged gradient, each of
+# the four workers holding its blocks under FSDP_RULES
+FSDP_RUN = "j"
+FSDP_MESH = (None, 2, 2)
+FSDP_ARGS = ARCH_ARGS + ["--seed", "0", "--mesh", "2x2"]
+FSDP_LAM_RTOL = 1e-6       # a row's lambda from its shards vs the plain
+                           # greedy_lambda on the row gathered whole
+FSDP_CHUNK = 1 << 26       # columns of the plain sparsify_ef at a time
 # runs whose whole leaves' rows may drop survivors under EF, as their
 # ARCH_RUNS do (rwkv6's [.., 2,048] rows at k_cap 128): held as arch_run
 # holds them, the overflow the buffers' own count and at most 1e-5 of the
@@ -4458,16 +4482,448 @@ def tp_run(run: str, tmp: Path) -> dict:
     return out
 
 
+def _fsdp_layout(cfg, arch: str, rank: int, data=None, model=None):
+    """The launcher's ``FsdpLayout`` for the worker of ``rank`` at
+    FSDP_MESH (groups given, or none: its blocks only)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import sharding
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import param_axes, param_shapes
+    _, d, m = FSDP_MESH
+    shapes, axes = param_shapes(cfg), param_axes(cfg)
+    names = leaf_order(shapes)
+    return sharding.fsdp_layout(
+        [shapes[n][0] for n in names], [axes[n] for n in names], names,
+        registry.get(arch).rules_overrides, FSDP_MESH,
+        {"data": rank // m, "model": rank % m},
+        data or sharding.DataAxis(("data",), d, rank // m),
+        model or sharding.ModelAxis(size=m, index=rank % m, specs=()))
+
+
+def _digest(t: torch.Tensor) -> str:
+    """The sha256 of a tensor's bytes (on the host)."""
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def fsdp_worker(run: str, rank: int, port: int, tmp: Path) -> None:
+    """One worker of run ``run`` (a process of its own, on the one card):
+    a gloo group, then the launcher at ``--mesh 2x2 --mode fsdp``, the
+    kernel counts set to 0 just before it and read just after. At step 1
+    it saves its averaged gradient blocks, its router choices and each
+    group's per-row lambda to ``tmp`` (``fsdp_reference`` holds them), and
+    holds each shard row's Q and residual to the plain ``sparsify_ef`` on
+    the same target, uniforms, lambda and sum g^2, bit for bit, in column
+    chunks (uncounted); after the run it records its blocks, its
+    parameter, residual and gradient bytes, and a digest of each leaf's
+    parameters and residual (replicas must agree). Writes its record to
+    ``tmp``."""
+    import datetime
+    import io
+    import torch.distributed as dist
+    from repro_torch.dist import fsdp as fsdp_lib
+    from repro_torch.kernels.sparsify import kernel as K
+    from repro_torch.kernels.sparsify import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.train import step as step_lib
+    os.environ["LOCAL_RANK"] = "0"
+    torch.cuda.set_per_process_memory_fraction(TP_MEM_FRACTION)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=TP_M, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    arch, flags = TP_RUNS[run]
+    seen: dict = {"first": True, "groups": 0, "blocks": 0, "q_rows": 0,
+                  "q_elements": 0, "lams": []}
+    chk = Check()
+    real = dict(grads=fsdp_lib.shard_grads,
+                compress=step_lib.compress_tree_sharded,
+                make=step_lib.make_fsdp_train_step,
+                lam=ops.gspar_dense_lambda, dense=ops.lam_dense)
+
+    def grads_spy(model, layout, loss_fn, batch):
+        if not seen["first"]:
+            return real["grads"](model, layout, loss_fn, batch)
+        routes: list = []
+        with routed(routes):
+            loss, grads = real["grads"](model, layout, loss_fn, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.save([g.cpu() for g in grads], tmp / f"{run}_grad{rank}.pt")
+        torch.save(routes, tmp / f"{run}_routes{rank}.pt")
+        seen["grad_shapes"] = [tuple(g.shape) for g in grads]
+        seen["grad_save_s"] = time.perf_counter() - t0
+        return loss, grads
+
+    def compress_spy(cfg, leaves, layout, stacked, residual, uniforms):
+        out = real["compress"](cfg, leaves, layout, stacked, residual,
+                               uniforms)
+        seen["residual"] = out[1]
+        if seen["first"]:
+            seen["first"] = False
+            torch.save(seen["lams"], tmp / f"{run}_lams{rank}.pt")
+            seen["residual_shapes"] = [tuple(r.shape) for r in out[1]]
+        return out
+
+    def lam_spy(g2d, rho=0.1, num_iters=2, shards=None):
+        lam, l2 = real["lam"](g2d, rho, num_iters, shards)
+        if seen["first"]:
+            seen["groups"] += 1
+            seen["lams"].append((list(shards.rows), shards.d, lam.cpu()))
+        return lam, l2
+
+    def dense_spy(g2d, u2d, lam, den, **kw):
+        r = real["dense"](g2d, u2d, lam, den, **kw)
+        if not seen["first"]:
+            return r
+        seen["blocks"] += 1
+        t0 = time.perf_counter()
+        with uncounted():
+            for a in range(0, g2d.shape[1], FSDP_CHUNK):
+                b = min(g2d.shape[1], a + FSDP_CHUNK)
+                want = ref.sparsify_ef_ref(g2d[:, a:b], u2d[:, a:b], lam,
+                                           den=den)
+                chk.equal(f"fsdp ({run}) worker {rank} sparsify_ef Q "
+                          f"[{a}, {b})", r.q[:, a:b], want.q)
+                chk.equal(f"fsdp ({run}) worker {rank} sparsify_ef "
+                          f"residual [{a}, {b})", r.residual[:, a:b],
+                          want.residual)
+                del want
+        seen["q_rows"] += g2d.shape[0]
+        seen["q_elements"] += g2d.numel()
+        seen["q_check_s"] = seen.get("q_check_s", 0.0) + \
+            time.perf_counter() - t0
+        return r
+
+    def make_spy(model, comp, opt, layout=None, uniforms=None):
+        seen["model"], seen["layout"] = model, layout
+        return real["make"](model, comp, opt, layout=layout,
+                            uniforms=uniforms)
+
+    fsdp_lib.shard_grads = grads_spy
+    step_lib.compress_tree_sharded = compress_spy
+    step_lib.make_fsdp_train_step = make_spy
+    ops.gspar_dense_lambda, ops.lam_dense = lam_spy, dense_spy
+    buf = io.StringIO()
+    K.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            summary = train.main(["--arch", arch] + flags + FSDP_ARGS)
+    finally:
+        fsdp_lib.shard_grads = real["grads"]
+        step_lib.compress_tree_sharded = real["compress"]
+        step_lib.make_fsdp_train_step = real["make"]
+        ops.gspar_dense_lambda, ops.lam_dense = real["lam"], real["dense"]
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    steps = len(summary["metrics"])
+    want = {"stats": steps * seen["groups"],
+            "sparsify_ef": steps * seen["blocks"]}
+    # the kernels by name (a variant, "sparsify_ef/lam", counts twice)
+    if any(launches.get(k, 0) != v for k, v in want.items()) or not (
+            want["stats"] <= launches.get("tail_stats", 0)
+            <= 2 * want["stats"]) or \
+            {k for k in launches if "/" not in k} != set(FSDP_KERNELS):
+        raise AssertionError(f"fsdp ({run}) worker {rank}: launches "
+                             f"{launches}, want {want} and tail_stats "
+                             "up to twice stats")
+    model, layout = seen.pop("model"), seen.pop("layout")
+    blocks = [[(sl.start, sl.stop) for sl in layout.block(i)]
+              for i in range(len(layout.names))]
+    block_shapes = [tuple(b - a for a, b in blk) for blk in blocks]
+    itemsize = model.leaves()[0].element_size()
+    out = {"rank": rank, "arch": arch, "flags": flags,
+           "step": summary["step"], "mode": summary["mode"],
+           "params": summary["params"],
+           "param_bytes": summary["param_bytes"],
+           "want_bytes": sum(math.prod(s) for s in block_shapes) * itemsize,
+           "shapes_ok": [tuple(p.shape) for p in model.leaves()]
+           == block_shapes == seen["grad_shapes"]
+           == seen["residual_shapes"]
+           == [tuple(r.shape) for r in seen["residual"]],
+           "residual_bytes": sum(r.numel() * r.element_size()
+                                 for r in seen["residual"]),
+           "blocks": blocks, "names": list(layout.names),
+           "digests": {"params": [_digest(p) for p in model.leaves()],
+                       "residual": [_digest(r) for r in seen["residual"]]},
+           "q_rows": seen["q_rows"], "q_elements": seen["q_elements"],
+           "q_check_s": seen.get("q_check_s", 0.0),
+           "grad_save_s": seen["grad_save_s"],
+           "groups": seen["groups"], "dense_blocks": seen["blocks"],
+           "step_seconds": summary["step_seconds"],
+           "max_memory_allocated": summary["max_memory_allocated"],
+           "density": [m["density"] for m in summary["metrics"]],
+           "var_ratio": [m["var_ratio"] for m in summary["metrics"]],
+           "bits": [m["bits"] for m in summary["metrics"]],
+           "loss": [m["loss"] for m in summary["metrics"]],
+           "launches": launches,
+           "launcher_out": buf.getvalue() if rank == 0 else ""}
+    del model, layout, seen["residual"]
+    torch.save(out, tmp / f"{run}_worker{rank}.pt")
+    dist.destroy_process_group()
+
+
+def fsdp_reference(run: str, tmp: Path) -> list:
+    """Hold run ``run``'s workers (``fsdp_worker``) in a process of its
+    own: (1) each sparse row's lambda, every worker's, to the plain
+    ``greedy_lambda`` (``ref.stats_ref``, ``ref.tail_stats_ref``) on the row
+    of the averaged step-1 gradient put together from the four workers'
+    blocks, within FSDP_LAM_RTOL; (2) each worker's averaged gradient
+    blocks to the whole model's gradient over the global batch (the two
+    data workers' batches, the MoE layer's router choices forced to the
+    workers' own) in bf16 and in float32, as ``tp_reference`` holds a
+    split run's, with another global batch's gradient as the control.
+    Returns for each worker its distances and leaves, and the lambdas'
+    worst relative error and row count."""
+    import dataclasses as dc
+    from repro_torch.kernels.sparsify import ops, ref
+    from repro_torch.launch import specs
+    from repro_torch.models.common import leaf_order
+    from repro_torch.models.transformer import (Transformer, init_model,
+                                                param_shapes)
+    from repro_torch.train import step as step_lib
+    arch, flags = TP_RUNS[run]
+    cfg = tp_cfg(arch, flags)
+    dev = torch.device("cuda", 0)
+    shapes = param_shapes(cfg)
+    names = leaf_order(shapes)
+    layouts = [_fsdp_layout(cfg, arch, r) for r in range(TP_M)]
+    lam_err, lam_rows, t0 = 0.0, 0, time.perf_counter()
+    lams = [torch.load(tmp / f"{run}_lams{r}.pt") for r in range(TP_M)]
+    parts = [torch.load(tmp / f"{run}_grad{r}.pt") for r in range(TP_M)]
+    for k, (rows, d_whole, _) in enumerate(lams[0]):
+        for i in sorted(set(rows)):
+            full = torch.empty(shapes[names[i]][0], dtype=cfg.dtype,
+                               device=dev)
+            for r in range(TP_M):
+                full[layouts[r].block(i)] = parts[r][i].to(dev)
+            n = rows.count(i)
+            g2d = full.reshape(n, -1)
+            if g2d.shape[1] != d_whole:
+                raise AssertionError(f"fsdp ({run}) leaf {names[i]}: rows "
+                                     f"of {g2d.shape[1]}, not {d_whole}")
+            l1, _, mx = ref.stats_ref(g2d)
+            want = ops.greedy_lambda(
+                l1, mx, RHO, d_whole, 2,
+                tail_fn=lambda th, gate, g=g2d: ref.tail_stats_ref(g, th,
+                                                                    gate))
+            at = rows.index(i)
+            for r in range(TP_M):
+                got = lams[r][k][2][at:at + n].to(dev)
+                rel = float(((got.double() - want.double()).abs()
+                             / want.double().abs().clamp_min(1e-30)).max())
+                lam_err = max(lam_err, rel)
+                if not rel <= FSDP_LAM_RTOL:
+                    raise AssertionError(
+                        f"fsdp ({run}) worker {r} leaf {names[i]}: lambda "
+                        f"{got.tolist()} from its shards, the whole rows' "
+                        f"{want.tolist()}")
+            lam_rows += n
+            del full, g2d
+    torch.cuda.empty_cache()
+    lam_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    model = Transformer(cfg, init_model(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+
+    def global_batch(seed):
+        bs = [specs.train_batch(torch.Generator(device=dev).manual_seed(
+            seed + d), cfg, 8, 128) for d in range(FSDP_MESH[1])]
+        return {"tokens": torch.cat([b["tokens"] for b in bs])}
+
+    routes = [torch.load(tmp / f"{run}_routes{r}.pt") for r in range(TP_M)]
+    m = FSDP_MESH[2]
+    force = [torch.cat([routes[d * m][k] for d in range(FSDP_MESH[1])])
+             for k in range(len(routes[0]))]
+
+    def grads_of(model, cfg, batch, force):
+        with routed(force=force):
+            return step_lib._local_grads(model, model.leaves(),
+                                         step_lib.make_loss_fn(cfg),
+                                         batch)[1]
+    batch = global_batch(1_000_003)
+    grads = grads_of(model, cfg, batch, force)
+    other = grads_of(model, cfg, global_batch(1_000_003 + 7919), None)
+    controls = [_rel_tree([lay.shard(g, i) for i, g in enumerate(other)],
+                          [lay.shard(g, i) for i, g in enumerate(grads)])
+                for lay in layouts]
+    del other
+    cfg32 = dc.replace(cfg, dtype=torch.float32)
+    model = Transformer(cfg32, {k: v.detach().float()
+                                for k, v in model.params.items()})
+    torch.cuda.empty_cache()
+    g32 = grads_of(model, cfg32, batch, force)
+    del model, batch
+    out = []
+    for r, (lay, control) in enumerate(zip(layouts, controls)):
+        rows = []
+        for i, w in enumerate(parts[r]):
+            b, f = lay.shard(grads[i], i), lay.shard(g32[i], i)
+            w = w.to(dev)
+            rows.append((*_sq_dist(w, b), _sq_dist(w, f)[0],
+                         *_sq_dist(b, f), f.numel()))
+            del w
+        ws_b, b2, ws_f, b_f, f2, n = (sum(c) for c in zip(*rows))
+        rms = math.sqrt(f2 / n)
+        out.append({
+            "err": math.sqrt(ws_b / b2), "err32": None, "control": control,
+            "f32_err": math.sqrt(ws_f / f2),
+            "bf16_floor": math.sqrt(b_f / f2),
+            "lam_max_rel": lam_err, "lam_rows": lam_rows, "lam_s": lam_s,
+            "leaves": {name: (math.sqrt(p[2]), math.sqrt(p[3]),
+                              TP_LEAF_ATOL * rms * math.sqrt(p[5]),
+                              math.sqrt(p[4]), _leaf_factor(run, name))
+                       for name, p in zip(names, rows)}})
+    return out
+
+
+def _tiles(blocks: list, shape: tuple) -> bool:
+    """Whether the distinct blocks (``[(start, stop)]`` a dimension) are
+    pairwise disjoint and cover ``shape``."""
+    distinct = sorted({tuple(b) for b in blocks})
+    if sum(math.prod(b - a for a, b in blk) for blk in distinct) != \
+            math.prod(shape):
+        return False
+    return all(any(x[1] <= y[0] or y[1] <= x[0] for x, y in zip(p, q))
+               for j, p in enumerate(distinct) for q in distinct[j + 1:])
+
+
+def fsdp_run(run: str, tmp: Path) -> dict:
+    """Run ``run``'s four workers (``fsdp_worker``), then its reference
+    (``fsdp_reference``) in a process of its own, and hold: the fsdp mode
+    on the split step; every worker's parameter, residual and gradient
+    bytes exactly its blocks', the four workers' blocks tiling every leaf;
+    the router choices equal on a data index's model workers; each row's
+    lambda within FSDP_LAM_RTOL of the gathered row's; Q and the residual
+    bit-equal to the plain version (in the workers); the step-1 gradient
+    within TP_GRAD_RTOL of the whole bf16 model's, each leaf within the
+    TP_LEAF_FACTOR rule, the control CONTROL_FACTOR times farther;
+    replicas of a block bit-equal in parameters and residual; the
+    metrics equal on the four workers, finite."""
+    import socket
+    arch, flags = TP_RUNS[run]
+    t0 = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    free, total = torch.cuda.mem_get_info()
+    print(f"fsdp ({run}): {free} of {total} B free on the card before the "
+          "workers start", flush=True)
+    _tp_spawn(run, [["--fsdp-worker", run, str(r), str(port), str(tmp)]
+                    for r in range(TP_M)])
+    workers = [torch.load(tmp / f"{run}_worker{r}.pt") for r in range(TP_M)]
+    routes = [torch.load(tmp / f"{run}_routes{r}.pt") for r in range(TP_M)]
+    m = FSDP_MESH[2]
+    for r in range(TP_M):
+        if any(not torch.equal(a, b) for a, b in zip(
+                routes[r], routes[r - r % m])):
+            raise AssertionError(f"fsdp ({run}): worker {r}'s router "
+                                 "choices differ from its data index's")
+    t1 = time.perf_counter()
+    _tp_spawn(run, [["--fsdp-reference", run, str(tmp)]])
+    refs = torch.load(tmp / f"{run}_reference.pt")
+    ref_s = time.perf_counter() - t1
+    for f in tmp.glob(f"{run}_*"):
+        f.unlink()
+    names = workers[0]["names"]
+    cfg = tp_cfg(arch, flags)
+    from repro_torch.models.transformer import param_shapes
+    shapes = param_shapes(cfg)
+    for i, n in enumerate(names):
+        if not _tiles([w["blocks"][i] for w in workers], shapes[n][0]):
+            raise AssertionError(f"fsdp ({run}): the workers' blocks of "
+                                 f"{n} do not tile it")
+        for field in ("params", "residual"):
+            held: dict = {}
+            for w in workers:
+                key = tuple(tuple(x) for x in w["blocks"][i])
+                if held.setdefault(key, w["digests"][field][i]) != \
+                        w["digests"][field][i]:
+                    raise AssertionError(f"fsdp ({run}): replicas of {n}'s "
+                                         f"block {key} differ in {field}")
+    for w, ref in zip(workers, refs):
+        what = f"fsdp ({run}) {arch} worker {w['rank']}"
+        leaves = ref.pop("leaves")
+        w.update(ref, worst_leaves=sorted(
+            leaves.items(), key=lambda kv: -_leaf_share(kv[1]))[:3])
+        if w["mode"] != "fsdp" or w["step"] != "split" or not w["shapes_ok"]:
+            raise AssertionError(f"{what}: mode {w['mode']}, step "
+                                 f"{w['step']}, shapes ok {w['shapes_ok']}")
+        if w["param_bytes"] != w["want_bytes"] or \
+                w["residual_bytes"] != w["want_bytes"]:
+            raise AssertionError(f"{what}: {w['param_bytes']} parameter and "
+                                 f"{w['residual_bytes']} residual bytes, its "
+                                 f"blocks' {w['want_bytes']}")
+        if not w["err"] <= TP_GRAD_RTOL or \
+                w["control"] < CONTROL_FACTOR * w["err"] or \
+                not _leaf_share(w["worst_leaves"][0][1]) <= 1:
+            raise AssertionError(
+                f"{what}: gradient {w['err']} from the whole bf16 model's "
+                f"(bound {TP_GRAD_RTOL}), {w['f32_err']} from the float32 "
+                f"one (the whole bf16's {w['bf16_floor']}), control "
+                f"{w['control']}; leaves {w['worst_leaves']}")
+        if w["q_elements"] != w["want_bytes"] // 2 - sum(
+                math.prod(b - a for a, b in blk) for i, blk in
+                enumerate(w["blocks"])
+                if math.prod(shapes[names[i]][0]) < 1024):
+            raise AssertionError(f"{what}: Q checked on {w['q_elements']} "
+                                 "elements, not every sparse block's")
+        for key in ("loss", "density", "var_ratio", "bits"):
+            if w[key] != workers[0][key] or not all(
+                    math.isfinite(x) for x in w[key]):
+                raise AssertionError(f"{what}: {key} {w[key]}, worker 0's "
+                                     f"{workers[0][key]}")
+        if not all(0.0 < x <= 1.25 * RHO for x in w["density"]):
+            raise AssertionError(f"{what}: density {w['density']}")
+    line = [x for x in workers[0]["launcher_out"].splitlines()
+            if x.startswith("arch=")]
+    if not line or "mode=fsdp" not in line[0] or \
+            "model=2" not in line[0]:
+        raise AssertionError(f"fsdp ({run}): launcher printed {line}")
+    out = {"arch": arch, "flags": flags + ["--mesh", "2x2"],
+           "params": workers[0]["params"], "launcher_line": line[0],
+           "reference_s": ref_s, "seconds": time.perf_counter() - t0,
+           "lam_max_rel": refs[0]["lam_max_rel"],
+           "lam_rows": refs[0]["lam_rows"],
+           "workers": [{k: w[k] for k in (
+               "param_bytes", "residual_bytes", "err", "control",
+               "f32_err", "bf16_floor", "worst_leaves", "step_seconds",
+               "max_memory_allocated", "launches", "q_rows", "q_elements",
+               "q_check_s", "grad_save_s", "groups", "dense_blocks")}
+               for w in workers],
+           "loss": workers[0]["loss"], "density": workers[0]["density"],
+           "var_ratio": workers[0]["var_ratio"]}
+    print(f"fsdp ({run}): {arch} {' '.join(out['flags'])}, {line[0]!r}: "
+          + "; ".join(
+              f"worker {w['rank']}: {w['param_bytes']} parameter and "
+              f"{w['residual_bytes']} residual bytes (its blocks'), "
+              f"gradient {w['err']:.3e} from the whole bf16 model's "
+              f"(control {w['control']:.3e}), {w['f32_err']:.3e} from the "
+              f"float32 one (the whole bf16's {w['bf16_floor']:.3e}), its "
+              f"leaf nearest its bound {w['worst_leaves'][0][0]} at "
+              f"{_leaf_share(w['worst_leaves'][0][1]):.3f} of it, Q and "
+              f"residual of {w['q_elements']} elements bit-equal to the "
+              "plain sparsify_ef, steps "
+              + ", ".join(f"{x:.3f}" for x in w["step_seconds"])
+              + f" s, peak {w['max_memory_allocated']} B, launches "
+              f"{w['launches']}" for w in workers)
+          + f"; lambda of {out['lam_rows']} rows within "
+          f"{out['lam_max_rel']:.3e} of the gathered rows'; replicas "
+          f"bit-equal; losses {out['loss']}; density {out['density']}; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def tensor_parallel_phase() -> dict:
     """The model axis's compute split on the card: runs (c)-(i) of
-    TP_RUNS (``tp_run``), the card emptied between them."""
+    TP_RUNS (``tp_run``) and the fsdp mode's (j) (``fsdp_run``), the card
+    emptied between them."""
     tmp = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
     tmp.mkdir(parents=True, exist_ok=True)
     out = {}
     try:
         for run in TP_RUNS:
             torch.cuda.empty_cache()
-            out[run] = tp_run(run, tmp)
+            out[run] = (fsdp_run if run == FSDP_RUN else tp_run)(run, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -4803,6 +5259,16 @@ def main() -> int:
         run, tmp = sys.argv[2], Path(sys.argv[3])
         torch.save(tp_reference(run, tmp, torch.load(
             tmp / f"{run}_routes0.pt")), tmp / f"{run}_reference.pt")
+        return 0
+    if sys.argv[1:2] == ["--fsdp-worker"]:   # one of fsdp_run's processes
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        run, rank, port, tmp = sys.argv[2:6]
+        fsdp_worker(run, int(rank), int(port), Path(tmp))
+        return 0
+    if sys.argv[1:2] == ["--fsdp-reference"]:  # fsdp_run's after them
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        run, tmp = sys.argv[2], Path(sys.argv[3])
+        torch.save(fsdp_reference(run, tmp), tmp / f"{run}_reference.pt")
         return 0
     card = card_line()
     print(card, flush=True)

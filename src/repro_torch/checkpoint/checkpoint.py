@@ -30,7 +30,12 @@ model worker of a data index model index 0's residual, ``last_sent`` and
 pod residual of a whole leaf (ROADMAP.md queue C). A split model
 (``Transformer.tp``: its parameters are shards) saves its parameters
 gathered the same way and restores its shards of them, so its file is the
-one the gathered step writes for the same parameters and states.
+one the gathered step writes for the same parameters and states. In the
+fsdp mode past one worker (``model_axis`` an ``dist.sharding.
+FsdpLayout``) the parameters, the optimizer's state and the params-shaped
+residual are this worker's blocks: ``save`` gathers each leaf over the
+data workers, then over the model workers, into the global array, and
+``restore`` slices this worker's block.
 """
 from __future__ import annotations
 
@@ -104,6 +109,18 @@ def _whole(value: torch.Tensor, leaf: int, full_shape, model_axis):
     return full
 
 
+def _axis(model, model_axis):
+    """The axis whose shards the states (and the parameters) hold, and
+    whether the parameters are shards: an fsdp layout's
+    (``FsdpLayout.params_sharded``), else a split model's own axis, else
+    ``model_axis``."""
+    if getattr(model_axis, "params_sharded", False):
+        return model_axis, True
+    if model.tp is not None:
+        return model.tp.axis, True
+    return model_axis, False
+
+
 def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
          extra: dict | None = None, mesh=None,
          mode: str = "compressed", model_axis: ModelAxis = WHOLE) -> None:
@@ -115,12 +132,11 @@ def save(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
     worker calls it; rank 0 writes."""
     world, rank = _world()
     leaves = model.leaves()
-    if model.tp is not None:
-        model_axis = model.tp.axis
+    model_axis, sharded = _axis(model, model_axis)
     shapes = param_shapes(model.cfg)
     entries = checkpoint_entries(model.leaf_names, leaves, opt_state,
                                  ef_state, ctl_state, mode,
-                                 sharded_params=model.tp is not None)
+                                 sharded_params=sharded)
     zf = None
     if rank == 0:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -165,13 +181,12 @@ def restore(path: str, model, opt_state=None, ef_state=None, ctl_state=None,
     pods, data_n, model_n = _mesh(mesh, world, ef_state is not None
                                   and ef_state.pod_residual is not None)
     pod = rank // (data_n * model_n)
-    if model.tp is not None:
-        model_axis = model.tp.axis
+    model_axis, sharded = _axis(model, model_axis)
     steps = {}
     with np.load(_npz(path)) as data:
         for key, target, layout, leaf in checkpoint_entries(
                 model.leaf_names, model.leaves(), opt_state, ef_state,
-                ctl_state, mode, sharded_params=model.tp is not None):
+                ctl_state, mode, sharded_params=sharded):
             if key not in data:
                 raise ValueError(f"{path}: no entry {key!r}")
             arr = data[key]

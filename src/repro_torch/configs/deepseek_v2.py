@@ -7,8 +7,8 @@ Trains in fsdp mode (+ Algorithm-1 step-7 compression): a 472 GB bf16
 replica per model shard does not fit a v5e chip, so data-axis replication
 (required by the per-worker Q(g) path) is infeasible — documented in
 DESIGN.md section Arch-applicability. Optimizer moments in bf16. (The port
-keeps the mode; its parameters stay replicated, and on one 80 GB card the
-depth is cut.)"""
+keeps the mode: past one worker each holds its blocks under FSDP_RULES;
+on one 80 GB card the depth is cut.)"""
 import torch
 
 from repro_torch.configs.registry import ArchSpec

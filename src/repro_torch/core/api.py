@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -284,8 +285,12 @@ def _fold(xs: list) -> torch.Tensor:
     return functools.reduce(torch.add, xs)
 
 
-def _tree_stats(cfg, leaves, bits, nnz, wvar) -> TreeStats:
-    tot = float(sum(leaf.numel() for leaf in leaves))
+def _tree_stats(cfg, leaves, bits, nnz, wvar, tot: float | None = None
+                ) -> TreeStats:
+    """The tree's TreeStats from the groups' sums, over ``tot``
+    coordinates (default: the leaves')."""
+    if tot is None:
+        tot = float(sum(leaf.numel() for leaf in leaves))
     dev = leaves[0].device
     # a float32 divisor on the device: PyTorch's CUDA division by a Python
     # number multiplies by its rounded reciprocal, not an IEEE quotient
@@ -398,6 +403,180 @@ def compress_tree(cfg: CompressionConfig, generator: torch.Generator,
         del cg, res_rows
     return q, (new_res if ef else None), _tree_stats(cfg, leaves, bits, nnz,
                                                      wvar)
+
+
+# a block of rows' float32 uniforms in ``compress_tree_sharded`` takes at
+# most this many bytes (one row at least)
+UNIFORM_BYTES = 1 << 30
+
+
+class _RowShards:
+    """The rows of one sharded group, row r a shard of leaf
+    ``leaf_of_row[r]``'s row of length ``d``: ``ops.gspar_dense_lambda``'s
+    ``shards``, each statistic taken whole over the row's shards
+    (``FsdpLayout.reduce_rows``, in float64, rounded once)."""
+
+    def __init__(self, layout, leaf_of_row: list, d: int):
+        self.layout, self.rows, self.d = layout, leaf_of_row, d
+
+    def stats(self, l1, l2, mx):
+        sums = torch.stack([l1, l2], 1).to(torch.float64)
+        maxes = mx[:, None].to(torch.float64)
+        self.layout.reduce_rows(self.rows, sums, maxes)
+        return sums[:, 0].to(F32), sums[:, 1].to(F32), maxes[:, 0].to(F32)
+
+    def tail(self, count, l1):
+        sums = torch.stack([count.to(torch.float64), l1.to(torch.float64)],
+                           1)
+        self.layout.reduce_rows(self.rows, sums)
+        return sums[:, 0].to(count.dtype), sums[:, 1].to(F32)
+
+
+def compress_tree_sharded(cfg: CompressionConfig, leaves: list, layout,
+                          stacked: list | None = None,
+                          residual: list | None = None, uniforms=None):
+    """``compress_tree`` of a tree whose leaves lie in shards over workers
+    (the fsdp mode: ``leaves`` this worker's blocks under ``layout``, a
+    ``dist.sharding.FsdpLayout``), Q applied once to the whole tree: gspar
+    (Algorithm 3) with a float codec (f32, bf16), with or without error
+    feedback.
+
+    A row is a layer of a stacked leaf, or a whole leaf, as in
+    ``compress_tree``; its lambda is the whole row's. Each shard group
+    (the shards of one dtype, shard row length and whole row length,
+    in first-member order, one ``[rows, d]`` batch as ``compress_tree``
+    stacks it) takes the stats pass and the tail passes on its shard rows,
+    and their per-row outputs are summed (the max taken) over the row's
+    shards in rank order between the passes (``ops.gspar_dense_lambda``),
+    so that every worker forms the same lambda and gate; then kernel 6 (5
+    without EF) writes Q and the residual of each shard row at that
+    lambda. ``uniforms(leaf, row, block, n)`` gives a shard row's ``n``
+    float32 uniforms (``block``: the shard's slices of the leaf;
+    ``dist.fsdp.KeyedUniforms``), drawn in blocks of rows of at most
+    ``UNIFORM_BYTES``. A leaf whose whole size is under
+    ``cfg.min_leaf_size`` passes through with a zero residual.
+
+    The accounting counts each row once: every worker holds every row's
+    whole counts after the reductions, so the TreeStats (bits, density and
+    var_ratio over the whole tree's coordinates) are the same on every
+    worker. Returns ``(q, new_residual, stats)`` like ``compress_tree``,
+    the lists shaped like ``leaves``."""
+    from repro_torch.core.grouping import leaf_rows
+    from repro_torch.kernels.sparsify import ops
+    _require_residual(cfg, residual, "compress_tree_sharded")
+    scheme = cfg.scheme()
+    sel, codec = scheme.selector, scheme.codec
+    if sel.name != "gspar" or getattr(sel, "algo", "") != "greedy" or \
+            codec.integer_coded or codec.stochastic:
+        raise _not_ported(f"the fsdp mode's sharded Q of {cfg.name!r} "
+                          "(gspar, greedy, with a float codec, is)",
+                          "queue A item 10d")
+    ef = cfg.error_feedback
+    n = len(leaves)
+    stk = stacked if stacked is not None else [False] * n
+    whole = [math.prod(s) for s in layout.shapes]
+    dev = leaves[0].device
+    sparse: dict = {}
+    dense = []
+    for i, leaf in enumerate(leaves):
+        if whole[i] < cfg.min_leaf_size:
+            dense.append(i)
+            continue
+        rows, d = leaf_rows(tuple(leaf.shape), stk[i])
+        sparse.setdefault((leaf.dtype, d, whole[i] // rows), []).append(
+            (i, rows))
+    q: list = [None] * n
+    new_res: list = [None] * n
+    bits, nnz, wvar = [], [], []
+    if dense:
+        sums = []
+        for i in dense:
+            q[i] = leaves[i] + residual[i] if ef else leaves[i]
+            if ef:
+                new_res[i] = torch.zeros_like(leaves[i])
+            t32 = q[i].reshape(-1).to(F32)
+            sums.append(torch.stack([
+                torch.count_nonzero(t32).to(torch.float64),
+                (t32 * t32).sum().to(torch.float64)]))
+        sums = torch.stack(sums)
+        layout.reduce_rows(dense, sums)
+        for k, i in enumerate(dense):
+            bits.append(torch.tensor(
+                coding.dense_coding_bits(whole[i], cfg.float_bits),
+                dtype=F32, device=dev))
+            nnz.append(sums[k, 0].to(F32))
+            wvar.append((sums[k, 1] > 0).to(F32) * float(whole[i]))
+    for (dtype, d, d_whole), members in sparse.items():
+        grp = _ShardGroup(members, d)
+        stack = _stack_group(grp, leaves, residual, ef)
+        leaf_of_row = [i for i, rows in members for _ in range(rows)]
+        lam, den = ops.gspar_dense_lambda(
+            stack, sel.rho, sel.num_iters,
+            _RowShards(layout, leaf_of_row, d_whole))
+        direct = codec.wire_dtype(dtype) == dtype
+        qg = torch.empty((grp.rows, d), dtype=dtype, device=dev)
+        per = max(1, UNIFORM_BYTES // (4 * d))
+        starts, r0 = {}, 0
+        for i, rows in members:
+            starts[i] = r0
+            q[i] = qg[r0:r0 + rows].view(leaves[i].shape)
+            r0 += rows
+        blocks = {i: layout.block(i) for i, _ in members}
+        counts = []
+        for a in range(0, grp.rows, per):
+            b = min(grp.rows, a + per)
+            us = [uniforms(i, r - starts[i], blocks[i], d)
+                  for r, i in enumerate(leaf_of_row[a:b], a)]
+            u = us[0].view(1, d) if len(us) == 1 else torch.stack(us)
+            del us
+            r = ops.lam_dense(stack[a:b], u, lam[a:b], den[a:b],
+                              codec=codec, ef=ef,
+                              out=qg[a:b] if direct else None)
+            del u
+            if not direct:
+                qg[a:b].copy_(r.q)
+            for i, rows in members if ef else ():
+                lo, hi = max(a, starts[i]), min(b, starts[i] + rows)
+                if lo >= hi:
+                    continue
+                if (lo, hi) == (starts[i], starts[i] + rows):
+                    new_res[i] = r.residual[lo - a:hi - a].view(
+                        leaves[i].shape)       # the block holds the leaf
+                    continue
+                if new_res[i] is None:
+                    new_res[i] = torch.empty_like(leaves[i])
+                new_res[i].view(rows, d)[lo - starts[i]:hi - starts[i]] \
+                    .copy_(r.residual[lo - a:hi - a])
+            counts.append(torch.stack([r.nnz.to(torch.float64),
+                                       r.n_sure.to(torch.float64),
+                                       r.sum_sq.to(torch.float64)], 1))
+            del r
+        del stack
+        counts = torch.cat(counts)
+        layout.reduce_rows(leaf_of_row, counts)
+        row_nnz = counts[:, 0].to(torch.int64)
+        row_bits = scheme.message_bits(d_whole, row_nnz,
+                                       counts[:, 1].to(torch.int64))
+        ok = den > 0
+        ratio = torch.where(ok, counts[:, 2].to(F32)
+                            / torch.where(ok, den, 1.0), 0.0)
+        bits.append(_row_sum(row_bits))
+        nnz.append(row_nnz.sum().to(F32))
+        wvar.append(_row_sum(ratio) * float(d_whole))
+    return q, (new_res if ef else None), _tree_stats(
+        cfg, leaves, bits, nnz, wvar, tot=float(sum(whole)))
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardGroup:
+    """A shard group's members ``(leaf, rows)`` and row length, as
+    ``_stack_group`` reads a ``grouping.Group``."""
+    members: tuple
+    d: int
+
+    @property
+    def rows(self) -> int:
+        return sum(r for _, r in self.members)
 
 
 def compress_tree_sparse(cfg: CompressionConfig, generator: torch.Generator,

@@ -317,3 +317,201 @@ def sum_in_order(rows: torch.Tensor) -> torch.Tensor:
         acc += r
     return acc
 
+
+
+@dataclasses.dataclass(frozen=True)
+class DataAxis:
+    """One worker's place on the data side of the fsdp mode's mesh: the
+    axes ``names`` (``("data",)``, or ``("pod", "data")`` under pods, pods
+    major), their ``size`` (their product) and this worker's ``index``
+    among them, and ``group``, the process group of the workers of its
+    model index across them, in rank order (``dist.group.WORLD`` where that
+    is every worker)."""
+    names: tuple
+    size: int
+    index: int
+    group: Any = None
+
+    def stack(self, x: torch.Tensor) -> torch.Tensor:
+        """``[size, *x.shape]``: every data worker's ``x``, in rank
+        order."""
+        return _all_gather(x, self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafGroups:
+    """The axes over which one leaf's shards lie in the fsdp mode:
+    ``model`` (the ``ModelAxis``) where the leaf's spec uses the model
+    axis, ``data`` (the ``DataAxis``) where it uses the data axis (with
+    pods: pod and data), None where it does not. A row of the leaf (a
+    layer of a stacked leaf, or the whole leaf) is split the same way, so
+    a per-row statistic of a shard is summed over exactly these."""
+    model: Any = None
+    data: Any = None
+
+
+def data_only(spec: tuple) -> tuple:
+    """``spec`` with every axis but "pod" and "data" dropped."""
+    out = []
+    for e in spec:
+        kept = tuple(a for a in _as_tuple(e) if a in ("pod", "data"))
+        out.append(None if not kept else kept[0] if len(kept) == 1
+                   else kept)
+    return tuple(out)
+
+
+def model_only(spec: tuple) -> tuple:
+    """``spec`` with "pod" and "data" dropped (``strip_manual``'s rule)."""
+    out = []
+    for e in spec:
+        kept = tuple(a for a in _as_tuple(e) if a not in ("pod", "data"))
+        out.append(None if not kept else kept[0] if len(kept) == 1
+                   else kept)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpLayout:
+    """One worker's shards in the fsdp mode under ``FSDP_RULES``
+    (``launcher_rules("fsdp", ...)``): ``specs`` each leaf's spec over the
+    mesh axes ``sizes`` (data, model, and pod under pods), ``coords`` this
+    worker's coordinates, ``shapes`` the whole leaves' shapes (leaf
+    order), ``model`` its ``ModelAxis`` (the specs with data and pod
+    dropped: the block the split compute takes) and ``data`` its
+    ``DataAxis``. The worker holds ``shard(leaf, i)`` of every leaf; a
+    leaf's data blocks are put together over ``data`` just before use
+    (``gather_data``, ``dist.fsdp``), and its gradient is scattered back
+    averaged (``scatter_mean``). It answers ``split``, ``shard`` and
+    ``gather`` as ``ModelAxis`` does, for the checkpoint."""
+    specs: tuple
+    sizes: dict
+    coords: dict
+    shapes: tuple
+    names: tuple
+    model: ModelAxis
+    data: DataAxis
+
+    params_sharded = True      # the checkpoint gathers the parameters too
+
+    def uses_data(self, i: int) -> bool:
+        return is_split(data_only(self.specs[i]))
+
+    def uses_model(self, i: int) -> bool:
+        return self.model.split(i)
+
+    def groups(self, i: int) -> LeafGroups:
+        """The axes leaf ``i``'s rows lie over."""
+        return LeafGroups(model=self.model if self.uses_model(i) else None,
+                          data=self.data if self.uses_data(i) else None)
+
+    def split(self, i: int) -> bool:
+        return is_split(self.specs[i])
+
+    def block(self, i: int) -> tuple[slice, ...]:
+        """This worker's slices of leaf ``i``."""
+        return worker_slices(self.shapes[i], self.specs[i], self.sizes,
+                             self.coords)
+
+    def shard(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This worker's block of the whole leaf ``t`` (a view)."""
+        return t[worker_slices(t.shape, self.specs[i], self.sizes,
+                               self.coords)]
+
+    def keep(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``init_model``'s ``keep``: this worker's block of the whole leaf
+        ``name``, copied so that the whole one can be freed."""
+        i = self.names.index(name)
+        return self.shard(t, i).clone() if self.split(i) else t
+
+    def gather_data(self, shard: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The data workers' blocks of a piece split under ``spec`` (a
+        leaf's, or one layer's), put together in rank order: the block of
+        the model axis alone (``shard`` itself where ``spec`` uses no data
+        axis)."""
+        dspec = data_only(spec)
+        if not is_split(dspec):
+            return shard
+        parts = self.data.stack(shard.contiguous())
+        return place_slices(list(parts), dspec, self.sizes, self.data.names)
+
+    def scatter_mean(self, g: torch.Tensor, spec: tuple,
+                     dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The reduce-scatter half of the dense exchange's mean
+        (``comm.sync._worker_order_mean``) of ``g``, a gradient shaped like
+        ``gather_data``'s result: block k of every data worker's ``g`` goes
+        to data worker k (one all-to-all, as bytes), which adds its copies
+        in worker order in float32 (or g's wider dtype), rounds the sum once
+        to ``dtype`` (g's by default) and divides it by the data workers
+        (an IEEE quotient): this worker's block of the mean."""
+        from repro_torch.comm.sync import _div_workers
+        dspec = data_only(spec)
+        n = self.data.size
+        send = torch.stack([g[worker_slices(
+            g.shape, dspec, self.sizes,
+            mesh_coords(k, self.data.names, self.sizes))] for k in range(n)])
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv.view(n, -1).view(torch.uint8),
+                               send.view(n, -1).view(torch.uint8),
+                               group=self.data.group)
+        del send
+        acc = sum_in_order(recv.to(torch.promote_types(g.dtype,
+                                                       torch.float32)))
+        del recv
+        return _div_workers(acc.to(dtype or g.dtype), n)
+
+    def gather(self, full: torch.Tensor, i: int) -> None:
+        """Every worker's block of leaf ``i`` into ``full``, whose own block
+        holds this worker's: over the data workers, then over the model
+        workers (all-gathers in rank order)."""
+        if not self.split(i):
+            return
+        mine = self.gather_data(self.shard(full, i), self.specs[i])
+        self.model.shard(full, i).copy_(mine)
+        self.model.gather(full, i)
+
+    def reduce_rows(self, leaf_of_row: list, sums: torch.Tensor,
+                    maxes: torch.Tensor | None = None) -> None:
+        """Per-row statistics of shards, whole, in place: ``sums [R, a]``
+        and ``maxes [R, b]`` (float64) hold a row a row, row r of leaf
+        ``leaf_of_row[r]``; each row's sums are added over the model
+        workers, then over the data workers, each in rank order (one
+        all-gather an axis, then the sum: the same bits on every rank), and
+        its maxes are taken over them, where the leaf's spec uses that
+        axis."""
+        groups = {i: self.groups(i) for i in set(leaf_of_row)}
+        for ax in ("model", "data"):
+            sel = [r for r, i in enumerate(leaf_of_row)
+                   if getattr(groups[i], ax) is not None]
+            if not sel:
+                continue
+            ax = getattr(self, ax)
+            idx = torch.tensor(sel, device=sums.device)
+            a = sums.shape[1]
+            pack = sums[idx] if maxes is None else torch.cat(
+                [sums[idx], maxes[idx]], 1)
+            st = ax.stack(pack)
+            sums[idx] = sum_in_order(st[..., :a])
+            if maxes is not None:
+                maxes[idx] = st[..., a:].amax(0)
+
+
+def fsdp_layout(shapes: list, axes: list, names: list, overrides: dict,
+                mesh, coords: dict, data: DataAxis,
+                model: ModelAxis) -> FsdpLayout:
+    """The ``FsdpLayout`` of the leaves ``names`` (whole ``shapes``,
+    logical ``axes``) on ``mesh`` (``(pods, data, model)``, pods None for
+    none) for the worker at ``coords``: the JAX launcher's fsdp rules
+    (``launcher_rules("fsdp", overrides, pods)``) resolved on the mesh's
+    sizes. ``model``'s specs are replaced by the model-only ones."""
+    pods, d, m = mesh
+    sizes = {"data": d, "model": m}
+    if pods is not None:
+        sizes["pod"] = pods
+    rules = launcher_rules("fsdp", overrides, pods is not None)
+    specs = tuple(resolve_spec(s, a, rules, sizes)
+                  for s, a in zip(shapes, axes))
+    model = dataclasses.replace(model, specs=tuple(model_only(s)
+                                                   for s in specs))
+    return FsdpLayout(specs=specs, sizes=sizes, coords=coords,
+                      shapes=tuple(tuple(s) for s in shapes),
+                      names=tuple(names), model=model, data=data)

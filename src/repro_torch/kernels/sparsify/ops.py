@@ -58,7 +58,9 @@ def greedy_lambda(l1: torch.Tensor, mx: torch.Tensor, rho, d: int,
     ``lam_0 * max|g| > 1``. Rows where nothing saturates keep lam_0 (the
     TPU's ``lax.cond``): the tail kernel reads the gate on the device and
     does no work for them, so the branch costs no host round trip. ``rho``
-    is a float or a float32 tensor per row (agspar's fitted density)."""
+    is a float or a float32 tensor per row (agspar's fitted density).
+    ``d`` is the rows' length: an int, or for rows split over workers the
+    whole row's (``gspar_dense_lambda``)."""
     d_f = torch.tensor(float(d), dtype=F32, device=l1.device)
     rho_d = torch.as_tensor(rho, dtype=F32, device=l1.device) * d_f
     lam0 = _safe_div(rho_d, l1.to(F32))
@@ -74,9 +76,13 @@ def greedy_lambda(l1: torch.Tensor, mx: torch.Tensor, rho, d: int,
     return lam
 
 
-def _kernel_tail_fn(g2d: torch.Tensor) -> Callable:
+def _kernel_tail_fn(g2d: torch.Tensor, reduce: Callable | None = None
+                    ) -> Callable:
+    """The tail pass (kernel 2) on ``g2d``; with ``reduce(count, l1)`` its
+    per-row outputs taken whole over the shards of a split row."""
     def tail(thresh, gate):
-        return K.tail_stats(g2d, thresh, gate)
+        n, l1 = K.tail_stats(g2d, thresh, gate)
+        return (n, l1) if reduce is None else reduce(n, l1)
     return tail
 
 
@@ -430,11 +436,39 @@ def gspar_dense(g2d: torch.Tensor, u2d: torch.Tensor,
     sums fused into it. ``codec`` as in ``_dense_pass``; ``out`` takes Q in
     place."""
     _group(g2d, "gspar_dense")
-    l1, l2, mx = K.stats(g2d)
-    lam = greedy_lambda(l1, mx, rho, g2d.shape[1], num_iters,
-                        tail_fn=_kernel_tail_fn(g2d))
+    lam, l2 = gspar_dense_lambda(g2d, rho, num_iters)
     return _dense_pass(g2d, u2d, lam, pkind="lam", codec=codec, ef=ef,
                        out=out, u_cod=u_cod, den=l2)
+
+
+def gspar_dense_lambda(g2d: torch.Tensor, rho: float = 0.1,
+                       num_iters: int = 2, shards=None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gspar_dense``'s per-row lambda and sum g^2 (float32): the stats
+    pass (kernel 7), then ``greedy_lambda``'s tail passes (kernel 2).
+    ``shards``: the rows of ``g2d`` are shards of longer rows split over
+    workers (``core.api.compress_tree_sharded``); ``shards.d`` is the whole
+    rows' length, ``shards.stats(l1, l2, mx)`` and ``shards.tail(count,
+    l1)`` give each pass's per-row outputs whole (sums over the row's
+    shards, the max), so every shard of a row forms the row's lambda."""
+    l1, l2, mx = K.stats(g2d)
+    d, reduce = g2d.shape[1], None
+    if shards is not None:
+        l1, l2, mx = shards.stats(l1, l2, mx)
+        d, reduce = shards.d, shards.tail
+    lam = greedy_lambda(l1, mx, rho, d, num_iters,
+                        tail_fn=_kernel_tail_fn(g2d, reduce))
+    return lam, l2
+
+
+def lam_dense(g2d: torch.Tensor, u2d: torch.Tensor, lam: torch.Tensor,
+              den: torch.Tensor, *, codec=_F32, ef: bool = False,
+              out: torch.Tensor | None = None) -> DenseResult:
+    """The dense emit (kernel 5, or 6 with ``ef``) of ``g2d`` at the given
+    per-row ``lam`` and sum g^2 ``den`` (``gspar_dense_lambda``'s), a float
+    ``codec``."""
+    return _dense_pass(g2d, u2d, lam, pkind="lam", codec=codec, ef=ef,
+                       out=out, den=den)
 
 
 def closed_dense(g2d: torch.Tensor, u2d: torch.Tensor,

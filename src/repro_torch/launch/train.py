@@ -49,19 +49,27 @@ process a rank: ``torchrun --nproc-per-node N``).
 ``--mode`` is ``compressed`` (Algorithm 1: each worker's gradient
 compressed and exchanged) or ``fsdp`` (``step.make_fsdp_train_step``: the
 gradient averaged over every worker, then Q applied once to the average,
-Algorithm 1's step 7; every worker draws the same uniforms, and with
-``--error-feedback`` the residual is params-shaped); its default is the
-architecture's ``train_mode``, as in the JAX launcher (fsdp for
-deepseek-v2-236b). In fsdp mode ``--wire``, ``--exchange`` and the
-layouts do not act, and ``--adaptive`` exits, as in JAX. Still refused
-with NotImplementedError: ``--mode fsdp`` at a model axis above 1 (the
-fsdp mode under ``FSDP_RULES``, ROADMAP.md queue A item 10d), and
-``--xla-preset`` other than ``none`` (the JAX launcher's default; the XLA
-presets are item 13).
+Algorithm 1's step 7, with ``--error-feedback`` on a params-shaped
+residual); its default is the architecture's ``train_mode``, as in the
+JAX launcher (fsdp for deepseek-v2-236b). Past one worker the fsdp mode
+shards as the JAX launcher's ``FSDP_RULES`` do, over the data axis (every
+worker without ``--mesh``, as in JAX) and at ``--mesh DxM`` or ``PxDxM``
+over the model axis too (``fsdp_layout``): each worker holds its blocks of
+the parameters, the optimizer's state and the residual, gathers a leaf
+over the data workers just before use and scatters its gradient back
+averaged (``dist.fsdp``), runs the split step over the model workers, and
+applies Q once, each row's lambda formed over its shards and every shard
+of a block drawing the same uniforms. In fsdp mode ``--wire``,
+``--exchange`` and the layouts do not act, and ``--adaptive`` exits, as
+in JAX; past one worker its compressor is gspar with a float codec (f32,
+bf16) or ``none``. Still refused with NotImplementedError: ``--xla-preset``
+other than ``none`` (the JAX launcher's default; the XLA presets are
+ROADMAP.md queue A item 13).
 ``--checkpoint PATH`` writes the trained state after the last step in the
 JAX launcher's file format (``repro_torch.checkpoint``): the parameters,
 the optimizer's state, with ``--error-feedback`` the residual (stacked over
-the workers in compressed mode, params-shaped in fsdp mode) and with
+the workers in compressed mode, params-shaped in fsdp mode, gathered from
+the workers' blocks) and with
 ``--adaptive`` the control state, and ``arch``, ``mode``, ``steps``,
 ``error_feedback`` and ``adaptive`` in ``PATH.meta.json``. ``--arch``
 takes every architecture of the JAX registry: gemma-2b, gemma2-9b,
@@ -245,11 +253,6 @@ def main(argv=None) -> dict:
     if comp.adaptive and mode != "compressed":
         raise SystemExit("--adaptive requires the compressed train mode")
     mesh = parse_mesh(args.mesh)
-    if mesh is not None and mesh[2] > 1 and mode == "fsdp":
-        raise NotImplementedError(
-            f"--mode fsdp at --mesh {args.mesh}: the fsdp mode past a model "
-            "axis of 1 (FSDP_RULES) is not ported yet (ROADMAP.md queue A "
-            "item 10d)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -375,6 +378,33 @@ def _mesh_text(mesh) -> str:
             f"data={data}, model={model})")
 
 
+def fsdp_layout(cfg, names: list, overrides: dict, mesh, data_group,
+                worker_group, model_axis) -> sharding.FsdpLayout:
+    """This worker's ``FsdpLayout`` under ``mesh`` (``(pods, data,
+    model)``; without ``--mesh`` every worker on the data axis, as the JAX
+    launcher's fsdp mode): the JAX launcher's fsdp rules, the data side's
+    group the data group (``mesh_groups``) or under pods every (pod, data)
+    worker of this model index (``model_groups``' worker group; the whole
+    world at one model worker), ``model_axis`` its model axis."""
+    pods, data, model = mesh
+    rank = dist.get_rank()
+    if pods is None:
+        group = data_group if data_group is not None else dist.group.WORLD
+        names_d = ("data",)
+        coords = {"data": rank // model, "model": rank % model}
+    else:
+        group = worker_group if model > 1 else dist.group.WORLD
+        names_d = ("pod", "data")
+        coords = {"pod": rank // (data * model),
+                  "data": rank // model % data, "model": rank % model}
+    shapes, axes = param_shapes(cfg), param_axes(cfg)
+    data_axis = sharding.DataAxis(names=names_d, size=(pods or 1) * data,
+                                  index=rank // model, group=group)
+    return sharding.fsdp_layout([shapes[n][0] for n in names],
+                                [axes[n] for n in names], names, overrides,
+                                mesh, coords, data_axis, model_axis)
+
+
 def step_kind(model_workers: int) -> str:
     """The compressed step at ``model_workers``: ``whole`` at one, past it
     ``split`` (every arch)."""
@@ -387,13 +417,19 @@ def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
     data_group, pod_group, _ = mesh_groups(mesh)
     fsdp = mode == "fsdp"
     # the model axis: this worker's shard of every leaf (one model worker
-    # without a mesh, and in fsdp mode)
+    # without a mesh)
     axes = mesh or (None, world, 1)
     model_group, m_index, ranks, worker_group = model_groups(axes)
     names = leaf_order(param_shapes(cfg))
     ma = sharding.ModelAxis(
         size=axes[2], index=m_index, group=model_group, ranks=ranks,
         specs=leaf_specs(cfg, names, overrides, axes))
+    # the fsdp mode past one worker: this worker's blocks under FSDP_RULES
+    # (at one worker every leaf whole, the step without a layout)
+    layout = (fsdp_layout(cfg, names, overrides, axes, data_group,
+                          worker_group, ma) if fsdp and world > 1 else None)
+    if layout is not None:
+        ma = layout.model
     kind = step_kind(ma.size)
     if rank == 0:
         print(f"arch={cfg.name} layers={cfg.num_layers} "
@@ -411,23 +447,28 @@ def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
     if kind == "split":     # this worker's shards only, drawn leaf by leaf
         tp = tensor_parallel.plan_split(cfg, names, ma)
         ma = tp.axis
-    model = Transformer(cfg, init_model(cfg, init_gen, device,
-                                        None if tp is None else tp.keep),
-                        tp=tp)
+        if layout is not None:
+            layout = dataclasses.replace(layout, model=ma)
+    keep = (layout.keep if layout is not None
+            else None if tp is None else tp.keep)
+    model = Transformer(cfg, init_model(cfg, init_gen, device, keep), tp=tp)
     n_params = sum(math.prod(shape) for shape, _ in
                    param_shapes(cfg).values())
     param_bytes = sum(p.numel() * p.element_size() for p in model.leaves())
     if rank == 0:
         print(f"params: {n_params}"
-              + (f" (this worker's shards: {param_bytes} B)" if tp else ""))
+              + (f" (this worker's shards: {param_bytes} B)"
+                 if tp or layout else ""))
     opt = adam(args.lr) if args.optimizer == "adam" else sgd(args.lr)
     opt_state = opt.init(step_lib.worker_leaves(model, ma))
     hier = comp.resparsify_pods and pod_group is not None
     if fsdp:
-        # the residual of the averaged gradient: params-shaped, one a run
+        # the residual of the averaged gradient: params-shaped (this
+        # worker's blocks of it past one worker), one a run
         ef_state = (init_feedback(model.leaves())
                     if comp.error_feedback and comp.name != "none" else None)
-        train_step = step_lib.make_fsdp_train_step(model, comp, opt)
+        train_step = step_lib.make_fsdp_train_step(model, comp, opt,
+                                                   layout=layout)
     else:
         ef_state = (init_feedback(step_lib.worker_leaves(model, ma),
                                   pod=hier)
@@ -480,7 +521,8 @@ def _train(args, cfg, comp, device, mesh, mode: str, overrides: dict
                   + f"({step_seconds[-1]:.3f} s)", flush=True)
     if args.checkpoint:
         checkpoint.save(args.checkpoint, model, opt_state, ef_state,
-                        ctl_state, mesh=mesh, mode=mode, model_axis=ma,
+                        ctl_state, mesh=mesh, mode=mode,
+                        model_axis=layout if layout is not None else ma,
                         extra={"arch": args.arch, "mode": mode,
                                "steps": args.steps,
                                "error_feedback": ef_state is not None,

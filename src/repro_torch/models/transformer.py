@@ -375,6 +375,17 @@ def _shared_axes(name: str) -> tuple:
     return layers.GATED_MLP_AXES[leaf]
 
 
+NORMS = ("ln", "ln1", "ln2", "post_ln1", "post_ln2", "final_ln",
+         "enc_final_ln")
+
+
+def norm_leaves(cfg: ModelConfig) -> set[str]:
+    """The leaves ``_norm`` reads (a norm's scale and bias): ``rmsnorm``
+    and ``layernorm`` widen them to float32 before any use."""
+    return {n for n in param_shapes(cfg)
+            if "/" in n and n.split("/")[-2] in NORMS}
+
+
 def param_axes(cfg: ModelConfig) -> dict[str, tuple]:
     """Path -> logical axes for every parameter (``param_shapes``' paths):
     the axes of the JAX package's ``split_params``, ``"layers"`` leading
@@ -549,7 +560,7 @@ def _residual(cfg: ModelConfig, p: dict, x, delta, post: str):
 
 def _sub(p: dict, prefix: str) -> dict:
     n = len(prefix)
-    return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
+    return {k[n:]: p[k] for k in p if k.startswith(prefix)}
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
@@ -683,7 +694,13 @@ def _layers(params: dict, prefix: str) -> dict:
     """The stacked leaves under ``prefix``, each as its layers' slices.
     One unbind per stacked leaf: its backward stacks the layer gradients
     once, where indexing layer by layer would add a zero-filled copy of
-    the whole leaf per layer into its gradient."""
+    the whole leaf per layer into its gradient. Parameters with a
+    ``layers`` method (``dist.fsdp.Gathered``) give their own, each layer
+    gathered when taken."""
+    n = len(prefix)
+    if hasattr(params, "layers"):
+        return {k[n:]: params.layers(k) for k in params
+                if k.startswith(prefix)}
     return {k: v.unbind(0) for k, v in _sub(params, prefix).items()}
 
 

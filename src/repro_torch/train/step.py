@@ -49,7 +49,10 @@ in place.
 
 ``make_fsdp_train_step`` is the JAX package's fsdp mode: the gradient
 averaged over every worker, then Q applied once to the average (Algorithm
-1's step 7), with error feedback on a params-shaped residual.
+1's step 7), with error feedback on a params-shaped residual; with an
+``FsdpLayout`` each worker holds its blocks of the parameters and states
+under ``FSDP_RULES``, over the data axis and, past one model worker, the
+model axis (``dist.fsdp``, ``core.api.compress_tree_sharded``).
 
 The step's step-size options are the JAX step's: ``var_adaptive_lr``
 divides the optimizer's step size by ``max(var, 1)`` (the paper's eta ~
@@ -66,8 +69,11 @@ import torch.distributed as dist
 
 from repro_torch.comm.sync import (SyncStats, _div_workers,
                                    _worker_order_mean, sync_tree)
-from repro_torch.core.api import CompressionConfig, compress_tree
-from repro_torch.dist.sharding import WHOLE, ModelAxis, sum_in_order
+from repro_torch.core.api import (CompressionConfig, compress_tree,
+                                  compress_tree_sharded)
+from repro_torch.dist import fsdp
+from repro_torch.dist.sharding import (WHOLE, FsdpLayout, ModelAxis,
+                                       sum_in_order)
 from repro_torch.models.transformer import (ModelConfig, forward_decode,
                                             forward_prefill, forward_train)
 from repro_torch.optim.optimizers import (ControlState, FeedbackState,
@@ -347,9 +353,28 @@ def make_compressed_train_step(model, comp: CompressionConfig,
 
 
 def make_fsdp_train_step(model, comp: CompressionConfig | None,
-                         opt: Optimizer) -> Callable:
-    """The JAX package's fsdp step for ``model`` on every worker of the
-    default process group: each worker computes
+                         opt: Optimizer, layout: FsdpLayout | None = None,
+                         uniforms: Callable | None = None) -> Callable:
+    """The JAX package's fsdp step for ``model``.
+
+    With a ``layout`` (a ``dist.sharding.FsdpLayout``: the launcher's past
+    one worker) ``model`` holds this worker's blocks of every leaf under
+    ``FSDP_RULES`` (a split model past one model worker, ``model.tp``
+    with ``layout.model``), and so do the optimizer's state and the
+    residual: the forward gathers each leaf over the data workers just
+    before use, the backward scatters its gradient back averaged over them
+    (``dist.fsdp.shard_grads``), and Q is applied once to the averaged
+    tree, each row's lambda formed over its shards
+    (``core.api.compress_tree_sharded``) and every shard of a block drawing
+    the same uniforms, from a stream keyed by ``generator.initial_seed()``,
+    the optimizer's step count and the shard's place
+    (``dist.fsdp.KeyedUniforms``; ``uniforms(step)`` gives the draw
+    instead, for tests: a callable ``(leaf, row, block, n) -> [n]``). The
+    MoE load-balance term spans ``layout.data``'s workers. Metrics as
+    below, the same on every worker.
+
+    Without a layout, on every worker of the default process group
+    (every leaf whole on each): each worker computes
     the gradient of its share of the global batch, the gradients are
     averaged over the workers in worker order (the dense exchange's
     ``_worker_order_mean``, in place, leaf by leaf; none at one worker),
@@ -372,9 +397,9 @@ def make_fsdp_train_step(model, comp: CompressionConfig | None,
     one per run, the same on every worker). Metrics: ``loss`` (float64,
     the workers' mean) and, when compressing, ``bits``, ``density`` and
     ``var_ratio`` of the averaged tree. The parameters are updated in place
-    and stay replicated: sharding them over the workers (the JAX
-    package's ``dist/sharding.py`` under GSPMD) is ROADMAP.md queue A item
-    10."""
+    and stay replicated."""
+    if layout is not None:
+        return _sharded_fsdp_step(model, comp, opt, layout, uniforms)
     compress = comp is not None and comp.name != "none"
     ef = compress and comp.error_feedback
     grp = dist.group.WORLD
@@ -399,6 +424,48 @@ def make_fsdp_train_step(model, comp: CompressionConfig | None,
                            var_ratio=stats.var_ratio)
             if ef:
                 new_fb = FeedbackState(residual=res)
+        _, opt_state = opt.update(grads, opt_state, params)
+        return opt_state, new_fb, metrics
+
+    if ef:
+        def step(opt_state, ef_state: FeedbackState, batch, generator):
+            return _step(opt_state, ef_state, batch, generator)
+    else:
+        def step(opt_state, batch, generator):
+            opt_state, _, metrics = _step(opt_state, None, batch, generator)
+            return opt_state, metrics
+    return step
+
+
+def _sharded_fsdp_step(model, comp, opt: Optimizer, layout: FsdpLayout,
+                       uniforms: Callable | None) -> Callable:
+    """``make_fsdp_train_step`` with a layout."""
+    compress = comp is not None and comp.name != "none"
+    ef = compress and comp.error_feedback
+    loss_fn = make_loss_fn(model.cfg, balance_group=layout.data.group,
+                           tp=model.tp)
+    params = model.leaves()
+    stacked = model.stacked
+    calls = [0]          # the step count where the optimizer keeps none
+
+    def _step(opt_state, ef_state, batch, generator):
+        loss, grads = fsdp.shard_grads(model, layout, loss_fn, batch)
+        metrics = {"loss": _mean_over_workers([loss.detach()],
+                                              layout.data.group)[0]}
+        new_fb = None
+        if compress:
+            t = opt_state.get("step", calls[0])
+            draw = (uniforms(t) if uniforms is not None else
+                    fsdp.KeyedUniforms(generator.initial_seed(), t,
+                                       grads[0].device))
+            grads, res, stats = compress_tree_sharded(
+                comp, grads, layout, stacked,
+                ef_state.residual if ef else None, draw)
+            metrics.update(bits=stats.bits, density=stats.density,
+                           var_ratio=stats.var_ratio)
+            if ef:
+                new_fb = FeedbackState(residual=res)
+        calls[0] += 1
         _, opt_state = opt.update(grads, opt_state, params)
         return opt_state, new_fb, metrics
 

@@ -37,7 +37,9 @@
   whole leaf goes dense, and, where the norms are compressed, its restore
   handing both model workers model index 0's state of a whole leaf; at ``--mesh
   2x1`` the step bit-equal to the step without a mesh; the fsdp mode at a
-  model axis and ``impl="seq_parallel"`` refused, naming item 10d.
+  model axis running (``--mesh 1x2``, the two ranks; held to JAX in
+  ``tests/test_torch_fsdp_mesh.py``) and ``impl="seq_parallel"``
+  refused, naming item 10d.
 
 Tolerances: parameters and residuals within atol 1e-6 of JAX (the two
 frameworks' float32 gradients differ in the last digits; JAX's GSPMD and
@@ -469,6 +471,8 @@ def eight_ranks(rank: int, path: str) -> dict:
 def two_ranks(rank: int, path: str, tmp: str) -> dict:
     """The two-rank cases: the step at ``--mesh 2x1`` against the step
     without a mesh, and the ``--mesh 1x2`` checkpoint and its resume."""
+    import contextlib
+    import io
     from repro_torch.checkpoint import checkpoint as tckpt
     from repro_torch.core.api import CompressionConfig
     from repro_torch.optim import optimizers as topt
@@ -546,6 +550,11 @@ def two_ranks(rank: int, path: str, tmp: str) -> dict:
             runs["whole_restored"] = held(model, state, fb, ctl)
             runs["whole_specs"] = list(ma.specs)
     res.update(runs)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res["fsdp_1x2"] = tlaunch.main(
+            ["--arch", "gemma-2b", "--smoke", "--steps", "1", "--device",
+             "cpu", "--mode", "fsdp", "--mesh", "1x2", "--error-feedback"])
     return res
 
 
@@ -972,11 +981,22 @@ def test_checkpoint_at_mesh_1x2_keeps_model_index_0s_whole_leaves(results):
                                               err_msg=f"{field} {i} {rank}")
 
 
-def test_fsdp_at_a_model_axis_and_seq_parallel_are_refused():
-    base = ["--arch", "gemma-2b", "--smoke", "--steps", "1", "--device",
-            "cpu"]
-    with pytest.raises(NotImplementedError, match="item 10d"):
-        tlaunch.main(base + ["--mode", "fsdp", "--mesh", "1x2"])
+def test_fsdp_runs_at_mesh_1x2(results):
+    """The fsdp mode at a model axis (``--mode fsdp --mesh 1x2``) runs on
+    the two ranks: the split step on each rank's blocks, the metrics equal
+    on both, each rank holding under the whole model's parameter bytes."""
+    ranks = results[1]
+    outs = [r["fsdp_1x2"] for r in ranks]
+    whole = sum(int(np.prod(s)) for s, _ in param_shapes(
+        tregistry.get("gemma-2b").smoke).values()) * 4
+    for o in outs:
+        assert o["mode"] == "fsdp" and o["step"] == "split"
+        assert o["metrics"] == outs[0]["metrics"]
+        assert all(np.isfinite(m["loss"]) for m in o["metrics"])
+        assert whole / 2 <= o["param_bytes"] < whole
+
+
+def test_seq_parallel_is_refused():
     from repro_torch.models.attention import AttnConfig
     with pytest.raises(NotImplementedError, match="item 10d"):
         AttnConfig(d_model=8, num_heads=2, num_kv_heads=1, head_dim=4,
